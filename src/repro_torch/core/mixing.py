@@ -1,0 +1,85 @@
+"""The distribution 𝒲 of mixing matrices W^t (repro/core/mixing.py).
+
+With ``p_fail == 0`` W^t is the fixed matrix of the graph's weight scheme
+(numpy, identical to the reference).  With link failures, each edge is
+down with probability ``p_fail`` and W^t is the Metropolis matrix of the
+surviving subgraph, built from an (n, n) block of uniforms exactly as the
+reference builds it from ``jax.random.uniform`` — so a test that feeds the
+reference's uniforms gets the reference's W^t.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core import topology as topo
+
+__all__ = ["MixingDistribution", "identity_mixing",
+           "metropolis_from_uniforms"]
+
+
+@dataclasses.dataclass(frozen=True)
+class MixingDistribution:
+    """𝒲: the base graph, the link-failure rate and the fixed-W scheme."""
+
+    graph: topo.Graph
+    p_fail: float = 0.0
+    scheme: topo.WeightScheme = "laplacian"
+
+    def __post_init__(self):
+        if not 0.0 <= self.p_fail < 1.0:
+            raise ValueError(f"p_fail must be in [0,1), got {self.p_fail}")
+
+    @property
+    def n(self) -> int:
+        return self.graph.n
+
+    @property
+    def fixed_w(self) -> np.ndarray:
+        """The deterministic W used when p_fail == 0 (f64, numpy)."""
+        return topo.build_weights(self.graph, self.scheme)
+
+    def make_sampler(self, device):
+        """sample(draws, t) -> W^t, (n, n) f32 on ``device``.
+
+        The fixed W is moved to the device once; with link failures every
+        call draws the step's uniforms from ``draws``.
+        """
+        if self.p_fail == 0.0:
+            w = torch.as_tensor(self.fixed_w, dtype=torch.float32,
+                                device=device)
+            return lambda draws, t: w
+        adj = torch.as_tensor(self.graph.adjacency, device=device)
+        p_fail = self.p_fail
+        return lambda draws, t: metropolis_from_uniforms(
+            draws.link_uniforms(t, self.n), adj, p_fail)
+
+
+def metropolis_from_uniforms(u: torch.Tensor, adjacency: torch.Tensor,
+                             p_fail: float) -> torch.Tensor:
+    """Metropolis weights on the subgraph whose links survive ``u``.
+
+    The upper triangle of ``u`` is mirrored so failures are symmetric; a
+    link is live when ``u >= p_fail``.  Rows sum to 1 by the diagonal.
+    """
+    n = u.shape[0]
+    u = torch.triu(u, diagonal=1)
+    u = u + u.T
+    live = adjacency & (u >= p_fail)
+    deg = live.sum(dim=1)
+    dmax = torch.maximum(deg[:, None], deg[None, :])
+    w = torch.where(live, 1.0 / (1.0 + dmax.to(u.dtype)),
+                    torch.zeros((), dtype=u.dtype, device=u.device))
+    idx = torch.arange(n, device=u.device)
+    w[idx, idx] = 0.0
+    w[idx, idx] = 1.0 - w.sum(dim=1)
+    return w
+
+
+def identity_mixing(n: int) -> MixingDistribution:
+    """Degenerate 𝒲 = {I}: no inter-agent communication ⇒ FedAvg."""
+    empty = topo.Graph(np.zeros((n, n), dtype=bool), name=f"isolated(n={n})")
+    return MixingDistribution(graph=empty, p_fail=0.0, scheme="metropolis")

@@ -1,0 +1,45 @@
+"""Server aggregation with partial participation (Algorithm 1, lines 7–10).
+
+Every H-th step the server samples K agents uniformly with replacement,
+averages them with weights c/K (c the count of each agent), and
+broadcasts the average back to every agent (repro/core/server.py).
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["sample_participants", "participant_weights",
+           "aggregate_and_broadcast_flat", "server_round_flat"]
+
+
+def sample_participants(draws, t: int, n: int, k: int) -> torch.Tensor:
+    """Draw S_t: K indices uniform over [n] with replacement → counts (n,)."""
+    idx = draws.participants(t, n, k)
+    return torch.bincount(idx, minlength=n).to(torch.int32)
+
+
+def participant_weights(counts: torch.Tensor, k: int) -> torch.Tensor:
+    """Aggregation weights c/K in f32 (sum to 1)."""
+    return counts.to(torch.float32) / float(k)
+
+
+def aggregate_and_broadcast_flat(weights: torch.Tensor,
+                                 flat: torch.Tensor) -> torch.Tensor:
+    """z = Σ_i weights_i x_i, written into every row of ``flat``.
+
+    In place: the caller hands over a buffer it owns (the engine passes
+    the freshly mixed x^{t+1}), so the broadcast costs no second (n, D)
+    allocation.  The weights are cast to the buffer's dtype first, as the
+    reference casts them before its contraction.
+    """
+    z = torch.matmul(weights.to(flat.dtype), flat)
+    flat.copy_(z.unsqueeze(0).expand_as(flat))
+    return flat
+
+
+def server_round_flat(draws, t: int, flat: torch.Tensor,
+                      k: int) -> torch.Tensor:
+    """Flat-buffer server round (lines 8–10) on the (n, D) buffer."""
+    counts = sample_participants(draws, t, flat.shape[0], k)
+    return aggregate_and_broadcast_flat(participant_weights(counts, k), flat)

@@ -1,0 +1,248 @@
+"""Federated LM training driver of the port (repro/launch/train.py).
+
+Runs Algorithm 1 on the tiny dense LM over synthetic heterogeneous
+per-agent token streams, on the flat (n_agents, D) buffer, on one device.
+The gossip mix and the fused update+mix run through the hand-written CUDA
+kernels (``--gossip-impl pallas|sparse``, ``--fuse-update-mix``).  Runs on
+``cuda`` unless ``--device cpu`` is given, and fails without a card.
+
+Example:
+  PYTHONPATH=src python -m repro_torch.launch.train --gossip-impl pallas \\
+      --fuse-update-mix --steps 10
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import optim
+from repro_torch.configs.base import ArchConfig, FedConfig
+from repro_torch.core import flat as flat_lib
+from repro_torch.core import topology as topo
+from repro_torch.core.draws import Draws
+from repro_torch.core.feddec import FedAvgConfig, FedDecConfig
+from repro_torch.core.mixing import MixingDistribution
+from repro_torch.data.federated_lm import make_federated_lm
+from repro_torch.models import build_model
+
+__all__ = ["tiny_lm_config", "build_fed_setup", "resolve_device",
+           "train_loop", "main"]
+
+
+def tiny_lm_config(d_model: int = 768, layers: int = 12,
+                   vocab: int = 32_768, name: str = "tiny-lm") -> ArchConfig:
+    """The ~157M-parameter dense LM of the end-to-end example."""
+    return ArchConfig(
+        name=name, num_layers=layers, d_model=d_model,
+        num_heads=d_model // 64, num_kv_heads=max(1, d_model // 128),
+        d_ff=4 * d_model, vocab_size=vocab, param_dtype=torch.float32,
+        compute_dtype=torch.float32)
+
+
+def build_fed_setup(fed: FedConfig) -> tuple[FedDecConfig, int]:
+    """(FedDecConfig, n_agents): the graph family, Metropolis mixing with
+    link failures, and K capped at n (repro/launch/steps.py)."""
+    n = fed.n_agents
+    if fed.graph.startswith("ring"):
+        k = int(fed.graph[4:] or 2)
+        graph = topo.ring_graph(n, k=min(k, (n - 1) // 2 or 1))
+    elif fed.graph == "full":
+        graph = topo.fully_connected_graph(n)
+    elif fed.graph.startswith("geo"):
+        graph = topo.geographic_graph(n, float(fed.graph[3:]), seed=0)
+    elif fed.graph.startswith("er"):
+        graph = topo.erdos_renyi_graph(n, float(fed.graph[2:]), seed=0)
+    else:
+        raise ValueError(f"unknown graph {fed.graph!r}")
+    mixing = MixingDistribution(graph, p_fail=fed.p_fail,
+                                scheme="metropolis")
+    fcfg = FedDecConfig(mixing=mixing, h=fed.h, k=min(fed.k, n),
+                        gossip_impl=fed.gossip_impl)
+    return fcfg, n
+
+
+def resolve_device(device) -> torch.device:
+    """The device to run on; a CUDA request without a card fails."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; the port runs on "
+                           "the GPU unless asked for the CPU (--device cpu "
+                           "/ device='cpu')")
+    return device
+
+
+def train_loop(cfg: ArchConfig, fed: FedConfig, *, steps: int,
+               per_agent_batch: int, seq_len: int, lr: float = 3e-3,
+               optimizer: str = "sgd", fedavg_control: bool = False,
+               fused: bool = True, fuse_update_mix: bool = False,
+               log_every: int = 10, seed: int = 0, data_alpha: float = 0.3,
+               device="cuda", draws=None, params0: dict | None = None,
+               timing: dict | None = None):
+    """Run FedDec training; returns (final FlatFedState, loss_history).
+
+    ``fused=True`` runs one H-step round per call (a Python loop over the
+    round's steps); ``fused=False`` calls the one-step executor per
+    iteration.  Both run the same step body, so their trajectories agree.
+    ``draws`` (default ``Draws(seed, device)``) makes every random draw;
+    ``params0`` replaces the random initial weights.  A ``timing`` dict
+    receives ``setup_s`` and ``loop_s``, host-clock seconds; the loop ends
+    by reading the losses back, which waits for the device.
+    """
+    t_setup = time.perf_counter()
+    if optimizer not in ("sgd", "momentum"):
+        raise ValueError(f"optimizer {optimizer!r} is not ported; choose "
+                         f"sgd or momentum")
+    device = resolve_device(device)
+    model = build_model(cfg)
+    fcfg, n_agents = build_fed_setup(fed)
+    if fedavg_control:
+        fcfg = FedAvgConfig(n_agents, h=fed.h, k=fed.k)
+    opt = {"sgd": None, "momentum": optim.momentum_sgd()}[optimizer]
+    eta = torch.full((1,), lr, dtype=torch.float32, device=device)
+    lr_fn = lambda t: eta  # noqa: E731  (constant; stays on the device)
+    if draws is None:
+        draws = Draws(seed, device)
+
+    data = make_federated_lm(cfg.vocab_size, n_agents, seq_len, draws,
+                             alpha=data_alpha)
+    if params0 is None:
+        params0 = model.init(draws)
+    spec = flat_lib.make_flat_spec(params0)
+    state = flat_lib.init_flat_state(spec, params0, n_agents, optimizer=opt)
+    kwargs = dict(device=device, optimizer=opt,
+                  fuse_update_mix=fuse_update_mix)
+    if fused:
+        round_fn = flat_lib.make_flat_feddec_round(fcfg, spec, model.loss,
+                                                   lr_fn, **kwargs)
+    else:
+        step = flat_lib.make_flat_feddec_step(fcfg, spec, model.loss, lr_fn,
+                                              **kwargs)
+
+    print(f"[train] {cfg.name}: {model.param_count(params0):,} params × "
+          f"{n_agents} agents, graph={fed.graph}, H={fed.h}, K={fcfg.k}, "
+          f"opt={optimizer}, executor={'fused' if fused else 'per-step'}, "
+          f"layout=flat, gossip={fcfg.gossip_impl}"
+          + (", fused-update-mix" if fuse_update_mix else "")
+          + f", device={device}")
+
+    positions = torch.arange(seq_len, device=device)[None, None].expand(
+        n_agents, per_agent_batch, seq_len)
+    losses: list[float] = []
+    t_start = time.time()
+    t_loop = time.perf_counter()
+
+    def log(prev: int, done: int) -> None:
+        if log_every and done // log_every > prev // log_every:
+            rate = done / (time.time() - t_start)
+            print(f"[train] step {done:5d}  loss {losses[-1]:.4f}  "
+                  f"({rate:.2f} steps/s)")
+
+    if fused:
+        done = 0
+        while done < steps:
+            chunk = min(fed.h, steps - done)
+            tokens = draws.tokens(data, per_agent_batch, chunk)
+            batches = {"tokens": tokens,
+                       "positions": positions.expand(
+                           (chunk,) + positions.shape)}
+            state, metrics = round_fn(state, batches, draws)
+            losses.extend(metrics["loss"].tolist())
+            done += chunk
+            log(done - chunk, done)
+    else:
+        for i in range(steps):
+            tokens = draws.tokens(data, per_agent_batch, None)
+            state, metrics = step(state, {"tokens": tokens,
+                                          "positions": positions}, draws)
+            losses.append(float(metrics["loss"]))
+            log(i, i + 1)
+    if timing is not None:
+        timing["setup_s"] = t_loop - t_setup
+        timing["loop_s"] = time.perf_counter() - t_loop
+    return state, losses
+
+
+_NOT_PORTED = ("--mesh-agents", "--mesh-model", "--sweep-runs", "--n-total",
+               "--ckpt-dir")
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--arch", default="tiny",
+                   help="only 'tiny' (the ~157M dense LM) is ported")
+    p.add_argument("--steps", type=int, default=100)
+    p.add_argument("--agents", type=int, default=8)
+    p.add_argument("--batch", type=int, default=2,
+                   help="per-agent batch size")
+    p.add_argument("--seq", type=int, default=128)
+    p.add_argument("--graph", default="ring2")
+    p.add_argument("--h", type=int, default=10)
+    p.add_argument("--k", type=int, default=2)
+    p.add_argument("--p-fail", type=float, default=0.0)
+    p.add_argument("--lr", type=float, default=3e-3)
+    p.add_argument("--optimizer", default="sgd",
+                   choices=["sgd", "momentum", "adamw"])
+    p.add_argument("--fedavg", action="store_true",
+                   help="run the FedAvg control instead of FedDec")
+    ex = p.add_mutually_exclusive_group()
+    ex.add_argument("--fused", dest="fused", action="store_true",
+                    default=True, help="one call per H-step round (default)")
+    ex.add_argument("--per-step", dest="fused", action="store_false",
+                    help="one call per iteration")
+    p.add_argument("--state-layout", default="flat", choices=["tree", "flat"],
+                   help="only the flat (n, D) buffer layout is ported")
+    p.add_argument("--gossip-impl", default="dense",
+                   choices=["dense", "pallas", "sparse", "none"],
+                   help="how the gossip mix executes (Algorithm 1 line 6): "
+                        "'pallas' = CUDA kernel #1, 'sparse' = ELL kernel "
+                        "#2 on CUDA")
+    p.add_argument("--fuse-update-mix", action="store_true",
+                   help="fuse the optimizer update with the gossip mix "
+                        "(CUDA kernels #3/#4); sgd/momentum")
+    p.add_argument("--gossip-compress", default="none", metavar="SPEC")
+    p.add_argument("--delta", default="none", metavar="SPEC")
+    for flag in _NOT_PORTED:
+        p.add_argument(flag, default=None)
+    p.add_argument("--vocab", type=int, default=32_768)
+    p.add_argument("--d-model", type=int, default=768)
+    p.add_argument("--layers", type=int, default=12)
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu")
+    args = p.parse_args(argv)
+
+    rejected = [flag for flag in _NOT_PORTED
+                if getattr(args, flag[2:].replace("-", "_")) is not None]
+    rejected += [f"--{name.replace('_', '-')} {getattr(args, name)}"
+                 for name in ("gossip_compress", "delta")
+                 if getattr(args, name) != "none"]
+    if args.state_layout == "tree":
+        rejected.append("--state-layout tree")
+    if args.optimizer == "adamw":
+        rejected.append("--optimizer adamw")
+    if args.arch != "tiny":
+        rejected.append(f"--arch {args.arch}")
+    if rejected:
+        p.error(f"not ported to repro_torch yet: {', '.join(rejected)} "
+                f"(see ROADMAP.md; the JAX package repro has them)")
+
+    cfg = tiny_lm_config(args.d_model, args.layers, vocab=args.vocab)
+    fed = FedConfig(n_agents=args.agents, h=args.h, k=args.k,
+                    graph=args.graph, p_fail=args.p_fail,
+                    gossip_impl=args.gossip_impl)
+    _, losses = train_loop(
+        cfg, fed, steps=args.steps, per_agent_batch=args.batch,
+        seq_len=args.seq, lr=args.lr, optimizer=args.optimizer,
+        fedavg_control=args.fedavg, fused=args.fused,
+        fuse_update_mix=args.fuse_update_mix, device=args.device)
+    first = np.mean(losses[:5])
+    last = np.mean(losses[-5:])
+    print(f"[train] done: loss {first:.4f} → {last:.4f} "
+          f"({'improved' if last < first else 'NO IMPROVEMENT'})")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,5 @@
+"""The dense language model of the port."""
+
+from repro_torch.models.model import Model, build_model
+
+__all__ = ["Model", "build_model"]

@@ -1,0 +1,97 @@
+"""Building blocks of the port's language model (repro/models/layers.py).
+
+Parameters are nested dicts of tensors in the reference's layout: dense
+weights (in, out); q/k/v projections (d, heads, head_dim); the output
+projection (heads, head_dim, d).  Normalisation math runs in f32.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+__all__ = ["init_rms_norm", "rms_norm", "init_dense", "dense", "init_mlp",
+           "mlp", "init_embedding", "embed", "unembed", "rope_frequencies",
+           "apply_rope"]
+
+
+def init_rms_norm(d: int, dtype, device) -> dict:
+    return {"scale": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def rms_norm(params: dict, x: torch.Tensor, eps: float = 1e-6):
+    """x / rms(x) · (1 + scale), in f32 (the reference's 1+scale form)."""
+    dtype = x.dtype
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * (1.0 + params["scale"].float())).to(dtype)
+
+
+def init_dense(draws, shape: tuple, dtype, fan_in: int | None = None):
+    """Truncated normal in [-2, 2] over sqrt(fan_in) (first dim default)."""
+    fan = fan_in if fan_in is not None else shape[0]
+    w = draws.truncated_normal(shape) / math.sqrt(fan)
+    return {"w": w.to(dtype)}
+
+
+def dense(params: dict, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
+    """x @ w contracting x's last dim with w's first (w may be (d, H, hd))."""
+    w = params["w"]
+    if compute_dtype is not None:
+        w = w.to(compute_dtype)
+        x = x.to(compute_dtype)
+    return torch.tensordot(x, w, dims=1)
+
+
+def init_mlp(draws, d: int, d_ff: int, dtype) -> dict:
+    return {"wi": init_dense(draws, (d, d_ff), dtype),
+            "wg": init_dense(draws, (d, d_ff), dtype),
+            "wo": init_dense(draws, (d_ff, d), dtype)}
+
+
+def mlp(params: dict, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
+    """SwiGLU: (silu(x wg) * x wi) wo."""
+    h = dense(params["wi"], x, compute_dtype=compute_dtype)
+    h = F.silu(dense(params["wg"], x, compute_dtype=compute_dtype)) * h
+    return dense(params["wo"], h, compute_dtype=compute_dtype)
+
+
+def init_embedding(draws, vocab: int, d: int, dtype) -> dict:
+    return {"table": (draws.normal((vocab, d)) * 0.02).to(dtype)}
+
+
+def embed(params: dict, tokens: torch.Tensor, compute_dtype=None):
+    tbl = params["table"]
+    if compute_dtype is not None:
+        tbl = tbl.to(compute_dtype)
+    return F.embedding(tokens, tbl)
+
+
+def unembed(params: dict, x: torch.Tensor, compute_dtype=None):
+    """Logits via the untied output head; params = {'w': (d, vocab)}."""
+    return dense(params, x, compute_dtype=compute_dtype)
+
+
+def rope_frequencies(head_dim: int, theta: float = 10_000.0,
+                     device=None) -> torch.Tensor:
+    """Inverse frequencies for the even half of the head dim (f32)."""
+    exponents = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                             device=device) / head_dim
+    return 1.0 / torch.pow(theta, exponents)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10_000.0) -> torch.Tensor:
+    """RoPE on (..., S, H, hd) with (..., S) positions: the head dim is
+    split in halves (x1, x2) rotated by position · inv_freq, in f32."""
+    hd = x.shape[-1]
+    inv = rope_frequencies(hd, theta, device=x.device)
+    angles = positions.float()[..., None] * inv          # (..., S, hd/2)
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)

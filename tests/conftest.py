@@ -9,6 +9,11 @@ normal run.
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; skips where there is none")
+
+
 def pytest_addoption(parser):
     parser.addoption(
         "--update-golden", action="store_true", default=False,

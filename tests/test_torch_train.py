@@ -1,0 +1,161 @@
+"""The whole slice: the port's train_loop against the JAX package's.
+
+Both trainers run the small LM (d_model 64, 2 layers, vocab 256, seq 16)
+on 4 agents for 4 steps with H = 2, ``--gossip-impl pallas
+--fuse-update-mix``.  The port gets the reference's initial parameters
+(carried as numpy) and a replay of the reference's draws: the tokens
+rebuilt as repro/launch/train.py draws them, and the server's K draws
+from ``split(fold_in(step_key, t), 3)``.  Per-step losses agree to 1e-5
+relative.  The CLI's rejections and its device default are checked too.
+"""
+
+from __future__ import annotations
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.base import FedConfig as RefFedConfig
+from repro.data.federated_lm import make_federated_lm as ref_make_data
+from repro.launch import train as ref_train
+from repro.models import build_model as ref_build_model
+from repro_torch.configs.base import FedConfig
+from repro_torch.core import flat as flat_lib
+from repro_torch.core.draws import Draws
+from repro_torch.launch import train as port_train
+
+D_MODEL, LAYERS, VOCAB, SEQ, BATCH, N, H, K = 64, 2, 256, 16, 2, 4, 2, 2
+
+
+class ReplayTrainDraws(Draws):
+    """The reference trainer's draws (repro/launch/train.py:269-327,
+    repro/core/flat.py:441-442) through the port's Draws interface."""
+
+    def __init__(self, seed: int, data):
+        super().__init__(seed, "cpu")
+        self.data = data
+        self.key = jax.random.key(seed + 1)
+        self.step_key = jax.random.key(seed + 2)
+
+    def tokens(self, data, per_agent_batch, steps):
+        self.key, kd = jax.random.split(self.key)
+        if steps is None:
+            toks = self.data.sample(kd, per_agent_batch)
+        else:
+            toks = jax.vmap(lambda k: self.data.sample(k, per_agent_batch))(
+                jax.random.split(kd, steps))
+        return torch.from_numpy(np.asarray(toks).astype(np.int64))
+
+    def _keys(self, t):
+        return jax.random.split(jax.random.fold_in(self.step_key, t), 3)
+
+    def link_uniforms(self, t, n):
+        return torch.from_numpy(np.array(
+            jax.random.uniform(self._keys(t)[0], (n, n))))
+
+    def participants(self, t, n, k):
+        idx = jax.random.randint(self._keys(t)[2], (k,), 0, n)
+        return torch.from_numpy(np.array(idx).astype(np.int64))
+
+
+def test_train_loop_matches_reference_losses():
+    seed = 0
+    ref_cfg = ref_train.tiny_lm_config(D_MODEL, LAYERS, vocab=VOCAB)
+    _, ref_losses = ref_train.train_loop(
+        ref_cfg, RefFedConfig(n_agents=N, h=H, k=K, graph="ring2",
+                              gossip_impl="pallas"),
+        steps=4, per_agent_batch=BATCH, seq_len=SEQ, fused=True,
+        state_layout="flat", fuse_update_mix=True, log_every=0, seed=seed)
+
+    params0 = jax.jit(ref_build_model(ref_cfg).init)(jax.random.key(seed))
+    draws = ReplayTrainDraws(seed, ref_make_data(VOCAB, N, SEQ, alpha=0.3,
+                                                 seed=seed))
+    state, losses = port_train.train_loop(
+        port_train.tiny_lm_config(D_MODEL, LAYERS, vocab=VOCAB),
+        FedConfig(n_agents=N, h=H, k=K, graph="ring2",
+                  gossip_impl="pallas"),
+        steps=4, per_agent_batch=BATCH, seq_len=SEQ, fused=True,
+        fuse_update_mix=True, log_every=0, seed=seed, device="cpu",
+        draws=draws,
+        params0=flat_lib.params_from_numpy(jax.tree.map(np.asarray,
+                                                        params0)))
+    assert len(losses) == len(ref_losses) == 4
+    np.testing.assert_allclose(losses, ref_losses, rtol=1e-5)
+    assert state.step == 5 and torch.isfinite(state.flat).all()
+
+
+def _small_run(**kw):
+    return port_train.train_loop(
+        port_train.tiny_lm_config(64, 1, vocab=64),
+        FedConfig(n_agents=3, h=2, k=2, graph="ring2",
+                  gossip_impl=kw.pop("impl", "sparse")),
+        steps=4, per_agent_batch=1, seq_len=8, log_every=0, device="cpu",
+        **kw)
+
+
+class SplitDraws(Draws):
+    """Tokens from a second generator: a round's batches then come out the
+    same whether they are drawn per step or H at a time."""
+
+    def __init__(self, seed: int):
+        super().__init__(seed, "cpu")
+        self.data_draws = Draws(seed + 1, "cpu")
+
+    def tokens(self, data, per_agent_batch, steps):
+        return self.data_draws.tokens(data, per_agent_batch, steps)
+
+
+def test_per_step_and_fused_executors_agree():
+    kw = dict(optimizer="momentum", fuse_update_mix=True)
+    a, la = _small_run(fused=True, draws=SplitDraws(3), **kw)
+    b, lb = _small_run(fused=False, draws=SplitDraws(3), **kw)
+    assert la == lb
+    assert torch.equal(a.flat, b.flat)
+
+
+def test_gossip_impls_agree_on_the_port():
+    """dense (plain matmul) and pallas (kernel #1 / its plain version) mix
+    the same buffer: same draws, same trajectory within f32 noise."""
+    a, la = _small_run(impl="dense")
+    b, lb = _small_run(impl="pallas")
+    np.testing.assert_allclose(la, lb, rtol=1e-6)
+    torch.testing.assert_close(a.flat, b.flat, atol=1e-6, rtol=0)
+
+
+def test_cli_runs_on_cpu_and_prints_the_reference_lines(capsys):
+    port_train.main(["--device", "cpu", "--steps", "2", "--agents", "3",
+                     "--batch", "1", "--seq", "8", "--d-model", "64",
+                     "--layers", "1", "--vocab", "64", "--h", "2",
+                     "--gossip-impl", "pallas", "--fuse-update-mix"])
+    out = capsys.readouterr().out
+    assert "[train] tiny-lm: " in out and "gossip=pallas" in out
+    assert "fused-update-mix" in out and "[train] done: loss " in out
+
+
+@pytest.mark.parametrize("argv", [
+    ["--mesh-agents", "2"], ["--mesh-model", "2"], ["--sweep-runs", "2"],
+    ["--gossip-compress", "int8"], ["--delta", "full"], ["--n-total", "64"],
+    ["--state-layout", "tree"], ["--optimizer", "adamw"],
+    ["--ckpt-dir", "ckpt"], ["--arch", "qwen1.5-4b"]])
+def test_cli_rejects_what_is_not_ported(argv, capsys):
+    with pytest.raises(SystemExit) as err:
+        port_train.main(["--device", "cpu", *argv])
+    assert err.value.code == 2
+    assert "not ported to repro_torch yet" in capsys.readouterr().err
+
+
+def test_runs_on_cuda_by_default_and_fails_without_a_card():
+    if torch.cuda.is_available():
+        assert port_train.resolve_device("cuda").type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            port_train.resolve_device("cuda")
+    assert port_train.resolve_device("cpu").type == "cpu"
+
+
+def test_fedavg_control_is_the_run_without_gossip():
+    """--fedavg swaps in 𝒲 = {I}: the same trajectory as gossip 'none'."""
+    a, la = _small_run(fedavg_control=True, draws=Draws(4, "cpu"))
+    b, lb = _small_run(impl="none", draws=Draws(4, "cpu"))
+    assert la == lb and torch.equal(a.flat, b.flat)
