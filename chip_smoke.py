@@ -19,9 +19,12 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
      (b) sparse, (c) pallas --fuse-update-mix --optimizer momentum,
      (d) sparse --fuse-update-mix; each must keep its loss finite and
      launch its kernel once per step; then (a) again with dense gossip
-     from the same seed must end on the same flat buffer;
+     from the same seed must end on the same flat buffer.  Each path runs
+     one untimed warm-up round first, so its step time is that of warm
+     steps;
   5. profile: path (c) once more under torch.profiler, for the device
-     time per step by kernel group against the unprofiled step time.
+     time per step by kernel group against the unprofiled step time; the
+     set-up's device work is measured apart and taken out.
 
 It prints one JSON line with every kernel's launches, errors and times,
 the nvidia-smi line, and as the last line
@@ -249,7 +252,8 @@ def kernel_phase(torch) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def train_path(torch, impl: str, fuse: bool, optimizer: str):
+def train_path(torch, impl: str, fuse: bool, optimizer: str,
+               steps: int = STEPS):
     from repro_torch.configs.base import FedConfig
     from repro_torch.launch import train
     torch.cuda.reset_peak_memory_stats()
@@ -258,16 +262,25 @@ def train_path(torch, impl: str, fuse: bool, optimizer: str):
         train.tiny_lm_config(),
         FedConfig(n_agents=N_AGENTS, h=10, k=2, graph="ring2",
                   gossip_impl=impl),
-        steps=STEPS, per_agent_batch=2, seq_len=128, optimizer=optimizer,
+        steps=steps, per_agent_batch=2, seq_len=128, optimizer=optimizer,
         fuse_update_mix=fuse, seed=0, device=DEVICE, timing=timing)
     torch.cuda.synchronize()
     return state, losses, timing, torch.cuda.max_memory_allocated()
+
+
+def warm_up(torch, impl: str, fuse: bool, optimizer: str) -> None:
+    """One untimed round of the path, so that the timed run's steps do
+    not pay the allocator's growth, cuBLAS's first calls or the kernel's
+    first launch.  Its launches are not counted: the caller resets the
+    counters after it."""
+    train_path(torch, impl, fuse, optimizer)
 
 
 def dense_rerun(torch, final_a) -> dict:
     """Path (a) again with the plain dense mix: the same seed must end on
     the same flat buffer, within f32 noise."""
     from repro_torch.kernels import ops
+    warm_up(torch, "dense", False, "sgd")
     ops.reset_launch_counts()
     state, losses, timing, peak = train_path(torch, "dense", False, "sgd")
     check(sum(ops.launch_counts().values()) == 0,
@@ -290,6 +303,7 @@ def training_phase(torch) -> dict:
     from repro_torch.kernels import ops
     out = {}
     for name, (impl, fuse, opt, kernel) in PATHS.items():
+        warm_up(torch, impl, fuse, opt)
         ops.reset_launch_counts()
         state, losses, timing, peak = train_path(torch, impl, fuse, opt)
         counts = ops.launch_counts()
@@ -339,45 +353,74 @@ def _kernel_group(event: dict) -> str:
     return "other"
 
 
-def profile_phase(torch, step_ms: float) -> dict:
-    """Path (c) once more under torch.profiler (device activity only):
-    device time per step by kernel group and the top kernels.  The busy
-    share is device time over path (c)'s unprofiled step time, since the
-    profiler slows the host; the set-up's few init kernels are included.
-    Launches here do not count for the main path."""
+def _traced_ops(torch, steps: int) -> list:
+    """Device events (kernels, copies, sets) of one path-(c) run of
+    ``steps`` steps under torch.profiler (device activity only)."""
     from torch.profiler import ProfilerActivity, profile
     impl, fuse, opt, _ = PATHS["c"]
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        train_path(torch, impl, fuse, opt)
+        train_path(torch, impl, fuse, opt, steps=steps)
     trace = ROOT / "build" / "chip_smoke_trace.json"
     trace.parent.mkdir(exist_ok=True)
     prof.export_chrome_trace(str(trace))
     events = [e for e in json.loads(trace.read_text())["traceEvents"]
               if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     trace.unlink()
-    if not events:
-        log("[profile] the profiler traced no device time: not measured")
-        return {"traced": False}
+    return events
+
+
+def _tally(events: list) -> tuple[dict, dict]:
+    """(ms by kernel group, [ms, count] by kernel name)."""
     groups: dict = {}
     names: dict = {}
     for e in events:
-        ms = e["dur"] / 1e3 / STEPS
+        ms = e["dur"] / 1e3
         g = _kernel_group(e)
         groups[g] = groups.get(g, 0.0) + ms
         row = names.setdefault(e["name"][:100], [0.0, 0])
         row[0] += ms
         row[1] += 1
+    return groups, names
+
+
+def profile_phase(torch, step_ms: float) -> dict:
+    """Path (c) once more under torch.profiler: device time per step by
+    kernel group and the top kernels.  A run of 0 steps traces the
+    set-up alone (weights, data, the flat buffer); its device work is
+    taken out of the 10-step run's, so only the steps' work is counted.
+    The busy share is that device time over path (c)'s unprofiled warm
+    step time, since the profiler slows the host.  Launches here do not
+    count for the main path."""
+    setup = _traced_ops(torch, 0)
+    run = _traced_ops(torch, STEPS)
+    if not run:
+        log("[profile] the profiler traced no device time: not measured")
+        return {"traced": False}
+    setup_groups, setup_names = _tally(setup)
+    run_groups, run_names = _tally(run)
+    groups = {g: (ms - setup_groups.get(g, 0.0)) / STEPS
+              for g, ms in run_groups.items()}
+    names = {}
+    for name, (ms, count) in run_names.items():
+        base_ms, base_count = setup_names.get(name, (0.0, 0))
+        if count > base_count:
+            names[name] = ((ms - base_ms) / STEPS,
+                           (count - base_count) / STEPS)
+    ops_per_step = (len(run) - len(setup)) / STEPS
     device_ms = sum(groups.values())
     top = sorted(names.items(), key=lambda kv: -kv[1][0])[:10]
     out = {"traced": True, "path": "c", "steps": STEPS,
-           "launches_per_step": len(events) / STEPS,
+           "setup_ops": len(setup),
+           "setup_device_ms": sum(setup_groups.values()),
+           "launches_per_step": ops_per_step,
            "device_ms_per_step": device_ms, "step_ms_unprofiled": step_ms,
            "device_busy_share": device_ms / step_ms,
            "groups_ms_per_step": groups,
-           "top_ms_per_step": [[n, ms, c / STEPS] for n, (ms, c) in top]}
-    log(f"[profile] path (c): {len(events) / STEPS:.0f} device ops/step, "
-        f"device {device_ms:.1f} ms of a {step_ms:.1f} ms step "
-        f"({100 * device_ms / step_ms:.1f}% busy); by group (ms/step): "
+           "top_ms_per_step": [[n, ms, c] for n, (ms, c) in top]}
+    log(f"[profile] path (c), steps only (set-up: {len(setup)} device ops, "
+        f"{out['setup_device_ms']:.1f} ms, taken out): {ops_per_step:.0f} "
+        f"device ops/step, device {device_ms:.1f} ms of a {step_ms:.1f} ms "
+        f"step ({100 * device_ms / step_ms:.1f}% busy); by group (ms/step): "
         + ", ".join(f"{g} {ms:.2f}" for g, ms in
                     sorted(groups.items(), key=lambda kv: -kv[1])))
     return out

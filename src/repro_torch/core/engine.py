@@ -114,6 +114,7 @@ def build_step_body(ops: EngineOps):
         else:
             losses, x_half, new_opt = ops.local_update(state, batch, eta)
             x_next = ops.gossip(w, x_half)               # line 6
+            del x_half  # an (n, D) buffer: not held through the server
         z_next = ops.server(draws, t, x_next)            # lines 7–12
         return ops.finish(state, z_next, new_opt, t, losses, eta)
 

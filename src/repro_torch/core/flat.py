@@ -242,8 +242,8 @@ def _flat_ops(cfg: FedDecConfig, spec: FlatSpec, loss_fn: LossFn,
 
     def local_update(state: FlatFedState, batch: dict, eta):
         losses, g_flat = grads_of(state, batch)
-        if optimizer is None:  # plain SGD: one elementwise pass over (n, D)
-            return losses, state.flat - eta.to(spec.dtype) * g_flat, \
+        if optimizer is None:  # plain SGD: η·g scaled in place, one new buffer
+            return losses, state.flat - g_flat.mul_(eta.to(spec.dtype)), \
                 state.opt_state
         x_half, new_opt = optimizer.update(state.flat, g_flat,
                                            state.opt_state, eta)

@@ -11,15 +11,15 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import topology as topo
+from repro_torch.kernels import ref
 
 __all__ = ["ELL_MAX_DEG", "gossip_mix_dense", "make_sparse_gossip"]
 
 ELL_MAX_DEG = 16  # below this, the padded neighbour loop beats CSR scatter
 
-
-def gossip_mix_dense(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """y = W x as one (n, n) @ (n, D) product in x's dtype."""
-    return torch.matmul(w.to(x.dtype), x)
+# y = W x as one (n, n) @ (n, D) matrix product with f32 accumulation: the
+# plain version of kernel #1, which no kernel replaces on the dense path.
+gossip_mix_dense = ref.gossip_mix
 
 
 def make_sparse_gossip(graph: topo.Graph):

@@ -39,11 +39,11 @@ _SIGNATURES = {
         "gossip_mix_ell": [_P, _P, _P, _I64, _P, _P, _I64, _I64, _P],
     },
     "update_mix": {
-        # w, x, g, m, eta, y, m_out, n, d, beta, kind, stream
+        # w, x, g, m, eta, y, m_out, n, d, beta, nesterov, stream
         "update_mix_dense": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64,
                              ctypes.c_float, ctypes.c_int, _P],
-        # nbr, wv, wd, max_deg, x, g, m, eta, y, m_out, n, d, beta, kind,
-        # stream
+        # nbr, wv, wd, max_deg, x, g, m, eta, y, m_out, n, d, beta,
+        # nesterov, stream
         "update_mix_ell": [_P, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _I64,
                            _I64, ctypes.c_float, ctypes.c_int, _P],
     },

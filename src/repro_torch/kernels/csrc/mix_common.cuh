@@ -19,12 +19,12 @@
 // issued before any arithmetic uses them).
 //
 // Two launch shapes:
-//   * small (n <= 32, the main path): NB in {8, 16, 32} is a compile-time
-//     bound on n, so the dense path keeps p in registers (fully unrolled)
-//     and W (NB x NB, zero-padded) in static shared memory; the ELL path
-//     keeps the tables in shared memory and p in per-thread shared slots
-//     (dynamic neighbour indices cannot address registers).
-//   * general (32 < n <= kMaxN): p in per-thread shared slots, W or the
+//   * small (n <= kSmallN = 8, the main path): n has a compile-time bound,
+//     so the dense path keeps p in registers (fully unrolled) and W
+//     (8 x 8, zero-padded) in static shared memory; the ELL path keeps the
+//     tables in shared memory and p in per-thread shared slots (dynamic
+//     neighbour indices cannot address registers).
+//   * general (8 < n <= kMaxN): p in per-thread shared slots, W or the
 //     ELL tables read through the read-only cache (warp-uniform
 //     addresses, one broadcast transaction each).
 // The ragged edge of D is masked inside the kernel; all offsets are
@@ -80,16 +80,16 @@ __device__ __forceinline__ float local_step(const Args& a, int64_t idx,
   return __fsub_rn(x, __fmul_rn(eta, step));
 }
 
-template <int NB>
-struct Small {
-  // columns per thread: keeps NB * kCols p values (32) in registers
-  static constexpr int kCols = NB >= 32 ? 1 : 32 / NB;
-  static constexpr int64_t kTile = int64_t(kCols) * kThreads;
-};
+// Small path: at most kSmallN agents and kSmallCols columns per thread,
+// so 8 * 4 = 32 p values sit in registers.
+constexpr int kSmallN = 8;
+constexpr int kSmallCols = 4;
+constexpr int64_t kSmallTile = int64_t(kSmallCols) * kThreads;
 
-template <int U, bool ELL, int NB>
+template <int U, bool ELL>
 __global__ void __launch_bounds__(kThreads) mix_small_kernel(Args a) {
-  constexpr int C = Small<NB>::kCols;
+  constexpr int NB = kSmallN;
+  constexpr int C = kSmallCols;
   const int n = static_cast<int>(a.n);
   const int md = static_cast<int>(a.max_deg);
   const int64_t d = a.d;
@@ -117,9 +117,9 @@ __global__ void __launch_bounds__(kThreads) mix_small_kernel(Args a) {
   __syncthreads();
 
   const float eta = (U == kNone) ? 0.f : __ldg(a.eta);
-  const int64_t ntiles = (d + Small<NB>::kTile - 1) / Small<NB>::kTile;
+  const int64_t ntiles = (d + kSmallTile - 1) / kSmallTile;
   for (int64_t t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    const int64_t col0 = t * Small<NB>::kTile + tid;
+    const int64_t col0 = t * kSmallTile + tid;
     if (!ELL) {
       float p[NB][C];
 #pragma unroll
@@ -249,15 +249,17 @@ int launch_grid(Kernel kernel, const Args& a, int64_t ntiles, size_t smem,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int U, bool ELL, int NB>
+template <int U, bool ELL>
 int launch_small(const Args& a, cudaStream_t stream) {
-  constexpr int C = Small<NB>::kCols;
+  constexpr int NB = kSmallN;
   const size_t smem =
-      ELL ? sizeof(float) * (size_t(NB) * C * kThreads + NB * a.max_deg + NB) +
+      ELL ? sizeof(float) *
+                    (size_t(NB) * kSmallCols * kThreads + NB * a.max_deg +
+                     NB) +
                 sizeof(int32_t) * NB * a.max_deg
           : 0;
-  const int64_t ntiles = (a.d + Small<NB>::kTile - 1) / Small<NB>::kTile;
-  return launch_grid(mix_small_kernel<U, ELL, NB>, a, ntiles, smem, stream);
+  const int64_t ntiles = (a.d + kSmallTile - 1) / kSmallTile;
+  return launch_grid(mix_small_kernel<U, ELL>, a, ntiles, smem, stream);
 }
 
 template <int U, bool ELL>
@@ -267,9 +269,7 @@ int launch_mix(const Args& a, cudaStream_t stream) {
   }
   if (ELL && a.max_deg < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (a.d == 0) return 0;
-  if (a.n <= 8) return launch_small<U, ELL, 8>(a, stream);
-  if (a.n <= 16) return launch_small<U, ELL, 16>(a, stream);
-  if (a.n <= 32) return launch_small<U, ELL, 32>(a, stream);
+  if (a.n <= kSmallN) return launch_small<U, ELL>(a, stream);
   const size_t smem = sizeof(float) * size_t(a.n) * kThreads;
   const int64_t ntiles = (a.d + kThreads - 1) / kThreads;
   return launch_grid(mix_general_kernel<U, ELL>, a, ntiles, smem, stream);

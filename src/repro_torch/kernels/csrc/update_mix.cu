@@ -14,24 +14,21 @@
 // sequence serves any step-size schedule without a host round trip.
 //
 // Plain C interface for ctypes: pointers and the CUDA stream as void*,
-// sizes as int64.  kind: 1 sgd, 2 momentum, 3 nesterov.  Each function
-// returns the cudaError_t of its launch.
+// sizes as int64.  The step is sgd when m is null, else momentum, or
+// nesterov when the nesterov flag is set.  Each function returns the
+// cudaError_t of its launch.
 #include "mix_common.cuh"
 
 namespace {
 
 template <bool ELL>
-int launch_kind(const feddec::Args& a, int kind, cudaStream_t stream) {
-  switch (kind) {
-    case feddec::kSgd:
-      return feddec::launch_mix<feddec::kSgd, ELL>(a, stream);
-    case feddec::kMomentum:
-      return feddec::launch_mix<feddec::kMomentum, ELL>(a, stream);
-    case feddec::kNesterov:
-      return feddec::launch_mix<feddec::kNesterov, ELL>(a, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+int launch_step(const feddec::Args& a, int nesterov, cudaStream_t stream) {
+  if ((a.m == nullptr) != (a.m_out == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (a.m == nullptr) return feddec::launch_mix<feddec::kSgd, ELL>(a, stream);
+  if (nesterov) return feddec::launch_mix<feddec::kNesterov, ELL>(a, stream);
+  return feddec::launch_mix<feddec::kMomentum, ELL>(a, stream);
 }
 
 }  // namespace
@@ -39,7 +36,7 @@ int launch_kind(const feddec::Args& a, int kind, cudaStream_t stream) {
 extern "C" int update_mix_dense(const float* w, const float* x,
                                 const float* g, const float* m,
                                 const float* eta, float* y, float* m_out,
-                                int64_t n, int64_t d, float beta, int kind,
+                                int64_t n, int64_t d, float beta, int nesterov,
                                 void* stream) {
   feddec::Args a{};
   a.w = w;
@@ -52,14 +49,14 @@ extern "C" int update_mix_dense(const float* w, const float* x,
   a.n = n;
   a.d = d;
   a.beta = beta;
-  return launch_kind<false>(a, kind, static_cast<cudaStream_t>(stream));
+  return launch_step<false>(a, nesterov, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int update_mix_ell(const int32_t* nbr, const float* wv,
                               const float* wd, int64_t max_deg,
                               const float* x, const float* g, const float* m,
                               const float* eta, float* y, float* m_out,
-                              int64_t n, int64_t d, float beta, int kind,
+                              int64_t n, int64_t d, float beta, int nesterov,
                               void* stream) {
   feddec::Args a{};
   a.nbr = nbr;
@@ -75,5 +72,5 @@ extern "C" int update_mix_ell(const int32_t* nbr, const float* wv,
   a.n = n;
   a.d = d;
   a.beta = beta;
-  return launch_kind<true>(a, kind, static_cast<cudaStream_t>(stream));
+  return launch_step<true>(a, nesterov, static_cast<cudaStream_t>(stream));
 }

@@ -4,7 +4,8 @@ Dispatch is by the device of the tensors: a CPU tensor goes to the plain
 version in :mod:`repro_torch.kernels.ref`; a CUDA tensor launches the
 kernel built from ``csrc/`` or raises.  There is no fallback from one to
 the other.  Unlike the reference, nothing is padded: the kernels mask the
-ragged edge of D and take any n up to :data:`MAX_N` themselves.
+ragged edge of D themselves, and reject an n beyond their shared memory
+(``kMaxN`` in ``csrc/mix_common.cuh``) with an error the wrapper raises.
 
 Every kernel wrapper carries a ``launches`` counter that it advances by
 one each time its kernel is launched (CPU calls do not count);
@@ -19,13 +20,10 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels import ref
 
-__all__ = ["MAX_N", "gossip_mix", "gossip_mix_sparse", "update_mix",
+__all__ = ["gossip_mix", "gossip_mix_sparse", "update_mix",
            "update_mix_sparse", "ell_table", "ell_weights",
            "make_sparse_gossip", "make_sparse_update_mix", "launch_counts",
            "reset_launch_counts"]
-
-MAX_N = 400  # mix_common.cuh kMaxN: n * 128 floats of shared memory
-_KINDS = {(False, False): 1, (True, False): 2, (True, True): 3}
 
 
 def _check_buffer(name: str, t: torch.Tensor, shape: tuple) -> None:
@@ -49,9 +47,6 @@ def _on_cuda(x: torch.Tensor, *others: torch.Tensor) -> bool:
     for t in (x,) + others:
         if not t.is_contiguous():
             raise ValueError("the CUDA kernels take contiguous tensors")
-    if x.shape[0] > MAX_N:
-        raise ValueError(f"n={x.shape[0]} agents exceeds the kernels' "
-                         f"MAX_N={MAX_N}")
     return True
 
 
@@ -61,8 +56,10 @@ def _stream(x: torch.Tensor) -> int:
 
 def _raise_on(rc: int, name: str) -> None:
     if rc != 0:
+        hint = (" (cudaErrorInvalidValue: the kernel rejects these "
+                "arguments, e.g. more agents than kMaxN)" if rc == 1 else "")
         raise RuntimeError(f"{name}: CUDA kernel launch failed with "
-                           f"cudaError_t {rc}")
+                           f"cudaError_t {rc}{hint}")
 
 
 def _eta_tensor(eta, x: torch.Tensor) -> torch.Tensor:
@@ -149,7 +146,7 @@ def update_mix(w, x, g, eta, m=None, *, beta=None, nesterov=False):
         None if m is None else m.data_ptr(), eta.data_ptr(), y.data_ptr(),
         None if m_out is None else m_out.data_ptr(), n, d,
         0.0 if beta is None else float(beta),
-        _KINDS[(beta is not None, bool(nesterov))], _stream(x))
+        int(bool(nesterov)), _stream(x))
     _raise_on(rc, "update_mix")
     update_mix.launches += 1
     return y if m is None else (y, m_out)
@@ -172,7 +169,7 @@ def update_mix_sparse(nbr, wv, wd, x, g, eta, m=None, *, beta=None,
         g.data_ptr(), None if m is None else m.data_ptr(), eta.data_ptr(),
         y.data_ptr(), None if m_out is None else m_out.data_ptr(), n, d,
         0.0 if beta is None else float(beta),
-        _KINDS[(beta is not None, bool(nesterov))], _stream(x))
+        int(bool(nesterov)), _stream(x))
     _raise_on(rc, "update_mix_sparse")
     update_mix_sparse.launches += 1
     return y if m is None else (y, m_out)

@@ -90,7 +90,7 @@ def test_cuda_wrapper_raises_instead_of_falling_back(cuda):
     w = torch.rand(4, 4, device=cuda)
     with pytest.raises(TypeError):
         ops.gossip_mix(w, x)
-    with pytest.raises(ValueError):
+    with pytest.raises(RuntimeError, match="kMaxN"):  # the kernel's limit
         ops.gossip_mix(torch.rand(401, 401, device=cuda),
                        torch.randn(401, 8, device=cuda))
     with pytest.raises(ValueError):  # a CUDA tensor beside a CPU one
