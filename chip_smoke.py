@@ -8,26 +8,35 @@ Run from the root of a checkout on a machine with a CUDA card:
 Phases, each of which fails the run (non-zero exit) on any mismatch:
 
   1. device: the card's name and count, and nvidia-smi's name/power limit;
-  2. build: the four kernels from src/repro_torch/kernels/csrc with nvcc
-     for sm_90a, printing ptxas's registers and spills;
+  2. build: the kernels from src/repro_torch/kernels/csrc with nvcc for
+     sm_90a, printing ptxas's registers and spills;
   3. kernels: every kernel in every variant against its plain PyTorch
      version on the card, at ragged shapes and at the main path's shape
      (n = 8 agents, D = 156,519,168: the tiny LM's flat buffer), with the
      kernel, plain-version and library times (CUDA events) at full shape;
+     then the batched kernels #5–#8 of the sweep lattice the same way, at
+     ragged (R, n, D) and at R = 2, n = 8, D = 156,519,168, and each run's
+     slice against the single-run kernel on that slice (to 0.0);
   4. training: the full-size tiny LM, 8 agents, ring2, H = 10, K = 2,
      batch 2, seq 128, 10 steps, on paths (a) --gossip-impl pallas,
      (b) sparse, (c) pallas --fuse-update-mix --optimizer momentum,
      (d) sparse --fuse-update-mix; each must keep its loss finite and
      launch its kernel once per step; then (a) again with dense gossip
-     from the same seed must end on the same flat buffer.  Each path runs
+     from the same seed must end on the same flat buffer.  Then the
+     R = 2 sweep lattice on paths (e) --sweep-axis h (H = 10, 20) pallas,
+     (f) --sweep-axis topology er0.5 sparse, (g) --sweep-axis seed pallas
+     --fuse-update-mix --optimizer momentum, (h) --sweep-axis topology
+     geo0.5 --p-fail 0.1 sparse --fuse-update-mix, each launching its
+     batched kernel once per lattice step, and (e) again with dense
+     gossip, which must end on the same lattice buffer.  Each path runs
      one untimed warm-up round first, so its step time is that of warm
      steps;
   5. profile: path (c) once more under torch.profiler, for the device
      time per step by kernel group against the unprofiled step time; the
      set-up's device work is measured apart and taken out.
 
-It prints one JSON line with every kernel's launches, errors and times,
-the nvidia-smi line, and as the last line
+It prints the command's total time, one JSON line with every kernel's
+launches, errors and times, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.  Without a card, or
 outside a checkout (no src/repro_torch next to it), it exits non-zero
 without a result.  The full record goes to chiprun_out/chip_smoke.json.
@@ -42,27 +51,35 @@ import sys
 import time
 from pathlib import Path
 
+T_START = time.perf_counter()
 ROOT = Path(__file__).resolve().parent
-N_AGENTS, D_FULL = 8, 156_519_168
+N_AGENTS, D_FULL, R_FULL = 8, 156_519_168, 2
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12          # f32 outside the tensor cores
 TOL = 1e-5                      # × max|y|: f32, other summation order
 RAGGED = [(5, 1_000_003), (1, 777), (13, 3001), (37, 1031), (256, 10_007)]
+RAGGED_LATTICE = [(1, 5, 1_000_003), (3, 1, 777), (2, 13, 3001),
+                  (3, 37, 1031), (2, 256, 10_007)]
+UPDATES = ["sgd", "momentum", "nesterov"]
 VARIANTS = {"gossip_mix": ["gossip"], "gossip_mix_sparse": ["gossip"],
-            "update_mix": ["sgd", "momentum", "nesterov"],
-            "update_mix_sparse": ["sgd", "momentum", "nesterov"]}
+            "update_mix": UPDATES, "update_mix_sparse": UPDATES}
+# the batched kernels (#5-#8) and the single-run kernel each one extends
+BATCHED = {"gossip_mix_batched": "gossip_mix",
+           "gossip_mix_sparse_batched": "gossip_mix_sparse",
+           "update_mix_batched": "update_mix",
+           "update_mix_sparse_batched": "update_mix_sparse"}
 REPLACES = {
     "gossip_mix": "src/repro/kernels/gossip_mix.py:48",
     "gossip_mix_sparse": "src/repro/kernels/gossip_mix.py:147",
     "update_mix": "src/repro/kernels/update_mix.py:105",
     "update_mix_sparse": "src/repro/kernels/update_mix.py:220",
+    "gossip_mix_batched": "src/repro/kernels/gossip_mix.py:93",
+    "gossip_mix_sparse_batched": "src/repro/kernels/gossip_mix.py:194",
+    "update_mix_batched": "src/repro/kernels/update_mix.py:157",
+    "update_mix_sparse_batched": "src/repro/kernels/update_mix.py:279",
 }
-SOURCES = {
-    "gossip_mix": "src/repro_torch/kernels/csrc/gossip_mix.cu",
-    "gossip_mix_sparse": "src/repro_torch/kernels/csrc/gossip_mix.cu",
-    "update_mix": "src/repro_torch/kernels/csrc/update_mix.cu",
-    "update_mix_sparse": "src/repro_torch/kernels/csrc/update_mix.cu",
-}
+SOURCES = {k: f"src/repro_torch/kernels/csrc/{k.split('_mix')[0]}_mix.cu"
+           for k in REPLACES}
 # training path -> (gossip impl, fuse, optimizer, the kernel it launches)
 PATHS = {
     "a": ("pallas", False, "sgd", "gossip_mix"),
@@ -70,9 +87,24 @@ PATHS = {
     "c": ("pallas", True, "momentum", "update_mix"),
     "d": ("sparse", True, "sgd", "update_mix_sparse"),
 }
+# sweep-lattice path (R = 2) -> (axis, graph, p_fail, gossip impl, fuse,
+# optimizer, the kernel it launches)
+SWEEP_PATHS = {
+    "e": ("h", "ring2", 0.0, "pallas", False, "sgd", "gossip_mix_batched"),
+    "f": ("topology", "er0.5", 0.0, "sparse", False, "sgd",
+          "gossip_mix_sparse_batched"),
+    "g": ("seed", "ring2", 0.0, "pallas", True, "momentum",
+          "update_mix_batched"),
+    "h": ("topology", "geo0.5", 0.1, "sparse", True, "sgd",
+          "update_mix_sparse_batched"),
+}
 # the variant each kernel runs on its training path (timed in the line)
 PATH_VARIANT = {"gossip_mix": "gossip", "gossip_mix_sparse": "gossip",
-                "update_mix": "momentum", "update_mix_sparse": "sgd"}
+                "update_mix": "momentum", "update_mix_sparse": "sgd",
+                "gossip_mix_batched": "gossip",
+                "gossip_mix_sparse_batched": "gossip",
+                "update_mix_batched": "momentum",
+                "update_mix_sparse_batched": "sgd"}
 STEPS = 10
 DEVICE = "cuda"
 
@@ -148,11 +180,15 @@ def calls(kernel: str, variant: str, t: dict):
             lambda: ref.update_mix_sparse(*ell, x, g, eta, m, **kw), None)
 
 
+def as_tuple(out) -> tuple:
+    return out if isinstance(out, tuple) else (out,)
+
+
 def max_err(torch, got, want) -> tuple[float, float]:
-    got = got if isinstance(got, tuple) else (got,)
-    want = want if isinstance(want, tuple) else (want,)
-    err = max((a - b).abs().max().item() for a, b in zip(got, want))
-    scale = max(b.abs().max().item() for b in want)
+    """(max |got - want|, max |want|) over the outputs; one temporary."""
+    err = max(torch.sub(a, b).abs_().max().item()
+              for a, b in zip(as_tuple(got), as_tuple(want)))
+    scale = max(b.abs().max().item() for b in as_tuple(want))
     return err, scale
 
 
@@ -170,13 +206,16 @@ def time_ms(torch, fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(kernel: str, variant: str, n: int, d: int, max_deg: int):
+def bound(kernel: str, variant: str, n: int, d: int, max_deg: int,
+          r: int = 1):
     """(bound_ms, bound_by): each input read once, each output written
-    once, against the card's memory rate and its f32 rate."""
-    elems = n * d
+    once, against the card's memory rate and its f32 rate; r runs each
+    with its own W (or ELL tables) and η."""
+    elems = r * n * d
     arrays = {"gossip": 2, "sgd": 3, "momentum": 5, "nesterov": 5}[variant]
     table = 4 * n * n if "sparse" not in kernel else 8 * n * max_deg + 4 * n
-    nbytes = 4 * arrays * elems + table + (4 if variant != "gossip" else 0)
+    nbytes = (4 * arrays * elems + r * table
+              + (4 * r if variant != "gossip" else 0))
     mix = 2 * n if "sparse" not in kernel else 2 * max_deg + 1
     update = {"gossip": 0, "sgd": 2, "momentum": 4, "nesterov": 6}[variant]
     flops = elems * (mix + update)
@@ -247,87 +286,281 @@ def kernel_phase(torch) -> dict:
     return results
 
 
+def lattice_graphs(r: int, n: int) -> list:
+    """Per-run topologies of a ragged lattice: rings of alternating degree
+    (their ELL tables padded to the lattice's max degree), the last run
+    edgeless (a FedAvg member's W = I)."""
+    import numpy as np
+    from repro_torch.core import topology
+    graphs = [topology.ring_graph(n, k=1 + i % 2) if n >= 5
+              else topology.Graph(ring_adjacency(n)) for i in range(r)]
+    if r > 1:
+        graphs[-1] = topology.Graph(np.zeros((n, n), dtype=bool))
+    return graphs
+
+
+def make_lattice_inputs(torch, r: int, n: int, d: int, seed: int, graphs):
+    from repro_torch.core import gossip
+    from repro_torch.kernels import ops
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    x, g, m = (torch.randn(r, n, d, device=dev, generator=gen)
+               for _ in range(3))
+    w = torch.rand(r, n, n, device=dev, generator=gen)
+    w = w / w.sum(dim=-1, keepdim=True)
+    nbr, mask, max_deg = gossip.stacked_ell_tables(graphs)
+    nbr, mask = (torch.as_tensor(a, device=dev) for a in (nbr, mask))
+    wv, wd = ops.ell_weights(w, nbr, mask)
+    eta = 0.05 * torch.arange(1, r + 1, device=dev, dtype=torch.float32)
+    return dict(x=x, g=g, m=m, w=w, nbr=nbr, wv=wv, wd=wd, eta=eta,
+                graphs=graphs, max_deg=max_deg)
+
+
+def batched_calls(kernel: str, variant: str, t: dict):
+    """(kernel call, plain call on a slice of the runs, library call or
+    None, single-run kernel call on run i) on lattice inputs ``t``."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    beta = None if variant in ("gossip", "sgd") else 0.9
+    kw = {"beta": beta, "nesterov": variant == "nesterov"}
+    x, g, m, w, eta = (t[k] for k in ("x", "g", "m", "w", "eta"))
+    m = None if beta is None else m
+    tab = (t["nbr"], t["wv"], t["wd"])
+
+    def own_table(i):  # run i's unpadded ELL table, live weights
+        return ops.EllTables(*ops.ell_table(
+            t["graphs"][i].adjacency)).weights(w[i], x[i])
+
+    def upd(i):  # run i's (x, g, eta, m) for a single-run kernel
+        return (x[i], g[i], eta[i:i + 1], None if m is None else m[i])
+
+    def sl_args(sl):
+        return (x[sl], g[sl], eta[sl], None if m is None else m[sl])
+
+    if kernel == "gossip_mix_batched":
+        return (lambda: ops.gossip_mix_batched(w, x),
+                lambda sl: ref.gossip_mix_batched(w[sl], x[sl]),
+                lambda: torch.bmm(w, x),
+                lambda i: ops.gossip_mix(w[i], x[i]))
+    if kernel == "gossip_mix_sparse_batched":
+        r, n = x.shape[:2]
+        eye = torch.eye(n, dtype=torch.bool, device=w.device)
+        support = [torch.as_tensor(gr.adjacency, device=w.device) | eye
+                   for gr in t["graphs"]]
+        csr = torch.block_diag(*[w[i] * support[i]
+                                 for i in range(r)]).to_sparse_csr()
+        return (lambda: ops.gossip_mix_sparse_batched(*tab, x),
+                lambda sl: ref.gossip_mix_sparse_batched(
+                    *(a[sl] for a in tab), x[sl]),
+                lambda: torch.sparse.mm(csr, x.view(r * n, -1)),
+                lambda i: ops.gossip_mix_sparse(*own_table(i), x[i]))
+    if kernel == "update_mix_batched":
+        return (lambda: ops.update_mix_batched(w, x, g, eta, m, **kw),
+                lambda sl: ref.update_mix_batched(w[sl], *sl_args(sl), **kw),
+                None,
+                lambda i: ops.update_mix(w[i], *upd(i), **kw))
+    return (lambda: ops.update_mix_sparse_batched(*tab, x, g, eta, m, **kw),
+            lambda sl: ref.update_mix_sparse_batched(
+                *(a[sl] for a in tab), *sl_args(sl), **kw),
+            None,
+            lambda i: ops.update_mix_sparse(*own_table(i), *upd(i), **kw))
+
+
+def check_lattice(torch, kernel: str, variant: str, t: dict, where: str):
+    """The batched kernel against its plain version run by run (a
+    lattice-sized plain call would not fit beside the kernel's outputs at
+    full shape), and each run's slice against the single-run kernel on
+    that slice, to 0.0.  Returns the largest error."""
+    run, plain, _, single = batched_calls(kernel, variant, t)
+    got = run()
+    torch.cuda.synchronize()
+    err = 0.0
+    for i in range(t["x"].shape[0]):
+        want = plain(slice(i, i + 1))
+        e, scale = max_err(torch, tuple(a[i:i + 1] for a in as_tuple(got)),
+                           want)
+        del want
+        check(e <= TOL * scale,
+              f"{kernel}[{variant}] {where} run {i}: max_abs_err {e:.3e} > "
+              f"{TOL}·{scale:.3e}")
+        err = max(err, e)
+        one = single(i)
+        diff = max(torch.sub(a[i], b).abs_().max().item()
+                   for a, b in zip(as_tuple(got), as_tuple(one)))
+        del one
+        check(diff == 0.0,
+              f"{kernel}[{variant}] {where} run {i}: slice differs from "
+              f"{BATCHED[kernel]} by {diff:.3e}")
+    return err
+
+
+def batched_kernel_phase(torch) -> dict:
+    from repro_torch.core import topology
+    from repro_torch.kernels import ops
+    results = {k: {"max_abs_err": 0.0, "variants": {}} for k in BATCHED}
+    for r, n, d in RAGGED_LATTICE:
+        t = make_lattice_inputs(torch, r, n, d, seed=r * 977 + n * 131 + d,
+                                graphs=lattice_graphs(r, n))
+        for kernel, single in BATCHED.items():
+            for variant in VARIANTS[single]:
+                err = check_lattice(torch, kernel, variant, t,
+                                    f"R={r} n={n} D={d}")
+                results[kernel]["max_abs_err"] = max(
+                    results[kernel]["max_abs_err"], err)
+        log(f"[kernels] ragged R={r} n={n} D={d}: all batched variants "
+            f"within {TOL}·max|y|, run slices equal to the single-run "
+            f"kernels")
+        del t
+    torch.cuda.empty_cache()
+
+    # path (f)'s lattice: er0.5 drawn with seeds 0 and 1 (max degree 5)
+    graphs = [topology.erdos_renyi_graph(N_AGENTS, 0.5, seed=i)
+              for i in range(R_FULL)]
+    t = make_lattice_inputs(torch, R_FULL, N_AGENTS, D_FULL, seed=2,
+                            graphs=graphs)
+    where = f"R={R_FULL} n={N_AGENTS} D={D_FULL}"
+    for kernel, single in BATCHED.items():
+        for variant in VARIANTS[single]:
+            torch.cuda.reset_peak_memory_stats()
+            err = check_lattice(torch, kernel, variant, t, where)
+            torch.cuda.empty_cache()
+            run, plain, library, _ = batched_calls(kernel, variant, t)
+            ms = time_ms(torch, run)
+            plain_ms = time_ms(torch, lambda: plain(slice(None)), iters=2,
+                               warmup=1)
+            # the yardstick is timed here only, never called by the port
+            library_ms = None if library is None else time_ms(torch, library)
+            bound_ms, bound_by = bound(kernel, variant, N_AGENTS, D_FULL,
+                                       t["max_deg"], r=R_FULL)
+            peak = torch.cuda.max_memory_allocated()
+            torch.cuda.empty_cache()
+            results[kernel]["variants"][variant] = {
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": library_ms, "share_of_bound": bound_ms / ms,
+                "peak_bytes": peak}
+            results[kernel]["max_abs_err"] = max(
+                results[kernel]["max_abs_err"], err)
+            log(f"[kernels] {kernel}[{variant}] {where}: err {err:.3e}, "
+                f"run slices equal to {BATCHED[kernel]}  ms {ms:.4f}  "
+                f"bound_ms {bound_ms:.4f} ({bound_by}, "
+                f"{100 * bound_ms / ms:.1f}% of bound)  plain_ms "
+                f"{plain_ms:.4f}  library_ms "
+                f"{'n/a' if library_ms is None else f'{library_ms:.4f}'}  "
+                f"peak {peak / 1e9:.2f} GB")
+    del t
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    return results
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: training on the port's main path
 # ---------------------------------------------------------------------------
 
 
 def train_path(torch, impl: str, fuse: bool, optimizer: str,
-               steps: int = STEPS):
+               steps: int = STEPS, *, graph: str = "ring2",
+               p_fail: float = 0.0, sweep_axis: str | None = None):
+    """One run of the trainer; with ``sweep_axis`` the R_FULL-run lattice,
+    whose whole (R, n, D) state it returns."""
     from repro_torch.configs.base import FedConfig
     from repro_torch.launch import train
     torch.cuda.reset_peak_memory_stats()
     timing: dict = {}
+    sweep = {} if sweep_axis is None else dict(
+        sweep_runs=R_FULL, sweep_axis=sweep_axis, keep_lattice=True)
     state, losses = train.train_loop(
         train.tiny_lm_config(),
-        FedConfig(n_agents=N_AGENTS, h=10, k=2, graph="ring2",
+        FedConfig(n_agents=N_AGENTS, h=10, k=2, graph=graph, p_fail=p_fail,
                   gossip_impl=impl),
         steps=steps, per_agent_batch=2, seq_len=128, optimizer=optimizer,
-        fuse_update_mix=fuse, seed=0, device=DEVICE, timing=timing)
+        fuse_update_mix=fuse, seed=0, device=DEVICE, timing=timing,
+        **sweep)
     torch.cuda.synchronize()
     return state, losses, timing, torch.cuda.max_memory_allocated()
 
 
-def warm_up(torch, impl: str, fuse: bool, optimizer: str) -> None:
+def warm_up(torch, impl: str, fuse: bool, optimizer: str, **kw) -> None:
     """One untimed round of the path, so that the timed run's steps do
     not pay the allocator's growth, cuBLAS's first calls or the kernel's
     first launch.  Its launches are not counted: the caller resets the
     counters after it."""
-    train_path(torch, impl, fuse, optimizer)
+    train_path(torch, impl, fuse, optimizer, **kw)
 
 
-def dense_rerun(torch, final_a) -> dict:
-    """Path (a) again with the plain dense mix: the same seed must end on
-    the same flat buffer, within f32 noise."""
+def dense_rerun(torch, name: str, final, **kw) -> dict:
+    """Path ``name`` again with the plain dense mix: the same seed must end
+    on the same flat (or lattice) buffer, within f32 noise."""
     from repro_torch.kernels import ops
-    warm_up(torch, "dense", False, "sgd")
+    warm_up(torch, "dense", False, "sgd", **kw)
     ops.reset_launch_counts()
-    state, losses, timing, peak = train_path(torch, "dense", False, "sgd")
+    state, losses, timing, peak = train_path(torch, "dense", False, "sgd",
+                                             **kw)
     check(sum(ops.launch_counts().values()) == 0,
           "dense gossip launched a kernel")
-    err = (state.flat - final_a).abs().max().item()
-    scale = final_a.abs().max().item()
+    err = (state.flat - final).abs().max().item()
+    scale = final.abs().max().item()
     check(err <= TOL * scale,
-          f"pallas vs dense final buffers differ: {err:.3e} > "
+          f"path ({name}) kernel vs dense final buffers differ: {err:.3e} > "
           f"{TOL}·{scale:.3e}")
     out = {"impl": "dense", "losses": losses,
            "step_ms": 1e3 * timing["loop_s"] / STEPS, "peak_bytes": peak,
-           "max_abs_diff_vs_a": err, "scale": scale}
-    log(f"[train] path (a) with dense gossip: step {out['step_ms']:.1f} ms, "
-        f"final buffer within {err:.3e} of the kernel run (limit "
-        f"{TOL}·{scale:.3e})")
+           "max_abs_diff": err, "scale": scale}
+    log(f"[train] path ({name}) with dense gossip: step "
+        f"{out['step_ms']:.1f} ms, peak {peak / 1e9:.2f} GB, final buffer "
+        f"within {err:.3e} of the kernel run (limit {TOL}·{scale:.3e})")
     return out
 
 
-def training_phase(torch) -> dict:
+def run_path(torch, name: str, impl: str, fuse: bool, opt: str,
+             kernel: str, **kw):
+    """A warm-up round, then the timed run with the launch counters set
+    to 0 just before it and read just after: its kernel must launch once
+    per step and no other kernel at all."""
     from repro_torch.kernels import ops
+    warm_up(torch, impl, fuse, opt, **kw)
+    ops.reset_launch_counts()
+    state, losses, timing, peak = train_path(torch, impl, fuse, opt, **kw)
+    counts = ops.launch_counts()
+    check(all(math.isfinite(v) for v in losses),
+          f"path ({name}): non-finite loss {losses}")
+    check(counts[kernel] == STEPS,
+          f"path ({name}): {kernel} launched {counts[kernel]} times in "
+          f"{STEPS} steps")
+    check(sum(counts.values()) == counts[kernel],
+          f"path ({name}): other kernels launched: {counts}")
+    step_ms = 1e3 * timing["loop_s"] / STEPS
+    out = {"impl": impl, "fuse_update_mix": fuse, "optimizer": opt,
+           "kernel": kernel, "launches": counts[kernel], "losses": losses,
+           "step_ms": step_ms, "setup_s": timing["setup_s"],
+           "peak_bytes": peak, **kw}
+    log(f"[train] path ({name}) gossip={impl} fuse={fuse} opt={opt}"
+        + "".join(f" {k}={v}" for k, v in kw.items())
+        + f": loss {losses[0]:.4f} → {losses[-1]:.4f}, {kernel} launches "
+        f"{counts[kernel]}, step {step_ms:.1f} ms (host clock, "
+        f"synchronized), setup {timing['setup_s']:.1f} s, peak "
+        f"{peak / 1e9:.2f} GB")
+    return state, out
+
+
+def training_phase(torch) -> dict:
     out = {}
     for name, (impl, fuse, opt, kernel) in PATHS.items():
-        warm_up(torch, impl, fuse, opt)
-        ops.reset_launch_counts()
-        state, losses, timing, peak = train_path(torch, impl, fuse, opt)
-        counts = ops.launch_counts()
-        check(all(math.isfinite(v) for v in losses),
-              f"path ({name}): non-finite loss {losses}")
-        check(counts[kernel] == STEPS,
-              f"path ({name}): {kernel} launched {counts[kernel]} times in "
-              f"{STEPS} steps")
-        check(sum(counts.values()) == counts[kernel],
-              f"path ({name}): other kernels launched: {counts}")
-        step_ms = 1e3 * timing["loop_s"] / STEPS
-        out[name] = {"impl": impl, "fuse_update_mix": fuse,
-                     "optimizer": opt, "kernel": kernel,
-                     "launches": counts[kernel], "losses": losses,
-                     "step_ms": step_ms, "setup_s": timing["setup_s"],
-                     "peak_bytes": peak}
-        log(f"[train] path ({name}) gossip={impl} fuse={fuse} opt={opt}: "
-            f"loss {losses[0]:.4f} → {losses[-1]:.4f}, {kernel} launches "
-            f"{counts[kernel]}, step {step_ms:.1f} ms (host clock, "
-            f"synchronized), setup {timing['setup_s']:.1f} s, peak "
-            f"{peak / 1e9:.2f} GB")
+        state, out[name] = run_path(torch, name, impl, fuse, opt, kernel)
         if name == "a":
             # compared right away, so no path's peak holds this buffer
-            out["a_dense"] = dense_rerun(torch, state.flat)
+            out["a_dense"] = dense_rerun(torch, "a", state.flat)
+        del state
+        torch.cuda.empty_cache()
+    for name, (axis, graph, p_fail, impl, fuse, opt, kernel) in \
+            SWEEP_PATHS.items():
+        kw = dict(graph=graph, p_fail=p_fail, sweep_axis=axis)
+        state, out[name] = run_path(torch, name, impl, fuse, opt, kernel,
+                                    **kw)
+        if name == "e":
+            out["e_dense"] = dense_rerun(torch, "e", state.flat, **kw)
         del state
         torch.cuda.empty_cache()
     return out
@@ -454,6 +687,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     kernels = kernel_phase(torch)
+    kernels.update(batched_kernel_phase(torch))
     log(f"[kernels] phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     training = training_phase(torch)
@@ -463,7 +697,7 @@ def main() -> int:
     log(f"[profile] phase {time.perf_counter() - t0:.1f} s")
 
     line = []
-    for kernel in VARIANTS:
+    for kernel in REPLACES:
         main_variant = kernels[kernel]["variants"][PATH_VARIANT[kernel]]
         launches = next(p["launches"] for p in training.values()
                         if p.get("kernel") == kernel)
@@ -477,11 +711,14 @@ def main() -> int:
             "library_ms": main_variant["library_ms"],
             "variant": PATH_VARIANT[kernel],
             "variants": kernels[kernel]["variants"]})
+    total_s = time.perf_counter() - T_START
+    log(f"[smoke] total {total_s:.1f} s (build included)")
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"device": name, "nvidia_smi": smi, "kernels": line,
-         "training": training, "profile": profile}, indent=1))
+         "training": training, "profile": profile, "total_s": total_s},
+        indent=1))
     print(json.dumps({"kernels": line}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

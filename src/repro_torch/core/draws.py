@@ -12,16 +12,19 @@ port cannot reproduce those bits, so all its draws go through one
 
 Methods that the engine calls take the step counter ``t``, so a test can
 pass an object with the same methods that replays the reference's draws
-for that step instead (see tests/test_torch_engine.py).
+for that step instead (see tests/test_torch_engine.py).  A sweep lattice
+takes a :class:`SweepDraws`, whose engine draws have a leading run axis
+and whose ``t`` is the (R,) array of per-run step counters.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
-__all__ = ["Draws"]
+__all__ = ["Draws", "SweepDraws"]
 
 
 class Draws:
@@ -100,3 +103,33 @@ class Draws:
         """(rows, dim) Dirichlet(alpha·1) draws, f32."""
         g = self.gamma(alpha, (rows, dim))
         return (g / g.sum(dim=-1, keepdim=True)).float()
+
+
+class SweepDraws(Draws):
+    """The draws of an R-run sweep lattice.
+
+    The inherited primitives (and so the initial weights, the data
+    distributions and the one shared token stream) come from ``seed``'s
+    generator, as for a single run.  The engine draws gain a run axis:
+    ``link_uniforms`` gives (R, n, n) and ``participants`` (R, K).  With
+    ``per_run`` (the ``seed`` axis) run r draws them from a generator of
+    its own, seeded from (seed, r); otherwise (the ``h`` and ``topology``
+    axes) one draw is broadcast to every run, so the swept axis is the
+    only difference between runs (repro/launch/train.py:274-280).
+    """
+
+    def __init__(self, seed: int, device, r_runs: int, per_run: bool):
+        super().__init__(seed, device)
+        self.r_runs = r_runs
+        self.runs = [Draws(np.random.SeedSequence([seed, r]).generate_state(
+            1)[0], device) for r in range(r_runs)] if per_run else None
+
+    def link_uniforms(self, t, n: int) -> torch.Tensor:
+        if self.runs is None:
+            return super().link_uniforms(t, n).expand(self.r_runs, n, n)
+        return torch.stack([d.link_uniforms(t, n) for d in self.runs])
+
+    def participants(self, t, n: int, k: int) -> torch.Tensor:
+        if self.runs is None:
+            return super().participants(t, n, k).expand(self.r_runs, k)
+        return torch.stack([d.participants(t, n, k) for d in self.runs])

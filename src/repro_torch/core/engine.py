@@ -7,7 +7,8 @@
     update+mix op, when set, replaces the update + gossip pair.
   * :func:`make_loop_round` — the H-step round as a Python loop over the
     stacked batches (the reference scans it inside one compiled program).
-  * :func:`resolve_gossip` — gossip_impl → the whole-buffer mixing fn.
+  * :func:`resolve_gossip` — gossip_impl → the whole-buffer mixing fn of
+    the flat buffer or of a sweep lattice.
 
 Randomness comes from a :class:`repro_torch.core.draws.Draws` object
 passed with every call, keyed by the step counter t (the reference folds
@@ -47,17 +48,26 @@ def check_gossip_impl(impl: str) -> str:
 
 
 def resolve_gossip(source, layout: str = "flat") -> Callable:
-    """gossip_impl → the whole-buffer (w, (n, D)) -> (n, D) mixing fn.
+    """gossip_impl → the whole-buffer mixing fn.
 
-    'dense'  one plain matrix product (the reference leaves it to XLA);
-    'pallas' the streaming gossip kernel #1 (kernels.ops.gossip_mix);
-    'sparse' the ELL kernel #2 on CUDA / the plain ELL mix on the CPU
-             when 0 < max_deg <= ELL_MAX_DEG, else the plain CSR gather;
-    'none'   identity (FedAvg).
+    layout 'flat': (w (n, n), x (n, D)) -> (n, D), ``source`` a config:
+      'dense'  one plain matrix product (the reference leaves it to XLA);
+      'pallas' the streaming gossip kernel #1 (kernels.ops.gossip_mix);
+      'sparse' the ELL kernel #2 on CUDA / the plain ELL mix on the CPU
+               when 0 < max_deg <= ELL_MAX_DEG, else the plain CSR gather;
+      'none'   identity (FedAvg).
+    layout 'sweep': (w (R, n, n), x (R, n, D)) -> (R, n, D), ``source`` a
+    SweepPlan (repro/core/engine.py:177-200):
+      'dense'  one batched f32 matrix product;
+      'pallas' kernel #5 (kernels.ops.gossip_mix_batched), one launch;
+      'sparse' the stacked-ELL kernel #6 when 0 < max_deg <= ELL_MAX_DEG,
+               else the plain stacked-ELL mix;
+      'none'   identity (an all-FedAvg lattice).
     """
-    if layout != "flat":
+    if layout not in ("flat", "sweep"):
         raise ValueError(f"engine layout {layout!r} is not ported; the "
-                         f"port runs the 'flat' (n, D) buffer layout")
+                         f"port runs the 'flat' (n, D) buffer layout and "
+                         f"the 'sweep' (R, n, D) lattice")
     impl = source.gossip_impl
     if impl == "none":
         return lambda w, x: x
@@ -65,9 +75,12 @@ def resolve_gossip(source, layout: str = "flat") -> Callable:
         return gossip_lib.gossip_mix_dense
     if impl == "pallas":
         from repro_torch.kernels import ops as kernel_ops
-        return kernel_ops.gossip_mix
+        return kernel_ops.gossip_mix if layout == "flat" \
+            else kernel_ops.gossip_mix_batched
     if impl == "sparse":
-        return gossip_lib.make_sparse_gossip(source.mixing.graph)
+        if layout == "flat":
+            return gossip_lib.make_sparse_gossip(source.mixing.graph)
+        return gossip_lib.make_sparse_gossip_batched(source.graphs)
     raise unknown_gossip_impl(impl)
 
 
@@ -123,7 +136,7 @@ def build_step_body(ops: EngineOps):
 
 def make_loop_round(step):
     """round_fn(state, batches, draws): ``step`` over the leading axis of
-    every batch leaf; metrics stack to (H,)."""
+    every batch leaf; each metric stacks to (H,) + its per-step shape."""
     def round_fn(state, batches, draws):
         steps = next(iter(batches.values())).shape[0]
         per_step = []
@@ -131,7 +144,7 @@ def make_loop_round(step):
             batch = {k: v[h] for k, v in batches.items()}
             state, metrics = step(state, batch, draws)
             per_step.append(metrics)
-        stacked = {k: torch.stack([m[k].reshape(()) for m in per_step])
+        stacked = {k: torch.stack([m[k] for m in per_step])
                    for k in per_step[0]}
         return state, stacked
 

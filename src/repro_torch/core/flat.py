@@ -16,6 +16,7 @@ column and the two can be compared directly.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Callable
 
@@ -28,7 +29,7 @@ from repro_torch.core import server as server_lib
 from repro_torch.core.feddec import FedDecConfig
 
 __all__ = ["FlatSpec", "FlatFedState", "make_flat_spec", "init_flat_state",
-           "params_from_numpy", "flat_state_from_numpy",
+           "params_from_numpy", "flat_state_from_numpy", "grads_of",
            "make_flat_feddec_step", "make_flat_feddec_round"]
 
 # loss_fn(params: dict of tensors, batch: dict of tensors) -> scalar loss
@@ -177,27 +178,26 @@ def _fuse_kind(cfg: FedDecConfig, optimizer, custom_gossip: bool):
     return kind
 
 
-def _make_fused_flat_op(cfg: FedDecConfig, grads_of, optimizer,
-                        custom_gossip: bool):
-    """The fused lines-5–6 op: one update+mix kernel pass; None when the
-    configuration is not eligible (the caller keeps the unfused body)."""
-    kind = _fuse_kind(cfg, optimizer, custom_gossip)
-    if kind is None:
-        return None
-    from repro_torch.kernels import ops as kernel_ops
+def make_fused_op(kind: str, agent_grads, optimizer, dense_mix,
+                  make_sparse_mix=None):
+    """The fused lines-5–6 op of the flat and sweep engines: one
+    update+mix kernel pass for a fusable optimizer ``kind``.
+
+    ``dense_mix`` is the dense kernel's wrapper (kernels #3/#7);
+    ``make_sparse_mix(beta=, nesterov=)`` builds the ELL form (#4/#8) and
+    replaces it on the sparse mix.
+    """
     hyper = optimizer.hyperparams() if kind == "momentum" else {}
     beta = hyper.get("beta")
     nesterov = bool(hyper.get("nesterov", False))
-    if cfg.gossip_impl == "sparse":
-        fused_mix = kernel_ops.make_sparse_update_mix(
-            cfg.mixing.graph, beta=beta, nesterov=nesterov)
+    if make_sparse_mix is not None:
+        fused_mix = make_sparse_mix(beta=beta, nesterov=nesterov)
     else:
         def fused_mix(w, x, g, eta, m=None):
-            return kernel_ops.update_mix(w, x, g, eta, m, beta=beta,
-                                         nesterov=nesterov)
+            return dense_mix(w, x, g, eta, m, beta=beta, nesterov=nesterov)
 
     def fused(w, state, batch, eta):
-        losses, g_flat = grads_of(state, batch)
+        losses, g_flat = agent_grads(state, batch)
         if kind == "sgd":
             return losses, fused_mix(w, state.flat, g_flat, eta), \
                 state.opt_state
@@ -207,6 +207,50 @@ def _make_fused_flat_op(cfg: FedDecConfig, grads_of, optimizer,
     return fused
 
 
+def _make_fused_flat_op(cfg: FedDecConfig, agent_grads, optimizer,
+                        custom_gossip: bool):
+    """The flat engine's fused op (kernels #3/#4); None when the
+    configuration is not eligible (the caller keeps the unfused body)."""
+    kind = _fuse_kind(cfg, optimizer, custom_gossip)
+    if kind is None:
+        return None
+    from repro_torch.kernels import ops as kernel_ops
+    sparse = None
+    if cfg.gossip_impl == "sparse":
+        sparse = functools.partial(kernel_ops.make_sparse_update_mix,
+                                   cfg.mixing.graph)
+    return make_fused_op(kind, agent_grads, optimizer, kernel_ops.update_mix,
+                         sparse)
+
+
+def grads_of(spec: FlatSpec, loss_fn: LossFn, flat: torch.Tensor,
+             batch: dict):
+    """Line 4: per-agent loss and gradient over the rows of a (rows, D)
+    buffer, one row at a time.
+
+    The flat engine passes its (n, D) buffer; the sweep engine the
+    (R·n, D) view of its lattice, treating (R, n) as one flattened agent
+    axis as the reference does (repro/core/sweep.py:335-344).  Row i's
+    leaves are views into row i of the buffer, made leaves of autograd;
+    their gradients land in row i of one preallocated (rows, D) buffer.
+    Nothing copies the parameters.  Batch leaves lead with the rows dim.
+    """
+    g_flat = torch.empty_like(flat)
+    losses = torch.empty(flat.shape[0], dtype=torch.float32,
+                         device=flat.device)
+    for i in range(flat.shape[0]):
+        leaves = [v.detach().requires_grad_() for v in spec.views(flat[i])]
+        params = _build_tree(spec.paths, leaves)
+        agent_batch = {k: v[i] for k, v in batch.items()}
+        with torch.enable_grad():
+            loss = loss_fn(params, agent_batch)
+            grads = torch.autograd.grad(loss, leaves)
+        for view, gr in zip(spec.views(g_flat[i]), grads):
+            view.copy_(gr)
+        losses[i] = loss.detach()
+    return losses, g_flat
+
+
 def _flat_ops(cfg: FedDecConfig, spec: FlatSpec, loss_fn: LossFn,
               lr_fn: LrFn, gossip_fn, optimizer, device,
               fuse_update_mix: bool = False) -> engine.EngineOps:
@@ -214,34 +258,12 @@ def _flat_ops(cfg: FedDecConfig, spec: FlatSpec, loss_fn: LossFn,
     custom_gossip = gossip_fn is not None
     if gossip_fn is None:
         gossip_fn = engine.resolve_gossip(cfg, "flat")
-    n_agents = cfg.n_agents
 
-    def grads_of(state: FlatFedState, batch: dict):
-        """Lines 4: per-agent loss and gradient, one agent at a time.
-
-        Agent i's leaves are views into row i of the buffer, made leaves
-        of autograd; their gradients land in row i of one preallocated
-        (n, D) buffer.  Nothing copies the (n, D) parameters.
-        """
-        flat = state.flat
-        g_flat = torch.empty_like(flat)
-        losses = torch.empty(n_agents, dtype=torch.float32,
-                             device=flat.device)
-        for i in range(n_agents):
-            leaves = [v.detach().requires_grad_()
-                      for v in spec.views(flat[i])]
-            params = _build_tree(spec.paths, leaves)
-            agent_batch = {k: v[i] for k, v in batch.items()}
-            with torch.enable_grad():
-                loss = loss_fn(params, agent_batch)
-                grads = torch.autograd.grad(loss, leaves)
-            for view, gr in zip(spec.views(g_flat[i]), grads):
-                view.copy_(gr)
-            losses[i] = loss.detach()
-        return losses, g_flat
+    def agent_grads(state: FlatFedState, batch: dict):
+        return grads_of(spec, loss_fn, state.flat, batch)
 
     def local_update(state: FlatFedState, batch: dict, eta):
-        losses, g_flat = grads_of(state, batch)
+        losses, g_flat = agent_grads(state, batch)
         if optimizer is None:  # plain SGD: η·g scaled in place, one new buffer
             return losses, state.flat - g_flat.mul_(eta.to(spec.dtype)), \
                 state.opt_state
@@ -251,7 +273,7 @@ def _flat_ops(cfg: FedDecConfig, spec: FlatSpec, loss_fn: LossFn,
 
     fused_update_gossip = None
     if fuse_update_mix:
-        fused_update_gossip = _make_fused_flat_op(cfg, grads_of, optimizer,
+        fused_update_gossip = _make_fused_flat_op(cfg, agent_grads, optimizer,
                                                   custom_gossip)
 
     def server(draws, t, x_next):
@@ -264,7 +286,7 @@ def _flat_ops(cfg: FedDecConfig, spec: FlatSpec, loss_fn: LossFn,
         # it (donate=True): updated in place, so the previous (n, D)
         # buffers are freed now even while a caller still holds the object.
         state.flat, state.step, state.opt_state = z_next, t + 1, new_opt
-        return state, {"loss": losses.mean(), "eta": eta}
+        return state, {"loss": losses.mean(), "eta": eta.reshape(())}
 
     return engine.EngineOps(
         get_step=lambda s: s.step,

@@ -1,24 +1,30 @@
 """The gossip averaging step x_i ← Σ_j W_ij x_j (Algorithm 1, line 6).
 
 Plain torch counterparts of repro/core/gossip.py for the flat (n, D)
-buffer.  The ELL neighbour mix goes through kernels/ops.py, which runs
-the plain version for CPU tensors and the CUDA kernel for CUDA ones;
-graphs too skewed for the ELL layout keep the CSR gather here.
+buffer and the (R, n, D) buffer of a sweep lattice.  The ELL neighbour
+mix goes through kernels/ops.py, which runs the plain version for CPU
+tensors and the CUDA kernel for CUDA ones; graphs too skewed for the ELL
+layout keep the CSR gather here (one run) or the plain stacked-ELL mix
+(a lattice).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core import topology as topo
 from repro_torch.kernels import ref
 
-__all__ = ["ELL_MAX_DEG", "gossip_mix_dense", "make_sparse_gossip"]
+__all__ = ["ELL_MAX_DEG", "gossip_mix_dense", "make_sparse_gossip",
+           "lattice_max_degree", "stacked_ell_tables",
+           "make_sparse_gossip_batched"]
 
 ELL_MAX_DEG = 16  # below this, the padded neighbour loop beats CSR scatter
 
-# y = W x as one (n, n) @ (n, D) matrix product with f32 accumulation: the
-# plain version of kernel #1, which no kernel replaces on the dense path.
+# y = W x as one (n, n) @ (n, D) matrix product with f32 accumulation (one
+# batched product over a lattice's (R, n, n) W): the plain version of
+# kernels #1/#5, which no kernel replaces on the dense path.
 gossip_mix_dense = ref.gossip_mix
 
 
@@ -48,5 +54,59 @@ def make_sparse_gossip(graph: topo.Graph):
         wd = w.to(x.dtype)
         own = torch.diagonal(wd)[:, None] * x
         return own.index_add(0, r, wd[r, s][:, None] * x[s])
+
+    return mix
+
+
+def lattice_max_degree(graphs) -> int:
+    """The max degree over an R-run graph lattice: the shared ELL width."""
+    return max((int(g.degrees.max()) if g.n else 0) for g in graphs)
+
+
+def stacked_ell_tables(graphs):
+    """Per-run ELL neighbour tables of a lattice, stacked.
+
+    Every run's neighbour lists are padded to the lattice's max degree;
+    padded slots point at the row's own index, so a weight of 0 makes them
+    exact +0.0 contributions.
+
+    Returns:
+      (nbr, valid, max_deg): nbr (R, n, max(max_deg, 1)) int32 and valid
+      (same shape) bool marking real edges.
+    """
+    n = graphs[0].n
+    max_deg = max(lattice_max_degree(graphs), 1)
+    nbr = np.tile(np.arange(n, dtype=np.int32)[None, :, None],
+                  (len(graphs), 1, max_deg))
+    valid = np.zeros((len(graphs), n, max_deg), dtype=bool)
+    for r, g in enumerate(graphs):
+        for i in range(n):
+            js = np.flatnonzero(g.adjacency[i])
+            nbr[r, i, :len(js)] = js
+            valid[r, i, :len(js)] = True
+    return nbr, valid, max_deg
+
+
+def make_sparse_gossip_batched(graphs):
+    """Neighbour-only mix over an R-run topology lattice (sweep engine).
+
+    Each run's neighbour list is padded to the lattice's max degree with
+    weight-0 self slots, so every run's slice equals its own single-run
+    ELL mix.  When 0 < max_deg ≤ ELL_MAX_DEG the mix is kernel #6 on CUDA
+    (one launch for all runs); otherwise (an all-edgeless lattice, or one
+    too skewed for the kernel) it is the plain stacked-ELL mix.  A run
+    whose graph has no edges, given W = I, reduces exactly to ``y = x``.
+
+    Returns:
+      mix(w, x) -> y for w (R, n, n), x (R, n, D).
+    """
+    from repro_torch.kernels import ops as kernel_ops
+    if 0 < lattice_max_degree(graphs) <= ELL_MAX_DEG:
+        return kernel_ops.make_sparse_gossip_batched(graphs)
+    nbr, valid, _ = stacked_ell_tables(graphs)
+    tables = kernel_ops.EllTables(nbr, valid)
+
+    def mix(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        return ref.gossip_mix_sparse_batched(*tables.weights(w, x), x)
 
     return mix

@@ -59,23 +59,25 @@ class MixingDistribution:
 
 
 def metropolis_from_uniforms(u: torch.Tensor, adjacency: torch.Tensor,
-                             p_fail: float) -> torch.Tensor:
+                             p_fail) -> torch.Tensor:
     """Metropolis weights on the subgraph whose links survive ``u``.
 
     The upper triangle of ``u`` is mirrored so failures are symmetric; a
     link is live when ``u >= p_fail``.  Rows sum to 1 by the diagonal.
+    Works over leading batch dimensions: a lattice passes (R, n, n) ``u``
+    and adjacency with ``p_fail`` of shape (R, 1, 1), and gets every run's
+    W^t in one call.
     """
-    n = u.shape[0]
     u = torch.triu(u, diagonal=1)
-    u = u + u.T
+    u = u + u.transpose(-1, -2)
     live = adjacency & (u >= p_fail)
-    deg = live.sum(dim=1)
-    dmax = torch.maximum(deg[:, None], deg[None, :])
+    deg = live.sum(dim=-1)
+    dmax = torch.maximum(deg[..., :, None], deg[..., None, :])
     w = torch.where(live, 1.0 / (1.0 + dmax.to(u.dtype)),
                     torch.zeros((), dtype=u.dtype, device=u.device))
-    idx = torch.arange(n, device=u.device)
-    w[idx, idx] = 0.0
-    w[idx, idx] = 1.0 - w.sum(dim=1)
+    diag = torch.diagonal(w, dim1=-2, dim2=-1)
+    diag.zero_()
+    diag.copy_(1.0 - w.sum(dim=-1))
     return w
 
 

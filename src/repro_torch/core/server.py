@@ -7,10 +7,12 @@ broadcasts the average back to every agent (repro/core/server.py).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 __all__ = ["sample_participants", "participant_weights",
-           "aggregate_and_broadcast_flat", "server_round_flat"]
+           "aggregate_and_broadcast_flat", "server_round_flat",
+           "server_round_sweep"]
 
 
 def sample_participants(draws, t: int, n: int, k: int) -> torch.Tensor:
@@ -43,3 +45,23 @@ def server_round_flat(draws, t: int, flat: torch.Tensor,
     """Flat-buffer server round (lines 8–10) on the (n, D) buffer."""
     counts = sample_participants(draws, t, flat.shape[0], k)
     return aggregate_and_broadcast_flat(participant_weights(counts, k), flat)
+
+
+def server_round_sweep(draws, t, flat: torch.Tensor, k: int,
+                       fire) -> torch.Tensor:
+    """The lattice's server round on the (R, n, D) buffer, in place.
+
+    Every run draws its K participants at every step (``draws`` gives an
+    (R, K) block), so the position in the random stream never depends on
+    H; the counts' z_r = Σ_i (c_i/K) x_i is written into the rows of the
+    runs in ``fire`` (those whose (t+1) % h_r == 0) and the other runs'
+    rows are left alone (repro/core/sweep.py:432-443).
+    """
+    r_runs, n = flat.shape[:2]
+    idx = draws.participants(t, n, k).to(flat.device)
+    counts = torch.zeros((r_runs, n), dtype=torch.int32, device=flat.device)
+    counts.scatter_add_(1, idx, torch.ones_like(idx, dtype=torch.int32))
+    weights = participant_weights(counts, k)
+    for r in np.flatnonzero(fire):
+        aggregate_and_broadcast_flat(weights[r], flat[r])
+    return flat

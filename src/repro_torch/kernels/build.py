@@ -33,19 +33,19 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _SIGNATURES = {
     "gossip_mix": {
-        # w, x, y, n, d, stream
-        "gossip_mix_dense": [_P, _P, _P, _I64, _I64, _P],
-        # nbr, wv, wd, max_deg, x, y, n, d, stream
-        "gossip_mix_ell": [_P, _P, _P, _I64, _P, _P, _I64, _I64, _P],
+        # w, x, y, r, n, d, stream
+        "gossip_mix_dense": [_P, _P, _P, _I64, _I64, _I64, _P],
+        # nbr, wv, wd, max_deg, x, y, r, n, d, stream
+        "gossip_mix_ell": [_P, _P, _P, _I64, _P, _P, _I64, _I64, _I64, _P],
     },
     "update_mix": {
-        # w, x, g, m, eta, y, m_out, n, d, beta, nesterov, stream
-        "update_mix_dense": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64,
+        # w, x, g, m, eta, y, m_out, r, n, d, beta, nesterov, stream
+        "update_mix_dense": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
                              ctypes.c_float, ctypes.c_int, _P],
-        # nbr, wv, wd, max_deg, x, g, m, eta, y, m_out, n, d, beta,
+        # nbr, wv, wd, max_deg, x, g, m, eta, y, m_out, r, n, d, beta,
         # nesterov, stream
         "update_mix_ell": [_P, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _I64,
-                           _I64, ctypes.c_float, ctypes.c_int, _P],
+                           _I64, _I64, ctypes.c_float, ctypes.c_int, _P],
     },
 }
 

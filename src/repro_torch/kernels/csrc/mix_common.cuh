@@ -1,10 +1,12 @@
 // Device code shared by gossip_mix.cu and update_mix.cu.
 //
-// Every kernel here computes, per column c of the flat (n, D) buffer,
+// Every kernel here computes, per run r and column c of the (R, n, D)
+// buffer (R = 1 for the single-run kernels, R runs of a sweep lattice for
+// the batched ones),
 //
-//     p_j = local_step(x[j, c], g[j, c], m[j, c])     j = 0 .. n-1
-//     y[i, c] = sum_j W[i, j] p_j                      (dense mix)
-//     y[i, c] = wd[i] p_i + sum_k wv[i, k] p_nbr[i, k] (ELL mix)
+//     p_j = local_step(x[r, j, c], g[r, j, c], m[r, j, c])   j = 0 .. n-1
+//     y[r, i, c] = sum_j W[r, i, j] p_j                        (dense mix)
+//     y[r, i, c] = wd[r, i] p_i + sum_k wv[r, i, k] p_nbr[r, i, k]  (ELL)
 //
 // with local_step the identity (plain gossip), the sgd step or the
 // momentum / nesterov step.  A column needs only its own n values, so a
@@ -27,8 +29,14 @@
 //   * general (8 < n <= kMaxN): p in per-thread shared slots, W or the
 //     ELL tables read through the read-only cache (warp-uniform
 //     addresses, one broadcast transaction each).
-// The ragged edge of D is masked inside the kernel; all offsets are
-// 64-bit (n * D passes 2^31 at n = 16 on the tiny LM).
+// The run is the grid's y index, so one launch covers the whole lattice
+// and a block only ever strides over the tiles of its own run: the W or
+// ELL table it loaded into shared memory is that run's.  The per-column
+// arithmetic does not depend on R, so each run's slice equals the
+// single-run kernel's output on that slice bit for bit (a padded ELL slot
+// adds fmaf(0, p, acc) == acc).  The ragged edge of D is masked inside
+// the kernel; all offsets are 64-bit (R * n * D is 2.5e9 on the tiny-LM
+// lattice of R = 2, n = 8).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -43,17 +51,21 @@ constexpr int kThreads = 128;
 // General path: n * kThreads floats of shared memory per block.
 constexpr int kMaxN = 400;
 
+// Maximum run count: the grid's y dimension.
+constexpr int64_t kMaxR = 65535;
+
 struct Args {
-  const float* w;        // (n, n) dense mixing matrix (dense only)
-  const int32_t* nbr;    // (n, max_deg) ELL neighbour rows (ELL only)
-  const float* wv;       // (n, max_deg) ELL edge weights, 0 on padding
-  const float* wd;       // (n,) diagonal weights W_ii
-  const float* x;        // (n, D) parameters
-  const float* g;        // (n, D) gradients (update kernels)
-  const float* m;        // (n, D) f32 momentum (momentum kernels)
-  const float* eta;      // (1,) f32 step size, read on the device
-  float* y;              // (n, D) mixed output
-  float* m_out;          // (n, D) new momentum (momentum kernels)
+  const float* w;        // (R, n, n) dense mixing matrices (dense only)
+  const int32_t* nbr;    // (R, n, max_deg) ELL neighbour rows (ELL only)
+  const float* wv;       // (R, n, max_deg) ELL edge weights, 0 on padding
+  const float* wd;       // (R, n) diagonal weights W_ii
+  const float* x;        // (R, n, D) parameters
+  const float* g;        // (R, n, D) gradients (update kernels)
+  const float* m;        // (R, n, D) f32 momentum (momentum kernels)
+  const float* eta;      // (R,) f32 step sizes, read on the device
+  float* y;              // (R, n, D) mixed output
+  float* m_out;          // (R, n, D) new momentum (momentum kernels)
+  int64_t r;
   int64_t n;
   int64_t d;
   int64_t max_deg;
@@ -94,6 +106,8 @@ __global__ void __launch_bounds__(kThreads) mix_small_kernel(Args a) {
   const int md = static_cast<int>(a.max_deg);
   const int64_t d = a.d;
   const int tid = threadIdx.x;
+  const int64_t run = blockIdx.y;
+  const int64_t base = run * a.n * d;  // this run's (n, D) slice
 
   __shared__ float ws[ELL ? 1 : NB * NB];
   extern __shared__ float dyn[];
@@ -103,32 +117,39 @@ __global__ void __launch_bounds__(kThreads) mix_small_kernel(Args a) {
   int32_t* nbr_s = reinterpret_cast<int32_t*>(wd_s + NB);  // ELL: n*md
 
   if (!ELL) {
+    const float* w = a.w + run * n * n;
     for (int e = tid; e < NB * NB; e += kThreads) {
       const int i = e / NB, j = e % NB;
-      ws[e] = (i < n && j < n) ? a.w[int64_t(i) * n + j] : 0.f;
+      ws[e] = (i < n && j < n) ? w[i * n + j] : 0.f;
     }
   } else {
+    const int64_t tab = run * n * md;
     for (int e = tid; e < n * md; e += kThreads) {
-      wv_s[e] = a.wv[e];
-      nbr_s[e] = a.nbr[e];
+      wv_s[e] = a.wv[tab + e];
+      nbr_s[e] = a.nbr[tab + e];
     }
-    for (int e = tid; e < n; e += kThreads) wd_s[e] = a.wd[e];
+    for (int e = tid; e < n; e += kThreads) wd_s[e] = a.wd[run * n + e];
   }
   __syncthreads();
 
-  const float eta = (U == kNone) ? 0.f : __ldg(a.eta);
+  const float eta = (U == kNone) ? 0.f : __ldg(a.eta + run);
   const int64_t ntiles = (d + kSmallTile - 1) / kSmallTile;
   for (int64_t t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    // Column c of this thread's tile is off + c * kThreads in row 0 of the
+    // run's slice; it exists while c * kThreads < rem.  One 64-bit offset
+    // per thread, so the run axis costs no register per column.
     const int64_t col0 = t * kSmallTile + tid;
+    const int64_t rem = d - col0;
+    const int64_t off = base + col0;
     if (!ELL) {
       float p[NB][C];
 #pragma unroll
       for (int j = 0; j < NB; ++j) {
 #pragma unroll
         for (int c = 0; c < C; ++c) {
-          const int64_t col = col0 + int64_t(c) * kThreads;
-          p[j][c] = (j < n && col < d) ? local_step<U>(a, j * d + col, eta)
-                                       : 0.f;
+          p[j][c] = (j < n && c * kThreads < rem)
+                        ? local_step<U>(a, off + j * d + c * kThreads, eta)
+                        : 0.f;
         }
       }
       for (int i = 0; i < n; ++i) {
@@ -143,8 +164,8 @@ __global__ void __launch_bounds__(kThreads) mix_small_kernel(Args a) {
         }
 #pragma unroll
         for (int c = 0; c < C; ++c) {
-          const int64_t col = col0 + int64_t(c) * kThreads;
-          if (col < d) __stcs(a.y + i * d + col, acc[c]);
+          if (c * kThreads < rem)
+            __stcs(a.y + off + i * d + c * kThreads, acc[c]);
         }
       }
     } else {
@@ -153,9 +174,10 @@ __global__ void __launch_bounds__(kThreads) mix_small_kernel(Args a) {
         if (j < n) {
 #pragma unroll
           for (int c = 0; c < C; ++c) {
-            const int64_t col = col0 + int64_t(c) * kThreads;
             ps[(j * C + c) * kThreads + tid] =
-                col < d ? local_step<U>(a, j * d + col, eta) : 0.f;
+                c * kThreads < rem
+                    ? local_step<U>(a, off + j * d + c * kThreads, eta)
+                    : 0.f;
           }
         }
       }
@@ -175,8 +197,8 @@ __global__ void __launch_bounds__(kThreads) mix_small_kernel(Args a) {
         }
 #pragma unroll
         for (int c = 0; c < C; ++c) {
-          const int64_t col = col0 + int64_t(c) * kThreads;
-          if (col < d) __stcs(a.y + i * d + col, acc[c]);
+          if (c * kThreads < rem)
+            __stcs(a.y + off + i * d + c * kThreads, acc[c]);
         }
       }
     }
@@ -190,29 +212,33 @@ __global__ void __launch_bounds__(kThreads) mix_general_kernel(Args a) {
   const int md = static_cast<int>(a.max_deg);
   const int64_t d = a.d;
   const int tid = threadIdx.x;
-  const float eta = (U == kNone) ? 0.f : __ldg(a.eta);
+  const int64_t run = blockIdx.y;
+  const int64_t base = run * a.n * d;  // this run's (n, D) slice
+  const float* w = a.w + run * n * n;
+  const int32_t* nbr = a.nbr + run * n * md;
+  const float* wv = a.wv + run * n * md;
+  const float* wd = a.wd + run * n;
+  const float eta = (U == kNone) ? 0.f : __ldg(a.eta + run);
   const int64_t ntiles = (d + kThreads - 1) / kThreads;
   for (int64_t t = blockIdx.x; t < ntiles; t += gridDim.x) {
     const int64_t col = t * kThreads + tid;
     if (col >= d) continue;  // no barrier below: a thread may skip a tile
     for (int j = 0; j < n; ++j)
-      ps[j * kThreads + tid] = local_step<U>(a, j * d + col, eta);
+      ps[j * kThreads + tid] = local_step<U>(a, base + j * d + col, eta);
     for (int i = 0; i < n; ++i) {
       float acc;
       if (ELL) {
-        acc = __ldg(a.wd + i) * ps[i * kThreads + tid];
+        acc = __ldg(wd + i) * ps[i * kThreads + tid];
         for (int k = 0; k < md; ++k) {
-          const int src = __ldg(a.nbr + int64_t(i) * md + k);
-          acc = fmaf(__ldg(a.wv + int64_t(i) * md + k),
-                     ps[src * kThreads + tid], acc);
+          const int src = __ldg(nbr + i * md + k);
+          acc = fmaf(__ldg(wv + i * md + k), ps[src * kThreads + tid], acc);
         }
       } else {
         acc = 0.f;
         for (int j = 0; j < n; ++j)
-          acc = fmaf(__ldg(a.w + int64_t(i) * n + j), ps[j * kThreads + tid],
-                     acc);
+          acc = fmaf(__ldg(w + i * n + j), ps[j * kThreads + tid], acc);
       }
-      __stcs(a.y + i * d + col, acc);
+      __stcs(a.y + base + i * d + col, acc);
     }
   }
 }
@@ -228,7 +254,8 @@ inline int sm_count() {
 }
 
 // One persistent-style grid: as many blocks as fit on the card at once,
-// each striding over the column tiles.
+// shared out over the runs (grid y), each striding over its run's column
+// tiles.
 template <typename Kernel>
 int launch_grid(Kernel kernel, const Args& a, int64_t ntiles, size_t smem,
                 cudaStream_t stream) {
@@ -244,7 +271,9 @@ int launch_grid(Kernel kernel, const Args& a, int64_t ntiles, size_t smem,
   if (e != cudaSuccess) return static_cast<int>(e);
   if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   const int64_t full = int64_t(per_sm) * sm_count();
-  const int grid = static_cast<int>(ntiles < full ? ntiles : full);
+  const int64_t per_run = (full + a.r - 1) / a.r;
+  const dim3 grid(static_cast<unsigned>(ntiles < per_run ? ntiles : per_run),
+                  static_cast<unsigned>(a.r));
   kernel<<<grid, kThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -264,7 +293,7 @@ int launch_small(const Args& a, cudaStream_t stream) {
 
 template <int U, bool ELL>
 int launch_mix(const Args& a, cudaStream_t stream) {
-  if (a.n < 1 || a.n > kMaxN || a.d < 0) {
+  if (a.r < 1 || a.r > kMaxR || a.n < 1 || a.n > kMaxN || a.d < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (ELL && a.max_deg < 1) return static_cast<int>(cudaErrorInvalidValue);

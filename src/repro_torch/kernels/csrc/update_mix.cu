@@ -1,10 +1,18 @@
 // Fused local update + gossip mix: y = W (x - eta g) (sgd), or the
-// momentum / nesterov step that also emits the new f32 momentum m'.
+// momentum / nesterov step that also emits the new f32 momentum m'; for
+// the flat (n, D) buffer, or for the (R, n, D) buffer of an R-run sweep
+// lattice in one launch with per-run W (or ELL tables) and per-run eta.
 //
 // Replaces the TPU kernels repro/kernels/update_mix.py:update_mix_pallas
-// (dense W) and :update_mix_sparse_pallas (ELL neighbour table).
+// (dense W), :update_mix_sparse_pallas (ELL neighbour table), and their
+// run-batched forms :update_mix_batched_pallas and
+// :update_mix_sparse_batched_pallas.  The single-run kernels are the
+// R = 1 case.
+//
 // Bound on the H100: bytes.  sgd reads x and g and writes y (12 B per
-// element); momentum also reads m and writes m' (20 B per element); the
+// element); momentum also reads m and writes m' (20 B per element); at the
+// sweep path's R = 2, n = 8, D = 156,519,168 that is 30.05 GB (8.971 ms at
+// 3.35 TB/s) and 50.09 GB (14.951 ms), twice one run's.  The
 // post-update iterate p is formed on chip and never written, which is the
 // point of the fusion (the unfused pair moves p out and back in: 5 passes
 // instead of 3 for sgd).  Design (mix_common.cuh): a thread owns whole
@@ -14,9 +22,9 @@
 // sequence serves any step-size schedule without a host round trip.
 //
 // Plain C interface for ctypes: pointers and the CUDA stream as void*,
-// sizes as int64.  The step is sgd when m is null, else momentum, or
-// nesterov when the nesterov flag is set.  Each function returns the
-// cudaError_t of its launch.
+// sizes as int64.  eta holds one f32 per run.  The step is sgd when m is
+// null, else momentum, or nesterov when the nesterov flag is set.  Each
+// function returns the cudaError_t of its launch.
 #include "mix_common.cuh"
 
 namespace {
@@ -36,8 +44,8 @@ int launch_step(const feddec::Args& a, int nesterov, cudaStream_t stream) {
 extern "C" int update_mix_dense(const float* w, const float* x,
                                 const float* g, const float* m,
                                 const float* eta, float* y, float* m_out,
-                                int64_t n, int64_t d, float beta, int nesterov,
-                                void* stream) {
+                                int64_t r, int64_t n, int64_t d, float beta,
+                                int nesterov, void* stream) {
   feddec::Args a{};
   a.w = w;
   a.x = x;
@@ -46,6 +54,7 @@ extern "C" int update_mix_dense(const float* w, const float* x,
   a.eta = eta;
   a.y = y;
   a.m_out = m_out;
+  a.r = r;
   a.n = n;
   a.d = d;
   a.beta = beta;
@@ -56,8 +65,8 @@ extern "C" int update_mix_ell(const int32_t* nbr, const float* wv,
                               const float* wd, int64_t max_deg,
                               const float* x, const float* g, const float* m,
                               const float* eta, float* y, float* m_out,
-                              int64_t n, int64_t d, float beta, int nesterov,
-                              void* stream) {
+                              int64_t r, int64_t n, int64_t d, float beta,
+                              int nesterov, void* stream) {
   feddec::Args a{};
   a.nbr = nbr;
   a.wv = wv;
@@ -69,6 +78,7 @@ extern "C" int update_mix_ell(const int32_t* nbr, const float* wv,
   a.eta = eta;
   a.y = y;
   a.m_out = m_out;
+  a.r = r;
   a.n = n;
   a.d = d;
   a.beta = beta;

@@ -6,6 +6,8 @@ kernel built from ``csrc/`` or raises.  There is no fallback from one to
 the other.  Unlike the reference, nothing is padded: the kernels mask the
 ragged edge of D themselves, and reject an n beyond their shared memory
 (``kMaxN`` in ``csrc/mix_common.cuh``) with an error the wrapper raises.
+The batched wrappers (#5–#8) launch the same CUDA functions over the
+leading run axis of an (R, n, D) sweep lattice: one launch for all runs.
 
 Every kernel wrapper carries a ``launches`` counter that it advances by
 one each time its kernel is launched (CPU calls do not count);
@@ -21,9 +23,12 @@ from repro_torch.kernels import build
 from repro_torch.kernels import ref
 
 __all__ = ["gossip_mix", "gossip_mix_sparse", "update_mix",
-           "update_mix_sparse", "ell_table", "ell_weights",
-           "make_sparse_gossip", "make_sparse_update_mix", "launch_counts",
-           "reset_launch_counts"]
+           "update_mix_sparse", "gossip_mix_batched",
+           "gossip_mix_sparse_batched", "update_mix_batched",
+           "update_mix_sparse_batched", "ell_table", "ell_weights",
+           "EllTables", "make_sparse_gossip", "make_sparse_update_mix",
+           "make_sparse_gossip_batched", "make_sparse_update_mix_batched",
+           "launch_counts", "reset_launch_counts"]
 
 
 def _check_buffer(name: str, t: torch.Tensor, shape: tuple) -> None:
@@ -33,6 +38,16 @@ def _check_buffer(name: str, t: torch.Tensor, shape: tuple) -> None:
     if tuple(t.shape) != shape:
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                          f"{shape}")
+
+
+def _lattice(x: torch.Tensor, ndim: int) -> tuple[int, int, int]:
+    """(R, n, D) of an (n, D) buffer (R = 1) or an (R, n, D) lattice."""
+    if x.ndim != ndim:
+        raise ValueError(f"x must be {'(n, D)' if ndim == 2 else '(R, n, D)'}"
+                         f", got shape {tuple(x.shape)}")
+    _check_buffer("x", x, tuple(x.shape))
+    r = 1 if ndim == 2 else x.shape[0]
+    return r, x.shape[-2], x.shape[-1]
 
 
 def _on_cuda(x: torch.Tensor, *others: torch.Tensor) -> bool:
@@ -62,79 +77,75 @@ def _raise_on(rc: int, name: str) -> None:
                            f"cudaError_t {rc}{hint}")
 
 
-def _eta_tensor(eta, x: torch.Tensor) -> torch.Tensor:
+def _eta_tensor(eta, x: torch.Tensor, r: int) -> torch.Tensor:
+    """η as an (r,) f32 tensor on x's device: one step size per run."""
     eta = torch.as_tensor(eta, dtype=torch.float32, device=x.device)
-    if eta.numel() != 1:
-        raise ValueError(f"eta must hold one value, got shape "
-                         f"{tuple(eta.shape)}")
-    return eta.reshape(1)
+    if eta.numel() != r:
+        raise ValueError(f"eta must hold {r} value(s), one per run, got "
+                         f"shape {tuple(eta.shape)}")
+    return eta.reshape(r).contiguous()
 
 
-def _check_ell(nbr, wv, wd, n: int) -> int:
-    if nbr.dtype != torch.int32 or nbr.ndim != 2 or nbr.shape[0] != n:
-        raise ValueError(f"nbr must be (n={n}, max_deg) int32, got "
+def _check_ell(nbr, wv, wd, lead: tuple, n: int) -> int:
+    if (nbr.dtype != torch.int32 or nbr.ndim != len(lead) + 2
+            or tuple(nbr.shape[:-1]) != lead + (n,)):
+        raise ValueError(f"nbr must be {lead + (n,)} + (max_deg,) int32, got "
                          f"{tuple(nbr.shape)} {nbr.dtype}")
-    max_deg = nbr.shape[1]
+    max_deg = nbr.shape[-1]
     if max_deg < 1:
         raise ValueError("the ELL table needs max_deg >= 1")
-    _check_buffer("wv", wv, (n, max_deg))
-    _check_buffer("wd", wd, (n,))
+    _check_buffer("wv", wv, lead + (n, max_deg))
+    _check_buffer("wd", wd, lead + (n,))
     return max_deg
 
 
-def gossip_mix(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """#1 y = W @ X for the (n, D) flat buffer (kernel: gossip_mix.cu)."""
-    n, d = x.shape
-    _check_buffer("x", x, (n, d))
-    _check_buffer("w", w, (n, n))
+def _gossip(fn, ndim, w, x):
+    """Kernels #1 (ndim 2) and #5 (ndim 3): y = W @ X per run."""
+    r, n, d = _lattice(x, ndim)
+    _check_buffer("w", w, x.shape[:-2] + (n, n))
     if not _on_cuda(x, w):
         return ref.gossip_mix(w, x)
     y = torch.empty_like(x)
     lib = build.load().libs["gossip_mix"]
-    rc = lib.gossip_mix_dense(w.data_ptr(), x.data_ptr(), y.data_ptr(), n, d,
-                              _stream(x))
-    _raise_on(rc, "gossip_mix")
-    gossip_mix.launches += 1
+    rc = lib.gossip_mix_dense(w.data_ptr(), x.data_ptr(), y.data_ptr(), r, n,
+                              d, _stream(x))
+    _raise_on(rc, fn.__name__)
+    fn.launches += 1
     return y
 
 
-def gossip_mix_sparse(nbr: torch.Tensor, wv: torch.Tensor, wd: torch.Tensor,
-                      x: torch.Tensor) -> torch.Tensor:
-    """#2 ELL mix y_i = wd_i x_i + Σ_k wv[i, k] x[nbr[i, k]]
-    (kernel: gossip_mix.cu)."""
-    n, d = x.shape
-    _check_buffer("x", x, (n, d))
-    max_deg = _check_ell(nbr, wv, wd, n)
+def _gossip_sparse(fn, ndim, nbr, wv, wd, x):
+    """Kernels #2 and #6: the ELL mix per run."""
+    r, n, d = _lattice(x, ndim)
+    max_deg = _check_ell(nbr, wv, wd, x.shape[:-2], n)
     if not _on_cuda(x, nbr, wv, wd):
         return ref.gossip_mix_sparse(nbr, wv, wd, x)
     y = torch.empty_like(x)
     lib = build.load().libs["gossip_mix"]
     rc = lib.gossip_mix_ell(nbr.data_ptr(), wv.data_ptr(), wd.data_ptr(),
-                            max_deg, x.data_ptr(), y.data_ptr(), n, d,
+                            max_deg, x.data_ptr(), y.data_ptr(), r, n, d,
                             _stream(x))
-    _raise_on(rc, "gossip_mix_sparse")
-    gossip_mix_sparse.launches += 1
+    _raise_on(rc, fn.__name__)
+    fn.launches += 1
     return y
 
 
-def _update_args(x, g, eta, m, beta):
-    n, d = x.shape
-    _check_buffer("x", x, (n, d))
-    _check_buffer("g", g, (n, d))
+def _update_args(ndim, x, g, eta, m, beta):
+    r, n, d = _lattice(x, ndim)
+    _check_buffer("g", g, tuple(x.shape))
     if beta is not None:
         if m is None:
             raise ValueError("momentum step (beta set) needs the buffer m")
-        _check_buffer("m", m, (n, d))
+        _check_buffer("m", m, tuple(x.shape))
     elif m is not None:
         raise ValueError("momentum buffer passed without beta")
-    return n, d, _eta_tensor(eta, x)
+    return r, n, d, _eta_tensor(eta, x, r)
 
 
-def update_mix(w, x, g, eta, m=None, *, beta=None, nesterov=False):
-    """#3 y = W @ (x − η·g), or the momentum/nesterov step emitting
-    (y, m') (kernel: update_mix.cu)."""
-    n, d, eta = _update_args(x, g, eta, m, beta)
-    _check_buffer("w", w, (n, n))
+def _update(fn, ndim, w, x, g, eta, m, beta, nesterov):
+    """Kernels #3 and #7: y = W @ local_step(x, g) per run (and m')."""
+    r, n, d, eta = _update_args(ndim, x, g, eta, m, beta)
+    _check_buffer("w", w, x.shape[:-2] + (n, n))
     extra = () if m is None else (m,)
     if not _on_cuda(x, w, g, eta, *extra):
         return ref.update_mix(w, x, g, eta, m, beta=beta, nesterov=nesterov)
@@ -144,19 +155,18 @@ def update_mix(w, x, g, eta, m=None, *, beta=None, nesterov=False):
     rc = lib.update_mix_dense(
         w.data_ptr(), x.data_ptr(), g.data_ptr(),
         None if m is None else m.data_ptr(), eta.data_ptr(), y.data_ptr(),
-        None if m_out is None else m_out.data_ptr(), n, d,
+        None if m_out is None else m_out.data_ptr(), r, n, d,
         0.0 if beta is None else float(beta),
         int(bool(nesterov)), _stream(x))
-    _raise_on(rc, "update_mix")
-    update_mix.launches += 1
+    _raise_on(rc, fn.__name__)
+    fn.launches += 1
     return y if m is None else (y, m_out)
 
 
-def update_mix_sparse(nbr, wv, wd, x, g, eta, m=None, *, beta=None,
-                      nesterov=False):
-    """#4 the fused step with the ELL mix (kernel: update_mix.cu)."""
-    n, d, eta = _update_args(x, g, eta, m, beta)
-    max_deg = _check_ell(nbr, wv, wd, n)
+def _update_sparse(fn, ndim, nbr, wv, wd, x, g, eta, m, beta, nesterov):
+    """Kernels #4 and #8: the fused step with the ELL mix per run."""
+    r, n, d, eta = _update_args(ndim, x, g, eta, m, beta)
+    max_deg = _check_ell(nbr, wv, wd, x.shape[:-2], n)
     extra = () if m is None else (m,)
     if not _on_cuda(x, nbr, wv, wd, g, eta, *extra):
         return ref.update_mix_sparse(nbr, wv, wd, x, g, eta, m, beta=beta,
@@ -167,16 +177,69 @@ def update_mix_sparse(nbr, wv, wd, x, g, eta, m=None, *, beta=None,
     rc = lib.update_mix_ell(
         nbr.data_ptr(), wv.data_ptr(), wd.data_ptr(), max_deg, x.data_ptr(),
         g.data_ptr(), None if m is None else m.data_ptr(), eta.data_ptr(),
-        y.data_ptr(), None if m_out is None else m_out.data_ptr(), n, d,
+        y.data_ptr(), None if m_out is None else m_out.data_ptr(), r, n, d,
         0.0 if beta is None else float(beta),
         int(bool(nesterov)), _stream(x))
-    _raise_on(rc, "update_mix_sparse")
-    update_mix_sparse.launches += 1
+    _raise_on(rc, fn.__name__)
+    fn.launches += 1
     return y if m is None else (y, m_out)
 
 
+def gossip_mix(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """#1 y = W @ X for the (n, D) flat buffer (kernel: gossip_mix.cu)."""
+    return _gossip(gossip_mix, 2, w, x)
+
+
+def gossip_mix_sparse(nbr: torch.Tensor, wv: torch.Tensor, wd: torch.Tensor,
+                      x: torch.Tensor) -> torch.Tensor:
+    """#2 ELL mix y_i = wd_i x_i + Σ_k wv[i, k] x[nbr[i, k]]
+    (kernel: gossip_mix.cu)."""
+    return _gossip_sparse(gossip_mix_sparse, 2, nbr, wv, wd, x)
+
+
+def update_mix(w, x, g, eta, m=None, *, beta=None, nesterov=False):
+    """#3 y = W @ (x − η·g), or the momentum/nesterov step emitting
+    (y, m') (kernel: update_mix.cu)."""
+    return _update(update_mix, 2, w, x, g, eta, m, beta, nesterov)
+
+
+def update_mix_sparse(nbr, wv, wd, x, g, eta, m=None, *, beta=None,
+                      nesterov=False):
+    """#4 the fused step with the ELL mix (kernel: update_mix.cu)."""
+    return _update_sparse(update_mix_sparse, 2, nbr, wv, wd, x, g, eta, m,
+                          beta, nesterov)
+
+
+def gossip_mix_batched(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """#5 y[r] = W[r] @ X[r] for the (R, n, D) lattice buffer and (R, n, n)
+    W, one launch for all R runs (kernel: gossip_mix.cu)."""
+    return _gossip(gossip_mix_batched, 3, w, x)
+
+
+def gossip_mix_sparse_batched(nbr, wv, wd, x):
+    """#6 the ELL mix per run: nbr/wv (R, n, max_deg) padded to the
+    lattice's max degree, wd (R, n); one launch (kernel: gossip_mix.cu)."""
+    return _gossip_sparse(gossip_mix_sparse_batched, 3, nbr, wv, wd, x)
+
+
+def update_mix_batched(w, x, g, eta, m=None, *, beta=None, nesterov=False):
+    """#7 #3 per run: W (R, n, n), x/g (R, n, D), η (R,), m (R, n, D) f32;
+    one launch (kernel: update_mix.cu)."""
+    return _update(update_mix_batched, 3, w, x, g, eta, m, beta, nesterov)
+
+
+def update_mix_sparse_batched(nbr, wv, wd, x, g, eta, m=None, *, beta=None,
+                              nesterov=False):
+    """#8 #4 per run with per-run ELL tables; one launch
+    (kernel: update_mix.cu)."""
+    return _update_sparse(update_mix_sparse_batched, 3, nbr, wv, wd, x, g,
+                          eta, m, beta, nesterov)
+
+
 _KERNEL_WRAPPERS = (gossip_mix, gossip_mix_sparse, update_mix,
-                    update_mix_sparse)
+                    update_mix_sparse, gossip_mix_batched,
+                    gossip_mix_sparse_batched, update_mix_batched,
+                    update_mix_sparse_batched)
 
 
 def reset_launch_counts() -> None:
@@ -198,33 +261,31 @@ reset_launch_counts()
 
 def ell_table(adjacency) -> tuple[np.ndarray, np.ndarray]:
     """Host-side (nbr, mask), both (n, max_deg): row i lists its neighbours
-    in ascending order; padded slots point at i itself and are masked."""
-    adj = np.asarray(adjacency, dtype=bool)
-    n = adj.shape[0]
-    max_deg = max(int(adj.sum(axis=1).max()) if n else 0, 1)
-    nbr = np.tile(np.arange(n, dtype=np.int32)[:, None], (1, max_deg))
-    mask = np.zeros((n, max_deg), dtype=bool)
-    for i in range(n):
-        js = np.flatnonzero(adj[i])
-        nbr[i, :len(js)] = js
-        mask[i, :len(js)] = True
-    return nbr, mask
+    in ascending order; padded slots point at i itself and are masked (the
+    R = 1 case of core.gossip.stacked_ell_tables)."""
+    from repro_torch.core import gossip as gossip_lib
+    from repro_torch.core import topology
+    nbr, valid, _ = gossip_lib.stacked_ell_tables(
+        [topology.Graph(np.asarray(adjacency, dtype=bool))])
+    return nbr[0], valid[0]
 
 
 def ell_weights(w: torch.Tensor, nbr: torch.Tensor, mask: torch.Tensor):
-    """Live (wv, wd) from the sampled (n, n) W: failed links read 0."""
+    """Live (wv, wd) from the sampled W, (n, n) or (R, n, n): failed links
+    read 0."""
     wf = w.float()
-    wv = torch.where(mask, torch.gather(wf, 1, nbr.long()),
+    wv = torch.where(mask, torch.gather(wf, -1, nbr.long()),
                      torch.zeros((), dtype=wf.dtype, device=wf.device))
-    return wv.contiguous(), torch.diagonal(wf).contiguous()
+    return wv.contiguous(), torch.diagonal(wf, dim1=-2,
+                                           dim2=-1).contiguous()
 
 
-class _EllTables:
-    """The graph's ELL table, moved once to each device that asks for it."""
+class EllTables:
+    """Static ELL tables (nbr, mask), (n, max_deg) for one graph or
+    (R, n, max_deg) for a lattice, moved once to each device that asks."""
 
-    def __init__(self, adjacency):
-        self.nbr, self.mask = ell_table(adjacency)
-        self.n = self.nbr.shape[0]
+    def __init__(self, nbr: np.ndarray, mask: np.ndarray):
+        self.nbr, self.mask = nbr, mask
         self._on = {}
 
     def on(self, device: torch.device):
@@ -234,9 +295,11 @@ class _EllTables:
         return self._on[device]
 
     def weights(self, w: torch.Tensor, x: torch.Tensor):
-        if x.shape[0] != self.n:
-            raise ValueError(f"buffer has {x.shape[0]} rows, graph has "
-                             f"{self.n} agents")
+        """(nbr, wv, wd) on x's device, the weights read from W."""
+        if tuple(x.shape[:-1]) != self.nbr.shape[:-1]:
+            raise ValueError(f"buffer of shape {tuple(x.shape)} does not "
+                             f"match the ELL table's rows "
+                             f"{self.nbr.shape[:-1]}")
         nbr, mask = self.on(x.device)
         wv, wd = ell_weights(w, nbr, mask)
         return nbr, wv, wd
@@ -245,11 +308,10 @@ class _EllTables:
 def make_sparse_gossip(graph):
     """mix(w, x) over the graph's static ELL table (kernel #2 on CUDA),
     reading the live edge weights from the sampled W every call."""
-    tables = _EllTables(graph.adjacency)
+    tables = EllTables(*ell_table(graph.adjacency))
 
     def mix(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        nbr, wv, wd = tables.weights(w, x)
-        return gossip_mix_sparse(nbr, wv, wd, x)
+        return gossip_mix_sparse(*tables.weights(w, x), x)
 
     return mix
 
@@ -257,11 +319,40 @@ def make_sparse_gossip(graph):
 def make_sparse_update_mix(graph, *, beta=None, nesterov=False):
     """fused(w, x, g, eta, m=None) over the graph's ELL table (kernel #4
     on CUDA)."""
-    tables = _EllTables(graph.adjacency)
+    tables = EllTables(*ell_table(graph.adjacency))
 
     def fused(w, x, g, eta, m=None):
-        nbr, wv, wd = tables.weights(w, x)
-        return update_mix_sparse(nbr, wv, wd, x, g, eta, m, beta=beta,
-                                 nesterov=nesterov)
+        return update_mix_sparse(*tables.weights(w, x), x, g, eta, m,
+                                 beta=beta, nesterov=nesterov)
+
+    return fused
+
+
+def _lattice_tables(graphs) -> EllTables:
+    from repro_torch.core import gossip as gossip_lib
+    nbr, valid, _ = gossip_lib.stacked_ell_tables(graphs)
+    return EllTables(nbr, valid)
+
+
+def make_sparse_gossip_batched(graphs):
+    """mix(w, x) for w (R, n, n), x (R, n, D) over the lattice's stacked
+    ELL tables (kernel #6 on CUDA, one launch for all R runs), reading each
+    run's live edge weights from its sampled W every call."""
+    tables = _lattice_tables(graphs)
+
+    def mix(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        return gossip_mix_sparse_batched(*tables.weights(w, x), x)
+
+    return mix
+
+
+def make_sparse_update_mix_batched(graphs, *, beta=None, nesterov=False):
+    """fused(w, x, g, eta, m=None) over the lattice's stacked ELL tables
+    (kernel #8 on CUDA); η holds one value per run."""
+    tables = _lattice_tables(graphs)
+
+    def fused(w, x, g, eta, m=None):
+        return update_mix_sparse_batched(*tables.weights(w, x), x, g, eta, m,
+                                         beta=beta, nesterov=nesterov)
 
     return fused

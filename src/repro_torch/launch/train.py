@@ -1,19 +1,23 @@
 """Federated LM training driver of the port (repro/launch/train.py).
 
 Runs Algorithm 1 on the tiny dense LM over synthetic heterogeneous
-per-agent token streams, on the flat (n_agents, D) buffer, on one device.
-The gossip mix and the fused update+mix run through the hand-written CUDA
-kernels (``--gossip-impl pallas|sparse``, ``--fuse-update-mix``).  Runs on
-``cuda`` unless ``--device cpu`` is given, and fails without a card.
+per-agent token streams, on the flat (n_agents, D) buffer, on one device;
+with ``--sweep-runs R`` it trains an R-run lattice (over seeds, H or
+topologies, ``--sweep-axis``) on one (R, n_agents, D) buffer.  The gossip
+mix and the fused update+mix run through the hand-written CUDA kernels
+(``--gossip-impl pallas|sparse``, ``--fuse-update-mix``; their batched
+forms on a lattice).  Runs on ``cuda`` unless ``--device cpu`` is given,
+and fails without a card.
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.train --gossip-impl pallas \\
-      --fuse-update-mix --steps 10
+      --fuse-update-mix --steps 10 [--sweep-runs 2 --sweep-axis h]
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -22,15 +26,16 @@ import torch
 from repro_torch import optim
 from repro_torch.configs.base import ArchConfig, FedConfig
 from repro_torch.core import flat as flat_lib
+from repro_torch.core import sweep as sweep_lib
 from repro_torch.core import topology as topo
-from repro_torch.core.draws import Draws
+from repro_torch.core.draws import Draws, SweepDraws
 from repro_torch.core.feddec import FedAvgConfig, FedDecConfig
 from repro_torch.core.mixing import MixingDistribution
 from repro_torch.data.federated_lm import make_federated_lm
 from repro_torch.models import build_model
 
-__all__ = ["tiny_lm_config", "build_fed_setup", "resolve_device",
-           "train_loop", "main"]
+__all__ = ["tiny_lm_config", "build_fed_setup", "sweep_lattice_configs",
+           "resolve_device", "train_loop", "main"]
 
 
 def tiny_lm_config(d_model: int = 768, layers: int = 12,
@@ -65,6 +70,45 @@ def build_fed_setup(fed: FedConfig) -> tuple[FedDecConfig, int]:
     return fcfg, n
 
 
+def sweep_lattice_configs(fcfg: FedDecConfig, fed: FedConfig | None,
+                          sweep_runs: int,
+                          sweep_axis: str = "seed") -> list:
+    """Per-run FedDecConfigs for a --sweep-runs lattice
+    (repro/launch/steps.py:86-122).
+
+    ``seed``     — R replicas of the base config (the runs differ only in
+                   their random draws);
+    ``h``        — doubling server-period lattice H·{1, 2, 4, …};
+    ``topology`` — R independent draws of the base graph family (geo/er
+                   re-drawn with seed = run index; deterministic families
+                   have nothing to sweep and are rejected).
+    """
+    fed = fed or FedConfig()
+    if sweep_axis == "seed":
+        return [fcfg] * sweep_runs
+    if sweep_axis == "h":
+        return [dataclasses.replace(fcfg, h=fcfg.h * (1 << r))
+                for r in range(sweep_runs)]
+    if sweep_axis == "topology":
+        n = fcfg.n_agents
+        if fed.graph.startswith("geo"):
+            graphs = [topo.geographic_graph(n, float(fed.graph[3:]), seed=r)
+                      for r in range(sweep_runs)]
+        elif fed.graph.startswith("er"):
+            graphs = [topo.erdos_renyi_graph(n, float(fed.graph[2:]), seed=r)
+                      for r in range(sweep_runs)]
+        else:
+            raise ValueError(
+                f"--sweep-axis topology needs a random graph family "
+                f"(geoR/erP), got {fed.graph!r}")
+        return [dataclasses.replace(
+            fcfg, mixing=MixingDistribution(g, p_fail=fed.p_fail,
+                                            scheme="metropolis"))
+            for g in graphs]
+    raise ValueError(f"unknown sweep_axis {sweep_axis!r}; choose "
+                     f"seed|h|topology")
+
+
 def resolve_device(device) -> torch.device:
     """The device to run on; a CUDA request without a card fails."""
     device = torch.device(device)
@@ -79,23 +123,31 @@ def train_loop(cfg: ArchConfig, fed: FedConfig, *, steps: int,
                per_agent_batch: int, seq_len: int, lr: float = 3e-3,
                optimizer: str = "sgd", fedavg_control: bool = False,
                fused: bool = True, fuse_update_mix: bool = False,
+               sweep_runs: int | None = None, sweep_axis: str = "seed",
                log_every: int = 10, seed: int = 0, data_alpha: float = 0.3,
                device="cuda", draws=None, params0: dict | None = None,
-               timing: dict | None = None):
+               timing: dict | None = None, keep_lattice: bool = False):
     """Run FedDec training; returns (final FlatFedState, loss_history).
 
     ``fused=True`` runs one H-step round per call (a Python loop over the
     round's steps); ``fused=False`` calls the one-step executor per
     iteration.  Both run the same step body, so their trajectories agree.
-    ``draws`` (default ``Draws(seed, device)``) makes every random draw;
-    ``params0`` replaces the random initial weights.  A ``timing`` dict
-    receives ``setup_s`` and ``loop_s``, host-clock seconds; the loop ends
-    by reading the losses back, which waits for the device.
+    ``sweep_runs=R`` trains the R-run lattice of ``sweep_axis`` on one
+    (R, n, D) buffer from one shared data stream; the loss history is the
+    lattice mean per step, and the state returned is run 0's (the whole
+    SweepFedState with ``keep_lattice``).  ``draws`` (default
+    ``Draws(seed, device)``, or ``SweepDraws`` for a lattice) makes every
+    random draw; ``params0`` replaces the random initial weights.  A
+    ``timing`` dict receives ``setup_s`` and ``loop_s``, host-clock
+    seconds; the loop ends by reading the losses back, which waits for
+    the device.
     """
     t_setup = time.perf_counter()
     if optimizer not in ("sgd", "momentum"):
         raise ValueError(f"optimizer {optimizer!r} is not ported; choose "
                          f"sgd or momentum")
+    if sweep_runs is not None and not fused:
+        raise ValueError("--sweep-runs requires the fused executor")
     device = resolve_device(device)
     model = build_model(cfg)
     fcfg, n_agents = build_fed_setup(fed)
@@ -105,27 +157,39 @@ def train_loop(cfg: ArchConfig, fed: FedConfig, *, steps: int,
     eta = torch.full((1,), lr, dtype=torch.float32, device=device)
     lr_fn = lambda t: eta  # noqa: E731  (constant; stays on the device)
     if draws is None:
-        draws = Draws(seed, device)
+        draws = Draws(seed, device) if sweep_runs is None else SweepDraws(
+            seed, device, sweep_runs, per_run=sweep_axis == "seed")
 
     data = make_federated_lm(cfg.vocab_size, n_agents, seq_len, draws,
                              alpha=data_alpha)
     if params0 is None:
         params0 = model.init(draws)
     spec = flat_lib.make_flat_spec(params0)
-    state = flat_lib.init_flat_state(spec, params0, n_agents, optimizer=opt)
     kwargs = dict(device=device, optimizer=opt,
                   fuse_update_mix=fuse_update_mix)
-    if fused:
-        round_fn = flat_lib.make_flat_feddec_round(fcfg, spec, model.loss,
-                                                   lr_fn, **kwargs)
+    if sweep_runs is not None:
+        plan = sweep_lib.make_sweep_plan(
+            sweep_lattice_configs(fcfg, fed, sweep_runs, sweep_axis))
+        state = sweep_lib.init_sweep_state(plan, spec, params0, optimizer=opt)
+        round_fn = sweep_lib.make_sweep_feddec_round(plan, spec, model.loss,
+                                                     lr_fn, **kwargs)
     else:
-        step = flat_lib.make_flat_feddec_step(fcfg, spec, model.loss, lr_fn,
-                                              **kwargs)
+        state = flat_lib.init_flat_state(spec, params0, n_agents,
+                                         optimizer=opt)
+        if fused:
+            round_fn = flat_lib.make_flat_feddec_round(fcfg, spec, model.loss,
+                                                       lr_fn, **kwargs)
+        else:
+            step = flat_lib.make_flat_feddec_step(fcfg, spec, model.loss,
+                                                  lr_fn, **kwargs)
 
     print(f"[train] {cfg.name}: {model.param_count(params0):,} params × "
           f"{n_agents} agents, graph={fed.graph}, H={fed.h}, K={fcfg.k}, "
           f"opt={optimizer}, executor={'fused' if fused else 'per-step'}, "
-          f"layout=flat, gossip={fcfg.gossip_impl}"
+          f"layout=flat"
+          + (f" (sweep lattice R={sweep_runs} axis={sweep_axis})"
+             if sweep_runs else "")
+          + f", gossip={fcfg.gossip_impl}"
           + (", fused-update-mix" if fuse_update_mix else "")
           + f", device={device}")
 
@@ -149,8 +213,15 @@ def train_loop(cfg: ArchConfig, fed: FedConfig, *, steps: int,
             batches = {"tokens": tokens,
                        "positions": positions.expand(
                            (chunk,) + positions.shape)}
+            if sweep_runs is not None:
+                # one shared data stream, broadcast to every run
+                batches = {k: v[:, None].expand(
+                    (chunk, sweep_runs) + v.shape[1:])
+                    for k, v in batches.items()}
             state, metrics = round_fn(state, batches, draws)
-            losses.extend(metrics["loss"].tolist())
+            loss = metrics["loss"]
+            losses.extend((loss if sweep_runs is None
+                           else loss.mean(dim=1)).tolist())
             done += chunk
             log(done - chunk, done)
     else:
@@ -163,11 +234,16 @@ def train_loop(cfg: ArchConfig, fed: FedConfig, *, steps: int,
     if timing is not None:
         timing["setup_s"] = t_loop - t_setup
         timing["loop_s"] = time.perf_counter() - t_loop
+    if sweep_runs is not None:
+        finals = metrics["loss"][-1].tolist()
+        print("[train] sweep finals (last-step loss per run): "
+              + ", ".join(f"r{r}={v:.4f}" for r, v in enumerate(finals)))
+        if not keep_lattice:
+            state = sweep_lib.slice_run(state, 0)
     return state, losses
 
 
-_NOT_PORTED = ("--mesh-agents", "--mesh-model", "--sweep-runs", "--n-total",
-               "--ckpt-dir")
+_NOT_PORTED = ("--mesh-agents", "--mesh-model", "--n-total", "--ckpt-dir")
 
 
 def main(argv=None) -> None:
@@ -203,6 +279,13 @@ def main(argv=None) -> None:
     p.add_argument("--fuse-update-mix", action="store_true",
                    help="fuse the optimizer update with the gossip mix "
                         "(CUDA kernels #3/#4); sgd/momentum")
+    p.add_argument("--sweep-runs", type=int, default=None, metavar="R",
+                   help="train R runs as one (R, n, D) lattice (the "
+                        "batched kernels #5-#8 on CUDA)")
+    p.add_argument("--sweep-axis", default="seed",
+                   choices=["seed", "h", "topology"],
+                   help="what the lattice's runs differ in: their draws, "
+                        "H·{1,2,4,...}, or geo/er graphs drawn with seed r")
     p.add_argument("--gossip-compress", default="none", metavar="SPEC")
     p.add_argument("--delta", default="none", metavar="SPEC")
     for flag in _NOT_PORTED:
@@ -214,6 +297,9 @@ def main(argv=None) -> None:
                    help="cuda (default) or cpu")
     args = p.parse_args(argv)
 
+    if args.sweep_runs is not None and args.state_layout != "flat":
+        raise ValueError("--sweep-runs batches the flat (n_agents, D) "
+                         "buffer; it requires --state-layout flat")
     rejected = [flag for flag in _NOT_PORTED
                 if getattr(args, flag[2:].replace("-", "_")) is not None]
     rejected += [f"--{name.replace('_', '-')} {getattr(args, name)}"
@@ -237,7 +323,8 @@ def main(argv=None) -> None:
         cfg, fed, steps=args.steps, per_agent_batch=args.batch,
         seq_len=args.seq, lr=args.lr, optimizer=args.optimizer,
         fedavg_control=args.fedavg, fused=args.fused,
-        fuse_update_mix=args.fuse_update_mix, device=args.device)
+        fuse_update_mix=args.fuse_update_mix, sweep_runs=args.sweep_runs,
+        sweep_axis=args.sweep_axis, device=args.device)
     first = np.mean(losses[:5])
     last = np.mean(losses[-5:])
     print(f"[train] done: loss {first:.4f} → {last:.4f} "

@@ -1,4 +1,4 @@
-"""The port's kernels #1–#4 against the JAX package's Pallas kernels.
+"""The port's kernels #1–#8 against the JAX package's Pallas kernels.
 
 On the CPU the port's wrappers run the plain versions (kernels/ref.py);
 the reference runs its Pallas kernels in interpret mode, as its own tests
@@ -110,6 +110,110 @@ def test_update_mix_sparse_plain_matches_pallas(n, d, opt):
         assert _close(got[1], want[1]) <= TOL
 
 
+BATCHED_SHAPES = [(1, 5, 777), (3, 8, 3001), (2, 13, 1031)]
+
+
+def _lattice_graphs(r: int, n: int):
+    """(reference graphs, port graphs): per-run topologies of different
+    degrees, the last one edgeless when R > 1."""
+    graphs = [ref_topo.ring_graph(n, k=1 + (i % 2)) for i in range(r)]
+    if r > 1:
+        graphs[-1] = ref_topo.Graph(np.zeros((n, n), dtype=bool))
+    return graphs, [topo.Graph(g.adjacency) for g in graphs]
+
+
+def _batched_inputs(r: int, n: int, d: int, seed: int):
+    rng = np.random.default_rng(seed)
+    w = rng.random((r, n, n)).astype(np.float32)
+    x, g, m = (rng.standard_normal((r, n, d)).astype(np.float32)
+               for _ in range(3))
+    eta = (0.05 * (1 + np.arange(r))).astype(np.float32)
+    return w, x, g, m, eta
+
+
+@pytest.mark.parametrize("r,n,d", BATCHED_SHAPES)
+def test_gossip_mix_batched_plain_matches_pallas(r, n, d):
+    w, x, _, _, _ = _batched_inputs(r, n, d, seed=4)
+    want = ref_ops.gossip_mix_batched(jnp.asarray(w), jnp.asarray(x))
+    got = ops.gossip_mix_batched(torch.from_numpy(w), torch.from_numpy(x))
+    assert got.shape == (r, n, d) and _close(got, want) <= TOL
+
+
+@pytest.mark.parametrize("r,n,d", BATCHED_SHAPES)
+def test_gossip_mix_sparse_batched_plain_matches_pallas(r, n, d):
+    w, x, _, _, _ = _batched_inputs(r, n, d, seed=5)
+    ref_graphs, graphs = _lattice_graphs(r, n)
+    want = ref_ops.make_sparse_gossip_batched_pallas(ref_graphs)(
+        jnp.asarray(w), jnp.asarray(x))
+    got = ops.make_sparse_gossip_batched(graphs)(torch.from_numpy(w),
+                                                 torch.from_numpy(x))
+    assert _close(got, want) <= TOL
+
+
+@pytest.mark.parametrize("r,n,d", BATCHED_SHAPES)
+@pytest.mark.parametrize("opt", ["sgd", "momentum", "nesterov"])
+def test_update_mix_batched_plain_matches_pallas(r, n, d, opt):
+    w, x, g, m, eta = _batched_inputs(r, n, d, seed=6)
+    beta = None if opt == "sgd" else 0.9
+    kw = {"beta": beta, "nesterov": opt == "nesterov"}
+    want = ref_ops.update_mix_batched(
+        jnp.asarray(w), jnp.asarray(x), jnp.asarray(g), jnp.asarray(eta),
+        m=None if beta is None else jnp.asarray(m), **kw)
+    got = ops.update_mix_batched(
+        torch.from_numpy(w), torch.from_numpy(x), torch.from_numpy(g),
+        torch.from_numpy(eta), None if beta is None else torch.from_numpy(m),
+        **kw)
+    for a, b in zip(got if beta else (got,), want if beta else (want,)):
+        assert _close(a, b) <= TOL
+
+
+@pytest.mark.parametrize("r,n,d", BATCHED_SHAPES)
+@pytest.mark.parametrize("opt", ["sgd", "momentum", "nesterov"])
+def test_update_mix_sparse_batched_plain_matches_pallas(r, n, d, opt):
+    w, x, g, m, eta = _batched_inputs(r, n, d, seed=7)
+    ref_graphs, graphs = _lattice_graphs(r, n)
+    beta = None if opt == "sgd" else 0.9
+    nesterov = opt == "nesterov"
+    want = ref_ops.make_sparse_update_mix_batched_pallas(
+        ref_graphs, beta=beta, nesterov=nesterov)(
+        jnp.asarray(w), jnp.asarray(x), jnp.asarray(g), jnp.asarray(eta),
+        None if beta is None else jnp.asarray(m))
+    got = ops.make_sparse_update_mix_batched(
+        graphs, beta=beta, nesterov=nesterov)(
+        torch.from_numpy(w), torch.from_numpy(x), torch.from_numpy(g),
+        torch.from_numpy(eta), None if beta is None else torch.from_numpy(m))
+    for a, b in zip(got if beta else (got,), want if beta else (want,)):
+        assert _close(a, b) <= TOL
+
+
+@pytest.mark.parametrize("kernel", ["gossip", "sparse", "update",
+                                    "update_sparse"])
+def test_batched_plain_slices_equal_single_run(kernel):
+    """Each run's slice of a batched plain version is the single-run plain
+    version on that slice, with that run's η and (unpadded) ELL table."""
+    r, n, d = 3, 8, 301
+    w, x, g, m, eta = map(torch.from_numpy, _batched_inputs(r, n, d, 8))
+    _, graphs = _lattice_graphs(r, n)
+    if kernel == "gossip":
+        y = ops.gossip_mix_batched(w, x)
+        each = [ops.gossip_mix(w[i], x[i]) for i in range(r)]
+    elif kernel == "sparse":
+        y = ops.make_sparse_gossip_batched(graphs)(w, x)
+        each = [ops.make_sparse_gossip(gr)(w[i], x[i])
+                for i, gr in enumerate(graphs)]
+    elif kernel == "update":
+        y, _ = ops.update_mix_batched(w, x, g, eta, m, beta=0.9)
+        each = [ops.update_mix(w[i], x[i], g[i], eta[i:i + 1], m[i],
+                               beta=0.9)[0] for i in range(r)]
+    else:
+        y = ops.make_sparse_update_mix_batched(graphs)(w, x, g, eta)
+        each = [ops.make_sparse_update_mix(gr)(w[i], x[i], g[i],
+                                               eta[i:i + 1])
+                for i, gr in enumerate(graphs)]
+    for i in range(r):
+        assert torch.equal(y[i], each[i])
+
+
 @pytest.mark.parametrize("n", [1, 5, 8, 13])
 def test_ell_table_matches_reference_unpadded(n):
     ref_graph, graph = _graph(n)
@@ -126,8 +230,32 @@ def test_cpu_calls_do_not_count_as_launches():
     tw, tx, tg, tm = map(torch.from_numpy, (w, x, g, m))
     ops.gossip_mix(tw, tx)
     ops.update_mix(tw, tx, tg, torch.tensor([0.1]), tm, beta=0.9)
-    assert ops.launch_counts() == {"gossip_mix": 0, "gossip_mix_sparse": 0,
-                                   "update_mix": 0, "update_mix_sparse": 0}
+    ops.gossip_mix_batched(tw[None], tx[None])
+    ops.update_mix_batched(tw[None], tx[None], tg[None], torch.tensor([0.1]),
+                           tm[None], beta=0.9)
+    assert ops.launch_counts() == {
+        name: 0 for name in ("gossip_mix", "gossip_mix_sparse", "update_mix",
+                             "update_mix_sparse", "gossip_mix_batched",
+                             "gossip_mix_sparse_batched",
+                             "update_mix_batched",
+                             "update_mix_sparse_batched")}
+
+
+@pytest.mark.parametrize("bad", ["rank", "w_shape", "eta_shape",
+                                 "ell_shape"])
+def test_batched_wrappers_reject_what_the_kernels_do_not_take(bad):
+    w, x, g, m, eta = map(torch.from_numpy, _batched_inputs(2, 4, 33, 9))
+    nbr = torch.zeros(2, 4, 1, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        if bad == "rank":
+            ops.gossip_mix_batched(w[0], x[0])
+        elif bad == "w_shape":
+            ops.gossip_mix_batched(w[:1], x)
+        elif bad == "eta_shape":
+            ops.update_mix_batched(w, x, g, torch.tensor([0.1, 0.2, 0.3]))
+        else:
+            ops.gossip_mix_sparse_batched(nbr[:1], torch.zeros(1, 4, 1),
+                                          torch.ones(1, 4), x)
 
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "m_without_beta",

@@ -6,7 +6,10 @@ on 4 agents for 4 steps with H = 2, ``--gossip-impl pallas
 (carried as numpy) and a replay of the reference's draws: the tokens
 rebuilt as repro/launch/train.py draws them, and the server's K draws
 from ``split(fold_in(step_key, t), 3)``.  Per-step losses agree to 1e-5
-relative.  The CLI's rejections and its device default are checked too.
+relative.  The same holds for the sweep lattice (``sweep_runs=2`` on the
+seed and h axes), whose draws replay the reference's per-run keys.  The
+CLI's rejections, its sweep errors and its device default are checked
+too.
 """
 
 from __future__ import annotations
@@ -57,6 +60,61 @@ class ReplayTrainDraws(Draws):
     def participants(self, t, n, k):
         idx = jax.random.randint(self._keys(t)[2], (k,), 0, n)
         return torch.from_numpy(np.array(idx).astype(np.int64))
+
+
+class ReplaySweepTrainDraws(ReplayTrainDraws):
+    """The reference sweep trainer's draws (repro/launch/train.py:274-280,
+    repro/core/sweep.py:330-333): run r keys its step t by
+    ``split(fold_in(key_r, t), 3)``, with key_r = fold_in(step_key, r) on
+    the seed axis and step_key itself on the h and topology axes."""
+
+    def __init__(self, seed: int, data, r_runs: int, axis: str):
+        super().__init__(seed, data)
+        self.run_keys = [jax.random.fold_in(self.step_key, r)
+                         if axis == "seed" else self.step_key
+                         for r in range(r_runs)]
+
+    def _run_key(self, r, t, which):
+        return jax.random.split(
+            jax.random.fold_in(self.run_keys[r], int(t[r])), 3)[which]
+
+    def link_uniforms(self, t, n):
+        return torch.from_numpy(np.stack([np.asarray(jax.random.uniform(
+            self._run_key(r, t, 0), (n, n))) for r in range(len(t))]))
+
+    def participants(self, t, n, k):
+        return torch.from_numpy(np.stack([np.asarray(jax.random.randint(
+            self._run_key(r, t, 2), (k,), 0, n))
+            for r in range(len(t))]).astype(np.int64))
+
+
+@pytest.mark.parametrize("axis,impl,fuse,opt,p_fail", [
+    ("seed", "pallas", True, "momentum", 0.3),
+    ("h", "sparse", False, "sgd", 0.0)])
+def test_sweep_train_loop_matches_reference_losses(axis, impl, fuse, opt,
+                                                   p_fail):
+    seed = 1
+    ref_cfg = ref_train.tiny_lm_config(D_MODEL, LAYERS, vocab=VOCAB)
+    fed = dict(n_agents=N, h=H, k=K, graph="ring2", p_fail=p_fail,
+               gossip_impl=impl)
+    kw = dict(steps=4, per_agent_batch=BATCH, seq_len=SEQ, fused=True,
+              fuse_update_mix=fuse, optimizer=opt, log_every=0, seed=seed,
+              sweep_runs=2, sweep_axis=axis)
+    _, ref_losses = ref_train.train_loop(ref_cfg, RefFedConfig(**fed),
+                                         state_layout="flat", **kw)
+
+    params0 = jax.jit(ref_build_model(ref_cfg).init)(jax.random.key(seed))
+    draws = ReplaySweepTrainDraws(
+        seed, ref_make_data(VOCAB, N, SEQ, alpha=0.3, seed=seed), 2, axis)
+    state, losses = port_train.train_loop(
+        port_train.tiny_lm_config(D_MODEL, LAYERS, vocab=VOCAB),
+        FedConfig(**fed), device="cpu", draws=draws,
+        params0=flat_lib.params_from_numpy(jax.tree.map(np.asarray,
+                                                        params0)), **kw)
+    assert len(losses) == len(ref_losses) == 4
+    np.testing.assert_allclose(losses, ref_losses, rtol=1e-5)
+    assert state.step == 5 and state.flat.shape[0] == N
+    assert torch.isfinite(state.flat).all()
 
 
 def test_train_loop_matches_reference_losses():
@@ -133,8 +191,49 @@ def test_cli_runs_on_cpu_and_prints_the_reference_lines(capsys):
     assert "fused-update-mix" in out and "[train] done: loss " in out
 
 
+def test_cli_runs_a_sweep_lattice_on_cpu(capsys):
+    port_train.main(["--device", "cpu", "--steps", "2", "--agents", "3",
+                     "--batch", "1", "--seq", "8", "--d-model", "64",
+                     "--layers", "1", "--vocab", "64", "--h", "1",
+                     "--gossip-impl", "pallas", "--sweep-runs", "2",
+                     "--sweep-axis", "h"])
+    out = capsys.readouterr().out
+    assert "(sweep lattice R=2 axis=h)" in out
+    assert "[train] sweep finals (last-step loss per run): r0=" in out
+    assert ", r1=" in out and "[train] done: loss " in out
+
+
+def test_train_loop_keeps_the_lattice_on_request():
+    state, _ = _small_run(sweep_runs=3, sweep_axis="seed", keep_lattice=True)
+    assert state.flat.shape[:2] == (3, 3) and list(state.step) == [5] * 3
+
+
+@pytest.mark.parametrize("case", ["per-step", "topology-ring2", "tree"])
+def test_cli_sweep_errors_are_the_reference_messages(case):
+    small = ["--steps", "1", "--agents", "3", "--batch", "1", "--seq", "8",
+             "--d-model", "64", "--layers", "1", "--vocab", "64",
+             "--sweep-runs", "2"]
+    extra, ref_kw = {
+        "per-step": (["--per-step"], dict(fused=False)),
+        "topology-ring2": (["--sweep-axis", "topology"],
+                           dict(sweep_axis="topology")),
+        "tree": (["--state-layout", "tree"], dict(state_layout="tree")),
+    }[case]
+    ref_kw = {"state_layout": "flat", "fused": True, **ref_kw}
+    with pytest.raises(ValueError) as ref_err:
+        ref_train.train_loop(ref_train.tiny_lm_config(64, 1, vocab=64),
+                             RefFedConfig(n_agents=3, h=10, k=2,
+                                          graph="ring2"),
+                             steps=1, per_agent_batch=1, seq_len=8,
+                             log_every=0, sweep_runs=2, **ref_kw)
+    with pytest.raises(ValueError) as err:
+        port_train.main(["--device", "cpu", *small, *extra])
+    assert str(err.value) == str(ref_err.value)
+
+
 @pytest.mark.parametrize("argv", [
-    ["--mesh-agents", "2"], ["--mesh-model", "2"], ["--sweep-runs", "2"],
+    ["--mesh-agents", "2"], ["--mesh-model", "2"],
+    ["--sweep-runs", "2", "--gossip-compress", "int8"],
     ["--gossip-compress", "int8"], ["--delta", "full"], ["--n-total", "64"],
     ["--state-layout", "tree"], ["--optimizer", "adamw"],
     ["--ckpt-dir", "ckpt"], ["--arch", "qwen1.5-4b"]])
