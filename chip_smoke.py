@@ -16,7 +16,10 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
      kernel, plain-version and library times (CUDA events) at full shape;
      then the batched kernels #5–#8 of the sweep lattice the same way, at
      ragged (R, n, D) and at R = 2, n = 8, D = 156,519,168, and each run's
-     slice against the single-run kernel on that slice (to 0.0);
+     slice against the single-run kernel on that slice (to 0.0); then the
+     compressed-gossip kernels #9, #11, #13, #14 at the ragged shapes and
+     at full shape, y within 1e-5·max|y| and the residual r (#9, #11) and
+     the int8 payload q (#13) equal to the plain version's (0.0);
   4. training: the full-size tiny LM, 8 agents, ring2, H = 10, K = 2,
      batch 2, seq 128, 10 steps, on paths (a) --gossip-impl pallas,
      (b) sparse, (c) pallas --fuse-update-mix --optimizer momentum,
@@ -28,9 +31,14 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
      --fuse-update-mix --optimizer momentum, (h) --sweep-axis topology
      geo0.5 --p-fail 0.1 sparse --fuse-update-mix, each launching its
      batched kernel once per lattice step, and (e) again with dense
-     gossip, which must end on the same lattice buffer.  Each path runs
-     one untimed warm-up round first, so its step time is that of warm
-     steps;
+     gossip, which must end on the same lattice buffer.  Then compressed
+     gossip with error feedback (--gossip-compress) on the flat trainer:
+     (i) int8 pallas, launching #14; (j) int8 pallas --fuse-update-mix
+     --optimizer momentum, #9; (k) int8 sparse --fuse-update-mix, #11;
+     (l) identity pallas, #1, which must end on path (a)'s flat buffer
+     (difference 0.0) with an all-zero residual; (m) topk:0.1 pallas
+     --fuse-update-mix, #9.  Each path runs one untimed warm-up round
+     first, so its step time is that of warm steps;
   5. profile: path (c) once more under torch.profiler, for the device
      time per step by kernel group against the unprofiled step time; the
      set-up's device work is measured apart and taken out.
@@ -78,8 +86,18 @@ REPLACES = {
     "update_mix_batched": "src/repro/kernels/update_mix.py:157",
     "update_mix_sparse_batched": "src/repro/kernels/update_mix.py:279",
 }
-SOURCES = {k: f"src/repro_torch/kernels/csrc/{k.split('_mix')[0]}_mix.cu"
-           for k in REPLACES}
+# the compressed-gossip kernels (#9, #11, #13, #14), one variant each
+COMPRESSED = {"ef_mix": "ef", "ef_mix_sparse": "ef", "quant_mix": "int8",
+              "dequant_mix": "int8"}
+REPLACES.update({
+    "ef_mix": "src/repro/kernels/update_mix.py:330",
+    "ef_mix_sparse": "src/repro/kernels/update_mix.py:397",
+    "quant_mix": "src/repro/kernels/compress_mix.py:61",
+    "dequant_mix": "src/repro/kernels/compress_mix.py:101",
+})
+SOURCES = {k: "src/repro_torch/kernels/csrc/"
+           + ("compress_mix.cu" if k in COMPRESSED
+              else f"{k.split('_mix')[0]}_mix.cu") for k in REPLACES}
 # training path -> (gossip impl, fuse, optimizer, the kernel it launches)
 PATHS = {
     "a": ("pallas", False, "sgd", "gossip_mix"),
@@ -98,13 +116,22 @@ SWEEP_PATHS = {
     "h": ("topology", "geo0.5", 0.1, "sparse", True, "sgd",
           "update_mix_sparse_batched"),
 }
+# compressed flat path -> (gossip impl, fuse, optimizer, codec, the kernel
+# it launches)
+COMPRESS_PATHS = {
+    "i": ("pallas", False, "sgd", "int8", "dequant_mix"),
+    "j": ("pallas", True, "momentum", "int8", "ef_mix"),
+    "k": ("sparse", True, "sgd", "int8", "ef_mix_sparse"),
+    "l": ("pallas", False, "sgd", "identity", "gossip_mix"),
+    "m": ("pallas", True, "sgd", "topk:0.1", "ef_mix"),
+}
 # the variant each kernel runs on its training path (timed in the line)
 PATH_VARIANT = {"gossip_mix": "gossip", "gossip_mix_sparse": "gossip",
                 "update_mix": "momentum", "update_mix_sparse": "sgd",
                 "gossip_mix_batched": "gossip",
                 "gossip_mix_sparse_batched": "gossip",
                 "update_mix_batched": "momentum",
-                "update_mix_sparse_batched": "sgd"}
+                "update_mix_sparse_batched": "sgd", **COMPRESSED}
 STEPS = 10
 DEVICE = "cuda"
 
@@ -455,6 +482,132 @@ def batched_kernel_phase(torch) -> dict:
     return results
 
 
+def make_compress_inputs(torch, n: int, d: int, seed: int):
+    """p, s, u, noise (n, D), W, the ring's ELL tables and the int8
+    payload (q, scale) of u; u's first row larger (rows of other
+    scales)."""
+    from repro_torch.core import compress
+    from repro_torch.kernels import ops
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    p, s, u = (torch.randn(n, d, device=dev, generator=gen)
+               for _ in range(3))
+    u[0].mul_(40.0)
+    noise = torch.rand(n, d, device=dev, generator=gen)
+    w = torch.rand(n, n, device=dev, generator=gen)
+    w = w / w.sum(dim=1, keepdim=True)
+    nbr, mask = (torch.as_tensor(a, device=dev)
+                 for a in ops.ell_table(ring_adjacency(n)))
+    wv, wd = ops.ell_weights(w, nbr, mask)
+    payload = compress.parse_compress("int8").encode(noise, u)
+    return dict(p=p, s=s, u=u, noise=noise, w=w, nbr=nbr, wv=wv, wd=wd,
+                q=payload["q"], scale=payload["scale"])
+
+
+def compress_calls(kernel: str, t: dict):
+    """(kernel call, plain call) of #9, #11, #13 or #14 on inputs ``t``."""
+    from repro_torch.kernels import ops, ref
+    if kernel == "ef_mix":
+        args = (t["w"], t["p"], t["s"], t["u"])
+    elif kernel == "ef_mix_sparse":
+        args = (t["nbr"], t["wv"], t["wd"], t["p"], t["s"], t["u"])
+    elif kernel == "quant_mix":
+        args = (t["w"], t["u"], t["noise"], t["p"], t["scale"])
+    else:
+        args = (t["w"], t["q"], t["scale"], t["p"])
+    return (lambda: getattr(ops, kernel)(*args),
+            lambda: getattr(ref, kernel)(*args))
+
+
+def compress_bound(kernel: str, n: int, d: int, max_deg: int):
+    """(bound_ms, bound_by): each input read once, each output written
+    once (#9/#11: p, s, u in, y, r out, 20 B per element; #13: u, noise,
+    p in, y and q at 1 B out, 17 B; #14: q at 1 B and p in, y out, 9 B),
+    against the card's memory rate and its f32 rate."""
+    elems = n * d
+    per_elem = {"ef_mix": 20, "ef_mix_sparse": 20, "quant_mix": 17,
+                "dequant_mix": 9}[kernel]
+    table = 8 * n * max_deg + 4 * n if kernel == "ef_mix_sparse" \
+        else 4 * n * n
+    scales = 4 * n if kernel in ("quant_mix", "dequant_mix") else 0
+    nbytes = per_elem * elems + table + scales
+    # the mix, the correction (3) and the source of s: r = u − s (1),
+    # q·scale (1), or a division, an add, a floor, a clip (2) and q·scale
+    mix = 2 * max_deg + 1 if kernel == "ef_mix_sparse" else 2 * n
+    source = {"ef_mix": 1, "ef_mix_sparse": 1, "quant_mix": 6,
+              "dequant_mix": 1}[kernel]
+    flops = elems * (mix + 3 + source)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_flops = flops / F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_flops else (t_flops,
+                                                          "operations")
+
+
+def check_compress(torch, kernel: str, t: dict, where: str) -> float:
+    """The kernel against its plain version: y within TOL·max|y|, the
+    residual r (#9, #11) and the int8 q (#13) exact.  Returns y's
+    error."""
+    run, plain = compress_calls(kernel, t)
+    got = as_tuple(run())
+    torch.cuda.synchronize()
+    want = as_tuple(plain())
+    err = torch.sub(got[0], want[0]).abs_().max().item()
+    scale = want[0].abs().max().item()
+    check(err <= TOL * scale,
+          f"{kernel} {where}: y max_abs_err {err:.3e} > {TOL}·{scale:.3e}")
+    for a, b in zip(got[1:], want[1:]):
+        check(a.dtype == b.dtype and torch.equal(a, b),
+              f"{kernel} {where}: {a.dtype} output differs from the plain "
+              f"version's")
+    return err
+
+
+def compress_kernel_phase(torch) -> dict:
+    from repro_torch.kernels import ops
+    results = {k: {"max_abs_err": 0.0, "variants": {}} for k in COMPRESSED}
+    for n, d in RAGGED:
+        t = make_compress_inputs(torch, n, d, seed=n * 6007 + d)
+        for kernel in COMPRESSED:
+            err = check_compress(torch, kernel, t, f"n={n} D={d}")
+            results[kernel]["max_abs_err"] = max(
+                results[kernel]["max_abs_err"], err)
+        log(f"[kernels] ragged n={n} D={d}: #9/#11/#13/#14 y within "
+            f"{TOL}·max|y|, r and q exact")
+        del t
+    torch.cuda.empty_cache()
+
+    t = make_compress_inputs(torch, N_AGENTS, D_FULL, seed=3)
+    max_deg = t["nbr"].shape[1]
+    where = f"n={N_AGENTS} D={D_FULL}"
+    for kernel, variant in COMPRESSED.items():
+        torch.cuda.reset_peak_memory_stats()
+        err = check_compress(torch, kernel, t, where)
+        torch.cuda.empty_cache()
+        run, plain = compress_calls(kernel, t)
+        ms = time_ms(torch, run)
+        plain_ms = time_ms(torch, plain, iters=3, warmup=1)
+        bound_ms, bound_by = compress_bound(kernel, N_AGENTS, D_FULL,
+                                            max_deg)
+        peak = torch.cuda.max_memory_allocated()
+        torch.cuda.empty_cache()
+        results[kernel]["variants"][variant] = {
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "share_of_bound": bound_ms / ms, "peak_bytes": peak}
+        results[kernel]["max_abs_err"] = max(
+            results[kernel]["max_abs_err"], err)
+        log(f"[kernels] {kernel}[{variant}] {where}: y err {err:.3e}, "
+            f"exact outputs equal  ms {ms:.4f}  bound_ms {bound_ms:.4f} "
+            f"({bound_by}, {100 * bound_ms / ms:.1f}% of bound)  plain_ms "
+            f"{plain_ms:.4f}  library_ms n/a (no single call)  peak "
+            f"{peak / 1e9:.2f} GB")
+    del t
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    return results
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: training on the port's main path
 # ---------------------------------------------------------------------------
@@ -462,9 +615,11 @@ def batched_kernel_phase(torch) -> dict:
 
 def train_path(torch, impl: str, fuse: bool, optimizer: str,
                steps: int = STEPS, *, graph: str = "ring2",
-               p_fail: float = 0.0, sweep_axis: str | None = None):
+               p_fail: float = 0.0, sweep_axis: str | None = None,
+               compress: str = "none"):
     """One run of the trainer; with ``sweep_axis`` the R_FULL-run lattice,
-    whose whole (R, n, D) state it returns."""
+    whose whole (R, n, D) state it returns; ``compress`` is the gossip
+    codec (--gossip-compress)."""
     from repro_torch.configs.base import FedConfig
     from repro_torch.launch import train
     torch.cuda.reset_peak_memory_stats()
@@ -474,7 +629,7 @@ def train_path(torch, impl: str, fuse: bool, optimizer: str,
     state, losses = train.train_loop(
         train.tiny_lm_config(),
         FedConfig(n_agents=N_AGENTS, h=10, k=2, graph=graph, p_fail=p_fail,
-                  gossip_impl=impl),
+                  gossip_impl=impl, gossip_compress=compress),
         steps=steps, per_agent_batch=2, seq_len=128, optimizer=optimizer,
         fuse_update_mix=fuse, seed=0, device=DEVICE, timing=timing,
         **sweep)
@@ -550,8 +705,10 @@ def training_phase(torch) -> dict:
     for name, (impl, fuse, opt, kernel) in PATHS.items():
         state, out[name] = run_path(torch, name, impl, fuse, opt, kernel)
         if name == "a":
-            # compared right away, so no path's peak holds this buffer
+            # compared right away, so no path's peak holds this buffer;
+            # kept on the host for path (l)
             out["a_dense"] = dense_rerun(torch, "a", state.flat)
+            a_final = state.flat.cpu()
         del state
         torch.cuda.empty_cache()
     for name, (axis, graph, p_fail, impl, fuse, opt, kernel) in \
@@ -561,6 +718,26 @@ def training_phase(torch) -> dict:
                                     **kw)
         if name == "e":
             out["e_dense"] = dense_rerun(torch, "e", state.flat, **kw)
+        del state
+        torch.cuda.empty_cache()
+    for name, (impl, fuse, opt, codec, kernel) in COMPRESS_PATHS.items():
+        state, out[name] = run_path(torch, name, impl, fuse, opt, kernel,
+                                    compress=codec)
+        res_max = state.residual.abs().max().item()
+        out[name]["residual_max_abs"] = res_max
+        check(math.isfinite(res_max),
+              f"path ({name}): non-finite residual")
+        if name == "l":
+            diff = (state.flat - a_final.to(state.flat.device)).abs().max()
+            out[name]["max_abs_diff_to_a"] = diff.item()
+            check(diff.item() == 0.0 and res_max == 0.0,
+                  f"path (l): identity codec ends {diff.item():.3e} from "
+                  f"path (a), residual max {res_max:.3e} (both must be 0)")
+            log(f"[train] path (l) ends on path (a)'s flat buffer "
+                f"(difference {diff.item()}), residual all zero")
+        else:
+            check(res_max > 0.0, f"path ({name}): the lossy codec left no "
+                                 f"residual")
         del state
         torch.cuda.empty_cache()
     return out
@@ -688,6 +865,7 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels = kernel_phase(torch)
     kernels.update(batched_kernel_phase(torch))
+    kernels.update(compress_kernel_phase(torch))
     log(f"[kernels] phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     training = training_phase(torch)
@@ -699,8 +877,9 @@ def main() -> int:
     line = []
     for kernel in REPLACES:
         main_variant = kernels[kernel]["variants"][PATH_VARIANT[kernel]]
-        launches = next(p["launches"] for p in training.values()
-                        if p.get("kernel") == kernel)
+        # the first path that runs it (#13 runs on none: 0)
+        launches = next((p["launches"] for p in training.values()
+                         if p.get("kernel") == kernel), 0)
         line.append({
             "name": kernel, "route": "cuda", "source": SOURCES[kernel],
             "replaces": REPLACES[kernel], "launches": launches,

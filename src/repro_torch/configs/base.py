@@ -49,3 +49,6 @@ class FedConfig:
     graph: str = "ring2"           # ring<k> | geo<r> | er<p> | full
     p_fail: float = 0.0
     gossip_impl: str = "dense"     # dense | pallas | sparse | none
+    # gossip payload compression with error feedback (core/compress.py):
+    # none | identity | bf16 | int8 | topk:R
+    gossip_compress: str = "none"

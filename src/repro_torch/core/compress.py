@@ -1,0 +1,272 @@
+"""Compressed gossip with error feedback (repro/core/compress.py, for the
+flat (n, D) buffer).
+
+The gossip payload is compressed while the local updates stay at full
+precision, with a CHOCO-style error-feedback residual that carries the
+compression error into the next exchange.  With ``p_i`` the post-update
+iterate (Algorithm 1's x_i^{t+1/2}) and ``e_i`` the carried residual:
+
+    u_i  = p_i + e_i                  # error-compensated payload
+    s_i  = decode(encode(u_i))        # what the wire carries, dequantized
+    e_i' = u_i − s_i                  # residual for the next step
+    y_i  = Σ_j W_ij s_j + W_ii (p_i − s_i)
+
+Every agent mixes its neighbours' compressed values and keeps its own
+iterate at full precision.  With the identity codec s = u = p, the
+residual stays 0 and y = W p: the uncompressed trajectory.
+``gossip_compress='none'`` skips all of this (no residual state).
+
+Codecs, per row of the (n, D) buffer (row i is agent i):
+
+  * ``identity`` — s = u; wire D·b bytes/row;
+  * ``bf16``     — round-to-nearest bf16 cast; 2·D bytes/row;
+  * ``int8``     — stochastic-rounding int8 with one f32 scale per row
+    (scale = max|u_row|/127, q = ⌊u/scale + noise⌋, noise ~ U[0, 1));
+    D + 4 bytes/row;
+  * ``topk:R``   — the ⌈R·D⌉ entries of largest magnitude per row, ties
+    broken by the lower index as ``jax.lax.top_k`` breaks them (values and
+    int32 indices, R·D·(b + 4) bytes/row).
+
+Unlike the reference, ``encode`` takes the int8 rounding noise as an
+(n, D) f32 tensor rather than keys: the engines draw it from the
+:class:`repro_torch.core.draws.Draws` object (``codec_noise``), so a test
+can hand both packages the same numbers.  The int8 × 'pallas' path mixes
+straight from the int8 payload with kernel #14
+(:func:`repro_torch.kernels.ops.dequant_mix`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+__all__ = ["Compressor", "IdentityCompressor", "Bf16Compressor",
+           "Int8Compressor", "TopKCompressor", "parse_compress",
+           "COMPRESS_CHOICES", "init_residual", "encode_compensated",
+           "make_flat_ef_gossip"]
+
+# canonical spellings for CLI help; 'topk:R' takes any ratio 0 < R <= 1
+COMPRESS_CHOICES = ("none", "identity", "bf16", "int8", "topk:R")
+
+
+@dataclasses.dataclass(frozen=True)
+class Compressor:
+    """Base: encode (n, d) → wire payload; decode back to values.
+
+    ``decode(encode(noise, u))`` is the dequantized s the mix consumes.
+    ``needs_key`` marks the stochastic codec (int8), whose ``encode`` takes
+    an (n, d) U[0, 1) noise tensor; the others take ``None``.
+    """
+
+    name: str = "identity"
+    needs_key: bool = False
+
+    def encode(self, noise: torch.Tensor | None, u: torch.Tensor) -> Any:
+        raise NotImplementedError
+
+    def decode(self, payload: Any, dtype, d: int | None = None
+               ) -> torch.Tensor:
+        """Payload → dequantized values; ``d`` is the row width, which a
+        codec that drops columns (top-k) cannot infer from the payload."""
+        raise NotImplementedError
+
+    def wire_bytes_per_row(self, d: int, param_bytes: int = 4) -> float:
+        """Analytic payload bytes per agent row."""
+        raise NotImplementedError
+
+
+@dataclasses.dataclass(frozen=True)
+class IdentityCompressor(Compressor):
+    name: str = "identity"
+
+    def encode(self, noise, u):
+        return u
+
+    def decode(self, payload, dtype, d=None):
+        return payload.to(dtype)
+
+    def wire_bytes_per_row(self, d, param_bytes=4):
+        return float(d * param_bytes)
+
+
+@dataclasses.dataclass(frozen=True)
+class Bf16Compressor(Compressor):
+    name: str = "bf16"
+
+    def encode(self, noise, u):
+        return u.to(torch.bfloat16)
+
+    def decode(self, payload, dtype, d=None):
+        return payload.to(dtype)
+
+    def wire_bytes_per_row(self, d, param_bytes=4):
+        return 2.0 * d
+
+
+@dataclasses.dataclass(frozen=True)
+class Int8Compressor(Compressor):
+    """Stochastic-rounding int8 with one f32 scale per row.
+
+    q = clip(⌊u/scale + noise⌋, −127, 127) with noise ~ U[0, 1) is
+    unbiased (E[⌊y + U⌋] = y for |y| ≤ 127) and |q·scale − u| ≤ scale.
+    """
+
+    name: str = "int8"
+    needs_key: bool = True
+
+    @staticmethod
+    def row_scale(u: torch.Tensor) -> torch.Tensor:
+        """(n,) per-row scale max|u_row|/127; 1 on all-zero rows."""
+        s = u.float().abs().amax(dim=-1) / 127.0
+        return torch.where(s > 0, s, torch.ones_like(s))
+
+    def encode(self, noise, u):
+        from repro_torch.kernels import ref
+        scale = self.row_scale(u)
+        return {"q": ref.quantize_int8(u, noise, scale).to(torch.int8),
+                "scale": scale}
+
+    def decode(self, payload, dtype, d=None):
+        s = payload["q"].float().mul_(payload["scale"][..., None])
+        return s.to(dtype)
+
+    def wire_bytes_per_row(self, d, param_bytes=4):
+        return float(d) + 4.0  # int8 payload + one f32 scale
+
+
+@dataclasses.dataclass(frozen=True)
+class TopKCompressor(Compressor):
+    """Magnitude top-k: keep ⌈R·d⌉ entries per row, ties by lower index.
+
+    The kept set is the one ``jax.lax.top_k`` keeps: every entry above the
+    k-th largest magnitude, then the entries equal to it in column order.
+    ``torch.topk`` promises no order among ties, so it only finds that
+    threshold.  The payload lists each row's indices in ascending order
+    (the reference lists them by magnitude; the set is the same).
+    """
+
+    name: str = "topk"
+    ratio: float = 0.1
+
+    def k_of(self, d: int) -> int:
+        return max(1, min(d, int(round(self.ratio * d))))
+
+    def keep_mask(self, u: torch.Tensor) -> torch.Tensor:
+        """(n, d) bool: the k kept entries of each row."""
+        mag = u.float().abs()
+        k = self.k_of(u.shape[1])
+        top = torch.topk(mag, k, dim=1, sorted=False).values
+        thr = top.amin(dim=1, keepdim=True)   # the k-th largest magnitude
+        del top
+        keep = mag > thr
+        need = k - keep.sum(dim=1)            # ties at thr still to take
+        rows, cols = torch.nonzero(mag == thr, as_tuple=True)
+        del mag
+        # rank of each tie within its row (nonzero lists them row-major)
+        counts = torch.bincount(rows, minlength=u.shape[0])
+        start = torch.cumsum(counts, 0) - counts
+        rank = torch.arange(rows.numel(), device=u.device) - start[rows]
+        take = rank < need[rows]
+        keep[rows[take], cols[take]] = True
+        return keep
+
+    def encode(self, noise, u):
+        keep = self.keep_mask(u)
+        idx = torch.nonzero(keep)[:, 1].view(u.shape[0], -1)
+        del keep
+        return {"v": torch.gather(u, 1, idx), "i": idx.to(torch.int32)}
+
+    def decode(self, payload, dtype, d=None):
+        if d is None:
+            raise ValueError("top-k decode needs the row width d")
+        vals, idx = payload["v"], payload["i"]
+        out = torch.zeros((vals.shape[0], d), dtype=dtype,
+                          device=vals.device)
+        return out.scatter_(1, idx.long(), vals.to(dtype))
+
+    def wire_bytes_per_row(self, d, param_bytes=4):
+        return float(self.k_of(d)) * (param_bytes + 4.0)
+
+
+def parse_compress(spec: str) -> Compressor | None:
+    """'none' | 'identity' | 'bf16' | 'int8' | 'topk:R' → Compressor.
+
+    'none' returns None: the engines then take the uncompressed path (no
+    residual state).
+    """
+    if spec == "none":
+        return None
+    if spec == "identity":
+        return IdentityCompressor()
+    if spec == "bf16":
+        return Bf16Compressor()
+    if spec == "int8":
+        return Int8Compressor()
+    if spec.startswith("topk:"):
+        try:
+            ratio = float(spec[5:])
+        except ValueError:
+            ratio = -1.0
+        if not 0.0 < ratio <= 1.0:
+            raise ValueError(
+                f"topk ratio must be in (0, 1]: {spec!r}")
+        return TopKCompressor(ratio=ratio)
+    raise ValueError(
+        f"unknown gossip_compress {spec!r}; choose from "
+        f"{'|'.join(COMPRESS_CHOICES)}")
+
+
+def init_residual(compressor: Compressor | None, n_agents: int, d: int,
+                  dtype, device="cpu") -> Any:
+    """Zero EF residual buffer for the flat layout; () when uncompressed."""
+    if compressor is None:
+        return ()
+    return torch.zeros((n_agents, d), dtype=dtype, device=device)
+
+
+def encode_compensated(compressor: Compressor, p: torch.Tensor,
+                       res: torch.Tensor, draws, t):
+    """(u, payload): the error-compensated payload u = p + e and its
+    encoding; the int8 codec's noise is ``draws.codec_noise(t, n, D)``."""
+    u = p + res
+    noise = draws.codec_noise(t, u.shape[0], u.shape[1]) \
+        if compressor.needs_key else None
+    return u, compressor.encode(noise, u)
+
+
+def make_flat_ef_gossip(compressor: Compressor, mix_fn: Callable,
+                        n_agents: int, *,
+                        fused_int8_pallas: bool = False) -> Callable:
+    """Whole-buffer EF gossip: (w, p, res, draws, t) -> (y, new_res).
+
+    ``mix_fn(w, s) -> W @ s`` is the engine's resolved uncompressed mix; it
+    applies the full W, diagonal included, and the wrapper adds the
+    ``diag(W)·(p − s)`` term that swaps each agent's own compressed value
+    back for its full-precision iterate.  The int8 noise is
+    ``draws.codec_noise(t, n, D)``, drawn only by the int8 codec.
+
+    ``fused_int8_pallas=True`` (``gossip_impl='pallas'`` × ``int8``) mixes
+    straight from the int8 payload with kernel #14, so the f32 s is formed
+    only for the residual.
+    """
+    use_fused = fused_int8_pallas and compressor.name == "int8"
+
+    def gossip(w, p, res, draws, t):
+        if p.shape[0] != n_agents:
+            raise ValueError(f"buffer of {p.shape[0]} rows for {n_agents} "
+                             f"agents")
+        u, payload = encode_compensated(compressor, p, res, draws, t)
+        if use_fused:
+            from repro_torch.kernels import ops as kernel_ops
+            y = kernel_ops.dequant_mix(w, payload["q"], payload["scale"], p)
+            s = compressor.decode(payload, u.dtype, u.shape[1])
+            return y.to(p.dtype), u - s
+        s = compressor.decode(payload, u.dtype, u.shape[1])
+        del payload
+        diag = torch.diagonal(w).to(p.dtype)[:, None]
+        y = mix_fn(w, s) + torch.sub(p, s).mul_(diag)
+        return y, u - s
+
+    return gossip

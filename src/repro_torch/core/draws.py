@@ -6,6 +6,7 @@ port cannot reproduce those bits, so all its draws go through one
 :class:`Draws` object that the engine and the trainer are handed:
 
   * the link-failure uniforms behind W^t when ``p_fail > 0``;
+  * the int8 codec's rounding noise (compressed gossip);
   * the server's K participant draws;
   * the data tokens;
   * the model's initial weights and the data distributions.
@@ -41,6 +42,16 @@ class Draws:
         """(n, n) U[0, 1) behind W^t's link failures at step t."""
         del t
         return self.uniform((n, n))
+
+    def codec_noise(self, t: int, n: int, d: int) -> torch.Tensor:
+        """(n, d) U[0, 1) rounding noise of the int8 codec at step t.
+
+        Drawn only by a codec that needs it, so an identity, bf16 or top-k
+        run consumes exactly the draws of the uncompressed run, as the
+        reference derives its codec key without a split
+        (repro/core/flat.py:450-451)."""
+        del t
+        return self.uniform((n, d))
 
     def participants(self, t: int, n: int, k: int) -> torch.Tensor:
         """(k,) agent indices, uniform with replacement, at step t."""

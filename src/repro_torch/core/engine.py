@@ -2,9 +2,10 @@
 (repro/core/engine.py, for the flat single-device layout).
 
   * :class:`EngineOps` + :func:`build_step_body` — the one step order:
-    η_t → sample W^t (line 3) → local update (lines 4–5) → gossip (line 6)
-    → periodic server round (lines 7–12) → carry rebuild.  The fused
-    update+mix op, when set, replaces the update + gossip pair.
+    η_t → sample W^t (line 3) → local update (lines 4–5) → gossip (line 6,
+    compressed with error feedback when a codec is configured) → periodic
+    server round (lines 7–12) → carry rebuild.  The fused update+mix op,
+    when set, replaces the update + gossip pair.
   * :func:`make_loop_round` — the H-step round as a Python loop over the
     stacked batches (the reference scans it inside one compiled program).
   * :func:`resolve_gossip` — gossip_impl → the whole-buffer mixing fn of
@@ -94,14 +95,20 @@ class EngineOps:
       sample_w:     (draws, t) -> W^t (line 3).
       local_update: (state, batch, eta) -> (losses, x_half, new_opt)
                     (lines 4–5).
-      gossip:       (w, x_half) -> x_next (line 6).
+      gossip:       (w, x_half) -> x_next (line 6, uncompressed).
+      get_residual: state -> the carried EF residual, or () (passed through
+                    unchanged when ef_gossip is None).
+      ef_gossip:    (w, x_half, residual, draws, t) -> (x_next,
+                    new_residual) (line 6 with a codec and error feedback),
+                    or None.
       server:       (draws, t, x_next) -> z_next (lines 7–12).
-      finish:       (state, z_next, new_opt, t, losses, eta) ->
+      finish:       (state, z_next, new_opt, new_res, t, losses, eta) ->
                     (new_state, metrics).
-      fused_update_gossip: (w, state, batch, eta) ->
-                    (losses, x_next, new_opt), or None.  When set it
-                    replaces local_update + gossip with one fused op (the
-                    update+mix kernels #3/#4).
+      fused_update_gossip: (w, state, batch, eta, residual, draws, t) ->
+                    (losses, x_next, new_opt, new_res), or None.  When set
+                    it replaces local_update + gossip / ef_gossip with one
+                    fused op (the update+mix kernels #3/#4, or the EF mix
+                    #9/#11 under a codec).
     """
 
     get_step: Callable
@@ -109,8 +116,10 @@ class EngineOps:
     sample_w: Callable
     local_update: Callable
     gossip: Callable
+    get_residual: Callable
     server: Callable
     finish: Callable
+    ef_gossip: Callable | None = None
     fused_update_gossip: Callable | None = None
 
 
@@ -120,16 +129,22 @@ def build_step_body(ops: EngineOps):
         t = ops.get_step(state)
         eta = ops.eta_fn(t)
         w = ops.sample_w(draws, t)                       # line 3
+        residual = ops.get_residual(state)
         if ops.fused_update_gossip is not None:
-            # lines 4–6 in one buffer pass (kernels #3/#4)
-            losses, x_next, new_opt = ops.fused_update_gossip(w, state,
-                                                              batch, eta)
+            # lines 4–6 in one buffer pass (kernels #3/#4, #9/#11)
+            losses, x_next, new_opt, new_res = ops.fused_update_gossip(
+                w, state, batch, eta, residual, draws, t)
         else:
             losses, x_half, new_opt = ops.local_update(state, batch, eta)
-            x_next = ops.gossip(w, x_half)               # line 6
+            if ops.ef_gossip is None:                    # line 6
+                x_next, new_res = ops.gossip(w, x_half), residual
+            else:  # line 6 on the compressed payload, error feedback
+                x_next, new_res = ops.ef_gossip(w, x_half, residual, draws,
+                                                t)
             del x_half  # an (n, D) buffer: not held through the server
+        del residual
         z_next = ops.server(draws, t, x_next)            # lines 7–12
-        return ops.finish(state, z_next, new_opt, t, losses, eta)
+        return ops.finish(state, z_next, new_opt, new_res, t, losses, eta)
 
     return step
 

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import dataclasses
 
+from repro_torch.core import compress as compress_lib
 from repro_torch.core import engine
 from repro_torch.core.mixing import MixingDistribution, identity_mixing
 
@@ -29,6 +30,9 @@ class FedDecConfig:
         'pallas' — the streaming gossip kernel (#1, kernels/csrc);
         'sparse' — neighbour-only mix over the graph's edges (the ELL
                    kernel #2 on CUDA, CSR gather for skewed graphs).
+      gossip_compress: the gossip payload's codec with error feedback
+        (core/compress.py): none | identity | bf16 | int8 | topk:R.
+        Ignored under gossip_impl 'none' (nothing is exchanged).
     """
 
     mixing: MixingDistribution
@@ -36,6 +40,7 @@ class FedDecConfig:
     k: int = 2
     server_enabled: bool = True
     gossip_impl: str = "dense"
+    gossip_compress: str = "none"
 
     GOSSIP_IMPLS = engine.GOSSIP_IMPLS
 
@@ -44,6 +49,7 @@ class FedDecConfig:
             raise ValueError(f"H must be >= 1, got {self.h}")
         if self.k < 1:
             raise ValueError(f"K must be >= 1, got {self.k}")
+        compress_lib.parse_compress(self.gossip_compress)  # validate spec
         engine.check_gossip_impl(self.gossip_impl)
 
     @property

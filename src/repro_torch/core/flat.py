@@ -4,7 +4,9 @@ buffer (repro/core/flat.py).
 The parameters of all agents live in one (n, D) tensor; each op of the
 hot loop is one whole-buffer pass: the optimizer update, the gossip mix
 W @ flat (or its fused form with the update, kernels #3/#4), and the
-server's (n,)·(n, D) average.  The model sees a dict of tensors only at
+server's (n,)·(n, D) average.  With a codec (``gossip_compress``) the mix
+runs on the compressed payload with an (n, D) error-feedback residual
+(core/compress.py; the EF mix kernels #9/#11, or #14 on int8 × pallas).  The model sees a dict of tensors only at
 the gradient boundary, as views into the buffer.
 
 Layout contract with the reference: :class:`FlatSpec` orders the leaves
@@ -23,6 +25,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch.core import compress as compress_lib
 from repro_torch.core import engine
 from repro_torch.core import gossip as gossip_lib
 from repro_torch.core import server as server_lib
@@ -124,31 +127,48 @@ def params_from_numpy(tree: dict, device="cpu") -> dict:
 
 @dataclasses.dataclass
 class FlatFedState:
-    """The (n_agents, D) buffer, the step counter t (starts at 1) and the
-    optimizer buffers (momentum: an (n, D) f32 tensor; sgd: ())."""
+    """The (n_agents, D) buffer, the step counter t (starts at 1), the
+    optimizer buffers (momentum: an (n, D) f32 tensor; sgd: ()) and the
+    compressed-gossip EF residual (an (n, D) tensor, or () without a
+    codec)."""
 
     flat: torch.Tensor
     step: int
     opt_state: Any = ()
+    residual: Any = ()
 
 
 def init_flat_state(spec: FlatSpec, params_single: dict, n_agents: int,
-                    optimizer=None) -> FlatFedState:
-    """z_i^1 = z^1 ∀i (Alg. 1 line 1), directly in the flat layout."""
+                    optimizer=None, compress: str = "none") -> FlatFedState:
+    """z_i^1 = z^1 ∀i (Alg. 1 line 1), directly in the flat layout.
+
+    ``compress != 'none'`` adds the zero (n, D) error-feedback residual
+    that the compressed-gossip step carries (core/compress.py)."""
     row = spec.ravel(params_single)
     flat = row.unsqueeze(0).repeat(n_agents, 1)
     opt_state = optimizer.init(flat) if optimizer is not None else ()
-    return FlatFedState(flat=flat, step=1, opt_state=opt_state)
+    residual = compress_lib.init_residual(
+        compress_lib.parse_compress(compress), n_agents, spec.d, spec.dtype,
+        flat.device)
+    return FlatFedState(flat=flat, step=1, opt_state=opt_state,
+                        residual=residual)
 
 
-def flat_state_from_numpy(flat, step, opt_state=(), device="cpu"):
-    """A reference FlatFedState's arrays → the port's FlatFedState."""
+def _no_buffer(value) -> bool:
+    """() is the 'no buffer' sentinel of opt_state and residual."""
+    return isinstance(value, tuple) and value == ()
+
+
+def flat_state_from_numpy(flat, step, opt_state=(), device="cpu",
+                          residual=()):
+    """A reference FlatFedState's arrays (its residual too) → the port's
+    FlatFedState."""
     def tensor(a):
-        return torch.as_tensor(np.asarray(a), device=device)
-    opt = () if isinstance(opt_state, tuple) and opt_state == () \
-        else tensor(opt_state)
+        return () if _no_buffer(a) else torch.as_tensor(np.asarray(a),
+                                                        device=device)
     return FlatFedState(flat=tensor(flat), step=int(np.asarray(step)),
-                        opt_state=opt)
+                        opt_state=tensor(opt_state),
+                        residual=tensor(residual))
 
 
 # ---------------------------------------------------------------------------
@@ -180,8 +200,9 @@ def _fuse_kind(cfg: FedDecConfig, optimizer, custom_gossip: bool):
 
 def make_fused_op(kind: str, agent_grads, optimizer, dense_mix,
                   make_sparse_mix=None):
-    """The fused lines-5–6 op of the flat and sweep engines: one
-    update+mix kernel pass for a fusable optimizer ``kind``.
+    """The uncompressed fused lines-5–6 op of the flat and sweep engines:
+    one update+mix kernel pass for a fusable optimizer ``kind``; the
+    residual (()) passes through.
 
     ``dense_mix`` is the dense kernel's wrapper (kernels #3/#7);
     ``make_sparse_mix(beta=, nesterov=)`` builds the ELL form (#4/#8) and
@@ -196,25 +217,46 @@ def make_fused_op(kind: str, agent_grads, optimizer, dense_mix,
         def fused_mix(w, x, g, eta, m=None):
             return dense_mix(w, x, g, eta, m, beta=beta, nesterov=nesterov)
 
-    def fused(w, state, batch, eta):
+    def fused(w, state, batch, eta, residual, draws, t):
         losses, g_flat = agent_grads(state, batch)
         if kind == "sgd":
             return losses, fused_mix(w, state.flat, g_flat, eta), \
-                state.opt_state
+                state.opt_state, residual
         y, new_m = fused_mix(w, state.flat, g_flat, eta, state.opt_state)
-        return losses, y, new_m
+        return losses, y, new_m, residual
 
     return fused
 
 
-def _make_fused_flat_op(cfg: FedDecConfig, agent_grads, optimizer,
-                        custom_gossip: bool):
-    """The flat engine's fused op (kernels #3/#4); None when the
-    configuration is not eligible (the caller keeps the unfused body)."""
+def _make_fused_flat_op(cfg: FedDecConfig, agent_grads, local_update,
+                        optimizer, compressor, custom_gossip: bool):
+    """The flat engine's fused op; None when the configuration is not
+    eligible (the caller keeps the unfused body).
+
+    Uncompressed: one update+mix pass (kernels #3/#4), the post-update
+    iterate never in memory.  With a codec: the update and the whole-row
+    encode in plain torch, then one EF mix pass (kernel #9 on the dense
+    and pallas mixes, #11 on the sparse one) for mix, diagonal correction
+    and residual (repro/core/flat.py:332-348).
+    """
     kind = _fuse_kind(cfg, optimizer, custom_gossip)
     if kind is None:
         return None
     from repro_torch.kernels import ops as kernel_ops
+    if compressor is not None:
+        ef_kernel = kernel_ops.make_sparse_ef_mix(cfg.mixing.graph) \
+            if cfg.gossip_impl == "sparse" else kernel_ops.ef_mix
+
+        def fused(w, state, batch, eta, residual, draws, t):
+            losses, x_half, new_opt = local_update(state, batch, eta)
+            u, payload = compress_lib.encode_compensated(
+                compressor, x_half, residual, draws, t)
+            s = compressor.decode(payload, u.dtype, u.shape[1])
+            del payload
+            y, new_res = ef_kernel(w, x_half, s, u)
+            return losses, y, new_opt, new_res
+
+        return fused
     sparse = None
     if cfg.gossip_impl == "sparse":
         sparse = functools.partial(kernel_ops.make_sparse_update_mix,
@@ -258,6 +300,17 @@ def _flat_ops(cfg: FedDecConfig, spec: FlatSpec, loss_fn: LossFn,
     custom_gossip = gossip_fn is not None
     if gossip_fn is None:
         gossip_fn = engine.resolve_gossip(cfg, "flat")
+    # whole-buffer compressed exchange with error feedback; nothing is
+    # exchanged under impl 'none', so no codec and the residual passes
+    # through.  int8 × 'pallas' mixes straight from the int8 payload (#14)
+    compressor = compress_lib.parse_compress(cfg.gossip_compress) \
+        if cfg.gossip_impl != "none" else None
+    ef_gossip = None
+    if compressor is not None:
+        ef_gossip = compress_lib.make_flat_ef_gossip(
+            compressor, gossip_fn, cfg.n_agents,
+            fused_int8_pallas=cfg.gossip_impl == "pallas"
+            and not custom_gossip)
 
     def agent_grads(state: FlatFedState, batch: dict):
         return grads_of(spec, loss_fn, state.flat, batch)
@@ -273,19 +326,21 @@ def _flat_ops(cfg: FedDecConfig, spec: FlatSpec, loss_fn: LossFn,
 
     fused_update_gossip = None
     if fuse_update_mix:
-        fused_update_gossip = _make_fused_flat_op(cfg, agent_grads, optimizer,
-                                                  custom_gossip)
+        fused_update_gossip = _make_fused_flat_op(
+            cfg, agent_grads, local_update, optimizer, compressor,
+            custom_gossip)
 
     def server(draws, t, x_next):
         if not cfg.server_enabled or (t + 1) % cfg.h:
             return x_next
         return server_lib.server_round_flat(draws, t, x_next, cfg.k)
 
-    def finish(state, z_next, new_opt, t, losses, eta):
+    def finish(state, z_next, new_opt, new_res, t, losses, eta):
         # The input state is donated, as the reference's executors donate
         # it (donate=True): updated in place, so the previous (n, D)
         # buffers are freed now even while a caller still holds the object.
         state.flat, state.step, state.opt_state = z_next, t + 1, new_opt
+        state.residual = new_res
         return state, {"loss": losses.mean(), "eta": eta.reshape(())}
 
     return engine.EngineOps(
@@ -294,8 +349,10 @@ def _flat_ops(cfg: FedDecConfig, spec: FlatSpec, loss_fn: LossFn,
         sample_w=cfg.mixing.make_sampler(device),
         local_update=local_update,
         gossip=gossip_fn,
+        get_residual=lambda s: s.residual,
         server=server,
         finish=finish,
+        ef_gossip=ef_gossip,
         fused_update_gossip=fused_update_gossip)
 
 

@@ -21,8 +21,9 @@ update+mix) is one kernel launch for all R runs (kernels #5–#8).
 
 The local update treats (R, n) as one flattened agent axis of R·n rows
 (``flat.grads_of`` over the (R·n, D) view).  The executors donate their
-input state, as the flat ones do.  Compressed gossip and the reference's
-``per_step_keys`` are not ported.
+input state, as the flat ones do.  Compressed gossip in a lattice (the
+batched EF kernels #10/#12, per-run codec keys) and the reference's
+``per_step_keys`` are not ported: a lattice carries no residual.
 """
 
 from __future__ import annotations
@@ -113,6 +114,11 @@ def make_sweep_plan(configs, t_steps=None) -> SweepPlan:
         raise ValueError(f"a lattice may mix 'none' (FedAvg) with at most "
                          f"one other gossip_impl, got {sorted(impls)}")
     impl = engine.check_gossip_impl(impls.pop()) if impls else "none"
+    if any(c.gossip_compress != "none" and c.gossip_impl != "none"
+           for c in configs):
+        raise ValueError("compressed gossip in a sweep lattice is not "
+                         "ported to repro_torch yet (ROADMAP.md Queue A8); "
+                         "the flat engine runs it")
 
     r = len(configs)
     h = np.asarray([c.h for c in configs], dtype=np.int32)
@@ -285,7 +291,8 @@ def _sweep_ops(plan: SweepPlan, spec: FlatSpec, loss_fn: LossFn,
         return server_lib.server_round_sweep(draws, t, x_next, plan.k,
                                              (t + 1) % plan.h == 0)
 
-    def finish(state, z_next, new_opt, t, losses, eta):
+    def finish(state, z_next, new_opt, new_res, t, losses, eta):
+        del new_res  # () — a lattice carries no residual
         metrics = {"loss": losses.mean(dim=1), "eta": eta}
         active = np.ones(r_runs, dtype=bool)
         if plan.t_steps is not None:
@@ -308,6 +315,7 @@ def _sweep_ops(plan: SweepPlan, spec: FlatSpec, loss_fn: LossFn,
         sample_w=make_sweep_w_sampler(plan, device),
         local_update=local_update,
         gossip=resolve_sweep_gossip(plan),
+        get_residual=lambda s: (),
         server=server,
         finish=finish,
         fused_update_gossip=fused_update_gossip)

@@ -25,7 +25,7 @@ __all__ = ["BUILD_ROOT", "NVCC_FLAGS", "Built", "load"]
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("gossip_mix", "update_mix")
+SOURCES = ("gossip_mix", "update_mix", "compress_mix")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -46,6 +46,18 @@ _SIGNATURES = {
         # nesterov, stream
         "update_mix_ell": [_P, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _I64,
                            _I64, _I64, ctypes.c_float, ctypes.c_int, _P],
+    },
+    "compress_mix": {
+        # w, p, s, u, y, res, r, n, d, stream
+        "ef_mix_dense": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P],
+        # nbr, wv, wd, max_deg, p, s, u, y, res, r, n, d, stream
+        "ef_mix_ell": [_P, _P, _P, _I64, _P, _P, _P, _P, _P, _I64, _I64,
+                       _I64, _P],
+        # w, scale, u, noise, p, y, q, r, n, d, stream
+        "quant_mix_dense": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
+                            _P],
+        # w, scale, q, p, y, r, n, d, stream
+        "dequant_mix_dense": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _P],
     },
 }
 

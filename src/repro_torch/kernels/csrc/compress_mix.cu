@@ -1,0 +1,448 @@
+// Compressed gossip with error feedback (repro/core/compress.py) on the
+// flat (n, D) f32 buffer: the fused receive side of the EF exchange and the
+// int8 mixes.  Every kernel also takes the (R, n, D) buffer of an R-run
+// lattice, with the run as the grid's y index as in mix_common.cuh; the
+// wrappers pass R = 1 today.
+//
+// Replaces the TPU kernels
+//   #9  repro/kernels/update_mix.py:ef_mix_pallas        (dense W)
+//   #11 repro/kernels/update_mix.py:ef_mix_sparse_pallas (ELL tables)
+//   #13 repro/kernels/compress_mix.py:quant_mix_pallas   (int8 send side)
+//   #14 repro/kernels/compress_mix.py:dequant_mix_pallas (int8 receive side)
+// All four compute, per run and column,
+//     y_i = sum_j W_ij s_j + W_ii (p_i - s_i)                   (dense)
+//     y_i = wd_i s_i + sum_k wv_ik s_nbr(i,k) + wd_i (p_i - s_i)   (ELL)
+// and differ in where s comes from and what else they write:
+//   kEf      (#9, #11) s is read as f32, and r = u - s is written;
+//   kDequant (#14)     s = q * scale_j from the int8 payload q;
+//   kQuant   (#13)     q = clip(floor(u / scale_j + noise), -127, 127) is
+//                      written as int8, and s = q * scale_j.
+//
+// Bound on the H100: bytes.  Per element #9/#11 read p, s, u and write y, r
+// (20 B); #14 reads q (1 B) and p and writes y (9 B); #13 reads u, noise, p
+// and writes y and q (17 B).  The mix is 2n flop per element, about one
+// flop per byte at n = 8, far below the ridge point.  At the main path's
+// n = 8, D = 156,519,168 the bounds are 7.476 ms (#9/#11), 3.364 ms (#14)
+// and 6.354 ms (#13) at 3.35 TB/s.  Design: mix_common.cuh's per-column
+// layout with another load stage and output stage.  A thread owns whole
+// columns.  It reads row j's inputs of its columns once and forms s_j,
+// writing r_j or q_j right away, so u and the noise are dead after the
+// load.  It keeps s in its own shared-memory slots, never in registers:
+// the output stage loads p row by row, and each row's load waits on
+// memory, so the kernel needs many warps in flight more than it needs
+// registers (s in registers took 80-113 registers per thread and ran at
+// 25-40% of the bound on the H100).  At n <= 8 a thread owns 4 adjacent
+// columns, so that each row is one 16-byte access of p, s, u, y (4 bytes
+// of q) when D % 4 == 0 and the buffers are 16-byte aligned, and four
+// masked scalar accesses otherwise (the ragged edge); one byte per
+// thread per request made the int8 kernels the slowest.  W (n <= 8) or
+// the ELL tables sit in shared memory.  On #13/#14 the f32 s never
+// touches device memory, which is the point of fusing the int8 payload
+// into the mix.
+//
+// Exactness: r = u - s is one subtraction; q is floorf(__fdiv_rn(u, scale)
+// + noise), clipped (IEEE division, no --use_fast_math); s = q * scale; the
+// correction W_ii (p - s) and its sum with the mix are rounded op by op by
+// the _rn intrinsics, which nvcc does not contract into FMAs.  So r and q
+// equal the plain versions (kernels/ref.py) bit for bit, and y differs
+// from them only through the order of the mix's sum.
+//
+// Plain C interface for ctypes: pointers and the CUDA stream as void*,
+// sizes as int64.  Each function returns the cudaError_t of its launch.
+#include "mix_common.cuh"
+
+namespace feddec {
+namespace {
+
+enum Source : int { kEf = 0, kDequant = 1, kQuant = 2 };
+
+struct EfArgs {
+  const float* w;      // (R, n, n) dense mixing matrices (dense only)
+  const int32_t* nbr;  // (R, n, max_deg) ELL neighbour rows (ELL only)
+  const float* wv;     // (R, n, max_deg) ELL edge weights, 0 on padding
+  const float* wd;     // (R, n) diagonal weights W_ii (ELL only)
+  const float* p;      // (R, n, D) full-precision iterate
+  const float* s;      // (R, n, D) decoded payload (kEf)
+  const float* u;      // (R, n, D) error-compensated payload (kEf, kQuant)
+  const float* noise;  // (R, n, D) U[0, 1) rounding noise (kQuant)
+  const float* scale;  // (R, n) per-row int8 scales (kDequant, kQuant)
+  const int8_t* q_in;  // (R, n, D) int8 payload (kDequant)
+  float* y;            // (R, n, D) mixed output
+  float* res;          // (R, n, D) new residual u - s (kEf)
+  int8_t* q_out;       // (R, n, D) int8 payload (kQuant)
+  int64_t r;
+  int64_t n;
+  int64_t d;
+  int64_t max_deg;
+};
+
+// q = clip(floor(u / sc + noise), -127, 127) of one element, written
+// through *q, and its s = q * sc.
+__device__ __forceinline__ float quantize(float u, float noise, float sc,
+                                          int8_t* q) {
+  const float v = fminf(
+      fmaxf(floorf(__fadd_rn(__fdiv_rn(u, sc), noise)), -127.f), 127.f);
+  *q = static_cast<int8_t>(v);
+  return __fmul_rn(v, sc);
+}
+
+// s at element idx of a row whose int8 scale is sc (unused by kEf),
+// writing the residual (kEf) or the int8 payload (kQuant) on the way.
+template <int S>
+__device__ __forceinline__ float load_s(const EfArgs& a, int64_t idx,
+                                        float sc) {
+  if (S == kEf) {
+    const float s = __ldcs(a.s + idx);
+    __stcs(a.res + idx, __fsub_rn(__ldcs(a.u + idx), s));
+    return s;
+  }
+  if (S == kDequant) return __fmul_rn(static_cast<float>(a.q_in[idx]), sc);
+  return quantize(__ldcs(a.u + idx), __ldcs(a.noise + idx), sc,
+                  a.q_out + idx);
+}
+
+// mix + diag * (p - s), each operation rounded on its own.
+__device__ __forceinline__ float corrected(float mix, float diag, float p,
+                                           float s) {
+  return __fadd_rn(mix, __fmul_rn(diag, __fsub_rn(p, s)));
+}
+
+// Four adjacent elements idx .. idx+3 of a row, nv of them inside D:
+// one 16-byte (float) or 4-byte (int8) access when VEC, else nv scalar
+// ones.  Missing elements read as 0 and are not written.
+constexpr int kQuad = 4;
+
+template <bool VEC>
+__device__ __forceinline__ float4 ld4(const float* p, int64_t idx, int nv) {
+  if (VEC) return __ldcs(reinterpret_cast<const float4*>(p + idx));
+  float v[kQuad];
+#pragma unroll
+  for (int k = 0; k < kQuad; ++k) v[k] = k < nv ? __ldcs(p + idx + k) : 0.f;
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+template <bool VEC>
+__device__ __forceinline__ void st4(float* p, int64_t idx, float4 v,
+                                    int nv) {
+  if (VEC) {
+    __stcs(reinterpret_cast<float4*>(p + idx), v);
+    return;
+  }
+  const float e[kQuad] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int k = 0; k < kQuad; ++k)
+    if (k < nv) __stcs(p + idx + k, e[k]);
+}
+
+template <bool VEC>
+__device__ __forceinline__ char4 ldq4(const int8_t* q, int64_t idx, int nv) {
+  if (VEC) return *reinterpret_cast<const char4*>(q + idx);
+  char4 v = make_char4(0, 0, 0, 0);
+  if (nv > 0) v.x = q[idx];
+  if (nv > 1) v.y = q[idx + 1];
+  if (nv > 2) v.z = q[idx + 2];
+  if (nv > 3) v.w = q[idx + 3];
+  return v;
+}
+
+template <bool VEC>
+__device__ __forceinline__ void stq4(int8_t* q, int64_t idx, char4 v,
+                                     int nv) {
+  if (VEC) {
+    *reinterpret_cast<char4*>(q + idx) = v;
+    return;
+  }
+  if (nv > 0) q[idx] = v.x;
+  if (nv > 1) q[idx + 1] = v.y;
+  if (nv > 2) q[idx + 2] = v.z;
+  if (nv > 3) q[idx + 3] = v.w;
+}
+
+// load_s for 4 adjacent elements.
+template <int S, bool VEC>
+__device__ __forceinline__ float4 load_s4(const EfArgs& a, int64_t idx,
+                                          float sc, int nv) {
+  if (S == kEf) {
+    const float4 s = ld4<VEC>(a.s, idx, nv);
+    const float4 u = ld4<VEC>(a.u, idx, nv);
+    st4<VEC>(a.res, idx,
+             make_float4(__fsub_rn(u.x, s.x), __fsub_rn(u.y, s.y),
+                         __fsub_rn(u.z, s.z), __fsub_rn(u.w, s.w)),
+             nv);
+    return s;
+  }
+  if (S == kDequant) {
+    const char4 q = ldq4<VEC>(a.q_in, idx, nv);
+    return make_float4(__fmul_rn(static_cast<float>(q.x), sc),
+                       __fmul_rn(static_cast<float>(q.y), sc),
+                       __fmul_rn(static_cast<float>(q.z), sc),
+                       __fmul_rn(static_cast<float>(q.w), sc));
+  }
+  const float4 u = ld4<VEC>(a.u, idx, nv);
+  const float4 z = ld4<VEC>(a.noise, idx, nv);
+  char4 q;
+  float4 s;
+  s.x = quantize(u.x, z.x, sc, &q.x);
+  s.y = quantize(u.y, z.y, sc, &q.y);
+  s.z = quantize(u.z, z.z, sc, &q.z);
+  s.w = quantize(u.w, z.w, sc, &q.w);
+  stq4<VEC>(a.q_out, idx, q, nv);
+  return s;
+}
+
+// n <= kSmallN: thread t of a block owns the 4 adjacent columns
+// 4 (tile * kThreads + t) .. + 3 of its run's slice.
+template <int S, bool ELL, bool VEC>
+__global__ void __launch_bounds__(kThreads) ef_small_kernel(EfArgs a) {
+  constexpr int NB = kSmallN;
+  const int n = static_cast<int>(a.n);
+  const int md = static_cast<int>(a.max_deg);
+  const int64_t d = a.d;
+  const int tid = threadIdx.x;
+  const int64_t run = blockIdx.y;
+  const int64_t base = run * a.n * d;  // this run's (n, D) slice
+
+  __shared__ float ws[ELL ? 1 : NB * NB];
+  __shared__ float sc_s[NB];
+  extern __shared__ float4 dyn4[];
+  float4* ps = dyn4;                                    // NB*kThreads
+  float* wv_s = reinterpret_cast<float*>(dyn4 + NB * kThreads);  // ELL
+  float* wd_s = wv_s + NB * md;                         // ELL: n
+  int32_t* nbr_s = reinterpret_cast<int32_t*>(wd_s + NB);  // ELL: n*md
+
+  if (!ELL) {
+    const float* w = a.w + run * n * n;
+    for (int e = tid; e < NB * NB; e += kThreads) {
+      const int i = e / NB, j = e % NB;
+      ws[e] = (i < n && j < n) ? w[i * n + j] : 0.f;
+    }
+  } else {
+    const int64_t tab = run * n * md;
+    for (int e = tid; e < n * md; e += kThreads) {
+      wv_s[e] = a.wv[tab + e];
+      nbr_s[e] = a.nbr[tab + e];
+    }
+    for (int e = tid; e < n; e += kThreads) wd_s[e] = a.wd[run * n + e];
+  }
+  for (int e = tid; e < NB; e += kThreads)
+    sc_s[e] = (S != kEf && e < n) ? a.scale[run * n + e] : 1.f;
+  __syncthreads();
+
+  constexpr int64_t kTile = int64_t(kQuad) * kThreads;
+  const int64_t ntiles = (d + kTile - 1) / kTile;
+  for (int64_t t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    const int64_t col = (t * kThreads + tid) * kQuad;
+    if (col >= d) continue;  // no barrier below: a thread may skip a tile
+    const int nv = d - col < kQuad ? static_cast<int>(d - col) : kQuad;
+    const int64_t off = base + col;
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      if (j < n) ps[j * kThreads + tid] = load_s4<S, VEC>(a, off + j * d,
+                                                          sc_s[j], nv);
+    }
+    // each thread reads back only its own slots: no barrier needed
+    for (int i = 0; i < n; ++i) {
+      float4 acc;
+      float diag;
+      if (ELL) {
+        diag = wd_s[i];
+        const float4 si = ps[i * kThreads + tid];
+        acc = make_float4(diag * si.x, diag * si.y, diag * si.z,
+                          diag * si.w);
+        for (int k = 0; k < md; ++k) {
+          const float wk = wv_s[i * md + k];
+          const float4 sk = ps[nbr_s[i * md + k] * kThreads + tid];
+          acc = make_float4(fmaf(wk, sk.x, acc.x), fmaf(wk, sk.y, acc.y),
+                            fmaf(wk, sk.z, acc.z), fmaf(wk, sk.w, acc.w));
+        }
+      } else {
+        diag = ws[i * NB + i];
+        acc = make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int j = 0; j < n; ++j) {
+          const float wij = ws[i * NB + j];
+          const float4 sj = ps[j * kThreads + tid];
+          acc = make_float4(fmaf(wij, sj.x, acc.x), fmaf(wij, sj.y, acc.y),
+                            fmaf(wij, sj.z, acc.z), fmaf(wij, sj.w, acc.w));
+        }
+      }
+      const int64_t idx = off + i * d;
+      const float4 p = ld4<VEC>(a.p, idx, nv);
+      const float4 s = ps[i * kThreads + tid];
+      st4<VEC>(a.y, idx,
+               make_float4(corrected(acc.x, diag, p.x, s.x),
+                           corrected(acc.y, diag, p.y, s.y),
+                           corrected(acc.z, diag, p.z, s.z),
+                           corrected(acc.w, diag, p.w, s.w)),
+               nv);
+    }
+  }
+}
+
+template <int S, bool ELL>
+__global__ void __launch_bounds__(kThreads) ef_general_kernel(EfArgs a) {
+  extern __shared__ float ps[];  // n * kThreads: thread t owns column t
+  const int n = static_cast<int>(a.n);
+  const int md = static_cast<int>(a.max_deg);
+  const int64_t d = a.d;
+  const int tid = threadIdx.x;
+  const int64_t run = blockIdx.y;
+  const int64_t base = run * a.n * d;  // this run's (n, D) slice
+  const float* w = a.w + run * n * n;
+  const int32_t* nbr = a.nbr + run * n * md;
+  const float* wv = a.wv + run * n * md;
+  const float* wd = a.wd + run * n;
+  const int64_t ntiles = (d + kThreads - 1) / kThreads;
+  for (int64_t t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    const int64_t col = t * kThreads + tid;
+    if (col >= d) continue;  // no barrier below: a thread may skip a tile
+    for (int j = 0; j < n; ++j) {
+      const float sc = (S == kEf) ? 1.f : __ldg(a.scale + run * n + j);
+      ps[j * kThreads + tid] = load_s<S>(a, base + j * d + col, sc);
+    }
+    for (int i = 0; i < n; ++i) {
+      float acc, diag;
+      if (ELL) {
+        diag = __ldg(wd + i);
+        acc = diag * ps[i * kThreads + tid];
+        for (int k = 0; k < md; ++k) {
+          const int src = __ldg(nbr + i * md + k);
+          acc = fmaf(__ldg(wv + i * md + k), ps[src * kThreads + tid], acc);
+        }
+      } else {
+        diag = __ldg(w + i * n + i);
+        acc = 0.f;
+        for (int j = 0; j < n; ++j)
+          acc = fmaf(__ldg(w + i * n + j), ps[j * kThreads + tid], acc);
+      }
+      const int64_t idx = base + i * d + col;
+      __stcs(a.y + idx, corrected(acc, diag, __ldcs(a.p + idx),
+                                  ps[i * kThreads + tid]));
+    }
+  }
+}
+
+bool aligned(const void* ptr, uintptr_t bytes) {
+  return reinterpret_cast<uintptr_t>(ptr) % bytes == 0;
+}
+
+// Whether every row of every buffer starts on a vector boundary: D a
+// multiple of 4 and each buffer 16-byte (int8: 4-byte) aligned.
+bool vector_rows(const EfArgs& a) {
+  if (a.d % kQuad) return false;
+  const void* floats[] = {a.p, a.s, a.u, a.noise, a.y, a.res};
+  for (const void* ptr : floats) {
+    if (ptr != nullptr && !aligned(ptr, 16)) return false;
+  }
+  const void* bytes[] = {a.q_in, a.q_out};
+  for (const void* ptr : bytes) {
+    if (ptr != nullptr && !aligned(ptr, 4)) return false;
+  }
+  return true;
+}
+
+template <int S, bool ELL>
+int launch_ef(const EfArgs& a, cudaStream_t stream) {
+  if (a.r < 1 || a.r > kMaxR || a.n < 1 || a.n > kMaxN || a.d < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (ELL && a.max_deg < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (a.d == 0) return 0;
+  if (a.n <= kSmallN) {
+    constexpr int NB = kSmallN;
+    const size_t smem =
+        sizeof(float4) * NB * kThreads +
+        (ELL ? sizeof(float) * (NB * a.max_deg + NB) +
+                   sizeof(int32_t) * NB * a.max_deg
+             : 0);
+    const int64_t ntiles =
+        (a.d + int64_t(kQuad) * kThreads - 1) / (int64_t(kQuad) * kThreads);
+    if (vector_rows(a)) {
+      return launch_grid(ef_small_kernel<S, ELL, true>, a, ntiles, smem,
+                         stream);
+    }
+    return launch_grid(ef_small_kernel<S, ELL, false>, a, ntiles, smem,
+                       stream);
+  }
+  const size_t smem = sizeof(float) * size_t(a.n) * kThreads;
+  const int64_t ntiles = (a.d + kThreads - 1) / kThreads;
+  return launch_grid(ef_general_kernel<S, ELL>, a, ntiles, smem, stream);
+}
+
+}  // namespace
+}  // namespace feddec
+
+extern "C" int ef_mix_dense(const float* w, const float* p, const float* s,
+                            const float* u, float* y, float* res, int64_t r,
+                            int64_t n, int64_t d, void* stream) {
+  feddec::EfArgs a{};
+  a.w = w;
+  a.p = p;
+  a.s = s;
+  a.u = u;
+  a.y = y;
+  a.res = res;
+  a.r = r;
+  a.n = n;
+  a.d = d;
+  return feddec::launch_ef<feddec::kEf, false>(
+      a, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int ef_mix_ell(const int32_t* nbr, const float* wv,
+                          const float* wd, int64_t max_deg, const float* p,
+                          const float* s, const float* u, float* y,
+                          float* res, int64_t r, int64_t n, int64_t d,
+                          void* stream) {
+  feddec::EfArgs a{};
+  a.nbr = nbr;
+  a.wv = wv;
+  a.wd = wd;
+  a.max_deg = max_deg;
+  a.p = p;
+  a.s = s;
+  a.u = u;
+  a.y = y;
+  a.res = res;
+  a.r = r;
+  a.n = n;
+  a.d = d;
+  return feddec::launch_ef<feddec::kEf, true>(
+      a, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int quant_mix_dense(const float* w, const float* scale,
+                               const float* u, const float* noise,
+                               const float* p, float* y, int8_t* q,
+                               int64_t r, int64_t n, int64_t d,
+                               void* stream) {
+  feddec::EfArgs a{};
+  a.w = w;
+  a.scale = scale;
+  a.u = u;
+  a.noise = noise;
+  a.p = p;
+  a.y = y;
+  a.q_out = q;
+  a.r = r;
+  a.n = n;
+  a.d = d;
+  return feddec::launch_ef<feddec::kQuant, false>(
+      a, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int dequant_mix_dense(const float* w, const float* scale,
+                                 const int8_t* q, const float* p, float* y,
+                                 int64_t r, int64_t n, int64_t d,
+                                 void* stream) {
+  feddec::EfArgs a{};
+  a.w = w;
+  a.scale = scale;
+  a.q_in = q;
+  a.p = p;
+  a.y = y;
+  a.r = r;
+  a.n = n;
+  a.d = d;
+  return feddec::launch_ef<feddec::kDequant, false>(
+      a, static_cast<cudaStream_t>(stream));
+}

@@ -1,4 +1,5 @@
-// Device code shared by gossip_mix.cu and update_mix.cu.
+// Device code shared by gossip_mix.cu and update_mix.cu (compress_mix.cu
+// takes its constants and launch_grid, with kernels of its own).
 //
 // Every kernel here computes, per run r and column c of the (R, n, D)
 // buffer (R = 1 for the single-run kernels, R runs of a sweep lattice for
@@ -255,9 +256,9 @@ inline int sm_count() {
 
 // One persistent-style grid: as many blocks as fit on the card at once,
 // shared out over the runs (grid y), each striding over its run's column
-// tiles.
-template <typename Kernel>
-int launch_grid(Kernel kernel, const Args& a, int64_t ntiles, size_t smem,
+// tiles.  ``A`` is the kernel's argument struct; its run count is ``a.r``.
+template <typename Kernel, typename A>
+int launch_grid(Kernel kernel, const A& a, int64_t ntiles, size_t smem,
                 cudaStream_t stream) {
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(

@@ -8,6 +8,8 @@ ragged edge of D themselves, and reject an n beyond their shared memory
 (``kMaxN`` in ``csrc/mix_common.cuh``) with an error the wrapper raises.
 The batched wrappers (#5–#8) launch the same CUDA functions over the
 leading run axis of an (R, n, D) sweep lattice: one launch for all runs.
+The compressed-gossip wrappers (#9, #11, #13, #14) take the f32 (n, D)
+buffers of the error-feedback exchange and the int8 payload.
 
 Every kernel wrapper carries a ``launches`` counter that it advances by
 one each time its kernel is launched (CPU calls do not count);
@@ -28,7 +30,8 @@ __all__ = ["gossip_mix", "gossip_mix_sparse", "update_mix",
            "update_mix_sparse_batched", "ell_table", "ell_weights",
            "EllTables", "make_sparse_gossip", "make_sparse_update_mix",
            "make_sparse_gossip_batched", "make_sparse_update_mix_batched",
-           "launch_counts", "reset_launch_counts"]
+           "ef_mix", "ef_mix_sparse", "make_sparse_ef_mix", "quant_mix",
+           "dequant_mix", "launch_counts", "reset_launch_counts"]
 
 
 def _check_buffer(name: str, t: torch.Tensor, shape: tuple) -> None:
@@ -40,12 +43,14 @@ def _check_buffer(name: str, t: torch.Tensor, shape: tuple) -> None:
                          f"{shape}")
 
 
-def _lattice(x: torch.Tensor, ndim: int) -> tuple[int, int, int]:
+def _lattice(x: torch.Tensor, ndim: int,
+             name: str = "x") -> tuple[int, int, int]:
     """(R, n, D) of an (n, D) buffer (R = 1) or an (R, n, D) lattice."""
     if x.ndim != ndim:
-        raise ValueError(f"x must be {'(n, D)' if ndim == 2 else '(R, n, D)'}"
-                         f", got shape {tuple(x.shape)}")
-    _check_buffer("x", x, tuple(x.shape))
+        raise ValueError(f"{name} must be "
+                         f"{'(n, D)' if ndim == 2 else '(R, n, D)'}, got "
+                         f"shape {tuple(x.shape)}")
+    _check_buffer(name, x, tuple(x.shape))
     r = 1 if ndim == 2 else x.shape[0]
     return r, x.shape[-2], x.shape[-1]
 
@@ -236,10 +241,101 @@ def update_mix_sparse_batched(nbr, wv, wd, x, g, eta, m=None, *, beta=None,
                           eta, m, beta, nesterov)
 
 
+# ---------------------------------------------------------------------------
+# Compressed gossip: kernels #9, #11 (EF receive side), #13, #14 (int8)
+# ---------------------------------------------------------------------------
+
+
+def ef_mix(w: torch.Tensor, p: torch.Tensor, s: torch.Tensor,
+           u: torch.Tensor):
+    """#9 (y, r) = ((W s)→p.dtype + diag(W)·(p − s), u − s) in one pass over
+    the f32 (n, D) buffers (kernel: compress_mix.cu)."""
+    r, n, d = _lattice(p, 2, "p")
+    for name, t in (("s", s), ("u", u)):
+        _check_buffer(name, t, (n, d))
+    _check_buffer("w", w, (n, n))
+    if not _on_cuda(p, w, s, u):
+        return ref.ef_mix(w, p, s, u)
+    y, res = torch.empty_like(p), torch.empty_like(p)
+    lib = build.load().libs["compress_mix"]
+    rc = lib.ef_mix_dense(
+        w.data_ptr(), p.data_ptr(), s.data_ptr(), u.data_ptr(), y.data_ptr(),
+        res.data_ptr(), r, n, d, _stream(p))
+    _raise_on(rc, "ef_mix")
+    ef_mix.launches += 1
+    return y, res
+
+
+def ef_mix_sparse(nbr, wv, wd, p, s, u):
+    """#11 the ELL form of #9, wd doubling as diag(W)
+    (kernel: compress_mix.cu)."""
+    r, n, d = _lattice(p, 2, "p")
+    for name, t in (("s", s), ("u", u)):
+        _check_buffer(name, t, (n, d))
+    max_deg = _check_ell(nbr, wv, wd, (), n)
+    if not _on_cuda(p, nbr, wv, wd, s, u):
+        return ref.ef_mix_sparse(nbr, wv, wd, p, s, u)
+    y, res = torch.empty_like(p), torch.empty_like(p)
+    lib = build.load().libs["compress_mix"]
+    rc = lib.ef_mix_ell(
+        nbr.data_ptr(), wv.data_ptr(), wd.data_ptr(), max_deg, p.data_ptr(),
+        s.data_ptr(), u.data_ptr(), y.data_ptr(), res.data_ptr(), r, n, d,
+        _stream(p))
+    _raise_on(rc, "ef_mix_sparse")
+    ef_mix_sparse.launches += 1
+    return y, res
+
+
+def quant_mix(w, u, noise, p, scale):
+    """#13 the int8 send side: (y, q) with q = clip(⌊u/scale + noise⌋, ±127)
+    int8 and y = W (q·scale) + diag(W)·(p − q·scale); the noise and the
+    per-row scales come from the caller (kernel: compress_mix.cu)."""
+    r, n, d = _lattice(u, 2, "u")
+    for name, t in (("noise", noise), ("p", p)):
+        _check_buffer(name, t, (n, d))
+    _check_buffer("w", w, (n, n))
+    _check_buffer("scale", scale, (n,))
+    if not _on_cuda(u, w, noise, p, scale):
+        return ref.quant_mix(w, u, noise, p, scale)
+    y = torch.empty_like(p)
+    q = torch.empty(u.shape, dtype=torch.int8, device=u.device)
+    lib = build.load().libs["compress_mix"]
+    rc = lib.quant_mix_dense(
+        w.data_ptr(), scale.data_ptr(), u.data_ptr(), noise.data_ptr(),
+        p.data_ptr(), y.data_ptr(), q.data_ptr(), r, n, d, _stream(u))
+    _raise_on(rc, "quant_mix")
+    quant_mix.launches += 1
+    return y, q
+
+
+def dequant_mix(w, q, scale, p):
+    """#14 the int8 receive side: y = W (q·scale) + diag(W)·(p − q·scale),
+    reading the int8 payload q at 1 B per element
+    (kernel: compress_mix.cu)."""
+    r, n, d = _lattice(p, 2, "p")
+    if q.dtype != torch.int8:
+        raise TypeError(f"q must be int8, got {q.dtype}")
+    if tuple(q.shape) != (n, d):
+        raise ValueError(f"q has shape {tuple(q.shape)}, expected {(n, d)}")
+    _check_buffer("w", w, (n, n))
+    _check_buffer("scale", scale, (n,))
+    if not _on_cuda(p, w, q, scale):
+        return ref.dequant_mix(w, q, scale, p)
+    y = torch.empty_like(p)
+    lib = build.load().libs["compress_mix"]
+    rc = lib.dequant_mix_dense(
+        w.data_ptr(), scale.data_ptr(), q.data_ptr(), p.data_ptr(),
+        y.data_ptr(), r, n, d, _stream(p))
+    _raise_on(rc, "dequant_mix")
+    dequant_mix.launches += 1
+    return y
+
+
 _KERNEL_WRAPPERS = (gossip_mix, gossip_mix_sparse, update_mix,
                     update_mix_sparse, gossip_mix_batched,
                     gossip_mix_sparse_batched, update_mix_batched,
-                    update_mix_sparse_batched)
+                    update_mix_sparse_batched, ef_mix, ef_mix_sparse,
+                    quant_mix, dequant_mix)
 
 
 def reset_launch_counts() -> None:
@@ -356,3 +452,14 @@ def make_sparse_update_mix_batched(graphs, *, beta=None, nesterov=False):
                                          beta=beta, nesterov=nesterov)
 
     return fused
+
+
+def make_sparse_ef_mix(graph):
+    """ef(w, p, s, u) -> (y, r) over the graph's static ELL table (kernel
+    #11 on CUDA), reading the live edge weights from the sampled W."""
+    tables = EllTables(*ell_table(graph.adjacency))
+
+    def ef(w, p, s, u):
+        return ef_mix_sparse(*tables.weights(w, p), p, s, u)
+
+    return ef

@@ -1,9 +1,9 @@
 """Plain PyTorch versions of the port's CUDA kernels.
 
 Each function computes what its kernel computes, with the reference's
-arithmetic (repro/kernels/gossip_mix.py and update_mix.py): the mix
-accumulates in f32 and casts to x's dtype, the optimizer step follows
-repro/optim/optimizers.py's dtype rules.  Every function takes one run's
+arithmetic (repro/kernels/gossip_mix.py, update_mix.py and
+compress_mix.py): the mix accumulates in f32 and casts to x's dtype, the
+optimizer step follows repro/optim/optimizers.py's dtype rules.  Every function takes one run's
 (n, D) buffer or a sweep lattice's (R, n, D) buffer with per-run W (or
 ELL tables) and per-run η of shape (R,); the ``*_batched`` names (the
 plain versions of kernels #5–#8) are the same functions.  The wrappers in
@@ -18,7 +18,8 @@ import torch
 __all__ = ["gossip_mix", "gossip_mix_sparse", "local_step", "update_mix",
            "update_mix_sparse", "gossip_mix_batched",
            "gossip_mix_sparse_batched", "update_mix_batched",
-           "update_mix_sparse_batched"]
+           "update_mix_sparse_batched", "ef_mix", "ef_mix_sparse",
+           "quantize_int8", "quant_mix", "dequant_mix"]
 
 
 def gossip_mix(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -83,3 +84,65 @@ gossip_mix_batched = gossip_mix
 gossip_mix_sparse_batched = gossip_mix_sparse
 update_mix_batched = update_mix
 update_mix_sparse_batched = update_mix_sparse
+
+
+# ---------------------------------------------------------------------------
+# Compressed gossip: the EF receive side (#9/#11) and the int8 mixes
+# (#13/#14).  Each temporary is reused in place where the rounding allows
+# it, so a call at full width holds few (n, D) buffers beside its inputs.
+# ---------------------------------------------------------------------------
+
+
+def _diag(w: torch.Tensor, dtype) -> torch.Tensor:
+    """diag(W) as (..., n, 1) in ``dtype``, for the per-row correction."""
+    return torch.diagonal(w, dim1=-2, dim2=-1).to(dtype)[..., None]
+
+
+def _correct(mix: torch.Tensor, diag: torch.Tensor, p: torch.Tensor,
+             s: torch.Tensor) -> torch.Tensor:
+    """mix + diag·(p − s), rounded op by op: (p − s), then ·diag, then +."""
+    return mix.add_(torch.sub(p, s).mul_(diag))
+
+
+def ef_mix(w, p, s, u):
+    """#9 (y, r) = ((W s)→p.dtype + diag(W)·(p − s), u − s)
+    (repro/kernels/update_mix.py:ef_mix_kernel): the mix accumulates in f32
+    and is cast to p's dtype before the diagonal term is added."""
+    y = _correct(gossip_mix(w, s).to(p.dtype), _diag(w, p.dtype), p, s)
+    return y, u - s
+
+
+def ef_mix_sparse(nbr, wv, wd, p, s, u):
+    """#11 the ELL form of #9: wd doubles as diag(W)."""
+    mix = gossip_mix_sparse(nbr, wv, wd, s.float()).to(p.dtype)
+    y = _correct(mix, wd.to(p.dtype)[..., None], p, s)
+    return y, u - s
+
+
+def quantize_int8(u, noise, scale):
+    """q = clip(⌊u/scale + noise⌋, ±127) as f32 values, scale one per row
+    (repro/kernels/compress_mix.py:quant_mix_kernel and
+    repro/core/compress.py:Int8Compressor.encode round alike)."""
+    qf = u.float() / scale.float()[..., None]
+    return qf.add_(noise).floor_().clamp_(-127.0, 127.0)
+
+
+def _int8_mix(w, qf, scale, p):
+    """y = W (q·scale) + diag(W)·(p − q·scale), everything in f32."""
+    s = qf.mul_(scale.float()[..., None])  # q·scale, in q's buffer
+    mix = torch.matmul(w.float(), s)
+    return _correct(mix, _diag(w, torch.float32), p.float(), s).to(p.dtype)
+
+
+def quant_mix(w, u, noise, p, scale):
+    """#13 the send side: (y, q) with q = clip(⌊u/scale + noise⌋, ±127)
+    int8 and y mixed from s = q·scale, all in f32 and cast at the end."""
+    qf = quantize_int8(u, noise, scale)
+    q = qf.to(torch.int8)
+    return _int8_mix(w, qf, scale, p), q
+
+
+def dequant_mix(w, q, scale, p):
+    """#14 the receive side: y mixed straight from the int8 payload,
+    s = q·scale, all in f32 and cast at the end."""
+    return _int8_mix(w, q.float(), scale, p)

@@ -6,12 +6,15 @@ with ``--sweep-runs R`` it trains an R-run lattice (over seeds, H or
 topologies, ``--sweep-axis``) on one (R, n_agents, D) buffer.  The gossip
 mix and the fused update+mix run through the hand-written CUDA kernels
 (``--gossip-impl pallas|sparse``, ``--fuse-update-mix``; their batched
-forms on a lattice).  Runs on ``cuda`` unless ``--device cpu`` is given,
-and fails without a card.
+forms on a lattice).  ``--gossip-compress SPEC`` compresses the flat
+trainer's gossip payload with error feedback (the EF mix kernels #9/#11
+when fused, #14 on int8 × pallas).  Runs on ``cuda`` unless ``--device
+cpu`` is given, and fails without a card.
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.train --gossip-impl pallas \\
-      --fuse-update-mix --steps 10 [--sweep-runs 2 --sweep-axis h]
+      --fuse-update-mix --steps 10 [--sweep-runs 2 --sweep-axis h |
+      --gossip-compress int8]
 """
 
 from __future__ import annotations
@@ -66,7 +69,8 @@ def build_fed_setup(fed: FedConfig) -> tuple[FedDecConfig, int]:
     mixing = MixingDistribution(graph, p_fail=fed.p_fail,
                                 scheme="metropolis")
     fcfg = FedDecConfig(mixing=mixing, h=fed.h, k=min(fed.k, n),
-                        gossip_impl=fed.gossip_impl)
+                        gossip_impl=fed.gossip_impl,
+                        gossip_compress=fed.gossip_compress)
     return fcfg, n
 
 
@@ -154,6 +158,9 @@ def train_loop(cfg: ArchConfig, fed: FedConfig, *, steps: int,
     if fedavg_control:
         fcfg = FedAvgConfig(n_agents, h=fed.h, k=fed.k)
     opt = {"sgd": None, "momentum": optim.momentum_sgd()}[optimizer]
+    # no exchange (FedAvg / impl 'none') ⇒ nothing to compress, no residual
+    compress = fcfg.gossip_compress if fcfg.gossip_impl != "none" \
+        else "none"
     eta = torch.full((1,), lr, dtype=torch.float32, device=device)
     lr_fn = lambda t: eta  # noqa: E731  (constant; stays on the device)
     if draws is None:
@@ -175,7 +182,7 @@ def train_loop(cfg: ArchConfig, fed: FedConfig, *, steps: int,
                                                      lr_fn, **kwargs)
     else:
         state = flat_lib.init_flat_state(spec, params0, n_agents,
-                                         optimizer=opt)
+                                         optimizer=opt, compress=compress)
         if fused:
             round_fn = flat_lib.make_flat_feddec_round(fcfg, spec, model.loss,
                                                        lr_fn, **kwargs)
@@ -191,6 +198,7 @@ def train_loop(cfg: ArchConfig, fed: FedConfig, *, steps: int,
              if sweep_runs else "")
           + f", gossip={fcfg.gossip_impl}"
           + (", fused-update-mix" if fuse_update_mix else "")
+          + (f", compress={compress}" if compress != "none" else "")
           + f", device={device}")
 
     positions = torch.arange(seq_len, device=device)[None, None].expand(
@@ -286,7 +294,10 @@ def main(argv=None) -> None:
                    choices=["seed", "h", "topology"],
                    help="what the lattice's runs differ in: their draws, "
                         "H·{1,2,4,...}, or geo/er graphs drawn with seed r")
-    p.add_argument("--gossip-compress", default="none", metavar="SPEC")
+    p.add_argument("--gossip-compress", default="none", metavar="SPEC",
+                   help="compress the gossip payload with error feedback "
+                        "(core/compress.py): none | identity | bf16 | int8 "
+                        "| topk:R; flat layout, not with --sweep-runs")
     p.add_argument("--delta", default="none", metavar="SPEC")
     for flag in _NOT_PORTED:
         p.add_argument(flag, default=None)
@@ -302,9 +313,11 @@ def main(argv=None) -> None:
                          "buffer; it requires --state-layout flat")
     rejected = [flag for flag in _NOT_PORTED
                 if getattr(args, flag[2:].replace("-", "_")) is not None]
-    rejected += [f"--{name.replace('_', '-')} {getattr(args, name)}"
-                 for name in ("gossip_compress", "delta")
-                 if getattr(args, name) != "none"]
+    if args.delta != "none":
+        rejected.append(f"--delta {args.delta}")
+    if args.sweep_runs is not None and args.gossip_compress != "none":
+        rejected.append(f"--gossip-compress {args.gossip_compress} with "
+                        f"--sweep-runs")
     if args.state_layout == "tree":
         rejected.append("--state-layout tree")
     if args.optimizer == "adamw":
@@ -318,7 +331,8 @@ def main(argv=None) -> None:
     cfg = tiny_lm_config(args.d_model, args.layers, vocab=args.vocab)
     fed = FedConfig(n_agents=args.agents, h=args.h, k=args.k,
                     graph=args.graph, p_fail=args.p_fail,
-                    gossip_impl=args.gossip_impl)
+                    gossip_impl=args.gossip_impl,
+                    gossip_compress=args.gossip_compress)
     _, losses = train_loop(
         cfg, fed, steps=args.steps, per_agent_batch=args.batch,
         seq_len=args.seq, lr=args.lr, optimizer=args.optimizer,

@@ -5,8 +5,8 @@ once in torch) from the same numpy start, for 2 rounds of H = 3 steps,
 over gossip impl {dense, pallas, sparse} × fused update+mix {off, on} ×
 {sgd, momentum}, plus link-failure cells.  The port's randomness is
 replaced by a replay of the reference's: per-step keys
-``split(fold_in(step_key, t), 3)`` give W^t's uniforms and the server's K
-draws.  On the CPU the reference runs its Pallas kernels in interpret
+``split(fold_in(step_key, t), 3)`` give W^t's uniforms, the int8 codec's
+noise (tests/test_torch_compress.py) and the server's K draws.  On the CPU the reference runs its Pallas kernels in interpret
 mode and the port its plain versions.  Tolerance: 1e-5 max abs on the
 flat buffer and the momentum slot (f32, short horizon).
 """
@@ -57,6 +57,18 @@ class ReplayDraws:
     def participants(self, t, n, k):
         idx = jax.random.randint(self._keys(t)[2], (k,), 0, n)
         return torch.from_numpy(np.array(idx).astype(np.int64))
+
+    def codec_noise(self, t, n, d):
+        """The int8 codec's noise: ``_row_noise(split(fold_in(key_w, 1),
+        n), d)`` (repro/core/flat.py:450-451, compress.py:256-257)."""
+        return torch.from_numpy(np.array(ref_codec_noise(self._keys(t)[0],
+                                                         n, d)))
+
+
+def ref_codec_noise(key_w, n, d):
+    """The reference's int8 rounding noise for step key ``key_w``."""
+    from repro.core.compress import _row_noise
+    return _row_noise(jax.random.split(jax.random.fold_in(key_w, 1), n), d)
 
 
 def _jax_loss(params, batch):

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (#1–#8) against their plain versions, on the
-card.
+"""The port's CUDA kernels (#1–#9, #11, #13, #14) against their plain
+versions, on the card.
 
 Every test here is marked ``gpu`` and skips where there is no CUDA device
 (the kernels have no CPU mode).  The file imports no jax, so it runs on a
@@ -9,7 +9,8 @@ machine that has PyTorch and a card only:
 
 Tolerance: max abs error ≤ 1e-5·max|y| in f32 (another summation order;
 TF32 is off).  A run's slice of a batched kernel (#5–#8) equals the
-single-run kernel (#1–#4) on that slice exactly.
+single-run kernel (#1–#4) on that slice exactly, and so do the EF
+residual r of #9/#11 and the int8 payload q of #13 their plain versions'.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import gossip
+from repro_torch.core import compress, gossip
 from repro_torch.core import topology as topo
 from repro_torch.kernels import ops, ref
 
@@ -182,7 +183,8 @@ def test_cuda_launches_are_counted(cuda):
         "gossip_mix": 1, "gossip_mix_sparse": 0, "update_mix": 1,
         "update_mix_sparse": 0, "gossip_mix_batched": 1,
         "gossip_mix_sparse_batched": 1, "update_mix_batched": 3,
-        "update_mix_sparse_batched": 3}
+        "update_mix_sparse_batched": 3, "ef_mix": 0, "ef_mix_sparse": 0,
+        "quant_mix": 0, "dequant_mix": 0}
 
 
 @pytest.mark.gpu
@@ -211,3 +213,112 @@ def test_cuda_batched_wrappers_raise_instead_of_falling_back(cuda):
                                       t["g"], torch.zeros(3, device=cuda))
     with pytest.raises(ValueError):  # a CPU W beside CUDA x
         ops.gossip_mix_batched(t["w"].cpu(), t["x"])
+
+
+COMPRESS_KERNELS = ["ef_mix", "ef_mix_sparse", "quant_mix", "dequant_mix"]
+
+
+def _compress_call(mod, kernel: str, t: dict):
+    """Kernel #9, #11, #13 or #14 (``mod`` = ops) or its plain version
+    (ref) on inputs ``t``."""
+    if kernel == "ef_mix":
+        return mod.ef_mix(t["w"], t["p"], t["s"], t["u"])
+    if kernel == "ef_mix_sparse":
+        return mod.ef_mix_sparse(t["nbr"], t["wv"], t["wd"], t["p"], t["s"],
+                                 t["u"])
+    if kernel == "quant_mix":
+        return mod.quant_mix(t["w"], t["u"], t["noise"], t["p"], t["scale"])
+    return mod.dequant_mix(t["w"], t["q"], t["scale"], t["p"])
+
+
+def _compress_inputs(cuda, n: int, d: int) -> dict:
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(n * 6007 + d)
+    p, s, u = (torch.randn(n, d, device=cuda, generator=gen)
+               for _ in range(3))
+    u[0] *= 40.0  # rows of different int8 scales
+    noise = torch.rand(n, d, device=cuda, generator=gen)
+    w = torch.rand(n, n, device=cuda, generator=gen)
+    nbr, mask = (torch.as_tensor(a, device=cuda)
+                 for a in ops.ell_table(_ring(n).adjacency))
+    wv, wd = ops.ell_weights(w, nbr, mask)
+    payload = compress.parse_compress("int8").encode(noise, u)
+    return dict(p=p, s=s, u=u, noise=noise, w=w, nbr=nbr, wv=wv, wd=wd,
+                scale=payload["scale"], q=payload["q"])
+
+
+def _assert_compress_matches(kernel: str, t: dict) -> None:
+    """y within 1e-5·max|y|; the residual r (#9, #11) and the int8 payload
+    q (#13) equal the plain version's exactly."""
+    got = _compress_call(ops, kernel, t)
+    want = _compress_call(ref, kernel, t)
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    y, want_y = got[0], want[0]
+    assert (y - want_y).abs().max().item() <= \
+        1e-5 * want_y.abs().max().item()
+    for a, b in zip(got[1:], want[1:]):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+# D % 4 == 0 at n <= 8 takes the kernels' 16-byte accesses, the other
+# shapes their masked scalar ones
+COMPRESS_SHAPES = SHAPES + [(6, 40000), (8, 65536)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,d", COMPRESS_SHAPES)
+@pytest.mark.parametrize("kernel", COMPRESS_KERNELS)
+def test_cuda_compress_kernel_matches_plain_version(cuda, n, d, kernel):
+    _assert_compress_matches(kernel, _compress_inputs(cuda, n, d))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", COMPRESS_KERNELS)
+def test_cuda_compress_kernel_on_misaligned_buffers(cuda, kernel):
+    """Contiguous buffers that start 4 bytes past a 16-byte boundary (D a
+    multiple of 4) take the scalar accesses and agree all the same."""
+    t = _compress_inputs(cuda, 8, 4096)
+    for key in ("p", "s", "u", "noise"):
+        buf = torch.empty(t[key].numel() + 1, device=cuda)
+        t[key] = buf[1:].view_as(t[key]).copy_(t[key])
+        assert t[key].is_contiguous() and t[key].data_ptr() % 16 == 4
+    _assert_compress_matches(kernel, t)
+
+
+@pytest.mark.gpu
+def test_cuda_quant_mix_emits_the_codec_payload(cuda):
+    """#13's q is the int8 codec's q, and its y is #14's on that q."""
+    t = _compress_inputs(cuda, 8, 50001)
+    y, q = ops.quant_mix(t["w"], t["u"], t["noise"], t["p"], t["scale"])
+    assert torch.equal(q, t["q"])
+    y14 = ops.dequant_mix(t["w"], q, t["scale"], t["p"])
+    assert (y - y14).abs().max().item() <= 1e-5 * y14.abs().max().item()
+
+
+@pytest.mark.gpu
+def test_cuda_compress_launches_are_counted(cuda):
+    t = _compress_inputs(cuda, 5, 777)
+    ops.reset_launch_counts()
+    for kernel in COMPRESS_KERNELS:
+        _compress_call(ops, kernel, t)
+        _compress_call(ref, kernel, t)  # plain versions do not count
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert all(counts[k] == 1 for k in COMPRESS_KERNELS)
+    assert sum(counts.values()) == len(COMPRESS_KERNELS)
+
+
+@pytest.mark.gpu
+def test_cuda_compress_wrappers_raise_instead_of_falling_back(cuda):
+    t = _compress_inputs(cuda, 4, 100)
+    with pytest.raises(TypeError):
+        ops.ef_mix(t["w"], t["p"].double(), t["s"], t["u"])
+    with pytest.raises(TypeError):
+        ops.dequant_mix(t["w"], t["q"].int(), t["scale"], t["p"])
+    with pytest.raises(ValueError):  # a CPU W beside CUDA buffers
+        ops.quant_mix(t["w"].cpu(), t["u"], t["noise"], t["p"], t["scale"])
+    big = torch.randn(401, 8, device=cuda)
+    with pytest.raises(RuntimeError, match="kMaxN"):  # the kernel's limit
+        ops.ef_mix(torch.rand(401, 401, device=cuda), big, big, big)

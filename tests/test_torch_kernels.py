@@ -233,12 +233,17 @@ def test_cpu_calls_do_not_count_as_launches():
     ops.gossip_mix_batched(tw[None], tx[None])
     ops.update_mix_batched(tw[None], tx[None], tg[None], torch.tensor([0.1]),
                            tm[None], beta=0.9)
+    ops.ef_mix(tw, tx, tg, tm)
+    scale = torch.ones(5)
+    _, q = ops.quant_mix(tw, tx, tg.abs().clamp(max=0.5), tm, scale)
+    ops.dequant_mix(tw, q, scale, tm)
     assert ops.launch_counts() == {
         name: 0 for name in ("gossip_mix", "gossip_mix_sparse", "update_mix",
                              "update_mix_sparse", "gossip_mix_batched",
                              "gossip_mix_sparse_batched",
                              "update_mix_batched",
-                             "update_mix_sparse_batched")}
+                             "update_mix_sparse_batched", "ef_mix",
+                             "ef_mix_sparse", "quant_mix", "dequant_mix")}
 
 
 @pytest.mark.parametrize("bad", ["rank", "w_shape", "eta_shape",

@@ -7,9 +7,12 @@ on 4 agents for 4 steps with H = 2, ``--gossip-impl pallas
 rebuilt as repro/launch/train.py draws them, and the server's K draws
 from ``split(fold_in(step_key, t), 3)``.  Per-step losses agree to 1e-5
 relative.  The same holds for the sweep lattice (``sweep_runs=2`` on the
-seed and h axes), whose draws replay the reference's per-run keys.  The
-CLI's rejections, its sweep errors and its device default are checked
-too.
+seed and h axes), whose draws replay the reference's per-run keys, and
+for compressed gossip (``--gossip-compress int8``, whose noise replays
+the reference's codec key; 1e-4 relative, since the two packages may
+round a borderline element differently, tests/test_torch_compress.py).
+The CLI's codec paths, rejections, sweep errors and device default are
+checked too.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import pytest
 import torch
 
 from repro.configs.base import FedConfig as RefFedConfig
+from repro.core import compress as ref_compress
 from repro.data.federated_lm import make_federated_lm as ref_make_data
 from repro.launch import train as ref_train
 from repro.models import build_model as ref_build_model
@@ -60,6 +64,12 @@ class ReplayTrainDraws(Draws):
     def participants(self, t, n, k):
         idx = jax.random.randint(self._keys(t)[2], (k,), 0, n)
         return torch.from_numpy(np.array(idx).astype(np.int64))
+
+    def codec_noise(self, t, n, d):
+        """``_row_noise(split(fold_in(key_w, 1), n), d)``, the reference's
+        int8 noise at step t (repro/core/flat.py:450-451)."""
+        keys = jax.random.split(jax.random.fold_in(self._keys(t)[0], 1), n)
+        return torch.from_numpy(np.array(ref_compress._row_noise(keys, d)))
 
 
 class ReplaySweepTrainDraws(ReplayTrainDraws):
@@ -143,6 +153,34 @@ def test_train_loop_matches_reference_losses():
     assert state.step == 5 and torch.isfinite(state.flat).all()
 
 
+@pytest.mark.parametrize("impl,fuse,opt", [("pallas", False, "sgd"),
+                                            ("pallas", True, "momentum"),
+                                            ("sparse", True, "sgd")])
+def test_compressed_train_loop_matches_reference_losses(impl, fuse, opt):
+    """The int8 paths of the chip check ((i) #14, (j) #9, (k) #11) on the
+    small LM against the reference trainer, the codec noise replayed."""
+    seed = 2
+    ref_cfg = ref_train.tiny_lm_config(D_MODEL, LAYERS, vocab=VOCAB)
+    fed = dict(n_agents=N, h=H, k=K, graph="ring2", gossip_impl=impl,
+               gossip_compress="int8")
+    kw = dict(steps=4, per_agent_batch=BATCH, seq_len=SEQ, fused=True,
+              fuse_update_mix=fuse, optimizer=opt, log_every=0, seed=seed)
+    _, ref_losses = ref_train.train_loop(ref_cfg, RefFedConfig(**fed),
+                                         state_layout="flat", **kw)
+    params0 = jax.jit(ref_build_model(ref_cfg).init)(jax.random.key(seed))
+    draws = ReplayTrainDraws(seed, ref_make_data(VOCAB, N, SEQ, alpha=0.3,
+                                                 seed=seed))
+    state, losses = port_train.train_loop(
+        port_train.tiny_lm_config(D_MODEL, LAYERS, vocab=VOCAB),
+        FedConfig(**fed), device="cpu", draws=draws,
+        params0=flat_lib.params_from_numpy(jax.tree.map(np.asarray,
+                                                        params0)), **kw)
+    assert len(losses) == len(ref_losses) == 4
+    np.testing.assert_allclose(losses, ref_losses, rtol=1e-4)
+    assert state.step == 5 and state.residual.shape == state.flat.shape
+    assert state.residual.abs().max() > 0
+
+
 def _small_run(**kw):
     return port_train.train_loop(
         port_train.tiny_lm_config(64, 1, vocab=64),
@@ -191,6 +229,46 @@ def test_cli_runs_on_cpu_and_prints_the_reference_lines(capsys):
     assert "fused-update-mix" in out and "[train] done: loss " in out
 
 
+SMALL_CLI = ["--device", "cpu", "--steps", "3", "--agents", "3", "--batch",
+             "1", "--seq", "8", "--d-model", "64", "--layers", "1",
+             "--vocab", "64", "--h", "2"]
+
+
+def _cli_lines(capsys, argv):
+    port_train.main(SMALL_CLI + argv)
+    return capsys.readouterr().out.splitlines()
+
+
+@pytest.mark.parametrize("codec", ["identity", "bf16", "int8", "topk:0.25"])
+@pytest.mark.parametrize("impl", ["dense", "pallas", "sparse"])
+@pytest.mark.parametrize("executor", [["--fuse-update-mix"], ["--per-step"]],
+                         ids=["fused-update-mix", "per-step"])
+def test_cli_runs_every_codec_path_on_cpu(capsys, codec, impl, executor):
+    out = _cli_lines(capsys, ["--gossip-impl", impl, "--gossip-compress",
+                              codec, *executor])
+    header = next(line for line in out if line.startswith("[train] tiny"))
+    assert f"gossip={impl}" in header
+    assert f", compress={codec}, device=cpu" in header
+    assert out[-1].startswith("[train] done: loss ")
+
+
+@pytest.mark.parametrize("impl", ["dense", "pallas", "sparse"])
+def test_cli_identity_prints_the_uncompressed_done_line(capsys, impl):
+    plain = _cli_lines(capsys, ["--gossip-impl", impl])
+    ident = _cli_lines(capsys, ["--gossip-impl", impl, "--gossip-compress",
+                                "identity"])
+    assert ident[-1] == plain[-1] and ident[-1].startswith("[train] done:")
+
+
+@pytest.mark.parametrize("argv", [["--fedavg"], ["--gossip-impl", "none"]])
+def test_cli_no_exchange_means_no_codec(capsys, argv):
+    """--fedavg and --gossip-impl none exchange nothing: no codec runs and
+    the header names none (repro/launch/train.py:171-172)."""
+    out = _cli_lines(capsys, [*argv, "--gossip-compress", "int8"])
+    assert not any("compress=" in line for line in out)
+    assert out[-1].startswith("[train] done: loss ")
+
+
 def test_cli_runs_a_sweep_lattice_on_cpu(capsys):
     port_train.main(["--device", "cpu", "--steps", "2", "--agents", "3",
                      "--batch", "1", "--seq", "8", "--d-model", "64",
@@ -234,7 +312,8 @@ def test_cli_sweep_errors_are_the_reference_messages(case):
 @pytest.mark.parametrize("argv", [
     ["--mesh-agents", "2"], ["--mesh-model", "2"],
     ["--sweep-runs", "2", "--gossip-compress", "int8"],
-    ["--gossip-compress", "int8"], ["--delta", "full"], ["--n-total", "64"],
+    ["--gossip-compress", "int8", "--state-layout", "tree"],
+    ["--delta", "full"], ["--n-total", "64"],
     ["--state-layout", "tree"], ["--optimizer", "adamw"],
     ["--ckpt-dir", "ckpt"], ["--arch", "qwen1.5-4b"]])
 def test_cli_rejects_what_is_not_ported(argv, capsys):
