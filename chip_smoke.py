@@ -19,7 +19,11 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
      slice against the single-run kernel on that slice (to 0.0); then the
      compressed-gossip kernels #9, #11, #13, #14 at the ragged shapes and
      at full shape, y within 1e-5·max|y| and the residual r (#9, #11) and
-     the int8 payload q (#13) equal to the plain version's (0.0);
+     the int8 payload q (#13) equal to the plain version's (0.0); then the
+     batched EF kernels #10/#12 of the compressed lattice at ragged
+     lattices (R = 1 and 3, n not a multiple of 8, D ≡ 1, 2, 3 mod 4, a
+     misaligned buffer) and at R = 2, n = 8, D = 156,519,168, y within
+     1e-5·max|y|, r exact, and each run's slice equal to #9/#11 on it;
   4. training: the full-size tiny LM, 8 agents, ring2, H = 10, K = 2,
      batch 2, seq 128, 10 steps, on paths (a) --gossip-impl pallas,
      (b) sparse, (c) pallas --fuse-update-mix --optimizer momentum,
@@ -37,8 +41,16 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
      --optimizer momentum, #9; (k) int8 sparse --fuse-update-mix, #11;
      (l) identity pallas, #1, which must end on path (a)'s flat buffer
      (difference 0.0) with an all-zero residual; (m) topk:0.1 pallas
-     --fuse-update-mix, #9.  Each path runs one untimed warm-up round
-     first, so its step time is that of warm steps;
+     --fuse-update-mix, #9.  Then the compressed R = 2 lattice at full
+     width and --layers 6 (9 lattice buffers at 12 layers would not fit
+     in 80 GB): (n) --sweep-axis seed int8 pallas --fuse-update-mix
+     --optimizer momentum, #10; (o) --sweep-axis topology er0.5 int8
+     sparse --fuse-update-mix, #12; (p) --sweep-axis h topk:0.1 pallas,
+     #5; (q) --sweep-axis h identity pallas, #5, which must end on its
+     uncompressed twin's lattice buffer (path (e) at the same depth, run
+     too) with difference 0.0 and an all-zero residual.  Each path runs
+     one untimed warm-up round first, so its step time is that of warm
+     steps;
   5. profile: path (c) once more under torch.profiler, for the device
      time per step by kernel group against the unprofiled step time; the
      set-up's device work is measured apart and taken out.
@@ -68,6 +80,11 @@ TOL = 1e-5                      # × max|y|: f32, other summation order
 RAGGED = [(5, 1_000_003), (1, 777), (13, 3001), (37, 1031), (256, 10_007)]
 RAGGED_LATTICE = [(1, 5, 1_000_003), (3, 1, 777), (2, 13, 3001),
                   (3, 37, 1031), (2, 256, 10_007)]
+# #10/#12: R = 1 and 3, n not a multiple of 8, D ≡ 3, 1, 2, 3, 1 (mod 4)
+RAGGED_EF_LATTICE = [(1, 5, 1_000_003), (3, 13, 3001), (3, 6, 1002),
+                     (1, 37, 1031), (3, 8, 777)]
+# the depth of the compressed lattice paths (n)-(q) and their twin
+LATTICE_EF_LAYERS = 6
 UPDATES = ["sgd", "momentum", "nesterov"]
 VARIANTS = {"gossip_mix": ["gossip"], "gossip_mix_sparse": ["gossip"],
             "update_mix": UPDATES, "update_mix_sparse": UPDATES}
@@ -95,8 +112,15 @@ REPLACES.update({
     "quant_mix": "src/repro/kernels/compress_mix.py:61",
     "dequant_mix": "src/repro/kernels/compress_mix.py:101",
 })
+# the batched EF kernels (#10, #12) and the single-run kernel each extends
+BATCHED_EF = {"ef_mix_batched": "ef_mix",
+              "ef_mix_sparse_batched": "ef_mix_sparse"}
+REPLACES.update({
+    "ef_mix_batched": "src/repro/kernels/update_mix.py:365",
+    "ef_mix_sparse_batched": "src/repro/kernels/update_mix.py:429",
+})
 SOURCES = {k: "src/repro_torch/kernels/csrc/"
-           + ("compress_mix.cu" if k in COMPRESSED
+           + ("compress_mix.cu" if k in COMPRESSED or k in BATCHED_EF
               else f"{k.split('_mix')[0]}_mix.cu") for k in REPLACES}
 # training path -> (gossip impl, fuse, optimizer, the kernel it launches)
 PATHS = {
@@ -125,13 +149,26 @@ COMPRESS_PATHS = {
     "l": ("pallas", False, "sgd", "identity", "gossip_mix"),
     "m": ("pallas", True, "sgd", "topk:0.1", "ef_mix"),
 }
+# compressed lattice path (R = 2, LATTICE_EF_LAYERS) -> (axis, graph, gossip
+# impl, fuse, optimizer, codec, the kernel it launches)
+COMPRESS_SWEEP_PATHS = {
+    "n": ("seed", "ring2", "pallas", True, "momentum", "int8",
+          "ef_mix_batched"),
+    "o": ("topology", "er0.5", "sparse", True, "sgd", "int8",
+          "ef_mix_sparse_batched"),
+    "p": ("h", "ring2", "pallas", False, "sgd", "topk:0.1",
+          "gossip_mix_batched"),
+    "q": ("h", "ring2", "pallas", False, "sgd", "identity",
+          "gossip_mix_batched"),
+}
 # the variant each kernel runs on its training path (timed in the line)
 PATH_VARIANT = {"gossip_mix": "gossip", "gossip_mix_sparse": "gossip",
                 "update_mix": "momentum", "update_mix_sparse": "sgd",
                 "gossip_mix_batched": "gossip",
                 "gossip_mix_sparse_batched": "gossip",
                 "update_mix_batched": "momentum",
-                "update_mix_sparse_batched": "sgd", **COMPRESSED}
+                "update_mix_sparse_batched": "sgd", **COMPRESSED,
+                **{k: "ef" for k in BATCHED_EF}}
 STEPS = 10
 DEVICE = "cuda"
 
@@ -520,18 +557,20 @@ def compress_calls(kernel: str, t: dict):
             lambda: getattr(ref, kernel)(*args))
 
 
-def compress_bound(kernel: str, n: int, d: int, max_deg: int):
+def compress_bound(kernel: str, n: int, d: int, max_deg: int, r: int = 1):
     """(bound_ms, bound_by): each input read once, each output written
-    once (#9/#11: p, s, u in, y, r out, 20 B per element; #13: u, noise,
+    once (#9-#12: p, s, u in, y, r out, 20 B per element; #13: u, noise,
     p in, y and q at 1 B out, 17 B; #14: q at 1 B and p in, y out, 9 B),
-    against the card's memory rate and its f32 rate."""
-    elems = n * d
+    against the card's memory rate and its f32 rate; r runs (#10/#12)
+    each with its own W or ELL tables."""
+    kernel = BATCHED_EF.get(kernel, kernel)
+    elems = r * n * d
     per_elem = {"ef_mix": 20, "ef_mix_sparse": 20, "quant_mix": 17,
                 "dequant_mix": 9}[kernel]
     table = 8 * n * max_deg + 4 * n if kernel == "ef_mix_sparse" \
         else 4 * n * n
     scales = 4 * n if kernel in ("quant_mix", "dequant_mix") else 0
-    nbytes = per_elem * elems + table + scales
+    nbytes = per_elem * elems + r * (table + scales)
     # the mix, the correction (3) and the source of s: r = u − s (1),
     # q·scale (1), or a division, an add, a floor, a clip (2) and q·scale
     mix = 2 * max_deg + 1 if kernel == "ef_mix_sparse" else 2 * n
@@ -608,6 +647,143 @@ def compress_kernel_phase(torch) -> dict:
     return results
 
 
+def make_ef_lattice_inputs(torch, r: int, n: int, d: int, seed: int,
+                           graphs):
+    """p, s, u (R, n, D) with each run's first row of u larger (rows of
+    other int8 scales), per-run W and the lattice's stacked ELL tables."""
+    from repro_torch.core import gossip
+    from repro_torch.kernels import ops
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    p, s, u = (torch.randn(r, n, d, device=dev, generator=gen)
+               for _ in range(3))
+    u[:, 0].mul_(40.0)
+    w = torch.rand(r, n, n, device=dev, generator=gen)
+    w = w / w.sum(dim=-1, keepdim=True)
+    nbr, mask, max_deg = gossip.stacked_ell_tables(graphs)
+    nbr, mask = (torch.as_tensor(a, device=dev) for a in (nbr, mask))
+    wv, wd = ops.ell_weights(w, nbr, mask)
+    return dict(p=p, s=s, u=u, w=w, nbr=nbr, wv=wv, wd=wd, graphs=graphs,
+                max_deg=max_deg)
+
+
+def batched_ef_calls(kernel: str, t: dict):
+    """(kernel call, plain call on a slice of the runs, single-run kernel
+    call on run i) of #10 or #12 on lattice inputs ``t``."""
+    from repro_torch.kernels import ops, ref
+    p, s, u, w = (t[k] for k in ("p", "s", "u", "w"))
+    tab = (t["nbr"], t["wv"], t["wd"])
+    if kernel == "ef_mix_batched":
+        return (lambda: ops.ef_mix_batched(w, p, s, u),
+                lambda sl: ref.ef_mix_batched(w[sl], p[sl], s[sl], u[sl]),
+                lambda i: ops.ef_mix(w[i], p[i], s[i], u[i]))
+
+    def own_table(i):  # run i's unpadded ELL table, live weights
+        return ops.EllTables(*ops.ell_table(
+            t["graphs"][i].adjacency)).weights(w[i], p[i])
+
+    return (lambda: ops.ef_mix_sparse_batched(*tab, p, s, u),
+            lambda sl: ref.ef_mix_sparse_batched(
+                *(a[sl] for a in tab), p[sl], s[sl], u[sl]),
+            lambda i: ops.ef_mix_sparse(*own_table(i), p[i], s[i], u[i]))
+
+
+def check_ef_lattice(torch, kernel: str, t: dict, where: str) -> float:
+    """#10/#12 against the plain version run by run (y within
+    TOL·max|y|, the residual r exact), and each run's slice against
+    #9/#11 on that slice, to 0.0.  Returns y's largest error."""
+    run, plain, single = batched_ef_calls(kernel, t)
+    y, r = run()
+    torch.cuda.synchronize()
+    err = 0.0
+    for i in range(t["p"].shape[0]):
+        want_y, want_r = plain(slice(i, i + 1))
+        e = torch.sub(y[i:i + 1], want_y).abs_().max().item()
+        scale = want_y.abs().max().item()
+        exact = torch.equal(r[i:i + 1], want_r)
+        del want_y, want_r
+        check(e <= TOL * scale,
+              f"{kernel} {where} run {i}: y max_abs_err {e:.3e} > "
+              f"{TOL}·{scale:.3e}")
+        check(exact, f"{kernel} {where} run {i}: the residual differs from "
+                     f"the plain version's")
+        err = max(err, e)
+        one = single(i)
+        diff = max(torch.sub(a[i], b).abs_().max().item()
+                   for a, b in zip((y, r), one))
+        del one
+        check(diff == 0.0,
+              f"{kernel} {where} run {i}: slice differs from "
+              f"{BATCHED_EF[kernel]} by {diff:.3e}")
+    return err
+
+
+def batched_ef_kernel_phase(torch) -> dict:
+    from repro_torch.core import topology
+    from repro_torch.kernels import ops
+    results = {k: {"max_abs_err": 0.0, "variants": {}} for k in BATCHED_EF}
+
+    def ragged(t, where):
+        for kernel in BATCHED_EF:
+            err = check_ef_lattice(torch, kernel, t, where)
+            results[kernel]["max_abs_err"] = max(
+                results[kernel]["max_abs_err"], err)
+        log(f"[kernels] ragged {where}: #10/#12 y within {TOL}·max|y|, r "
+            f"exact, run slices equal to #9/#11")
+
+    for r, n, d in RAGGED_EF_LATTICE:
+        ragged(make_ef_lattice_inputs(torch, r, n, d,
+                                      seed=r * 7001 + n * 131 + d,
+                                      graphs=lattice_graphs(r, n)),
+               f"R={r} n={n} D={d}")
+    # contiguous lattices 4 bytes past a 16-byte boundary, D % 4 == 0: the
+    # kernels take the masked scalar accesses
+    t = make_ef_lattice_inputs(torch, 2, N_AGENTS, 65536, seed=5,
+                               graphs=lattice_graphs(2, N_AGENTS))
+    for key in ("p", "s", "u"):
+        buf = torch.empty(t[key].numel() + 1, device=t[key].device)
+        t[key] = buf[1:].view_as(t[key]).copy_(t[key])
+        check(t[key].data_ptr() % 16 == 4, "misaligned buffer expected")
+    ragged(t, f"R=2 n={N_AGENTS} D=65536 misaligned")
+    del t
+    torch.cuda.empty_cache()
+
+    # path (o)'s lattice: er0.5 drawn with seeds 0 and 1 (one table padded)
+    graphs = [topology.erdos_renyi_graph(N_AGENTS, 0.5, seed=i)
+              for i in range(R_FULL)]
+    t = make_ef_lattice_inputs(torch, R_FULL, N_AGENTS, D_FULL, seed=4,
+                               graphs=graphs)
+    where = f"R={R_FULL} n={N_AGENTS} D={D_FULL}"
+    for kernel in BATCHED_EF:
+        torch.cuda.reset_peak_memory_stats()
+        err = check_ef_lattice(torch, kernel, t, where)
+        torch.cuda.empty_cache()
+        run, plain, _ = batched_ef_calls(kernel, t)
+        ms = time_ms(torch, run)
+        plain_ms = time_ms(torch, lambda: plain(slice(None)), iters=2,
+                           warmup=1)
+        bound_ms, bound_by = compress_bound(kernel, N_AGENTS, D_FULL,
+                                            t["max_deg"], r=R_FULL)
+        peak = torch.cuda.max_memory_allocated()
+        torch.cuda.empty_cache()
+        results[kernel]["variants"]["ef"] = {
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "share_of_bound": bound_ms / ms, "peak_bytes": peak}
+        results[kernel]["max_abs_err"] = max(
+            results[kernel]["max_abs_err"], err)
+        log(f"[kernels] {kernel}[ef] {where}: y err {err:.3e}, r exact, run "
+            f"slices equal to {BATCHED_EF[kernel]}  ms {ms:.4f}  bound_ms "
+            f"{bound_ms:.4f} ({bound_by}, {100 * bound_ms / ms:.1f}% of "
+            f"bound)  plain_ms {plain_ms:.4f}  library_ms n/a (no single "
+            f"call)  peak {peak / 1e9:.2f} GB")
+    del t
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    return results
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: training on the port's main path
 # ---------------------------------------------------------------------------
@@ -616,10 +792,10 @@ def compress_kernel_phase(torch) -> dict:
 def train_path(torch, impl: str, fuse: bool, optimizer: str,
                steps: int = STEPS, *, graph: str = "ring2",
                p_fail: float = 0.0, sweep_axis: str | None = None,
-               compress: str = "none"):
+               compress: str = "none", layers: int = 12):
     """One run of the trainer; with ``sweep_axis`` the R_FULL-run lattice,
     whose whole (R, n, D) state it returns; ``compress`` is the gossip
-    codec (--gossip-compress)."""
+    codec (--gossip-compress), ``layers`` the depth (--layers)."""
     from repro_torch.configs.base import FedConfig
     from repro_torch.launch import train
     torch.cuda.reset_peak_memory_stats()
@@ -627,7 +803,7 @@ def train_path(torch, impl: str, fuse: bool, optimizer: str,
     sweep = {} if sweep_axis is None else dict(
         sweep_runs=R_FULL, sweep_axis=sweep_axis, keep_lattice=True)
     state, losses = train.train_loop(
-        train.tiny_lm_config(),
+        train.tiny_lm_config(layers=layers),
         FedConfig(n_agents=N_AGENTS, h=10, k=2, graph=graph, p_fail=p_fail,
                   gossip_impl=impl, gossip_compress=compress),
         steps=steps, per_agent_batch=2, seq_len=128, optimizer=optimizer,
@@ -723,24 +899,49 @@ def training_phase(torch) -> dict:
     for name, (impl, fuse, opt, codec, kernel) in COMPRESS_PATHS.items():
         state, out[name] = run_path(torch, name, impl, fuse, opt, kernel,
                                     compress=codec)
-        res_max = state.residual.abs().max().item()
-        out[name]["residual_max_abs"] = res_max
-        check(math.isfinite(res_max),
-              f"path ({name}): non-finite residual")
-        if name == "l":
-            diff = (state.flat - a_final.to(state.flat.device)).abs().max()
-            out[name]["max_abs_diff_to_a"] = diff.item()
-            check(diff.item() == 0.0 and res_max == 0.0,
-                  f"path (l): identity codec ends {diff.item():.3e} from "
-                  f"path (a), residual max {res_max:.3e} (both must be 0)")
-            log(f"[train] path (l) ends on path (a)'s flat buffer "
-                f"(difference {diff.item()}), residual all zero")
-        else:
-            check(res_max > 0.0, f"path ({name}): the lossy codec left no "
-                                 f"residual")
+        check_residual(torch, name, state, out[name],
+                       *(("a", a_final) if name == "l" else ()))
+        del state
+        torch.cuda.empty_cache()
+    for name, (axis, graph, impl, fuse, opt, codec, kernel) in \
+            COMPRESS_SWEEP_PATHS.items():
+        kw = dict(graph=graph, sweep_axis=axis, layers=LATTICE_EF_LAYERS)
+        twin = ()
+        if codec == "identity":
+            # the uncompressed twin: path (e) at this depth, kept on the
+            # host so that no path's peak holds it
+            state, out[f"{name}_twin"] = run_path(
+                torch, f"{name} twin", impl, fuse, opt, kernel, **kw)
+            twin = (f"{name}_twin", state.flat.cpu())
+            del state
+            torch.cuda.empty_cache()
+        state, out[name] = run_path(torch, name, impl, fuse, opt, kernel,
+                                    compress=codec, **kw)
+        check_residual(torch, name, state, out[name], *twin)
         del state
         torch.cuda.empty_cache()
     return out
+
+
+def check_residual(torch, name: str, state, out: dict, twin: str = "",
+                   twin_final=None) -> None:
+    """A lossy codec's run leaves a finite, nonzero residual; a lossless
+    one (identity) ends on its uncompressed twin's buffer ``twin_final``
+    (difference 0.0) with an all-zero residual."""
+    res_max = state.residual.abs().max().item()
+    out["residual_max_abs"] = res_max
+    check(math.isfinite(res_max), f"path ({name}): non-finite residual")
+    if twin_final is None:
+        check(res_max > 0.0, f"path ({name}): the lossy codec left no "
+                             f"residual")
+        return
+    diff = (state.flat - twin_final.to(state.flat.device)).abs().max().item()
+    out[f"max_abs_diff_to_{twin}"] = diff
+    check(diff == 0.0 and res_max == 0.0,
+          f"path ({name}): identity codec ends {diff:.3e} from path "
+          f"({twin}), residual max {res_max:.3e} (both must be 0)")
+    log(f"[train] path ({name}) ends on path ({twin})'s buffer (difference "
+        f"{diff}), residual all zero")
 
 
 # ---------------------------------------------------------------------------
@@ -866,6 +1067,7 @@ def main() -> int:
     kernels = kernel_phase(torch)
     kernels.update(batched_kernel_phase(torch))
     kernels.update(compress_kernel_phase(torch))
+    kernels.update(batched_ef_kernel_phase(torch))
     log(f"[kernels] phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     training = training_phase(torch)

@@ -1,5 +1,5 @@
 """Compressed gossip with error feedback (repro/core/compress.py, for the
-flat (n, D) buffer).
+flat (n, D) buffer and the (R, n, D) sweep lattice).
 
 The gossip payload is compressed while the local updates stay at full
 precision, with a CHOCO-style error-feedback residual that carries the
@@ -16,7 +16,9 @@ iterate at full precision.  With the identity codec s = u = p, the
 residual stays 0 and y = W p: the uncompressed trajectory.
 ``gossip_compress='none'`` skips all of this (no residual state).
 
-Codecs, per row of the (n, D) buffer (row i is agent i):
+Codecs, per row of the (n, D) buffer (row i is agent i), or of each
+run's (n, D) slice of a lattice (the reference vmaps the codec over the
+runs; a row is a row either way):
 
   * ``identity`` — s = u; wire D·b bytes/row;
   * ``bf16``     — round-to-nearest bf16 cast; 2·D bytes/row;
@@ -28,11 +30,12 @@ Codecs, per row of the (n, D) buffer (row i is agent i):
     int32 indices, R·D·(b + 4) bytes/row).
 
 Unlike the reference, ``encode`` takes the int8 rounding noise as an
-(n, D) f32 tensor rather than keys: the engines draw it from the
+f32 tensor of u's shape rather than keys: the engines draw it from the
 :class:`repro_torch.core.draws.Draws` object (``codec_noise``), so a test
-can hand both packages the same numbers.  The int8 × 'pallas' path mixes
-straight from the int8 payload with kernel #14
-(:func:`repro_torch.kernels.ops.dequant_mix`).
+can hand both packages the same numbers.  The flat int8 × 'pallas' path
+mixes straight from the int8 payload with kernel #14
+(:func:`repro_torch.kernels.ops.dequant_mix`); the lattice decodes s and
+mixes it as the reference's does.
 """
 
 from __future__ import annotations
@@ -45,7 +48,7 @@ import torch
 __all__ = ["Compressor", "IdentityCompressor", "Bf16Compressor",
            "Int8Compressor", "TopKCompressor", "parse_compress",
            "COMPRESS_CHOICES", "init_residual", "encode_compensated",
-           "make_flat_ef_gossip"]
+           "make_flat_ef_gossip", "make_fused_ef_gossip"]
 
 # canonical spellings for CLI help; 'topk:R' takes any ratio 0 < R <= 1
 COMPRESS_CHOICES = ("none", "identity", "bf16", "int8", "topk:R")
@@ -53,11 +56,13 @@ COMPRESS_CHOICES = ("none", "identity", "bf16", "int8", "topk:R")
 
 @dataclasses.dataclass(frozen=True)
 class Compressor:
-    """Base: encode (n, d) → wire payload; decode back to values.
+    """Base: encode (..., d) rows → wire payload; decode back to values.
 
     ``decode(encode(noise, u))`` is the dequantized s the mix consumes.
-    ``needs_key`` marks the stochastic codec (int8), whose ``encode`` takes
-    an (n, d) U[0, 1) noise tensor; the others take ``None``.
+    Every codec works row by row over u's last dim, so u may be an (n, d)
+    buffer or an (R, n, d) lattice.  ``needs_key`` marks the stochastic
+    codec (int8), whose ``encode`` takes a U[0, 1) noise tensor of u's
+    shape (or one that broadcasts to it); the others take ``None``.
     """
 
     name: str = "identity"
@@ -118,7 +123,7 @@ class Int8Compressor(Compressor):
 
     @staticmethod
     def row_scale(u: torch.Tensor) -> torch.Tensor:
-        """(n,) per-row scale max|u_row|/127; 1 on all-zero rows."""
+        """(...,) per-row scale max|u_row|/127; 1 on all-zero rows."""
         s = u.float().abs().amax(dim=-1) / 127.0
         return torch.where(s > 0, s, torch.ones_like(s))
 
@@ -144,7 +149,8 @@ class TopKCompressor(Compressor):
     k-th largest magnitude, then the entries equal to it in column order.
     ``torch.topk`` promises no order among ties, so it only finds that
     threshold.  The payload lists each row's indices in ascending order
-    (the reference lists them by magnitude; the set is the same).
+    (the reference lists them by magnitude; the set is the same).  A
+    lattice's rows are selected as the rows of its (R·n, d) view.
     """
 
     name: str = "topk"
@@ -173,18 +179,24 @@ class TopKCompressor(Compressor):
         return keep
 
     def encode(self, noise, u):
-        keep = self.keep_mask(u)
-        idx = torch.nonzero(keep)[:, 1].view(u.shape[0], -1)
+        rows = u.reshape(-1, u.shape[-1])
+        keep = self.keep_mask(rows)
+        idx = torch.nonzero(keep)[:, 1].view(rows.shape[0], -1)
         del keep
-        return {"v": torch.gather(u, 1, idx), "i": idx.to(torch.int32)}
+        lead = u.shape[:-1] + (idx.shape[1],)
+        return {"v": torch.gather(rows, 1, idx).view(lead),
+                "i": idx.to(torch.int32).view(lead)}
 
     def decode(self, payload, dtype, d=None):
         if d is None:
             raise ValueError("top-k decode needs the row width d")
         vals, idx = payload["v"], payload["i"]
-        out = torch.zeros((vals.shape[0], d), dtype=dtype,
+        k = vals.shape[-1]
+        out = torch.zeros((vals.numel() // k, d), dtype=dtype,
                           device=vals.device)
-        return out.scatter_(1, idx.long(), vals.to(dtype))
+        out.scatter_(1, idx.reshape(-1, k).long(),
+                     vals.reshape(-1, k).to(dtype))
+        return out.view(vals.shape[:-1] + (d,))
 
     def wire_bytes_per_row(self, d, param_bytes=4):
         return float(self.k_of(d)) * (param_bytes + 4.0)
@@ -229,9 +241,10 @@ def init_residual(compressor: Compressor | None, n_agents: int, d: int,
 def encode_compensated(compressor: Compressor, p: torch.Tensor,
                        res: torch.Tensor, draws, t):
     """(u, payload): the error-compensated payload u = p + e and its
-    encoding; the int8 codec's noise is ``draws.codec_noise(t, n, D)``."""
+    encoding; the int8 codec's noise is ``draws.codec_noise(t, n, D)``
+    ((n, D), or (R, n, D) from a lattice's draws)."""
     u = p + res
-    noise = draws.codec_noise(t, u.shape[0], u.shape[1]) \
+    noise = draws.codec_noise(t, u.shape[-2], u.shape[-1]) \
         if compressor.needs_key else None
     return u, compressor.encode(noise, u)
 
@@ -239,7 +252,9 @@ def encode_compensated(compressor: Compressor, p: torch.Tensor,
 def make_flat_ef_gossip(compressor: Compressor, mix_fn: Callable,
                         n_agents: int, *,
                         fused_int8_pallas: bool = False) -> Callable:
-    """Whole-buffer EF gossip: (w, p, res, draws, t) -> (y, new_res).
+    """Whole-buffer EF gossip: (w, p, res, draws, t) -> (y, new_res), on the
+    flat (n, D) buffer or, with W (R, n, n), on an (R, n, D) lattice
+    (repro/core/compress.py:247-295, repro/core/sweep.py:357-374).
 
     ``mix_fn(w, s) -> W @ s`` is the engine's resolved uncompressed mix; it
     applies the full W, diagonal included, and the wrapper adds the
@@ -247,26 +262,44 @@ def make_flat_ef_gossip(compressor: Compressor, mix_fn: Callable,
     back for its full-precision iterate.  The int8 noise is
     ``draws.codec_noise(t, n, D)``, drawn only by the int8 codec.
 
-    ``fused_int8_pallas=True`` (``gossip_impl='pallas'`` × ``int8``) mixes
-    straight from the int8 payload with kernel #14, so the f32 s is formed
-    only for the residual.
+    ``fused_int8_pallas=True`` (the flat ``gossip_impl='pallas'`` × ``int8``)
+    mixes straight from the int8 payload with kernel #14, so the f32 s is
+    formed only for the residual.
     """
     use_fused = fused_int8_pallas and compressor.name == "int8"
 
     def gossip(w, p, res, draws, t):
-        if p.shape[0] != n_agents:
-            raise ValueError(f"buffer of {p.shape[0]} rows for {n_agents} "
+        if p.shape[-2] != n_agents:
+            raise ValueError(f"buffer of {p.shape[-2]} rows for {n_agents} "
                              f"agents")
         u, payload = encode_compensated(compressor, p, res, draws, t)
         if use_fused:
             from repro_torch.kernels import ops as kernel_ops
             y = kernel_ops.dequant_mix(w, payload["q"], payload["scale"], p)
-            s = compressor.decode(payload, u.dtype, u.shape[1])
+            s = compressor.decode(payload, u.dtype, u.shape[-1])
             return y.to(p.dtype), u - s
-        s = compressor.decode(payload, u.dtype, u.shape[1])
+        s = compressor.decode(payload, u.dtype, u.shape[-1])
         del payload
-        diag = torch.diagonal(w).to(p.dtype)[:, None]
+        diag = torch.diagonal(w, dim1=-2, dim2=-1).to(p.dtype)[..., None]
         y = mix_fn(w, s) + torch.sub(p, s).mul_(diag)
         return y, u - s
+
+    return gossip
+
+
+def make_fused_ef_gossip(compressor: Compressor, ef_kernel: Callable
+                         ) -> Callable:
+    """EF gossip in one mix pass: (w, p, res, draws, t) -> (y, new_res).
+
+    The whole-row encode and decode in plain torch, then ``ef_kernel(w, p,
+    s, u) -> (y, u − s)``: the EF mix kernel (#9/#11 on the (n, D) buffer,
+    #10/#12 on an (R, n, D) lattice) forms the mix, the diagonal
+    correction and the residual in one pass.
+    """
+    def gossip(w, p, res, draws, t):
+        u, payload = encode_compensated(compressor, p, res, draws, t)
+        s = compressor.decode(payload, u.dtype, u.shape[-1])
+        del payload
+        return ef_kernel(w, p, s, u)
 
     return gossip

@@ -126,7 +126,9 @@ class SweepDraws(Draws):
     ``per_run`` (the ``seed`` axis) run r draws them from a generator of
     its own, seeded from (seed, r); otherwise (the ``h`` and ``topology``
     axes) one draw is broadcast to every run, so the swept axis is the
-    only difference between runs (repro/launch/train.py:274-280).
+    only difference between runs (repro/launch/train.py:274-280).  So is
+    the int8 codec's noise, (R, n, d): per run, or one (n, d) draw
+    expanded over the runs without a copy.
     """
 
     def __init__(self, seed: int, device, r_runs: int, per_run: bool):
@@ -144,3 +146,11 @@ class SweepDraws(Draws):
         if self.runs is None:
             return super().participants(t, n, k).expand(self.r_runs, k)
         return torch.stack([d.participants(t, n, k) for d in self.runs])
+
+    def codec_noise(self, t, n: int, d: int) -> torch.Tensor:
+        if self.runs is None:
+            return super().codec_noise(t, n, d).expand(self.r_runs, n, d)
+        noise = torch.empty((self.r_runs, n, d), device=self.device)
+        for r, run in enumerate(self.runs):
+            noise[r] = run.codec_noise(t, n, d)
+        return noise

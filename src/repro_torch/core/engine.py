@@ -108,7 +108,7 @@ class EngineOps:
                     (losses, x_next, new_opt, new_res), or None.  When set
                     it replaces local_update + gossip / ef_gossip with one
                     fused op (the update+mix kernels #3/#4, or the EF mix
-                    #9/#11 under a codec).
+                    #9/#11 under a codec; on a lattice #7/#8, #10/#12).
     """
 
     get_step: Callable
@@ -131,7 +131,7 @@ def build_step_body(ops: EngineOps):
         w = ops.sample_w(draws, t)                       # line 3
         residual = ops.get_residual(state)
         if ops.fused_update_gossip is not None:
-            # lines 4–6 in one buffer pass (kernels #3/#4, #9/#11)
+            # lines 4–6 in one buffer pass (kernels #3/#4, #7–#12)
             losses, x_next, new_opt, new_res = ops.fused_update_gossip(
                 w, state, batch, eta, residual, draws, t)
         else:

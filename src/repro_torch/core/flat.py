@@ -228,16 +228,27 @@ def make_fused_op(kind: str, agent_grads, optimizer, dense_mix,
     return fused
 
 
+def make_fused_ef_op(local_update, ef_gossip):
+    """The compressed fused lines-5–6 op of the flat and sweep engines: the
+    update in plain torch, then ``ef_gossip`` (one EF mix pass,
+    compress.make_fused_ef_gossip) on its result
+    (repro/core/flat.py:332-348, repro/core/sweep.py:388-410)."""
+    def fused(w, state, batch, eta, residual, draws, t):
+        losses, x_half, new_opt = local_update(state, batch, eta)
+        y, new_res = ef_gossip(w, x_half, residual, draws, t)
+        return losses, y, new_opt, new_res
+
+    return fused
+
+
 def _make_fused_flat_op(cfg: FedDecConfig, agent_grads, local_update,
                         optimizer, compressor, custom_gossip: bool):
     """The flat engine's fused op; None when the configuration is not
     eligible (the caller keeps the unfused body).
 
     Uncompressed: one update+mix pass (kernels #3/#4), the post-update
-    iterate never in memory.  With a codec: the update and the whole-row
-    encode in plain torch, then one EF mix pass (kernel #9 on the dense
-    and pallas mixes, #11 on the sparse one) for mix, diagonal correction
-    and residual (repro/core/flat.py:332-348).
+    iterate never in memory.  With a codec: :func:`make_fused_ef_op` with
+    kernel #9 on the dense and pallas mixes, #11 on the sparse one.
     """
     kind = _fuse_kind(cfg, optimizer, custom_gossip)
     if kind is None:
@@ -246,17 +257,8 @@ def _make_fused_flat_op(cfg: FedDecConfig, agent_grads, local_update,
     if compressor is not None:
         ef_kernel = kernel_ops.make_sparse_ef_mix(cfg.mixing.graph) \
             if cfg.gossip_impl == "sparse" else kernel_ops.ef_mix
-
-        def fused(w, state, batch, eta, residual, draws, t):
-            losses, x_half, new_opt = local_update(state, batch, eta)
-            u, payload = compress_lib.encode_compensated(
-                compressor, x_half, residual, draws, t)
-            s = compressor.decode(payload, u.dtype, u.shape[1])
-            del payload
-            y, new_res = ef_kernel(w, x_half, s, u)
-            return losses, y, new_opt, new_res
-
-        return fused
+        ef_gossip = compress_lib.make_fused_ef_gossip(compressor, ef_kernel)
+        return make_fused_ef_op(local_update, ef_gossip)
     sparse = None
     if cfg.gossip_impl == "sparse":
         sparse = functools.partial(kernel_ops.make_sparse_update_mix,

@@ -17,13 +17,20 @@ update+mix) is one kernel launch for all R runs (kernels #5–#8).
     every batched mix reduces to ``y = x`` exactly.
   * Per-run H: run r's server round fires on (t+1) % h_r == 0.
   * Per-run budgets ``t_steps``: a run past its budget keeps its flat,
-    step and opt_state frozen bit for bit while the rest finish.
+    step, opt_state and residual frozen bit for bit while the rest
+    finish.
+  * Compressed gossip (a ``gossip_compress`` shared by the lattice): an
+    (R, n, D) error-feedback residual, the codec row by row over every
+    run, the int8 noise from ``draws.codec_noise`` (per run on the seed
+    axis); the unfused EF gossip mixes the decoded s with the lattice's
+    mix (#5, #6 or the dense product), the fused EF op runs kernel #10
+    (#12 on sparse).  FedAvg members bypass the codec: their y is x_half
+    and their residual is kept (repro/core/sweep.py:322-410).
 
 The local update treats (R, n) as one flattened agent axis of R·n rows
 (``flat.grads_of`` over the (R·n, D) view).  The executors donate their
-input state, as the flat ones do.  Compressed gossip in a lattice (the
-batched EF kernels #10/#12, per-run codec keys) and the reference's
-``per_step_keys`` are not ported: a lattice carries no residual.
+input state, as the flat ones do.  The reference's ``per_step_keys`` is
+not ported.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.core import compress as compress_lib
 from repro_torch.core import engine
 from repro_torch.core import flat as flat_lib
 from repro_torch.core import gossip as gossip_lib
@@ -56,8 +64,8 @@ class SweepPlan:
     axes that may vary per run: topology / mixing scheme / p_fail (stacked
     into ``w_fixed`` / ``adjacency``), H (``h``), gossip_impl 'none'
     (FedAvg members, ``none_mask``) and the step budget ``t_steps``.
-    Shared across the lattice (validated): n_agents, K, server_enabled
-    and the non-'none' gossip impl.
+    Shared across the lattice (validated): n_agents, K, server_enabled,
+    gossip_compress and the non-'none' gossip impl.
     """
 
     configs: tuple
@@ -65,6 +73,7 @@ class SweepPlan:
     k: int
     server_enabled: bool
     gossip_impl: str          # the shared non-'none' impl ('none' if all)
+    gossip_compress: str      # the shared codec spec ('none': no codec)
     h: np.ndarray             # (R,) int32 per-run server period
     w_fixed: np.ndarray       # (R, n, n) f64 fixed Ws (I for 'none' runs)
     adjacency: np.ndarray     # (R, n, n) bool (zeros for fixed/'none' runs)
@@ -88,8 +97,8 @@ def make_sweep_plan(configs, t_steps=None) -> SweepPlan:
 
     Args:
       configs: one FedDecConfig per run (R total).  ``gossip_impl`` may mix
-        'none' (FedAvg) with exactly one other impl; n_agents, k and
-        server_enabled must be shared.
+        'none' (FedAvg) with exactly one other impl; n_agents, k,
+        server_enabled and gossip_compress must be shared.
       t_steps: optional per-run step budgets (R ints).  Runs whose budget is
         below the number of steps run finish early and are frozen.
     """
@@ -99,6 +108,7 @@ def make_sweep_plan(configs, t_steps=None) -> SweepPlan:
     n = configs[0].n_agents
     k = configs[0].k
     server_enabled = configs[0].server_enabled
+    compress = configs[0].gossip_compress
     for c in configs:
         if c.n_agents != n:
             raise ValueError(f"n_agents must be shared across the lattice: "
@@ -109,16 +119,14 @@ def make_sweep_plan(configs, t_steps=None) -> SweepPlan:
         if c.server_enabled != server_enabled:
             raise ValueError("server_enabled must be shared across the "
                              "lattice")
+        if c.gossip_compress != compress:
+            raise ValueError("gossip_compress must be shared across the "
+                             "lattice")
     impls = {c.gossip_impl for c in configs} - {"none"}
     if len(impls) > 1:
         raise ValueError(f"a lattice may mix 'none' (FedAvg) with at most "
                          f"one other gossip_impl, got {sorted(impls)}")
     impl = engine.check_gossip_impl(impls.pop()) if impls else "none"
-    if any(c.gossip_compress != "none" and c.gossip_impl != "none"
-           for c in configs):
-        raise ValueError("compressed gossip in a sweep lattice is not "
-                         "ported to repro_torch yet (ROADMAP.md Queue A8); "
-                         "the flat engine runs it")
 
     r = len(configs)
     h = np.asarray([c.h for c in configs], dtype=np.int32)
@@ -141,8 +149,9 @@ def make_sweep_plan(configs, t_steps=None) -> SweepPlan:
             raise ValueError(f"t_steps must be one budget per run, got "
                              f"shape {t_steps.shape} for {r} runs")
     return SweepPlan(configs=configs, n_agents=n, k=k,
-                     server_enabled=server_enabled, gossip_impl=impl, h=h,
-                     w_fixed=w_fixed, adjacency=adjacency, p_fail=p_fail,
+                     server_enabled=server_enabled, gossip_impl=impl,
+                     gossip_compress=compress, h=h, w_fixed=w_fixed,
+                     adjacency=adjacency, p_fail=p_fail,
                      stochastic=stochastic, none_mask=none_mask,
                      t_steps=t_steps)
 
@@ -160,32 +169,49 @@ class SweepFedState:
     flat: torch.Tensor   # (R, n_agents, D)
     step: np.ndarray     # (R,) int64 per-run t (each starts at 1)
     opt_state: Any = ()  # (R, n, D) f32 momentum, or () for sgd
+    residual: Any = ()   # (R, n, D) compressed-gossip EF residual, or ()
+
+
+def _compressor(plan: SweepPlan):
+    """The lattice's codec, or None: nothing is exchanged (so nothing is
+    compressed) when every run is a FedAvg member."""
+    if plan.gossip_impl == "none":
+        return None
+    return compress_lib.parse_compress(plan.gossip_compress)
 
 
 def init_sweep_state(plan: SweepPlan, spec: FlatSpec, params_single: dict,
                      optimizer=None) -> SweepFedState:
-    """z_i^1 = z^1 for every agent of every run, in the batched layout."""
+    """z_i^1 = z^1 for every agent of every run, in the batched layout;
+    a zero (R, n, D) residual under a codec."""
     row = spec.ravel(params_single)
     flat = row[None, None].repeat(plan.r_runs, plan.n_agents, 1)
     opt_state = optimizer.init(flat) if optimizer is not None else ()
+    residual = () if _compressor(plan) is None else torch.zeros_like(flat)
     return SweepFedState(flat=flat, step=np.ones(plan.r_runs, np.int64),
-                         opt_state=opt_state)
+                         opt_state=opt_state, residual=residual)
+
+
+def _stack(buffers):
+    return () if isinstance(buffers[0], tuple) else torch.stack(buffers)
 
 
 def stack_flat_states(states) -> SweepFedState:
     """Stack per-run FlatFedStates (e.g. mid-training) into a lattice."""
-    opts = [s.opt_state for s in states]
     return SweepFedState(
         flat=torch.stack([s.flat for s in states]),
         step=np.asarray([s.step for s in states], dtype=np.int64),
-        opt_state=() if isinstance(opts[0], tuple) else torch.stack(opts))
+        opt_state=_stack([s.opt_state for s in states]),
+        residual=_stack([s.residual for s in states]))
 
 
 def slice_run(state: SweepFedState, r: int) -> FlatFedState:
     """Run r's slice as a single-run FlatFedState (views, no copy)."""
-    opt = state.opt_state
+    def take(buffer):
+        return () if isinstance(buffer, tuple) else buffer[r]
     return FlatFedState(flat=state.flat[r], step=int(state.step[r]),
-                        opt_state=opt if isinstance(opt, tuple) else opt[r])
+                        opt_state=take(state.opt_state),
+                        residual=take(state.residual))
 
 
 # ---------------------------------------------------------------------------
@@ -229,9 +255,10 @@ def resolve_sweep_gossip(plan: SweepPlan):
 
 def _sweep_fuse_kind(plan: SweepPlan, optimizer):
     """Batched mirror of flat._fuse_kind: the optimizer kind the fused
-    update+mix kernels (#7/#8) replicate for this lattice, or None to keep
-    the unfused path (a custom optimizer, an all-FedAvg lattice, or a
-    sparse lattice outside the stacked-ELL range)."""
+    update+mix kernels (#7/#8; under a codec the EF mix #10/#12 after the
+    update) replicate for this lattice, or None to keep the unfused path
+    (a custom optimizer, an all-FedAvg lattice, or a sparse lattice
+    outside the stacked-ELL range)."""
     if plan.gossip_impl not in ("dense", "pallas", "sparse"):
         return None
     kind = "sgd" if optimizer is None else getattr(optimizer, "kind",
@@ -252,6 +279,26 @@ def _sweep_ops(plan: SweepPlan, spec: FlatSpec, loss_fn: LossFn,
     whole-lattice op.  ``lr_fn`` receives the (R,) per-run step counters
     and returns one η or R of them."""
     r_runs, n = plan.r_runs, plan.n_agents
+    gossip_fn = resolve_sweep_gossip(plan)
+    compressor = _compressor(plan)
+    fedavg = np.flatnonzero(plan.none_mask)
+
+    def bypass_codec(ef_gossip):
+        """FedAvg members of a compressed lattice exchange nothing: their y
+        is x_half and their residual is kept (repro/core/sweep.py:324-328).
+        W = I does not make the EF form exact, since s + (p − s) need not
+        round to p, so the mixed rows are put back."""
+        if not len(fedavg):
+            return ef_gossip
+
+        def gossip(w, x_half, residual, draws, t):
+            y, new_res = ef_gossip(w, x_half, residual, draws, t)
+            for r in fedavg:
+                y[r].copy_(x_half[r])
+                new_res[r].copy_(residual[r])
+            return y, new_res
+
+        return gossip
 
     def agent_grads(state: SweepFedState, batch: dict):
         # line 4 over the flattened (R·n) agent axis
@@ -272,17 +319,30 @@ def _sweep_ops(plan: SweepPlan, spec: FlatSpec, loss_fn: LossFn,
                                            eta3)
         return losses, x_half, new_opt
 
+    # line 6 on the compressed payload: the decoded s through the lattice's
+    # mix, then the diagonal term (repro/core/sweep.py:357-374)
+    ef_gossip = None
+    if compressor is not None:
+        ef_gossip = bypass_codec(compress_lib.make_flat_ef_gossip(
+            compressor, gossip_fn, n))
+
     fused_update_gossip = None
     kind = _sweep_fuse_kind(plan, optimizer) if fuse_update_mix else None
     if kind is not None:
         from repro_torch.kernels import ops as kernel_ops
-        sparse = None
-        if plan.gossip_impl == "sparse":
-            sparse = functools.partial(
-                kernel_ops.make_sparse_update_mix_batched, plan.graphs)
-        fused_update_gossip = flat_lib.make_fused_op(
-            kind, agent_grads, optimizer, kernel_ops.update_mix_batched,
-            sparse)
+        sparse = plan.gossip_impl == "sparse"
+        if compressor is not None:
+            # the update and the encode, then one pass of #10 (#12 sparse)
+            ef_kernel = kernel_ops.make_sparse_ef_mix_batched(plan.graphs) \
+                if sparse else kernel_ops.ef_mix_batched
+            fused_update_gossip = flat_lib.make_fused_ef_op(
+                local_update, bypass_codec(compress_lib.make_fused_ef_gossip(
+                    compressor, ef_kernel)))
+        else:
+            fused_update_gossip = flat_lib.make_fused_op(
+                kind, agent_grads, optimizer, kernel_ops.update_mix_batched,
+                functools.partial(kernel_ops.make_sparse_update_mix_batched,
+                                  plan.graphs) if sparse else None)
 
     def server(draws, t, x_next):
         # lines 7–12: per-run periodic server round ((t+1) % h_r == 0)
@@ -292,7 +352,6 @@ def _sweep_ops(plan: SweepPlan, spec: FlatSpec, loss_fn: LossFn,
                                              (t + 1) % plan.h == 0)
 
     def finish(state, z_next, new_opt, new_res, t, losses, eta):
-        del new_res  # () — a lattice carries no residual
         metrics = {"loss": losses.mean(dim=1), "eta": eta}
         active = np.ones(r_runs, dtype=bool)
         if plan.t_steps is not None:
@@ -300,11 +359,14 @@ def _sweep_ops(plan: SweepPlan, spec: FlatSpec, loss_fn: LossFn,
             active = t <= plan.t_steps
             for r in np.flatnonzero(~active):
                 z_next[r].copy_(state.flat[r])
-                if not isinstance(new_opt, tuple):
-                    new_opt[r].copy_(state.opt_state[r])
+                for new, old in ((new_opt, state.opt_state),
+                                 (new_res, state.residual)):
+                    if not isinstance(new, tuple):
+                        new[r].copy_(old[r])
             metrics["active"] = torch.as_tensor(active)
         # donated, as in the flat engine: the old buffers go now
         state.flat, state.opt_state = z_next, new_opt
+        state.residual = new_res
         state.step = np.where(active, t + 1, t)
         return state, metrics
 
@@ -314,10 +376,11 @@ def _sweep_ops(plan: SweepPlan, spec: FlatSpec, loss_fn: LossFn,
             r_runs),
         sample_w=make_sweep_w_sampler(plan, device),
         local_update=local_update,
-        gossip=resolve_sweep_gossip(plan),
-        get_residual=lambda s: (),
+        gossip=gossip_fn,
+        get_residual=lambda s: s.residual,
         server=server,
         finish=finish,
+        ef_gossip=ef_gossip,
         fused_update_gossip=fused_update_gossip)
 
 

@@ -1,29 +1,32 @@
 // Compressed gossip with error feedback (repro/core/compress.py) on the
 // flat (n, D) f32 buffer: the fused receive side of the EF exchange and the
 // int8 mixes.  Every kernel also takes the (R, n, D) buffer of an R-run
-// lattice, with the run as the grid's y index as in mix_common.cuh; the
-// wrappers pass R = 1 today.
+// lattice, with the run as the grid's y index as in mix_common.cuh: the EF
+// entry points with R = 1 are #9/#11, with R runs #10/#12; the int8 ones
+// are called with R = 1.
 //
 // Replaces the TPU kernels
 //   #9  repro/kernels/update_mix.py:ef_mix_pallas        (dense W)
+//   #10 repro/kernels/update_mix.py:ef_mix_batched_pallas        (R runs)
 //   #11 repro/kernels/update_mix.py:ef_mix_sparse_pallas (ELL tables)
+//   #12 repro/kernels/update_mix.py:ef_mix_sparse_batched_pallas (R runs)
 //   #13 repro/kernels/compress_mix.py:quant_mix_pallas   (int8 send side)
 //   #14 repro/kernels/compress_mix.py:dequant_mix_pallas (int8 receive side)
-// All four compute, per run and column,
+// All of them compute, per run and column,
 //     y_i = sum_j W_ij s_j + W_ii (p_i - s_i)                   (dense)
 //     y_i = wd_i s_i + sum_k wv_ik s_nbr(i,k) + wd_i (p_i - s_i)   (ELL)
 // and differ in where s comes from and what else they write:
-//   kEf      (#9, #11) s is read as f32, and r = u - s is written;
+//   kEf      (#9-#12)  s is read as f32, and r = u - s is written;
 //   kDequant (#14)     s = q * scale_j from the int8 payload q;
 //   kQuant   (#13)     q = clip(floor(u / scale_j + noise), -127, 127) is
 //                      written as int8, and s = q * scale_j.
 //
-// Bound on the H100: bytes.  Per element #9/#11 read p, s, u and write y, r
+// Bound on the H100: bytes.  Per element #9-#12 read p, s, u and write y, r
 // (20 B); #14 reads q (1 B) and p and writes y (9 B); #13 reads u, noise, p
 // and writes y and q (17 B).  The mix is 2n flop per element, about one
 // flop per byte at n = 8, far below the ridge point.  At the main path's
-// n = 8, D = 156,519,168 the bounds are 7.476 ms (#9/#11), 3.364 ms (#14)
-// and 6.354 ms (#13) at 3.35 TB/s.  Design: mix_common.cuh's per-column
+// n = 8, D = 156,519,168 the bounds are 7.476 ms (#9/#11; R = 2 runs of
+// it, #10/#12: 14.951 ms), 3.364 ms (#14) and 6.354 ms (#13) at 3.35 TB/s.  Design: mix_common.cuh's per-column
 // layout with another load stage and output stage.  A thread owns whole
 // columns.  It reads row j's inputs of its columns once and forms s_j,
 // writing r_j or q_j right away, so u and the noise are dead after the

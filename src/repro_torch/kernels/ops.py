@@ -9,7 +9,8 @@ ragged edge of D themselves, and reject an n beyond their shared memory
 The batched wrappers (#5–#8) launch the same CUDA functions over the
 leading run axis of an (R, n, D) sweep lattice: one launch for all runs.
 The compressed-gossip wrappers (#9, #11, #13, #14) take the f32 (n, D)
-buffers of the error-feedback exchange and the int8 payload.
+buffers of the error-feedback exchange and the int8 payload; #10/#12
+launch #9/#11's CUDA functions over a lattice's run axis.
 
 Every kernel wrapper carries a ``launches`` counter that it advances by
 one each time its kernel is launched (CPU calls do not count);
@@ -31,7 +32,9 @@ __all__ = ["gossip_mix", "gossip_mix_sparse", "update_mix",
            "EllTables", "make_sparse_gossip", "make_sparse_update_mix",
            "make_sparse_gossip_batched", "make_sparse_update_mix_batched",
            "ef_mix", "ef_mix_sparse", "make_sparse_ef_mix", "quant_mix",
-           "dequant_mix", "launch_counts", "reset_launch_counts"]
+           "dequant_mix", "ef_mix_batched", "ef_mix_sparse_batched",
+           "make_sparse_ef_mix_batched", "launch_counts",
+           "reset_launch_counts"]
 
 
 def _check_buffer(name: str, t: torch.Tensor, shape: tuple) -> None:
@@ -242,18 +245,16 @@ def update_mix_sparse_batched(nbr, wv, wd, x, g, eta, m=None, *, beta=None,
 
 
 # ---------------------------------------------------------------------------
-# Compressed gossip: kernels #9, #11 (EF receive side), #13, #14 (int8)
+# Compressed gossip: kernels #9–#12 (EF receive side), #13, #14 (int8)
 # ---------------------------------------------------------------------------
 
 
-def ef_mix(w: torch.Tensor, p: torch.Tensor, s: torch.Tensor,
-           u: torch.Tensor):
-    """#9 (y, r) = ((W s)→p.dtype + diag(W)·(p − s), u − s) in one pass over
-    the f32 (n, D) buffers (kernel: compress_mix.cu)."""
-    r, n, d = _lattice(p, 2, "p")
+def _ef(fn, ndim, w, p, s, u):
+    """Kernels #9 (ndim 2) and #10 (ndim 3): the EF receive side per run."""
+    r, n, d = _lattice(p, ndim, "p")
     for name, t in (("s", s), ("u", u)):
-        _check_buffer(name, t, (n, d))
-    _check_buffer("w", w, (n, n))
+        _check_buffer(name, t, tuple(p.shape))
+    _check_buffer("w", w, p.shape[:-2] + (n, n))
     if not _on_cuda(p, w, s, u):
         return ref.ef_mix(w, p, s, u)
     y, res = torch.empty_like(p), torch.empty_like(p)
@@ -261,18 +262,17 @@ def ef_mix(w: torch.Tensor, p: torch.Tensor, s: torch.Tensor,
     rc = lib.ef_mix_dense(
         w.data_ptr(), p.data_ptr(), s.data_ptr(), u.data_ptr(), y.data_ptr(),
         res.data_ptr(), r, n, d, _stream(p))
-    _raise_on(rc, "ef_mix")
-    ef_mix.launches += 1
+    _raise_on(rc, fn.__name__)
+    fn.launches += 1
     return y, res
 
 
-def ef_mix_sparse(nbr, wv, wd, p, s, u):
-    """#11 the ELL form of #9, wd doubling as diag(W)
-    (kernel: compress_mix.cu)."""
-    r, n, d = _lattice(p, 2, "p")
+def _ef_sparse(fn, ndim, nbr, wv, wd, p, s, u):
+    """Kernels #11 and #12: the EF receive side with the ELL mix per run."""
+    r, n, d = _lattice(p, ndim, "p")
     for name, t in (("s", s), ("u", u)):
-        _check_buffer(name, t, (n, d))
-    max_deg = _check_ell(nbr, wv, wd, (), n)
+        _check_buffer(name, t, tuple(p.shape))
+    max_deg = _check_ell(nbr, wv, wd, p.shape[:-2], n)
     if not _on_cuda(p, nbr, wv, wd, s, u):
         return ref.ef_mix_sparse(nbr, wv, wd, p, s, u)
     y, res = torch.empty_like(p), torch.empty_like(p)
@@ -281,9 +281,35 @@ def ef_mix_sparse(nbr, wv, wd, p, s, u):
         nbr.data_ptr(), wv.data_ptr(), wd.data_ptr(), max_deg, p.data_ptr(),
         s.data_ptr(), u.data_ptr(), y.data_ptr(), res.data_ptr(), r, n, d,
         _stream(p))
-    _raise_on(rc, "ef_mix_sparse")
-    ef_mix_sparse.launches += 1
+    _raise_on(rc, fn.__name__)
+    fn.launches += 1
     return y, res
+
+
+def ef_mix(w: torch.Tensor, p: torch.Tensor, s: torch.Tensor,
+           u: torch.Tensor):
+    """#9 (y, r) = ((W s)→p.dtype + diag(W)·(p − s), u − s) in one pass over
+    the f32 (n, D) buffers (kernel: compress_mix.cu)."""
+    return _ef(ef_mix, 2, w, p, s, u)
+
+
+def ef_mix_sparse(nbr, wv, wd, p, s, u):
+    """#11 the ELL form of #9, wd doubling as diag(W)
+    (kernel: compress_mix.cu)."""
+    return _ef_sparse(ef_mix_sparse, 2, nbr, wv, wd, p, s, u)
+
+
+def ef_mix_batched(w, p, s, u):
+    """#10 #9 per run: W (R, n, n), p/s/u (R, n, D) f32; one launch for
+    all R runs (kernel: compress_mix.cu)."""
+    return _ef(ef_mix_batched, 3, w, p, s, u)
+
+
+def ef_mix_sparse_batched(nbr, wv, wd, p, s, u):
+    """#12 #11 per run: nbr/wv (R, n, max_deg) padded to the lattice's max
+    degree, wd (R, n), p/s/u (R, n, D); one launch
+    (kernel: compress_mix.cu)."""
+    return _ef_sparse(ef_mix_sparse_batched, 3, nbr, wv, wd, p, s, u)
 
 
 def quant_mix(w, u, noise, p, scale):
@@ -335,7 +361,8 @@ _KERNEL_WRAPPERS = (gossip_mix, gossip_mix_sparse, update_mix,
                     update_mix_sparse, gossip_mix_batched,
                     gossip_mix_sparse_batched, update_mix_batched,
                     update_mix_sparse_batched, ef_mix, ef_mix_sparse,
-                    quant_mix, dequant_mix)
+                    quant_mix, dequant_mix, ef_mix_batched,
+                    ef_mix_sparse_batched)
 
 
 def reset_launch_counts() -> None:
@@ -461,5 +488,17 @@ def make_sparse_ef_mix(graph):
 
     def ef(w, p, s, u):
         return ef_mix_sparse(*tables.weights(w, p), p, s, u)
+
+    return ef
+
+
+def make_sparse_ef_mix_batched(graphs):
+    """ef(w, p, s, u) -> (y, r) for w (R, n, n), p/s/u (R, n, D) over the
+    lattice's stacked ELL tables (kernel #12 on CUDA, one launch for all R
+    runs), reading each run's live edge weights from its sampled W."""
+    tables = _lattice_tables(graphs)
+
+    def ef(w, p, s, u):
+        return ef_mix_sparse_batched(*tables.weights(w, p), p, s, u)
 
     return ef

@@ -2,11 +2,12 @@
 
 Each function computes what its kernel computes, with the reference's
 arithmetic (repro/kernels/gossip_mix.py, update_mix.py and
-compress_mix.py): the mix accumulates in f32 and casts to x's dtype, the
-optimizer step follows repro/optim/optimizers.py's dtype rules.  Every function takes one run's
-(n, D) buffer or a sweep lattice's (R, n, D) buffer with per-run W (or
-ELL tables) and per-run η of shape (R,); the ``*_batched`` names (the
-plain versions of kernels #5–#8) are the same functions.  The wrappers in
+compress_mix.py): the mix accumulates in f32 and casts to x's dtype,
+the optimizer step follows repro/optim/optimizers.py's dtype rules.
+Every function takes one run's (n, D) buffer or a sweep lattice's
+(R, n, D) buffer with per-run W (or ELL tables) and per-run η of shape
+(R,); the ``*_batched`` names (the plain versions of kernels #5–#8, #10
+and #12) are the same functions.  The wrappers in
 :mod:`repro_torch.kernels.ops` use these for CPU tensors, and the chip
 check holds every kernel against them on the card.
 """
@@ -19,7 +20,8 @@ __all__ = ["gossip_mix", "gossip_mix_sparse", "local_step", "update_mix",
            "update_mix_sparse", "gossip_mix_batched",
            "gossip_mix_sparse_batched", "update_mix_batched",
            "update_mix_sparse_batched", "ef_mix", "ef_mix_sparse",
-           "quantize_int8", "quant_mix", "dequant_mix"]
+           "ef_mix_batched", "ef_mix_sparse_batched", "quantize_int8",
+           "quant_mix", "dequant_mix"]
 
 
 def gossip_mix(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -87,7 +89,7 @@ update_mix_sparse_batched = update_mix_sparse
 
 
 # ---------------------------------------------------------------------------
-# Compressed gossip: the EF receive side (#9/#11) and the int8 mixes
+# Compressed gossip: the EF receive side (#9–#12) and the int8 mixes
 # (#13/#14).  Each temporary is reused in place where the rounding allows
 # it, so a call at full width holds few (n, D) buffers beside its inputs.
 # ---------------------------------------------------------------------------
@@ -117,6 +119,11 @@ def ef_mix_sparse(nbr, wv, wd, p, s, u):
     mix = gossip_mix_sparse(nbr, wv, wd, s.float()).to(p.dtype)
     y = _correct(mix, wd.to(p.dtype)[..., None], p, s)
     return y, u - s
+
+
+# Kernels #10/#12: the same functions over the (R, n, D) lattice buffer.
+ef_mix_batched = ef_mix
+ef_mix_sparse_batched = ef_mix_sparse
 
 
 def quantize_int8(u, noise, scale):

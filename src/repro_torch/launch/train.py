@@ -6,15 +6,16 @@ with ``--sweep-runs R`` it trains an R-run lattice (over seeds, H or
 topologies, ``--sweep-axis``) on one (R, n_agents, D) buffer.  The gossip
 mix and the fused update+mix run through the hand-written CUDA kernels
 (``--gossip-impl pallas|sparse``, ``--fuse-update-mix``; their batched
-forms on a lattice).  ``--gossip-compress SPEC`` compresses the flat
-trainer's gossip payload with error feedback (the EF mix kernels #9/#11
-when fused, #14 on int8 × pallas).  Runs on ``cuda`` unless ``--device
-cpu`` is given, and fails without a card.
+forms on a lattice).  ``--gossip-compress SPEC`` compresses the gossip
+payload with error feedback, on the flat buffer (the EF mix kernels
+#9/#11 when fused, #14 on int8 × pallas) or on the lattice (#10/#12 when
+fused).  Runs on ``cuda`` unless ``--device cpu`` is given, and fails
+without a card.
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.train --gossip-impl pallas \\
-      --fuse-update-mix --steps 10 [--sweep-runs 2 --sweep-axis h |
-      --gossip-compress int8]
+      --fuse-update-mix --steps 10 [--sweep-runs 2 --sweep-axis h]
+      [--gossip-compress int8]
 """
 
 from __future__ import annotations
@@ -297,7 +298,8 @@ def main(argv=None) -> None:
     p.add_argument("--gossip-compress", default="none", metavar="SPEC",
                    help="compress the gossip payload with error feedback "
                         "(core/compress.py): none | identity | bf16 | int8 "
-                        "| topk:R; flat layout, not with --sweep-runs")
+                        "| topk:R; flat layout, with or without "
+                        "--sweep-runs")
     p.add_argument("--delta", default="none", metavar="SPEC")
     for flag in _NOT_PORTED:
         p.add_argument(flag, default=None)
@@ -315,9 +317,6 @@ def main(argv=None) -> None:
                 if getattr(args, flag[2:].replace("-", "_")) is not None]
     if args.delta != "none":
         rejected.append(f"--delta {args.delta}")
-    if args.sweep_runs is not None and args.gossip_compress != "none":
-        rejected.append(f"--gossip-compress {args.gossip_compress} with "
-                        f"--sweep-runs")
     if args.state_layout == "tree":
         rejected.append("--state-layout tree")
     if args.optimizer == "adamw":

@@ -44,6 +44,7 @@ from repro import optim as ref_optim
 from repro.core import FedDecConfig as RefFedDecConfig
 from repro.core import compress as ref_compress
 from repro.core import flat as ref_flat
+from repro.core import sweep as ref_sweep
 from repro.core import topology as ref_topo
 from repro.core.mixing import MixingDistribution as RefMixing
 from repro.kernels import ops as ref_ops
@@ -413,8 +414,8 @@ def _u_bound(codec: str, states, k: int) -> float:
         return 2.0 * max(a.max() for a in u) / 127.0
     if codec == "bf16":
         return float(2.0 ** (np.floor(np.log2(max(a.max() for a in u))) - 7))
-    # top-k: the largest |u| at a row's threshold
-    return float(max(np.sort(a, axis=1)[:, -k].max() for a in u))
+    # top-k: the largest |u| at a row's threshold (rows: the last axis)
+    return float(max(np.sort(a, axis=-1)[..., -k].max() for a in u))
 
 
 def _run_both(impl, fused, opt, codec, rounds=2):
@@ -629,13 +630,20 @@ def test_only_int8_draws_codec_noise(codec, fused):
 
 
 def test_sweep_lattice_with_a_codec_is_not_ported():
-    _, cfg = _configs("pallas", "int8")
-    with pytest.raises(ValueError, match="Queue A8"):
-        sweep_lib.make_sweep_plan([cfg, cfg])
-    # a FedAvg member bypasses the codec: nothing to reject
-    _, none_cfg = _configs("none", "int8")
-    _, plain = _configs("pallas", "none")
-    sweep_lib.make_sweep_plan([plain, none_cfg])
+    """A lattice takes a codec that its runs share, a FedAvg member
+    included, and rejects a mixed one with the reference's message
+    (repro/core/sweep.py:141-143)."""
+    rcfg, cfg = _configs("pallas", "int8")
+    ref_none, none_cfg = _configs("none", "int8")
+    plan = sweep_lib.make_sweep_plan([cfg, none_cfg])
+    assert plan.gossip_compress == "int8" and plan.gossip_impl == "pallas"
+    ref_plain, plain = _configs("pallas", "none")
+    with pytest.raises(ValueError) as ref_err:
+        ref_sweep.make_sweep_plan([ref_plain, ref_none])
+    with pytest.raises(ValueError) as err:
+        sweep_lib.make_sweep_plan([plain, none_cfg])
+    assert str(err.value) == str(ref_err.value) == (
+        "gossip_compress must be shared across the lattice")
 
 
 def test_plain_ef_mix_rounds_the_reference_way():

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (#1–#9, #11, #13, #14) against their plain
-versions, on the card.
+"""The port's CUDA kernels (#1–#14) against their plain versions, on the
+card.
 
 Every test here is marked ``gpu`` and skips where there is no CUDA device
 (the kernels have no CPU mode).  The file imports no jax, so it runs on a
@@ -9,8 +9,9 @@ machine that has PyTorch and a card only:
 
 Tolerance: max abs error ≤ 1e-5·max|y| in f32 (another summation order;
 TF32 is off).  A run's slice of a batched kernel (#5–#8) equals the
-single-run kernel (#1–#4) on that slice exactly, and so do the EF
-residual r of #9/#11 and the int8 payload q of #13 their plain versions'.
+single-run kernel (#1–#4) on that slice exactly, as #10/#12's slices
+equal #9/#11, and so do the EF residual r of #9–#12 and the int8 payload
+q of #13 their plain versions'.
 """
 
 from __future__ import annotations
@@ -184,7 +185,8 @@ def test_cuda_launches_are_counted(cuda):
         "update_mix_sparse": 0, "gossip_mix_batched": 1,
         "gossip_mix_sparse_batched": 1, "update_mix_batched": 3,
         "update_mix_sparse_batched": 3, "ef_mix": 0, "ef_mix_sparse": 0,
-        "quant_mix": 0, "dequant_mix": 0}
+        "quant_mix": 0, "dequant_mix": 0, "ef_mix_batched": 0,
+        "ef_mix_sparse_batched": 0}
 
 
 @pytest.mark.gpu
@@ -322,3 +324,116 @@ def test_cuda_compress_wrappers_raise_instead_of_falling_back(cuda):
     big = torch.randn(401, 8, device=cuda)
     with pytest.raises(RuntimeError, match="kMaxN"):  # the kernel's limit
         ops.ef_mix(torch.rand(401, 401, device=cuda), big, big, big)
+
+
+# ---------------------------------------------------------------------------
+# The batched EF kernels #10/#12 of the compressed sweep lattice
+# ---------------------------------------------------------------------------
+
+BATCHED_EF_KERNELS = ["ef_mix_batched", "ef_mix_sparse_batched"]
+# ragged D (≡ 1, 2, 3 mod 4: the masked scalar accesses), n not a multiple
+# of 8, R = 1 and 3; D % 4 == 0 at n <= 8 takes the 16-byte accesses
+EF_LATTICES = LATTICES + [(3, 8, 4098), (2, 5, 1002), (1, 8, 65536),
+                          (3, 6, 40000)]
+
+
+def _ef_lattice_inputs(cuda, r: int, n: int, d: int) -> dict:
+    t = _lattice_inputs(cuda, r, n, d)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(r * 6007 + n * 31 + d)
+    t["p"], t["s"], t["u"] = (torch.randn(r, n, d, device=cuda,
+                                          generator=gen) for _ in range(3))
+    t["u"][:, 0] *= 40.0
+    return t
+
+
+def _batched_ef_call(mod, kernel: str, t: dict):
+    """Kernel #10 or #12 (``mod`` = ops) or its plain version (ref)."""
+    if kernel == "ef_mix_batched":
+        return mod.ef_mix_batched(t["w"], t["p"], t["s"], t["u"])
+    return mod.ef_mix_sparse_batched(t["nbr"], t["wv"], t["wd"], t["p"],
+                                     t["s"], t["u"])
+
+
+def _assert_batched_ef_matches(kernel: str, t: dict) -> None:
+    """y within 1e-5·max|y|, the residual r bit for bit."""
+    y, r = _batched_ef_call(ops, kernel, t)
+    want_y, want_r = _batched_ef_call(ref, kernel, t)
+    torch.cuda.synchronize()
+    assert (y - want_y).abs().max().item() <= \
+        1e-5 * want_y.abs().max().item()
+    assert torch.equal(r, want_r)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r,n,d", EF_LATTICES)
+@pytest.mark.parametrize("kernel", BATCHED_EF_KERNELS)
+def test_cuda_batched_ef_kernel_matches_plain_version(cuda, r, n, d,
+                                                      kernel):
+    _assert_batched_ef_matches(kernel, _ef_lattice_inputs(cuda, r, n, d))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", BATCHED_EF_KERNELS)
+def test_cuda_batched_ef_kernel_on_misaligned_buffers(cuda, kernel):
+    """Contiguous lattices that start 4 bytes past a 16-byte boundary (D a
+    multiple of 4) take the scalar accesses and agree all the same."""
+    t = _ef_lattice_inputs(cuda, 2, 8, 4096)
+    for key in ("p", "s", "u"):
+        buf = torch.empty(t[key].numel() + 1, device=cuda)
+        t[key] = buf[1:].view_as(t[key]).copy_(t[key])
+        assert t[key].is_contiguous() and t[key].data_ptr() % 16 == 4
+    _assert_batched_ef_matches(kernel, t)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r,n,d", [(3, 8, 4099), (2, 8, 65536),
+                                   (2, 13, 3001), (3, 37, 1031)])
+@pytest.mark.parametrize("kernel", BATCHED_EF_KERNELS)
+def test_cuda_batched_ef_slice_is_the_single_run_kernel(cuda, r, n, d,
+                                                        kernel):
+    """Run i's slice of #10 equals #9 on that slice, and of #12 (the
+    lattice's padded ELL tables) #11 on the run's own table, to 0.0."""
+    t = _ef_lattice_inputs(cuda, r, n, d)
+    got = _batched_ef_call(ops, kernel, t)
+    for i, graph in enumerate(t["graphs"]):
+        p, s, u, w = (t[k][i] for k in ("p", "s", "u", "w"))
+        if kernel == "ef_mix_batched":
+            one = ops.ef_mix(w, p, s, u)
+        else:
+            one = ops.make_sparse_ef_mix(graph)(w, p, s, u)
+        for a, b in zip(got, one):
+            assert (a[i] - b).abs().max().item() == 0.0
+
+
+@pytest.mark.gpu
+def test_cuda_batched_ef_launches_are_counted(cuda):
+    t = _ef_lattice_inputs(cuda, 3, 8, 777)
+    ops.reset_launch_counts()
+    for kernel in BATCHED_EF_KERNELS:
+        _batched_ef_call(ops, kernel, t)
+        _batched_ef_call(ref, kernel, t)  # plain versions do not count
+    ops.make_sparse_ef_mix_batched(t["graphs"])(t["w"], t["p"], t["s"],
+                                                t["u"])
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["ef_mix_batched"] == 1
+    assert counts["ef_mix_sparse_batched"] == 2
+    assert sum(counts.values()) == 3
+
+
+@pytest.mark.gpu
+def test_cuda_batched_ef_wrappers_raise_instead_of_falling_back(cuda):
+    t = _ef_lattice_inputs(cuda, 2, 8, 100)
+    with pytest.raises(TypeError):
+        ops.ef_mix_batched(t["w"], t["p"], t["s"].double(), t["u"])
+    with pytest.raises(ValueError):  # a CPU W beside CUDA buffers
+        ops.ef_mix_batched(t["w"].cpu(), t["p"], t["s"], t["u"])
+    with pytest.raises(ValueError):  # a strided (non-contiguous) slice
+        ops.ef_mix_sparse_batched(t["nbr"], t["wv"], t["wd"],
+                                  t["p"][:, :, ::2], t["s"][:, :, ::2],
+                                  t["u"][:, :, ::2])
+    big = torch.randn(2, 401, 8, device=cuda)
+    with pytest.raises(RuntimeError, match="kMaxN"):  # the kernel's limit
+        ops.ef_mix_batched(torch.rand(2, 401, 401, device=cuda), big, big,
+                           big)

@@ -237,13 +237,17 @@ def test_cpu_calls_do_not_count_as_launches():
     scale = torch.ones(5)
     _, q = ops.quant_mix(tw, tx, tg.abs().clamp(max=0.5), tm, scale)
     ops.dequant_mix(tw, q, scale, tm)
+    ops.ef_mix_batched(tw[None], tx[None], tg[None], tm[None])
+    ops.make_sparse_ef_mix_batched([topo.ring_graph(5, k=1)])(
+        tw[None], tx[None], tg[None], tm[None])
     assert ops.launch_counts() == {
         name: 0 for name in ("gossip_mix", "gossip_mix_sparse", "update_mix",
                              "update_mix_sparse", "gossip_mix_batched",
                              "gossip_mix_sparse_batched",
                              "update_mix_batched",
                              "update_mix_sparse_batched", "ef_mix",
-                             "ef_mix_sparse", "quant_mix", "dequant_mix")}
+                             "ef_mix_sparse", "quant_mix", "dequant_mix",
+                             "ef_mix_batched", "ef_mix_sparse_batched")}
 
 
 @pytest.mark.parametrize("bad", ["rank", "w_shape", "eta_shape",

@@ -37,6 +37,7 @@ from repro_torch.core.draws import SweepDraws
 from repro_torch.core.feddec import FedAvgConfig, FedDecConfig
 from repro_torch.core.mixing import MixingDistribution
 from repro_torch.kernels import ops
+from test_torch_engine import ref_codec_noise
 
 N, H, K, ETA = 5, 3, 2, 0.1
 SHAPES = {"b": (211,), "w": {"k": (5, 397)}}   # D = 2196
@@ -64,6 +65,13 @@ class ReplaySweepDraws:
             np.asarray(jax.random.randint(self._key(r, t, 2), (k,), 0, n))
             for r in range(len(t))]).astype(np.int64))
 
+    def codec_noise(self, t, n, d):
+        """Run r's int8 noise ``_row_noise(split(fold_in(key_w_r, 1), n),
+        d)`` (repro/core/sweep.py:357-366, :471-473)."""
+        return torch.from_numpy(np.stack([
+            np.asarray(ref_codec_noise(self._key(r, t, 0), n, d))
+            for r in range(len(t))]))
+
 
 class ReplayDraws(ReplaySweepDraws):
     """One run of the lattice, replayed for the port's flat engine."""
@@ -76,6 +84,9 @@ class ReplayDraws(ReplaySweepDraws):
 
     def participants(self, t, n, k):
         return super().participants([t], n, k)[0]
+
+    def codec_noise(self, t, n, d):
+        return super().codec_noise([t], n, d)[0]
 
 
 def _jax_loss(params, batch):

@@ -10,8 +10,10 @@ relative.  The same holds for the sweep lattice (``sweep_runs=2`` on the
 seed and h axes), whose draws replay the reference's per-run keys, and
 for compressed gossip (``--gossip-compress int8``, whose noise replays
 the reference's codec key; 1e-4 relative, since the two packages may
-round a borderline element differently, tests/test_torch_compress.py).
-The CLI's codec paths, rejections, sweep errors and device default are
+round a borderline element differently, tests/test_torch_compress.py;
+the compressed lattice's trainer is held to the reference's in
+tests/test_torch_sweep_compress.py).  The CLI's codec paths, its
+compressed lattice, rejections, sweep errors and device default are
 checked too.
 """
 
@@ -281,6 +283,40 @@ def test_cli_runs_a_sweep_lattice_on_cpu(capsys):
     assert ", r1=" in out and "[train] done: loss " in out
 
 
+@pytest.mark.parametrize("codec,impl,argv", [
+    ("int8", "pallas", ["--sweep-axis", "seed", "--fuse-update-mix",
+                        "--optimizer", "momentum"]),
+    ("topk:0.25", "sparse", ["--sweep-axis", "h"]),
+    ("bf16", "dense", ["--sweep-axis", "h", "--fuse-update-mix"]),
+    ("int8", "sparse", ["--sweep-axis", "seed", "--fedavg"])])
+def test_cli_trains_a_compressed_sweep_lattice_on_cpu(capsys, codec, impl,
+                                                      argv):
+    """--sweep-runs with --gossip-compress: the header names the lattice
+    and the codec (none under --fedavg: nothing is exchanged), and the
+    per-run finals are printed."""
+    out = _cli_lines(capsys, ["--gossip-impl", impl, "--sweep-runs", "2",
+                              "--gossip-compress", codec, *argv])
+    header = next(line for line in out if line.startswith("[train] tiny"))
+    assert "(sweep lattice R=2 axis=" in header
+    if "--fedavg" in argv:
+        assert "compress=" not in header
+    else:
+        assert f", compress={codec}, device=cpu" in header
+    finals = next(line for line in out if line.startswith(
+        "[train] sweep finals (last-step loss per run): r0="))
+    assert ", r1=" in finals and out[-1].startswith("[train] done: loss ")
+
+
+def test_cli_identity_lattice_prints_the_uncompressed_lines(capsys):
+    sweep_argv = ["--gossip-impl", "pallas", "--sweep-runs", "2",
+                  "--sweep-axis", "h"]
+    plain = _cli_lines(capsys, sweep_argv)
+    ident = _cli_lines(capsys, sweep_argv + ["--gossip-compress",
+                                             "identity"])
+    assert ident[-2:] == plain[-2:]
+    assert ident[-2].startswith("[train] sweep finals")
+
+
 def test_train_loop_keeps_the_lattice_on_request():
     state, _ = _small_run(sweep_runs=3, sweep_axis="seed", keep_lattice=True)
     assert state.flat.shape[:2] == (3, 3) and list(state.step) == [5] * 3
@@ -311,7 +347,7 @@ def test_cli_sweep_errors_are_the_reference_messages(case):
 
 @pytest.mark.parametrize("argv", [
     ["--mesh-agents", "2"], ["--mesh-model", "2"],
-    ["--sweep-runs", "2", "--gossip-compress", "int8"],
+    ["--sweep-runs", "2", "--gossip-compress", "int8", "--delta", "full"],
     ["--gossip-compress", "int8", "--state-layout", "tree"],
     ["--delta", "full"], ["--n-total", "64"],
     ["--state-layout", "tree"], ["--optimizer", "adamw"],
