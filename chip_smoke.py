@@ -24,6 +24,16 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
      lattices (R = 1 and 3, n not a multiple of 8, D ≡ 1, 2, 3 mod 4, a
      misaligned buffer) and at R = 2, n = 8, D = 156,519,168, y within
      1e-5·max|y|, r exact, and each run's slice equal to #9/#11 on it;
+     then the model zoo's prefill kernels #15 flash attention, #16 the
+     SSD scan and #17 the RG-LRU scan at edge shapes (S off the tiles, W
+     not a multiple of 4, hd 64/128/256, window 0 and 64, f32 and bf16)
+     and at their models' shapes (#15 at the tiny LM's B 2, S 1024, H 12,
+     KV 6, hd 64, f32 and RecurrentGemma-9B's B 1, S 4096, H 16, KV 1,
+     hd 256, window 2048, bf16; #16 at Mamba2-2.7B's B 1, S 4096, H 80,
+     P 64, N 128, bf16; #17 at RecurrentGemma-9B's B 1, S 4096, W 4096),
+     within 1e-5·max|y| in f32 and 1e-2·max|y| in bf16, #17's h_last
+     equal to h[:, -1]; timed at the models' shapes beside the plain
+     version and, for #15, F.scaled_dot_product_attention;
   4. training: the full-size tiny LM, 8 agents, ring2, H = 10, K = 2,
      batch 2, seq 128, 10 steps, on paths (a) --gossip-impl pallas,
      (b) sparse, (c) pallas --fuse-update-mix --optimizer momentum,
@@ -53,7 +63,17 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
      steps;
   5. profile: path (c) once more under torch.profiler, for the device
      time per step by kernel group against the unprofiled step time; the
-     set-up's device work is measured apart and taken out.
+     set-up's device work is measured apart and taken out;
+  6. models: the prefill (Model.logits) of the tiny LM (B 2, S 1024,
+     f32), RecurrentGemma-9B and Mamba2-2.7B (B 1, S 4096, bf16) at full
+     width and depth from random weights, impl='xla' then impl='pallas'
+     on the same weights, each after an untimed warm-up forward: the
+     pallas forward launches #15 12 times (tiny LM), #15 12 and #17 26
+     times (RecurrentGemma-9B) or #16 64 times (Mamba2-2.7B) and nothing
+     else, the logits are finite and agree to 1e-4·max|logit| (f32) or
+     to bf16_model_bound (bf16); each bf16 model again with f32 compute
+     on the same weights, to 1e-4·max|logit|.  RecurrentGemma-9B peaks
+     near 45 GB in bf16 and near 46 GB with f32 compute.
 
 It prints the command's total time, one JSON line with every kernel's
 launches, errors and times, the nvidia-smi line, and as the last line
@@ -122,6 +142,46 @@ REPLACES.update({
 SOURCES = {k: "src/repro_torch/kernels/csrc/"
            + ("compress_mix.cu" if k in COMPRESSED or k in BATCHED_EF
               else f"{k.split('_mix')[0]}_mix.cu") for k in REPLACES}
+# the model zoo's prefill kernels (#15-#17), each at its models' shapes
+ZOO = ("flash_attention", "ssd_scan", "rglru_scan")
+REPLACES.update({
+    "flash_attention": "src/repro/kernels/flash_attention.py:88",
+    "ssd_scan": "src/repro/kernels/ssd_scan.py:76",
+    "rglru_scan": "src/repro/kernels/rglru_scan.py:60",
+})
+SOURCES.update({k: f"src/repro_torch/kernels/csrc/{k}.cu" for k in ZOO})
+# edge shapes: S off the tiles, W not a multiple of 4, hd 64/128/256,
+# window 0 and 64, f32 and bf16.  (B, S, H, KV, hd, window, dtype)
+FLASH_EDGE = [(1, 77, 4, 2, 64, 0, "float32"),
+              (2, 130, 4, 1, 128, 64, "float32"),
+              (1, 200, 2, 2, 256, 64, "bfloat16"),
+              (1, 97, 6, 3, 64, 64, "bfloat16"),
+              (1, 33, 2, 1, 128, 0, "bfloat16"),
+              (2, 65, 2, 2, 256, 0, "float32")]
+# (B, S, H, P, N, dtype): P off the 16-row blocks, N = 8 ... 256
+SSD_EDGE = [(1, 100, 3, 20, 16, "float32"), (2, 77, 4, 64, 128, "bfloat16"),
+            (1, 50, 2, 17, 8, "float32"), (1, 300, 5, 64, 256, "bfloat16")]
+# (B, S, W, dtype)
+RGLRU_EDGE = [(2, 77, 301, "float32"), (1, 33, 4097, "bfloat16"),
+              (3, 5, 2, "float32"), (1, 1000, 1023, "bfloat16")]
+# the models' own shapes, named by the model whose prefill gives them
+ZOO_FULL = {
+    "flash_attention": {"tiny": (2, 1024, 12, 6, 64, 0, "float32"),
+                        "recurrentgemma-9b": (1, 4096, 16, 1, 256, 2048,
+                                              "bfloat16")},
+    "ssd_scan": {"mamba2-2.7b": (1, 4096, 80, 64, 128, "bfloat16")},
+    "rglru_scan": {"recurrentgemma-9b": (1, 4096, 4096, "float32")},
+}
+ZOO_TOL = {"float32": 1e-5, "bfloat16": 1e-2}   # × max|y|
+BF16_FLOP_PER_S = 989e12        # H100 SXM tensor cores, dense
+# model phase: (name, batch, seq) and the launches each forward must make
+ZOO_MODELS = [("tiny", 2, 1024), ("recurrentgemma-9b", 1, 4096),
+              ("mamba2-2.7b", 1, 4096)]
+ZOO_LAUNCHES = {"tiny": {"flash_attention": 12},
+                "recurrentgemma-9b": {"flash_attention": 12,
+                                      "rglru_scan": 26},
+                "mamba2-2.7b": {"ssd_scan": 64}}
+MODEL_TOL_F32 = 1e-4            # × max|logit|, the f32 tiny LM
 # training path -> (gossip impl, fuse, optimizer, the kernel it launches)
 PATHS = {
     "a": ("pallas", False, "sgd", "gossip_mix"),
@@ -171,6 +231,20 @@ PATH_VARIANT = {"gossip_mix": "gossip", "gossip_mix_sparse": "gossip",
                 **{k: "ef" for k in BATCHED_EF}}
 STEPS = 10
 DEVICE = "cuda"
+# The bf16 full-model check (model phase): the reference's own gap between
+# its pallas and xla paths, |Δlogit| / max|logit|, at a bf16-compute
+# smoke config, the larger over RecurrentGemma-9B (0.00592: its attention
+# keeps P in f32 on one path, bf16 on the other) and Mamba2-2.7B (0.0),
+# measured by tests/test_torch_zoo.py; see bf16_model_bound.
+BF16_REF_GAP = 0.006
+
+
+def bf16_model_bound(layers: int, smoke_layers: int) -> float:
+    """The bound on |pallas − xla| / max|logit| of a bf16 full model: the
+    reference's smoke-config gap, grown as a random walk over the depth
+    (√(layers / smoke_layers): each layer adds its own rounding
+    differences) and doubled for the port's other summation orders."""
+    return 2 * BF16_REF_GAP * math.sqrt(layers / smoke_layers)
 
 
 class Failure(RuntimeError):
@@ -785,6 +859,182 @@ def batched_ef_kernel_phase(torch) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 3b: the model zoo's prefill kernels (#15-#17)
+# ---------------------------------------------------------------------------
+
+
+def zoo_inputs(torch, kernel: str, shape: tuple, seed: int) -> tuple:
+    """Inputs of #15, #16 or #17 at ``shape``, from a seeded generator:
+    attention q/k/v ~ N(0, 1); the SSD's Δ = softplus(N(0, 1) − 4.6) and
+    A = −(1..H) (the Mamba2 block's ranges); the RG-LRU's a ∈ [0, 1)."""
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    dtype = getattr(torch, shape[-1])
+
+    def randn(*size):
+        return torch.randn(*size, device=dev, generator=gen)
+
+    if kernel == "flash_attention":
+        b, s, h, kv, hd, _, _ = shape
+        return (randn(b, s, h, hd).to(dtype), randn(b, s, kv, hd).to(dtype),
+                randn(b, s, kv, hd).to(dtype))
+    if kernel == "ssd_scan":
+        b, s, h, p, n, _ = shape
+        dt = torch.nn.functional.softplus(randn(b, s, h) - 4.6)
+        a = -torch.arange(1, h + 1, device=dev, dtype=torch.float32)
+        return (randn(b, s, h, p).to(dtype), dt, a, randn(b, s, n).to(dtype),
+                randn(b, s, n).to(dtype))
+    b, s, w, _ = shape
+    return (torch.rand(b, s, w, device=dev, generator=gen).to(dtype),
+            randn(b, s, w).to(dtype))
+
+
+def zoo_calls(torch, kernel: str, shape: tuple, args: tuple):
+    """(kernel call, plain call, library call or None) on ``args``."""
+    from repro_torch.kernels import ops, ref
+    if kernel == "flash_attention":
+        window = shape[5]
+        q, k, v = args
+        return (lambda: ops.flash_attention(q, k, v, window=window),
+                lambda: ref.flash_attention_ref(q, k, v, window=window),
+                sdpa_call(torch, q, k, v, window))
+    if kernel == "ssd_scan":
+        return (lambda: ops.ssd_scan(*args), lambda: ref.ssd_scan_ref(*args),
+                None)
+    return (lambda: ops.rglru_scan(*args),
+            lambda: ref.rglru_scan_ref(*args), None)
+
+
+def sdpa_call(torch, q, k, v, window: int):
+    """The yardstick of #15, never called by the port: one
+    F.scaled_dot_product_attention on the same q/k/v ((B, H, S, hd) views,
+    K/V heads repeated for the groups beforehand), causal, with the window
+    as a boolean mask."""
+    import torch.nn.functional as F
+    g = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2)
+    kt = k.transpose(1, 2).repeat_interleave(g, dim=1)
+    vt = v.transpose(1, 2).repeat_interleave(g, dim=1)
+    if window <= 0:
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                      is_causal=True)
+    pos = torch.arange(q.shape[1], device=q.device)
+    mask = (pos[None, :] <= pos[:, None]) & \
+        (pos[None, :] > pos[:, None] - window)
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+
+def zoo_bound(kernel: str, shape: tuple):
+    """(bound_ms, bound_by): each input read once and each output written
+    once at 3.35 TB/s, or the operations at the inputs' dtype's peak (bf16
+    tensor cores 989 TFLOP/s, f32 67 TFLOP/s), whichever is larger.
+    #15 counts 4·hd flop per visible (query, key) pair and head; #16 the
+    Pallas kernel's chunked products at L = 256 (C·Bᵀ once per chunk, the
+    masked decay product, the state readout and update per head); #17
+    2 flop per element."""
+    dtype = shape[-1]
+    size = 4 if dtype == "float32" else 2
+    rate = F32_FLOP_PER_S if dtype == "float32" else BF16_FLOP_PER_S
+    if kernel == "flash_attention":
+        b, s, h, kv, hd, window, _ = shape
+        pairs = sum(min(i + 1, window) if window > 0 else i + 1
+                    for i in range(s))
+        flops = 4 * hd * pairs * h * b
+        nbytes = size * b * s * hd * (2 * h + 2 * kv)
+    elif kernel == "ssd_scan":
+        b, s, h, p, n, _ = shape
+        chunk = 256
+        nc = -(-s // chunk)
+        flops = b * nc * (2 * chunk * chunk * n + h * (
+            chunk * (chunk + 1) * p + 4 * chunk * n * p))
+        nbytes = size * b * s * (2 * h * p + 2 * n) + 4 * (b * s * h + h)
+    else:
+        b, s, w, _ = shape
+        flops = 2 * b * s * w
+        rate = F32_FLOP_PER_S
+        nbytes = (2 * size + 4) * b * s * w + 4 * b * w
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_flops = flops / rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_flops else (t_flops,
+                                                          "operations")
+
+
+def check_zoo(torch, kernel: str, shape: tuple, seed: int) -> dict:
+    """The kernel against its plain version on the same inputs: y within
+    ZOO_TOL[dtype]·max|y|; #17's h_last equal to h[:, −1] exactly."""
+    args = zoo_inputs(torch, kernel, shape, seed)
+    run, plain, _ = zoo_calls(torch, kernel, shape, args)
+    with torch.inference_mode():
+        got = as_tuple(run())
+        torch.cuda.synchronize()
+        want = as_tuple(plain())
+    err = torch.sub(got[0].float(), want[0].float()).abs_().max().item()
+    scale = want[0].float().abs().max().item()
+    tol = ZOO_TOL[shape[-1]]
+    check(got[0].dtype == want[0].dtype and got[0].shape == want[0].shape,
+          f"{kernel} {shape}: output {got[0].dtype} {tuple(got[0].shape)}")
+    check(math.isfinite(err) and err <= tol * scale,
+          f"{kernel} {shape}: max_abs_err {err:.3e} > {tol}·{scale:.3e}")
+    out = {"max_abs_err": err, "scale": scale}
+    if kernel == "rglru_scan":
+        check(torch.equal(got[1], got[0][:, -1]),
+              f"rglru_scan {shape}: h_last differs from h[:, -1]")
+        out["h_equal_to_plain"] = bool(torch.equal(got[0], want[0]))
+    return out
+
+
+def zoo_kernel_phase(torch) -> dict:
+    from repro_torch.kernels import ops
+    results = {k: {"max_abs_err": 0.0, "variants": {}} for k in ZOO}
+    edges = {"flash_attention": FLASH_EDGE, "ssd_scan": SSD_EDGE,
+             "rglru_scan": RGLRU_EDGE}
+    for kernel, shapes in edges.items():
+        for i, shape in enumerate(shapes):
+            row = check_zoo(torch, kernel, shape, seed=101 + i)
+            results[kernel]["max_abs_err"] = max(
+                results[kernel]["max_abs_err"], row["max_abs_err"])
+        log(f"[kernels] {kernel} at {len(shapes)} edge shapes: within "
+            f"{ZOO_TOL}·max|y|" + (", h_last == h[:, -1]"
+                                   if kernel == "rglru_scan" else ""))
+    torch.cuda.empty_cache()
+
+    for kernel, by_model in ZOO_FULL.items():
+        for model, shape in by_model.items():
+            torch.cuda.reset_peak_memory_stats()
+            row = check_zoo(torch, kernel, shape, seed=7)
+            args = zoo_inputs(torch, kernel, shape, seed=7)
+            run, plain, library = zoo_calls(torch, kernel, shape, args)
+            with torch.inference_mode():
+                ms = time_ms(torch, run)
+                plain_ms = time_ms(torch, plain, iters=2, warmup=1)
+                # the yardstick is timed here only, never called by the port
+                library_ms = None if library is None \
+                    else time_ms(torch, library)
+            bound_ms, bound_by = zoo_bound(kernel, shape)
+            peak = torch.cuda.max_memory_allocated()
+            del args, run, plain, library
+            torch.cuda.empty_cache()
+            row.update({"shape": list(shape), "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": library_ms,
+                        "share_of_bound": bound_ms / ms, "peak_bytes": peak})
+            results[kernel]["variants"][model] = row
+            results[kernel]["max_abs_err"] = max(
+                results[kernel]["max_abs_err"], row["max_abs_err"])
+            lib = "n/a (no single call)" if library_ms is None \
+                else f"{library_ms:.4f} (sdpa)"
+            log(f"[kernels] {kernel} {model} {shape}: err "
+                f"{row['max_abs_err']:.3e} (max|y| {row['scale']:.3e})  ms "
+                f"{ms:.4f}  bound_ms {bound_ms:.4f} ({bound_by}, "
+                f"{100 * bound_ms / ms:.1f}% of bound)  plain_ms "
+                f"{plain_ms:.4f}  library_ms {lib}  peak "
+                f"{peak / 1e9:.2f} GB")
+    ops.reset_launch_counts()
+    return results
+
+
+# ---------------------------------------------------------------------------
 # Phase 4: training on the port's main path
 # ---------------------------------------------------------------------------
 
@@ -1037,6 +1287,136 @@ def profile_phase(torch, step_ms: float) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the model zoo's prefill, kernels #15-#17 on their main path
+# ---------------------------------------------------------------------------
+
+
+def logit_gap(torch, got, want) -> tuple[float, float]:
+    """(max |got − want|, max |want|) in f32, a slice of S at a time so
+    that no (B, S, V) f32 copy of the bf16 logits is made."""
+    err = scale = 0.0
+    for i in range(0, want.shape[1], 256):
+        a = got[:, i:i + 256].to(torch.float32, copy=True)
+        b = want[:, i:i + 256].to(torch.float32, copy=True)
+        err = max(err, a.sub_(b).abs_().max().item())
+        scale = max(scale, b.abs_().max().item())
+    return err, scale
+
+
+def model_forward(torch, model, params, batch, impl: str, warm: bool):
+    """The forward with the launch counters set to 0 just before it and
+    read just after, after one untimed forward (allocator, cuBLAS and the
+    kernels warm) when ``warm``.  Returns (logits, ms, counts, peak
+    bytes)."""
+    from repro_torch.kernels import ops
+    with torch.inference_mode():
+        if warm:
+            model.logits(params, batch, impl=impl)
+            torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits = model.logits(params, batch, impl=impl)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        counts = ops.launch_counts()
+    return logits, ms, counts, torch.cuda.max_memory_allocated()
+
+
+def compare_paths(torch, name: str, model, params, batch, warm: bool = True):
+    """impl='xla' then impl='pallas' on the same weights and tokens: the
+    xla forward launches no kernel, the pallas one #15-#17 as the layer
+    plan says and nothing else; both logits finite and (B, S, V) in the
+    compute dtype.  Returns the record, with max|Δlogit| / max|logit|."""
+    cfg = model.cfg
+    xla, xla_ms, xla_counts, xla_peak = model_forward(
+        torch, model, params, batch, "xla", warm)
+    check(sum(xla_counts.values()) == 0,
+          f"{name}: impl='xla' launched kernels {xla_counts}")
+    pallas, ms, counts, peak = model_forward(torch, model, params, batch,
+                                             "pallas", warm)
+    want = ZOO_LAUNCHES[name]
+    launched = {k: v for k, v in counts.items() if v}
+    check(launched == want,
+          f"{name}: impl='pallas' launched {launched}, expected {want}")
+    shape = tuple(batch["tokens"].shape) + (cfg.vocab_size,)
+    for impl, lg in (("xla", xla), ("pallas", pallas)):
+        check(tuple(lg.shape) == shape and lg.dtype == cfg.compute_dtype,
+              f"{name} {impl}: logits {lg.dtype} {tuple(lg.shape)}")
+        check(bool(torch.isfinite(lg).all()),
+              f"{name} {impl}: non-finite logits")
+    err, scale = logit_gap(torch, pallas, xla)
+    return {"compute_dtype": str(cfg.compute_dtype), "launches": launched,
+            "rel_gap": err / scale, "max_abs_logit": scale, "xla_ms": xla_ms,
+            "pallas_ms": ms, "xla_peak_bytes": xla_peak,
+            "pallas_peak_bytes": peak}
+
+
+def model_phase(torch) -> dict:
+    """Each model at full width and depth from random weights (one
+    torch.Generator on the card), compared on its two paths under
+    inference_mode (compare_paths): the f32 tiny LM to
+    MODEL_TOL_F32·max|logit|, the bf16 models to bf16_model_bound.  A bf16
+    model is compared once more with f32 compute on the same weights and
+    tokens (untimed): there the two paths must agree to MODEL_TOL_F32,
+    which bf16's rounding differences, grown over the depth, hide."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.draws import Draws
+    from repro_torch.models import build_model
+    out = {}
+    for seed, (name, bsz, seq) in enumerate(ZOO_MODELS):
+        cfg = get_config(name)
+        model = build_model(cfg)
+        t0 = time.perf_counter()
+        draws = Draws(seed, DEVICE)
+        params = model.init(draws)
+        tokens = torch.randint(0, cfg.vocab_size, (bsz, seq),
+                               generator=draws.generator, device=DEVICE)
+        positions = torch.arange(seq, device=DEVICE).expand(bsz, seq)
+        batch = {"tokens": tokens, "positions": positions}
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        row = compare_paths(torch, name, model, params, batch)
+        if cfg.compute_dtype == torch.float32:
+            tol, rule = MODEL_TOL_F32, "f32"
+        else:
+            tol = bf16_model_bound(cfg.num_layers, cfg.smoke().num_layers)
+            rule = (f"bf16: 2·{BF16_REF_GAP}·√({cfg.num_layers}/"
+                    f"{cfg.smoke().num_layers})")
+        check(row["rel_gap"] <= tol,
+              f"{name}: max|Δlogit|/max|logit| {row['rel_gap']:.4e} > "
+              f"{tol:.4e} ({rule})")
+        row.update({"batch": bsz, "seq": seq, "init_s": init_s,
+                    "params": model.param_count(params), "bound": tol,
+                    "bound_rule": rule})
+        log(f"[models] {name} ({row['params']:,} params, B {bsz}, S {seq}, "
+            f"{cfg.compute_dtype}): max|Δlogit|/max|logit| "
+            f"{row['rel_gap']:.3e} (bound {tol:.3e}, {rule}); launches "
+            f"{row['launches']}; forward xla {row['xla_ms']:.1f} ms, "
+            f"pallas {row['pallas_ms']:.1f} ms (host clock, synchronized); "
+            f"peak xla {row['xla_peak_bytes'] / 1e9:.2f} GB, pallas "
+            f"{row['pallas_peak_bytes'] / 1e9:.2f} GB; init {init_s:.1f} s")
+        if cfg.compute_dtype != torch.float32:
+            f32 = build_model(dataclasses.replace(
+                cfg, compute_dtype=torch.float32))
+            twin = compare_paths(torch, name, f32, params, batch,
+                                 warm=False)
+            check(twin["rel_gap"] <= MODEL_TOL_F32,
+                  f"{name} with f32 compute: max|Δlogit|/max|logit| "
+                  f"{twin['rel_gap']:.4e} > {MODEL_TOL_F32}")
+            row["f32_compute"] = twin
+            log(f"[models] {name} with f32 compute, same weights: "
+                f"max|Δlogit|/max|logit| {twin['rel_gap']:.3e} (limit "
+                f"{MODEL_TOL_F32}); launches {twin['launches']}; peak "
+                f"{twin['pallas_peak_bytes'] / 1e9:.2f} GB")
+        out[name] = row
+        del params, batch, tokens, draws
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1068,6 +1448,7 @@ def main() -> int:
     kernels.update(batched_kernel_phase(torch))
     kernels.update(compress_kernel_phase(torch))
     kernels.update(batched_ef_kernel_phase(torch))
+    kernels.update(zoo_kernel_phase(torch))
     log(f"[kernels] phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     training = training_phase(torch)
@@ -1075,13 +1456,25 @@ def main() -> int:
     t0 = time.perf_counter()
     profile = profile_phase(torch, training["c"]["step_ms"])
     log(f"[profile] phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    models = model_phase(torch)
+    log(f"[models] phase {time.perf_counter() - t0:.1f} s")
 
     line = []
     for kernel in REPLACES:
-        main_variant = kernels[kernel]["variants"][PATH_VARIANT[kernel]]
-        # the first path that runs it (#13 runs on none: 0)
-        launches = next((p["launches"] for p in training.values()
-                         if p.get("kernel") == kernel), 0)
+        if kernel in ZOO:
+            # timed at the first model that runs it; launches from that
+            # model's pallas forward
+            model = next(iter(ZOO_FULL[kernel]))
+            main_variant = kernels[kernel]["variants"][model]
+            launches = models[model]["launches"][kernel]
+            variant = model
+        else:
+            variant = PATH_VARIANT[kernel]
+            main_variant = kernels[kernel]["variants"][variant]
+            # the first path that runs it (#13 runs on none: 0)
+            launches = next((p["launches"] for p in training.values()
+                             if p.get("kernel") == kernel), 0)
         line.append({
             "name": kernel, "route": "cuda", "source": SOURCES[kernel],
             "replaces": REPLACES[kernel], "launches": launches,
@@ -1090,15 +1483,15 @@ def main() -> int:
             "bound_ms": main_variant["bound_ms"],
             "bound_by": main_variant["bound_by"],
             "library_ms": main_variant["library_ms"],
-            "variant": PATH_VARIANT[kernel],
-            "variants": kernels[kernel]["variants"]})
+            "variant": variant, "variants": kernels[kernel]["variants"]})
     total_s = time.perf_counter() - T_START
     log(f"[smoke] total {total_s:.1f} s (build included)")
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"device": name, "nvidia_smi": smi, "kernels": line,
-         "training": training, "profile": profile, "total_s": total_s},
+         "training": training, "profile": profile, "models": models,
+         "total_s": total_s},
         indent=1))
     print(json.dumps({"kernels": line}))
     print(smi)

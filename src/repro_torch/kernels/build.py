@@ -25,7 +25,8 @@ __all__ = ["BUILD_ROOT", "NVCC_FLAGS", "Built", "load"]
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("gossip_mix", "update_mix", "compress_mix")
+SOURCES = ("gossip_mix", "update_mix", "compress_mix", "flash_attention",
+           "ssd_scan", "rglru_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -58,6 +59,20 @@ _SIGNATURES = {
                             _P],
         # w, scale, q, p, y, r, n, d, stream
         "dequant_mix_dense": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _P],
+    },
+    "flash_attention": {
+        # q, k, v, out, b, s, h, kv, hd, window, scale, dtype, stream
+        "flash_attention": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
+                            _I64, ctypes.c_float, ctypes.c_int, _P],
+    },
+    "ssd_scan": {
+        # x, dt, a, b, c, y, batch, s, h, p, n, dtype, stream
+        "ssd_scan": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
+                     ctypes.c_int, _P],
+    },
+    "rglru_scan": {
+        # a, bx, h, h_last, batch, s, w, dtype, stream
+        "rglru_scan": [_P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_int, _P],
     },
 }
 

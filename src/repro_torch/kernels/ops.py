@@ -10,7 +10,11 @@ The batched wrappers (#5–#8) launch the same CUDA functions over the
 leading run axis of an (R, n, D) sweep lattice: one launch for all runs.
 The compressed-gossip wrappers (#9, #11, #13, #14) take the f32 (n, D)
 buffers of the error-feedback exchange and the int8 payload; #10/#12
-launch #9/#11's CUDA functions over a lattice's run axis.
+launch #9/#11's CUDA functions over a lattice's run axis.  The model
+zoo's prefill wrappers (#15 flash attention, #16 the SSD scan, #17 the
+RG-LRU scan) take f32 or bf16 activations and are forward only: they
+raise when an input requires grad under grad mode, on any device, as the
+reference's Pallas kernels have no backward.
 
 Every kernel wrapper carries a ``launches`` counter that it advances by
 one each time its kernel is launched (CPU calls do not count);
@@ -18,6 +22,8 @@ one each time its kernel is launched (CPU calls do not count);
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -33,8 +39,8 @@ __all__ = ["gossip_mix", "gossip_mix_sparse", "update_mix",
            "make_sparse_gossip_batched", "make_sparse_update_mix_batched",
            "ef_mix", "ef_mix_sparse", "make_sparse_ef_mix", "quant_mix",
            "dequant_mix", "ef_mix_batched", "ef_mix_sparse_batched",
-           "make_sparse_ef_mix_batched", "launch_counts",
-           "reset_launch_counts"]
+           "make_sparse_ef_mix_batched", "flash_attention", "ssd_scan",
+           "rglru_scan", "launch_counts", "reset_launch_counts"]
 
 
 def _check_buffer(name: str, t: torch.Tensor, shape: tuple) -> None:
@@ -357,12 +363,137 @@ def dequant_mix(w, q, scale, p):
     return y
 
 
+# ---------------------------------------------------------------------------
+# The model zoo's prefill: kernels #15 (attention), #16 (SSD), #17 (RG-LRU)
+# ---------------------------------------------------------------------------
+
+_ACTIVATION_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+FLASH_HEAD_DIMS = (64, 128, 256)
+
+
+def _forward_only(name: str, *tensors: torch.Tensor) -> None:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the kernel has no backward (nor has the reference's "
+            f"Pallas kernel); call it under torch.no_grad() or "
+            f"torch.inference_mode(), and differentiate the model with "
+            f"impl='xla'")
+
+
+def _activation_dtype(name: str, t: torch.Tensor, *same) -> int:
+    """The kernel's dtype code of ``t`` (f32 or bf16), shared by ``same``."""
+    if t.dtype not in _ACTIVATION_DTYPES:
+        raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
+    for other_name, other in same:
+        if other.dtype != t.dtype:
+            raise TypeError(f"{other_name} must be {t.dtype} like {name}, "
+                            f"got {other.dtype}")
+    return _ACTIVATION_DTYPES[t.dtype]
+
+
+def _aligned16(*tensors: torch.Tensor) -> None:
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("the CUDA kernel reads 16-byte vectors: pass "
+                         "tensors whose data starts on a 16-byte boundary")
+
+
+def flash_attention(q, k, v, *, window: int = 0, scale=None):
+    """#15 causal GQA attention, the last ``window`` keys only when
+    ``window`` > 0: q (B, S, H, hd), k/v (B, S, KV, hd) with H % KV == 0
+    and hd in (64, 128, 256), f32 or bf16; online softmax in f32, P kept in
+    f32 for PV; output (B, S, H, hd) in q's dtype
+    (kernel: flash_attention.cu)."""
+    _forward_only("flash_attention", q, k, v)
+    dtype = _activation_dtype("q", q, ("k", k), ("v", v))
+    if q.ndim != 4 or k.ndim != 4 or tuple(v.shape) != tuple(k.shape):
+        raise ValueError(f"q must be (B, S, H, hd) and k, v (B, S, KV, hd), "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    if k.shape[:2] != q.shape[:2] or k.shape[3] != hd or kv < 1 or h % kv:
+        raise ValueError(f"k/v {tuple(k.shape)} do not fit q "
+                         f"{tuple(q.shape)} (same B, S, hd; H % KV == 0)")
+    if hd not in FLASH_HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in {FLASH_HEAD_DIMS}")
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    scale = hd ** -0.5 if scale is None else float(scale)
+    if not _on_cuda(q, k, v):
+        return ref.flash_attention_ref(q, k, v, window=window, scale=scale)
+    _aligned16(q, k, v)
+    out = torch.empty_like(q)
+    lib = build.load().libs["flash_attention"]
+    rc = lib.flash_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                             out.data_ptr(), b, s, h, kv, hd, window,
+                             ctypes.c_float(scale), dtype, _stream(q))
+    _raise_on(rc, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+def ssd_scan(x, dt, a, b, c):
+    """#16 the Mamba2 SSD scan from a zero state: x (B, S, H, P) and b/c
+    (B, S, N) in f32 or bf16, dt (B, S, H) and a (H,) f32; the kernel
+    applies Δ·x and exp(Δ·A) itself and carries the (P, N) f32 state of
+    each head token by token; y (B, S, H, P) in x's dtype
+    (kernel: ssd_scan.cu)."""
+    _forward_only("ssd_scan", x, dt, a, b, c)
+    dtype = _activation_dtype("x", x, ("b", b), ("c", c))
+    if x.ndim != 4 or b.ndim != 3:
+        raise ValueError(f"x must be (B, S, H, P) and b, c (B, S, N), got "
+                         f"{tuple(x.shape)}, {tuple(b.shape)}")
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    _check_buffer("dt", dt, (bsz, s, h))
+    _check_buffer("a", a, (h,))
+    for name, t in (("b", b), ("c", c)):
+        if tuple(t.shape) != (bsz, s, n):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{(bsz, s, n)}")
+    if n % 8 or not 8 <= n <= 256:
+        raise ValueError(f"d_state {n} must be a multiple of 8 in [8, 256]")
+    if not _on_cuda(x, dt, a, b, c):
+        return ref.ssd_scan_ref(x, dt, a, b, c)
+    y = torch.empty_like(x)
+    lib = build.load().libs["ssd_scan"]
+    rc = lib.ssd_scan(x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
+                      c.data_ptr(), y.data_ptr(), bsz, s, h, p, n, dtype,
+                      _stream(x))
+    _raise_on(rc, "ssd_scan")
+    ssd_scan.launches += 1
+    return y
+
+
+def rglru_scan(a, bx):
+    """#17 h_t = a_t ⊙ h_{t−1} + bx_t from h_0 = 0: a, bx (B, S, W) f32 or
+    bf16, read once; returns (h (B, S, W) f32, h_last (B, W) f32, equal to
+    h[:, −1]) (kernel: rglru_scan.cu)."""
+    _forward_only("rglru_scan", a, bx)
+    dtype = _activation_dtype("a", a, ("bx", bx))
+    if a.ndim != 3 or tuple(bx.shape) != tuple(a.shape) or a.shape[1] < 1:
+        raise ValueError(f"a and bx must be one (B, S, W) shape with S >= 1, "
+                         f"got {tuple(a.shape)}, {tuple(bx.shape)}")
+    bsz, s, w = a.shape
+    if not _on_cuda(a, bx):
+        return ref.rglru_scan_ref(a, bx)
+    h = torch.empty(a.shape, dtype=torch.float32, device=a.device)
+    h_last = torch.empty((bsz, w), dtype=torch.float32, device=a.device)
+    lib = build.load().libs["rglru_scan"]
+    rc = lib.rglru_scan(a.data_ptr(), bx.data_ptr(), h.data_ptr(),
+                        h_last.data_ptr(), bsz, s, w, dtype, _stream(a))
+    _raise_on(rc, "rglru_scan")
+    rglru_scan.launches += 1
+    return h, h_last
+
+
 _KERNEL_WRAPPERS = (gossip_mix, gossip_mix_sparse, update_mix,
                     update_mix_sparse, gossip_mix_batched,
                     gossip_mix_sparse_batched, update_mix_batched,
                     update_mix_sparse_batched, ef_mix, ef_mix_sparse,
                     quant_mix, dequant_mix, ef_mix_batched,
-                    ef_mix_sparse_batched)
+                    ef_mix_sparse_batched, flash_attention, ssd_scan,
+                    rglru_scan)
 
 
 def reset_launch_counts() -> None:

@@ -4,6 +4,8 @@ Each function computes what its kernel computes, with the reference's
 arithmetic (repro/kernels/gossip_mix.py, update_mix.py and
 compress_mix.py): the mix accumulates in f32 and casts to x's dtype,
 the optimizer step follows repro/optim/optimizers.py's dtype rules.
+The model zoo's prefill kernels (#15–#17, flash_attention.py, ssd_scan.py
+and rglru_scan.py) have theirs at the end of the module.
 Every function takes one run's (n, D) buffer or a sweep lattice's
 (R, n, D) buffer with per-run W (or ELL tables) and per-run η of shape
 (R,); the ``*_batched`` names (the plain versions of kernels #5–#8, #10
@@ -21,7 +23,8 @@ __all__ = ["gossip_mix", "gossip_mix_sparse", "local_step", "update_mix",
            "gossip_mix_sparse_batched", "update_mix_batched",
            "update_mix_sparse_batched", "ef_mix", "ef_mix_sparse",
            "ef_mix_batched", "ef_mix_sparse_batched", "quantize_int8",
-           "quant_mix", "dequant_mix"]
+           "quant_mix", "dequant_mix", "flash_attention_ref", "ssd_scan_ref",
+           "rglru_scan_ref"]
 
 
 def gossip_mix(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -153,3 +156,69 @@ def dequant_mix(w, q, scale, p):
     """#14 the receive side: y mixed straight from the int8 payload,
     s = q·scale, all in f32 and cast at the end."""
     return _int8_mix(w, q.float(), scale, p)
+
+
+# ---------------------------------------------------------------------------
+# The model zoo's prefill kernels: #15 flash attention, #16 the SSD scan,
+# #17 the RG-LRU scan.  f32 arithmetic throughout, outputs cast at the end.
+# ---------------------------------------------------------------------------
+
+NEG_INF = -1e30
+
+
+def flash_attention_ref(q, k, v, *, window: int = 0, scale=None):
+    """#15 causal GQA attention, limited to the last ``window`` keys when
+    ``window`` > 0: q (B, S, H, hd), k/v (B, S, KV, hd), head h reads KV
+    head h // (H / KV).  q is scaled in f32 before QKᵀ, the softmax is
+    taken in f32 and the probabilities stay f32 for the PV product, as in
+    the Pallas body (repro/kernels/flash_attention.py:_flash_kernel);
+    output in q's dtype."""
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    if scale is None:
+        scale = hd ** -0.5
+    qg = q.reshape(b, s, kv, h // kv, hd).float() * scale
+    scores = torch.einsum("bskgh,btkh->bkgst", qg, k.float())
+    pos = torch.arange(s, device=q.device)
+    mask = pos[None, :] <= pos[:, None]
+    if window > 0:
+        mask &= pos[None, :] > pos[:, None] - window
+    probs = torch.softmax(scores.masked_fill_(~mask, NEG_INF), dim=-1)
+    del scores
+    out = torch.einsum("bkgst,btkh->bskgh", probs, v.float())
+    return out.reshape(b, s, h, hd).to(q.dtype)
+
+
+def ssd_scan_ref(x, dt, a, b, c):
+    """#16 the Mamba2 SSD scan from a zero state, token by token:
+    S_t = exp(Δ_t A_h) S_{t−1} + (Δ_t x_t) ⊗ B_t, y_t = S_t C_t, the
+    (H, P, N) state in f32.  x (B, S, H, P), dt (B, S, H), a (H,), b/c
+    (B, S, N); y (B, S, H, P) in x's dtype.  The Pallas kernel
+    (repro/kernels/ssd_scan.py) computes the same function chunk by chunk;
+    the chunked form's cumulative log-decays cost it accuracy where Δ·A is
+    large, the recurrence does not (PERF.md, PR 15)."""
+    bs, s, h, p = x.shape
+    decay = torch.exp(dt.float() * a.float())               # (B,S,H)
+    xl = x.float() * dt.float()[..., None]                  # (B,S,H,P)
+    b32, c32 = b.float(), c.float()
+    state = torch.zeros(bs, h, p, b.shape[-1], device=x.device)
+    y = torch.empty(bs, s, h, p, device=x.device)
+    for t in range(s):
+        state.mul_(decay[:, t, :, None, None]).add_(
+            xl[:, t, :, :, None] * b32[:, t, None, None, :])
+        y[:, t] = torch.einsum("bhpn,bn->bhp", state, c32[:, t])
+    return y.to(x.dtype)
+
+
+def rglru_scan_ref(a, bx):
+    """#17 h_t = a_t ⊙ h_{t−1} + bx_t from h_0 = 0 in f32
+    (repro/kernels/rglru_scan.py), the product and the sum each rounded
+    (the kernel rounds alike).  Returns (h (B, S, W) f32, h_last =
+    h[:, −1])."""
+    a32, b32 = a.float(), bx.float()
+    h = torch.empty_like(b32)
+    state = torch.zeros_like(b32[:, 0])
+    for t in range(a.shape[1]):
+        state = state * a32[:, t] + b32[:, t]
+        h[:, t] = state
+    return h, h[:, -1]

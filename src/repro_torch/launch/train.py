@@ -46,7 +46,8 @@ def tiny_lm_config(d_model: int = 768, layers: int = 12,
                    vocab: int = 32_768, name: str = "tiny-lm") -> ArchConfig:
     """The ~157M-parameter dense LM of the end-to-end example."""
     return ArchConfig(
-        name=name, num_layers=layers, d_model=d_model,
+        name=name, arch_type="dense", source="examples",
+        num_layers=layers, d_model=d_model,
         num_heads=d_model // 64, num_kv_heads=max(1, d_model // 128),
         d_ff=4 * d_model, vocab_size=vocab, param_dtype=torch.float32,
         compute_dtype=torch.float32)

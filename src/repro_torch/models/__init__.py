@@ -1,4 +1,4 @@
-"""The dense language model of the port."""
+"""The port's models: the dense LM, Griffin and Mamba2 stacks."""
 
 from repro_torch.models.model import Model, build_model
 

@@ -12,9 +12,9 @@ import math
 import torch
 import torch.nn.functional as F
 
-__all__ = ["init_rms_norm", "rms_norm", "init_dense", "dense", "init_mlp",
-           "mlp", "init_embedding", "embed", "unembed", "rope_frequencies",
-           "apply_rope"]
+__all__ = ["init_rms_norm", "rms_norm", "init_dense", "dense", "gelu",
+           "init_mlp", "mlp", "init_embedding", "embed", "unembed",
+           "rope_frequencies", "apply_rope"]
 
 
 def init_rms_norm(d: int, dtype, device) -> dict:
@@ -30,20 +30,37 @@ def rms_norm(params: dict, x: torch.Tensor, eps: float = 1e-6):
     return (y * (1.0 + params["scale"].float())).to(dtype)
 
 
-def init_dense(draws, shape: tuple, dtype, fan_in: int | None = None):
-    """Truncated normal in [-2, 2] over sqrt(fan_in) (first dim default)."""
+def init_dense(draws, shape: tuple, dtype, fan_in: int | None = None,
+               bias: bool = False):
+    """Truncated normal in [-2, 2] over sqrt(fan_in) (first dim default);
+    ``bias`` adds a zero bias ``b`` of shape ``shape[1:]``."""
     fan = fan_in if fan_in is not None else shape[0]
     w = draws.truncated_normal(shape) / math.sqrt(fan)
-    return {"w": w.to(dtype)}
+    p = {"w": w.to(dtype)}
+    if bias:
+        p["b"] = torch.zeros(shape[1:], dtype=dtype, device=draws.device)
+    return p
 
 
 def dense(params: dict, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
-    """x @ w contracting x's last dim with w's first (w may be (d, H, hd))."""
+    """x @ w (+ b) contracting x's last dim with w's first (w may be
+    (d, H, hd)).  Without ``compute_dtype`` the operands are promoted to
+    a common dtype, as the reference's mixed-dtype dot_general does."""
     w = params["w"]
-    if compute_dtype is not None:
-        w = w.to(compute_dtype)
-        x = x.to(compute_dtype)
-    return torch.tensordot(x, w, dims=1)
+    dtype = compute_dtype if compute_dtype is not None else \
+        torch.promote_types(x.dtype, w.dtype)
+    y = torch.tensordot(x.to(dtype), w.to(dtype), dims=1)
+    if "b" in params:
+        y = y + params["b"].to(y.dtype)
+    return y
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+_GATES = {"swiglu": F.silu, "geglu": gelu}
 
 
 def init_mlp(draws, d: int, d_ff: int, dtype) -> dict:
@@ -52,10 +69,13 @@ def init_mlp(draws, d: int, d_ff: int, dtype) -> dict:
             "wo": init_dense(draws, (d_ff, d), dtype)}
 
 
-def mlp(params: dict, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
-    """SwiGLU: (silu(x wg) * x wi) wo."""
+def mlp(params: dict, x: torch.Tensor, kind: str = "swiglu",
+        compute_dtype=None) -> torch.Tensor:
+    """SwiGLU (silu(x wg) * x wi) wo, or GeGLU with gelu for silu."""
+    if kind not in _GATES:
+        raise ValueError(f"unknown mlp kind {kind!r}")
     h = dense(params["wi"], x, compute_dtype=compute_dtype)
-    h = F.silu(dense(params["wg"], x, compute_dtype=compute_dtype)) * h
+    h = _GATES[kind](dense(params["wg"], x, compute_dtype=compute_dtype)) * h
     return dense(params["wo"], h, compute_dtype=compute_dtype)
 
 

@@ -27,7 +27,7 @@ def _rebuild(tree, it):
 
 @dataclasses.dataclass(frozen=True)
 class Model:
-    """Bound (config, functions) bundle for the dense language model."""
+    """Bound (config, functions) bundle for one architecture."""
 
     cfg: ArchConfig
 
@@ -38,13 +38,17 @@ class Model:
     def param_count(self, params: dict) -> int:
         return sum(leaf.numel() for leaf in _leaves(params))
 
-    def logits(self, params: dict, batch: dict) -> torch.Tensor:
-        return transformer.forward(params, batch, self.cfg)
+    def logits(self, params: dict, batch: dict, *,
+               impl: str = "xla") -> torch.Tensor:
+        """Prefill logits (B, S, V); ``impl='pallas'`` runs the attention,
+        SSD and RG-LRU kernels (#15–#17), forward only."""
+        return transformer.forward(params, batch, self.cfg, impl)
 
-    def loss(self, params: dict, batch: dict) -> torch.Tensor:
+    def loss(self, params: dict, batch: dict, *,
+             impl: str = "xla") -> torch.Tensor:
         """Next-token cross entropy, lse(logits) − logits[target] with a
         stop-gradient max and f32 reductions (the reference's form)."""
-        logits = self.logits(params, batch)
+        logits = self.logits(params, batch, impl=impl)
         targets = batch["tokens"][:, 1:]
         lg = logits[:, :-1]
         m = lg.max(dim=-1, keepdim=True).values.detach()
@@ -54,14 +58,16 @@ class Model:
         nll = lse - gold                                    # (B, S-1)
         return nll.sum() / max(nll.numel(), 1)
 
-    def grad_fn(self):
-        """(params, batch) -> (loss, grads) with grads in params' layout."""
+    def grad_fn(self, *, impl: str = "xla"):
+        """(params, batch) -> (loss, grads) with grads in params' layout.
+        The kernels have no backward: with ``impl='pallas'`` the first
+        kernel wrapper the forward reaches raises."""
         def fn(params, batch):
             leaves = [leaf.detach().requires_grad_()
                       for leaf in _leaves(params)]
             tree = _rebuild(params, iter(leaves))
             with torch.enable_grad():
-                loss = self.loss(tree, batch)
+                loss = self.loss(tree, batch, impl=impl)
                 grads = torch.autograd.grad(loss, leaves)
             return loss.detach(), _rebuild(params, iter(grads))
         return fn

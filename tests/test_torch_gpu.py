@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (#1–#14) against their plain versions, on the
+"""The port's CUDA kernels (#1–#17) against their plain versions, on the
 card.
 
 Every test here is marked ``gpu`` and skips where there is no CUDA device
@@ -11,7 +11,10 @@ Tolerance: max abs error ≤ 1e-5·max|y| in f32 (another summation order;
 TF32 is off).  A run's slice of a batched kernel (#5–#8) equals the
 single-run kernel (#1–#4) on that slice exactly, as #10/#12's slices
 equal #9/#11, and so do the EF residual r of #9–#12 and the int8 payload
-q of #13 their plain versions'.
+q of #13 their plain versions'.  The model zoo's prefill kernels (#15
+flash attention, #16 the SSD scan, #17 the RG-LRU scan) are held to
+1e-5·max|y| in f32 and 1e-2·max|y| in bf16 (one rounding of the bf16
+output), #17's h_last to h[:, −1] exactly.
 """
 
 from __future__ import annotations
@@ -186,7 +189,8 @@ def test_cuda_launches_are_counted(cuda):
         "gossip_mix_sparse_batched": 1, "update_mix_batched": 3,
         "update_mix_sparse_batched": 3, "ef_mix": 0, "ef_mix_sparse": 0,
         "quant_mix": 0, "dequant_mix": 0, "ef_mix_batched": 0,
-        "ef_mix_sparse_batched": 0}
+        "ef_mix_sparse_batched": 0, "flash_attention": 0, "ssd_scan": 0,
+        "rglru_scan": 0}
 
 
 @pytest.mark.gpu
@@ -437,3 +441,129 @@ def test_cuda_batched_ef_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(RuntimeError, match="kMaxN"):  # the kernel's limit
         ops.ef_mix_batched(torch.rand(2, 401, 401, device=cuda), big, big,
                            big)
+
+
+# ---------------------------------------------------------------------------
+# The model zoo's prefill: #15 flash attention, #16 SSD scan, #17 RG-LRU scan
+# ---------------------------------------------------------------------------
+
+ZOO_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+DTYPES = [torch.float32, torch.bfloat16]
+# (B, S, H, KV, hd, window): S off the 64-query and 32-key tiles
+FLASH_SHAPES = [(1, 1, 2, 1, 64, 0), (1, 77, 4, 2, 64, 0),
+                (2, 130, 4, 1, 128, 64), (1, 200, 2, 2, 256, 64),
+                (1, 97, 6, 3, 64, 64), (2, 65, 2, 2, 256, 0),
+                (1, 300, 2, 1, 128, 1)]
+# (B, S, H, P, N): P off the 16-row blocks, N from 8 to 256
+SSD_SHAPES = [(1, 1, 1, 1, 8), (1, 100, 3, 20, 16), (2, 77, 4, 64, 128),
+              (1, 50, 2, 17, 8), (1, 300, 5, 64, 256)]
+# (B, S, W): W not a multiple of 4, S off the 32-step unroll
+RGLRU_SHAPES = [(1, 1, 1), (2, 77, 301), (1, 33, 4097), (3, 5, 2),
+                (1, 1000, 1023)]
+
+
+def _zoo_close(got, want, dtype):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= ZOO_TOL[dtype] * want.float().abs().max().item()
+
+
+def _randn(gen, *shape, dtype=torch.float32):
+    return torch.randn(*shape, device=gen.device, generator=gen).to(dtype)
+
+
+def _gen(cuda, seed):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(seed)
+    return gen
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,s,h,kv,hd,window", FLASH_SHAPES)
+def test_cuda_flash_attention_matches_plain_version(cuda, b, s, h, kv, hd,
+                                                    window, dtype):
+    gen = _gen(cuda, s * 7 + hd + window)
+    q = _randn(gen, b, s, h, hd, dtype=dtype)
+    k, v = (_randn(gen, b, s, kv, hd, dtype=dtype) for _ in range(2))
+    with torch.inference_mode():
+        got = ops.flash_attention(q, k, v, window=window)
+        torch.cuda.synchronize()
+        _zoo_close(got, ref.flash_attention_ref(q, k, v, window=window),
+                   dtype)
+
+
+def _ssd_args(cuda, b, s, h, p, n, dtype, seed=0):
+    gen = _gen(cuda, seed)
+    dt = torch.nn.functional.softplus(_randn(gen, b, s, h) - 4.6)
+    a = -torch.arange(1, h + 1, device=cuda, dtype=torch.float32)
+    return (_randn(gen, b, s, h, p, dtype=dtype), dt, a,
+            _randn(gen, b, s, n, dtype=dtype),
+            _randn(gen, b, s, n, dtype=dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,s,h,p,n", SSD_SHAPES)
+def test_cuda_ssd_scan_matches_plain_version(cuda, b, s, h, p, n, dtype):
+    args = _ssd_args(cuda, b, s, h, p, n, dtype, seed=s + p + n)
+    with torch.inference_mode():
+        got = ops.ssd_scan(*args)
+        torch.cuda.synchronize()
+        _zoo_close(got, ref.ssd_scan_ref(*args), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,s,w", RGLRU_SHAPES)
+def test_cuda_rglru_scan_matches_plain_version(cuda, b, s, w, dtype):
+    gen = _gen(cuda, s * w)
+    a = torch.rand(b, s, w, device=cuda, generator=gen).to(dtype)
+    bx = _randn(gen, b, s, w, dtype=dtype)
+    with torch.inference_mode():
+        h, h_last = ops.rglru_scan(a, bx)
+        torch.cuda.synchronize()
+        want, _ = ref.rglru_scan_ref(a, bx)
+    _zoo_close(h, want, torch.float32)
+    assert torch.equal(h_last, h[:, -1])
+
+
+def _zoo_args(cuda, kernel, dtype=torch.float32):
+    gen = _gen(cuda, 5)
+    if kernel == "flash_attention":
+        return [_randn(gen, 1, 70, 2, 64, dtype=dtype) for _ in range(3)]
+    if kernel == "ssd_scan":
+        return list(_ssd_args(cuda, 1, 70, 2, 16, 16, dtype))
+    return [torch.rand(1, 70, 9, device=cuda, generator=gen).to(dtype),
+            _randn(gen, 1, 70, 9, dtype=dtype)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["flash_attention", "ssd_scan",
+                                    "rglru_scan"])
+def test_cuda_zoo_kernels_are_forward_only(cuda, kernel):
+    args = _zoo_args(cuda, kernel)
+    args[0].requires_grad_()
+    ops.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="no backward"):
+        getattr(ops, kernel)(*args)
+    with torch.no_grad():
+        getattr(ops, kernel)(*args)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()[kernel] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["flash_attention", "ssd_scan",
+                                    "rglru_scan"])
+def test_cuda_zoo_wrappers_raise_instead_of_falling_back(cuda, kernel):
+    fn = getattr(ops, kernel)
+    with pytest.raises(TypeError):
+        fn(*_zoo_args(cuda, kernel, torch.float16))
+    args = _zoo_args(cuda, kernel)
+    with pytest.raises(ValueError):   # one input left on the CPU
+        fn(*args[:-1], args[-1].cpu())
+    strided = [torch.cat([t, t], dim=-1)[..., ::2] if t.ndim >= 3 else t
+               for t in args]
+    with pytest.raises(ValueError):   # non-contiguous views, same shapes
+        fn(*strided)

@@ -240,6 +240,11 @@ def test_cpu_calls_do_not_count_as_launches():
     ops.ef_mix_batched(tw[None], tx[None], tg[None], tm[None])
     ops.make_sparse_ef_mix_batched([topo.ring_graph(5, k=1)])(
         tw[None], tx[None], tg[None], tm[None])
+    qkv = tx.reshape(1, 5, 1, 64)
+    ops.flash_attention(qkv, qkv, qkv)
+    ops.ssd_scan(qkv.reshape(1, 5, 4, 16), torch.ones(1, 5, 4),
+                 -torch.ones(4), tx[:, :8][None], tx[:, 8:16][None])
+    ops.rglru_scan(tx[None], tg[None])
     assert ops.launch_counts() == {
         name: 0 for name in ("gossip_mix", "gossip_mix_sparse", "update_mix",
                              "update_mix_sparse", "gossip_mix_batched",
@@ -247,7 +252,8 @@ def test_cpu_calls_do_not_count_as_launches():
                              "update_mix_batched",
                              "update_mix_sparse_batched", "ef_mix",
                              "ef_mix_sparse", "quant_mix", "dequant_mix",
-                             "ef_mix_batched", "ef_mix_sparse_batched")}
+                             "ef_mix_batched", "ef_mix_sparse_batched",
+                             "flash_attention", "ssd_scan", "rglru_scan")}
 
 
 @pytest.mark.parametrize("bad", ["rank", "w_shape", "eta_shape",

@@ -115,7 +115,8 @@ def test_tiny_config_is_the_reference_cli_default():
 def test_plan_layers_matches_reference_dense_plan(n):
     from repro.models.transformer import plan_layers as ref_plan
     ref_cfg = ref_train.tiny_lm_config(64, n, vocab=128)
-    assert dataclasses.astuple(plan_layers(n)) == \
+    cfg = port_train.tiny_lm_config(64, n, vocab=128)
+    assert dataclasses.astuple(plan_layers(cfg)) == \
         dataclasses.astuple(ref_plan(ref_cfg))
 
 

@@ -1,0 +1,418 @@
+"""The port's model-zoo prefill against the JAX package's: kernels #15–#17
+(flash attention, the SSD scan, the RG-LRU scan) and whole models
+(``Model.logits`` with ``impl='xla'`` and ``impl='pallas'``) on the tiny
+LM, ``recurrentgemma-9b.smoke()`` and ``mamba2-2.7b.smoke()``.
+
+On the CPU the port's kernel wrappers run their plain versions
+(kernels/ref.py); the reference runs its Pallas kernels in interpret mode,
+as its own tests do.  Inputs are numpy arrays from a seed, handed to
+both; the reference's weights cross over through ``params_from_numpy``.
+Tolerances, all f32: 1e-5·max|y| per kernel function and 1e-4·max|logit|
+per model (other summation orders, the SSD scan token by token against
+the reference's chunks, the RG-LRU scan in another log-depth tree).
+
+The bf16 bound of ``chip_smoke.py``'s full-model check is derived from the
+reference's own gap between its two paths at a bf16-compute smoke config,
+measured here (``test_reference_bf16_gap_sets_the_chip_bound``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib.util
+import math
+import pathlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as ref_get_config
+from repro.kernels import ops as ref_ops
+from repro.kernels import ref as ref_ref
+from repro.launch import train as ref_train
+from repro.models import build_model as ref_build_model
+from repro.models import griffin as ref_griffin
+from repro.models.transformer import plan_layers as ref_plan_layers
+from repro_torch.configs import get_config
+from repro_torch.core import flat as flat_lib
+from repro_torch.core.draws import Draws
+from repro_torch.kernels import ops, ref
+from repro_torch.launch import train as port_train
+from repro_torch.models import build_model, griffin, ssm
+from repro_torch.models.transformer import plan_layers
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+KERNEL_TOL = 1e-5
+MODEL_TOL = 1e-4
+MODELS = ["tiny", "recurrentgemma-9b", "mamba2-2.7b"]
+SEQ = 64   # past the smoke window of 32; four SSD chunks of 16
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _close(got, want, tol):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    assert got.shape == want.shape
+    err = np.max(np.abs(got - want))
+    assert err <= tol * np.max(np.abs(want)), (err, np.max(np.abs(want)))
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+# ---------------------------------------------------------------------------
+# Kernel functions: the port's plain versions against the Pallas kernels
+# ---------------------------------------------------------------------------
+
+# (B, S, H, KV, hd, window); the reference's tiles need S ≤ 128 or 128 | S
+FLASH = [(1, 64, 4, 2, 64, 0), (2, 64, 4, 1, 64, 16), (1, 128, 2, 2, 128, 32),
+         (1, 256, 4, 4, 64, 100), (1, 96, 2, 1, 256, 0)]
+
+
+@pytest.mark.parametrize("b,s,h,kv,hd,window", FLASH)
+def test_flash_attention_matches_pallas(b, s, h, kv, hd, window):
+    rng = np.random.default_rng(s * 31 + hd + window)
+    q = rng.standard_normal((b, s, h, hd), dtype=np.float32)
+    k = rng.standard_normal((b, s, kv, hd), dtype=np.float32)
+    v = rng.standard_normal((b, s, kv, hd), dtype=np.float32)
+    want = np.asarray(ref_ops.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), window=window))
+    got = ops.flash_attention(_t(q), _t(k), _t(v), window=window)
+    _close(got, want, KERNEL_TOL)
+    # and the reference's full-softmax oracle, with P in f32 as well
+    _close(got, ref_ref.flash_attention_ref(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), window=window),
+        KERNEL_TOL)
+
+
+def _ssd_inputs(b, s, h, p, n, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, s, h, p), dtype=np.float32)
+    # Δ = softplus(N(0, 1) − 4.6) and A = −(1..H): the model's ranges
+    dt = np.log1p(np.exp(rng.standard_normal((b, s, h)) - 4.6)).astype(
+        np.float32)
+    a = -np.arange(1, h + 1, dtype=np.float32)
+    bb = rng.standard_normal((b, s, n), dtype=np.float32)
+    cc = rng.standard_normal((b, s, n), dtype=np.float32)
+    return x, dt, a, bb, cc
+
+
+# (B, S, H, P, N, chunk)
+SSD = [(1, 64, 4, 32, 16, 16), (2, 48, 3, 16, 8, 16), (1, 32, 16, 8, 32, 8)]
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SSD)
+def test_ssd_scan_matches_pallas(b, s, h, p, n, chunk):
+    args = _ssd_inputs(b, s, h, p, n, seed=s + h + n)
+    got = ops.ssd_scan(*map(_t, args))
+    want, _ = ref_ops.ssd_scan(*map(jnp.asarray, args), chunk=chunk)
+    _close(got, want, KERNEL_TOL)
+    seq, _ = ref_ref.ssd_sequential_ref(*map(jnp.asarray, args))
+    _close(got, seq, KERNEL_TOL)
+    # the plain path, chunked, against the reference's chunked oracle
+    y, final = ssm.ssd_chunked(*map(_t, args), chunk=chunk)
+    want_y, want_final = ref_ref.ssd_chunked_ref(*map(jnp.asarray, args),
+                                                 chunk=chunk)
+    _close(y, want_y, KERNEL_TOL)
+    _close(final, want_final, KERNEL_TOL)
+
+
+# (B, S, W): S and W off the reference's 256 tiles, which its wrapper pads
+RGLRU = [(1, 70, 300), (2, 256, 256), (1, 5, 3)]
+
+
+@pytest.mark.parametrize("b,s,w", RGLRU)
+def test_rglru_scan_matches_pallas(b, s, w):
+    rng = np.random.default_rng(s * w)
+    a = rng.uniform(0.5, 1.0, (b, s, w)).astype(np.float32)
+    bx = rng.standard_normal((b, s, w), dtype=np.float32)
+    want, want_last = ref_ops.rglru_scan(jnp.asarray(a), jnp.asarray(bx))
+    h, h_last = ops.rglru_scan(_t(a), _t(bx))
+    assert h.dtype == torch.float32 and h_last.shape == (b, w)
+    _close(h, want, KERNEL_TOL)
+    _close(h_last, want_last, KERNEL_TOL)
+    assert torch.equal(h_last, h[:, -1])
+    # the plain path's log-depth scan against the associative scan
+    h2, last2 = griffin.rglru_scan(_t(a), _t(bx))
+    want2, _ = ref_griffin.rglru_scan(jnp.asarray(a), jnp.asarray(bx))
+    _close(h2, want2, KERNEL_TOL)
+    assert torch.equal(last2, h2[:, -1])
+
+
+def test_rglru_gates_match_reference():
+    cfg = ref_get_config("recurrentgemma-9b").smoke()
+    params = ref_griffin.init_rglru_block(jax.random.key(3), cfg.d_model,
+                                          cfg.d_ff_rglru)
+    x = np.random.default_rng(3).standard_normal(
+        (2, 16, cfg.d_ff_rglru), dtype=np.float32)
+    want = ref_griffin.rglru_gates(params, jnp.asarray(x))
+    got = griffin.rglru_gates(
+        flat_lib.params_from_numpy(jax.tree.map(np.asarray, params)), _t(x))
+    for g, w in zip(got, want):
+        _close(g, w, KERNEL_TOL)
+
+
+# ---------------------------------------------------------------------------
+# The wrappers' contract
+# ---------------------------------------------------------------------------
+
+
+def _small_qkv(dtype=torch.float32, hd=64):
+    gen = torch.Generator().manual_seed(0)
+    return [torch.randn(1, 8, 2, hd, generator=gen).to(dtype)
+            for _ in range(3)]
+
+
+def _small_ssd(dtype=torch.float32):
+    x, dt, a, b, c = map(_t, _ssd_inputs(1, 8, 2, 4, 8, seed=0))
+    return x.to(dtype), dt, a, b.to(dtype), c.to(dtype)
+
+
+def _small_rglru(dtype=torch.float32):
+    gen = torch.Generator().manual_seed(0)
+    return torch.rand(1, 8, 5, generator=gen).to(dtype), \
+        torch.randn(1, 8, 5, generator=gen).to(dtype)
+
+
+CALLS = {
+    "flash_attention": lambda dt: ops.flash_attention(*_small_qkv(dt)),
+    "ssd_scan": lambda dt: ops.ssd_scan(*_small_ssd(dt)),
+    "rglru_scan": lambda dt: ops.rglru_scan(*_small_rglru(dt)),
+}
+
+
+@pytest.mark.parametrize("kernel", sorted(CALLS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wrappers_take_f32_and_bf16(kernel, dtype):
+    out = CALLS[kernel](dtype)
+    out = out if isinstance(out, tuple) else (out,)
+    assert all(bool(torch.isfinite(o).all()) for o in out)
+    if kernel != "rglru_scan":
+        assert out[0].dtype == dtype
+    else:
+        assert out[0].dtype == torch.float32
+
+
+@pytest.mark.parametrize("kernel", sorted(CALLS))
+def test_wrappers_reject_other_dtypes(kernel):
+    with pytest.raises(TypeError):
+        CALLS[kernel](torch.float16)
+
+
+@pytest.mark.parametrize("kernel", sorted(CALLS))
+def test_wrappers_are_forward_only(kernel):
+    args = {"flash_attention": _small_qkv, "ssd_scan": _small_ssd,
+            "rglru_scan": _small_rglru}[kernel]()
+    args[0].requires_grad_()
+    fn = getattr(ops, kernel)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fn(*args)
+    with torch.no_grad():
+        fn(*args)
+    assert getattr(fn, "launches") == 0   # CPU calls launch nothing
+
+
+def test_flash_attention_rejects_head_dims_without_a_kernel():
+    q, k, v = _small_qkv(hd=32)
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.flash_attention(q, k, v)
+
+
+# ---------------------------------------------------------------------------
+# Configs, layer plans and parameter trees
+# ---------------------------------------------------------------------------
+
+
+def _configs(name, smoke=True):
+    """(reference config, port config) of a model, smoke-sized or full."""
+    if name == "tiny":
+        if smoke:
+            return (ref_train.tiny_lm_config(64, 2, vocab=256),
+                    port_train.tiny_lm_config(64, 2, vocab=256))
+        return ref_train.tiny_lm_config(), get_config("tiny")
+    ref_cfg, cfg = ref_get_config(name), get_config(name)
+    return (ref_cfg.smoke(), cfg.smoke()) if smoke else (ref_cfg, cfg)
+
+
+def _dtype_name(dtype) -> str:
+    return str(dtype).replace("torch.", "").replace("jnp.", "")
+
+
+@pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
+@pytest.mark.parametrize("name", MODELS)
+def test_config_fields_match_reference(name, smoke):
+    ref_cfg, cfg = _configs(name, smoke)
+    for field in dataclasses.fields(cfg):
+        got, want = getattr(cfg, field.name), getattr(ref_cfg, field.name)
+        if field.name.endswith("dtype"):
+            assert _dtype_name(got) == jnp.dtype(want).name, field.name
+        elif field.name == "ssm" and got is not None:
+            assert dataclasses.asdict(got) == dataclasses.asdict(want)
+        else:
+            assert got == want, field.name
+
+
+@pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
+@pytest.mark.parametrize("name", MODELS)
+def test_plan_layers_matches_reference(name, smoke):
+    ref_cfg, cfg = _configs(name, smoke)
+    assert dataclasses.astuple(plan_layers(cfg)) == \
+        dataclasses.astuple(ref_plan_layers(ref_cfg))
+
+
+def test_recurrentgemma_plan_is_period_3_with_a_suffix_of_2():
+    plan = plan_layers(get_config("recurrentgemma-9b"))
+    assert dataclasses.astuple(plan) == (0, 3, 12, 2)
+    assert dataclasses.astuple(plan_layers(get_config("mamba2-2.7b"))) == \
+        (0, 1, 64, 0)
+
+
+def _carried(name, seed=0, compute_dtype=None):
+    ref_cfg, cfg = _configs(name)
+    if compute_dtype is not None:
+        ref_cfg = dataclasses.replace(ref_cfg, compute_dtype=compute_dtype[0])
+        cfg = dataclasses.replace(cfg, compute_dtype=compute_dtype[1])
+    ref_model = ref_build_model(ref_cfg)
+    params = jax.jit(ref_model.init)(jax.random.key(seed))
+    tparams = flat_lib.params_from_numpy(jax.tree.map(np.asarray, params))
+    return ref_model, params, build_model(cfg), tparams
+
+
+@pytest.mark.parametrize("name", MODELS)
+def test_param_tree_matches_reference(name):
+    _, params, model, tparams = _carried(name)
+    ref_spec = flat_lib.make_flat_spec(tparams)
+    paths = [tuple(k.key for k in p) for p, _ in
+             jax.tree_util.tree_flatten_with_path(params)[0]]
+    assert list(ref_spec.paths) == paths
+    own = flat_lib.make_flat_spec(model.init(Draws(0, "cpu")))
+    assert own.paths == ref_spec.paths and own.shapes == ref_spec.shapes
+
+
+# ---------------------------------------------------------------------------
+# Whole models: Model.logits on both paths
+# ---------------------------------------------------------------------------
+
+
+def _batch(vocab, b=2, s=SEQ, seed=1):
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, vocab, size=(b, s)).astype(np.int32)
+    positions = np.broadcast_to(np.arange(s, dtype=np.int32), (b, s))
+    return ({"tokens": jnp.asarray(tokens),
+             "positions": jnp.asarray(positions)},
+            {"tokens": torch.from_numpy(tokens.astype(np.int64)),
+             "positions": torch.from_numpy(positions.astype(np.int64))})
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+@pytest.mark.parametrize("name", MODELS)
+def test_logits_match_reference(name, impl):
+    ref_model, params, model, tparams = _carried(name)
+    jbatch, tbatch = _batch(ref_model.cfg.vocab_size)
+    want, _ = ref_model.logits(params, jbatch, impl=impl)
+    with torch.inference_mode():
+        got = model.logits(tparams, tbatch, impl=impl)
+    _close(got, want, MODEL_TOL)
+
+
+@pytest.mark.parametrize("name", MODELS)
+def test_pallas_path_launches_nothing_on_the_cpu(name):
+    _, _, model, tparams = _carried(name)
+    _, tbatch = _batch(model.cfg.vocab_size, s=32)
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        xla = model.logits(tparams, tbatch, impl="xla")
+        pallas = model.logits(tparams, tbatch, impl="pallas")
+    assert sum(ops.launch_counts().values()) == 0
+    _close(pallas, xla, MODEL_TOL)
+
+
+@pytest.mark.parametrize("name", MODELS)
+def test_grad_fn_with_pallas_raises(name):
+    _, _, model, tparams = _carried(name)
+    _, tbatch = _batch(model.cfg.vocab_size, s=32)
+    with pytest.raises(RuntimeError, match="no backward"):
+        model.grad_fn(impl="pallas")(tparams, tbatch)
+
+
+@pytest.mark.parametrize("name", ["recurrentgemma-9b", "mamba2-2.7b"])
+def test_loss_and_grads_match_reference(name):
+    """The training side keeps impl='xla': the new blocks differentiate."""
+    ref_model, params, model, tparams = _carried(name)
+    jbatch, tbatch = _batch(ref_model.cfg.vocab_size, s=32)
+    ref_loss, ref_grads = jax.jit(ref_model.grad_fn())(params, jbatch,
+                                                        jax.random.key(0))
+    loss, grads = model.grad_fn()(tparams, tbatch)
+    assert abs(float(loss) - float(ref_loss)) <= 1e-5 * abs(float(ref_loss))
+    want = np.concatenate([np.ravel(g) for g in jax.tree.leaves(ref_grads)])
+    got = flat_lib.make_flat_spec(tparams).ravel(grads).numpy()
+    _close(got, want, MODEL_TOL)
+
+
+# ---------------------------------------------------------------------------
+# The bf16 bound of chip_smoke.py's full-model check
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", ["recurrentgemma-9b", "mamba2-2.7b"])
+def test_reference_bf16_gap_sets_the_chip_bound(name):
+    """The reference's own |pallas − xla| / max|logit| at a bf16-compute
+    smoke config: its attention keeps P in f32 on one path and casts it
+    to bf16 on the other, and bf16 rounds both paths' other differences.
+    ``chip_smoke.BF16_REF_GAP`` is this gap's largest value over the two
+    recurrent models (RecurrentGemma's 0.00592; Mamba2's two SSD paths
+    round to the same bf16 logits, gap 0), and the chip's bound for a
+    full model scales it by 2·√(layers / smoke layers)."""
+    smoke = _chip_smoke()
+    ref_model, params, _, _ = _carried(
+        name, compute_dtype=(jnp.bfloat16, torch.bfloat16))
+    jbatch, _ = _batch(ref_model.cfg.vocab_size)
+    out = {impl: np.asarray(ref_model.logits(params, jbatch, impl=impl)[0],
+                            np.float32) for impl in ("xla", "pallas")}
+    gap = np.max(np.abs(out["pallas"] - out["xla"])) / np.max(
+        np.abs(out["xla"]))
+    assert gap <= smoke.BF16_REF_GAP
+    if name == "recurrentgemma-9b":
+        assert gap >= 0.5 * smoke.BF16_REF_GAP   # the constant is this gap
+    full = get_config(name)
+    bound = smoke.bf16_model_bound(full.num_layers,
+                                   full.smoke().num_layers)
+    assert bound == pytest.approx(2 * smoke.BF16_REF_GAP * math.sqrt(
+        full.num_layers / full.smoke().num_layers))
+
+
+def test_ssd_recurrence_is_more_accurate_than_the_chunked_form():
+    """Why kernel #16 and its plain version run the token recurrence: at
+    Mamba2's largest heads (A = −77 … −80) and its Δ range, the chunked
+    form's cumulative log-decays reach −200 inside a 256-token chunk and
+    its f32 differences lose digits.  Against an f64 recurrence the
+    chunked scan errs about 1e-5·max|y|, the f32 recurrence about 1e-7."""
+    x, dt, _, b, c = _ssd_inputs(1, 512, 4, 64, 128, seed=11)
+    a = -np.arange(77, 81, dtype=np.float32)
+    args = [_t(v) for v in (x, dt, a, b, c)]
+    state = torch.zeros(1, 4, 64, 128, dtype=torch.float64)
+    exact = []
+    for t in range(512):
+        decay = torch.exp(args[1][:, t].double() * args[2].double())
+        xl = args[0][:, t].double() * args[1][:, t, :, None].double()
+        state = state * decay[:, :, None, None] + \
+            xl[..., None] * args[3][:, t].double()[:, None, None, :]
+        exact.append(torch.einsum("bhpn,bn->bhp", state,
+                                  args[4][:, t].double()))
+    exact = torch.stack(exact, dim=1)
+    scale = exact.abs().max().item()
+    rec_err = (ref.ssd_scan_ref(*args).double() - exact).abs().max().item()
+    chunk_err = (ssm.ssd_chunked(*args, chunk=256)[0].double()
+                 - exact).abs().max().item()
+    assert rec_err <= 1e-6 * scale
+    assert chunk_err >= 10 * rec_err
