@@ -13,7 +13,11 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
   3. kernels: every kernel in every variant against its plain PyTorch
      version on the card, at ragged shapes and at the main path's shape
      (n = 8 agents, D = 156,519,168: the tiny LM's flat buffer), with the
-     kernel, plain-version and library times (CUDA events) at full shape;
+     kernel, plain-version and library times (CUDA events) at full shape,
+     each library call's output first held to the plain version's (the
+     same tolerance; a call that computes another function is struck and
+     its library_ms reported as null), and the mixes' times beside one
+     copy of the same bytes (copy_ms: the card's stream rate);
      then the batched kernels #5–#8 of the sweep lattice the same way, at
      ragged (R, n, D) and at R = 2, n = 8, D = 156,519,168, and each run's
      slice against the single-run kernel on that slice (to 0.0); then the
@@ -26,7 +30,8 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
      1e-5·max|y|, r exact, and each run's slice equal to #9/#11 on it;
      then the model zoo's prefill kernels #15 flash attention, #16 the
      SSD scan and #17 the RG-LRU scan at edge shapes (S off the tiles, W
-     not a multiple of 4, hd 64/128/256, window 0 and 64, f32 and bf16)
+     not a multiple of 4, hd 64/128/256, windows 0, 64 and off the key
+     tile, GQA and MQA, f32 and bf16)
      and at their models' shapes (#15 at the tiny LM's B 2, S 1024, H 12,
      KV 6, hd 64, f32 and RecurrentGemma-9B's B 1, S 4096, H 16, KV 1,
      hd 256, window 2048, bf16; #16 at Mamba2-2.7B's B 1, S 4096, H 80,
@@ -97,9 +102,12 @@ N_AGENTS, D_FULL, R_FULL = 8, 156_519_168, 2
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12          # f32 outside the tensor cores
 TOL = 1e-5                      # × max|y|: f32, other summation order
-RAGGED = [(5, 1_000_003), (1, 777), (13, 3001), (37, 1031), (256, 10_007)]
+# D ≡ 1, 3 (mod 4): the scalar paths; (8, 1_000_004) the ELL stream with
+# a ragged last tile
+RAGGED = [(5, 1_000_003), (1, 777), (13, 3001), (37, 1031), (256, 10_007),
+          (8, 1_000_004)]
 RAGGED_LATTICE = [(1, 5, 1_000_003), (3, 1, 777), (2, 13, 3001),
-                  (3, 37, 1031), (2, 256, 10_007)]
+                  (3, 37, 1031), (2, 256, 10_007), (2, 8, 1_000_004)]
 # #10/#12: R = 1 and 3, n not a multiple of 8, D ≡ 3, 1, 2, 3, 1 (mod 4)
 RAGGED_EF_LATTICE = [(1, 5, 1_000_003), (3, 13, 3001), (3, 6, 1002),
                      (1, 37, 1031), (3, 8, 777)]
@@ -157,7 +165,14 @@ FLASH_EDGE = [(1, 77, 4, 2, 64, 0, "float32"),
               (1, 200, 2, 2, 256, 64, "bfloat16"),
               (1, 97, 6, 3, 64, 64, "bfloat16"),
               (1, 33, 2, 1, 128, 0, "bfloat16"),
-              (2, 65, 2, 2, 256, 0, "float32")]
+              (2, 65, 2, 2, 256, 0, "float32"),
+              # the tensor-core kernel's edges: hd 128 (scale 1/sqrt(128),
+              # no power of two), S off every tile, windows off the 64-key
+              # tile, KV > 1 with H / KV > 1, unpaired heads (H / KV odd)
+              (1, 300, 8, 2, 128, 100, "bfloat16"),
+              (2, 131, 4, 4, 64, 0, "bfloat16"),
+              (1, 515, 12, 3, 256, 0, "bfloat16"),
+              (1, 1000, 16, 1, 256, 333, "bfloat16")]
 # (B, S, H, P, N, dtype): P off the 16-row blocks, N = 8 ... 256
 SSD_EDGE = [(1, 100, 3, 20, 16, "float32"), (2, 77, 4, 64, 128, "bfloat16"),
             (1, 50, 2, 17, 8, "float32"), (1, 300, 5, 64, 256, "bfloat16")]
@@ -363,6 +378,41 @@ def bound(kernel: str, variant: str, n: int, d: int, max_deg: int,
                                                           "operations")
 
 
+def yardstick(torch, out, want, tol: float) -> dict:
+    """The library call's output against the plain version's on the same
+    inputs, checked before the call is timed: a yardstick that computes
+    another function is struck (its library_ms reported as null)."""
+    err, scale = max_err(torch, out, want)
+    return {"max_abs_err": err, "scale": scale, "tol": tol,
+            "same_function": bool(err <= tol * scale)}
+
+
+def library_note(check_row) -> str:
+    """The log's note beside library_ms."""
+    if check_row is None:
+        return ""
+    verdict = "same function" if check_row["same_function"] else "STRUCK"
+    return (f" [yardstick {verdict}: err {check_row['max_abs_err']:.3e} vs "
+            f"{check_row['tol']}·{check_row['scale']:.3e}]")
+
+
+def stream_ms(torch, x) -> float:
+    """The card's stream rate over a mix's bytes: one copy of x into a
+    buffer of its shape reads and writes what #1, #2, #5 and #6 must (a
+    yardstick of the memory system, not the mix's function)."""
+    out = torch.empty_like(x)
+    ms = time_ms(torch, lambda: out.copy_(x))
+    del out
+    torch.cuda.empty_cache()
+    return ms
+
+
+def copy_note(copy_ms, ms) -> str:
+    return "" if copy_ms is None else \
+        f"  copy_ms {copy_ms:.4f} (the kernel at {100 * copy_ms / ms:.1f}% " \
+        f"of the copy's rate)"
+
+
 def kernel_phase(torch) -> dict:
     from repro_torch.kernels import ops
     results = {k: {"max_abs_err": 0.0, "variants": {}} for k in VARIANTS}
@@ -393,22 +443,28 @@ def kernel_phase(torch) -> dict:
             torch.cuda.synchronize()
             want = plain()
             err, scale = max_err(torch, got, want)
-            del got, want
+            del got
             check(err <= TOL * scale,
                   f"{kernel}[{variant}] n={N_AGENTS} D={D_FULL}: "
                   f"max_abs_err {err:.3e} > {TOL}·{scale:.3e}")
+            lib_check = None if library is None \
+                else yardstick(torch, library(), want, TOL)
+            del want
             torch.cuda.empty_cache()
             ms = time_ms(torch, run)
             plain_ms = time_ms(torch, plain, iters=3, warmup=1)
             # the yardstick is timed here only, never called by the port
-            library_ms = None if library is None else time_ms(torch, library)
+            library_ms = None if library is None \
+                or not lib_check["same_function"] else time_ms(torch, library)
+            copy_ms = stream_ms(torch, t["x"]) if variant == "gossip" \
+                else None
             bound_ms, bound_by = bound(kernel, variant, N_AGENTS, D_FULL,
                                        max_deg)
             torch.cuda.empty_cache()
             row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by,
-                   "library_ms": library_ms,
-                   "share_of_bound": bound_ms / ms}
+                   "library_ms": library_ms, "library_check": lib_check,
+                   "copy_ms": copy_ms, "share_of_bound": bound_ms / ms}
             results[kernel]["variants"][variant] = row
             results[kernel]["max_abs_err"] = max(
                 results[kernel]["max_abs_err"], err)
@@ -416,7 +472,8 @@ def kernel_phase(torch) -> dict:
                 f"err {err:.3e}  ms {ms:.4f}  bound_ms {bound_ms:.4f} "
                 f"({bound_by}, {100 * bound_ms / ms:.1f}% of bound)  "
                 f"plain_ms {plain_ms:.4f}  library_ms "
-                f"{'n/a' if library_ms is None else f'{library_ms:.4f}'}  "
+                f"{'n/a' if library_ms is None else f'{library_ms:.4f}'}"
+                f"{library_note(lib_check)}{copy_note(copy_ms, ms)}  "
                 f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     del t
     torch.cuda.empty_cache()
@@ -564,11 +621,26 @@ def batched_kernel_phase(torch) -> dict:
             err = check_lattice(torch, kernel, variant, t, where)
             torch.cuda.empty_cache()
             run, plain, library, _ = batched_calls(kernel, variant, t)
+            lib_check = None
+            if library is not None:  # run by run, as check_lattice
+                out = library().view(t["x"].shape)
+                rows = [yardstick(torch, out[i:i + 1],
+                                  plain(slice(i, i + 1)), TOL)
+                        for i in range(R_FULL)]
+                del out
+                lib_check = max(rows, key=lambda c: c["max_abs_err"]
+                                / max(c["scale"], 1e-30))
+                lib_check["same_function"] = all(c["same_function"]
+                                                 for c in rows)
+                torch.cuda.empty_cache()
             ms = time_ms(torch, run)
             plain_ms = time_ms(torch, lambda: plain(slice(None)), iters=2,
                                warmup=1)
+            copy_ms = stream_ms(torch, t["x"]) if variant == "gossip" \
+                else None
             # the yardstick is timed here only, never called by the port
-            library_ms = None if library is None else time_ms(torch, library)
+            library_ms = None if library is None \
+                or not lib_check["same_function"] else time_ms(torch, library)
             bound_ms, bound_by = bound(kernel, variant, N_AGENTS, D_FULL,
                                        t["max_deg"], r=R_FULL)
             peak = torch.cuda.max_memory_allocated()
@@ -576,7 +648,8 @@ def batched_kernel_phase(torch) -> dict:
             results[kernel]["variants"][variant] = {
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": library_ms, "share_of_bound": bound_ms / ms,
+                "library_ms": library_ms, "library_check": lib_check,
+                "copy_ms": copy_ms, "share_of_bound": bound_ms / ms,
                 "peak_bytes": peak}
             results[kernel]["max_abs_err"] = max(
                 results[kernel]["max_abs_err"], err)
@@ -585,8 +658,9 @@ def batched_kernel_phase(torch) -> dict:
                 f"bound_ms {bound_ms:.4f} ({bound_by}, "
                 f"{100 * bound_ms / ms:.1f}% of bound)  plain_ms "
                 f"{plain_ms:.4f}  library_ms "
-                f"{'n/a' if library_ms is None else f'{library_ms:.4f}'}  "
-                f"peak {peak / 1e9:.2f} GB")
+                f"{'n/a' if library_ms is None else f'{library_ms:.4f}'}"
+                f"{library_note(lib_check)}{copy_note(copy_ms, ms)}  peak "
+                f"{peak / 1e9:.2f} GB")
     del t
     torch.cuda.empty_cache()
     ops.reset_launch_counts()
@@ -1006,10 +1080,18 @@ def zoo_kernel_phase(torch) -> dict:
             args = zoo_inputs(torch, kernel, shape, seed=7)
             run, plain, library = zoo_calls(torch, kernel, shape, args)
             with torch.inference_mode():
+                lib_check = None
+                if library is not None:  # SDPA's (B, H, S, hd) output
+                    lib_check = yardstick(torch,
+                                          library().transpose(1, 2).float(),
+                                          plain().float(),
+                                          ZOO_TOL[shape[-1]])
+                    torch.cuda.empty_cache()
                 ms = time_ms(torch, run)
                 plain_ms = time_ms(torch, plain, iters=2, warmup=1)
                 # the yardstick is timed here only, never called by the port
                 library_ms = None if library is None \
+                    or not lib_check["same_function"] \
                     else time_ms(torch, library)
             bound_ms, bound_by = zoo_bound(kernel, shape)
             peak = torch.cuda.max_memory_allocated()
@@ -1017,13 +1099,14 @@ def zoo_kernel_phase(torch) -> dict:
             torch.cuda.empty_cache()
             row.update({"shape": list(shape), "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": bound_ms, "bound_by": bound_by,
-                        "library_ms": library_ms,
+                        "library_ms": library_ms, "library_check": lib_check,
                         "share_of_bound": bound_ms / ms, "peak_bytes": peak})
             results[kernel]["variants"][model] = row
             results[kernel]["max_abs_err"] = max(
                 results[kernel]["max_abs_err"], row["max_abs_err"])
-            lib = "n/a (no single call)" if library_ms is None \
-                else f"{library_ms:.4f} (sdpa)"
+            lib = ("n/a (no single call)" if lib_check is None
+                   else "struck" if library_ms is None
+                   else f"{library_ms:.4f} (sdpa)") + library_note(lib_check)
             log(f"[kernels] {kernel} {model} {shape}: err "
                 f"{row['max_abs_err']:.3e} (max|y| {row['scale']:.3e})  ms "
                 f"{ms:.4f}  bound_ms {bound_ms:.4f} ({bound_by}, "

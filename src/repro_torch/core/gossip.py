@@ -28,11 +28,13 @@ ELL_MAX_DEG = 16  # below this, the padded neighbour loop beats CSR scatter
 gossip_mix_dense = ref.gossip_mix
 
 
-def make_sparse_gossip(graph: topo.Graph):
-    """Neighbour-only mix over the graph's static edge structure.
+def make_sparse_gossip(graph: topo.Graph, dtype=torch.float32):
+    """Neighbour-only mix over the graph's static edge structure, for a
+    buffer of ``dtype``; W is cast to the buffer's dtype.
 
     * isolated graph (FedAvg 𝒲 = {I}): y = W_ii x_i;
-    * max degree ≤ ELL_MAX_DEG: the ELL mix (kernel #2 on CUDA);
+    * max degree ≤ ELL_MAX_DEG: the ELL mix (kernel #2 on CUDA for an f32
+      buffer, its plain version for any other dtype);
     * skewed degrees: gather over the receiver-sorted CSR edge list and
       ``index_add_`` into the receivers, O(|E|·D).
     """
@@ -41,7 +43,7 @@ def make_sparse_gossip(graph: topo.Graph):
         return lambda w, x: torch.diagonal(w.to(x.dtype))[:, None] * x
     if max_deg <= ELL_MAX_DEG:
         from repro_torch.kernels import ops as kernel_ops
-        return kernel_ops.make_sparse_gossip(graph)
+        return kernel_ops.make_sparse_gossip(graph, dtype)
 
     recv, send, _ = topo.csr_edges(graph)
     cache = {}
@@ -87,22 +89,23 @@ def stacked_ell_tables(graphs):
     return nbr, valid, max_deg
 
 
-def make_sparse_gossip_batched(graphs):
+def make_sparse_gossip_batched(graphs, dtype=torch.float32):
     """Neighbour-only mix over an R-run topology lattice (sweep engine).
 
     Each run's neighbour list is padded to the lattice's max degree with
     weight-0 self slots, so every run's slice equals its own single-run
     ELL mix.  When 0 < max_deg ≤ ELL_MAX_DEG the mix is kernel #6 on CUDA
-    (one launch for all runs); otherwise (an all-edgeless lattice, or one
-    too skewed for the kernel) it is the plain stacked-ELL mix.  A run
-    whose graph has no edges, given W = I, reduces exactly to ``y = x``.
+    for an f32 buffer (one launch for all runs); otherwise (another dtype,
+    an all-edgeless lattice, or one too skewed for the kernel) it is the
+    plain stacked-ELL mix.  A run whose graph has no edges, given W = I,
+    reduces exactly to ``y = x``.
 
     Returns:
       mix(w, x) -> y for w (R, n, n), x (R, n, D).
     """
     from repro_torch.kernels import ops as kernel_ops
     if 0 < lattice_max_degree(graphs) <= ELL_MAX_DEG:
-        return kernel_ops.make_sparse_gossip_batched(graphs)
+        return kernel_ops.make_sparse_gossip_batched(graphs, dtype)
     nbr, valid, _ = stacked_ell_tables(graphs)
     tables = kernel_ops.EllTables(nbr, valid)
 

@@ -1,11 +1,11 @@
 """The distribution 𝒲 of mixing matrices W^t (repro/core/mixing.py).
 
 With ``p_fail == 0`` W^t is the fixed matrix of the graph's weight scheme
-(numpy, identical to the reference).  With link failures, each edge is
-down with probability ``p_fail`` and W^t is the Metropolis matrix of the
-surviving subgraph, built from an (n, n) block of uniforms exactly as the
-reference builds it from ``jax.random.uniform`` — so a test that feeds the
-reference's uniforms gets the reference's W^t.
+(numpy, identical to the reference), cast to ``dtype``.  With link
+failures, each edge is down with probability ``p_fail`` and W^t is the
+Metropolis matrix of the surviving subgraph, built from an (n, n) block of
+uniforms exactly as the reference builds it from ``jax.random.uniform`` —
+so a test that feeds the reference's uniforms gets the reference's W^t.
 """
 
 from __future__ import annotations
@@ -23,11 +23,13 @@ __all__ = ["MixingDistribution", "identity_mixing",
 
 @dataclasses.dataclass(frozen=True)
 class MixingDistribution:
-    """𝒲: the base graph, the link-failure rate and the fixed-W scheme."""
+    """𝒲: the base graph, the link-failure rate, the fixed-W scheme and
+    the dtype of the sampled W^t."""
 
     graph: topo.Graph
     p_fail: float = 0.0
     scheme: topo.WeightScheme = "laplacian"
+    dtype: torch.dtype = torch.float32
 
     def __post_init__(self):
         if not 0.0 <= self.p_fail < 1.0:
@@ -43,27 +45,29 @@ class MixingDistribution:
         return topo.build_weights(self.graph, self.scheme)
 
     def make_sampler(self, device):
-        """sample(draws, t) -> W^t, (n, n) f32 on ``device``.
+        """sample(draws, t) -> W^t, (n, n) in ``dtype`` on ``device``.
 
         The fixed W is moved to the device once; with link failures every
         call draws the step's uniforms from ``draws``.
         """
         if self.p_fail == 0.0:
-            w = torch.as_tensor(self.fixed_w, dtype=torch.float32,
+            w = torch.as_tensor(self.fixed_w, dtype=self.dtype,
                                 device=device)
             return lambda draws, t: w
         adj = torch.as_tensor(self.graph.adjacency, device=device)
         p_fail = self.p_fail
         return lambda draws, t: metropolis_from_uniforms(
-            draws.link_uniforms(t, self.n), adj, p_fail)
+            draws.link_uniforms(t, self.n), adj, p_fail, self.dtype)
 
 
 def metropolis_from_uniforms(u: torch.Tensor, adjacency: torch.Tensor,
-                             p_fail) -> torch.Tensor:
+                             p_fail, dtype=None) -> torch.Tensor:
     """Metropolis weights on the subgraph whose links survive ``u``.
 
     The upper triangle of ``u`` is mirrored so failures are symmetric; a
-    link is live when ``u >= p_fail``.  Rows sum to 1 by the diagonal.
+    link is live when ``u >= p_fail``.  Rows sum to 1 by the diagonal.  The
+    weights and their row sums are computed in ``dtype`` (default u's), as
+    the reference computes them in the mixing dtype.
     Works over leading batch dimensions: a lattice passes (R, n, n) ``u``
     and adjacency with ``p_fail`` of shape (R, 1, 1), and gets every run's
     W^t in one call.
@@ -73,8 +77,9 @@ def metropolis_from_uniforms(u: torch.Tensor, adjacency: torch.Tensor,
     live = adjacency & (u >= p_fail)
     deg = live.sum(dim=-1)
     dmax = torch.maximum(deg[..., :, None], deg[..., None, :])
-    w = torch.where(live, 1.0 / (1.0 + dmax.to(u.dtype)),
-                    torch.zeros((), dtype=u.dtype, device=u.device))
+    dtype = u.dtype if dtype is None else dtype
+    w = torch.where(live, 1.0 / (1.0 + dmax.to(dtype)),
+                    torch.zeros((), dtype=dtype, device=u.device))
     diag = torch.diagonal(w, dim1=-2, dim2=-1)
     diag.zero_()
     diag.copy_(1.0 - w.sum(dim=-1))

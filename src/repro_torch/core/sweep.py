@@ -65,7 +65,8 @@ class SweepPlan:
     into ``w_fixed`` / ``adjacency``), H (``h``), gossip_impl 'none'
     (FedAvg members, ``none_mask``) and the step budget ``t_steps``.
     Shared across the lattice (validated): n_agents, K, server_enabled,
-    gossip_compress and the non-'none' gossip impl.
+    gossip_compress, the mixing dtype (``w_dtype``) and the non-'none'
+    gossip impl.
     """
 
     configs: tuple
@@ -81,6 +82,7 @@ class SweepPlan:
     stochastic: np.ndarray    # (R,) bool: runs that resample W per step
     none_mask: np.ndarray     # (R,) bool: runs mixing with W = I
     t_steps: np.ndarray | None = None   # (R,) int32 per-run step budgets
+    w_dtype: torch.dtype = torch.float32  # the dtype of every run's W^t
 
     @property
     def r_runs(self) -> int:
@@ -98,7 +100,8 @@ def make_sweep_plan(configs, t_steps=None) -> SweepPlan:
     Args:
       configs: one FedDecConfig per run (R total).  ``gossip_impl`` may mix
         'none' (FedAvg) with exactly one other impl; n_agents, k,
-        server_enabled and gossip_compress must be shared.
+        server_enabled, gossip_compress and the mixing dtype must be
+        shared.
       t_steps: optional per-run step budgets (R ints).  Runs whose budget is
         below the number of steps run finish early and are frozen.
     """
@@ -109,6 +112,7 @@ def make_sweep_plan(configs, t_steps=None) -> SweepPlan:
     k = configs[0].k
     server_enabled = configs[0].server_enabled
     compress = configs[0].gossip_compress
+    w_dtype = configs[0].mixing.dtype
     for c in configs:
         if c.n_agents != n:
             raise ValueError(f"n_agents must be shared across the lattice: "
@@ -121,6 +125,9 @@ def make_sweep_plan(configs, t_steps=None) -> SweepPlan:
                              "lattice")
         if c.gossip_compress != compress:
             raise ValueError("gossip_compress must be shared across the "
+                             "lattice")
+        if c.mixing.dtype != w_dtype:
+            raise ValueError("mixing dtype must be shared across the "
                              "lattice")
     impls = {c.gossip_impl for c in configs} - {"none"}
     if len(impls) > 1:
@@ -153,7 +160,7 @@ def make_sweep_plan(configs, t_steps=None) -> SweepPlan:
                      gossip_compress=compress, h=h, w_fixed=w_fixed,
                      adjacency=adjacency, p_fail=p_fail,
                      stochastic=stochastic, none_mask=none_mask,
-                     t_steps=t_steps)
+                     t_steps=t_steps, w_dtype=w_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -220,13 +227,14 @@ def slice_run(state: SweepFedState, r: int) -> FlatFedState:
 
 
 def make_sweep_w_sampler(plan: SweepPlan, device):
-    """sample(draws, t) -> (R, n, n) per-run W^t, f32 on ``device``.
+    """sample(draws, t) -> (R, n, n) per-run W^t in ``plan.w_dtype`` on
+    ``device``.
 
     Fixed-W runs take the precomputed stack; stochastic runs resample
     Metropolis weights on their own surviving subgraph, every run of the
     lattice in one call (repro/core/sweep.py:237-259).
     """
-    w_fixed = torch.as_tensor(plan.w_fixed, dtype=torch.float32,
+    w_fixed = torch.as_tensor(plan.w_fixed, dtype=plan.w_dtype,
                               device=device)
     if not plan.stochastic.any():
         return lambda draws, t: w_fixed
@@ -236,16 +244,17 @@ def make_sweep_w_sampler(plan: SweepPlan, device):
 
     def sample(draws, t) -> torch.Tensor:
         u = draws.link_uniforms(t, plan.n_agents).to(device)
-        return torch.where(stoch, metropolis_from_uniforms(u, adj, p_fail),
-                           w_fixed)
+        return torch.where(stoch, metropolis_from_uniforms(
+            u, adj, p_fail, plan.w_dtype), w_fixed)
 
     return sample
 
 
-def resolve_sweep_gossip(plan: SweepPlan):
-    """gossip_impl → the whole-lattice (w (R,n,n), x (R,n,D)) mix: the
-    'sweep' layout of :func:`repro_torch.core.engine.resolve_gossip`."""
-    return engine.resolve_gossip(plan, "sweep")
+def resolve_sweep_gossip(plan: SweepPlan, dtype=torch.float32):
+    """gossip_impl → the whole-lattice (w (R,n,n), x (R,n,D)) mix for a
+    buffer of ``dtype``: the 'sweep' layout of
+    :func:`repro_torch.core.engine.resolve_gossip`."""
+    return engine.resolve_gossip(plan, "sweep", dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -279,7 +288,7 @@ def _sweep_ops(plan: SweepPlan, spec: FlatSpec, loss_fn: LossFn,
     whole-lattice op.  ``lr_fn`` receives the (R,) per-run step counters
     and returns one η or R of them."""
     r_runs, n = plan.r_runs, plan.n_agents
-    gossip_fn = resolve_sweep_gossip(plan)
+    gossip_fn = resolve_sweep_gossip(plan, spec.dtype)
     compressor = _compressor(plan)
     fedavg = np.flatnonzero(plan.none_mask)
 
@@ -333,16 +342,19 @@ def _sweep_ops(plan: SweepPlan, spec: FlatSpec, loss_fn: LossFn,
         sparse = plan.gossip_impl == "sparse"
         if compressor is not None:
             # the update and the encode, then one pass of #10 (#12 sparse)
-            ef_kernel = kernel_ops.make_sparse_ef_mix_batched(plan.graphs) \
-                if sparse else kernel_ops.ef_mix_batched
+            ef_kernel = kernel_ops.make_sparse_ef_mix_batched(
+                plan.graphs, spec.dtype) if sparse \
+                else kernel_ops.route(kernel_ops.ef_mix_batched, spec.dtype)
             fused_update_gossip = flat_lib.make_fused_ef_op(
                 local_update, bypass_codec(compress_lib.make_fused_ef_gossip(
                     compressor, ef_kernel)))
         else:
             fused_update_gossip = flat_lib.make_fused_op(
-                kind, agent_grads, optimizer, kernel_ops.update_mix_batched,
+                kind, agent_grads, optimizer,
+                kernel_ops.route(kernel_ops.update_mix_batched, spec.dtype),
                 functools.partial(kernel_ops.make_sparse_update_mix_batched,
-                                  plan.graphs) if sparse else None)
+                                  plan.graphs, dtype=spec.dtype)
+                if sparse else None)
 
     def server(draws, t, x_next):
         # lines 7–12: per-run periodic server round ((t+1) % h_r == 0)

@@ -14,7 +14,10 @@
 // (mix_common.cuh): a thread owns whole columns of one run, loads all n
 // rows of them before the first FMA, and keeps its run's W or ELL tables
 // in shared memory, so X streams through once and nothing else touches
-// device memory.  The single-run kernels are the R = 1 case.
+// device memory.  The ELL mix at n <= 8 on aligned rows streams X through
+// a ring of shared-memory tiles filled by bulk copies (cp.async.bulk on
+// an mbarrier), 4 adjacent columns a thread, 16-byte stores of Y.  The
+// single-run kernels are the R = 1 case.
 //
 // Plain C interface for ctypes: pointers and the CUDA stream as void*,
 // sizes as int64.  Each function returns the cudaError_t of its launch.

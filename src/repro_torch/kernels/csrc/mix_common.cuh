@@ -25,8 +25,14 @@
 //   * small (n <= kSmallN = 8, the main path): n has a compile-time bound,
 //     so the dense path keeps p in registers (fully unrolled) and W
 //     (8 x 8, zero-padded) in static shared memory; the ELL path keeps the
-//     tables in shared memory and p in per-thread shared slots (dynamic
-//     neighbour indices cannot address registers).
+//     tables in shared memory and p in shared memory too (dynamic
+//     neighbour indices cannot address registers).  Where D % 4 == 0 and
+//     the buffers are 16-byte aligned, the ELL path is a stream
+//     (mix_ell_stream_kernel): bulk copies (cp.async.bulk, one per row
+//     segment, completing on an mbarrier) keep several column tiles in
+//     flight per block, and a thread owns 4 adjacent columns, written as
+//     16-byte stores; elsewhere (the ragged D, a misaligned base) a thread
+//     owns 4 columns strided by the block, in scalar accesses.
 //   * general (8 < n <= kMaxN): p in per-thread shared slots, W or the
 //     ELL tables read through the read-only cache (warp-uniform
 //     addresses, one broadcast transaction each).
@@ -79,18 +85,28 @@ struct Args {
 // p = x - eta*step.  The explicit _rn intrinsics keep nvcc from
 // contracting them into FMAs, so p equals the plain version's bit for bit.
 template <int U>
+__device__ __forceinline__ float step_value(float x, float g, float m,
+                                            float eta, float beta,
+                                            float* new_m) {
+  if (U == kNone) return x;
+  if (U == kSgd) return __fsub_rn(x, __fmul_rn(eta, g));
+  *new_m = __fadd_rn(__fmul_rn(beta, m), g);
+  const float step =
+      (U == kNesterov) ? __fadd_rn(__fmul_rn(beta, *new_m), g) : *new_m;
+  return __fsub_rn(x, __fmul_rn(eta, step));
+}
+
+template <int U>
 __device__ __forceinline__ float local_step(const Args& a, int64_t idx,
                                             float eta) {
   const float x = __ldcs(a.x + idx);
   if (U == kNone) return x;
   const float g = __ldcs(a.g + idx);
-  if (U == kSgd) return __fsub_rn(x, __fmul_rn(eta, g));
-  const float m = __ldcs(a.m + idx);
-  const float new_m = __fadd_rn(__fmul_rn(a.beta, m), g);
-  __stcs(a.m_out + idx, new_m);
-  const float step =
-      (U == kNesterov) ? __fadd_rn(__fmul_rn(a.beta, new_m), g) : new_m;
-  return __fsub_rn(x, __fmul_rn(eta, step));
+  const float m = U >= kMomentum ? __ldcs(a.m + idx) : 0.f;
+  float new_m;
+  const float p = step_value<U>(x, g, m, eta, a.beta, &new_m);
+  if (U >= kMomentum) __stcs(a.m_out + idx, new_m);
+  return p;
 }
 
 // Small path: at most kSmallN agents and kSmallCols columns per thread,
@@ -206,6 +222,162 @@ __global__ void __launch_bounds__(kThreads) mix_small_kernel(Args a) {
   }
 }
 
+// ELL small path as a stream (n <= kSmallN, D % 4 == 0, 16-byte aligned
+// buffers).  A block owns column tiles of kStreamCols of its run, strided
+// by the grid.  Thread 0 keeps kStreamStages tiles in flight: per tile
+// one cp.async.bulk per row of each streamed array (x, and g, m for the
+// update kernels) into a ring slot of shared memory, completing on the
+// slot's mbarrier with the tile's byte count.  Every thread owns 4
+// adjacent columns of the tile: it forms p_j in the slot of x (the
+// optimizer step, m' written right away as a 16-byte streaming store),
+// then y_i = wd_i p_i + sum_k wv_ik p_nbr(i,k) from the slot (in the
+// scalar branch's order of operations) as one 16-byte streaming store per
+// row.  A thread reads only its own columns, so no barrier separates p
+// from the mix; one barrier per tile hands the slot back to thread 0.
+// Two stages of 256 threads: on the H100, 128 or 512 threads, three
+// stages, or 2-4 float4 per thread and row timed alike or slower, and the
+// momentum kernels' 24 rows per tile fit two stages only (192 KB).
+constexpr int kStreamStages = 2;
+constexpr int kStreamThreads = 256;
+constexpr int kStreamCols = 4 * kStreamThreads;  // a float4 per thread, row
+
+__device__ __forceinline__ uint32_t shared_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// The arrays a tile streams: x, g for the sgd step, and m for momentum.
+template <int U>
+__host__ __device__ constexpr int stream_arrays() {
+  return U == kNone ? 1 : U == kSgd ? 2 : 3;
+}
+
+template <int U>
+__global__ void __launch_bounds__(kStreamThreads)
+    mix_ell_stream_kernel(Args a) {
+  constexpr int A = stream_arrays<U>();
+  const int n = static_cast<int>(a.n);
+  const int md = static_cast<int>(a.max_deg);
+  const int64_t d = a.d;
+  const int tid = threadIdx.x;
+  const int64_t run = blockIdx.y;
+  const int64_t base = run * a.n * d;  // this run's (n, D) slice
+
+  extern __shared__ __align__(16) float4 ring4[];
+  float* ring = reinterpret_cast<float*>(ring4);  // [stage][A][n][cols]
+  const int stage_floats = A * n * kStreamCols;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStreamStages *
+                                                          stage_floats);
+  float* wv_s = reinterpret_cast<float*>(full + kStreamStages);
+  float* wd_s = wv_s + n * md;
+  int32_t* nbr_s = reinterpret_cast<int32_t*>(wd_s + n);
+
+  const int64_t tab = run * n * md;
+  for (int e = tid; e < n * md; e += kStreamThreads) {
+    wv_s[e] = a.wv[tab + e];
+    nbr_s[e] = a.nbr[tab + e];
+  }
+  for (int e = tid; e < n; e += kStreamThreads) wd_s[e] = a.wd[run * n + e];
+  if (tid == 0) {
+    for (int st = 0; st < kStreamStages; ++st)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                       shared_addr(full + st))
+                   : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const float eta = (U == kNone) ? 0.f : __ldg(a.eta + run);
+  const int64_t ntiles = (d + kStreamCols - 1) / kStreamCols;
+  const int64_t mine = blockIdx.x < ntiles
+                           ? (ntiles - blockIdx.x + gridDim.x - 1) / gridDim.x
+                           : 0;
+  const float* src[3] = {a.x, a.g, a.m};
+
+  // thread 0: the bulk copies of this block's it-th tile into its slot
+  auto issue = [&](int64_t it) {
+    const int64_t col0 = (blockIdx.x + it * gridDim.x) * kStreamCols;
+    const int64_t cols = d - col0 < kStreamCols ? d - col0 : kStreamCols;
+    const uint32_t bytes = static_cast<uint32_t>(cols) * 4;
+    const int st = static_cast<int>(it % kStreamStages);
+    const uint32_t bar = shared_addr(full + st);
+    asm volatile(
+        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+            bar),
+        "r"(bytes * A * n)
+        : "memory");
+    float* slot = ring + st * stage_floats;
+    for (int arr = 0; arr < A; ++arr) {
+      for (int j = 0; j < n; ++j) {
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::"
+            "bytes [%0], [%1], %2, [%3];\n" ::"r"(
+                shared_addr(slot + (arr * n + j) * kStreamCols)),
+            "l"(src[arr] + base + j * d + col0), "r"(bytes), "r"(bar)
+            : "memory");
+      }
+    }
+  };
+  if (tid == 0) {
+    for (int64_t it = 0; it < mine && it < kStreamStages; ++it) issue(it);
+  }
+
+  for (int64_t it = 0; it < mine; ++it) {
+    const int st = static_cast<int>(it % kStreamStages);
+    mbar_wait(shared_addr(full + st),
+              static_cast<uint32_t>((it / kStreamStages) & 1));
+    const int64_t col = (blockIdx.x + it * gridDim.x) * kStreamCols + 4 * tid;
+    float4* xs = reinterpret_cast<float4*>(ring + st * stage_floats) + tid;
+    constexpr int kRow = kStreamCols / 4;  // float4 per row of a slot
+    if (col < d) {
+      const int64_t off = base + col;
+      if (U != kNone) {
+        for (int j = 0; j < n; ++j) {
+          const float4 x = xs[j * kRow];
+          const float4 g = xs[(n + j) * kRow];
+          const float4 m = U >= kMomentum ? xs[(2 * n + j) * kRow]
+                                          : make_float4(0.f, 0.f, 0.f, 0.f);
+          float4 p, nm;
+          p.x = step_value<U>(x.x, g.x, m.x, eta, a.beta, &nm.x);
+          p.y = step_value<U>(x.y, g.y, m.y, eta, a.beta, &nm.y);
+          p.z = step_value<U>(x.z, g.z, m.z, eta, a.beta, &nm.z);
+          p.w = step_value<U>(x.w, g.w, m.w, eta, a.beta, &nm.w);
+          if (U >= kMomentum)
+            __stcs(reinterpret_cast<float4*>(a.m_out + off + j * d), nm);
+          xs[j * kRow] = p;
+        }
+      }
+      for (int i = 0; i < n; ++i) {
+        const float wdi = wd_s[i];
+        const float4 pi = xs[i * kRow];
+        float4 acc = make_float4(wdi * pi.x, wdi * pi.y, wdi * pi.z,
+                                 wdi * pi.w);
+        for (int k = 0; k < md; ++k) {
+          const float wk = wv_s[i * md + k];
+          const float4 pk = xs[nbr_s[i * md + k] * kRow];
+          acc = make_float4(fmaf(wk, pk.x, acc.x), fmaf(wk, pk.y, acc.y),
+                            fmaf(wk, pk.z, acc.z), fmaf(wk, pk.w, acc.w));
+        }
+        __stcs(reinterpret_cast<float4*>(a.y + off + i * d), acc);
+      }
+    }
+    // the slot is read (and p written) through the generic proxy; order
+    // that before the next bulk copy into it
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    if (tid == 0 && it + kStreamStages < mine) issue(it + kStreamStages);
+  }
+}
+
 template <int U, bool ELL>
 __global__ void __launch_bounds__(kThreads) mix_general_kernel(Args a) {
   extern __shared__ float ps[];  // n * kThreads: thread t owns column t
@@ -259,7 +431,7 @@ inline int sm_count() {
 // tiles.  ``A`` is the kernel's argument struct; its run count is ``a.r``.
 template <typename Kernel, typename A>
 int launch_grid(Kernel kernel, const A& a, int64_t ntiles, size_t smem,
-                cudaStream_t stream) {
+                cudaStream_t stream, int threads = kThreads) {
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -268,20 +440,46 @@ int launch_grid(Kernel kernel, const A& a, int64_t ntiles, size_t smem,
   }
   int per_sm = 0;
   cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, kernel, kThreads, smem);
+      &per_sm, kernel, threads, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   const int64_t full = int64_t(per_sm) * sm_count();
   const int64_t per_run = (full + a.r - 1) / a.r;
   const dim3 grid(static_cast<unsigned>(ntiles < per_run ? ntiles : per_run),
                   static_cast<unsigned>(a.r));
-  kernel<<<grid, kThreads, smem, stream>>>(a);
+  kernel<<<grid, threads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+inline bool aligned16(const void* ptr) {
+  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
+}
+
+// Whether every row of every streamed buffer starts on a 16-byte boundary
+// (D % 4 == 0, aligned bases): the condition of the ELL stream.
+inline bool stream_rows(const Args& a) {
+  if (a.d % 4) return false;
+  const void* ptrs[] = {a.x, a.g, a.m, a.y, a.m_out};
+  for (const void* ptr : ptrs) {
+    if (ptr != nullptr && !aligned16(ptr)) return false;
+  }
+  return true;
 }
 
 template <int U, bool ELL>
 int launch_small(const Args& a, cudaStream_t stream) {
   constexpr int NB = kSmallN;
+  if (ELL && stream_rows(a)) {  // the ELL stream
+    const size_t smem =
+        sizeof(float) * kStreamStages * stream_arrays<U>() * a.n *
+            kStreamCols +
+        sizeof(uint64_t) * kStreamStages +
+        (sizeof(float) + sizeof(int32_t)) * a.n * a.max_deg +
+        sizeof(float) * a.n;
+    const int64_t ntiles = (a.d + kStreamCols - 1) / kStreamCols;
+    return launch_grid(mix_ell_stream_kernel<U>, a, ntiles, smem, stream,
+                       kStreamThreads);
+  }
   const size_t smem =
       ELL ? sizeof(float) *
                     (size_t(NB) * kSmallCols * kThreads + NB * a.max_deg +

@@ -19,11 +19,19 @@ reference's Pallas kernels have no backward.
 Every kernel wrapper carries a ``launches`` counter that it advances by
 one each time its kernel is launched (CPU calls do not count);
 :func:`launch_counts` / :func:`reset_launch_counts` read and clear them.
+
+The mix kernels (#1–#14) take f32 buffers only and raise on any other
+dtype, on the card and on the CPU alike.  An engine that mixes another
+dtype (a float64 buffer, as the paper's linear-regression figures run)
+picks the kernel's plain version with :func:`route` when it builds the
+mix, from the buffer's dtype, and logs that choice; nothing falls back
+at launch time.
 """
 
 from __future__ import annotations
 
 import ctypes
+import logging
 
 import numpy as np
 import torch
@@ -40,7 +48,9 @@ __all__ = ["gossip_mix", "gossip_mix_sparse", "update_mix",
            "ef_mix", "ef_mix_sparse", "make_sparse_ef_mix", "quant_mix",
            "dequant_mix", "ef_mix_batched", "ef_mix_sparse_batched",
            "make_sparse_ef_mix_batched", "flash_attention", "ssd_scan",
-           "rglru_scan", "launch_counts", "reset_launch_counts"]
+           "rglru_scan", "launch_counts", "reset_launch_counts", "route"]
+
+_log = logging.getLogger(__name__)
 
 
 def _check_buffer(name: str, t: torch.Tensor, shape: tuple) -> None:
@@ -50,6 +60,18 @@ def _check_buffer(name: str, t: torch.Tensor, shape: tuple) -> None:
     if tuple(t.shape) != shape:
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                          f"{shape}")
+
+
+def route(wrapper, dtype: torch.dtype):
+    """The mix for a buffer of ``dtype``: the kernel's wrapper for f32, the
+    kernel's plain version (:mod:`repro_torch.kernels.ref`, same name) for
+    any other dtype, chosen once when an engine builds its mix and logged
+    at INFO level."""
+    if dtype == torch.float32:
+        return wrapper
+    _log.info("%s on a %s buffer: the plain version (the CUDA kernels take "
+              "float32)", wrapper.__name__, dtype)
+    return getattr(ref, wrapper.__name__)
 
 
 def _lattice(x: torch.Tensor, ndim: int,
@@ -400,9 +422,9 @@ def _aligned16(*tensors: torch.Tensor) -> None:
 def flash_attention(q, k, v, *, window: int = 0, scale=None):
     """#15 causal GQA attention, the last ``window`` keys only when
     ``window`` > 0: q (B, S, H, hd), k/v (B, S, KV, hd) with H % KV == 0
-    and hd in (64, 128, 256), f32 or bf16; online softmax in f32, P kept in
-    f32 for PV; output (B, S, H, hd) in q's dtype
-    (kernel: flash_attention.cu)."""
+    and hd in (64, 128, 256), f32 or bf16; online softmax in f32, P kept to
+    f32 accuracy for PV (bf16: on the tensor cores as P_hi·V + P_lo·V);
+    output (B, S, H, hd) in q's dtype (kernel: flash_attention.cu)."""
     _forward_only("flash_attention", q, k, v)
     dtype = _activation_dtype("q", q, ("k", k), ("v", v))
     if q.ndim != 4 or k.ndim != 4 or tuple(v.shape) != tuple(k.shape):
@@ -526,8 +548,8 @@ def ell_table(adjacency) -> tuple[np.ndarray, np.ndarray]:
 
 def ell_weights(w: torch.Tensor, nbr: torch.Tensor, mask: torch.Tensor):
     """Live (wv, wd) from the sampled W, (n, n) or (R, n, n): failed links
-    read 0."""
-    wf = w.float()
+    read 0.  f32 (f64 from an f64 W)."""
+    wf = w.to(torch.promote_types(w.dtype, torch.float32))
     wv = torch.where(mask, torch.gather(wf, -1, nbr.long()),
                      torch.zeros((), dtype=wf.dtype, device=wf.device))
     return wv.contiguous(), torch.diagonal(wf, dim1=-2,
@@ -559,25 +581,29 @@ class EllTables:
         return nbr, wv, wd
 
 
-def make_sparse_gossip(graph):
-    """mix(w, x) over the graph's static ELL table (kernel #2 on CUDA),
-    reading the live edge weights from the sampled W every call."""
+def make_sparse_gossip(graph, dtype=torch.float32):
+    """mix(w, x) over the graph's static ELL table (kernel #2 on CUDA for
+    an f32 buffer, see :func:`route`), reading the live edge weights from
+    the sampled W every call."""
     tables = EllTables(*ell_table(graph.adjacency))
+    fn = route(gossip_mix_sparse, dtype)
 
     def mix(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        return gossip_mix_sparse(*tables.weights(w, x), x)
+        return fn(*tables.weights(w, x), x)
 
     return mix
 
 
-def make_sparse_update_mix(graph, *, beta=None, nesterov=False):
+def make_sparse_update_mix(graph, *, beta=None, nesterov=False,
+                           dtype=torch.float32):
     """fused(w, x, g, eta, m=None) over the graph's ELL table (kernel #4
-    on CUDA)."""
+    on CUDA for an f32 buffer)."""
     tables = EllTables(*ell_table(graph.adjacency))
+    fn = route(update_mix_sparse, dtype)
 
     def fused(w, x, g, eta, m=None):
-        return update_mix_sparse(*tables.weights(w, x), x, g, eta, m,
-                                 beta=beta, nesterov=nesterov)
+        return fn(*tables.weights(w, x), x, g, eta, m, beta=beta,
+                  nesterov=nesterov)
 
     return fused
 
@@ -588,48 +614,56 @@ def _lattice_tables(graphs) -> EllTables:
     return EllTables(nbr, valid)
 
 
-def make_sparse_gossip_batched(graphs):
+def make_sparse_gossip_batched(graphs, dtype=torch.float32):
     """mix(w, x) for w (R, n, n), x (R, n, D) over the lattice's stacked
-    ELL tables (kernel #6 on CUDA, one launch for all R runs), reading each
-    run's live edge weights from its sampled W every call."""
+    ELL tables (kernel #6 on CUDA for an f32 buffer, one launch for all R
+    runs), reading each run's live edge weights from its sampled W every
+    call."""
     tables = _lattice_tables(graphs)
+    fn = route(gossip_mix_sparse_batched, dtype)
 
     def mix(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        return gossip_mix_sparse_batched(*tables.weights(w, x), x)
+        return fn(*tables.weights(w, x), x)
 
     return mix
 
 
-def make_sparse_update_mix_batched(graphs, *, beta=None, nesterov=False):
+def make_sparse_update_mix_batched(graphs, *, beta=None, nesterov=False,
+                                   dtype=torch.float32):
     """fused(w, x, g, eta, m=None) over the lattice's stacked ELL tables
-    (kernel #8 on CUDA); η holds one value per run."""
+    (kernel #8 on CUDA for an f32 buffer); η holds one value per run."""
     tables = _lattice_tables(graphs)
+    fn = route(update_mix_sparse_batched, dtype)
 
     def fused(w, x, g, eta, m=None):
-        return update_mix_sparse_batched(*tables.weights(w, x), x, g, eta, m,
-                                         beta=beta, nesterov=nesterov)
+        return fn(*tables.weights(w, x), x, g, eta, m, beta=beta,
+                  nesterov=nesterov)
 
     return fused
 
 
-def make_sparse_ef_mix(graph):
+def make_sparse_ef_mix(graph, dtype=torch.float32):
     """ef(w, p, s, u) -> (y, r) over the graph's static ELL table (kernel
-    #11 on CUDA), reading the live edge weights from the sampled W."""
+    #11 on CUDA for an f32 buffer), reading the live edge weights from the
+    sampled W."""
     tables = EllTables(*ell_table(graph.adjacency))
+    fn = route(ef_mix_sparse, dtype)
 
     def ef(w, p, s, u):
-        return ef_mix_sparse(*tables.weights(w, p), p, s, u)
+        return fn(*tables.weights(w, p), p, s, u)
 
     return ef
 
 
-def make_sparse_ef_mix_batched(graphs):
+def make_sparse_ef_mix_batched(graphs, dtype=torch.float32):
     """ef(w, p, s, u) -> (y, r) for w (R, n, n), p/s/u (R, n, D) over the
-    lattice's stacked ELL tables (kernel #12 on CUDA, one launch for all R
-    runs), reading each run's live edge weights from its sampled W."""
+    lattice's stacked ELL tables (kernel #12 on CUDA for an f32 buffer, one
+    launch for all R runs), reading each run's live edge weights from its
+    sampled W."""
     tables = _lattice_tables(graphs)
+    fn = route(ef_mix_sparse_batched, dtype)
 
     def ef(w, p, s, u):
-        return ef_mix_sparse_batched(*tables.weights(w, p), p, s, u)
+        return fn(*tables.weights(w, p), p, s, u)
 
     return ef

@@ -4,6 +4,9 @@ Each function computes what its kernel computes, with the reference's
 arithmetic (repro/kernels/gossip_mix.py, update_mix.py and
 compress_mix.py): the mix accumulates in f32 and casts to x's dtype,
 the optimizer step follows repro/optim/optimizers.py's dtype rules.
+A float64 buffer (which no kernel takes) is mixed in float64, with W cast
+to it, as the reference's plain mixes do (repro/core/engine.py:155-158,
+repro/core/gossip.py:112-132); the int8 mixes (#13/#14) stay f32.
 The model zoo's prefill kernels (#15–#17, flash_attention.py, ssd_scan.py
 and rglru_scan.py) have theirs at the end of the module.
 Every function takes one run's (n, D) buffer or a sweep lattice's
@@ -18,8 +21,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["gossip_mix", "gossip_mix_sparse", "local_step", "update_mix",
-           "update_mix_sparse", "gossip_mix_batched",
+__all__ = ["mix_dtype", "gossip_mix", "gossip_mix_sparse", "local_step",
+           "update_mix", "update_mix_sparse", "gossip_mix_batched",
            "gossip_mix_sparse_batched", "update_mix_batched",
            "update_mix_sparse_batched", "ef_mix", "ef_mix_sparse",
            "ef_mix_batched", "ef_mix_sparse_batched", "quantize_int8",
@@ -27,14 +30,23 @@ __all__ = ["gossip_mix", "gossip_mix_sparse", "local_step", "update_mix",
            "rglru_scan_ref"]
 
 
+def mix_dtype(x: torch.Tensor) -> torch.dtype:
+    """The dtype a mix of ``x`` accumulates in: f32, or f64 for an f64
+    buffer."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 def gossip_mix(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Y = W @ X (per run), f32 accumulation, output in x's dtype."""
-    return torch.matmul(w.float(), x.float()).to(x.dtype)
+    """Y = W @ X (per run), accumulated in mix_dtype(x), output in x's
+    dtype."""
+    dt = mix_dtype(x)
+    return torch.matmul(w.to(dt), x.to(dt)).to(x.dtype)
 
 
 def gossip_mix_sparse(nbr: torch.Tensor, wv: torch.Tensor, wd: torch.Tensor,
                       x: torch.Tensor) -> torch.Tensor:
-    """ELL mix y_i = wd_i x_i + Σ_k wv[i, k] x[nbr[i, k]] in f32 (per run).
+    """ELL mix y_i = wd_i x_i + Σ_k wv[i, k] x[nbr[i, k]] (per run),
+    accumulated in mix_dtype(x).
 
     Padded slots point at the row itself with weight 0 (exact +0.0).  Each
     term is gathered into a temporary that is scaled and accumulated in
@@ -43,12 +55,13 @@ def gossip_mix_sparse(nbr: torch.Tensor, wv: torch.Tensor, wd: torch.Tensor,
     """
     if x.ndim == 2:
         return gossip_mix_sparse(nbr[None], wv[None], wd[None], x[None])[0]
-    x32 = x.float()
+    dt = mix_dtype(x)
+    xa = x.to(dt)
     runs = torch.arange(x.shape[0], device=x.device)[:, None]
-    acc = wd.float()[..., None] * x32
+    acc = wd.to(dt)[..., None] * xa
     for k in range(nbr.shape[-1]):
-        acc.add_(x32[runs, nbr[..., k].long()].mul_(
-            wv[..., k].float()[..., None]))
+        acc.add_(xa[runs, nbr[..., k].long()].mul_(
+            wv[..., k].to(dt)[..., None]))
     return acc.to(x.dtype)
 
 
@@ -119,7 +132,7 @@ def ef_mix(w, p, s, u):
 
 def ef_mix_sparse(nbr, wv, wd, p, s, u):
     """#11 the ELL form of #9: wd doubles as diag(W)."""
-    mix = gossip_mix_sparse(nbr, wv, wd, s.float()).to(p.dtype)
+    mix = gossip_mix_sparse(nbr, wv, wd, s.to(mix_dtype(s))).to(p.dtype)
     y = _correct(mix, wd.to(p.dtype)[..., None], p, s)
     return y, u - s
 

@@ -278,7 +278,10 @@ def main(argv=None) -> None:
     ex.add_argument("--fused", dest="fused", action="store_true",
                     default=True, help="one call per H-step round (default)")
     ex.add_argument("--per-step", dest="fused", action="store_false",
-                    help="one call per iteration")
+                    help="one call per iteration; runs the flat engine "
+                         "even without --state-layout, where the reference "
+                         "runs its tree engine (the tree layout is not "
+                         "ported)")
     p.add_argument("--state-layout", default="flat", choices=["tree", "flat"],
                    help="only the flat (n, D) buffer layout is ported")
     p.add_argument("--gossip-impl", default="dense",

@@ -83,6 +83,55 @@ def test_cuda_kernel_matches_plain_version(cuda, n, d, variant, ell):
         assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()
 
 
+def _misaligned(t: torch.Tensor, misaligned: bool) -> torch.Tensor:
+    """``t`` itself, or a contiguous copy whose data starts 4 bytes past a
+    16-byte boundary."""
+    if not misaligned:
+        return t
+    flat = torch.empty(t.numel() + 1, device=t.device, dtype=t.dtype)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [5, 8])
+@pytest.mark.parametrize("d", [4096, 4097, 4098, 4099, 1000004])
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("misaligned", [False, True],
+                         ids=["aligned", "misaligned"])
+def test_cuda_ell_stream_matches_plain_version(cuda, n, d, variant,
+                                               misaligned):
+    """The ELL branch at n <= 8: the bulk-copy stream where D % 4 == 0 and
+    the buffers are 16-byte aligned (a ragged last tile at D = 1000004),
+    the scalar path at D ≡ 1, 2, 3 (mod 4) and at a misaligned base."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(n * 31 + d)
+    x, g, m = (_misaligned(torch.randn(n, d, device=cuda, generator=gen),
+                           misaligned) for _ in range(3))
+    w = torch.rand(n, n, device=cuda, generator=gen)
+    eta = torch.tensor([0.05], device=cuda)
+    graph = topo.ring_graph(n, k=2) if n == 8 else topo.Graph(
+        np.ones((n, n), dtype=bool) ^ np.eye(n, dtype=bool))
+    nbr, mask = (torch.as_tensor(a, device=cuda)
+                 for a in ops.ell_table(graph.adjacency))
+    wv, wd = ops.ell_weights(w, nbr, mask)
+    beta = None if variant in ("gossip", "sgd") else 0.9
+    kw = {"beta": beta, "nesterov": variant == "nesterov"}
+    mm = None if beta is None else m
+    if variant == "gossip":
+        got = ops.gossip_mix_sparse(nbr, wv, wd, x)
+        want = ref.gossip_mix_sparse(nbr, wv, wd, x)
+    else:
+        got = ops.update_mix_sparse(nbr, wv, wd, x, g, eta, mm, **kw)
+        want = ref.update_mix_sparse(nbr, wv, wd, x, g, eta, mm, **kw)
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for a, b in zip(got, want):
+        assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()
+
+
 def _lattice_graphs(r: int, n: int):
     """Per-run topologies of different degrees; the last run of a
     lattice of more than one is edgeless."""
@@ -142,7 +191,8 @@ def test_cuda_batched_kernel_matches_plain_version(cuda, r, n, d, variant,
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("r,n,d", [(3, 8, 4099), (2, 13, 3001),
-                                   (3, 37, 1031)])
+                                   (3, 37, 1031), (2, 8, 4096),
+                                   (3, 5, 1000004)])
 @pytest.mark.parametrize("variant", VARIANTS)
 @pytest.mark.parametrize("ell", [False, True], ids=["dense", "ell"])
 def test_cuda_batched_slice_is_the_single_run_kernel(cuda, r, n, d, variant,
@@ -449,11 +499,15 @@ def test_cuda_batched_ef_wrappers_raise_instead_of_falling_back(cuda):
 
 ZOO_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 DTYPES = [torch.float32, torch.bfloat16]
-# (B, S, H, KV, hd, window): S off the 64-query and 32-key tiles
+# (B, S, H, KV, hd, window): S off the query and key tiles
 FLASH_SHAPES = [(1, 1, 2, 1, 64, 0), (1, 77, 4, 2, 64, 0),
                 (2, 130, 4, 1, 128, 64), (1, 200, 2, 2, 256, 64),
                 (1, 97, 6, 3, 64, 64), (2, 65, 2, 2, 256, 0),
-                (1, 300, 2, 1, 128, 1)]
+                (1, 300, 2, 1, 128, 1),
+                # hd 128 (scale 1/sqrt(128), no power of two), S off every
+                # tile, a window off the 64-key tile, KV > 1 with H / KV > 1
+                (1, 300, 8, 2, 128, 100), (2, 131, 4, 4, 64, 0),
+                (1, 515, 12, 3, 256, 0), (1, 1000, 16, 1, 256, 333)]
 # (B, S, H, P, N): P off the 16-row blocks, N from 8 to 256
 SSD_SHAPES = [(1, 1, 1, 1, 8), (1, 100, 3, 20, 16), (2, 77, 4, 64, 128),
               (1, 50, 2, 17, 8), (1, 300, 5, 64, 256)]

@@ -416,3 +416,36 @@ def test_ssd_recurrence_is_more_accurate_than_the_chunked_form():
                  - exact).abs().max().item()
     assert rec_err <= 1e-6 * scale
     assert chunk_err >= 10 * rec_err
+
+
+def _bf16(a: np.ndarray) -> np.ndarray:
+    """f32 → bf16 (round to nearest even) → f32, in numpy: the top 16 bits
+    of the f32 pattern after the rounding bias."""
+    u = np.ascontiguousarray(a, dtype=np.float32).view(np.uint32)
+    u = (u + np.uint32(0x7FFF) + ((u >> 16) & np.uint32(1))) \
+        & np.uint32(0xFFFF0000)
+    return u.view(np.float32)
+
+
+def test_split_p_product_keeps_f32_accuracy():
+    """#15's bf16 kernel forms P·V on the tensor cores as P_hi·V + P_lo·V,
+    with P_hi = bf16(P), P_lo = bf16(P − P_hi) and V in bf16, accumulated
+    in f32.  At RecurrentGemma-9B's head shape (hd 256, a 2048-key window,
+    64 query rows) that stays within 2^-16·Σ|p||v| of the f64 product of
+    the f32 P with V; one bf16 product (the xla path's P) does not."""
+    rng = np.random.default_rng(0)
+    rows, keys, hd = 64, 2048, 256
+    scores = rng.standard_normal((rows, keys)) * 3.0
+    p = np.exp(scores - scores.max(axis=1, keepdims=True))
+    p = (p / p.sum(axis=1, keepdims=True)).astype(np.float32)
+    v = _bf16(rng.standard_normal((keys, hd)).astype(np.float32))
+    assert np.array_equal(_bf16(p), torch.from_numpy(p).bfloat16().float()
+                          .numpy())
+    p_hi = _bf16(p)
+    p_lo = _bf16(p - p_hi)
+    split = p_hi @ v + p_lo @ v              # f32 accumulation
+    exact = p.astype(np.float64) @ v.astype(np.float64)
+    bound = 2.0 ** -16 * (np.abs(p).astype(np.float64) @ np.abs(v))
+    assert np.all(np.abs(split - exact) <= bound)
+    one = p_hi @ v
+    assert np.abs(one - exact).max() > 16 * bound.max()
