@@ -28,6 +28,10 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
      lattices (R = 1 and 3, n not a multiple of 8, D ≡ 1, 2, 3 mod 4, a
      misaligned buffer) and at R = 2, n = 8, D = 156,519,168, y within
      1e-5·max|y|, r exact, and each run's slice equal to #9/#11 on it;
+     then every mix kernel #1-#14 on float64 buffers (the reference's
+     kernels load and store f64 and mix in f32; so do these) at n = 8
+     (D ≡ 0 and 3 mod 4) and n = 13, y within 1e-5·max|y|, m', r and q
+     exact, run slices equal to the single-run kernels;
      then the model zoo's prefill kernels #15 flash attention, #16 the
      SSD scan and #17 the RG-LRU scan at edge shapes (S off the tiles, W
      not a multiple of 4, hd 64/128/256, windows 0, 64 and off the key
@@ -38,7 +42,9 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
      P 64, N 128, bf16; #17 at RecurrentGemma-9B's B 1, S 4096, W 4096),
      within 1e-5·max|y| in f32 and 1e-2·max|y| in bf16, #17's h_last
      equal to h[:, -1]; timed at the models' shapes beside the plain
-     version and, for #15, F.scaled_dot_product_attention;
+     version and, for #15, F.scaled_dot_product_attention; and #15's P
+     check: on inputs whose windows cancel, a one-product bf16 P errs past
+     1e-2·max|y| and the kernel (P_hi·V + P_lo·V) must not;
   4. training: the full-size tiny LM, 8 agents, ring2, H = 10, K = 2,
      batch 2, seq 128, 10 steps, on paths (a) --gossip-impl pallas,
      (b) sparse, (c) pallas --fuse-update-mix --optimizer momentum,
@@ -65,7 +71,12 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
      uncompressed twin's lattice buffer (path (e) at the same depth, run
      too) with difference 0.0 and an all-zero residual.  Each path runs
      one untimed warm-up round first, so its step time is that of warm
-     steps;
+     steps.  Then fig4's float64 setting (20 agents, geographic graph of
+     radius 0.5, D = 25, x of scale 2^20, W^t in f64) through the flat
+     engine, 10 steps each: (f64-a) pallas, #1; (f64-b) sparse, #2;
+     (f64-c) pallas --fuse-update-mix, #3; (f64-d) sparse
+     --fuse-update-mix, #4; each launching its kernel once per step and
+     agreeing with the same round on the CPU to 1e-5·max|x|;
   5. profile: path (c) once more under torch.profiler, for the device
      time per step by kernel group against the unprofiled step time; the
      set-up's device work is measured apart and taken out;
@@ -79,6 +90,12 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
      to bf16_model_bound (bf16); each bf16 model again with f32 compute
      on the same weights, to 1e-4·max|logit|.  RecurrentGemma-9B peaks
      near 45 GB in bf16 and near 46 GB with f32 compute.
+
+Kernel times are the median over 5 repeats of the mean of 10 calls
+(CUDA events).  ``python3 chip_smoke.py --mix-timing DIR`` runs only the
+ELL kernels #2, #4, #6 and #8 at full shape, checked and timed (median of
+9 repeats) from the package under DIR/src, and prints one JSON line: run
+it on two trees in one call to compare them on one card.
 
 It prints the command's total time, one JSON line with every kernel's
 launches, errors and times, the nvidia-smi line, and as the last line
@@ -102,7 +119,7 @@ N_AGENTS, D_FULL, R_FULL = 8, 156_519_168, 2
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12          # f32 outside the tensor cores
 TOL = 1e-5                      # × max|y|: f32, other summation order
-# D ≡ 1, 3 (mod 4): the scalar paths; (8, 1_000_004) the ELL stream with
+# D ≡ 1, 3 (mod 4): the scalar accesses; (8, 1_000_004) the 16-byte ones,
 # a ragged last tile
 RAGGED = [(5, 1_000_003), (1, 777), (13, 3001), (37, 1031), (256, 10_007),
           (8, 1_000_004)]
@@ -345,18 +362,24 @@ def max_err(torch, got, want) -> tuple[float, float]:
     return err, scale
 
 
-def time_ms(torch, fn, iters: int = 10, warmup: int = 2) -> float:
+def time_ms(torch, fn, iters: int = 10, warmup: int = 2,
+            repeats: int = 5) -> float:
+    """The median over ``repeats`` of the mean time of ``iters`` calls
+    (CUDA events), after ``warmup`` calls."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    means = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        means.append(start.elapsed_time(end) / iters)
+    return sorted(means)[len(means) // 2]
 
 
 def bound(kernel: str, variant: str, n: int, d: int, max_deg: int,
@@ -452,7 +475,7 @@ def kernel_phase(torch) -> dict:
             del want
             torch.cuda.empty_cache()
             ms = time_ms(torch, run)
-            plain_ms = time_ms(torch, plain, iters=3, warmup=1)
+            plain_ms = time_ms(torch, plain, iters=3, warmup=1, repeats=1)
             # the yardstick is timed here only, never called by the port
             library_ms = None if library is None \
                 or not lib_check["same_function"] else time_ms(torch, library)
@@ -635,7 +658,7 @@ def batched_kernel_phase(torch) -> dict:
                 torch.cuda.empty_cache()
             ms = time_ms(torch, run)
             plain_ms = time_ms(torch, lambda: plain(slice(None)), iters=2,
-                               warmup=1)
+                               warmup=1, repeats=1)
             copy_ms = stream_ms(torch, t["x"]) if variant == "gossip" \
                 else None
             # the yardstick is timed here only, never called by the port
@@ -773,7 +796,7 @@ def compress_kernel_phase(torch) -> dict:
         torch.cuda.empty_cache()
         run, plain = compress_calls(kernel, t)
         ms = time_ms(torch, run)
-        plain_ms = time_ms(torch, plain, iters=3, warmup=1)
+        plain_ms = time_ms(torch, plain, iters=3, warmup=1, repeats=1)
         bound_ms, bound_by = compress_bound(kernel, N_AGENTS, D_FULL,
                                             max_deg)
         peak = torch.cuda.max_memory_allocated()
@@ -910,7 +933,7 @@ def batched_ef_kernel_phase(torch) -> dict:
         run, plain, _ = batched_ef_calls(kernel, t)
         ms = time_ms(torch, run)
         plain_ms = time_ms(torch, lambda: plain(slice(None)), iters=2,
-                           warmup=1)
+                           warmup=1, repeats=1)
         bound_ms, bound_by = compress_bound(kernel, N_AGENTS, D_FULL,
                                             t["max_deg"], r=R_FULL)
         peak = torch.cuda.max_memory_allocated()
@@ -930,6 +953,139 @@ def batched_ef_kernel_phase(torch) -> dict:
     torch.cuda.empty_cache()
     ops.reset_launch_counts()
     return results
+
+
+# ---------------------------------------------------------------------------
+# Phase 3a: the mix kernels (#1-#14) on float64 buffers
+# ---------------------------------------------------------------------------
+
+# n = 8 on D % 4 == 0 and a ragged D (the small path), n = 13 (the general)
+F64_SHAPES = [(8, 1_000_004), (8, 1_000_003), (13, 3001)]
+F64_BUFFERS = ("x", "g", "p", "s", "u", "w")
+
+
+def to_f64(t: dict) -> dict:
+    """The buffers (x, g, p, s, u) and W in f64; the momentum, η, noise,
+    int8 scales and ELL weights stay f32, as the kernels take them."""
+    return {k: v.double() if k in F64_BUFFERS else v for k, v in t.items()}
+
+
+def f64_kernel_phase(torch) -> dict:
+    """Every mix kernel on f64 buffers against its plain version: y in f64
+    within TOL·max|y| (the mix sums in f32, as the reference's kernels
+    do), m', the residual and the int8 payload exactly, each batched run's
+    slice equal to the single-run kernel.  Returns each kernel's largest
+    error."""
+    from repro_torch.kernels import ops
+    errs = {k: 0.0 for k in REPLACES if k not in ZOO}
+    for n, d in F64_SHAPES:
+        where = f"f64 n={n} D={d}"
+        t = to_f64(make_inputs(torch, n, d, seed=n * 131 + d))
+        for kernel, variants in VARIANTS.items():
+            for variant in variants:
+                run, plain, _ = calls(kernel, variant, t)
+                got = run()
+                torch.cuda.synchronize()
+                check(as_tuple(got)[0].dtype == torch.float64,
+                      f"{kernel}[{variant}] {where}: y is not f64")
+                err, scale = max_err(torch, got, plain())
+                check(err <= TOL * scale,
+                      f"{kernel}[{variant}] {where}: max_abs_err {err:.3e} "
+                      f"> {TOL}·{scale:.3e}")
+                errs[kernel] = max(errs[kernel], err)
+        t = to_f64(make_compress_inputs(torch, n, d, seed=n * 6007 + d))
+        for kernel in COMPRESSED:
+            errs[kernel] = max(errs[kernel],
+                               check_compress(torch, kernel, t, where))
+        graphs = lattice_graphs(2, n)
+        t = to_f64(make_lattice_inputs(torch, 2, n, d, seed=n + d,
+                                       graphs=graphs))
+        for kernel, single in BATCHED.items():
+            for variant in VARIANTS[single]:
+                errs[kernel] = max(errs[kernel], check_lattice(
+                    torch, kernel, variant, t, where))
+        t = to_f64(make_ef_lattice_inputs(torch, 2, n, d, seed=n + d,
+                                          graphs=graphs))
+        for kernel in BATCHED_EF:
+            errs[kernel] = max(errs[kernel],
+                               check_ef_lattice(torch, kernel, t, where))
+        del t
+        log(f"[kernels] f64 n={n} D={d}: #1-#14 within {TOL}·max|y|, m', r "
+            f"and q exact, run slices equal to the single-run kernels")
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    return errs
+
+
+# fig4's float64 setting (benchmarks/fig4_convergence.py): 20 agents on a
+# geographic graph of radius 0.5, D = 25, x of scale 2^20
+F64_AGENTS, F64_D, F64_SCALE = 20, 25, 2.0 ** 20
+F64_PATHS = {"f64-a": ("pallas", False, "gossip_mix"),
+             "f64-b": ("sparse", False, "gossip_mix_sparse"),
+             "f64-c": ("pallas", True, "update_mix"),
+             "f64-d": ("sparse", True, "update_mix_sparse")}
+
+
+def f64_path_phase(torch) -> dict:
+    """The flat engine on fig4's float64 buffer, W^t in f64: gossip_impl
+    pallas and sparse, unfused and fused, STEPS steps of a quadratic loss
+    with the server off (its draws would differ between the devices).  Each path
+    launches its kernel once per step (counts set to 0 just before it),
+    keeps its buffer f64 and finite, and agrees with the same round on the
+    CPU (the kernels' plain versions) to TOL·max|x|."""
+    import numpy as np
+    from repro_torch.core import draws as draws_lib, flat as flat_lib
+    from repro_torch.core import topology
+    from repro_torch.core.feddec import FedDecConfig
+    from repro_torch.core.mixing import MixingDistribution
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(0)
+    flat0 = rng.standard_normal((F64_AGENTS, F64_D)) * F64_SCALE
+    targets = rng.standard_normal((STEPS, F64_AGENTS, F64_D)) * F64_SCALE
+    spec = flat_lib.make_flat_spec(
+        {"w": torch.zeros(F64_D, dtype=torch.float64)})
+
+    def loss(params, batch):
+        return 0.5 * torch.sum(torch.square(params["w"] - batch["t"]))
+
+    out = {}
+    for name, (impl, fused, kernel) in F64_PATHS.items():
+        cfg = FedDecConfig(mixing=MixingDistribution(
+            topology.geographic_graph(F64_AGENTS, 0.5, seed=1),
+            dtype=torch.float64), gossip_impl=impl, server_enabled=False)
+        flats = {}
+        for dev in ("cpu", DEVICE):
+            eta = torch.tensor([0.05], dtype=torch.float64, device=dev)
+            round_fn = flat_lib.make_flat_feddec_round(
+                cfg, spec, loss, lambda t, eta=eta: eta, device=dev,
+                fuse_update_mix=fused)
+            state = flat_lib.flat_state_from_numpy(flat0, 1, device=dev)
+            ops.reset_launch_counts()
+            state, _ = round_fn(state, {"t": torch.as_tensor(targets,
+                                                             device=dev)},
+                                draws_lib.Draws(0, dev))
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            flats[dev] = state.flat.cpu()
+        launched = {k: v for k, v in counts.items() if v}
+        check(launched == {kernel: STEPS},
+              f"{name}: launched {launched}, expected {{{kernel!r}: "
+              f"{STEPS}}}")
+        got, want = flats[DEVICE], flats["cpu"]
+        check(got.dtype == torch.float64 and bool(torch.isfinite(got).all()),
+              f"{name}: the buffer is {got.dtype} or not finite")
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        check(err <= TOL * scale, f"{name}: max|Δx| {err:.3e} > "
+                                  f"{TOL}·{scale:.3e} against the CPU run")
+        out[name] = {"impl": impl, "fused": fused, "kernel": kernel,
+                     "launches": launched[kernel], "max_abs_err": err,
+                     "scale": scale}
+        log(f"[f64] path {name} ({impl}{' fused' if fused else ''}, n "
+            f"{F64_AGENTS}, D {F64_D}, f64): launched {launched}; max|Δx| "
+            f"{err:.3e} against the CPU run (max|x| {scale:.3e})")
+    ops.reset_launch_counts()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1058,9 +1214,65 @@ def check_zoo(torch, kernel: str, shape: tuple, seed: int) -> dict:
     return out
 
 
+# #15's P check: RecurrentGemma-9B's heads (H 16, KV 1, hd 256), S 1024,
+# a window of 256
+SPLIT_P = (1024, 16, 1, 256, 256)
+
+
+def split_p_check(torch) -> dict:
+    """#15's bf16 kernel forms P·V as P_hi·V + P_lo·V.  On inputs whose
+    windows cancel (v alternating ±64 from key to key, scores of std
+    0.01), y is small beside the terms p·v, and a one-product bf16 P (what
+    SDPA and the xla path compute) errs more than ZOO_TOL·max|y| on the
+    rows with a full window; the kernel must stay within it there."""
+    from repro_torch.kernels import ops, ref
+    s, h, kv, hd, window = SPLIT_P
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(5)
+    q = (torch.randn(1, s, h, hd, device=DEVICE, generator=gen)
+         * 0.1).bfloat16()
+    k = (torch.randn(1, s, kv, hd, device=DEVICE, generator=gen)
+         * 0.1).bfloat16()
+    sign = torch.where(torch.rand(1, 1, kv, hd, device=DEVICE,
+                                  generator=gen) < 0.5, -1.0, 1.0)
+    alt = (-1.0) ** torch.arange(s, device=DEVICE, dtype=torch.float32)
+    v = (64.0 * alt[None, :, None, None] * sign).bfloat16()
+    rows = slice(window - 1, None)
+    with torch.inference_mode():
+        want = ref.flash_attention_ref(q, k, v, window=window).float()
+        tol = ZOO_TOL["bfloat16"] * want[:, rows].abs().max().item()
+        # the one-product variant, the row sums of the f32 P
+        qg = q.reshape(1, s, kv, h // kv, hd).float() * hd ** -0.5
+        sc = torch.einsum("bskgh,btkh->bkgst", qg, k.float())
+        pos = torch.arange(s, device=DEVICE)
+        mask = (pos[None, :] <= pos[:, None]) \
+            & (pos[None, :] > pos[:, None] - window)
+        p = torch.exp(sc.masked_fill_(~mask, -1e30)
+                      - sc.amax(-1, keepdim=True))
+        one = torch.einsum("bkgst,btkh->bskgh", p.bfloat16().float(),
+                           v.float())
+        one = (one / p.sum(-1)[..., None].permute(0, 3, 1, 2, 4)).reshape(
+            1, s, h, hd).bfloat16().float()
+        del sc, p
+        one_err = (one - want)[:, rows].abs().max().item()
+        got = ops.flash_attention(q, k, v, window=window).float()
+        torch.cuda.synchronize()
+    err = (got - want)[:, rows].abs().max().item()
+    check(one_err > tol, f"flash_attention P check: the inputs do not tell "
+                         f"a bf16 P apart ({one_err:.3e} <= {tol:.3e})")
+    check(err <= tol, f"flash_attention P check: max_abs_err {err:.3e} > "
+                      f"{tol:.3e} (P is not kept to f32 accuracy)")
+    log(f"[kernels] flash_attention P check {SPLIT_P}: kernel err "
+        f"{err:.3e}, one-product bf16 P err {one_err:.3e}, limit "
+        f"{tol:.3e} ({ZOO_TOL['bfloat16']}·max|y| on the full-window rows)")
+    return {"shape": list(SPLIT_P), "max_abs_err": err,
+            "bf16_p_err": one_err, "tol": tol}
+
+
 def zoo_kernel_phase(torch) -> dict:
     from repro_torch.kernels import ops
     results = {k: {"max_abs_err": 0.0, "variants": {}} for k in ZOO}
+    results["flash_attention"]["split_p"] = split_p_check(torch)
     edges = {"flash_attention": FLASH_EDGE, "ssd_scan": SSD_EDGE,
              "rglru_scan": RGLRU_EDGE}
     for kernel, shapes in edges.items():
@@ -1088,7 +1300,7 @@ def zoo_kernel_phase(torch) -> dict:
                                           ZOO_TOL[shape[-1]])
                     torch.cuda.empty_cache()
                 ms = time_ms(torch, run)
-                plain_ms = time_ms(torch, plain, iters=2, warmup=1)
+                plain_ms = time_ms(torch, plain, iters=2, warmup=1, repeats=1)
                 # the yardstick is timed here only, never called by the port
                 library_ms = None if library is None \
                     or not lib_check["same_function"] \
@@ -1500,14 +1712,69 @@ def model_phase(torch) -> dict:
     return out
 
 
+# The ELL kernels timed by --mix-timing: the main path's (#2 gossip, #4
+# sgd and momentum) and the lattice's (#6, #8)
+MIX_TIMING = {"gossip_mix_sparse": ["gossip"],
+              "update_mix_sparse": ["sgd", "momentum"],
+              "gossip_mix_sparse_batched": ["gossip"],
+              "update_mix_sparse_batched": ["sgd", "momentum"]}
+
+
+def mix_timing(torch) -> dict:
+    """The ELL kernels at the main path's shape (n = 8, D = 156,519,168;
+    R = 2 for the lattice's), timed as the median of 9 repeats beside one
+    copy of x, the single-run ones checked against their plain versions
+    first (a lattice-sized check would not fit beside the inputs): the
+    --mix-timing mode, which compares two trees of the package on one
+    card (run each tree's package in turn, in one call)."""
+    out = {}
+    t = make_inputs(torch, N_AGENTS, D_FULL, seed=1)
+    for kernel in ("gossip_mix_sparse", "update_mix_sparse"):
+        for variant in MIX_TIMING[kernel]:
+            run, plain, _ = calls(kernel, variant, t)
+            got = run()
+            torch.cuda.synchronize()
+            err, scale = max_err(torch, got, plain())
+            del got
+            check(err <= TOL * scale, f"{kernel}[{variant}]: max_abs_err "
+                                      f"{err:.3e} > {TOL}·{scale:.3e}")
+            torch.cuda.empty_cache()
+            out[f"{kernel}[{variant}]"] = time_ms(torch, run, repeats=9)
+    out["copy"] = stream_ms(torch, t["x"])
+    del t
+    torch.cuda.empty_cache()
+    t = make_lattice_inputs(torch, R_FULL, N_AGENTS, D_FULL, seed=2,
+                            graphs=lattice_graphs(R_FULL, N_AGENTS))
+    for kernel in ("gossip_mix_sparse_batched", "update_mix_sparse_batched"):
+        for variant in MIX_TIMING[kernel]:
+            run = batched_calls(kernel, variant, t)[0]
+            out[f"{kernel}[{variant}]"] = time_ms(torch, run, repeats=9)
+    del t
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT / "src"))
+    # python3 chip_smoke.py --mix-timing DIR: only mix_timing, on the
+    # package under DIR/src
+    timing = sys.argv[1:2] == ["--mix-timing"]
+    src = Path(sys.argv[2]).resolve() / "src" if timing else ROOT / "src"
+    sys.path.insert(0, str(src))
     import repro_torch  # noqa: F401  (fails outside a checkout)
     from repro_torch.kernels import build
+    if timing:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True, timeout=60).stdout.strip()
+        build.load()
+        print(json.dumps({"src": str(src), "nvidia_smi": smi,
+                          "ms": mix_timing(torch)}), flush=True)
+        return 0
 
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
@@ -1531,11 +1798,15 @@ def main() -> int:
     kernels.update(batched_kernel_phase(torch))
     kernels.update(compress_kernel_phase(torch))
     kernels.update(batched_ef_kernel_phase(torch))
+    f64_errs = f64_kernel_phase(torch)
     kernels.update(zoo_kernel_phase(torch))
     log(f"[kernels] phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     training = training_phase(torch)
     log(f"[train] phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    f64_paths = f64_path_phase(torch)
+    log(f"[f64] phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     profile = profile_phase(torch, training["c"]["step_ms"])
     log(f"[profile] phase {time.perf_counter() - t0:.1f} s")
@@ -1567,13 +1838,16 @@ def main() -> int:
             "bound_by": main_variant["bound_by"],
             "library_ms": main_variant["library_ms"],
             "variant": variant, "variants": kernels[kernel]["variants"]})
+        if kernel in f64_errs:
+            line[-1]["f64_max_abs_err"] = f64_errs[kernel]
     total_s = time.perf_counter() - T_START
     log(f"[smoke] total {total_s:.1f} s (build included)")
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"device": name, "nvidia_smi": smi, "kernels": line,
-         "training": training, "profile": profile, "models": models,
+         "training": training, "f64_paths": f64_paths,
+         "profile": profile, "models": models,
          "total_s": total_s},
         indent=1))
     print(json.dumps({"kernels": line}))

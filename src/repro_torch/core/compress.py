@@ -250,8 +250,8 @@ def encode_compensated(compressor: Compressor, p: torch.Tensor,
 
 
 def make_flat_ef_gossip(compressor: Compressor, mix_fn: Callable,
-                        n_agents: int, *, fused_int8_pallas: bool = False,
-                        dtype=torch.float32) -> Callable:
+                        n_agents: int, *,
+                        fused_int8_pallas: bool = False) -> Callable:
     """Whole-buffer EF gossip: (w, p, res, draws, t) -> (y, new_res), on the
     flat (n, D) buffer or, with W (R, n, n), on an (R, n, D) lattice
     (repro/core/compress.py:247-295, repro/core/sweep.py:357-374).
@@ -263,14 +263,10 @@ def make_flat_ef_gossip(compressor: Compressor, mix_fn: Callable,
     ``draws.codec_noise(t, n, D)``, drawn only by the int8 codec.
 
     ``fused_int8_pallas=True`` (the flat ``gossip_impl='pallas'`` × ``int8``)
-    mixes straight from the int8 payload with kernel #14 (its plain
-    version for a buffer ``dtype`` other than f32), so the f32 s is formed
-    only for the residual.
+    mixes straight from the int8 payload with kernel #14, so the f32 s is
+    formed only for the residual.
     """
     use_fused = fused_int8_pallas and compressor.name == "int8"
-    if use_fused:
-        from repro_torch.kernels import ops as kernel_ops
-        dequant_mix = kernel_ops.route(kernel_ops.dequant_mix, dtype)
 
     def gossip(w, p, res, draws, t):
         if p.shape[-2] != n_agents:
@@ -278,7 +274,8 @@ def make_flat_ef_gossip(compressor: Compressor, mix_fn: Callable,
                              f"agents")
         u, payload = encode_compensated(compressor, p, res, draws, t)
         if use_fused:
-            y = dequant_mix(w, payload["q"], payload["scale"], p)
+            from repro_torch.kernels import ops as kernel_ops
+            y = kernel_ops.dequant_mix(w, payload["q"], payload["scale"], p)
             s = compressor.decode(payload, u.dtype, u.shape[-1])
             return y.to(p.dtype), u - s
         s = compressor.decode(payload, u.dtype, u.shape[-1])

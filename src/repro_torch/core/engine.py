@@ -48,9 +48,8 @@ def check_gossip_impl(impl: str) -> str:
     return impl
 
 
-def resolve_gossip(source, layout: str = "flat",
-                   dtype=torch.float32) -> Callable:
-    """gossip_impl → the whole-buffer mixing fn for a buffer of ``dtype``.
+def resolve_gossip(source, layout: str = "flat") -> Callable:
+    """gossip_impl → the whole-buffer mixing fn.
 
     layout 'flat': (w (n, n), x (n, D)) -> (n, D), ``source`` a config:
       'dense'  one plain matrix product (the reference leaves it to XLA);
@@ -60,15 +59,15 @@ def resolve_gossip(source, layout: str = "flat",
       'none'   identity (FedAvg).
     layout 'sweep': (w (R, n, n), x (R, n, D)) -> (R, n, D), ``source`` a
     SweepPlan (repro/core/engine.py:177-200):
-      'dense'  one batched matrix product;
+      'dense'  one batched f32 matrix product;
       'pallas' kernel #5 (kernels.ops.gossip_mix_batched), one launch;
       'sparse' the stacked-ELL kernel #6 when 0 < max_deg <= ELL_MAX_DEG,
                else the plain stacked-ELL mix;
       'none'   identity (an all-FedAvg lattice).
-    The kernels take f32 buffers: for any other ``dtype`` 'pallas' and the
-    ELL 'sparse' mix are the kernels' plain versions, which mix in the
-    buffer's dtype as the reference's plain mixes do (kernels.ops.route,
-    the counterpart of the reference's ``on_tpu()`` choice).
+    The kernels (and their plain versions on the CPU) load and store the
+    buffer's dtype, f32 or f64, and sum the mix in f32, as the reference's
+    kernels do; 'dense', the CSR gather and the plain stacked-ELL mix
+    compute in the buffer's dtype, as the reference's plain mixes do.
     """
     if layout not in ("flat", "sweep"):
         raise ValueError(f"engine layout {layout!r} is not ported; the "
@@ -81,12 +80,12 @@ def resolve_gossip(source, layout: str = "flat",
         return gossip_lib.gossip_mix_dense
     if impl == "pallas":
         from repro_torch.kernels import ops as kernel_ops
-        return kernel_ops.route(kernel_ops.gossip_mix if layout == "flat"
-                                else kernel_ops.gossip_mix_batched, dtype)
+        return kernel_ops.gossip_mix if layout == "flat" \
+            else kernel_ops.gossip_mix_batched
     if impl == "sparse":
         if layout == "flat":
-            return gossip_lib.make_sparse_gossip(source.mixing.graph, dtype)
-        return gossip_lib.make_sparse_gossip_batched(source.graphs, dtype)
+            return gossip_lib.make_sparse_gossip(source.mixing.graph)
+        return gossip_lib.make_sparse_gossip_batched(source.graphs)
     raise unknown_gossip_impl(impl)
 
 

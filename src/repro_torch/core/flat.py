@@ -242,32 +242,28 @@ def make_fused_ef_op(local_update, ef_gossip):
 
 
 def _make_fused_flat_op(cfg: FedDecConfig, agent_grads, local_update,
-                        optimizer, compressor, custom_gossip: bool, dtype):
+                        optimizer, compressor, custom_gossip: bool):
     """The flat engine's fused op; None when the configuration is not
     eligible (the caller keeps the unfused body).
 
     Uncompressed: one update+mix pass (kernels #3/#4), the post-update
     iterate never in memory.  With a codec: :func:`make_fused_ef_op` with
-    kernel #9 on the dense and pallas mixes, #11 on the sparse one.  A
-    buffer of another dtype than f32 takes the kernels' plain versions
-    (kernels.ops.route).
+    kernel #9 on the dense and pallas mixes, #11 on the sparse one.
     """
     kind = _fuse_kind(cfg, optimizer, custom_gossip)
     if kind is None:
         return None
     from repro_torch.kernels import ops as kernel_ops
     if compressor is not None:
-        ef_kernel = kernel_ops.make_sparse_ef_mix(cfg.mixing.graph, dtype) \
-            if cfg.gossip_impl == "sparse" \
-            else kernel_ops.route(kernel_ops.ef_mix, dtype)
+        ef_kernel = kernel_ops.make_sparse_ef_mix(cfg.mixing.graph) \
+            if cfg.gossip_impl == "sparse" else kernel_ops.ef_mix
         ef_gossip = compress_lib.make_fused_ef_gossip(compressor, ef_kernel)
         return make_fused_ef_op(local_update, ef_gossip)
     sparse = None
     if cfg.gossip_impl == "sparse":
         sparse = functools.partial(kernel_ops.make_sparse_update_mix,
-                                   cfg.mixing.graph, dtype=dtype)
-    return make_fused_op(kind, agent_grads, optimizer,
-                         kernel_ops.route(kernel_ops.update_mix, dtype),
+                                   cfg.mixing.graph)
+    return make_fused_op(kind, agent_grads, optimizer, kernel_ops.update_mix,
                          sparse)
 
 
@@ -305,7 +301,7 @@ def _flat_ops(cfg: FedDecConfig, spec: FlatSpec, loss_fn: LossFn,
     """The flat engine's vtable for the shared Algorithm-1 body."""
     custom_gossip = gossip_fn is not None
     if gossip_fn is None:
-        gossip_fn = engine.resolve_gossip(cfg, "flat", spec.dtype)
+        gossip_fn = engine.resolve_gossip(cfg, "flat")
     # whole-buffer compressed exchange with error feedback; nothing is
     # exchanged under impl 'none', so no codec and the residual passes
     # through.  int8 × 'pallas' mixes straight from the int8 payload (#14)
@@ -316,7 +312,7 @@ def _flat_ops(cfg: FedDecConfig, spec: FlatSpec, loss_fn: LossFn,
         ef_gossip = compress_lib.make_flat_ef_gossip(
             compressor, gossip_fn, cfg.n_agents,
             fused_int8_pallas=cfg.gossip_impl == "pallas"
-            and not custom_gossip, dtype=spec.dtype)
+            and not custom_gossip)
 
     def agent_grads(state: FlatFedState, batch: dict):
         return grads_of(spec, loss_fn, state.flat, batch)
@@ -334,7 +330,7 @@ def _flat_ops(cfg: FedDecConfig, spec: FlatSpec, loss_fn: LossFn,
     if fuse_update_mix:
         fused_update_gossip = _make_fused_flat_op(
             cfg, agent_grads, local_update, optimizer, compressor,
-            custom_gossip, spec.dtype)
+            custom_gossip)
 
     def server(draws, t, x_next):
         if not cfg.server_enabled or (t + 1) % cfg.h:

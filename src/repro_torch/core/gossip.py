@@ -3,9 +3,11 @@
 Plain torch counterparts of repro/core/gossip.py for the flat (n, D)
 buffer and the (R, n, D) buffer of a sweep lattice.  The ELL neighbour
 mix goes through kernels/ops.py, which runs the plain version for CPU
-tensors and the CUDA kernel for CUDA ones; graphs too skewed for the ELL
-layout keep the CSR gather here (one run) or the plain stacked-ELL mix
-(a lattice).
+tensors and the CUDA kernel for CUDA ones; like the reference's Pallas
+kernels, it mixes in f32 whatever the buffer's dtype.  The plain mixes
+here (the dense product, the CSR gather, the stacked-ELL mix of a lattice
+too skewed for the kernel) cast W to the buffer's dtype and mix in it, as
+the reference's plain mixes do: a float64 buffer is mixed in float64.
 """
 
 from __future__ import annotations
@@ -16,34 +18,41 @@ import torch
 from repro_torch.core import topology as topo
 from repro_torch.kernels import ref
 
-__all__ = ["ELL_MAX_DEG", "gossip_mix_dense", "make_sparse_gossip",
+__all__ = ["ELL_MAX_DEG", "mix_dtype", "gossip_mix_dense",
+           "make_sparse_gossip",
            "lattice_max_degree", "stacked_ell_tables",
            "make_sparse_gossip_batched"]
 
 ELL_MAX_DEG = 16  # below this, the padded neighbour loop beats CSR scatter
 
-# y = W x as one (n, n) @ (n, D) matrix product with f32 accumulation (one
-# batched product over a lattice's (R, n, n) W): the plain version of
-# kernels #1/#5, which no kernel replaces on the dense path.
-gossip_mix_dense = ref.gossip_mix
+def mix_dtype(x: torch.Tensor) -> torch.dtype:
+    """The dtype the plain mixes compute in: x's, and at least f32."""
+    return torch.promote_types(x.dtype, torch.float32)
 
 
-def make_sparse_gossip(graph: topo.Graph, dtype=torch.float32):
-    """Neighbour-only mix over the graph's static edge structure, for a
-    buffer of ``dtype``; W is cast to the buffer's dtype.
+def gossip_mix_dense(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """y = W x as one (n, n) @ (n, D) matrix product (one batched product
+    over a lattice's (R, n, n) W) in mix_dtype(x), the reference's einsum
+    with W cast to the buffer's dtype (repro/core/engine.py:155-158)."""
+    dt = mix_dtype(x)
+    return torch.matmul(w.to(dt), x.to(dt)).to(x.dtype)
+
+
+def make_sparse_gossip(graph: topo.Graph):
+    """Neighbour-only mix over the graph's static edge structure.
 
     * isolated graph (FedAvg 𝒲 = {I}): y = W_ii x_i;
-    * max degree ≤ ELL_MAX_DEG: the ELL mix (kernel #2 on CUDA for an f32
-      buffer, its plain version for any other dtype);
+    * max degree ≤ ELL_MAX_DEG: the ELL mix (kernel #2 on CUDA), in f32
+      as the reference's kernel #2 mixes;
     * skewed degrees: gather over the receiver-sorted CSR edge list and
-      ``index_add_`` into the receivers, O(|E|·D).
+      ``index_add_`` into the receivers, O(|E|·D), in the buffer's dtype.
     """
     max_deg = int(graph.degrees.max()) if graph.n else 0
     if max_deg == 0:
         return lambda w, x: torch.diagonal(w.to(x.dtype))[:, None] * x
     if max_deg <= ELL_MAX_DEG:
         from repro_torch.kernels import ops as kernel_ops
-        return kernel_ops.make_sparse_gossip(graph, dtype)
+        return kernel_ops.make_sparse_gossip(graph)
 
     recv, send, _ = topo.csr_edges(graph)
     cache = {}
@@ -89,27 +98,28 @@ def stacked_ell_tables(graphs):
     return nbr, valid, max_deg
 
 
-def make_sparse_gossip_batched(graphs, dtype=torch.float32):
+def make_sparse_gossip_batched(graphs):
     """Neighbour-only mix over an R-run topology lattice (sweep engine).
 
     Each run's neighbour list is padded to the lattice's max degree with
     weight-0 self slots, so every run's slice equals its own single-run
     ELL mix.  When 0 < max_deg ≤ ELL_MAX_DEG the mix is kernel #6 on CUDA
-    for an f32 buffer (one launch for all runs); otherwise (another dtype,
-    an all-edgeless lattice, or one too skewed for the kernel) it is the
-    plain stacked-ELL mix.  A run whose graph has no edges, given W = I,
-    reduces exactly to ``y = x``.
+    (one launch for all runs); otherwise (an all-edgeless lattice, or one
+    too skewed for the kernel) it is the plain stacked-ELL mix in the
+    buffer's dtype.  A run
+    whose graph has no edges, given W = I, reduces exactly to ``y = x``.
 
     Returns:
       mix(w, x) -> y for w (R, n, n), x (R, n, D).
     """
     from repro_torch.kernels import ops as kernel_ops
     if 0 < lattice_max_degree(graphs) <= ELL_MAX_DEG:
-        return kernel_ops.make_sparse_gossip_batched(graphs, dtype)
+        return kernel_ops.make_sparse_gossip_batched(graphs)
     nbr, valid, _ = stacked_ell_tables(graphs)
     tables = kernel_ops.EllTables(nbr, valid)
 
     def mix(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        return ref.gossip_mix_sparse_batched(*tables.weights(w, x), x)
+        dt = mix_dtype(x)
+        return ref.ell_mix(*tables.weights(w, x, dt), x, dt)
 
     return mix

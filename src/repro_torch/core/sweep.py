@@ -250,11 +250,10 @@ def make_sweep_w_sampler(plan: SweepPlan, device):
     return sample
 
 
-def resolve_sweep_gossip(plan: SweepPlan, dtype=torch.float32):
-    """gossip_impl → the whole-lattice (w (R,n,n), x (R,n,D)) mix for a
-    buffer of ``dtype``: the 'sweep' layout of
-    :func:`repro_torch.core.engine.resolve_gossip`."""
-    return engine.resolve_gossip(plan, "sweep", dtype)
+def resolve_sweep_gossip(plan: SweepPlan):
+    """gossip_impl → the whole-lattice (w (R,n,n), x (R,n,D)) mix: the
+    'sweep' layout of :func:`repro_torch.core.engine.resolve_gossip`."""
+    return engine.resolve_gossip(plan, "sweep")
 
 
 # ---------------------------------------------------------------------------
@@ -288,7 +287,7 @@ def _sweep_ops(plan: SweepPlan, spec: FlatSpec, loss_fn: LossFn,
     whole-lattice op.  ``lr_fn`` receives the (R,) per-run step counters
     and returns one η or R of them."""
     r_runs, n = plan.r_runs, plan.n_agents
-    gossip_fn = resolve_sweep_gossip(plan, spec.dtype)
+    gossip_fn = resolve_sweep_gossip(plan)
     compressor = _compressor(plan)
     fedavg = np.flatnonzero(plan.none_mask)
 
@@ -342,19 +341,16 @@ def _sweep_ops(plan: SweepPlan, spec: FlatSpec, loss_fn: LossFn,
         sparse = plan.gossip_impl == "sparse"
         if compressor is not None:
             # the update and the encode, then one pass of #10 (#12 sparse)
-            ef_kernel = kernel_ops.make_sparse_ef_mix_batched(
-                plan.graphs, spec.dtype) if sparse \
-                else kernel_ops.route(kernel_ops.ef_mix_batched, spec.dtype)
+            ef_kernel = kernel_ops.make_sparse_ef_mix_batched(plan.graphs) \
+                if sparse else kernel_ops.ef_mix_batched
             fused_update_gossip = flat_lib.make_fused_ef_op(
                 local_update, bypass_codec(compress_lib.make_fused_ef_gossip(
                     compressor, ef_kernel)))
         else:
             fused_update_gossip = flat_lib.make_fused_op(
-                kind, agent_grads, optimizer,
-                kernel_ops.route(kernel_ops.update_mix_batched, spec.dtype),
+                kind, agent_grads, optimizer, kernel_ops.update_mix_batched,
                 functools.partial(kernel_ops.make_sparse_update_mix_batched,
-                                  plan.graphs, dtype=spec.dtype)
-                if sparse else None)
+                                  plan.graphs) if sparse else None)
 
     def server(draws, t, x_next):
         # lines 7–12: per-run periodic server round ((t+1) % h_r == 0)

@@ -32,47 +32,51 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
+_INT = ctypes.c_int
 _SIGNATURES = {
     "gossip_mix": {
-        # w, x, y, r, n, d, stream
-        "gossip_mix_dense": [_P, _P, _P, _I64, _I64, _I64, _P],
-        # nbr, wv, wd, max_deg, x, y, r, n, d, stream
-        "gossip_mix_ell": [_P, _P, _P, _I64, _P, _P, _I64, _I64, _I64, _P],
+        # w, x, y, r, n, d, dtype, stream
+        "gossip_mix_dense": [_P, _P, _P, _I64, _I64, _I64, _INT, _P],
+        # nbr, wv, wd, max_deg, x, y, r, n, d, dtype, stream
+        "gossip_mix_ell": [_P, _P, _P, _I64, _P, _P, _I64, _I64, _I64, _INT,
+                           _P],
     },
     "update_mix": {
-        # w, x, g, m, eta, y, m_out, r, n, d, beta, nesterov, stream
+        # w, x, g, m, eta, y, m_out, r, n, d, beta, nesterov, dtype, stream
         "update_mix_dense": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
-                             ctypes.c_float, ctypes.c_int, _P],
+                             ctypes.c_float, _INT, _INT, _P],
         # nbr, wv, wd, max_deg, x, g, m, eta, y, m_out, r, n, d, beta,
-        # nesterov, stream
+        # nesterov, dtype, stream
         "update_mix_ell": [_P, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _I64,
-                           _I64, _I64, ctypes.c_float, ctypes.c_int, _P],
+                           _I64, _I64, ctypes.c_float, _INT, _INT, _P],
     },
     "compress_mix": {
-        # w, p, s, u, y, res, r, n, d, stream
-        "ef_mix_dense": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P],
-        # nbr, wv, wd, max_deg, p, s, u, y, res, r, n, d, stream
+        # w, diag, p, s, u, y, res, r, n, d, dtype, stream
+        "ef_mix_dense": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _INT,
+                         _P],
+        # nbr, wv, wd, max_deg, p, s, u, y, res, r, n, d, dtype, stream
         "ef_mix_ell": [_P, _P, _P, _I64, _P, _P, _P, _P, _P, _I64, _I64,
-                       _I64, _P],
-        # w, scale, u, noise, p, y, q, r, n, d, stream
+                       _I64, _INT, _P],
+        # w, scale, u, noise, p, y, q, r, n, d, dtype, stream
         "quant_mix_dense": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
-                            _P],
-        # w, scale, q, p, y, r, n, d, stream
-        "dequant_mix_dense": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _P],
+                            _INT, _P],
+        # w, scale, q, p, y, r, n, d, dtype, stream
+        "dequant_mix_dense": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _INT,
+                              _P],
     },
     "flash_attention": {
         # q, k, v, out, b, s, h, kv, hd, window, scale, dtype, stream
         "flash_attention": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
-                            _I64, ctypes.c_float, ctypes.c_int, _P],
+                            _I64, ctypes.c_float, _INT, _P],
     },
     "ssd_scan": {
         # x, dt, a, b, c, y, batch, s, h, p, n, dtype, stream
         "ssd_scan": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
-                     ctypes.c_int, _P],
+                     _INT, _P],
     },
     "rglru_scan": {
         # a, bx, h, h_last, batch, s, w, dtype, stream
-        "rglru_scan": [_P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_int, _P],
+        "rglru_scan": [_P, _P, _P, _P, _I64, _I64, _I64, _INT, _P],
     },
 }
 

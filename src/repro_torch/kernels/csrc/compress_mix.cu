@@ -1,6 +1,6 @@
 // Compressed gossip with error feedback (repro/core/compress.py) on the
-// flat (n, D) f32 buffer: the fused receive side of the EF exchange and the
-// int8 mixes.  Every kernel also takes the (R, n, D) buffer of an R-run
+// flat (n, D) buffer, f32 or f64: the fused receive side of the EF exchange
+// and the int8 mixes.  Every kernel also takes the (R, n, D) buffer of an R-run
 // lattice, with the run as the grid's y index as in mix_common.cuh: the EF
 // entry points with R = 1 are #9/#11, with R runs #10/#12; the int8 ones
 // are called with R = 1.
@@ -16,7 +16,7 @@
 //     y_i = sum_j W_ij s_j + W_ii (p_i - s_i)                   (dense)
 //     y_i = wd_i s_i + sum_k wv_ik s_nbr(i,k) + wd_i (p_i - s_i)   (ELL)
 // and differ in where s comes from and what else they write:
-//   kEf      (#9-#12)  s is read as f32, and r = u - s is written;
+//   kEf      (#9-#12)  s is read, and r = u - s is written;
 //   kDequant (#14)     s = q * scale_j from the int8 payload q;
 //   kQuant   (#13)     q = clip(floor(u / scale_j + noise), -127, 127) is
 //                      written as int8, and s = q * scale_j.
@@ -43,6 +43,14 @@
 // touches device memory, which is the point of fusing the int8 payload
 // into the mix.
 //
+// Dtypes, as the reference's kernels (repro/kernels/update_mix.py:
+// ef_mix_kernel, repro/kernels/compress_mix.py): the mix sums s rounded to
+// f32 with f32 weights.  On #9-#12 the mix is then converted to the
+// buffer's type T, and r = u - s and the correction W_ii (p - s) (W_ii in
+// T) are computed in T; #13/#14 compute everything in f32 and convert y
+// to T at the end.  For an f64 buffer the correction re-reads s_i in f64
+// (the shared slots hold the f32 s of the mix).
+//
 // Exactness: r = u - s is one subtraction; q is floorf(__fdiv_rn(u, scale)
 // + noise), clipped (IEEE division, no --use_fast_math); s = q * scale; the
 // correction W_ii (p - s) and its sum with the mix are rounded op by op by
@@ -51,7 +59,9 @@
 // from them only through the order of the mix's sum.
 //
 // Plain C interface for ctypes: pointers and the CUDA stream as void*,
-// sizes as int64.  Each function returns the cudaError_t of its launch.
+// sizes as int64, the dtype of p, s, u, y and r (and of the dense EF
+// kernels' diagonal) as feddec::Dtype; W, the ELL weights, the scales and
+// the noise are f32.  Each function returns the cudaError_t of its launch.
 #include "mix_common.cuh"
 
 namespace feddec {
@@ -59,19 +69,21 @@ namespace {
 
 enum Source : int { kEf = 0, kDequant = 1, kQuant = 2 };
 
+template <typename T>
 struct EfArgs {
   const float* w;      // (R, n, n) dense mixing matrices (dense only)
   const int32_t* nbr;  // (R, n, max_deg) ELL neighbour rows (ELL only)
   const float* wv;     // (R, n, max_deg) ELL edge weights, 0 on padding
   const float* wd;     // (R, n) diagonal weights W_ii (ELL only)
-  const float* p;      // (R, n, D) full-precision iterate
-  const float* s;      // (R, n, D) decoded payload (kEf)
-  const float* u;      // (R, n, D) error-compensated payload (kEf, kQuant)
+  const T* diag;       // (R, n) W_ii in the buffer's type (kEf dense)
+  const T* p;          // (R, n, D) full-precision iterate
+  const T* s;          // (R, n, D) decoded payload (kEf)
+  const T* u;          // (R, n, D) error-compensated payload (kEf, kQuant)
   const float* noise;  // (R, n, D) U[0, 1) rounding noise (kQuant)
   const float* scale;  // (R, n) per-row int8 scales (kDequant, kQuant)
   const int8_t* q_in;  // (R, n, D) int8 payload (kDequant)
-  float* y;            // (R, n, D) mixed output
-  float* res;          // (R, n, D) new residual u - s (kEf)
+  T* y;                // (R, n, D) mixed output
+  T* res;              // (R, n, D) new residual u - s (kEf)
   int8_t* q_out;       // (R, n, D) int8 payload (kQuant)
   int64_t r;
   int64_t n;
@@ -89,52 +101,37 @@ __device__ __forceinline__ float quantize(float u, float noise, float sc,
   return __fmul_rn(v, sc);
 }
 
-// s at element idx of a row whose int8 scale is sc (unused by kEf),
-// writing the residual (kEf) or the int8 payload (kQuant) on the way.
-template <int S>
-__device__ __forceinline__ float load_s(const EfArgs& a, int64_t idx,
+// The f32 s at element idx of a row whose int8 scale is sc (unused by
+// kEf), writing the residual (kEf) or the int8 payload (kQuant) on the
+// way.
+template <int S, typename T>
+__device__ __forceinline__ float load_s(const EfArgs<T>& a, int64_t idx,
                                         float sc) {
   if (S == kEf) {
-    const float s = __ldcs(a.s + idx);
-    __stcs(a.res + idx, __fsub_rn(__ldcs(a.u + idx), s));
-    return s;
+    const T s = __ldcs(a.s + idx);
+    __stcs(a.res + idx, sub_rn(__ldcs(a.u + idx), s));
+    return static_cast<float>(s);
   }
   if (S == kDequant) return __fmul_rn(static_cast<float>(a.q_in[idx]), sc);
-  return quantize(__ldcs(a.u + idx), __ldcs(a.noise + idx), sc,
-                  a.q_out + idx);
+  return quantize(static_cast<float>(__ldcs(a.u + idx)),
+                  __ldcs(a.noise + idx), sc, a.q_out + idx);
 }
 
-// mix + diag * (p - s), each operation rounded on its own.
+// mix + diag * (p - s), each operation rounded on its own, in f32.
 __device__ __forceinline__ float corrected(float mix, float diag, float p,
                                            float s) {
   return __fadd_rn(mix, __fmul_rn(diag, __fsub_rn(p, s)));
 }
 
-// Four adjacent elements idx .. idx+3 of a row, nv of them inside D:
-// one 16-byte (float) or 4-byte (int8) access when VEC, else nv scalar
-// ones.  Missing elements read as 0 and are not written.
-constexpr int kQuad = 4;
-
-template <bool VEC>
-__device__ __forceinline__ float4 ld4(const float* p, int64_t idx, int nv) {
-  if (VEC) return __ldcs(reinterpret_cast<const float4*>(p + idx));
-  float v[kQuad];
-#pragma unroll
-  for (int k = 0; k < kQuad; ++k) v[k] = k < nv ? __ldcs(p + idx + k) : 0.f;
-  return make_float4(v[0], v[1], v[2], v[3]);
-}
-
-template <bool VEC>
-__device__ __forceinline__ void st4(float* p, int64_t idx, float4 v,
-                                    int nv) {
-  if (VEC) {
-    __stcs(reinterpret_cast<float4*>(p + idx), v);
-    return;
-  }
-  const float e[kQuad] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int k = 0; k < kQuad; ++k)
-    if (k < nv) __stcs(p + idx + k, e[k]);
+// y of one element from the f32 mix: kEf converts the mix to T and adds
+// diag_t (p - s_t) in T; the int8 kernels correct in f32 with the f32 s
+// and convert at the end.
+template <int S, typename T>
+__device__ __forceinline__ T output(float mix, float diag32, T diag_t, T p,
+                                    T s_t, float s32) {
+  if (S == kEf)
+    return add_rn(static_cast<T>(mix), mul_rn(diag_t, sub_rn(p, s_t)));
+  return static_cast<T>(corrected(mix, diag32, static_cast<float>(p), s32));
 }
 
 template <bool VEC>
@@ -162,17 +159,19 @@ __device__ __forceinline__ void stq4(int8_t* q, int64_t idx, char4 v,
 }
 
 // load_s for 4 adjacent elements.
-template <int S, bool VEC>
-__device__ __forceinline__ float4 load_s4(const EfArgs& a, int64_t idx,
+template <int S, bool VEC, typename T>
+__device__ __forceinline__ float4 load_s4(const EfArgs<T>& a, int64_t idx,
                                           float sc, int nv) {
   if (S == kEf) {
-    const float4 s = ld4<VEC>(a.s, idx, nv);
-    const float4 u = ld4<VEC>(a.u, idx, nv);
-    st4<VEC>(a.res, idx,
-             make_float4(__fsub_rn(u.x, s.x), __fsub_rn(u.y, s.y),
-                         __fsub_rn(u.z, s.z), __fsub_rn(u.w, s.w)),
-             nv);
-    return s;
+    const Quad<T> s = ldq<VEC>(a.s, idx, nv);
+    const Quad<T> u = ldq<VEC>(a.u, idx, nv);
+    Quad<T> r;
+#pragma unroll
+    for (int k = 0; k < kQuad; ++k) r.v[k] = sub_rn(u.v[k], s.v[k]);
+    stq<VEC>(a.res, idx, r, nv);
+    return make_float4(static_cast<float>(s.v[0]), static_cast<float>(s.v[1]),
+                       static_cast<float>(s.v[2]),
+                       static_cast<float>(s.v[3]));
   }
   if (S == kDequant) {
     const char4 q = ldq4<VEC>(a.q_in, idx, nv);
@@ -181,22 +180,22 @@ __device__ __forceinline__ float4 load_s4(const EfArgs& a, int64_t idx,
                        __fmul_rn(static_cast<float>(q.z), sc),
                        __fmul_rn(static_cast<float>(q.w), sc));
   }
-  const float4 u = ld4<VEC>(a.u, idx, nv);
-  const float4 z = ld4<VEC>(a.noise, idx, nv);
+  const Quad<T> u = ldq<VEC>(a.u, idx, nv);
+  const Quad<float> z = ldq<VEC>(a.noise, idx, nv);
   char4 q;
   float4 s;
-  s.x = quantize(u.x, z.x, sc, &q.x);
-  s.y = quantize(u.y, z.y, sc, &q.y);
-  s.z = quantize(u.z, z.z, sc, &q.z);
-  s.w = quantize(u.w, z.w, sc, &q.w);
+  s.x = quantize(static_cast<float>(u.v[0]), z.v[0], sc, &q.x);
+  s.y = quantize(static_cast<float>(u.v[1]), z.v[1], sc, &q.y);
+  s.z = quantize(static_cast<float>(u.v[2]), z.v[2], sc, &q.z);
+  s.w = quantize(static_cast<float>(u.v[3]), z.v[3], sc, &q.w);
   stq4<VEC>(a.q_out, idx, q, nv);
   return s;
 }
 
 // n <= kSmallN: thread t of a block owns the 4 adjacent columns
 // 4 (tile * kThreads + t) .. + 3 of its run's slice.
-template <int S, bool ELL, bool VEC>
-__global__ void __launch_bounds__(kThreads) ef_small_kernel(EfArgs a) {
+template <int S, bool ELL, bool VEC, typename T>
+__global__ void __launch_bounds__(kThreads) ef_small_kernel(EfArgs<T> a) {
   constexpr int NB = kSmallN;
   const int n = static_cast<int>(a.n);
   const int md = static_cast<int>(a.max_deg);
@@ -207,6 +206,7 @@ __global__ void __launch_bounds__(kThreads) ef_small_kernel(EfArgs a) {
 
   __shared__ float ws[ELL ? 1 : NB * NB];
   __shared__ float sc_s[NB];
+  __shared__ T diag_s[NB];  // W_ii in T (kEf)
   extern __shared__ float4 dyn4[];
   float4* ps = dyn4;                                    // NB*kThreads
   float* wv_s = reinterpret_cast<float*>(dyn4 + NB * kThreads);  // ELL
@@ -227,8 +227,12 @@ __global__ void __launch_bounds__(kThreads) ef_small_kernel(EfArgs a) {
     }
     for (int e = tid; e < n; e += kThreads) wd_s[e] = a.wd[run * n + e];
   }
-  for (int e = tid; e < NB; e += kThreads)
+  for (int e = tid; e < NB; e += kThreads) {
     sc_s[e] = (S != kEf && e < n) ? a.scale[run * n + e] : 1.f;
+    diag_s[e] = (S != kEf || e >= n) ? static_cast<T>(0)
+                : ELL                ? static_cast<T>(a.wd[run * n + e])
+                                     : a.diag[run * n + e];
+  }
   __syncthreads();
 
   constexpr int64_t kTile = int64_t(kQuad) * kThreads;
@@ -269,20 +273,24 @@ __global__ void __launch_bounds__(kThreads) ef_small_kernel(EfArgs a) {
         }
       }
       const int64_t idx = off + i * d;
-      const float4 p = ld4<VEC>(a.p, idx, nv);
-      const float4 s = ps[i * kThreads + tid];
-      st4<VEC>(a.y, idx,
-               make_float4(corrected(acc.x, diag, p.x, s.x),
-                           corrected(acc.y, diag, p.y, s.y),
-                           corrected(acc.z, diag, p.z, s.z),
-                           corrected(acc.w, diag, p.w, s.w)),
-               nv);
+      const Quad<T> p = ldq<VEC>(a.p, idx, nv);
+      const float4 s4 = ps[i * kThreads + tid];
+      const float s32[kQuad] = {s4.x, s4.y, s4.z, s4.w};
+      Quad<T> s_t = to_quad<T>(s4);
+      if (S == kEf && sizeof(T) != sizeof(float)) s_t = ldq<VEC>(a.s, idx, nv);
+      const float mix[kQuad] = {acc.x, acc.y, acc.z, acc.w};
+      Quad<T> y;
+#pragma unroll
+      for (int k = 0; k < kQuad; ++k)
+        y.v[k] = output<S>(mix[k], diag, diag_s[i], p.v[k], s_t.v[k],
+                           s32[k]);
+      stq<VEC>(a.y, idx, y, nv);
     }
   }
 }
 
-template <int S, bool ELL>
-__global__ void __launch_bounds__(kThreads) ef_general_kernel(EfArgs a) {
+template <int S, bool ELL, typename T>
+__global__ void __launch_bounds__(kThreads) ef_general_kernel(EfArgs<T> a) {
   extern __shared__ float ps[];  // n * kThreads: thread t owns column t
   const int n = static_cast<int>(a.n);
   const int md = static_cast<int>(a.max_deg);
@@ -318,20 +326,25 @@ __global__ void __launch_bounds__(kThreads) ef_general_kernel(EfArgs a) {
           acc = fmaf(__ldg(w + i * n + j), ps[j * kThreads + tid], acc);
       }
       const int64_t idx = base + i * d + col;
-      __stcs(a.y + idx, corrected(acc, diag, __ldcs(a.p + idx),
-                                  ps[i * kThreads + tid]));
+      const float s32 = ps[i * kThreads + tid];
+      const T s_t = (S == kEf && sizeof(T) != sizeof(float))
+                        ? __ldcs(a.s + idx)
+                        : static_cast<T>(s32);
+      const T diag_t = (S != kEf) ? static_cast<T>(0)
+                       : ELL      ? static_cast<T>(diag)
+                                  : a.diag[run * n + i];
+      __stcs(a.y + idx,
+             output<S>(acc, diag, diag_t, __ldcs(a.p + idx), s_t, s32));
     }
   }
 }
 
-bool aligned(const void* ptr, uintptr_t bytes) {
-  return reinterpret_cast<uintptr_t>(ptr) % bytes == 0;
-}
-
-// Whether every row of every buffer starts on a vector boundary: D a
-// multiple of 4 and each buffer 16-byte (int8: 4-byte) aligned.
-bool vector_rows(const EfArgs& a) {
-  if (a.d % kQuad) return false;
+// Whether every row of every buffer starts on a vector boundary: f32
+// buffers, D a multiple of 4 and each buffer 16-byte (int8: 4-byte)
+// aligned.
+template <typename T>
+bool vector_rows(const EfArgs<T>& a) {
+  if (sizeof(T) != 4 || a.d % kQuad) return false;
   const void* floats[] = {a.p, a.s, a.u, a.noise, a.y, a.res};
   for (const void* ptr : floats) {
     if (ptr != nullptr && !aligned(ptr, 16)) return false;
@@ -343,12 +356,14 @@ bool vector_rows(const EfArgs& a) {
   return true;
 }
 
-template <int S, bool ELL>
-int launch_ef(const EfArgs& a, cudaStream_t stream) {
+template <int S, bool ELL, typename T>
+int launch_ef(const EfArgs<T>& a, cudaStream_t stream) {
   if (a.r < 1 || a.r > kMaxR || a.n < 1 || a.n > kMaxN || a.d < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (ELL && a.max_deg < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (S == kEf && !ELL && a.diag == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (a.d == 0) return 0;
   if (a.n <= kSmallN) {
     constexpr int NB = kSmallN;
@@ -359,93 +374,109 @@ int launch_ef(const EfArgs& a, cudaStream_t stream) {
              : 0);
     const int64_t ntiles =
         (a.d + int64_t(kQuad) * kThreads - 1) / (int64_t(kQuad) * kThreads);
-    if (vector_rows(a)) {
-      return launch_grid(ef_small_kernel<S, ELL, true>, a, ntiles, smem,
-                         stream);
+    if constexpr (sizeof(T) == 4) {
+      if (vector_rows(a)) {
+        return launch_grid(ef_small_kernel<S, ELL, true, T>, a, ntiles, smem,
+                           stream);
+      }
     }
-    return launch_grid(ef_small_kernel<S, ELL, false>, a, ntiles, smem,
+    return launch_grid(ef_small_kernel<S, ELL, false, T>, a, ntiles, smem,
                        stream);
   }
   const size_t smem = sizeof(float) * size_t(a.n) * kThreads;
   const int64_t ntiles = (a.d + kThreads - 1) / kThreads;
-  return launch_grid(ef_general_kernel<S, ELL>, a, ntiles, smem, stream);
+  return launch_grid(ef_general_kernel<S, ELL, T>, a, ntiles, smem, stream);
 }
 
 }  // namespace
 }  // namespace feddec
 
-extern "C" int ef_mix_dense(const float* w, const float* p, const float* s,
-                            const float* u, float* y, float* res, int64_t r,
-                            int64_t n, int64_t d, void* stream) {
-  feddec::EfArgs a{};
-  a.w = w;
-  a.p = p;
-  a.s = s;
-  a.u = u;
-  a.y = y;
-  a.res = res;
-  a.r = r;
-  a.n = n;
-  a.d = d;
-  return feddec::launch_ef<feddec::kEf, false>(
-      a, static_cast<cudaStream_t>(stream));
+extern "C" int ef_mix_dense(const float* w, const void* diag, const void* p,
+                            const void* s, const void* u, void* y, void* res,
+                            int64_t r, int64_t n, int64_t d, int dtype,
+                            void* stream) {
+  return feddec::by_dtype(dtype, [&](auto zero) {
+    using T = decltype(zero);
+    feddec::EfArgs<T> a{};
+    a.w = w;
+    a.diag = static_cast<const T*>(diag);
+    a.p = static_cast<const T*>(p);
+    a.s = static_cast<const T*>(s);
+    a.u = static_cast<const T*>(u);
+    a.y = static_cast<T*>(y);
+    a.res = static_cast<T*>(res);
+    a.r = r;
+    a.n = n;
+    a.d = d;
+    return feddec::launch_ef<feddec::kEf, false>(
+        a, static_cast<cudaStream_t>(stream));
+  });
 }
 
 extern "C" int ef_mix_ell(const int32_t* nbr, const float* wv,
-                          const float* wd, int64_t max_deg, const float* p,
-                          const float* s, const float* u, float* y,
-                          float* res, int64_t r, int64_t n, int64_t d,
+                          const float* wd, int64_t max_deg, const void* p,
+                          const void* s, const void* u, void* y, void* res,
+                          int64_t r, int64_t n, int64_t d, int dtype,
                           void* stream) {
-  feddec::EfArgs a{};
-  a.nbr = nbr;
-  a.wv = wv;
-  a.wd = wd;
-  a.max_deg = max_deg;
-  a.p = p;
-  a.s = s;
-  a.u = u;
-  a.y = y;
-  a.res = res;
-  a.r = r;
-  a.n = n;
-  a.d = d;
-  return feddec::launch_ef<feddec::kEf, true>(
-      a, static_cast<cudaStream_t>(stream));
+  return feddec::by_dtype(dtype, [&](auto zero) {
+    using T = decltype(zero);
+    feddec::EfArgs<T> a{};
+    a.nbr = nbr;
+    a.wv = wv;
+    a.wd = wd;
+    a.max_deg = max_deg;
+    a.p = static_cast<const T*>(p);
+    a.s = static_cast<const T*>(s);
+    a.u = static_cast<const T*>(u);
+    a.y = static_cast<T*>(y);
+    a.res = static_cast<T*>(res);
+    a.r = r;
+    a.n = n;
+    a.d = d;
+    return feddec::launch_ef<feddec::kEf, true>(
+        a, static_cast<cudaStream_t>(stream));
+  });
 }
 
 extern "C" int quant_mix_dense(const float* w, const float* scale,
-                               const float* u, const float* noise,
-                               const float* p, float* y, int8_t* q,
-                               int64_t r, int64_t n, int64_t d,
+                               const void* u, const float* noise,
+                               const void* p, void* y, int8_t* q, int64_t r,
+                               int64_t n, int64_t d, int dtype,
                                void* stream) {
-  feddec::EfArgs a{};
-  a.w = w;
-  a.scale = scale;
-  a.u = u;
-  a.noise = noise;
-  a.p = p;
-  a.y = y;
-  a.q_out = q;
-  a.r = r;
-  a.n = n;
-  a.d = d;
-  return feddec::launch_ef<feddec::kQuant, false>(
-      a, static_cast<cudaStream_t>(stream));
+  return feddec::by_dtype(dtype, [&](auto zero) {
+    using T = decltype(zero);
+    feddec::EfArgs<T> a{};
+    a.w = w;
+    a.scale = scale;
+    a.u = static_cast<const T*>(u);
+    a.noise = noise;
+    a.p = static_cast<const T*>(p);
+    a.y = static_cast<T*>(y);
+    a.q_out = q;
+    a.r = r;
+    a.n = n;
+    a.d = d;
+    return feddec::launch_ef<feddec::kQuant, false>(
+        a, static_cast<cudaStream_t>(stream));
+  });
 }
 
 extern "C" int dequant_mix_dense(const float* w, const float* scale,
-                                 const int8_t* q, const float* p, float* y,
-                                 int64_t r, int64_t n, int64_t d,
+                                 const int8_t* q, const void* p, void* y,
+                                 int64_t r, int64_t n, int64_t d, int dtype,
                                  void* stream) {
-  feddec::EfArgs a{};
-  a.w = w;
-  a.scale = scale;
-  a.q_in = q;
-  a.p = p;
-  a.y = y;
-  a.r = r;
-  a.n = n;
-  a.d = d;
-  return feddec::launch_ef<feddec::kDequant, false>(
-      a, static_cast<cudaStream_t>(stream));
+  return feddec::by_dtype(dtype, [&](auto zero) {
+    using T = decltype(zero);
+    feddec::EfArgs<T> a{};
+    a.w = w;
+    a.scale = scale;
+    a.q_in = q;
+    a.p = static_cast<const T*>(p);
+    a.y = static_cast<T*>(y);
+    a.r = r;
+    a.n = n;
+    a.d = d;
+    return feddec::launch_ef<feddec::kDequant, false>(
+        a, static_cast<cudaStream_t>(stream));
+  });
 }

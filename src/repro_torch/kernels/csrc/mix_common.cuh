@@ -1,5 +1,6 @@
 // Device code shared by gossip_mix.cu and update_mix.cu (compress_mix.cu
-// takes its constants and launch_grid, with kernels of its own).
+// takes its constants, the element helpers and launch_grid, with kernels
+// of its own).
 //
 // Every kernel here computes, per run r and column c of the (R, n, D)
 // buffer (R = 1 for the single-run kernels, R runs of a sweep lattice for
@@ -10,29 +11,36 @@
 //     y[r, i, c] = wd[r, i] p_i + sum_k wv[r, i, k] p_nbr[r, i, k]  (ELL)
 //
 // with local_step the identity (plain gossip), the sgd step or the
-// momentum / nesterov step.  A column needs only its own n values, so a
-// thread owns whole columns: it reads x/g/m of its columns once (row by
-// row, neighbouring threads on neighbouring addresses), forms p in
-// registers or in its own shared-memory slots, and writes the n outputs
-// (and m').  p never touches device memory, so the fused update+mix moves
-// the bytes of one pass: read x, g (, m), write y (, m').  At the main
-// path's n = 8 the work is about 2n flop per 8 bytes, far below the
-// card's ridge point: the bound is bytes, and the design's job is to keep
-// enough independent loads in flight (all n rows of several columns are
-// issued before any arithmetic uses them).
+// momentum / nesterov step.  The buffer's element type T is f32 or f64,
+// as in the reference's Pallas kernels, which load the buffer's dtype,
+// mix in f32 and store the buffer's dtype
+// (repro/kernels/gossip_mix.py:41-44, repro/kernels/update_mix.py:_local_step
+// and _dense_mix): the optimizer step runs in T (the momentum in f32), p is
+// rounded to f32 for the mix, W and the ELL weights are f32, and y is the
+// f32 sum converted to T.
+//
+// A column needs only its own n values, so a thread owns whole columns: it
+// reads x/g/m of its columns once (row by row, neighbouring threads on
+// neighbouring addresses), forms p in registers or in its own
+// shared-memory slots, and writes the n outputs (and m').  p never touches
+// device memory, so the fused update+mix moves the bytes of one pass: read
+// x, g (, m), write y (, m').  At the main path's n = 8 the work is about
+// 2n flop per 8 bytes, far below the card's ridge point: the bound is
+// bytes, and the design's job is to keep enough independent loads in
+// flight (all n rows of several columns are issued before any arithmetic
+// uses them).
 //
 // Two launch shapes:
 //   * small (n <= kSmallN = 8, the main path): n has a compile-time bound,
-//     so the dense path keeps p in registers (fully unrolled) and W
-//     (8 x 8, zero-padded) in static shared memory; the ELL path keeps the
-//     tables in shared memory and p in shared memory too (dynamic
-//     neighbour indices cannot address registers).  Where D % 4 == 0 and
-//     the buffers are 16-byte aligned, the ELL path is a stream
-//     (mix_ell_stream_kernel): bulk copies (cp.async.bulk, one per row
-//     segment, completing on an mbarrier) keep several column tiles in
-//     flight per block, and a thread owns 4 adjacent columns, written as
-//     16-byte stores; elsewhere (the ragged D, a misaligned base) a thread
-//     owns 4 columns strided by the block, in scalar accesses.
+//     so the dense path keeps p in registers (fully unrolled, 4 columns a
+//     thread strided by the block) and W (8 x 8, zero-padded) in static
+//     shared memory; the ELL path keeps the tables in shared memory and p
+//     in the thread's own shared-memory slots (dynamic neighbour indices
+//     cannot address registers), and a thread owns 4 adjacent columns, so
+//     that each row is one 16-byte access of x, g, m, y where D % 4 == 0
+//     and the f32 buffers are 16-byte aligned (compress_mix.cu's layout),
+//     and 4 masked scalar accesses elsewhere (the ragged edge, a
+//     misaligned base, an f64 buffer).
 //   * general (8 < n <= kMaxN): p in per-thread shared slots, W or the
 //     ELL tables read through the read-only cache (warp-uniform
 //     addresses, one broadcast transaction each).
@@ -53,6 +61,8 @@
 namespace feddec {
 
 enum Update : int { kNone = 0, kSgd = 1, kMomentum = 2, kNesterov = 3 };
+// The buffer's element type as the wrappers pass it (kernels/ops.py).
+enum Dtype : int { kF32 = 0, kF64 = 1 };
 
 constexpr int kThreads = 128;
 // General path: n * kThreads floats of shared memory per block.
@@ -61,16 +71,17 @@ constexpr int kMaxN = 400;
 // Maximum run count: the grid's y dimension.
 constexpr int64_t kMaxR = 65535;
 
+template <typename T>
 struct Args {
   const float* w;        // (R, n, n) dense mixing matrices (dense only)
   const int32_t* nbr;    // (R, n, max_deg) ELL neighbour rows (ELL only)
   const float* wv;       // (R, n, max_deg) ELL edge weights, 0 on padding
   const float* wd;       // (R, n) diagonal weights W_ii
-  const float* x;        // (R, n, D) parameters
-  const float* g;        // (R, n, D) gradients (update kernels)
+  const T* x;            // (R, n, D) parameters
+  const T* g;            // (R, n, D) gradients (update kernels)
   const float* m;        // (R, n, D) f32 momentum (momentum kernels)
   const float* eta;      // (R,) f32 step sizes, read on the device
-  float* y;              // (R, n, D) mixed output
+  T* y;                  // (R, n, D) mixed output
   float* m_out;          // (R, n, D) new momentum (momentum kernels)
   int64_t r;
   int64_t n;
@@ -79,34 +90,105 @@ struct Args {
   float beta;
 };
 
-// The reference optimizer's arithmetic, rounded op by op
-// (repro/kernels/update_mix.py:_local_step): sgd p = x - eta*g;
-// momentum m' = beta*m + g, step = m' (or beta*m' + g under nesterov),
-// p = x - eta*step.  The explicit _rn intrinsics keep nvcc from
-// contracting them into FMAs, so p equals the plain version's bit for bit.
-template <int U>
-__device__ __forceinline__ float step_value(float x, float g, float m,
-                                            float eta, float beta,
-                                            float* new_m) {
-  if (U == kNone) return x;
-  if (U == kSgd) return __fsub_rn(x, __fmul_rn(eta, g));
-  *new_m = __fadd_rn(__fmul_rn(beta, m), g);
-  const float step =
-      (U == kNesterov) ? __fadd_rn(__fmul_rn(beta, *new_m), g) : *new_m;
-  return __fsub_rn(x, __fmul_rn(eta, step));
+// One IEEE operation in the element type, rounded on its own: the _rn
+// intrinsics keep nvcc from contracting a product and a sum into an FMA.
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double add_rn(double a, double b) {
+  return __dadd_rn(a, b);
+}
+__device__ __forceinline__ float sub_rn(float a, float b) {
+  return __fsub_rn(a, b);
+}
+__device__ __forceinline__ double sub_rn(double a, double b) {
+  return __dsub_rn(a, b);
+}
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
 }
 
-template <int U>
-__device__ __forceinline__ float local_step(const Args& a, int64_t idx,
-                                            float eta) {
-  const float x = __ldcs(a.x + idx);
+// The reference optimizer's arithmetic, rounded op by op
+// (repro/kernels/update_mix.py:_local_step): sgd p = x - eta*g in x's
+// type; momentum m' = beta*m + g in f32, step = m' (or beta*m' + g under
+// nesterov), p = x - eta*step in x's type.  So p equals the plain
+// version's bit for bit.
+template <int U, typename T>
+__device__ __forceinline__ T step_value(T x, T g, float m, float eta,
+                                        float beta, float* new_m) {
   if (U == kNone) return x;
-  const float g = __ldcs(a.g + idx);
+  if (U == kSgd) return sub_rn(x, mul_rn(static_cast<T>(eta), g));
+  const float g32 = static_cast<float>(g);
+  *new_m = __fadd_rn(__fmul_rn(beta, m), g32);
+  const float step =
+      (U == kNesterov) ? __fadd_rn(__fmul_rn(beta, *new_m), g32) : *new_m;
+  return sub_rn(x, mul_rn(static_cast<T>(eta), static_cast<T>(step)));
+}
+
+// p of one element, rounded to f32 for the mix (m' written on the way).
+template <int U, typename T>
+__device__ __forceinline__ float local_step(const Args<T>& a, int64_t idx,
+                                            float eta) {
+  const T x = __ldcs(a.x + idx);
+  if (U == kNone) return static_cast<float>(x);
+  const T g = __ldcs(a.g + idx);
   const float m = U >= kMomentum ? __ldcs(a.m + idx) : 0.f;
   float new_m;
-  const float p = step_value<U>(x, g, m, eta, a.beta, &new_m);
+  const T p = step_value<U>(x, g, m, eta, a.beta, &new_m);
   if (U >= kMomentum) __stcs(a.m_out + idx, new_m);
-  return p;
+  return static_cast<float>(p);
+}
+
+// Four adjacent elements idx .. idx+3 of a row, nv of them inside D: one
+// 16-byte access when VEC (f32 rows on 16-byte boundaries), else nv
+// scalar ones.  Missing elements read as 0 and are not written.
+constexpr int kQuad = 4;
+
+template <typename T>
+struct Quad {
+  T v[kQuad];
+};
+
+template <bool VEC, typename T>
+__device__ __forceinline__ Quad<T> ldq(const T* p, int64_t idx, int nv) {
+  Quad<T> q;
+  if constexpr (VEC) {
+    static_assert(sizeof(T) == 4, "16-byte rows are f32 rows");
+    const float4 f = __ldcs(reinterpret_cast<const float4*>(p + idx));
+    q.v[0] = f.x;
+    q.v[1] = f.y;
+    q.v[2] = f.z;
+    q.v[3] = f.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < kQuad; ++k)
+      q.v[k] = k < nv ? __ldcs(p + idx + k) : static_cast<T>(0);
+  }
+  return q;
+}
+
+template <bool VEC, typename T>
+__device__ __forceinline__ void stq(T* p, int64_t idx, const Quad<T>& q,
+                                    int nv) {
+  if constexpr (VEC) {
+    static_assert(sizeof(T) == 4, "16-byte rows are f32 rows");
+    __stcs(reinterpret_cast<float4*>(p + idx),
+           make_float4(q.v[0], q.v[1], q.v[2], q.v[3]));
+  } else {
+#pragma unroll
+    for (int k = 0; k < kQuad; ++k)
+      if (k < nv) __stcs(p + idx + k, q.v[k]);
+  }
+}
+
+// An f32 quad (the mix's sum) in the buffer's type.
+template <typename T>
+__device__ __forceinline__ Quad<T> to_quad(float4 f) {
+  return Quad<T>{{static_cast<T>(f.x), static_cast<T>(f.y),
+                  static_cast<T>(f.z), static_cast<T>(f.w)}};
 }
 
 // Small path: at most kSmallN agents and kSmallCols columns per thread,
@@ -115,37 +197,24 @@ constexpr int kSmallN = 8;
 constexpr int kSmallCols = 4;
 constexpr int64_t kSmallTile = int64_t(kSmallCols) * kThreads;
 
-template <int U, bool ELL>
-__global__ void __launch_bounds__(kThreads) mix_small_kernel(Args a) {
+// Dense mix, n <= kSmallN: column c of a thread's tile is off + c *
+// kThreads.
+template <int U, typename T>
+__global__ void __launch_bounds__(kThreads) mix_dense_small_kernel(
+    Args<T> a) {
   constexpr int NB = kSmallN;
   constexpr int C = kSmallCols;
   const int n = static_cast<int>(a.n);
-  const int md = static_cast<int>(a.max_deg);
   const int64_t d = a.d;
   const int tid = threadIdx.x;
   const int64_t run = blockIdx.y;
   const int64_t base = run * a.n * d;  // this run's (n, D) slice
 
-  __shared__ float ws[ELL ? 1 : NB * NB];
-  extern __shared__ float dyn[];
-  float* ps = dyn;                              // ELL: NB*C*kThreads
-  float* wv_s = dyn + NB * C * kThreads;        // ELL: n*md
-  float* wd_s = wv_s + NB * md;                 // ELL: n
-  int32_t* nbr_s = reinterpret_cast<int32_t*>(wd_s + NB);  // ELL: n*md
-
-  if (!ELL) {
-    const float* w = a.w + run * n * n;
-    for (int e = tid; e < NB * NB; e += kThreads) {
-      const int i = e / NB, j = e % NB;
-      ws[e] = (i < n && j < n) ? w[i * n + j] : 0.f;
-    }
-  } else {
-    const int64_t tab = run * n * md;
-    for (int e = tid; e < n * md; e += kThreads) {
-      wv_s[e] = a.wv[tab + e];
-      nbr_s[e] = a.nbr[tab + e];
-    }
-    for (int e = tid; e < n; e += kThreads) wd_s[e] = a.wd[run * n + e];
+  __shared__ float ws[NB * NB];
+  const float* w = a.w + run * n * n;
+  for (int e = tid; e < NB * NB; e += kThreads) {
+    const int i = e / NB, j = e % NB;
+    ws[e] = (i < n && j < n) ? w[i * n + j] : 0.f;
   }
   __syncthreads();
 
@@ -158,113 +227,68 @@ __global__ void __launch_bounds__(kThreads) mix_small_kernel(Args a) {
     const int64_t col0 = t * kSmallTile + tid;
     const int64_t rem = d - col0;
     const int64_t off = base + col0;
-    if (!ELL) {
-      float p[NB][C];
+    float p[NB][C];
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        p[j][c] = (j < n && c * kThreads < rem)
+                      ? local_step<U>(a, off + j * d + c * kThreads, eta)
+                      : 0.f;
+      }
+    }
+    for (int i = 0; i < n; ++i) {
+      float acc[C];
+#pragma unroll
+      for (int c = 0; c < C; ++c) acc[c] = 0.f;
 #pragma unroll
       for (int j = 0; j < NB; ++j) {
+        const float wij = ws[i * NB + j];
 #pragma unroll
-        for (int c = 0; c < C; ++c) {
-          p[j][c] = (j < n && c * kThreads < rem)
-                        ? local_step<U>(a, off + j * d + c * kThreads, eta)
-                        : 0.f;
-        }
+        for (int c = 0; c < C; ++c) acc[c] = fmaf(wij, p[j][c], acc[c]);
       }
-      for (int i = 0; i < n; ++i) {
-        float acc[C];
 #pragma unroll
-        for (int c = 0; c < C; ++c) acc[c] = 0.f;
-#pragma unroll
-        for (int j = 0; j < NB; ++j) {
-          const float wij = ws[i * NB + j];
-#pragma unroll
-          for (int c = 0; c < C; ++c) acc[c] = fmaf(wij, p[j][c], acc[c]);
-        }
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          if (c * kThreads < rem)
-            __stcs(a.y + off + i * d + c * kThreads, acc[c]);
-        }
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < NB; ++j) {
-        if (j < n) {
-#pragma unroll
-          for (int c = 0; c < C; ++c) {
-            ps[(j * C + c) * kThreads + tid] =
-                c * kThreads < rem
-                    ? local_step<U>(a, off + j * d + c * kThreads, eta)
-                    : 0.f;
-          }
-        }
-      }
-      // each thread reads back only its own slots: no barrier needed
-      for (int i = 0; i < n; ++i) {
-        float acc[C];
-        const float wdi = wd_s[i];
-#pragma unroll
-        for (int c = 0; c < C; ++c)
-          acc[c] = wdi * ps[(i * C + c) * kThreads + tid];
-        for (int k = 0; k < md; ++k) {
-          const int src = nbr_s[i * md + k];
-          const float wk = wv_s[i * md + k];
-#pragma unroll
-          for (int c = 0; c < C; ++c)
-            acc[c] = fmaf(wk, ps[(src * C + c) * kThreads + tid], acc[c]);
-        }
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          if (c * kThreads < rem)
-            __stcs(a.y + off + i * d + c * kThreads, acc[c]);
-        }
+      for (int c = 0; c < C; ++c) {
+        if (c * kThreads < rem)
+          __stcs(a.y + off + i * d + c * kThreads, static_cast<T>(acc[c]));
       }
     }
   }
 }
 
-// ELL small path as a stream (n <= kSmallN, D % 4 == 0, 16-byte aligned
-// buffers).  A block owns column tiles of kStreamCols of its run, strided
-// by the grid.  Thread 0 keeps kStreamStages tiles in flight: per tile
-// one cp.async.bulk per row of each streamed array (x, and g, m for the
-// update kernels) into a ring slot of shared memory, completing on the
-// slot's mbarrier with the tile's byte count.  Every thread owns 4
-// adjacent columns of the tile: it forms p_j in the slot of x (the
-// optimizer step, m' written right away as a 16-byte streaming store),
-// then y_i = wd_i p_i + sum_k wv_ik p_nbr(i,k) from the slot (in the
-// scalar branch's order of operations) as one 16-byte streaming store per
-// row.  A thread reads only its own columns, so no barrier separates p
-// from the mix; one barrier per tile hands the slot back to thread 0.
-// Two stages of 256 threads: on the H100, 128 or 512 threads, three
-// stages, or 2-4 float4 per thread and row timed alike or slower, and the
-// momentum kernels' 24 rows per tile fit two stages only (192 KB).
-constexpr int kStreamStages = 2;
-constexpr int kStreamThreads = 256;
-constexpr int kStreamCols = 4 * kStreamThreads;  // a float4 per thread, row
-
-__device__ __forceinline__ uint32_t shared_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+// p of 4 adjacent elements of a row, as f32 (m' written on the way).
+template <int U, bool VEC, typename T>
+__device__ __forceinline__ float4 step4(const Args<T>& a, int64_t idx,
+                                        float eta, int nv) {
+  const Quad<T> x = ldq<VEC>(a.x, idx, nv);
+  float p[kQuad];
+  if (U == kNone) {
+#pragma unroll
+    for (int k = 0; k < kQuad; ++k) p[k] = static_cast<float>(x.v[k]);
+  } else {
+    const Quad<T> g = ldq<VEC>(a.g, idx, nv);
+    Quad<float> m{}, nm{};
+    if (U >= kMomentum) m = ldq<VEC>(a.m, idx, nv);
+#pragma unroll
+    for (int k = 0; k < kQuad; ++k) {
+      p[k] = static_cast<float>(
+          step_value<U>(x.v[k], g.v[k], m.v[k], eta, a.beta, &nm.v[k]));
+    }
+    if (U >= kMomentum) stq<VEC>(a.m_out, idx, nm, nv);
+  }
+  return make_float4(p[0], p[1], p[2], p[3]);
 }
 
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred done;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT;\n}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// The arrays a tile streams: x, g for the sgd step, and m for momentum.
-template <int U>
-__host__ __device__ constexpr int stream_arrays() {
-  return U == kNone ? 1 : U == kSgd ? 2 : 3;
-}
-
-template <int U>
-__global__ void __launch_bounds__(kStreamThreads)
-    mix_ell_stream_kernel(Args a) {
-  constexpr int A = stream_arrays<U>();
+// ELL mix, n <= kSmallN: thread t of a block owns the 4 adjacent columns
+// 4 (tile * kThreads + t) .. + 3 of its run's slice.  It forms p of all n
+// rows of them in its own shared-memory slots (the optimizer step, m'
+// written right away), then y_i = wd_i p_i + sum_k wv_ik p_nbr(i,k) from
+// the slots, one row at a time.  A thread reads back only its own slots,
+// so no barrier follows the table load.
+template <int U, bool VEC, typename T>
+__global__ void __launch_bounds__(kThreads) mix_ell_small_kernel(
+    Args<T> a) {
+  constexpr int NB = kSmallN;
   const int n = static_cast<int>(a.n);
   const int md = static_cast<int>(a.max_deg);
   const int64_t d = a.d;
@@ -272,114 +296,51 @@ __global__ void __launch_bounds__(kStreamThreads)
   const int64_t run = blockIdx.y;
   const int64_t base = run * a.n * d;  // this run's (n, D) slice
 
-  extern __shared__ __align__(16) float4 ring4[];
-  float* ring = reinterpret_cast<float*>(ring4);  // [stage][A][n][cols]
-  const int stage_floats = A * n * kStreamCols;
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStreamStages *
-                                                          stage_floats);
-  float* wv_s = reinterpret_cast<float*>(full + kStreamStages);
-  float* wd_s = wv_s + n * md;
-  int32_t* nbr_s = reinterpret_cast<int32_t*>(wd_s + n);
+  extern __shared__ float4 dyn4[];
+  float4* ps = dyn4;                                              // NB*kThreads
+  float* wv_s = reinterpret_cast<float*>(dyn4 + NB * kThreads);  // n*md
+  float* wd_s = wv_s + NB * md;                                   // n
+  int32_t* nbr_s = reinterpret_cast<int32_t*>(wd_s + NB);         // n*md
 
   const int64_t tab = run * n * md;
-  for (int e = tid; e < n * md; e += kStreamThreads) {
+  for (int e = tid; e < n * md; e += kThreads) {
     wv_s[e] = a.wv[tab + e];
     nbr_s[e] = a.nbr[tab + e];
   }
-  for (int e = tid; e < n; e += kStreamThreads) wd_s[e] = a.wd[run * n + e];
-  if (tid == 0) {
-    for (int st = 0; st < kStreamStages; ++st)
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
-                       shared_addr(full + st))
-                   : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
+  for (int e = tid; e < n; e += kThreads) wd_s[e] = a.wd[run * n + e];
   __syncthreads();
 
   const float eta = (U == kNone) ? 0.f : __ldg(a.eta + run);
-  const int64_t ntiles = (d + kStreamCols - 1) / kStreamCols;
-  const int64_t mine = blockIdx.x < ntiles
-                           ? (ntiles - blockIdx.x + gridDim.x - 1) / gridDim.x
-                           : 0;
-  const float* src[3] = {a.x, a.g, a.m};
-
-  // thread 0: the bulk copies of this block's it-th tile into its slot
-  auto issue = [&](int64_t it) {
-    const int64_t col0 = (blockIdx.x + it * gridDim.x) * kStreamCols;
-    const int64_t cols = d - col0 < kStreamCols ? d - col0 : kStreamCols;
-    const uint32_t bytes = static_cast<uint32_t>(cols) * 4;
-    const int st = static_cast<int>(it % kStreamStages);
-    const uint32_t bar = shared_addr(full + st);
-    asm volatile(
-        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-            bar),
-        "r"(bytes * A * n)
-        : "memory");
-    float* slot = ring + st * stage_floats;
-    for (int arr = 0; arr < A; ++arr) {
-      for (int j = 0; j < n; ++j) {
-        asm volatile(
-            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::"
-            "bytes [%0], [%1], %2, [%3];\n" ::"r"(
-                shared_addr(slot + (arr * n + j) * kStreamCols)),
-            "l"(src[arr] + base + j * d + col0), "r"(bytes), "r"(bar)
-            : "memory");
-      }
+  constexpr int64_t kTile = int64_t(kQuad) * kThreads;
+  const int64_t ntiles = (d + kTile - 1) / kTile;
+  for (int64_t t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    const int64_t col = (t * kThreads + tid) * kQuad;
+    if (col >= d) continue;  // no barrier below: a thread may skip a tile
+    const int nv = d - col < kQuad ? static_cast<int>(d - col) : kQuad;
+    const int64_t off = base + col;
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      if (j < n)
+        ps[j * kThreads + tid] = step4<U, VEC>(a, off + j * d, eta, nv);
     }
-  };
-  if (tid == 0) {
-    for (int64_t it = 0; it < mine && it < kStreamStages; ++it) issue(it);
-  }
-
-  for (int64_t it = 0; it < mine; ++it) {
-    const int st = static_cast<int>(it % kStreamStages);
-    mbar_wait(shared_addr(full + st),
-              static_cast<uint32_t>((it / kStreamStages) & 1));
-    const int64_t col = (blockIdx.x + it * gridDim.x) * kStreamCols + 4 * tid;
-    float4* xs = reinterpret_cast<float4*>(ring + st * stage_floats) + tid;
-    constexpr int kRow = kStreamCols / 4;  // float4 per row of a slot
-    if (col < d) {
-      const int64_t off = base + col;
-      if (U != kNone) {
-        for (int j = 0; j < n; ++j) {
-          const float4 x = xs[j * kRow];
-          const float4 g = xs[(n + j) * kRow];
-          const float4 m = U >= kMomentum ? xs[(2 * n + j) * kRow]
-                                          : make_float4(0.f, 0.f, 0.f, 0.f);
-          float4 p, nm;
-          p.x = step_value<U>(x.x, g.x, m.x, eta, a.beta, &nm.x);
-          p.y = step_value<U>(x.y, g.y, m.y, eta, a.beta, &nm.y);
-          p.z = step_value<U>(x.z, g.z, m.z, eta, a.beta, &nm.z);
-          p.w = step_value<U>(x.w, g.w, m.w, eta, a.beta, &nm.w);
-          if (U >= kMomentum)
-            __stcs(reinterpret_cast<float4*>(a.m_out + off + j * d), nm);
-          xs[j * kRow] = p;
-        }
+    for (int i = 0; i < n; ++i) {
+      const float wdi = wd_s[i];
+      const float4 pi = ps[i * kThreads + tid];
+      float4 acc = make_float4(wdi * pi.x, wdi * pi.y, wdi * pi.z,
+                               wdi * pi.w);
+      for (int k = 0; k < md; ++k) {
+        const float wk = wv_s[i * md + k];
+        const float4 pk = ps[nbr_s[i * md + k] * kThreads + tid];
+        acc = make_float4(fmaf(wk, pk.x, acc.x), fmaf(wk, pk.y, acc.y),
+                          fmaf(wk, pk.z, acc.z), fmaf(wk, pk.w, acc.w));
       }
-      for (int i = 0; i < n; ++i) {
-        const float wdi = wd_s[i];
-        const float4 pi = xs[i * kRow];
-        float4 acc = make_float4(wdi * pi.x, wdi * pi.y, wdi * pi.z,
-                                 wdi * pi.w);
-        for (int k = 0; k < md; ++k) {
-          const float wk = wv_s[i * md + k];
-          const float4 pk = xs[nbr_s[i * md + k] * kRow];
-          acc = make_float4(fmaf(wk, pk.x, acc.x), fmaf(wk, pk.y, acc.y),
-                            fmaf(wk, pk.z, acc.z), fmaf(wk, pk.w, acc.w));
-        }
-        __stcs(reinterpret_cast<float4*>(a.y + off + i * d), acc);
-      }
+      stq<VEC>(a.y, off + i * d, to_quad<T>(acc), nv);
     }
-    // the slot is read (and p written) through the generic proxy; order
-    // that before the next bulk copy into it
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    __syncthreads();
-    if (tid == 0 && it + kStreamStages < mine) issue(it + kStreamStages);
   }
 }
 
-template <int U, bool ELL>
-__global__ void __launch_bounds__(kThreads) mix_general_kernel(Args a) {
+template <int U, bool ELL, typename T>
+__global__ void __launch_bounds__(kThreads) mix_general_kernel(Args<T> a) {
   extern __shared__ float ps[];  // n * kThreads: thread t owns column t
   const int n = static_cast<int>(a.n);
   const int md = static_cast<int>(a.max_deg);
@@ -411,7 +372,7 @@ __global__ void __launch_bounds__(kThreads) mix_general_kernel(Args a) {
         for (int j = 0; j < n; ++j)
           acc = fmaf(__ldg(w + i * n + j), ps[j * kThreads + tid], acc);
       }
-      __stcs(a.y + base + i * d + col, acc);
+      __stcs(a.y + base + i * d + col, static_cast<T>(acc));
     }
   }
 }
@@ -431,7 +392,7 @@ inline int sm_count() {
 // tiles.  ``A`` is the kernel's argument struct; its run count is ``a.r``.
 template <typename Kernel, typename A>
 int launch_grid(Kernel kernel, const A& a, int64_t ntiles, size_t smem,
-                cudaStream_t stream, int threads = kThreads) {
+                cudaStream_t stream) {
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -440,67 +401,73 @@ int launch_grid(Kernel kernel, const A& a, int64_t ntiles, size_t smem,
   }
   int per_sm = 0;
   cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, kernel, threads, smem);
+      &per_sm, kernel, kThreads, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   const int64_t full = int64_t(per_sm) * sm_count();
   const int64_t per_run = (full + a.r - 1) / a.r;
   const dim3 grid(static_cast<unsigned>(ntiles < per_run ? ntiles : per_run),
                   static_cast<unsigned>(a.r));
-  kernel<<<grid, threads, smem, stream>>>(a);
+  kernel<<<grid, kThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-inline bool aligned16(const void* ptr) {
-  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
+inline bool aligned(const void* ptr, uintptr_t bytes) {
+  return reinterpret_cast<uintptr_t>(ptr) % bytes == 0;
 }
 
-// Whether every row of every streamed buffer starts on a 16-byte boundary
-// (D % 4 == 0, aligned bases): the condition of the ELL stream.
-inline bool stream_rows(const Args& a) {
-  if (a.d % 4) return false;
+// Whether every row of every f32 buffer starts on a 16-byte boundary
+// (D % 4 == 0, aligned bases): the condition of the 16-byte accesses.
+template <typename T>
+bool vector_rows(const Args<T>& a) {
+  if (sizeof(T) != 4 || a.d % kQuad) return false;
   const void* ptrs[] = {a.x, a.g, a.m, a.y, a.m_out};
   for (const void* ptr : ptrs) {
-    if (ptr != nullptr && !aligned16(ptr)) return false;
+    if (ptr != nullptr && !aligned(ptr, 16)) return false;
   }
   return true;
 }
 
-template <int U, bool ELL>
-int launch_small(const Args& a, cudaStream_t stream) {
-  constexpr int NB = kSmallN;
-  if (ELL && stream_rows(a)) {  // the ELL stream
-    const size_t smem =
-        sizeof(float) * kStreamStages * stream_arrays<U>() * a.n *
-            kStreamCols +
-        sizeof(uint64_t) * kStreamStages +
-        (sizeof(float) + sizeof(int32_t)) * a.n * a.max_deg +
-        sizeof(float) * a.n;
-    const int64_t ntiles = (a.d + kStreamCols - 1) / kStreamCols;
-    return launch_grid(mix_ell_stream_kernel<U>, a, ntiles, smem, stream,
-                       kStreamThreads);
-  }
-  const size_t smem =
-      ELL ? sizeof(float) *
-                    (size_t(NB) * kSmallCols * kThreads + NB * a.max_deg +
-                     NB) +
-                sizeof(int32_t) * NB * a.max_deg
-          : 0;
-  const int64_t ntiles = (a.d + kSmallTile - 1) / kSmallTile;
-  return launch_grid(mix_small_kernel<U, ELL>, a, ntiles, smem, stream);
-}
-
-template <int U, bool ELL>
-int launch_mix(const Args& a, cudaStream_t stream) {
+template <int U, bool ELL, typename T>
+int launch_mix(const Args<T>& a, cudaStream_t stream) {
   if (a.r < 1 || a.r > kMaxR || a.n < 1 || a.n > kMaxN || a.d < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (ELL && a.max_deg < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (a.d == 0) return 0;
-  if (a.n <= kSmallN) return launch_small<U, ELL>(a, stream);
+  if (a.n <= kSmallN && !ELL) {
+    const int64_t ntiles = (a.d + kSmallTile - 1) / kSmallTile;
+    return launch_grid(mix_dense_small_kernel<U, T>, a, ntiles, 0, stream);
+  }
+  if (a.n <= kSmallN) {
+    constexpr int NB = kSmallN;
+    const size_t smem = sizeof(float4) * NB * kThreads +
+                        (sizeof(float) + sizeof(int32_t)) * NB * a.max_deg +
+                        sizeof(float) * NB;
+    const int64_t ntiles =
+        (a.d + int64_t(kQuad) * kThreads - 1) / (int64_t(kQuad) * kThreads);
+    if constexpr (sizeof(T) == 4) {
+      if (vector_rows(a)) {
+        return launch_grid(mix_ell_small_kernel<U, true, T>, a, ntiles, smem,
+                           stream);
+      }
+    }
+    return launch_grid(mix_ell_small_kernel<U, false, T>, a, ntiles, smem,
+                       stream);
+  }
   const size_t smem = sizeof(float) * size_t(a.n) * kThreads;
   const int64_t ntiles = (a.d + kThreads - 1) / kThreads;
-  return launch_grid(mix_general_kernel<U, ELL>, a, ntiles, smem, stream);
+  return launch_grid(mix_general_kernel<U, ELL, T>, a, ntiles, smem, stream);
+}
+
+// Calls f with a zero of the buffer's element type: f(0.f) for an f32
+// buffer, f(0.0) for an f64 one; cudaErrorInvalidValue for another dtype
+// code.  The entry points instantiate their launch for both types by it.
+template <typename F>
+int by_dtype(int dtype, F&& f) {
+  if (dtype == kF32) return f(0.f);
+  if (dtype == kF64) return f(0.0);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace feddec

@@ -1,6 +1,7 @@
 // Fused local update + gossip mix: y = W (x - eta g) (sgd), or the
 // momentum / nesterov step that also emits the new f32 momentum m'; for
-// the flat (n, D) buffer, or for the (R, n, D) buffer of an R-run sweep
+// the flat (n, D) buffer, f32 or f64 (the step in the buffer's type, the
+// mix in f32, as the reference's kernels do), or for the (R, n, D) buffer of an R-run sweep
 // lattice in one launch with per-run W (or ELL tables) and per-run eta.
 //
 // Replaces the TPU kernels repro/kernels/update_mix.py:update_mix_pallas
@@ -22,15 +23,17 @@
 // sequence serves any step-size schedule without a host round trip.
 //
 // Plain C interface for ctypes: pointers and the CUDA stream as void*,
-// sizes as int64.  eta holds one f32 per run.  The step is sgd when m is
-// null, else momentum, or nesterov when the nesterov flag is set.  Each
-// function returns the cudaError_t of its launch.
+// sizes as int64, the dtype of x, g and y as feddec::Dtype (W, the ELL
+// weights, m and eta are f32 whatever it is).  eta holds one f32 per run.
+// The step is sgd when m is null, else momentum, or nesterov when the
+// nesterov flag is set.  Each function returns the cudaError_t of its
+// launch.
 #include "mix_common.cuh"
 
 namespace {
 
-template <bool ELL>
-int launch_step(const feddec::Args& a, int nesterov, cudaStream_t stream) {
+template <bool ELL, typename T>
+int launch_step(const feddec::Args<T>& a, int nesterov, cudaStream_t stream) {
   if ((a.m == nullptr) != (a.m_out == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -41,46 +44,52 @@ int launch_step(const feddec::Args& a, int nesterov, cudaStream_t stream) {
 
 }  // namespace
 
-extern "C" int update_mix_dense(const float* w, const float* x,
-                                const float* g, const float* m,
-                                const float* eta, float* y, float* m_out,
-                                int64_t r, int64_t n, int64_t d, float beta,
-                                int nesterov, void* stream) {
-  feddec::Args a{};
-  a.w = w;
-  a.x = x;
-  a.g = g;
-  a.m = m;
-  a.eta = eta;
-  a.y = y;
-  a.m_out = m_out;
-  a.r = r;
-  a.n = n;
-  a.d = d;
-  a.beta = beta;
-  return launch_step<false>(a, nesterov, static_cast<cudaStream_t>(stream));
+extern "C" int update_mix_dense(const float* w, const void* x, const void* g,
+                                const float* m, const float* eta, void* y,
+                                float* m_out, int64_t r, int64_t n, int64_t d,
+                                float beta, int nesterov, int dtype,
+                                void* stream) {
+  return feddec::by_dtype(dtype, [&](auto zero) {
+    using T = decltype(zero);
+    feddec::Args<T> a{};
+    a.w = w;
+    a.x = static_cast<const T*>(x);
+    a.g = static_cast<const T*>(g);
+    a.m = m;
+    a.eta = eta;
+    a.y = static_cast<T*>(y);
+    a.m_out = m_out;
+    a.r = r;
+    a.n = n;
+    a.d = d;
+    a.beta = beta;
+    return launch_step<false>(a, nesterov, static_cast<cudaStream_t>(stream));
+  });
 }
 
 extern "C" int update_mix_ell(const int32_t* nbr, const float* wv,
-                              const float* wd, int64_t max_deg,
-                              const float* x, const float* g, const float* m,
-                              const float* eta, float* y, float* m_out,
-                              int64_t r, int64_t n, int64_t d, float beta,
-                              int nesterov, void* stream) {
-  feddec::Args a{};
-  a.nbr = nbr;
-  a.wv = wv;
-  a.wd = wd;
-  a.max_deg = max_deg;
-  a.x = x;
-  a.g = g;
-  a.m = m;
-  a.eta = eta;
-  a.y = y;
-  a.m_out = m_out;
-  a.r = r;
-  a.n = n;
-  a.d = d;
-  a.beta = beta;
-  return launch_step<true>(a, nesterov, static_cast<cudaStream_t>(stream));
+                              const float* wd, int64_t max_deg, const void* x,
+                              const void* g, const float* m, const float* eta,
+                              void* y, float* m_out, int64_t r, int64_t n,
+                              int64_t d, float beta, int nesterov, int dtype,
+                              void* stream) {
+  return feddec::by_dtype(dtype, [&](auto zero) {
+    using T = decltype(zero);
+    feddec::Args<T> a{};
+    a.nbr = nbr;
+    a.wv = wv;
+    a.wd = wd;
+    a.max_deg = max_deg;
+    a.x = static_cast<const T*>(x);
+    a.g = static_cast<const T*>(g);
+    a.m = m;
+    a.eta = eta;
+    a.y = static_cast<T*>(y);
+    a.m_out = m_out;
+    a.r = r;
+    a.n = n;
+    a.d = d;
+    a.beta = beta;
+    return launch_step<true>(a, nesterov, static_cast<cudaStream_t>(stream));
+  });
 }

@@ -8,7 +8,7 @@ ragged edge of D themselves, and reject an n beyond their shared memory
 (``kMaxN`` in ``csrc/mix_common.cuh``) with an error the wrapper raises.
 The batched wrappers (#5–#8) launch the same CUDA functions over the
 leading run axis of an (R, n, D) sweep lattice: one launch for all runs.
-The compressed-gossip wrappers (#9, #11, #13, #14) take the f32 (n, D)
+The compressed-gossip wrappers (#9, #11, #13, #14) take the (n, D)
 buffers of the error-feedback exchange and the int8 payload; #10/#12
 launch #9/#11's CUDA functions over a lattice's run axis.  The model
 zoo's prefill wrappers (#15 flash attention, #16 the SSD scan, #17 the
@@ -20,18 +20,18 @@ Every kernel wrapper carries a ``launches`` counter that it advances by
 one each time its kernel is launched (CPU calls do not count);
 :func:`launch_counts` / :func:`reset_launch_counts` read and clear them.
 
-The mix kernels (#1–#14) take f32 buffers only and raise on any other
-dtype, on the card and on the CPU alike.  An engine that mixes another
-dtype (a float64 buffer, as the paper's linear-regression figures run)
-picks the kernel's plain version with :func:`route` when it builds the
-mix, from the buffer's dtype, and logs that choice; nothing falls back
-at launch time.
+The mix kernels (#1–#14) take f32 or f64 buffers and raise on any other
+dtype, on the card and on the CPU alike.  They do what the reference's
+Pallas kernels do with either: load and store the buffer's dtype and mix
+in f32, with W and the ELL weights cast to f32 (so a float64 buffer, as
+the paper's linear-regression figures run, launches the same kernels;
+the exact f64 mix is the 'dense' gossip_impl's plain product).  The
+momentum, η, the int8 scales and the rounding noise are f32.
 """
 
 from __future__ import annotations
 
 import ctypes
-import logging
 
 import numpy as np
 import torch
@@ -48,42 +48,44 @@ __all__ = ["gossip_mix", "gossip_mix_sparse", "update_mix",
            "ef_mix", "ef_mix_sparse", "make_sparse_ef_mix", "quant_mix",
            "dequant_mix", "ef_mix_batched", "ef_mix_sparse_batched",
            "make_sparse_ef_mix_batched", "flash_attention", "ssd_scan",
-           "rglru_scan", "launch_counts", "reset_launch_counts", "route"]
+           "rglru_scan", "launch_counts", "reset_launch_counts"]
 
-_log = logging.getLogger(__name__)
+# the mix kernels' buffer dtypes and their codes (feddec::Dtype in
+# csrc/mix_common.cuh)
+_MIX_DTYPES = {torch.float32: 0, torch.float64: 1}
 
 
-def _check_buffer(name: str, t: torch.Tensor, shape: tuple) -> None:
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype} (the kernels "
-                        f"take the f32 flat buffer only)")
+def _check_buffer(name: str, t: torch.Tensor, shape: tuple,
+                  dtype: torch.dtype = torch.float32) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != shape:
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                          f"{shape}")
 
 
-def route(wrapper, dtype: torch.dtype):
-    """The mix for a buffer of ``dtype``: the kernel's wrapper for f32, the
-    kernel's plain version (:mod:`repro_torch.kernels.ref`, same name) for
-    any other dtype, chosen once when an engine builds its mix and logged
-    at INFO level."""
-    if dtype == torch.float32:
-        return wrapper
-    _log.info("%s on a %s buffer: the plain version (the CUDA kernels take "
-              "float32)", wrapper.__name__, dtype)
-    return getattr(ref, wrapper.__name__)
+def _weights(name: str, t: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """W or an ELL weight table cast to the kernels' f32, as the
+    reference's kernels cast it; f32 and f64 are taken."""
+    if t.dtype not in _MIX_DTYPES:
+        raise TypeError(f"{name} must be float32 or float64, got {t.dtype}")
+    _check_buffer(name, t, shape, t.dtype)
+    return t.to(torch.float32)
 
 
 def _lattice(x: torch.Tensor, ndim: int,
-             name: str = "x") -> tuple[int, int, int]:
-    """(R, n, D) of an (n, D) buffer (R = 1) or an (R, n, D) lattice."""
+             name: str = "x") -> tuple[int, int, int, int]:
+    """(R, n, D, dtype code) of an (n, D) buffer (R = 1) or an (R, n, D)
+    lattice, f32 or f64."""
     if x.ndim != ndim:
         raise ValueError(f"{name} must be "
                          f"{'(n, D)' if ndim == 2 else '(R, n, D)'}, got "
                          f"shape {tuple(x.shape)}")
-    _check_buffer(name, x, tuple(x.shape))
+    if x.dtype not in _MIX_DTYPES:
+        raise TypeError(f"{name} must be float32 or float64, got {x.dtype} "
+                        f"(the kernels take the f32 or f64 flat buffer)")
     r = 1 if ndim == 2 else x.shape[0]
-    return r, x.shape[-2], x.shape[-1]
+    return r, x.shape[-2], x.shape[-1], _MIX_DTYPES[x.dtype]
 
 
 def _on_cuda(x: torch.Tensor, *others: torch.Tensor) -> bool:
@@ -122,7 +124,8 @@ def _eta_tensor(eta, x: torch.Tensor, r: int) -> torch.Tensor:
     return eta.reshape(r).contiguous()
 
 
-def _check_ell(nbr, wv, wd, lead: tuple, n: int) -> int:
+def _check_ell(nbr, wv, wd, lead: tuple, n: int):
+    """(max_deg, wv, wd) of an ELL table, the weights cast to f32."""
     if (nbr.dtype != torch.int32 or nbr.ndim != len(lead) + 2
             or tuple(nbr.shape[:-1]) != lead + (n,)):
         raise ValueError(f"nbr must be {lead + (n,)} + (max_deg,) int32, got "
@@ -130,21 +133,20 @@ def _check_ell(nbr, wv, wd, lead: tuple, n: int) -> int:
     max_deg = nbr.shape[-1]
     if max_deg < 1:
         raise ValueError("the ELL table needs max_deg >= 1")
-    _check_buffer("wv", wv, lead + (n, max_deg))
-    _check_buffer("wd", wd, lead + (n,))
-    return max_deg
+    return (max_deg, _weights("wv", wv, lead + (n, max_deg)),
+            _weights("wd", wd, lead + (n,)))
 
 
 def _gossip(fn, ndim, w, x):
     """Kernels #1 (ndim 2) and #5 (ndim 3): y = W @ X per run."""
-    r, n, d = _lattice(x, ndim)
-    _check_buffer("w", w, x.shape[:-2] + (n, n))
+    r, n, d, dtype = _lattice(x, ndim)
+    w = _weights("w", w, x.shape[:-2] + (n, n))
     if not _on_cuda(x, w):
         return ref.gossip_mix(w, x)
     y = torch.empty_like(x)
     lib = build.load().libs["gossip_mix"]
     rc = lib.gossip_mix_dense(w.data_ptr(), x.data_ptr(), y.data_ptr(), r, n,
-                              d, _stream(x))
+                              d, dtype, _stream(x))
     _raise_on(rc, fn.__name__)
     fn.launches += 1
     return y
@@ -152,36 +154,36 @@ def _gossip(fn, ndim, w, x):
 
 def _gossip_sparse(fn, ndim, nbr, wv, wd, x):
     """Kernels #2 and #6: the ELL mix per run."""
-    r, n, d = _lattice(x, ndim)
-    max_deg = _check_ell(nbr, wv, wd, x.shape[:-2], n)
+    r, n, d, dtype = _lattice(x, ndim)
+    max_deg, wv, wd = _check_ell(nbr, wv, wd, x.shape[:-2], n)
     if not _on_cuda(x, nbr, wv, wd):
         return ref.gossip_mix_sparse(nbr, wv, wd, x)
     y = torch.empty_like(x)
     lib = build.load().libs["gossip_mix"]
     rc = lib.gossip_mix_ell(nbr.data_ptr(), wv.data_ptr(), wd.data_ptr(),
                             max_deg, x.data_ptr(), y.data_ptr(), r, n, d,
-                            _stream(x))
+                            dtype, _stream(x))
     _raise_on(rc, fn.__name__)
     fn.launches += 1
     return y
 
 
 def _update_args(ndim, x, g, eta, m, beta):
-    r, n, d = _lattice(x, ndim)
-    _check_buffer("g", g, tuple(x.shape))
+    r, n, d, dtype = _lattice(x, ndim)
+    _check_buffer("g", g, tuple(x.shape), x.dtype)
     if beta is not None:
         if m is None:
             raise ValueError("momentum step (beta set) needs the buffer m")
         _check_buffer("m", m, tuple(x.shape))
     elif m is not None:
         raise ValueError("momentum buffer passed without beta")
-    return r, n, d, _eta_tensor(eta, x, r)
+    return r, n, d, dtype, _eta_tensor(eta, x, r)
 
 
 def _update(fn, ndim, w, x, g, eta, m, beta, nesterov):
     """Kernels #3 and #7: y = W @ local_step(x, g) per run (and m')."""
-    r, n, d, eta = _update_args(ndim, x, g, eta, m, beta)
-    _check_buffer("w", w, x.shape[:-2] + (n, n))
+    r, n, d, dtype, eta = _update_args(ndim, x, g, eta, m, beta)
+    w = _weights("w", w, x.shape[:-2] + (n, n))
     extra = () if m is None else (m,)
     if not _on_cuda(x, w, g, eta, *extra):
         return ref.update_mix(w, x, g, eta, m, beta=beta, nesterov=nesterov)
@@ -193,7 +195,7 @@ def _update(fn, ndim, w, x, g, eta, m, beta, nesterov):
         None if m is None else m.data_ptr(), eta.data_ptr(), y.data_ptr(),
         None if m_out is None else m_out.data_ptr(), r, n, d,
         0.0 if beta is None else float(beta),
-        int(bool(nesterov)), _stream(x))
+        int(bool(nesterov)), dtype, _stream(x))
     _raise_on(rc, fn.__name__)
     fn.launches += 1
     return y if m is None else (y, m_out)
@@ -201,8 +203,8 @@ def _update(fn, ndim, w, x, g, eta, m, beta, nesterov):
 
 def _update_sparse(fn, ndim, nbr, wv, wd, x, g, eta, m, beta, nesterov):
     """Kernels #4 and #8: the fused step with the ELL mix per run."""
-    r, n, d, eta = _update_args(ndim, x, g, eta, m, beta)
-    max_deg = _check_ell(nbr, wv, wd, x.shape[:-2], n)
+    r, n, d, dtype, eta = _update_args(ndim, x, g, eta, m, beta)
+    max_deg, wv, wd = _check_ell(nbr, wv, wd, x.shape[:-2], n)
     extra = () if m is None else (m,)
     if not _on_cuda(x, nbr, wv, wd, g, eta, *extra):
         return ref.update_mix_sparse(nbr, wv, wd, x, g, eta, m, beta=beta,
@@ -215,7 +217,7 @@ def _update_sparse(fn, ndim, nbr, wv, wd, x, g, eta, m, beta, nesterov):
         g.data_ptr(), None if m is None else m.data_ptr(), eta.data_ptr(),
         y.data_ptr(), None if m_out is None else m_out.data_ptr(), r, n, d,
         0.0 if beta is None else float(beta),
-        int(bool(nesterov)), _stream(x))
+        int(bool(nesterov)), dtype, _stream(x))
     _raise_on(rc, fn.__name__)
     fn.launches += 1
     return y if m is None else (y, m_out)
@@ -277,19 +279,27 @@ def update_mix_sparse_batched(nbr, wv, wd, x, g, eta, m=None, *, beta=None,
 # ---------------------------------------------------------------------------
 
 
+def _ef_buffers(ndim, p, s, u):
+    r, n, d, dtype = _lattice(p, ndim, "p")
+    for name, t in (("s", s), ("u", u)):
+        _check_buffer(name, t, tuple(p.shape), p.dtype)
+    return r, n, d, dtype
+
+
 def _ef(fn, ndim, w, p, s, u):
     """Kernels #9 (ndim 2) and #10 (ndim 3): the EF receive side per run."""
-    r, n, d = _lattice(p, ndim, "p")
-    for name, t in (("s", s), ("u", u)):
-        _check_buffer(name, t, tuple(p.shape))
-    _check_buffer("w", w, p.shape[:-2] + (n, n))
+    r, n, d, dtype = _ef_buffers(ndim, p, s, u)
+    w32 = _weights("w", w, p.shape[:-2] + (n, n))
     if not _on_cuda(p, w, s, u):
         return ref.ef_mix(w, p, s, u)
+    # W_ii in p's dtype, from W as given (the reference's diag input)
+    diag = torch.diagonal(w, dim1=-2, dim2=-1).to(p.dtype).contiguous()
     y, res = torch.empty_like(p), torch.empty_like(p)
     lib = build.load().libs["compress_mix"]
     rc = lib.ef_mix_dense(
-        w.data_ptr(), p.data_ptr(), s.data_ptr(), u.data_ptr(), y.data_ptr(),
-        res.data_ptr(), r, n, d, _stream(p))
+        w32.data_ptr(), diag.data_ptr(), p.data_ptr(), s.data_ptr(),
+        u.data_ptr(), y.data_ptr(), res.data_ptr(), r, n, d, dtype,
+        _stream(p))
     _raise_on(rc, fn.__name__)
     fn.launches += 1
     return y, res
@@ -297,10 +307,8 @@ def _ef(fn, ndim, w, p, s, u):
 
 def _ef_sparse(fn, ndim, nbr, wv, wd, p, s, u):
     """Kernels #11 and #12: the EF receive side with the ELL mix per run."""
-    r, n, d = _lattice(p, ndim, "p")
-    for name, t in (("s", s), ("u", u)):
-        _check_buffer(name, t, tuple(p.shape))
-    max_deg = _check_ell(nbr, wv, wd, p.shape[:-2], n)
+    r, n, d, dtype = _ef_buffers(ndim, p, s, u)
+    max_deg, wv, wd = _check_ell(nbr, wv, wd, p.shape[:-2], n)
     if not _on_cuda(p, nbr, wv, wd, s, u):
         return ref.ef_mix_sparse(nbr, wv, wd, p, s, u)
     y, res = torch.empty_like(p), torch.empty_like(p)
@@ -308,7 +316,7 @@ def _ef_sparse(fn, ndim, nbr, wv, wd, p, s, u):
     rc = lib.ef_mix_ell(
         nbr.data_ptr(), wv.data_ptr(), wd.data_ptr(), max_deg, p.data_ptr(),
         s.data_ptr(), u.data_ptr(), y.data_ptr(), res.data_ptr(), r, n, d,
-        _stream(p))
+        dtype, _stream(p))
     _raise_on(rc, fn.__name__)
     fn.launches += 1
     return y, res
@@ -317,7 +325,7 @@ def _ef_sparse(fn, ndim, nbr, wv, wd, p, s, u):
 def ef_mix(w: torch.Tensor, p: torch.Tensor, s: torch.Tensor,
            u: torch.Tensor):
     """#9 (y, r) = ((W s)→p.dtype + diag(W)·(p − s), u − s) in one pass over
-    the f32 (n, D) buffers (kernel: compress_mix.cu)."""
+    the (n, D) buffers (kernel: compress_mix.cu)."""
     return _ef(ef_mix, 2, w, p, s, u)
 
 
@@ -328,8 +336,8 @@ def ef_mix_sparse(nbr, wv, wd, p, s, u):
 
 
 def ef_mix_batched(w, p, s, u):
-    """#10 #9 per run: W (R, n, n), p/s/u (R, n, D) f32; one launch for
-    all R runs (kernel: compress_mix.cu)."""
+    """#10 #9 per run: W (R, n, n), p/s/u (R, n, D); one launch for all R
+    runs (kernel: compress_mix.cu)."""
     return _ef(ef_mix_batched, 3, w, p, s, u)
 
 
@@ -342,12 +350,13 @@ def ef_mix_sparse_batched(nbr, wv, wd, p, s, u):
 
 def quant_mix(w, u, noise, p, scale):
     """#13 the int8 send side: (y, q) with q = clip(⌊u/scale + noise⌋, ±127)
-    int8 and y = W (q·scale) + diag(W)·(p − q·scale); the noise and the
-    per-row scales come from the caller (kernel: compress_mix.cu)."""
-    r, n, d = _lattice(u, 2, "u")
-    for name, t in (("noise", noise), ("p", p)):
-        _check_buffer(name, t, (n, d))
-    _check_buffer("w", w, (n, n))
+    int8 and y = W (q·scale) + diag(W)·(p − q·scale), in f32 and y cast to
+    p's dtype; the f32 noise and per-row scales come from the caller
+    (kernel: compress_mix.cu)."""
+    r, n, d, dtype = _lattice(p, 2, "p")
+    _check_buffer("u", u, (n, d), p.dtype)
+    _check_buffer("noise", noise, (n, d))
+    w = _weights("w", w, (n, n))
     _check_buffer("scale", scale, (n,))
     if not _on_cuda(u, w, noise, p, scale):
         return ref.quant_mix(w, u, noise, p, scale)
@@ -356,7 +365,7 @@ def quant_mix(w, u, noise, p, scale):
     lib = build.load().libs["compress_mix"]
     rc = lib.quant_mix_dense(
         w.data_ptr(), scale.data_ptr(), u.data_ptr(), noise.data_ptr(),
-        p.data_ptr(), y.data_ptr(), q.data_ptr(), r, n, d, _stream(u))
+        p.data_ptr(), y.data_ptr(), q.data_ptr(), r, n, d, dtype, _stream(u))
     _raise_on(rc, "quant_mix")
     quant_mix.launches += 1
     return y, q
@@ -364,14 +373,14 @@ def quant_mix(w, u, noise, p, scale):
 
 def dequant_mix(w, q, scale, p):
     """#14 the int8 receive side: y = W (q·scale) + diag(W)·(p − q·scale),
-    reading the int8 payload q at 1 B per element
-    (kernel: compress_mix.cu)."""
-    r, n, d = _lattice(p, 2, "p")
+    in f32 and cast to p's dtype, reading the int8 payload q at 1 B per
+    element (kernel: compress_mix.cu)."""
+    r, n, d, dtype = _lattice(p, 2, "p")
     if q.dtype != torch.int8:
         raise TypeError(f"q must be int8, got {q.dtype}")
     if tuple(q.shape) != (n, d):
         raise ValueError(f"q has shape {tuple(q.shape)}, expected {(n, d)}")
-    _check_buffer("w", w, (n, n))
+    w = _weights("w", w, (n, n))
     _check_buffer("scale", scale, (n,))
     if not _on_cuda(p, w, q, scale):
         return ref.dequant_mix(w, q, scale, p)
@@ -379,7 +388,7 @@ def dequant_mix(w, q, scale, p):
     lib = build.load().libs["compress_mix"]
     rc = lib.dequant_mix_dense(
         w.data_ptr(), scale.data_ptr(), q.data_ptr(), p.data_ptr(),
-        y.data_ptr(), r, n, d, _stream(p))
+        y.data_ptr(), r, n, d, dtype, _stream(p))
     _raise_on(rc, "dequant_mix")
     dequant_mix.launches += 1
     return y
@@ -546,12 +555,14 @@ def ell_table(adjacency) -> tuple[np.ndarray, np.ndarray]:
     return nbr[0], valid[0]
 
 
-def ell_weights(w: torch.Tensor, nbr: torch.Tensor, mask: torch.Tensor):
-    """Live (wv, wd) from the sampled W, (n, n) or (R, n, n): failed links
-    read 0.  f32 (f64 from an f64 W)."""
-    wf = w.to(torch.promote_types(w.dtype, torch.float32))
+def ell_weights(w: torch.Tensor, nbr: torch.Tensor, mask: torch.Tensor,
+                dtype: torch.dtype = torch.float32):
+    """Live (wv, wd) from the sampled W, (n, n) or (R, n, n), in ``dtype``
+    (the kernels' f32 by default, as the reference's ``_ell_weights``):
+    failed links read 0."""
+    wf = w.to(dtype)
     wv = torch.where(mask, torch.gather(wf, -1, nbr.long()),
-                     torch.zeros((), dtype=wf.dtype, device=wf.device))
+                     torch.zeros((), dtype=dtype, device=wf.device))
     return wv.contiguous(), torch.diagonal(wf, dim1=-2,
                                            dim2=-1).contiguous()
 
@@ -570,40 +581,38 @@ class EllTables:
                                 torch.as_tensor(self.mask, device=device))
         return self._on[device]
 
-    def weights(self, w: torch.Tensor, x: torch.Tensor):
-        """(nbr, wv, wd) on x's device, the weights read from W."""
+    def weights(self, w: torch.Tensor, x: torch.Tensor,
+                dtype: torch.dtype = torch.float32):
+        """(nbr, wv, wd) on x's device, the weights read from W in
+        ``dtype``."""
         if tuple(x.shape[:-1]) != self.nbr.shape[:-1]:
             raise ValueError(f"buffer of shape {tuple(x.shape)} does not "
                              f"match the ELL table's rows "
                              f"{self.nbr.shape[:-1]}")
         nbr, mask = self.on(x.device)
-        wv, wd = ell_weights(w, nbr, mask)
+        wv, wd = ell_weights(w, nbr, mask, dtype)
         return nbr, wv, wd
 
 
-def make_sparse_gossip(graph, dtype=torch.float32):
-    """mix(w, x) over the graph's static ELL table (kernel #2 on CUDA for
-    an f32 buffer, see :func:`route`), reading the live edge weights from
-    the sampled W every call."""
+def make_sparse_gossip(graph):
+    """mix(w, x) over the graph's static ELL table (kernel #2 on CUDA),
+    reading the live edge weights from the sampled W every call."""
     tables = EllTables(*ell_table(graph.adjacency))
-    fn = route(gossip_mix_sparse, dtype)
 
     def mix(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        return fn(*tables.weights(w, x), x)
+        return gossip_mix_sparse(*tables.weights(w, x), x)
 
     return mix
 
 
-def make_sparse_update_mix(graph, *, beta=None, nesterov=False,
-                           dtype=torch.float32):
+def make_sparse_update_mix(graph, *, beta=None, nesterov=False):
     """fused(w, x, g, eta, m=None) over the graph's ELL table (kernel #4
-    on CUDA for an f32 buffer)."""
+    on CUDA)."""
     tables = EllTables(*ell_table(graph.adjacency))
-    fn = route(update_mix_sparse, dtype)
 
     def fused(w, x, g, eta, m=None):
-        return fn(*tables.weights(w, x), x, g, eta, m, beta=beta,
-                  nesterov=nesterov)
+        return update_mix_sparse(*tables.weights(w, x), x, g, eta, m,
+                                 beta=beta, nesterov=nesterov)
 
     return fused
 
@@ -614,56 +623,48 @@ def _lattice_tables(graphs) -> EllTables:
     return EllTables(nbr, valid)
 
 
-def make_sparse_gossip_batched(graphs, dtype=torch.float32):
+def make_sparse_gossip_batched(graphs):
     """mix(w, x) for w (R, n, n), x (R, n, D) over the lattice's stacked
-    ELL tables (kernel #6 on CUDA for an f32 buffer, one launch for all R
-    runs), reading each run's live edge weights from its sampled W every
-    call."""
+    ELL tables (kernel #6 on CUDA, one launch for all R runs), reading each
+    run's live edge weights from its sampled W every call."""
     tables = _lattice_tables(graphs)
-    fn = route(gossip_mix_sparse_batched, dtype)
 
     def mix(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        return fn(*tables.weights(w, x), x)
+        return gossip_mix_sparse_batched(*tables.weights(w, x), x)
 
     return mix
 
 
-def make_sparse_update_mix_batched(graphs, *, beta=None, nesterov=False,
-                                   dtype=torch.float32):
+def make_sparse_update_mix_batched(graphs, *, beta=None, nesterov=False):
     """fused(w, x, g, eta, m=None) over the lattice's stacked ELL tables
-    (kernel #8 on CUDA for an f32 buffer); η holds one value per run."""
+    (kernel #8 on CUDA); η holds one value per run."""
     tables = _lattice_tables(graphs)
-    fn = route(update_mix_sparse_batched, dtype)
 
     def fused(w, x, g, eta, m=None):
-        return fn(*tables.weights(w, x), x, g, eta, m, beta=beta,
-                  nesterov=nesterov)
+        return update_mix_sparse_batched(*tables.weights(w, x), x, g, eta, m,
+                                         beta=beta, nesterov=nesterov)
 
     return fused
 
 
-def make_sparse_ef_mix(graph, dtype=torch.float32):
+def make_sparse_ef_mix(graph):
     """ef(w, p, s, u) -> (y, r) over the graph's static ELL table (kernel
-    #11 on CUDA for an f32 buffer), reading the live edge weights from the
-    sampled W."""
+    #11 on CUDA), reading the live edge weights from the sampled W."""
     tables = EllTables(*ell_table(graph.adjacency))
-    fn = route(ef_mix_sparse, dtype)
 
     def ef(w, p, s, u):
-        return fn(*tables.weights(w, p), p, s, u)
+        return ef_mix_sparse(*tables.weights(w, p), p, s, u)
 
     return ef
 
 
-def make_sparse_ef_mix_batched(graphs, dtype=torch.float32):
+def make_sparse_ef_mix_batched(graphs):
     """ef(w, p, s, u) -> (y, r) for w (R, n, n), p/s/u (R, n, D) over the
-    lattice's stacked ELL tables (kernel #12 on CUDA for an f32 buffer, one
-    launch for all R runs), reading each run's live edge weights from its
-    sampled W."""
+    lattice's stacked ELL tables (kernel #12 on CUDA, one launch for all R
+    runs), reading each run's live edge weights from its sampled W."""
     tables = _lattice_tables(graphs)
-    fn = route(ef_mix_sparse_batched, dtype)
 
     def ef(w, p, s, u):
-        return fn(*tables.weights(w, p), p, s, u)
+        return ef_mix_sparse_batched(*tables.weights(w, p), p, s, u)
 
     return ef

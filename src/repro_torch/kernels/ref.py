@@ -4,9 +4,10 @@ Each function computes what its kernel computes, with the reference's
 arithmetic (repro/kernels/gossip_mix.py, update_mix.py and
 compress_mix.py): the mix accumulates in f32 and casts to x's dtype,
 the optimizer step follows repro/optim/optimizers.py's dtype rules.
-A float64 buffer (which no kernel takes) is mixed in float64, with W cast
-to it, as the reference's plain mixes do (repro/core/engine.py:155-158,
-repro/core/gossip.py:112-132); the int8 mixes (#13/#14) stay f32.
+A float64 buffer is mixed in f32 too, as the reference's kernels mix it:
+the optimizer step and the EF correction and residual run in the
+buffer's dtype, the mix's sum in f32 (repro/kernels/update_mix.py:
+_local_step, _dense_mix, ef_mix_kernel).
 The model zoo's prefill kernels (#15–#17, flash_attention.py, ssd_scan.py
 and rglru_scan.py) have theirs at the end of the module.
 Every function takes one run's (n, D) buffer or a sweep lattice's
@@ -21,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["mix_dtype", "gossip_mix", "gossip_mix_sparse", "local_step",
+__all__ = ["gossip_mix", "ell_mix", "gossip_mix_sparse", "local_step",
            "update_mix", "update_mix_sparse", "gossip_mix_batched",
            "gossip_mix_sparse_batched", "update_mix_batched",
            "update_mix_sparse_batched", "ef_mix", "ef_mix_sparse",
@@ -30,23 +31,15 @@ __all__ = ["mix_dtype", "gossip_mix", "gossip_mix_sparse", "local_step",
            "rglru_scan_ref"]
 
 
-def mix_dtype(x: torch.Tensor) -> torch.dtype:
-    """The dtype a mix of ``x`` accumulates in: f32, or f64 for an f64
-    buffer."""
-    return torch.promote_types(x.dtype, torch.float32)
-
-
 def gossip_mix(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Y = W @ X (per run), accumulated in mix_dtype(x), output in x's
-    dtype."""
-    dt = mix_dtype(x)
-    return torch.matmul(w.to(dt), x.to(dt)).to(x.dtype)
+    """Y = W @ X (per run), f32 accumulation, output in x's dtype."""
+    return torch.matmul(w.float(), x.float()).to(x.dtype)
 
 
-def gossip_mix_sparse(nbr: torch.Tensor, wv: torch.Tensor, wd: torch.Tensor,
-                      x: torch.Tensor) -> torch.Tensor:
+def ell_mix(nbr: torch.Tensor, wv: torch.Tensor, wd: torch.Tensor,
+            x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
     """ELL mix y_i = wd_i x_i + Σ_k wv[i, k] x[nbr[i, k]] (per run),
-    accumulated in mix_dtype(x).
+    computed in ``dt``, output in x's dtype.
 
     Padded slots point at the row itself with weight 0 (exact +0.0).  Each
     term is gathered into a temporary that is scaled and accumulated in
@@ -54,8 +47,7 @@ def gossip_mix_sparse(nbr: torch.Tensor, wv: torch.Tensor, wd: torch.Tensor,
     its input.
     """
     if x.ndim == 2:
-        return gossip_mix_sparse(nbr[None], wv[None], wd[None], x[None])[0]
-    dt = mix_dtype(x)
+        return ell_mix(nbr[None], wv[None], wd[None], x[None], dt)[0]
     xa = x.to(dt)
     runs = torch.arange(x.shape[0], device=x.device)[:, None]
     acc = wd.to(dt)[..., None] * xa
@@ -63,6 +55,12 @@ def gossip_mix_sparse(nbr: torch.Tensor, wv: torch.Tensor, wd: torch.Tensor,
         acc.add_(xa[runs, nbr[..., k].long()].mul_(
             wv[..., k].to(dt)[..., None]))
     return acc.to(x.dtype)
+
+
+def gossip_mix_sparse(nbr: torch.Tensor, wv: torch.Tensor, wd: torch.Tensor,
+                      x: torch.Tensor) -> torch.Tensor:
+    """The ELL mix in f32 (per run), output in x's dtype."""
+    return ell_mix(nbr, wv, wd, x, torch.float32)
 
 
 def local_step(x: torch.Tensor, g: torch.Tensor, m: torch.Tensor | None,
@@ -132,7 +130,7 @@ def ef_mix(w, p, s, u):
 
 def ef_mix_sparse(nbr, wv, wd, p, s, u):
     """#11 the ELL form of #9: wd doubles as diag(W)."""
-    mix = gossip_mix_sparse(nbr, wv, wd, s.to(mix_dtype(s))).to(p.dtype)
+    mix = gossip_mix_sparse(nbr, wv, wd, s).to(p.dtype)
     y = _correct(mix, wd.to(p.dtype)[..., None], p, s)
     return y, u - s
 

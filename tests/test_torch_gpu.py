@@ -100,11 +100,11 @@ def _misaligned(t: torch.Tensor, misaligned: bool) -> torch.Tensor:
 @pytest.mark.parametrize("variant", VARIANTS)
 @pytest.mark.parametrize("misaligned", [False, True],
                          ids=["aligned", "misaligned"])
-def test_cuda_ell_stream_matches_plain_version(cuda, n, d, variant,
-                                               misaligned):
-    """The ELL branch at n <= 8: the bulk-copy stream where D % 4 == 0 and
-    the buffers are 16-byte aligned (a ragged last tile at D = 1000004),
-    the scalar path at D ≡ 1, 2, 3 (mod 4) and at a misaligned base."""
+def test_cuda_ell_vector_rows_match_plain_version(cuda, n, d, variant,
+                                                  misaligned):
+    """The ELL branch at n <= 8: 16-byte accesses where D % 4 == 0 and the
+    buffers are 16-byte aligned (a ragged last tile at D = 1000004), the
+    masked scalar ones at D ≡ 1, 2, 3 (mod 4) and at a misaligned base."""
     gen = torch.Generator(device=cuda)
     gen.manual_seed(n * 31 + d)
     x, g, m = (_misaligned(torch.randn(n, d, device=cuda, generator=gen),
@@ -245,7 +245,7 @@ def test_cuda_launches_are_counted(cuda):
 
 @pytest.mark.gpu
 def test_cuda_wrapper_raises_instead_of_falling_back(cuda):
-    x = torch.randn(4, 100, device=cuda, dtype=torch.float64)
+    x = torch.randn(4, 100, device=cuda, dtype=torch.float16)
     w = torch.rand(4, 4, device=cuda)
     with pytest.raises(TypeError):
         ops.gossip_mix(w, x)
@@ -494,6 +494,123 @@ def test_cuda_batched_ef_wrappers_raise_instead_of_falling_back(cuda):
 
 
 # ---------------------------------------------------------------------------
+# The mix kernels (#1–#14) on float64 buffers
+# ---------------------------------------------------------------------------
+
+MIX_KERNELS = ["gossip_mix", "gossip_mix_sparse", "update_mix",
+               "update_mix_sparse", "gossip_mix_batched",
+               "gossip_mix_sparse_batched", "update_mix_batched",
+               "update_mix_sparse_batched"] + COMPRESS_KERNELS \
+    + BATCHED_EF_KERNELS
+# the small path at n <= 8 (D % 4 == 0 and a ragged D), the general one
+F64_SHAPES = [(5, 4099), (8, 4096), (13, 3001)]
+
+
+def _f64_inputs(cuda, kernel: str, n: int, d: int) -> dict:
+    """f64 buffers, an f64 W (its diagonal in f64 for #9/#10), the f32
+    momentum, noise and int8 scales."""
+    batched = kernel.endswith("_batched")
+    if batched:
+        t = _ef_lattice_inputs(cuda, 2, n, d)
+    else:
+        t = _compress_inputs(cuda, n, d)
+        t["x"], t["g"], t["m"] = (torch.randn_like(t["p"])
+                                  for _ in range(3))
+        t["eta"] = torch.tensor([0.05], device=cuda)
+    t["g"] = t.get("g", torch.randn_like(t["x"]))
+    for k in ("x", "g", "p", "s", "u", "w"):
+        t[k] = t[k].double()
+    t["w"] = t["w"] + 1e-9   # not an f32 value: W is cast for the mix
+    if kernel == "quant_mix":  # the scales of the f64 u, rounded to f32
+        t["scale"] = (t["u"].abs().amax(-1) / 127.0).float()
+    return t
+
+
+def _f64_call(mod, kernel: str, t: dict, beta):
+    kw = {} if beta is None else {"beta": beta, "nesterov": True}
+    m = None if beta is None else t["m"]
+    if kernel in COMPRESS_KERNELS:
+        return _compress_call(mod, kernel, t)
+    if kernel in BATCHED_EF_KERNELS:
+        return _batched_ef_call(mod, kernel, t)
+    ell = "sparse" in kernel
+    if kernel.startswith("gossip"):
+        return mod.__dict__[kernel](*((t["nbr"], t["wv"], t["wd"]) if ell
+                                      else (t["w"],)), t["x"])
+    return mod.__dict__[kernel](*((t["nbr"], t["wv"], t["wd"]) if ell
+                                  else (t["w"],)), t["x"], t["g"],
+                                t["eta"], m, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,d", F64_SHAPES)
+@pytest.mark.parametrize("kernel", MIX_KERNELS)
+def test_cuda_f64_mix_kernel_matches_plain_version(cuda, n, d, kernel):
+    """An f64 buffer launches the kernel (counted): y in f64 within
+    1e-5·max|y| (the f32 mix, another summation order), m' (f32), the
+    residual (f64) and the int8 payload exactly."""
+    t = _f64_inputs(cuda, kernel, n, d)
+    for beta in ((None, 0.9) if kernel.startswith("update") else (None,)):
+        ops.reset_launch_counts()
+        got = _f64_call(ops, kernel, t, beta)
+        assert ops.launch_counts()[kernel] == 1
+        want = _f64_call(ref, kernel, t, beta)
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        assert got[0].dtype == torch.float64
+        assert (got[0] - want[0]).abs().max().item() <= \
+            1e-5 * want[0].abs().max().item()
+        for a, b in zip(got[1:], want[1:]):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("impl", ["pallas", "sparse"])
+@pytest.mark.parametrize("fused", [False, True])
+def test_cuda_f64_engine_launches_the_kernels(cuda, impl, fused):
+    """An f64 flat engine on the card runs the mix kernels (kernel #1/#2,
+    or #3/#4 fused) and agrees with the same round on the CPU."""
+    from repro_torch.core import draws as draws_lib, flat as flat_lib
+    from repro_torch.core.feddec import FedDecConfig
+    from repro_torch.core.mixing import MixingDistribution
+    n, d = 8, 4099
+    cfg = FedDecConfig(mixing=MixingDistribution(
+        topo.ring_graph(n, k=2), dtype=torch.float64), gossip_impl=impl,
+        h=10, k=2)   # no server round in the 2 steps: no device draws
+    params1 = {"w": torch.zeros(d, dtype=torch.float64)}
+    spec = flat_lib.make_flat_spec(params1)
+
+    def loss(params, batch):
+        return 0.5 * torch.sum(torch.square(params["w"] - batch["t"]))
+
+    flat0 = np.random.default_rng(0).standard_normal((n, d))
+    batches = {"t": np.random.default_rng(1).standard_normal((2, n, d))}
+    out = {}
+    for dev in ("cpu", cuda):
+        state = flat_lib.flat_state_from_numpy(flat0, 1, device=dev)
+        eta = torch.tensor([0.1], dtype=torch.float64, device=dev)
+        round_fn = flat_lib.make_flat_feddec_round(
+            cfg, spec, loss, lambda t: eta, device=dev,
+            fuse_update_mix=fused)
+        ops.reset_launch_counts()
+        state, _ = round_fn(state, {k: torch.as_tensor(v, device=dev)
+                                    for k, v in batches.items()},
+                            draws_lib.Draws(3, dev))
+        out[str(dev)] = state.flat.cpu()
+        counts = ops.launch_counts()
+    kernel = {("pallas", False): "gossip_mix",
+              ("sparse", False): "gossip_mix_sparse",
+              ("pallas", True): "update_mix",
+              ("sparse", True): "update_mix_sparse"}[impl, fused]
+    assert counts[kernel] == 2 and sum(counts.values()) == 2
+    want = out["cpu"]
+    assert out[str(cuda)].dtype == torch.float64
+    assert (out[str(cuda)] - want).abs().max().item() <= \
+        1e-5 * want.abs().max().item()
+
+
+# ---------------------------------------------------------------------------
 # The model zoo's prefill: #15 flash attention, #16 SSD scan, #17 RG-LRU scan
 # ---------------------------------------------------------------------------
 
@@ -545,6 +662,57 @@ def test_cuda_flash_attention_matches_plain_version(cuda, b, s, h, kv, hd,
         torch.cuda.synchronize()
         _zoo_close(got, ref.flash_attention_ref(q, k, v, window=window),
                    dtype)
+
+
+def _cancelling_attention(cuda, s, h, kv, hd, seed):
+    """bf16 q, k, v whose every full window cancels: v alternates in sign
+    from key to key (±64, one sign pattern per KV head and dim), and the
+    scores vary little (std 0.01), so y is small beside the terms p·v and
+    an error in P shows at full size."""
+    gen = _gen(cuda, seed)
+    q = (_randn(gen, 1, s, h, hd) * 0.1).bfloat16()
+    k = (_randn(gen, 1, s, kv, hd) * 0.1).bfloat16()
+    sign = torch.where(torch.rand(1, 1, kv, hd, device=cuda,
+                                  generator=gen) < 0.5, -1.0, 1.0)
+    alt = (-1.0) ** torch.arange(s, device=cuda, dtype=torch.float32)
+    return q, k, (64.0 * alt[None, :, None, None] * sign).bfloat16()
+
+
+def _bf16_p_attention(q, k, v, window):
+    """The one-product variant: P rounded to bf16 for P·V (what SDPA and
+    the xla path compute), the row sum of the f32 P."""
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    qg = q.reshape(b, s, kv, h // kv, hd).float() * hd ** -0.5
+    sc = torch.einsum("bskgh,btkh->bkgst", qg, k.float())
+    pos = torch.arange(s, device=q.device)
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None]
+                                             - window)
+    p = torch.exp(sc.masked_fill_(~mask, -1e30)
+                  - sc.amax(-1, keepdim=True))
+    y = torch.einsum("bkgst,btkh->bskgh", p.bfloat16().float(), v.float())
+    return (y / p.sum(-1)[..., None].permute(0, 3, 1, 2, 4)).reshape(
+        b, s, h, hd).bfloat16()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,kv,hd", [(2, 1, 128), (4, 1, 256), (4, 2, 64)])
+def test_cuda_flash_attention_keeps_p_to_f32_accuracy(cuda, h, kv, hd):
+    """#15's bf16 kernel forms P·V as P_hi·V + P_lo·V.  On inputs whose
+    windows cancel, the one-product bf16 P errs more than 1e-2·max|y| on
+    the rows with a full window (checked here: the inputs can tell the
+    two apart), and the kernel stays within it."""
+    s, window = 384, 128
+    q, k, v = _cancelling_attention(cuda, s, h, kv, hd, seed=hd)
+    rows = slice(window - 1, None)
+    with torch.inference_mode():
+        want = ref.flash_attention_ref(q, k, v, window=window).float()
+        tol = 1e-2 * want[:, rows].abs().max().item()
+        one = _bf16_p_attention(q, k, v, window).float()
+        assert (one - want)[:, rows].abs().max().item() > tol
+        got = ops.flash_attention(q, k, v, window=window).float()
+        torch.cuda.synchronize()
+    assert (got - want)[:, rows].abs().max().item() <= tol
 
 
 def _ssd_args(cuda, b, s, h, p, n, dtype, seed=0):

@@ -1,23 +1,28 @@
 """The port's float64 gossip mixes against the JAX package's, in x64 mode.
 
-The reference mixes a float64 buffer in float64: its plain mixes cast W to
-the buffer's dtype (repro/core/engine.py:155-158 and :180-183,
-repro/core/gossip.py:112-132), and fig4 (benchmarks/fig4_convergence.py)
-runs its lattice in float64 because f32 loses its suboptimality signal.
-The port's mix kernels take f32 only, so for another dtype the engine
-picks the kernels' plain versions when it builds the mix.  These tests
-make their inputs with numpy from a seed at fig4's shape (n 20 agents,
-D 25, geographic graphs of radius 0.5, x scaled by 2^20) and hold the
-port's flat and lattice mixes (dense, ELL, CSR; fixed W and link
-failures) to the live reference under ``jax.enable_x64(True)``, to
-1e-14·max|y| (the f32 detour they replace erred about 1e-7).  The x64
-switch is a context manager here, never ``jax.config.update``, so it
-does not leak into other test files on the same worker.
+The reference mixes a float64 buffer two ways.  Its plain mixes cast W to
+the buffer's dtype and mix in float64 (repro/core/engine.py:155-158 and
+:180-183, repro/core/gossip.py:112-132): 'dense' everywhere, and 'sparse'
+off the TPU.  Its Pallas kernels load and store float64 but mix in f32
+(repro/kernels/gossip_mix.py:41-44, update_mix.py:_local_step): 'pallas',
+the fused update+mix, and 'sparse' on the TPU.  The port's mix kernels do
+what the reference's kernels do, on the card and (their plain versions)
+on the CPU, so the port's 'sparse' is held to the reference's engine as
+it runs on the TPU (``on_tpu`` patched to true, its kernels in interpret
+mode).  fig4 (benchmarks/fig4_convergence.py) runs 'dense' in float64
+because f32 loses its suboptimality signal.
+
+The inputs are made with numpy from a seed at fig4's shape (n 20 agents,
+D 25, geographic graphs of radius 0.5, x scaled by 2^20).  The plain f64
+mixes (dense, CSR, a lattice's stacked ELL past the kernel's range) are
+held to 1e-14·max|y| (the f32 detour they replaced erred about 1e-7);
+the kernels' mixes, whose sums are f32 as the reference kernels' are but
+rounded in another order (and by fused multiply-adds), to 1e-6·max|y|.  The x64 switch is a context manager here, never
+``jax.config.update``, so it does not leak into other test files on the
+same worker.
 """
 
 from __future__ import annotations
-
-import logging
 
 import jax
 import jax.numpy as jnp
@@ -31,19 +36,29 @@ from repro.core import flat as ref_flat
 from repro.core import sweep as ref_sweep
 from repro.core import topology as ref_topo
 from repro.core.mixing import MixingDistribution as RefMixing
+from repro.kernels import ops as ref_ops
 from repro_torch.core import engine, flat as flat_lib, sweep
 from repro_torch.core import topology as topo
 from repro_torch.core.feddec import FedDecConfig
+from repro_torch.core.gossip import stacked_ell_tables
 from repro_torch.core.mixing import MixingDistribution
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ops
 from test_torch_engine import ReplayDraws
 from test_torch_sweep import ReplaySweepDraws
 
 N, D = 20, 25
 TOL = 1e-14                     # × max|y|: f64, other summation order
+TOL_MM = 1e-6                   # × max|y|: an f32 sum, other rounding
 X_SCALE = 2.0 ** 20             # fig4's c_20 = 2^20 heterogeneity
 F64, F32 = torch.float64, torch.float32
 JNP = {F64: jnp.float64, F32: jnp.float32}
+
+
+@pytest.fixture
+def ref_on_tpu(monkeypatch):
+    """The reference's engine as it runs on the TPU: 'sparse' takes its
+    ELL kernels (repro/core/engine.py:172, :195), in interpret mode."""
+    monkeypatch.setattr(ref_ops, "on_tpu", lambda: True)
 
 
 def _graphs(kind: str, seed: int = 1):
@@ -76,17 +91,27 @@ def _x(shape, seed=0):
     return np.random.default_rng(seed).standard_normal(shape) * X_SCALE
 
 
-def _assert_close(got: torch.Tensor, want) -> None:
+def _tol(kind: str, impl: str) -> float:
+    """The kernels' mixes ('pallas', and 'sparse' on a graph or lattice in
+    the ELL range: 'geo', 'ell') sum in f32, rounded otherwise than the
+    reference's XLA sums; the plain f64 mixes to 1e-14."""
+    kernel = impl == "pallas" or (impl == "sparse" and kind in ("geo",
+                                                                "ell"))
+    return TOL_MM if kernel else TOL
+
+
+def _assert_close(got: torch.Tensor, want, tol: float = TOL) -> None:
     want = np.asarray(want)
-    assert got.dtype == F64 and want.dtype == np.float64
+    assert got.dtype == torch.from_numpy(want).dtype
     scale = np.abs(want).max()
-    assert np.abs(got.numpy() - want).max() <= TOL * scale
+    assert np.abs(got.numpy() - want).max() <= tol * scale
 
 
 # (graph, impl, p_fail, W dtype): fixed W in f64 and, as fig4 leaves it,
 # in f32 beside the f64 buffer; link failures resampled in f64
 FLAT_CELLS = [("geo", "dense", 0.0, F64), ("geo", "dense", 0.0, F32),
-              ("geo", "dense", 0.3, F64), ("geo", "sparse", 0.0, F64),
+              ("geo", "dense", 0.3, F64), ("geo", "pallas", 0.0, F64),
+              ("geo", "pallas", 0.3, F64), ("geo", "sparse", 0.0, F64),
               ("geo", "sparse", 0.0, F32), ("geo", "sparse", 0.3, F64),
               ("star", "sparse", 0.0, F64), ("star", "sparse", 0.3, F64)]
 
@@ -94,9 +119,13 @@ FLAT_CELLS = [("geo", "dense", 0.0, F64), ("geo", "dense", 0.0, F32),
 @pytest.mark.parametrize("kind,impl,p_fail,w_dtype", FLAT_CELLS, ids=[
     f"{k}-{'csr' if k == 'star' else i}-p{p}-{str(w).split('.')[1]}"
     for k, i, p, w in FLAT_CELLS])
-def test_flat_f64_mix_matches_reference(kind, impl, p_fail, w_dtype):
+@pytest.mark.parametrize("x_dtype", [F64, F32])
+def test_flat_f64_mix_matches_reference(kind, impl, p_fail, w_dtype,
+                                        x_dtype, ref_on_tpu):
+    """An f64 (or f32) buffer mixed with an f64 (or f32) W^t, each pairing
+    the reference takes."""
     rcfg, cfg = _configs(kind, impl, p_fail, w_dtype)
-    x = _x((N, D))
+    x = _x((N, D)).astype(JNP[x_dtype])
     key = jax.random.key(5)
     with jax.enable_x64(True):
         w_ref = rcfg.mixing.sample(key)
@@ -108,8 +137,9 @@ def test_flat_f64_mix_matches_reference(kind, impl, p_fail, w_dtype):
     assert w.dtype == w_dtype
     np.testing.assert_allclose(w.numpy(), np.asarray(w_ref), rtol=0,
                                atol=1e-15)
-    y = engine.resolve_gossip(cfg, "flat", F64)(w, torch.from_numpy(x))
-    _assert_close(y, y_ref)
+    y = engine.resolve_gossip(cfg, "flat")(w, torch.from_numpy(x))
+    # an f32 buffer: f32 rounding and the library's order of summation
+    _assert_close(y, y_ref, _tol(kind, impl) if x_dtype == F64 else TOL_MM)
 
 
 # per-run (graph kind, graph seed, p_fail): a fixed W, a run with link
@@ -119,12 +149,15 @@ LATTICES = {"ell": [("geo", 1, 0.0), ("geo", 1, 0.3), ("geo", 2, 0.0)],
             "wide": [("geo", 1, 0.3), ("star", 0, 0.0), ("star", 0, 0.2)]}
 
 
-@pytest.mark.parametrize("impl", ["dense", "sparse"])
+@pytest.mark.parametrize("impl", ["dense", "pallas", "sparse"])
 @pytest.mark.parametrize("lattice", sorted(LATTICES))
-def test_lattice_f64_mix_matches_reference(impl, lattice):
+@pytest.mark.parametrize("x_dtype", [F64, F32])
+def test_lattice_f64_mix_matches_reference(impl, lattice, x_dtype,
+                                           ref_on_tpu):
+    """Every run's W^t in f64, on an f64 (or f32) lattice buffer."""
     pairs = [_configs(kind, impl, p, F64, seed)
              for kind, seed, p in LATTICES[lattice]]
-    x = _x((len(pairs), N, D), seed=1)
+    x = _x((len(pairs), N, D), seed=1).astype(JNP[x_dtype])
     keys = jax.random.split(jax.random.key(9), len(pairs))
     with jax.enable_x64(True):
         ref_plan = ref_sweep.make_sweep_plan([p[0] for p in pairs])
@@ -139,8 +172,9 @@ def test_lattice_f64_mix_matches_reference(impl, lattice):
     assert plan.w_dtype == F64 and w.dtype == F64
     np.testing.assert_allclose(w.numpy(), np.asarray(w_ref), rtol=0,
                                atol=1e-15)
-    y = sweep.resolve_sweep_gossip(plan, F64)(w, torch.from_numpy(x))
-    _assert_close(y, y_ref)
+    y = sweep.resolve_sweep_gossip(plan)(w, torch.from_numpy(x))
+    _assert_close(y, y_ref, _tol(lattice, impl) if x_dtype == F64
+                  else TOL_MM)
 
 
 def test_lattice_with_mixed_mixing_dtypes_is_rejected_like_the_reference():
@@ -154,41 +188,168 @@ def test_lattice_with_mixed_mixing_dtypes_is_rejected_like_the_reference():
         "mixing dtype must be shared across the lattice"
 
 
-@pytest.mark.parametrize("impl,layout", [("pallas", "flat"),
-                                         ("sparse", "flat"),
-                                         ("pallas", "sweep"),
-                                         ("sparse", "sweep")])
-def test_f64_buffer_takes_the_plain_mix_and_logs_it(impl, layout, caplog):
-    """The engine picks the plain version when it builds the mix, from the
-    buffer's dtype, and logs the choice; an f32 buffer keeps the kernel."""
-    _, cfg = _configs("geo", impl)
-    source = cfg if layout == "flat" else sweep.make_sweep_plan([cfg] * 2)
-    with caplog.at_level(logging.INFO, logger="repro_torch.kernels.ops"):
-        mix = engine.resolve_gossip(source, layout, F64)
-    assert "the plain version" in caplog.text and "float64" in caplog.text
-    if impl == "pallas":
-        assert mix is (ref.gossip_mix if layout == "flat"
-                       else ref.gossip_mix_batched)
-        assert engine.resolve_gossip(source, layout, F32) is (
-            ops.gossip_mix if layout == "flat" else ops.gossip_mix_batched)
-    ops.reset_launch_counts()
-    lead = () if layout == "flat" else (2,)
-    w = cfg.mixing.make_sampler("cpu")(None, 1)
-    y = mix(w.expand(lead + w.shape), torch.from_numpy(_x(lead + (N, D))))
-    assert y.dtype == F64
-    assert all(v == 0 for v in ops.launch_counts().values())
+# -- the mix kernels on f64 buffers -----------------------------------------
+#
+# Each wrapper on CPU tensors runs its kernel's plain version, the function
+# the chip check holds the CUDA kernel to; here it is held to the
+# reference's Pallas kernel on the same f64 inputs (W in f64, as fig4 samples
+# it, so #9/#10's diagonal correction takes W_ii in f64).
+
+MIX_KERNELS = ["gossip_mix", "gossip_mix_sparse", "update_mix",
+               "update_mix_sparse", "gossip_mix_batched",
+               "gossip_mix_sparse_batched", "update_mix_batched",
+               "update_mix_sparse_batched", "ef_mix", "ef_mix_sparse",
+               "ef_mix_batched", "ef_mix_sparse_batched", "quant_mix",
+               "dequant_mix"]
+R = 2
 
 
-def test_the_mix_kernels_still_take_f32_only():
+def _kernel_inputs(batched: bool):
+    rng = np.random.default_rng(7)
+    lead = (R,) if batched else ()
+    graphs = [_graphs("geo", seed)[1] for seed in (1, 2)][:R if batched
+                                                          else 1]
+    w = np.stack([topo.build_weights(g, "laplacian") for g in graphs])
+    t = {"w": w if batched else w[0],
+         "graphs": graphs,
+         "eta": np.array([0.05, 0.02][:R if batched else 1], np.float32)}
+    for name in ("x", "g", "p", "s", "u"):
+        t[name] = rng.standard_normal(lead + (N, D)) * X_SCALE
+    t["m"] = rng.standard_normal(lead + (N, D)).astype(np.float32)
+    t["noise"] = rng.random((N, D), dtype=np.float32)
+    t["scale"] = (np.abs(t["u"]).max(axis=-1) / 127.0).astype(np.float32) \
+        if not batched else None
+    t["q"] = rng.integers(-127, 128, (N, D)).astype(np.int8)
+    return t
+
+
+def _port_kernel(kernel: str, t: dict, beta):
+    tt = {k: torch.from_numpy(v) for k, v in t.items()
+          if isinstance(v, np.ndarray)}
+    batched = kernel.endswith("_batched")
+    kw = {} if beta is None else {"beta": beta, "nesterov": True}
+    m = None if beta is None else tt["m"]
+    if "sparse" in kernel:
+        g = t["graphs"]
+        make = {"gossip_mix_sparse": ops.make_sparse_gossip,
+                "update_mix_sparse": ops.make_sparse_update_mix,
+                "ef_mix_sparse": ops.make_sparse_ef_mix}[
+                    kernel.replace("_batched", "")] if not batched else {
+                "gossip_mix_sparse_batched": ops.make_sparse_gossip_batched,
+                "update_mix_sparse_batched":
+                    ops.make_sparse_update_mix_batched,
+                "ef_mix_sparse_batched": ops.make_sparse_ef_mix_batched}[
+                    kernel]
+        fn = make(g if batched else g[0], **kw) if "update" in kernel \
+            else make(g if batched else g[0])
+        if "update" in kernel:
+            return fn(tt["w"], tt["x"], tt["g"], tt["eta"], m)
+        if "ef" in kernel:
+            return fn(tt["w"], tt["p"], tt["s"], tt["u"])
+        return fn(tt["w"], tt["x"])
+    fn = getattr(ops, kernel)
+    if kernel.startswith("update"):
+        return fn(tt["w"], tt["x"], tt["g"], tt["eta"], m, **kw)
+    if kernel.startswith("ef"):
+        return fn(tt["w"], tt["p"], tt["s"], tt["u"])
+    if kernel == "quant_mix":
+        return fn(tt["w"], tt["u"], tt["noise"], tt["p"], tt["scale"])
+    if kernel == "dequant_mix":
+        return fn(tt["w"], tt["q"], tt["scale"], tt["p"])
+    return fn(tt["w"], tt["x"])
+
+
+def _ref_kernel(kernel: str, t: dict, beta):
+    j = {k: jnp.asarray(v) for k, v in t.items()
+         if isinstance(v, np.ndarray)}
+    batched = kernel.endswith("_batched")
+    kw = {} if beta is None else {"beta": beta, "nesterov": True}
+    m = None if beta is None else j["m"]
+    ref_graphs = [ref_topo.Graph(g.adjacency) for g in t["graphs"]]
+    eta = j["eta"] if batched else j["eta"][0]
+    if "sparse" in kernel:
+        base = {"gossip_mix_sparse": "sparse_gossip",
+                "update_mix_sparse": "sparse_update_mix",
+                "ef_mix_sparse": "sparse_ef_mix"}[
+                    kernel.replace("_batched", "")]
+        make = getattr(ref_ops, f"make_{base}_batched_pallas" if batched
+                       else f"make_{base}_pallas")
+        fn = make(ref_graphs if batched else ref_graphs[0], **kw) \
+            if "update" in kernel else make(ref_graphs if batched
+                                            else ref_graphs[0])
+        if "update" in kernel:
+            return fn(j["w"], j["x"], j["g"], eta, m)
+        if "ef" in kernel:
+            return fn(j["w"], j["p"], j["s"], j["u"])
+        return fn(j["w"], j["x"])
+    fn = getattr(ref_ops, kernel)
+    if kernel.startswith("update"):
+        return fn(j["w"], j["x"], j["g"], eta, m=m, **kw)
+    if kernel.startswith("ef"):
+        return fn(j["w"], j["p"], j["s"], j["u"])
+    if kernel == "quant_mix":
+        return fn(j["w"], j["u"], j["noise"], j["p"], j["scale"])
+    if kernel == "dequant_mix":
+        return fn(j["w"], j["q"], j["scale"], j["p"])
+    return fn(j["w"], j["x"])
+
+
+def _kernel_cells():
+    for kernel in MIX_KERNELS:
+        for beta in ((None, 0.9) if kernel.startswith("update")
+                     else (None,)):
+            yield kernel, beta
+
+
+@pytest.mark.parametrize("kernel,beta", list(_kernel_cells()), ids=[
+    f"{k}-{'sgd' if b is None else 'nesterov'}"
+    if k.startswith("update") else k for k, b in _kernel_cells()])
+def test_f64_mix_kernels_match_the_reference_kernels(kernel, beta):
+    """y (and m', the residual or the int8 payload) in the buffer's dtype:
+    the optimizer step, the EF residual and correction in f64, the mix's
+    sum in f32, as the reference's Pallas kernels compute them."""
+    t = _kernel_inputs(kernel.endswith("_batched"))
+    with jax.enable_x64(True):
+        want = _ref_kernel(kernel, t, beta)
+    got = _port_kernel(kernel, t, beta)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    assert len(got) == len(want)
+    assert got[0].dtype == F64
+    _assert_close(got[0], want[0], TOL_MM)
+    for g_, w_ in zip(got[1:], want[1:]):   # m' f32, r f64, q int8: exact
+        np.testing.assert_array_equal(g_.numpy(), np.asarray(w_))
+
+
+def test_the_mix_kernels_take_f32_and_f64_only():
     x = torch.from_numpy(_x((N, D)))
     w = torch.eye(N, dtype=F64)
-    with pytest.raises(TypeError, match="float32"):
-        ops.gossip_mix(w, x)
+    assert ops.gossip_mix(w, x).dtype == F64
+    with pytest.raises(TypeError, match="float32 or float64"):
+        ops.gossip_mix(w, x.half())
+    with pytest.raises(TypeError):   # g must share x's dtype
+        ops.update_mix(w, x, x.float(), torch.tensor([0.1]))
     _, cfg = _configs("geo", "sparse")
-    nbr, mask = ops.ell_table(cfg.mixing.graph.adjacency)
-    tables = ops.EllTables(nbr, mask)
-    with pytest.raises(TypeError, match="float32"):
-        ops.gossip_mix_sparse(*tables.weights(w, x), x)
+    tables = ops.EllTables(*ops.ell_table(cfg.mixing.graph.adjacency))
+    nbr, wv, wd = tables.weights(w, x)
+    assert wv.dtype == wd.dtype == F32   # the kernels' f32 tables
+    assert ops.gossip_mix_sparse(nbr, wv, wd, x).dtype == F64
+    with pytest.raises(TypeError, match="float32 or float64"):
+        ops.gossip_mix_sparse(nbr, wv, wd, x.half())
+
+
+def test_the_plain_stacked_ell_follows_the_buffer_dtype():
+    """A lattice past the kernel's degree range takes the plain stacked
+    ELL in the buffer's dtype, its weights read from W in that dtype."""
+    graphs = [_graphs(k, 1)[1] for k in ("geo", "star")]
+    nbr, valid, _ = stacked_ell_tables(graphs)
+    w = torch.from_numpy(np.stack([topo.build_weights(g, "laplacian")
+                                   for g in graphs]))
+    x = torch.from_numpy(_x((2, N, D)))
+    from repro_torch.core import gossip
+    y = gossip.make_sparse_gossip_batched(graphs)(w, x)
+    assert y.dtype == F64
+    _assert_close(y, torch.matmul(w, x).numpy())
 
 
 # -- the flat engine end to end in f64 --------------------------------------
@@ -234,13 +395,22 @@ def _port_round(cfg, fused, flat0):
     return state, round_fn
 
 
-@pytest.mark.parametrize("kind,impl,p_fail", [
-    ("geo", "dense", 0.0), ("geo", "sparse", 0.0), ("geo", "sparse", 0.3),
-    ("star", "sparse", 0.0)])
-def test_flat_f64_engine_matches_reference(kind, impl, p_fail):
+ENGINE_CELLS = [("geo", "dense", 0.0, False), ("geo", "pallas", 0.0, False),
+                ("geo", "sparse", 0.0, False), ("geo", "sparse", 0.3, False),
+                ("star", "sparse", 0.0, False), ("geo", "dense", 0.0, True),
+                ("geo", "pallas", 0.3, True), ("geo", "sparse", 0.3, True)]
+
+
+@pytest.mark.parametrize("kind,impl,p_fail,fused", ENGINE_CELLS, ids=[
+    f"{k}-{i}-p{p}{'-fused' if f else ''}" for k, i, p, f in ENGINE_CELLS])
+def test_flat_f64_engine_matches_reference(kind, impl, p_fail, fused,
+                                           ref_on_tpu):
     """Two rounds of H = 3 steps with the server; the losses keep the
-    loss's dtype (f64) and agree with the reference's."""
+    loss's dtype (f64) and agree with the reference's.  The fused
+    update+mix (kernels #3/#4) sums its mix in f32 on every impl, as the
+    reference's fused path does."""
     rcfg, cfg = _configs(kind, impl, p_fail, F64, h=H, k=K)
+    tol = TOL_MM if fused else _tol(kind, impl)
     flat0 = _x((N, D), seed=4)
     key = jax.random.key(11)
     with jax.enable_x64(True):
@@ -252,8 +422,9 @@ def test_flat_f64_engine_matches_reference(kind, impl, p_fail):
                                        opt_state=())
         round_ref = ref_flat.make_flat_feddec_round(
             rcfg, ref_spec, _ref_grad_fn,
-            lambda t: jnp.asarray(ETA, jnp.float64), donate=False)
-        state, round_fn = _port_round(cfg, False, flat0)
+            lambda t: jnp.asarray(ETA, jnp.float64), donate=False,
+            fuse_update_mix=fused)
+        state, round_fn = _port_round(cfg, fused, flat0)
         draws = ReplayDraws(key)
         for batches in _batches(2):
             rstate, rmet = round_ref(
@@ -263,16 +434,16 @@ def test_flat_f64_engine_matches_reference(kind, impl, p_fail):
                 draws)
             assert met["loss"].dtype == F64
             np.testing.assert_allclose(met["loss"].numpy(),
-                                       np.asarray(rmet["loss"]), rtol=1e-13,
-                                       atol=0)
-    _assert_close(state.flat, rstate.flat)
+                                       np.asarray(rmet["loss"]),
+                                       rtol=100 * tol, atol=0)
+    _assert_close(state.flat, rstate.flat, tol)
 
 
-@pytest.mark.parametrize("impl", ["dense", "pallas", "sparse"])
+@pytest.mark.parametrize("impl", ["pallas", "sparse"])
 def test_fused_f64_round_equals_the_unfused_one(impl):
-    """The fused update+mix takes the plain version on f64 (the reference's
-    fused path runs its f32 Pallas kernels there): it must agree with the
-    port's unfused f64 round."""
+    """The fused update+mix (kernel #3/#4) forms p in f64 and mixes it in
+    f32, as the unfused step and kernel #1/#2 do: the two rounds agree up
+    to η, which the kernels take in f32 as the reference's do."""
     _, cfg = _configs("geo", impl, h=H, k=K)
     flat0 = _x((N, D), seed=4)
     out = []
@@ -284,7 +455,7 @@ def test_fused_f64_round_equals_the_unfused_one(impl):
                 state, {k: torch.from_numpy(v) for k, v in batches.items()},
                 draws)
         out.append(state.flat)
-    _assert_close(out[1], out[0].numpy())
+    _assert_close(out[1], out[0].numpy(), TOL_MM)
 
 
 def test_losses_keep_the_loss_dtype():
