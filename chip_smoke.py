@@ -41,10 +41,14 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
      hd 256, window 2048, bf16; #16 at Mamba2-2.7B's B 1, S 4096, H 80,
      P 64, N 128, bf16; #17 at RecurrentGemma-9B's B 1, S 4096, W 4096),
      within 1e-5·max|y| in f32 and 1e-2·max|y| in bf16, #17's h_last
-     equal to h[:, -1]; timed at the models' shapes beside the plain
-     version and, for #15, F.scaled_dot_product_attention; and #15's P
+     equal to h[:, -1] and h to the plain version's (0.0); timed at the
+     models' shapes beside the plain version and, for #15,
+     F.scaled_dot_product_attention, #16's three passes profiled; #15's P
      check: on inputs whose windows cancel, a one-product bf16 P errs past
-     1e-2·max|y| and the kernel (P_hi·V + P_lo·V) must not;
+     1e-2·max|y| and the kernel (P_hi·V + P_lo·V) must not; and #16's
+     accuracy check: at A = -77..-80 (f32, S 512) the kernel within
+     1e-6·max|y| of an f64 recurrence on the card, the cum-difference
+     chunked form (models/ssm.py:ssd_chunked) at least 10× further off;
   4. training: the full-size tiny LM, 8 agents, ring2, H = 10, K = 2,
      batch 2, seq 128, 10 steps, on paths (a) --gossip-impl pallas,
      (b) sparse, (c) pallas --fuse-update-mix --optimizer momentum,
@@ -88,14 +92,18 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
      times (RecurrentGemma-9B) or #16 64 times (Mamba2-2.7B) and nothing
      else, the logits are finite and agree to 1e-4·max|logit| (f32) or
      to bf16_model_bound (bf16); each bf16 model again with f32 compute
-     on the same weights, to 1e-4·max|logit|.  RecurrentGemma-9B peaks
-     near 45 GB in bf16 and near 46 GB with f32 compute.
+     on the same weights, to 1e-4·max|logit|; then Mamba2-2.7B's bf16 gap
+     at S 1024, 2048 and 4096 (token prefixes) for weight seeds 0, 1 and
+     2, each within bf16_model_bound.  RecurrentGemma-9B peaks near 45 GB
+     in bf16 and near 46 GB with f32 compute.
 
 Kernel times are the median over 5 repeats of the mean of 10 calls
 (CUDA events).  ``python3 chip_smoke.py --mix-timing DIR`` runs only the
 ELL kernels #2, #4, #6 and #8 at full shape, checked and timed (median of
 9 repeats) from the package under DIR/src, and prints one JSON line: run
-it on two trees in one call to compare them on one card.
+it on two trees in one call to compare them on one card.  ``python3
+chip_smoke.py --gap-table DIR`` prints Mamba2-2.7B's gap table of the
+package under DIR/src (its #16) as one JSON line.
 
 It prints the command's total time, one JSON line with every kernel's
 launches, errors and times, the nvidia-smi line, and as the last line
@@ -190,12 +198,23 @@ FLASH_EDGE = [(1, 77, 4, 2, 64, 0, "float32"),
               (2, 131, 4, 4, 64, 0, "bfloat16"),
               (1, 515, 12, 3, 256, 0, "bfloat16"),
               (1, 1000, 16, 1, 256, 333, "bfloat16")]
-# (B, S, H, P, N, dtype): P off the 16-row blocks, N = 8 ... 256
+# (B, S, H, P, N, dtype): P off the 16-row blocks and the 64-row tile
+# (17, 20, 80, 128), N = 8 ... 256 (24, 136 off the 16- and 64-column
+# tiles), S below the 64-token chunk, S = 1 and S off the chunk, B 2
 SSD_EDGE = [(1, 100, 3, 20, 16, "float32"), (2, 77, 4, 64, 128, "bfloat16"),
-            (1, 50, 2, 17, 8, "float32"), (1, 300, 5, 64, 256, "bfloat16")]
-# (B, S, W, dtype)
+            (1, 50, 2, 17, 8, "float32"), (1, 300, 5, 64, 256, "bfloat16"),
+            (1, 1, 2, 64, 128, "bfloat16"), (1, 1, 1, 20, 8, "float32"),
+            (1, 40, 3, 64, 64, "bfloat16"), (2, 130, 2, 17, 8, "bfloat16"),
+            (1, 300, 5, 64, 256, "float32"), (2, 200, 3, 128, 24, "bfloat16"),
+            (1, 129, 2, 80, 136, "float32"), (2, 257, 4, 20, 256, "bfloat16")]
+# (B, S, W, dtype): W = 1, 33, 4097 and rows that are not 16-byte multiples
+# (the producer's plain-load path), W % 4 == 0 / % 8 == 0 (bulk copies),
+# S = 1 and off the 32-token slot, B 3
 RGLRU_EDGE = [(2, 77, 301, "float32"), (1, 33, 4097, "bfloat16"),
-              (3, 5, 2, "float32"), (1, 1000, 1023, "bfloat16")]
+              (3, 5, 2, "float32"), (1, 1000, 1023, "bfloat16"),
+              (1, 50, 1, "float32"), (3, 1, 33, "bfloat16"),
+              (1, 40, 4097, "float32"), (3, 70, 4096, "float32"),
+              (2, 300, 512, "bfloat16"), (1, 1, 1, "bfloat16")]
 # the models' own shapes, named by the model whose prefill gives them
 ZOO_FULL = {
     "flash_attention": {"tiny": (2, 1024, 12, 6, 64, 0, "float32"),
@@ -1211,6 +1230,9 @@ def check_zoo(torch, kernel: str, shape: tuple, seed: int) -> dict:
         check(torch.equal(got[1], got[0][:, -1]),
               f"rglru_scan {shape}: h_last differs from h[:, -1]")
         out["h_equal_to_plain"] = bool(torch.equal(got[0], want[0]))
+        check(out["h_equal_to_plain"],
+              f"rglru_scan {shape}: h differs from the plain version's "
+              f"(the recurrence is rounded alike: expected bit for bit)")
     return out
 
 
@@ -1269,10 +1291,94 @@ def split_p_check(torch) -> dict:
             "bf16_p_err": one_err, "tol": tol}
 
 
+# #16's accuracy check: the inputs of tests/test_torch_zoo.py::
+# test_ssd_recurrence_is_more_accurate_than_the_chunked_form, Mamba2's
+# largest heads (A = -77 ... -80)
+SSD_ACCURACY = (1, 512, 4, 64, 128)
+SSD_ACCURACY_TOL = 1e-6         # × max|y| against the f64 recurrence
+
+
+def ssd_accuracy_inputs(torch):
+    """x, Δ, A, B, C (f32, on the card) from numpy's generator, seed 11,
+    drawn as the CPU test draws them: Δ = softplus(N(0, 1) − 4.6)."""
+    import numpy as np
+    b, s, h, p, n = SSD_ACCURACY
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((b, s, h, p), dtype=np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((b, s, h)) - 4.6)).astype(
+        np.float32)
+    bb = rng.standard_normal((b, s, n), dtype=np.float32)
+    cc = rng.standard_normal((b, s, n), dtype=np.float32)
+    a = -np.arange(77, 77 + h, dtype=np.float32)
+    return [torch.from_numpy(v).to(DEVICE) for v in (x, dt, a, bb, cc)]
+
+
+def ssd_accuracy_check(torch) -> dict:
+    """#16's f32 route against an f64 recurrence on the card, where Δ·A is
+    large: the kernel within SSD_ACCURACY_TOL·max|y|, and the chunked form
+    with decays exp(cum_i − cum_j) (models/ssm.py:ssd_chunked, chunk 256)
+    at least 10× further off on the same inputs (so that the check tells
+    the two apart)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import ssm
+    args = ssd_accuracy_inputs(torch)
+    x, dt, a, b, c = (t.double() for t in args)
+    with torch.inference_mode():
+        state = torch.zeros(x.shape[0], x.shape[2], x.shape[3], b.shape[-1],
+                            dtype=torch.float64, device=DEVICE)
+        exact = torch.empty(x.shape, dtype=torch.float64, device=DEVICE)
+        for t in range(x.shape[1]):
+            state.mul_(torch.exp(dt[:, t] * a)[:, :, None, None]).add_(
+                (x[:, t] * dt[:, t, :, None])[..., None]
+                * b[:, t][:, None, None, :])
+            exact[:, t] = torch.einsum("bhpn,bn->bhp", state, c[:, t])
+        got = ops.ssd_scan(*args)
+        torch.cuda.synchronize()
+        chunked = ssm.ssd_chunked(*args, chunk=256)[0]
+    scale = exact.abs().max().item()
+    err = (got.double() - exact).abs().max().item()
+    chunk_err = (chunked.double() - exact).abs().max().item()
+    check(err <= SSD_ACCURACY_TOL * scale,
+          f"ssd_scan accuracy check: max_abs_err {err:.3e} > "
+          f"{SSD_ACCURACY_TOL}·{scale:.3e} against the f64 recurrence")
+    check(chunk_err >= 10 * err,
+          f"ssd_scan accuracy check: the cum-difference form errs "
+          f"{chunk_err:.3e}, not 10× the kernel's {err:.3e}")
+    log(f"[kernels] ssd_scan accuracy check {SSD_ACCURACY}, A = -77..-80, "
+        f"f32, against an f64 recurrence: kernel err {err / scale:.3e}·"
+        f"max|y|, cum-difference chunked form {chunk_err / scale:.3e}·"
+        f"max|y| (limit {SSD_ACCURACY_TOL}·max|y|, the other form ≥ 10×)")
+    return {"shape": list(SSD_ACCURACY), "max_abs_err": err,
+            "chunked_err": chunk_err, "scale": scale,
+            "tol": SSD_ACCURACY_TOL}
+
+
+def kernel_pass_ms(torch, fn, calls: int = 10) -> dict:
+    """Device ms per call of each CUDA kernel that ``fn`` launches, by the
+    kernel's name (torch.profiler; #16's wrapper runs three passes)."""
+    import re
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", 0) or getattr(
+            e, "cuda_time_total", 0)
+        if us > 0:
+            name = re.search(r"(\w+)(<|\()", e.key)
+            out[name.group(1) if name else e.key[:60]] = us / calls / 1e3
+    return out
+
+
 def zoo_kernel_phase(torch) -> dict:
     from repro_torch.kernels import ops
     results = {k: {"max_abs_err": 0.0, "variants": {}} for k in ZOO}
     results["flash_attention"]["split_p"] = split_p_check(torch)
+    results["ssd_scan"]["accuracy"] = ssd_accuracy_check(torch)
     edges = {"flash_attention": FLASH_EDGE, "ssd_scan": SSD_EDGE,
              "rglru_scan": RGLRU_EDGE}
     for kernel, shapes in edges.items():
@@ -1305,6 +1411,12 @@ def zoo_kernel_phase(torch) -> dict:
                 library_ms = None if library is None \
                     or not lib_check["same_function"] \
                     else time_ms(torch, library)
+            if kernel == "ssd_scan":  # the three passes of one launch
+                with torch.inference_mode():
+                    row["passes_ms"] = kernel_pass_ms(torch, run)
+                log(f"[kernels] ssd_scan {model} passes (torch.profiler, "
+                    f"ms per call): " + ", ".join(
+                        f"{k} {v:.4f}" for k, v in row["passes_ms"].items()))
             bound_ms, bound_by = zoo_bound(kernel, shape)
             peak = torch.cuda.max_memory_allocated()
             del args, run, plain, library
@@ -1648,6 +1760,48 @@ def compare_paths(torch, name: str, model, params, batch, warm: bool = True):
             "pallas_peak_bytes": peak}
 
 
+# Mamba2-2.7B's bf16 gap over the sequence and the seed (model phase)
+GAP_SEQS = (1024, 2048, 4096)
+GAP_SEEDS = (0, 1, 2)
+
+
+def mamba2_gap_table(torch) -> list:
+    """Mamba2-2.7B's |pallas − xla| / max|logit| at S 1024, 2048 and 4096
+    (prefixes of one token draw) on weights and tokens from seeds 0, 1 and
+    2, each held to bf16_model_bound (B 1, untimed)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.draws import Draws
+    from repro_torch.models import build_model
+    cfg = get_config("mamba2-2.7b")
+    model = build_model(cfg)
+    tol = bf16_model_bound(cfg.num_layers, cfg.smoke().num_layers)
+    rows = []
+    for seed in GAP_SEEDS:
+        draws = Draws(seed, DEVICE)
+        params = model.init(draws)
+        tokens = torch.randint(0, cfg.vocab_size, (1, max(GAP_SEQS)),
+                               generator=draws.generator, device=DEVICE)
+        for seq in GAP_SEQS:
+            batch = {"tokens": tokens[:, :seq],
+                     "positions": torch.arange(seq, device=DEVICE)[None]}
+            with torch.inference_mode():
+                xla = model.logits(params, batch, impl="xla")
+                pallas = model.logits(params, batch, impl="pallas")
+            err, scale = logit_gap(torch, pallas, xla)
+            del xla, pallas
+            gap = err / scale
+            check(math.isfinite(gap) and gap <= tol,
+                  f"mamba2-2.7b seed {seed} S {seq}: max|Δlogit|/max|logit| "
+                  f"{gap:.4e} > {tol:.4e}")
+            rows.append({"seed": seed, "seq": seq, "rel_gap": gap,
+                         "bound": tol})
+            log(f"[models] mamba2-2.7b gap, seed {seed}, S {seq}: "
+                f"max|Δlogit|/max|logit| {gap:.4e} (bound {tol:.4e})")
+        del params, draws, tokens
+        torch.cuda.empty_cache()
+    return rows
+
+
 def model_phase(torch) -> dict:
     """Each model at full width and depth from random weights (one
     torch.Generator on the card), compared on its two paths under
@@ -1709,6 +1863,7 @@ def model_phase(torch) -> dict:
         out[name] = row
         del params, batch, tokens, draws
         torch.cuda.empty_cache()
+    out["mamba2-2.7b"]["gap_table"] = mamba2_gap_table(torch)
     return out
 
 
@@ -1759,21 +1914,25 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    # python3 chip_smoke.py --mix-timing DIR: only mix_timing, on the
-    # package under DIR/src
-    timing = sys.argv[1:2] == ["--mix-timing"]
-    src = Path(sys.argv[2]).resolve() / "src" if timing else ROOT / "src"
+    # python3 chip_smoke.py --mix-timing DIR: only mix_timing, and
+    # --gap-table DIR: only mamba2_gap_table, on the package under DIR/src
+    mode = sys.argv[1] if sys.argv[1:2] in (["--mix-timing"],
+                                            ["--gap-table"]) else None
+    src = Path(sys.argv[2]).resolve() / "src" if mode else ROOT / "src"
     sys.path.insert(0, str(src))
     import repro_torch  # noqa: F401  (fails outside a checkout)
     from repro_torch.kernels import build
-    if timing:
+    if mode:
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
             check=True, timeout=60).stdout.strip()
         build.load()
-        print(json.dumps({"src": str(src), "nvidia_smi": smi,
-                          "ms": mix_timing(torch)}), flush=True)
+        result = mix_timing(torch) if mode == "--mix-timing" \
+            else mamba2_gap_table(torch)
+        key = "ms" if mode == "--mix-timing" else "gap_table"
+        print(json.dumps({"src": str(src), "nvidia_smi": smi, key: result}),
+              flush=True)
         return 0
 
     name = torch.cuda.get_device_name(0)
@@ -1840,6 +1999,8 @@ def main() -> int:
             "variant": variant, "variants": kernels[kernel]["variants"]})
         if kernel in f64_errs:
             line[-1]["f64_max_abs_err"] = f64_errs[kernel]
+        if "passes_ms" in main_variant:
+            line[-1]["passes_ms"] = main_variant["passes_ms"]
     total_s = time.perf_counter() - T_START
     log(f"[smoke] total {total_s:.1f} s (build included)")
     out_dir = ROOT / "chiprun_out"

@@ -70,9 +70,11 @@ _SIGNATURES = {
                             _I64, ctypes.c_float, _INT, _P],
     },
     "ssd_scan": {
-        # x, dt, a, b, c, y, batch, s, h, p, n, dtype, stream
-        "ssd_scan": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
-                     _INT, _P],
+        # x, dt, a, b, c, y, states, decay, batch, s, h, p, n, dtype, stream
+        "ssd_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
+                     _I64, _INT, _P],
+        # s, p, n, dtype, out (2 int64: chunks, scratch floats per chunk)
+        "ssd_scan_scratch": [_I64, _I64, _I64, _INT, _P],
     },
     "rglru_scan": {
         # a, bx, h, h_last, batch, s, w, dtype, stream

@@ -115,6 +115,12 @@ def _raise_on(rc: int, name: str) -> None:
                            f"cudaError_t {rc}{hint}")
 
 
+def _plain(fn):
+    """The plain version of the mix wrapper ``fn``: kernels/ref.py has one
+    of each name (the ``*_batched`` ones run the single-run one per run)."""
+    return getattr(ref, fn.__name__)
+
+
 def _eta_tensor(eta, x: torch.Tensor, r: int) -> torch.Tensor:
     """η as an (r,) f32 tensor on x's device: one step size per run."""
     eta = torch.as_tensor(eta, dtype=torch.float32, device=x.device)
@@ -142,7 +148,7 @@ def _gossip(fn, ndim, w, x):
     r, n, d, dtype = _lattice(x, ndim)
     w = _weights("w", w, x.shape[:-2] + (n, n))
     if not _on_cuda(x, w):
-        return ref.gossip_mix(w, x)
+        return _plain(fn)(w, x)
     y = torch.empty_like(x)
     lib = build.load().libs["gossip_mix"]
     rc = lib.gossip_mix_dense(w.data_ptr(), x.data_ptr(), y.data_ptr(), r, n,
@@ -157,7 +163,7 @@ def _gossip_sparse(fn, ndim, nbr, wv, wd, x):
     r, n, d, dtype = _lattice(x, ndim)
     max_deg, wv, wd = _check_ell(nbr, wv, wd, x.shape[:-2], n)
     if not _on_cuda(x, nbr, wv, wd):
-        return ref.gossip_mix_sparse(nbr, wv, wd, x)
+        return _plain(fn)(nbr, wv, wd, x)
     y = torch.empty_like(x)
     lib = build.load().libs["gossip_mix"]
     rc = lib.gossip_mix_ell(nbr.data_ptr(), wv.data_ptr(), wd.data_ptr(),
@@ -186,7 +192,7 @@ def _update(fn, ndim, w, x, g, eta, m, beta, nesterov):
     w = _weights("w", w, x.shape[:-2] + (n, n))
     extra = () if m is None else (m,)
     if not _on_cuda(x, w, g, eta, *extra):
-        return ref.update_mix(w, x, g, eta, m, beta=beta, nesterov=nesterov)
+        return _plain(fn)(w, x, g, eta, m, beta=beta, nesterov=nesterov)
     y = torch.empty_like(x)
     m_out = None if m is None else torch.empty_like(m)
     lib = build.load().libs["update_mix"]
@@ -207,8 +213,8 @@ def _update_sparse(fn, ndim, nbr, wv, wd, x, g, eta, m, beta, nesterov):
     max_deg, wv, wd = _check_ell(nbr, wv, wd, x.shape[:-2], n)
     extra = () if m is None else (m,)
     if not _on_cuda(x, nbr, wv, wd, g, eta, *extra):
-        return ref.update_mix_sparse(nbr, wv, wd, x, g, eta, m, beta=beta,
-                                     nesterov=nesterov)
+        return _plain(fn)(nbr, wv, wd, x, g, eta, m, beta=beta,
+                          nesterov=nesterov)
     y = torch.empty_like(x)
     m_out = None if m is None else torch.empty_like(m)
     lib = build.load().libs["update_mix"]
@@ -291,7 +297,7 @@ def _ef(fn, ndim, w, p, s, u):
     r, n, d, dtype = _ef_buffers(ndim, p, s, u)
     w32 = _weights("w", w, p.shape[:-2] + (n, n))
     if not _on_cuda(p, w, s, u):
-        return ref.ef_mix(w, p, s, u)
+        return _plain(fn)(w, p, s, u)
     # W_ii in p's dtype, from W as given (the reference's diag input)
     diag = torch.diagonal(w, dim1=-2, dim2=-1).to(p.dtype).contiguous()
     y, res = torch.empty_like(p), torch.empty_like(p)
@@ -310,7 +316,7 @@ def _ef_sparse(fn, ndim, nbr, wv, wd, p, s, u):
     r, n, d, dtype = _ef_buffers(ndim, p, s, u)
     max_deg, wv, wd = _check_ell(nbr, wv, wd, p.shape[:-2], n)
     if not _on_cuda(p, nbr, wv, wd, s, u):
-        return ref.ef_mix_sparse(nbr, wv, wd, p, s, u)
+        return _plain(fn)(nbr, wv, wd, p, s, u)
     y, res = torch.empty_like(p), torch.empty_like(p)
     lib = build.load().libs["compress_mix"]
     rc = lib.ef_mix_ell(
@@ -465,10 +471,12 @@ def flash_attention(q, k, v, *, window: int = 0, scale=None):
 
 def ssd_scan(x, dt, a, b, c):
     """#16 the Mamba2 SSD scan from a zero state: x (B, S, H, P) and b/c
-    (B, S, N) in f32 or bf16, dt (B, S, H) and a (H,) f32; the kernel
-    applies Δ·x and exp(Δ·A) itself and carries the (P, N) f32 state of
-    each head token by token; y (B, S, H, P) in x's dtype
-    (kernel: ssd_scan.cu)."""
+    (B, S, N) in f32 or bf16, dt (B, S, H) and a (H,) f32; y (B, S, H, P)
+    in x's dtype.  The kernel runs the chunked form in three passes (the
+    chunk states, the f32 recurrence over the chunks, each chunk's output),
+    its decays from direct segment sums of Δ·A; bf16 on the tensor cores
+    with the f32 operand of each product split into bf16 hi + lo.  One
+    counted launch per call (kernel: ssd_scan.cu)."""
     _forward_only("ssd_scan", x, dt, a, b, c)
     dtype = _activation_dtype("x", x, ("b", b), ("c", c))
     if x.ndim != 4 or b.ndim != 3:
@@ -488,9 +496,16 @@ def ssd_scan(x, dt, a, b, c):
         return ref.ssd_scan_ref(x, dt, a, b, c)
     y = torch.empty_like(x)
     lib = build.load().libs["ssd_scan"]
+    dims = (ctypes.c_int64 * 2)()  # chunks, scratch floats per chunk
+    _raise_on(lib.ssd_scan_scratch(s, p, n, dtype, dims), "ssd_scan")
+    chunks, per_chunk = dims
+    states = torch.empty(bsz * h * chunks * per_chunk, dtype=torch.float32,
+                         device=x.device)
+    decay = torch.empty(bsz * h * chunks, dtype=torch.float32,
+                        device=x.device)
     rc = lib.ssd_scan(x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
-                      c.data_ptr(), y.data_ptr(), bsz, s, h, p, n, dtype,
-                      _stream(x))
+                      c.data_ptr(), y.data_ptr(), states.data_ptr(),
+                      decay.data_ptr(), bsz, s, h, p, n, dtype, _stream(x))
     _raise_on(rc, "ssd_scan")
     ssd_scan.launches += 1
     return y

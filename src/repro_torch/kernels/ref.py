@@ -10,10 +10,11 @@ buffer's dtype, the mix's sum in f32 (repro/kernels/update_mix.py:
 _local_step, _dense_mix, ef_mix_kernel).
 The model zoo's prefill kernels (#15–#17, flash_attention.py, ssd_scan.py
 and rglru_scan.py) have theirs at the end of the module.
-Every function takes one run's (n, D) buffer or a sweep lattice's
-(R, n, D) buffer with per-run W (or ELL tables) and per-run η of shape
-(R,); the ``*_batched`` names (the plain versions of kernels #5–#8, #10
-and #12) are the same functions.  The wrappers in
+The ``*_batched`` names (the plain versions of kernels #5–#8, #10 and
+#12) take a sweep lattice's (R, n, D) buffer with per-run W (or ELL
+tables) and per-run η of shape (R,), and call the single-run function
+once per run (:func:`_by_run`), so a run's slice equals the single-run
+plain version on it bit for bit, as the kernels' slices do.  The wrappers in
 :mod:`repro_torch.kernels.ops` use these for CPU tensors, and the chip
 check holds every kernel against them on the card.
 """
@@ -95,11 +96,47 @@ def update_mix_sparse(nbr, wv, wd, x, g, eta, m=None, *, beta=None,
     return y if beta is None else (y, new_m)
 
 
-# Kernels #5–#8: the same functions over the (R, n, D) lattice buffer.
-gossip_mix_batched = gossip_mix
-gossip_mix_sparse_batched = gossip_mix_sparse
-update_mix_batched = update_mix
-update_mix_sparse_batched = update_mix_sparse
+def _by_run(single, *args, **kw):
+    """``single`` on each run's slices of the tensor arguments (R leading),
+    written into (R, ...) outputs.  One 2-D product per run, as the
+    single-run plain version computes it: a batched matmul over the runs
+    sums in another order on the CPU (1 ulp apart in a few elements)."""
+    runs = next(a for a in args if isinstance(a, torch.Tensor)).shape[0]
+
+    def pick(a, i):
+        return a[i] if isinstance(a, torch.Tensor) else a
+
+    outs = None
+    for i in range(runs):
+        got = single(*(pick(a, i) for a in args),
+                     **{k: pick(v, i) for k, v in kw.items()})
+        got = got if isinstance(got, tuple) else (got,)
+        if outs is None:
+            outs = tuple(torch.empty((runs,) + tuple(g.shape), dtype=g.dtype,
+                                     device=g.device) for g in got)
+        for out, g in zip(outs, got):
+            out[i] = g
+        del got
+    return outs if len(outs) > 1 else outs[0]
+
+
+# Kernels #5–#8: #1–#4 per run over the (R, n, D) lattice buffer.
+def gossip_mix_batched(w, x):
+    return _by_run(gossip_mix, w, x)
+
+
+def gossip_mix_sparse_batched(nbr, wv, wd, x):
+    return _by_run(gossip_mix_sparse, nbr, wv, wd, x)
+
+
+def update_mix_batched(w, x, g, eta, m=None, *, beta=None, nesterov=False):
+    return _by_run(update_mix, w, x, g, eta, m, beta=beta, nesterov=nesterov)
+
+
+def update_mix_sparse_batched(nbr, wv, wd, x, g, eta, m=None, *, beta=None,
+                              nesterov=False):
+    return _by_run(update_mix_sparse, nbr, wv, wd, x, g, eta, m, beta=beta,
+                   nesterov=nesterov)
 
 
 # ---------------------------------------------------------------------------
@@ -135,9 +172,13 @@ def ef_mix_sparse(nbr, wv, wd, p, s, u):
     return y, u - s
 
 
-# Kernels #10/#12: the same functions over the (R, n, D) lattice buffer.
-ef_mix_batched = ef_mix
-ef_mix_sparse_batched = ef_mix_sparse
+# Kernels #10/#12: #9/#11 per run over the (R, n, D) lattice buffer.
+def ef_mix_batched(w, p, s, u):
+    return _by_run(ef_mix, w, p, s, u)
+
+
+def ef_mix_sparse_batched(nbr, wv, wd, p, s, u):
+    return _by_run(ef_mix_sparse, nbr, wv, wd, p, s, u)
 
 
 def quantize_int8(u, noise, scale):

@@ -625,12 +625,18 @@ FLASH_SHAPES = [(1, 1, 2, 1, 64, 0), (1, 77, 4, 2, 64, 0),
                 # tile, a window off the 64-key tile, KV > 1 with H / KV > 1
                 (1, 300, 8, 2, 128, 100), (2, 131, 4, 4, 64, 0),
                 (1, 515, 12, 3, 256, 0), (1, 1000, 16, 1, 256, 333)]
-# (B, S, H, P, N): P off the 16-row blocks, N from 8 to 256
+# (B, S, H, P, N): P off the 16-row blocks and the 64-row tile (17, 20,
+# 80, 128), N from 8 to 256 (24 and 136 off the 16- and 64-column tiles),
+# S = 1, below the 64-token chunk and off it, B 2
 SSD_SHAPES = [(1, 1, 1, 1, 8), (1, 100, 3, 20, 16), (2, 77, 4, 64, 128),
-              (1, 50, 2, 17, 8), (1, 300, 5, 64, 256)]
-# (B, S, W): W not a multiple of 4, S off the 32-step unroll
+              (1, 50, 2, 17, 8), (1, 300, 5, 64, 256), (1, 1, 2, 64, 128),
+              (1, 40, 3, 64, 64), (2, 130, 2, 17, 8), (2, 200, 3, 128, 24),
+              (1, 129, 2, 80, 136), (2, 257, 4, 20, 256)]
+# (B, S, W): W not a multiple of 4 (plain loads), W % 8 == 0 (bulk
+# copies), W = 1, 33, 4097, S = 1 and off the 32-token slot, B 3
 RGLRU_SHAPES = [(1, 1, 1), (2, 77, 301), (1, 33, 4097), (3, 5, 2),
-                (1, 1000, 1023)]
+                (1, 1000, 1023), (1, 50, 1), (3, 1, 33), (1, 40, 4097),
+                (3, 70, 4096), (2, 300, 512)]
 
 
 def _zoo_close(got, want, dtype):
@@ -747,7 +753,31 @@ def test_cuda_rglru_scan_matches_plain_version(cuda, b, s, w, dtype):
         torch.cuda.synchronize()
         want, _ = ref.rglru_scan_ref(a, bx)
     _zoo_close(h, want, torch.float32)
+    assert torch.equal(h, want)  # rounded as the plain version rounds
     assert torch.equal(h_last, h[:, -1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [512, 500])
+def test_cuda_ssd_scan_keeps_the_recurrence_accuracy(cuda, s):
+    """#16's f32 route where Δ·A is large (A = −77 … −80): within
+    1e-6·max|y| of an f64 recurrence; its decays come from direct segment
+    sums, not exp(cum_i − cum_j)."""
+    args = list(_ssd_args(cuda, 1, s, 4, 64, 128, torch.float32, seed=11))
+    args[2] = -torch.arange(77, 81, device=cuda, dtype=torch.float32)
+    x, dt, a, b, c = (t.double() for t in args)
+    with torch.inference_mode():
+        state = torch.zeros(1, 4, 64, 128, dtype=torch.float64, device=cuda)
+        exact = torch.empty(x.shape, dtype=torch.float64, device=cuda)
+        for t in range(s):
+            state = state * torch.exp(dt[:, t] * a)[:, :, None, None] + \
+                (x[:, t] * dt[:, t, :, None])[..., None] \
+                * b[:, t][:, None, None, :]
+            exact[:, t] = torch.einsum("bhpn,bn->bhp", state, c[:, t])
+        got = ops.ssd_scan(*args)
+        torch.cuda.synchronize()
+    err = (got.double() - exact).abs().max().item()
+    assert err <= 1e-6 * exact.abs().max().item()
 
 
 def _zoo_args(cuda, kernel, dtype=torch.float32):

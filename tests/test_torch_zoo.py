@@ -391,31 +391,146 @@ def test_reference_bf16_gap_sets_the_chip_bound(name):
         full.num_layers / full.smoke().num_layers))
 
 
+def _ssd_exact(args):
+    """The SSD recurrence in f64 (B, S, H, P), the accuracy checks' truth."""
+    x, dt, a, b, c = (t.double() for t in args)
+    state = torch.zeros(x.shape[0], x.shape[2], x.shape[3], b.shape[-1],
+                        dtype=torch.float64)
+    exact = []
+    for t in range(x.shape[1]):
+        state = state * torch.exp(dt[:, t] * a)[:, :, None, None] + \
+            (x[:, t] * dt[:, t, :, None])[..., None] * b[:, t][:, None, None, :]
+        exact.append(torch.einsum("bhpn,bn->bhp", state, c[:, t]))
+    return torch.stack(exact, dim=1)
+
+
 def test_ssd_recurrence_is_more_accurate_than_the_chunked_form():
-    """Why kernel #16 and its plain version run the token recurrence: at
-    Mamba2's largest heads (A = −77 … −80) and its Δ range, the chunked
-    form's cumulative log-decays reach −200 inside a 256-token chunk and
-    its f32 differences lose digits.  Against an f64 recurrence the
-    chunked scan errs about 1e-5·max|y|, the f32 recurrence about 1e-7."""
+    """Why the plain version of kernel #16 runs the token recurrence, and
+    why the kernel's chunked form takes its decays from direct segment sums:
+    at Mamba2's largest heads (A = −77 … −80) and its Δ range, the
+    reference's cumulative log-decays reach −200 inside a 256-token chunk
+    and their f32 differences exp(cum_i − cum_j) lose digits.  Against an
+    f64 recurrence that chunked scan errs about 1e-5·max|y|, the f32
+    recurrence about 1e-7."""
     x, dt, _, b, c = _ssd_inputs(1, 512, 4, 64, 128, seed=11)
     a = -np.arange(77, 81, dtype=np.float32)
     args = [_t(v) for v in (x, dt, a, b, c)]
-    state = torch.zeros(1, 4, 64, 128, dtype=torch.float64)
-    exact = []
-    for t in range(512):
-        decay = torch.exp(args[1][:, t].double() * args[2].double())
-        xl = args[0][:, t].double() * args[1][:, t, :, None].double()
-        state = state * decay[:, :, None, None] + \
-            xl[..., None] * args[3][:, t].double()[:, None, None, :]
-        exact.append(torch.einsum("bhpn,bn->bhp", state,
-                                  args[4][:, t].double()))
-    exact = torch.stack(exact, dim=1)
+    exact = _ssd_exact(args)
     scale = exact.abs().max().item()
     rec_err = (ref.ssd_scan_ref(*args).double() - exact).abs().max().item()
     chunk_err = (ssm.ssd_chunked(*args, chunk=256)[0].double()
                  - exact).abs().max().item()
     assert rec_err <= 1e-6 * scale
     assert chunk_err >= 10 * rec_err
+
+
+def _split_product(eq, exact, other, split):
+    """einsum(eq, exact, other) in f32; with ``split``, as kernel #16's bf16
+    route forms it on the tensor cores: the f32 operand ``other`` as its
+    bf16 pieces hi = bf16(other) and lo = bf16(other − hi), one product
+    each, summed in f32 (``exact`` holds bf16 values)."""
+    if not split:
+        return torch.einsum(eq, exact, other)
+    hi = other.bfloat16().float()
+    lo = (other - hi).bfloat16().float()
+    return torch.einsum(eq, exact, hi) + torch.einsum(eq, exact, lo)
+
+
+def _ssd_kernel_emulation(x, dt, a, b, c, chunk, split=False):
+    """Kernel #16's arithmetic in torch f32 (test code, never called by the
+    package): chunks of ``chunk`` tokens (S need not be a multiple), every
+    decay from a direct segment sum of la = Δ·A, never a difference of two
+    cumulative sums: s⁺_j = Σ_{k>j} la_k summed from the chunk's end;
+    seg[i, j] = Σ_{j<k≤i} la_k built along i from j + 1; cum_i = Σ_{k≤i}
+    la_k from the chunk's start.  Pass 1: each chunk's own state
+    Σ_j x_j ⊗ B_j·exp(s⁺_j)·Δ_j and exp(Σ la); pass 2: the recurrence over
+    chunks in f32; pass 3: y_i = exp(cum_i)·C_i·S_{c−1} + Σ_{j≤i}
+    (C_i·B_j)·exp(seg[i, j])·Δ_j·x_j.  ``split`` emulates the bf16 route:
+    x, B and C exact, the f32 operand of each product as bf16 hi + lo."""
+    bs, s, h, p = x.shape
+    n = b.shape[-1]
+    nc = -(-s // chunk)
+    pad = nc * chunk - s
+
+    def chunks(t, *tail):
+        t = torch.nn.functional.pad(t.float(), (0, 0) * len(tail) + (0, pad))
+        return t.reshape(bs, nc, chunk, *tail)
+
+    xs, dts = chunks(x, h, p), chunks(dt, h)
+    bb, cc = chunks(b, n), chunks(c, n)
+    la = dts * a.float()                                    # (B,NC,L,H)
+    suf = torch.flip(torch.cumsum(torch.flip(la, [2]), 2), [2])
+    s_plus = torch.cat([suf[:, :, 1:], torch.zeros_like(suf[:, :, :1])], 2)
+    bw = bb[:, :, :, None, :] * (torch.exp(s_plus) * dts)[..., None]
+    local = _split_product("bnjhp,bnjhd->bnhpd", xs, bw, split)
+    decay = torch.exp(suf[:, :, 0])                         # (B,NC,H)
+    state = torch.zeros(bs, h, p, n)
+    prev = []
+    for i in range(nc):
+        prev.append(state)
+        state = state * decay[:, i, :, None, None] + local[:, i]
+    prev = torch.stack(prev, dim=1)                         # (B,NC,H,P,N)
+    seg = torch.zeros(bs, nc, chunk, chunk, h)              # [i, j]
+    for j in range(chunk - 1):
+        seg[:, :, j + 1:, j] = torch.cumsum(la[:, :, j + 1:], 2)
+    mask = torch.ones(chunk, chunk, dtype=torch.bool).tril()
+    g = torch.einsum("bnid,bnjd->bnij", cc, bb)[..., None] * torch.where(
+        mask[None, None, :, :, None], torch.exp(seg) * dts[:, :, None],
+        torch.zeros(()))
+    y = torch.exp(torch.cumsum(la, 2))[..., None] * _split_product(
+        "bnid,bnhpd->bnihp", cc, prev, split)
+    y = y + _split_product("bnjhp,bnijh->bnihp", xs, g, split)
+    return y.reshape(bs, nc * chunk, h, p)[:, :s].to(x.dtype)
+
+
+@pytest.mark.parametrize("s", [512, 500])
+def test_ssd_kernel_arithmetic_keeps_the_recurrence_accuracy(s):
+    """Kernel #16's chunked form with direct segment sums, on the inputs
+    where the reference's cum-difference form errs 1e-5·max|y| (A = −77 …
+    −80): the f32 route (64-token chunks) stays within 1e-6·max|y| of the
+    f64 recurrence (the chip's accuracy check) and the cum-difference form
+    errs at least 10× more; the bf16 route (128-token chunks, x, B, C in
+    bf16, each f32 operand split into hi + lo) within KERNEL_TOL of the
+    recurrence on the same inputs."""
+    x, dt, _, b, c = _ssd_inputs(1, s, 4, 64, 128, seed=11)
+    a = -np.arange(77, 81, dtype=np.float32)
+    args = [_t(v) for v in (x, dt, a, b, c)]
+    exact = _ssd_exact(args)
+    scale = exact.abs().max().item()
+    err = (_ssd_kernel_emulation(*args, chunk=64).double()
+           - exact).abs().max().item()
+    assert err <= 1e-6 * scale
+    if s % 256 == 0:
+        chunk_err = (ssm.ssd_chunked(*args, chunk=256)[0].double()
+                     - exact).abs().max().item()
+        assert chunk_err >= 10 * err
+    rounded = [_t(_bf16(v)) if i in (0, 3, 4) else _t(v)
+               for i, v in enumerate((x, dt, a, b, c))]
+    exact = _ssd_exact(rounded)
+    split = _ssd_kernel_emulation(*rounded, chunk=128, split=True)
+    assert (split.double() - exact).abs().max().item() <= \
+        KERNEL_TOL * exact.abs().max().item()
+
+
+# (B, S, H, P, N, the reference's chunk, the emulation's chunk): S off the
+# emulation's chunk (64 off 48, 48 off 32) and below it (32 < 64)
+SSD_EMULATED = [(1, 64, 4, 32, 16, 16, 48), (2, 48, 3, 16, 8, 16, 32),
+                (1, 32, 16, 8, 32, 8, 64)]
+
+
+@pytest.mark.parametrize("split", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,s,h,p,n,chunk,emulated", SSD_EMULATED)
+def test_ssd_kernel_arithmetic_matches_pallas(b, s, h, p, n, chunk, emulated,
+                                              split):
+    """The emulation of kernel #16 against the reference's Pallas kernel
+    (interpret mode) at KERNEL_TOL; the bf16 route on bf16-valued x, B, C
+    handed to both."""
+    args = list(_ssd_inputs(b, s, h, p, n, seed=s + h + n))
+    if split:
+        args = [_bf16(v) if i in (0, 3, 4) else v for i, v in enumerate(args)]
+    want, _ = ref_ops.ssd_scan(*map(jnp.asarray, args), chunk=chunk)
+    got = _ssd_kernel_emulation(*map(_t, args), chunk=emulated, split=split)
+    _close(got, want, KERNEL_TOL)
 
 
 def _bf16(a: np.ndarray) -> np.ndarray:
