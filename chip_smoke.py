@@ -75,15 +75,22 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
      uncompressed twin's lattice buffer (path (e) at the same depth, run
      too) with difference 0.0 and an all-zero residual.  Each path runs
      one untimed warm-up round first, so its step time is that of warm
-     steps.  Then fig4's float64 setting (20 agents, geographic graph of
+     steps, and its peak must equal the warm-up's within PEAK_RTOL.  Then fig4's float64 setting (20 agents, geographic graph of
      radius 0.5, D = 25, x of scale 2^20, W^t in f64) through the flat
      engine, 10 steps each: (f64-a) pallas, #1; (f64-b) sparse, #2;
      (f64-c) pallas --fuse-update-mix, #3; (f64-d) sparse
      --fuse-update-mix, #4; each launching its kernel once per step and
      agreeing with the same round on the CPU to 1e-5·max|x|;
+     then (4b) line 4 as the engines run it, one torch.func.vmap of
+     Model.grad_fn over every agent row, at full width against the
+     per-row torch.autograd.grad loop: path (c)'s 8 agents and first
+     batch, then the R = 2 lattice's 16 rows; g within 1e-5·max|g|, the
+     losses within 1e-5·max|loss|, both timed with their peaks;
   5. profile: path (c) once more under torch.profiler, for the device
      time per step by kernel group against the unprofiled step time; the
-     set-up's device work is measured apart and taken out;
+     set-up's device work is measured apart and taken out; a step must
+     issue fewer than OPS_PER_STEP_MAX device ops (one batched pass of
+     line 4 over the 8 agents; the per-row loop issued 18,579);
   6. models: the prefill (Model.logits) of the tiny LM (B 2, S 1024,
      f32), RecurrentGemma-9B and Mamba2-2.7B (B 1, S 4096, bf16) at full
      width and depth from random weights, impl='xla' then impl='pallas'
@@ -103,7 +110,9 @@ ELL kernels #2, #4, #6 and #8 at full shape, checked and timed (median of
 9 repeats) from the package under DIR/src, and prints one JSON line: run
 it on two trees in one call to compare them on one card.  ``python3
 chip_smoke.py --gap-table DIR`` prints Mamba2-2.7B's gap table of the
-package under DIR/src (its #16) as one JSON line.
+package under DIR/src (its #16) as one JSON line, and ``python3
+chip_smoke.py --step-profile DIR`` path (c) alone (its warm step time and
+phase 5's profile) from the package under DIR/src.
 
 It prints the command's total time, one JSON line with every kernel's
 launches, errors and times, the nvidia-smi line, and as the last line
@@ -114,6 +123,7 @@ without a result.  The full record goes to chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -282,6 +292,12 @@ PATH_VARIANT = {"gossip_mix": "gossip", "gossip_mix_sparse": "gossip",
                 **{k: "ef" for k in BATCHED_EF}}
 STEPS = 10
 DEVICE = "cuda"
+# path (c)'s device ops per step: line 4 is one batched pass whose op
+# count does not grow with the agents (the per-row loop issued 18,579)
+OPS_PER_STEP_MAX = 4000
+# a path's peak against its warm-up's (the same run): cuBLAS's first
+# workspaces are all that may differ
+PEAK_RTOL = 0.01
 # The bf16 full-model check (model phase): the reference's own gap between
 # its pallas and xla paths, |Δlogit| / max|logit|, at a bf16-compute
 # smoke config, the larger over RecurrentGemma-9B (0.00592: its attention
@@ -1053,8 +1069,8 @@ def f64_path_phase(torch) -> dict:
     keeps its buffer f64 and finite, and agrees with the same round on the
     CPU (the kernels' plain versions) to TOL·max|x|."""
     import numpy as np
-    from repro_torch.core import draws as draws_lib, flat as flat_lib
-    from repro_torch.core import topology
+    from repro_torch.core import draws as draws_lib, engine
+    from repro_torch.core import flat as flat_lib, topology
     from repro_torch.core.feddec import FedDecConfig
     from repro_torch.core.mixing import MixingDistribution
     from repro_torch.kernels import ops
@@ -1064,8 +1080,8 @@ def f64_path_phase(torch) -> dict:
     spec = flat_lib.make_flat_spec(
         {"w": torch.zeros(F64_D, dtype=torch.float64)})
 
-    def loss(params, batch):
-        return 0.5 * torch.sum(torch.square(params["w"] - batch["t"]))
+    grad_fn = engine.value_and_grad(lambda params, batch: 0.5 * torch.sum(
+        torch.square(params["w"] - batch["t"])))
 
     out = {}
     for name, (impl, fused, kernel) in F64_PATHS.items():
@@ -1076,7 +1092,7 @@ def f64_path_phase(torch) -> dict:
         for dev in ("cpu", DEVICE):
             eta = torch.tensor([0.05], dtype=torch.float64, device=dev)
             round_fn = flat_lib.make_flat_feddec_round(
-                cfg, spec, loss, lambda t, eta=eta: eta, device=dev,
+                cfg, spec, grad_fn, lambda t, eta=eta: eta, device=dev,
                 fuse_update_mix=fused)
             state = flat_lib.flat_state_from_numpy(flat0, 1, device=dev)
             ops.reset_launch_counts()
@@ -1455,6 +1471,9 @@ def train_path(torch, impl: str, fuse: bool, optimizer: str,
     codec (--gossip-compress), ``layers`` the depth (--layers)."""
     from repro_torch.configs.base import FedConfig
     from repro_torch.launch import train
+    # what earlier phases left to the garbage collector goes first, so
+    # that the peak is this run's own
+    gc.collect()
     torch.cuda.reset_peak_memory_stats()
     timing: dict = {}
     sweep = {} if sweep_axis is None else dict(
@@ -1470,12 +1489,12 @@ def train_path(torch, impl: str, fuse: bool, optimizer: str,
     return state, losses, timing, torch.cuda.max_memory_allocated()
 
 
-def warm_up(torch, impl: str, fuse: bool, optimizer: str, **kw) -> None:
+def warm_up(torch, impl: str, fuse: bool, optimizer: str, **kw) -> int:
     """One untimed round of the path, so that the timed run's steps do
     not pay the allocator's growth, cuBLAS's first calls or the kernel's
-    first launch.  Its launches are not counted: the caller resets the
-    counters after it."""
-    train_path(torch, impl, fuse, optimizer, **kw)
+    first launch; returns its peak.  Its launches are not counted: the
+    caller resets the counters after it."""
+    return train_path(torch, impl, fuse, optimizer, **kw)[3]
 
 
 def dense_rerun(torch, name: str, final, **kw) -> dict:
@@ -1506,12 +1525,17 @@ def run_path(torch, name: str, impl: str, fuse: bool, opt: str,
              kernel: str, **kw):
     """A warm-up round, then the timed run with the launch counters set
     to 0 just before it and read just after: its kernel must launch once
-    per step and no other kernel at all."""
+    per step and no other kernel at all, and its peak must be the
+    warm-up's within PEAK_RTOL."""
     from repro_torch.kernels import ops
-    warm_up(torch, impl, fuse, opt, **kw)
+    warm_peak = warm_up(torch, impl, fuse, opt, **kw)
     ops.reset_launch_counts()
     state, losses, timing, peak = train_path(torch, impl, fuse, opt, **kw)
     counts = ops.launch_counts()
+    # the same run twice: its peak must not depend on thread timing
+    check(abs(peak - warm_peak) <= PEAK_RTOL * peak,
+          f"path ({name}): peak {peak / 1e9:.2f} GB, its warm-up's "
+          f"{warm_peak / 1e9:.2f} GB")
     check(all(math.isfinite(v) for v in losses),
           f"path ({name}): non-finite loss {losses}")
     check(counts[kernel] == STEPS,
@@ -1599,6 +1623,127 @@ def check_residual(torch, name: str, state, out: dict, twin: str = "",
           f"({twin}), residual max {res_max:.3e} (both must be 0)")
     log(f"[train] path ({name}) ends on path ({twin})'s buffer (difference "
         f"{diff}), residual all zero")
+
+
+# ---------------------------------------------------------------------------
+# Phase 4b: line 4 as one batched pass, at full width
+# ---------------------------------------------------------------------------
+
+
+def per_row_grads(torch, spec, loss_fn, flat, batch):
+    """The yardstick: one torch.autograd.grad per agent row from Python,
+    the loop the engines ran before their one batched call."""
+    from repro_torch.core import flat as flat_lib
+    g_flat = torch.empty_like(flat)
+    losses = []
+    for i in range(flat.shape[0]):
+        leaves = [v.detach().requires_grad_() for v in spec.views(flat[i])]
+        params = flat_lib._build_tree(spec.paths, leaves)
+        with torch.enable_grad():
+            loss = loss_fn(params, {k: v[i] for k, v in batch.items()})
+            grads = torch.autograd.grad(loss, leaves)
+        for view, gr in zip(spec.views(g_flat[i]), grads):
+            view.copy_(gr)
+        losses.append(loss.detach())
+    return torch.stack(losses), g_flat
+
+
+def host_ms(torch, fn, repeats: int = 3) -> float:
+    """Median host-clock time of ``fn`` ending in a device sync, after
+    one untimed call."""
+    fn()
+    times = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return sorted(times)[len(times) // 2]
+
+
+def grad_phase(torch) -> dict:
+    """Line 4 of the full-width tiny LM as the engines run it, one
+    torch.func.vmap of Model.grad_fn over every agent row, against the
+    per-row loop: path (c)'s 8 agents and first batch, each row's weights
+    perturbed (so that a row mixed up with another shows), then the
+    R_FULL = 2 lattice's 16 rows (run 1 on path (c)'s second batch).  g
+    within TOL·max|g|, losses within TOL·max|loss|; both timed (host
+    clock, synchronized) with their peaks.  No kernel launches here."""
+    from repro_torch.core import flat as flat_lib, sweep
+    from repro_torch.core.draws import Draws
+    from repro_torch.data.federated_lm import make_federated_lm
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    model = build_model(train.tiny_lm_config())
+    draws = Draws(0, DEVICE)
+    data = make_federated_lm(model.cfg.vocab_size, N_AGENTS, 128, draws)
+    params = model.init(draws)
+    spec = flat_lib.make_flat_spec(params)
+    tokens = draws.tokens(data, 2, 2)                    # (2, n, B, S)
+    positions = torch.arange(128, device=DEVICE).expand(tokens.shape[1:])
+    row = spec.ravel(params)
+    del params
+    grad_fn = model.grad_fn()
+    out = {}
+    for name, lead in (("flat", (N_AGENTS,)), ("lattice", (R_FULL,
+                                                          N_AGENTS))):
+        flat = row + 1e-3 * draws.normal(lead + (spec.d,))
+        toks = tokens[0] if len(lead) == 1 else tokens
+        batch = {"tokens": toks, "positions": positions.expand(toks.shape)}
+        rows = math.prod(lead)
+        rows_batch = {k: v.reshape((rows,) + v.shape[len(lead):])
+                      for k, v in batch.items()}
+
+        def batched():
+            if len(lead) == 1:
+                return flat_lib.grads_of(spec, grad_fn, flat, batch)
+            return sweep.grads_of_lattice(spec, grad_fn, flat, batch)
+
+        def loop():
+            return per_row_grads(torch, spec, model.loss,
+                                 flat.view(rows, spec.d), rows_batch)
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        losses, g = batched()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        losses, g = losses.reshape(rows), g.view(rows, spec.d)
+        want_l, want_g = loop()
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(g).all()) and g.shape == want_g.shape,
+              f"[grad] {name}: the batched gradient is not finite or "
+              f"{tuple(g.shape)}")
+        err = (g - want_g).abs().max().item()
+        scale = want_g.abs().max().item()
+        loss_err = (losses - want_l).abs().max().item()
+        loss_scale = want_l.abs().max().item()
+        del g, want_g, losses, want_l
+        check(err <= TOL * scale, f"[grad] {name}: max|Δg| {err:.3e} > "
+                                  f"{TOL}·{scale:.3e} against the loop")
+        check(loss_err <= TOL * loss_scale,
+              f"[grad] {name}: max|Δloss| {loss_err:.3e} > "
+              f"{TOL}·{loss_scale:.3e}")
+        torch.cuda.empty_cache()
+        batched_ms = host_ms(torch, batched)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        loop_ms = host_ms(torch, loop)
+        loop_peak = torch.cuda.max_memory_allocated()
+        out[name] = {"rows": rows, "d": spec.d, "max_abs_err": err,
+                     "scale": scale, "loss_max_abs_err": loss_err,
+                     "batched_ms": batched_ms, "loop_ms": loop_ms,
+                     "batched_peak_bytes": peak,
+                     "loop_peak_bytes": loop_peak}
+        log(f"[grad] {name}: {rows} rows × D {spec.d:,}, one vmapped call "
+            f"vs the per-row loop: max|Δg| {err:.3e} (limit "
+            f"{TOL}·{scale:.3e}), max|Δloss| {loss_err:.3e}; batched "
+            f"{batched_ms:.1f} ms, loop {loop_ms:.1f} ms (host clock, "
+            f"synchronized, median of 3); peaks {peak / 1e9:.2f} / "
+            f"{loop_peak / 1e9:.2f} GB")
+        del flat
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1909,15 +2054,28 @@ def mix_timing(torch) -> dict:
     return out
 
 
+def step_profile(torch) -> dict:
+    """Path (c) alone: its warm step time (run_path) and its profile, for
+    ``--step-profile DIR``."""
+    impl, fuse, opt, kernel = PATHS["c"]
+    _, run = run_path(torch, "c", impl, fuse, opt, kernel)
+    torch.cuda.empty_cache()
+    return {"step_ms": run["step_ms"], "peak_bytes": run["peak_bytes"],
+            "profile": profile_phase(torch, run["step_ms"])}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    # python3 chip_smoke.py --mix-timing DIR: only mix_timing, and
-    # --gap-table DIR: only mamba2_gap_table, on the package under DIR/src
-    mode = sys.argv[1] if sys.argv[1:2] in (["--mix-timing"],
-                                            ["--gap-table"]) else None
+    # python3 chip_smoke.py --mix-timing DIR: only mix_timing,
+    # --gap-table DIR: only mamba2_gap_table, and --step-profile DIR: only
+    # step_profile, on the package under DIR/src
+    modes = {"--mix-timing": (mix_timing, "ms"),
+             "--gap-table": (mamba2_gap_table, "gap_table"),
+             "--step-profile": (step_profile, "path_c")}
+    mode = sys.argv[1] if sys.argv[1:2] and sys.argv[1] in modes else None
     src = Path(sys.argv[2]).resolve() / "src" if mode else ROOT / "src"
     sys.path.insert(0, str(src))
     import repro_torch  # noqa: F401  (fails outside a checkout)
@@ -1928,11 +2086,9 @@ def main() -> int:
              "--format=csv,noheader"], capture_output=True, text=True,
             check=True, timeout=60).stdout.strip()
         build.load()
-        result = mix_timing(torch) if mode == "--mix-timing" \
-            else mamba2_gap_table(torch)
-        key = "ms" if mode == "--mix-timing" else "gap_table"
-        print(json.dumps({"src": str(src), "nvidia_smi": smi, key: result}),
-              flush=True)
+        fn, key = modes[mode]
+        print(json.dumps({"src": str(src), "nvidia_smi": smi,
+                          key: fn(torch)}), flush=True)
         return 0
 
     name = torch.cuda.get_device_name(0)
@@ -1967,7 +2123,15 @@ def main() -> int:
     f64_paths = f64_path_phase(torch)
     log(f"[f64] phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    grads = grad_phase(torch)
+    log(f"[grad] phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     profile = profile_phase(torch, training["c"]["step_ms"])
+    ops_per_step = profile.get("launches_per_step", 0)
+    check(ops_per_step < OPS_PER_STEP_MAX,
+          f"[profile] path (c) issues {ops_per_step:.0f} device ops a "
+          f"step (limit {OPS_PER_STEP_MAX}): line 4 is not one batched "
+          f"pass")
     log(f"[profile] phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     models = model_phase(torch)
@@ -2007,7 +2171,7 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"device": name, "nvidia_smi": smi, "kernels": line,
-         "training": training, "f64_paths": f64_paths,
+         "training": training, "grads": grads, "f64_paths": f64_paths,
          "profile": profile, "models": models,
          "total_s": total_s},
         indent=1))

@@ -14,6 +14,9 @@
 Randomness comes from a :class:`repro_torch.core.draws.Draws` object
 passed with every call, keyed by the step counter t (the reference folds
 t into its step key).
+
+Line 4 is a :data:`GradFn` for one agent, which the engines call once,
+batched over every agent row of the buffer (``flat.grads_of``).
 """
 
 from __future__ import annotations
@@ -22,14 +25,46 @@ import dataclasses
 from typing import Callable
 
 import torch
+# torch.func imports torch._dynamo at its first call, and that import
+# leaves reference cycles that hold the frames on the stack at that
+# moment: the engine's, with its (n, D) buffers, which then outlive the
+# step until the garbage collector runs.  Importing it here, where no
+# frame holds a buffer, keeps the first step's peak that of the others.
+import torch._dynamo  # noqa: F401
 
 from repro_torch.core import gossip as gossip_lib
 
-__all__ = ["GOSSIP_IMPLS", "EngineOps", "build_step_body",
+__all__ = ["GradFn", "value_and_grad", "GOSSIP_IMPLS", "EngineOps",
+           "build_step_body",
            "make_loop_round", "resolve_gossip", "check_gossip_impl",
            "unknown_gossip_impl"]
 
+# Line 4 for ONE agent: (params, batch) -> (loss, grads), params a dict of
+# tensors, grads in params' layout, loss a 0-d tensor.  The engines call it
+# once under torch.func.vmap over all agent rows, so it must be written in
+# ops that torch.func can transform: no .item(), no data-dependent Python
+# control flow, no in-place writes to its inputs, no torch.autograd.grad
+# (build it with :func:`value_and_grad`, or write the gradient out, as
+# the reference's linreg grad_fn does).  The reference's GradFn takes a
+# third argument, a PRNG key, which both of its grad_fns discard
+# (repro/models/model.py, ``del key``; repro/data/linreg.py): the port
+# drops it, and its randomness goes through the Draws object instead.
+GradFn = Callable[[dict, dict], tuple]
+
 GOSSIP_IMPLS = ("dense", "none", "pallas", "sparse")
+
+
+def value_and_grad(loss_fn) -> GradFn:
+    """loss_fn(params, batch) -> scalar, as a :data:`GradFn` (the
+    reference's ``jax.value_and_grad``), built on
+    ``torch.func.grad_and_value`` so that the engines can vmap it."""
+    grad_and_value = torch.func.grad_and_value(loss_fn)
+
+    def grad_fn(params, batch):
+        grads, loss = grad_and_value(params, batch)
+        return loss, grads
+
+    return grad_fn
 
 
 def unknown_gossip_impl(impl) -> ValueError:

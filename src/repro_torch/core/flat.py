@@ -35,8 +35,6 @@ __all__ = ["FlatSpec", "FlatFedState", "make_flat_spec", "init_flat_state",
            "params_from_numpy", "flat_state_from_numpy", "grads_of",
            "make_flat_feddec_step", "make_flat_feddec_round"]
 
-# loss_fn(params: dict of tensors, batch: dict of tensors) -> scalar loss
-LossFn = Callable[[dict, dict], torch.Tensor]
 LrFn = Callable[[int], torch.Tensor]
 
 
@@ -267,35 +265,41 @@ def _make_fused_flat_op(cfg: FedDecConfig, agent_grads, local_update,
                          sparse)
 
 
-def grads_of(spec: FlatSpec, loss_fn: LossFn, flat: torch.Tensor,
+def grads_of(spec: FlatSpec, grad_fn: engine.GradFn, flat: torch.Tensor,
              batch: dict):
-    """Line 4: per-agent loss and gradient over the rows of a (rows, D)
-    buffer, one row at a time.
+    """Line 4: every agent's loss and gradient over the rows of a
+    (rows, D) buffer, in ONE call of ``torch.func.vmap(grad_fn)``.
 
     The flat engine passes its (n, D) buffer; the sweep engine the
     (R·n, D) view of its lattice, treating (R, n) as one flattened agent
-    axis as the reference does (repro/core/sweep.py:335-344).  Row i's
-    leaves are views into row i of the buffer, made leaves of autograd;
-    their gradients land in row i of one preallocated (rows, D) buffer.
-    Nothing copies the parameters.  Batch leaves lead with the rows dim.
-    The losses keep the loss's dtype.
+    axis as the reference does (repro/core/flat.py:403-408,
+    repro/core/sweep.py:335-344).  The parameters are the per-leaf views
+    ``flat[:, o:o+s].view((rows,) + shape)`` (nothing copies them); batch
+    leaves lead with the rows dim.  The gradient tree comes back whole,
+    (rows, ...) per leaf, and is written into one (rows, D) buffer in
+    FlatSpec order.  The losses keep the loss's dtype.  The backward runs
+    on the calling thread, so that the step's peak memory does not depend
+    on how autograd's device threads interleave with it.
     """
-    g_flat = torch.empty_like(flat)
-    losses = []
-    for i in range(flat.shape[0]):
-        leaves = [v.detach().requires_grad_() for v in spec.views(flat[i])]
-        params = _build_tree(spec.paths, leaves)
-        agent_batch = {k: v[i] for k, v in batch.items()}
-        with torch.enable_grad():
-            loss = loss_fn(params, agent_batch)
-            grads = torch.autograd.grad(loss, leaves)
-        for view, gr in zip(spec.views(g_flat[i]), grads):
-            view.copy_(gr)
-        losses.append(loss.detach())
-    return torch.stack(losses), g_flat
+    rows = flat.shape[0]
+    params = _build_tree(spec.paths, [
+        flat[:, o:o + s].view((rows,) + shape)
+        for o, s, shape in zip(spec.offsets, spec.sizes, spec.shapes)])
+    # the backward on this thread: with autograd's device threads freeing
+    # beside the caller, identical steps peaked whole buffers apart
+    with torch.autograd.set_multithreading_enabled(False):
+        out = torch.func.vmap(grad_fn)(params, batch)
+    if not (isinstance(out, tuple) and len(out) == 2):
+        raise TypeError("grad_fn must return (loss, grads), an "
+                        "engine.GradFn; wrap a loss as "
+                        "engine.value_and_grad(loss)")
+    losses, grads = out
+    g_flat = torch.cat([g.reshape(rows, -1)
+                        for _, g in _sorted_leaves(grads)], dim=1)
+    return losses, g_flat
 
 
-def _flat_ops(cfg: FedDecConfig, spec: FlatSpec, loss_fn: LossFn,
+def _flat_ops(cfg: FedDecConfig, spec: FlatSpec, grad_fn: engine.GradFn,
               lr_fn: LrFn, gossip_fn, optimizer, device,
               fuse_update_mix: bool = False) -> engine.EngineOps:
     """The flat engine's vtable for the shared Algorithm-1 body."""
@@ -315,7 +319,7 @@ def _flat_ops(cfg: FedDecConfig, spec: FlatSpec, loss_fn: LossFn,
             and not custom_gossip)
 
     def agent_grads(state: FlatFedState, batch: dict):
-        return grads_of(spec, loss_fn, state.flat, batch)
+        return grads_of(spec, grad_fn, state.flat, batch)
 
     def local_update(state: FlatFedState, batch: dict, eta):
         losses, g_flat = agent_grads(state, batch)
@@ -359,20 +363,22 @@ def _flat_ops(cfg: FedDecConfig, spec: FlatSpec, loss_fn: LossFn,
 
 
 def make_flat_feddec_step(cfg: FedDecConfig, spec: FlatSpec,
-                          loss_fn: LossFn, lr_fn: LrFn, *, device,
+                          grad_fn: engine.GradFn, lr_fn: LrFn, *, device,
                           gossip_fn=None, optimizer=None,
                           fuse_update_mix: bool = False):
     """One-iteration executor: step(state, batch, draws) ->
     (FlatFedState, {'loss', 'eta'}); batch leaves have a leading agent
-    dim.  ``lr_fn(t)`` returns η_t as a (1,) f32 tensor on ``device``.
-    The state passed in is donated: updated in place and returned."""
+    dim.  ``grad_fn`` is one agent's line 4 (engine.GradFn), called once
+    over all n agents per step.  ``lr_fn(t)`` returns η_t as a (1,) f32
+    tensor on ``device``.  The state passed in is donated: updated in
+    place and returned."""
     return engine.build_step_body(
-        _flat_ops(cfg, spec, loss_fn, lr_fn, gossip_fn, optimizer, device,
+        _flat_ops(cfg, spec, grad_fn, lr_fn, gossip_fn, optimizer, device,
                   fuse_update_mix=fuse_update_mix))
 
 
 def make_flat_feddec_round(cfg: FedDecConfig, spec: FlatSpec,
-                           loss_fn: LossFn, lr_fn: LrFn, *, device,
+                           grad_fn: engine.GradFn, lr_fn: LrFn, *, device,
                            gossip_fn=None, optimizer=None,
                            fuse_update_mix: bool = False):
     """The H-step round: round_fn(state, batches, draws) with every batch
@@ -380,5 +386,5 @@ def make_flat_feddec_round(cfg: FedDecConfig, spec: FlatSpec,
     server round fires on the step with (t+1) % H == 0.  The state passed
     in is donated, as in :func:`make_flat_feddec_step`."""
     return engine.make_loop_round(make_flat_feddec_step(
-        cfg, spec, loss_fn, lr_fn, device=device, gossip_fn=gossip_fn,
+        cfg, spec, grad_fn, lr_fn, device=device, gossip_fn=gossip_fn,
         optimizer=optimizer, fuse_update_mix=fuse_update_mix))

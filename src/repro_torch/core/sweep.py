@@ -27,10 +27,10 @@ update+mix) is one kernel launch for all R runs (kernels #5–#8).
     (#12 on sparse).  FedAvg members bypass the codec: their y is x_half
     and their residual is kept (repro/core/sweep.py:322-410).
 
-The local update treats (R, n) as one flattened agent axis of R·n rows
-(``flat.grads_of`` over the (R·n, D) view).  The executors donate their
-input state, as the flat ones do.  The reference's ``per_step_keys`` is
-not ported.
+The local update treats (R, n) as one flattened agent axis of R·n rows:
+one batched ``flat.grads_of`` call over the (R·n, D) view.  The
+executors donate their input state, as the flat ones do.  The
+reference's ``per_step_keys`` is not ported.
 """
 
 from __future__ import annotations
@@ -47,13 +47,14 @@ from repro_torch.core import engine
 from repro_torch.core import flat as flat_lib
 from repro_torch.core import gossip as gossip_lib
 from repro_torch.core import server as server_lib
-from repro_torch.core.flat import FlatFedState, FlatSpec, LossFn, LrFn
+from repro_torch.core.flat import FlatFedState, FlatSpec, LrFn
 from repro_torch.core.mixing import metropolis_from_uniforms
 
 __all__ = ["SweepPlan", "SweepFedState", "make_sweep_plan",
            "init_sweep_state", "stack_flat_states", "slice_run",
            "resolve_sweep_gossip", "make_sweep_w_sampler",
-           "make_sweep_feddec_step", "make_sweep_feddec_round"]
+           "grads_of_lattice", "make_sweep_feddec_step",
+           "make_sweep_feddec_round"]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -280,7 +281,21 @@ def _sweep_fuse_kind(plan: SweepPlan, optimizer):
     return kind
 
 
-def _sweep_ops(plan: SweepPlan, spec: FlatSpec, loss_fn: LossFn,
+def grads_of_lattice(spec: FlatSpec, grad_fn: engine.GradFn,
+                     flat: torch.Tensor, batch: dict):
+    """Line 4 of every run: one batched ``flat.grads_of`` call over the
+    (R·n, D) view of the (R, n, D) lattice, batch leaves (R, n, ...)
+    flattened alike (repro/core/sweep.py:335-344).  Returns the (R, n)
+    losses and the (R, n, D) gradient."""
+    r_runs, n = flat.shape[:2]
+    batch_rn = {k: v.reshape((r_runs * n,) + v.shape[2:])
+                for k, v in batch.items()}
+    losses, g = flat_lib.grads_of(spec, grad_fn,
+                                  flat.view(r_runs * n, spec.d), batch_rn)
+    return losses.view(r_runs, n), g.view(r_runs, n, spec.d)
+
+
+def _sweep_ops(plan: SweepPlan, spec: FlatSpec, grad_fn: engine.GradFn,
                lr_fn: LrFn, optimizer, device,
                fuse_update_mix: bool = False) -> engine.EngineOps:
     """The lattice engine's vtable: every Algorithm-1 line as one
@@ -309,12 +324,7 @@ def _sweep_ops(plan: SweepPlan, spec: FlatSpec, loss_fn: LossFn,
         return gossip
 
     def agent_grads(state: SweepFedState, batch: dict):
-        # line 4 over the flattened (R·n) agent axis
-        batch_rn = {k: v.reshape((r_runs * n,) + v.shape[2:])
-                    for k, v in batch.items()}
-        losses, g = flat_lib.grads_of(
-            spec, loss_fn, state.flat.view(r_runs * n, spec.d), batch_rn)
-        return losses.view(r_runs, n), g.view(r_runs, n, spec.d)
+        return grads_of_lattice(spec, grad_fn, state.flat, batch)
 
     def local_update(state: SweepFedState, batch: dict, eta):
         # lines 4–5; η broadcast as (R, 1, 1)
@@ -392,21 +402,24 @@ def _sweep_ops(plan: SweepPlan, spec: FlatSpec, loss_fn: LossFn,
         fused_update_gossip=fused_update_gossip)
 
 
-def make_sweep_feddec_step(plan: SweepPlan, spec: FlatSpec, loss_fn: LossFn,
-                           lr_fn: LrFn, *, device, optimizer=None,
+def make_sweep_feddec_step(plan: SweepPlan, spec: FlatSpec,
+                           grad_fn: engine.GradFn, lr_fn: LrFn, *, device,
+                           optimizer=None,
                            fuse_update_mix: bool = False):
     """One-iteration lattice executor: step(state, batch, draws) advances
     all R runs by one Algorithm-1 step.  ``batch`` leaves are (R, n, ...);
-    ``draws`` gives the per-run engine draws.  Metrics: per-run ``loss``
-    and ``eta`` (R,), and ``active`` (R,) when the plan has budgets.  The
-    state passed in is donated: updated in place and returned."""
+    ``draws`` gives the per-run engine draws; ``grad_fn`` (one agent's
+    line 4, engine.GradFn) is called once over all R·n agents a step.
+    Metrics: per-run ``loss`` and ``eta`` (R,), and ``active`` (R,) when
+    the plan has budgets.  The state passed in is donated: updated in
+    place and returned."""
     return engine.build_step_body(
-        _sweep_ops(plan, spec, loss_fn, lr_fn, optimizer, device,
+        _sweep_ops(plan, spec, grad_fn, lr_fn, optimizer, device,
                    fuse_update_mix=fuse_update_mix))
 
 
 def make_sweep_feddec_round(plan: SweepPlan, spec: FlatSpec,
-                            loss_fn: LossFn, lr_fn: LrFn, *, device,
+                            grad_fn: engine.GradFn, lr_fn: LrFn, *, device,
                             optimizer=None, fuse_update_mix: bool = False,
                             per_step_keys: bool = False):
     """The lattice round: T steps × R runs per call, with every batch
@@ -418,5 +431,5 @@ def make_sweep_feddec_round(plan: SweepPlan, spec: FlatSpec,
                          "not ported to repro_torch yet; the port's draws "
                          "object keys every step itself")
     return engine.make_loop_round(make_sweep_feddec_step(
-        plan, spec, loss_fn, lr_fn, device=device, optimizer=optimizer,
+        plan, spec, grad_fn, lr_fn, device=device, optimizer=optimizer,
         fuse_update_mix=fuse_update_mix))

@@ -174,22 +174,23 @@ def train_loop(cfg: ArchConfig, fed: FedConfig, *, steps: int,
     if params0 is None:
         params0 = model.init(draws)
     spec = flat_lib.make_flat_spec(params0)
+    grad_fn = model.grad_fn()
     kwargs = dict(device=device, optimizer=opt,
                   fuse_update_mix=fuse_update_mix)
     if sweep_runs is not None:
         plan = sweep_lib.make_sweep_plan(
             sweep_lattice_configs(fcfg, fed, sweep_runs, sweep_axis))
         state = sweep_lib.init_sweep_state(plan, spec, params0, optimizer=opt)
-        round_fn = sweep_lib.make_sweep_feddec_round(plan, spec, model.loss,
+        round_fn = sweep_lib.make_sweep_feddec_round(plan, spec, grad_fn,
                                                      lr_fn, **kwargs)
     else:
         state = flat_lib.init_flat_state(spec, params0, n_agents,
                                          optimizer=opt, compress=compress)
         if fused:
-            round_fn = flat_lib.make_flat_feddec_round(fcfg, spec, model.loss,
+            round_fn = flat_lib.make_flat_feddec_round(fcfg, spec, grad_fn,
                                                        lr_fn, **kwargs)
         else:
-            step = flat_lib.make_flat_feddec_step(fcfg, spec, model.loss,
+            step = flat_lib.make_flat_feddec_step(fcfg, spec, grad_fn,
                                                   lr_fn, **kwargs)
 
     print(f"[train] {cfg.name}: {model.param_count(params0):,} params × "

@@ -3,10 +3,12 @@
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import engine
 from repro_torch.models import transformer
 
 __all__ = ["Model", "build_model"]
@@ -18,11 +20,6 @@ def _leaves(tree):
             yield from _leaves(tree[key])
         else:
             yield tree[key]
-
-
-def _rebuild(tree, it):
-    return {k: _rebuild(v, it) if isinstance(v, dict) else next(it)
-            for k, v in sorted(tree.items())}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,18 +56,18 @@ class Model:
         return nll.sum() / max(nll.numel(), 1)
 
     def grad_fn(self, *, impl: str = "xla"):
-        """(params, batch) -> (loss, grads) with grads in params' layout.
+        """One agent's (params, batch) -> (loss, grads), grads in params'
+        layout: ``torch.func.grad_and_value`` of :meth:`loss`, so that the
+        engines can vmap it over every agent row at once
+        (core/engine.py:GradFn; the reference's PRNG key is dropped).
         The kernels have no backward: with ``impl='pallas'`` the first
-        kernel wrapper the forward reaches raises."""
-        def fn(params, batch):
-            leaves = [leaf.detach().requires_grad_()
-                      for leaf in _leaves(params)]
-            tree = _rebuild(params, iter(leaves))
-            with torch.enable_grad():
-                loss = self.loss(tree, batch, impl=impl)
-                grads = torch.autograd.grad(loss, leaves)
-            return loss.detach(), _rebuild(params, iter(grads))
-        return fn
+        kernel wrapper the forward reaches raises.  The reference
+        rematerialises each block's activations in the backward
+        (``remat``), which saves memory and changes no number; the port
+        keeps the activations (torch.utils.checkpoint does not compose
+        with the torch.func transforms)."""
+        return engine.value_and_grad(
+            functools.partial(self.loss, impl=impl))
 
 
 def build_model(cfg: ArchConfig) -> Model:

@@ -57,7 +57,8 @@ from repro_torch.core.feddec import FedDecConfig
 from repro_torch.core.mixing import MixingDistribution
 from repro_torch.kernels import ops, ref
 from test_torch_engine import (ETA, H, K, N, SHAPES, TOL, ReplayDraws,
-                               _batches, _graphs, _ref_grad_fn, _torch_loss,
+                               _batches, _graphs, _ref_grad_fn,
+                               _torch_grad_fn,
                                ref_codec_noise)
 
 CODECS = ["identity", "bf16", "int8", "topk:0.25"]
@@ -399,10 +400,10 @@ def _port_round(cfg, spec, opt, fused, per_step=False):
     eta = torch.tensor([ETA])
     kw = dict(device="cpu", optimizer=opt, fuse_update_mix=fused)
     if per_step:
-        step = flat_lib.make_flat_feddec_step(cfg, spec, _torch_loss,
+        step = flat_lib.make_flat_feddec_step(cfg, spec, _torch_grad_fn,
                                               lambda t: eta, **kw)
         return engine.make_loop_round(step)
-    return flat_lib.make_flat_feddec_round(cfg, spec, _torch_loss,
+    return flat_lib.make_flat_feddec_round(cfg, spec, _torch_grad_fn,
                                            lambda t: eta, **kw)
 
 
@@ -566,8 +567,8 @@ def test_impl_none_skips_compression():
     a, la = _run_port("none", False, "sgd", "none")
     _, spec, flat0 = _spec_and_start()
     _, cfg = _configs("none", "int8")
-    ops_ = flat_lib._flat_ops(cfg, spec, _torch_loss, lambda t: None, None,
-                              None, "cpu", fuse_update_mix=True)
+    ops_ = flat_lib._flat_ops(cfg, spec, _torch_grad_fn, lambda t: None,
+                              None, None, "cpu", fuse_update_mix=True)
     assert ops_.ef_gossip is None and ops_.fused_update_gossip is None
     b, lb = _run_port("none", False, "sgd", "int8")
     assert la == lb and torch.equal(a.flat, b.flat)
@@ -621,7 +622,8 @@ def test_only_int8_draws_codec_noise(codec, fused):
     state = flat_lib.FlatFedState(flat=torch.from_numpy(flat0), step=1,
                                   residual=torch.zeros(N, spec.d))
     step = flat_lib.make_flat_feddec_step(
-        cfg, spec, _torch_loss, lambda t: torch.tensor([ETA]), device="cpu",
+        cfg, spec, _torch_grad_fn, lambda t: torch.tensor([ETA]),
+        device="cpu",
         fuse_update_mix=fused)
     probe = _CountingDraws(9)
     batch = {k: torch.from_numpy(v[0]) for k, v in _batches(1)[0].items()}

@@ -83,6 +83,11 @@ def _torch_loss(params, batch):
                                            - batch["tw"])))
 
 
+# line 4 for one agent, as the engines take it (the reference's
+# jax.value_and_grad form)
+_torch_grad_fn = engine.value_and_grad(_torch_loss)
+
+
 def _ref_grad_fn(params, batch, key):
     del key
     return jax.value_and_grad(_jax_loss)(params, batch)
@@ -139,9 +144,9 @@ def _run_both(impl, fused, opt, p_fail=0.0, per_step=False, rounds=2):
         flat0, 1, () if port_opt is None else np.zeros_like(flat0))
     eta = torch.tensor([ETA])
     kw = dict(device="cpu", optimizer=port_opt, fuse_update_mix=fused)
-    step = flat_lib.make_flat_feddec_step(cfg, spec, _torch_loss,
+    step = flat_lib.make_flat_feddec_step(cfg, spec, _torch_grad_fn,
                                           lambda t: eta, **kw)
-    round_fn = flat_lib.make_flat_feddec_round(cfg, spec, _torch_loss,
+    round_fn = flat_lib.make_flat_feddec_round(cfg, spec, _torch_grad_fn,
                                                lambda t: eta, **kw)
 
     key = jax.random.key(7)
@@ -306,8 +311,8 @@ def test_executors_donate_the_input_state():
     state = flat_lib.FlatFedState(flat=torch.ones(N, 4), step=1)
     old = state.flat
     step = flat_lib.make_flat_feddec_step(
-        cfg, spec, lambda p, b: p["b"].sum(), lambda t: torch.tensor([0.1]),
-        device="cpu")
+        cfg, spec, engine.value_and_grad(lambda p, b: p["b"].sum()),
+        lambda t: torch.tensor([0.1]), device="cpu")
     new, _ = step(state, {"x": torch.zeros(N, 1)}, Draws(0, "cpu"))
     assert new is state and state.step == 2 and state.flat is not old
     torch.testing.assert_close(state.flat, torch.full((N, 4), 0.9))

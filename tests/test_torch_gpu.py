@@ -571,7 +571,8 @@ def test_cuda_f64_mix_kernel_matches_plain_version(cuda, n, d, kernel):
 def test_cuda_f64_engine_launches_the_kernels(cuda, impl, fused):
     """An f64 flat engine on the card runs the mix kernels (kernel #1/#2,
     or #3/#4 fused) and agrees with the same round on the CPU."""
-    from repro_torch.core import draws as draws_lib, flat as flat_lib
+    from repro_torch.core import draws as draws_lib, engine
+    from repro_torch.core import flat as flat_lib
     from repro_torch.core.feddec import FedDecConfig
     from repro_torch.core.mixing import MixingDistribution
     n, d = 8, 4099
@@ -581,9 +582,8 @@ def test_cuda_f64_engine_launches_the_kernels(cuda, impl, fused):
     params1 = {"w": torch.zeros(d, dtype=torch.float64)}
     spec = flat_lib.make_flat_spec(params1)
 
-    def loss(params, batch):
-        return 0.5 * torch.sum(torch.square(params["w"] - batch["t"]))
-
+    grad_fn = engine.value_and_grad(lambda params, batch: 0.5 * torch.sum(
+        torch.square(params["w"] - batch["t"])))
     flat0 = np.random.default_rng(0).standard_normal((n, d))
     batches = {"t": np.random.default_rng(1).standard_normal((2, n, d))}
     out = {}
@@ -591,7 +591,7 @@ def test_cuda_f64_engine_launches_the_kernels(cuda, impl, fused):
         state = flat_lib.flat_state_from_numpy(flat0, 1, device=dev)
         eta = torch.tensor([0.1], dtype=torch.float64, device=dev)
         round_fn = flat_lib.make_flat_feddec_round(
-            cfg, spec, loss, lambda t: eta, device=dev,
+            cfg, spec, grad_fn, lambda t: eta, device=dev,
             fuse_update_mix=fused)
         ops.reset_launch_counts()
         state, _ = round_fn(state, {k: torch.as_tensor(v, device=dev)
@@ -819,3 +819,60 @@ def test_cuda_zoo_wrappers_raise_instead_of_falling_back(cuda, kernel):
                for t in args]
     with pytest.raises(ValueError):   # non-contiguous views, same shapes
         fn(*strided)
+
+
+def _per_row_grads(spec, loss_fn, flat, batch):
+    """The per-row ``torch.autograd.grad`` loop from Python that the
+    engines ran before their one batched call: the yardstick."""
+    from repro_torch.core import flat as flat_lib
+    g_flat = torch.empty_like(flat)
+    losses = []
+    for i in range(flat.shape[0]):
+        leaves = [v.detach().requires_grad_() for v in spec.views(flat[i])]
+        params = flat_lib._build_tree(spec.paths, leaves)
+        with torch.enable_grad():
+            loss = loss_fn(params, {k: v[i] for k, v in batch.items()})
+            grads = torch.autograd.grad(loss, leaves)
+        for view, gr in zip(spec.views(g_flat[i]), grads):
+            view.copy_(gr)
+        losses.append(loss.detach())
+    return torch.stack(losses), g_flat
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lead", [(1,), (8,), (2, 3)],
+                         ids=["one", "flat", "lattice"])
+def test_cuda_batched_grads_match_the_per_row_loop(cuda, lead):
+    """Line 4 as one vmapped call over the (rows, D) buffer (the flat
+    engine's n rows, the lattice's R·n) on the card, against the per-row
+    loop: losses and g within 1e-5·max (f32, other summation order)."""
+    from repro_torch.core import flat as flat_lib, sweep
+    from repro_torch.core.draws import Draws
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    model = build_model(train.tiny_lm_config(128, 2, vocab=512))
+    params = model.init(Draws(0, cuda))
+    spec = flat_lib.make_flat_spec(params)
+    gen = _gen(cuda, len(lead))
+    flat = spec.ravel(params) + 0.02 * torch.randn(
+        lead + (spec.d,), device=cuda, generator=gen)
+    tokens = torch.randint(0, 512, lead + (2, 64), device=cuda,
+                           generator=gen)
+    batch = {"tokens": tokens,
+             "positions": torch.arange(64, device=cuda).expand_as(tokens)}
+    if len(lead) == 1:
+        losses, g = flat_lib.grads_of(spec, model.grad_fn(), flat, batch)
+    else:
+        losses, g = sweep.grads_of_lattice(spec, model.grad_fn(), flat,
+                                           batch)
+    rows = int(np.prod(lead))
+    want_l, want_g = _per_row_grads(
+        spec, model.loss, flat.view(rows, spec.d),
+        {k: v.reshape((rows,) + v.shape[len(lead):])
+         for k, v in batch.items()})
+    torch.cuda.synchronize()
+    assert g.shape == lead + (spec.d,)
+    scale = want_g.abs().max().item()
+    assert (g.view(rows, -1) - want_g).abs().max().item() <= 1e-5 * scale
+    assert (losses.view(-1) - want_l).abs().max().item() <= \
+        1e-5 * want_l.abs().max().item()

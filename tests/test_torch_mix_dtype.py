@@ -370,6 +370,11 @@ def _torch_loss(params, batch):
                                            - batch["tw"])))
 
 
+# line 4 for one agent, as the engines take it (the reference's
+# jax.value_and_grad form)
+_torch_grad_fn = engine.value_and_grad(_torch_loss)
+
+
 def _ref_grad_fn(params, batch, key):
     del key
     return jax.value_and_grad(_jax_loss)(params, batch)
@@ -390,7 +395,7 @@ def _port_round(cfg, fused, flat0):
     state = flat_lib.flat_state_from_numpy(flat0, 1)
     eta = torch.tensor([ETA], dtype=F64)
     round_fn = flat_lib.make_flat_feddec_round(
-        cfg, spec, _torch_loss, lambda t: eta, device="cpu",
+        cfg, spec, _torch_grad_fn, lambda t: eta, device="cpu",
         fuse_update_mix=fused)
     return state, round_fn
 
@@ -459,8 +464,8 @@ def test_fused_f64_round_equals_the_unfused_one(impl):
 
 
 def test_losses_keep_the_loss_dtype():
-    """grads_of stacks each row's loss in the loss's own dtype (the f32
-    engine's losses stay f32)."""
+    """grads_of's one batched call returns each row's loss in the loss's
+    own dtype (the f32 engine's losses stay f32)."""
     for dtype in (F64, F32):
         params1 = {"b": torch.zeros(7, dtype=dtype),
                    "w": {"k": torch.zeros(3, 6, dtype=dtype)}}
@@ -468,7 +473,7 @@ def test_losses_keep_the_loss_dtype():
         flat = torch.from_numpy(_x((4, D))).to(dtype)
         batch = {"tb": torch.ones(4, 7, dtype=dtype),
                  "tw": torch.ones(4, 3, 6, dtype=dtype)}
-        losses, g = flat_lib.grads_of(spec, _torch_loss, flat, batch)
+        losses, g = flat_lib.grads_of(spec, _torch_grad_fn, flat, batch)
         assert losses.dtype == dtype and losses.shape == (4,)
         assert g.dtype == dtype
         assert losses[0].item() == _torch_loss(

@@ -101,6 +101,11 @@ def _torch_loss(params, batch):
                                            - batch["tw"])))
 
 
+# line 4 for one agent, as the engines take it (the reference's
+# jax.value_and_grad form)
+_torch_grad_fn = engine.value_and_grad(_torch_loss)
+
+
 def _ref_grad_fn(params, batch, key):
     del key
     return jax.value_and_grad(_jax_loss)(params, batch)
@@ -177,7 +182,7 @@ def _run_both(pairs, *, opt="sgd", fused=False, t_steps=None, rounds=2):
         opt_state=() if port_opt is None else torch.from_numpy(m0.copy()))
     eta = torch.tensor([ETA])
     round_fn = sweep.make_sweep_feddec_round(
-        plan, _port_spec(ref_spec), _torch_loss, lambda t: eta,
+        plan, _port_spec(ref_spec), _torch_grad_fn, lambda t: eta,
         device="cpu", optimizer=port_opt, fuse_update_mix=fused)
 
     run_keys = jax.random.split(jax.random.key(7), r_runs)
@@ -272,7 +277,7 @@ def test_budget_freezes_a_run_bit_for_bit(impl, fused):
     plan = sweep.make_sweep_plan(cfgs, t_steps=budgets)
     ref_spec = _ref_spec()
     step = sweep.make_sweep_feddec_step(
-        plan, _port_spec(ref_spec), _torch_loss,
+        plan, _port_spec(ref_spec), _torch_grad_fn,
         lambda t: torch.tensor([ETA]), device="cpu",
         optimizer=optim.momentum_sgd(), fuse_update_mix=fused)
     rng = np.random.default_rng(42)
@@ -316,7 +321,7 @@ def test_slices_equal_the_flat_engine(impl, fused, opt):
             flat=torch.from_numpy(flat0[r].copy()), step=1,
             opt_state=() if port_opt is None else torch.zeros(N, spec.d))
         round_fn = flat_lib.make_flat_feddec_round(
-            cfg, spec, _torch_loss, lambda t: torch.tensor([ETA]),
+            cfg, spec, _torch_grad_fn, lambda t: torch.tensor([ETA]),
             device="cpu", optimizer=port_opt, fuse_update_mix=fused)
         for batches in _rounds(3):
             fstate, _ = round_fn(fstate, {k: torch.from_numpy(v[:, r])
@@ -579,7 +584,7 @@ def test_executors_donate_the_input_state():
                                 step=np.ones(2, np.int64))
     old = state.flat
     step = sweep.make_sweep_feddec_step(
-        plan, spec, lambda p, b: p["b"].sum(),
+        plan, spec, engine.value_and_grad(lambda p, b: p["b"].sum()),
         lambda t: torch.tensor([0.1]), device="cpu")
     new, met = step(state, {"x": torch.zeros(2, N, 1)},
                     SweepDraws(0, "cpu", 2, per_run=False))

@@ -56,7 +56,7 @@ from repro_torch.launch import train as port_train
 from test_torch_compress import _assert_close_lossy, _bits, _u_bound
 from test_torch_sweep import (ETA, H, MATRIX_GRAPHS, N, TOL, ReplayDraws,
                               ReplaySweepDraws, _cfg as _plain_cfg, _opts,
-                              _port_spec, _ref_spec, _rounds, _torch_loss,
+                              _port_spec, _ref_spec, _rounds, _torch_grad_fn,
                               _ref_grad_fn)
 from test_torch_train import ReplaySweepTrainDraws
 
@@ -97,8 +97,8 @@ def _port_round(plan, opt, fused, per_step=False):
     spec = _port_spec(_ref_spec())
     if per_step:
         return engine.make_loop_round(sweep.make_sweep_feddec_step(
-            plan, spec, _torch_loss, lambda t: eta, **kw))
-    return sweep.make_sweep_feddec_round(plan, spec, _torch_loss,
+            plan, spec, _torch_grad_fn, lambda t: eta, **kw))
+    return sweep.make_sweep_feddec_round(plan, spec, _torch_grad_fn,
                                          lambda t: eta, **kw)
 
 
@@ -290,7 +290,7 @@ def test_budget_freezes_flat_opt_state_and_residual(impl, fused, codec):
     plan = sweep.make_sweep_plan([c for _, c in pairs], t_steps=budgets)
     _, port_opt = _opts("momentum")
     step = sweep.make_sweep_feddec_step(
-        plan, _port_spec(_ref_spec()), _torch_loss,
+        plan, _port_spec(_ref_spec()), _torch_grad_fn,
         lambda t: torch.tensor([ETA]), device="cpu", optimizer=port_opt,
         fuse_update_mix=fused)
     flat0, m0, res0 = _start(3, "momentum", True)
@@ -373,7 +373,7 @@ def test_slices_equal_the_flat_compressed_engine(impl, fused, opt, codec):
             opt_state=() if m0 is None else torch.from_numpy(m0[r].copy()),
             residual=torch.from_numpy(res0[r].copy()))
         round_fn = flat_lib.make_flat_feddec_round(
-            cfg, spec, _torch_loss, lambda t: torch.tensor([ETA]),
+            cfg, spec, _torch_grad_fn, lambda t: torch.tensor([ETA]),
             device="cpu", optimizer=port_opt, fuse_update_mix=fused)
         for batches in _rounds(3):
             fstate, _ = round_fn(fstate, {k: torch.from_numpy(v[:, r])
@@ -577,7 +577,7 @@ def test_only_int8_draws_codec_noise(codec, fused):
     pairs = [_cfg(g, "pallas", codec) for g in ("ring2", "ring1")]
     plan = sweep.make_sweep_plan([c for _, c in pairs])
     step = sweep.make_sweep_feddec_step(
-        plan, _port_spec(_ref_spec()), _torch_loss,
+        plan, _port_spec(_ref_spec()), _torch_grad_fn,
         lambda t: torch.tensor([ETA]), device="cpu", fuse_update_mix=fused)
     flat0, _, res0 = _start(2, "sgd", True)
     probe = _CountingDraws(_run_keys(2))
