@@ -102,7 +102,17 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
      on the same weights, to 1e-4·max|logit|; then Mamba2-2.7B's bf16 gap
      at S 1024, 2048 and 4096 (token prefixes) for weight seeds 0, 1 and
      2, each within bf16_model_bound.  RecurrentGemma-9B peaks near 45 GB
-     in bf16 and near 46 GB with f32 compute.
+     in bf16 and near 46 GB with f32 compute;
+  7. paper: the paper's §4 experiments through their drivers
+     (repro_torch.experiments): fig4 at the paper's settings (80 runs of
+     20 agents, d = 25, T = 5000, float64, the draws from seed 42) on the
+     card and on the CPU with the same host-made draws, the card's per-run
+     finals within PAPER_REL_TOL of the CPU's and no kernel #1-#17
+     launched (its mix is one f64 torch.bmm), its eight claims C1-C3 with
+     the wall time and lattice steps per second; its steady step time
+     over PAPER_TIMED_STEPS steps and, under torch.profiler, its device
+     ops, device time and busy share a step; then theory_check (B1, B2),
+     fig2 (F1, F2), table1 (T1-T3) and ablation_server (S1), each timed.
 
 Kernel times are the median over 5 repeats of the mean of 10 calls
 (CUDA events).  ``python3 chip_smoke.py --mix-timing DIR`` runs only the
@@ -2012,6 +2022,147 @@ def model_phase(torch) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the paper's §4 experiments (repro_torch.experiments)
+# ---------------------------------------------------------------------------
+
+# fig4's finals on the card against the same lattice on the CPU, relative
+PAPER_REL_TOL = 1e-9
+# fig4's steady lattice steps: timed (host clock), and profiled as the
+# difference of a long and a short run (set-up taken out)
+PAPER_TIMED_STEPS = 1000
+PAPER_PROFILE_STEPS = (20, 220)
+
+
+def _fig4_lattice(torch, steps: int):
+    """``steps`` steps of fig4's full lattice (R 80) on the card, with the
+    port's own draws; returns the host seconds (synchronized)."""
+    from repro_torch.core.draws import RoundDraws
+    from repro_torch.experiments import common, fig4_convergence as fig4
+    problem, _, plan, lr_fn, seed_ids = fig4.make_setup()
+    draws = RoundDraws(fig4.SEED, seed_ids, plan.h, steps, n=fig4.N,
+                       k=fig4.K, device=DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    common.run_lattice(problem, plan, lr_fn, draws, steps, DEVICE)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _fig4_profile(torch, step_ms: float) -> dict:
+    """fig4's lattice under torch.profiler (device activity only): device
+    ops and device ms per step from the difference of two runs, and the
+    busy share against the unprofiled step."""
+    from torch.profiler import ProfilerActivity, profile
+    runs = {}
+    for steps in PAPER_PROFILE_STEPS:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _fig4_lattice(torch, steps)
+        trace = ROOT / "build" / "chip_smoke_paper_trace.json"
+        trace.parent.mkdir(exist_ok=True)
+        prof.export_chrome_trace(str(trace))
+        events = [e for e in json.loads(trace.read_text())["traceEvents"]
+                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+        trace.unlink()
+        runs[steps] = (len(events), sum(e["dur"] for e in events) / 1e3)
+    (short, (n0, ms0)), (long, (n1, ms1)) = sorted(runs.items())
+    if n1 == 0:
+        log("[paper] the profiler traced no device time: not measured")
+        return {"traced": False}
+    ops = (n1 - n0) / (long - short)
+    device_ms = (ms1 - ms0) / (long - short)
+    return {"traced": True, "steps": [short, long],
+            "device_ops_per_step": ops, "device_ms_per_step": device_ms,
+            "step_ms_unprofiled": step_ms,
+            "device_busy_share": device_ms / step_ms}
+
+
+def paper_phase(torch) -> dict:
+    """The paper's §4 experiments through their drivers' entry points:
+    fig4 at the paper's settings (R 80, n 20, d 25, T 5000, f64, seed 42)
+    on the card and again on the CPU with the same host-made draws (finals
+    within PAPER_REL_TOL, no kernel of #1-#17 launched: its mix is one f64
+    torch.bmm), its eight claims; its steady step time and profile; then
+    theory_check (B1, B2), fig2 (F1, F2), table1 (T1-T3) and
+    ablation_server (S1), each timed.  Any failed check fails the run."""
+    import numpy as np
+    from repro_torch.experiments import ablation_server, fig2_alpha
+    from repro_torch.experiments import fig4_convergence as fig4
+    from repro_torch.experiments import table1_lambda2, theory_check
+    from repro_torch.kernels import ops
+    out = {}
+
+    def claims(name, lines, need):
+        for line in lines:
+            log(f"[paper] {name} {line}")
+        passed = [line for line in lines[:need] if ": PASS" in line]
+        check(len(passed) == need, f"[paper] {name}: {len(passed)}/{need} "
+                                   f"checks passed")
+        return lines
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    _, finals, last = fig4.run_experiment(device=DEVICE)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launched = {k: v for k, v in ops.launch_counts().items() if v}
+    check(not launched, f"[paper] fig4 launched {launched}; its mix is a "
+                        f"plain f64 product")
+    t0 = time.perf_counter()
+    _, _, cpu_last = fig4.run_experiment(device="cpu")
+    cpu_s = time.perf_counter() - t0
+    rel = float(np.max(np.abs(last - cpu_last) / np.abs(cpu_last)))
+    check(rel <= PAPER_REL_TOL, f"[paper] fig4: the card's finals differ "
+                                f"from the CPU's by {rel:.3e} relative "
+                                f"(limit {PAPER_REL_TOL})")
+    lines = claims("fig4", fig4.validate(finals), 8)
+    log(f"[paper] fig4 (R 80, n 20, d 25, T {fig4.T}, f64, seed "
+        f"{fig4.SEED}): 8/8 claims; card {card_s:.2f} s "
+        f"({fig4.T / card_s:.1f} lattice steps/s, set-up included), CPU "
+        f"twin {cpu_s:.2f} s; per-run finals max rel |card − CPU| "
+        f"{rel:.3e} (limit {PAPER_REL_TOL})")
+    _fig4_lattice(torch, 50)                            # warm
+    step_ms = 1e3 * _fig4_lattice(torch, PAPER_TIMED_STEPS) / \
+        PAPER_TIMED_STEPS
+    profile = _fig4_profile(torch, step_ms)
+    log(f"[paper] fig4 lattice step {step_ms:.4f} ms (host clock over "
+        f"{PAPER_TIMED_STEPS} steps, synchronized)"
+        + (f"; {profile['device_ops_per_step']:.1f} device ops and "
+           f"{profile['device_ms_per_step']:.4f} device ms a step "
+           f"({100 * profile['device_busy_share']:.1f}% busy)"
+           if profile["traced"] else ""))
+    out["fig4"] = {"wall_s": card_s, "cpu_wall_s": cpu_s,
+                   "steps_per_s": fig4.T / card_s, "max_rel_err": rel,
+                   "finals": {"/".join(map(str, k)): v
+                              for k, v in finals.items()},
+                   "claims": lines, "step_ms": step_ms, "profile": profile}
+
+    t0 = time.perf_counter()
+    sub, bound, inp = theory_check.run_experiment(device=DEVICE)
+    wall = time.perf_counter() - t0
+    lines = claims("theory_check", theory_check.validate(sub, bound, inp),
+                   2)
+    out["theory_check"] = {"wall_s": wall, "claims": lines,
+                           "max_ratio": float((sub / bound).max())}
+    t0 = time.perf_counter()
+    lines = claims("fig2", fig2_alpha.validate(
+        fig2_alpha.empirical_contractions(device=DEVICE)), 2)
+    out["fig2"] = {"wall_s": time.perf_counter() - t0, "claims": lines}
+    t0 = time.perf_counter()
+    _, table = table1_lambda2.run_experiment()
+    lines = claims("table1", table1_lambda2.validate(table), 3)
+    out["table1"] = {"wall_s": time.perf_counter() - t0, "claims": lines}
+    t0 = time.perf_counter()
+    rows = ablation_server.run_experiment(device=DEVICE)
+    lines = claims("ablation_server", ablation_server.validate(rows), 1)
+    out["ablation_server"] = {"wall_s": time.perf_counter() - t0,
+                              "claims": lines, "rows": rows}
+    for name in ("theory_check", "fig2", "table1", "ablation_server"):
+        log(f"[paper] {name}: {out[name]['wall_s']:.2f} s")
+    ops.reset_launch_counts()
+    return out
+
+
 # The ELL kernels timed by --mix-timing: the main path's (#2 gossip, #4
 # sgd and momentum) and the lattice's (#6, #8)
 MIX_TIMING = {"gossip_mix_sparse": ["gossip"],
@@ -2136,6 +2287,9 @@ def main() -> int:
     t0 = time.perf_counter()
     models = model_phase(torch)
     log(f"[models] phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    paper = paper_phase(torch)
+    log(f"[paper] phase {time.perf_counter() - t0:.1f} s")
 
     line = []
     for kernel in REPLACES:
@@ -2172,7 +2326,7 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"device": name, "nvidia_smi": smi, "kernels": line,
          "training": training, "grads": grads, "f64_paths": f64_paths,
-         "profile": profile, "models": models,
+         "profile": profile, "models": models, "paper": paper,
          "total_s": total_s},
         indent=1))
     print(json.dumps({"kernels": line}))

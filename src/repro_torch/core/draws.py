@@ -15,7 +15,9 @@ Methods that the engine calls take the step counter ``t``, so a test can
 pass an object with the same methods that replays the reference's draws
 for that step instead (see tests/test_torch_engine.py).  A sweep lattice
 takes a :class:`SweepDraws`, whose engine draws have a leading run axis
-and whose ``t`` is the (R,) array of per-run step counters.
+and whose ``t`` is the (R,) array of per-run step counters, or a
+:class:`RoundDraws`, which re-keys every run at every server round, as
+the reference's figure drivers do with ``per_step_keys``.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["Draws", "SweepDraws"]
+__all__ = ["Draws", "SweepDraws", "RoundDraws"]
 
 
 class Draws:
@@ -154,3 +156,91 @@ class SweepDraws(Draws):
         for r, run in enumerate(self.runs):
             noise[r] = run.codec_noise(t, n, d)
         return noise
+
+
+class RoundDraws:
+    """Per-round re-keyed draws of an R-run lattice, made on the host and
+    moved to the device once: the port's counterpart of the reference's
+    ``per_step_keys`` (repro/core/sweep.py:330-333).
+
+    Run r at step t (counted from 1) draws from the streams keyed by
+    (seed, ``seed_ids[r]``, (t − 1) // ``h[r]``), the round of t under run
+    r's H.  A round's stream gives its h[r] steps at once, in step order:
+    the server's (h, K) participants, the (h, n, n) link uniforms (built
+    with ``link_failures``) and, through :meth:`minibatch_indices`, the
+    (h, n, m) minibatch rows (the reference's per-round ``randint(kb, (h,
+    n, m))``, benchmarks/common.py:120-146).  Runs with the same seed id
+    and the same H therefore see the same draws whatever their graph or
+    algorithm: the common random numbers of fig4's comparisons.  The
+    streams are numpy generators, so a run on the card and a run on the
+    CPU see the same draws.  ``t_steps`` bounds the horizon.
+    """
+
+    _STREAMS = {"batch": 0, "server": 1, "links": 2}
+
+    def __init__(self, seed: int, seed_ids, h, t_steps: int, *, n: int,
+                 k: int, device, link_failures: bool = False):
+        self.seed = int(seed)
+        self.seed_ids = np.asarray(seed_ids, dtype=np.int64)
+        self.h = np.asarray(h, dtype=np.int64)
+        if self.seed_ids.shape != self.h.shape or self.h.ndim != 1:
+            raise ValueError(f"seed_ids {self.seed_ids.shape} and h "
+                             f"{self.h.shape} must be one entry per run")
+        self.t_steps, self.n, self.k = int(t_steps), int(n), int(k)
+        self.device = torch.device(device)
+        self._participants = self._table(
+            "server", lambda g, h: g.integers(0, n, (h, k)))
+        self._uniforms = self._table(
+            "links", lambda g, h: g.random((h, n, n), dtype=np.float32)) \
+            if link_failures else None
+
+    @property
+    def r_runs(self) -> int:
+        return len(self.h)
+
+    def _table(self, stream: str, draw) -> torch.Tensor:
+        """(T, R, ...) on the device: every run's rounds' blocks, cut to
+        ``t_steps``, drawn once per distinct (seed id, H)."""
+        out = None
+        for sid, h in sorted(set(zip(self.seed_ids.tolist(),
+                                     self.h.tolist()))):
+            runs = np.flatnonzero((self.seed_ids == sid) & (self.h == h))
+            blocks = np.concatenate([
+                draw(np.random.default_rng(np.random.SeedSequence(
+                    (self.seed, sid, j, self._STREAMS[stream]))), h)
+                for j in range(-(-self.t_steps // h))])[:self.t_steps]
+            if out is None:
+                out = np.empty((self.t_steps, self.r_runs)
+                               + blocks.shape[1:], blocks.dtype)
+            out[:, runs] = blocks[:, None]
+        return torch.from_numpy(out).to(self.device)
+
+    def _at(self, table: torch.Tensor, t) -> torch.Tensor:
+        """Row t − 1 of every run (a view when the runs are in step)."""
+        s = np.asarray(t, dtype=np.int64) - 1
+        if (s == s[0]).all():
+            return table[int(s[0])]
+        return table[torch.as_tensor(s, device=self.device),
+                     torch.arange(self.r_runs, device=self.device)]
+
+    def minibatch_indices(self, m_batch: int, m_rows: int) -> torch.Tensor:
+        """(T, R, n, m) int64 minibatch rows on the device: step s of run r
+        takes rows ``[s, r]`` of each agent's M = ``m_rows`` rows."""
+        return self._table("batch", lambda g, h: g.integers(
+            0, m_rows, (h, self.n, m_batch)))
+
+    def participants(self, t, n: int, k: int) -> torch.Tensor:
+        """(R, K) server draws of step t (the (R,) per-run counters)."""
+        if (n, k) != (self.n, self.k):
+            raise ValueError(f"RoundDraws made for n={self.n}, K={self.k}, "
+                             f"asked for n={n}, K={k}")
+        return self._at(self._participants, t)
+
+    def link_uniforms(self, t, n: int) -> torch.Tensor:
+        """(R, n, n) link-failure uniforms of step t."""
+        if self._uniforms is None:
+            raise ValueError("RoundDraws made without link_failures")
+        if n != self.n:
+            raise ValueError(f"RoundDraws made for n={self.n}, asked for "
+                             f"n={n}")
+        return self._at(self._uniforms, t)

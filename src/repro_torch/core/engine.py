@@ -130,7 +130,10 @@ class EngineOps:
 
     Fields (Algorithm-1 lines in parentheses):
       get_step:     state -> t (the carried step counter, starts at 1).
-      eta_fn:       t -> η_t, a (1,) f32 tensor on the buffer's device.
+      eta_fn:       t -> η_t, a tensor on the buffer's device in the
+                    buffer's dtype, at least f32: (1,) on the flat engine
+                    (the caller's lr_fn), (R,) on a lattice (the lattice
+                    moves and casts its lr_fn's values).
       sample_w:     (draws, t) -> W^t (line 3).
       local_update: (state, batch, eta) -> (losses, x_half, new_opt)
                     (lines 4–5).

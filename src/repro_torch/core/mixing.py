@@ -6,6 +6,8 @@ failures, each edge is down with probability ``p_fail`` and W^t is the
 Metropolis matrix of the surviving subgraph, built from an (n, n) block of
 uniforms exactly as the reference builds it from ``jax.random.uniform`` —
 so a test that feeds the reference's uniforms gets the reference's W^t.
+The spectral constant of Theorem 1, |λ̂₂| = λ₂(E[WWᵀ]), is exact (W²)
+without failures and a Monte-Carlo mean over sampled W^t with them.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import topology as topo
+from repro_torch.core.draws import Draws
 
 __all__ = ["MixingDistribution", "identity_mixing",
            "metropolis_from_uniforms"]
@@ -58,6 +61,42 @@ class MixingDistribution:
         p_fail = self.p_fail
         return lambda draws, t: metropolis_from_uniforms(
             draws.link_uniforms(t, self.n), adj, p_fail, self.dtype)
+
+    # -- the spectral quantities of Theorem 1 (repro/core/mixing.py:70-96) --
+
+    def sample_batch(self, draws, num: int) -> torch.Tensor:
+        """(num, n, n) W draws: sample i from ``draws.link_uniforms(i, n)``
+        (the reference's i-th key of ``split(key, num)``), all built in one
+        batched call on the uniforms' device (the fixed W on the CPU)."""
+        if self.p_fail == 0.0:
+            w = torch.as_tensor(self.fixed_w, dtype=self.dtype)
+            return w.expand(num, self.n, self.n)
+        u = torch.stack([draws.link_uniforms(i, self.n)
+                         for i in range(num)])
+        adj = torch.as_tensor(self.graph.adjacency, device=u.device)
+        return metropolis_from_uniforms(u, adj, self.p_fail, self.dtype)
+
+    def expected_wwt(self, draws=None, num_samples: int = 4096) -> np.ndarray:
+        """E_W[W Wᵀ] (f64 numpy): exact (W²) when p_fail == 0, else the
+        mean over ``num_samples`` draws in the mixing dtype (``draws``
+        defaults to a CPU Draws of seed 0)."""
+        if self.p_fail == 0.0:
+            w = self.fixed_w
+            return w @ w.T
+        if draws is None:
+            draws = Draws(0, "cpu")
+        ws = self.sample_batch(draws, num_samples)
+        wwt = torch.einsum("kij,klj->il", ws, ws) / num_samples
+        return wwt.cpu().numpy().astype(np.float64)
+
+    def lambda2_hat(self, draws=None, num_samples: int = 4096) -> float:
+        """|λ̂₂| = |λ₂(E[WWᵀ])| — the connectivity constant of Theorem 1."""
+        return topo.lambda2(self.expected_wwt(draws, num_samples))
+
+    def alpha(self, draws=None, num_samples: int = 4096) -> float:
+        """α = |λ̂₂|/(1 − |λ̂₂|) — the factor multiplying H in B (Thm. 1)."""
+        return topo.alpha_from_lambda2_hat(
+            self.lambda2_hat(draws, num_samples))
 
 
 def metropolis_from_uniforms(u: torch.Tensor, adjacency: torch.Tensor,

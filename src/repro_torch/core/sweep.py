@@ -30,7 +30,10 @@ update+mix) is one kernel launch for all R runs (kernels #5–#8).
 The local update treats (R, n) as one flattened agent axis of R·n rows:
 one batched ``flat.grads_of`` call over the (R·n, D) view.  The
 executors donate their input state, as the flat ones do.  The
-reference's ``per_step_keys`` is not ported.
+reference's ``per_step_keys`` (a (T, R) key array re-keying each run per
+server round) is the draws object's business in the port: a
+:class:`repro_torch.core.draws.RoundDraws` keys run r's draws by its
+seed and its round.
 """
 
 from __future__ import annotations
@@ -300,8 +303,12 @@ def _sweep_ops(plan: SweepPlan, spec: FlatSpec, grad_fn: engine.GradFn,
                fuse_update_mix: bool = False) -> engine.EngineOps:
     """The lattice engine's vtable: every Algorithm-1 line as one
     whole-lattice op.  ``lr_fn`` receives the (R,) per-run step counters
-    and returns one η or R of them."""
+    and returns one η or R of them (numbers, numpy or tensors), which go
+    to ``device`` in the buffer's dtype (at least f32)."""
     r_runs, n = plan.r_runs, plan.n_agents
+    # η beside the buffer: on its device, in its dtype (at least f32), so
+    # an f64 lattice keeps the reference's f64 per-run stepsizes
+    eta_dtype = torch.promote_types(spec.dtype, torch.float32)
     gossip_fn = resolve_sweep_gossip(plan)
     compressor = _compressor(plan)
     fedavg = np.flatnonzero(plan.none_mask)
@@ -390,7 +397,8 @@ def _sweep_ops(plan: SweepPlan, spec: FlatSpec, grad_fn: engine.GradFn,
 
     return engine.EngineOps(
         get_step=lambda s: s.step,
-        eta_fn=lambda t: torch.as_tensor(lr_fn(t)).reshape(-1).expand(
+        eta_fn=lambda t: torch.as_tensor(
+            lr_fn(t), dtype=eta_dtype, device=device).reshape(-1).expand(
             r_runs),
         sample_w=make_sweep_w_sampler(plan, device),
         local_update=local_update,
@@ -428,8 +436,10 @@ def make_sweep_feddec_round(plan: SweepPlan, spec: FlatSpec,
     others continue.  The state passed in is donated."""
     if per_step_keys:
         raise ValueError("per_step_keys (a (T, R) key array per round) is "
-                         "not ported to repro_torch yet; the port's draws "
-                         "object keys every step itself")
+                         "not ported as a key table: pass a "
+                         "repro_torch.core.draws.RoundDraws as the draws, "
+                         "which re-keys every run at each of its server "
+                         "rounds")
     return engine.make_loop_round(make_sweep_feddec_step(
         plan, spec, grad_fn, lr_fn, device=device, optimizer=optimizer,
         fuse_update_mix=fuse_update_mix))

@@ -1,8 +1,10 @@
-"""Communication graphs and their mixing weights (numpy, host side).
+"""Communication graphs, their mixing weights and the spectral constants
+of Theorem 1 (numpy, host side).
 
 The port's own copy of the parts of repro/core/topology.py that the flat
-trainer uses.  Everything here is numpy, so it matches the reference
-exactly: the same graphs and the same f64 weight matrices.
+trainer, the sweep lattice and the paper's experiments use.  Everything
+here is numpy, so it matches the reference exactly: the same graphs, the
+same f64 weight matrices and the same |λ₂|.
 """
 
 from __future__ import annotations
@@ -12,12 +14,31 @@ from typing import Literal
 
 import numpy as np
 
-__all__ = ["Graph", "ring_graph", "fully_connected_graph",
-           "geographic_graph", "erdos_renyi_graph", "laplacian_weights",
-           "metropolis_weights", "max_degree_weights", "build_weights",
-           "csr_edges"]
+__all__ = ["Graph", "ring_graph", "fully_connected_graph", "chain_graph",
+           "is_connected", "geographic_graph", "erdos_renyi_graph",
+           "laplacian_weights", "metropolis_weights", "max_degree_weights",
+           "build_weights", "csr_edges", "N_DENSE_MAX", "check_dense_size",
+           "lambda2", "lambda2_batched", "lambda2_hat_fixed",
+           "lambda2_hat_fixed_batched", "alpha_from_lambda2_hat"]
 
 WeightScheme = Literal["laplacian", "metropolis", "max_degree"]
+
+#: Largest n for which the dense (n, n) helpers will allocate; above it
+#: they raise instead of densifying (override per call with
+#: ``n_dense_max=``).
+N_DENSE_MAX = 4096
+
+
+def check_dense_size(n: int, what: str, n_dense_max: int | None = None) -> int:
+    """Guard against a latent O(n²) densification: raises ``ValueError``
+    when ``n`` exceeds ``n_dense_max`` (default :data:`N_DENSE_MAX`)."""
+    limit = N_DENSE_MAX if n_dense_max is None else int(n_dense_max)
+    if n > limit:
+        raise ValueError(
+            f"{what} would materialize a dense ({n}, {n}) array "
+            f"(n_dense_max={limit}); pass a larger n_dense_max explicitly "
+            f"(the sparse CSR graphs are not ported)")
+    return n
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,6 +87,15 @@ def fully_connected_graph(n: int) -> Graph:
     return Graph(~np.eye(n, dtype=bool), name=f"full(n={n})")
 
 
+def chain_graph(n: int) -> Graph:
+    """Path graph: node i linked to i±1 (no wrap)."""
+    adj = np.zeros((n, n), dtype=bool)
+    idx = np.arange(n - 1)
+    adj[idx, idx + 1] = True
+    adj[idx + 1, idx] = True
+    return Graph(adj, name=f"chain(n={n})")
+
+
 def _connected(adj: np.ndarray) -> bool:
     n = adj.shape[0]
     seen = np.zeros(n, dtype=bool)
@@ -78,6 +108,10 @@ def _connected(adj: np.ndarray) -> bool:
                 seen[v] = True
                 stack.append(int(v))
     return bool(seen.all())
+
+
+def is_connected(graph: Graph) -> bool:
+    return _connected(graph.adjacency)
 
 
 def geographic_graph(n: int, radius: float, seed: int = 0,
@@ -167,3 +201,45 @@ def csr_edges(graph: Graph) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     indptr = np.zeros(graph.n + 1, dtype=np.int32)
     np.cumsum(counts, out=indptr[1:])
     return recv, send, indptr
+
+
+# ---------------------------------------------------------------------------
+# Spectral quantities of Theorem 1
+# ---------------------------------------------------------------------------
+
+
+def lambda2(w: np.ndarray, n_dense_max: int | None = None) -> float:
+    """|λ₂(W)|: the second-largest eigenvalue magnitude of a symmetric W
+    (a dense O(n³) eigendecomposition; above ``n_dense_max`` it raises)."""
+    w = np.asarray(w)
+    check_dense_size(w.shape[-1], "lambda2", n_dense_max)
+    eig = np.linalg.eigvalsh(np.asarray(w, dtype=np.float64))
+    mags = np.sort(np.abs(eig))[::-1]
+    return float(mags[1])
+
+
+def lambda2_batched(ws: np.ndarray) -> np.ndarray:
+    """|λ₂| for a stacked (R, n, n) batch of symmetric Ws in one call;
+    LAPACK factorises each slice as :func:`lambda2` does, so every entry
+    equals the per-matrix value bit for bit."""
+    eig = np.linalg.eigvalsh(np.asarray(ws, dtype=np.float64))
+    mags = np.sort(np.abs(eig), axis=-1)[:, ::-1]
+    return mags[:, 1]
+
+
+def lambda2_hat_fixed_batched(ws: np.ndarray) -> np.ndarray:
+    """Batched :func:`lambda2_hat_fixed`: |λ̂₂| = |λ₂|² per stacked W."""
+    return lambda2_batched(ws) ** 2
+
+
+def lambda2_hat_fixed(w: np.ndarray) -> float:
+    """|λ̂₂| = |λ₂(E[WWᵀ])| for a fixed W: E[WWᵀ] = W², so |λ̂₂| = |λ₂|²
+    (paper §3)."""
+    return float(lambda2(w) ** 2)
+
+
+def alpha_from_lambda2_hat(lam2_hat: float) -> float:
+    """α = |λ̂₂| / (1 − |λ̂₂|) — Theorem 1 / Lemma 3."""
+    if not 0.0 <= lam2_hat < 1.0:
+        raise ValueError(f"|λ̂₂| must be in [0, 1), got {lam2_hat}")
+    return lam2_hat / (1.0 - lam2_hat)
