@@ -11,7 +11,8 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
   2. build: the kernels from src/repro_torch/kernels/csrc with nvcc for
      sm_90a, printing ptxas's registers and spills;
   3. kernels: every kernel in every variant against its plain PyTorch
-     version on the card, at ragged shapes and at the main path's shape
+     version on the card, at ragged shapes (and #1 at the tree engine's
+     narrow leaf widths D 1, 3, 80, 5121) and at the main path's shape
      (n = 8 agents, D = 156,519,168: the tiny LM's flat buffer), with the
      kernel, plain-version and library times (CUDA events) at full shape,
      each library call's output first held to the plain version's (the
@@ -81,6 +82,20 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
      (f64-c) pallas --fuse-update-mix, #3; (f64-d) sparse
      --fuse-update-mix, #4; each launching its kernel once per step and
      agreeing with the same round on the CPU to 1e-5·max|x|;
+     then (4c) the tree engine, adamw and the zoo configs through the
+     trainer, each with a warm-up round and its peak against the
+     warm-up's: (r) --per-step --gossip-impl pallas, the tree engine by
+     default, launching #1 once per leaf (12 a step) and ending within
+     1e-5·max|x| of path (a)'s buffer (the flat and tree paths draw
+     their tokens apart from the engine's draws, so per-step and fused
+     runs of one seed see the same data); (s) --state-layout tree sparse
+     momentum, no kernel (the reference's tree 'sparse' is a plain
+     gather); (t) --state-layout tree pallas int8, #1 × 12 a step and a
+     nonzero residual; (u) --optimizer adamw pallas --fuse-update-mix
+     (flat), #1 once a step and #3 never; (v) Mamba2-2.7B at its
+     published widths with 8 of its 64 layers, 4 agents, batch 1, flat
+     pallas, #1 once a step; (w) recurrentgemma-9b --smoke --per-step
+     pallas, #1 × 26 a step;
      then (4b) line 4 as the engines run it, one torch.func.vmap of
      Model.grad_fn over every agent row, at full width against the
      per-row torch.autograd.grad loop: path (c)'s 8 agents and first
@@ -292,6 +307,29 @@ COMPRESS_SWEEP_PATHS = {
     "q": ("h", "ring2", "pallas", False, "sgd", "identity",
           "gossip_mix_batched"),
 }
+# phase 4c, the tree engine, adamw and the zoo configs through the trainer:
+# path -> (gossip impl, fuse, optimizer, the kernel it launches, its
+# launches a step, train_path's options).  The tree engine mixes leaf by
+# leaf: the tiny LM has 12 leaves, RecurrentGemma-9B's smoke config 26.
+TREE_PATHS = {
+    "r": ("pallas", False, "sgd", "gossip_mix", 12, dict(fused=False)),
+    "s": ("sparse", False, "momentum", "gossip_mix_sparse", 12,
+          dict(layout="tree")),
+    "t": ("pallas", False, "sgd", "gossip_mix", 12,
+          dict(layout="tree", compress="int8")),
+    "u": ("pallas", True, "adamw", "gossip_mix", 1, {}),
+    "v": ("pallas", False, "sgd", "gossip_mix", 1,
+          dict(arch="mamba2-2.7b", layers=8, agents=4, batch=1)),
+    "w": ("pallas", False, "sgd", "gossip_mix", 26,
+          dict(arch="recurrentgemma-9b", smoke=True, fused=False)),
+}
+# #1 and #2 at the widths of narrow tree leaves (D_leaf 1, 3, 80: the
+# SSM's a_log/dt_bias/d_skip at Mamba2-2.7B's 80 heads) and a ragged wide
+# one
+TREE_LEAF_SHAPES = [(8, 1), (8, 3), (8, 80), (8, 5121)]
+# path (v)'s flat buffer: Mamba2-2.7B at 8 of its 64 layers, 4 agents,
+# 2.3e9 elements (past 2^31), held against the plain #1 in phase 3
+MAMBA2_FLAT = (4, 579_168_640)
 # the variant each kernel runs on its training path (timed in the line)
 PATH_VARIANT = {"gossip_mix": "gossip", "gossip_mix_sparse": "gossip",
                 "update_mix": "momentum", "update_mix_sparse": "sgd",
@@ -500,7 +538,26 @@ def kernel_phase(torch) -> dict:
         log(f"[kernels] ragged n={n} D={d}: all variants within "
             f"{TOL}·max|y|")
         del t
+    for n, d in TREE_LEAF_SHAPES:
+        t = make_inputs(torch, n, d, seed=n * 131 + d)
+        for kernel in ("gossip_mix", "gossip_mix_sparse"):
+            run, plain, _ = calls(kernel, "gossip", t)
+            got = run()
+            torch.cuda.synchronize()
+            err, scale = max_err(torch, got, plain())
+            check(err <= TOL * scale,
+                  f"{kernel} tree leaf n={n} D={d}: max_abs_err {err:.3e} "
+                  f"> {TOL}·{scale:.3e}")
+            results[kernel]["max_abs_err"] = max(
+                results[kernel]["max_abs_err"], err)
+            log(f"[kernels] {kernel} tree leaf n={n} D={d}: err {err:.3e} "
+                f"(max|y| {scale:.3e})")
+        del t
     torch.cuda.empty_cache()
+    big = mamba2_flat_check(torch)
+    results["gossip_mix"]["mamba2_flat"] = big
+    results["gossip_mix"]["max_abs_err"] = max(
+        results["gossip_mix"]["max_abs_err"], big["max_abs_err"])
 
     t = make_inputs(torch, N_AGENTS, D_FULL, seed=1)
     max_deg = t["nbr"].shape[1]
@@ -547,6 +604,32 @@ def kernel_phase(torch) -> dict:
     torch.cuda.empty_cache()
     ops.reset_launch_counts()
     return results
+
+
+def mamba2_flat_check(torch) -> dict:
+    """#1 on path (v)'s (4, 579,168,640) buffer against its plain version,
+    within TOL·max|y|: four 9.3 GB buffers at most."""
+    from repro_torch.kernels import ops, ref
+    n, d = MAMBA2_FLAT
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(n * 131 + d)
+    x = torch.randn(n, d, device=DEVICE, generator=gen)
+    w = torch.rand(n, n, device=DEVICE, generator=gen)
+    w = w / w.sum(dim=1, keepdim=True)
+    got = ops.gossip_mix(w, x)
+    want = ref.gossip_mix(w, x)
+    del x
+    torch.cuda.synchronize()
+    err = got.sub_(want).abs_().max().item()
+    scale = want.abs().max().item()
+    del got, want
+    torch.cuda.empty_cache()
+    check(err <= TOL * scale,
+          f"gossip_mix n={n} D={d}: max_abs_err {err:.3e} > "
+          f"{TOL}·{scale:.3e}")
+    log(f"[kernels] gossip_mix n={n} D={d} (path (v)'s buffer): err "
+        f"{err:.3e} (max|y| {scale:.3e})")
+    return {"shape": [n, d], "max_abs_err": err, "scale": scale}
 
 
 def lattice_graphs(r: int, n: int) -> list:
@@ -1472,13 +1555,52 @@ def zoo_kernel_phase(torch) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def split_draws(seed: int):
+    """The flat and tree paths' draws: the engine's from ``seed``, the
+    tokens from a second generator, so that a round's batches are the
+    same whether its steps draw them one by one (--per-step) or H at a
+    time (the fused round), and a per-step run can be held to a fused
+    one."""
+    from repro_torch.core.draws import Draws
+
+    class SplitDraws(Draws):
+        def __init__(self):
+            super().__init__(seed, DEVICE)
+            self.data_draws = Draws(seed + 1, DEVICE)
+
+        def tokens(self, data, per_agent_batch, steps):
+            return self.data_draws.tokens(data, per_agent_batch, steps)
+
+    return SplitDraws()
+
+
+def path_config(arch: str, layers: int, smoke: bool):
+    """The trainer's model: the tiny LM at ``layers``, or a zoo config at
+    its published widths with its depth cut to ``layers`` (its smoke
+    variant with ``smoke``)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    if arch == "tiny":
+        return train.tiny_lm_config(layers=layers)
+    cfg = get_config(arch)
+    return cfg.smoke() if smoke else dataclasses.replace(cfg,
+                                                         num_layers=layers)
+
+
 def train_path(torch, impl: str, fuse: bool, optimizer: str,
                steps: int = STEPS, *, graph: str = "ring2",
                p_fail: float = 0.0, sweep_axis: str | None = None,
-               compress: str = "none", layers: int = 12):
+               compress: str = "none", layers: int = 12,
+               arch: str = "tiny", smoke: bool = False,
+               agents: int = N_AGENTS, batch: int = 2, fused: bool = True,
+               layout: str | None = None):
     """One run of the trainer; with ``sweep_axis`` the R_FULL-run lattice,
-    whose whole (R, n, D) state it returns; ``compress`` is the gossip
-    codec (--gossip-compress), ``layers`` the depth (--layers)."""
+    whose whole (R, n, D) state it returns (else the FedState); ``compress``
+    is the gossip codec (--gossip-compress), ``layers`` the depth
+    (--layers), ``arch``/``smoke`` the model (--arch, --smoke), ``fused``
+    False the one-step executor (--per-step) and ``layout`` the state
+    layout (--state-layout; None: the trainer's default)."""
     from repro_torch.configs.base import FedConfig
     from repro_torch.launch import train
     # what earlier phases left to the garbage collector goes first, so
@@ -1486,17 +1608,37 @@ def train_path(torch, impl: str, fuse: bool, optimizer: str,
     gc.collect()
     torch.cuda.reset_peak_memory_stats()
     timing: dict = {}
-    sweep = {} if sweep_axis is None else dict(
+    sweep = dict(draws=split_draws(0)) if sweep_axis is None else dict(
         sweep_runs=R_FULL, sweep_axis=sweep_axis, keep_lattice=True)
     state, losses = train.train_loop(
-        train.tiny_lm_config(layers=layers),
-        FedConfig(n_agents=N_AGENTS, h=10, k=2, graph=graph, p_fail=p_fail,
+        path_config(arch, layers, smoke),
+        FedConfig(n_agents=agents, h=10, k=2, graph=graph, p_fail=p_fail,
                   gossip_impl=impl, gossip_compress=compress),
-        steps=steps, per_agent_batch=2, seq_len=128, optimizer=optimizer,
-        fuse_update_mix=fuse, seed=0, device=DEVICE, timing=timing,
-        **sweep)
+        steps=steps, per_agent_batch=batch, seq_len=128, optimizer=optimizer,
+        fuse_update_mix=fuse, fused=fused, state_layout=layout, seed=0,
+        device=DEVICE, timing=timing, **sweep)
     torch.cuda.synchronize()
     return state, losses, timing, torch.cuda.max_memory_allocated()
+
+
+def flat_of(torch, state, residual: bool = False):
+    """A run's final (rows, D) buffer (its EF residual with ``residual``):
+    a lattice's own; for a FedState, the flat engine's buffer that its
+    leaves view (no copy), else its leaves side by side in FlatSpec order
+    (a new buffer)."""
+    from repro_torch.core import flat as flat_lib
+    from repro_torch.tree import leaves
+    if hasattr(state, "flat"):
+        return state.residual if residual else state.flat
+    tree = state.residual if residual else state.params
+    spec = flat_lib.make_flat_spec_from_stacked(tree)
+    first = leaves(tree)[0]
+    base, rows = first._base, first.shape[0]
+    if base is not None and base.is_contiguous() \
+            and base.numel() == rows * spec.d \
+            and base.data_ptr() == first.data_ptr():
+        return base.view(rows, spec.d)
+    return spec.flatten(tree)
 
 
 def warm_up(torch, impl: str, fuse: bool, optimizer: str, **kw) -> int:
@@ -1517,7 +1659,7 @@ def dense_rerun(torch, name: str, final, **kw) -> dict:
                                              **kw)
     check(sum(ops.launch_counts().values()) == 0,
           "dense gossip launched a kernel")
-    err = (state.flat - final).abs().max().item()
+    err = (flat_of(torch, state) - final).abs().max().item()
     scale = final.abs().max().item()
     check(err <= TOL * scale,
           f"path ({name}) kernel vs dense final buffers differ: {err:.3e} > "
@@ -1532,11 +1674,12 @@ def dense_rerun(torch, name: str, final, **kw) -> dict:
 
 
 def run_path(torch, name: str, impl: str, fuse: bool, opt: str,
-             kernel: str, **kw):
+             kernel: str | None, per_step: int = 1, **kw):
     """A warm-up round, then the timed run with the launch counters set
-    to 0 just before it and read just after: its kernel must launch once
-    per step and no other kernel at all, and its peak must be the
-    warm-up's within PEAK_RTOL."""
+    to 0 just before it and read just after: its kernel must launch
+    ``per_step`` times a step (the tree engine: once per leaf) and no
+    other kernel at all (none at all when ``kernel`` is None), and its
+    peak must be the warm-up's within PEAK_RTOL."""
     from repro_torch.kernels import ops
     warm_peak = warm_up(torch, impl, fuse, opt, **kw)
     ops.reset_launch_counts()
@@ -1548,34 +1691,38 @@ def run_path(torch, name: str, impl: str, fuse: bool, opt: str,
           f"{warm_peak / 1e9:.2f} GB")
     check(all(math.isfinite(v) for v in losses),
           f"path ({name}): non-finite loss {losses}")
-    check(counts[kernel] == STEPS,
-          f"path ({name}): {kernel} launched {counts[kernel]} times in "
-          f"{STEPS} steps")
-    check(sum(counts.values()) == counts[kernel],
+    launches = 0 if kernel is None else counts[kernel]
+    check(launches == (0 if kernel is None else STEPS * per_step),
+          f"path ({name}): {kernel} launched {launches} times in "
+          f"{STEPS} steps ({per_step} a step expected)")
+    check(sum(counts.values()) == launches,
           f"path ({name}): other kernels launched: {counts}")
     step_ms = 1e3 * timing["loop_s"] / STEPS
     out = {"impl": impl, "fuse_update_mix": fuse, "optimizer": opt,
-           "kernel": kernel, "launches": counts[kernel], "losses": losses,
+           "kernel": kernel, "launches": launches,
+           "launches_per_step": launches / STEPS, "losses": losses,
            "step_ms": step_ms, "setup_s": timing["setup_s"],
-           "peak_bytes": peak, **kw}
+           "peak_bytes": peak, "warm_up_peak_bytes": warm_peak, **kw}
     log(f"[train] path ({name}) gossip={impl} fuse={fuse} opt={opt}"
         + "".join(f" {k}={v}" for k, v in kw.items())
         + f": loss {losses[0]:.4f} → {losses[-1]:.4f}, {kernel} launches "
-        f"{counts[kernel]}, step {step_ms:.1f} ms (host clock, "
-        f"synchronized), setup {timing['setup_s']:.1f} s, peak "
-        f"{peak / 1e9:.2f} GB")
+        f"{launches} ({launches / STEPS:g} a step), step {step_ms:.1f} ms "
+        f"(host clock, synchronized), setup {timing['setup_s']:.1f} s, "
+        f"peak {peak / 1e9:.2f} GB (warm-up {warm_peak / 1e9:.2f} GB)")
     return state, out
 
 
-def training_phase(torch) -> dict:
+def training_phase(torch) -> tuple:
     out = {}
     for name, (impl, fuse, opt, kernel) in PATHS.items():
         state, out[name] = run_path(torch, name, impl, fuse, opt, kernel)
         if name == "a":
             # compared right away, so no path's peak holds this buffer;
             # kept on the host for path (l)
-            out["a_dense"] = dense_rerun(torch, "a", state.flat)
-            a_final = state.flat.cpu()
+            final = flat_of(torch, state)
+            out["a_dense"] = dense_rerun(torch, "a", final)
+            a_final = final.cpu()
+            del final
         del state
         torch.cuda.empty_cache()
     for name, (axis, graph, p_fail, impl, fuse, opt, kernel) in \
@@ -1611,7 +1758,7 @@ def training_phase(torch) -> dict:
         check_residual(torch, name, state, out[name], *twin)
         del state
         torch.cuda.empty_cache()
-    return out
+    return out, a_final
 
 
 def check_residual(torch, name: str, state, out: dict, twin: str = "",
@@ -1619,20 +1766,66 @@ def check_residual(torch, name: str, state, out: dict, twin: str = "",
     """A lossy codec's run leaves a finite, nonzero residual; a lossless
     one (identity) ends on its uncompressed twin's buffer ``twin_final``
     (difference 0.0) with an all-zero residual."""
-    res_max = state.residual.abs().max().item()
+    res_max = flat_of(torch, state, residual=True).abs().max().item()
     out["residual_max_abs"] = res_max
     check(math.isfinite(res_max), f"path ({name}): non-finite residual")
     if twin_final is None:
         check(res_max > 0.0, f"path ({name}): the lossy codec left no "
                              f"residual")
         return
-    diff = (state.flat - twin_final.to(state.flat.device)).abs().max().item()
+    final = flat_of(torch, state)
+    diff = (final - twin_final.to(final.device)).abs().max().item()
+    del final
     out[f"max_abs_diff_to_{twin}"] = diff
     check(diff == 0.0 and res_max == 0.0,
           f"path ({name}): identity codec ends {diff:.3e} from path "
           f"({twin}), residual max {res_max:.3e} (both must be 0)")
     log(f"[train] path ({name}) ends on path ({twin})'s buffer (difference "
         f"{diff}), residual all zero")
+
+
+# ---------------------------------------------------------------------------
+# Phase 4c: the tree engine, adamw and the zoo configs
+# ---------------------------------------------------------------------------
+
+
+def tree_phase(torch, a_final) -> dict:
+    """Paths (r)-(w) (TREE_PATHS), each through run_path; (r), the
+    per-step default (the tree engine), must end within TOL·max|x| of path
+    (a)'s flat buffer ``a_final`` (the same seed and draws), (t)'s int8
+    leaves a nonzero residual, and (v) and (w) end within TOL·max|x| of
+    their own run with the plain dense mix."""
+    out = {}
+    for name, (impl, fuse, opt, kernel, per_step, kw) in TREE_PATHS.items():
+        state, out[name] = run_path(torch, name, impl, fuse, opt, kernel,
+                                    per_step=per_step, **kw)
+        check(type(state).__name__ == "FedState",
+              f"path ({name}): train_loop returned a "
+              f"{type(state).__name__}, not a FedState")
+        if name == "r":
+            final = flat_of(torch, state)
+            err = (final - a_final.to(final.device)).abs().max().item()
+            scale = a_final.abs().max().item()
+            del final
+            out[name].update(max_abs_diff_to_a=err, scale=scale)
+            check(err <= TOL * scale,
+                  f"path (r) (tree, per-step) ends {err:.3e} from path "
+                  f"(a) (flat, fused) > {TOL}·{scale:.3e}")
+            log(f"[train] path (r) ends {err!r} from path (a)'s buffer "
+                f"(limit {TOL}·{scale:.3e})")
+        if name == "t":
+            check_residual(torch, name, state, out[name])
+        if name in ("v", "w"):
+            final = flat_of(torch, state)
+            if name == "v":
+                check(tuple(final.shape) == MAMBA2_FLAT,
+                      f"path (v): buffer {tuple(final.shape)}, phase 3 "
+                      f"checked #1 at {MAMBA2_FLAT}")
+            out[f"{name}_dense"] = dense_rerun(torch, name, final, **kw)
+            del final
+        del state
+        torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1643,12 +1836,12 @@ def check_residual(torch, name: str, state, out: dict, twin: str = "",
 def per_row_grads(torch, spec, loss_fn, flat, batch):
     """The yardstick: one torch.autograd.grad per agent row from Python,
     the loop the engines ran before their one batched call."""
-    from repro_torch.core import flat as flat_lib
+    from repro_torch.tree import build_tree
     g_flat = torch.empty_like(flat)
     losses = []
     for i in range(flat.shape[0]):
         leaves = [v.detach().requires_grad_() for v in spec.views(flat[i])]
-        params = flat_lib._build_tree(spec.paths, leaves)
+        params = build_tree(spec.paths, leaves)
         with torch.enable_grad():
             loss = loss_fn(params, {k: v[i] for k, v in batch.items()})
             grads = torch.autograd.grad(loss, leaves)
@@ -2268,8 +2461,12 @@ def main() -> int:
     kernels.update(zoo_kernel_phase(torch))
     log(f"[kernels] phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    training = training_phase(torch)
+    training, a_final = training_phase(torch)
     log(f"[train] phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    tree_paths = tree_phase(torch, a_final)
+    del a_final
+    log(f"[tree] phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     f64_paths = f64_path_phase(torch)
     log(f"[f64] phase {time.perf_counter() - t0:.1f} s")
@@ -2319,13 +2516,23 @@ def main() -> int:
             line[-1]["f64_max_abs_err"] = f64_errs[kernel]
         if "passes_ms" in main_variant:
             line[-1]["passes_ms"] = main_variant["passes_ms"]
+        if "mamba2_flat" in kernels[kernel]:
+            line[-1]["mamba2_flat"] = kernels[kernel]["mamba2_flat"]
+        if kernel in ("gossip_mix", "gossip_mix_sparse"):
+            # #1 and #2 on every path that runs them: once a step on the
+            # flat buffer, once per leaf a step on the tree
+            line[-1]["launches_by_path"] = {
+                name: p["launches"] for name, p in
+                {**training, **tree_paths}.items()
+                if p.get("kernel") == kernel}
     total_s = time.perf_counter() - T_START
     log(f"[smoke] total {total_s:.1f} s (build included)")
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"device": name, "nvidia_smi": smi, "kernels": line,
-         "training": training, "grads": grads, "f64_paths": f64_paths,
+         "training": training, "tree_paths": tree_paths, "grads": grads,
+         "f64_paths": f64_paths,
          "profile": profile, "models": models, "paper": paper,
          "total_s": total_s},
         indent=1))

@@ -1,4 +1,6 @@
-"""PyTorch / CUDA port of the FedDec flat-buffer trainer.
+"""PyTorch / CUDA port of the FedDec trainer (the flat buffer and the
+tree engine), its sweep lattice, the paper's experiments and the model
+zoo's prefill.
 
 The JAX package ``repro`` is the reference this package is tested
 against; ``repro_torch`` mirrors its layout (configs, core, optim, models,

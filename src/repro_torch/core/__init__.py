@@ -1,2 +1,3 @@
-"""Algorithm 1 on the flat (n_agents, D) buffer: topology, mixing,
-server, gossip and the flat engine."""
+"""Algorithm 1: topology, mixing, server, gossip and compression, the
+shared step body, and its engines: the tree engine on the stacked dict
+(feddec, fedavg), the flat (n_agents, D) buffer and the sweep lattice."""

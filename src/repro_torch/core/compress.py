@@ -1,5 +1,6 @@
 """Compressed gossip with error feedback (repro/core/compress.py, for the
-flat (n, D) buffer and the (R, n, D) sweep lattice).
+flat (n, D) buffer, the (R, n, D) sweep lattice and the tree engine's
+stacked dict).
 
 The gossip payload is compressed while the local updates stay at full
 precision, with a CHOCO-style error-feedback residual that carries the
@@ -35,7 +36,10 @@ f32 tensor of u's shape rather than keys: the engines draw it from the
 can hand both packages the same numbers.  The flat int8 × 'pallas' path
 mixes straight from the int8 payload with kernel #14
 (:func:`repro_torch.kernels.ops.dequant_mix`); the lattice decodes s and
-mixes it as the reference's does.
+mixes it as the reference's does.  The tree engine compresses each leaf
+as its own (n, D_leaf) rows (:func:`make_tree_ef_gossip`), so its int8
+scales are per leaf-row and a compressed tree run differs from the flat
+one, in the reference too.
 """
 
 from __future__ import annotations
@@ -45,10 +49,13 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.tree import build_tree, sorted_leaves, tree_map
+
 __all__ = ["Compressor", "IdentityCompressor", "Bf16Compressor",
            "Int8Compressor", "TopKCompressor", "parse_compress",
-           "COMPRESS_CHOICES", "init_residual", "encode_compensated",
-           "make_flat_ef_gossip", "make_fused_ef_gossip"]
+           "COMPRESS_CHOICES", "init_residual", "init_residual_tree",
+           "encode_compensated", "make_flat_ef_gossip",
+           "make_tree_ef_gossip", "make_fused_ef_gossip"]
 
 # canonical spellings for CLI help; 'topk:R' takes any ratio 0 < R <= 1
 COMPRESS_CHOICES = ("none", "identity", "bf16", "int8", "topk:R")
@@ -238,6 +245,14 @@ def init_residual(compressor: Compressor | None, n_agents: int, d: int,
     return torch.zeros((n_agents, d), dtype=dtype, device=device)
 
 
+def init_residual_tree(compressor: Compressor | None, stacked) -> Any:
+    """Zero EF residual tree matching a stacked (n, ...) params tree; ()
+    when uncompressed (repro/core/compress.py:235-241)."""
+    if compressor is None:
+        return ()
+    return tree_map(torch.zeros_like, stacked)
+
+
 def encode_compensated(compressor: Compressor, p: torch.Tensor,
                        res: torch.Tensor, draws, t):
     """(u, payload): the error-compensated payload u = p + e and its
@@ -283,6 +298,48 @@ def make_flat_ef_gossip(compressor: Compressor, mix_fn: Callable,
         diag = torch.diagonal(w, dim1=-2, dim2=-1).to(p.dtype)[..., None]
         y = mix_fn(w, s) + torch.sub(p, s).mul_(diag)
         return y, u - s
+
+    return gossip
+
+
+def make_tree_ef_gossip(compressor: Compressor, gossip_fn: Callable,
+                        n_agents: int) -> Callable:
+    """Leaf-wise EF gossip of the tree engine: (w, p_tree, res_tree, draws,
+    t) -> (y_tree, new_res_tree) (repro/core/compress.py:291-328).
+
+    Each leaf is compressed as its own (n, D_leaf) rows, its int8 noise
+    ``draws.codec_noise(t, n, D_leaf, leaf=li)`` with ``li`` the leaf's
+    position in jax.tree.flatten's order (sorted keys at every level).
+    ``gossip_fn`` mixes the decoded tree s (the tree layout's resolved
+    mix, kernel #1 leaf by leaf under 'pallas'); each leaf then gets the
+    ``diag(W)·(p − s)`` correction.
+    """
+    def gossip(w, p_tree, res_tree, draws, t):
+        paths, s_leaves, new_res = [], [], []
+        res_leaves = dict(sorted_leaves(res_tree))
+        for li, (path, p) in enumerate(sorted_leaves(p_tree)):
+            if p.shape[0] != n_agents:
+                raise ValueError(f"leaf {path} has {p.shape[0]} rows for "
+                                 f"{n_agents} agents")
+            u = (p + res_leaves[path]).reshape(n_agents, -1)
+            noise = draws.codec_noise(t, n_agents, u.shape[1], leaf=li) \
+                if compressor.needs_key else None
+            payload = compressor.encode(noise, u)
+            s = compressor.decode(payload, u.dtype, u.shape[1])
+            del payload
+            paths.append(path)
+            s_leaves.append(s.view(p.shape))
+            new_res.append((u - s).view(p.shape))
+        s_tree = build_tree(paths, s_leaves)
+        y_tree = gossip_fn(w, s_tree)
+        diag = torch.diagonal(w)
+
+        def correct(y, p, s):
+            dg = diag.to(p.dtype).view((-1,) + (1,) * (p.ndim - 1))
+            return y + torch.sub(p, s).mul_(dg)
+
+        return (tree_map(correct, y_tree, p_tree, s_tree),
+                build_tree(paths, new_res))
 
     return gossip
 

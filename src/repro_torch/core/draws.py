@@ -45,14 +45,18 @@ class Draws:
         del t
         return self.uniform((n, n))
 
-    def codec_noise(self, t: int, n: int, d: int) -> torch.Tensor:
+    def codec_noise(self, t: int, n: int, d: int,
+                    leaf: int | None = None) -> torch.Tensor:
         """(n, d) U[0, 1) rounding noise of the int8 codec at step t.
 
         Drawn only by a codec that needs it, so an identity, bf16 or top-k
         run consumes exactly the draws of the uncompressed run, as the
         reference derives its codec key without a split
-        (repro/core/flat.py:450-451)."""
-        del t
+        (repro/core/flat.py:450-451).  The tree engine draws one block
+        per leaf, ``leaf`` its position in jax.tree.flatten's order (the
+        reference's ``fold_in(key_c, leaf)``, repro/core/compress.py:
+        304-314); a generator's draws follow one another whatever it is."""
+        del t, leaf
         return self.uniform((n, d))
 
     def participants(self, t: int, n: int, k: int) -> torch.Tensor:
@@ -149,12 +153,14 @@ class SweepDraws(Draws):
             return super().participants(t, n, k).expand(self.r_runs, k)
         return torch.stack([d.participants(t, n, k) for d in self.runs])
 
-    def codec_noise(self, t, n: int, d: int) -> torch.Tensor:
+    def codec_noise(self, t, n: int, d: int,
+                    leaf: int | None = None) -> torch.Tensor:
         if self.runs is None:
-            return super().codec_noise(t, n, d).expand(self.r_runs, n, d)
+            return super().codec_noise(t, n, d, leaf).expand(self.r_runs, n,
+                                                             d)
         noise = torch.empty((self.r_runs, n, d), device=self.device)
         for r, run in enumerate(self.runs):
-            noise[r] = run.codec_noise(t, n, d)
+            noise[r] = run.codec_noise(t, n, d, leaf)
         return noise
 
 

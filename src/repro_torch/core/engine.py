@@ -1,5 +1,6 @@
 """The shared Algorithm-1 step body and the gossip dispatcher
-(repro/core/engine.py, for the flat single-device layout).
+(repro/core/engine.py, for the tree, flat and lattice layouts on one
+device).
 
   * :class:`EngineOps` + :func:`build_step_body` — the one step order:
     η_t → sample W^t (line 3) → local update (lines 4–5) → gossip (line 6,
@@ -7,9 +8,11 @@
     server round (lines 7–12) → carry rebuild.  The fused update+mix op,
     when set, replaces the update + gossip pair.
   * :func:`make_loop_round` — the H-step round as a Python loop over the
-    stacked batches (the reference scans it inside one compiled program).
-  * :func:`resolve_gossip` — gossip_impl → the whole-buffer mixing fn of
-    the flat buffer or of a sweep lattice.
+    stacked batches (the reference scans it inside one compiled program),
+    with the reference's per-step ``metrics_fn`` hook.
+  * :func:`resolve_gossip` — gossip_impl → the mixing fn of the tree
+    engine's stacked dict (leaf by leaf), the flat buffer or a sweep
+    lattice.
 
 Randomness comes from a :class:`repro_torch.core.draws.Draws` object
 passed with every call, keyed by the step counter t (the reference folds
@@ -34,7 +37,8 @@ import torch._dynamo  # noqa: F401
 
 from repro_torch.core import gossip as gossip_lib
 
-__all__ = ["GradFn", "value_and_grad", "GOSSIP_IMPLS", "EngineOps",
+__all__ = ["GradFn", "value_and_grad", "GOSSIP_IMPLS", "LAYOUTS",
+           "EngineOps",
            "build_step_body",
            "make_loop_round", "resolve_gossip", "check_gossip_impl",
            "unknown_gossip_impl"]
@@ -52,6 +56,7 @@ __all__ = ["GradFn", "value_and_grad", "GOSSIP_IMPLS", "EngineOps",
 GradFn = Callable[[dict, dict], tuple]
 
 GOSSIP_IMPLS = ("dense", "none", "pallas", "sparse")
+LAYOUTS = ("tree", "flat")
 
 
 def value_and_grad(loss_fn) -> GradFn:
@@ -84,8 +89,16 @@ def check_gossip_impl(impl: str) -> str:
 
 
 def resolve_gossip(source, layout: str = "flat") -> Callable:
-    """gossip_impl → the whole-buffer mixing fn.
+    """gossip_impl → the mixing fn of one engine layout.
 
+    layout 'tree': (w (n, n), stacked dict of (n, ...) leaves) -> dict,
+    ``source`` a config (repro/core/engine.py:141-152):
+      'dense'  one plain matrix product per leaf, in the leaf's dtype;
+      'pallas' kernel #1 once per leaf (kernels.ops.gossip_mix_tree);
+      'sparse' the flat layout's sparse mix once per leaf
+               (gossip.make_sparse_gossip_tree): kernel #2 per leaf on
+               CUDA when 0 < max_deg <= ELL_MAX_DEG;
+      'none'   identity (FedAvg).
     layout 'flat': (w (n, n), x (n, D)) -> (n, D), ``source`` a config:
       'dense'  one plain matrix product (the reference leaves it to XLA);
       'pallas' the streaming gossip kernel #1 (kernels.ops.gossip_mix);
@@ -101,13 +114,13 @@ def resolve_gossip(source, layout: str = "flat") -> Callable:
       'none'   identity (an all-FedAvg lattice).
     The kernels (and their plain versions on the CPU) load and store the
     buffer's dtype, f32 or f64, and sum the mix in f32, as the reference's
-    kernels do; 'dense', the CSR gather and the plain stacked-ELL mix
-    compute in the buffer's dtype, as the reference's plain mixes do.
+    kernels do; 'dense', the CSR gather and the plain ELL mixes compute in
+    the buffer's dtype, as the reference's plain mixes do.
     """
-    if layout not in ("flat", "sweep"):
+    if layout not in LAYOUTS + ("sweep",):
         raise ValueError(f"engine layout {layout!r} is not ported; the "
-                         f"port runs the 'flat' (n, D) buffer layout and "
-                         f"the 'sweep' (R, n, D) lattice")
+                         f"port runs the 'tree' stacked dict, the 'flat' "
+                         f"(n, D) buffer and the 'sweep' (R, n, D) lattice")
     impl = source.gossip_impl
     if impl == "none":
         return lambda w, x: x
@@ -115,9 +128,12 @@ def resolve_gossip(source, layout: str = "flat") -> Callable:
         return gossip_lib.gossip_mix_dense
     if impl == "pallas":
         from repro_torch.kernels import ops as kernel_ops
-        return kernel_ops.gossip_mix if layout == "flat" \
-            else kernel_ops.gossip_mix_batched
+        return {"tree": kernel_ops.gossip_mix_tree,
+                "flat": kernel_ops.gossip_mix,
+                "sweep": kernel_ops.gossip_mix_batched}[layout]
     if impl == "sparse":
+        if layout == "tree":
+            return gossip_lib.make_sparse_gossip_tree(source.mixing.graph)
         if layout == "flat":
             return gossip_lib.make_sparse_gossip(source.mixing.graph)
         return gossip_lib.make_sparse_gossip_batched(source.graphs)
@@ -132,8 +148,9 @@ class EngineOps:
       get_step:     state -> t (the carried step counter, starts at 1).
       eta_fn:       t -> η_t, a tensor on the buffer's device in the
                     buffer's dtype, at least f32: (1,) on the flat engine
-                    (the caller's lr_fn), (R,) on a lattice (the lattice
-                    moves and casts its lr_fn's values).
+                    (the caller's lr_fn), () on the tree engine (its
+                    lr_fn's number or tensor, moved), (R,) on a lattice
+                    (the lattice moves and casts its lr_fn's values).
       sample_w:     (draws, t) -> W^t (line 3).
       local_update: (state, batch, eta) -> (losses, x_half, new_opt)
                     (lines 4–5).
@@ -191,15 +208,20 @@ def build_step_body(ops: EngineOps):
     return step
 
 
-def make_loop_round(step):
+def make_loop_round(step, metrics_fn=None):
     """round_fn(state, batches, draws): ``step`` over the leading axis of
-    every batch leaf; each metric stacks to (H,) + its per-step shape."""
+    every batch leaf; each metric stacks to (H,) + its per-step shape.
+    ``metrics_fn`` (state -> dict), when given, is evaluated on the state
+    after every step and merged into that step's metrics (the reference's
+    ``make_scan_round`` hook, repro/core/engine.py:319-340)."""
     def round_fn(state, batches, draws):
         steps = next(iter(batches.values())).shape[0]
         per_step = []
         for h in range(steps):
             batch = {k: v[h] for k, v in batches.items()}
             state, metrics = step(state, batch, draws)
+            if metrics_fn is not None:
+                metrics = {**metrics, **metrics_fn(state)}
             per_step.append(metrics)
         stacked = {k: torch.stack([m[k] for m in per_step])
                    for k in per_step[0]}

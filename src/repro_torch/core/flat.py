@@ -29,33 +29,16 @@ from repro_torch.core import compress as compress_lib
 from repro_torch.core import engine
 from repro_torch.core import gossip as gossip_lib
 from repro_torch.core import server as server_lib
-from repro_torch.core.feddec import FedDecConfig
+from repro_torch.core.feddec import FedDecConfig, FedState
+from repro_torch.tree import build_tree, leaves, sorted_leaves
 
-__all__ = ["FlatSpec", "FlatFedState", "make_flat_spec", "init_flat_state",
-           "params_from_numpy", "flat_state_from_numpy", "grads_of",
-           "make_flat_feddec_step", "make_flat_feddec_round"]
+__all__ = ["FlatSpec", "FlatFedState", "make_flat_spec",
+           "make_flat_spec_from_stacked", "init_flat_state",
+           "params_from_numpy", "flat_state_from_numpy",
+           "fedstate_from_numpy", "flatten_fedstate", "unflatten_fedstate",
+           "grads_of", "make_flat_feddec_step", "make_flat_feddec_round"]
 
 LrFn = Callable[[int], torch.Tensor]
-
-
-def _sorted_leaves(tree: dict, prefix=()):
-    """(path, leaf) pairs in jax.tree.flatten's order for nested dicts."""
-    for key in sorted(tree):
-        value = tree[key]
-        if isinstance(value, dict):
-            yield from _sorted_leaves(value, prefix + (key,))
-        else:
-            yield prefix + (key,), value
-
-
-def _build_tree(paths, leaves) -> dict:
-    tree: dict = {}
-    for path, leaf in zip(paths, leaves):
-        node = tree
-        for key in path[:-1]:
-            node = node.setdefault(key, {})
-        node[path[-1]] = leaf
-    return tree
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,9 +62,8 @@ class FlatSpec:
     dtype: torch.dtype
 
     def ravel(self, tree: dict) -> torch.Tensor:
-        leaves = [leaf for _, leaf in _sorted_leaves(tree)]
         return torch.cat([leaf.to(self.dtype).reshape(-1)
-                          for leaf in leaves])
+                          for leaf in leaves(tree)])
 
     def views(self, row: torch.Tensor) -> list:
         """(D,) row → its leaves in order, as views into it (no copy)."""
@@ -90,13 +72,42 @@ class FlatSpec:
 
     def unravel(self, row: torch.Tensor) -> dict:
         """(D,) row → dict of views into it (no copy for the buffer dtype)."""
-        return _build_tree(self.paths, [
+        return build_tree(self.paths, [
             v.to(dt) for v, dt in zip(self.views(row), self.dtypes)])
+
+    def flatten(self, stacked, dtype=None) -> torch.Tensor:
+        """A stacked tree (every leaf (rows, ...)) → a new (rows, D) buffer
+        in ``dtype`` (default the buffer dtype)."""
+        dtype = self.dtype if dtype is None else dtype
+        return torch.cat([leaf.reshape(leaf.shape[0], -1).to(dtype)
+                          for _, leaf in sorted_leaves(stacked)], dim=1)
+
+    def unflatten(self, flat: torch.Tensor, cast: bool = True):
+        """(rows, D) buffer → the stacked tree of per-leaf views
+        ``flat[:, o:o+s].view((rows,) + shape)`` (no copy), cast to the
+        leaves' own dtypes with ``cast``."""
+        rows = flat.shape[0]
+        views = [flat[:, o:o + s].view((rows,) + shape)
+                 for o, s, shape in zip(self.offsets, self.sizes,
+                                        self.shapes)]
+        if cast:
+            views = [v.to(dt) for v, dt in zip(views, self.dtypes)]
+        return build_tree(self.paths, views)
 
 
 def make_flat_spec(params_single: dict, dtype=None) -> FlatSpec:
     """Spec from one agent's parameters (any tensors with shape/dtype)."""
-    pairs = list(_sorted_leaves(params_single))
+    return _spec_from_leaves(list(sorted_leaves(params_single)), dtype)
+
+
+def make_flat_spec_from_stacked(stacked, dtype=None) -> FlatSpec:
+    """Spec from a stacked tree (the leading agent dim of every leaf is
+    not part of the row)."""
+    return _spec_from_leaves([(path, leaf[0]) for path, leaf
+                              in sorted_leaves(stacked)], dtype)
+
+
+def _spec_from_leaves(pairs, dtype) -> FlatSpec:
     shapes = tuple(tuple(leaf.shape) for _, leaf in pairs)
     dtypes = tuple(leaf.dtype for _, leaf in pairs)
     if dtype is None:
@@ -113,9 +124,9 @@ def make_flat_spec(params_single: dict, dtype=None) -> FlatSpec:
 def params_from_numpy(tree: dict, device="cpu") -> dict:
     """Reference parameters (``jax.tree.map(np.asarray, params)``) → the
     port's dict of tensors: same key paths, shapes and layout."""
-    return _build_tree(*zip(*[
+    return build_tree(*zip(*[
         (path, torch.tensor(np.asarray(leaf), device=device))
-        for path, leaf in _sorted_leaves(tree)]))
+        for path, leaf in sorted_leaves(tree)]))
 
 
 # ---------------------------------------------------------------------------
@@ -126,7 +137,8 @@ def params_from_numpy(tree: dict, device="cpu") -> dict:
 @dataclasses.dataclass
 class FlatFedState:
     """The (n_agents, D) buffer, the step counter t (starts at 1), the
-    optimizer buffers (momentum: an (n, D) f32 tensor; sgd: ()) and the
+    optimizer buffers (momentum: an (n, D) f32 tensor; adamw: f32 (n, D)
+    ``m`` and ``v`` and one int32 ``count``; sgd: ()) and the
     compressed-gossip EF residual (an (n, D) tensor, or () without a
     codec)."""
 
@@ -162,11 +174,90 @@ def flat_state_from_numpy(flat, step, opt_state=(), device="cpu",
     """A reference FlatFedState's arrays (its residual too) → the port's
     FlatFedState."""
     def tensor(a):
-        return () if _no_buffer(a) else torch.as_tensor(np.asarray(a),
-                                                        device=device)
+        if _no_buffer(a):
+            return ()
+        if isinstance(a, dict):   # adamw's {'m', 'v', 'count'}
+            return params_from_numpy(a, device)
+        return torch.as_tensor(np.asarray(a), device=device)
     return FlatFedState(flat=tensor(flat), step=int(np.asarray(step)),
                         opt_state=tensor(opt_state),
                         residual=tensor(residual))
+
+
+def fedstate_from_numpy(params, step, opt_state=(), device="cpu",
+                        residual=()) -> FedState:
+    """A reference FedState's arrays (``jax.tree.map(np.asarray, ...)``;
+    adamw's {'m', 'v', 'count'} too) → the port's FedState."""
+    def tree(value):
+        return () if _no_buffer(value) else params_from_numpy(value, device)
+    return FedState(params=tree(params), step=int(np.asarray(step)),
+                    opt_state=tree(opt_state), residual=tree(residual))
+
+
+def _is_adamw_state(opt_state) -> bool:
+    return isinstance(opt_state, dict) and set(opt_state) == {"m", "v",
+                                                              "count"}
+
+
+def _moment_dtype(tree) -> torch.dtype:
+    dtypes = [leaf.dtype for leaf in leaves(tree)]
+    out = dtypes[0]
+    for dt in dtypes[1:]:
+        out = torch.promote_types(out, dt)
+    return out
+
+
+def _flatten_opt_state(spec: FlatSpec, opt_state):
+    """Tree-engine opt state → flat buffers (repro/core/flat.py:183-210).
+
+    Moment slots keep their own (f32) dtype, as ``init_flat_state``'s
+    ``optimizer.init(flat)`` makes them; adamw's per-agent count, equal
+    across agents by construction, becomes the flat engine's one scalar.
+    """
+    if _no_buffer(opt_state):
+        return ()
+    if tuple(p for p, _ in sorted_leaves(opt_state)) == spec.paths:
+        return spec.flatten(opt_state, _moment_dtype(opt_state))
+    if _is_adamw_state(opt_state):
+        return {"m": spec.flatten(opt_state["m"],
+                                  _moment_dtype(opt_state["m"])),
+                "v": spec.flatten(opt_state["v"],
+                                  _moment_dtype(opt_state["v"])),
+                "count": opt_state["count"][0].clone()}
+    raise ValueError(
+        "cannot flatten this optimizer state layout; re-init with "
+        "init_flat_state(spec, params_single, n, optimizer=...) instead")
+
+
+def _unflatten_opt_state(spec: FlatSpec, opt_state, n_agents: int):
+    if _no_buffer(opt_state):
+        return ()
+    if _is_adamw_state(opt_state):
+        return {"m": spec.unflatten(opt_state["m"], cast=False),
+                "v": spec.unflatten(opt_state["v"], cast=False),
+                "count": opt_state["count"].reshape(1).repeat(n_agents)}
+    return spec.unflatten(opt_state, cast=False)
+
+
+def flatten_fedstate(spec: FlatSpec, state: FedState) -> FlatFedState:
+    """Tree-engine FedState → FlatFedState: new (n, D) buffers."""
+    residual = () if _no_buffer(state.residual) \
+        else spec.flatten(state.residual)
+    return FlatFedState(flat=spec.flatten(state.params), step=state.step,
+                        opt_state=_flatten_opt_state(spec, state.opt_state),
+                        residual=residual)
+
+
+def unflatten_fedstate(spec: FlatSpec, fstate: FlatFedState) -> FedState:
+    """FlatFedState → tree-engine FedState, every leaf a view into the
+    flat buffers (repro/core/flat.py:254-265); adamw's scalar count is
+    repeated to one per agent."""
+    n = fstate.flat.shape[0]
+    residual = () if _no_buffer(fstate.residual) \
+        else spec.unflatten(fstate.residual, cast=False)
+    return FedState(params=spec.unflatten(fstate.flat), step=fstate.step,
+                    opt_state=_unflatten_opt_state(spec, fstate.opt_state, n),
+                    residual=residual)
 
 
 # ---------------------------------------------------------------------------
@@ -282,9 +373,7 @@ def grads_of(spec: FlatSpec, grad_fn: engine.GradFn, flat: torch.Tensor,
     on how autograd's device threads interleave with it.
     """
     rows = flat.shape[0]
-    params = _build_tree(spec.paths, [
-        flat[:, o:o + s].view((rows,) + shape)
-        for o, s, shape in zip(spec.offsets, spec.sizes, spec.shapes)])
+    params = spec.unflatten(flat, cast=False)
     # the backward on this thread: with autograd's device threads freeing
     # beside the caller, identical steps peaked whole buffers apart
     with torch.autograd.set_multithreading_enabled(False):
@@ -295,7 +384,7 @@ def grads_of(spec: FlatSpec, grad_fn: engine.GradFn, flat: torch.Tensor,
                         "engine.value_and_grad(loss)")
     losses, grads = out
     g_flat = torch.cat([g.reshape(rows, -1)
-                        for _, g in _sorted_leaves(grads)], dim=1)
+                        for _, g in sorted_leaves(grads)], dim=1)
     return losses, g_flat
 
 
@@ -380,11 +469,13 @@ def make_flat_feddec_step(cfg: FedDecConfig, spec: FlatSpec,
 def make_flat_feddec_round(cfg: FedDecConfig, spec: FlatSpec,
                            grad_fn: engine.GradFn, lr_fn: LrFn, *, device,
                            gossip_fn=None, optimizer=None,
-                           fuse_update_mix: bool = False):
+                           fuse_update_mix: bool = False, metrics_fn=None):
     """The H-step round: round_fn(state, batches, draws) with every batch
     leaf stacked on a leading step dim; metrics stack to (H,).  The
-    server round fires on the step with (t+1) % H == 0.  The state passed
-    in is donated, as in :func:`make_flat_feddec_step`."""
+    server round fires on the step with (t+1) % H == 0.  ``metrics_fn``
+    (state -> dict) is evaluated after every step and merged into its
+    metrics.  The state passed in is donated, as in
+    :func:`make_flat_feddec_step`."""
     return engine.make_loop_round(make_flat_feddec_step(
         cfg, spec, grad_fn, lr_fn, device=device, gossip_fn=gossip_fn,
-        optimizer=optimizer, fuse_update_mix=fuse_update_mix))
+        optimizer=optimizer, fuse_update_mix=fuse_update_mix), metrics_fn)

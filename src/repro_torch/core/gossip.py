@@ -1,7 +1,8 @@
 """The gossip averaging step x_i ← Σ_j W_ij x_j (Algorithm 1, line 6).
 
 Plain torch counterparts of repro/core/gossip.py for the flat (n, D)
-buffer and the (R, n, D) buffer of a sweep lattice.  The ELL neighbour
+buffer, the (R, n, D) buffer of a sweep lattice and the tree engine's
+stacked dict of (n, ...) leaves, mixed leaf by leaf.  The ELL neighbour
 mix goes through kernels/ops.py, which runs the plain version for CPU
 tensors and the CUDA kernel for CUDA ones; like the reference's Pallas
 kernels, it mixes in f32 whatever the buffer's dtype.  The plain mixes
@@ -17,9 +18,10 @@ import torch
 
 from repro_torch.core import topology as topo
 from repro_torch.kernels import ref
+from repro_torch.tree import tree_map
 
 __all__ = ["ELL_MAX_DEG", "mix_dtype", "gossip_mix_dense",
-           "make_sparse_gossip",
+           "make_sparse_gossip", "make_sparse_gossip_tree",
            "lattice_max_degree", "stacked_ell_tables",
            "make_sparse_gossip_batched"]
 
@@ -30,12 +32,21 @@ def mix_dtype(x: torch.Tensor) -> torch.dtype:
     return torch.promote_types(x.dtype, torch.float32)
 
 
-def gossip_mix_dense(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def _dense_rows(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    dt = mix_dtype(x)
+    if w.ndim == 2 and x.ndim != 2:  # one (n, ...) leaf of a stacked tree
+        return _dense_rows(w, x.reshape(x.shape[0], -1)).view(x.shape)
+    return torch.matmul(w.to(dt), x.to(dt)).to(x.dtype)
+
+
+def gossip_mix_dense(w: torch.Tensor, x):
     """y = W x as one (n, n) @ (n, D) matrix product (one batched product
     over a lattice's (R, n, n) W) in mix_dtype(x), the reference's einsum
-    with W cast to the buffer's dtype (repro/core/engine.py:155-158)."""
-    dt = mix_dtype(x)
-    return torch.matmul(w.to(dt), x.to(dt)).to(x.dtype)
+    with W cast to the buffer's dtype (repro/core/engine.py:155-158).  A
+    stacked tree (a dict of (n, ...) leaves) is mixed leaf by leaf, each
+    in mix_dtype(leaf) and returned in its own dtype
+    (repro/core/gossip.py:52-65)."""
+    return tree_map(lambda leaf: _dense_rows(w, leaf), x)
 
 
 def make_sparse_gossip(graph: topo.Graph):
@@ -65,6 +76,23 @@ def make_sparse_gossip(graph: topo.Graph):
         wd = w.to(x.dtype)
         own = torch.diagonal(wd)[:, None] * x
         return own.index_add(0, r, wd[r, s][:, None] * x[s])
+
+    return mix
+
+
+def make_sparse_gossip_tree(graph: topo.Graph):
+    """Leaf-wise application of :func:`make_sparse_gossip` to a stacked
+    tree (the tree engine's ``gossip_impl='sparse'``,
+    repro/core/gossip.py:217-225): each leaf is viewed as its contiguous
+    (n, D_leaf) rows, so an ELL-range graph launches kernel #2 once per
+    leaf on the card."""
+    rows_mix = make_sparse_gossip(graph)
+
+    def mix(w: torch.Tensor, stacked):
+        def leaf_mix(leaf):
+            rows = leaf.contiguous().view(leaf.shape[0], -1)
+            return rows_mix(w, rows).view(leaf.shape)
+        return tree_map(leaf_mix, stacked)
 
     return mix
 

@@ -10,7 +10,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.tree import leaves, tree_map
+
 __all__ = ["sample_participants", "participant_weights",
+           "aggregate_and_broadcast", "server_round",
            "aggregate_and_broadcast_flat", "server_round_flat",
            "server_round_sweep"]
 
@@ -24,6 +27,33 @@ def sample_participants(draws, t: int, n: int, k: int) -> torch.Tensor:
 def participant_weights(counts: torch.Tensor, k: int) -> torch.Tensor:
     """Aggregation weights c/K in f32 (sum to 1)."""
     return counts.to(torch.float32) / float(k)
+
+
+def aggregate_and_broadcast(weights: torch.Tensor, stacked):
+    """z = Σ_i weights_i x_i for every leaf of a stacked tree (a tensor or
+    a dict of them, every leaf (n, ...)), written into every agent's slot.
+
+    In place, leaf by leaf, as :func:`aggregate_and_broadcast_flat`: the
+    caller hands over a tree it owns (the tree engine passes the freshly
+    mixed x^{t+1}), so every leaf stays real contiguous storage that the
+    next step's kernels and in-place updates can take (a broadcast view
+    would be stride 0 along the agents).
+    """
+    def agg(leaf: torch.Tensor) -> torch.Tensor:
+        leaf = leaf.contiguous()
+        rows = leaf.view(leaf.shape[0], -1)
+        rows.copy_(torch.matmul(weights.to(leaf.dtype), rows).unsqueeze(0)
+                   .expand_as(rows))
+        return leaf
+    return tree_map(agg, stacked)
+
+
+def server_round(draws, t: int, stacked, k: int):
+    """Sample S_t and aggregate+broadcast a stacked tree (lines 8–10 of
+    Alg. 1, repro/core/server.py:60-65), in place."""
+    n = leaves(stacked)[0].shape[0]
+    counts = sample_participants(draws, t, n, k)
+    return aggregate_and_broadcast(participant_weights(counts, k), stacked)
 
 
 def aggregate_and_broadcast_flat(weights: torch.Tensor,

@@ -52,6 +52,7 @@ from repro_torch.core import gossip as gossip_lib
 from repro_torch.core import server as server_lib
 from repro_torch.core.flat import FlatFedState, FlatSpec, LrFn
 from repro_torch.core.mixing import metropolis_from_uniforms
+from repro_torch.tree import leaves, tree_map
 
 __all__ = ["SweepPlan", "SweepFedState", "make_sweep_plan",
            "init_sweep_state", "stack_flat_states", "slice_run",
@@ -194,17 +195,20 @@ def _compressor(plan: SweepPlan):
 def init_sweep_state(plan: SweepPlan, spec: FlatSpec, params_single: dict,
                      optimizer=None) -> SweepFedState:
     """z_i^1 = z^1 for every agent of every run, in the batched layout;
-    a zero (R, n, D) residual under a codec."""
+    the optimizer's state per run (adamw's count is (R,), as the
+    reference's ``jax.vmap(optimizer.init)`` makes it); a zero (R, n, D)
+    residual under a codec."""
     row = spec.ravel(params_single)
     flat = row[None, None].repeat(plan.r_runs, plan.n_agents, 1)
-    opt_state = optimizer.init(flat) if optimizer is not None else ()
+    opt_state = () if optimizer is None else tree_map(
+        torch.Tensor.contiguous, torch.func.vmap(optimizer.init)(flat))
     residual = () if _compressor(plan) is None else torch.zeros_like(flat)
     return SweepFedState(flat=flat, step=np.ones(plan.r_runs, np.int64),
                          opt_state=opt_state, residual=residual)
 
 
 def _stack(buffers):
-    return () if isinstance(buffers[0], tuple) else torch.stack(buffers)
+    return tree_map(lambda *runs: torch.stack(runs), *buffers)
 
 
 def stack_flat_states(states) -> SweepFedState:
@@ -219,7 +223,7 @@ def stack_flat_states(states) -> SweepFedState:
 def slice_run(state: SweepFedState, r: int) -> FlatFedState:
     """Run r's slice as a single-run FlatFedState (views, no copy)."""
     def take(buffer):
-        return () if isinstance(buffer, tuple) else buffer[r]
+        return tree_map(lambda leaf: leaf[r], buffer)
     return FlatFedState(flat=state.flat[r], step=int(state.step[r]),
                         opt_state=take(state.opt_state),
                         residual=take(state.residual))
@@ -340,8 +344,10 @@ def _sweep_ops(plan: SweepPlan, spec: FlatSpec, grad_fn: engine.GradFn,
         if optimizer is None:  # plain SGD: η·g scaled in place
             return losses, state.flat - g3.mul_(eta3.to(spec.dtype)), \
                 state.opt_state
-        x_half, new_opt = optimizer.update(state.flat, g3, state.opt_state,
-                                           eta3)
+        # each run's update with its own η (and adamw's count), as the
+        # reference's jax.vmap(optimizer.update) runs it
+        x_half, new_opt = torch.func.vmap(optimizer.update)(
+            state.flat, g3, state.opt_state, eta)
         return losses, x_half, new_opt
 
     # line 6 on the compressed payload: the decoded s through the lattice's
@@ -386,8 +392,9 @@ def _sweep_ops(plan: SweepPlan, spec: FlatSpec, grad_fn: engine.GradFn,
                 z_next[r].copy_(state.flat[r])
                 for new, old in ((new_opt, state.opt_state),
                                  (new_res, state.residual)):
-                    if not isinstance(new, tuple):
-                        new[r].copy_(old[r])
+                    for new_leaf, old_leaf in zip(leaves(new),
+                                                  leaves(old)):
+                        new_leaf[r].copy_(old_leaf[r])
             metrics["active"] = torch.as_tensor(active)
         # donated, as in the flat engine: the old buffers go now
         state.flat, state.opt_state = z_next, new_opt

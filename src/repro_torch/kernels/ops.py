@@ -38,8 +38,9 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels import ref
+from repro_torch.tree import tree_map
 
-__all__ = ["gossip_mix", "gossip_mix_sparse", "update_mix",
+__all__ = ["gossip_mix", "gossip_mix_tree", "gossip_mix_sparse", "update_mix",
            "update_mix_sparse", "gossip_mix_batched",
            "gossip_mix_sparse_batched", "update_mix_batched",
            "update_mix_sparse_batched", "ell_table", "ell_weights",
@@ -232,6 +233,19 @@ def _update_sparse(fn, ndim, nbr, wv, wd, x, g, eta, m, beta, nesterov):
 def gossip_mix(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """#1 y = W @ X for the (n, D) flat buffer (kernel: gossip_mix.cu)."""
     return _gossip(gossip_mix, 2, w, x)
+
+
+def gossip_mix_tree(w: torch.Tensor, stacked):
+    """#1 leaf by leaf over a stacked tree (a tensor or a dict of (n, ...)
+    leaves), repro/kernels/ops.py:156-167: each leaf is viewed as its
+    contiguous (n, D_leaf) rows and mixed by :func:`gossip_mix`, one
+    launch per leaf on the card (its plain version on the CPU).  Nothing
+    is padded: the kernel masks a ragged D_leaf, however narrow."""
+    def mix(leaf: torch.Tensor) -> torch.Tensor:
+        rows = leaf.contiguous().view(leaf.shape[0], -1)
+        return gossip_mix(w, rows).view(leaf.shape)
+
+    return tree_map(mix, stacked)
 
 
 def gossip_mix_sparse(nbr: torch.Tensor, wv: torch.Tensor, wd: torch.Tensor,

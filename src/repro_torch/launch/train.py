@@ -1,21 +1,26 @@
 """Federated LM training driver of the port (repro/launch/train.py).
 
-Runs Algorithm 1 on the tiny dense LM over synthetic heterogeneous
-per-agent token streams, on the flat (n_agents, D) buffer, on one device;
-with ``--sweep-runs R`` it trains an R-run lattice (over seeds, H or
+Runs Algorithm 1 on the tiny dense LM, or on a ported zoo config
+(``--arch mamba2-2.7b|recurrentgemma-9b``, ``--smoke`` for its reduced
+variant), over synthetic heterogeneous per-agent token streams on one
+device.  The state is the flat (n_agents, D) buffer (the fused round's
+default) or the stacked tree of the model's dict (``--per-step``'s
+default, as in the reference, or ``--state-layout tree``); with
+``--sweep-runs R`` it trains an R-run lattice (over seeds, H or
 topologies, ``--sweep-axis``) on one (R, n_agents, D) buffer.  The gossip
 mix and the fused update+mix run through the hand-written CUDA kernels
 (``--gossip-impl pallas|sparse``, ``--fuse-update-mix``; their batched
-forms on a lattice).  ``--gossip-compress SPEC`` compresses the gossip
-payload with error feedback, on the flat buffer (the EF mix kernels
-#9/#11 when fused, #14 on int8 × pallas) or on the lattice (#10/#12 when
-fused).  Runs on ``cuda`` unless ``--device cpu`` is given, and fails
-without a card.
+forms on a lattice; kernel #1 once per leaf on the tree).
+``--gossip-compress SPEC`` compresses the gossip payload with error
+feedback, on the flat buffer (the EF mix kernels #9/#11 when fused, #14
+on int8 × pallas), on the lattice (#10/#12 when fused) or leaf by leaf
+on the tree.  ``--optimizer sgd|momentum|adamw``.  Runs on ``cuda``
+unless ``--device cpu`` is given, and fails without a card.
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.train --gossip-impl pallas \\
       --fuse-update-mix --steps 10 [--sweep-runs 2 --sweep-axis h]
-      [--gossip-compress int8]
+      [--gossip-compress int8] [--arch mamba2-2.7b --smoke]
 """
 
 from __future__ import annotations
@@ -28,15 +33,20 @@ import numpy as np
 import torch
 
 from repro_torch import optim
+from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.configs.base import ArchConfig, FedConfig
+from repro_torch.core import feddec
 from repro_torch.core import flat as flat_lib
 from repro_torch.core import sweep as sweep_lib
 from repro_torch.core import topology as topo
 from repro_torch.core.draws import Draws, SweepDraws
-from repro_torch.core.feddec import FedAvgConfig, FedDecConfig
+from repro_torch.core.fedavg import FedAvgConfig
+from repro_torch.core.feddec import FedDecConfig
 from repro_torch.core.mixing import MixingDistribution
 from repro_torch.data.federated_lm import make_federated_lm
 from repro_torch.models import build_model
+
+OPTIMIZERS = ("sgd", "momentum", "adamw")
 
 __all__ = ["tiny_lm_config", "build_fed_setup", "sweep_lattice_configs",
            "resolve_device", "train_loop", "main"]
@@ -128,38 +138,58 @@ def resolve_device(device) -> torch.device:
 def train_loop(cfg: ArchConfig, fed: FedConfig, *, steps: int,
                per_agent_batch: int, seq_len: int, lr: float = 3e-3,
                optimizer: str = "sgd", fedavg_control: bool = False,
-               fused: bool = True, fuse_update_mix: bool = False,
+               fused: bool = True, state_layout: str | None = None,
+               fuse_update_mix: bool = False,
                sweep_runs: int | None = None, sweep_axis: str = "seed",
                log_every: int = 10, seed: int = 0, data_alpha: float = 0.3,
                device="cuda", draws=None, params0: dict | None = None,
                timing: dict | None = None, keep_lattice: bool = False):
-    """Run FedDec training; returns (final FlatFedState, loss_history).
+    """Run FedDec training; returns (final FedState, loss_history).
 
     ``fused=True`` runs one H-step round per call (a Python loop over the
     round's steps); ``fused=False`` calls the one-step executor per
     iteration.  Both run the same step body, so their trajectories agree.
-    ``sweep_runs=R`` trains the R-run lattice of ``sweep_axis`` on one
-    (R, n, D) buffer from one shared data stream; the loss history is the
-    lattice mean per step, and the state returned is run 0's (the whole
-    SweepFedState with ``keep_lattice``).  ``draws`` (default
-    ``Draws(seed, device)``, or ``SweepDraws`` for a lattice) makes every
-    random draw; ``params0`` replaces the random initial weights.  A
-    ``timing`` dict receives ``setup_s`` and ``loop_s``, host-clock
-    seconds; the loop ends by reading the losses back, which waits for
-    the device.
+    ``state_layout`` picks the engine: 'flat' (the (n, D) buffer) or
+    'tree' (the stacked dict, core/feddec.py); by default 'flat' when
+    fused and 'tree' per step, as the reference resolves it
+    (repro/launch/train.py:122-123).  ``sweep_runs=R`` trains the R-run
+    lattice of ``sweep_axis`` on one (R, n, D) buffer from one shared
+    data stream; the loss history is the lattice mean per step, and the
+    state returned is run 0's (the whole SweepFedState with
+    ``keep_lattice``).  A flat state comes back as the tree FedState of
+    views into its buffers (``flat.unflatten_fedstate``), as the
+    reference returns it.  ``draws`` (default ``Draws(seed, device)``,
+    or ``SweepDraws`` for a lattice) makes every random draw;
+    ``params0`` replaces the random initial weights.  A ``timing`` dict
+    receives ``setup_s`` and ``loop_s``, host-clock seconds; the loop
+    ends by reading the losses back, which waits for the device.
     """
     t_setup = time.perf_counter()
-    if optimizer not in ("sgd", "momentum"):
-        raise ValueError(f"optimizer {optimizer!r} is not ported; choose "
-                         f"sgd or momentum")
-    if sweep_runs is not None and not fused:
-        raise ValueError("--sweep-runs requires the fused executor")
+    if optimizer not in OPTIMIZERS:
+        raise ValueError(f"unknown optimizer {optimizer!r}; choose from "
+                         f"{'|'.join(OPTIMIZERS)}")
+    if state_layout is None:
+        state_layout = "flat" if fused else "tree"
+    if state_layout not in ("tree", "flat"):
+        raise ValueError(f"state_layout must be 'tree' or 'flat', "
+                         f"got {state_layout!r}")
+    if fuse_update_mix and state_layout != "flat":
+        raise ValueError("--fuse-update-mix fuses the whole-buffer "
+                         "update+mix pass (kernels #3/#4); it requires "
+                         "--state-layout flat")
+    if sweep_runs is not None:
+        if not fused:
+            raise ValueError("--sweep-runs requires the fused executor")
+        if state_layout != "flat":
+            raise ValueError("--sweep-runs batches the flat (n_agents, D) "
+                             "buffer; it requires --state-layout flat")
     device = resolve_device(device)
     model = build_model(cfg)
     fcfg, n_agents = build_fed_setup(fed)
     if fedavg_control:
         fcfg = FedAvgConfig(n_agents, h=fed.h, k=fed.k)
-    opt = {"sgd": None, "momentum": optim.momentum_sgd()}[optimizer]
+    opt = {"sgd": None, "momentum": optim.momentum_sgd(),
+           "adamw": optim.adamw()}[optimizer]
     # no exchange (FedAvg / impl 'none') ⇒ nothing to compress, no residual
     compress = fcfg.gossip_compress if fcfg.gossip_impl != "none" \
         else "none"
@@ -175,35 +205,45 @@ def train_loop(cfg: ArchConfig, fed: FedConfig, *, steps: int,
         params0 = model.init(draws)
     spec = flat_lib.make_flat_spec(params0)
     grad_fn = model.grad_fn()
-    kwargs = dict(device=device, optimizer=opt,
-                  fuse_update_mix=fuse_update_mix)
-    if sweep_runs is not None:
+    kwargs = dict(device=device, optimizer=opt)
+    if state_layout == "tree":
+        state = feddec.init_state(params0, n_agents, optimizer=opt,
+                                  compress=compress)
+        if fused:
+            round_fn = feddec.make_feddec_round(fcfg, grad_fn, lr_fn,
+                                                **kwargs)
+        else:
+            step = feddec.make_feddec_step(fcfg, grad_fn, lr_fn, **kwargs)
+    elif sweep_runs is not None:
         plan = sweep_lib.make_sweep_plan(
             sweep_lattice_configs(fcfg, fed, sweep_runs, sweep_axis))
         state = sweep_lib.init_sweep_state(plan, spec, params0, optimizer=opt)
-        round_fn = sweep_lib.make_sweep_feddec_round(plan, spec, grad_fn,
-                                                     lr_fn, **kwargs)
+        round_fn = sweep_lib.make_sweep_feddec_round(
+            plan, spec, grad_fn, lr_fn, fuse_update_mix=fuse_update_mix,
+            **kwargs)
     else:
         state = flat_lib.init_flat_state(spec, params0, n_agents,
                                          optimizer=opt, compress=compress)
+        kwargs["fuse_update_mix"] = fuse_update_mix
         if fused:
             round_fn = flat_lib.make_flat_feddec_round(fcfg, spec, grad_fn,
                                                        lr_fn, **kwargs)
         else:
             step = flat_lib.make_flat_feddec_step(fcfg, spec, grad_fn,
                                                   lr_fn, **kwargs)
+    n_params = model.param_count(params0)
+    del params0  # the state holds its own copies
 
-    print(f"[train] {cfg.name}: {model.param_count(params0):,} params × "
-          f"{n_agents} agents, graph={fed.graph}, H={fed.h}, K={fcfg.k}, "
-          f"opt={optimizer}, executor={'fused' if fused else 'per-step'}, "
-          f"layout=flat"
+    print(f"[train] {cfg.name}: {n_params:,} params × {n_agents} agents, "
+          f"graph={fed.graph}, H={fed.h}, K={fcfg.k}, opt={optimizer}, "
+          f"executor={'fused' if fused else 'per-step'}, "
+          f"layout={state_layout}"
           + (f" (sweep lattice R={sweep_runs} axis={sweep_axis})"
              if sweep_runs else "")
           + f", gossip={fcfg.gossip_impl}"
           + (", fused-update-mix" if fuse_update_mix else "")
           + (f", compress={compress}" if compress != "none" else "")
           + f", device={device}")
-
     positions = torch.arange(seq_len, device=device)[None, None].expand(
         n_agents, per_agent_batch, seq_len)
     losses: list[float] = []
@@ -249,9 +289,14 @@ def train_loop(cfg: ArchConfig, fed: FedConfig, *, steps: int,
         finals = metrics["loss"][-1].tolist()
         print("[train] sweep finals (last-step loss per run): "
               + ", ".join(f"r{r}={v:.4f}" for r, v in enumerate(finals)))
-        if not keep_lattice:
-            state = sweep_lib.slice_run(state, 0)
+        if keep_lattice:
+            return state, losses
+        state = sweep_lib.slice_run(state, 0)
+    if state_layout == "flat":
+        state = flat_lib.unflatten_fedstate(spec, state)
     return state, losses
+
+
 
 
 _NOT_PORTED = ("--mesh-agents", "--mesh-model", "--n-total", "--ckpt-dir")
@@ -260,7 +305,10 @@ _NOT_PORTED = ("--mesh-agents", "--mesh-model", "--n-total", "--ckpt-dir")
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--arch", default="tiny",
-                   help="only 'tiny' (the ~157M dense LM) is ported")
+                   help=f"'tiny' (the ~157M dense LM) or a ported config: "
+                        f"{', '.join(ARCH_NAMES[1:])}")
+    p.add_argument("--smoke", action="store_true",
+                   help="use the reduced smoke variant of --arch")
     p.add_argument("--steps", type=int, default=100)
     p.add_argument("--agents", type=int, default=8)
     p.add_argument("--batch", type=int, default=2,
@@ -271,28 +319,26 @@ def main(argv=None) -> None:
     p.add_argument("--k", type=int, default=2)
     p.add_argument("--p-fail", type=float, default=0.0)
     p.add_argument("--lr", type=float, default=3e-3)
-    p.add_argument("--optimizer", default="sgd",
-                   choices=["sgd", "momentum", "adamw"])
+    p.add_argument("--optimizer", default="sgd", choices=list(OPTIMIZERS))
     p.add_argument("--fedavg", action="store_true",
                    help="run the FedAvg control instead of FedDec")
     ex = p.add_mutually_exclusive_group()
     ex.add_argument("--fused", dest="fused", action="store_true",
                     default=True, help="one call per H-step round (default)")
     ex.add_argument("--per-step", dest="fused", action="store_false",
-                    help="one call per iteration; runs the flat engine "
-                         "even without --state-layout, where the reference "
-                         "runs its tree engine (the tree layout is not "
-                         "ported)")
-    p.add_argument("--state-layout", default="flat", choices=["tree", "flat"],
-                   help="only the flat (n, D) buffer layout is ported")
+                    help="one call per iteration")
+    p.add_argument("--state-layout", default=None, choices=["tree", "flat"],
+                   help="carried-state engine: 'flat' = one (n, D) buffer "
+                        "(default when fused), 'tree' = the stacked dict of "
+                        "the model's leaves (default with --per-step)")
     p.add_argument("--gossip-impl", default="dense",
                    choices=["dense", "pallas", "sparse", "none"],
                    help="how the gossip mix executes (Algorithm 1 line 6): "
-                        "'pallas' = CUDA kernel #1, 'sparse' = ELL kernel "
-                        "#2 on CUDA")
+                        "'pallas' = CUDA kernel #1 (once per leaf on the "
+                        "tree), 'sparse' = ELL kernel #2 on CUDA (likewise)")
     p.add_argument("--fuse-update-mix", action="store_true",
                    help="fuse the optimizer update with the gossip mix "
-                        "(CUDA kernels #3/#4); sgd/momentum")
+                        "(CUDA kernels #3/#4); sgd/momentum, flat layout")
     p.add_argument("--sweep-runs", type=int, default=None, metavar="R",
                    help="train R runs as one (R, n, D) lattice (the "
                         "batched kernels #5-#8 on CUDA)")
@@ -303,36 +349,37 @@ def main(argv=None) -> None:
     p.add_argument("--gossip-compress", default="none", metavar="SPEC",
                    help="compress the gossip payload with error feedback "
                         "(core/compress.py): none | identity | bf16 | int8 "
-                        "| topk:R; flat layout, with or without "
+                        "| topk:R; every layout, with or without "
                         "--sweep-runs")
     p.add_argument("--delta", default="none", metavar="SPEC")
     for flag in _NOT_PORTED:
         p.add_argument(flag, default=None)
-    p.add_argument("--vocab", type=int, default=32_768)
-    p.add_argument("--d-model", type=int, default=768)
-    p.add_argument("--layers", type=int, default=12)
+    p.add_argument("--vocab", type=int, default=32_768,
+                   help="tiny-LM vocab size")
+    p.add_argument("--d-model", type=int, default=768,
+                   help="tiny-LM width")
+    p.add_argument("--layers", type=int, default=12,
+                   help="tiny-LM depth")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
     args = p.parse_args(argv)
 
-    if args.sweep_runs is not None and args.state_layout != "flat":
-        raise ValueError("--sweep-runs batches the flat (n_agents, D) "
-                         "buffer; it requires --state-layout flat")
     rejected = [flag for flag in _NOT_PORTED
                 if getattr(args, flag[2:].replace("-", "_")) is not None]
     if args.delta != "none":
         rejected.append(f"--delta {args.delta}")
-    if args.state_layout == "tree":
-        rejected.append("--state-layout tree")
-    if args.optimizer == "adamw":
-        rejected.append("--optimizer adamw")
-    if args.arch != "tiny":
+    if args.arch not in ARCH_NAMES:
         rejected.append(f"--arch {args.arch}")
     if rejected:
         p.error(f"not ported to repro_torch yet: {', '.join(rejected)} "
                 f"(see ROADMAP.md; the JAX package repro has them)")
 
-    cfg = tiny_lm_config(args.d_model, args.layers, vocab=args.vocab)
+    if args.arch == "tiny":
+        cfg = tiny_lm_config(args.d_model, args.layers, vocab=args.vocab)
+    else:
+        cfg = get_config(args.arch)
+        if args.smoke:
+            cfg = cfg.smoke()
     fed = FedConfig(n_agents=args.agents, h=args.h, k=args.k,
                     graph=args.graph, p_fail=args.p_fail,
                     gossip_impl=args.gossip_impl,
@@ -341,6 +388,7 @@ def main(argv=None) -> None:
         cfg, fed, steps=args.steps, per_agent_batch=args.batch,
         seq_len=args.seq, lr=args.lr, optimizer=args.optimizer,
         fedavg_control=args.fedavg, fused=args.fused,
+        state_layout=args.state_layout,
         fuse_update_mix=args.fuse_update_mix, sweep_runs=args.sweep_runs,
         sweep_axis=args.sweep_axis, device=args.device)
     first = np.mean(losses[:5])

@@ -46,12 +46,17 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     cum = torch.cumsum(la, dim=2)                           # (B,NC,L,H)
     total = cum[:, :, -1, :]                                # (B,NC,H)
 
-    # intra-chunk: decay[i, j] = exp(cum_i − cum_j) for i ≥ j
+    # intra-chunk: decay[i, j] = exp(cum_i − cum_j) for i ≥ j.  Masked
+    # before the exp: above the diagonal cum_i − cum_j = Σ Δ·|A| > 0
+    # overflows to inf at long chunks and large |A| (Mamba2-2.7B's 80
+    # heads, 128-token chunks), and a mask applied after the exp sends
+    # 0·inf = NaN into the backward of Δ and A (the reference's form,
+    # repro/models/ssm.py:77-79, does; its forward equals this one's)
     diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]    # (B,NC,L,L,H)
-    mask = torch.ones(chunk, chunk, dtype=torch.bool,
-                      device=x.device).tril()
-    decay = torch.where(mask[None, None, :, :, None], torch.exp(diff),
-                        torch.zeros((), device=x.device))
+    upper = torch.ones(chunk, chunk, dtype=torch.bool,
+                       device=x.device).triu(1)
+    decay = torch.exp(diff.masked_fill(upper[None, None, :, :, None],
+                                       float("-inf")))
     del diff
     cb = torch.einsum("bnid,bnjd->bnij", cc, bc)            # (B,NC,L,L)
     y = torch.einsum("bnijh,bnjhp->bnihp", cb[..., None] * decay, xl)

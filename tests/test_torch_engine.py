@@ -290,8 +290,9 @@ def test_resolve_gossip_dispatch():
     assert engine.resolve_gossip(cfg) is ops.gossip_mix
     x = torch.randn(N, 10)
     assert engine.resolve_gossip(FedAvgConfig(N))(None, x) is x
-    with pytest.raises(ValueError):
-        engine.resolve_gossip(cfg, "tree")
+    assert engine.resolve_gossip(cfg, "tree") is ops.gossip_mix_tree
+    with pytest.raises(ValueError, match="not ported"):
+        engine.resolve_gossip(cfg, "sharded")
 
 
 def test_draws_are_deterministic_per_seed():

@@ -244,6 +244,41 @@ def test_cuda_launches_are_counted(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("impl", ["pallas", "sparse"])
+def test_cuda_tree_mix_launches_once_per_leaf(cuda, impl):
+    """The tree layout's kernel mixes (#1 for 'pallas', #2 for 'sparse')
+    launch once per leaf, at narrow and ragged leaf widths, and agree
+    with the same mix on the CPU."""
+    rng = np.random.default_rng(0)
+    tree = {"a_log": rng.standard_normal((8, 3)),
+            "norm": {"scale": rng.standard_normal((8, 1))},
+            "w": rng.standard_normal((8, 5, 1025))}
+    w = rng.random((8, 8))
+    w = w / w.sum(axis=1, keepdims=True)
+    mix = ops.gossip_mix_tree if impl == "pallas" else \
+        gossip.make_sparse_gossip_tree(topo.ring_graph(8, k=2))
+    kernel = "gossip_mix" if impl == "pallas" else "gossip_mix_sparse"
+    out = {}
+    for dev in ("cpu", cuda):
+        ops.reset_launch_counts()
+        x = {"a_log": torch.tensor(tree["a_log"], dtype=torch.float32,
+                                   device=dev),
+             "norm": {"scale": torch.tensor(tree["norm"]["scale"],
+                                            dtype=torch.float32,
+                                            device=dev)},
+             "w": torch.tensor(tree["w"], dtype=torch.float32, device=dev)}
+        out[str(dev)] = mix(torch.tensor(w, dtype=torch.float32,
+                                         device=dev), x)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()[kernel] == (0 if dev == "cpu" else 3)
+    from repro_torch.tree import leaves
+    for got, want in zip(leaves(out[str(cuda)]), leaves(out["cpu"])):
+        assert got.shape == want.shape
+        assert (got.cpu() - want).abs().max().item() <= \
+            1e-5 * want.abs().max().item()
+
+
+@pytest.mark.gpu
 def test_cuda_wrapper_raises_instead_of_falling_back(cuda):
     x = torch.randn(4, 100, device=cuda, dtype=torch.float16)
     w = torch.rand(4, 4, device=cuda)
@@ -824,12 +859,12 @@ def test_cuda_zoo_wrappers_raise_instead_of_falling_back(cuda, kernel):
 def _per_row_grads(spec, loss_fn, flat, batch):
     """The per-row ``torch.autograd.grad`` loop from Python that the
     engines ran before their one batched call: the yardstick."""
-    from repro_torch.core import flat as flat_lib
+    from repro_torch.tree import build_tree
     g_flat = torch.empty_like(flat)
     losses = []
     for i in range(flat.shape[0]):
         leaves = [v.detach().requires_grad_() for v in spec.views(flat[i])]
-        params = flat_lib._build_tree(spec.paths, leaves)
+        params = build_tree(spec.paths, leaves)
         with torch.enable_grad():
             loss = loss_fn(params, {k: v[i] for k, v in batch.items()})
             grads = torch.autograd.grad(loss, leaves)

@@ -14,7 +14,13 @@ round a borderline element differently, tests/test_torch_compress.py;
 the compressed lattice's trainer is held to the reference's in
 tests/test_torch_sweep_compress.py).  The CLI's codec paths, its
 compressed lattice, rejections, sweep errors and device default are
-checked too.
+checked too.  The tree engine through the trainer: ``--per-step``
+without ``--state-layout`` runs both packages' tree engines (losses 1e-5
+relative, parameters 1e-5·max|x|; 1e-4 relative losses under int8, its
+per-leaf noise replayed), every run returns a ``FedState``, adamw runs
+on both engines, the two zoo smoke configs match the reference's losses
+to 1e-4 relative, and the CLI runs ``--state-layout tree``, ``--optimizer
+adamw`` and ``--arch ... --smoke``.
 """
 
 from __future__ import annotations
@@ -26,13 +32,15 @@ import torch
 
 from repro.configs.base import FedConfig as RefFedConfig
 from repro.core import compress as ref_compress
+from repro.core import feddec as ref_feddec
 from repro.data.federated_lm import make_federated_lm as ref_make_data
 from repro.launch import train as ref_train
 from repro.models import build_model as ref_build_model
 from repro_torch.configs.base import FedConfig
-from repro_torch.core import flat as flat_lib
+from repro_torch.core import feddec, flat as flat_lib
 from repro_torch.core.draws import Draws
 from repro_torch.launch import train as port_train
+from repro_torch.tree import leaves
 
 D_MODEL, LAYERS, VOCAB, SEQ, BATCH, N, H, K = 64, 2, 256, 16, 2, 4, 2, 2
 
@@ -67,10 +75,15 @@ class ReplayTrainDraws(Draws):
         idx = jax.random.randint(self._keys(t)[2], (k,), 0, n)
         return torch.from_numpy(np.array(idx).astype(np.int64))
 
-    def codec_noise(self, t, n, d):
-        """``_row_noise(split(fold_in(key_w, 1), n), d)``, the reference's
-        int8 noise at step t (repro/core/flat.py:450-451)."""
-        keys = jax.random.split(jax.random.fold_in(self._keys(t)[0], 1), n)
+    def codec_noise(self, t, n, d, leaf=None):
+        """``_row_noise(split(key_c, n), d)``, the reference's int8 noise at
+        step t, with key_c = fold_in(key_w, 1) (repro/core/flat.py:450-451)
+        or, for leaf ``leaf`` of the tree engine, fold_in(key_c, leaf)
+        (repro/core/compress.py:304-314)."""
+        key_c = jax.random.fold_in(self._keys(t)[0], 1)
+        if leaf is not None:
+            key_c = jax.random.fold_in(key_c, leaf)
+        keys = jax.random.split(key_c, n)
         return torch.from_numpy(np.array(ref_compress._row_noise(keys, d)))
 
 
@@ -125,8 +138,9 @@ def test_sweep_train_loop_matches_reference_losses(axis, impl, fuse, opt,
                                                         params0)), **kw)
     assert len(losses) == len(ref_losses) == 4
     np.testing.assert_allclose(losses, ref_losses, rtol=1e-5)
-    assert state.step == 5 and state.flat.shape[0] == N
-    assert torch.isfinite(state.flat).all()
+    assert state.step == 5
+    assert all(leaf.shape[0] == N and torch.isfinite(leaf).all()
+               for leaf in leaves(state.params))
 
 
 def test_train_loop_matches_reference_losses():
@@ -152,7 +166,8 @@ def test_train_loop_matches_reference_losses():
                                                         params0)))
     assert len(losses) == len(ref_losses) == 4
     np.testing.assert_allclose(losses, ref_losses, rtol=1e-5)
-    assert state.step == 5 and torch.isfinite(state.flat).all()
+    assert state.step == 5
+    assert all(torch.isfinite(leaf).all() for leaf in leaves(state.params))
 
 
 @pytest.mark.parametrize("impl,fuse,opt", [("pallas", False, "sgd"),
@@ -179,8 +194,10 @@ def test_compressed_train_loop_matches_reference_losses(impl, fuse, opt):
                                                         params0)), **kw)
     assert len(losses) == len(ref_losses) == 4
     np.testing.assert_allclose(losses, ref_losses, rtol=1e-4)
-    assert state.step == 5 and state.residual.shape == state.flat.shape
-    assert state.residual.abs().max() > 0
+    assert state.step == 5
+    assert [r.shape for r in leaves(state.residual)] == \
+        [p.shape for p in leaves(state.params)]
+    assert max(r.abs().max() for r in leaves(state.residual)) > 0
 
 
 def _small_run(**kw):
@@ -204,12 +221,21 @@ class SplitDraws(Draws):
         return self.data_draws.tokens(data, per_agent_batch, steps)
 
 
+def _flat(state) -> torch.Tensor:
+    """A FedState's parameters as the (n, D) buffer, in FlatSpec order."""
+    return flat_lib.make_flat_spec_from_stacked(state.params).flatten(
+        state.params)
+
+
 def test_per_step_and_fused_executors_agree():
-    kw = dict(optimizer="momentum", fuse_update_mix=True)
+    """On one engine (the flat one: --fuse-update-mix needs it, and
+    --per-step alone now picks the tree engine)."""
+    kw = dict(optimizer="momentum", fuse_update_mix=True,
+              state_layout="flat")
     a, la = _small_run(fused=True, draws=SplitDraws(3), **kw)
     b, lb = _small_run(fused=False, draws=SplitDraws(3), **kw)
     assert la == lb
-    assert torch.equal(a.flat, b.flat)
+    assert torch.equal(_flat(a), _flat(b))
 
 
 def test_gossip_impls_agree_on_the_port():
@@ -218,7 +244,7 @@ def test_gossip_impls_agree_on_the_port():
     a, la = _small_run(impl="dense")
     b, lb = _small_run(impl="pallas")
     np.testing.assert_allclose(la, lb, rtol=1e-6)
-    torch.testing.assert_close(a.flat, b.flat, atol=1e-6, rtol=0)
+    torch.testing.assert_close(_flat(a), _flat(b), atol=1e-6, rtol=0)
 
 
 def test_cli_runs_on_cpu_and_prints_the_reference_lines(capsys):
@@ -348,9 +374,7 @@ def test_cli_sweep_errors_are_the_reference_messages(case):
 @pytest.mark.parametrize("argv", [
     ["--mesh-agents", "2"], ["--mesh-model", "2"],
     ["--sweep-runs", "2", "--gossip-compress", "int8", "--delta", "full"],
-    ["--gossip-compress", "int8", "--state-layout", "tree"],
     ["--delta", "full"], ["--n-total", "64"],
-    ["--state-layout", "tree"], ["--optimizer", "adamw"],
     ["--ckpt-dir", "ckpt"], ["--arch", "qwen1.5-4b"]])
 def test_cli_rejects_what_is_not_ported(argv, capsys):
     with pytest.raises(SystemExit) as err:
@@ -372,4 +396,140 @@ def test_fedavg_control_is_the_run_without_gossip():
     """--fedavg swaps in 𝒲 = {I}: the same trajectory as gossip 'none'."""
     a, la = _small_run(fedavg_control=True, draws=Draws(4, "cpu"))
     b, lb = _small_run(impl="none", draws=Draws(4, "cpu"))
-    assert la == lb and torch.equal(a.flat, b.flat)
+    assert la == lb and torch.equal(_flat(a), _flat(b))
+
+
+# ---------------------------------------------------------------------------
+# The tree engine through the trainer: the --per-step default, FedState
+# returns, adamw, the zoo's smoke configs and the CLI's --arch/--smoke
+# ---------------------------------------------------------------------------
+
+
+def _ref_and_port(fed: dict, seed: int, ref_cfg=None, port_cfg=None,
+                  seq=SEQ, **kw):
+    """(reference (state, losses), port (state, losses)) of train_loop on
+    the same initial parameters under the replayed draws."""
+    ref_cfg = ref_cfg or ref_train.tiny_lm_config(D_MODEL, LAYERS,
+                                                  vocab=VOCAB)
+    port_cfg = port_cfg or port_train.tiny_lm_config(D_MODEL, LAYERS,
+                                                     vocab=VOCAB)
+    kw = dict(per_agent_batch=BATCH, seq_len=seq, log_every=0, seed=seed,
+              **kw)
+    ref = ref_train.train_loop(ref_cfg, RefFedConfig(**fed), **kw)
+    params0 = jax.jit(ref_build_model(ref_cfg).init)(jax.random.key(seed))
+    draws = ReplayTrainDraws(seed, ref_make_data(
+        ref_cfg.vocab_size, fed["n_agents"], seq, alpha=0.3, seed=seed))
+    port = port_train.train_loop(
+        port_cfg, FedConfig(**fed), device="cpu", draws=draws,
+        params0=flat_lib.params_from_numpy(jax.tree.map(np.asarray,
+                                                        params0)), **kw)
+    return ref, port
+
+
+def _assert_params_close(port_state, ref_state, tol):
+    ref_leaves = jax.tree.leaves(ref_state.params)
+    port_leaves = leaves(port_state.params)
+    assert len(port_leaves) == len(ref_leaves)
+    atol = tol * max(float(np.abs(np.asarray(r)).max()) for r in ref_leaves)
+    for p, r in zip(port_leaves, ref_leaves):
+        np.testing.assert_allclose(p.numpy(), np.asarray(r), rtol=0,
+                                   atol=atol)
+
+
+@pytest.mark.parametrize("impl,opt,codec", [
+    ("pallas", "sgd", "none"), ("sparse", "momentum", "none"),
+    ("dense", "adamw", "none"), ("pallas", "sgd", "int8")])
+def test_per_step_runs_the_tree_engine_as_the_reference_does(impl, opt,
+                                                              codec):
+    """No --state-layout with --per-step: both trainers run their tree
+    engines (repro/launch/train.py:122-123) and return a FedState; losses
+    within 1e-5 relative (1e-4 under the lossy int8 codec, its per-leaf
+    noise replayed), sgd and momentum parameters within 1e-5·max|x|.
+    adamw's and int8's parameters are held on the engine's quadratic in
+    tests/test_torch_feddec.py: on the LM, adamw's m̂/(√v̂ + ε) turns the
+    two frameworks' gradient rounding on near-zero gradients into a share
+    of η, and int8 may round a borderline element one quantum apart."""
+    fed = dict(n_agents=N, h=H, k=K, graph="ring2", gossip_impl=impl,
+               gossip_compress=codec)
+    (ref_state, ref_losses), (state, losses) = _ref_and_port(
+        fed, 5, steps=4, fused=False, optimizer=opt)
+    assert isinstance(ref_state, ref_feddec.FedState)
+    assert isinstance(state, feddec.FedState) and state.step == 5
+    np.testing.assert_allclose(losses, ref_losses,
+                               rtol=1e-5 if codec == "none" else 1e-4)
+    if codec == "none" and opt != "adamw":
+        _assert_params_close(state, ref_state, 1e-5)
+    if opt == "adamw":
+        assert state.opt_state["count"].tolist() == [4] * N
+
+
+@pytest.mark.parametrize("fuse", [False, True])
+def test_flat_adamw_train_loop_returns_the_reference_fedstate(fuse):
+    """adamw on the flat engine (under --fuse-update-mix it keeps the
+    unfused path, as the reference's does): losses within 1e-5 relative;
+    the FedState returned carries the per-agent count, as the reference's
+    unflatten_fedstate gives it."""
+    fed = dict(n_agents=N, h=H, k=K, graph="ring2", gossip_impl="pallas")
+    (ref_state, ref_losses), (state, losses) = _ref_and_port(
+        fed, 6, steps=4, fused=True, optimizer="adamw", state_layout="flat",
+        fuse_update_mix=fuse)
+    np.testing.assert_allclose(losses, ref_losses, rtol=1e-5)
+    assert isinstance(state, feddec.FedState)
+    assert [p.shape for p in leaves(state.params)] == \
+        [r.shape for r in jax.tree.leaves(ref_state.params)]
+    np.testing.assert_array_equal(state.opt_state["count"].numpy(),
+                                  np.asarray(ref_state.opt_state["count"]))
+
+
+@pytest.mark.parametrize("arch,layout,fused", [
+    ("recurrentgemma-9b", "tree", False), ("mamba2-2.7b", "flat", True)])
+def test_zoo_smoke_train_loop_matches_reference_losses(arch, layout, fused):
+    """The two ported zoo configs' smoke variants train through both
+    trainers (impl 'xla'), one on each engine: 2 steps, losses within
+    1e-4 relative."""
+    from repro.configs import get_config as ref_get_config
+    from repro_torch.configs import get_config
+    fed = dict(n_agents=2, h=2, k=2, graph="ring2", gossip_impl="pallas")
+    (_, ref_losses), (state, losses) = _ref_and_port(
+        fed, 7, ref_cfg=ref_get_config(arch).smoke(),
+        port_cfg=get_config(arch).smoke(), steps=2, fused=fused,
+        state_layout=layout)
+    assert len(losses) == len(ref_losses) == 2
+    np.testing.assert_allclose(losses, ref_losses, rtol=1e-4)
+    assert isinstance(state, feddec.FedState) and state.step == 3
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "mamba2-2.7b"])
+def test_cli_trains_a_zoo_smoke_config_on_cpu(capsys, arch):
+    port_train.main(["--device", "cpu", "--steps", "2", "--agents", "2",
+                     "--batch", "1", "--seq", "16", "--h", "2", "--arch",
+                     arch, "--smoke", "--per-step"])
+    out = capsys.readouterr().out
+    assert f"[train] {arch}-smoke: " in out and "layout=tree" in out
+    assert "[train] done: loss " in out
+
+
+@pytest.mark.parametrize("argv,header", [
+    (["--state-layout", "tree"], "executor=fused, layout=tree"),
+    (["--optimizer", "adamw"], "opt=adamw"),
+    (["--gossip-compress", "int8", "--state-layout", "tree"],
+     "layout=tree, gossip=dense, compress=int8"),
+    (["--per-step"], "executor=per-step, layout=tree"),
+    (["--per-step", "--state-layout", "flat"], "per-step, layout=flat")])
+def test_cli_runs_the_tree_layout_and_adamw(capsys, argv, header):
+    """What the CLI rejected before the tree engine and adamw were ported
+    now trains; --per-step alone picks the tree engine."""
+    out = _cli_lines(capsys, argv)
+    assert header in next(line for line in out
+                          if line.startswith("[train] tiny"))
+    assert out[-1].startswith("[train] done: loss ")
+
+
+def test_cli_tree_layout_rejects_the_fused_update_mix():
+    with pytest.raises(ValueError, match="requires --state-layout flat"):
+        port_train.main(SMALL_CLI + ["--per-step", "--fuse-update-mix"])
+    with pytest.raises(ValueError, match="requires --state-layout flat"):
+        ref_train.train_loop(ref_train.tiny_lm_config(64, 1, vocab=64),
+                             RefFedConfig(n_agents=3, h=2, k=2),
+                             steps=1, per_agent_batch=1, seq_len=8,
+                             log_every=0, fused=False, fuse_update_mix=True)

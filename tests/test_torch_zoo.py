@@ -35,6 +35,7 @@ from repro.kernels import ref as ref_ref
 from repro.launch import train as ref_train
 from repro.models import build_model as ref_build_model
 from repro.models import griffin as ref_griffin
+from repro.models import ssm as ref_ssm
 from repro.models.transformer import plan_layers as ref_plan_layers
 from repro_torch.configs import get_config
 from repro_torch.core import flat as flat_lib
@@ -564,3 +565,52 @@ def test_split_p_product_keeps_f32_accuracy():
     assert np.all(np.abs(split - exact) <= bound)
     one = p_hi @ v
     assert np.abs(one - exact).max() > 16 * bound.max()
+
+
+def test_ssd_chunked_backward_is_finite_where_the_masked_decay_overflows():
+    """Above the diagonal, cum_i − cum_j = Σ Δ·|A| overflows exp at a
+    128-token chunk and |A| up to 80 (Mamba2-2.7B's heads).  The
+    reference masks after the exp, so its gradients of Δ and A are NaN
+    there; the port masks before it: the same forward (within
+    1e-5·max|y| of the reference's, the zoo's f32 rule), and gradients
+    within 1e-4·max|g| of the token recurrence's (kernels/ref.py:
+    ssd_scan_ref's arithmetic, written out of place for autograd)."""
+    rng = np.random.default_rng(0)
+    shape_b, s, h, p, n = 1, 128, 8, 4, 8
+    args = [rng.standard_normal((shape_b, s, h, p)).astype(np.float32),
+            np.full((shape_b, s, h), 0.1, np.float32),
+            -10.0 * np.arange(1, h + 1, dtype=np.float32),
+            rng.standard_normal((shape_b, s, n)).astype(np.float32),
+            rng.standard_normal((shape_b, s, n)).astype(np.float32)]
+    w = rng.standard_normal((shape_b, s, h, p)).astype(np.float32)
+
+    def ref_loss(*a):
+        return jnp.sum(ref_ssm.ssd_chunked(*a, chunk=s)[0] * w)
+
+    ref_grads = jax.grad(ref_loss, argnums=(1, 2))(*map(jnp.asarray, args))
+    assert not all(np.isfinite(np.asarray(g)).all() for g in ref_grads)
+
+    def port_grads(fn):
+        ts = [torch.tensor(a, requires_grad=True) for a in args]
+        y = fn(*ts)
+        (y * torch.from_numpy(w)).sum().backward()
+        return y.detach(), [t.grad for t in ts]
+
+    y, got = port_grads(lambda *t: ssm.ssd_chunked(*t, chunk=s)[0])
+    want_y = np.asarray(ref_ssm.ssd_chunked(*map(jnp.asarray, args),
+                                            chunk=s)[0])
+    assert np.abs(y.numpy() - want_y).max() <= 1e-5 * np.abs(want_y).max()
+    def recurrence(x, dt, a, b, c):   # ssd_scan_ref's, out of place
+        decay, xl = torch.exp(dt * a), x * dt[..., None]
+        state = torch.zeros(shape_b, h, p, n)
+        ys = []
+        for t in range(s):
+            state = state * decay[:, t, :, None, None] \
+                + xl[:, t, :, :, None] * b[:, t, None, None, :]
+            ys.append(torch.einsum("bhpn,bn->bhp", state, c[:, t]))
+        return torch.stack(ys, dim=1)
+
+    _, want = port_grads(recurrence)
+    for g, r in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert (g - r).abs().max() <= 1e-4 * r.abs().max()
