@@ -96,6 +96,20 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
      published widths with 8 of its 64 layers, 4 agents, batch 1, flat
      pallas, #1 once a step; (w) recurrentgemma-9b --smoke --per-step
      pallas, #1 × 26 a step;
+     then (4d) the delta parameterization (--delta) on the flat trainer,
+     each path with its warm-up round: (x) --delta full pallas, #1 once a
+     step, ending on path (a)'s buffer (difference 0.0) with an all-zero
+     residual; (y) --delta topk:1048576 pallas --fuse-update-mix
+     --optimizer momentum, #9 once a step, a nonzero residual, and its
+     final u = flat + residual through the top-k codec on the card equal
+     to the same call on the CPU element for element; (z) --delta
+     lowrank:8 sparse --fuse-update-mix at --d-model 256 --layers 2 (D
+     18,744,576 as (768, 24,407)), #11 once a step, within
+     LOWRANK_PATH_TOL = 1e-4·max|x| of its own run with dense gossip,
+     unfused, and its losses within 1e-5 relative (its final deltas'
+     spectra at the cut and a repeat of the path are printed); then one
+     lowrank:8 encode+decode of one full-width row (12,336 × 12,688),
+     timed, its ‖u − s‖² equal to ‖u − b‖² − Σσ² within 1e-3 relative;
      then (4b) line 4 as the engines run it, one torch.func.vmap of
      Model.grad_fn over every agent row, at full width against the
      per-row torch.autograd.grad loop: path (c)'s 8 agents and first
@@ -137,7 +151,9 @@ it on two trees in one call to compare them on one card.  ``python3
 chip_smoke.py --gap-table DIR`` prints Mamba2-2.7B's gap table of the
 package under DIR/src (its #16) as one JSON line, and ``python3
 chip_smoke.py --step-profile DIR`` path (c) alone (its warm step time and
-phase 5's profile) from the package under DIR/src.
+phase 5's profile) from the package under DIR/src, and ``python3
+chip_smoke.py --svd-timing DIR`` the low-rank codec's torch.linalg.svd at
+path (z)'s and one full-width row's shapes under each cuSOLVER driver.
 
 It prints the command's total time, one JSON line with every kernel's
 launches, errors and times, the nvidia-smi line, and as the last line
@@ -323,6 +339,32 @@ TREE_PATHS = {
     "w": ("pallas", False, "sgd", "gossip_mix", 26,
           dict(arch="recurrentgemma-9b", smoke=True, fused=False)),
 }
+# phase 4d, the delta parameterization (--delta) on the flat trainer: path
+# -> (gossip impl, fuse, optimizer, delta spec, the kernel it launches once
+# a step, train_path's options).  (z) is cut to d_model 256 and 2 layers
+# (D 18,744,576, factor_dims (768, 24,407)): an SVD of 8 full-width
+# (12,336 × 12,688) rows a step is no trainer path.
+DELTA_PATHS = {
+    "x": ("pallas", False, "sgd", "full", "gossip_mix", {}),
+    "y": ("pallas", True, "momentum", "topk:1048576", "ef_mix", {}),
+    "z": ("sparse", True, "sgd", "lowrank:8", "ef_mix_sparse",
+          dict(d_model=256, layers=2)),
+}
+# path (z) against its dense rerun, × max|x|.  Not TOL: the rank-8 cut of
+# these deltas falls inside a flat spectrum (σ_1/σ_12 ≈ 1.15 on the CPU's
+# run), so the two mixes' one-ulp differences pick other near-equal
+# directions; the card's first run ended 1.2e-5·max|x| apart (1.498e-6 at
+# max|x| 0.125), with the losses held to TOL beside it.
+LOWRANK_PATH_TOL = 1e-4
+# the full-width low-rank cost: one lowrank:8 encode+decode of one tiny-LM
+# row; ‖u − s‖² must equal ‖u − b‖² − Σ_{i≤8} σ_i² within LOWRANK_RTOL.
+# Its delta: a rank-8 part scaled by LOWRANK_SCALE (singular values near
+# 1,300, six times the unit noise's largest, near 223, so that the codec
+# must find it) plus unit noise.  An f32 SVD's σ_i err by about
+# d1·eps·σ_1 (≈ 1), which keeps the identity's error near 1e-4.
+LOWRANK_RANK = 8
+LOWRANK_SCALE = 0.1
+LOWRANK_RTOL = 1e-3
 # #1 and #2 at the widths of narrow tree leaves (D_leaf 1, 3, 80: the
 # SSM's a_log/dt_bias/d_skip at Mamba2-2.7B's 80 heads) and a ragged wide
 # one
@@ -1574,15 +1616,15 @@ def split_draws(seed: int):
     return SplitDraws()
 
 
-def path_config(arch: str, layers: int, smoke: bool):
-    """The trainer's model: the tiny LM at ``layers``, or a zoo config at
-    its published widths with its depth cut to ``layers`` (its smoke
-    variant with ``smoke``)."""
+def path_config(arch: str, layers: int, smoke: bool, d_model: int = 768):
+    """The trainer's model: the tiny LM at ``layers`` (and ``d_model``),
+    or a zoo config at its published widths with its depth cut to
+    ``layers`` (its smoke variant with ``smoke``)."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.launch import train
     if arch == "tiny":
-        return train.tiny_lm_config(layers=layers)
+        return train.tiny_lm_config(d_model=d_model, layers=layers)
     cfg = get_config(arch)
     return cfg.smoke() if smoke else dataclasses.replace(cfg,
                                                          num_layers=layers)
@@ -1594,13 +1636,16 @@ def train_path(torch, impl: str, fuse: bool, optimizer: str,
                compress: str = "none", layers: int = 12,
                arch: str = "tiny", smoke: bool = False,
                agents: int = N_AGENTS, batch: int = 2, fused: bool = True,
-               layout: str | None = None):
+               layout: str | None = None, delta: str = "none",
+               d_model: int = 768):
     """One run of the trainer; with ``sweep_axis`` the R_FULL-run lattice,
     whose whole (R, n, D) state it returns (else the FedState); ``compress``
-    is the gossip codec (--gossip-compress), ``layers`` the depth
-    (--layers), ``arch``/``smoke`` the model (--arch, --smoke), ``fused``
-    False the one-step executor (--per-step) and ``layout`` the state
-    layout (--state-layout; None: the trainer's default)."""
+    is the gossip codec (--gossip-compress), ``delta`` the delta
+    parameterization (--delta), ``layers`` and ``d_model`` the depth and
+    width (--layers, --d-model), ``arch``/``smoke`` the model (--arch,
+    --smoke), ``fused`` False the one-step executor (--per-step) and
+    ``layout`` the state layout (--state-layout; None: the trainer's
+    default)."""
     from repro_torch.configs.base import FedConfig
     from repro_torch.launch import train
     # what earlier phases left to the garbage collector goes first, so
@@ -1611,9 +1656,9 @@ def train_path(torch, impl: str, fuse: bool, optimizer: str,
     sweep = dict(draws=split_draws(0)) if sweep_axis is None else dict(
         sweep_runs=R_FULL, sweep_axis=sweep_axis, keep_lattice=True)
     state, losses = train.train_loop(
-        path_config(arch, layers, smoke),
+        path_config(arch, layers, smoke, d_model),
         FedConfig(n_agents=agents, h=10, k=2, graph=graph, p_fail=p_fail,
-                  gossip_impl=impl, gossip_compress=compress),
+                  gossip_impl=impl, gossip_compress=compress, delta=delta),
         steps=steps, per_agent_batch=batch, seq_len=128, optimizer=optimizer,
         fuse_update_mix=fuse, fused=fused, state_layout=layout, seed=0,
         device=DEVICE, timing=timing, **sweep)
@@ -1649,9 +1694,10 @@ def warm_up(torch, impl: str, fuse: bool, optimizer: str, **kw) -> int:
     return train_path(torch, impl, fuse, optimizer, **kw)[3]
 
 
-def dense_rerun(torch, name: str, final, **kw) -> dict:
+def dense_rerun(torch, name: str, final, tol: float = TOL, **kw) -> dict:
     """Path ``name`` again with the plain dense mix: the same seed must end
-    on the same flat (or lattice) buffer, within f32 noise."""
+    on the same flat (or lattice) buffer, within ``tol``·max|x| (f32
+    noise: TOL)."""
     from repro_torch.kernels import ops
     warm_up(torch, "dense", False, "sgd", **kw)
     ops.reset_launch_counts()
@@ -1661,15 +1707,15 @@ def dense_rerun(torch, name: str, final, **kw) -> dict:
           "dense gossip launched a kernel")
     err = (flat_of(torch, state) - final).abs().max().item()
     scale = final.abs().max().item()
-    check(err <= TOL * scale,
+    check(err <= tol * scale,
           f"path ({name}) kernel vs dense final buffers differ: {err:.3e} > "
-          f"{TOL}·{scale:.3e}")
+          f"{tol}·{scale:.3e}")
     out = {"impl": "dense", "losses": losses,
            "step_ms": 1e3 * timing["loop_s"] / STEPS, "peak_bytes": peak,
-           "max_abs_diff": err, "scale": scale}
+           "max_abs_diff": err, "scale": scale, "tol": tol}
     log(f"[train] path ({name}) with dense gossip: step "
         f"{out['step_ms']:.1f} ms, peak {peak / 1e9:.2f} GB, final buffer "
-        f"within {err:.3e} of the kernel run (limit {TOL}·{scale:.3e})")
+        f"within {err:.3e} of the kernel run (limit {tol}·{scale:.3e})")
     return out
 
 
@@ -1764,8 +1810,8 @@ def training_phase(torch) -> tuple:
 def check_residual(torch, name: str, state, out: dict, twin: str = "",
                    twin_final=None) -> None:
     """A lossy codec's run leaves a finite, nonzero residual; a lossless
-    one (identity) ends on its uncompressed twin's buffer ``twin_final``
-    (difference 0.0) with an all-zero residual."""
+    one (identity, the full delta) ends on its uncompressed twin's buffer
+    ``twin_final`` (difference 0.0) with an all-zero residual."""
     res_max = flat_of(torch, state, residual=True).abs().max().item()
     out["residual_max_abs"] = res_max
     check(math.isfinite(res_max), f"path ({name}): non-finite residual")
@@ -1778,7 +1824,7 @@ def check_residual(torch, name: str, state, out: dict, twin: str = "",
     del final
     out[f"max_abs_diff_to_{twin}"] = diff
     check(diff == 0.0 and res_max == 0.0,
-          f"path ({name}): identity codec ends {diff:.3e} from path "
+          f"path ({name}): lossless codec ends {diff:.3e} from path "
           f"({twin}), residual max {res_max:.3e} (both must be 0)")
     log(f"[train] path ({name}) ends on path ({twin})'s buffer (difference "
         f"{diff}), residual all zero")
@@ -1825,6 +1871,188 @@ def tree_phase(torch, a_final) -> dict:
             del final
         del state
         torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 4d: the delta parameterization (--delta)
+# ---------------------------------------------------------------------------
+
+
+def initial_row(torch, **kw) -> "torch.Tensor":
+    """The trainer's initial row z^1 for train_path's options ``kw`` (the
+    base row of its delta): a 0-step run of the same seed and draws,
+    whose buffer holds z^1 in every row."""
+    state = train_path(torch, "dense", False, "sgd", steps=0, **kw)[0]
+    row = flat_of(torch, state)[0].clone()
+    del state
+    return row
+
+
+def delta_codec_check(torch, name: str, u, spec_str: str, base) -> dict:
+    """Path ``name``'s final u through its delta codec (base row ``base``)
+    on the card and on the CPU: the decoded rows must be equal element
+    for element.  u is freed on the card before the CPU's call."""
+    from repro_torch.core import delta as delta_lib
+    d = u.shape[1]
+    codec = delta_lib.make_delta_codec(spec_str, base)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s = codec.decode(codec.encode(None, u), u.dtype, d)
+    torch.cuda.synchronize()
+    card_ms = 1e3 * (time.perf_counter() - t0)
+    s_card, u_cpu = s.cpu(), u.cpu()
+    del s, u
+    cpu_codec = delta_lib.make_delta_codec(spec_str, base.cpu())
+    t0 = time.perf_counter()
+    s_cpu = cpu_codec.decode(cpu_codec.encode(None, u_cpu), u_cpu.dtype, d)
+    cpu_ms = 1e3 * (time.perf_counter() - t0)
+    differ = int((s_card != s_cpu).sum())
+    moved = int((s_card != base.cpu()[None]).sum())
+    check(differ == 0,
+          f"path ({name}): the {spec_str} codec on the card differs from "
+          f"the CPU's in {differ} elements")
+    out = {"codec": spec_str, "elements": s_cpu.numel(), "differ": differ,
+           "kept_nonzero": moved, "card_ms": card_ms, "cpu_ms": cpu_ms}
+    log(f"[delta] path ({name}) final u through {spec_str} on the card and "
+        f"the CPU: {differ} of {s_cpu.numel():,} elements differ, "
+        f"{moved:,} off the base; card {card_ms:.1f} ms (host clock), CPU "
+        f"{cpu_ms:.1f} ms")
+    return out
+
+
+def lowrank_cost(torch) -> dict:
+    """One lowrank:8 encode+decode of one full-width tiny-LM row (D_FULL,
+    the (12,336, 12,688) reshape) on the card, timed (host clock,
+    synchronized) after a small SVD has set the solver up, on a delta of
+    rank 8 (LOWRANK_SCALE) plus unit noise; ‖u − s‖²_F must equal
+    ‖u − b‖²_F − Σ_{i≤8} σ_i² (σ_i: the norms of the payload's U·Σ
+    columns) within LOWRANK_RTOL."""
+    from repro_torch.core import delta as delta_lib
+    d1, d2 = delta_lib.factor_dims(D_FULL)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(21)
+    b = torch.randn(D_FULL, device=DEVICE, generator=gen)
+    u = torch.randn(d1, LOWRANK_RANK, device=DEVICE, generator=gen) @ \
+        torch.randn(LOWRANK_RANK, d2, device=DEVICE, generator=gen)
+    u = u.view(1, -1).mul_(LOWRANK_SCALE).add_(b).add_(
+        torch.randn(D_FULL, device=DEVICE, generator=gen))
+    codec = delta_lib.make_delta_codec(f"lowrank:{LOWRANK_RANK}", b)
+    torch.linalg.svd(torch.randn(1, 64, 96, device=DEVICE),
+                     full_matrices=False)
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    payload = codec.encode(None, u)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    s = codec.decode(payload, u.dtype, D_FULL)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated()
+    err2 = torch.sub(u, s).double().square().sum().item()
+    dev2 = torch.sub(u, b).double().square().sum().item()
+    sig2 = payload["u"].double().square().sum().item()
+    rel = abs(err2 - (dev2 - sig2)) / err2
+    check(rel <= LOWRANK_RTOL,
+          f"[delta] lowrank:{LOWRANK_RANK} at D={D_FULL}: ‖u − s‖² "
+          f"{err2:.6e} against ‖u − b‖² − Σσ² {dev2 - sig2:.6e} "
+          f"(relative {rel:.3e} > {LOWRANK_RTOL})")
+    out = {"d": D_FULL, "dims": [d1, d2], "rank": LOWRANK_RANK,
+           "encode_ms": 1e3 * (t1 - t0), "decode_ms": 1e3 * (t2 - t1),
+           "peak_bytes": peak, "err2": err2, "dev2": dev2, "sig2": sig2,
+           "rel_err": rel}
+    log(f"[delta] lowrank:{LOWRANK_RANK} encode+decode of one row, D="
+        f"{D_FULL:,} as ({d1:,} × {d2:,}): encode (SVD) "
+        f"{out['encode_ms']:.1f} ms, decode {out['decode_ms']:.1f} ms "
+        f"(host clock, synchronized), peak {peak / 1e9:.2f} GB; ‖u − s‖² "
+        f"{err2:.6e} = ‖u − b‖² − Σσ² {dev2 - sig2:.6e} (relative "
+        f"{rel:.3e}, limit {LOWRANK_RTOL})")
+    return out
+
+
+def lowrank_spread(torch, name, impl, fuse, opt, delta, final, residual,
+                   kw) -> dict:
+    """What makes a low-rank path's trajectory sensitive: the spectra of
+    its final deltas u − b at the truncation (σ_1, σ_R, σ_{R+1} per
+    agent) and the path run once more (is it deterministic?)."""
+    from repro_torch.core import delta as delta_lib
+    spec = delta_lib.parse_delta(delta)
+    d1, d2 = delta_lib.factor_dims(final.shape[1])
+    base = initial_row(torch, **kw)
+    sig = torch.linalg.svdvals(torch.add(final, residual).sub_(base).view(
+        final.shape[0], d1, d2))[:, :spec.rank + 1].cpu()
+    del base
+    gaps = (sig[:, spec.rank - 1] - sig[:, spec.rank]) \
+        / sig[:, spec.rank - 1]
+    worst = int(gaps.argmin())
+    gap = gaps[worst].item()
+    again = flat_of(torch, train_path(torch, impl, fuse, opt, delta=delta,
+                                      **kw)[0])
+    repeat = (again - final).abs().max().item()
+    del again
+    out = {"d": final.shape[1], "dims": [d1, d2],
+           "sigma_1": sig[:, 0].tolist(),
+           "sigma_r": sig[:, spec.rank - 1].tolist(),
+           "sigma_r1": sig[:, spec.rank].tolist(),
+           "min_rel_gap": gap, "repeat_max_abs_diff": repeat}
+    log(f"[delta] path ({name}): D={final.shape[1]:,} as ({d1:,} × "
+        f"{d2:,}); the final deltas' smallest relative gap at the cut is "
+        f"agent {worst}'s, {gap:.3e} (σ_1 {sig[worst, 0].item():.4e}, "
+        f"σ_{spec.rank} {sig[worst, spec.rank - 1].item():.4e}, "
+        f"σ_{spec.rank + 1} {sig[worst, spec.rank].item():.4e}); the path "
+        f"again ends {repeat!r} from itself")
+    return out
+
+
+def delta_phase(torch, a_final) -> dict:
+    """Paths (x)-(z) (DELTA_PATHS), each through run_path: (x), the full
+    delta, must end on path (a)'s buffer ``a_final`` (difference 0.0)
+    with an all-zero residual; (y) and (z) leave a nonzero residual;
+    (y)'s final u = flat + residual through its top-k codec on the card
+    must equal the CPU's element for element; (z) must end within
+    LOWRANK_PATH_TOL·max|x| of its own run with the plain dense mix,
+    unfused, with losses within TOL relative.  Then the full-width
+    low-rank cost (lowrank_cost)."""
+    from repro_torch.core import delta as delta_lib
+    out = {}
+    for name, (impl, fuse, opt, delta, kernel, kw) in DELTA_PATHS.items():
+        state, out[name] = run_path(torch, name, impl, fuse, opt, kernel,
+                                    delta=delta, **kw)
+        lossless = delta_lib.parse_delta(delta).is_lossless
+        check_residual(torch, name, state, out[name],
+                       *(("a", a_final) if lossless else ()))
+        if name == "y":
+            u = flat_of(torch, state) + flat_of(torch, state, residual=True)
+            del state
+            out["y_codec"] = delta_codec_check(torch, name, u, delta,
+                                               initial_row(torch, **kw))
+            del u
+        elif name == "z":
+            final = flat_of(torch, state)
+            residual = flat_of(torch, state, residual=True)
+            del state
+            out[name].update(lowrank_spread(
+                torch, name, impl, fuse, opt, delta, final, residual, kw))
+            del residual
+            out["z_dense"] = dense_rerun(torch, name, final,
+                                         tol=LOWRANK_PATH_TOL, delta=delta,
+                                         **kw)
+            loss_err = max(abs(a - b) / abs(b) for a, b in zip(
+                out["z_dense"]["losses"], out[name]["losses"]))
+            out["z_dense"]["loss_rel_diff"] = loss_err
+            check(loss_err <= TOL,
+                  f"path (z) kernel vs dense losses differ: {loss_err:.3e} "
+                  f"relative > {TOL}")
+            log(f"[delta] path (z) with dense gossip: losses within "
+                f"{loss_err:.3e} relative (limit {TOL})")
+            del final
+        else:
+            del state
+        torch.cuda.empty_cache()
+    out["lowrank_full_width"] = lowrank_cost(torch)
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2398,6 +2626,42 @@ def mix_timing(torch) -> dict:
     return out
 
 
+# the low-rank codec's SVDs: path (z)'s batch and one full-width row
+SVD_SHAPES = [(8, 768, 24_407), (1, 12_336, 12_688)]
+SVD_DRIVERS = [None, "gesvd", "gesvdj"]
+
+
+def svd_timing(torch) -> dict:
+    """torch.linalg.svd (full_matrices=False, f32), the low-rank codec's
+    call, at SVD_SHAPES under each cuSOLVER driver (None: PyTorch's
+    choice, which the codec takes), one timed call each (host clock,
+    synchronized) after a small SVD has set the solver up, on a rank-8
+    matrix plus unit noise: the --svd-timing mode."""
+    torch.linalg.svd(torch.randn(1, 64, 96, device=DEVICE),
+                     full_matrices=False)
+    out = {}
+    gen = torch.Generator(device=DEVICE)
+    for shape in SVD_SHAPES:
+        gen.manual_seed(0)
+        r, d1, d2 = shape
+        m = torch.randn(r, d1, LOWRANK_RANK, device=DEVICE, generator=gen) \
+            @ torch.randn(r, LOWRANK_RANK, d2, device=DEVICE, generator=gen)
+        m.add_(torch.randn(shape, device=DEVICE, generator=gen))
+        for driver in SVD_DRIVERS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sig = torch.linalg.svd(m, full_matrices=False, driver=driver)[1]
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            key = f"{r}x{d1}x{d2}/{driver or 'default'}"
+            out[key] = {"ms": ms, "sigma": sig[0, :LOWRANK_RANK + 1].tolist()}
+            log(f"[svd] {key}: {ms:.1f} ms, σ_1..σ_9 "
+                f"{[round(v, 4) for v in out[key]['sigma']]}")
+            del sig
+        del m
+    return out
+
+
 def step_profile(torch) -> dict:
     """Path (c) alone: its warm step time (run_path) and its profile, for
     ``--step-profile DIR``."""
@@ -2414,11 +2678,13 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     # python3 chip_smoke.py --mix-timing DIR: only mix_timing,
-    # --gap-table DIR: only mamba2_gap_table, and --step-profile DIR: only
-    # step_profile, on the package under DIR/src
+    # --gap-table DIR: only mamba2_gap_table, --step-profile DIR: only
+    # step_profile, and --svd-timing DIR: only svd_timing, on the package
+    # under DIR/src
     modes = {"--mix-timing": (mix_timing, "ms"),
              "--gap-table": (mamba2_gap_table, "gap_table"),
-             "--step-profile": (step_profile, "path_c")}
+             "--step-profile": (step_profile, "path_c"),
+             "--svd-timing": (svd_timing, "svd")}
     mode = sys.argv[1] if sys.argv[1:2] and sys.argv[1] in modes else None
     src = Path(sys.argv[2]).resolve() / "src" if mode else ROOT / "src"
     sys.path.insert(0, str(src))
@@ -2465,8 +2731,11 @@ def main() -> int:
     log(f"[train] phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     tree_paths = tree_phase(torch, a_final)
-    del a_final
     log(f"[tree] phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    delta_paths = delta_phase(torch, a_final)
+    del a_final
+    log(f"[delta] phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     f64_paths = f64_path_phase(torch)
     log(f"[f64] phase {time.perf_counter() - t0:.1f} s")
@@ -2518,12 +2787,14 @@ def main() -> int:
             line[-1]["passes_ms"] = main_variant["passes_ms"]
         if "mamba2_flat" in kernels[kernel]:
             line[-1]["mamba2_flat"] = kernels[kernel]["mamba2_flat"]
-        if kernel in ("gossip_mix", "gossip_mix_sparse"):
-            # #1 and #2 on every path that runs them: once a step on the
-            # flat buffer, once per leaf a step on the tree
+        if kernel in ("gossip_mix", "gossip_mix_sparse", "ef_mix",
+                      "ef_mix_sparse"):
+            # #1, #2, #9 and #11 on every path that runs them: once a step
+            # on the flat buffer (the delta paths too), once per leaf a
+            # step on the tree
             line[-1]["launches_by_path"] = {
                 name: p["launches"] for name, p in
-                {**training, **tree_paths}.items()
+                {**training, **tree_paths, **delta_paths}.items()
                 if p.get("kernel") == kernel}
     total_s = time.perf_counter() - T_START
     log(f"[smoke] total {total_s:.1f} s (build included)")
@@ -2531,7 +2802,8 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"device": name, "nvidia_smi": smi, "kernels": line,
-         "training": training, "tree_paths": tree_paths, "grads": grads,
+         "training": training, "tree_paths": tree_paths,
+         "delta_paths": delta_paths, "grads": grads,
          "f64_paths": f64_paths,
          "profile": profile, "models": models, "paper": paper,
          "total_s": total_s},

@@ -140,3 +140,7 @@ class FedConfig:
     # gossip payload compression with error feedback (core/compress.py):
     # none | identity | bf16 | int8 | topk:R
     gossip_compress: str = "none"
+    # delta parameterization of the agent state (core/delta.py):
+    # none | full | topk:K | lowrank:R, mutually exclusive with
+    # gossip_compress; 'full' is lossless
+    delta: str = "none"

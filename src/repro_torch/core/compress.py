@@ -52,7 +52,8 @@ import torch
 from repro_torch.tree import build_tree, sorted_leaves, tree_map
 
 __all__ = ["Compressor", "IdentityCompressor", "Bf16Compressor",
-           "Int8Compressor", "TopKCompressor", "parse_compress",
+           "Int8Compressor", "TopKCompressor", "top_k_mask",
+           "parse_compress",
            "COMPRESS_CHOICES", "init_residual", "init_residual_tree",
            "encode_compensated", "make_flat_ef_gossip",
            "make_tree_ef_gossip", "make_fused_ef_gossip"]
@@ -148,14 +149,35 @@ class Int8Compressor(Compressor):
         return float(d) + 4.0  # int8 payload + one f32 scale
 
 
+def top_k_mask(u: torch.Tensor, k: int) -> torch.Tensor:
+    """(n, d) bool: the k entries of largest magnitude (in f32) of each
+    row, the set ``jax.lax.top_k`` keeps: every entry above the k-th
+    largest magnitude, then the entries equal to it in column order.
+    ``torch.topk`` promises no order among ties, so it only finds that
+    threshold."""
+    mag = u.float().abs()
+    top = torch.topk(mag, k, dim=1, sorted=False).values
+    thr = top.amin(dim=1, keepdim=True)   # the k-th largest magnitude
+    del top
+    keep = mag > thr
+    need = k - keep.sum(dim=1)            # ties at thr still to take
+    rows, cols = torch.nonzero(mag == thr, as_tuple=True)
+    del mag
+    # rank of each tie within its row (nonzero lists them row-major)
+    counts = torch.bincount(rows, minlength=u.shape[0])
+    start = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(rows.numel(), device=u.device) - start[rows]
+    take = rank < need[rows]
+    keep[rows[take], cols[take]] = True
+    return keep
+
+
 @dataclasses.dataclass(frozen=True)
 class TopKCompressor(Compressor):
     """Magnitude top-k: keep ⌈R·d⌉ entries per row, ties by lower index.
 
-    The kept set is the one ``jax.lax.top_k`` keeps: every entry above the
-    k-th largest magnitude, then the entries equal to it in column order.
-    ``torch.topk`` promises no order among ties, so it only finds that
-    threshold.  The payload lists each row's indices in ascending order
+    The kept set is the one ``jax.lax.top_k`` keeps (:func:`top_k_mask`).
+    The payload lists each row's indices in ascending order
     (the reference lists them by magnitude; the set is the same).  A
     lattice's rows are selected as the rows of its (R·n, d) view.
     """
@@ -168,22 +190,7 @@ class TopKCompressor(Compressor):
 
     def keep_mask(self, u: torch.Tensor) -> torch.Tensor:
         """(n, d) bool: the k kept entries of each row."""
-        mag = u.float().abs()
-        k = self.k_of(u.shape[1])
-        top = torch.topk(mag, k, dim=1, sorted=False).values
-        thr = top.amin(dim=1, keepdim=True)   # the k-th largest magnitude
-        del top
-        keep = mag > thr
-        need = k - keep.sum(dim=1)            # ties at thr still to take
-        rows, cols = torch.nonzero(mag == thr, as_tuple=True)
-        del mag
-        # rank of each tie within its row (nonzero lists them row-major)
-        counts = torch.bincount(rows, minlength=u.shape[0])
-        start = torch.cumsum(counts, 0) - counts
-        rank = torch.arange(rows.numel(), device=u.device) - start[rows]
-        take = rank < need[rows]
-        keep[rows[take], cols[take]] = True
-        return keep
+        return top_k_mask(u, self.k_of(u.shape[1]))
 
     def encode(self, noise, u):
         rows = u.reshape(-1, u.shape[-1])

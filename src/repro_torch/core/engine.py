@@ -1,7 +1,17 @@
-"""The shared Algorithm-1 step body and the gossip dispatcher
-(repro/core/engine.py, for the tree, flat and lattice layouts on one
-device).
+"""The engine dispatcher, the shared Algorithm-1 step body and the gossip
+dispatcher (repro/core/engine.py, for the tree, flat and lattice layouts
+on one device).
 
+  * :class:`EngineSpec` + :func:`parse_engine_spec` — one point of the
+    (layout × run-batch × shards × delta × fused update+mix) lattice,
+    validated with the reference's messages.
+  * :func:`make_engine_step` / :func:`make_engine_round` — lower a spec to
+    its executor: the tree engine (core/feddec.py), the flat engine
+    (core/flat.py) or the sweep lattice (core/sweep.py).  The per-engine
+    makers (``make_feddec_*``, ``make_flat_feddec_*``,
+    ``make_sweep_feddec_*``, ``make_fedavg_*``) are shims over them.  The
+    sharded lowerings (a mesh, ``n_shards`` or ``n_model_shards`` > 1)
+    are not ported and raise NotImplementedError.
   * :class:`EngineOps` + :func:`build_step_body` — the one step order:
     η_t → sample W^t (line 3) → local update (lines 4–5) → gossip (line 6,
     compressed with error feedback when a codec is configured) → periodic
@@ -25,8 +35,9 @@ batched over every agent row of the buffer (``flat.grads_of``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Any, Callable
 
+import numpy as np
 import torch
 # torch.func imports torch._dynamo at its first call, and that import
 # leaves reference cycles that hold the frames on the stack at that
@@ -38,10 +49,10 @@ import torch._dynamo  # noqa: F401
 from repro_torch.core import gossip as gossip_lib
 
 __all__ = ["GradFn", "value_and_grad", "GOSSIP_IMPLS", "LAYOUTS",
-           "EngineOps",
-           "build_step_body",
-           "make_loop_round", "resolve_gossip", "check_gossip_impl",
-           "unknown_gossip_impl"]
+           "EngineSpec", "EngineOps", "parse_engine_spec",
+           "build_step_body", "make_loop_round", "resolve_gossip",
+           "check_gossip_impl", "unknown_gossip_impl",
+           "model_axis_conflict", "make_engine_step", "make_engine_round"]
 
 # Line 4 for ONE agent: (params, batch) -> (loss, grads), params a dict of
 # tensors, grads in params' layout, loss a 0-d tensor.  The engines call it
@@ -88,6 +99,14 @@ def check_gossip_impl(impl: str) -> str:
     return impl
 
 
+def model_axis_conflict(feature: str) -> ValueError:
+    """THE model-axis incompatibility error — identical from every entry
+    point (repro/core/engine.py:109-116)."""
+    return ValueError(
+        f"model-axis sharding (n_model_shards > 1 / --mesh-model) does "
+        f"not compose with {feature}; use n_model_shards=1")
+
+
 def resolve_gossip(source, layout: str = "flat") -> Callable:
     """gossip_impl → the mixing fn of one engine layout.
 
@@ -107,15 +126,18 @@ def resolve_gossip(source, layout: str = "flat") -> Callable:
       'none'   identity (FedAvg).
     layout 'sweep': (w (R, n, n), x (R, n, D)) -> (R, n, D), ``source`` a
     SweepPlan (repro/core/engine.py:177-200):
-      'dense'  one batched f32 matrix product;
+      'dense'  one batched matrix product;
       'pallas' kernel #5 (kernels.ops.gossip_mix_batched), one launch;
       'sparse' the stacked-ELL kernel #6 when 0 < max_deg <= ELL_MAX_DEG,
                else the plain stacked-ELL mix;
       'none'   identity (an all-FedAvg lattice).
     The kernels (and their plain versions on the CPU) load and store the
     buffer's dtype, f32 or f64, and sum the mix in f32, as the reference's
-    kernels do; 'dense', the CSR gather and the plain ELL mixes compute in
-    the buffer's dtype, as the reference's plain mixes do.
+    kernels do.  'dense', the CSR gather and the plain stacked ELL round W
+    to the buffer's dtype first and mix in that dtype, as the reference's
+    plain mixes do (repro/core/gossip.py:60, :205; core/engine.py:157,
+    :182); a bf16 buffer's dense product is summed in f32 and rounded
+    once, as XLA sums it.
     """
     if layout not in LAYOUTS + ("sweep",):
         raise ValueError(f"engine layout {layout!r} is not ported; the "
@@ -228,3 +250,264 @@ def make_loop_round(step, metrics_fn=None):
         return state, stacked
 
     return round_fn
+
+
+# ---------------------------------------------------------------------------
+# EngineSpec: the configuration lattice
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineSpec:
+    """One point of the (layout × run-batch × shards × delta × fused
+    update+mix) lattice (repro/core/engine.py:372-450).
+
+    Attributes:
+      configs: one FedDecConfig per run; len > 1 is a sweep lattice.
+      layout: 'tree' (the stacked dict, one run) or 'flat' (the (n, D)
+        buffer that runs batch over).
+      n_shards / axis_name: agent-axis shards and their mesh axis.
+      n_model_shards / model_axis: model-axis shards per agent row.
+        Parsed as the reference parses them; lowering either above 1 is
+        not ported.
+      t_steps: optional per-run step budgets (sweep freeze masking).
+      force_run_axis: keep the run axis for a single run (the sweep
+        makers' R = 1 plans).
+      delta: the configs' shared delta parameterization (core/delta.py):
+        'none' | 'full' | 'topk:K' | 'lowrank:R'; non-'none' lowers on the
+        single-run flat engine only.
+      fuse_update_mix: run lines 5–6 as one fused pass (flat / sweep).
+    """
+
+    configs: tuple
+    layout: str = "flat"
+    n_shards: int = 1
+    axis_name: Any = "agents"
+    t_steps: tuple | None = None
+    force_run_axis: bool = False
+    delta: str = "none"
+    n_model_shards: int = 1
+    model_axis: Any = "model"
+    fuse_update_mix: bool = False
+
+    @property
+    def cfg(self):
+        return self.configs[0]
+
+    @property
+    def r_runs(self) -> int:
+        return len(self.configs)
+
+    @property
+    def has_run_axis(self) -> bool:
+        return self.r_runs > 1 or self.force_run_axis
+
+    @property
+    def is_sharded(self) -> bool:
+        return self.n_shards > 1
+
+    @property
+    def is_model_sharded(self) -> bool:
+        return self.n_model_shards > 1
+
+    def plan(self):
+        """The validated SweepPlan of this spec's run lattice."""
+        from repro_torch.core import sweep as sweep_lib
+        t = None if self.t_steps is None else np.asarray(self.t_steps,
+                                                         np.int32)
+        return sweep_lib.make_sweep_plan(self.configs, t_steps=t)
+
+
+def parse_engine_spec(configs, layout: str = "flat", n_shards: int = 1,
+                      axis_name="agents", t_steps=None,
+                      force_run_axis: bool = False, n_model_shards: int = 1,
+                      model_axis="model",
+                      fuse_update_mix: bool = False) -> EngineSpec:
+    """Validate and freeze an EngineSpec (repro/core/engine.py:453-548),
+    with the reference's checks and messages.
+
+    ``configs`` is one FedDecConfig or an iterable of them.  Parsing is
+    pure validation: a sharded spec parses as in the reference, and only
+    its lowering is not ported.
+    """
+    if hasattr(configs, "gossip_impl"):  # a single config
+        configs = (configs,)
+    configs = tuple(configs)
+    if not configs:
+        raise ValueError("engine spec needs at least one run config")
+    if layout not in LAYOUTS:
+        raise ValueError(f"unknown engine layout {layout!r}; choose from "
+                         f"{'|'.join(LAYOUTS)}")
+    if layout == "tree":
+        if len(configs) > 1 or force_run_axis:
+            raise ValueError("layout 'tree' lowers a single run; use "
+                             "layout='flat' for sweep lattices")
+        if n_shards > 1:
+            raise ValueError("layout 'tree' does not shard the agent axis; "
+                             "use layout='flat' with a mesh")
+    n = configs[0].n_agents
+    if n_shards < 1 or n % n_shards:
+        raise ValueError(f"n_agents={n} must be divisible by the agent axis "
+                         f"size {n_shards} (block-sharded rows)")
+    if t_steps is not None:
+        t_steps = tuple(int(t) for t in np.asarray(t_steps).reshape(-1))
+    delta = getattr(configs[0], "delta", "none")
+    if any(getattr(c, "delta", "none") != delta for c in configs):
+        raise ValueError("all runs of an engine lattice must share one "
+                         "delta parameterization")
+    if delta != "none":
+        if layout == "tree":
+            raise ValueError(
+                "delta parameterization needs the flat (n, D) layout — the "
+                "base row and encoded payloads are whole-buffer objects; "
+                "use layout='flat'")
+        if len(configs) > 1 or force_run_axis:
+            raise ValueError(
+                "delta parameterization is single-run: the sweep lattice "
+                "shares one state buffer per run and does not thread the "
+                "per-run base rows")
+        if n_shards > 1:
+            raise ValueError(
+                "delta parameterization lowers on the single-device flat "
+                "engine (the sharded halo exchanges dense row blocks); "
+                "use n_shards=1 or delta='none'")
+    if n_model_shards < 1:
+        raise ValueError(f"n_model_shards must be >= 1, got {n_model_shards}")
+    if n_model_shards > 1:
+        if layout == "tree":
+            raise model_axis_conflict(
+                "layout 'tree' (the pytree engine has no flat buffer to "
+                "column-shard)")
+        if len(configs) > 1 or force_run_axis:
+            raise model_axis_conflict(
+                "sweep lattices (--sweep-runs) until the composition lands")
+        if delta != "none":
+            raise model_axis_conflict("delta parameterization (--delta)")
+        c0 = configs[0]
+        if (getattr(c0, "gossip_compress", "none").startswith("topk")
+                and c0.gossip_impl != "none"):
+            raise model_axis_conflict(
+                "topk gossip compression (the payload indices address the "
+                "full D axis)")
+    if fuse_update_mix:
+        if layout == "tree":
+            raise ValueError(
+                "fuse_update_mix needs the flat (n, D) buffer layout — the "
+                "update+mix kernels tile one contiguous buffer; use "
+                "layout='flat'")
+        if n_shards > 1:
+            raise ValueError(
+                "fuse_update_mix is single-device: the sharded engine "
+                "overlaps its halo with interior compute instead "
+                "(core/sharded.py); use n_shards=1")
+        if n_model_shards > 1:
+            raise model_axis_conflict("fuse_update_mix (--fuse-update-mix)")
+    spec = EngineSpec(configs=configs, layout=layout, n_shards=n_shards,
+                      axis_name=axis_name, t_steps=t_steps,
+                      force_run_axis=force_run_axis, delta=delta,
+                      n_model_shards=n_model_shards, model_axis=model_axis,
+                      fuse_update_mix=fuse_update_mix)
+    if spec.has_run_axis or t_steps is not None:
+        spec.plan()  # full lattice validation (raises on bad combinations)
+    return spec
+
+
+# ---------------------------------------------------------------------------
+# Lowering dispatch: EngineSpec -> executor
+# ---------------------------------------------------------------------------
+
+
+def _dispatch(espec: EngineSpec, flat_spec, mesh) -> str:
+    """'tree', 'flat' or 'sweep' (repro/core/engine.py:555-569); the
+    sharded lowerings are not ported."""
+    if espec.layout == "tree":
+        return "tree"
+    if flat_spec is None:
+        raise ValueError("flat layouts need a FlatSpec (flat.make_flat_spec)")
+    if espec.is_sharded or espec.is_model_sharded or mesh is not None:
+        kind = "sharded_sweep" if espec.has_run_axis \
+            and not espec.is_model_sharded else "sharded"
+        raise NotImplementedError(
+            f"the '{kind}' lowering (a device mesh, n_shards > 1 or "
+            f"n_model_shards > 1) is not ported to repro_torch yet; see "
+            f"ROADMAP.md Queue A item 6 (multi-GPU sharding)")
+    return "sweep" if espec.has_run_axis else "flat"
+
+
+def _lower_step(espec: EngineSpec, grad_fn: GradFn, lr_fn, device,
+                flat_spec, mesh, gossip_fn, optimizer, delta_base,
+                per_step_keys: bool = False):
+    """The one-iteration executor of a spec, after the reference's checks
+    in the reference's order."""
+    kind = _dispatch(espec, flat_spec, mesh)
+    if kind == "sweep" and gossip_fn is not None:
+        raise ValueError("gossip_fn overrides are single-run only")
+    if kind in ("tree", "flat") and per_step_keys:
+        raise ValueError("per_step_keys needs a run axis (sweep lowering)")
+    if delta_base is not None and espec.delta == "none":
+        raise ValueError("delta_base was passed but the spec has "
+                         "delta='none'")
+    if espec.fuse_update_mix and kind not in ("flat", "sweep"):
+        raise ValueError(
+            "fuse_update_mix lowers on the flat / sweep engines only; the "
+            f"'{kind}' lowering was selected (drop the mesh or the flag)")
+    if per_step_keys:
+        raise ValueError("per_step_keys (a (T, R) key array per round) is "
+                         "not ported as a key table: pass a "
+                         "repro_torch.core.draws.RoundDraws as the draws, "
+                         "which re-keys every run at each of its server "
+                         "rounds")
+    device = torch.device(device)
+    if kind == "tree":
+        from repro_torch.core import feddec
+        ops = feddec._tree_ops(espec.cfg, grad_fn, lr_fn, gossip_fn,
+                               optimizer, device)
+    elif kind == "flat":
+        from repro_torch.core import flat as flat_lib
+        ops = flat_lib._flat_ops(espec.cfg, flat_spec, grad_fn, lr_fn,
+                                 gossip_fn, optimizer, device,
+                                 delta_base=delta_base,
+                                 fuse_update_mix=espec.fuse_update_mix)
+    else:
+        from repro_torch.core import sweep as sweep_lib
+        ops = sweep_lib._sweep_ops(espec.plan(), flat_spec, grad_fn, lr_fn,
+                                   optimizer, device,
+                                   fuse_update_mix=espec.fuse_update_mix)
+    return build_step_body(ops)
+
+
+def make_engine_step(espec: EngineSpec, grad_fn: GradFn, lr_fn, *, device,
+                     flat_spec=None, mesh=None, gossip_fn=None,
+                     optimizer=None, delta_base=None):
+    """Lower an EngineSpec to its one-iteration executor
+    (repro/core/engine.py:648-690): step(state, batch, draws) -> (state,
+    metrics), the state donated (updated in place and returned).
+
+    ``device`` is where the state lives (W^t and η are made there).
+    ``delta_base`` is the (D,) base row of a ``delta != 'none'`` spec
+    (zeros by default).  The reference's ``jit``, ``donate``, ``unroll``
+    and ``block_d`` are not taken: the port's executors run eagerly, one
+    op after another, always donate their input state, and its kernels
+    choose their own tiles.
+    """
+    return _lower_step(espec, grad_fn, lr_fn, device, flat_spec, mesh,
+                       gossip_fn, optimizer, delta_base)
+
+
+def make_engine_round(espec: EngineSpec, grad_fn: GradFn, lr_fn, *, device,
+                      flat_spec=None, mesh=None, gossip_fn=None,
+                      optimizer=None, delta_base=None, metrics_fn=None,
+                      per_step_keys: bool = False):
+    """Lower an EngineSpec to its round executor (repro/core/engine.py:
+    572-645): round_fn(state, batches, draws) runs one step per leading
+    index of the batch leaves, metrics stacked to (H, ...).
+
+    Dispatch: layout 'tree' → the tree engine; a run axis → the sweep
+    lattice; else the flat engine.  ``metrics_fn(state)`` is merged into
+    each step's metrics.  ``per_step_keys`` (the reference's (T, R) key
+    table) is the draws object's business in the port: a lattice raises
+    and names :class:`repro_torch.core.draws.RoundDraws`.
+    """
+    return make_loop_round(_lower_step(
+        espec, grad_fn, lr_fn, device, flat_spec, mesh, gossip_fn,
+        optimizer, delta_base, per_step_keys), metrics_fn)

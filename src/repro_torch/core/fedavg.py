@@ -24,7 +24,7 @@ def FedAvgConfig(n_agents: int, h: int = 10, k: int = 2):
 
 
 def make_fedavg_step(n_agents: int, grad_fn, lr_fn, h: int = 10, k: int = 2,
-                     *, device="cpu"):
+                     *, device):
     """The tree engine's FedAvg step, make_feddec_step's signature."""
     from repro_torch.core import feddec
     return feddec.make_feddec_step(FedAvgConfig(n_agents, h=h, k=k),
@@ -32,7 +32,7 @@ def make_fedavg_step(n_agents: int, grad_fn, lr_fn, h: int = 10, k: int = 2,
 
 
 def make_fedavg_round(n_agents: int, grad_fn, lr_fn, h: int = 10, k: int = 2,
-                      metrics_fn=None, *, device="cpu"):
+                      metrics_fn=None, *, device):
     """The tree engine's FedAvg round: make_feddec_round with 𝒲 = {I};
     batches lead with the round's steps, metrics stack to (H,), the
     server fires on every H-th step."""

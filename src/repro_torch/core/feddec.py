@@ -37,6 +37,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.core import compress as compress_lib
+from repro_torch.core import delta as delta_lib
 from repro_torch.core import engine
 from repro_torch.core import server as server_lib
 from repro_torch.core.fedavg import FedAvgConfig
@@ -69,6 +70,12 @@ class FedDecConfig:
       gossip_compress: the gossip payload's codec with error feedback
         (core/compress.py): none | identity | bf16 | int8 | topk:R.
         Ignored under gossip_impl 'none' (nothing is exchanged).
+      delta: the delta parameterization (core/delta.py): none | full |
+        topk:K | lowrank:R.  Gossip moves each agent's encoded delta
+        against a shared base row through the same error feedback as
+        gossip_compress (so the two are mutually exclusive); 'full' is
+        lossless, its trajectory that of 'none' bit for bit.  Flat layout,
+        one run, one device.
     """
 
     mixing: MixingDistribution
@@ -77,6 +84,7 @@ class FedDecConfig:
     server_enabled: bool = True
     gossip_impl: str = "dense"
     gossip_compress: str = "none"
+    delta: str = "none"
 
     GOSSIP_IMPLS = engine.GOSSIP_IMPLS
 
@@ -86,6 +94,13 @@ class FedDecConfig:
         if self.k < 1:
             raise ValueError(f"K must be >= 1, got {self.k}")
         compress_lib.parse_compress(self.gossip_compress)  # validate spec
+        delta_lib.parse_delta(self.delta)  # validate spec
+        if self.delta != "none" and self.gossip_compress != "none":
+            raise ValueError(
+                "delta and gossip_compress are mutually exclusive: both "
+                "route the exchange through the same error-feedback "
+                f"residual (got delta={self.delta!r}, "
+                f"gossip_compress={self.gossip_compress!r})")
         engine.check_gossip_impl(self.gossip_impl)
 
     @property
@@ -198,7 +213,7 @@ def _tree_ops(cfg: FedDecConfig, grad_fn: engine.GradFn, lr_fn: LrFn,
 
 def make_feddec_step(cfg: FedDecConfig, grad_fn: engine.GradFn,
                      lr_fn: LrFn, gossip_fn=None, optimizer=None, *,
-                     device="cpu"):
+                     device):
     """One-iteration executor of the tree engine: step(state, batch, draws)
     -> (FedState, {'loss': mean loss, 'eta': η_t}).
 
@@ -208,23 +223,24 @@ def make_feddec_step(cfg: FedDecConfig, grad_fn: engine.GradFn,
     the state lives (W^t is made there).  ``gossip_fn`` overrides the
     resolved mix; ``optimizer`` (default plain SGD) keeps per-agent state
     that is not gossiped.  The state passed in is donated: updated in
-    place and returned.
+    place and returned.  A shim over :func:`engine.make_engine_step`.
     """
-    return engine.build_step_body(
-        _tree_ops(cfg, grad_fn, lr_fn, gossip_fn, optimizer,
-                  torch.device(device)))
+    espec = engine.parse_engine_spec(cfg, layout="tree")
+    return engine.make_engine_step(espec, grad_fn, lr_fn, device=device,
+                                   gossip_fn=gossip_fn, optimizer=optimizer)
 
 
 def make_feddec_round(cfg: FedDecConfig, grad_fn: engine.GradFn,
                       lr_fn: LrFn, gossip_fn=None, optimizer=None,
                       metrics_fn: Callable[[FedState], dict] | None = None,
-                      *, device="cpu"):
+                      *, device):
     """The tree engine's round: round_fn(state, batches, draws) runs one
     step per leading index of the batch leaves ((H, n, ...)), the server
     firing on the step with (t+1) % H == 0; metrics stack to (H,).
     ``metrics_fn(state)`` is evaluated after every step and merged into
-    that step's metrics.  The state passed in is donated."""
-    return engine.make_loop_round(
-        make_feddec_step(cfg, grad_fn, lr_fn, gossip_fn, optimizer,
-                         device=device), metrics_fn)
-
+    that step's metrics.  The state passed in is donated.  A shim over
+    :func:`engine.make_engine_round`."""
+    espec = engine.parse_engine_spec(cfg, layout="tree")
+    return engine.make_engine_round(espec, grad_fn, lr_fn, device=device,
+                                    gossip_fn=gossip_fn, optimizer=optimizer,
+                                    metrics_fn=metrics_fn)

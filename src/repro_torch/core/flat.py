@@ -6,8 +6,11 @@ hot loop is one whole-buffer pass: the optimizer update, the gossip mix
 W @ flat (or its fused form with the update, kernels #3/#4), and the
 server's (n,)·(n, D) average.  With a codec (``gossip_compress``) the mix
 runs on the compressed payload with an (n, D) error-feedback residual
-(core/compress.py; the EF mix kernels #9/#11, or #14 on int8 × pallas).  The model sees a dict of tensors only at
-the gradient boundary, as views into the buffer.
+(core/compress.py; the EF mix kernels #9/#11, or #14 on int8 × pallas).
+A delta parameterization (``delta``, core/delta.py) runs the same
+error-feedback exchange on each agent's encoded delta against a shared
+base row.  The model sees a dict of tensors only at the gradient
+boundary, as views into the buffer.
 
 Layout contract with the reference: :class:`FlatSpec` orders the leaves
 the way ``jax.tree.flatten`` orders a nested dict (sorted keys,
@@ -26,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import compress as compress_lib
+from repro_torch.core import delta as delta_lib
 from repro_torch.core import engine
 from repro_torch.core import gossip as gossip_lib
 from repro_torch.core import server as server_lib
@@ -149,17 +153,21 @@ class FlatFedState:
 
 
 def init_flat_state(spec: FlatSpec, params_single: dict, n_agents: int,
-                    optimizer=None, compress: str = "none") -> FlatFedState:
+                    optimizer=None, compress: str = "none",
+                    delta: str = "none") -> FlatFedState:
     """z_i^1 = z^1 ∀i (Alg. 1 line 1), directly in the flat layout.
 
     ``compress != 'none'`` adds the zero (n, D) error-feedback residual
-    that the compressed-gossip step carries (core/compress.py)."""
+    that the compressed-gossip step carries (core/compress.py);
+    ``delta != 'none'`` carries the same residual for the delta-encoded
+    exchange (core/delta.py; repro/core/flat.py:179-195)."""
     row = spec.ravel(params_single)
     flat = row.unsqueeze(0).repeat(n_agents, 1)
     opt_state = optimizer.init(flat) if optimizer is not None else ()
-    residual = compress_lib.init_residual(
-        compress_lib.parse_compress(compress), n_agents, spec.d, spec.dtype,
-        flat.device)
+    needs_res = (compress_lib.parse_compress(compress) is not None
+                 or delta_lib.parse_delta(delta).kind != "none")
+    residual = torch.zeros((n_agents, spec.d), dtype=spec.dtype,
+                           device=flat.device) if needs_res else ()
     return FlatFedState(flat=flat, step=1, opt_state=opt_state,
                         residual=residual)
 
@@ -388,8 +396,24 @@ def grads_of(spec: FlatSpec, grad_fn: engine.GradFn, flat: torch.Tensor,
     return losses, g_flat
 
 
+def _delta_codec(cfg: FedDecConfig, spec: FlatSpec, delta_base, device):
+    """The delta codec over the base row (zeros by default), or None
+    (repro/core/flat.py:385-395)."""
+    if delta_lib.parse_delta(cfg.delta).kind == "none":
+        return None
+    if delta_base is None:
+        base = torch.zeros(spec.d, dtype=spec.dtype, device=device)
+    else:
+        base = torch.as_tensor(delta_base, dtype=spec.dtype,
+                               device=device).reshape(-1)
+    if base.shape[0] != spec.d:
+        raise ValueError(f"delta_base has D={base.shape[0]}, flat spec "
+                         f"has D={spec.d}")
+    return delta_lib.make_delta_codec(cfg.delta, base)
+
+
 def _flat_ops(cfg: FedDecConfig, spec: FlatSpec, grad_fn: engine.GradFn,
-              lr_fn: LrFn, gossip_fn, optimizer, device,
+              lr_fn: LrFn, gossip_fn, optimizer, device, delta_base=None,
               fuse_update_mix: bool = False) -> engine.EngineOps:
     """The flat engine's vtable for the shared Algorithm-1 body."""
     custom_gossip = gossip_fn is not None
@@ -400,6 +424,11 @@ def _flat_ops(cfg: FedDecConfig, spec: FlatSpec, grad_fn: engine.GradFn,
     # through.  int8 × 'pallas' mixes straight from the int8 payload (#14)
     compressor = compress_lib.parse_compress(cfg.gossip_compress) \
         if cfg.gossip_impl != "none" else None
+    # a delta parameterization: the wire carries each agent's encoded
+    # delta against the base row, through the same EF exchange (and the
+    # same kernels, #1/#2 unfused, #9/#11 fused); 'full' is lossless
+    if compressor is None and cfg.gossip_impl != "none":
+        compressor = _delta_codec(cfg, spec, delta_base, device)
     ef_gossip = None
     if compressor is not None:
         ef_gossip = compress_lib.make_flat_ef_gossip(
@@ -454,28 +483,39 @@ def _flat_ops(cfg: FedDecConfig, spec: FlatSpec, grad_fn: engine.GradFn,
 def make_flat_feddec_step(cfg: FedDecConfig, spec: FlatSpec,
                           grad_fn: engine.GradFn, lr_fn: LrFn, *, device,
                           gossip_fn=None, optimizer=None,
-                          fuse_update_mix: bool = False):
+                          fuse_update_mix: bool = False, delta_base=None):
     """One-iteration executor: step(state, batch, draws) ->
     (FlatFedState, {'loss', 'eta'}); batch leaves have a leading agent
     dim.  ``grad_fn`` is one agent's line 4 (engine.GradFn), called once
     over all n agents per step.  ``lr_fn(t)`` returns η_t as a (1,) f32
-    tensor on ``device``.  The state passed in is donated: updated in
-    place and returned."""
-    return engine.build_step_body(
-        _flat_ops(cfg, spec, grad_fn, lr_fn, gossip_fn, optimizer, device,
-                  fuse_update_mix=fuse_update_mix))
+    tensor on ``device``.  ``delta_base`` is the (D,) base row of a
+    ``cfg.delta != 'none'`` run (zeros by default).  The state passed in
+    is donated: updated in place and returned.  A shim over
+    :func:`engine.make_engine_step`."""
+    espec = engine.parse_engine_spec(cfg, layout="flat",
+                                     fuse_update_mix=fuse_update_mix)
+    return engine.make_engine_step(espec, grad_fn, lr_fn, device=device,
+                                   flat_spec=spec, gossip_fn=gossip_fn,
+                                   optimizer=optimizer,
+                                   delta_base=delta_base)
 
 
 def make_flat_feddec_round(cfg: FedDecConfig, spec: FlatSpec,
                            grad_fn: engine.GradFn, lr_fn: LrFn, *, device,
                            gossip_fn=None, optimizer=None,
-                           fuse_update_mix: bool = False, metrics_fn=None):
+                           fuse_update_mix: bool = False, metrics_fn=None,
+                           delta_base=None):
     """The H-step round: round_fn(state, batches, draws) with every batch
     leaf stacked on a leading step dim; metrics stack to (H,).  The
     server round fires on the step with (t+1) % H == 0.  ``metrics_fn``
     (state -> dict) is evaluated after every step and merged into its
     metrics.  The state passed in is donated, as in
-    :func:`make_flat_feddec_step`."""
-    return engine.make_loop_round(make_flat_feddec_step(
-        cfg, spec, grad_fn, lr_fn, device=device, gossip_fn=gossip_fn,
-        optimizer=optimizer, fuse_update_mix=fuse_update_mix), metrics_fn)
+    :func:`make_flat_feddec_step`.  A shim over
+    :func:`engine.make_engine_round`."""
+    espec = engine.parse_engine_spec(cfg, layout="flat",
+                                     fuse_update_mix=fuse_update_mix)
+    return engine.make_engine_round(espec, grad_fn, lr_fn, device=device,
+                                    flat_spec=spec, gossip_fn=gossip_fn,
+                                    optimizer=optimizer,
+                                    delta_base=delta_base,
+                                    metrics_fn=metrics_fn)

@@ -7,8 +7,10 @@ mix goes through kernels/ops.py, which runs the plain version for CPU
 tensors and the CUDA kernel for CUDA ones; like the reference's Pallas
 kernels, it mixes in f32 whatever the buffer's dtype.  The plain mixes
 here (the dense product, the CSR gather, the stacked-ELL mix of a lattice
-too skewed for the kernel) cast W to the buffer's dtype and mix in it, as
-the reference's plain mixes do: a float64 buffer is mixed in float64.
+too skewed for the kernel) round W to the buffer's dtype and mix in it, as
+the reference's plain mixes do: a float64 buffer is mixed in float64, and
+a bf16 one with W in bf16 (the dense product summed in f32, as XLA sums
+a bf16 product).
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ __all__ = ["ELL_MAX_DEG", "mix_dtype", "gossip_mix_dense",
 ELL_MAX_DEG = 16  # below this, the padded neighbour loop beats CSR scatter
 
 def mix_dtype(x: torch.Tensor) -> torch.dtype:
-    """The dtype the plain mixes compute in: x's, and at least f32."""
+    """The dtype the dense product computes in: x's, and at least f32."""
     return torch.promote_types(x.dtype, torch.float32)
 
 
@@ -36,15 +38,17 @@ def _dense_rows(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     dt = mix_dtype(x)
     if w.ndim == 2 and x.ndim != 2:  # one (n, ...) leaf of a stacked tree
         return _dense_rows(w, x.reshape(x.shape[0], -1)).view(x.shape)
-    return torch.matmul(w.to(dt), x.to(dt)).to(x.dtype)
+    # W rounded to the buffer's dtype first, as the reference casts it
+    return torch.matmul(w.to(x.dtype).to(dt), x.to(dt)).to(x.dtype)
 
 
 def gossip_mix_dense(w: torch.Tensor, x):
     """y = W x as one (n, n) @ (n, D) matrix product (one batched product
-    over a lattice's (R, n, n) W) in mix_dtype(x), the reference's einsum
-    with W cast to the buffer's dtype (repro/core/engine.py:155-158).  A
-    stacked tree (a dict of (n, ...) leaves) is mixed leaf by leaf, each
-    in mix_dtype(leaf) and returned in its own dtype
+    over a lattice's (R, n, n) W), the reference's einsum with W cast to
+    the buffer's dtype (repro/core/engine.py:155-158): W is rounded to
+    x's dtype, then the product is taken in mix_dtype(x) and rounded back
+    to x's dtype, as XLA takes a bf16 product.  A stacked tree (a dict of
+    (n, ...) leaves) is mixed leaf by leaf the same way
     (repro/core/gossip.py:52-65)."""
     return tree_map(lambda leaf: _dense_rows(w, leaf), x)
 
@@ -133,8 +137,9 @@ def make_sparse_gossip_batched(graphs):
     weight-0 self slots, so every run's slice equals its own single-run
     ELL mix.  When 0 < max_deg ≤ ELL_MAX_DEG the mix is kernel #6 on CUDA
     (one launch for all runs); otherwise (an all-edgeless lattice, or one
-    too skewed for the kernel) it is the plain stacked-ELL mix in the
-    buffer's dtype.  A run
+    too skewed for the kernel) it is the plain stacked-ELL mix, W read in
+    the buffer's dtype and every product and sum rounded to it, as the
+    reference's (repro/core/gossip.py:199-211).  A run
     whose graph has no edges, given W = I, reduces exactly to ``y = x``.
 
     Returns:
@@ -147,7 +152,6 @@ def make_sparse_gossip_batched(graphs):
     tables = kernel_ops.EllTables(nbr, valid)
 
     def mix(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        dt = mix_dtype(x)
-        return ref.ell_mix(*tables.weights(w, x, dt), x, dt)
+        return ref.ell_mix(*tables.weights(w, x, x.dtype), x, x.dtype)
 
     return mix

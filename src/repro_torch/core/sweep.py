@@ -417,6 +417,16 @@ def _sweep_ops(plan: SweepPlan, spec: FlatSpec, grad_fn: engine.GradFn,
         fused_update_gossip=fused_update_gossip)
 
 
+def _lattice_spec(plan: SweepPlan, fuse_update_mix: bool):
+    """The plan's EngineSpec (the reference's shims,
+    repro/core/sweep.py:518-558): rebuilt from ``plan.configs`` and its
+    budgets, with the run axis kept for R = 1."""
+    return engine.parse_engine_spec(
+        plan.configs, layout="flat", force_run_axis=True,
+        t_steps=None if plan.t_steps is None else tuple(plan.t_steps),
+        fuse_update_mix=fuse_update_mix)
+
+
 def make_sweep_feddec_step(plan: SweepPlan, spec: FlatSpec,
                            grad_fn: engine.GradFn, lr_fn: LrFn, *, device,
                            optimizer=None,
@@ -427,26 +437,24 @@ def make_sweep_feddec_step(plan: SweepPlan, spec: FlatSpec,
     line 4, engine.GradFn) is called once over all R·n agents a step.
     Metrics: per-run ``loss`` and ``eta`` (R,), and ``active`` (R,) when
     the plan has budgets.  The state passed in is donated: updated in
-    place and returned."""
-    return engine.build_step_body(
-        _sweep_ops(plan, spec, grad_fn, lr_fn, optimizer, device,
-                   fuse_update_mix=fuse_update_mix))
+    place and returned.  A shim over :func:`engine.make_engine_step`."""
+    return engine.make_engine_step(
+        _lattice_spec(plan, fuse_update_mix), grad_fn, lr_fn,
+        device=device, flat_spec=spec, optimizer=optimizer)
 
 
 def make_sweep_feddec_round(plan: SweepPlan, spec: FlatSpec,
                             grad_fn: engine.GradFn, lr_fn: LrFn, *, device,
                             optimizer=None, fuse_update_mix: bool = False,
-                            per_step_keys: bool = False):
+                            metrics_fn=None, per_step_keys: bool = False):
     """The lattice round: T steps × R runs per call, with every batch
     leaf (T, R, n, ...) and metrics stacked to (T, R).  With
     ``plan.t_steps`` set, runs past their budget are frozen while the
-    others continue.  The state passed in is donated."""
-    if per_step_keys:
-        raise ValueError("per_step_keys (a (T, R) key array per round) is "
-                         "not ported as a key table: pass a "
-                         "repro_torch.core.draws.RoundDraws as the draws, "
-                         "which re-keys every run at each of its server "
-                         "rounds")
-    return engine.make_loop_round(make_sweep_feddec_step(
-        plan, spec, grad_fn, lr_fn, device=device, optimizer=optimizer,
-        fuse_update_mix=fuse_update_mix))
+    others continue.  ``metrics_fn(state)`` is merged into each step's
+    metrics.  The state passed in is donated.  ``per_step_keys`` raises:
+    the port re-keys runs through its draws (core/draws.py:RoundDraws).
+    A shim over :func:`engine.make_engine_round`."""
+    return engine.make_engine_round(
+        _lattice_spec(plan, fuse_update_mix), grad_fn, lr_fn,
+        device=device, flat_spec=spec, optimizer=optimizer,
+        metrics_fn=metrics_fn, per_step_keys=per_step_keys)

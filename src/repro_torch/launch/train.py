@@ -14,13 +14,16 @@ forms on a lattice; kernel #1 once per leaf on the tree).
 ``--gossip-compress SPEC`` compresses the gossip payload with error
 feedback, on the flat buffer (the EF mix kernels #9/#11 when fused, #14
 on int8 × pallas), on the lattice (#10/#12 when fused) or leaf by leaf
-on the tree.  ``--optimizer sgd|momentum|adamw``.  Runs on ``cuda``
-unless ``--device cpu`` is given, and fails without a card.
+on the tree.  ``--delta full|topk:K|lowrank:R`` exchanges each agent's
+encoded delta against the initial row through the same error feedback
+(flat layout, one run).  ``--optimizer sgd|momentum|adamw``.  Runs on
+``cuda`` unless ``--device cpu`` is given, and fails without a card.
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.train --gossip-impl pallas \\
       --fuse-update-mix --steps 10 [--sweep-runs 2 --sweep-axis h]
-      [--gossip-compress int8] [--arch mamba2-2.7b --smoke]
+      [--gossip-compress int8 | --delta topk:4096]
+      [--arch mamba2-2.7b --smoke]
 """
 
 from __future__ import annotations
@@ -82,7 +85,8 @@ def build_fed_setup(fed: FedConfig) -> tuple[FedDecConfig, int]:
                                 scheme="metropolis")
     fcfg = FedDecConfig(mixing=mixing, h=fed.h, k=min(fed.k, n),
                         gossip_impl=fed.gossip_impl,
-                        gossip_compress=fed.gossip_compress)
+                        gossip_compress=fed.gossip_compress,
+                        delta=fed.delta)
     return fcfg, n
 
 
@@ -193,6 +197,7 @@ def train_loop(cfg: ArchConfig, fed: FedConfig, *, steps: int,
     # no exchange (FedAvg / impl 'none') ⇒ nothing to compress, no residual
     compress = fcfg.gossip_compress if fcfg.gossip_impl != "none" \
         else "none"
+    delta = fcfg.delta if fcfg.gossip_impl != "none" else "none"
     eta = torch.full((1,), lr, dtype=torch.float32, device=device)
     lr_fn = lambda t: eta  # noqa: E731  (constant; stays on the device)
     if draws is None:
@@ -223,8 +228,11 @@ def train_loop(cfg: ArchConfig, fed: FedConfig, *, steps: int,
             **kwargs)
     else:
         state = flat_lib.init_flat_state(spec, params0, n_agents,
-                                         optimizer=opt, compress=compress)
+                                         optimizer=opt, compress=compress,
+                                         delta=delta)
         kwargs["fuse_update_mix"] = fuse_update_mix
+        if delta != "none":  # the shared base row: the initial weights
+            kwargs["delta_base"] = spec.ravel(params0)
         if fused:
             round_fn = flat_lib.make_flat_feddec_round(fcfg, spec, grad_fn,
                                                        lr_fn, **kwargs)
@@ -243,6 +251,7 @@ def train_loop(cfg: ArchConfig, fed: FedConfig, *, steps: int,
           + f", gossip={fcfg.gossip_impl}"
           + (", fused-update-mix" if fuse_update_mix else "")
           + (f", compress={compress}" if compress != "none" else "")
+          + (f", delta={delta}" if delta != "none" else "")
           + f", device={device}")
     positions = torch.arange(seq_len, device=device)[None, None].expand(
         n_agents, per_agent_batch, seq_len)
@@ -351,7 +360,14 @@ def main(argv=None) -> None:
                         "(core/compress.py): none | identity | bf16 | int8 "
                         "| topk:R; every layout, with or without "
                         "--sweep-runs")
-    p.add_argument("--delta", default="none", metavar="SPEC")
+    p.add_argument("--delta", default="none", metavar="SPEC",
+                   help="delta-parameterize the agent state against a "
+                        "shared base row (core/delta.py): none | full | "
+                        "topk:K | lowrank:R (e.g. topk:128).  Gossip then "
+                        "exchanges encoded deltas with error feedback "
+                        "('full' is lossless, bit-identical to none).  "
+                        "Flat layout, one run; mutually exclusive with "
+                        "--gossip-compress")
     for flag in _NOT_PORTED:
         p.add_argument(flag, default=None)
     p.add_argument("--vocab", type=int, default=32_768,
@@ -366,8 +382,6 @@ def main(argv=None) -> None:
 
     rejected = [flag for flag in _NOT_PORTED
                 if getattr(args, flag[2:].replace("-", "_")) is not None]
-    if args.delta != "none":
-        rejected.append(f"--delta {args.delta}")
     if args.arch not in ARCH_NAMES:
         rejected.append(f"--arch {args.arch}")
     if rejected:
@@ -383,7 +397,7 @@ def main(argv=None) -> None:
     fed = FedConfig(n_agents=args.agents, h=args.h, k=args.k,
                     graph=args.graph, p_fail=args.p_fail,
                     gossip_impl=args.gossip_impl,
-                    gossip_compress=args.gossip_compress)
+                    gossip_compress=args.gossip_compress, delta=args.delta)
     _, losses = train_loop(
         cfg, fed, steps=args.steps, per_agent_batch=args.batch,
         seq_len=args.seq, lr=args.lr, optimizer=args.optimizer,

@@ -178,11 +178,11 @@ def _run_both(impl, opt, p_fail=0.0, server_enabled=True,
                                                optimizer=ref_opt,
                                                donate=False)
         step = feddec.make_feddec_step(cfg, _torch_grad_fn, lambda t: ETA,
-                                       optimizer=port_opt)
+                                       optimizer=port_opt, device="cpu")
     round_ref = ref_feddec.make_feddec_round(rcfg, _ref_grad_fn, lr,
                                              optimizer=ref_opt, donate=False)
     round_fn = feddec.make_feddec_round(cfg, _torch_grad_fn, lambda t: ETA,
-                                        optimizer=port_opt)
+                                        optimizer=port_opt, device="cpu")
     key = jax.random.key(7)
     draws = ReplayTreeDraws(key)
     states, ref_losses, losses = [], [], []
@@ -354,7 +354,8 @@ def _port_tree_and_flat(impl, opt, p_fail):
     fstate = flat_lib.flatten_fedstate(spec, state)
     eta = torch.tensor([ETA])
     tree_round = feddec.make_feddec_round(cfg, _torch_grad_fn,
-                                          lambda t: eta, optimizer=port_opt)
+                                          lambda t: eta, optimizer=port_opt,
+                                          device="cpu")
     flat_round = flat_lib.make_flat_feddec_round(
         cfg, spec, _torch_grad_fn, lambda t: eta, device="cpu",
         optimizer=port_opt)
@@ -441,7 +442,8 @@ def test_tree_pallas_launches_kernel_one_per_leaf_and_none_on_the_cpu():
         ops._gossip = spy
         _, cfg = _configs("pallas")
         _, state = _start("sgd")
-        step = feddec.make_feddec_step(cfg, _torch_grad_fn, lambda t: ETA)
+        step = feddec.make_feddec_step(cfg, _torch_grad_fn, lambda t: ETA,
+                                       device="cpu")
         step(state, {k: torch.from_numpy(v[0]) for k, v in
                      _batches(1)[0].items()}, Draws(0, "cpu"))
     finally:
@@ -535,7 +537,8 @@ def _consensus(state):
 class TestFedDecStep:
     def test_state_shapes_and_finite(self, problem):
         cfg, lr, grad_fn = _setup(problem)
-        state, metrics = _run(feddec.make_feddec_step(cfg, grad_fn, lr),
+        state, metrics = _run(feddec.make_feddec_step(cfg, grad_fn, lr,
+                                                      device="cpu"),
                               problem, 5)
         assert state.params["z"].shape == (problem.n, problem.d)
         assert state.step == 6
@@ -544,20 +547,23 @@ class TestFedDecStep:
 
     def test_server_round_consensus(self, problem):
         cfg, lr, grad_fn = _setup(problem, h=5)
-        state, _ = _run(feddec.make_feddec_step(cfg, grad_fn, lr), problem,
+        state, _ = _run(feddec.make_feddec_step(cfg, grad_fn, lr,
+                                                device="cpu"), problem,
                         4)   # t: 1→5, server at t+1=5
         assert _consensus(state)
 
     def test_no_consensus_between_rounds(self, problem):
         cfg, lr, grad_fn = _setup(problem, h=100)
-        state, _ = _run(feddec.make_feddec_step(cfg, grad_fn, lr), problem,
+        state, _ = _run(feddec.make_feddec_step(cfg, grad_fn, lr,
+                                                device="cpu"), problem,
                         6)
         z = state.params["z"]
         assert not torch.allclose(z[0], z[1], atol=1e-8, rtol=0)
 
     def test_server_disabled(self, problem):
         cfg, lr, grad_fn = _setup(problem, h=5, server_enabled=False)
-        state, _ = _run(feddec.make_feddec_step(cfg, grad_fn, lr), problem,
+        state, _ = _run(feddec.make_feddec_step(cfg, grad_fn, lr,
+                                                device="cpu"), problem,
                         10)
         assert torch.isfinite(state.params["z"]).all()
         assert not _consensus(state)
@@ -567,23 +573,27 @@ class TestConvergence:
     def test_feddec_converges(self, problem):
         cfg, lr, grad_fn = _setup(problem)
         sub0 = _subopt(problem, _init(problem))
-        state, _ = _run(feddec.make_feddec_step(cfg, grad_fn, lr), problem,
+        state, _ = _run(feddec.make_feddec_step(cfg, grad_fn, lr,
+                                                device="cpu"), problem,
                         800)
         assert _subopt(problem, state) < 0.05 * sub0
 
     def test_feddec_beats_fedavg_large_h(self, problem):
         h = 50
         cfg, lr, grad_fn = _setup(problem, h=h)
-        sd, _ = _run(feddec.make_feddec_step(cfg, grad_fn, lr), problem,
+        sd, _ = _run(feddec.make_feddec_step(cfg, grad_fn, lr,
+                                             device="cpu"), problem,
                      600, seed=1)
         sa, _ = _run(fedavg.make_fedavg_step(problem.n, grad_fn, lr, h=h,
-                                             k=2), problem, 600, seed=1)
+                                             k=2, device="cpu"),
+                     problem, 600, seed=1)
         assert _subopt(problem, sd) < _subopt(problem, sa)
 
     def test_link_failures_still_converge(self, problem):
         cfg, lr, grad_fn = _setup(problem, p_fail=0.5)
         sub0 = _subopt(problem, _init(problem))
-        state, _ = _run(feddec.make_feddec_step(cfg, grad_fn, lr), problem,
+        state, _ = _run(feddec.make_feddec_step(cfg, grad_fn, lr,
+                                                device="cpu"), problem,
                         800)
         assert _subopt(problem, state) < 0.1 * sub0
 
@@ -617,9 +627,10 @@ class TestRoundEquivalence:
                                         server_enabled=server_enabled)
         batches = _minibatches(problem8, T_RUN, 11)
         s_seq, losses, etas = _sequential(
-            feddec.make_feddec_step(cfg, grad_fn, lr), problem8, batches,
+            feddec.make_feddec_step(cfg, grad_fn, lr, device="cpu"),
+            problem8, batches,
             _init(problem8), Draws(5, "cpu"))
-        s_round, m = feddec.make_feddec_round(cfg, grad_fn, lr)(
+        s_round, m = feddec.make_feddec_round(cfg, grad_fn, lr, device="cpu")(
             _init(problem8), batches, Draws(5, "cpu"))
         assert torch.equal(s_round.params["z"], s_seq.params["z"])
         np.testing.assert_array_equal(m["loss"].numpy(), losses)
@@ -629,14 +640,15 @@ class TestRoundEquivalence:
     def test_time_varying_topology(self, problem8):
         cfg, lr, grad_fn = _fused_setup(problem8, p_fail=0.4)
         batches = _minibatches(problem8, T_RUN, 11)
-        s_seq, _, _ = _sequential(feddec.make_feddec_step(cfg, grad_fn, lr),
+        s_seq, _, _ = _sequential(feddec.make_feddec_step(cfg, grad_fn, lr,
+                                                          device="cpu"),
                                   problem8, batches, _init(problem8),
                                   Draws(9, "cpu"))
-        s_round, _ = feddec.make_feddec_round(cfg, grad_fn, lr)(
+        s_round, _ = feddec.make_feddec_round(cfg, grad_fn, lr, device="cpu")(
             _init(problem8), batches, Draws(9, "cpu"))
         assert torch.equal(s_round.params["z"], s_seq.params["z"])
         cfg0, _, _ = _fused_setup(problem8)
-        s0, _ = feddec.make_feddec_round(cfg0, grad_fn, lr)(
+        s0, _ = feddec.make_feddec_round(cfg0, grad_fn, lr, device="cpu")(
             _init(problem8), batches, Draws(9, "cpu"))
         assert not torch.allclose(s_round.params["z"], s0.params["z"],
                                   atol=1e-8, rtol=0)
@@ -645,10 +657,11 @@ class TestRoundEquivalence:
         _, lr, grad_fn = _fused_setup(problem8)
         batches = _minibatches(problem8, T_RUN, 13)
         s_seq, losses, _ = _sequential(
-            fedavg.make_fedavg_step(problem8.n, grad_fn, lr, h=4, k=2),
+            fedavg.make_fedavg_step(problem8.n, grad_fn, lr, h=4, k=2,
+                                    device="cpu"),
             problem8, batches, _init(problem8), Draws(13, "cpu"))
         s_round, m = fedavg.make_fedavg_round(problem8.n, grad_fn, lr, h=4,
-                                              k=2)(
+                                              k=2, device="cpu")(
             _init(problem8), batches, Draws(13, "cpu"))
         assert torch.equal(s_round.params["z"], s_seq.params["z"])
         np.testing.assert_array_equal(m["loss"].numpy(), losses)
@@ -657,7 +670,7 @@ class TestRoundEquivalence:
         _, lr, grad_fn = _fused_setup(problem8)
         batches = _minibatches(problem8, T_RUN, 13)
         s_tree, _ = fedavg.make_fedavg_round(problem8.n, grad_fn, lr, h=4,
-                                             k=2)(
+                                             k=2, device="cpu")(
             _init(problem8), batches, Draws(13, "cpu"))
         spec = flat_lib.make_flat_spec({"z": torch.zeros(problem8.d)})
         fstate = flat_lib.init_flat_state(spec, {"z": torch.zeros(
@@ -674,10 +687,12 @@ class TestRoundEquivalence:
         _, port_opt = _opts(opt)
         batches = _minibatches(problem8, T_RUN, 17)
         s_seq, _, _ = _sequential(
-            feddec.make_feddec_step(cfg, grad_fn, lr, optimizer=port_opt),
+            feddec.make_feddec_step(cfg, grad_fn, lr, optimizer=port_opt,
+                                    device="cpu"),
             problem8, batches, _init(problem8, port_opt), Draws(17, "cpu"))
         s_round, _ = feddec.make_feddec_round(cfg, grad_fn, lr,
-                                              optimizer=port_opt)(
+                                              optimizer=port_opt,
+                                              device="cpu")(
             _init(problem8, port_opt), batches, Draws(17, "cpu"))
         assert torch.equal(s_round.params["z"], s_seq.params["z"])
         for a, b in zip(leaves(s_round.opt_state), leaves(s_seq.opt_state)):
@@ -689,14 +704,14 @@ class TestRoundEquivalence:
 class TestRoundContract:
     def test_metrics_stacked_to_h(self, problem):
         cfg, lr, grad_fn = _fused_setup(problem)
-        _, m = feddec.make_feddec_round(cfg, grad_fn, lr)(
+        _, m = feddec.make_feddec_round(cfg, grad_fn, lr, device="cpu")(
             _init(problem), _minibatches(problem, 6, 0), Draws(0, "cpu"))
         assert m["loss"].shape == m["eta"].shape == (6,)
 
     def test_metrics_fn_hook(self, problem):
         cfg, lr, grad_fn = _fused_setup(problem)
         round_fn = feddec.make_feddec_round(
-            cfg, grad_fn, lr, metrics_fn=lambda s: {
+            cfg, grad_fn, lr, device="cpu", metrics_fn=lambda s: {
                 "subopt": problem.suboptimality(s.params["z"].double())})
         _, m = round_fn(_init(problem), _minibatches(problem, 5, 0),
                         Draws(0, "cpu"))
@@ -705,7 +720,7 @@ class TestRoundContract:
 
     def test_server_consensus_inside_round(self, problem):
         cfg, lr, grad_fn = _fused_setup(problem)     # h=4, server at t+1=4
-        state, _ = feddec.make_feddec_round(cfg, grad_fn, lr)(
+        state, _ = feddec.make_feddec_round(cfg, grad_fn, lr, device="cpu")(
             _init(problem), _minibatches(problem, 3, 2), Draws(2, "cpu"))
         assert _consensus(state)
 
@@ -713,7 +728,7 @@ class TestRoundContract:
         """The state passed in is donated: updated in place and returned;
         a round's output feeds the next call."""
         cfg, lr, grad_fn = _fused_setup(problem)
-        round_fn = feddec.make_feddec_round(cfg, grad_fn, lr)
+        round_fn = feddec.make_feddec_round(cfg, grad_fn, lr, device="cpu")
         state = _init(problem)
         draws = Draws(3, "cpu")
         for r in range(3):

@@ -911,3 +911,69 @@ def test_cuda_batched_grads_match_the_per_row_loop(cuda, lead):
     assert (g.view(rows, -1) - want_g).abs().max().item() <= 1e-5 * scale
     assert (losses.view(-1) - want_l).abs().max().item() <= \
         1e-5 * want_l.abs().max().item()
+
+
+DELTA_CELLS = [("full", "pallas", False, "gossip_mix"),
+               ("full", "sparse", False, "gossip_mix_sparse"),
+               ("topk:512", "pallas", True, "ef_mix"),
+               ("lowrank:2", "sparse", True, "ef_mix_sparse")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("delta,impl,fused,kernel", DELTA_CELLS,
+                         ids=[c[0] + "-" + c[1] for c in DELTA_CELLS])
+def test_cuda_delta_round_launches_its_kernel_once_a_step(cuda, delta, impl,
+                                                          fused, kernel):
+    """A flat round under ``delta`` (the base row the start row, 8 agents
+    on ring2, H = 3 steps, the server off so that no draw differs between
+    the devices) launches its mix kernel once a step on the card and no
+    other, and ends within 1e-5·max|x| of the same round on the CPU
+    (targets in base + a rank-2 span, so the low-rank truncation is well
+    posed).  Under 'full' the card's run also ends on its delta='none'
+    run's buffer exactly, with an all-zero residual."""
+    from repro_torch.core import engine, feddec, flat as flat_lib
+    from repro_torch.core.draws import Draws
+    from repro_torch.core.mixing import MixingDistribution
+    n, d, h = 8, 4096, 3
+    rng = np.random.default_rng(1)
+    row0 = rng.standard_normal(d).astype(np.float32)
+    mats = np.stack([np.outer(rng.standard_normal(64),
+                              rng.standard_normal(64)).reshape(-1)
+                     for _ in range(2)])
+    t = (row0 + rng.standard_normal((h, n, 2)) @ mats).astype(np.float32)
+    grad_fn = engine.value_and_grad(lambda p, b: 0.5 * torch.sum(
+        torch.square(p["x"] - b["t"])))
+    spec = flat_lib.make_flat_spec({"x": torch.zeros(d)})
+
+    def run(dev, spec_str):
+        cfg = feddec.FedDecConfig(
+            mixing=MixingDistribution(topo.ring_graph(n, k=2),
+                                      scheme="metropolis"),
+            h=h, k=2, server_enabled=False, gossip_impl=impl,
+            delta=spec_str)
+        base = torch.tensor(row0, device=dev)
+        state = flat_lib.init_flat_state(spec, {"x": base}, n,
+                                         delta=spec_str)
+        eta = torch.tensor([0.1], device=dev)
+        round_fn = flat_lib.make_flat_feddec_round(
+            cfg, spec, grad_fn, lambda t: eta, device=dev,
+            fuse_update_mix=fused,
+            delta_base=None if spec_str == "none" else base)
+        ops.reset_launch_counts()
+        state, _ = round_fn(state, {"t": torch.tensor(t, device=dev)},
+                            Draws(0, dev))
+        torch.cuda.synchronize()
+        return state, ops.launch_counts()
+
+    got, counts = run(cuda, delta)
+    assert counts[kernel] == h and sum(counts.values()) == h
+    want, cpu_counts = run("cpu", delta)
+    assert sum(cpu_counts.values()) == 0
+    scale = want.flat.abs().max().item()
+    assert (got.flat.cpu() - want.flat).abs().max().item() <= 1e-5 * scale
+    assert (got.residual.cpu() - want.residual).abs().max().item() <= \
+        1e-5 * scale
+    if delta == "full":
+        none, _ = run(cuda, "none")
+        assert torch.equal(got.flat, none.flat)
+        assert not got.residual.any()

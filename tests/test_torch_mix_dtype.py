@@ -352,6 +352,89 @@ def test_the_plain_stacked_ell_follows_the_buffer_dtype():
     _assert_close(y, torch.matmul(w, x).numpy())
 
 
+# -- bf16 buffers: W rounded to the buffer's dtype first --------------------
+
+BF16 = torch.bfloat16
+# the ROADMAP measurement's (8, 4096) leaf, a stacked (8, 3, 5) leaf and
+# a one-column one
+BF16_SHAPES = [(8, 4096), (8, 3, 5), (8, 1)]
+
+
+def _ring2_bf16(shape, seed=0):
+    """ring2 on 8 agents with Metropolis W (entries 0.2, which round to
+    0.2002 in bf16, so a bf16 row sums to 1.00098), and a bf16 buffer of
+    ``shape`` as f32 numpy (exactly representable in bf16)."""
+    g = ref_topo.ring_graph(8, k=2)
+    w = np.asarray(ref_topo.build_weights(g, "metropolis"), np.float32)
+    x = np.random.default_rng(seed).standard_normal(shape)
+    x = np.array(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))
+    return g, w, x
+
+
+def _bf16_pair(x):
+    return jnp.asarray(x, jnp.bfloat16), torch.from_numpy(x).to(BF16)
+
+
+def _assert_bf16_equal(got: torch.Tensor, want) -> None:
+    assert got.dtype == BF16
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("shape", BF16_SHAPES, ids=str)
+def test_bf16_plain_mixes_round_w_to_the_buffer_dtype(shape):
+    """The reference casts W to a bf16 buffer's dtype before its plain
+    mixes (repro/core/gossip.py:60 for the tree, core/engine.py:157 and
+    :182 for the flat buffer and the lattice); the port's 'dense' mixes
+    do too, and take the product in f32 as XLA takes a bf16 product.
+    Tolerance 0.0: the tree leaf, the flat buffer and a two-run lattice
+    equal the reference's element for element (with W kept in f32, 18%
+    of the (8, 4096) leaf's elements differed, by up to 4.4e-3·max|y|)."""
+    g, w, x = _ring2_bf16(shape)
+    rcfg = RefFedDecConfig(mixing=RefMixing(g, scheme="metropolis"))
+    cfg = FedDecConfig(mixing=MixingDistribution(topo.Graph(g.adjacency),
+                                                 scheme="metropolis"))
+    xj, xt = _bf16_pair(x)
+    wj, wt = jnp.asarray(w), torch.from_numpy(w)
+    want = ref_engine.resolve_gossip(rcfg, "tree")(wj, {"a": xj})["a"]
+    _assert_bf16_equal(engine.resolve_gossip(cfg, "tree")(
+        wt, {"a": xt})["a"], want)
+
+    rows = x.reshape(8, -1)
+    rj, rt = _bf16_pair(rows)
+    _assert_bf16_equal(engine.resolve_gossip(cfg, "flat")(wt, rt),
+                       ref_engine.resolve_gossip(rcfg, "flat")(wj, rj))
+
+    other = RefMixing(ref_topo.ring_graph(8, k=1), scheme="metropolis")
+    w2 = np.stack([w, np.asarray(other.fixed_w, np.float32)])
+    x2 = np.stack([rows, rows[::-1]])
+    lj, lt = _bf16_pair(x2)
+    plan = sweep.make_sweep_plan([cfg, cfg])
+    ref_plan = ref_sweep.make_sweep_plan([rcfg, rcfg])
+    _assert_bf16_equal(
+        engine.resolve_gossip(plan, "sweep")(torch.from_numpy(w2), lt),
+        ref_engine.resolve_gossip(ref_plan, "sweep")(jnp.asarray(w2), lj))
+
+
+def test_bf16_plain_stacked_ell_rounds_like_the_reference():
+    """A lattice too skewed for kernel #6 (a star's hub of degree 19) takes
+    the plain stacked ELL, W read in the buffer's dtype and every product
+    and sum rounded to it, as the reference's
+    (repro/core/gossip.py:199-211): equal element for element in bf16."""
+    graphs = [_graphs(k, 1) for k in ("star", "geo")]
+    w = np.stack([np.asarray(ref_topo.build_weights(g, "metropolis"),
+                             np.float32) for g, _ in graphs])
+    x = np.random.default_rng(3).standard_normal((2, N, 4096))
+    xj, xt = _bf16_pair(np.array(jnp.asarray(x, jnp.bfloat16).astype(
+        jnp.float32)))
+    from repro.core import gossip as ref_gossip
+    from repro_torch.core import gossip
+    want = ref_gossip.make_sparse_gossip_batched([g for g, _ in graphs])(
+        jnp.asarray(w), xj)
+    _assert_bf16_equal(gossip.make_sparse_gossip_batched(
+        [g for _, g in graphs])(torch.from_numpy(w), xt), want)
+
+
 # -- the flat engine end to end in f64 --------------------------------------
 
 H, K, ETA = 3, 2, 0.05
