@@ -38,8 +38,9 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
      not a multiple of 4, hd 64/128/256, windows 0, 64 and off the key
      tile, GQA and MQA, f32 and bf16)
      and at their models' shapes (#15 at the tiny LM's B 2, S 1024, H 12,
-     KV 6, hd 64, f32 and RecurrentGemma-9B's B 1, S 4096, H 16, KV 1,
-     hd 256, window 2048, bf16; #16 at Mamba2-2.7B's B 1, S 4096, H 80,
+     KV 6, hd 64, f32, RecurrentGemma-9B's B 1, S 4096, H 16, KV 1,
+     hd 256, window 2048, bf16 and Qwen1.5-4B's B 1, S 4096, H 20, KV 20,
+     hd 128, bf16; #16 at Mamba2-2.7B's B 1, S 4096, H 80,
      P 64, N 128, bf16; #17 at RecurrentGemma-9B's B 1, S 4096, W 4096),
      within 1e-5·max|y| in f32 and 1e-2·max|y| in bf16, #17's h_last
      equal to h[:, -1] and h to the plain version's (0.0); timed at the
@@ -121,17 +122,36 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
      issue fewer than OPS_PER_STEP_MAX device ops (one batched pass of
      line 4 over the 8 agents; the per-row loop issued 18,579);
   6. models: the prefill (Model.logits) of the tiny LM (B 2, S 1024,
-     f32), RecurrentGemma-9B and Mamba2-2.7B (B 1, S 4096, bf16) at full
-     width and depth from random weights, impl='xla' then impl='pallas'
-     on the same weights, each after an untimed warm-up forward: the
-     pallas forward launches #15 12 times (tiny LM), #15 12 and #17 26
-     times (RecurrentGemma-9B) or #16 64 times (Mamba2-2.7B) and nothing
-     else, the logits are finite and agree to 1e-4·max|logit| (f32) or
-     to bf16_model_bound (bf16); each bf16 model again with f32 compute
-     on the same weights, to 1e-4·max|logit|; then Mamba2-2.7B's bf16 gap
-     at S 1024, 2048 and 4096 (token prefixes) for weight seeds 0, 1 and
-     2, each within bf16_model_bound.  RecurrentGemma-9B peaks near 45 GB
-     in bf16 and near 46 GB with f32 compute;
+     f32), RecurrentGemma-9B, Mamba2-2.7B and Qwen1.5-4B (B 1, S 4096,
+     bf16) at full width and depth from random weights, impl='xla' then
+     impl='pallas' on the same weights, each after an untimed warm-up
+     forward: the pallas forward launches #15 12 times (tiny LM), #15 12
+     and #17 26 times (RecurrentGemma-9B), #16 64 times (Mamba2-2.7B) or
+     #15 40 times at head_dim 128 (Qwen1.5-4B) and nothing else, the
+     logits are finite and agree to 1e-4·max|logit| (f32) or to
+     bf16_model_bound of the model's reference gap (bf16); each bf16
+     model again with f32 compute on the same weights, to
+     1e-4·max|logit|; then Mamba2-2.7B's bf16 gap at S 1024, 2048 and
+     4096 (token prefixes) for weight seeds 0, 1 and 2, each within
+     bf16_model_bound.  RecurrentGemma-9B peaks near 45 GB in bf16 and
+     near 46 GB with f32 compute;
+  6b. serving (launch/serve.py) at full width and depth from random
+     weights, greedy, prompt 16 + 32 new tokens: (S1) Qwen1.5-4B at B 4,
+     (S2) RecurrentGemma-9B and (S3) Mamba2-2.7B at B 1, each generate
+     timed after an untimed one (ms a decode step, host clock,
+     synchronized; peak), launching no kernel; each sequence
+     teacher-forced through Model.decode_step, its logits against the
+     xla prefill of the same tokens (phase 6's bounds) and generate's
+     tokens the argmax of them exactly; (S4) generate_personalized at
+     the tiny LM, B 8, request i served by agent i of path (a)'s final
+     buffer (base = the mean row, deltas = rows − base), equal token for
+     token to one generate per request on base + delta_i, both timed;
+     then checkpointing: where zstandard imports, path (a) with
+     --ckpt-dir, its checkpoint equal to the run's state bit for bit and
+     serving agent 0 from it (--ckpt) equal to serving the state; where
+     it does not, --ckpt-dir must fail before the first step with the
+     reference's message, and the round trip is recorded as waiting for
+     zstandard;
   7. paper: the paper's §4 experiments through their drivers
      (repro_torch.experiments): fig4 at the paper's settings (80 runs of
      20 agents, d = 25, T = 5000, float64, the draws from seed 42) on the
@@ -270,7 +290,9 @@ RGLRU_EDGE = [(2, 77, 301, "float32"), (1, 33, 4097, "bfloat16"),
 ZOO_FULL = {
     "flash_attention": {"tiny": (2, 1024, 12, 6, 64, 0, "float32"),
                         "recurrentgemma-9b": (1, 4096, 16, 1, 256, 2048,
-                                              "bfloat16")},
+                                              "bfloat16"),
+                        "qwen1.5-4b": (1, 4096, 20, 20, 128, 0,
+                                       "bfloat16")},
     "ssd_scan": {"mamba2-2.7b": (1, 4096, 80, 64, 128, "bfloat16")},
     "rglru_scan": {"recurrentgemma-9b": (1, 4096, 4096, "float32")},
 }
@@ -278,11 +300,12 @@ ZOO_TOL = {"float32": 1e-5, "bfloat16": 1e-2}   # × max|y|
 BF16_FLOP_PER_S = 989e12        # H100 SXM tensor cores, dense
 # model phase: (name, batch, seq) and the launches each forward must make
 ZOO_MODELS = [("tiny", 2, 1024), ("recurrentgemma-9b", 1, 4096),
-              ("mamba2-2.7b", 1, 4096)]
+              ("mamba2-2.7b", 1, 4096), ("qwen1.5-4b", 1, 4096)]
 ZOO_LAUNCHES = {"tiny": {"flash_attention": 12},
                 "recurrentgemma-9b": {"flash_attention": 12,
                                       "rglru_scan": 26},
-                "mamba2-2.7b": {"ssd_scan": 64}}
+                "mamba2-2.7b": {"ssd_scan": 64},
+                "qwen1.5-4b": {"flash_attention": 40}}
 MODEL_TOL_F32 = 1e-4            # × max|logit|, the f32 tiny LM
 # training path -> (gossip impl, fuse, optimizer, the kernel it launches)
 PATHS = {
@@ -394,14 +417,31 @@ PEAK_RTOL = 0.01
 # keeps P in f32 on one path, bf16 on the other) and Mamba2-2.7B (0.0),
 # measured by tests/test_torch_zoo.py; see bf16_model_bound.
 BF16_REF_GAP = 0.006
+# Qwen1.5-4B's, measured the same way (tests/test_torch_decode.py): 0.0078
+# to 0.0105 over 4 weight seeds, zero and random QKV biases and 2 token
+# draws, one or two bf16 steps of its largest logit
+BF16_REF_GAP_QWEN = 0.011
 
 
-def bf16_model_bound(layers: int, smoke_layers: int) -> float:
+def bf16_model_bound(layers: int, smoke_layers: int,
+                     ref_gap: float = BF16_REF_GAP) -> float:
     """The bound on |pallas − xla| / max|logit| of a bf16 full model: the
     reference's smoke-config gap, grown as a random walk over the depth
     (√(layers / smoke_layers): each layer adds its own rounding
     differences) and doubled for the port's other summation orders."""
-    return 2 * BF16_REF_GAP * math.sqrt(layers / smoke_layers)
+    return 2 * ref_gap * math.sqrt(layers / smoke_layers)
+
+
+def model_tol(torch, name: str, cfg) -> tuple[float, str]:
+    """(the bound on |Δlogit| / max|logit| of the full config ``cfg`` of
+    model ``name``, its rule): MODEL_TOL_F32 at f32 compute, else
+    bf16_model_bound of the model's reference gap."""
+    if cfg.compute_dtype == torch.float32:
+        return MODEL_TOL_F32, "f32"
+    gap = BF16_REF_GAP_QWEN if name == "qwen1.5-4b" else BF16_REF_GAP
+    smoke_layers = cfg.smoke().num_layers
+    return bf16_model_bound(cfg.num_layers, smoke_layers, gap), (
+        f"bf16: 2·{gap}·√({cfg.num_layers}/{smoke_layers})")
 
 
 class Failure(RuntimeError):
@@ -1637,7 +1677,7 @@ def train_path(torch, impl: str, fuse: bool, optimizer: str,
                arch: str = "tiny", smoke: bool = False,
                agents: int = N_AGENTS, batch: int = 2, fused: bool = True,
                layout: str | None = None, delta: str = "none",
-               d_model: int = 768):
+               d_model: int = 768, ckpt_dir: str | None = None):
     """One run of the trainer; with ``sweep_axis`` the R_FULL-run lattice,
     whose whole (R, n, D) state it returns (else the FedState); ``compress``
     is the gossip codec (--gossip-compress), ``delta`` the delta
@@ -1645,7 +1685,7 @@ def train_path(torch, impl: str, fuse: bool, optimizer: str,
     width (--layers, --d-model), ``arch``/``smoke`` the model (--arch,
     --smoke), ``fused`` False the one-step executor (--per-step) and
     ``layout`` the state layout (--state-layout; None: the trainer's
-    default)."""
+    default), ``ckpt_dir`` the checkpoint directory (--ckpt-dir)."""
     from repro_torch.configs.base import FedConfig
     from repro_torch.launch import train
     # what earlier phases left to the garbage collector goes first, so
@@ -1661,7 +1701,7 @@ def train_path(torch, impl: str, fuse: bool, optimizer: str,
                   gossip_impl=impl, gossip_compress=compress, delta=delta),
         steps=steps, per_agent_batch=batch, seq_len=128, optimizer=optimizer,
         fuse_update_mix=fuse, fused=fused, state_layout=layout, seed=0,
-        device=DEVICE, timing=timing, **sweep)
+        device=DEVICE, timing=timing, ckpt_dir=ckpt_dir, **sweep)
     torch.cuda.synchronize()
     return state, losses, timing, torch.cuda.max_memory_allocated()
 
@@ -2404,12 +2444,7 @@ def model_phase(torch) -> dict:
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         row = compare_paths(torch, name, model, params, batch)
-        if cfg.compute_dtype == torch.float32:
-            tol, rule = MODEL_TOL_F32, "f32"
-        else:
-            tol = bf16_model_bound(cfg.num_layers, cfg.smoke().num_layers)
-            rule = (f"bf16: 2·{BF16_REF_GAP}·√({cfg.num_layers}/"
-                    f"{cfg.smoke().num_layers})")
+        tol, rule = model_tol(torch, name, cfg)
         check(row["rel_gap"] <= tol,
               f"{name}: max|Δlogit|/max|logit| {row['rel_gap']:.4e} > "
               f"{tol:.4e} ({rule})")
@@ -2440,6 +2475,241 @@ def model_phase(torch) -> dict:
         del params, batch, tokens, draws
         torch.cuda.empty_cache()
     out["mamba2-2.7b"]["gap_table"] = mamba2_gap_table(torch)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 6b: serving (launch/serve.py) and checkpointing (--ckpt-dir)
+# ---------------------------------------------------------------------------
+
+# (S1)-(S3): (model, batch) at full width and depth, the serving CLI's
+# prompt and new tokens; (S4): the personalized batch of path (a)'s agents
+SERVE_MODELS = [("qwen1.5-4b", 4), ("recurrentgemma-9b", 1),
+                ("mamba2-2.7b", 1)]
+SERVE_PROMPT, SERVE_NEW = 16, 32
+
+
+def teacher_forced(torch, model, params, seqs):
+    """(B, S, V) logits of Model.decode_step over every token of ``seqs``
+    from empty caches: the steps ``generate`` takes on the same tokens."""
+    b, s = seqs.shape
+    caches = model.init_caches(b, s, dtype=torch.float32, device=DEVICE)
+    outs = []
+    with torch.inference_mode():
+        for t in range(s):
+            logits, caches = model.decode_step(params, {
+                "tokens": seqs[:, t:t + 1],
+                "positions": torch.full((b, 1), t, device=DEVICE)}, caches)
+            outs.append(logits[:, 0])
+    return torch.stack(outs, dim=1)
+
+
+def timed_generate(torch, fn):
+    """(the result of ``fn()``, its host-clock seconds, its peak bytes),
+    after one untimed call of ``fn`` (allocator and cuBLAS warm)."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+
+def check_served(torch, name: str, seqs, prompt, vocab: int) -> None:
+    b, s = prompt.shape
+    check(tuple(seqs.shape) == (b, s + SERVE_NEW),
+          f"[serve] {name}: sequences {tuple(seqs.shape)}")
+    check(torch.equal(seqs[:, :s], prompt),
+          f"[serve] {name}: the prompt is not the sequences' prefix")
+    check(bool(((seqs >= 0) & (seqs < vocab)).all()),
+          f"[serve] {name}: a token outside the vocabulary")
+
+
+def serve_model(torch, name: str, batch: int, seed: int) -> dict:
+    """generate at full width (greedy, SERVE_PROMPT + SERVE_NEW), timed
+    after an untimed call; then each sequence teacher-forced through
+    decode_step: its logits against the xla prefill of the same tokens
+    (model_tol), and generate's tokens the argmax of them exactly."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.draws import Draws
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    cfg = get_config(name)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    draws = Draws(seed, DEVICE)
+    params = model.init(draws)
+    prompt = torch.randint(0, cfg.vocab_size, (batch, SERVE_PROMPT),
+                           generator=draws.generator, device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    ops.reset_launch_counts()
+    seqs, secs, peak = timed_generate(torch, lambda: serve.generate(
+        model, params, prompt, max_new_tokens=SERVE_NEW))
+    launched = {k: v for k, v in ops.launch_counts().items() if v}
+    check(not launched, f"[serve] {name}: decode launched {launched}")
+    check_served(torch, name, seqs, prompt, cfg.vocab_size)
+    steps = SERVE_PROMPT + SERVE_NEW
+    dec = teacher_forced(torch, model, params, seqs)
+    check(bool(torch.isfinite(dec).all()),
+          f"[serve] {name}: non-finite decode logits")
+    picked = dec[:, SERVE_PROMPT - 1:steps - 1].argmax(dim=-1)
+    check(torch.equal(picked, seqs[:, SERVE_PROMPT:]),
+          f"[serve] {name}: generate's tokens are not the argmax of the "
+          f"teacher-forced decode logits")
+    with torch.inference_mode():
+        full = model.logits(params, {
+            "tokens": seqs, "positions": torch.arange(
+                steps, device=DEVICE).expand(batch, steps)}, impl="xla")
+    err, scale = logit_gap(torch, dec, full)
+    tol, rule = model_tol(torch, name, cfg)
+    check(math.isfinite(err) and err <= tol * scale,
+          f"[serve] {name}: decode vs prefill max|Δlogit|/max|logit| "
+          f"{err / scale:.4e} > {tol:.4e} ({rule})")
+    row = {"batch": batch, "prompt": SERVE_PROMPT, "new_tokens": SERVE_NEW,
+           "params": model.param_count(params),
+           "compute_dtype": str(cfg.compute_dtype), "generate_s": secs,
+           "ms_per_step": 1e3 * secs / steps,
+           "new_tokens_per_s": batch * SERVE_NEW / secs, "peak_bytes": peak,
+           "rel_gap_decode_vs_prefill": err / scale, "bound": tol,
+           "bound_rule": rule, "init_s": init_s}
+    log(f"[serve] ({name}) {row['params']:,} params, B {batch}, prompt "
+        f"{SERVE_PROMPT} + {SERVE_NEW} new, {cfg.compute_dtype}: generate "
+        f"{secs:.2f} s, {row['ms_per_step']:.2f} ms a decode step (host "
+        f"clock, synchronized; B tokens a step), "
+        f"{row['new_tokens_per_s']:.1f} new tok/s, peak {peak / 1e9:.2f} "
+        f"GB; decode vs prefill max|Δlogit|/max|logit| {err / scale:.3e} "
+        f"(bound {tol:.3e}, {rule}); tokens = argmax of the decode logits")
+    del params, dec, full, draws
+    torch.cuda.empty_cache()
+    return row
+
+
+def personalized_phase(torch, a_final) -> dict:
+    """(S4): generate_personalized at the tiny LM, one request per agent
+    of path (a)'s final buffer: base = the mean row, deltas = rows − base,
+    against one generate per request on base + delta_i, token for token."""
+    from repro_torch.core import flat as flat_lib
+    from repro_torch.core.draws import Draws
+    from repro_torch.launch import serve, train
+    from repro_torch.models import build_model
+    model = build_model(train.tiny_lm_config())
+    draws = Draws(11, DEVICE)
+    spec = flat_lib.make_flat_spec(model.init(draws))
+    rows = a_final.to(DEVICE)
+    base = rows.mean(dim=0)
+    deltas = rows - base
+    del rows
+    b = deltas.shape[0]
+    prompt = torch.randint(0, model.cfg.vocab_size, (b, SERVE_PROMPT),
+                           generator=draws.generator, device=DEVICE)
+    seqs, secs, peak = timed_generate(torch, lambda: serve.generate_personalized(
+        model, spec, base, deltas, prompt, max_new_tokens=SERVE_NEW))
+    check_served(torch, "personalized", seqs, prompt, model.cfg.vocab_size)
+    t0 = time.perf_counter()
+    for i in range(b):
+        naive = serve.generate(model, spec.unravel(base + deltas[i]),
+                               prompt[i:i + 1], max_new_tokens=SERVE_NEW)
+        check(torch.equal(naive, seqs[i:i + 1]),
+              f"[serve] (S4) request {i}: the batched tokens differ from "
+              f"its own generate's")
+    torch.cuda.synchronize()
+    naive_s = time.perf_counter() - t0
+    steps = SERVE_PROMPT + SERVE_NEW
+    row = {"batch": b, "d": spec.d, "generate_personalized_s": secs,
+           "ms_per_step": 1e3 * secs / steps, "naive_loop_s": naive_s,
+           "naive_ms_per_step": 1e3 * naive_s / steps, "peak_bytes": peak,
+           "equal_to_naive": True}
+    log(f"[serve] (S4) personalized tiny LM ({spec.d:,} params), B {b} "
+        f"agents of path (a): {secs:.2f} s, {row['ms_per_step']:.2f} ms a "
+        f"decode step (host clock, synchronized), peak {peak / 1e9:.2f} "
+        f"GB; the naive loop ({b} generate calls) {naive_s:.2f} s; tokens "
+        f"equal to the naive loop's")
+    del base, deltas
+    torch.cuda.empty_cache()
+    return row
+
+
+def checkpoint_phase(torch) -> dict:
+    """--ckpt-dir on path (a).  Without zstandard the trainer must fail
+    before its first step with the reference's message, launching
+    nothing and writing nothing.  With it, the checkpoint must load back
+    equal to the run's state bit for bit, and serving agent 0 from it
+    (launch/serve.py --ckpt) must decode what the in-memory agent 0
+    decodes."""
+    import shutil
+    from repro_torch.kernels import ops
+    ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    try:
+        import zstandard  # noqa: F401
+    except ImportError as err:
+        probe = f"{type(err).__name__}: {err}"
+        ops.reset_launch_counts()
+        try:
+            train_path(torch, "pallas", False, "sgd", ckpt_dir=str(ckpt_dir))
+        except ModuleNotFoundError as err2:
+            message = str(err2)
+        else:
+            raise Failure("--ckpt-dir trained without zstandard")
+        check("zstandard" in message and message.startswith(
+            "checkpointing needs"), f"[ckpt] unexpected message: {message}")
+        check(sum(ops.launch_counts().values()) == 0
+              and not ckpt_dir.exists(),
+              "[ckpt] --ckpt-dir failed after the first step")
+        log(f"[ckpt] zstandard does not import on this machine ({probe}): "
+            f"--ckpt-dir fails before the first step with the reference's "
+            f"message ({message!r}); the checkpoint round trip waits for "
+            f"zstandard on this machine")
+        return {"zstandard": False, "probe": probe, "message": message,
+                "round_trip": "waits for zstandard on this machine"}
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.launch import serve, train
+    from repro_torch.models import build_model
+    from repro_torch.tree import leaves, tree_map
+    state, _, timing, _ = train_path(torch, "pallas", False, "sgd",
+                                     ckpt_dir=str(ckpt_dir))
+    tree = load_checkpoint(str(ckpt_dir))
+    check(int(tree["step"]) == state.step == STEPS + 1,
+          f"[ckpt] step {int(tree['step'])}, state {state.step}")
+    for got, want in zip(leaves(tree["params"]), leaves(state.params)):
+        check(torch.equal(got.to(DEVICE), want),
+              "[ckpt] a loaded leaf differs from the run's state")
+    model = build_model(train.tiny_lm_config())
+    prompt = torch.arange(2 * SERVE_PROMPT, device=DEVICE).view(2, -1)
+    served = serve.generate(model, serve.load_agent_params(
+        str(ckpt_dir), 0, DEVICE), prompt, max_new_tokens=8)
+    in_memory = serve.generate(model, tree_map(lambda x: x[0],
+                                               state.params),
+                               prompt, max_new_tokens=8)
+    check(torch.equal(served, in_memory),
+          "[ckpt] serving the checkpoint differs from serving the state")
+    size = sum(p.stat().st_size for p in ckpt_dir.iterdir())
+    log(f"[ckpt] path (a) --ckpt-dir: {size / 1e9:.2f} GB on disk, loads "
+        f"back bit for bit (step {int(tree['step'])}); serving agent 0 "
+        f"from it decodes what the state decodes")
+    del state, tree
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"zstandard": True, "bytes": size, "round_trip": "bit for bit",
+            "loop_s": timing["loop_s"]}
+
+
+def serve_phase(torch, a_final) -> dict:
+    """(S1)-(S3), (S4) and the checkpoint phase, each with its wall
+    time."""
+    runs = [(name, lambda n=name, b=batch, seed=seed: serve_model(
+        torch, n, b, seed)) for seed, (name, batch) in enumerate(SERVE_MODELS)]
+    runs += [("personalized", lambda: personalized_phase(torch, a_final)),
+             ("checkpoint", lambda: checkpoint_phase(torch))]
+    out = {}
+    for name, run in runs:
+        t0 = time.perf_counter()
+        out[name] = run()
+        out[name]["phase_s"] = time.perf_counter() - t0
+        log(f"[serve] {name}: {out[name]['phase_s']:.1f} s")
     return out
 
 
@@ -2734,7 +3004,6 @@ def main() -> int:
     log(f"[tree] phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     delta_paths = delta_phase(torch, a_final)
-    del a_final
     log(f"[delta] phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     f64_paths = f64_path_phase(torch)
@@ -2753,6 +3022,10 @@ def main() -> int:
     t0 = time.perf_counter()
     models = model_phase(torch)
     log(f"[models] phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    serving = serve_phase(torch, a_final)
+    del a_final
+    log(f"[serve] phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     paper = paper_phase(torch)
     log(f"[paper] phase {time.perf_counter() - t0:.1f} s")
@@ -2805,7 +3078,8 @@ def main() -> int:
          "training": training, "tree_paths": tree_paths,
          "delta_paths": delta_paths, "grads": grads,
          "f64_paths": f64_paths,
-         "profile": profile, "models": models, "paper": paper,
+         "profile": profile, "models": models, "serve": serving,
+         "paper": paper,
          "total_s": total_s},
         indent=1))
     print(json.dumps({"kernels": line}))

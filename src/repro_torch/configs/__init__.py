@@ -5,6 +5,7 @@ from repro_torch.configs.base import ArchConfig, FedConfig, SSMConfig
 _ARCH_MODULES = {
     "mamba2-2.7b": "mamba2_2p7b",
     "recurrentgemma-9b": "recurrentgemma_9b",
+    "qwen1.5-4b": "qwen1_5_4b",
 }
 
 ARCH_NAMES = ("tiny",) + tuple(_ARCH_MODULES)

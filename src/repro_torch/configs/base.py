@@ -1,7 +1,8 @@
 """Architecture + run configuration (counterpart of repro/configs/base.py).
 
-The fields the port's models read: the dense GQA language model, Griffin's
-RG-LRU / local-attention hybrid and the Mamba2 SSD stack.  Dtypes are
+The fields the port's models read: the dense GQA language model (with
+Qwen1.5's QKV bias and long-context window), Griffin's RG-LRU /
+local-attention hybrid and the Mamba2 SSD stack.  Dtypes are
 torch dtypes in place of ``jnp`` ones.  MoE, MLA, encoder-decoder and
 frontend fields are not ported.
 """
@@ -50,10 +51,12 @@ class ArchConfig:
 
     # attention
     attention_kind: str = "gqa"    # gqa | none
+    qkv_bias: bool = False
     rope_kind: str = "rope"        # rope | none
     rope_theta: float = 10_000.0
     sliding_window: int = 0        # >0 ⇒ local layers use this window
     global_every: int = 0          # every n-th layer global (0 ⇒ none)
+    long_context_window: int = 0   # >0 ⇒ the window of long_variant decode
 
     # block pattern for hybrids: tuple like ("rglru", "rglru", "attn")
     block_pattern: tuple[str, ...] = ()
@@ -101,7 +104,8 @@ class ArchConfig:
     def smoke(self) -> "ArchConfig":
         """Reduced same-family variant (the reference's ``smoke``): ≤ the
         block pattern's length of layers (2 at least), d_model ≤ 256,
-        ≤ 4 heads of 64, vocab ≤ 512, window ≤ 32, f32."""
+        ≤ 4 heads of 64, vocab ≤ 512, window ≤ 32, a long-context window
+        of 64 where there is one, f32."""
         heads = min(self.num_heads, 4)
         kv = min(self.num_kv_heads, heads)
         updates: dict[str, Any] = dict(
@@ -118,6 +122,7 @@ class ArchConfig:
                             if self.sliding_window else 0),
             global_every=min(self.global_every, 2) if self.global_every
             else 0,
+            long_context_window=64 if self.long_context_window else 0,
             param_dtype=torch.float32,
             compute_dtype=torch.float32,
         )

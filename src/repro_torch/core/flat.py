@@ -28,6 +28,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.checkpoint import tensor_from_numpy
 from repro_torch.core import compress as compress_lib
 from repro_torch.core import delta as delta_lib
 from repro_torch.core import engine
@@ -126,10 +127,12 @@ def _spec_from_leaves(pairs, dtype) -> FlatSpec:
 
 
 def params_from_numpy(tree: dict, device="cpu") -> dict:
-    """Reference parameters (``jax.tree.map(np.asarray, params)``) → the
-    port's dict of tensors: same key paths, shapes and layout."""
+    """A reference tree of arrays (``jax.tree.map(np.asarray, params)``,
+    or a decode-cache tree, whose layout is the port's too) → the port's
+    dict of tensors: same key paths, shapes and dtypes (bfloat16
+    included)."""
     return build_tree(*zip(*[
-        (path, torch.tensor(np.asarray(leaf), device=device))
+        (path, tensor_from_numpy(leaf, device))
         for path, leaf in sorted_leaves(tree)]))
 
 

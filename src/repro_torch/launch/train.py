@@ -16,14 +16,17 @@ feedback, on the flat buffer (the EF mix kernels #9/#11 when fused, #14
 on int8 × pallas), on the lattice (#10/#12 when fused) or leaf by leaf
 on the tree.  ``--delta full|topk:K|lowrank:R`` exchanges each agent's
 encoded delta against the initial row through the same error feedback
-(flat layout, one run).  ``--optimizer sgd|momentum|adamw``.  Runs on
-``cuda`` unless ``--device cpu`` is given, and fails without a card.
+(flat layout, one run).  ``--optimizer sgd|momentum|adamw``.
+``--ckpt-dir DIR`` saves the stacked parameters and the step at the end
+(checkpoint/checkpoint.py; msgpack and zstandard); launch/serve.py
+``--ckpt DIR`` serves agent 0's slice.  Runs on ``cuda`` unless
+``--device cpu`` is given, and fails without a card.
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.train --gossip-impl pallas \\
       --fuse-update-mix --steps 10 [--sweep-runs 2 --sweep-axis h]
       [--gossip-compress int8 | --delta topk:4096]
-      [--arch mamba2-2.7b --smoke]
+      [--arch mamba2-2.7b --smoke] [--ckpt-dir DIR]
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch import optim
+from repro_torch.checkpoint import require_codecs, save_checkpoint
 from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.configs.base import ArchConfig, FedConfig
 from repro_torch.core import feddec
@@ -145,6 +149,7 @@ def train_loop(cfg: ArchConfig, fed: FedConfig, *, steps: int,
                fused: bool = True, state_layout: str | None = None,
                fuse_update_mix: bool = False,
                sweep_runs: int | None = None, sweep_axis: str = "seed",
+               ckpt_dir: str | None = None, ckpt_every: int = 0,
                log_every: int = 10, seed: int = 0, data_alpha: float = 0.3,
                device="cuda", draws=None, params0: dict | None = None,
                timing: dict | None = None, keep_lattice: bool = False):
@@ -164,7 +169,11 @@ def train_loop(cfg: ArchConfig, fed: FedConfig, *, steps: int,
     views into its buffers (``flat.unflatten_fedstate``), as the
     reference returns it.  ``draws`` (default ``Draws(seed, device)``,
     or ``SweepDraws`` for a lattice) makes every random draw;
-    ``params0`` replaces the random initial weights.  A ``timing`` dict
+    ``params0`` replaces the random initial weights.  ``ckpt_dir``
+    saves ``{'params': the stacked tree, 'step'}`` there every
+    ``ckpt_every`` steps (when a multiple of it falls in a fused round)
+    and at the end; msgpack and zstandard are checked for before the
+    first step.  A ``timing`` dict
     receives ``setup_s`` and ``loop_s``, host-clock seconds; the loop
     ends by reading the losses back, which waits for the device.
     """
@@ -187,6 +196,11 @@ def train_loop(cfg: ArchConfig, fed: FedConfig, *, steps: int,
         if state_layout != "flat":
             raise ValueError("--sweep-runs batches the flat (n_agents, D) "
                              "buffer; it requires --state-layout flat")
+        if ckpt_dir:
+            raise ValueError("checkpointing a sweep lattice is not "
+                             "supported; run without --ckpt-dir")
+    if ckpt_dir:
+        require_codecs()
     device = resolve_device(device)
     model = build_model(cfg)
     fcfg, n_agents = build_fed_setup(fed)
@@ -242,6 +256,15 @@ def train_loop(cfg: ArchConfig, fed: FedConfig, *, steps: int,
     n_params = model.param_count(params0)
     del params0  # the state holds its own copies
 
+    def save(st, done: int) -> None:
+        # the stacked tree (views into a flat buffer) and t as a 0-d int32,
+        # as the reference saves them
+        stacked = spec.unflatten(st.flat) if state_layout == "flat" \
+            else st.params
+        save_checkpoint(ckpt_dir, done, {
+            "params": stacked,
+            "step": torch.tensor(st.step, dtype=torch.int32)})
+
     print(f"[train] {cfg.name}: {n_params:,} params × {n_agents} agents, "
           f"graph={fed.graph}, H={fed.h}, K={fcfg.k}, opt={optimizer}, "
           f"executor={'fused' if fused else 'per-step'}, "
@@ -259,11 +282,16 @@ def train_loop(cfg: ArchConfig, fed: FedConfig, *, steps: int,
     t_start = time.time()
     t_loop = time.perf_counter()
 
-    def log(prev: int, done: int) -> None:
+    def log_and_ckpt(prev: int, done: int) -> None:
+        # fire when a multiple of the period falls in (prev, done]: a fused
+        # round advances h steps at once and must not skip boundaries
         if log_every and done // log_every > prev // log_every:
             rate = done / (time.time() - t_start)
             print(f"[train] step {done:5d}  loss {losses[-1]:.4f}  "
                   f"({rate:.2f} steps/s)")
+        if (ckpt_dir and ckpt_every
+                and done // ckpt_every > prev // ckpt_every):
+            save(state, done)
 
     if fused:
         done = 0
@@ -283,17 +311,19 @@ def train_loop(cfg: ArchConfig, fed: FedConfig, *, steps: int,
             losses.extend((loss if sweep_runs is None
                            else loss.mean(dim=1)).tolist())
             done += chunk
-            log(done - chunk, done)
+            log_and_ckpt(done - chunk, done)
     else:
         for i in range(steps):
             tokens = draws.tokens(data, per_agent_batch, None)
             state, metrics = step(state, {"tokens": tokens,
                                           "positions": positions}, draws)
             losses.append(float(metrics["loss"]))
-            log(i, i + 1)
+            log_and_ckpt(i, i + 1)
     if timing is not None:
         timing["setup_s"] = t_loop - t_setup
         timing["loop_s"] = time.perf_counter() - t_loop
+    if ckpt_dir:
+        save(state, steps)
     if sweep_runs is not None:
         finals = metrics["loss"][-1].tolist()
         print("[train] sweep finals (last-step loss per run): "
@@ -308,7 +338,7 @@ def train_loop(cfg: ArchConfig, fed: FedConfig, *, steps: int,
 
 
 
-_NOT_PORTED = ("--mesh-agents", "--mesh-model", "--n-total", "--ckpt-dir")
+_NOT_PORTED = ("--mesh-agents", "--mesh-model", "--n-total")
 
 
 def main(argv=None) -> None:
@@ -368,6 +398,9 @@ def main(argv=None) -> None:
                         "('full' is lossless, bit-identical to none).  "
                         "Flat layout, one run; mutually exclusive with "
                         "--gossip-compress")
+    p.add_argument("--ckpt-dir", default=None,
+                   help="save the stacked parameters and the step here at "
+                        "the end (needs msgpack and zstandard)")
     for flag in _NOT_PORTED:
         p.add_argument(flag, default=None)
     p.add_argument("--vocab", type=int, default=32_768,
@@ -404,7 +437,8 @@ def main(argv=None) -> None:
         fedavg_control=args.fedavg, fused=args.fused,
         state_layout=args.state_layout,
         fuse_update_mix=args.fuse_update_mix, sweep_runs=args.sweep_runs,
-        sweep_axis=args.sweep_axis, device=args.device)
+        sweep_axis=args.sweep_axis, ckpt_dir=args.ckpt_dir,
+        device=args.device)
     first = np.mean(losses[:5])
     last = np.mean(losses[-5:])
     print(f"[train] done: loss {first:.4f} → {last:.4f} "

@@ -1,15 +1,24 @@
-"""Grouped-query causal attention, prefill without a cache
-(repro/models/attention.py), optionally windowed.
+"""Grouped-query attention with causal / sliding-window masking and a KV
+cache (repro/models/attention.py).
 
-``impl='xla'`` is the plain path.  The reference scans over query chunks
-(``_chunked_prefill``) to bound memory at long sequences, and falls back
-to one dense block when the sequence does not divide the chunk; both give
-the same numbers.  The port computes the one masked block: scores in f32
-(the reference's ``preferred_element_type``), softmax, then the
-probabilities cast to v's dtype for the PV product.  ``impl='pallas'``
-routes the causal prefill through the flash-attention kernel
+Prefill (``cache=None``): ``impl='xla'`` is the plain path.  The
+reference scans over query chunks (``_chunked_prefill``) to bound memory
+at long sequences, and falls back to one dense block when the sequence
+does not divide the chunk; both give the same numbers.  The port
+computes the one masked block: scores in f32 (the reference's
+``preferred_element_type``), softmax, then the probabilities cast to v's
+dtype for the PV product.  ``impl='pallas'`` routes the causal prefill
+through the flash-attention kernel
 (:func:`repro_torch.kernels.ops.flash_attention`, kernel #15), which keeps
 the probabilities in f32: at bf16 the two paths differ by design.
+
+Decode (``cache`` given): one query token against a (possibly rolling)
+cache, on the plain path whatever ``impl`` says, as the reference
+decodes.  The cache stores per-slot absolute positions (-1: empty), so
+one mask covers full caches, sliding windows and the ring buffer of the
+``long_variant`` window.  The new k/v go into slot ``index % cache_len``
+out of place, selected by a tensor comparison: no host read, so the step
+runs under ``torch.func.vmap`` (personalized serving, launch/serve.py).
 """
 
 from __future__ import annotations
@@ -18,48 +27,98 @@ import torch
 
 from repro_torch.models import layers
 
-__all__ = ["NEG_INF", "init_attention", "attention"]
+__all__ = ["NEG_INF", "init_attention", "init_cache", "attention"]
 
 NEG_INF = -1e30
 
 
 def init_attention(draws, d: int, num_heads: int, num_kv_heads: int,
-                   head_dim: int, dtype) -> dict:
+                   head_dim: int, dtype, bias: bool = False) -> dict:
     return {
         "wq": layers.init_dense(draws, (d, num_heads, head_dim), dtype,
-                                fan_in=d),
+                                fan_in=d, bias=bias),
         "wk": layers.init_dense(draws, (d, num_kv_heads, head_dim), dtype,
-                                fan_in=d),
+                                fan_in=d, bias=bias),
         "wv": layers.init_dense(draws, (d, num_kv_heads, head_dim), dtype,
-                                fan_in=d),
+                                fan_in=d, bias=bias),
         "wo": layers.init_dense(draws, (num_heads, head_dim, d), dtype,
                                 fan_in=num_heads * head_dim),
     }
+
+
+def init_cache(batch: int, cache_len: int, num_kv_heads: int, head_dim: int,
+               dtype=torch.bfloat16, *, device) -> dict:
+    """Empty KV cache.  ``positions`` = -1 marks unfilled slots."""
+    return {
+        "k": torch.zeros((batch, cache_len, num_kv_heads, head_dim),
+                         dtype=dtype, device=device),
+        "v": torch.zeros((batch, cache_len, num_kv_heads, head_dim),
+                         dtype=dtype, device=device),
+        "positions": torch.full((cache_len,), -1, dtype=torch.int32,
+                                device=device),
+        "index": torch.zeros((), dtype=torch.int32, device=device),
+    }
+
+
+def _scores(q, k) -> torch.Tensor:
+    """q (B,S,H,hd), k (B,T,Kv,hd) → f32 scores (B,Kv,G,S,T)."""
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    qg = q.reshape(b, s, kv, h // kv, hd)
+    return torch.einsum("bskgh,btkh->bkgst", qg.float(), k.float())
+
+
+def _out(probs, v) -> torch.Tensor:
+    """probs (B,Kv,G,S,T) cast to v's dtype, times v (B,T,Kv,hd) →
+    (B,S,H,hd)."""
+    b, kv, g, s, _ = probs.shape
+    out = torch.einsum("bkgst,btkh->bskgh", probs.to(v.dtype), v)
+    return out.reshape(b, s, kv * g, v.shape[-1])
 
 
 def _attend_block(q, k, v, qpos, kpos, scale: float,
                   window: int = 0) -> torch.Tensor:
     """q (B,S,H,hd), k/v (B,T,Kv,hd) → (B,S,H,hd), causal by position and,
     for ``window`` > 0, limited to the last ``window`` keys."""
-    b, s, h, hd = q.shape
-    kv = k.shape[2]
-    qg = q.reshape(b, s, kv, h // kv, hd)
-    scores = torch.einsum("bskgh,btkh->bkgst", qg.float(), k.float())
+    scores = _scores(q, k)
     mask = kpos[..., None, :] <= qpos[..., :, None]               # (B,S,T)
     if window > 0:
         mask &= kpos[..., None, :] > qpos[..., :, None] - window
     scores = scores.mul_(scale).masked_fill_(~mask[:, None, None], NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     del scores
-    out = torch.einsum("bkgst,btkh->bskgh", probs.to(v.dtype), v)
-    return out.reshape(b, s, h, v.shape[-1])
+    return _out(probs, v)
+
+
+def _decode(q, k, v, cache: dict, pos_now, scale: float, window: int,
+            compute_dtype):
+    """One query against the cache with (k, v) stored at its slot: the
+    attention output (B,1,H,hd) and the new cache."""
+    s_cache = cache["k"].shape[1]
+    slot = torch.arange(s_cache, device=q.device) == cache["index"] % s_cache
+    kc = torch.where(slot[None, :, None, None], k.to(cache["k"].dtype),
+                     cache["k"])
+    vc = torch.where(slot[None, :, None, None], v.to(cache["v"].dtype),
+                     cache["v"])
+    posc = torch.where(slot, pos_now.to(torch.int32), cache["positions"])
+    new_cache = {"k": kc, "v": vc, "positions": posc,
+                 "index": cache["index"] + 1}
+    scores = _scores(q, kc.to(compute_dtype)) * scale
+    valid = (posc >= 0) & (posc <= pos_now)
+    if window > 0:
+        valid &= posc > pos_now - window
+    scores = scores.masked_fill(~valid, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    return _out(probs, vc.to(compute_dtype)), new_cache
 
 
 def attention(params: dict, x: torch.Tensor, positions: torch.Tensor, *,
               head_dim: int, window: int = 0, rope_kind: str = "rope",
-              rope_theta: float = 10_000.0, compute_dtype=torch.float32,
-              impl: str = "xla") -> torch.Tensor:
-    """Causal GQA self-attention with RoPE; x (B, S, d) → (B, S, d)."""
+              rope_theta: float = 10_000.0, cache: dict | None = None,
+              compute_dtype=torch.float32, impl: str = "xla"):
+    """Causal GQA self-attention with RoPE; x (B, S, d), positions (B, S).
+
+    Returns (out (B, S, d), the updated cache or None)."""
     q = layers.dense(params["wq"], x, compute_dtype=compute_dtype)
     k = layers.dense(params["wk"], x, compute_dtype=compute_dtype)
     v = layers.dense(params["wv"], x, compute_dtype=compute_dtype)
@@ -69,11 +128,15 @@ def attention(params: dict, x: torch.Tensor, positions: torch.Tensor, *,
     elif rope_kind != "none":
         raise ValueError(f"unknown rope kind {rope_kind!r}")
     scale = head_dim ** -0.5
-    if impl == "pallas":
+    new_cache = None
+    if cache is not None:
+        out, new_cache = _decode(q, k, v, cache, positions[0, -1], scale,
+                                 window, compute_dtype)
+    elif impl == "pallas":
         from repro_torch.kernels import ops
         out = ops.flash_attention(q, k, v, window=window, scale=scale)
     else:
         out = _attend_block(q, k, v, positions, positions, scale, window)
     out = out.to(compute_dtype)
     return torch.einsum("bshd,hdo->bso", out,
-                        params["wo"]["w"].to(compute_dtype))
+                        params["wo"]["w"].to(compute_dtype)), new_cache

@@ -12,8 +12,9 @@ The block: two d→width projections; branch 1 → GeLU; branch 2 → causal
 conv1d (width 4) → RG-LRU; elementwise merge; width→d projection.  The
 plain path (``use_pallas=False``) scans in log depth on tensors, as the
 reference's ``jax.lax.associative_scan`` does; the kernel path runs
-kernel #17 (:func:`repro_torch.kernels.ops.rglru_scan`).  Decode caches
-are not ported.
+kernel #17 (:func:`repro_torch.kernels.ops.rglru_scan`).  Decode carries
+an O(1) cache, the conv's last inputs and h, and takes one step of the
+recurrence on the plain path.
 """
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ import torch.nn.functional as F
 
 from repro_torch.models import layers
 
-__all__ = ["init_rglru_block", "rglru_block", "rglru_scan", "rglru_gates"]
+__all__ = ["init_rglru_block", "rglru_block", "init_rglru_cache",
+           "rglru_scan", "rglru_gates"]
 
 _C = 8.0  # Griffin's fixed gate sharpness
 
@@ -72,32 +74,51 @@ def init_rglru_block(draws, d: int, width: int, dtype,
     }
 
 
-def causal_conv(x: torch.Tensor, w: torch.Tensor,
-                bias: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv1d from a zero history: x (B, S, C), w (K, C);
-    the taps are summed in the reference's order, in x's dtype."""
+def init_rglru_cache(batch: int, width: int, conv_width: int = 4,
+                     dtype=torch.float32, *, device) -> dict:
+    return {"conv": torch.zeros((batch, conv_width - 1, width), dtype=dtype,
+                                device=device),
+            "h": torch.zeros((batch, width), device=device)}
+
+
+def causal_conv(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                cache: torch.Tensor | None = None):
+    """Depthwise causal conv1d: x (B, S, C), w (K, C), from the history
+    ``cache`` (B, K − 1, C) (zeros when None); the taps are summed in the
+    reference's order, in x's dtype.  Returns (y, the new history: the
+    last K − 1 inputs, in x's dtype)."""
     k, s = w.shape[0], x.shape[1]
-    xp = F.pad(x, (0, 0, k - 1, 0))
+    if cache is None:
+        xp = F.pad(x, (0, 0, k - 1, 0))
+    else:
+        xp = torch.cat([cache.to(x.dtype), x], dim=1)
     y = xp[:, 0:s] * w[0]
     for i in range(1, k):
         y = y + xp[:, i:i + s] * w[i]
-    return y + bias
+    return y + bias, xp[:, s:]
 
 
 def rglru_block(params: dict, x: torch.Tensor, *, compute_dtype,
-                use_pallas: bool = False) -> torch.Tensor:
-    """The Griffin recurrent block's prefill; x (B, S, d) → (B, S, d)."""
+                cache: dict | None = None, use_pallas: bool = False):
+    """The Griffin recurrent block; x (B, S, d) → ((B, S, d), the new
+    cache or None).  With ``cache`` x is one token (S = 1)."""
     gate = layers.gelu(layers.dense(params["proj_gelu"], x,
                                     compute_dtype=compute_dtype))
     rec = layers.dense(params["proj_rec"], x, compute_dtype=compute_dtype)
-    rec = causal_conv(rec, params["conv_w"].to(compute_dtype),
-                      params["conv_b"].to(compute_dtype))
+    rec, new_conv = causal_conv(rec, params["conv_w"].to(compute_dtype),
+                                params["conv_b"].to(compute_dtype),
+                                None if cache is None else cache["conv"])
     a, bx = rglru_gates(params, rec)
-    if use_pallas:
+    new_cache = None
+    if cache is not None:
+        h_new = a[:, 0] * cache["h"] + bx[:, 0]
+        h = h_new[:, None]
+        new_cache = {"conv": new_conv, "h": h_new}
+    elif use_pallas:
         from repro_torch.kernels import ops
         h, _ = ops.rglru_scan(a, bx)
     else:
         h, _ = rglru_scan(a, bx)
     y = h.to(compute_dtype) * gate
-    return layers.dense(params["out_proj"], y, compute_dtype=compute_dtype)
-
+    return layers.dense(params["out_proj"], y,
+                        compute_dtype=compute_dtype), new_cache

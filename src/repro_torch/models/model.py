@@ -1,4 +1,5 @@
-"""Public model facade: init / loss / grad_fn (repro/models/model.py)."""
+"""Public model facade: init / loss / grad_fn and the serving surface,
+init_caches / encode / decode_step (repro/models/model.py)."""
 
 from __future__ import annotations
 
@@ -68,6 +69,36 @@ class Model:
         with the torch.func transforms)."""
         return engine.value_and_grad(
             functools.partial(self.loss, impl=impl))
+
+
+    # ---- serving ---------------------------------------------------------
+    def init_caches(self, batch: int, cache_len: int, *,
+                    long_variant: bool = False, dtype=torch.bfloat16,
+                    device) -> dict:
+        """Empty decode caches on ``device``; KV caches in ``dtype``."""
+        return transformer.init_decode_caches(
+            self.cfg, batch, cache_len, long_variant=long_variant,
+            dtype=dtype, device=device)
+
+    def encode(self, params: dict, batch: dict) -> None:
+        """Encoder memory of an encoder-decoder config: every ported
+        config is decoder-only, so there is none."""
+        del params, batch
+        return None
+
+    def decode_step(self, params: dict, batch: dict, caches: dict, *,
+                    enc_out=None, long_variant: bool = False):
+        """One-token decode, batch {'tokens' (B, 1), 'positions' (B, 1)}.
+
+        Returns (logits (B, 1, V), new caches).  Runs the plain path; it
+        reads nothing back to the host, so it runs under
+        ``torch.func.vmap``."""
+        if enc_out is not None or self.cfg.rope_kind == "mrope":
+            raise NotImplementedError(
+                "encoder-decoder and M-RoPE decode are not ported to "
+                "repro_torch yet (ROADMAP.md Queue A item 5)")
+        return transformer.forward(params, batch, self.cfg, caches=caches,
+                                   long_variant=long_variant)
 
 
 def build_model(cfg: ArchConfig) -> Model:

@@ -8,8 +8,9 @@ The sequence mixer is the scalar-identity SSM
 ``ssd_chunked`` is the plain path: the paper's chunked block decomposition
 (an intra-chunk masked-decay product, chunk states, a short recurrence
 over them), in f32.  ``use_pallas`` runs kernel #16
-(:func:`repro_torch.kernels.ops.ssd_scan`) instead.  Decode caches
-(``ssd_decode_step``, ``init_mamba2_cache``) are not ported.
+(:func:`repro_torch.kernels.ops.ssd_scan`) instead.  Decode keeps (the
+conv's last inputs, the f32 SSM state) per layer and takes one step of
+the recurrence (``ssd_decode_step``): O(1) per token.
 """
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ from repro_torch.configs.base import SSMConfig
 from repro_torch.models import layers
 from repro_torch.models.griffin import causal_conv
 
-__all__ = ["init_mamba2", "mamba2_block", "ssd_chunked"]
+__all__ = ["init_mamba2", "mamba2_block", "init_mamba2_cache", "ssd_chunked",
+           "ssd_decode_step"]
 
 
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -81,6 +83,18 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     return y.reshape(bs, s, h, p).to(x.dtype), state
 
 
+def ssd_decode_step(state: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
+                    a: torch.Tensor, b: torch.Tensor, c: torch.Tensor):
+    """One-token SSD update: state (B,H,P,N) f32, x (B,H,P), dt (B,H),
+    a (H,), b/c (B,N).  Returns (y (B,H,P) in x's dtype, the new state)."""
+    dk = torch.exp(dt.float() * a.float())                  # (B,H)
+    dx = x.float() * dt.float()[..., None]                  # (B,H,P)
+    new_state = state * dk[:, :, None, None] + \
+        torch.einsum("bhp,bd->bhpd", dx, b.float())
+    y = torch.einsum("bhpd,bd->bhp", new_state, c.float())
+    return y.to(x.dtype), new_state
+
+
 def init_mamba2(draws, d: int, cfg: SSMConfig, dtype) -> dict:
     di = cfg.d_inner(d)
     nh = cfg.num_heads(d)
@@ -102,9 +116,21 @@ def init_mamba2(draws, d: int, cfg: SSMConfig, dtype) -> dict:
     }
 
 
+def init_mamba2_cache(batch: int, d: int, cfg: SSMConfig,
+                      dtype=torch.float32, *, device) -> dict:
+    di = cfg.d_inner(d)
+    nh = cfg.num_heads(d)
+    return {"conv": torch.zeros((batch, cfg.d_conv - 1, di + 2 * cfg.d_state),
+                                dtype=dtype, device=device),
+            "ssm": torch.zeros((batch, nh, cfg.head_dim, cfg.d_state),
+                               device=device)}
+
+
 def mamba2_block(params: dict, x: torch.Tensor, cfg: SSMConfig, *,
-                 compute_dtype, use_pallas: bool = False) -> torch.Tensor:
-    """One Mamba2 mixer's prefill; x (B, S, d) → (B, S, d)."""
+                 compute_dtype, cache: dict | None = None,
+                 use_pallas: bool = False):
+    """One Mamba2 mixer; x (B, S, d) → ((B, S, d), the new cache or None).
+    With ``cache`` x is one token (S = 1)."""
     bsz, s, d = x.shape
     di = cfg.d_inner(d)
     nh = cfg.num_heads(d)
@@ -112,14 +138,21 @@ def mamba2_block(params: dict, x: torch.Tensor, cfg: SSMConfig, *,
 
     zxbcdt = layers.dense(params["in_proj"], x, compute_dtype=compute_dtype)
     z, xbc, dt_raw = torch.split(zxbcdt, [di, di + 2 * n, nh], dim=-1)
-    xbc = F.silu(causal_conv(xbc, params["conv_w"].to(compute_dtype),
-                             params["conv_b"].to(compute_dtype)))
-    xin, b, c = torch.split(xbc, [di, n, n], dim=-1)
+    xbc, new_conv = causal_conv(xbc, params["conv_w"].to(compute_dtype),
+                                params["conv_b"].to(compute_dtype),
+                                None if cache is None else cache["conv"])
+    xin, b, c = torch.split(F.silu(xbc), [di, n, n], dim=-1)
 
     dt = F.softplus(dt_raw.float() + params["dt_bias"])    # (B,S,H) f32
     a = -torch.exp(params["a_log"])                         # (H,) < 0
     xh = xin.reshape(bsz, s, nh, cfg.head_dim)
-    if use_pallas:
+    new_cache = None
+    if cache is not None:
+        y1, new_ssm = ssd_decode_step(cache["ssm"], xh[:, 0], dt[:, 0], a,
+                                      b[:, 0], c[:, 0])
+        y = y1[:, None]
+        new_cache = {"conv": new_conv, "ssm": new_ssm}
+    elif use_pallas:
         from repro_torch.kernels import ops
         # the split views are strided: the kernel takes dense rows
         y = ops.ssd_scan(xh.contiguous(), dt, a, b.contiguous(),
@@ -130,4 +163,5 @@ def mamba2_block(params: dict, x: torch.Tensor, cfg: SSMConfig, *,
     y = y + params["d_skip"].to(y.dtype)[None, None, :, None] * xh
     y = y.reshape(bsz, s, di)
     y = layers.rms_norm(params["norm"], y * F.silu(z))
-    return layers.dense(params["out_proj"], y, compute_dtype=compute_dtype)
+    return layers.dense(params["out_proj"], y,
+                        compute_dtype=compute_dtype), new_cache

@@ -373,12 +373,13 @@ def test_cli_sweep_errors_are_the_reference_messages(case):
 
 @pytest.mark.parametrize("argv", [
     ["--mesh-agents", "2"], ["--mesh-model", "2"],
-    ["--sweep-runs", "2", "--gossip-compress", "int8", "--ckpt-dir", "c"],
+    ["--n-total", "64", "--ckpt-dir", "c"],
     ["--delta", "topk:4", "--n-total", "64"], ["--n-total", "64"],
-    ["--ckpt-dir", "ckpt"], ["--arch", "qwen1.5-4b"]])
+    ["--arch", "gemma3-12b"], ["--arch", "mistral-large-123b"]])
 def test_cli_rejects_what_is_not_ported(argv, capsys):
-    """--delta is ported; with it, a flag that is not (the population's
-    delta store, --n-total) is still rejected."""
+    """--delta and --ckpt-dir are ported; with them, a flag that is not
+    (--n-total: the population's delta store and its checkpoint) is still
+    rejected, as are the architectures not ported yet."""
     with pytest.raises(SystemExit) as err:
         port_train.main(["--device", "cpu", *argv])
     assert err.value.code == 2
