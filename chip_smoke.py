@@ -111,6 +111,22 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
      spectra at the cut and a repeat of the path are printed); then one
      lowrank:8 encode+decode of one full-width row (12,336 × 12,688),
      timed, its ‖u − s‖² equal to ‖u − b‖² − Σσ² within 1e-3 relative;
+     then (4e) the population engine (--n-total), each path launching
+     #2 (the cohort mix) once a step and no other kernel: (P1) n_total =
+     cohort = 8 at full width, one round, its rows equal to the flat
+     engine's with --gossip-impl sparse on the same weights, batches and
+     draws, bit for bit; (P2) population_loop at full width, n_total 16,
+     cohorts of 8, 20 steps, overlapped and synchronous in turns (4
+     runs; rows and losses equal bit for bit), --ckpt-dir's store
+     restored bit for bit, then a
+     round of --sampling stale --staleness 0.5 --n-clusters 2, with ms a
+     round, drains, h2d/d2h and gather/scatter times and peaks; (P3) the
+     reference benchmark's scale rows (linreg D 25, cohort 256, H 10,
+     ring2, 5 rounds) at n_total 1e4 and 1e6, µs a round, their peak
+     device bytes within 1% of each other and the stores equal to
+     population_cost_model's; and the card's pinned and pageable h2d
+     rates beside the model's nominal 16 GB/s.  The stores (10 GB each in
+     P2) go to build/population, whose free space is printed first;
      then (4b) line 4 as the engines run it, one torch.func.vmap of
      Model.grad_fn over every agent row, at full width against the
      per-row torch.autograd.grad loop: path (c)'s 8 agents and first
@@ -2097,6 +2113,421 @@ def delta_phase(torch, a_final) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 4e: the population engine (--n-total)
+# ---------------------------------------------------------------------------
+
+# P2: the CLI's population mode at full width (the store: n_total rows of
+# D_FULL f32, 626 MB each)
+POP_N_TOTAL, POP_COHORT, POP_STEPS = 16, 8, 20
+# P3: the reference benchmark's scale row (benchmarks/bench_population.py:
+# 62-63, 102-130): linreg D 25, cohort 256, H 10, ring2, 5 rounds
+POP_SCALE = dict(cohort=256, d=25, h=10, ring_k=2, m_rows=10, rounds=5)
+POP_SCALE_N = (10**4, 10**6)
+# P3's two peaks against each other: the engine's device memory has no
+# n_total term
+POP_PEAK_RTOL = 0.01
+POP_DIR = ROOT / "build" / "population"
+
+
+def pop_disk(need: int, what: str) -> None:
+    """Print the free space where the stores go and fail the phase (with
+    this message) when ``need`` bytes do not fit."""
+    import shutil
+    POP_DIR.mkdir(parents=True, exist_ok=True)
+    free = shutil.disk_usage(POP_DIR).free
+    log(f"[population] {what}: needs {need / 1e9:.2f} GB on {POP_DIR}, "
+        f"{free / 1e9:.2f} GB free")
+    check(free >= need, f"[population] {what}: {need / 1e9:.2f} GB do not "
+                        f"fit in the {free / 1e9:.2f} GB free on {POP_DIR}")
+
+
+def drop_store(store) -> None:
+    """Delete a memmap store's file (its space is freed when the last
+    reference to the store goes)."""
+    import os
+    if store.path is not None and os.path.exists(store.path):
+        os.remove(store.path)
+
+
+def rows_equal(a, b) -> bool:
+    """Two (n, D) memmaps equal bit for bit, compared a row at a time."""
+    import numpy as np
+    return a.shape == b.shape and all(
+        np.array_equal(a[i].view(np.uint32), b[i].view(np.uint32))
+        for i in range(a.shape[0]))
+
+
+def h2d_bandwidth(torch) -> dict:
+    """The card's host→device copy rate, 1 GiB from pageable and from
+    pinned memory (host clock around a synchronized copy, best of 3)."""
+    out = {}
+    n = 1 << 28                                     # 1 GiB of f32
+    dev = torch.empty(n, device=DEVICE)
+    for name, pin in (("pageable", False), ("pinned", True)):
+        host = torch.ones(n, pin_memory=pin)
+        times = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dev.copy_(host, non_blocking=pin)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        out[f"h2d_{name}_bytes_per_s"] = 4 * n / min(times[1:])
+        del host
+    del dev
+    torch.cuda.empty_cache()
+    return out
+
+
+def pop_anchor(torch) -> dict:
+    """P1: the population engine at n_total = cohort = 8 (uniform, ring2,
+    H = 10, K = 2) against the flat engine with gossip_impl='sparse' (path
+    (b)'s configuration) on the same weights, batches and draws, one
+    round each at full width: the final rows equal bit for bit, and each
+    run launches #2 once a step and no other kernel."""
+    import numpy as np
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.core import flat as flat_lib, population as pop
+    from repro_torch.core.draws import Draws
+    from repro_torch.data.federated_lm import make_federated_lm
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    model = build_model(train.tiny_lm_config())
+    draws = Draws(0, DEVICE)
+    data = make_federated_lm(model.cfg.vocab_size, N_AGENTS, 128, draws)
+    params0 = model.init(draws)
+    spec = flat_lib.make_flat_spec(params0)
+    tokens = draws.tokens(data, 2, STEPS)
+    batches = {"tokens": tokens,
+               "positions": torch.arange(128, device=DEVICE).expand(
+                   tokens.shape)}
+    eta = torch.full((1,), 3e-3, device=DEVICE)
+    fcfg, n = train.build_fed_setup(FedConfig(n_agents=N_AGENTS, h=STEPS,
+                                              k=2, graph="ring2",
+                                              gossip_impl="sparse"))
+    round_fn = flat_lib.make_flat_feddec_round(
+        fcfg, spec, model.grad_fn(), lambda t: eta, device=DEVICE)
+    state = flat_lib.init_flat_state(spec, params0, n)
+    gc.collect()
+    ops.reset_launch_counts()
+    state, _ = round_fn(state, batches, Draws(5, DEVICE))
+    torch.cuda.synchronize()
+    flat_counts = ops.launch_counts()
+    want = state.flat.cpu().numpy()
+    del state, round_fn
+    torch.cuda.empty_cache()
+    pop_disk(N_AGENTS * spec.d * 4, "P1 store")
+    graph = train.population_graph("ring2", N_AGENTS)
+    eng = pop.PopulationEngine(
+        pop.PopulationSpec(N_AGENTS, N_AGENTS, max_degree=graph.max_degree),
+        spec, model.grad_fn(), lambda t: eta, graph, h=STEPS, k=2,
+        device=DEVICE, row_init=spec.ravel(params0),
+        store_path=str(POP_DIR / "p1.rows"))
+    del params0
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng.run(1, lambda r, ids: batches, Draws(5, DEVICE))
+    round_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    got = eng.store.rows
+    equal = rows_equal(got, want)
+    diff = float(np.abs(got - want).max()) if not equal else 0.0
+    drop_store(eng.store)
+    del eng, batches, want
+    torch.cuda.empty_cache()
+    for name, c in (("flat engine (sparse)", flat_counts),
+                    ("population engine", counts)):
+        check(c["gossip_mix_sparse"] == STEPS
+              and sum(c.values()) == STEPS,
+              f"[population] P1 {name}: launches {c} (#2 {STEPS} times "
+              f"expected, nothing else)")
+    check(equal, f"[population] P1: the population engine's rows end "
+                 f"{diff:.3e} from the flat sparse engine's (0 expected)")
+    log(f"[population] P1 n_total = cohort = {N_AGENTS}, D={spec.d:,}: rows "
+        f"equal to the flat sparse engine's bit for bit; #2 launched "
+        f"{counts['gossip_mix_sparse']} times in {STEPS} steps; round "
+        f"{1e3 * round_s:.1f} ms (host clock, synchronized, first round)")
+    return {"launches": counts["gossip_mix_sparse"], "equal": equal,
+            "round_ms": 1e3 * round_s, "d": spec.d}
+
+
+def pop_cli_run(torch, tag: str, **kw) -> tuple:
+    """One population_loop at full width (the CLI's default model,
+    POP_N_TOTAL agents, cohorts of POP_COHORT, ring2, H = 10, K = 2,
+    batch 2, seq 128); returns (store, losses, timing, peak bytes,
+    launches of #2), the #2 count read right after the run."""
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    steps = kw.pop("steps", POP_STEPS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    timing: dict = {}
+    ops.reset_launch_counts()
+    store, losses = train.population_loop(
+        train.tiny_lm_config(), FedConfig(h=STEPS, k=2, graph="ring2"),
+        n_total=POP_N_TOTAL, cohort_size=POP_COHORT, steps=steps,
+        per_agent_batch=2, seq_len=128, device=DEVICE, timing=timing,
+        store_path=str(POP_DIR / f"{tag}.rows"), **kw)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    check(counts["gossip_mix_sparse"] == steps
+          and sum(counts.values()) == steps,
+          f"[population] P2 {tag}: launches {counts} (#2 {steps} times "
+          f"expected, nothing else)")
+    check(all(math.isfinite(v) for v in losses),
+          f"[population] P2 {tag}: non-finite loss {losses}")
+    return store, losses, timing, torch.cuda.max_memory_allocated(), \
+        counts["gossip_mix_sparse"]
+
+
+# P2's runs, in turns, so that neither schedule takes all of the first
+# run's costs or the host's drift: the rows of the first two are compared
+POP_ORDER = (("overlap", True), ("sync", False), ("sync", False),
+             ("overlap", True))
+
+
+def pop_cli(torch) -> dict:
+    """P2: population_loop at full width, overlapped and synchronous in
+    turns (POP_ORDER): the first pair's rows equal bit for bit, every
+    run's losses equal; --ckpt-dir saving the first run's store
+    (PopulationStore.restore returns the same rows); then a round of
+    --sampling stale --staleness 0.5 --n-clusters 2."""
+    import shutil
+    import numpy as np
+    from repro_torch.core.population import PopulationStore
+    from repro_torch.launch import analysis
+    store_bytes = POP_N_TOTAL * D_FULL * 4
+    model = analysis.population_cost_model(
+        n_total=POP_N_TOTAL, cohort_size=POP_COHORT, d=D_FULL,
+        max_degree=4, h=STEPS)
+    pop_disk(3 * store_bytes, "P2 stores and checkpoint")
+    ckpt = POP_DIR / "ckpt"
+    out = {"n_total": POP_N_TOTAL, "cohort": POP_COHORT, "d": D_FULL,
+           "store_bytes": store_bytes, "cost_model": model, "runs": []}
+    first = None
+    for i, (tag, overlap) in enumerate(POP_ORDER):
+        store, losses, timing, peak, launches = pop_cli_run(
+            torch, f"{tag}{i}", overlap=overlap,
+            ckpt_dir=str(ckpt) if i == 0 else None)
+        rounds = timing["rounds"]
+        run = {"overlap": overlap, "losses": losses, "launches": launches,
+               "peak_bytes": peak, "round_ms": 1e3 * timing["loop_s"] / rounds,
+               **timing}
+        out["runs"].append(run)
+        check(store.nbytes == model["host_store_bytes"],
+              f"[population] P2: store {store.nbytes} B, the cost model's "
+              f"{model['host_store_bytes']:.0f}")
+        check(losses == out["runs"][0]["losses"],
+              f"[population] P2 run {i} ({tag}): losses differ from run 0's")
+        log(f"[population] P2 run {i} {tag}: {POP_STEPS} steps in {rounds} "
+            f"rounds, {run['round_ms']:.1f} ms a round (host clock, "
+            f"synchronized), {timing['drains']} drains, loss "
+            f"{losses[0]:.4f} → {losses[-1]:.4f}, store "
+            f"{store.nbytes / 1e9:.2f} GB host-side, peak "
+            f"{peak / 1e9:.2f} GB; a round's h2d "
+            + ", ".join(f"{ms:.1f}" for ms in timing["h2d_ms"])
+            + " ms and d2h " + ", ".join(f"{ms:.1f}"
+                                         for ms in timing["d2h_ms"])
+            + " ms (copy stream, CUDA events); host ms: "
+            + "; ".join(f"{name} " + ", ".join(
+                f"{1e3 * s:.0f}" for s in timing[f"{name}_s"])
+                for name in ("launch", "wait", "prepare", "gather",
+                             "scatter")))
+        if i == 0:
+            back = PopulationStore.restore(
+                str(ckpt), writable_path=str(POP_DIR / "restored.rows"))
+            same = rows_equal(back.rows, store.rows) and \
+                (back.last_round == store.last_round).all()
+            drop_store(back)
+            del back
+            shutil.rmtree(ckpt)
+            check(same, "[population] P2: the restored store differs from "
+                        "the saved one")
+            out["ckpt_roundtrip_equal"] = True
+            log("[population] P2 --ckpt-dir: PopulationStore.restore "
+                "returns the saved rows and counters bit for bit")
+            first = store
+            continue
+        if i == 1:
+            equal = rows_equal(first.rows, store.rows)
+            drop_store(first)
+            first = None
+            check(equal, "[population] P2: the overlapped and the "
+                         "synchronous schedule end on different rows")
+            out["overlap_equals_sync"] = True
+        drop_store(store)
+        del store
+    ms = {tag: float(np.mean([r["round_ms"] for r in out["runs"]
+                              if r["overlap"] == (tag == "overlap")]))
+          for tag in ("overlap", "sync")}
+    out["round_ms"] = ms
+    out["overlap_speedup"] = ms["sync"] / ms["overlap"]
+    log(f"[population] P2: overlapped and synchronous rows and losses equal "
+        f"bit for bit; a round {ms['overlap']:.1f} ms overlapped, "
+        f"{ms['sync']:.1f} ms synchronous (means of 2, in turns; "
+        f"{out['overlap_speedup']:.3f}×)")
+    store, losses, timing, peak, launches = pop_cli_run(
+        torch, "stale", steps=STEPS, sampling="stale", staleness=0.5,
+        n_clusters=2)
+    drop_store(store)
+    out["stale"] = {"losses": losses, "launches": launches,
+                    "peak_bytes": peak,
+                    "round_ms": 1e3 * timing["loop_s"] / timing["rounds"]}
+    log(f"[population] P2 stale, staleness 0.5, 2 clusters: loss "
+        f"{losses[0]:.4f} → {losses[-1]:.4f}, #2 launched {launches} "
+        f"times, a round {out['stale']['round_ms']:.1f} ms, peak "
+        f"{peak / 1e9:.2f} GB")
+    return out
+
+
+def pop_scale_engine(torch, n_total: int):
+    """P3's engine: linreg D 25 (the grad written out, repro_torch.data.
+    linreg), cohorts of 256 over a ring2 population of ``n_total``, its
+    minibatches drawn on the card from a fixed (256, 10, 25) dataset;
+    returns (engine, batch_fn)."""
+    import numpy as np
+    from repro_torch.core import flat as flat_lib, population as pop
+    from repro_torch.core import topology
+    from repro_torch.data import linreg
+    s = POP_SCALE
+    c, d = s["cohort"], s["d"]
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(5)
+    x = torch.randn(c, s["m_rows"], d, device=DEVICE, generator=gen) * 0.25
+    y = torch.randn(c, s["m_rows"], device=DEVICE, generator=gen)
+    eta = torch.full((1,), 1e-3, device=DEVICE)
+
+    def batch_fn(round_idx, ids):
+        idx = torch.randint(0, s["m_rows"], (s["h"], c, 1), device=DEVICE,
+                            generator=gen)
+        return {"x": torch.take_along_dim(x[None], idx[..., None], dim=2),
+                "y": torch.take_along_dim(y[None], idx, dim=2)}
+
+    eng = pop.PopulationEngine(
+        pop.PopulationSpec(n_total, c, max_degree=2 * s["ring_k"]),
+        flat_lib.make_flat_spec({"z": torch.zeros(d)}),
+        linreg.make_grad_fn(s["m_rows"]), lambda t: eta,
+        topology.ring_graph_csr(n_total, s["ring_k"]), h=s["h"], k=2,
+        device=DEVICE, row_init=np.zeros(d, np.float32),
+        store_path=str(POP_DIR / f"p3_{n_total}.rows"))
+    return eng, batch_fn
+
+
+def pop_scale_rounds(torch, eng, batch_fn, draws, overlap: bool) -> tuple:
+    """POP_SCALE's rounds of ``eng``: (metrics, µs a round on the host
+    clock, synchronized, peak bytes, peak bytes above what was allocated
+    before, launch counts)."""
+    from repro_torch.kernels import ops
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    mets = eng.run(POP_SCALE["rounds"], batch_fn, draws, overlap=overlap)
+    torch.cuda.synchronize()
+    us = 1e6 * (time.perf_counter() - t0) / POP_SCALE["rounds"]
+    peak = torch.cuda.max_memory_allocated()
+    return mets, us, peak, peak - base, ops.launch_counts()
+
+
+def pop_scale(torch) -> dict:
+    """P3: the reference benchmark's scale rows at n_total 1e4 and 1e6,
+    each after one warm-up round: µs a round (host clock, synchronized),
+    #2 launched H times a round, the peak device bytes (equal within
+    POP_PEAK_RTOL across n_total: no n_total term; also printed above
+    what was allocated before, such as cuBLAS's workspace), the host
+    store equal to population_cost_model's host_store_bytes; then the
+    largest population's rounds again with the synchronous schedule."""
+    from repro_torch.core.draws import Draws
+    from repro_torch.launch import analysis
+    s = POP_SCALE
+    out = {}
+    for n_total in POP_SCALE_N:
+        model = analysis.population_cost_model(
+            n_total=n_total, cohort_size=s["cohort"], d=s["d"],
+            max_degree=2 * s["ring_k"], h=s["h"])
+        pop_disk(int(model["host_store_bytes"]), f"P3 store n_total "
+                                                 f"{n_total:,}")
+        eng, batch_fn = pop_scale_engine(torch, n_total)
+        draws = Draws(0, DEVICE)
+        eng.run(1, batch_fn, draws)                    # warm-up
+        mets, us, peak, own, counts = pop_scale_rounds(torch, eng, batch_fn,
+                                                       draws, True)
+        want = s["rounds"] * s["h"]
+        check(counts["gossip_mix_sparse"] == want
+              and sum(counts.values()) == want,
+              f"[population] P3 n_total {n_total}: launches {counts} (#2 "
+              f"{want} times expected, nothing else)")
+        check(eng.store.nbytes == model["host_store_bytes"],
+              f"[population] P3 n_total {n_total}: store "
+              f"{eng.store.nbytes} B, the cost model's "
+              f"{model['host_store_bytes']:.0f}")
+        check(bool(math.isfinite(float(mets["loss"].max()))),
+              f"[population] P3 n_total {n_total}: non-finite loss")
+        out[str(n_total)] = {
+            "us_per_round": us, "launches": counts["gossip_mix_sparse"],
+            "peak_device_bytes": peak, "peak_above_base_bytes": own,
+            "drains": int(mets["drains"]),
+            "host_store_bytes": eng.store.nbytes, **eng.stats,
+            "cost_model": model}
+        log(f"[population] P3 n_total {n_total:,}, cohort {s['cohort']}, "
+            f"D {s['d']}: {us:.1f} µs a round (host clock, synchronized, "
+            f"{s['rounds']} rounds; dispatch "
+            f"{1e6 * sum(eng.stats['launch_s']) / s['rounds']:.1f} µs), "
+            f"#2 {counts['gossip_mix_sparse']} launches, {mets['drains']} "
+            f"drains, peak device {peak:,} B ({own:,} B above the "
+            f"allocations before it; the model's "
+            f"{model['peak_device_bytes']:,.0f}), store "
+            f"{eng.store.nbytes:,} B = the model's")
+        if n_total == POP_SCALE_N[-1]:
+            _, us_sync, *_ = pop_scale_rounds(torch, eng, batch_fn, draws,
+                                              False)
+            out[str(n_total)]["us_per_round_sync"] = us_sync
+            log(f"[population] P3 n_total {n_total:,} synchronous: "
+                f"{us_sync:.1f} µs a round, against {us:.1f} overlapped")
+        drop_store(eng.store)
+        del eng
+    peaks = [out[str(n)]["peak_device_bytes"] for n in POP_SCALE_N]
+    check(abs(peaks[1] - peaks[0]) <= POP_PEAK_RTOL * peaks[0],
+          f"[population] P3: peak device bytes {peaks} differ by more than "
+          f"{POP_PEAK_RTOL:.0%} across n_total")
+    return out
+
+
+def population_launches(population: dict) -> dict:
+    """#2's launches on each population path (phase 4e)."""
+    p2 = population["P2"]
+    return {"P1": population["P1"]["launches"],
+            **{f"P2 run {i} " + ("overlap" if r["overlap"] else "sync"):
+               r["launches"] for i, r in enumerate(p2["runs"])},
+            "P2 stale": p2["stale"]["launches"],
+            **{f"P3 n_total {n}": row["launches"]
+               for n, row in population["P3"].items()}}
+
+
+def population_phase(torch) -> dict:
+    """Phase 4e: P1 (the flat-sparse anchor), P2 (the CLI at full width:
+    overlap ≡ sync, the checkpoint), P3 (the scale rows), and the card's
+    h2d rates beside the cost model's nominal H2D_BW."""
+    from repro_torch.launch import analysis
+    bw = h2d_bandwidth(torch)
+    log(f"[population] h2d 1 GiB: pinned "
+        f"{bw['h2d_pinned_bytes_per_s'] / 1e9:.2f} GB/s, pageable "
+        f"{bw['h2d_pageable_bytes_per_s'] / 1e9:.2f} GB/s (host clock, "
+        f"synchronized, best of 3), beside the cost model's nominal "
+        f"{analysis.H2D_BW / 1e9:.0f} GB/s")
+    out = {"bandwidth": bw, "h2d_bw_nominal": analysis.H2D_BW}
+    out["P1"] = pop_anchor(torch)
+    out["P2"] = pop_cli(torch)
+    out["P3"] = pop_scale(torch)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 4b: line 4 as one batched pass, at full width
 # ---------------------------------------------------------------------------
 
@@ -3006,6 +3437,9 @@ def main() -> int:
     delta_paths = delta_phase(torch, a_final)
     log(f"[delta] phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    population = population_phase(torch)
+    log(f"[population] phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     f64_paths = f64_path_phase(torch)
     log(f"[f64] phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -3069,6 +3503,10 @@ def main() -> int:
                 name: p["launches"] for name, p in
                 {**training, **tree_paths, **delta_paths}.items()
                 if p.get("kernel") == kernel}
+        if kernel == "gossip_mix_sparse":
+            # #2 is the population engine's cohort mix: once a step
+            line[-1]["launches_by_path"].update(population_launches(
+                population))
     total_s = time.perf_counter() - T_START
     log(f"[smoke] total {total_s:.1f} s (build included)")
     out_dir = ROOT / "chiprun_out"
@@ -3076,7 +3514,8 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"device": name, "nvidia_smi": smi, "kernels": line,
          "training": training, "tree_paths": tree_paths,
-         "delta_paths": delta_paths, "grads": grads,
+         "delta_paths": delta_paths, "population": population,
+         "grads": grads,
          "f64_paths": f64_paths,
          "profile": profile, "models": models, "serve": serving,
          "paper": paper,

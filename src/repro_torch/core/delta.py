@@ -26,9 +26,13 @@ reassociate them.  With s == u the EF correction diag(W)·(p − s) is 0
 and the exchange is the uncompressed mix.
 
 :class:`DeltaStore` is the host-resident (numpy memmap) store of encoded
-delta rows that the reference's population engine keeps; the port keeps
-its own numpy copy of it, with the same on-disk format (``save`` /
-``restore``).
+delta rows, with the reference's on-disk format (``save`` /
+``restore``).  It is the population engine's store when ``delta !=
+'none'`` (core/population.py: ``PopulationEngine(..., delta=...)``):
+cohorts are decoded to dense rows on the way up and encoded on the way
+back, so the delta is a storage format there and the cohort gossip runs
+on the decoded rows; ``full`` gives the dense store's trajectory bit for
+bit.
 """
 
 from __future__ import annotations

@@ -8,7 +8,7 @@ port cannot reproduce those bits, so all its draws go through one
   * the link-failure uniforms behind W^t when ``p_fail > 0``;
   * the int8 codec's rounding noise (compressed gossip);
   * the server's K participant draws;
-  * the data tokens;
+  * the data tokens (of all agents, or of a population cohort);
   * the model's initial weights and the data distributions.
 
 Methods that the engine calls take the step counter ``t``, so a test can
@@ -70,6 +70,19 @@ class Draws:
         if steps is None:
             return data.sample(self, per_agent_batch)
         return torch.stack([data.sample(self, per_agent_batch)
+                            for _ in range(steps)])
+
+    def cohort_tokens(self, data, ids, per_agent_batch: int, steps: int,
+                      round_idx: int) -> torch.Tensor:
+        """``steps`` batches (steps, c, B, S) of the population cohort
+        ``ids`` (numpy) in round ``round_idx``."""
+        del round_idx
+        agents = torch.from_numpy(np.asarray(ids, dtype=np.int64))
+        if self.device.type == "cuda":
+            # from pinned memory, asynchronously: a pageable upload would
+            # wait for the round in flight on the device
+            agents = agents.pin_memory().to(self.device, non_blocking=True)
+        return torch.stack([data.sample_agents(self, agents, per_agent_batch)
                             for _ in range(steps)])
 
     # -- primitive draws ----------------------------------------------------

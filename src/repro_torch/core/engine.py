@@ -52,7 +52,8 @@ __all__ = ["GradFn", "value_and_grad", "GOSSIP_IMPLS", "LAYOUTS",
            "EngineSpec", "EngineOps", "parse_engine_spec",
            "build_step_body", "make_loop_round", "resolve_gossip",
            "check_gossip_impl", "unknown_gossip_impl",
-           "model_axis_conflict", "make_engine_step", "make_engine_round"]
+           "model_axis_conflict", "make_engine_step", "make_engine_round",
+           "make_population_round"]
 
 # Line 4 for ONE agent: (params, batch) -> (loss, grads), params a dict of
 # tensors, grads in params' layout, loss a 0-d tensor.  The engines call it
@@ -250,6 +251,22 @@ def make_loop_round(step, metrics_fn=None):
         return state, stacked
 
     return round_fn
+
+
+def make_population_round(spec, flat_spec, grad_fn: GradFn, lr_fn, **kwargs):
+    """The population engine's cohort round (repro/core/engine.py:350-363).
+
+    ``spec`` is a :class:`repro_torch.core.population.PopulationSpec`;
+    the result is ``round_fn(state, batches, draws, mix)``, the shared
+    Algorithm-1 body (:func:`build_step_body`) with the mix swapped for
+    the round's cohort-subgraph tables (kernel #2 on CUDA).  The
+    host↔device stream around it is
+    :class:`repro_torch.core.population.PopulationEngine`.  ``device`` is
+    a required keyword, as on every maker.
+    """
+    from repro_torch.core import population as population_lib
+    return population_lib.make_cohort_round(spec, flat_spec, grad_fn, lr_fn,
+                                            **kwargs)
 
 
 # ---------------------------------------------------------------------------

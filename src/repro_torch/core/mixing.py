@@ -21,7 +21,8 @@ from repro_torch.core import topology as topo
 from repro_torch.core.draws import Draws
 
 __all__ = ["MixingDistribution", "identity_mixing",
-           "metropolis_from_uniforms"]
+           "metropolis_from_uniforms", "sample_metropolis_traced",
+           "staleness_tilted_weights"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,6 +124,39 @@ def metropolis_from_uniforms(u: torch.Tensor, adjacency: torch.Tensor,
     diag.zero_()
     diag.copy_(1.0 - w.sum(dim=-1))
     return w
+
+
+#: The reference's name for :func:`metropolis_from_uniforms`
+#: (repro/core/mixing.py:106): its body on the uniforms that the
+#: reference draws from its key, which the port's Draws supplies.
+sample_metropolis_traced = metropolis_from_uniforms
+
+
+def staleness_tilted_weights(w: np.ndarray, ages: np.ndarray,
+                             beta: float) -> np.ndarray:
+    """FedPAE-style age tilt of a mixing matrix (numpy, host side;
+    repro/core/mixing.py:128-157).
+
+    Each off-diagonal column j is scaled by its sender's freshness
+    ``s_j = 1/(1 + β·age_j)`` (age_j: rounds since agent j last took
+    part) and the diagonal rebuilt so that rows still sum to 1.  β = 0
+    returns ``w`` itself.  The result is row-stochastic but in general not
+    doubly stochastic (it returns to the symmetric W as all ages → 0).
+    """
+    if beta == 0.0:
+        return w
+    if beta < 0.0:
+        raise ValueError(f"staleness β must be ≥ 0, got {beta}")
+    w = np.asarray(w, dtype=np.float64)
+    ages = np.asarray(ages, dtype=np.float64)
+    if ages.shape != (w.shape[0],):
+        raise ValueError(
+            f"ages must be ({w.shape[0]},), got {ages.shape}")
+    fresh = 1.0 / (1.0 + beta * np.maximum(ages, 0.0))
+    out = w * fresh[None, :]
+    np.fill_diagonal(out, 0.0)
+    np.fill_diagonal(out, 1.0 - out.sum(axis=1))
+    return out
 
 
 def identity_mixing(n: int) -> MixingDistribution:

@@ -19,9 +19,15 @@ __all__ = ["sample_participants", "participant_weights",
 
 
 def sample_participants(draws, t: int, n: int, k: int) -> torch.Tensor:
-    """Draw S_t: K indices uniform over [n] with replacement → counts (n,)."""
+    """Draw S_t: K indices uniform over [n] with replacement → counts (n,).
+
+    The counts are an integer scatter-add, not ``torch.bincount``, whose
+    CUDA form reads the largest index back to the host: the round would
+    wait there for the device (the population engine dispatches the next
+    cohort's upload behind it)."""
     idx = draws.participants(t, n, k)
-    return torch.bincount(idx, minlength=n).to(torch.int32)
+    counts = torch.zeros(n, dtype=torch.int32, device=idx.device)
+    return counts.index_add_(0, idx, torch.ones_like(idx, dtype=torch.int32))
 
 
 def participant_weights(counts: torch.Tensor, k: int) -> torch.Tensor:

@@ -28,8 +28,20 @@ class FederatedLMData:
 
     def sample(self, draws, per_agent_batch: int) -> torch.Tensor:
         """(n_agents, per_agent_batch, seq_len) int64 tokens."""
-        n, v = self.n_agents, self.vocab_size
-        base = self.agent_logits[:, None, :].expand(n, per_agent_batch, v)
+        return self._sample(draws, self.agent_logits, per_agent_batch)
+
+    def sample_agents(self, draws, agents: torch.Tensor,
+                      per_agent_batch: int) -> torch.Tensor:
+        """(len(agents), per_agent_batch, seq_len) int64 tokens of the
+        agents ``agents`` (an int64 index tensor on the data's device):
+        a population cohort's batch."""
+        return self._sample(draws, self.agent_logits[agents],
+                            per_agent_batch)
+
+    def _sample(self, draws, logits: torch.Tensor,
+                per_agent_batch: int) -> torch.Tensor:
+        n, v = logits.shape
+        base = logits[:, None, :].expand(n, per_agent_batch, v)
         tok = draws.categorical(base)                      # (n, B)
         out = [tok]
         kick = torch.full((n, per_agent_batch, 1), 4.0 * self.shift_strength,

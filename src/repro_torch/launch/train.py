@@ -19,14 +19,21 @@ encoded delta against the initial row through the same error feedback
 (flat layout, one run).  ``--optimizer sgd|momentum|adamw``.
 ``--ckpt-dir DIR`` saves the stacked parameters and the step at the end
 (checkpoint/checkpoint.py; msgpack and zstandard); launch/serve.py
-``--ckpt DIR`` serves agent 0's slice.  Runs on ``cuda`` unless
-``--device cpu`` is given, and fails without a card.
+``--ckpt DIR`` serves agent 0's slice.  ``--n-total N`` trains a
+population of N agents kept in a host memmap store, one sampled cohort
+of ``--cohort-size`` agents a round streamed to the card
+(core/population.py; the cohort mix is kernel #2), and ``--ckpt-dir``
+then saves the store.  Runs on ``cuda`` unless ``--device cpu`` is
+given, and fails without a card.
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.train --gossip-impl pallas \\
       --fuse-update-mix --steps 10 [--sweep-runs 2 --sweep-axis h]
       [--gossip-compress int8 | --delta topk:4096]
       [--arch mamba2-2.7b --smoke] [--ckpt-dir DIR]
+  PYTHONPATH=src python -m repro_torch.launch.train --n-total 4096 \\
+      --cohort-size 64 --steps 20 [--sampling stale --staleness 0.5]
+      [--n-clusters 4] [--no-overlap]
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.configs.base import ArchConfig, FedConfig
 from repro_torch.core import feddec
 from repro_torch.core import flat as flat_lib
+from repro_torch.core import population as population_lib
 from repro_torch.core import sweep as sweep_lib
 from repro_torch.core import topology as topo
 from repro_torch.core.draws import Draws, SweepDraws
@@ -56,7 +64,8 @@ from repro_torch.models import build_model
 OPTIMIZERS = ("sgd", "momentum", "adamw")
 
 __all__ = ["tiny_lm_config", "build_fed_setup", "sweep_lattice_configs",
-           "resolve_device", "train_loop", "main"]
+           "resolve_device", "train_loop", "population_graph",
+           "population_loop", "main"]
 
 
 def tiny_lm_config(d_model: int = 768, layers: int = 12,
@@ -336,9 +345,120 @@ def train_loop(cfg: ArchConfig, fed: FedConfig, *, steps: int,
     return state, losses
 
 
+def population_graph(name: str, n_total: int) -> topo.SparseGraph:
+    """A population-scale graph spec, CSR only, never dense: 'ring<k>'
+    (e.g. ring2) → :func:`topology.ring_graph_csr`, the one family that
+    scales to n_total = 1e6 without a dense draw."""
+    if name.startswith("ring"):
+        k = int(name[4:]) if name[4:] else 1
+        return topo.ring_graph_csr(n_total, k)
+    raise ValueError(
+        f"population mode needs a CSR-scalable graph family; got "
+        f"{name!r} (supported: ring<k>)")
 
 
-_NOT_PORTED = ("--mesh-agents", "--mesh-model", "--n-total")
+def population_loop(cfg: ArchConfig, fed: FedConfig, *, n_total: int,
+                    cohort_size: int, sampling: str = "uniform",
+                    staleness: float = 0.0, n_clusters: int = 0,
+                    steps: int, per_agent_batch: int, seq_len: int,
+                    lr: float = 3e-3, ckpt_dir: str | None = None,
+                    overlap: bool = True, seed: int = 0,
+                    data_alpha: float = 0.3, device="cuda", draws=None,
+                    params0: dict | None = None,
+                    store_path: str | None = None,
+                    timing: dict | None = None):
+    """Cohort-streamed FedDec over an n_total-agent population
+    (repro/launch/train.py:356-437); returns ``(store, loss_history)``,
+    the store holding every agent's final row.
+
+    The rows live in a host memmap (core/population.py: a temporary file,
+    or ``store_path``); each H-step round trains one ``cohort_size``
+    cohort while the next cohort's rows, subgraph tables and data batch
+    are prepared (``overlap=True``).  The per-agent data table is
+    (n_total, vocab).  ``fed.delta`` makes the store a DeltaStore.
+    ``draws`` (default ``Draws(seed, device)``) makes every random draw,
+    the cohort's tokens through ``draws.cohort_tokens``; ``params0``
+    replaces the random initial weights.  ``ckpt_dir`` saves the store
+    at the end (``pop_<steps>/``; no zstandard needed).  A ``timing``
+    dict receives ``setup_s``, ``loop_s`` (host-clock seconds; the loop
+    ends by reading the rows back), ``rounds``, ``drains`` and the
+    engine's per-stage times (``PopulationEngine.stats``).
+    """
+    t_setup = time.perf_counter()
+    if steps % fed.h:
+        raise ValueError(f"population mode runs whole H-step rounds; "
+                         f"--steps {steps} must be a multiple of --h "
+                         f"{fed.h}")
+    device = resolve_device(device)
+    model = build_model(cfg)
+    graph = population_graph(fed.graph, n_total)
+    pspec = population_lib.PopulationSpec(
+        n_total=n_total, cohort_size=cohort_size, sampling=sampling,
+        staleness=staleness, max_degree=graph.max_degree,
+        n_clusters=n_clusters, seed=seed)
+    if fed.gossip_compress != "none":
+        raise ValueError("population mode streams uncompressed rows; "
+                         "--gossip-compress is not supported")
+    if draws is None:
+        draws = Draws(seed, device)
+    # --delta here is a storage format: the host store keeps encoded delta
+    # rows (core/delta.DeltaStore) and the cohort gossip runs on the
+    # decoded rows; 'full' is lossless
+    data = make_federated_lm(cfg.vocab_size, n_total, seq_len, draws,
+                             alpha=data_alpha)
+    if params0 is None:
+        params0 = model.init(draws)
+    spec = flat_lib.make_flat_spec(params0)
+    eta = torch.full((1,), lr, dtype=torch.float32, device=device)
+    lr_fn = lambda t: eta  # noqa: E731  (constant; stays on the device)
+    eng = population_lib.PopulationEngine(
+        pspec, spec, model.grad_fn(), lr_fn, graph, h=fed.h, k=fed.k,
+        device=device, row_init=spec.ravel(params0), store_path=store_path,
+        delta=fed.delta)
+    print(f"[train] population: {model.param_count(params0):,} params × "
+          f"n_total={n_total} (cohort {cohort_size}, sampling={sampling}"
+          + (f", staleness={staleness}" if staleness else "")
+          + (f", clusters={n_clusters}" if n_clusters > 1 else "")
+          + f"), graph={fed.graph}, H={fed.h}, K={fed.k}, "
+          + (f"delta={fed.delta}, " if fed.delta != "none" else "")
+          + f"store={eng.store.nbytes / 1e6:.1f} MB host-side")
+    del params0  # the store holds the rows
+    positions = torch.arange(seq_len, device=device)[None, None].expand(
+        cohort_size, per_agent_batch, seq_len)
+
+    def batch_fn(round_idx: int, ids: np.ndarray):
+        tokens = draws.cohort_tokens(data, ids, per_agent_batch, fed.h,
+                                     round_idx)
+        return {"tokens": tokens,
+                "positions": positions.expand((fed.h,) + positions.shape)}
+
+    t_start = time.time()
+    t_loop = time.perf_counter()
+    mets = eng.run(steps // fed.h, batch_fn, draws, overlap=overlap)
+    losses = np.asarray(mets["loss"]).reshape(-1).tolist()
+    rate = steps / (time.time() - t_start)
+    if timing is not None:
+        timing.update(setup_s=t_loop - t_setup,
+                      loop_s=time.perf_counter() - t_loop,
+                      rounds=steps // fed.h, drains=mets["drains"],
+                      **eng.stats)
+    print(f"[train] population: {steps} steps in "
+          f"{steps // fed.h} rounds ({rate:.2f} steps/s, "
+          f"{mets['drains']} pipeline drains)")
+    if ckpt_dir:
+        eng.store.save(ckpt_dir, steps)
+    return eng.store, losses
+
+
+_NOT_PORTED = ("--mesh-agents", "--mesh-model")
+# population mode's flags that differ from their defaults compose with
+# nothing here (repro/launch/train.py:568-579; --mesh-agents and
+# --mesh-model are refused before, as not ported)
+_POPULATION_EXCLUSIVE = (("--sweep-runs", "sweep_runs", None),
+                         ("--fuse-update-mix", "fuse_update_mix", False),
+                         ("--optimizer", "optimizer", "sgd"),
+                         ("--fedavg", "fedavg", False),
+                         ("--per-step", "fused", True))
 
 
 def main(argv=None) -> None:
@@ -398,9 +518,35 @@ def main(argv=None) -> None:
                         "('full' is lossless, bit-identical to none).  "
                         "Flat layout, one run; mutually exclusive with "
                         "--gossip-compress")
+    p.add_argument("--n-total", type=int, default=None, metavar="N",
+                   help="population mode (core/population.py): keep N "
+                        "agents in a host memmap store and train a sampled "
+                        "cohort a round, its rows streamed h2d/d2h "
+                        "double-buffered.  Overrides --agents; needs a "
+                        "ring<k> graph and the stateless sgd optimizer")
+    p.add_argument("--cohort-size", type=int, default=64, metavar="C",
+                   help="agents sampled and streamed a round in population "
+                        "mode")
+    p.add_argument("--sampling", default="uniform",
+                   choices=list(population_lib.SAMPLINGS),
+                   help="population cohort sampler: uniform, weighted "
+                        "(per-agent weights), or stale (agents longest out "
+                        "of a cohort first)")
+    p.add_argument("--staleness", type=float, default=0.0, metavar="BETA",
+                   help="FedPAE-style age tilt of the cohort mixing matrix "
+                        "(0 = plain doubly stochastic Metropolis)")
+    p.add_argument("--n-clusters", type=int, default=0, metavar="M",
+                   help="population mode: M > 1 turns on the two-tier "
+                        "server round (edge-cluster averaging before the "
+                        "K-sample aggregation)")
+    p.add_argument("--no-overlap", dest="overlap", action="store_false",
+                   default=True,
+                   help="population mode: wait for the device after every "
+                        "round (the synchronous schedule; same trajectory)")
     p.add_argument("--ckpt-dir", default=None,
                    help="save the stacked parameters and the step here at "
-                        "the end (needs msgpack and zstandard)")
+                        "the end (needs msgpack and zstandard); in "
+                        "population mode, the store (needs neither)")
     for flag in _NOT_PORTED:
         p.add_argument(flag, default=None)
     p.add_argument("--vocab", type=int, default=32_768,
@@ -431,6 +577,20 @@ def main(argv=None) -> None:
                     graph=args.graph, p_fail=args.p_fail,
                     gossip_impl=args.gossip_impl,
                     gossip_compress=args.gossip_compress, delta=args.delta)
+    if args.n_total is not None:
+        for flag, dest, default in _POPULATION_EXCLUSIVE:
+            if getattr(args, dest) != default:
+                raise SystemExit(f"population mode (--n-total) does not "
+                                 f"compose with {flag}")
+        _, losses = population_loop(
+            cfg, fed, n_total=args.n_total, cohort_size=args.cohort_size,
+            sampling=args.sampling, staleness=args.staleness,
+            n_clusters=args.n_clusters, steps=args.steps,
+            per_agent_batch=args.batch, seq_len=args.seq, lr=args.lr,
+            ckpt_dir=args.ckpt_dir, overlap=args.overlap,
+            device=args.device)
+        _print_done(losses)
+        return
     _, losses = train_loop(
         cfg, fed, steps=args.steps, per_agent_batch=args.batch,
         seq_len=args.seq, lr=args.lr, optimizer=args.optimizer,
@@ -439,6 +599,10 @@ def main(argv=None) -> None:
         fuse_update_mix=args.fuse_update_mix, sweep_runs=args.sweep_runs,
         sweep_axis=args.sweep_axis, ckpt_dir=args.ckpt_dir,
         device=args.device)
+    _print_done(losses)
+
+
+def _print_done(losses: list) -> None:
     first = np.mean(losses[:5])
     last = np.mean(losses[-5:])
     print(f"[train] done: loss {first:.4f} → {last:.4f} "

@@ -3,8 +3,8 @@ package's (repro.checkpoint), and ``--ckpt-dir`` through both trainers.
 
 Mirrors the checkpoint tests of tests/test_substrate.py (4) and three of
 the four of tests/test_population.py::TestCheckpoint; the fourth,
-``test_store_save_restore``, needs the port's ``PopulationStore``, which
-comes with the population engine (ROADMAP Queue A item 4).  Across the
+``test_store_save_restore``, is mirrored with the port's
+``PopulationStore`` in tests/test_torch_population.py.  Across the
 packages: a tree with an f32, a bf16 and a 0-d int32 leaf written by one
 is read by the other bit for bit, both ways, and the two packages write
 byte-identical files for the same tree.  Both trainers, run with
@@ -87,8 +87,8 @@ def test_leaf_count_mismatch_raises(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# tests/test_population.py::TestCheckpoint (the store's own test waits for
-# the population engine)
+# tests/test_population.py::TestCheckpoint (the store's own test is in
+# tests/test_torch_population.py)
 # ---------------------------------------------------------------------------
 
 

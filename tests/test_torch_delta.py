@@ -23,7 +23,8 @@ inputs made from a seed.  Tolerances:
 
 The reference's hypothesis properties run here as parametrized cases (a
 fixed grid of seeds and magnitudes).  ``TestPopulationIntegration``'s two
-tests wait for the population engine (ROADMAP Queue A item 4).
+tests (the population engine over a ``DeltaStore``) are mirrored in
+tests/test_torch_population.py.
 """
 
 from __future__ import annotations

@@ -14,7 +14,11 @@ equal #9/#11, and so do the EF residual r of #9–#12 and the int8 payload
 q of #13 their plain versions'.  The model zoo's prefill kernels (#15
 flash attention, #16 the SSD scan, #17 the RG-LRU scan) are held to
 1e-5·max|y| in f32 and 1e-2·max|y| in bf16 (one rounding of the bf16
-output), #17's h_last to h[:, −1] exactly.
+output), #17's h_last to h[:, −1] exactly.  The population engine's
+cohort mix runs #2 on tables that ``build_cohort_mix`` makes (a tilted,
+non-symmetric W too), held to the plain version at 1e-5·max|y|, and the
+engine's overlapped and synchronous schedules end equal bit for bit on
+the card.
 """
 
 from __future__ import annotations
@@ -977,3 +981,86 @@ def test_cuda_delta_round_launches_its_kernel_once_a_step(cuda, delta, impl,
         none, _ = run(cuda, "none")
         assert torch.equal(got.flat, none.flat)
         assert not got.residual.any()
+
+
+# ---------------------------------------------------------------------------
+# The population engine's cohort mix (kernel #2 on per-round tables)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("staleness", [0.0, 0.5])
+@pytest.mark.parametrize("c,d", [(8, 4099), (64, 1000003), (256, 25)])
+def test_cuda_cohort_mix_matches_plain_version(cuda, staleness, c, d):
+    """``population.cohort_gossip`` on tables that ``build_cohort_mix``
+    makes for a sampled cohort of a ring2 population (padded ELL of width
+    5 > the subgraph's degree; with staleness > 0 a tilted, row-stochastic
+    but not symmetric W) launches #2 once and agrees with the plain
+    version on the same tables to 1e-5·max|y|."""
+    from repro_torch.core import population as pop
+    n_total = 4 * c
+    spec = pop.PopulationSpec(n_total, c, staleness=staleness, max_degree=5,
+                              n_clusters=2)
+    rng = np.random.default_rng(c)
+    last = rng.integers(-1, 6, n_total)
+    ids = pop.sample_cohort(rng, spec, last, 6)
+    ages = np.maximum(6 - last[ids], 0)
+    graph = topo.ring_graph_csr(n_total, 2)
+    mix = pop.build_cohort_mix(graph, ids, spec, ages=ages, device=cuda)
+    mix_cpu = pop.build_cohort_mix(graph, ids, spec, ages=ages)
+    if staleness:
+        w = np.zeros((c, c))
+        w[np.arange(c)[:, None], mix_cpu.nbr.numpy()] += mix_cpu.wv.numpy()
+        w[np.arange(c), np.arange(c)] += mix_cpu.diag.numpy()
+        assert not np.allclose(w, w.T)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(d)
+    x = torch.randn(c, d, device=cuda, generator=gen)
+    ops.reset_launch_counts()
+    got = pop.cohort_gossip(mix, x)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["gossip_mix_sparse"] == 1
+    want = ref.gossip_mix_sparse(*(t.to(cuda) for t in (
+        mix_cpu.nbr, mix_cpu.wv, mix_cpu.diag)), x)
+    err = (got - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.gpu
+def test_cuda_population_engine_overlap_equals_sync(cuda):
+    """The engine on the card (two-tier server, 4 rounds of H = 3 over
+    cohorts of 8 from 64): the overlapped and the synchronous schedule
+    launch #2 once a step and no other kernel, and end on the same store
+    and losses bit for bit."""
+    from repro_torch.core import engine, flat as flat_lib
+    from repro_torch.core import population as pop
+    from repro_torch.core.draws import Draws
+    n_total, c, d, h, rounds = 64, 8, 4096, 3, 4
+    rng = np.random.default_rng(3)
+    targets = rng.standard_normal((rounds, h, c, d)).astype(np.float32)
+    grad_fn = engine.value_and_grad(lambda p, b: 0.5 * torch.sum(
+        torch.square(p["x"] - b["t"])))
+    spec = flat_lib.make_flat_spec({"x": torch.zeros(d)})
+
+    def run(dev, overlap):
+        eta = torch.tensor([0.1], device=dev)
+        eng = pop.PopulationEngine(
+            pop.PopulationSpec(n_total, c, max_degree=4, n_clusters=2,
+                               seed=1),
+            spec, grad_fn, lambda t: eta, topo.ring_graph_csr(n_total, 2),
+            h=h, k=2, device=dev, row_init=np.zeros(d, np.float32))
+        ops.reset_launch_counts()
+        out = eng.run(rounds, lambda r, ids: {
+            "t": torch.tensor(targets[r], device=dev)}, Draws(0, dev),
+            overlap=overlap)
+        return eng.store.gather(np.arange(n_total)), out, \
+            ops.launch_counts()
+
+    rows, out, counts = run(cuda, True)
+    assert counts["gossip_mix_sparse"] == rounds * h
+    assert sum(counts.values()) == rounds * h
+    rows_sync, out_sync, _ = run(cuda, False)
+    np.testing.assert_array_equal(rows, rows_sync)
+    assert out["drains"] == out_sync["drains"]
+    np.testing.assert_array_equal(out["loss"], out_sync["loss"])
+    assert np.isfinite(rows).all() and np.abs(rows).max() > 0

@@ -20,7 +20,13 @@ relative, parameters 1e-5·max|x|; 1e-4 relative losses under int8, its
 per-leaf noise replayed), every run returns a ``FedState``, adamw runs
 on both engines, the two zoo smoke configs match the reference's losses
 to 1e-4 relative, and the CLI runs ``--state-layout tree``, ``--optimizer
-adamw`` and ``--arch ... --smoke``.
+adamw`` and ``--arch ... --smoke``.  Population mode (``--n-total``):
+``population_loop`` against the reference's on 16 agents, cohorts of 4,
+under its replayed cohort tokens and server draws (losses 1e-5 relative,
+the store 1e-5·max|x|, the staleness counters equal), the CLI on the CPU
+(overlap and sync, the stale sampler with two clusters, ``--delta full``,
+the store saved by ``--ckpt-dir``), and its refusals with the
+reference's messages.
 """
 
 from __future__ import annotations
@@ -373,13 +379,14 @@ def test_cli_sweep_errors_are_the_reference_messages(case):
 
 @pytest.mark.parametrize("argv", [
     ["--mesh-agents", "2"], ["--mesh-model", "2"],
-    ["--n-total", "64", "--ckpt-dir", "c"],
-    ["--delta", "topk:4", "--n-total", "64"], ["--n-total", "64"],
+    ["--n-total", "64", "--ckpt-dir", "c", "--mesh-agents", "2"],
+    ["--delta", "topk:4", "--n-total", "64", "--mesh-model", "2"],
+    ["--n-total", "64", "--arch", "deepseek-v3-671b"],
     ["--arch", "gemma3-12b"], ["--arch", "mistral-large-123b"]])
 def test_cli_rejects_what_is_not_ported(argv, capsys):
-    """--delta and --ckpt-dir are ported; with them, a flag that is not
-    (--n-total: the population's delta store and its checkpoint) is still
-    rejected, as are the architectures not ported yet."""
+    """--delta, --ckpt-dir and --n-total are ported; with them, a flag
+    that is not (the mesh flags) is still rejected, as are the
+    architectures not ported yet, before population mode starts."""
     with pytest.raises(SystemExit) as err:
         port_train.main(["--device", "cpu", *argv])
     assert err.value.code == 2
@@ -536,3 +543,137 @@ def test_cli_tree_layout_rejects_the_fused_update_mix():
                              RefFedConfig(n_agents=3, h=2, k=2),
                              steps=1, per_agent_batch=1, seq_len=8,
                              log_every=0, fused=False, fuse_update_mix=True)
+
+
+# ---------------------------------------------------------------------------
+# Population mode (--n-total): population_loop against the reference's, the
+# CLI on the CPU and its refusals
+# ---------------------------------------------------------------------------
+
+
+class ReplayPopulationDraws(Draws):
+    """The reference's population_loop draws (repro/launch/train.py:
+    408-429): a cohort's tokens from ``fold_in(key(seed + 1), round)``
+    split over the H steps and the cohort's agents, the server's K draws
+    from ``split(fold_in(key(seed + 2), t), 3)[2]``."""
+
+    def __init__(self, seed: int, data):
+        super().__init__(seed, "cpu")
+        self.data = data
+        self.data_key = jax.random.key(seed + 1)
+        self.step_key = jax.random.key(seed + 2)
+
+    def cohort_tokens(self, data, ids, per_agent_batch, steps, round_idx):
+        kd = jax.random.fold_in(self.data_key, round_idx)
+        ids_j = jax.numpy.asarray(ids, dtype=jax.numpy.int32)
+
+        def per_step(k):
+            ks = jax.random.split(k, ids_j.shape[0])
+            return jax.vmap(self.data.sample_agent, in_axes=(0, 0, None))(
+                ks, ids_j, per_agent_batch)
+
+        toks = jax.vmap(per_step)(jax.random.split(kd, steps))
+        return torch.from_numpy(np.asarray(toks).astype(np.int64))
+
+    def participants(self, t, n, k):
+        key = jax.random.split(jax.random.fold_in(self.step_key, t), 3)[2]
+        return torch.from_numpy(np.array(jax.random.randint(
+            key, (k,), 0, n)).astype(np.int64))
+
+
+POP = dict(n_total=16, cohort_size=4, steps=4, per_agent_batch=1, seq_len=8)
+
+
+@pytest.mark.parametrize("extra", [
+    dict(),
+    dict(sampling="stale", staleness=0.5, n_clusters=2)])
+def test_population_loop_matches_the_reference(extra):
+    seed = 0
+    fed = dict(n_agents=N, h=H, k=K, graph="ring2")
+    ref_cfg = ref_train.tiny_lm_config(D_MODEL, 1, vocab=64)
+    ref_store, ref_losses = ref_train.population_loop(
+        ref_cfg, RefFedConfig(**fed), seed=seed, **POP, **extra)
+    params0 = jax.jit(ref_build_model(ref_cfg).init)(jax.random.key(seed))
+    draws = ReplayPopulationDraws(
+        seed, ref_make_data(64, POP["n_total"], POP["seq_len"], alpha=0.3,
+                            seed=seed))
+    store, losses = port_train.population_loop(
+        port_train.tiny_lm_config(D_MODEL, 1, vocab=64), FedConfig(**fed),
+        seed=seed, device="cpu", draws=draws,
+        params0=flat_lib.params_from_numpy(jax.tree.map(np.asarray,
+                                                        params0)),
+        **POP, **extra)
+    np.testing.assert_allclose(losses, ref_losses, rtol=1e-5)
+    got = store.gather(np.arange(POP["n_total"]))
+    want = ref_store.gather(np.arange(POP["n_total"]))
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+    np.testing.assert_array_equal(store.last_round, ref_store.last_round)
+
+
+POP_ARGV = ["--device", "cpu", "--n-total", "16", "--cohort-size", "4",
+            "--steps", "4", "--h", "2", "--batch", "1", "--seq", "8",
+            "--d-model", "64", "--layers", "1", "--vocab", "64"]
+
+
+@pytest.mark.parametrize("extra", [[], ["--no-overlap"],
+                                   ["--sampling", "stale", "--staleness",
+                                    "0.5", "--n-clusters", "2"],
+                                   ["--delta", "full"]])
+def test_cli_population_runs_on_cpu(capsys, extra, tmp_path):
+    from repro_torch.core.population import PopulationStore
+    port_train.main([*POP_ARGV, *extra, "--ckpt-dir", str(tmp_path)])
+    out = capsys.readouterr().out
+    assert "[train] population: " in out and "n_total=16 (cohort 4" in out
+    assert "[train] population: 4 steps in 2 rounds" in out
+    assert "[train] done: loss" in out
+    if extra == ["--delta", "full"]:
+        assert "delta=full" in out
+        assert any(p.startswith("deltapop_") for p in
+                   (x.name for x in tmp_path.iterdir()))
+    else:
+        back = PopulationStore.restore(str(tmp_path))
+        assert back.rows.shape[0] == 16 and np.isfinite(back.rows).all()
+        assert (back.last_round >= 0).sum() >= 4
+
+
+def test_cli_population_overlap_and_sync_print_the_same_losses(capsys):
+    lines = []
+    for extra in ([], ["--no-overlap"]):
+        port_train.main([*POP_ARGV, *extra])
+        lines.append([line for line in capsys.readouterr().out.splitlines()
+                      if line.startswith("[train] done:")])
+    assert lines[0] == lines[1] and lines[0]
+
+
+@pytest.mark.parametrize("extra", [
+    ["--sweep-runs", "2"], ["--fuse-update-mix"], ["--optimizer", "momentum"],
+    ["--fedavg"], ["--per-step"]])
+def test_cli_population_refusals_are_the_reference_messages(extra,
+                                                             monkeypatch):
+    argv = POP_ARGV[2:] + extra       # the reference's CLI has no --device
+    monkeypatch.setattr("sys.argv", ["train", *argv])
+    with pytest.raises(SystemExit) as ref_err:
+        ref_train.main()
+    with pytest.raises(SystemExit) as err:
+        port_train.main(["--device", "cpu", *argv])
+    assert str(err.value) == str(ref_err.value)
+    assert str(err.value).startswith("population mode (--n-total) does "
+                                     "not compose with")
+
+
+@pytest.mark.parametrize("kw", [dict(steps=3), dict(gossip_compress="int8"),
+                                dict(graph="geo0.5")])
+def test_population_loop_errors_are_the_reference_messages(kw):
+    fed = dict(n_agents=N, h=H, k=K, graph=kw.pop("graph", "ring2"),
+               gossip_compress=kw.pop("gossip_compress", "none"))
+    pop_kw = {**POP, **kw}
+    with pytest.raises(ValueError) as ref_err:
+        ref_train.population_loop(ref_train.tiny_lm_config(D_MODEL, 1,
+                                                           vocab=64),
+                                  RefFedConfig(**fed), **pop_kw)
+    with pytest.raises(ValueError) as err:
+        port_train.population_loop(port_train.tiny_lm_config(D_MODEL, 1,
+                                                             vocab=64),
+                                   FedConfig(**fed), device="cpu", **pop_kw)
+    assert str(err.value) == str(ref_err.value)
