@@ -1,14 +1,23 @@
 """Configuration schema of the port and the model zoo's ported configs."""
 
-from repro_torch.configs.base import ArchConfig, FedConfig, SSMConfig
+from repro_torch.configs.base import (ArchConfig, FedConfig, MLAConfig,
+                                      MoEConfig, SSMConfig)
+from repro_torch.configs.shapes import SHAPES, ShapeConfig
 
 _ARCH_MODULES = {
+    "gemma3-12b": "gemma3_12b",
     "mamba2-2.7b": "mamba2_2p7b",
+    "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
     "recurrentgemma-9b": "recurrentgemma_9b",
     "qwen1.5-4b": "qwen1_5_4b",
+    "nemotron-4-15b": "nemotron_4_15b",
 }
 
 ARCH_NAMES = ("tiny",) + tuple(_ARCH_MODULES)
+# the reference's ids whose configs are not ported yet (ROADMAP.md Queue A
+# items 5b and 5c)
+NOT_PORTED_ARCHS = ("qwen2-vl-2b", "deepseek-v3-671b", "mistral-large-123b",
+                    "seamless-m4t-large-v2")
 
 
 def get_config(name: str) -> ArchConfig:
@@ -27,5 +36,6 @@ def get_config(name: str) -> ArchConfig:
     return importlib.import_module(f"repro_torch.configs.{mod}").CONFIG
 
 
-__all__ = ["ArchConfig", "FedConfig", "SSMConfig", "ARCH_NAMES",
+__all__ = ["ArchConfig", "FedConfig", "MLAConfig", "MoEConfig", "SSMConfig",
+           "SHAPES", "ShapeConfig", "ARCH_NAMES", "NOT_PORTED_ARCHS",
            "get_config"]

@@ -24,6 +24,8 @@ the reference takes a key: ``Draws.categorical`` is Gumbel-max, as
 
 CLI (``--device cuda`` by default; ``--device cpu`` for the CPU):
   PYTHONPATH=src python -m repro_torch.launch.serve [--arch qwen1.5-4b]
+      (or gemma3-12b, mamba2-2.7b, deepseek-v2-lite-16b,
+      recurrentgemma-9b, nemotron-4-15b, tiny)
       [--batch 4 --prompt-len 16 --new-tokens 32] [--ckpt DIR]
 As in the reference, ``--smoke`` defaults to on and cannot be turned off,
 so the CLI always serves the config's smoke variant; ``--ckpt DIR``
@@ -39,7 +41,7 @@ import time
 import torch
 
 from repro_torch.checkpoint import load_checkpoint
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCH_NAMES, NOT_PORTED_ARCHS, get_config
 from repro_torch.core.draws import Draws
 from repro_torch.launch.train import resolve_device
 from repro_torch.models import build_model
@@ -181,7 +183,9 @@ def load_agent_params(ckpt_dir: str, agent: int = 0, device="cuda") -> dict:
 
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--arch", default="qwen1.5-4b")
+    p.add_argument("--arch", default="qwen1.5-4b",
+                   help=f"a ported config: {', '.join(ARCH_NAMES)} (not "
+                        f"ported yet: {', '.join(NOT_PORTED_ARCHS)})")
     p.add_argument("--smoke", action="store_true", default=True)
     p.add_argument("--batch", type=int, default=4)
     p.add_argument("--prompt-len", type=int, default=16)
@@ -192,6 +196,10 @@ def main(argv=None) -> None:
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
     args = p.parse_args(argv)
+    if args.arch not in ARCH_NAMES:
+        p.error(f"not ported to repro_torch yet: --arch {args.arch} "
+                f"(ported: {', '.join(ARCH_NAMES)}; not yet: "
+                f"{', '.join(NOT_PORTED_ARCHS)})")
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)

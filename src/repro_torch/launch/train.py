@@ -1,8 +1,9 @@
 """Federated LM training driver of the port (repro/launch/train.py).
 
 Runs Algorithm 1 on the tiny dense LM, or on a ported zoo config
-(``--arch mamba2-2.7b|recurrentgemma-9b``, ``--smoke`` for its reduced
-variant), over synthetic heterogeneous per-agent token streams on one
+(``--arch``: gemma3-12b, mamba2-2.7b, deepseek-v2-lite-16b,
+recurrentgemma-9b, qwen1.5-4b or nemotron-4-15b; ``--smoke`` for its
+reduced variant), over synthetic heterogeneous per-agent token streams on one
 device.  The state is the flat (n_agents, D) buffer (the fused round's
 default) or the stacked tree of the model's dict (``--per-step``'s
 default, as in the reference, or ``--state-layout tree``); with
@@ -47,7 +48,7 @@ import torch
 
 from repro_torch import optim
 from repro_torch.checkpoint import require_codecs, save_checkpoint
-from repro_torch.configs import ARCH_NAMES, get_config
+from repro_torch.configs import ARCH_NAMES, NOT_PORTED_ARCHS, get_config
 from repro_torch.configs.base import ArchConfig, FedConfig
 from repro_torch.core import feddec
 from repro_torch.core import flat as flat_lib
@@ -465,7 +466,8 @@ def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--arch", default="tiny",
                    help=f"'tiny' (the ~157M dense LM) or a ported config: "
-                        f"{', '.join(ARCH_NAMES[1:])}")
+                        f"{', '.join(ARCH_NAMES[1:])} (not ported yet: "
+                        f"{', '.join(NOT_PORTED_ARCHS)})")
     p.add_argument("--smoke", action="store_true",
                    help="use the reduced smoke variant of --arch")
     p.add_argument("--steps", type=int, default=100)
@@ -562,7 +564,9 @@ def main(argv=None) -> None:
     rejected = [flag for flag in _NOT_PORTED
                 if getattr(args, flag[2:].replace("-", "_")) is not None]
     if args.arch not in ARCH_NAMES:
-        rejected.append(f"--arch {args.arch}")
+        rejected.append(f"--arch {args.arch} (ported: "
+                        f"{', '.join(ARCH_NAMES)}; not yet: "
+                        f"{', '.join(NOT_PORTED_ARCHS)})")
     if rejected:
         p.error(f"not ported to repro_torch yet: {', '.join(rejected)} "
                 f"(see ROADMAP.md; the JAX package repro has them)")

@@ -1,4 +1,5 @@
-"""The port's models: the dense LM, Griffin and Mamba2 stacks."""
+"""The port's models: the dense LM (GQA or MLA attention, a dense MLP or
+an MoE), Griffin and Mamba2 stacks."""
 
 from repro_torch.models.model import Model, build_model
 

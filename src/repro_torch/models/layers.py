@@ -12,9 +12,9 @@ import math
 import torch
 import torch.nn.functional as F
 
-__all__ = ["init_rms_norm", "rms_norm", "init_dense", "dense", "gelu",
-           "init_mlp", "mlp", "init_embedding", "embed", "unembed",
-           "rope_frequencies", "apply_rope"]
+__all__ = ["init_rms_norm", "rms_norm", "init_layer_norm", "layer_norm",
+           "init_dense", "dense", "gelu", "init_mlp", "mlp", "init_embedding",
+           "embed", "unembed", "rope_frequencies", "apply_rope"]
 
 
 def init_rms_norm(d: int, dtype, device) -> dict:
@@ -30,12 +30,30 @@ def rms_norm(params: dict, x: torch.Tensor, eps: float = 1e-6):
     return (y * (1.0 + params["scale"].float())).to(dtype)
 
 
+def init_layer_norm(d: int, dtype, device) -> dict:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layer_norm(params: dict, x: torch.Tensor, eps: float = 1e-6):
+    """(x − mean) / sqrt(var + eps) · scale + bias, in f32 (the biased
+    variance, as ``jnp.var``)."""
+    dtype = x.dtype
+    x32 = x.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, keepdim=True, unbiased=False)
+    y = (x32 - mean) * torch.rsqrt(var + eps)
+    y = y * params["scale"].float() + params["bias"].float()
+    return y.to(dtype)
+
+
 def init_dense(draws, shape: tuple, dtype, fan_in: int | None = None,
                bias: bool = False):
     """Truncated normal in [-2, 2] over sqrt(fan_in) (first dim default);
-    ``bias`` adds a zero bias ``b`` of shape ``shape[1:]``."""
+    ``bias`` adds a zero bias ``b`` of shape ``shape[1:]``.  Scaled in
+    place: a weight costs its own bytes once at init."""
     fan = fan_in if fan_in is not None else shape[0]
-    w = draws.truncated_normal(shape) / math.sqrt(fan)
+    w = draws.truncated_normal(shape).div_(math.sqrt(fan))
     p = {"w": w.to(dtype)}
     if bias:
         p["b"] = torch.zeros(shape[1:], dtype=dtype, device=draws.device)
@@ -60,27 +78,43 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
+def relu2(x: torch.Tensor) -> torch.Tensor:
+    """Squared ReLU (Nemotron's MLP)."""
+    return torch.square(F.relu(x))
+
+
 _GATES = {"swiglu": F.silu, "geglu": gelu}
+_ACTS = {"relu2": relu2, "gelu": gelu}
 
 
-def init_mlp(draws, d: int, d_ff: int, dtype) -> dict:
+def init_mlp(draws, d: int, d_ff: int, dtype, kind: str = "swiglu") -> dict:
+    """wi, wg, wo for the gated kinds (swiglu, geglu); wi, wo for relu2
+    and gelu."""
+    if kind in _GATES:
+        return {"wi": init_dense(draws, (d, d_ff), dtype),
+                "wg": init_dense(draws, (d, d_ff), dtype),
+                "wo": init_dense(draws, (d_ff, d), dtype)}
     return {"wi": init_dense(draws, (d, d_ff), dtype),
-            "wg": init_dense(draws, (d, d_ff), dtype),
             "wo": init_dense(draws, (d_ff, d), dtype)}
 
 
 def mlp(params: dict, x: torch.Tensor, kind: str = "swiglu",
         compute_dtype=None) -> torch.Tensor:
-    """SwiGLU (silu(x wg) * x wi) wo, or GeGLU with gelu for silu."""
-    if kind not in _GATES:
+    """SwiGLU (silu(x wg) * x wi) wo or GeGLU with gelu for silu;
+    squared-ReLU relu(x wi)² wo or GELU gelu(x wi) wo."""
+    if kind not in _GATES and kind not in _ACTS:
         raise ValueError(f"unknown mlp kind {kind!r}")
     h = dense(params["wi"], x, compute_dtype=compute_dtype)
-    h = _GATES[kind](dense(params["wg"], x, compute_dtype=compute_dtype)) * h
+    if kind in _GATES:
+        h = _GATES[kind](dense(params["wg"], x,
+                               compute_dtype=compute_dtype)) * h
+    else:
+        h = _ACTS[kind](h)
     return dense(params["wo"], h, compute_dtype=compute_dtype)
 
 
 def init_embedding(draws, vocab: int, d: int, dtype) -> dict:
-    return {"table": (draws.normal((vocab, d)) * 0.02).to(dtype)}
+    return {"table": draws.normal((vocab, d)).mul_(0.02).to(dtype)}
 
 
 def embed(params: dict, tokens: torch.Tensor, compute_dtype=None):

@@ -39,14 +39,16 @@ class Model:
     def logits(self, params: dict, batch: dict, *,
                impl: str = "xla") -> torch.Tensor:
         """Prefill logits (B, S, V); ``impl='pallas'`` runs the attention,
-        SSD and RG-LRU kernels (#15–#17), forward only."""
-        return transformer.forward(params, batch, self.cfg, impl)
+        SSD and RG-LRU kernels (#15–#17), forward only (MLA and MoE layers
+        have none).  The MoE aux loss is :meth:`loss`'s."""
+        return transformer.forward(params, batch, self.cfg, impl)[0]
 
     def loss(self, params: dict, batch: dict, *,
              impl: str = "xla") -> torch.Tensor:
         """Next-token cross entropy, lse(logits) − logits[target] with a
-        stop-gradient max and f32 reductions (the reference's form)."""
-        logits = self.logits(params, batch, impl=impl)
+        stop-gradient max and f32 reductions (the reference's form), plus
+        ``router_aux_weight`` times the MoE aux loss of an MoE config."""
+        logits, aux, _ = transformer.forward(params, batch, self.cfg, impl)
         targets = batch["tokens"][:, 1:]
         lg = logits[:, :-1]
         m = lg.max(dim=-1, keepdim=True).values.detach()
@@ -54,7 +56,10 @@ class Model:
         lse = torch.log(sumexp) + m[..., 0].float()
         gold = torch.gather(lg, -1, targets[..., None])[..., 0].float()
         nll = lse - gold                                    # (B, S-1)
-        return nll.sum() / max(nll.numel(), 1)
+        loss = nll.sum() / max(nll.numel(), 1)
+        if self.cfg.moe is not None:
+            loss = loss + self.cfg.moe.router_aux_weight * aux
+        return loss
 
     def grad_fn(self, *, impl: str = "xla"):
         """One agent's (params, batch) -> (loss, grads), grads in params'
@@ -62,7 +67,9 @@ class Model:
         engines can vmap it over every agent row at once
         (core/engine.py:GradFn; the reference's PRNG key is dropped).
         The kernels have no backward: with ``impl='pallas'`` the first
-        kernel wrapper the forward reaches raises.  The reference
+        kernel wrapper the forward reaches raises (a model whose forward
+        reaches none, DeepSeek-V2-Lite's MLA and MoE, runs the plain
+        path).  The reference
         rematerialises each block's activations in the backward
         (``remat``), which saves memory and changes no number; the port
         keeps the activations (torch.utils.checkpoint does not compose
@@ -96,9 +103,11 @@ class Model:
         if enc_out is not None or self.cfg.rope_kind == "mrope":
             raise NotImplementedError(
                 "encoder-decoder and M-RoPE decode are not ported to "
-                "repro_torch yet (ROADMAP.md Queue A item 5)")
-        return transformer.forward(params, batch, self.cfg, caches=caches,
-                                   long_variant=long_variant)
+                "repro_torch yet (ROADMAP.md Queue A item 5b)")
+        logits, _, new_caches = transformer.forward(
+            params, batch, self.cfg, caches=caches,
+            long_variant=long_variant)
+        return logits, new_caches
 
 
 def build_model(cfg: ArchConfig) -> Model:

@@ -1,5 +1,8 @@
-"""The decoder stack (repro/models/transformer.py): attention, Mamba2 SSM
-and Griffin RG-LRU blocks, chosen per layer by ``cfg.block_kind``.
+"""The decoder stack (repro/models/transformer.py): attention (GQA or
+MLA), Mamba2 SSM and Griffin RG-LRU blocks, chosen per layer by
+``cfg.block_kind``, each attention or RG-LRU block's MLP half a dense MLP
+or, past an MoE config's leading dense layers, an MoE whose load-balance
+loss the stack sums (``forward`` returns it beside the logits).
 
 Layers keep the reference's parameter layout: ``plan_layers`` splits the
 stack into unrolled ``pre_i`` layers, a repeating unit of ``period``
@@ -7,9 +10,12 @@ layers stored once as ``scan/sub_j`` whose leaves carry a leading group
 axis (the reference scans over it), and unrolled ``suf_i`` layers, so any
 reference model's weights carry across unchanged.  The forward walks the
 group axis in a Python loop over ``torch.unbind`` views, whose backward
-stacks the per-layer gradients into one tensor per leaf.  ``impl`` picks
-each block's prefill path: 'xla' (plain PyTorch) or 'pallas' (the CUDA
-kernels #15–#17; forward only).
+stacks the per-layer gradients into one tensor per leaf.  At init each
+stacked leaf is allocated once with its group axis and filled group by
+group, so that init costs the weights' bytes plus one block.  ``impl``
+picks each block's prefill path: 'xla' (plain PyTorch) or 'pallas' (the
+CUDA kernels #15–#17; forward only; MLA and MoE layers have no kernel and
+run the plain path under either).
 
 Decode caches mirror the same prefix/group/suffix structure
 (:func:`init_decode_caches`): a scanned group's cache leaves, its
@@ -26,8 +32,10 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import griffin, layers
+from repro_torch.models import mla as mla_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.tree import tree_map
+from repro_torch.tree import leaves, tree_map
 
 __all__ = ["LayerPlan", "plan_layers", "init_model", "forward",
            "init_decode_caches"]
@@ -42,13 +50,16 @@ class LayerPlan:
 
 
 def _kind_key(cfg: ArchConfig, i: int) -> tuple:
-    return cfg.block_kind(i), cfg.is_local_layer(i)
+    moe_layer = cfg.moe is not None and i >= cfg.moe.first_dense_layers
+    return (cfg.block_kind(i), cfg.is_local_layer(i), moe_layer,
+            cfg._layer_d_ff(i))
 
 
 def plan_layers(cfg: ArchConfig) -> LayerPlan:
     """(prefix, period, n_groups, suffix) minimising (unrolled layers,
     period), as the reference chooses it: e.g. recurrentgemma's 38 layers
-    → period 3 × 12 groups + a suffix of 2."""
+    → period 3 × 12 groups + a suffix of 2, DeepSeek-V2-Lite's 27 → a
+    dense prefix of 1 + 26 MoE groups of 1."""
     n = cfg.num_layers
     kinds = [_kind_key(cfg, i) for i in range(n)]
     best, best_score = LayerPlan(0, 1, 0, n), (n, 99)
@@ -74,7 +85,9 @@ def init_block(draws, cfg: ArchConfig, layer_idx: int) -> dict:
     d, dtype = cfg.d_model, cfg.param_dtype
     kind = cfg.block_kind(layer_idx)
     p = {"norm1": layers.init_rms_norm(d, dtype, draws.device)}
-    if kind == "attn":
+    if kind == "attn" and cfg.attention_kind == "mla":
+        p["attn"] = mla_lib.init_mla(draws, d, cfg.num_heads, cfg.mla, dtype)
+    elif kind == "attn":
         p["attn"] = attn_lib.init_attention(draws, d, cfg.num_heads,
                                             cfg.num_kv_heads, cfg.head_dim,
                                             dtype, bias=cfg.qkv_bias)
@@ -87,7 +100,11 @@ def init_block(draws, cfg: ArchConfig, layer_idx: int) -> dict:
     else:
         raise ValueError(f"unknown block kind {kind!r}")
     p["norm2"] = layers.init_rms_norm(d, dtype, draws.device)
-    p["mlp"] = layers.init_mlp(draws, d, cfg.d_ff, dtype)
+    if cfg.moe is not None and layer_idx >= cfg.moe.first_dense_layers:
+        p["moe"] = moe_lib.init_moe(draws, d, cfg.moe, dtype)
+    else:
+        p["mlp"] = layers.init_mlp(draws, d, cfg._layer_d_ff(layer_idx),
+                                   dtype, cfg.mlp_kind)
     return p
 
 
@@ -105,12 +122,19 @@ def _layer_window(cfg: ArchConfig, layer_idx: int,
 def apply_block(params: dict, x: torch.Tensor, positions: torch.Tensor,
                 cfg: ArchConfig, layer_idx: int, impl: str = "xla", *,
                 cache: dict | None = None, long_variant: bool = False):
-    """One block; returns (x, its new cache or None)."""
+    """One block; returns (x, its new cache or None, its MoE aux loss:
+    0.0 without an MoE)."""
     kind = cfg.block_kind(layer_idx)
     cdt = cfg.compute_dtype
     h = layers.rms_norm(params["norm1"], x, cfg.norm_eps)
     self_cache = None if cache is None else cache["self"]
-    if kind == "attn":
+    if kind == "attn" and cfg.attention_kind == "mla":
+        y, c = mla_lib.mla_attention(
+            params["attn"], h, positions, cfg=cfg.mla,
+            rope_theta=cfg.rope_theta,
+            window=_layer_window(cfg, layer_idx, long_variant),
+            cache=self_cache, compute_dtype=cdt)
+    elif kind == "attn":
         y, c = attn_lib.attention(
             params["attn"], h, positions, head_dim=cfg.head_dim,
             window=_layer_window(cfg, layer_idx, long_variant),
@@ -120,16 +144,20 @@ def apply_block(params: dict, x: torch.Tensor, positions: torch.Tensor,
         y, c = ssm_lib.mamba2_block(params["mixer"], h, cfg.ssm,
                                     compute_dtype=cdt, cache=self_cache,
                                     use_pallas=impl == "pallas")
-        return x + y, None if c is None else {"self": c}
+        return x + y, None if c is None else {"self": c}, 0.0
     else:
         y, c = griffin.rglru_block(params["mixer"], h, compute_dtype=cdt,
                                    cache=self_cache,
                                    use_pallas=impl == "pallas")
     x = x + y
     h2 = layers.rms_norm(params["norm2"], x, cfg.norm_eps)
-    return x + layers.mlp(params["mlp"], h2, cfg.mlp_kind,
-                          compute_dtype=cdt), \
-        None if c is None else {"self": c}
+    aux = 0.0
+    if "moe" in params:
+        y, aux = moe_lib.moe_layer(params["moe"], h2, cfg.moe,
+                                   compute_dtype=cdt)
+    else:
+        y = layers.mlp(params["mlp"], h2, cfg.mlp_kind, compute_dtype=cdt)
+    return x + y, None if c is None else {"self": c}, aux
 
 
 def _stack_trees(trees: list) -> dict:
@@ -147,6 +175,24 @@ def _unbind_tree(tree, n: int) -> list:
     return list(torch.unbind(tree, 0))
 
 
+def _init_group(draws, cfg: ArchConfig, layer_idx: int,
+                n_groups: int) -> dict:
+    """n_groups blocks of the unit's layer ``layer_idx``, drawn one after
+    another, stacked: each leaf allocated once with its group axis on the
+    first block and filled group by group, every block dropped once it
+    is copied in, so the peak is the stack's bytes plus one block."""
+    stacked = None
+    for g in range(n_groups):
+        block = init_block(draws, cfg, layer_idx)
+        if stacked is None:
+            stacked = tree_map(
+                lambda leaf: leaf.new_empty((n_groups,) + leaf.shape), block)
+        for dst, src in zip(leaves(stacked), leaves(block)):
+            dst[g].copy_(src)
+        del block
+    return stacked
+
+
 def _init_stack(draws, cfg: ArchConfig) -> dict:
     plan = plan_layers(cfg)
     params: dict = {}
@@ -154,8 +200,8 @@ def _init_stack(draws, cfg: ArchConfig) -> dict:
         params[f"pre_{i}"] = init_block(draws, cfg, i)
     if plan.n_groups:
         params["scan"] = {
-            f"sub_{j}": _stack_trees([init_block(draws, cfg, plan.prefix + j)
-                                      for _ in range(plan.n_groups)])
+            f"sub_{j}": _init_group(draws, cfg, plan.prefix + j,
+                                    plan.n_groups)
             for j in range(plan.period)}
     for i in range(plan.suffix):
         li = plan.prefix + plan.period * plan.n_groups + i
@@ -166,16 +212,20 @@ def _init_stack(draws, cfg: ArchConfig) -> dict:
 def _apply_stack(params: dict, x, positions, cfg: ArchConfig,
                  impl: str = "xla", caches: dict | None = None,
                  long_variant: bool = False):
-    """(x, the new caches or None) through every layer; the j-th layer of
-    the repeating unit stands for its kind (index ``prefix + j``)."""
+    """(x, the new caches or None, the summed MoE aux loss) through every
+    layer; the j-th layer of the repeating unit stands for its kind
+    (index ``prefix + j``)."""
     plan = plan_layers(cfg)
     decode = caches is not None
     kw = dict(long_variant=long_variant)
     new: dict = {}
+    aux_total = 0.0
     for i in range(plan.prefix):
         key = f"pre_{i}"
-        x, new[key] = apply_block(params[key], x, positions, cfg, i, impl,
-                                  cache=caches[key] if decode else None, **kw)
+        x, new[key], aux = apply_block(params[key], x, positions, cfg, i,
+                                       impl, cache=caches[key] if decode
+                                       else None, **kw)
+        aux_total = aux_total + aux
     if plan.n_groups:
         def per_group(tree, j):
             return _unbind_tree(tree["scan"][f"sub_{j}"], plan.n_groups)
@@ -186,18 +236,21 @@ def _apply_stack(params: dict, x, positions, cfg: ArchConfig,
         gnew = [[] for _ in range(plan.period)]
         for gi in range(plan.n_groups):
             for j in range(plan.period):
-                x, c = apply_block(groups[j][gi], x, positions, cfg,
-                                   plan.prefix + j, impl,
-                                   cache=gcaches[j][gi], **kw)
+                x, c, aux = apply_block(groups[j][gi], x, positions, cfg,
+                                        plan.prefix + j, impl,
+                                        cache=gcaches[j][gi], **kw)
+                aux_total = aux_total + aux
                 gnew[j].append(c)
         if decode:
             new["scan"] = {f"sub_{j}": _stack_trees(gnew[j])
                            for j in range(plan.period)}
     for i in range(plan.suffix):
         key, li = f"suf_{i}", plan.prefix + plan.period * plan.n_groups + i
-        x, new[key] = apply_block(params[key], x, positions, cfg, li, impl,
-                                  cache=caches[key] if decode else None, **kw)
-    return x, new if decode else None
+        x, new[key], aux = apply_block(params[key], x, positions, cfg, li,
+                                       impl, cache=caches[key] if decode
+                                       else None, **kw)
+        aux_total = aux_total + aux
+    return x, new if decode else None, aux_total
 
 
 def init_model(draws, cfg: ArchConfig) -> dict:
@@ -218,16 +271,18 @@ def init_model(draws, cfg: ArchConfig) -> dict:
 def forward(params: dict, batch: dict, cfg: ArchConfig,
             impl: str = "xla", *, caches: dict | None = None,
             long_variant: bool = False):
-    """Logits (B, S, V) for batch {'tokens' (B, S), 'positions' (B, S)};
-    with ``caches`` (decode, S = 1) the pair (logits, new caches)."""
+    """(logits (B, S, V), the MoE aux loss (0.0 without an MoE), the new
+    caches or None) for batch {'tokens' (B, S), 'positions' (B, S)};
+    ``caches`` (decode, S = 1) gives the new ones."""
     if impl not in ("xla", "pallas"):
         raise ValueError(f"unknown impl {impl!r}")
     x = layers.embed(params["embed"], batch["tokens"],
                      compute_dtype=cfg.compute_dtype)
     x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.compute_dtype,
                          device=x.device)
-    x, new_caches = _apply_stack(params["stack"], x, batch["positions"], cfg,
-                                 impl, caches, long_variant)
+    x, new_caches, aux = _apply_stack(params["stack"], x,
+                                      batch["positions"], cfg, impl, caches,
+                                      long_variant)
     x = layers.rms_norm(params["final_norm"], x, cfg.norm_eps)
     if cfg.tie_embeddings:
         logits = torch.einsum("bsd,vd->bsv", x,
@@ -238,7 +293,7 @@ def forward(params: dict, batch: dict, cfg: ArchConfig,
     if cfg.logit_softcap > 0:
         cap = cfg.logit_softcap
         logits = cap * torch.tanh(logits / cap)
-    return logits if caches is None else (logits, new_caches)
+    return logits, aux, new_caches
 
 
 # ---------------------------------------------------------------------------
@@ -257,6 +312,9 @@ def _block_cache(cfg: ArchConfig, layer_idx: int, batch: int, cache_len: int,
                                                  device=device)}
     window = _layer_window(cfg, layer_idx, long_variant)
     eff_len = min(cache_len, window) if window > 0 else cache_len
+    if cfg.attention_kind == "mla":
+        return {"self": mla_lib.init_mla_cache(batch, eff_len, cfg.mla,
+                                               dtype, device=device)}
     return {"self": attn_lib.init_cache(batch, eff_len, cfg.num_kv_heads,
                                         cfg.head_dim, dtype, device=device)}
 

@@ -7,7 +7,9 @@ the four of tests/test_population.py::TestCheckpoint; the fourth,
 ``PopulationStore`` in tests/test_torch_population.py.  Across the
 packages: a tree with an f32, a bf16 and a 0-d int32 leaf written by one
 is read by the other bit for bit, both ways, and the two packages write
-byte-identical files for the same tree.  Both trainers, run with
+byte-identical files for the same tree, DeepSeek-V2-Lite's MoE and MLA
+parameter and decode-cache trees and Gemma3-12B's and Nemotron-4-15B's
+(smoke size, bf16 caches) among them.  Both trainers, run with
 ``--ckpt-dir`` at a tiny size under the replayed draws of
 tests/test_torch_train.py, save checkpoints at the same steps with the
 same keys, shapes, dtypes and step leaves, parameters within
@@ -27,6 +29,7 @@ import pytest
 import torch
 
 from repro.checkpoint import checkpoint as ref_ckpt
+from repro.configs import get_config as ref_get_config
 from repro.configs.base import FedConfig as RefFedConfig
 from repro.data.federated_lm import make_federated_lm as ref_make_data
 from repro.launch import train as ref_train
@@ -35,9 +38,11 @@ from repro_torch.checkpoint import (latest_population_step, latest_step,
                                     load_checkpoint, load_population,
                                     require_codecs, save_checkpoint,
                                     save_population)
+from repro_torch.configs import get_config
 from repro_torch.configs.base import FedConfig
 from repro_torch.core import flat as flat_lib
 from repro_torch.launch import train as port_train
+from repro_torch.models import build_model
 from repro_torch.tree import sorted_leaves, tree_map
 from test_torch_train import (BATCH, D_MODEL, LAYERS, SEQ, VOCAB,
                               ReplayTrainDraws)
@@ -184,6 +189,34 @@ def test_the_packages_write_byte_identical_files(tmp_path):
     assert os.path.basename(a) == os.path.basename(b)
     with open(a, "rb") as fa, open(b, "rb") as fb:
         assert fa.read() == fb.read()
+
+
+@pytest.mark.parametrize("name", ["deepseek-v2-lite-16b", "gemma3-12b",
+                                  "nemotron-4-15b"])
+def test_zoo_trees_round_trip_byte_identically(tmp_path, name):
+    """A smoke config's parameters (the reference's, carried over) and an
+    empty bf16 decode-cache tree (MLA's latent cache for DeepSeek): the
+    two packages write the same bytes, and each reads the other's file
+    back bit for bit."""
+    pytest.importorskip("msgpack")
+    pytest.importorskip("zstandard")
+    ref_model = ref_build_model(ref_get_config(name).smoke())
+    model = build_model(get_config(name).smoke())
+    params = jax.jit(ref_model.init)(jax.random.key(3))
+    ref = {"step": jnp.asarray(np.int32(5)), "params": params,
+           "caches": ref_model.init_caches(1, 4, dtype=jnp.bfloat16)}
+    port = {"step": torch.tensor(5, dtype=torch.int32),
+            "params": flat_lib.params_from_numpy(jax.tree.map(np.asarray,
+                                                              params)),
+            "caches": model.init_caches(1, 4, dtype=torch.bfloat16,
+                                        device="cpu")}
+    _assert_same_bits(port, ref)
+    a = ref_ckpt.save_checkpoint(str(tmp_path / "ref"), 5, ref)
+    b = save_checkpoint(str(tmp_path / "port"), 5, port)
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        assert fa.read() == fb.read()
+    _assert_same_bits(load_checkpoint(str(tmp_path / "ref")), ref)
+    _assert_same_bits(port, ref_ckpt.load_checkpoint(str(tmp_path / "port")))
 
 
 def test_missing_codec_raises_the_reference_message(monkeypatch):

@@ -2,7 +2,9 @@
 rolling window (models/attention.py), the RG-LRU and Mamba2 decode caches
 and steps (models/griffin.py, models/ssm.py), the cache tree of the stack
 (``init_decode_caches``) and ``Model.decode_step``, on Qwen1.5-4B,
-RecurrentGemma-9B and Mamba2-2.7B at smoke size.
+RecurrentGemma-9B, Mamba2-2.7B, Gemma3-12B, Nemotron-4-15B and
+DeepSeek-V2-Lite (MLA's absorbed decode against its latent cache, the
+MoE at decode) at smoke size.
 
 Mirrors tests/test_models.py::TestAttention::test_rolling_cache_window_decode
 and tests/test_arch_smoke.py's ``test_decode_step_shapes`` and
@@ -44,7 +46,8 @@ from repro_torch.tree import sorted_leaves
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 TOL = 1e-5
-MODELS = ["qwen1.5-4b", "recurrentgemma-9b", "mamba2-2.7b"]
+MODELS = ["qwen1.5-4b", "recurrentgemma-9b", "mamba2-2.7b", "gemma3-12b",
+          "nemotron-4-15b", "deepseek-v2-lite-16b"]
 
 
 def _close(got, want, tol=TOL, msg=""):
@@ -229,8 +232,13 @@ def test_decode_step_shapes(carried, name):
 @pytest.mark.parametrize("name", MODELS)
 def test_prefill_decode_agreement(carried, name):
     """Token-by-token decode reproduces the prefill logits (the
-    reference's test: 2e-3 absolute and relative)."""
+    reference's test: 2e-3 absolute and relative; an MoE at capacity
+    factor 8, where the prefill drops no token)."""
     _, _, model, tparams = carried[name]
+    if model.cfg.moe is not None:
+        model = build_model(dataclasses.replace(model.cfg, moe=dataclasses.
+                                                replace(model.cfg.moe,
+                                                        capacity_factor=8.0)))
     b, s = 2, 12
     tokens = torch.from_numpy(_tokens(model.cfg.vocab_size, b, s, 6)).long()
     positions = torch.arange(s).expand(b, s)
@@ -258,12 +266,17 @@ def _cache_leaves(tree, numpy: bool):
     return [(p, np.asarray(x)) for p, x in out]
 
 
-# (model, cache_len, steps, long_variant): the third and fourth roll their
-# attention caches (4 slots, 8 tokens): Qwen's long-context window 64 and
-# RecurrentGemma's local window 32 both hold more than the ring does
+# (model, cache_len, steps, long_variant): the second, third, sixth and
+# eighth roll their attention caches (4 slots, 8 tokens): Qwen's and
+# DeepSeek's long-context window 64 and RecurrentGemma's and Gemma3's
+# local window 32 all hold more than the ring does
 DECODE_CASES = [("qwen1.5-4b", 16, 6, False), ("qwen1.5-4b", 4, 8, True),
                 ("recurrentgemma-9b", 4, 8, False),
-                ("mamba2-2.7b", 8, 6, False)]
+                ("mamba2-2.7b", 8, 6, False),
+                ("deepseek-v2-lite-16b", 8, 6, False),
+                ("deepseek-v2-lite-16b", 4, 8, True),
+                ("nemotron-4-15b", 8, 6, False),
+                ("gemma3-12b", 4, 8, False)]
 
 
 @pytest.mark.parametrize("name,cache_len,steps,long_variant", DECODE_CASES)

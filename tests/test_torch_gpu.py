@@ -14,7 +14,10 @@ equal #9/#11, and so do the EF residual r of #9–#12 and the int8 payload
 q of #13 their plain versions'.  The model zoo's prefill kernels (#15
 flash attention, #16 the SSD scan, #17 the RG-LRU scan) are held to
 1e-5·max|y| in f32 and 1e-2·max|y| in bf16 (one rounding of the bf16
-output), #17's h_last to h[:, −1] exactly.  The population engine's
+output), #17's h_last to h[:, −1] exactly, #15 also at Gemma3-12B's
+and Nemotron-4-15B's prefill shapes.  The MoE layer and MLA (no kernel)
+run on the card as on the CPU: their f32 outputs within 1e-5·max|y| of
+the same call on the CPU, the routing equal.  The population engine's
 cohort mix runs #2 on tables that ``build_cohort_mix`` makes (a tilted,
 non-symmetric W too), held to the plain version at 1e-5·max|y|, and the
 engine's overlapped and synchronous schedules end equal bit for bit on
@@ -23,13 +26,19 @@ the card.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.core import compress, gossip
 from repro_torch.core import topology as topo
+from repro_torch.core.draws import Draws
 from repro_torch.kernels import ops, ref
+from repro_torch.models import mla, moe
+from repro_torch.tree import tree_map
 
 SHAPES = [(1, 1), (5, 1000003), (8, 4099), (13, 3001), (37, 1031),
           (256, 10007)]
@@ -827,6 +836,95 @@ def _zoo_args(cuda, kernel, dtype=torch.float32):
         return list(_ssd_args(cuda, 1, 70, 2, 16, 16, dtype))
     return [torch.rand(1, 70, 9, device=cuda, generator=gen).to(dtype),
             _randn(gen, 1, 70, 9, dtype=dtype)]
+
+
+# (B, S, H, KV, hd, window): Gemma3-12B's local and global layers and
+# Nemotron-4-15B's, at their prefill's full shapes, bf16
+NEW_MODEL_FLASH = [(1, 4096, 16, 8, 256, 1024), (1, 4096, 16, 8, 256, 0),
+                   (1, 4096, 48, 8, 128, 0)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,kv,hd,window", NEW_MODEL_FLASH)
+def test_cuda_flash_attention_at_the_new_models_shapes(cuda, b, s, h, kv,
+                                                       hd, window):
+    gen = _gen(cuda, h + hd + window)
+    q = _randn(gen, b, s, h, hd, dtype=torch.bfloat16)
+    k, v = (_randn(gen, b, s, kv, hd, dtype=torch.bfloat16)
+            for _ in range(2))
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        got = ops.flash_attention(q, k, v, window=window)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["flash_attention"] == 1
+        _zoo_close(got, ref.flash_attention_ref(q, k, v, window=window),
+                   torch.bfloat16)
+
+
+def _moe_mla_params(kind, device):
+    """DeepSeek-V2-Lite's smoke MoE or MLA weights (q_lora_rank 32), f32,
+    from Draws(0) on ``device``."""
+    cfg = get_config("deepseek-v2-lite-16b").smoke()
+    draws = Draws(0, "cpu")
+    if kind == "moe":
+        params = moe.init_moe(draws, cfg.d_model, cfg.moe, torch.float32)
+        sub = cfg.moe
+    else:
+        sub = dataclasses.replace(cfg.mla, q_lora_rank=32)
+        params = mla.init_mla(draws, cfg.d_model, cfg.num_heads, sub,
+                              torch.float32)
+    return tree_map(lambda t: t.to(device), params), sub, cfg.d_model
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("capacity", [None, 2])
+def test_cuda_moe_layer_matches_the_cpu(cuda, capacity):
+    params, cfg, d = _moe_mla_params("moe", "cpu")
+    cparams, _, _ = _moe_mla_params("moe", cuda)
+    x = torch.randn(2, 24, d, generator=torch.Generator().manual_seed(1))
+    want, want_aux = moe.moe_layer(params, x, cfg,
+                                   compute_dtype=torch.float32,
+                                   capacity=capacity)
+    _, want_e, _ = moe._route(params["router"], x.reshape(-1, d), cfg.top_k)
+    got, aux = moe.moe_layer(cparams, x.to(cuda), cfg,
+                             compute_dtype=torch.float32, capacity=capacity)
+    _, got_e, _ = moe._route(cparams["router"], x.to(cuda).reshape(-1, d),
+                             cfg.top_k)
+    assert torch.equal(got_e.cpu(), want_e)
+    _zoo_close(got.cpu(), want, torch.float32)
+    assert float(aux) == pytest.approx(float(want_aux), rel=1e-5)
+    with torch.inference_mode():   # bf16 runs and stays finite
+        y, _ = moe.moe_layer(cparams, x.to(cuda), cfg,
+                             compute_dtype=torch.bfloat16)
+    assert y.dtype == torch.float32 and bool(torch.isfinite(y).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [0, 5])
+def test_cuda_mla_attention_matches_the_cpu(cuda, window):
+    """The prefill and 6 absorbed decode steps on the card against the
+    same calls on the CPU."""
+    params, cfg, d = _moe_mla_params("mla", "cpu")
+    cparams, _, _ = _moe_mla_params("mla", cuda)
+    x = torch.randn(2, 12, d, generator=torch.Generator().manual_seed(2))
+    pos = torch.arange(12).expand(2, 12)
+    want, _ = mla.mla_attention(params, x, pos, cfg=cfg, window=window,
+                                compute_dtype=torch.float32)
+    got, _ = mla.mla_attention(cparams, x.to(cuda), pos.to(cuda), cfg=cfg,
+                               window=window, compute_dtype=torch.float32)
+    _zoo_close(got.cpu(), want, torch.float32)
+    cache = mla.init_mla_cache(2, 4, cfg, torch.float32, device="cpu")
+    ccache = mla.init_mla_cache(2, 4, cfg, torch.float32, device=cuda)
+    for t in range(6):
+        want, cache = mla.mla_attention(
+            params, x[:, t:t + 1], pos[:, t:t + 1], cfg=cfg, window=window,
+            cache=cache, compute_dtype=torch.float32)
+        got, ccache = mla.mla_attention(
+            cparams, x[:, t:t + 1].to(cuda), pos[:, t:t + 1].to(cuda),
+            cfg=cfg, window=window, cache=ccache,
+            compute_dtype=torch.float32)
+        _zoo_close(got.cpu(), want, torch.float32)
+        assert torch.equal(ccache["positions"].cpu(), cache["positions"])
 
 
 @pytest.mark.gpu

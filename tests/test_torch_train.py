@@ -382,15 +382,20 @@ def test_cli_sweep_errors_are_the_reference_messages(case):
     ["--n-total", "64", "--ckpt-dir", "c", "--mesh-agents", "2"],
     ["--delta", "topk:4", "--n-total", "64", "--mesh-model", "2"],
     ["--n-total", "64", "--arch", "deepseek-v3-671b"],
-    ["--arch", "gemma3-12b"], ["--arch", "mistral-large-123b"]])
+    ["--arch", "qwen2-vl-2b"], ["--arch", "mistral-large-123b"]])
 def test_cli_rejects_what_is_not_ported(argv, capsys):
     """--delta, --ckpt-dir and --n-total are ported; with them, a flag
     that is not (the mesh flags) is still rejected, as are the
-    architectures not ported yet, before population mode starts."""
+    architectures not ported yet, before population mode starts; the
+    message names the ids not ported yet."""
     with pytest.raises(SystemExit) as err:
         port_train.main(["--device", "cpu", *argv])
     assert err.value.code == 2
-    assert "not ported to repro_torch yet" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "not ported to repro_torch yet" in err
+    if "--arch" in argv:
+        assert "not yet: qwen2-vl-2b, deepseek-v3-671b, " \
+            "mistral-large-123b, seamless-m4t-large-v2" in err
 
 
 def test_runs_on_cuda_by_default_and_fails_without_a_card():
@@ -492,11 +497,13 @@ def test_flat_adamw_train_loop_returns_the_reference_fedstate(fuse):
 
 
 @pytest.mark.parametrize("arch,layout,fused", [
-    ("recurrentgemma-9b", "tree", False), ("mamba2-2.7b", "flat", True)])
+    ("recurrentgemma-9b", "tree", False), ("mamba2-2.7b", "flat", True),
+    ("deepseek-v2-lite-16b", "flat", True)])
 def test_zoo_smoke_train_loop_matches_reference_losses(arch, layout, fused):
-    """The two ported zoo configs' smoke variants train through both
-    trainers (impl 'xla'), one on each engine: 2 steps, losses within
-    1e-4 relative."""
+    """The zoo configs' smoke variants train through both trainers (impl
+    'xla'), on the tree and the flat engine: 2 steps, losses within 1e-4
+    relative (DeepSeek-V2-Lite's with the MoE aux term, its MoE under the
+    engine's vmap over the agents)."""
     from repro.configs import get_config as ref_get_config
     from repro_torch.configs import get_config
     fed = dict(n_agents=2, h=2, k=2, graph="ring2", gossip_impl="pallas")
@@ -509,7 +516,9 @@ def test_zoo_smoke_train_loop_matches_reference_losses(arch, layout, fused):
     assert isinstance(state, feddec.FedState) and state.step == 3
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "mamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "mamba2-2.7b",
+                                  "deepseek-v2-lite-16b", "gemma3-12b",
+                                  "nemotron-4-15b"])
 def test_cli_trains_a_zoo_smoke_config_on_cpu(capsys, arch):
     port_train.main(["--device", "cpu", "--steps", "2", "--agents", "2",
                      "--batch", "1", "--seq", "16", "--h", "2", "--arch",
