@@ -41,8 +41,11 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
      KV 6, hd 64, f32, RecurrentGemma-9B's B 1, S 4096, H 16, KV 1,
      hd 256, window 2048, bf16, Qwen1.5-4B's B 1, S 4096, H 20, KV 20,
      hd 128, bf16, Gemma3-12B's B 1, S 4096, H 16, KV 8, hd 256, bf16 at
-     window 1024 (its local layers) and 0 (its global ones) and
-     Nemotron-4-15B's B 1, S 4096, H 48, KV 8, hd 128, bf16, causal; #16
+     window 1024 (its local layers) and 0 (its global ones),
+     Nemotron-4-15B's B 1, S 4096, H 48, KV 8, hd 128, bf16, causal,
+     Qwen2-VL-2B's B 1, S 4096, H 12, KV 2, hd 128, bf16, causal and
+     SeamlessM4T-Large-v2's decoder self-attention, B 1, S 4096, H 16,
+     KV 16, hd 64, bf16, causal; #16
      at Mamba2-2.7B's B 1, S 4096, H 80,
      P 64, N 128, bf16; #17 at RecurrentGemma-9B's B 1, S 4096, W 4096),
      within 1e-5·max|y| in f32 and 1e-2·max|y| in bf16, #17's h_last
@@ -103,7 +106,14 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
      widths with 3 of its 27 layers (the dense first layer, then two MoE
      layers as one scanned group), 2 agents, batch 1, flat pallas, #1
      once a step, its loss carrying the MoE aux term (agent 0's loss
-     less its cross entropy is 1e-3·aux);
+     less its cross entropy is 1e-3·aux); then through the engine API
+     (core/feddec.make_feddec_step on the tree, 2 agents, batch 1, S 512,
+     ring, H 2, K 2, --gossip-impl pallas: #1 once per leaf a step),
+     launch/specs.concrete_batch batches: (D2) Qwen2-VL-2B with its
+     256 stub patches and (n, 3, B, S) M-RoPE positions and (D3)
+     SeamlessM4T-Large-v2 with 512 stub encoder frames, each at full
+     width and depth, an untimed step then a timed one: finite losses,
+     parameters moved, step time and peak;
      then (4d) the delta parameterization (--delta) on the flat trainer,
      each path with its warm-up round: (x) --delta full pallas, #1 once a
      step, ending on path (a)'s buffer (difference 0.0) with an all-zero
@@ -146,15 +156,22 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
      line 4 over the 8 agents; the per-row loop issued 18,579);
   6. models: the prefill (Model.logits) of the tiny LM (B 2, S 1024,
      f32), RecurrentGemma-9B, Mamba2-2.7B, Qwen1.5-4B, Gemma3-12B,
-     Nemotron-4-15B and DeepSeek-V2-Lite (B 1, S 4096, bf16) at full
+     Nemotron-4-15B, DeepSeek-V2-Lite, Qwen2-VL-2B (its first 256
+     positions a 16 × 16 grid of stub patch embeddings, M-RoPE ids
+     (0, row, col) there and the text's from 16 on in all three
+     components) and SeamlessM4T-Large-v2 (4096 stub encoder frames)
+     (B 1, S 4096, bf16) at full
      width and depth from random weights (each init's peak within its
      weights' bytes plus one block), impl='xla' then impl='pallas' on
      the same weights, each after an untimed warm-up forward: the pallas
      forward launches #15 12 times (tiny LM), #15 12 and #17 26 times
      (RecurrentGemma-9B), #16 64 times (Mamba2-2.7B), #15 40 times at
      head_dim 128 (Qwen1.5-4B), 48 times at head_dim 256 (Gemma3-12B), 32
-     times at head_dim 128 (Nemotron-4-15B) or nothing (DeepSeek-V2-Lite:
-     MLA and MoE have no kernel) and nothing else, the logits are finite
+     times at head_dim 128 (Nemotron-4-15B), 28 times at head_dim 128
+     (Qwen2-VL-2B), 24 times at head_dim 64 (SeamlessM4T-Large-v2's
+     decoder self-attention; its encoder and cross-attention have none)
+     or nothing (DeepSeek-V2-Lite: MLA and MoE have no kernel) and
+     nothing else, the logits are finite
      and agree to 1e-4·max|logit| (f32), to bf16_model_bound of the
      model's reference gap (bf16) or exactly (no kernel); each bf16 model
      but Nemotron-4-15B again with f32 compute on the same weights, to
@@ -165,7 +182,9 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
   6b. serving (launch/serve.py) at full width and depth from random
      weights, greedy, prompt 16 + 32 new tokens: (S1) Qwen1.5-4B at B 4,
      (S2) RecurrentGemma-9B, (S3) Mamba2-2.7B and (S5) DeepSeek-V2-Lite
-     at B 1, each generate timed after an untimed one (ms a decode step,
+     at B 1, (S6) Qwen2-VL-2B at B 4 (text only, as the reference
+     decodes) and (S7) SeamlessM4T-Large-v2 at B 1 (attending
+     Model.encode of 4096 stub frames), each generate timed after an untimed one (ms a decode step,
      host clock, synchronized; peak), launching no kernel; each sequence
      teacher-forced through Model.decode_step, its logits against the
      xla prefill of the same tokens (phase 6's bounds; for the MoE model
@@ -327,7 +346,11 @@ ZOO_FULL = {
                         "gemma3-12b-global": (1, 4096, 16, 8, 256, 0,
                                               "bfloat16"),
                         "nemotron-4-15b": (1, 4096, 48, 8, 128, 0,
-                                           "bfloat16")},
+                                           "bfloat16"),
+                        "qwen2-vl-2b": (1, 4096, 12, 2, 128, 0,
+                                        "bfloat16"),
+                        "seamless-m4t-large-v2": (1, 4096, 16, 16, 64, 0,
+                                                  "bfloat16")},
     "ssd_scan": {"mamba2-2.7b": (1, 4096, 80, 64, 128, "bfloat16")},
     "rglru_scan": {"recurrentgemma-9b": (1, 4096, 4096, "float32")},
 }
@@ -337,9 +360,11 @@ BF16_FLOP_PER_S = 989e12        # H100 SXM tensor cores, dense
 ZOO_MODELS = [("tiny", 2, 1024), ("recurrentgemma-9b", 1, 4096),
               ("mamba2-2.7b", 1, 4096), ("qwen1.5-4b", 1, 4096),
               ("gemma3-12b", 1, 4096), ("nemotron-4-15b", 1, 4096),
-              ("deepseek-v2-lite-16b", 1, 4096)]
+              ("deepseek-v2-lite-16b", 1, 4096), ("qwen2-vl-2b", 1, 4096),
+              ("seamless-m4t-large-v2", 1, 4096)]
 # DeepSeek-V2-Lite's MLA and MoE have no kernel: its two impls are one
-# computation, held equal
+# computation, held equal; SeamlessM4T's encoder (unmasked) and
+# cross-attention take the plain path under either impl
 ZOO_LAUNCHES = {"tiny": {"flash_attention": 12},
                 "recurrentgemma-9b": {"flash_attention": 12,
                                       "rglru_scan": 26},
@@ -347,7 +372,14 @@ ZOO_LAUNCHES = {"tiny": {"flash_attention": 12},
                 "qwen1.5-4b": {"flash_attention": 40},
                 "gemma3-12b": {"flash_attention": 48},
                 "nemotron-4-15b": {"flash_attention": 32},
-                "deepseek-v2-lite-16b": {}}
+                "deepseek-v2-lite-16b": {},
+                "qwen2-vl-2b": {"flash_attention": 28},
+                "seamless-m4t-large-v2": {"flash_attention": 24}}
+# the multimodal inputs of phases 6 and 6b: Qwen2-VL-2B's patch prefix
+# is a VISION_GRID × VISION_GRID grid; SeamlessM4T's encoder memory is
+# ENC_FRAMES frames (its config's fixed 4096-frame memory)
+VISION_GRID = 16
+ENC_FRAMES = 4096
 # the bf16 models with a kernel on their path run again with f32 compute
 # on the same weights, but Nemotron-4-15B: its 62.5 GB of f32 weights leave no room for two f32
 # (S, 256,000) logits and the f32 attention of 48 heads
@@ -413,6 +445,11 @@ TREE_PATHS = {
     "D1": ("pallas", False, "sgd", "gossip_mix", 1,
            dict(arch="deepseek-v2-lite-16b", layers=3, agents=2, batch=1)),
 }
+# phase 4c's engine-API paths: (D2) and (D3) -> the model; the agents and
+# each agent's sequence length (past Qwen2-VL's 256 patch positions,
+# whose targets take no loss)
+ENGINE_STEPS = {"D2": "qwen2-vl-2b", "D3": "seamless-m4t-large-v2"}
+ENGINE_AGENTS, ENGINE_SEQ = 2, 512
 # phase 4d, the delta parameterization (--delta) on the flat trainer: path
 # -> (gossip impl, fuse, optimizer, delta spec, the kernel it launches once
 # a step, train_path's options).  (z) is cut to d_model 256 and 2 layers
@@ -477,8 +514,17 @@ BF16_REF_GAP_QWEN = 0.011
 # 0.0056, is within BF16_REF_GAP; DeepSeek-V2-Lite's two paths are one
 # computation (no kernel), held equal.
 BF16_REF_GAP_NEMOTRON = 0.011
+# Qwen2-VL-2B's (with its patch prefix and three distinct M-RoPE
+# components) and SeamlessM4T-Large-v2's (the decoder's self-attention:
+# its encoder and cross-attention are one computation on both paths),
+# measured the same way (tests/test_torch_zoo.py): 0.0080 to 0.0107 and
+# 0.0058 to 0.0093 over 3 weight seeds and 2 draws of the inputs
+BF16_REF_GAP_QWEN2_VL = 0.011
+BF16_REF_GAP_SEAMLESS = 0.010
 BF16_REF_GAPS = {"qwen1.5-4b": BF16_REF_GAP_QWEN,
-                 "nemotron-4-15b": BF16_REF_GAP_NEMOTRON}
+                 "nemotron-4-15b": BF16_REF_GAP_NEMOTRON,
+                 "qwen2-vl-2b": BF16_REF_GAP_QWEN2_VL,
+                 "seamless-m4t-large-v2": BF16_REF_GAP_SEAMLESS}
 
 
 def bf16_model_bound(layers: int, smoke_layers: int,
@@ -1938,7 +1984,8 @@ def tree_phase(torch, a_final) -> dict:
     per-step default (the tree engine), must end within TOL·max|x| of path
     (a)'s flat buffer ``a_final`` (the same seed and draws), (t)'s int8
     leaves a nonzero residual, and (v) and (w) end within TOL·max|x| of
-    their own run with the plain dense mix."""
+    their own run with the plain dense mix.  Then (D2) and (D3) through
+    the engine API (engine_step)."""
     out = {}
     for name, (impl, fuse, opt, kernel, per_step, kw) in TREE_PATHS.items():
         state, out[name] = run_path(torch, name, impl, fuse, opt, kernel,
@@ -1971,7 +2018,96 @@ def tree_phase(torch, a_final) -> dict:
             del final
         del state
         torch.cuda.empty_cache()
+    for seed, (name, arch) in enumerate(ENGINE_STEPS.items()):
+        out[name] = engine_step(torch, name, arch, seed)
     return out
+
+
+def engine_step(torch, name: str, arch: str, seed: int) -> dict:
+    """(D2)/(D3): ``arch`` at full width and depth through the engine
+    API, as the reference trains it (tests/test_arch_smoke.py:63-86):
+    core/feddec.make_feddec_step on the tree, ENGINE_AGENTS agents on a
+    ring, H 2, K 2 (the server fires at the first step), gossip on #1,
+    each step's batch a launch/specs.concrete_batch of batch 1 and
+    ENGINE_SEQ tokens (and as many encoder frames).  An untimed step,
+    then the timed one with the launch counters set to 0 just before it:
+    #1 once per leaf a step and no other kernel, finite losses, more than
+    half of agent 0's leaves moved from the init, the step's time and
+    peak."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.core import feddec
+    from repro_torch.core.draws import Draws
+    from repro_torch.kernels import ops
+    from repro_torch.launch import specs, train
+    from repro_torch.models import build_model
+    from repro_torch.tree import leaves, tree_map
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    draws = Draws(seed, DEVICE)
+    params = model.init(draws)
+    state = feddec.init_state(params, ENGINE_AGENTS)
+    start = tree_map(lambda x: x.cpu(), params)     # agent 0's start
+    n_leaves = len(leaves(params))
+    del params
+    fcfg, _ = train.build_fed_setup(FedConfig(
+        n_agents=ENGINE_AGENTS, h=2, k=2, graph="ring2",
+        gossip_impl="pallas"))
+    eta = torch.full((1,), 1e-3, device=DEVICE)
+    step = feddec.make_feddec_step(fcfg, model.grad_fn(), lambda t: eta,
+                                   device=DEVICE)
+
+    def batch():
+        return specs.concrete_batch(cfg, ENGINE_AGENTS, 1, ENGINE_SEQ, draws)
+
+    first = batch()
+    check(set(first) == set(specs.batch_schema(cfg, ENGINE_AGENTS, 1,
+                                                ENGINE_SEQ)),
+          f"({name}): batch keys {sorted(first)}")
+    state, met = step(state, first, draws)
+    losses = [met["loss"].item()]
+    del first
+    nxt = batch()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, met = step(state, nxt, draws)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses.append(met["loss"].item())
+    check(all(math.isfinite(v) for v in losses),
+          f"({name}): non-finite loss {losses}")
+    check(counts["gossip_mix"] == n_leaves
+          and sum(counts.values()) == n_leaves,
+          f"({name}): launched {counts}, expected gossip_mix × {n_leaves}")
+    new = leaves(state.params)
+    finite = all(bool(torch.isfinite(x).all()) for x in new)
+    moved = sum(not torch.allclose(a, b[0].cpu())
+                for a, b in zip(leaves(start), new))
+    check(finite and moved > n_leaves // 2,
+          f"({name}): finite {finite}, {moved} of {n_leaves} leaves moved")
+    row = {"arch": arch, "agents": ENGINE_AGENTS, "batch": 1,
+           "seq": ENGINE_SEQ, "params": cfg.num_params(), "layers":
+           cfg.num_layers, "kernel": "gossip_mix", "launches": n_leaves,
+           "launches_per_step": n_leaves, "losses": losses,
+           "step_ms": step_ms, "peak_bytes": peak, "leaves_moved": moved,
+           "leaves": n_leaves, "inputs": sorted(nxt)}
+    log(f"[train] path ({name}) {arch} at full width and depth through "
+        f"make_feddec_step: {ENGINE_AGENTS} agents, batch 1, S "
+        f"{ENGINE_SEQ}, inputs {row['inputs']}: loss {losses[0]:.4f} → "
+        f"{losses[1]:.4f}, gossip_mix launches {n_leaves} (one per leaf), "
+        f"{moved} of {n_leaves} leaves moved; step {step_ms:.1f} ms (host "
+        f"clock, synchronized, after an untimed step), peak "
+        f"{peak / 1e9:.2f} GB")
+    del state, start, nxt, met, step
+    torch.cuda.empty_cache()
+    return row
 
 
 def moe_aux_check(torch, state, kw: dict) -> dict:
@@ -2924,6 +3060,42 @@ def mamba2_gap_table(torch) -> list:
     return rows
 
 
+def stub_frames(cfg, batch: int, draws):
+    """ENC_FRAMES stub encoder frames (B, T, d), N(0, 1)·0.02 in the
+    compute dtype (launch/specs.concrete_batch's embeddings)."""
+    return (draws.normal((batch, ENC_FRAMES, cfg.d_model)) * 0.02).to(
+        cfg.compute_dtype)
+
+
+def multimodal_inputs(torch, cfg, batch: dict, draws) -> dict:
+    """``batch`` with the model's other inputs: a vision config's stub
+    patch embeddings (N(0, 1)·0.02, compute dtype) in the first
+    VISION_GRID² positions, and Qwen2-VL's M-RoPE ids: patch (r, c) at
+    (0, r, c), the text after the patches from VISION_GRID on in all
+    three components (positions stay 0 .. S-1); an encoder-decoder
+    config's stub_frames."""
+    out = dict(batch)
+    b, s = batch["tokens"].shape
+    if cfg.rope_kind == "mrope":
+        p = VISION_GRID ** 2 if cfg.frontend == "vision" else 0
+        idx = torch.arange(s, device=DEVICE)
+        text = idx - p + (VISION_GRID if p else 0)
+        patch = idx < p
+        ids = torch.stack([torch.where(patch, 0, text),
+                           torch.where(patch, idx // VISION_GRID, text),
+                           torch.where(patch, idx % VISION_GRID, text)])
+        out["mrope_positions"] = ids[:, None].expand(3, b, s).contiguous()
+    if cfg.frontend == "vision":
+        check(cfg.frontend_positions == VISION_GRID ** 2,
+              f"{cfg.name}: {cfg.frontend_positions} patch positions")
+        out["frontend_embeds"] = (draws.normal(
+            (b, cfg.frontend_positions, cfg.d_model)) * 0.02).to(
+            cfg.compute_dtype)
+    if cfg.is_encoder_decoder:
+        out["enc_embeds"] = stub_frames(cfg, b, draws)
+    return out
+
+
 def init_peak_check(torch, name: str, params: dict, peak: int) -> dict:
     """Model.init's peak above what was allocated before it must not pass
     the weights' bytes plus one block (the largest: a prefix or suffix
@@ -2990,7 +3162,9 @@ def model_phase(torch) -> dict:
         tokens = torch.randint(0, cfg.vocab_size, (bsz, seq),
                                generator=draws.generator, device=DEVICE)
         positions = torch.arange(seq, device=DEVICE).expand(bsz, seq)
-        batch = {"tokens": tokens, "positions": positions}
+        batch = multimodal_inputs(torch, cfg, {"tokens": tokens,
+                                               "positions": positions},
+                                  draws)
         row = compare_paths(torch, name, model, params, batch)
         tol, rule = model_tol(torch, name, cfg)
         if not ZOO_LAUNCHES[name]:
@@ -3036,21 +3210,28 @@ def model_phase(torch) -> dict:
 # (S1)-(S3): (model, batch) at full width and depth, the serving CLI's
 # prompt and new tokens; (S4): the personalized batch of path (a)'s agents
 SERVE_MODELS = [("qwen1.5-4b", 4), ("recurrentgemma-9b", 1),
-                ("mamba2-2.7b", 1), ("deepseek-v2-lite-16b", 1)]
+                ("mamba2-2.7b", 1), ("deepseek-v2-lite-16b", 1),
+                ("qwen2-vl-2b", 4), ("seamless-m4t-large-v2", 1)]
 SERVE_PROMPT, SERVE_NEW = 16, 32
 
 
-def teacher_forced(torch, model, params, seqs):
+def teacher_forced(torch, model, params, seqs, enc_out=None):
     """(B, S, V) logits of Model.decode_step over every token of ``seqs``
-    from empty caches: the steps ``generate`` takes on the same tokens."""
+    from empty caches: the steps ``generate`` takes on the same tokens
+    (an M-RoPE model's three components at the token's position, an
+    encoder-decoder model attending ``enc_out``)."""
     b, s = seqs.shape
     caches = model.init_caches(b, s, dtype=torch.float32, device=DEVICE)
     outs = []
     with torch.inference_mode():
         for t in range(s):
-            logits, caches = model.decode_step(params, {
-                "tokens": seqs[:, t:t + 1],
-                "positions": torch.full((b, 1), t, device=DEVICE)}, caches)
+            batch = {"tokens": seqs[:, t:t + 1],
+                     "positions": torch.full((b, 1), t, device=DEVICE)}
+            if model.cfg.rope_kind == "mrope":
+                batch["mrope_positions"] = torch.full((3, b, 1), t,
+                                                      device=DEVICE)
+            logits, caches = model.decode_step(params, batch, caches,
+                                               enc_out=enc_out)
             outs.append(logits[:, 0])
     return torch.stack(outs, dim=1)
 
@@ -3096,24 +3277,37 @@ def serve_model(torch, name: str, batch: int, seed: int) -> dict:
     params = model.init(draws)
     prompt = torch.randint(0, cfg.vocab_size, (batch, SERVE_PROMPT),
                            generator=draws.generator, device=DEVICE)
+    enc_out = frames = None
+    if cfg.is_encoder_decoder:
+        frames = stub_frames(cfg, batch, draws)
+        with torch.inference_mode():
+            enc_out = model.encode(params, {"enc_embeds": frames})
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     ops.reset_launch_counts()
     seqs, secs, peak = timed_generate(torch, lambda: serve.generate(
-        model, params, prompt, max_new_tokens=SERVE_NEW))
+        model, params, prompt, max_new_tokens=SERVE_NEW, enc_out=enc_out))
     launched = {k: v for k, v in ops.launch_counts().items() if v}
     check(not launched, f"[serve] {name}: decode launched {launched}")
     check_served(torch, name, seqs, prompt, cfg.vocab_size)
     steps = SERVE_PROMPT + SERVE_NEW
-    dec = teacher_forced(torch, model, params, seqs)
+    dec = teacher_forced(torch, model, params, seqs, enc_out)
     check(bool(torch.isfinite(dec).all()),
           f"[serve] {name}: non-finite decode logits")
     picked = dec[:, SERVE_PROMPT - 1:steps - 1].argmax(dim=-1)
     check(torch.equal(picked, seqs[:, SERVE_PROMPT:]),
           f"[serve] {name}: generate's tokens are not the argmax of the "
           f"teacher-forced decode logits")
+    # the same computation as the decode: text only, every M-RoPE
+    # component the position; the decode's encoder memory from the same
+    # frames (Model.encode is the prefill's own encoder pass)
     prefill_batch = {"tokens": seqs, "positions": torch.arange(
         steps, device=DEVICE).expand(batch, steps)}
+    if cfg.rope_kind == "mrope":
+        prefill_batch["mrope_positions"] = prefill_batch["positions"][
+            None].expand(3, batch, steps)
+    if frames is not None:
+        prefill_batch["enc_embeds"] = frames
     with torch.inference_mode():
         full = model.logits(params, prefill_batch, impl="xla")
     err, scale = logit_gap(torch, dec, full)
@@ -3144,7 +3338,7 @@ def serve_model(torch, name: str, batch: int, seed: int) -> dict:
         f"GB; decode vs prefill max|Δlogit|/max|logit| {err / scale:.3e} "
         f"(bound {'none' if tol is None else f'{tol:.3e}'}, {rule}); "
         f"tokens = argmax of the decode logits")
-    del params, dec, full, draws
+    del params, dec, full, draws, enc_out, frames
     torch.cuda.empty_cache()
     return row
 

@@ -11,13 +11,14 @@ _ARCH_MODULES = {
     "recurrentgemma-9b": "recurrentgemma_9b",
     "qwen1.5-4b": "qwen1_5_4b",
     "nemotron-4-15b": "nemotron_4_15b",
+    "qwen2-vl-2b": "qwen2_vl_2b",
+    "seamless-m4t-large-v2": "seamless_m4t_large_v2",
 }
 
 ARCH_NAMES = ("tiny",) + tuple(_ARCH_MODULES)
 # the reference's ids whose configs are not ported yet (ROADMAP.md Queue A
-# items 5b and 5c)
-NOT_PORTED_ARCHS = ("qwen2-vl-2b", "deepseek-v3-671b", "mistral-large-123b",
-                    "seamless-m4t-large-v2")
+# item 5c)
+NOT_PORTED_ARCHS = ("deepseek-v3-671b", "mistral-large-123b")
 
 
 def get_config(name: str) -> ArchConfig:

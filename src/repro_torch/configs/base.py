@@ -2,10 +2,11 @@
 
 The fields the port's models read: the dense GQA language model (with
 Qwen1.5's QKV bias and long-context window), Griffin's RG-LRU /
-local-attention hybrid, the Mamba2 SSD stack and DeepSeek's MoE and MLA
-blocks, with the reference's analytic parameter counts.  Dtypes are
-torch dtypes in place of ``jnp`` ones.  The encoder-decoder, frontend
-and sharding fields are not ported.
+local-attention hybrid, the Mamba2 SSD stack, DeepSeek's MoE and MLA
+blocks, Qwen2-VL's M-RoPE with its vision-stub prefix and SeamlessM4T's
+encoder-decoder, with the reference's analytic parameter counts.  Dtypes
+are torch dtypes in place of ``jnp`` ones.  The sharding fields are not
+ported.
 """
 
 from __future__ import annotations
@@ -63,8 +64,11 @@ class SSMConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
-    """A decoder-only stack of attention (GQA or MLA), SSM or RG-LRU
-    blocks, each attention or RG-LRU block with a dense MLP or an MoE."""
+    """A stack of attention (GQA or MLA), SSM or RG-LRU blocks, each
+    attention or RG-LRU block with a dense MLP or an MoE; an
+    encoder-decoder config adds an encoder stack and cross-attention, a
+    frontend config takes stub embeddings (vision patches or audio
+    frames) in place of its frontend."""
 
     name: str
     num_layers: int
@@ -73,14 +77,14 @@ class ArchConfig:
     num_kv_heads: int
     d_ff: int
     vocab_size: int
-    arch_type: str = "dense"       # dense | moe | ssm | hybrid
+    arch_type: str = "dense"       # dense | moe | ssm | hybrid | vlm | audio
     source: str = ""               # citation of the published config
     head_dim: int = 0              # 0 ⇒ d_model // num_heads (gqa)
 
     # attention
     attention_kind: str = "gqa"    # gqa | mla | none
     qkv_bias: bool = False
-    rope_kind: str = "rope"        # rope | none
+    rope_kind: str = "rope"        # rope | mrope | none
     rope_theta: float = 10_000.0
     sliding_window: int = 0        # >0 ⇒ local layers use this window
     global_every: int = 0          # every n-th layer global (0 ⇒ none)
@@ -94,6 +98,14 @@ class ArchConfig:
     moe: MoEConfig | None = None
     mla: MLAConfig | None = None
     ssm: SSMConfig | None = None
+
+    # encoder-decoder (seamless)
+    is_encoder_decoder: bool = False
+    encoder_layers: int = 0
+
+    # modality frontend stub: None | "vision" | "audio"
+    frontend: str | None = None
+    frontend_positions: int = 0    # positions consumed by frontend embeds
 
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
@@ -138,6 +150,10 @@ class ArchConfig:
             total += d * v  # head
         for li in range(self.num_layers):
             total += self._block_params(li)
+        if self.is_encoder_decoder:
+            for li in range(self.encoder_layers):
+                total += self._block_params(li)
+            total += self.num_layers * self._cross_attn_params()
         return total
 
     def num_active_params(self) -> int:
@@ -163,6 +179,11 @@ class ArchConfig:
             out = self.num_heads * c.v_head_dim * d
             return q_in + kv_in + kv_up + out
         hd = self.head_dim
+        return (d * self.num_heads * hd + 2 * d * self.num_kv_heads * hd
+                + self.num_heads * hd * d)
+
+    def _cross_attn_params(self) -> int:
+        d, hd = self.d_model, self.head_dim
         return (d * self.num_heads * hd + 2 * d * self.num_kv_heads * hd
                 + self.num_heads * hd * d)
 
@@ -212,7 +233,8 @@ class ArchConfig:
         """Reduced same-family variant (the reference's ``smoke``): ≤ the
         block pattern's length of layers (2 at least), d_model ≤ 256,
         ≤ 4 heads of 64, vocab ≤ 512, window ≤ 32, a long-context window
-        of 64 where there is one, ≤ 4 experts (top 2) of width ≤ 128,
+        of 64 where there is one, ≤ 2 encoder layers, ≤ 8 frontend
+        positions, ≤ 4 experts (top 2) of width ≤ 128,
         an MLA of rank 64 and head dims 32/16/32, f32."""
         heads = min(self.num_heads, 4)
         kv = min(self.num_kv_heads, heads)
@@ -226,6 +248,8 @@ class ArchConfig:
             head_dim=64 if self.attention_kind == "gqa" else 0,
             d_ff=min(self.d_ff, 512),
             vocab_size=min(self.vocab_size, 512),
+            encoder_layers=min(self.encoder_layers, 2),
+            frontend_positions=min(self.frontend_positions, 8),
             sliding_window=(min(self.sliding_window, 32)
                             if self.sliding_window else 0),
             global_every=min(self.global_every, 2) if self.global_every

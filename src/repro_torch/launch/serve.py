@@ -4,7 +4,11 @@ or temperature decode with KV/state caches.
 Builds the model, runs the prompt through the caches token by token (the
 same cache state a chunked prefill would give), then decodes new tokens
 one step at a time.  Works for every ported architecture, including the
-recurrent ones whose caches are O(1) in sequence length.
+recurrent ones whose caches are O(1) in sequence length.  An M-RoPE
+model (Qwen2-VL) decodes text only, all three position components at
+the token's position; an encoder-decoder model (SeamlessM4T) attends an
+encoder memory ``enc_out`` from ``Model.encode`` (the CLI encodes 8 stub
+frames, as the reference's does).
 
 Two entry points:
 
@@ -25,7 +29,8 @@ the reference takes a key: ``Draws.categorical`` is Gumbel-max, as
 CLI (``--device cuda`` by default; ``--device cpu`` for the CPU):
   PYTHONPATH=src python -m repro_torch.launch.serve [--arch qwen1.5-4b]
       (or gemma3-12b, mamba2-2.7b, deepseek-v2-lite-16b,
-      recurrentgemma-9b, nemotron-4-15b, tiny)
+      recurrentgemma-9b, nemotron-4-15b, qwen2-vl-2b,
+      seamless-m4t-large-v2, tiny)
       [--batch 4 --prompt-len 16 --new-tokens 32] [--ckpt DIR]
 As in the reference, ``--smoke`` defaults to on and cannot be turned off,
 so the CLI always serves the config's smoke variant; ``--ckpt DIR``
@@ -43,6 +48,7 @@ import torch
 from repro_torch.checkpoint import load_checkpoint
 from repro_torch.configs import ARCH_NAMES, NOT_PORTED_ARCHS, get_config
 from repro_torch.core.draws import Draws
+from repro_torch.launch.specs import concrete_batch
 from repro_torch.launch.train import resolve_device
 from repro_torch.models import build_model
 from repro_torch.tree import tree_map
@@ -112,6 +118,9 @@ def generate(model, params, prompt_tokens: torch.Tensor, *,
         nonlocal caches
         batch = {"tokens": tok,
                  "positions": torch.full((b, 1), pos, device=device)}
+        if model.cfg.rope_kind == "mrope":
+            batch["mrope_positions"] = torch.full((3, b, 1), pos,
+                                                  device=device)
         logits, caches = model.decode_step(params, batch, caches,
                                            enc_out=enc_out,
                                            long_variant=long_variant)
@@ -167,6 +176,9 @@ def generate_personalized(model, flat_spec, base_row: torch.Tensor,
             nonlocal caches
             batch = {"tokens": tok[:, None, :],
                      "positions": torch.full((b, 1, 1), pos, device=device)}
+            if model.cfg.rope_kind == "mrope":
+                batch["mrope_positions"] = torch.full((b, 3, 1, 1), pos,
+                                                      device=device)
             logits, caches = step(params, batch, caches)   # (B, 1, 1, V)
             return logits[:, 0]
 
@@ -211,13 +223,20 @@ def main(argv=None) -> None:
         # serve the agent-0 slice of the federated stacked params
         params = load_agent_params(args.ckpt, 0, device)
 
+    enc_out = None
+    if cfg.is_encoder_decoder:
+        enc_batch = concrete_batch(cfg, None, args.batch, 8,
+                                   Draws(1, device), enc_len=8)
+        with torch.inference_mode():
+            enc_out = model.encode(params, enc_batch)
+
     prompt = torch.randint(0, cfg.vocab_size,
                            (args.batch, args.prompt_len),
                            generator=Draws(2, device).generator,
                            device=device)
     t0 = time.time()
     seqs = generate(model, params, prompt, max_new_tokens=args.new_tokens,
-                    temperature=args.temperature)
+                    enc_out=enc_out, temperature=args.temperature)
     seqs = seqs.cpu()   # waits for the device
     dt = time.time() - t0
     tput = args.batch * args.new_tokens / dt

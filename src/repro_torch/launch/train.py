@@ -3,8 +3,10 @@
 Runs Algorithm 1 on the tiny dense LM, or on a ported zoo config
 (``--arch``: gemma3-12b, mamba2-2.7b, deepseek-v2-lite-16b,
 recurrentgemma-9b, qwen1.5-4b or nemotron-4-15b; ``--smoke`` for its
-reduced variant), over synthetic heterogeneous per-agent token streams on one
-device.  The state is the flat (n_agents, D) buffer (the fused round's
+reduced variant; qwen2-vl-2b and seamless-m4t-large-v2 are refused, as
+the reference's training CLI cannot train them: they train through the
+engine API on launch/specs.py batches), over synthetic heterogeneous
+per-agent token streams on one device.  The state is the flat (n_agents, D) buffer (the fused round's
 default) or the stacked tree of the model's dict (``--per-step``'s
 default, as in the reference, or ``--state-layout tree``); with
 ``--sweep-runs R`` it trains an R-run lattice (over seeds, H or
@@ -452,6 +454,15 @@ def population_loop(cfg: ArchConfig, fed: FedConfig, *, n_total: int,
 
 
 _NOT_PORTED = ("--mesh-agents", "--mesh-model")
+# ported configs this CLI does not train: the reference's train_loop
+# fails on them at its first step, because its batches carry only tokens
+# and positions
+_NOT_TRAINABLE = {
+    "qwen2-vl-2b": "its M-RoPE attention needs mrope_positions "
+                   "(repro/models/attention.py:219)",
+    "seamless-m4t-large-v2": "its encoder needs enc_embeds "
+                             "(repro/models/transformer.py:353)",
+}
 # population mode's flags that differ from their defaults compose with
 # nothing here (repro/launch/train.py:568-579; --mesh-agents and
 # --mesh-model are refused before, as not ported)
@@ -464,9 +475,11 @@ _POPULATION_EXCLUSIVE = (("--sweep-runs", "sweep_runs", None),
 
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__)
+    trained = [a for a in ARCH_NAMES[1:] if a not in _NOT_TRAINABLE]
     p.add_argument("--arch", default="tiny",
                    help=f"'tiny' (the ~157M dense LM) or a ported config: "
-                        f"{', '.join(ARCH_NAMES[1:])} (not ported yet: "
+                        f"{', '.join(trained)} (not trained by this CLI: "
+                        f"{', '.join(_NOT_TRAINABLE)}; not ported yet: "
                         f"{', '.join(NOT_PORTED_ARCHS)})")
     p.add_argument("--smoke", action="store_true",
                    help="use the reduced smoke variant of --arch")
@@ -570,6 +583,13 @@ def main(argv=None) -> None:
     if rejected:
         p.error(f"not ported to repro_torch yet: {', '.join(rejected)} "
                 f"(see ROADMAP.md; the JAX package repro has them)")
+    if args.arch in _NOT_TRAINABLE:
+        p.error(f"--arch {args.arch} is not trained by this CLI: the "
+                f"reference's train_loop fails on it at its first step, "
+                f"because its batches carry only tokens and positions and "
+                f"{_NOT_TRAINABLE[args.arch]}; train it through the engine "
+                f"API (core/feddec.py) on launch/specs.py concrete_batch "
+                f"batches")
 
     if args.arch == "tiny":
         cfg = tiny_lm_config(args.d_model, args.layers, vocab=args.vocab)

@@ -12,6 +12,12 @@ through the flash-attention kernel
 (:func:`repro_torch.kernels.ops.flash_attention`, kernel #15), which keeps
 the probabilities in f32: at bf16 the two paths differ by design.
 
+Cross-attention (the encoder-decoder's decoder, ``kv_override``): K and V
+are projected from the encoder memory, no rope is applied to q or k and
+no mask limits the keys.  The encoder's self-attention is not causal
+(``causal=False``).  Only a causal self-attention reaches kernel #15; the
+others run the plain path under either ``impl``, as in the reference.
+
 Decode (``cache`` given): one query token against a (possibly rolling)
 cache, on the plain path whatever ``impl`` says, as the reference
 decodes.  The cache stores per-slot absolute positions (-1: empty), so
@@ -76,15 +82,17 @@ def _out(probs, v) -> torch.Tensor:
     return out.reshape(b, s, kv * g, v.shape[-1])
 
 
-def _attend_block(q, k, v, qpos, kpos, scale: float,
-                  window: int = 0) -> torch.Tensor:
-    """q (B,S,H,hd), k/v (B,T,Kv,hd) → (B,S,H,hd), causal by position and,
-    for ``window`` > 0, limited to the last ``window`` keys."""
-    scores = _scores(q, k)
-    mask = kpos[..., None, :] <= qpos[..., :, None]               # (B,S,T)
-    if window > 0:
-        mask &= kpos[..., None, :] > qpos[..., :, None] - window
-    scores = scores.mul_(scale).masked_fill_(~mask[:, None, None], NEG_INF)
+def _attend_block(q, k, v, qpos, kpos, scale: float, window: int = 0,
+                  causal: bool = True) -> torch.Tensor:
+    """q (B,S,H,hd), k/v (B,T,Kv,hd) → (B,S,H,hd); with ``causal``, masked
+    causally by position and, for ``window`` > 0, limited to the last
+    ``window`` keys; without, every key is seen."""
+    scores = _scores(q, k).mul_(scale)
+    if causal:
+        mask = kpos[..., None, :] <= qpos[..., :, None]           # (B,S,T)
+        if window > 0:
+            mask &= kpos[..., None, :] > qpos[..., :, None] - window
+        scores = scores.masked_fill_(~mask[:, None, None], NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     del scores
     return _out(probs, v)
@@ -114,29 +122,46 @@ def _decode(q, k, v, cache: dict, pos_now, scale: float, window: int,
 
 def attention(params: dict, x: torch.Tensor, positions: torch.Tensor, *,
               head_dim: int, window: int = 0, rope_kind: str = "rope",
-              rope_theta: float = 10_000.0, cache: dict | None = None,
-              compute_dtype=torch.float32, impl: str = "xla"):
-    """Causal GQA self-attention with RoPE; x (B, S, d), positions (B, S).
+              rope_theta: float = 10_000.0, mrope_positions=None,
+              cache: dict | None = None, kv_override=None,
+              causal: bool = True, compute_dtype=torch.float32,
+              impl: str = "xla"):
+    """GQA attention of x (B, S, d) at positions (B, S): self-attention
+    with RoPE (M-RoPE at ``mrope_positions`` (3, B, S)), causal unless
+    ``causal`` is False, or with ``kv_override`` (B, T, d) the
+    cross-attention to that encoder memory.
 
     Returns (out (B, S, d), the updated cache or None)."""
     q = layers.dense(params["wq"], x, compute_dtype=compute_dtype)
-    k = layers.dense(params["wk"], x, compute_dtype=compute_dtype)
-    v = layers.dense(params["wv"], x, compute_dtype=compute_dtype)
-    if rope_kind == "rope":
-        q = layers.apply_rope(q, positions, rope_theta)
-        k = layers.apply_rope(k, positions, rope_theta)
-    elif rope_kind != "none":
-        raise ValueError(f"unknown rope kind {rope_kind!r}")
+    kv_src = x if kv_override is None else kv_override
+    k = layers.dense(params["wk"], kv_src, compute_dtype=compute_dtype)
+    v = layers.dense(params["wv"], kv_src, compute_dtype=compute_dtype)
+    if kv_override is None:
+        if rope_kind == "rope":
+            q = layers.apply_rope(q, positions, rope_theta)
+            k = layers.apply_rope(k, positions, rope_theta)
+        elif rope_kind == "mrope":
+            if mrope_positions is None:
+                raise ValueError("rope_kind='mrope' needs mrope_positions")
+            q = layers.apply_mrope(q, mrope_positions, rope_theta)
+            k = layers.apply_mrope(k, mrope_positions, rope_theta)
+        elif rope_kind != "none":
+            raise ValueError(f"unknown rope kind {rope_kind!r}")
     scale = head_dim ** -0.5
     new_cache = None
+    is_causal = causal and kv_override is None
     if cache is not None:
+        if kv_override is not None:
+            raise ValueError("cross-attention takes no cache")
         out, new_cache = _decode(q, k, v, cache, positions[0, -1], scale,
                                  window, compute_dtype)
-    elif impl == "pallas":
+    elif impl == "pallas" and is_causal:
         from repro_torch.kernels import ops
         out = ops.flash_attention(q, k, v, window=window, scale=scale)
     else:
-        out = _attend_block(q, k, v, positions, positions, scale, window)
+        # under kv_override the keys sit at 0 .. T-1; no mask reads them
+        out = _attend_block(q, k, v, positions, positions, scale, window,
+                            is_causal)
     out = out.to(compute_dtype)
     return torch.einsum("bshd,hdo->bso", out,
                         params["wo"]["w"].to(compute_dtype)), new_cache

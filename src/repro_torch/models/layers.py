@@ -14,7 +14,8 @@ import torch.nn.functional as F
 
 __all__ = ["init_rms_norm", "rms_norm", "init_layer_norm", "layer_norm",
            "init_dense", "dense", "gelu", "init_mlp", "mlp", "init_embedding",
-           "embed", "unembed", "rope_frequencies", "apply_rope"]
+           "embed", "unembed", "rope_frequencies", "apply_rope",
+           "mrope_sections", "apply_mrope"]
 
 
 def init_rms_norm(d: int, dtype, device) -> dict:
@@ -137,15 +138,50 @@ def rope_frequencies(head_dim: int, theta: float = 10_000.0,
     return 1.0 / torch.pow(theta, exponents)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float = 10_000.0) -> torch.Tensor:
-    """RoPE on (..., S, H, hd) with (..., S) positions: the head dim is
-    split in halves (x1, x2) rotated by position · inv_freq, in f32."""
-    hd = x.shape[-1]
-    inv = rope_frequencies(hd, theta, device=x.device)
-    angles = positions.float()[..., None] * inv          # (..., S, hd/2)
+def _rotate(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """x (..., S, H, hd) with its halves (x1, x2) rotated by angles
+    (..., S, hd/2), in f32."""
     cos = torch.cos(angles)[..., None, :]
     sin = torch.sin(angles)[..., None, :]
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
                      dim=-1).to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10_000.0) -> torch.Tensor:
+    """RoPE on (..., S, H, hd) with (..., S) positions: the head dim is
+    split in halves (x1, x2) rotated by position · inv_freq, in f32."""
+    inv = rope_frequencies(x.shape[-1], theta, device=x.device)
+    return _rotate(x, positions.float()[..., None] * inv)
+
+
+def mrope_sections(head_dim: int) -> tuple[int, int, int]:
+    """The reference's (temporal, height, width) split of the half head
+    dim: (half − 2·(half // 4), half // 4, half // 4)."""
+    half = head_dim // 2
+    return (half - 2 * (half // 4), half // 4, half // 4)
+
+
+def apply_mrope(x: torch.Tensor, positions_3d: torch.Tensor,
+                theta: float = 10_000.0,
+                sections: tuple[int, int, int] | None = None
+                ) -> torch.Tensor:
+    """Multimodal RoPE (Qwen2-VL, arXiv:2409.12191 §2.1) on x (..., S, H,
+    hd): the half head dim's frequency bands are split into (temporal,
+    height, width) sections, each rotated by its own component of the
+    (3, ..., S) positions (in f32).  With three equal components it is
+    :func:`apply_rope` exactly.  The band of each frequency is picked by
+    a tensor index, so it batches under ``torch.func.vmap``."""
+    half = x.shape[-1] // 2
+    if sections is None:
+        sections = mrope_sections(x.shape[-1])
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {sections} do not sum to the "
+                         f"half head dim {half}")
+    inv = rope_frequencies(x.shape[-1], theta, device=x.device)
+    idx = torch.arange(half, device=x.device)
+    band = (idx >= sections[0]).long() + \
+        (idx >= sections[0] + sections[1]).long()           # (half,)
+    pos = positions_3d.float().index_select(0, band)        # (half, ..., S)
+    return _rotate(x, pos.movedim(0, -1) * inv)

@@ -46,7 +46,10 @@ class Model:
     def loss(self, params: dict, batch: dict, *,
              impl: str = "xla") -> torch.Tensor:
         """Next-token cross entropy, lse(logits) − logits[target] with a
-        stop-gradient max and f32 reductions (the reference's form), plus
+        stop-gradient max and f32 reductions (the reference's form),
+        averaged over the text targets (a vision config takes no loss at
+        target index t < ``frontend_positions``, the patch positions,
+        whether or not the batch carries ``frontend_embeds``), plus
         ``router_aux_weight`` times the MoE aux loss of an MoE config."""
         logits, aux, _ = transformer.forward(params, batch, self.cfg, impl)
         targets = batch["tokens"][:, 1:]
@@ -56,7 +59,14 @@ class Model:
         lse = torch.log(sumexp) + m[..., 0].float()
         gold = torch.gather(lg, -1, targets[..., None])[..., 0].float()
         nll = lse - gold                                    # (B, S-1)
-        loss = nll.sum() / max(nll.numel(), 1)
+        if self.cfg.frontend == "vision" and self.cfg.frontend_positions:
+            # the reference's (1, S-1) mask: the sum over the batch is
+            # divided by one row's count of text targets
+            t = torch.arange(targets.shape[1], device=nll.device)
+            mask = (t >= self.cfg.frontend_positions).float()[None]
+            loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        else:
+            loss = nll.sum() / max(nll.numel(), 1)
         if self.cfg.moe is not None:
             loss = loss + self.cfg.moe.router_aux_weight * aux
         return loss
@@ -87,25 +97,26 @@ class Model:
             self.cfg, batch, cache_len, long_variant=long_variant,
             dtype=dtype, device=device)
 
-    def encode(self, params: dict, batch: dict) -> None:
-        """Encoder memory of an encoder-decoder config: every ported
-        config is decoder-only, so there is none."""
-        del params, batch
-        return None
+    def encode(self, params: dict, batch: dict):
+        """The encoder memory (B, T, d) of an encoder-decoder config from
+        the batch's ``enc_embeds``, on the plain path, for the decode
+        loop; None for a decoder-only config."""
+        if not self.cfg.is_encoder_decoder:
+            return None
+        return transformer._encode(params, self.cfg, batch, "xla")
 
     def decode_step(self, params: dict, batch: dict, caches: dict, *,
                     enc_out=None, long_variant: bool = False):
-        """One-token decode, batch {'tokens' (B, 1), 'positions' (B, 1)}.
+        """One-token decode, batch {'tokens' (B, 1), 'positions' (B, 1)}
+        (and 'mrope_positions' (3, B, 1) for an M-RoPE config); an
+        encoder-decoder config attends ``enc_out`` (from :meth:`encode`),
+        re-projecting its K and V at every step, as the reference does.
 
         Returns (logits (B, 1, V), new caches).  Runs the plain path; it
         reads nothing back to the host, so it runs under
         ``torch.func.vmap``."""
-        if enc_out is not None or self.cfg.rope_kind == "mrope":
-            raise NotImplementedError(
-                "encoder-decoder and M-RoPE decode are not ported to "
-                "repro_torch yet (ROADMAP.md Queue A item 5b)")
         logits, _, new_caches = transformer.forward(
-            params, batch, self.cfg, caches=caches,
+            params, batch, self.cfg, caches=caches, enc_out=enc_out,
             long_variant=long_variant)
         return logits, new_caches
 

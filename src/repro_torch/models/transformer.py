@@ -1,8 +1,16 @@
-"""The decoder stack (repro/models/transformer.py): attention (GQA or
+"""The layer stack (repro/models/transformer.py): attention (GQA or
 MLA), Mamba2 SSM and Griffin RG-LRU blocks, chosen per layer by
 ``cfg.block_kind``, each attention or RG-LRU block's MLP half a dense MLP
 or, past an MoE config's leading dense layers, an MoE whose load-balance
 loss the stack sums (``forward`` returns it beside the logits).
+
+An encoder-decoder config (SeamlessM4T) has a second stack of
+``encoder_layers`` (``enc_stack``, ``enc_norm``) run without a causal
+mask over the batch's stub frame embeddings (``enc_embeds``), and each
+decoder block a cross-attention (``cross_norm``, ``cross_attn``) to the
+encoder memory.  A vision config (Qwen2-VL) takes its stub patch
+embeddings (``frontend_embeds``) in place of its first positions' token
+embeddings, and an M-RoPE config the batch's ``mrope_positions``.
 
 Layers keep the reference's parameter layout: ``plan_layers`` splits the
 stack into unrolled ``pre_i`` layers, a repeating unit of ``period``
@@ -55,12 +63,14 @@ def _kind_key(cfg: ArchConfig, i: int) -> tuple:
             cfg._layer_d_ff(i))
 
 
-def plan_layers(cfg: ArchConfig) -> LayerPlan:
-    """(prefix, period, n_groups, suffix) minimising (unrolled layers,
-    period), as the reference chooses it: e.g. recurrentgemma's 38 layers
-    → period 3 × 12 groups + a suffix of 2, DeepSeek-V2-Lite's 27 → a
-    dense prefix of 1 + 26 MoE groups of 1."""
-    n = cfg.num_layers
+def plan_layers(cfg: ArchConfig, num_layers: int | None = None
+                ) -> LayerPlan:
+    """(prefix, period, n_groups, suffix) of a stack of ``num_layers``
+    (default: the decoder's ``cfg.num_layers``) minimising (unrolled
+    layers, period), as the reference chooses it: e.g. recurrentgemma's
+    38 layers → period 3 × 12 groups + a suffix of 2, DeepSeek-V2-Lite's
+    27 → a dense prefix of 1 + 26 MoE groups of 1."""
+    n = cfg.num_layers if num_layers is None else num_layers
     kinds = [_kind_key(cfg, i) for i in range(n)]
     best, best_score = LayerPlan(0, 1, 0, n), (n, 99)
     for prefix in range(0, min(4, n)):
@@ -81,7 +91,10 @@ def plan_layers(cfg: ArchConfig) -> LayerPlan:
     return best
 
 
-def init_block(draws, cfg: ArchConfig, layer_idx: int) -> dict:
+def init_block(draws, cfg: ArchConfig, layer_idx: int,
+               cross: bool = False) -> dict:
+    """One block's weights; ``cross`` adds a cross-attention (no bias)
+    and its norm."""
     d, dtype = cfg.d_model, cfg.param_dtype
     kind = cfg.block_kind(layer_idx)
     p = {"norm1": layers.init_rms_norm(d, dtype, draws.device)}
@@ -99,6 +112,10 @@ def init_block(draws, cfg: ArchConfig, layer_idx: int) -> dict:
                                               dtype)
     else:
         raise ValueError(f"unknown block kind {kind!r}")
+    if cross:
+        p["cross_norm"] = layers.init_rms_norm(d, dtype, draws.device)
+        p["cross_attn"] = attn_lib.init_attention(
+            draws, d, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, dtype)
     p["norm2"] = layers.init_rms_norm(d, dtype, draws.device)
     if cfg.moe is not None and layer_idx >= cfg.moe.first_dense_layers:
         p["moe"] = moe_lib.init_moe(draws, d, cfg.moe, dtype)
@@ -121,9 +138,12 @@ def _layer_window(cfg: ArchConfig, layer_idx: int,
 
 def apply_block(params: dict, x: torch.Tensor, positions: torch.Tensor,
                 cfg: ArchConfig, layer_idx: int, impl: str = "xla", *,
-                cache: dict | None = None, long_variant: bool = False):
+                cache: dict | None = None, long_variant: bool = False,
+                mrope_positions=None, enc_out=None, causal: bool = True):
     """One block; returns (x, its new cache or None, its MoE aux loss:
-    0.0 without an MoE)."""
+    0.0 without an MoE).  A block with a cross-attention attends
+    ``enc_out`` after its self-attention; ``causal`` False is the
+    encoder's unmasked self-attention."""
     kind = cfg.block_kind(layer_idx)
     cdt = cfg.compute_dtype
     h = layers.rms_norm(params["norm1"], x, cfg.norm_eps)
@@ -139,7 +159,8 @@ def apply_block(params: dict, x: torch.Tensor, positions: torch.Tensor,
             params["attn"], h, positions, head_dim=cfg.head_dim,
             window=_layer_window(cfg, layer_idx, long_variant),
             rope_kind=cfg.rope_kind, rope_theta=cfg.rope_theta,
-            cache=self_cache, compute_dtype=cdt, impl=impl)
+            mrope_positions=mrope_positions, cache=self_cache,
+            causal=causal, compute_dtype=cdt, impl=impl)
     elif kind == "ssm":
         y, c = ssm_lib.mamba2_block(params["mixer"], h, cfg.ssm,
                                     compute_dtype=cdt, cache=self_cache,
@@ -150,6 +171,15 @@ def apply_block(params: dict, x: torch.Tensor, positions: torch.Tensor,
                                    cache=self_cache,
                                    use_pallas=impl == "pallas")
     x = x + y
+    if "cross_attn" in params:
+        if enc_out is None:
+            raise ValueError("a cross-attention block needs enc_out")
+        hc = layers.rms_norm(params["cross_norm"], x, cfg.norm_eps)
+        y, _ = attn_lib.attention(
+            params["cross_attn"], hc, positions, head_dim=cfg.head_dim,
+            rope_kind="none", kv_override=enc_out, causal=False,
+            compute_dtype=cdt)
+        x = x + y
     h2 = layers.rms_norm(params["norm2"], x, cfg.norm_eps)
     aux = 0.0
     if "moe" in params:
@@ -175,15 +205,15 @@ def _unbind_tree(tree, n: int) -> list:
     return list(torch.unbind(tree, 0))
 
 
-def _init_group(draws, cfg: ArchConfig, layer_idx: int,
-                n_groups: int) -> dict:
+def _init_group(draws, cfg: ArchConfig, layer_idx: int, n_groups: int,
+                cross: bool = False) -> dict:
     """n_groups blocks of the unit's layer ``layer_idx``, drawn one after
     another, stacked: each leaf allocated once with its group axis on the
     first block and filled group by group, every block dropped once it
     is copied in, so the peak is the stack's bytes plus one block."""
     stacked = None
     for g in range(n_groups):
-        block = init_block(draws, cfg, layer_idx)
+        block = init_block(draws, cfg, layer_idx, cross)
         if stacked is None:
             stacked = tree_map(
                 lambda leaf: leaf.new_empty((n_groups,) + leaf.shape), block)
@@ -193,31 +223,38 @@ def _init_group(draws, cfg: ArchConfig, layer_idx: int,
     return stacked
 
 
-def _init_stack(draws, cfg: ArchConfig) -> dict:
-    plan = plan_layers(cfg)
+def _init_stack(draws, cfg: ArchConfig, num_layers: int | None = None,
+                cross: bool = False) -> dict:
+    """A stack of ``num_layers`` blocks (default: the decoder's), with
+    cross-attention where ``cross``."""
+    plan = plan_layers(cfg, num_layers)
     params: dict = {}
     for i in range(plan.prefix):
-        params[f"pre_{i}"] = init_block(draws, cfg, i)
+        params[f"pre_{i}"] = init_block(draws, cfg, i, cross)
     if plan.n_groups:
         params["scan"] = {
             f"sub_{j}": _init_group(draws, cfg, plan.prefix + j,
-                                    plan.n_groups)
+                                    plan.n_groups, cross)
             for j in range(plan.period)}
     for i in range(plan.suffix):
         li = plan.prefix + plan.period * plan.n_groups + i
-        params[f"suf_{i}"] = init_block(draws, cfg, li)
+        params[f"suf_{i}"] = init_block(draws, cfg, li, cross)
     return params
 
 
 def _apply_stack(params: dict, x, positions, cfg: ArchConfig,
                  impl: str = "xla", caches: dict | None = None,
-                 long_variant: bool = False):
+                 long_variant: bool = False, *,
+                 num_layers: int | None = None, mrope_positions=None,
+                 enc_out=None, causal: bool = True):
     """(x, the new caches or None, the summed MoE aux loss) through every
-    layer; the j-th layer of the repeating unit stands for its kind
-    (index ``prefix + j``)."""
-    plan = plan_layers(cfg)
+    layer of a stack of ``num_layers`` (default: the decoder's); the j-th
+    layer of the repeating unit stands for its kind (index
+    ``prefix + j``)."""
+    plan = plan_layers(cfg, num_layers)
     decode = caches is not None
-    kw = dict(long_variant=long_variant)
+    kw = dict(long_variant=long_variant, mrope_positions=mrope_positions,
+              enc_out=enc_out, causal=causal)
     new: dict = {}
     aux_total = 0.0
     for i in range(plan.prefix):
@@ -258,31 +295,65 @@ def init_model(draws, cfg: ArchConfig) -> dict:
     params = {
         "embed": layers.init_embedding(draws, cfg.vocab_size, cfg.d_model,
                                        cfg.param_dtype),
-        "stack": _init_stack(draws, cfg),
+        "stack": _init_stack(draws, cfg, cross=cfg.is_encoder_decoder),
         "final_norm": layers.init_rms_norm(cfg.d_model, cfg.param_dtype,
                                            draws.device),
     }
     if not cfg.tie_embeddings:
         params["head"] = layers.init_dense(
             draws, (cfg.d_model, cfg.vocab_size), cfg.param_dtype)
+    if cfg.is_encoder_decoder:
+        params["enc_stack"] = _init_stack(draws, cfg, cfg.encoder_layers)
+        params["enc_norm"] = layers.init_rms_norm(
+            cfg.d_model, cfg.param_dtype, draws.device)
     return params
 
 
-def forward(params: dict, batch: dict, cfg: ArchConfig,
-            impl: str = "xla", *, caches: dict | None = None,
-            long_variant: bool = False):
-    """(logits (B, S, V), the MoE aux loss (0.0 without an MoE), the new
-    caches or None) for batch {'tokens' (B, S), 'positions' (B, S)};
-    ``caches`` (decode, S = 1) gives the new ones."""
-    if impl not in ("xla", "pallas"):
-        raise ValueError(f"unknown impl {impl!r}")
+def _embed_inputs(params: dict, cfg: ArchConfig, batch: dict):
+    """Token embeddings scaled by √d; a vision config's batch
+    ``frontend_embeds`` (B, P, d) then take the first P positions,
+    unscaled (the reference's order)."""
     x = layers.embed(params["embed"], batch["tokens"],
                      compute_dtype=cfg.compute_dtype)
     x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.compute_dtype,
                          device=x.device)
-    x, new_caches, aux = _apply_stack(params["stack"], x,
-                                      batch["positions"], cfg, impl, caches,
-                                      long_variant)
+    if cfg.frontend == "vision" and "frontend_embeds" in batch:
+        fe = batch["frontend_embeds"].to(cfg.compute_dtype)
+        x = torch.cat([fe, x[:, fe.shape[1]:]], dim=1)
+    return x
+
+
+def _encode(params: dict, cfg: ArchConfig, batch: dict, impl: str = "xla"):
+    """The encoder memory (B, T, d): the batch's stub frame embeddings
+    ``enc_embeds`` (B, T, d) through the encoder stack, unmasked, at
+    positions 0 .. T-1, then ``enc_norm``.  Its self-attention is not
+    causal, so it reaches no kernel under either impl."""
+    enc_x = batch["enc_embeds"].to(cfg.compute_dtype)
+    pos = torch.arange(enc_x.shape[1], device=enc_x.device).expand(
+        enc_x.shape[:2])
+    enc_x, _, _ = _apply_stack(params["enc_stack"], enc_x, pos, cfg, impl,
+                               num_layers=cfg.encoder_layers, causal=False)
+    return layers.rms_norm(params["enc_norm"], enc_x, cfg.norm_eps)
+
+
+def forward(params: dict, batch: dict, cfg: ArchConfig,
+            impl: str = "xla", *, caches: dict | None = None,
+            enc_out=None, long_variant: bool = False):
+    """(logits (B, S, V), the MoE aux loss (0.0 without an MoE), the new
+    caches or None) for batch {'tokens' (B, S), 'positions' (B, S)}, with
+    'mrope_positions' (3, B, S) for an M-RoPE config, optional
+    'frontend_embeds' (B, P, d) for a vision one, and 'enc_embeds' (B, T,
+    d) for an encoder-decoder one unless ``enc_out`` (its encoder memory)
+    is given; ``caches`` (decode, S = 1) gives the new ones."""
+    if impl not in ("xla", "pallas"):
+        raise ValueError(f"unknown impl {impl!r}")
+    if cfg.is_encoder_decoder and enc_out is None:
+        enc_out = _encode(params, cfg, batch, impl)
+    x = _embed_inputs(params, cfg, batch)
+    x, new_caches, aux = _apply_stack(
+        params["stack"], x, batch["positions"], cfg, impl, caches,
+        long_variant, mrope_positions=batch.get("mrope_positions"),
+        enc_out=enc_out)
     x = layers.rms_norm(params["final_norm"], x, cfg.norm_eps)
     if cfg.tie_embeddings:
         logits = torch.einsum("bsd,vd->bsv", x,

@@ -192,12 +192,14 @@ def test_the_packages_write_byte_identical_files(tmp_path):
 
 
 @pytest.mark.parametrize("name", ["deepseek-v2-lite-16b", "gemma3-12b",
-                                  "nemotron-4-15b"])
+                                  "nemotron-4-15b", "qwen2-vl-2b",
+                                  "seamless-m4t-large-v2"])
 def test_zoo_trees_round_trip_byte_identically(tmp_path, name):
-    """A smoke config's parameters (the reference's, carried over) and an
-    empty bf16 decode-cache tree (MLA's latent cache for DeepSeek): the
-    two packages write the same bytes, and each reads the other's file
-    back bit for bit."""
+    """A smoke config's parameters (the reference's, carried over;
+    SeamlessM4T's with its encoder-decoder leaves enc_stack, enc_norm,
+    cross_attn and cross_norm) and an empty bf16 decode-cache tree (MLA's
+    latent cache for DeepSeek): the two packages write the same bytes,
+    and each reads the other's file back bit for bit."""
     pytest.importorskip("msgpack")
     pytest.importorskip("zstandard")
     ref_model = ref_build_model(ref_get_config(name).smoke())

@@ -4,7 +4,9 @@ and steps (models/griffin.py, models/ssm.py), the cache tree of the stack
 (``init_decode_caches``) and ``Model.decode_step``, on Qwen1.5-4B,
 RecurrentGemma-9B, Mamba2-2.7B, Gemma3-12B, Nemotron-4-15B and
 DeepSeek-V2-Lite (MLA's absorbed decode against its latent cache, the
-MoE at decode) at smoke size.
+MoE at decode) at smoke size; the full-size cache trees of Qwen2-VL-2B
+and SeamlessM4T-Large-v2 too (their decode is in
+tests/test_torch_multimodal.py).
 
 Mirrors tests/test_models.py::TestAttention::test_rolling_cache_window_decode
 and tests/test_arch_smoke.py's ``test_decode_step_shapes`` and
@@ -318,7 +320,8 @@ def test_decode_step_matches_reference(carried, name, cache_len, steps,
             list(range(steps - cache_len, steps))
 
 
-@pytest.mark.parametrize("name", MODELS)
+@pytest.mark.parametrize("name", MODELS + ["qwen2-vl-2b",
+                                           "seamless-m4t-large-v2"])
 def test_init_caches_match_the_reference_at_full_size(name):
     """Full-width cache trees (paths, shapes, dtypes) with the long
     variant's ring, on the meta device."""
@@ -333,16 +336,3 @@ def test_init_caches_match_the_reference_at_full_size(name):
                 for p, x in sorted_leaves(got)] == \
             [(tuple(k.key for k in p), x.shape, x.dtype.name) for p, x in
              jax.tree_util.tree_flatten_with_path(want)[0]]
-
-
-def test_decode_of_what_is_not_ported_raises(carried):
-    _, _, model, tparams = carried["qwen1.5-4b"]
-    caches = model.init_caches(1, 4, dtype=torch.float32, device="cpu")
-    batch = {"tokens": torch.zeros(1, 1, dtype=torch.long),
-             "positions": torch.zeros(1, 1, dtype=torch.long)}
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        model.decode_step(tparams, batch, caches, enc_out=torch.zeros(1))
-    mrope = build_model(dataclasses.replace(model.cfg, rope_kind="mrope"))
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        mrope.decode_step(tparams, batch, caches)
-    assert model.encode(tparams, batch) is None

@@ -14,8 +14,12 @@ equal #9/#11, and so do the EF residual r of #9–#12 and the int8 payload
 q of #13 their plain versions'.  The model zoo's prefill kernels (#15
 flash attention, #16 the SSD scan, #17 the RG-LRU scan) are held to
 1e-5·max|y| in f32 and 1e-2·max|y| in bf16 (one rounding of the bf16
-output), #17's h_last to h[:, −1] exactly, #15 also at Gemma3-12B's
-and Nemotron-4-15B's prefill shapes.  The MoE layer and MLA (no kernel)
+output), #17's h_last to h[:, −1] exactly, #15 also at Gemma3-12B's,
+Nemotron-4-15B's, Qwen2-VL-2B's and SeamlessM4T-Large-v2's prefill
+shapes.  M-RoPE, cross-attention, the encoder's unmasked attention (no
+kernel) and the multimodal pair's smoke forwards (#15 in each decoder
+self-attention) run on the card as on the CPU, within 1e-5·max|y| (bf16
+M-RoPE: one bf16 step, 2^-8·max|y|; forwards 1e-4·max|logit|).  The MoE layer and MLA (no kernel)
 run on the card as on the CPU: their f32 outputs within 1e-5·max|y| of
 the same call on the CPU, the routing equal.  The population engine's
 cohort mix runs #2 on tables that ``build_cohort_mix`` makes (a tilted,
@@ -37,7 +41,8 @@ from repro_torch.core import compress, gossip
 from repro_torch.core import topology as topo
 from repro_torch.core.draws import Draws
 from repro_torch.kernels import ops, ref
-from repro_torch.models import mla, moe
+from repro_torch.launch import specs
+from repro_torch.models import attention, build_model, layers, mla, moe
 from repro_torch.tree import tree_map
 
 SHAPES = [(1, 1), (5, 1000003), (8, 4099), (13, 3001), (37, 1031),
@@ -838,10 +843,12 @@ def _zoo_args(cuda, kernel, dtype=torch.float32):
             _randn(gen, 1, 70, 9, dtype=dtype)]
 
 
-# (B, S, H, KV, hd, window): Gemma3-12B's local and global layers and
-# Nemotron-4-15B's, at their prefill's full shapes, bf16
+# (B, S, H, KV, hd, window): Gemma3-12B's local and global layers,
+# Nemotron-4-15B's, Qwen2-VL-2B's (GQA 6:1) and SeamlessM4T-Large-v2's
+# decoder self-attention (hd 64), at their prefill's full shapes, bf16
 NEW_MODEL_FLASH = [(1, 4096, 16, 8, 256, 1024), (1, 4096, 16, 8, 256, 0),
-                   (1, 4096, 48, 8, 128, 0)]
+                   (1, 4096, 48, 8, 128, 0), (1, 4096, 12, 2, 128, 0),
+                   (1, 4096, 16, 16, 64, 0)]
 
 
 @pytest.mark.gpu
@@ -859,6 +866,79 @@ def test_cuda_flash_attention_at_the_new_models_shapes(cuda, b, s, h, kv,
         assert ops.launch_counts()["flash_attention"] == 1
         _zoo_close(got, ref.flash_attention_ref(q, k, v, window=window),
                    torch.bfloat16)
+
+
+def _distinct_mrope(gen, b, s):
+    """(3, B, S) M-RoPE ids on the CPU: the sequence position, then two
+    drawn components."""
+    t = torch.arange(s).expand(1, b, s)
+    return torch.cat([t, torch.randint(0, s, (2, b, s), generator=gen)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_apply_mrope_matches_the_cpu(cuda, dtype):
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(2, 33, 3, 128, generator=gen).to(dtype)
+    pos = _distinct_mrope(gen, 2, 33) * 31
+    want = layers.apply_mrope(x, pos, 1e6)
+    got = layers.apply_mrope(x.to(cuda), pos.to(cuda), 1e6).cpu()
+    assert got.dtype == dtype
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= (1e-5 if dtype == torch.float32 else 2.0 ** -8) * \
+        want.float().abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["cross", "unmasked"])
+def test_cuda_cross_and_unmasked_attention_match_the_cpu(cuda, case):
+    """No kernel: impl='pallas' takes the plain path for both."""
+    gen = torch.Generator().manual_seed(4)
+    params = attention.init_attention(Draws(0, "cpu"), 128, 4, 2, 64,
+                                      torch.float32, bias=True)
+    x = torch.randn(2, 40, 128, generator=gen)
+    pos = torch.arange(40).expand(2, 40)
+    kw = dict(head_dim=64, causal=False, impl="pallas")
+    if case == "cross":
+        kw.update(rope_kind="none",
+                  kv_override=torch.randn(2, 70, 128, generator=gen))
+    want, _ = attention.attention(params, x, pos, **kw)
+    if case == "cross":
+        kw["kv_override"] = kw["kv_override"].to(cuda)
+    ops.reset_launch_counts()
+    got, _ = attention.attention(tree_map(lambda t: t.to(cuda), params),
+                                 x.to(cuda), pos.to(cuda), **kw)
+    torch.cuda.synchronize()
+    assert sum(ops.launch_counts().values()) == 0
+    _zoo_close(got.cpu(), want, torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["qwen2-vl-2b", "seamless-m4t-large-v2"])
+def test_cuda_multimodal_smoke_forward_matches_the_cpu(cuda, name):
+    """The smoke config's impl='pallas' forward on the card (#15 once per
+    decoder self-attention layer; the encoder and the cross-attention
+    launch nothing) against the xla forward on the CPU, with three
+    distinct M-RoPE components, the patch prefix and 24 encoder frames."""
+    cfg = get_config(name).smoke()
+    model = build_model(cfg)
+    params = model.init(Draws(0, "cpu"))
+    batch = specs.concrete_batch(cfg, None, 2, 64, Draws(1, "cpu"),
+                                 enc_len=24)
+    if "mrope_positions" in batch:
+        batch["mrope_positions"] = _distinct_mrope(
+            torch.Generator().manual_seed(5), 2, 64)
+    with torch.inference_mode():
+        want = model.logits(params, batch)
+        ops.reset_launch_counts()
+        got = model.logits(tree_map(lambda t: t.to(cuda), params),
+                           {k: v.to(cuda) for k, v in batch.items()},
+                           impl="pallas")
+        torch.cuda.synchronize()
+    assert {k: v for k, v in ops.launch_counts().items() if v} == \
+        {"flash_attention": cfg.num_layers}
+    err = (got.cpu() - want).abs().max().item()
+    assert err <= 1e-4 * want.abs().max().item()
 
 
 def _moe_mla_params(kind, device):

@@ -382,7 +382,7 @@ def test_cli_sweep_errors_are_the_reference_messages(case):
     ["--n-total", "64", "--ckpt-dir", "c", "--mesh-agents", "2"],
     ["--delta", "topk:4", "--n-total", "64", "--mesh-model", "2"],
     ["--n-total", "64", "--arch", "deepseek-v3-671b"],
-    ["--arch", "qwen2-vl-2b"], ["--arch", "mistral-large-123b"]])
+    ["--arch", "mistral-large-123b"]])
 def test_cli_rejects_what_is_not_ported(argv, capsys):
     """--delta, --ckpt-dir and --n-total are ported; with them, a flag
     that is not (the mesh flags) is still rejected, as are the
@@ -394,8 +394,29 @@ def test_cli_rejects_what_is_not_ported(argv, capsys):
     err = capsys.readouterr().err
     assert "not ported to repro_torch yet" in err
     if "--arch" in argv:
-        assert "not yet: qwen2-vl-2b, deepseek-v3-671b, " \
-            "mistral-large-123b, seamless-m4t-large-v2" in err
+        assert "not yet: deepseek-v3-671b, mistral-large-123b)" in err
+
+
+@pytest.mark.parametrize("argv", [
+    ["--arch", "qwen2-vl-2b"], ["--arch", "seamless-m4t-large-v2", "--smoke"],
+    ["--arch", "qwen2-vl-2b", "--smoke", "--n-total", "64"]])
+def test_cli_refuses_the_models_the_reference_cli_cannot_train(argv,
+                                                                capsys):
+    """The reference's train_loop fails on Qwen2-VL-2B and
+    SeamlessM4T-Large-v2 at its first step: its batches carry only tokens
+    and positions (no mrope_positions, repro/models/attention.py:219; no
+    enc_embeds, repro/models/transformer.py:353).  The port's CLI refuses
+    them with exit 2 and says why, before it allocates anything; both
+    train through the engine API (tests/test_torch_multimodal.py)."""
+    with pytest.raises(SystemExit) as err:
+        port_train.main(["--device", "cpu", *argv])
+    assert err.value.code == 2
+    err = capsys.readouterr().err
+    arch = argv[1]
+    assert f"--arch {arch} is not trained by this CLI" in err
+    assert "train_loop fails on it at its first step" in err
+    assert ("mrope_positions" if arch == "qwen2-vl-2b"
+            else "enc_embeds") in err
 
 
 def test_runs_on_cuda_by_default_and_fails_without_a_card():
