@@ -33,6 +33,15 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
      kernels load and store f64 and mix in f32; so do these) at n = 8
      (D ≡ 0 and 3 mod 4) and n = 13, y within 1e-5·max|y|, m', r and q
      exact, run slices equal to the single-run kernels;
+     then (3c) every mix kernel #1-#14 in every variant on bfloat16
+     buffers (W, η, the momentum, noise and scales f32) at n = 8 (D ≡ 0
+     and 3 mod 4, and at a base one element past an 8-byte boundary),
+     n = 13 and lattices of R = 1 and 3, y within 2^-7·max|y| of the
+     plain version (2^-6 for the EF kernels #9-#12, which round the mix
+     before the correction), m' within 1e-5·max|m'|, r and q exact, run
+     slices equal to the single-run kernels (0.0); then at full shape
+     (n = 8, D = 156,519,168; R = 2 for the batched ones), timed against
+     the bf16 bound, the plain version and one copy of the same bytes;
      then the model zoo's prefill kernels #15 flash attention, #16 the
      SSD scan and #17 the RG-LRU scan at edge shapes (S off the tiles, W
      not a multiple of 4, hd 64/128/256, windows 0, 64 and off the key
@@ -144,6 +153,15 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
      population_cost_model's; and the card's pinned and pageable h2d
      rates beside the model's nominal 16 GB/s.  The stores (10 GB each in
      P2) go to build/population, whose free space is printed first;
+     then (4f) the bf16 configs' training, each with its warm-up round:
+     (M1) Mistral-Large-123B at its published widths with 3 of 88
+     layers, 2 agents, batch 1, S 512, --gossip-impl pallas
+     --fuse-update-mix, #3 once a step on its bf16 (2, 4,957,741,056)
+     buffer; (M2) DeepSeek-V3-671B at its published widths with its 3
+     dense layers (MLA with q_lora_rank 1,536), the same, unfused, #1
+     once a step on its bf16 buffer; after each, its kernel on a random
+     buffer of the path's shape against the plain version, block by
+     block, y within one bf16 ulp in at most 1e-3 of its elements;
      then (4b) line 4 as the engines run it, one torch.func.vmap of
      Model.grad_fn over every agent row, at full width against the
      per-row torch.autograd.grad loop: path (c)'s 8 agents and first
@@ -159,18 +177,23 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
      Nemotron-4-15B, DeepSeek-V2-Lite, Qwen2-VL-2B (its first 256
      positions a 16 × 16 grid of stub patch embeddings, M-RoPE ids
      (0, row, col) there and the text's from 16 on in all three
-     components) and SeamlessM4T-Large-v2 (4096 stub encoder frames)
-     (B 1, S 4096, bf16) at full
-     width and depth from random weights (each init's peak within its
-     weights' bytes plus one block), impl='xla' then impl='pallas' on
+     components), SeamlessM4T-Large-v2 (4096 stub encoder frames) and
+     the configs with bf16 weights at a cut depth, Mistral-Large-123B at
+     4 of 88 layers and DeepSeek-V3-671B at 4 of 61 (its 3 dense layers
+     and one MoE layer of 256 experts, top-8) (B 1, S 4096, bf16) at full
+     width (and depth, but those two) from random weights (each init's
+     peak within its weights' bytes plus one block; with bf16 weights,
+     plus the largest leaf's f32 draw, the block only where a scanned
+     unit has two groups), impl='xla' then impl='pallas' on
      the same weights, each after an untimed warm-up forward: the pallas
      forward launches #15 12 times (tiny LM), #15 12 and #17 26 times
      (RecurrentGemma-9B), #16 64 times (Mamba2-2.7B), #15 40 times at
      head_dim 128 (Qwen1.5-4B), 48 times at head_dim 256 (Gemma3-12B), 32
      times at head_dim 128 (Nemotron-4-15B), 28 times at head_dim 128
      (Qwen2-VL-2B), 24 times at head_dim 64 (SeamlessM4T-Large-v2's
-     decoder self-attention; its encoder and cross-attention have none)
-     or nothing (DeepSeek-V2-Lite: MLA and MoE have no kernel) and
+     decoder self-attention; its encoder and cross-attention have none),
+     4 times at head_dim 128 (Mistral-Large-123B, H 96, KV 8) or nothing
+     (DeepSeek-V2-Lite, DeepSeek-V3: MLA and MoE have no kernel) and
      nothing else, the logits are finite
      and agree to 1e-4·max|logit| (f32), to bf16_model_bound of the
      model's reference gap (bf16) or exactly (no kernel); each bf16 model
@@ -183,13 +206,15 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
      weights, greedy, prompt 16 + 32 new tokens: (S1) Qwen1.5-4B at B 4,
      (S2) RecurrentGemma-9B, (S3) Mamba2-2.7B and (S5) DeepSeek-V2-Lite
      at B 1, (S6) Qwen2-VL-2B at B 4 (text only, as the reference
-     decodes) and (S7) SeamlessM4T-Large-v2 at B 1 (attending
-     Model.encode of 4096 stub frames), each generate timed after an untimed one (ms a decode step,
+     decodes), (S7) SeamlessM4T-Large-v2 at B 1 (attending
+     Model.encode of 4096 stub frames), and at phase 6's cut depth (S8)
+     Mistral-Large-123B at B 4 and (S9) DeepSeek-V3-671B at B 1, each
+     generate timed after an untimed one (ms a decode step,
      host clock, synchronized; peak), launching no kernel; each sequence
      teacher-forced through Model.decode_step, its logits against the
-     xla prefill of the same tokens (phase 6's bounds; for the MoE model
+     xla prefill of the same tokens (phase 6's bounds; for the MoE models
      recorded only, and held instead on a twin config with f32 compute
-     and capacity factor 64/6, where no copy drops, to 1e-4·max|logit|)
+     and capacity factor E/k, where no copy drops, to 1e-4·max|logit|)
      and generate's tokens the argmax of them exactly; (S4)
      generate_personalized at the tiny LM, B 8, request i served by agent i of path (a)'s final
      buffer (base = the mean row, deltas = rows − base), equal token for
@@ -350,7 +375,9 @@ ZOO_FULL = {
                         "qwen2-vl-2b": (1, 4096, 12, 2, 128, 0,
                                         "bfloat16"),
                         "seamless-m4t-large-v2": (1, 4096, 16, 16, 64, 0,
-                                                  "bfloat16")},
+                                                  "bfloat16"),
+                        "mistral-large-123b": (1, 4096, 96, 8, 128, 0,
+                                               "bfloat16")},
     "ssd_scan": {"mamba2-2.7b": (1, 4096, 80, 64, 128, "bfloat16")},
     "rglru_scan": {"recurrentgemma-9b": (1, 4096, 4096, "float32")},
 }
@@ -361,7 +388,13 @@ ZOO_MODELS = [("tiny", 2, 1024), ("recurrentgemma-9b", 1, 4096),
               ("mamba2-2.7b", 1, 4096), ("qwen1.5-4b", 1, 4096),
               ("gemma3-12b", 1, 4096), ("nemotron-4-15b", 1, 4096),
               ("deepseek-v2-lite-16b", 1, 4096), ("qwen2-vl-2b", 1, 4096),
-              ("seamless-m4t-large-v2", 1, 4096)]
+              ("seamless-m4t-large-v2", 1, 4096),
+              ("mistral-large-123b", 1, 4096), ("deepseek-v3-671b", 1, 4096)]
+# the models whose depth phases 6 and 6b cut to fit the card (bf16
+# weights): Mistral-Large-123B at 4 of 88 layers (6,341,885,952
+# parameters, 12.68 GB), DeepSeek-V3-671B at 4 of 61 (its 3 dense layers
+# and one MoE layer of 256 experts: 15,111,086,080 parameters, 30.2 GB)
+MODEL_LAYERS = {"mistral-large-123b": 4, "deepseek-v3-671b": 4}
 # DeepSeek-V2-Lite's MLA and MoE have no kernel: its two impls are one
 # computation, held equal; SeamlessM4T's encoder (unmasked) and
 # cross-attention take the plain path under either impl
@@ -374,7 +407,9 @@ ZOO_LAUNCHES = {"tiny": {"flash_attention": 12},
                 "nemotron-4-15b": {"flash_attention": 32},
                 "deepseek-v2-lite-16b": {},
                 "qwen2-vl-2b": {"flash_attention": 28},
-                "seamless-m4t-large-v2": {"flash_attention": 24}}
+                "seamless-m4t-large-v2": {"flash_attention": 24},
+                "mistral-large-123b": {"flash_attention": 4},
+                "deepseek-v3-671b": {}}
 # the multimodal inputs of phases 6 and 6b: Qwen2-VL-2B's patch prefix
 # is a VISION_GRID × VISION_GRID grid; SeamlessM4T's encoder memory is
 # ENC_FRAMES frames (its config's fixed 4096-frame memory)
@@ -483,6 +518,9 @@ TREE_LEAF_SHAPES = [(8, 1), (8, 3), (8, 80), (8, 5121)]
 # path (v)'s flat buffer: Mamba2-2.7B at 8 of its 64 layers, 4 agents,
 # 2.3e9 elements (past 2^31), held against the plain #1 in phase 3
 MAMBA2_FLAT = (4, 579_168_640)
+# the variant each bf16 kernel runs on its training path, where it differs
+# from PATH_VARIANT's ((M1) runs #3 in sgd)
+BF16_PATH_VARIANT = {"update_mix": "sgd"}
 # the variant each kernel runs on its training path (timed in the line)
 PATH_VARIANT = {"gossip_mix": "gossip", "gossip_mix_sparse": "gossip",
                 "update_mix": "momentum", "update_mix_sparse": "sgd",
@@ -521,10 +559,14 @@ BF16_REF_GAP_NEMOTRON = 0.011
 # 0.0058 to 0.0093 over 3 weight seeds and 2 draws of the inputs
 BF16_REF_GAP_QWEN2_VL = 0.011
 BF16_REF_GAP_SEAMLESS = 0.010
+# Mistral-Large-123B's, measured the same way (tests/test_torch_zoo.py):
+# 0.0082 to 0.0095 over 3 weight seeds and 2 token draws
+BF16_REF_GAP_MISTRAL = 0.010
 BF16_REF_GAPS = {"qwen1.5-4b": BF16_REF_GAP_QWEN,
                  "nemotron-4-15b": BF16_REF_GAP_NEMOTRON,
                  "qwen2-vl-2b": BF16_REF_GAP_QWEN2_VL,
-                 "seamless-m4t-large-v2": BF16_REF_GAP_SEAMLESS}
+                 "seamless-m4t-large-v2": BF16_REF_GAP_SEAMLESS,
+                 "mistral-large-123b": BF16_REF_GAP_MISTRAL}
 
 
 def bf16_model_bound(layers: int, smoke_layers: int,
@@ -652,14 +694,16 @@ def time_ms(torch, fn, iters: int = 10, warmup: int = 2,
 
 
 def bound(kernel: str, variant: str, n: int, d: int, max_deg: int,
-          r: int = 1):
+          r: int = 1, itemsize: int = 4):
     """(bound_ms, bound_by): each input read once, each output written
     once, against the card's memory rate and its f32 rate; r runs each
-    with its own W (or ELL tables) and η."""
+    with its own W (or ELL tables) and η; x, g and y of ``itemsize``
+    bytes an element (m and m' f32 whatever it is)."""
     elems = r * n * d
-    arrays = {"gossip": 2, "sgd": 3, "momentum": 5, "nesterov": 5}[variant]
+    arrays = {"gossip": 2, "sgd": 3, "momentum": 3, "nesterov": 3}[variant]
+    momentum = 8 if variant in ("momentum", "nesterov") else 0
     table = 4 * n * n if "sparse" not in kernel else 8 * n * max_deg + 4 * n
-    nbytes = (4 * arrays * elems + r * table
+    nbytes = ((itemsize * arrays + momentum) * elems + r * table
               + (4 * r if variant != "gossip" else 0))
     mix = 2 * n if "sparse" not in kernel else 2 * max_deg + 1
     update = {"gossip": 0, "sgd": 2, "momentum": 4, "nesterov": 6}[variant]
@@ -1042,16 +1086,19 @@ def compress_calls(kernel: str, t: dict):
             lambda: getattr(ref, kernel)(*args))
 
 
-def compress_bound(kernel: str, n: int, d: int, max_deg: int, r: int = 1):
+def compress_bound(kernel: str, n: int, d: int, max_deg: int, r: int = 1,
+                   itemsize: int = 4):
     """(bound_ms, bound_by): each input read once, each output written
-    once (#9-#12: p, s, u in, y, r out, 20 B per element; #13: u, noise,
-    p in, y and q at 1 B out, 17 B; #14: q at 1 B and p in, y out, 9 B),
-    against the card's memory rate and its f32 rate; r runs (#10/#12)
-    each with its own W or ELL tables."""
+    once (f32: #9-#12: p, s, u in, y, r out, 20 B per element; #13: u,
+    noise, p in, y and q at 1 B out, 17 B; #14: q at 1 B and p in, y out,
+    9 B; p, s, u, y and r of ``itemsize`` bytes, the noise f32), against
+    the card's memory rate and its f32 rate; r runs (#10/#12) each with
+    its own W or ELL tables."""
     kernel = BATCHED_EF.get(kernel, kernel)
     elems = r * n * d
-    per_elem = {"ef_mix": 20, "ef_mix_sparse": 20, "quant_mix": 17,
-                "dequant_mix": 9}[kernel]
+    per_elem = {"ef_mix": 5 * itemsize, "ef_mix_sparse": 5 * itemsize,
+                "quant_mix": 3 * itemsize + 5,
+                "dequant_mix": 2 * itemsize + 1}[kernel]
     table = 8 * n * max_deg + 4 * n if kernel == "ef_mix_sparse" \
         else 4 * n * n
     scales = 4 * n if kernel in ("quant_mix", "dequant_mix") else 0
@@ -1329,6 +1376,264 @@ def f64_kernel_phase(torch) -> dict:
     torch.cuda.empty_cache()
     ops.reset_launch_counts()
     return errs
+
+
+# ---------------------------------------------------------------------------
+# Phase 3c: the mix kernels (#1-#14) on bfloat16 buffers
+# ---------------------------------------------------------------------------
+
+# n = 8 on D % 4 == 0 (8-byte accesses of four bf16) and D ≡ 3 (mod 4), and
+# n = 13 (the general path); the same at a base one element past an 8-byte
+# boundary (the masked scalar accesses)
+BF16_SHAPES = [(8, 1_000_004, False), (8, 1_000_003, False),
+               (13, 3001, False), (8, 1_000_004, True)]
+# the lattices: R = 1 and 3, the small path (ragged D) and the general one
+BF16_LATTICES = [(1, 8, 1_000_003), (3, 8, 4098), (3, 13, 3001)]
+BF16_BUFFERS = ("x", "g", "p", "s", "u")
+# × max|y|: kernel and plain version sum in f32 in other orders, which
+# moves a bf16 rounding of y by one ulp, 2^-7·max|y| at the top; the EF
+# kernels (#9-#12) round the mix to bf16 before the correction, so two
+# roundings may move; m' (f32) within TOL, r and q exact
+BF16_Y_TOL = 2.0 ** -7
+BF16_EF_TOL = 2.0 ** -6
+# the share of y's elements that may differ at all: the two sums straddle
+# a bf16 rounding boundary only rarely, where a kernel that rounds at
+# another point than the plain version (x − η·g in bf16 before the mix)
+# moves about 40% of them, each within the bound above
+BF16_Y_SHARE = 1e-3
+
+
+def to_bf16(torch, t: dict, misaligned: bool = False) -> dict:
+    """The buffers (x, g, p, s, u) in bf16 (each one element past an
+    8-byte boundary when ``misaligned``); W, the momentum, η, noise, ELL
+    weights and int8 scales stay f32, as the kernels take them; the int8
+    scales are those of the bf16 u."""
+    out = dict(t)
+    for k in BF16_BUFFERS:
+        if k not in t:
+            continue
+        v = t[k].to(torch.bfloat16)
+        if misaligned:
+            buf = torch.empty(v.numel() + 1, dtype=v.dtype, device=v.device)
+            v = buf[1:].view_as(v).copy_(v)
+            check(v.data_ptr() % 8 == 2, "misaligned bf16 buffer expected")
+        out[k] = v
+    if "scale" in t and "u" in t:
+        out["scale"] = out["u"].float().abs().amax(-1) / 127.0
+    return out
+
+
+def bf16_tol(kernel: str) -> float:
+    return BF16_EF_TOL if kernel.startswith("ef_mix") else BF16_Y_TOL
+
+
+def check_bf16(torch, got, want, kernel: str,
+               what: str) -> tuple[float, float]:
+    """A bf16 kernel's outputs against its plain version's: y in bf16
+    within bf16_tol·max|y| and differing in at most BF16_Y_SHARE of its
+    elements, m' (f32) within TOL·max|m'|, the residual and the int8
+    payload exact.  Returns y's error and the share of y that differs."""
+    got, want = as_tuple(got), as_tuple(want)
+    check(got[0].dtype == torch.bfloat16, f"{what}: y is {got[0].dtype}")
+    tol = bf16_tol(kernel)
+    err = torch.sub(got[0].float(), want[0].float()).abs_().max().item()
+    scale = want[0].float().abs().max().item()
+    check(err <= tol * scale,
+          f"{what}: y max_abs_err {err:.3e} > {tol}·{scale:.3e}")
+    share = got[0].ne(want[0]).sum().item() / max(want[0].numel(), 1)
+    check(share <= BF16_Y_SHARE,
+          f"{what}: {share:.3e} of y differs from the plain version "
+          f"(at most {BF16_Y_SHARE})")
+    for a, b in zip(got[1:], want[1:]):
+        check(a.dtype == b.dtype, f"{what}: {a.dtype} against {b.dtype}")
+        if a.dtype == torch.float32:
+            e = torch.sub(a, b).abs_().max().item()
+            check(e <= TOL * b.abs().max().item(),
+                  f"{what}: m' max_abs_err {e:.3e}")
+        else:
+            check(torch.equal(a, b), f"{what}: {a.dtype} output differs "
+                                     f"from the plain version's")
+    return err, share
+
+
+def bf16_single_calls(kernel: str, variant: str, t: dict):
+    """(kernel call, plain call) of a single-run kernel #1-#4, #9, #11,
+    #13 or #14 on bf16 inputs ``t``."""
+    if kernel in COMPRESSED:
+        return compress_calls(kernel, t)
+    return calls(kernel, variant, t)[:2]
+
+
+def bf16_lattice_calls(kernel: str, variant: str, t: dict):
+    """(kernel call, plain call on a slice of the runs, single-run kernel
+    call on run i) of #5-#8, #10 or #12."""
+    if kernel in BATCHED_EF:
+        return batched_ef_calls(kernel, t)
+    run, plain, _, single = batched_calls(kernel, variant, t)
+    return run, plain, single
+
+
+def check_bf16_lattice(torch, kernel: str, variant: str, t: dict,
+                       where: str) -> tuple[float, float]:
+    """A batched bf16 kernel against its plain version run by run, and each
+    run's slice against the single-run kernel on that slice, to 0.0.
+    Returns check_bf16's largest error and share over the runs."""
+    run, plain, single = bf16_lattice_calls(kernel, variant, t)
+    got = run()
+    torch.cuda.synchronize()
+    err = share = 0.0
+    for i in range(as_tuple(got)[0].shape[0]):
+        want = plain(slice(i, i + 1))
+        e, sh = check_bf16(
+            torch, tuple(a[i:i + 1] for a in as_tuple(got)), want, kernel,
+            f"bf16 {kernel}[{variant}] {where} run {i}")
+        err, share = max(err, e), max(share, sh)
+        del want
+        one = single(i)
+        diff = max(torch.sub(a[i].float(), b.float()).abs_().max().item()
+                   for a, b in zip(as_tuple(got), as_tuple(one)))
+        del one
+        check(diff == 0.0,
+              f"bf16 {kernel}[{variant}] {where} run {i}: slice differs "
+              f"from the single-run kernel by {diff:.3e}")
+    return err, share
+
+
+BF16_LATTICE_KERNELS = {**{k: VARIANTS[v] for k, v in BATCHED.items()},
+                        **{k: ["ef"] for k in BATCHED_EF}}
+BF16_SINGLE_KERNELS = {**VARIANTS, **{k: [v] for k, v in COMPRESSED.items()}}
+
+
+def bf16_kernel_phase(torch) -> dict:
+    """Every mix kernel #1-#14 in every variant on bf16 buffers: at the
+    ragged shapes against its plain version (check_bf16), the batched ones
+    run by run with each run's slice equal to the single-run kernel; then
+    at full shape (n 8, D_FULL; R_FULL runs for the batched ones), timed
+    against the bf16 bound, the plain version and, for the mixes, one
+    copy of the same bytes.  No library call computes a bf16 buffer's mix
+    with f32 W (torch.mm takes one dtype): library_ms is null."""
+    from repro_torch.core import topology
+    from repro_torch.kernels import ops
+    results = {k: {"max_abs_err": 0.0, "y_share_differing": 0.0,
+                   "variants": {}}
+               for k in (*BF16_SINGLE_KERNELS, *BF16_LATTICE_KERNELS)}
+
+    def note(kernel, err_share):
+        row = results[kernel]
+        row["max_abs_err"] = max(row["max_abs_err"], err_share[0])
+        row["y_share_differing"] = max(row["y_share_differing"],
+                                       err_share[1])
+        return err_share
+
+    for n, d, misaligned in BF16_SHAPES:
+        where = f"n={n} D={d}{' misaligned' if misaligned else ''}"
+        for inputs in (make_inputs, make_compress_inputs):
+            t = to_bf16(torch, inputs(torch, n, d, seed=n * 131 + d),
+                        misaligned)
+            for kernel, variants in BF16_SINGLE_KERNELS.items():
+                if (kernel in COMPRESSED) != (inputs is make_compress_inputs):
+                    continue
+                for variant in variants:
+                    run, plain = bf16_single_calls(kernel, variant, t)
+                    got = run()
+                    torch.cuda.synchronize()
+                    note(kernel, check_bf16(torch, got, plain(), kernel,
+                                            f"bf16 {kernel}[{variant}] "
+                                            f"{where}"))
+                    del got
+            del t
+        log(f"[kernels] bf16 {where}: #1-#4, #9, #11, #13, #14 y within "
+            f"{BF16_Y_TOL}·max|y| (EF {BF16_EF_TOL}) and differing in at "
+            f"most {BF16_Y_SHARE} of its elements, m' within {TOL}, r and q "
+            f"exact")
+    for r, n, d in BF16_LATTICES:
+        where = f"R={r} n={n} D={d}"
+        graphs = lattice_graphs(r, n)
+        for inputs in (make_lattice_inputs, make_ef_lattice_inputs):
+            t = to_bf16(torch, inputs(torch, r, n, d, seed=r * 977 + n + d,
+                                      graphs=graphs))
+            for kernel, variants in BF16_LATTICE_KERNELS.items():
+                if (kernel in BATCHED_EF) != (
+                        inputs is make_ef_lattice_inputs):
+                    continue
+                for variant in variants:
+                    note(kernel, check_bf16_lattice(torch, kernel, variant,
+                                                    t, where))
+            del t
+        log(f"[kernels] bf16 {where}: #5-#8, #10, #12 within their bf16 "
+            f"bounds, run slices equal to the single-run kernels")
+    torch.cuda.empty_cache()
+
+    def timed(kernel, variant, run, plain_all, where, r, max_deg, x,
+              share):
+        ms = time_ms(torch, run)
+        plain_ms = time_ms(torch, plain_all, iters=2, warmup=1, repeats=1)
+        copy_ms = stream_ms(torch, x) if variant == "gossip" else None
+        if kernel in COMPRESSED or kernel in BATCHED_EF:
+            bound_ms, bound_by = compress_bound(kernel, N_AGENTS, D_FULL,
+                                                max_deg, r=r, itemsize=2)
+        else:
+            bound_ms, bound_by = bound(kernel, variant, N_AGENTS, D_FULL,
+                                       max_deg, r=r, itemsize=2)
+        peak = torch.cuda.max_memory_allocated()
+        torch.cuda.empty_cache()
+        row = {"max_abs_err": results[kernel]["max_abs_err"], "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "library_ms": None, "copy_ms": copy_ms,
+               "share_of_bound": bound_ms / ms, "peak_bytes": peak,
+               "y_share_differing": share}
+        results[kernel]["variants"][variant] = row
+        log(f"[kernels] bf16 {kernel}[{variant}] {where}: err "
+            f"{row['max_abs_err']:.3e} (y differs in {share:.3e} of its "
+            f"elements)  ms {ms:.4f}  bound_ms {bound_ms:.4f} "
+            f"({bound_by}, {100 * bound_ms / ms:.1f}% of bound)  plain_ms "
+            f"{plain_ms:.4f}  library_ms n/a (no single call takes f32 W "
+            f"and a bf16 buffer){copy_note(copy_ms, ms)}  peak "
+            f"{peak / 1e9:.2f} GB")
+
+    where = f"n={N_AGENTS} D={D_FULL}"
+    for inputs in (make_inputs, make_compress_inputs):
+        t = to_bf16(torch, inputs(torch, N_AGENTS, D_FULL, seed=7))
+        max_deg = t["nbr"].shape[1]
+        for kernel, variants in BF16_SINGLE_KERNELS.items():
+            if (kernel in COMPRESSED) != (inputs is make_compress_inputs):
+                continue
+            for variant in variants:
+                torch.cuda.reset_peak_memory_stats()
+                run, plain = bf16_single_calls(kernel, variant, t)
+                got = run()
+                torch.cuda.synchronize()
+                _, share = note(kernel, check_bf16(
+                    torch, got, plain(), kernel,
+                    f"bf16 {kernel}[{variant}] {where}"))
+                del got
+                torch.cuda.empty_cache()
+                timed(kernel, variant, run, plain, where, 1, max_deg,
+                      t.get("x"), share)
+        del t
+        torch.cuda.empty_cache()
+
+    graphs = [topology.erdos_renyi_graph(N_AGENTS, 0.5, seed=i)
+              for i in range(R_FULL)]
+    where = f"R={R_FULL} n={N_AGENTS} D={D_FULL}"
+    for inputs in (make_lattice_inputs, make_ef_lattice_inputs):
+        t = to_bf16(torch, inputs(torch, R_FULL, N_AGENTS, D_FULL, seed=8,
+                                  graphs=graphs))
+        for kernel, variants in BF16_LATTICE_KERNELS.items():
+            if (kernel in BATCHED_EF) != (inputs is make_ef_lattice_inputs):
+                continue
+            for variant in variants:
+                torch.cuda.reset_peak_memory_stats()
+                _, share = note(kernel, check_bf16_lattice(
+                    torch, kernel, variant, t, where))
+                torch.cuda.empty_cache()
+                run, plain, _ = bf16_lattice_calls(kernel, variant, t)
+                timed(kernel, variant, run, lambda: plain(slice(None)),
+                      where, R_FULL, t["max_deg"], t.get("x"), share)
+        del t
+        torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    return results
 
 
 # fig4's float64 setting (benchmarks/fig4_convergence.py): 20 agents on a
@@ -1781,7 +2086,8 @@ def train_path(torch, impl: str, fuse: bool, optimizer: str,
                arch: str = "tiny", smoke: bool = False,
                agents: int = N_AGENTS, batch: int = 2, fused: bool = True,
                layout: str | None = None, delta: str = "none",
-               d_model: int = 768, ckpt_dir: str | None = None):
+               d_model: int = 768, ckpt_dir: str | None = None,
+               seq: int = 128):
     """One run of the trainer; with ``sweep_axis`` the R_FULL-run lattice,
     whose whole (R, n, D) state it returns (else the FedState); ``compress``
     is the gossip codec (--gossip-compress), ``delta`` the delta
@@ -1789,7 +2095,8 @@ def train_path(torch, impl: str, fuse: bool, optimizer: str,
     width (--layers, --d-model), ``arch``/``smoke`` the model (--arch,
     --smoke), ``fused`` False the one-step executor (--per-step) and
     ``layout`` the state layout (--state-layout; None: the trainer's
-    default), ``ckpt_dir`` the checkpoint directory (--ckpt-dir)."""
+    default), ``ckpt_dir`` the checkpoint directory (--ckpt-dir), ``seq``
+    each agent's sequence length (--seq)."""
     from repro_torch.configs.base import FedConfig
     from repro_torch.launch import train
     # what earlier phases left to the garbage collector goes first, so
@@ -1803,7 +2110,7 @@ def train_path(torch, impl: str, fuse: bool, optimizer: str,
         path_config(arch, layers, smoke, d_model),
         FedConfig(n_agents=agents, h=10, k=2, graph=graph, p_fail=p_fail,
                   gossip_impl=impl, gossip_compress=compress, delta=delta),
-        steps=steps, per_agent_batch=batch, seq_len=128, optimizer=optimizer,
+        steps=steps, per_agent_batch=batch, seq_len=seq, optimizer=optimizer,
         fuse_update_mix=fuse, fused=fused, state_layout=layout, seed=0,
         device=DEVICE, timing=timing, ckpt_dir=ckpt_dir, **sweep)
     torch.cuda.synchronize()
@@ -1972,6 +2279,101 @@ def check_residual(torch, name: str, state, out: dict, twin: str = "",
           f"({twin}), residual max {res_max:.3e} (both must be 0)")
     log(f"[train] path ({name}) ends on path ({twin})'s buffer (difference "
         f"{diff}), residual all zero")
+
+
+# ---------------------------------------------------------------------------
+# Phase 4f: the bf16 configs' training paths (bf16 flat buffers)
+# ---------------------------------------------------------------------------
+
+# path -> (gossip impl, fuse, optimizer, the kernel it launches once a
+# step, train_path's options): (M1) Mistral-Large-123B at its published
+# widths with 3 of its 88 layers (4,957,741,056 parameters, a 9.92 GB bf16
+# row; at 2 layers the card's peak was 42.92 GB, so 4 layers, 6.34e9
+# parameters, would need about 76 GB), fused sgd, #3 in bf16; (M2)
+# DeepSeek-V3-671B with its 3 leading dense layers (3,603,802,112
+# parameters; an MoE layer is 23.0 GB of bf16 weights a row, and two rows
+# with their gradients pass 80 GB), #1 in bf16.  2 agents, batch 1, S 512.
+BF16_PATHS = {
+    "M1": ("pallas", True, "sgd", "update_mix",
+           dict(arch="mistral-large-123b", layers=3, agents=2, batch=1,
+                seq=512)),
+    "M2": ("pallas", False, "sgd", "gossip_mix",
+           dict(arch="deepseek-v3-671b", layers=3, agents=2, batch=1,
+                seq=512)),
+}
+# bf16_flat_check's column block: the plain version's f32 temporaries of
+# 2 × 2^27 columns (1.1 GB each) beside the three bf16 buffers
+BF16_FLAT_COLS = 1 << 27
+
+
+def bf16_path_phase(torch) -> dict:
+    """(M1) and (M2) through run_path: finite losses, the kernel once a
+    step and nothing else, and a bf16 flat buffer (so the launches were
+    the kernel's bf16 variant); then that kernel on a buffer of the path's
+    own shape against its plain version (bf16_flat_check)."""
+    out = {}
+    for name, (impl, fuse, opt, kernel, kw) in BF16_PATHS.items():
+        state, out[name] = run_path(torch, name, impl, fuse, opt, kernel,
+                                    **kw)
+        flat = flat_of(torch, state)
+        check(flat.dtype == torch.bfloat16,
+              f"path ({name}): the flat buffer is {flat.dtype}, not bf16")
+        shape = tuple(flat.shape)
+        out[name].update(buffer_dtype=str(flat.dtype),
+                         buffer_shape=list(shape))
+        log(f"[train] path ({name}): {shape[0]} × {shape[1]:,} "
+            f"{flat.dtype} buffer")
+        del state, flat
+        torch.cuda.empty_cache()
+        out[name]["flat_check"] = bf16_flat_check(torch, kernel, *shape)
+    return out
+
+
+def bf16_flat_check(torch, kernel: str, n: int, d: int) -> dict:
+    """#3 (sgd) or #1 on a random bf16 (n, d) buffer, d past 2^31 columns
+    as on (M1) and (M2), against its plain version in column blocks of
+    BF16_FLAT_COLS (the mix is column by column, so a block's plain
+    version is that block of the whole one's), each held by check_bf16.
+    The comparison's launch is not a path's: run_path resets the counts
+    before a path."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(n * 131 + d)
+    x = torch.randn(n, d, device=DEVICE, generator=gen, dtype=torch.bfloat16)
+    w = torch.rand(n, n, device=DEVICE, generator=gen)
+    w = w / w.sum(dim=1, keepdim=True)
+    if kernel == "update_mix":
+        g = torch.randn(n, d, device=DEVICE, generator=gen,
+                        dtype=torch.bfloat16)
+        eta = torch.tensor([0.05], device=DEVICE)
+        got = ops.update_mix(w, x, g, eta)
+
+        def plain(sl):
+            return ref.update_mix(w, x[:, sl], g[:, sl], eta)
+    else:
+        got = ops.gossip_mix(w, x)
+
+        def plain(sl):
+            return ref.gossip_mix(w, x[:, sl])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    err = differing = 0.0
+    for lo in range(0, d, BF16_FLAT_COLS):
+        sl = slice(lo, lo + BF16_FLAT_COLS)
+        e, share = check_bf16(torch, got[:, sl], plain(sl), kernel,
+                              f"bf16 {kernel} n={n} D={d} columns {lo}:")
+        err = max(err, e)
+        differing += share * got[:, sl].numel()
+    share = differing / got.numel()
+    check(share <= BF16_Y_SHARE,
+          f"bf16 {kernel} n={n} D={d}: {share:.3e} of y differs")
+    del x, got
+    torch.cuda.empty_cache()
+    log(f"[train] bf16 {kernel} n={n} D={d:,} (a bf16 path's buffer) "
+        f"against its plain version in {BF16_FLAT_COLS}-column blocks: "
+        f"err {err:.3e}, y differs in {share:.3e} of its elements "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return {"shape": [n, d], "max_abs_err": err, "y_share_differing": share}
 
 
 # ---------------------------------------------------------------------------
@@ -3102,7 +3504,11 @@ def init_peak_check(torch, name: str, params: dict, peak: int) -> dict:
     layer, or one group's slice of a scanned unit's layer), plus
     INIT_ROUNDING for each leaf of the weights and of that block: the
     caching allocator may hand a tensor a block up to 1 MiB larger than
-    it asked for."""
+    it asked for.  A model with bf16 weights draws each leaf in f32 and
+    casts it: its peak is held to the weights plus the largest leaf's f32
+    draw, plus one group's slice only where a scanned unit has two groups
+    or more (a single group is its block, viewed; transformer._init_group),
+    with the same rounding."""
     from repro_torch.tree import leaves
 
     def nbytes(tree):
@@ -3111,21 +3517,50 @@ def init_peak_check(torch, name: str, params: dict, peak: int) -> dict:
     stack = params["stack"]
     blocks = [(nbytes(v), len(leaves(v))) for k, v in stack.items()
               if k != "scan"]
-    blocks += [(nbytes(sub) // leaves(sub)[0].shape[0], len(leaves(sub)))
-               for sub in stack.get("scan", {}).values()]
+    groups = [(nbytes(sub) // leaves(sub)[0].shape[0], len(leaves(sub)),
+               leaves(sub)[0].shape[0])
+              for sub in stack.get("scan", {}).values()]
+    blocks += [(b, n) for b, n, _ in groups]
     total = nbytes(params)
     block, block_leaves = max(blocks)
     limit = total + block + INIT_ROUNDING * (len(leaves(params))
                                              + block_leaves)
+    # a leaf as drawn: a scanned leaf one group's slice at a time
+    drawn = [x.numel() // x.shape[0] for sub in stack.get("scan",
+                                                           {}).values()
+             for x in leaves(sub) if x.dtype == torch.bfloat16]
+    scanned = {id(x) for sub in stack.get("scan", {}).values()
+               for x in leaves(sub)}
+    drawn += [x.numel() for x in leaves(params)
+              if x.dtype == torch.bfloat16 and id(x) not in scanned]
+    draw = 4 * max(drawn, default=0)
+    if draw:
+        block, block_leaves = max([(b, n) for b, n, g in groups if g > 1],
+                                  default=(0, 0))
+        limit = total + draw + block + INIT_ROUNDING * (
+            len(leaves(params)) + block_leaves + 1)
     check(peak <= limit,
           f"{name}: init peaked {peak / 1e9:.3f} GB above its base, past "
           f"its weights' {total / 1e9:.3f} GB + one block's "
-          f"{block / 1e9:.3f} GB (limit {limit / 1e9:.3f} GB)")
+          f"{block / 1e9:.3f} GB + one f32 draw's {draw / 1e9:.3f} GB "
+          f"(limit {limit / 1e9:.3f} GB)")
     log(f"[models] {name} init: peak {peak / 1e9:.3f} GB for "
         f"{total / 1e9:.3f} GB of weights (the largest block "
-        f"{block / 1e9:.3f} GB; limit {limit / 1e9:.3f} GB)")
+        f"{block / 1e9:.3f} GB, the largest f32 draw {draw / 1e9:.3f} GB; "
+        f"limit {limit / 1e9:.3f} GB)")
     return {"peak_bytes": peak, "weight_bytes": total, "block_bytes": block,
-            "limit_bytes": limit}
+            "draw_bytes": draw, "limit_bytes": limit}
+
+
+def model_config(name: str):
+    """The config of ``name`` at the depth phases 6 and 6b run it
+    (MODEL_LAYERS, else its own)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(name)
+    if name in MODEL_LAYERS:
+        cfg = dataclasses.replace(cfg, num_layers=MODEL_LAYERS[name])
+    return cfg
 
 
 def model_phase(torch) -> dict:
@@ -3141,12 +3576,11 @@ def model_phase(torch) -> dict:
     without a kernel gets no twin: its two sides would be the same code.  Each init's peak is held to its weights' bytes
     plus one block (init_peak_check)."""
     import dataclasses
-    from repro_torch.configs import get_config
     from repro_torch.core.draws import Draws
     from repro_torch.models import build_model
     out = {}
     for seed, (name, bsz, seq) in enumerate(ZOO_MODELS):
-        cfg = get_config(name)
+        cfg = model_config(name)
         model = build_model(cfg)
         gc.collect()
         torch.cuda.synchronize()
@@ -3211,7 +3645,8 @@ def model_phase(torch) -> dict:
 # prompt and new tokens; (S4): the personalized batch of path (a)'s agents
 SERVE_MODELS = [("qwen1.5-4b", 4), ("recurrentgemma-9b", 1),
                 ("mamba2-2.7b", 1), ("deepseek-v2-lite-16b", 1),
-                ("qwen2-vl-2b", 4), ("seamless-m4t-large-v2", 1)]
+                ("qwen2-vl-2b", 4), ("seamless-m4t-large-v2", 1),
+                ("mistral-large-123b", 4), ("deepseek-v3-671b", 1)]
 SERVE_PROMPT, SERVE_NEW = 16, 32
 
 
@@ -3264,12 +3699,11 @@ def serve_model(torch, name: str, batch: int, seed: int) -> dict:
     decode_step: its logits against the xla prefill of the same tokens
     (model_tol; an MoE model's recorded, and held on moe_decode_twin),
     and generate's tokens the argmax of them exactly."""
-    from repro_torch.configs import get_config
     from repro_torch.core.draws import Draws
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.models import build_model
-    cfg = get_config(name)
+    cfg = model_config(name)
     model = build_model(cfg)
     gc.collect()
     t0 = time.perf_counter()
@@ -3778,6 +4212,7 @@ def main() -> int:
     kernels.update(compress_kernel_phase(torch))
     kernels.update(batched_ef_kernel_phase(torch))
     f64_errs = f64_kernel_phase(torch)
+    bf16_kernels = bf16_kernel_phase(torch)
     kernels.update(zoo_kernel_phase(torch))
     log(f"[kernels] phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -3795,6 +4230,9 @@ def main() -> int:
     t0 = time.perf_counter()
     f64_paths = f64_path_phase(torch)
     log(f"[f64] phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    bf16_paths = bf16_path_phase(torch)
+    log(f"[bf16] phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     grads = grad_phase(torch)
     log(f"[grad] phase {time.perf_counter() - t0:.1f} s")
@@ -3860,6 +4298,30 @@ def main() -> int:
             # #2 is the population engine's cohort mix: once a step
             line[-1]["launches_by_path"].update(population_launches(
                 population))
+    # the mix kernels' bf16 variants: timed at full shape in phase 3c;
+    # launches from the bf16 path that runs them ((M1) #3, (M2) #1; the
+    # others run on no path: 0)
+    for kernel, row in bf16_kernels.items():
+        variant = BF16_PATH_VARIANT.get(kernel, PATH_VARIANT[kernel])
+        main_variant = row["variants"][variant]
+        launches = next((p["launches"] for p in bf16_paths.values()
+                         if p["kernel"] == kernel), 0)
+        line.append({
+            "name": f"{kernel}:bf16", "route": "cuda",
+            "source": SOURCES[kernel], "replaces": REPLACES[kernel],
+            "launches": launches, "max_abs_err": row["max_abs_err"],
+            "ms": main_variant["ms"], "plain_ms": main_variant["plain_ms"],
+            "bound_ms": main_variant["bound_ms"],
+            "bound_by": main_variant["bound_by"],
+            "library_ms": main_variant["library_ms"], "variant": variant,
+            "dtype": "bfloat16", "y_share_differing": row["y_share_differing"],
+            "variants": row["variants"]})
+        flat = next((p["flat_check"] for p in bf16_paths.values()
+                     if p["kernel"] == kernel), None)
+        if flat is not None:
+            line[-1]["max_abs_err"] = max(line[-1]["max_abs_err"],
+                                          flat["max_abs_err"])
+            line[-1]["path_flat_check"] = flat
     total_s = time.perf_counter() - T_START
     log(f"[smoke] total {total_s:.1f} s (build included)")
     out_dir = ROOT / "chiprun_out"
@@ -3869,7 +4331,7 @@ def main() -> int:
          "training": training, "tree_paths": tree_paths,
          "delta_paths": delta_paths, "population": population,
          "grads": grads,
-         "f64_paths": f64_paths,
+         "f64_paths": f64_paths, "bf16_paths": bf16_paths,
          "profile": profile, "models": models, "serve": serving,
          "paper": paper,
          "total_s": total_s},

@@ -13,12 +13,11 @@ _ARCH_MODULES = {
     "nemotron-4-15b": "nemotron_4_15b",
     "qwen2-vl-2b": "qwen2_vl_2b",
     "seamless-m4t-large-v2": "seamless_m4t_large_v2",
+    "mistral-large-123b": "mistral_large_123b",
+    "deepseek-v3-671b": "deepseek_v3_671b",
 }
 
 ARCH_NAMES = ("tiny",) + tuple(_ARCH_MODULES)
-# the reference's ids whose configs are not ported yet (ROADMAP.md Queue A
-# item 5c)
-NOT_PORTED_ARCHS = ("deepseek-v3-671b", "mistral-large-123b")
 
 
 def get_config(name: str) -> ArchConfig:
@@ -38,5 +37,4 @@ def get_config(name: str) -> ArchConfig:
 
 
 __all__ = ["ArchConfig", "FedConfig", "MLAConfig", "MoEConfig", "SSMConfig",
-           "SHAPES", "ShapeConfig", "ARCH_NAMES", "NOT_PORTED_ARCHS",
-           "get_config"]
+           "SHAPES", "ShapeConfig", "ARCH_NAMES", "get_config"]

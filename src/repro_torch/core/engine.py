@@ -133,8 +133,8 @@ def resolve_gossip(source, layout: str = "flat") -> Callable:
                else the plain stacked-ELL mix;
       'none'   identity (an all-FedAvg lattice).
     The kernels (and their plain versions on the CPU) load and store the
-    buffer's dtype, f32 or f64, and sum the mix in f32, as the reference's
-    kernels do.  'dense', the CSR gather and the plain stacked ELL round W
+    buffer's dtype, f32, f64 or bf16, and sum the mix in f32, as the
+    reference's kernels do.  'dense', the CSR gather and the plain stacked ELL round W
     to the buffer's dtype first and mix in that dtype, as the reference's
     plain mixes do (repro/core/gossip.py:60, :205; core/engine.py:157,
     :182); a bf16 buffer's dense product is summed in f32 and rounded

@@ -69,11 +69,21 @@ def aggregate_and_broadcast_flat(weights: torch.Tensor,
     In place: the caller hands over a buffer it owns (the engine passes
     the freshly mixed x^{t+1}), so the broadcast costs no second (n, D)
     allocation.  The weights are cast to the buffer's dtype first, as the
-    reference casts them before its contraction.
+    reference casts them before its contraction.  The contraction runs in
+    column blocks of ``_SERVER_COLS``, since cuBLAS takes dimensions and
+    leading dimensions below 2^31 (a Mistral-Large-123B row at three
+    layers is 5.0e9): a narrower buffer is one block, the buffer itself,
+    and one call.
     """
-    z = torch.matmul(weights.to(flat.dtype), flat)
-    flat.copy_(z.unsqueeze(0).expand_as(flat))
+    w = weights.to(flat.dtype)
+    for lo in range(0, flat.shape[1], _SERVER_COLS):
+        block = flat[:, lo:lo + _SERVER_COLS]
+        z = torch.matmul(w, block.contiguous())
+        block.copy_(z.unsqueeze(0).expand_as(block))
     return flat
+
+
+_SERVER_COLS = 1 << 30
 
 
 def server_round_flat(draws, t: int, flat: torch.Tensor,

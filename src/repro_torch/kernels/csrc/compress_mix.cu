@@ -1,5 +1,5 @@
 // Compressed gossip with error feedback (repro/core/compress.py) on the
-// flat (n, D) buffer, f32 or f64: the fused receive side of the EF exchange
+// flat (n, D) buffer, f32, f64 or bf16: the fused receive side of the EF exchange
 // and the int8 mixes.  Every kernel also takes the (R, n, D) buffer of an R-run
 // lattice, with the run as the grid's y index as in mix_common.cuh: the EF
 // entry points with R = 1 are #9/#11, with R runs #10/#12; the int8 ones
@@ -26,7 +26,9 @@
 // and writes y and q (17 B).  The mix is 2n flop per element, about one
 // flop per byte at n = 8, far below the ridge point.  At the main path's
 // n = 8, D = 156,519,168 the bounds are 7.476 ms (#9/#11; R = 2 runs of
-// it, #10/#12: 14.951 ms), 3.364 ms (#14) and 6.354 ms (#13) at 3.35 TB/s.  Design: mix_common.cuh's per-column
+// it, #10/#12: 14.951 ms), 3.364 ms (#14) and 6.354 ms (#13) at 3.35 TB/s;
+// a bf16 buffer halves the bytes of p, s, u, y and r (10, 5 and 11 B per
+// element: 3.738, 1.869 and 4.111 ms).  Design: mix_common.cuh's per-column
 // layout with another load stage and output stage.  A thread owns whole
 // columns.  It reads row j's inputs of its columns once and forms s_j,
 // writing r_j or q_j right away, so u and the noise are dead after the
@@ -36,7 +38,8 @@
 // registers (s in registers took 80-113 registers per thread and ran at
 // 25-40% of the bound on the H100).  At n <= 8 a thread owns 4 adjacent
 // columns, so that each row is one 16-byte access of p, s, u, y (4 bytes
-// of q) when D % 4 == 0 and the buffers are 16-byte aligned, and four
+// of q, 8 of a bf16 buffer) when D % 4 == 0 and the buffers are aligned
+// to 4 elements, and four
 // masked scalar accesses otherwise (the ragged edge); one byte per
 // thread per request made the int8 kernels the slowest.  W (n <= 8) or
 // the ELL tables sit in shared memory.  On #13/#14 the f32 s never
@@ -47,9 +50,10 @@
 // ef_mix_kernel, repro/kernels/compress_mix.py): the mix sums s rounded to
 // f32 with f32 weights.  On #9-#12 the mix is then converted to the
 // buffer's type T, and r = u - s and the correction W_ii (p - s) (W_ii in
-// T) are computed in T; #13/#14 compute everything in f32 and convert y
+// T) are computed in T (a bf16 operation is the f32 one rounded to bf16,
+// as in mix_common.cuh); #13/#14 compute everything in f32 and convert y
 // to T at the end.  For an f64 buffer the correction re-reads s_i in f64
-// (the shared slots hold the f32 s of the mix).
+// (the shared slots hold the f32 s of the mix); a bf16 s is exact in f32.
 //
 // Exactness: r = u - s is one subtraction; q is floorf(__fdiv_rn(u, scale)
 // + noise), clipped (IEEE division, no --use_fast_math); s = q * scale; the
@@ -110,11 +114,11 @@ __device__ __forceinline__ float load_s(const EfArgs<T>& a, int64_t idx,
   if (S == kEf) {
     const T s = __ldcs(a.s + idx);
     __stcs(a.res + idx, sub_rn(__ldcs(a.u + idx), s));
-    return static_cast<float>(s);
+    return to_f32(s);
   }
   if (S == kDequant) return __fmul_rn(static_cast<float>(a.q_in[idx]), sc);
-  return quantize(static_cast<float>(__ldcs(a.u + idx)),
-                  __ldcs(a.noise + idx), sc, a.q_out + idx);
+  return quantize(to_f32(__ldcs(a.u + idx)), __ldcs(a.noise + idx), sc,
+                  a.q_out + idx);
 }
 
 // mix + diag * (p - s), each operation rounded on its own, in f32.
@@ -130,8 +134,8 @@ template <int S, typename T>
 __device__ __forceinline__ T output(float mix, float diag32, T diag_t, T p,
                                     T s_t, float s32) {
   if (S == kEf)
-    return add_rn(static_cast<T>(mix), mul_rn(diag_t, sub_rn(p, s_t)));
-  return static_cast<T>(corrected(mix, diag32, static_cast<float>(p), s32));
+    return add_rn(from_f32<T>(mix), mul_rn(diag_t, sub_rn(p, s_t)));
+  return from_f32<T>(corrected(mix, diag32, to_f32(p), s32));
 }
 
 template <bool VEC>
@@ -169,9 +173,8 @@ __device__ __forceinline__ float4 load_s4(const EfArgs<T>& a, int64_t idx,
 #pragma unroll
     for (int k = 0; k < kQuad; ++k) r.v[k] = sub_rn(u.v[k], s.v[k]);
     stq<VEC>(a.res, idx, r, nv);
-    return make_float4(static_cast<float>(s.v[0]), static_cast<float>(s.v[1]),
-                       static_cast<float>(s.v[2]),
-                       static_cast<float>(s.v[3]));
+    return make_float4(to_f32(s.v[0]), to_f32(s.v[1]), to_f32(s.v[2]),
+                       to_f32(s.v[3]));
   }
   if (S == kDequant) {
     const char4 q = ldq4<VEC>(a.q_in, idx, nv);
@@ -184,10 +187,10 @@ __device__ __forceinline__ float4 load_s4(const EfArgs<T>& a, int64_t idx,
   const Quad<float> z = ldq<VEC>(a.noise, idx, nv);
   char4 q;
   float4 s;
-  s.x = quantize(static_cast<float>(u.v[0]), z.v[0], sc, &q.x);
-  s.y = quantize(static_cast<float>(u.v[1]), z.v[1], sc, &q.y);
-  s.z = quantize(static_cast<float>(u.v[2]), z.v[2], sc, &q.z);
-  s.w = quantize(static_cast<float>(u.v[3]), z.v[3], sc, &q.w);
+  s.x = quantize(to_f32(u.v[0]), z.v[0], sc, &q.x);
+  s.y = quantize(to_f32(u.v[1]), z.v[1], sc, &q.y);
+  s.z = quantize(to_f32(u.v[2]), z.v[2], sc, &q.z);
+  s.w = quantize(to_f32(u.v[3]), z.v[3], sc, &q.w);
   stq4<VEC>(a.q_out, idx, q, nv);
   return s;
 }
@@ -229,8 +232,8 @@ __global__ void __launch_bounds__(kThreads) ef_small_kernel(EfArgs<T> a) {
   }
   for (int e = tid; e < NB; e += kThreads) {
     sc_s[e] = (S != kEf && e < n) ? a.scale[run * n + e] : 1.f;
-    diag_s[e] = (S != kEf || e >= n) ? static_cast<T>(0)
-                : ELL                ? static_cast<T>(a.wd[run * n + e])
+    diag_s[e] = (S != kEf || e >= n) ? from_f32<T>(0.f)
+                : ELL                ? from_f32<T>(a.wd[run * n + e])
                                      : a.diag[run * n + e];
   }
   __syncthreads();
@@ -277,7 +280,8 @@ __global__ void __launch_bounds__(kThreads) ef_small_kernel(EfArgs<T> a) {
       const float4 s4 = ps[i * kThreads + tid];
       const float s32[kQuad] = {s4.x, s4.y, s4.z, s4.w};
       Quad<T> s_t = to_quad<T>(s4);
-      if (S == kEf && sizeof(T) != sizeof(float)) s_t = ldq<VEC>(a.s, idx, nv);
+      if (S == kEf && sizeof(T) > sizeof(float))
+        s_t = ldq<VEC>(a.s, idx, nv);
       const float mix[kQuad] = {acc.x, acc.y, acc.z, acc.w};
       Quad<T> y;
 #pragma unroll
@@ -327,11 +331,11 @@ __global__ void __launch_bounds__(kThreads) ef_general_kernel(EfArgs<T> a) {
       }
       const int64_t idx = base + i * d + col;
       const float s32 = ps[i * kThreads + tid];
-      const T s_t = (S == kEf && sizeof(T) != sizeof(float))
+      const T s_t = (S == kEf && sizeof(T) > sizeof(float))
                         ? __ldcs(a.s + idx)
-                        : static_cast<T>(s32);
-      const T diag_t = (S != kEf) ? static_cast<T>(0)
-                       : ELL      ? static_cast<T>(diag)
+                        : from_f32<T>(s32);
+      const T diag_t = (S != kEf) ? from_f32<T>(0.f)
+                       : ELL      ? from_f32<T>(diag)
                                   : a.diag[run * n + i];
       __stcs(a.y + idx,
              output<S>(acc, diag, diag_t, __ldcs(a.p + idx), s_t, s32));
@@ -339,16 +343,17 @@ __global__ void __launch_bounds__(kThreads) ef_general_kernel(EfArgs<T> a) {
   }
 }
 
-// Whether every row of every buffer starts on a vector boundary: f32
-// buffers, D a multiple of 4 and each buffer 16-byte (int8: 4-byte)
-// aligned.
+// Whether every row of every buffer starts on a vector boundary: f32 or
+// bf16 buffers, D a multiple of 4 and each buffer aligned to 4 of its
+// elements (the f32 noise 16-byte, int8: 4-byte aligned).
 template <typename T>
 bool vector_rows(const EfArgs<T>& a) {
-  if (sizeof(T) != 4 || a.d % kQuad) return false;
-  const void* floats[] = {a.p, a.s, a.u, a.noise, a.y, a.res};
-  for (const void* ptr : floats) {
-    if (ptr != nullptr && !aligned(ptr, 16)) return false;
+  if (sizeof(T) > 4 || a.d % kQuad) return false;
+  const void* rows[] = {a.p, a.s, a.u, a.y, a.res};
+  for (const void* ptr : rows) {
+    if (ptr != nullptr && !aligned(ptr, kQuad * sizeof(T))) return false;
   }
+  if (a.noise != nullptr && !aligned(a.noise, 16)) return false;
   const void* bytes[] = {a.q_in, a.q_out};
   for (const void* ptr : bytes) {
     if (ptr != nullptr && !aligned(ptr, 4)) return false;
@@ -374,7 +379,7 @@ int launch_ef(const EfArgs<T>& a, cudaStream_t stream) {
              : 0);
     const int64_t ntiles =
         (a.d + int64_t(kQuad) * kThreads - 1) / (int64_t(kQuad) * kThreads);
-    if constexpr (sizeof(T) == 4) {
+    if constexpr (sizeof(T) <= 4) {
       if (vector_rows(a)) {
         return launch_grid(ef_small_kernel<S, ELL, true, T>, a, ntiles, smem,
                            stream);

@@ -1,5 +1,5 @@
-// Gossip mix Y = W X of the flat (n, D) buffer (Algorithm 1, line 6), f32
-// or f64 (mixed in f32, as the reference's kernels mix), and of the
+// Gossip mix Y = W X of the flat (n, D) buffer (Algorithm 1, line 6), f32,
+// f64 or bf16 (mixed in f32, as the reference's kernels mix), and of the
 // (R, n, D) buffer of an R-run sweep lattice in one launch.
 //
 // Replaces the TPU kernels repro/kernels/gossip_mix.py:gossip_mix_pallas
@@ -11,12 +11,13 @@
 // 2(max_deg+1) flop (ELL) per element; at n = 8 that is 2 flop per byte
 // against a ridge point near 20 for f32 outside the tensor cores.  At the
 // sweep path's R = 2, n = 8, D = 156,519,168 that is 20.03 GB, 5.980 ms at
-// 3.35 TB/s (2.990 ms for one run).  Design
+// 3.35 TB/s (2.990 ms for one run); a bf16 buffer moves half the bytes.
+// Design
 // (mix_common.cuh): a thread owns whole columns of one run, loads all n
 // rows of them before the first FMA, and keeps its run's W or ELL tables
 // in shared memory, so X streams through once and nothing else touches
 // device memory.  The ELL mix at n <= 8 gives a thread 4 adjacent columns,
-// so that an aligned f32 row is one 16-byte access.  The single-run
+// so that an aligned f32 row is one 16-byte access (a bf16 row 8 bytes).  The single-run
 // kernels are the R = 1 case.
 //
 // Plain C interface for ctypes: pointers and the CUDA stream as void*,

@@ -1,7 +1,9 @@
 // Fused local update + gossip mix: y = W (x - eta g) (sgd), or the
 // momentum / nesterov step that also emits the new f32 momentum m'; for
-// the flat (n, D) buffer, f32 or f64 (the step in the buffer's type, the
-// mix in f32, as the reference's kernels do), or for the (R, n, D) buffer of an R-run sweep
+// the flat (n, D) buffer, f32, f64 or bf16 (the step in the buffer's type,
+// the mix in f32, as the reference's kernels do; a bf16 step rounds where
+// XLA rounds the reference's kernel body, mix_common.cuh:step_value), or
+// for the (R, n, D) buffer of an R-run sweep
 // lattice in one launch with per-run W (or ELL tables) and per-run eta.
 //
 // Replaces the TPU kernels repro/kernels/update_mix.py:update_mix_pallas
@@ -13,7 +15,8 @@
 // Bound on the H100: bytes.  sgd reads x and g and writes y (12 B per
 // element); momentum also reads m and writes m' (20 B per element); at the
 // sweep path's R = 2, n = 8, D = 156,519,168 that is 30.05 GB (8.971 ms at
-// 3.35 TB/s) and 50.09 GB (14.951 ms), twice one run's.  The
+// 3.35 TB/s) and 50.09 GB (14.951 ms), twice one run's; a bf16 buffer
+// moves 6 B (sgd) or 14 B (momentum) per element.  The
 // post-update iterate p is formed on chip and never written, which is the
 // point of the fusion (the unfused pair moves p out and back in: 5 passes
 // instead of 3 for sgd).  Design (mix_common.cuh): a thread owns whole

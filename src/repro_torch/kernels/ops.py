@@ -20,13 +20,16 @@ Every kernel wrapper carries a ``launches`` counter that it advances by
 one each time its kernel is launched (CPU calls do not count);
 :func:`launch_counts` / :func:`reset_launch_counts` read and clear them.
 
-The mix kernels (#1–#14) take f32 or f64 buffers and raise on any other
-dtype, on the card and on the CPU alike.  They do what the reference's
-Pallas kernels do with either: load and store the buffer's dtype and mix
-in f32, with W and the ELL weights cast to f32 (so a float64 buffer, as
-the paper's linear-regression figures run, launches the same kernels;
-the exact f64 mix is the 'dense' gossip_impl's plain product).  The
-momentum, η, the int8 scales and the rounding noise are f32.
+The mix kernels (#1–#14) take f32, f64 or bf16 buffers and raise on any
+other dtype (float16 among them), on the card and on the CPU alike.  They
+do what the reference's Pallas kernels do with each: load and store the
+buffer's dtype and mix in f32, with W and the ELL weights cast to f32 (so
+a float64 buffer, as the paper's linear-regression figures run, launches
+the same kernels; the exact f64 mix is the 'dense' gossip_impl's plain
+product).  W stays f32 for a bf16 buffer too, as the reference's Pallas
+route keeps it, where its 'dense' impl rounds W to bf16 first: the two
+routes differ in bf16, in the reference as here.  The momentum, η, the
+int8 scales and the rounding noise are f32.
 """
 
 from __future__ import annotations
@@ -53,7 +56,8 @@ __all__ = ["gossip_mix", "gossip_mix_tree", "gossip_mix_sparse", "update_mix",
 
 # the mix kernels' buffer dtypes and their codes (feddec::Dtype in
 # csrc/mix_common.cuh)
-_MIX_DTYPES = {torch.float32: 0, torch.float64: 1}
+_MIX_DTYPES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
+_MIX_DTYPE_NAMES = "bfloat16, float32 or float64"
 
 
 def _check_buffer(name: str, t: torch.Tensor, shape: tuple,
@@ -67,9 +71,9 @@ def _check_buffer(name: str, t: torch.Tensor, shape: tuple,
 
 def _weights(name: str, t: torch.Tensor, shape: tuple) -> torch.Tensor:
     """W or an ELL weight table cast to the kernels' f32, as the
-    reference's kernels cast it; f32 and f64 are taken."""
+    reference's kernels cast it; f32, f64 and bf16 are taken."""
     if t.dtype not in _MIX_DTYPES:
-        raise TypeError(f"{name} must be float32 or float64, got {t.dtype}")
+        raise TypeError(f"{name} must be {_MIX_DTYPE_NAMES}, got {t.dtype}")
     _check_buffer(name, t, shape, t.dtype)
     return t.to(torch.float32)
 
@@ -77,14 +81,15 @@ def _weights(name: str, t: torch.Tensor, shape: tuple) -> torch.Tensor:
 def _lattice(x: torch.Tensor, ndim: int,
              name: str = "x") -> tuple[int, int, int, int]:
     """(R, n, D, dtype code) of an (n, D) buffer (R = 1) or an (R, n, D)
-    lattice, f32 or f64."""
+    lattice, f32, f64 or bf16."""
     if x.ndim != ndim:
         raise ValueError(f"{name} must be "
                          f"{'(n, D)' if ndim == 2 else '(R, n, D)'}, got "
                          f"shape {tuple(x.shape)}")
     if x.dtype not in _MIX_DTYPES:
-        raise TypeError(f"{name} must be float32 or float64, got {x.dtype} "
-                        f"(the kernels take the f32 or f64 flat buffer)")
+        raise TypeError(f"{name} must be {_MIX_DTYPE_NAMES}, got {x.dtype} "
+                        f"(the kernels take the bf16, f32 or f64 flat "
+                        f"buffer)")
     r = 1 if ndim == 2 else x.shape[0]
     return r, x.shape[-2], x.shape[-1], _MIX_DTYPES[x.dtype]
 

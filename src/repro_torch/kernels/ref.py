@@ -71,8 +71,11 @@ def local_step(x: torch.Tensor, g: torch.Tensor, m: torch.Tensor | None,
     η is cast to the parameter dtype before the multiply, and the momentum
     step is cast to x's dtype after the f32 update — the reference's rules.
     η holds one value per run, broadcast as (R, 1, 1) over a lattice.
+    A bfloat16 buffer takes :func:`_local_step_bf16`'s rounding.
     """
     eta = eta.reshape((-1,) + (1,) * (x.ndim - 1)).to(x.dtype)
+    if x.dtype == torch.bfloat16:
+        return _local_step_bf16(x, g, m, eta, beta, nesterov)
     if beta is None:
         return x - eta * g, None
     g32 = g.float()
@@ -81,10 +84,51 @@ def local_step(x: torch.Tensor, g: torch.Tensor, m: torch.Tensor | None,
     return x - eta * step.to(x.dtype), new_m
 
 
+def _local_step_bf16(x, g, m, eta, beta, nesterov):
+    """The bf16 step as the reference's kernels compute it under XLA
+    (repro/kernels/update_mix.py:_local_step feeding _dense_mix/_ell_mix):
+    m' = fma(β, m, g) and the nesterov step fma(β, m', g) in f32 (XLA
+    contracts β·m + g), the step rounded to bf16, the product η·step
+    rounded to bf16, and x − η·step left in f32, unrounded, since the mix
+    reads it as f32.  So p is an f32 tensor; the mix rounds y to bf16."""
+    if beta is None:
+        step, new_m = g, None
+    else:
+        g32 = g.float()
+        new_m = _fma32(beta, m, g32)
+        step = (_fma32(beta, new_m, g32) if nesterov else new_m).to(x.dtype)
+    return x.float().sub_((eta * step).float()), new_m
+
+
+_FMA_CHUNK = 1 << 24
+
+
+def _fma32(a: float, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """fma(f32(a), b, c) over f32 tensors, rounded once to f32.
+
+    The product is exact in f64; the f64 sum is rounded to odd (its last
+    bit set where the sum was inexact), after which rounding to f32 gives
+    the correctly rounded fma (53 ≥ 2·24 + 2 bits).  Flat chunks of
+    ``_FMA_CHUNK`` elements bound the f64 temporaries."""
+    a64 = float(torch.tensor(a, dtype=torch.float32))
+    out = torch.empty_like(b)
+    bf, cf, of = b.reshape(-1), c.reshape(-1), out.view(-1)
+    for lo in range(0, bf.numel(), _FMA_CHUNK):
+        prod = bf[lo:lo + _FMA_CHUNK].double().mul_(a64)
+        cc = cf[lo:lo + _FMA_CHUNK].double()
+        s = prod + cc
+        bb = s - prod                               # TwoSum's error term
+        err = (prod - (s - bb)).add_(cc - bb)
+        even = (s.view(torch.int64) & 1) == 0
+        odd = torch.nextafter(s, torch.where(err > 0, torch.inf, -torch.inf))
+        of[lo:lo + _FMA_CHUNK] = torch.where((err != 0) & even, odd, s)
+    return out
+
+
 def update_mix(w, x, g, eta, m=None, *, beta=None, nesterov=False):
     """y = W @ local_step(x, g); returns y, or (y, new_m) under momentum."""
     p, new_m = local_step(x, g, m, eta, beta, nesterov)
-    y = gossip_mix(w, p)
+    y = gossip_mix(w, p).to(x.dtype)
     return y if beta is None else (y, new_m)
 
 
@@ -92,7 +136,7 @@ def update_mix_sparse(nbr, wv, wd, x, g, eta, m=None, *, beta=None,
                       nesterov=False):
     """The fused step with the ELL mix in place of W @."""
     p, new_m = local_step(x, g, m, eta, beta, nesterov)
-    y = gossip_mix_sparse(nbr, wv, wd, p)
+    y = gossip_mix_sparse(nbr, wv, wd, p).to(x.dtype)
     return y if beta is None else (y, new_m)
 
 

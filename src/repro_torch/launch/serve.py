@@ -46,7 +46,7 @@ import time
 import torch
 
 from repro_torch.checkpoint import load_checkpoint
-from repro_torch.configs import ARCH_NAMES, NOT_PORTED_ARCHS, get_config
+from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.core.draws import Draws
 from repro_torch.launch.specs import concrete_batch
 from repro_torch.launch.train import resolve_device
@@ -196,8 +196,7 @@ def load_agent_params(ckpt_dir: str, agent: int = 0, device="cuda") -> dict:
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--arch", default="qwen1.5-4b",
-                   help=f"a ported config: {', '.join(ARCH_NAMES)} (not "
-                        f"ported yet: {', '.join(NOT_PORTED_ARCHS)})")
+                   help=f"a ported config: {', '.join(ARCH_NAMES)}")
     p.add_argument("--smoke", action="store_true", default=True)
     p.add_argument("--batch", type=int, default=4)
     p.add_argument("--prompt-len", type=int, default=16)
@@ -209,9 +208,8 @@ def main(argv=None) -> None:
                    help="cuda (default) or cpu")
     args = p.parse_args(argv)
     if args.arch not in ARCH_NAMES:
-        p.error(f"not ported to repro_torch yet: --arch {args.arch} "
-                f"(ported: {', '.join(ARCH_NAMES)}; not yet: "
-                f"{', '.join(NOT_PORTED_ARCHS)})")
+        p.error(f"unknown --arch {args.arch!r}; choose from "
+                f"{', '.join(ARCH_NAMES)}")
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)

@@ -50,7 +50,7 @@ import torch
 
 from repro_torch import optim
 from repro_torch.checkpoint import require_codecs, save_checkpoint
-from repro_torch.configs import ARCH_NAMES, NOT_PORTED_ARCHS, get_config
+from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.configs.base import ArchConfig, FedConfig
 from repro_torch.core import feddec
 from repro_torch.core import flat as flat_lib
@@ -479,8 +479,7 @@ def main(argv=None) -> None:
     p.add_argument("--arch", default="tiny",
                    help=f"'tiny' (the ~157M dense LM) or a ported config: "
                         f"{', '.join(trained)} (not trained by this CLI: "
-                        f"{', '.join(_NOT_TRAINABLE)}; not ported yet: "
-                        f"{', '.join(NOT_PORTED_ARCHS)})")
+                        f"{', '.join(_NOT_TRAINABLE)})")
     p.add_argument("--smoke", action="store_true",
                    help="use the reduced smoke variant of --arch")
     p.add_argument("--steps", type=int, default=100)
@@ -574,12 +573,11 @@ def main(argv=None) -> None:
                    help="cuda (default) or cpu")
     args = p.parse_args(argv)
 
+    if args.arch not in ARCH_NAMES:
+        p.error(f"unknown --arch {args.arch!r}; choose from "
+                f"{', '.join(ARCH_NAMES)}")
     rejected = [flag for flag in _NOT_PORTED
                 if getattr(args, flag[2:].replace("-", "_")) is not None]
-    if args.arch not in ARCH_NAMES:
-        rejected.append(f"--arch {args.arch} (ported: "
-                        f"{', '.join(ARCH_NAMES)}; not yet: "
-                        f"{', '.join(NOT_PORTED_ARCHS)})")
     if rejected:
         p.error(f"not ported to repro_torch yet: {', '.join(rejected)} "
                 f"(see ROADMAP.md; the JAX package repro has them)")

@@ -105,12 +105,13 @@ def moe_layer(params: dict, x: torch.Tensor, cfg: MoEConfig, *,
                       device=x.device).index_add(0, slot, contrib)
 
     # ---- the experts (batched over E; swiglu) ------------------------------
+    # each weight cast where it is used, so that under inference one cast
+    # expert tensor is alive at a time (DeepSeek-V3's is 15 GB in f32)
     buf = buf.view(e, c, d)
-    wi = params["wi"]["w"].to(compute_dtype)
-    wg = params["wg"]["w"].to(compute_dtype)
-    wo = params["wo"]["w"].to(compute_dtype)
-    h = F.silu(torch.bmm(buf, wg)) * torch.bmm(buf, wi)
-    expert_out = torch.bmm(h, wo).view(e * c, d)              # (E·C, d)
+    h = F.silu(torch.bmm(buf, params["wg"]["w"].to(compute_dtype)))
+    h = h * torch.bmm(buf, params["wi"]["w"].to(compute_dtype))
+    expert_out = torch.bmm(h, params["wo"]["w"].to(compute_dtype)).view(
+        e * c, d)                                             # (E·C, d)
 
     # ---- combine ----------------------------------------------------------
     gathered = torch.where(keep[:, None],

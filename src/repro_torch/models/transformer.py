@@ -210,7 +210,13 @@ def _init_group(draws, cfg: ArchConfig, layer_idx: int, n_groups: int,
     """n_groups blocks of the unit's layer ``layer_idx``, drawn one after
     another, stacked: each leaf allocated once with its group axis on the
     first block and filled group by group, every block dropped once it
-    is copied in, so the peak is the stack's bytes plus one block."""
+    is copied in, so the peak is the stack's bytes plus one block.  One
+    group is its block's leaves viewed with a group axis, not copied, so
+    the peak is the weights plus the largest leaf's f32 draw (a bf16
+    leaf is drawn in f32 and cast)."""
+    if n_groups == 1:
+        return tree_map(lambda leaf: leaf[None],
+                        init_block(draws, cfg, layer_idx, cross))
     stacked = None
     for g in range(n_groups):
         block = init_block(draws, cfg, layer_idx, cross)

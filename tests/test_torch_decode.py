@@ -49,7 +49,8 @@ from repro_torch.tree import sorted_leaves
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 TOL = 1e-5
 MODELS = ["qwen1.5-4b", "recurrentgemma-9b", "mamba2-2.7b", "gemma3-12b",
-          "nemotron-4-15b", "deepseek-v2-lite-16b"]
+          "nemotron-4-15b", "deepseek-v2-lite-16b", "mistral-large-123b",
+          "deepseek-v3-671b"]
 
 
 def _close(got, want, tol=TOL, msg=""):
@@ -278,7 +279,11 @@ DECODE_CASES = [("qwen1.5-4b", 16, 6, False), ("qwen1.5-4b", 4, 8, True),
                 ("deepseek-v2-lite-16b", 8, 6, False),
                 ("deepseek-v2-lite-16b", 4, 8, True),
                 ("nemotron-4-15b", 8, 6, False),
-                ("gemma3-12b", 4, 8, False)]
+                ("gemma3-12b", 4, 8, False),
+                ("mistral-large-123b", 8, 6, False),
+                ("mistral-large-123b", 4, 8, True),
+                ("deepseek-v3-671b", 8, 6, False),
+                ("deepseek-v3-671b", 4, 8, True)]
 
 
 @pytest.mark.parametrize("name,cache_len,steps,long_variant", DECODE_CASES)

@@ -239,6 +239,20 @@ def test_server_round_matches_reference():
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_server_round_in_column_blocks_matches_one_block(monkeypatch, dtype):
+    """A buffer wider than one block (ragged last block) is contracted
+    block by block into what one contraction of the whole gives."""
+    rng = np.random.default_rng(4)
+    flat = torch.from_numpy(rng.standard_normal((6, 333))).to(dtype)
+    weights = torch.tensor([0.5, 0.0, 0.25, 0.0, 0.25, 0.0])
+    want = server.aggregate_and_broadcast_flat(weights, flat.clone())
+    monkeypatch.setattr(server, "_SERVER_COLS", 64)
+    got = server.aggregate_and_broadcast_flat(weights, flat.clone())
+    assert torch.equal(got, want)
+    assert torch.equal(got, want[:1].expand_as(want))
+
+
 @pytest.mark.parametrize("kind", ["ring", "star"])
 def test_sparse_gossip_matches_reference_plain_mix(kind):
     ref_graph, graph = _graphs(kind)

@@ -664,6 +664,137 @@ def test_cuda_f64_engine_launches_the_kernels(cuda, impl, fused):
 
 
 # ---------------------------------------------------------------------------
+# The mix kernels (#1–#14) on bfloat16 buffers
+# ---------------------------------------------------------------------------
+
+# the small path's vector rows (n 8, D % 4 == 0: 8-byte accesses of four
+# bf16), its scalar ragged edge (D ≡ 3 mod 4), a ragged D at n 5 and the
+# general path (n 13)
+BF16_SHAPES = [(8, 4096), (8, 4099), (5, 1000003), (13, 3001)]
+BF16_STEPS = {"sgd": None, "momentum": False, "nesterov": True}
+# × max|y|: the f32 sums of kernel and plain version differ in order, which
+# moves a bf16 rounding of y by one ulp (2^-7·max|y| at the top); the EF
+# kernels (#9–#12) round the mix to bf16 before the correction, so the
+# two roundings may each move an ulp
+BF16_TOL = 2.0 ** -7
+BF16_EF_TOL = 2.0 ** -6
+# the share of y's elements that may differ at all: a kernel that rounds
+# where the plain version rounds parts from it only where the two f32
+# sums straddle a bf16 rounding boundary, which is rare; one that rounds
+# elsewhere (x − η·g in bf16 before the mix) moves about 40% of them
+BF16_Y_SHARE = 1e-3
+
+
+def _bf16_cells():
+    for kernel in MIX_KERNELS:
+        for step in (BF16_STEPS if kernel.startswith("update") else (None,)):
+            yield kernel, step
+
+
+def _bf16_inputs(cuda, kernel: str, n: int, d: int,
+                 misaligned: bool = False) -> dict:
+    """bf16 buffers (one element past an 8-byte boundary when
+    ``misaligned``), an f32 W, the f32 momentum, noise and int8 scales."""
+    t = _f64_inputs(cuda, kernel, n, d)
+    for k in ("x", "g", "p", "s", "u"):
+        t[k] = _misaligned(t[k].to(torch.bfloat16), misaligned)
+    t["w"] = t["w"].float()
+    if kernel == "quant_mix":  # the scales of the bf16 u
+        t["scale"] = (t["u"].float().abs().amax(-1) / 127.0)
+    return t
+
+
+def _bf16_call(mod, kernel: str, t: dict, step):
+    """_f64_call with the momentum or nesterov step of ``step``."""
+    if step in (None, "sgd"):
+        return _f64_call(mod, kernel, t, None)
+    if kernel.startswith("update") and not BF16_STEPS[step]:
+        ell = "sparse" in kernel
+        return mod.__dict__[kernel](*((t["nbr"], t["wv"], t["wd"]) if ell
+                                      else (t["w"],)), t["x"], t["g"],
+                                    t["eta"], t["m"], beta=0.9,
+                                    nesterov=False)
+    return _f64_call(mod, kernel, t, 0.9)
+
+
+def _assert_bf16_matches(kernel: str, t: dict, step) -> None:
+    """The bf16 kernel launches (counted once) and its y lies within
+    BF16_TOL·max|y| of the plain version's (BF16_EF_TOL for #9–#12), and
+    differs in at most BF16_Y_SHARE of its elements; m' (f32), the
+    residual (bf16) and the int8 payload are equal."""
+    ops.reset_launch_counts()
+    got = _bf16_call(ops, kernel, t, step)
+    assert ops.launch_counts()[kernel] == 1
+    want = _bf16_call(ref, kernel, t, step)
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    assert got[0].dtype == torch.bfloat16
+    tol = BF16_EF_TOL if kernel.startswith("ef_mix") else BF16_TOL
+    err = (got[0].float() - want[0].float()).abs().max().item()
+    assert err <= tol * want[0].float().abs().max().item()
+    share = got[0].ne(want[0]).float().mean().item()
+    assert share <= BF16_Y_SHARE, share
+    for a, b in zip(got[1:], want[1:]):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,d", BF16_SHAPES)
+@pytest.mark.parametrize("kernel,step", list(_bf16_cells()), ids=[
+    k if s is None else f"{k}-{s}" for k, s in _bf16_cells()])
+def test_cuda_bf16_mix_kernel_matches_plain_version(cuda, n, d, kernel,
+                                                    step):
+    _assert_bf16_matches(kernel, _bf16_inputs(cuda, kernel, n, d), step)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel,step", list(_bf16_cells()), ids=[
+    k if s is None else f"{k}-{s}" for k, s in _bf16_cells()])
+def test_cuda_bf16_mix_kernel_on_misaligned_buffers(cuda, kernel, step):
+    """bf16 buffers one element (2 bytes) past an 8-byte boundary, D a
+    multiple of 4: the masked scalar accesses, and the same results."""
+    t = _bf16_inputs(cuda, kernel, 8, 4096, misaligned=True)
+    assert t["x"].data_ptr() % 8 == 2
+    _assert_bf16_matches(kernel, t, step)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["gossip_mix_batched",
+                                    "gossip_mix_sparse_batched",
+                                    "update_mix_batched",
+                                    "update_mix_sparse_batched"]
+                         + BATCHED_EF_KERNELS)
+@pytest.mark.parametrize("n,d", [(8, 4096), (13, 3001)])
+def test_cuda_bf16_batched_slice_is_the_single_run_kernel(cuda, kernel, n,
+                                                          d):
+    """Each run's slice of a bf16 batched kernel equals the single-run
+    kernel on that slice, bit for bit (the update kernels in sgd)."""
+    t = _bf16_inputs(cuda, kernel, n, d)
+    got = _bf16_call(ops, kernel, t, None)
+    got = got if isinstance(got, tuple) else (got,)
+    single = kernel.replace("_batched", "")
+    for i in range(got[0].shape[0]):
+        ti = {k: v[i] if isinstance(v, torch.Tensor) and k != "eta"
+              else v for k, v in t.items()}
+        ti["eta"] = t["eta"][i:i + 1]
+        one = _bf16_call(ops, single, ti, None)
+        one = one if isinstance(one, tuple) else (one,)
+        for a, b in zip(got, one):
+            assert torch.equal(a[i], b)
+
+
+@pytest.mark.gpu
+def test_cuda_mix_kernels_refuse_float16(cuda):
+    """float16 stays refused on the card, as on the CPU."""
+    t = _bf16_inputs(cuda, "update_mix", 8, 4096)
+    with pytest.raises(TypeError, match="bfloat16, float32 or float64"):
+        ops.gossip_mix(t["w"], t["x"].half())
+    with pytest.raises(TypeError):
+        ops.update_mix(t["w"], t["x"].half(), t["g"].half(), t["eta"])
+
+
+# ---------------------------------------------------------------------------
 # The model zoo's prefill: #15 flash attention, #16 SSD scan, #17 RG-LRU scan
 # ---------------------------------------------------------------------------
 

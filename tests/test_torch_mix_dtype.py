@@ -24,6 +24,8 @@ same worker.
 
 from __future__ import annotations
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -50,7 +52,7 @@ N, D = 20, 25
 TOL = 1e-14                     # × max|y|: f64, other summation order
 TOL_MM = 1e-6                   # × max|y|: an f32 sum, other rounding
 X_SCALE = 2.0 ** 20             # fig4's c_20 = 2^20 heterogeneity
-F64, F32 = torch.float64, torch.float32
+F64, F32, BF16 = torch.float64, torch.float32, torch.bfloat16
 JNP = {F64: jnp.float64, F32: jnp.float32}
 
 
@@ -202,9 +204,12 @@ MIX_KERNELS = ["gossip_mix", "gossip_mix_sparse", "update_mix",
                "ef_mix_batched", "ef_mix_sparse_batched", "quant_mix",
                "dequant_mix"]
 R = 2
+# the buffers a kernel loads and stores in the buffer's dtype (bf16 when
+# the inputs carry "bf16"; W, η, m, the noise and the scales stay f32)
+BUFFERS = ("x", "g", "p", "s", "u")
 
 
-def _kernel_inputs(batched: bool):
+def _kernel_inputs(batched: bool, d: int = D):
     rng = np.random.default_rng(7)
     lead = (R,) if batched else ()
     graphs = [_graphs("geo", seed)[1] for seed in (1, 2)][:R if batched
@@ -213,21 +218,23 @@ def _kernel_inputs(batched: bool):
     t = {"w": w if batched else w[0],
          "graphs": graphs,
          "eta": np.array([0.05, 0.02][:R if batched else 1], np.float32)}
-    for name in ("x", "g", "p", "s", "u"):
-        t[name] = rng.standard_normal(lead + (N, D)) * X_SCALE
-    t["m"] = rng.standard_normal(lead + (N, D)).astype(np.float32)
-    t["noise"] = rng.random((N, D), dtype=np.float32)
+    for name in BUFFERS:
+        t[name] = rng.standard_normal(lead + (N, d)) * X_SCALE
+    t["m"] = rng.standard_normal(lead + (N, d)).astype(np.float32)
+    t["noise"] = rng.random((N, d), dtype=np.float32)
     t["scale"] = (np.abs(t["u"]).max(axis=-1) / 127.0).astype(np.float32) \
         if not batched else None
-    t["q"] = rng.integers(-127, 128, (N, D)).astype(np.int8)
+    t["q"] = rng.integers(-127, 128, (N, d)).astype(np.int8)
     return t
 
 
-def _port_kernel(kernel: str, t: dict, beta):
-    tt = {k: torch.from_numpy(v) for k, v in t.items()
+def _port_kernel(kernel: str, t: dict, beta, nesterov: bool = True):
+    bf16 = t.get("bf16", False)
+    tt = {k: torch.from_numpy(v).to(BF16) if bf16 and k in BUFFERS
+          else torch.from_numpy(v) for k, v in t.items()
           if isinstance(v, np.ndarray)}
     batched = kernel.endswith("_batched")
-    kw = {} if beta is None else {"beta": beta, "nesterov": True}
+    kw = {} if beta is None else {"beta": beta, "nesterov": nesterov}
     m = None if beta is None else tt["m"]
     if "sparse" in kernel:
         g = t["graphs"]
@@ -259,11 +266,13 @@ def _port_kernel(kernel: str, t: dict, beta):
     return fn(tt["w"], tt["x"])
 
 
-def _ref_kernel(kernel: str, t: dict, beta):
-    j = {k: jnp.asarray(v) for k, v in t.items()
+def _ref_kernel(kernel: str, t: dict, beta, nesterov: bool = True):
+    bf16 = t.get("bf16", False)
+    j = {k: jnp.asarray(v, jnp.bfloat16) if bf16 and k in BUFFERS
+         else jnp.asarray(v) for k, v in t.items()
          if isinstance(v, np.ndarray)}
     batched = kernel.endswith("_batched")
-    kw = {} if beta is None else {"beta": beta, "nesterov": True}
+    kw = {} if beta is None else {"beta": beta, "nesterov": nesterov}
     m = None if beta is None else j["m"]
     ref_graphs = [ref_topo.Graph(g.adjacency) for g in t["graphs"]]
     eta = j["eta"] if batched else j["eta"][0]
@@ -321,6 +330,101 @@ def test_f64_mix_kernels_match_the_reference_kernels(kernel, beta):
         np.testing.assert_array_equal(g_.numpy(), np.asarray(w_))
 
 
+def _bf16_kernel_inputs(batched: bool):
+    """The f64 cells' inputs at D 1000 (ragged for every tile), the
+    buffers unscaled and rounded to bf16 (held as f32 numpy, exactly
+    representable), W and the scales in f32."""
+    t = _kernel_inputs(batched, d=1000)
+    for name in BUFFERS:
+        t[name] = np.array(jnp.asarray(t[name] / X_SCALE, jnp.bfloat16)
+                           .astype(jnp.float32))
+    t["w"] = t["w"].astype(np.float32)
+    if not batched:
+        t["scale"] = (np.abs(t["u"]).max(axis=-1) / 127.0).astype(np.float32)
+    t["bf16"] = True
+    return t
+
+
+def _bf16_cells():
+    for kernel in MIX_KERNELS:
+        steps = ("sgd", "momentum", "nesterov") if kernel.startswith(
+            "update") else (None,)
+        for step in steps:
+            yield kernel, step
+
+
+@pytest.mark.parametrize("kernel,step", list(_bf16_cells()), ids=[
+    k if s is None else f"{k}-{s}" for k, s in _bf16_cells()])
+def test_bf16_mix_kernels_match_the_reference_kernels(kernel, step):
+    """A bf16 buffer through every mix kernel's plain version against the
+    reference's Pallas kernel (interpret mode).  m', the EF residual and
+    the int8 payload equal the reference's element for element.  y does
+    too, but for at most 1e-3 of its elements, each within 2^-7·max|y|
+    (one bf16 ulp at the top): the ELL and int8 mixes sum in f32 in
+    another order than XLA's (contracted multiply-adds; the f64 cells
+    hold them to 1e-6), which moves a bf16 rounding only where the f32
+    sum lies within an f32 ulp of a bf16 tie (an EF correction that
+    cancels its mix keeps the mix's ulp).  The fused update follows XLA's rounding of
+    the reference's kernel body: η·step rounded to bf16, x − η·step kept
+    in f32 for the mix, β·m + g a fused multiply-add.  Its sgd, momentum
+    and nesterov cells fail on an op-by-op bf16 step (x − η·g rounded to
+    bf16 before the mix), which is one bf16 ulp off in about 40% of y's
+    elements."""
+    t = _bf16_kernel_inputs(kernel.endswith("_batched"))
+    beta = None if step in (None, "sgd") else 0.9
+    nesterov = step == "nesterov"
+    want = _ref_kernel(kernel, t, beta, nesterov)
+    got = _port_kernel(kernel, t, beta, nesterov)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    assert len(got) == len(want)
+    for g_, w_ in zip(got, want):
+        assert g_.dtype == {jnp.bfloat16: BF16, jnp.float32: F32,
+                            jnp.int8: torch.int8}[w_.dtype.type]
+    _assert_bf16_within_an_ulp(got[0], want[0])
+    for g_, w_ in zip(got[1:], want[1:]):
+        np.testing.assert_array_equal(g_.float().numpy(),
+                                      np.asarray(w_.astype(jnp.float32)))
+
+
+BF16_ULP_SHARE = 1e-3   # y's elements allowed one bf16 ulp off
+
+
+def _assert_bf16_within_an_ulp(got: torch.Tensor, want) -> None:
+    """got equals want but for at most ``BF16_ULP_SHARE`` of its elements,
+    each within 2^-7·max|want|."""
+    assert got.dtype == BF16
+    a, b = got.float().numpy(), np.asarray(want.astype(jnp.float32))
+    off = a != b
+    assert np.abs(a - b).max() <= 2.0 ** -7 * np.abs(b).max()
+    assert off.mean() <= BF16_ULP_SHARE, off.mean()
+
+
+def test_bf16_pallas_and_dense_round_w_differently_like_the_reference():
+    """'pallas' (kernel #1) mixes a bf16 buffer with W in f32, 'dense'
+    with W rounded to bf16 first (repro/core/engine.py:157 against
+    repro/kernels/ops.py:199): on ring2's Metropolis W (0.2, 0.2002 in
+    bf16) the two routes part in the reference and in the port alike,
+    and each port route equals its reference counterpart exactly."""
+    g, w, x = _ring2_bf16((8, 4096))
+    xj, xt = _bf16_pair(x)
+    wj, wt = jnp.asarray(w), torch.from_numpy(w)
+    got, want = {}, {}
+    for impl in ("dense", "pallas"):
+        rcfg = RefFedDecConfig(mixing=RefMixing(g, scheme="metropolis"),
+                               gossip_impl=impl)
+        cfg = FedDecConfig(mixing=MixingDistribution(
+            topo.Graph(g.adjacency), scheme="metropolis"), gossip_impl=impl)
+        want[impl] = ref_engine.resolve_gossip(rcfg, "flat")(wj, xj)
+        got[impl] = engine.resolve_gossip(cfg, "flat")(wt, xt)
+        _assert_bf16_equal(got[impl], want[impl])
+    parted = (got["dense"] != got["pallas"]).float().mean().item()
+    ref_parted = float(np.mean(np.asarray(want["dense"].astype(jnp.float32))
+                               != np.asarray(want["pallas"].astype(
+                                   jnp.float32))))
+    assert parted == ref_parted > 0.05
+
+
 def test_the_mix_kernels_take_f32_and_f64_only():
     x = torch.from_numpy(_x((N, D)))
     w = torch.eye(N, dtype=F64)
@@ -354,7 +458,6 @@ def test_the_plain_stacked_ell_follows_the_buffer_dtype():
 
 # -- bf16 buffers: W rounded to the buffer's dtype first --------------------
 
-BF16 = torch.bfloat16
 # the ROADMAP measurement's (8, 4096) leaf, a stacked (8, 3, 5) leaf and
 # a one-column one
 BF16_SHAPES = [(8, 4096), (8, 3, 5), (8, 1)]
@@ -562,3 +665,78 @@ def test_losses_keep_the_loss_dtype():
         assert losses[0].item() == _torch_loss(
             {"b": flat[0, :7], "w": {"k": flat[0, 7:].view(3, 6)}},
             {"tb": batch["tb"][0], "tw": batch["tw"][0]}).item()
+
+
+# -- the flat engine on a bf16 buffer ----------------------------------------
+
+BF16_ENGINE_CELLS = [("pallas", False, None), ("pallas", True, None),
+                     ("sparse", False, None), ("sparse", True, None),
+                     ("pallas", True, "momentum"), ("sparse", True,
+                                                    "nesterov")]
+
+
+@pytest.mark.parametrize("impl,fused,opt", BF16_ENGINE_CELLS, ids=[
+    f"{i}{'-fused' if f else ''}{'-' + o if o else ''}"
+    for i, f, o in BF16_ENGINE_CELLS])
+def test_flat_bf16_engine_matches_reference(impl, fused, opt, ref_on_tpu):
+    """Two rounds of H = 3 steps of the quadratic on a bf16 (n, D) buffer
+    with the server, through kernels #1/#2 unfused and #3/#4 fused (their
+    plain versions; the reference's Pallas kernels in interpret mode): η
+    is f32 and cast to bf16 before the multiply, the momentum slot f32, as
+    the reference's dtype rules have it.  The buffers stay bf16 and end
+    equal to the reference's element for element (tolerance 0.0, measured
+    so: at D 25 no f32 sum of the ELL mixes lies at a bf16 tie;
+    test_bf16_mix_kernels_match_the_reference_kernels bounds the rare
+    ones that do).  The bf16 losses, summed in another order, lie within
+    one bf16 step (2^-7 relative; measured one step at 14.1, 4.4e-3)."""
+    from repro.optim import optimizers as ref_optim
+    from repro_torch.optim import optimizers as optim
+    make_opt = {None: (None, None),
+                "momentum": (ref_optim.momentum_sgd(0.9),
+                             optim.momentum_sgd(0.9)),
+                "nesterov": (ref_optim.momentum_sgd(0.9, nesterov=True),
+                             optim.momentum_sgd(0.9, nesterov=True))}[opt]
+    rcfg, cfg = _configs("geo", impl, 0.0, F32, h=H, k=K)
+    flat0 = np.array(jnp.asarray(np.random.default_rng(4).standard_normal(
+        (N, D)), jnp.bfloat16).astype(jnp.float32))
+    key = jax.random.key(11)
+    shapes = jax.tree.map(lambda s: jax.ShapeDtypeStruct(s, jnp.bfloat16),
+                          SHAPES, is_leaf=lambda s: isinstance(s, tuple))
+    ref_spec = ref_flat.make_flat_spec(shapes)
+    rstate = ref_flat.init_flat_state(
+        ref_spec, jax.tree.map(lambda s: jnp.zeros(s.shape, s.dtype), shapes),
+        N, optimizer=make_opt[0])
+    rstate = dataclasses.replace(rstate,
+                                 flat=jnp.asarray(flat0, jnp.bfloat16))
+    round_ref = ref_flat.make_flat_feddec_round(
+        rcfg, ref_spec, _ref_grad_fn, lambda t: jnp.asarray(ETA, jnp.float32),
+        optimizer=make_opt[0], donate=False, fuse_update_mix=fused)
+    params1 = {"b": torch.zeros(7, dtype=BF16),
+               "w": {"k": torch.zeros(3, 6, dtype=BF16)}}
+    spec = flat_lib.make_flat_spec(params1)
+    assert spec.dtype == BF16
+    state = flat_lib.init_flat_state(spec, params1, N,
+                                     optimizer=make_opt[1])
+    state.flat = torch.from_numpy(flat0).to(BF16)
+    eta = torch.tensor([ETA], dtype=F32)
+    round_fn = flat_lib.make_flat_feddec_round(
+        cfg, spec, _torch_grad_fn, lambda t: eta, optimizer=make_opt[1],
+        device="cpu", fuse_update_mix=fused)
+    draws = ReplayDraws(key)
+    rng = np.random.default_rng(3)
+    for _ in range(2):
+        batches = {"tb": rng.standard_normal((H, N, 7)),
+                   "tw": rng.standard_normal((H, N, 3, 6))}
+        rstate, rmet = round_ref(rstate, {k: jnp.asarray(v, jnp.bfloat16)
+                                          for k, v in batches.items()}, key)
+        state, met = round_fn(state, {k: torch.from_numpy(v).to(BF16)
+                                      for k, v in batches.items()}, draws)
+        np.testing.assert_allclose(
+            met["loss"].float().numpy(),
+            np.asarray(rmet["loss"].astype(jnp.float32)), rtol=2.0 ** -7)
+    assert state.flat.dtype == BF16
+    got = state.flat.float().numpy()
+    want = np.asarray(rstate.flat.astype(jnp.float32))
+    np.testing.assert_array_equal(got, want)
+    if opt is not None:
+        assert state.opt_state.dtype == F32

@@ -119,6 +119,33 @@ def test_routing_matches_reference(b, s, capacity):
         assert not keep.all()   # copies drop at this capacity
 
 
+@pytest.mark.parametrize("b,s", [(2, 64), (1, 300)])
+def test_deepseek_v3_routing_at_256_experts_top_8(b, s):
+    """DeepSeek-V3's own router, 256 experts and top-8 (one shared expert,
+    capacity factor 1.25), at narrow widths (d 32, expert d_ff 16): the
+    chosen experts, their weights, the ranks and the kept copies equal
+    the reference's, and so does the layer's output within TOL."""
+    ref_cfg, cfg = _cfgs(num_experts=256, top_k=8, num_shared=1,
+                         capacity_factor=1.25)
+    p, tp = _carried(ref_cfg, seed=b * s)
+    x = _x(b, s, seed=s)
+    c = moe.expert_capacity(b * s, cfg)
+    top_e, weights, rank, keep = _ref_routing(p, x, ref_cfg, c)
+    _, got_e, got_w = moe._route(tp["router"],
+                                 torch.from_numpy(x).reshape(-1, D), 8)
+    got_rank = moe._rank_within_expert(got_e.reshape(-1), 256)
+    np.testing.assert_array_equal(got_e.numpy(), top_e)
+    np.testing.assert_allclose(got_w.numpy(), weights, rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(got_rank.numpy(), rank)
+    np.testing.assert_array_equal((got_rank < c).numpy(), keep)
+    want, want_aux = ref_moe.moe_layer(p, jnp.asarray(x), ref_cfg,
+                                       compute_dtype=jnp.float32)
+    got, aux = moe.moe_layer(tp, torch.from_numpy(x), cfg,
+                             compute_dtype=torch.float32)
+    _close(got, want)
+    assert abs(float(aux) - float(want_aux)) <= TOL * abs(float(want_aux))
+
+
 # ---------------------------------------------------------------------------
 # The layer
 # ---------------------------------------------------------------------------

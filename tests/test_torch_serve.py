@@ -305,3 +305,14 @@ def test_cli_serves_on_the_cpu_and_a_training_checkpoint(tmp_path, capsys):
                            generator=Draws(2, "cpu").generator)
     seqs = generate(build_model(cfg), params, prompt, max_new_tokens=2)
     assert sample == f"[serve] sample: {seqs[0].tolist()}"
+
+
+@pytest.mark.parametrize("arch", ["mistral-large-123b", "deepseek-v3-671b"])
+def test_cli_serves_the_bf16_configs_smoke_variants(capsys, arch):
+    """--arch mistral-large-123b and deepseek-v3-671b serve their smoke
+    variants on the CPU with the reference's CLI lines."""
+    serve.main(["--device", "cpu", "--arch", arch, "--batch", "2",
+                "--prompt-len", "3", "--new-tokens", "2"])
+    out = capsys.readouterr().out.splitlines()
+    assert out[-2].startswith(f"[serve] {arch}-smoke: 2×2 new tokens in ")
+    assert out[-1].startswith("[serve] sample: [")

@@ -45,6 +45,7 @@ from repro.models import build_model as ref_build_model
 from repro_torch.configs.base import FedConfig
 from repro_torch.core import feddec, flat as flat_lib
 from repro_torch.core.draws import Draws
+from repro_torch.launch import serve as port_serve
 from repro_torch.launch import train as port_train
 from repro_torch.tree import leaves
 
@@ -380,21 +381,33 @@ def test_cli_sweep_errors_are_the_reference_messages(case):
 @pytest.mark.parametrize("argv", [
     ["--mesh-agents", "2"], ["--mesh-model", "2"],
     ["--n-total", "64", "--ckpt-dir", "c", "--mesh-agents", "2"],
-    ["--delta", "topk:4", "--n-total", "64", "--mesh-model", "2"],
-    ["--n-total", "64", "--arch", "deepseek-v3-671b"],
-    ["--arch", "mistral-large-123b"]])
+    ["--delta", "topk:4", "--n-total", "64", "--mesh-model", "2"]])
 def test_cli_rejects_what_is_not_ported(argv, capsys):
     """--delta, --ckpt-dir and --n-total are ported; with them, a flag
-    that is not (the mesh flags) is still rejected, as are the
-    architectures not ported yet, before population mode starts; the
-    message names the ids not ported yet."""
+    that is not (the mesh flags) is still rejected, before population
+    mode starts."""
     with pytest.raises(SystemExit) as err:
         port_train.main(["--device", "cpu", *argv])
     assert err.value.code == 2
     err = capsys.readouterr().err
     assert "not ported to repro_torch yet" in err
-    if "--arch" in argv:
-        assert "not yet: deepseek-v3-671b, mistral-large-123b)" in err
+
+
+@pytest.mark.parametrize("cli,argv", [
+    (port_train, ["--n-total", "64", "--arch", "llama-9"]),
+    (port_train, ["--arch", "mistral-large"]),
+    (port_serve, ["--arch", "deepseek-v3"])])
+def test_clis_refuse_an_unknown_arch(cli, argv, capsys):
+    """Every id of the reference's registry is ported (Mistral-Large-123B
+    and DeepSeek-V3-671B last): an unknown id exits 2 before anything
+    runs, naming the ids there are, and nothing as not ported yet."""
+    with pytest.raises(SystemExit) as err:
+        cli.main(["--device", "cpu", *argv])
+    assert err.value.code == 2
+    err = capsys.readouterr().err
+    assert f"unknown --arch {argv[-1]!r}; choose from tiny, " in err
+    assert "mistral-large-123b, deepseek-v3-671b" in err
+    assert "not yet" not in err
 
 
 @pytest.mark.parametrize("argv", [
@@ -517,19 +530,33 @@ def test_flat_adamw_train_loop_returns_the_reference_fedstate(fuse):
                                   np.asarray(ref_state.opt_state["count"]))
 
 
+def _ref_smoke(arch: str, **kw):
+    """The reference's smoke config of ``arch``.  Its replicated agent
+    layout (Mistral-Large-123B's and DeepSeek-V3-671B's) is set to
+    'sharded', so that its train_loop trains ``fed.n_agents`` agents as
+    the port's does: the port has no agent layouts (its trainer takes
+    --agents for every config)."""
+    import dataclasses
+
+    from repro.configs import get_config as ref_get_config
+    return dataclasses.replace(ref_get_config(arch).smoke(),
+                               fed_agent_layout="sharded", **kw)
+
+
 @pytest.mark.parametrize("arch,layout,fused", [
     ("recurrentgemma-9b", "tree", False), ("mamba2-2.7b", "flat", True),
-    ("deepseek-v2-lite-16b", "flat", True)])
+    ("deepseek-v2-lite-16b", "flat", True),
+    ("mistral-large-123b", "flat", True), ("deepseek-v3-671b", "tree",
+                                           False)])
 def test_zoo_smoke_train_loop_matches_reference_losses(arch, layout, fused):
     """The zoo configs' smoke variants train through both trainers (impl
     'xla'), on the tree and the flat engine: 2 steps, losses within 1e-4
-    relative (DeepSeek-V2-Lite's with the MoE aux term, its MoE under the
-    engine's vmap over the agents)."""
-    from repro.configs import get_config as ref_get_config
+    relative (DeepSeek-V2-Lite's and DeepSeek-V3's with the MoE aux term,
+    their MoE under the engine's vmap over the agents)."""
     from repro_torch.configs import get_config
     fed = dict(n_agents=2, h=2, k=2, graph="ring2", gossip_impl="pallas")
     (_, ref_losses), (state, losses) = _ref_and_port(
-        fed, 7, ref_cfg=ref_get_config(arch).smoke(),
+        fed, 7, ref_cfg=_ref_smoke(arch),
         port_cfg=get_config(arch).smoke(), steps=2, fused=fused,
         state_layout=layout)
     assert len(losses) == len(ref_losses) == 2
@@ -539,7 +566,8 @@ def test_zoo_smoke_train_loop_matches_reference_losses(arch, layout, fused):
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-9b", "mamba2-2.7b",
                                   "deepseek-v2-lite-16b", "gemma3-12b",
-                                  "nemotron-4-15b"])
+                                  "nemotron-4-15b", "mistral-large-123b",
+                                  "deepseek-v3-671b"])
 def test_cli_trains_a_zoo_smoke_config_on_cpu(capsys, arch):
     port_train.main(["--device", "cpu", "--steps", "2", "--agents", "2",
                      "--batch", "1", "--seq", "16", "--h", "2", "--arch",

@@ -64,9 +64,10 @@ KERNEL_TOL = 1e-5
 MODEL_TOL = 1e-4
 MODELS = ["tiny", "recurrentgemma-9b", "mamba2-2.7b", "gemma3-12b",
           "nemotron-4-15b", "deepseek-v2-lite-16b", "qwen2-vl-2b",
-          "seamless-m4t-large-v2"]
+          "seamless-m4t-large-v2", "mistral-large-123b", "deepseek-v3-671b"]
 # the models whose forward reaches a kernel under impl='pallas'
-KERNEL_MODELS = [m for m in MODELS if m != "deepseek-v2-lite-16b"]
+KERNEL_MODELS = [m for m in MODELS
+                 if m not in ("deepseek-v2-lite-16b", "deepseek-v3-671b")]
 SEQ = 64   # past the smoke window of 32; four SSD chunks of 16
 ENC_LEN = 24   # encoder frames of the encoder-decoder's batches
 
@@ -505,10 +506,12 @@ def test_grad_fn_with_pallas_raises(name):
         model.grad_fn(impl="pallas")(tparams, tbatch)
 
 
-def test_deepseek_pallas_path_is_the_plain_path():
+@pytest.mark.parametrize("name", ["deepseek-v2-lite-16b",
+                                  "deepseek-v3-671b"])
+def test_deepseek_pallas_path_is_the_plain_path(name):
     """MLA and MoE have no kernel: impl='pallas' is the plain forward and
     differentiates, as the reference's does."""
-    _, _, model, tparams = _carried("deepseek-v2-lite-16b")
+    _, _, model, tparams = _carried(name)
     _, tbatch = _batch(model.cfg, s=32)
     with torch.inference_mode():
         assert torch.equal(model.logits(tparams, tbatch, impl="pallas"),
@@ -523,7 +526,8 @@ def test_deepseek_pallas_path_is_the_plain_path():
 @pytest.mark.parametrize("name", ["recurrentgemma-9b", "mamba2-2.7b",
                                   "gemma3-12b", "nemotron-4-15b",
                                   "deepseek-v2-lite-16b", "qwen2-vl-2b",
-                                  "seamless-m4t-large-v2"])
+                                  "seamless-m4t-large-v2",
+                                  "mistral-large-123b", "deepseek-v3-671b"])
 def test_loss_and_grads_match_reference(name):
     """The training side keeps impl='xla': the new blocks differentiate."""
     ref_model, params, model, tparams = _carried(name)
@@ -544,7 +548,8 @@ def test_loss_and_grads_match_reference(name):
 
 @pytest.mark.parametrize("name", ["recurrentgemma-9b", "mamba2-2.7b",
                                   "gemma3-12b", "nemotron-4-15b",
-                                  "qwen2-vl-2b", "seamless-m4t-large-v2"])
+                                  "qwen2-vl-2b", "seamless-m4t-large-v2",
+                                  "mistral-large-123b"])
 def test_reference_bf16_gap_sets_the_chip_bound(name):
     """The reference's own |pallas − xla| / max|logit| at a bf16-compute
     smoke config: its attention keeps P in f32 on one path and casts it
@@ -556,7 +561,9 @@ def test_reference_bf16_gap_sets_the_chip_bound(name):
     it.  Nemotron-4-15B's (0.0083–0.0108 the same way; this draw 0.0095)
     sets ``chip_smoke.BF16_REF_GAP_NEMOTRON``, Qwen2-VL-2B's (0.0080–
     0.0107; this draw 0.0095) ``BF16_REF_GAP_QWEN2_VL`` and SeamlessM4T-
-    Large-v2's (0.0058–0.0093; this draw 0.0093) ``BF16_REF_GAP_SEAMLESS``.
+    Large-v2's (0.0058–0.0093; this draw 0.0093) ``BF16_REF_GAP_SEAMLESS``
+    and Mistral-Large-123B's (0.0082–0.0095; this draw 0.0082)
+    ``BF16_REF_GAP_MISTRAL``.
     The chip's bound for a full model scales the model's gap by
     2·√(layers / smoke layers)."""
     smoke = _chip_smoke()
