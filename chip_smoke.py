@@ -21,7 +21,10 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
      copy of the same bytes (copy_ms: the card's stream rate);
      then the batched kernels #5–#8 of the sweep lattice the same way, at
      ragged (R, n, D) and at R = 2, n = 8, D = 156,519,168, and each run's
-     slice against the single-run kernel on that slice (to 0.0); then the
+     slice against the single-run kernel on that slice (to 0.0); then
+     (3d) #1 and #5 at the sharded engine's own-block shapes (a strided
+     block of W: #1 at n_local 4, 2 and 1, #5 at R 2 and n_local 4 and 2,
+     D = 156,519,168), timed beside their bounds; then the
      compressed-gossip kernels #9, #11, #13, #14 at the ragged shapes and
      at full shape, y within 1e-5·max|y| and the residual r (#9, #11) and
      the int8 payload q (#13) equal to the plain version's (0.0); then the
@@ -153,13 +156,22 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
      population_cost_model's; and the card's pinned and pageable h2d
      rates beside the model's nominal 16 GB/s.  The stores (10 GB each in
      P2) go to build/population, whose free space is printed first;
-     then (4f) the bf16 configs' training, each with its warm-up round:
-     (M1) Mistral-Large-123B at its published widths with 3 of 88
-     layers, 2 agents, batch 1, S 512, --gossip-impl pallas
-     --fuse-update-mix, #3 once a step on its bf16 (2, 4,957,741,056)
-     buffer; (M2) DeepSeek-V3-671B at its published widths with its 3
-     dense layers (MLA with q_lora_rank 1,536), the same, unfused, #1
-     once a step on its bf16 buffer; after each, its kernel on a random
+     then (4g) the agent-sharded engine (core/sharded.py) in a world of
+     one rank over NCCL: train_loop(mesh_agents=1) on path (a)'s run
+     under dense, pallas (#1 once a step on the (8, 8) own block) and int8
+     pallas (#1 on the decoded s), and path (e)'s R = 2 lattice under
+     pallas (#5 once a step), each held to its phase-4 twin's end state
+     ((a), (a), (i), (e)) within 1e-5·max|x| (int8: 99% of it, every
+     element within one int8 step), with its step time and peak;
+     then (4f) the bf16 configs' training, each with its warm-up round,
+     both with the reference's replicated agent layout (4 agents and 1,
+     whatever --agents says): (M1) Mistral-Large-123B at its published
+     widths with 1 of 88 layers, 4 agents, batch 1, S 512, --gossip-impl
+     pallas --fuse-update-mix, #3 once a step on its bf16 (4,
+     2,189,451,264) buffer; (M2) DeepSeek-V3-671B at its published
+     widths with its 3 dense layers (MLA with q_lora_rank 1,536), 1
+     agent, unfused, #1 once a step on its bf16 (1, 3,603,802,112)
+     buffer; after each, its kernel on a random
      buffer of the path's shape against the plain version, block by
      block, y within one bf16 ulp in at most 1e-3 of its elements;
      then (4b) line 4 as the engines run it, one torch.func.vmap of
@@ -1046,6 +1058,89 @@ def batched_kernel_phase(torch) -> dict:
     torch.cuda.empty_cache()
     ops.reset_launch_counts()
     return results
+
+
+# ---------------------------------------------------------------------------
+# Phase 3d: kernels #1 and #5 at the sharded engine's own-block shapes
+# ---------------------------------------------------------------------------
+
+# core/sharded.py mixes each rank's own block W[rows, rows] @ x_blk through
+# #1 (#5 on a lattice): at the CLI's 8 agents and full width, n_local 4, 2
+# and 1 for 2, 4 and 8 ranks, R 2 on the lattice
+SHARD_BLOCKS = {"gossip_mix": (4, 2, 1), "gossip_mix_batched": (4, 2)}
+
+
+def shard_block_phase(torch) -> dict:
+    """#1 and #5 on shard 1's own block of a random row-stochastic (8, 8)
+    W (an (R, 8, 8) one for #5): the strided view W[..., lo:lo+nl,
+    lo:lo+nl], at D_FULL, against the plain version (TOL·max|y|), timed
+    beside the bound and the library product (torch.mm / torch.bmm, each
+    checked before it is timed).  The rows are variants of the kernels'
+    rows ('shard n_local=...')."""
+    from repro_torch.kernels import ops, ref
+    dev = torch.device(DEVICE)
+    out = {k: {"max_abs_err": 0.0, "variants": {}} for k in SHARD_BLOCKS}
+    for kernel, sizes in SHARD_BLOCKS.items():
+        r = 1 if kernel == "gossip_mix" else R_FULL
+        fn, plain_fn = getattr(ops, kernel), getattr(ref, kernel)
+        lib_fn = torch.mm if r == 1 else torch.bmm
+        for nl in sizes:
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(nl * 7 + r)
+            w = torch.rand((r, N_AGENTS, N_AGENTS), device=dev,
+                           generator=gen)
+            w = w / w.sum(dim=-1, keepdim=True)
+            lo = nl
+            blk = w[0, lo:lo + nl, lo:lo + nl] if r == 1 \
+                else w[:, lo:lo + nl, lo:lo + nl]
+            check(nl == 1 or not blk.is_contiguous(),
+                  f"{kernel} shard n_local={nl}: the block is not a strided "
+                  f"view")
+            x = torch.randn(((r,) if r > 1 else ()) + (nl, D_FULL),
+                            device=dev, generator=gen)
+
+            def run():
+                return fn(blk, x)
+
+            def plain():
+                return plain_fn(blk, x)
+
+            def library():
+                return lib_fn(blk, x)
+
+            got = run()
+            torch.cuda.synchronize()
+            want = plain()
+            err, scale = max_err(torch, got, want)
+            del got
+            where = f"{kernel} shard n_local={nl} R={r} D={D_FULL}"
+            check(err <= TOL * scale, f"{where}: max_abs_err {err:.3e} > "
+                                      f"{TOL}·{scale:.3e}")
+            lib_check = yardstick(torch, library(), want, TOL)
+            del want
+            torch.cuda.empty_cache()
+            ms = time_ms(torch, run)
+            plain_ms = time_ms(torch, plain, iters=3, warmup=1, repeats=1)
+            # the yardstick is timed here only, never called by the port
+            library_ms = time_ms(torch, library) \
+                if lib_check["same_function"] else None
+            bound_ms, bound_by = bound(kernel, "gossip", nl, D_FULL, 0, r=r)
+            out[kernel]["variants"][f"shard n_local={nl}"] = {
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": library_ms, "library_check": lib_check,
+                "share_of_bound": bound_ms / ms, "shape": list(x.shape)}
+            out[kernel]["max_abs_err"] = max(out[kernel]["max_abs_err"], err)
+            log(f"[kernels] {where} (a strided W block): err {err:.3e}  ms "
+                f"{ms:.4f}  bound_ms {bound_ms:.4f} ({bound_by}, "
+                f"{100 * bound_ms / ms:.1f}% of bound)  plain_ms "
+                f"{plain_ms:.4f}  library_ms "
+                f"{'n/a' if library_ms is None else f'{library_ms:.4f}'}"
+                f"{library_note(lib_check)}")
+            del x, w, blk
+            torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    return out
 
 
 def make_compress_inputs(torch, n: int, d: int, seed: int):
@@ -2087,7 +2182,7 @@ def train_path(torch, impl: str, fuse: bool, optimizer: str,
                agents: int = N_AGENTS, batch: int = 2, fused: bool = True,
                layout: str | None = None, delta: str = "none",
                d_model: int = 768, ckpt_dir: str | None = None,
-               seq: int = 128):
+               seq: int = 128, mesh_agents: int | None = None):
     """One run of the trainer; with ``sweep_axis`` the R_FULL-run lattice,
     whose whole (R, n, D) state it returns (else the FedState); ``compress``
     is the gossip codec (--gossip-compress), ``delta`` the delta
@@ -2096,7 +2191,8 @@ def train_path(torch, impl: str, fuse: bool, optimizer: str,
     --smoke), ``fused`` False the one-step executor (--per-step) and
     ``layout`` the state layout (--state-layout; None: the trainer's
     default), ``ckpt_dir`` the checkpoint directory (--ckpt-dir), ``seq``
-    each agent's sequence length (--seq)."""
+    each agent's sequence length (--seq), ``mesh_agents`` the sharded
+    engine's ranks (--mesh-agents; the caller holds the process group)."""
     from repro_torch.configs.base import FedConfig
     from repro_torch.launch import train
     # what earlier phases left to the garbage collector goes first, so
@@ -2112,7 +2208,8 @@ def train_path(torch, impl: str, fuse: bool, optimizer: str,
                   gossip_impl=impl, gossip_compress=compress, delta=delta),
         steps=steps, per_agent_batch=batch, seq_len=seq, optimizer=optimizer,
         fuse_update_mix=fuse, fused=fused, state_layout=layout, seed=0,
-        device=DEVICE, timing=timing, ckpt_dir=ckpt_dir, **sweep)
+        device=DEVICE, timing=timing, ckpt_dir=ckpt_dir,
+        mesh_agents=mesh_agents, **sweep)
     torch.cuda.synchronize()
     return state, losses, timing, torch.cuda.max_memory_allocated()
 
@@ -2210,7 +2307,9 @@ def run_path(torch, name: str, impl: str, fuse: bool, opt: str,
 
 
 def training_phase(torch) -> tuple:
-    out = {}
+    """Phase 4's paths; returns their rows, path (a)'s final buffer and
+    the finals that phase 4g holds its paths to (on the host)."""
+    out, finals = {}, {}
     for name, (impl, fuse, opt, kernel) in PATHS.items():
         state, out[name] = run_path(torch, name, impl, fuse, opt, kernel)
         if name == "a":
@@ -2229,6 +2328,7 @@ def training_phase(torch) -> tuple:
                                     **kw)
         if name == "e":
             out["e_dense"] = dense_rerun(torch, "e", state.flat, **kw)
+            finals["e"] = state.flat.cpu()   # phase 4g's twin
         del state
         torch.cuda.empty_cache()
     for name, (impl, fuse, opt, codec, kernel) in COMPRESS_PATHS.items():
@@ -2236,6 +2336,9 @@ def training_phase(torch) -> tuple:
                                     compress=codec)
         check_residual(torch, name, state, out[name],
                        *(("a", a_final) if name == "l" else ()))
+        if name == "i":   # phase 4g's twin
+            finals["i"] = flat_of(torch, state).cpu()
+            finals["i_residual_max"] = out[name]["residual_max_abs"]
         del state
         torch.cuda.empty_cache()
     for name, (axis, graph, impl, fuse, opt, codec, kernel) in \
@@ -2255,7 +2358,8 @@ def training_phase(torch) -> tuple:
         check_residual(torch, name, state, out[name], *twin)
         del state
         torch.cuda.empty_cache()
-    return out, a_final
+    finals["a"] = a_final
+    return out, a_final, finals
 
 
 def check_residual(torch, name: str, state, out: dict, twin: str = "",
@@ -2282,23 +2386,108 @@ def check_residual(torch, name: str, state, out: dict, twin: str = "",
 
 
 # ---------------------------------------------------------------------------
+# Phase 4g: the agent-sharded engine (core/sharded.py) on the card
+# ---------------------------------------------------------------------------
+
+# path -> (gossip impl, codec, sweep axis, the kernel it launches once a
+# step, the phase-4 path whose end state it must equal): the CLI's default
+# run (the tiny LM at full width, 8 agents, ring2, H 10, K 2, 10 steps)
+# through train_loop(mesh_agents=1) in a world of one rank over NCCL.
+# One shard mixes with no collective; the server's and the loss's
+# all-reduce are skipped as well (core/sharded.py).
+SHARDED_PATHS = {
+    "s1": ("dense", "none", None, None, "a"),
+    "s2": ("pallas", "none", None, "gossip_mix", "a"),
+    "s3": ("pallas", "int8", None, "gossip_mix", "i"),
+    "s4": ("pallas", "none", "h", "gossip_mix_batched", "e"),
+}
+
+
+def sharded_phase(torch, finals: dict) -> dict:
+    """Each path of SHARDED_PATHS through run_path (a warm-up, then the
+    timed run with the counters set to 0 just before it: its kernel once a
+    step, nothing else) in a world of one rank over NCCL (a private
+    FileStore under build/), its end state held to its flat twin's
+    (``finals``, kept on the host by training_phase): within TOL·max|x|,
+    and for the lossy int8 codec as tests/test_torch_sharded.py holds it
+    (99% of the elements within TOL·max|x|, every one within one int8
+    step 2·(max|x| + max|e|)/127: two mixes summed in other orders may
+    round a borderline element of u to either side)."""
+    import os
+
+    import torch.distributed as dist
+    store = ROOT / "build" / f"sharded_store_{os.getpid()}"
+    store.parent.mkdir(exist_ok=True)
+    if store.exists():
+        store.unlink()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1),
+                            rank=0, world_size=1)
+    out = {}
+    try:
+        for name, (impl, codec, axis, kernel, twin) in \
+                SHARDED_PATHS.items():
+            kw = dict(compress=codec, mesh_agents=1)
+            if axis is not None:
+                kw.update(sweep_axis=axis)
+            state, out[name] = run_path(torch, name, impl, False, "sgd",
+                                        kernel, **kw)
+            final = flat_of(torch, state)
+            ref = finals[twin].to(final.device)
+            err = torch.sub(final, ref).abs_()
+            scale = ref.abs().max().item()
+            diff = err.max().item()
+            row = {"twin": twin, "max_abs_diff": diff, "scale": scale,
+                   "tol": TOL}
+            if codec == "int8":
+                step = 2.0 * (scale + finals["i_residual_max"]) / 127.0
+                share = (err > TOL * scale).float().mean().item()
+                row.update(share_beyond_tol=share, int8_step=step)
+                check(share <= 0.01 and diff <= step,
+                      f"path ({name}): {share:.3e} of the buffer beyond "
+                      f"{TOL}·max|x| of path ({twin}), max {diff:.3e} (one "
+                      f"int8 step {step:.3e})")
+                note = f", {share:.3e} of it beyond {TOL}·max|x|"
+            else:
+                check(diff <= TOL * scale,
+                      f"path ({name}) ends {diff:.3e} from path ({twin}) > "
+                      f"{TOL}·{scale:.3e}")
+                note = ""
+            out[name].update(row)
+            log(f"[sharded] path ({name}) gossip={impl} compress={codec}"
+                + (f" sweep={axis}" if axis else "")
+                + f" on one NCCL rank: step {out[name]['step_ms']:.1f} ms, "
+                f"peak {out[name]['peak_bytes'] / 1e9:.2f} GB, ends "
+                f"{diff:.3e} from path ({twin}) (max|x| {scale:.3e}{note})")
+            del state, final, ref, err
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 4f: the bf16 configs' training paths (bf16 flat buffers)
 # ---------------------------------------------------------------------------
 
 # path -> (gossip impl, fuse, optimizer, the kernel it launches once a
-# step, train_path's options): (M1) Mistral-Large-123B at its published
-# widths with 3 of its 88 layers (4,957,741,056 parameters, a 9.92 GB bf16
-# row; at 2 layers the card's peak was 42.92 GB, so 4 layers, 6.34e9
-# parameters, would need about 76 GB), fused sgd, #3 in bf16; (M2)
-# DeepSeek-V3-671B with its 3 leading dense layers (3,603,802,112
-# parameters; an MoE layer is 23.0 GB of bf16 weights a row, and two rows
-# with their gradients pass 80 GB), #1 in bf16.  2 agents, batch 1, S 512.
+# step, train_path's options).  Both configs have the reference's
+# replicated agent layout: the trainer trains fed_n_agents_replicated of
+# them whatever --agents says (sharding.n_agents_for), 4 for Mistral and 1
+# for DeepSeek-V3, and ``agents`` below says so.  (M1) Mistral-Large-123B
+# at its published widths with 1 of its 88 layers (2,189,451,264
+# parameters, a 4.38 GB bf16 row; 4 rows at 2 layers would need about
+# 80 GB by the 2-row peaks of 42.92 GB at 2 layers and 59.53 GB at 3),
+# fused sgd, #3 in bf16; (M2) DeepSeek-V3-671B with its 3 leading dense
+# layers (3,603,802,112 parameters; an MoE layer is 23.0 GB of bf16
+# weights a row), one row, #1 in bf16.  Batch 1, S 512.
 BF16_PATHS = {
     "M1": ("pallas", True, "sgd", "update_mix",
-           dict(arch="mistral-large-123b", layers=3, agents=2, batch=1,
+           dict(arch="mistral-large-123b", layers=1, agents=4, batch=1,
                 seq=512)),
     "M2": ("pallas", False, "sgd", "gossip_mix",
-           dict(arch="deepseek-v3-671b", layers=3, agents=2, batch=1,
+           dict(arch="deepseek-v3-671b", layers=3, agents=1, batch=1,
                 seq=512)),
 }
 # bf16_flat_check's column block: the plain version's f32 temporaries of
@@ -2455,9 +2644,9 @@ def engine_step(torch, name: str, arch: str, seed: int) -> dict:
     start = tree_map(lambda x: x.cpu(), params)     # agent 0's start
     n_leaves = len(leaves(params))
     del params
-    fcfg, _ = train.build_fed_setup(FedConfig(
-        n_agents=ENGINE_AGENTS, h=2, k=2, graph="ring2",
-        gossip_impl="pallas"))
+    fed = FedConfig(n_agents=ENGINE_AGENTS, h=2, k=2, graph="ring2",
+                    gossip_impl="pallas")
+    fcfg, _ = train.build_fed_setup(cfg, train.fed_axes(fed), fed)
     eta = torch.full((1,), 1e-3, device=DEVICE)
     step = feddec.make_feddec_step(fcfg, model.grad_fn(), lambda t: eta,
                                    device=DEVICE)
@@ -2816,9 +3005,9 @@ def pop_anchor(torch) -> dict:
                "positions": torch.arange(128, device=DEVICE).expand(
                    tokens.shape)}
     eta = torch.full((1,), 3e-3, device=DEVICE)
-    fcfg, n = train.build_fed_setup(FedConfig(n_agents=N_AGENTS, h=STEPS,
-                                              k=2, graph="ring2",
-                                              gossip_impl="sparse"))
+    fed = FedConfig(n_agents=N_AGENTS, h=STEPS, k=2, graph="ring2",
+                    gossip_impl="sparse")
+    fcfg, n = train.build_fed_setup(model.cfg, train.fed_axes(fed), fed)
     round_fn = flat_lib.make_flat_feddec_round(
         fcfg, spec, model.grad_fn(), lambda t: eta, device=DEVICE)
     state = flat_lib.init_flat_state(spec, params0, n)
@@ -4209,6 +4398,10 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels = kernel_phase(torch)
     kernels.update(batched_kernel_phase(torch))
+    for kernel, rows in shard_block_phase(torch).items():
+        kernels[kernel]["variants"].update(rows["variants"])
+        kernels[kernel]["max_abs_err"] = max(kernels[kernel]["max_abs_err"],
+                                             rows["max_abs_err"])
     kernels.update(compress_kernel_phase(torch))
     kernels.update(batched_ef_kernel_phase(torch))
     f64_errs = f64_kernel_phase(torch)
@@ -4216,8 +4409,12 @@ def main() -> int:
     kernels.update(zoo_kernel_phase(torch))
     log(f"[kernels] phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    training, a_final = training_phase(torch)
+    training, a_final, finals = training_phase(torch)
     log(f"[train] phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    sharded_paths = sharded_phase(torch, finals)
+    del finals
+    log(f"[sharded] phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     tree_paths = tree_phase(torch, a_final)
     log(f"[tree] phase {time.perf_counter() - t0:.1f} s")
@@ -4292,7 +4489,14 @@ def main() -> int:
             # step on the tree
             line[-1]["launches_by_path"] = {
                 name: p["launches"] for name, p in
-                {**training, **tree_paths, **delta_paths}.items()
+                {**training, **tree_paths, **delta_paths,
+                 **sharded_paths}.items()
+                if p.get("kernel") == kernel}
+        if kernel == "gossip_mix_batched":
+            # #5 on the sharded lattice (s4), once a step
+            line[-1]["launches_by_path"] = {
+                name: p["launches"] for name, p in
+                {**training, **sharded_paths}.items()
                 if p.get("kernel") == kernel}
         if kernel == "gossip_mix_sparse":
             # #2 is the population engine's cohort mix: once a step
@@ -4329,7 +4533,8 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"device": name, "nvidia_smi": smi, "kernels": line,
          "training": training, "tree_paths": tree_paths,
-         "delta_paths": delta_paths, "population": population,
+         "delta_paths": delta_paths, "sharded_paths": sharded_paths,
+         "population": population,
          "grads": grads,
          "f64_paths": f64_paths, "bf16_paths": bf16_paths,
          "profile": profile, "models": models, "serve": serving,

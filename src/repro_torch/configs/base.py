@@ -114,6 +114,12 @@ class ArchConfig:
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.float32
 
+    # federated deployment (repro/configs/base.py:111-112): 'sharded'
+    # trains one agent per slice of the mesh's data axes, 'replicated'
+    # fed_n_agents_replicated agents per pod (sharding.n_agents_for)
+    fed_agent_layout: str = "sharded"
+    fed_n_agents_replicated: int = 4
+
     def __post_init__(self):
         if self.head_dim == 0 and self.attention_kind == "gqa":
             object.__setattr__(self, "head_dim",

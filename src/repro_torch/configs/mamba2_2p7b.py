@@ -23,4 +23,5 @@ CONFIG = ArchConfig(
     ssm=SSMConfig(d_state=128, d_conv=4, expand=2, head_dim=64,
                   chunk_size=256),
     compute_dtype=torch.bfloat16,
+    fed_agent_layout="sharded",
 )

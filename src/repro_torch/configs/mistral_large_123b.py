@@ -28,4 +28,6 @@ CONFIG = ArchConfig(
     mlp_kind="swiglu",
     param_dtype=torch.bfloat16,
     compute_dtype=torch.bfloat16,
+    fed_agent_layout="replicated",
+    fed_n_agents_replicated=4,
 )

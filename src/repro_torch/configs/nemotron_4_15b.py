@@ -24,4 +24,5 @@ CONFIG = ArchConfig(
     mlp_kind="relu2",
     long_context_window=4_096,
     compute_dtype=torch.bfloat16,
+    fed_agent_layout="sharded",
 )

@@ -25,4 +25,5 @@ CONFIG = ArchConfig(
     long_context_window=4_096,
     mlp_kind="swiglu",
     compute_dtype=torch.bfloat16,
+    fed_agent_layout="sharded",
 )

@@ -32,4 +32,5 @@ CONFIG = ArchConfig(
     frontend="vision",
     frontend_positions=256,     # stubbed patch embeddings
     compute_dtype=torch.bfloat16,
+    fed_agent_layout="sharded",
 )

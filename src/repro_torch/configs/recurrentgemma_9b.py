@@ -25,4 +25,5 @@ CONFIG = ArchConfig(
     mlp_kind="geglu",
     tie_embeddings=True,
     compute_dtype=torch.bfloat16,
+    fed_agent_layout="sharded",
 )

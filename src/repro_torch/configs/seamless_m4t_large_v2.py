@@ -31,4 +31,5 @@ CONFIG = ArchConfig(
     mlp_kind="gelu",
     frontend="audio",
     compute_dtype=torch.bfloat16,
+    fed_agent_layout="sharded",
 )

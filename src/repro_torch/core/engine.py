@@ -1,17 +1,19 @@
 """The engine dispatcher, the shared Algorithm-1 step body and the gossip
-dispatcher (repro/core/engine.py, for the tree, flat and lattice layouts
-on one device).
+dispatcher (repro/core/engine.py, for the tree, flat and lattice layouts,
+on one device or agent-sharded over a 1-D mesh).
 
   * :class:`EngineSpec` + :func:`parse_engine_spec` — one point of the
     (layout × run-batch × shards × delta × fused update+mix) lattice,
     validated with the reference's messages.
   * :func:`make_engine_step` / :func:`make_engine_round` — lower a spec to
     its executor: the tree engine (core/feddec.py), the flat engine
-    (core/flat.py) or the sweep lattice (core/sweep.py).  The per-engine
-    makers (``make_feddec_*``, ``make_flat_feddec_*``,
-    ``make_sweep_feddec_*``, ``make_fedavg_*``) are shims over them.  The
-    sharded lowerings (a mesh, ``n_shards`` or ``n_model_shards`` > 1)
-    are not ported and raise NotImplementedError.
+    (core/flat.py), the sweep lattice (core/sweep.py), or, with a
+    ``torch.distributed`` mesh, the agent-sharded flat engine and lattice
+    (core/sharded.py).  The per-engine makers (``make_feddec_*``,
+    ``make_flat_feddec_*``, ``make_sweep_feddec_*``, ``make_fedavg_*``,
+    ``make_sharded_*``) are shims over them.  The 2-D lowering
+    (``n_model_shards`` > 1) is not ported and raises
+    NotImplementedError.
   * :class:`EngineOps` + :func:`build_step_body` — the one step order:
     η_t → sample W^t (line 3) → local update (lines 4–5) → gossip (line 6,
     compressed with error feedback when a codec is configured) → periodic
@@ -53,7 +55,8 @@ __all__ = ["GradFn", "value_and_grad", "GOSSIP_IMPLS", "LAYOUTS",
            "build_step_body", "make_loop_round", "resolve_gossip",
            "check_gossip_impl", "unknown_gossip_impl",
            "model_axis_conflict", "make_engine_step", "make_engine_round",
-           "make_population_round"]
+           "make_population_round", "shard_sweep_state",
+           "make_sharded_sweep_step", "make_sharded_sweep_round"]
 
 # Line 4 for ONE agent: (params, batch) -> (loss, grads), params a dict of
 # tensors, grads in params' layout, loss a 0-d tensor.  The engines call it
@@ -285,8 +288,8 @@ class EngineSpec:
         buffer that runs batch over).
       n_shards / axis_name: agent-axis shards and their mesh axis.
       n_model_shards / model_axis: model-axis shards per agent row.
-        Parsed as the reference parses them; lowering either above 1 is
-        not ported.
+        Parsed as the reference parses them; lowering a model axis above
+        1 is not ported.
       t_steps: optional per-run step budgets (sweep freeze masking).
       force_run_axis: keep the run axis for a single run (the sweep
         makers' R = 1 plans).
@@ -344,8 +347,8 @@ def parse_engine_spec(configs, layout: str = "flat", n_shards: int = 1,
     with the reference's checks and messages.
 
     ``configs`` is one FedDecConfig or an iterable of them.  Parsing is
-    pure validation: a sharded spec parses as in the reference, and only
-    its lowering is not ported.
+    pure validation: a model-sharded spec parses as in the reference, and
+    only its lowering is not ported.
     """
     if hasattr(configs, "gossip_impl"):  # a single config
         configs = (configs,)
@@ -435,32 +438,39 @@ def parse_engine_spec(configs, layout: str = "flat", n_shards: int = 1,
 
 
 def _dispatch(espec: EngineSpec, flat_spec, mesh) -> str:
-    """'tree', 'flat' or 'sweep' (repro/core/engine.py:555-569); the
-    sharded lowerings are not ported."""
+    """'tree', 'flat', 'sweep', 'sharded' or 'sharded_sweep', exactly
+    where the reference's dispatch picks them (repro/core/engine.py:
+    555-569): a mesh (even of one shard) lowers the sharded engine, a run
+    axis with it the sharded lattice."""
     if espec.layout == "tree":
         return "tree"
     if flat_spec is None:
         raise ValueError("flat layouts need a FlatSpec (flat.make_flat_spec)")
-    if espec.is_sharded or espec.is_model_sharded or mesh is not None:
-        kind = "sharded_sweep" if espec.has_run_axis \
-            and not espec.is_model_sharded else "sharded"
-        raise NotImplementedError(
-            f"the '{kind}' lowering (a device mesh, n_shards > 1 or "
-            f"n_model_shards > 1) is not ported to repro_torch yet; see "
-            f"ROADMAP.md Queue A item 6 (multi-GPU sharding)")
-    return "sweep" if espec.has_run_axis else "flat"
+    if espec.is_sharded and mesh is None:
+        raise ValueError("n_shards > 1 needs a device mesh (mesh=...)")
+    if espec.is_model_sharded and mesh is None:
+        raise ValueError("n_model_shards > 1 needs a 2-D device mesh "
+                         "(launch.mesh.make_fed_mesh)")
+    if espec.is_model_sharded:
+        return "sharded"
+    if espec.has_run_axis:
+        return "sharded_sweep" if mesh is not None else "sweep"
+    return "sharded" if mesh is not None else "flat"
 
 
 def _lower_step(espec: EngineSpec, grad_fn: GradFn, lr_fn, device,
                 flat_spec, mesh, gossip_fn, optimizer, delta_base,
-                per_step_keys: bool = False):
+                per_step_keys: bool = False, metrics_fn=None):
     """The one-iteration executor of a spec, after the reference's checks
     in the reference's order."""
     kind = _dispatch(espec, flat_spec, mesh)
-    if kind == "sweep" and gossip_fn is not None:
+    if kind in ("sweep", "sharded_sweep") and gossip_fn is not None:
         raise ValueError("gossip_fn overrides are single-run only")
-    if kind in ("tree", "flat") and per_step_keys:
+    if kind in ("tree", "flat", "sharded") and per_step_keys:
         raise ValueError("per_step_keys needs a run axis (sweep lowering)")
+    if kind == "sharded" and metrics_fn is not None:
+        raise ValueError("metrics_fn is not supported by the single-run "
+                         "sharded lowering")
     if delta_base is not None and espec.delta == "none":
         raise ValueError("delta_base was passed but the spec has "
                          "delta='none'")
@@ -474,6 +484,11 @@ def _lower_step(espec: EngineSpec, grad_fn: GradFn, lr_fn, device,
                          "repro_torch.core.draws.RoundDraws as the draws, "
                          "which re-keys every run at each of its server "
                          "rounds")
+    if espec.is_model_sharded:
+        raise NotImplementedError(
+            "the 2-D ('agents', 'model') lowering (n_model_shards > 1) is "
+            "not ported to repro_torch yet; see ROADMAP.md Queue A item 4 "
+            "(the 2-D agents x model line)")
     device = torch.device(device)
     if kind == "tree":
         from repro_torch.core import feddec
@@ -485,11 +500,22 @@ def _lower_step(espec: EngineSpec, grad_fn: GradFn, lr_fn, device,
                                  gossip_fn, optimizer, device,
                                  delta_base=delta_base,
                                  fuse_update_mix=espec.fuse_update_mix)
-    else:
+    elif kind == "sweep":
         from repro_torch.core import sweep as sweep_lib
         ops = sweep_lib._sweep_ops(espec.plan(), flat_spec, grad_fn, lr_fn,
                                    optimizer, device,
                                    fuse_update_mix=espec.fuse_update_mix)
+    elif kind == "sharded":
+        # gossip_fn is not the sharded lowering's, as in the reference
+        from repro_torch.core import sharded as sharded_lib
+        ops = sharded_lib._shard_ops(espec.cfg, flat_spec, grad_fn, lr_fn,
+                                     mesh, espec.axis_name, optimizer,
+                                     device)
+    else:
+        from repro_torch.core import sharded as sharded_lib
+        ops = sharded_lib._sweep_shard_ops(espec.plan(), flat_spec, grad_fn,
+                                           lr_fn, mesh, espec.axis_name,
+                                           optimizer, device)
     return build_step_body(ops)
 
 
@@ -520,11 +546,41 @@ def make_engine_round(espec: EngineSpec, grad_fn: GradFn, lr_fn, *, device,
     index of the batch leaves, metrics stacked to (H, ...).
 
     Dispatch: layout 'tree' → the tree engine; a run axis → the sweep
-    lattice; else the flat engine.  ``metrics_fn(state)`` is merged into
+    lattice; a mesh → the sharded engine; both → the sharded lattice;
+    else the flat engine.  ``metrics_fn(state)`` is merged into
     each step's metrics.  ``per_step_keys`` (the reference's (T, R) key
     table) is the draws object's business in the port: a lattice raises
     and names :class:`repro_torch.core.draws.RoundDraws`.
     """
     return make_loop_round(_lower_step(
         espec, grad_fn, lr_fn, device, flat_spec, mesh, gossip_fn,
-        optimizer, delta_base, per_step_keys), metrics_fn)
+        optimizer, delta_base, per_step_keys, metrics_fn), metrics_fn)
+
+
+def shard_sweep_state(state, mesh, axis_name="agents"):
+    """This rank's (R, n_local, D) block of a SweepFedState
+    (repro/core/engine.py:1034-1040; core/sharded.py)."""
+    from repro_torch.core import sharded as sharded_lib
+    return sharded_lib.shard_sweep_state(state, mesh, axis_name)
+
+
+def make_sharded_sweep_step(plan, spec, grad_fn: GradFn, lr_fn, mesh, *,
+                            device, axis_name="agents", optimizer=None):
+    """The sharded lattice's one-step executor (repro/core/engine.py:
+    1062-1094; core/sharded.py:make_sharded_sweep_step)."""
+    from repro_torch.core import sharded as sharded_lib
+    return sharded_lib.make_sharded_sweep_step(
+        plan, spec, grad_fn, lr_fn, mesh, device=device,
+        axis_name=axis_name, optimizer=optimizer)
+
+
+def make_sharded_sweep_round(plan, spec, grad_fn: GradFn, lr_fn, mesh, *,
+                             device, axis_name="agents", optimizer=None,
+                             metrics_fn=None, per_step_keys: bool = False):
+    """The sharded lattice's round (repro/core/engine.py:1097-1145;
+    core/sharded.py:make_sharded_sweep_round)."""
+    from repro_torch.core import sharded as sharded_lib
+    return sharded_lib.make_sharded_sweep_round(
+        plan, spec, grad_fn, lr_fn, mesh, device=device,
+        axis_name=axis_name, optimizer=optimizer, metrics_fn=metrics_fn,
+        per_step_keys=per_step_keys)

@@ -25,7 +25,8 @@ from repro_torch.tree import tree_map
 __all__ = ["ELL_MAX_DEG", "mix_dtype", "gossip_mix_dense",
            "make_sparse_gossip", "make_sparse_gossip_tree",
            "lattice_max_degree", "stacked_ell_tables",
-           "make_sparse_gossip_batched"]
+           "make_sparse_gossip_batched", "make_permute_gossip",
+           "gossip_mix_permute"]
 
 ELL_MAX_DEG = 16  # below this, the padded neighbour loop beats CSR scatter
 
@@ -155,3 +156,68 @@ def make_sparse_gossip_batched(graphs):
         return ref.ell_mix(*tables.weights(w, x, x.dtype), x, x.dtype)
 
     return mix
+
+
+def make_permute_gossip(graph: topo.Graph, mesh, agent_axes="agents",
+                        leaf_specs=None, exchange_dtype=None):
+    """Neighbour-only gossip over a static topology with one agent a rank
+    (repro/core/gossip.py:228-327), for the tree engine's ``gossip_fn``.
+
+    The graph's directed edges split into permutation rounds
+    (``topology.permutation_schedule``); each round is one point-to-point
+    exchange of this rank's leaves with its round partners, all rounds
+    posted at once (``batch_isend_irecv``), so a rank moves its deg
+    neighbours' rows rather than every agent's.  The mixing weights may
+    still change every step (link failures): the sampled W is passed in
+    and each rank reads its own row.  The self term and the received
+    rows are accumulated in f32; ``exchange_dtype`` casts what goes on the
+    wire (e.g. bf16) and back.  Needs graph.n == the mesh's agent-axis
+    size: one agent per rank.
+
+    ``leaf_specs`` (the reference's tensor-parallel inner placements)
+    waits for the sharding rules of ROADMAP Queue A item 5.
+
+    Returns ``gossip(w, stacked) -> stacked`` on this rank's (1, ...)
+    leaves, every rank calling it together.
+    """
+    from repro_torch.core import sharded as sharded_lib
+    if leaf_specs is not None:
+        raise NotImplementedError(
+            "leaf_specs (tensor-parallel inner partition specs) is not "
+            "ported to repro_torch yet; see ROADMAP.md Queue A item 5")
+    axes = (agent_axes,) if isinstance(agent_axes, str) \
+        else tuple(agent_axes)
+    n_mesh = sharded_lib.agent_axis_size(mesh, axes)
+    if graph.n != n_mesh:
+        raise ValueError(
+            f"permute gossip needs one agent per mesh slice: graph has "
+            f"{graph.n} agents but agent axes {axes} have {n_mesh}")
+    shard = sharded_lib._shard_of(mesh, axes, graph.n)
+    schedule = topo.permutation_schedule(graph)
+    halo = sharded_lib._Halo(shard, np.stack(schedule) if schedule
+                             else np.zeros((0, graph.n), np.int64))
+    me = shard.me
+
+    def mix(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        row = w[me].float()
+        xs = x if exchange_dtype is None else x.to(exchange_dtype)
+        received, works = halo.post(xs)
+        acc = x.float() * row[me]
+        sharded_lib._wait(works)
+        # an idle round (perm[me] == me) received nothing and must not
+        # count this agent twice
+        for src, recv in zip(halo.srcs, received):
+            if recv is not None:
+                acc = acc + row[src] * recv.float()
+        return acc.to(x.dtype)
+
+    def gossip(w: torch.Tensor, stacked):
+        return tree_map(lambda leaf: mix(w, leaf), stacked)
+
+    return gossip
+
+
+def gossip_mix_permute(w: torch.Tensor, stacked, *, graph: topo.Graph, mesh,
+                       agent_axes="agents"):
+    """One-shot convenience wrapper over :func:`make_permute_gossip`."""
+    return make_permute_gossip(graph, mesh, agent_axes)(w, stacked)

@@ -22,7 +22,7 @@ __all__ = ["Graph", "SparseGraph", "ring_graph", "ring_graph_csr",
            "induced_subgraph", "is_connected", "geographic_graph",
            "erdos_renyi_graph", "laplacian_weights", "metropolis_weights",
            "metropolis_weights_csr", "max_degree_weights", "build_weights",
-           "edge_list", "csr_edges", "N_DENSE_MAX", "check_dense_size",
+           "edge_list", "csr_edges", "permutation_schedule", "N_DENSE_MAX", "check_dense_size",
            "lambda2", "lambda2_batched", "lambda2_sparse",
            "lambda2_hat_fixed", "lambda2_hat_fixed_batched",
            "alpha_from_lambda2_hat"]
@@ -379,6 +379,36 @@ def csr_edges(graph: Graph) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
 # ---------------------------------------------------------------------------
 # Spectral quantities of Theorem 1
 # ---------------------------------------------------------------------------
+
+
+def permutation_schedule(graph: Graph) -> list[np.ndarray]:
+    """Decompose the directed edge set into permutation rounds
+    (repro/core/topology.py:570-596, the same greedy order).
+
+    Each round is a partial permutation vector ``perm`` with ``perm[i] = j``
+    meaning "i receives from j this round" and ``perm[i] = i`` when idle.
+    One round is one point-to-point exchange per participant (the sharded
+    engine's halo, core/sharded.py; gossip.make_permute_gossip); the number
+    of rounds is a greedy edge-colouring bound.
+    """
+    n = graph.n
+    # directed edges (receiver, sender)
+    remaining = {(i, j) for i in range(n) for j in range(n)
+                 if graph.adjacency[i, j]}
+    rounds: list[np.ndarray] = []
+    while remaining:
+        perm = np.arange(n)
+        used_recv: set[int] = set()
+        used_send: set[int] = set()
+        for (i, j) in sorted(remaining):
+            if i not in used_recv and j not in used_send:
+                perm[i] = j
+                used_recv.add(i)
+                used_send.add(j)
+        chosen = {(int(i), int(perm[i])) for i in range(n) if perm[i] != i}
+        remaining -= chosen
+        rounds.append(perm)
+    return rounds
 
 
 def lambda2(w: np.ndarray, n_dense_max: int | None = None) -> float:

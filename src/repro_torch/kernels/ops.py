@@ -71,11 +71,14 @@ def _check_buffer(name: str, t: torch.Tensor, shape: tuple,
 
 def _weights(name: str, t: torch.Tensor, shape: tuple) -> torch.Tensor:
     """W or an ELL weight table cast to the kernels' f32, as the
-    reference's kernels cast it; f32, f64 and bf16 are taken."""
+    reference's kernels cast it; f32, f64 and bf16 are taken.  A strided
+    view (the sharded engine's own block W[rows, rows], core/sharded.py)
+    is copied to a contiguous block on its own device: (n, n) floats
+    beside an (n, D) buffer."""
     if t.dtype not in _MIX_DTYPES:
         raise TypeError(f"{name} must be {_MIX_DTYPE_NAMES}, got {t.dtype}")
     _check_buffer(name, t, shape, t.dtype)
-    return t.to(torch.float32)
+    return t.to(torch.float32).contiguous()
 
 
 def _lattice(x: torch.Tensor, ndim: int,

@@ -6,9 +6,11 @@ recurrentgemma-9b, qwen1.5-4b or nemotron-4-15b; ``--smoke`` for its
 reduced variant; qwen2-vl-2b and seamless-m4t-large-v2 are refused, as
 the reference's training CLI cannot train them: they train through the
 engine API on launch/specs.py batches), over synthetic heterogeneous
-per-agent token streams on one device.  The state is the flat (n_agents, D) buffer (the fused round's
-default) or the stacked tree of the model's dict (``--per-step``'s
-default, as in the reference, or ``--state-layout tree``); with
+per-agent token streams on one device (or, with ``--mesh-agents``, its
+agents sharded over several).  The state is the flat (n_agents, D)
+buffer (the fused round's default) or the stacked tree of the model's
+dict (``--per-step``'s default, as in the reference, or
+``--state-layout tree``); with
 ``--sweep-runs R`` it trains an R-run lattice (over seeds, H or
 topologies, ``--sweep-axis``) on one (R, n_agents, D) buffer.  The gossip
 mix and the fused update+mix run through the hand-written CUDA kernels
@@ -26,14 +28,21 @@ encoded delta against the initial row through the same error feedback
 population of N agents kept in a host memmap store, one sampled cohort
 of ``--cohort-size`` agents a round streamed to the card
 (core/population.py; the cohort mix is kernel #2), and ``--ckpt-dir``
-then saves the store.  Runs on ``cuda`` unless ``--device cpu`` is
-given, and fails without a card.
+then saves the store.  ``--mesh-agents N`` shards the flat buffer's
+agent rows over N ranks, one process a rank (core/sharded.py): run it
+under ``torchrun --nproc-per-node N`` (one card a rank, NCCL; gloo with
+``--device cpu``); only rank 0 prints.  Mistral-Large-123B and
+DeepSeek-V3-671B train 4 and 1 agents whatever ``--agents`` says, their
+replicated agent layout (sharding.n_agents_for).  Runs on ``cuda``
+unless ``--device cpu`` is given, and fails without a card.
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.train --gossip-impl pallas \\
       --fuse-update-mix --steps 10 [--sweep-runs 2 --sweep-axis h]
       [--gossip-compress int8 | --delta topk:4096]
       [--arch mamba2-2.7b --smoke] [--ckpt-dir DIR]
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+      --mesh-agents 2 --gossip-impl pallas --steps 10
   PYTHONPATH=src python -m repro_torch.launch.train --n-total 4096 \\
       --cohort-size 64 --steps 20 [--sampling stale --staleness 0.5]
       [--n-clusters 4] [--no-overlap]
@@ -55,6 +64,7 @@ from repro_torch.configs.base import ArchConfig, FedConfig
 from repro_torch.core import feddec
 from repro_torch.core import flat as flat_lib
 from repro_torch.core import population as population_lib
+from repro_torch.core import sharded as sharded_lib
 from repro_torch.core import sweep as sweep_lib
 from repro_torch.core import topology as topo
 from repro_torch.core.draws import Draws, SweepDraws
@@ -62,11 +72,13 @@ from repro_torch.core.fedavg import FedAvgConfig
 from repro_torch.core.feddec import FedDecConfig
 from repro_torch.core.mixing import MixingDistribution
 from repro_torch.data.federated_lm import make_federated_lm
+from repro_torch.launch.mesh import make_agent_mesh
 from repro_torch.models import build_model
+from repro_torch.sharding import MeshAxes, n_agents_for
 
 OPTIMIZERS = ("sgd", "momentum", "adamw")
 
-__all__ = ["tiny_lm_config", "build_fed_setup", "sweep_lattice_configs",
+__all__ = ["tiny_lm_config", "fed_axes", "build_fed_setup", "sweep_lattice_configs",
            "resolve_device", "train_loop", "population_graph",
            "population_loop", "main"]
 
@@ -82,10 +94,22 @@ def tiny_lm_config(d_model: int = 768, layers: int = 12,
         compute_dtype=torch.float32)
 
 
-def build_fed_setup(fed: FedConfig) -> tuple[FedDecConfig, int]:
-    """(FedDecConfig, n_agents): the graph family, Metropolis mixing with
-    link failures, and K capped at n (repro/launch/steps.py)."""
-    n = fed.n_agents
+def fed_axes(fed: FedConfig) -> MeshAxes:
+    """The training CLI's mesh roles: one ``data`` axis of ``fed.n_agents``
+    slices and a model axis of 1 (repro/launch/train.py:118)."""
+    return MeshAxes(("data",), "model", {"data": fed.n_agents, "model": 1})
+
+
+def build_fed_setup(cfg: ArchConfig, axes: MeshAxes,
+                    fed: FedConfig | None = None
+                    ) -> tuple[FedDecConfig, int]:
+    """(FedDecConfig, n_agents) for this arch on this mesh
+    (repro/launch/steps.py:56-84): the agent count from the arch's layout
+    (``sharding.n_agents_for``: the data axes' size, or the replicated
+    layout's own count), the graph family, Metropolis mixing with link
+    failures, and K capped at n."""
+    n = n_agents_for(cfg, axes)
+    fed = fed or FedConfig()
     if fed.graph.startswith("ring"):
         k = int(fed.graph[4:] or 2)
         graph = topo.ring_graph(n, k=min(k, (n - 1) // 2 or 1))
@@ -99,8 +123,11 @@ def build_fed_setup(fed: FedConfig) -> tuple[FedDecConfig, int]:
         raise ValueError(f"unknown graph {fed.graph!r}")
     mixing = MixingDistribution(graph, p_fail=fed.p_fail,
                                 scheme="metropolis")
+    # 'permute' is a gossip_fn built on the mesh (gossip.make_permute_gossip),
+    # not a FedDecConfig impl: the config falls back to dense there
+    impl = "dense" if fed.gossip_impl == "permute" else fed.gossip_impl
     fcfg = FedDecConfig(mixing=mixing, h=fed.h, k=min(fed.k, n),
-                        gossip_impl=fed.gossip_impl,
+                        gossip_impl=impl,
                         gossip_compress=fed.gossip_compress,
                         delta=fed.delta)
     return fcfg, n
@@ -160,6 +187,7 @@ def train_loop(cfg: ArchConfig, fed: FedConfig, *, steps: int,
                optimizer: str = "sgd", fedavg_control: bool = False,
                fused: bool = True, state_layout: str | None = None,
                fuse_update_mix: bool = False,
+               mesh_agents: int | None = None,
                sweep_runs: int | None = None, sweep_axis: str = "seed",
                ckpt_dir: str | None = None, ckpt_every: int = 0,
                log_every: int = 10, seed: int = 0, data_alpha: float = 0.3,
@@ -188,20 +216,38 @@ def train_loop(cfg: ArchConfig, fed: FedConfig, *, steps: int,
     first step.  A ``timing`` dict
     receives ``setup_s`` and ``loop_s``, host-clock seconds; the loop
     ends by reading the losses back, which waits for the device.
+
+    ``mesh_agents=N`` runs the agent-sharded engine (core/sharded.py) in
+    an initialized ``torch.distributed`` group of N ranks, one process a
+    rank (``torchrun --nproc-per-node N``; gloo on the CPU, NCCL with one
+    card a rank): each rank trains its n_agents/N rows of the flat buffer
+    (or of every run of a ``sweep_runs`` lattice), draws the same full
+    batches and engine draws as the one-device run and keeps its rows,
+    and the state returned is gathered whole on every rank.  Only rank 0
+    prints.
     """
     t_setup = time.perf_counter()
     if optimizer not in OPTIMIZERS:
         raise ValueError(f"unknown optimizer {optimizer!r}; choose from "
                          f"{'|'.join(OPTIMIZERS)}")
     if state_layout is None:
-        state_layout = "flat" if fused else "tree"
+        state_layout = "flat" if fused or mesh_agents else "tree"
     if state_layout not in ("tree", "flat"):
         raise ValueError(f"state_layout must be 'tree' or 'flat', "
                          f"got {state_layout!r}")
-    if fuse_update_mix and state_layout != "flat":
-        raise ValueError("--fuse-update-mix fuses the whole-buffer "
-                         "update+mix pass (kernels #3/#4); it requires "
-                         "--state-layout flat")
+    if mesh_agents is not None and state_layout != "flat":
+        raise ValueError("--mesh-agents shards the flat (n_agents, D) "
+                         "buffer; it requires --state-layout flat")
+    if fuse_update_mix:
+        if state_layout != "flat":
+            raise ValueError("--fuse-update-mix fuses the whole-buffer "
+                             "update+mix pass (kernels #3/#4); it requires "
+                             "--state-layout flat")
+        if mesh_agents is not None:
+            raise ValueError("--fuse-update-mix is single-device: the "
+                             "sharded engine overlaps its halo with "
+                             "interior compute instead (core/sharded.py); "
+                             "drop --mesh-agents")
     if sweep_runs is not None:
         if not fused:
             raise ValueError("--sweep-runs requires the fused executor")
@@ -215,7 +261,7 @@ def train_loop(cfg: ArchConfig, fed: FedConfig, *, steps: int,
         require_codecs()
     device = resolve_device(device)
     model = build_model(cfg)
-    fcfg, n_agents = build_fed_setup(fed)
+    fcfg, n_agents = build_fed_setup(cfg, fed_axes(fed), fed)
     if fedavg_control:
         fcfg = FedAvgConfig(n_agents, h=fed.h, k=fed.k)
     opt = {"sgd": None, "momentum": optim.momentum_sgd(),
@@ -229,6 +275,17 @@ def train_loop(cfg: ArchConfig, fed: FedConfig, *, steps: int,
     if draws is None:
         draws = Draws(seed, device) if sweep_runs is None else SweepDraws(
             seed, device, sweep_runs, per_run=sweep_axis == "seed")
+
+    mesh = rows = None
+    if mesh_agents is not None:
+        if n_agents % mesh_agents:
+            raise ValueError(f"--mesh-agents {mesh_agents} must divide "
+                             f"--agents {n_agents}")
+        mesh = make_agent_mesh(mesh_agents, device=device.type)
+        n_local = n_agents // mesh_agents
+        rank = mesh.get_local_rank("agents")
+        rows = slice(rank * n_local, (rank + 1) * n_local)
+    verbose = mesh is None or mesh.get_local_rank("agents") == 0
 
     data = make_federated_lm(cfg.vocab_size, n_agents, seq_len, draws,
                              alpha=data_alpha)
@@ -249,9 +306,26 @@ def train_loop(cfg: ArchConfig, fed: FedConfig, *, steps: int,
         plan = sweep_lib.make_sweep_plan(
             sweep_lattice_configs(fcfg, fed, sweep_runs, sweep_axis))
         state = sweep_lib.init_sweep_state(plan, spec, params0, optimizer=opt)
-        round_fn = sweep_lib.make_sweep_feddec_round(
-            plan, spec, grad_fn, lr_fn, fuse_update_mix=fuse_update_mix,
-            **kwargs)
+        if mesh is not None:
+            # R runs × the agent shards: this rank's (R, n_local, D) block
+            state = sharded_lib.shard_sweep_state(state, mesh)
+            round_fn = sharded_lib.make_sharded_sweep_round(
+                plan, spec, grad_fn, lr_fn, mesh, **kwargs)
+        else:
+            round_fn = sweep_lib.make_sweep_feddec_round(
+                plan, spec, grad_fn, lr_fn, fuse_update_mix=fuse_update_mix,
+                **kwargs)
+    elif mesh is not None:
+        state = sharded_lib.shard_flat_state(flat_lib.init_flat_state(
+            spec, params0, n_agents, optimizer=opt, compress=compress),
+            mesh)
+        make = sharded_lib.make_sharded_feddec_round if fused \
+            else sharded_lib.make_sharded_feddec_step
+        engine_fn = make(fcfg, spec, grad_fn, lr_fn, mesh, **kwargs)
+        if fused:
+            round_fn = engine_fn
+        else:
+            step = engine_fn
     else:
         state = flat_lib.init_flat_state(spec, params0, n_agents,
                                          optimizer=opt, compress=compress,
@@ -270,26 +344,35 @@ def train_loop(cfg: ArchConfig, fed: FedConfig, *, steps: int,
 
     def save(st, done: int) -> None:
         # the stacked tree (views into a flat buffer) and t as a 0-d int32,
-        # as the reference saves them
+        # as the reference saves them; a sharded state is gathered first
+        # and rank 0 writes it
+        if mesh is not None:
+            st = sharded_lib.gather_flat_state(st, mesh)
+            if not verbose:
+                return
         stacked = spec.unflatten(st.flat) if state_layout == "flat" \
             else st.params
         save_checkpoint(ckpt_dir, done, {
             "params": stacked,
             "step": torch.tensor(st.step, dtype=torch.int32)})
 
-    print(f"[train] {cfg.name}: {n_params:,} params × {n_agents} agents, "
-          f"graph={fed.graph}, H={fed.h}, K={fcfg.k}, opt={optimizer}, "
-          f"executor={'fused' if fused else 'per-step'}, "
-          f"layout={state_layout}"
-          + (f" (sweep lattice R={sweep_runs} axis={sweep_axis})"
-             if sweep_runs else "")
-          + f", gossip={fcfg.gossip_impl}"
-          + (", fused-update-mix" if fuse_update_mix else "")
-          + (f", compress={compress}" if compress != "none" else "")
-          + (f", delta={delta}" if delta != "none" else "")
-          + f", device={device}")
+    say = print if verbose else (lambda *a, **k: None)
+    say(f"[train] {cfg.name}: {n_params:,} params × {n_agents} agents, "
+        f"graph={fed.graph}, H={fed.h}, K={fcfg.k}, opt={optimizer}, "
+        f"executor={'fused' if fused else 'per-step'}, "
+        f"layout={state_layout}"
+        + (f" (sharded over {mesh_agents} devices)" if mesh_agents
+           else "")
+        + (f" (sweep lattice R={sweep_runs} axis={sweep_axis})"
+           if sweep_runs else "")
+        + f", gossip={fcfg.gossip_impl}"
+        + (", fused-update-mix" if fuse_update_mix else "")
+        + (f", compress={compress}" if compress != "none" else "")
+        + (f", delta={delta}" if delta != "none" else "")
+        + f", device={device}")
     positions = torch.arange(seq_len, device=device)[None, None].expand(
-        n_agents, per_agent_batch, seq_len)
+        n_agents if rows is None else rows.stop - rows.start,
+        per_agent_batch, seq_len)
     losses: list[float] = []
     t_start = time.time()
     t_loop = time.perf_counter()
@@ -299,8 +382,8 @@ def train_loop(cfg: ArchConfig, fed: FedConfig, *, steps: int,
         # round advances h steps at once and must not skip boundaries
         if log_every and done // log_every > prev // log_every:
             rate = done / (time.time() - t_start)
-            print(f"[train] step {done:5d}  loss {losses[-1]:.4f}  "
-                  f"({rate:.2f} steps/s)")
+            say(f"[train] step {done:5d}  loss {losses[-1]:.4f}  "
+                f"({rate:.2f} steps/s)")
         if (ckpt_dir and ckpt_every
                 and done // ckpt_every > prev // ckpt_every):
             save(state, done)
@@ -310,6 +393,8 @@ def train_loop(cfg: ArchConfig, fed: FedConfig, *, steps: int,
         while done < steps:
             chunk = min(fed.h, steps - done)
             tokens = draws.tokens(data, per_agent_batch, chunk)
+            if rows is not None:   # every rank drew all rows: its own ones
+                tokens = tokens[:, rows]
             batches = {"tokens": tokens,
                        "positions": positions.expand(
                            (chunk,) + positions.shape)}
@@ -327,6 +412,8 @@ def train_loop(cfg: ArchConfig, fed: FedConfig, *, steps: int,
     else:
         for i in range(steps):
             tokens = draws.tokens(data, per_agent_batch, None)
+            if rows is not None:
+                tokens = tokens[rows]
             state, metrics = step(state, {"tokens": tokens,
                                           "positions": positions}, draws)
             losses.append(float(metrics["loss"]))
@@ -336,10 +423,13 @@ def train_loop(cfg: ArchConfig, fed: FedConfig, *, steps: int,
         timing["loop_s"] = time.perf_counter() - t_loop
     if ckpt_dir:
         save(state, steps)
+    if mesh is not None:   # the whole state, on every rank
+        state = (sharded_lib.gather_sweep_state if sweep_runs is not None
+                 else sharded_lib.gather_flat_state)(state, mesh)
     if sweep_runs is not None:
         finals = metrics["loss"][-1].tolist()
-        print("[train] sweep finals (last-step loss per run): "
-              + ", ".join(f"r{r}={v:.4f}" for r, v in enumerate(finals)))
+        say("[train] sweep finals (last-step loss per run): "
+            + ", ".join(f"r{r}={v:.4f}" for r, v in enumerate(finals)))
         if keep_lattice:
             return state, losses
         state = sweep_lib.slice_run(state, 0)
@@ -453,7 +543,7 @@ def population_loop(cfg: ArchConfig, fed: FedConfig, *, n_total: int,
     return eng.store, losses
 
 
-_NOT_PORTED = ("--mesh-agents", "--mesh-model")
+_NOT_PORTED = ("--mesh-model",)
 # ported configs this CLI does not train: the reference's train_loop
 # fails on them at its first step, because its batches carry only tokens
 # and positions
@@ -464,9 +554,10 @@ _NOT_TRAINABLE = {
                              "(repro/models/transformer.py:353)",
 }
 # population mode's flags that differ from their defaults compose with
-# nothing here (repro/launch/train.py:568-579; --mesh-agents and
-# --mesh-model are refused before, as not ported)
-_POPULATION_EXCLUSIVE = (("--sweep-runs", "sweep_runs", None),
+# nothing here (repro/launch/train.py:568-579; --mesh-model is refused
+# before, as not ported)
+_POPULATION_EXCLUSIVE = (("--mesh-agents", "mesh_agents", None),
+                         ("--sweep-runs", "sweep_runs", None),
                          ("--fuse-update-mix", "fuse_update_mix", False),
                          ("--optimizer", "optimizer", "sgd"),
                          ("--fedavg", "fedavg", False),
@@ -561,6 +652,13 @@ def main(argv=None) -> None:
                    help="save the stacked parameters and the step here at "
                         "the end (needs msgpack and zstandard); in "
                         "population mode, the store (needs neither)")
+    p.add_argument("--mesh-agents", type=int, default=None, metavar="N",
+                   help="shard the flat (n_agents, D) buffer over N ranks "
+                        "(core/sharded.py), one process a rank: run under "
+                        "torchrun --nproc-per-node N (one card a rank, "
+                        "NCCL; gloo with --device cpu); composes with "
+                        "--gossip-impl, --per-step, --gossip-compress and "
+                        "--sweep-runs")
     for flag in _NOT_PORTED:
         p.add_argument(flag, default=None)
     p.add_argument("--vocab", type=int, default=32_768,
@@ -613,15 +711,57 @@ def main(argv=None) -> None:
             device=args.device)
         _print_done(losses)
         return
-    _, losses = train_loop(
+    if args.mesh_agents is None:
+        _print_done(_train(args, cfg, fed)[1])
+        return
+    import torch.distributed as dist
+    rank = _init_ranks(p, args.mesh_agents, args.device)
+    try:
+        losses = _train(args, cfg, fed)[1]
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        _print_done(losses)
+
+
+def _train(args, cfg: ArchConfig, fed: FedConfig):
+    """train_loop with the CLI's arguments."""
+    return train_loop(
         cfg, fed, steps=args.steps, per_agent_batch=args.batch,
         seq_len=args.seq, lr=args.lr, optimizer=args.optimizer,
         fedavg_control=args.fedavg, fused=args.fused,
         state_layout=args.state_layout,
         fuse_update_mix=args.fuse_update_mix, sweep_runs=args.sweep_runs,
         sweep_axis=args.sweep_axis, ckpt_dir=args.ckpt_dir,
-        device=args.device)
-    _print_done(losses)
+        mesh_agents=args.mesh_agents, device=args.device)
+
+
+def _init_ranks(p: argparse.ArgumentParser, n: int, device: str) -> int:
+    """The process group of ``--mesh-agents n``: torchrun's (its
+    WORLD_SIZE, RANK and LOCAL_RANK in the environment), or, without
+    torchrun, a world of one.  The world must hold n ranks.  On cuda each
+    rank takes card LOCAL_RANK and NCCL; on the CPU gloo.  Returns this
+    process's rank."""
+    import os
+
+    import torch.distributed as dist
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world != n:
+        p.error(f"--mesh-agents {n} needs {n} ranks, one process a rank, "
+                f"but this world has {world} (start it with torchrun "
+                f"--nproc-per-node {n})")
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        resolve_device(device)
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+    if not dist.is_initialized():
+        backend = "nccl" if cuda else "gloo"
+        if "MASTER_ADDR" in os.environ:
+            dist.init_process_group(backend)
+        else:
+            dist.init_process_group(backend, store=dist.HashStore(),
+                                    rank=0, world_size=1)
+    return dist.get_rank()
 
 
 def _print_done(losses: list) -> None:

@@ -73,16 +73,16 @@ def test_bf16_smoke_fused_sgd_matches_reference(arch, layers, monkeypatch):
     assert np.abs(got - want).max() <= BF16_FLAT_TOL * np.abs(want).max()
 
 
-@pytest.mark.parametrize("arch,agents", [("mistral-large-123b", "4"),
-                                         ("deepseek-v3-671b", "1")])
+@pytest.mark.parametrize("arch,agents", [("mistral-large-123b", 4),
+                                         ("deepseek-v3-671b", 1)])
 def test_cli_smoke_header_is_the_reference_header(capsys, monkeypatch, arch,
                                                   agents):
     """--arch mistral-large-123b and deepseek-v3-671b --smoke through both
-    training CLIs print the same header line (the port's adds
-    ', device=cpu').  The reference trains its replicated layout's agent
-    count whatever --agents says (4 and 1); the port takes --agents, so
-    it is given that count here."""
-    argv = ["--steps", "2", "--agents", agents, "--batch", "1", "--seq",
+    training CLIs, each given --agents 2, print the same header line (the
+    port's adds ', device=cpu').  Both train the replicated layout's agent
+    count whatever --agents says, 4 and 1 (sharding.n_agents_for,
+    repro/sharding/__init__.py:60-68)."""
+    argv = ["--steps", "2", "--agents", "2", "--batch", "1", "--seq",
             "16", "--h", "2", "--arch", arch, "--smoke"]
     monkeypatch.setattr("sys.argv", ["train", *argv])
     ref_train.main()
@@ -92,5 +92,6 @@ def test_cli_smoke_header_is_the_reference_header(capsys, monkeypatch, arch,
     header = next(line for line in out if line.startswith(f"[train] {arch}"))
     assert header == next(line for line in ref_out if line.startswith(
         f"[train] {arch}")) + ", device=cpu"
+    assert f" params × {agents} agents, " in header
     assert out[-1].startswith("[train] done: loss ")
     assert ref_out[-1].startswith("[train] done: loss ")

@@ -470,21 +470,59 @@ def test_sweep_per_step_keys_names_round_draws():
                                  per_step_keys=True)
 
 
+@pytest.fixture
+def world_of_one(tmp_path):
+    """A gloo world of one rank in this process and its 1-D agent mesh."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_agent_mesh
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        yield make_agent_mesh(1, device="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
 @pytest.mark.parametrize("kw", [dict(n_shards=2), dict(n_model_shards=2),
                                 dict(mesh=True),
                                 dict(mesh=True, lattice=True)],
                          ids=["n_shards", "n_model_shards", "mesh",
                               "mesh_lattice"])
-def test_sharded_lowerings_are_not_ported(kw):
+def test_sharded_lowerings_are_not_ported(kw, world_of_one):
+    """The sharded kinds of the dispatch (repro/core/engine.py:555-569):
+    a sharded spec without a mesh fails with the reference's message; a
+    mesh (of one rank here) lowers the sharded engine, with a run axis the
+    sharded lattice; only the 2-D lowering (n_model_shards > 1) is not
+    ported and raises NotImplementedError."""
     kw = dict(kw)
-    _, cfg = make_cfgs()
-    configs = [cfg, cfg] if kw.pop("lattice", False) else cfg
-    mesh = object() if kw.pop("mesh", False) else None
+    rcfg, cfg = make_cfgs()
+    lattice = kw.pop("lattice", False)
+    configs = [cfg, cfg] if lattice else cfg
+    mesh = world_of_one if kw.pop("mesh", False) else None
     espec = engine.parse_engine_spec(configs, **kw)
+    if mesh is None:
+        respec = ref_engine.parse_engine_spec(
+            [rcfg, rcfg] if lattice else rcfg, **kw)
+        for ref_make, make in ((ref_engine.make_engine_step,
+                                engine.make_engine_step),
+                               (ref_engine.make_engine_round,
+                                engine.make_engine_round)):
+            _same_error(
+                lambda: ref_make(respec, _ref_grad_fn, None,
+                                 flat_spec=_ref_spec()),
+                lambda: make(espec, _torch_grad_fn, None, device="cpu",
+                             flat_spec=_port_spec(_ref_spec())))
+        return
+    assert engine._dispatch(espec, _port_spec(_ref_spec()), mesh) == (
+        "sharded_sweep" if lattice else "sharded")
     for make in (engine.make_engine_step, engine.make_engine_round):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            make(espec, _torch_grad_fn, None, device="cpu",
-                 flat_spec=_port_spec(_ref_spec()), mesh=mesh)
+        assert callable(make(espec, _torch_grad_fn, None, device="cpu",
+                             flat_spec=_port_spec(_ref_spec()), mesh=mesh))
+    with pytest.raises(NotImplementedError, match="not ported"):
+        engine.make_engine_step(engine.parse_engine_spec(
+            cfg, n_model_shards=2), _torch_grad_fn, None, device="cpu",
+            flat_spec=_port_spec(_ref_spec()), mesh=mesh)
 
 
 def test_makers_take_the_device_as_a_required_keyword():
@@ -584,15 +622,21 @@ def test_round_makers_use_canonical_error(entry, canonical):
     gfn, lfn = _torch_grad_fn, lambda t: torch.tensor([ETA])
     _, cfg = _forged_cfgs()
     if entry == "sharded_round":
-        # the reference's sharded maker raises the canonical error; the
-        # port's lowering is not ported, whatever the impl
-        for kw in (dict(mesh=object()), dict(n_shards=2)):
-            espec = engine.parse_engine_spec(
-                cfg, n_shards=kw.get("n_shards", 1))
-            with pytest.raises(NotImplementedError, match="not ported"):
-                engine.make_engine_round(espec, gfn, lfn, device="cpu",
-                                         flat_spec=spec,
-                                         mesh=kw.get("mesh"))
+        # the reference's sharded maker raises the canonical error, and so
+        # does the port's, on a mesh of one rank
+        import torch.distributed as dist
+
+        from repro_torch.launch.mesh import make_agent_mesh
+        dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                                world_size=1)
+        try:
+            with pytest.raises(ValueError) as e:
+                engine.make_engine_round(
+                    engine.parse_engine_spec(cfg), gfn, lfn, device="cpu",
+                    flat_spec=spec, mesh=make_agent_mesh(1, device="cpu"))
+        finally:
+            dist.destroy_process_group()
+        assert str(e.value) == canonical
         return
     with pytest.raises(ValueError) as e:
         if entry == "tree_round":

@@ -1373,3 +1373,99 @@ def test_cuda_population_engine_overlap_equals_sync(cuda):
     assert out["drains"] == out_sync["drains"]
     np.testing.assert_array_equal(out["loss"], out_sync["loss"])
     assert np.isfinite(rows).all() and np.abs(rows).max() > 0
+
+
+# the sharded engine's own blocks (core/sharded.py): shard 1's strided
+# view W[..., nl:2nl, nl:2nl] of an (8, 8) W, n_local 1, 2 and 4
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_local", [1, 2, 4])
+@pytest.mark.parametrize("r", [1, 2])
+@pytest.mark.parametrize("d", [4099, 100003])
+def test_cuda_shard_block_mix_matches_plain_version(cuda, n_local, r, d):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(n_local * 31 + r * 7 + d)
+    w = torch.rand((r, 8, 8), device=cuda, generator=gen)
+    blk = w[:, n_local:2 * n_local, n_local:2 * n_local]
+    x = torch.randn((r, n_local, d), device=cuda, generator=gen)
+    if r == 1:
+        blk, x = blk[0], x[0]
+    assert n_local == 1 or not blk.is_contiguous()
+    fn = ops.gossip_mix if r == 1 else ops.gossip_mix_batched
+    plain = ref.gossip_mix if r == 1 else ref.gossip_mix_batched
+    before = fn.launches
+    got = fn(blk, x)
+    assert fn.launches == before + 1
+    want = plain(blk, x)
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+def _quadratic_loss(params, batch):
+    return 0.5 * torch.sum(torch.square(params["z"] - batch["t"]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("impl,sweep", [("dense", False), ("pallas", False),
+                                        ("pallas", True)])
+def test_cuda_sharded_world_of_one_equals_flat(cuda, tmp_path, impl, sweep):
+    """A world of one rank over NCCL: the sharded round (core/sharded.py)
+    on a quadratic, 8 agents, D 4099, two rounds of H 3, against the flat
+    engine (the R = 2 lattice) on the same draws, within 1e-5·max|x|;
+    under 'pallas' #1 (#5) once a step and nothing else."""
+    import torch.distributed as dist
+
+    from repro_torch.core import engine, flat as flat_lib, sharded
+    from repro_torch.core import sweep as sweep_lib
+    from repro_torch.core.draws import SweepDraws
+    from repro_torch.core.feddec import FedDecConfig
+    from repro_torch.core.mixing import MixingDistribution
+    from repro_torch.launch.mesh import make_agent_mesh
+    n, d, h = 8, 4099, 3
+    cfgs = [FedDecConfig(mixing=MixingDistribution(
+        topo.ring_graph(n, 2), p_fail=0.3, scheme="metropolis"),
+        h=h * (1 + r), k=2, gossip_impl=impl) for r in range(2)]
+    spec = flat_lib.make_flat_spec({"z": torch.zeros(d)})
+    gfn = engine.value_and_grad(_quadratic_loss)
+    eta = torch.tensor([0.1], device=cuda)
+    gen = torch.Generator().manual_seed(5)
+    lead = (2, n) if sweep else (n,)
+    x0 = torch.randn(lead + (d,), generator=gen).to(cuda)
+    batches = [{"t": torch.randn((h,) + lead + (d,), generator=gen).to(cuda)}
+               for _ in range(2)]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_agent_mesh(1, device="cuda")
+        ends = []
+        for use_mesh in (False, True):
+            if sweep:
+                plan = sweep_lib.make_sweep_plan(cfgs)
+                state = sweep_lib.SweepFedState(flat=x0.clone(),
+                                                step=np.ones(2, np.int64))
+                draws = SweepDraws(3, cuda, 2, per_run=True)
+                round_fn = engine.make_sharded_sweep_round(
+                    plan, spec, gfn, lambda t: eta, mesh, device=cuda) \
+                    if use_mesh else sweep_lib.make_sweep_feddec_round(
+                        plan, spec, gfn, lambda t: eta, device=cuda)
+            else:
+                state = flat_lib.FlatFedState(flat=x0.clone(), step=1)
+                draws = Draws(3, cuda)
+                round_fn = sharded.make_sharded_feddec_round(
+                    cfgs[0], spec, gfn, lambda t: eta, mesh, device=cuda) \
+                    if use_mesh else flat_lib.make_flat_feddec_round(
+                        cfgs[0], spec, gfn, lambda t: eta, device=cuda)
+            ops.reset_launch_counts()
+            for b in batches:
+                state, _ = round_fn(state, b, draws)
+            counts = ops.launch_counts()
+            launched = sum(counts.values())
+            if impl == "dense":
+                assert launched == 0
+            else:
+                kernel = "gossip_mix_batched" if sweep else "gossip_mix"
+                assert counts[kernel] == launched == 2 * h
+            ends.append(state.flat)
+    finally:
+        dist.destroy_process_group()
+    scale = ends[0].abs().max().item()
+    assert (ends[1] - ends[0]).abs().max().item() <= 1e-5 * scale

@@ -42,6 +42,8 @@ from repro.core import feddec as ref_feddec
 from repro.data.federated_lm import make_federated_lm as ref_make_data
 from repro.launch import train as ref_train
 from repro.models import build_model as ref_build_model
+from repro.sharding import MeshAxes as RefMeshAxes
+from repro.sharding import n_agents_for as ref_n_agents_for
 from repro_torch.configs.base import FedConfig
 from repro_torch.core import feddec, flat as flat_lib
 from repro_torch.core.draws import Draws
@@ -383,14 +385,23 @@ def test_cli_sweep_errors_are_the_reference_messages(case):
     ["--n-total", "64", "--ckpt-dir", "c", "--mesh-agents", "2"],
     ["--delta", "topk:4", "--n-total", "64", "--mesh-model", "2"]])
 def test_cli_rejects_what_is_not_ported(argv, capsys):
-    """--delta, --ckpt-dir and --n-total are ported; with them, a flag
-    that is not (the mesh flags) is still rejected, before population
-    mode starts."""
+    """--delta, --ckpt-dir and --n-total are ported; with them,
+    --mesh-model, which is not, is still rejected before population mode
+    starts.  --mesh-agents is ported: without torchrun its world is one
+    rank, which it refuses for N = 2, and population mode does not compose
+    with it (repro/launch/train.py:568-579)."""
     with pytest.raises(SystemExit) as err:
         port_train.main(["--device", "cpu", *argv])
-    assert err.value.code == 2
-    err = capsys.readouterr().err
-    assert "not ported to repro_torch yet" in err
+    if "--mesh-model" in argv:
+        assert err.value.code == 2
+        assert "not ported to repro_torch yet" in capsys.readouterr().err
+    elif "--n-total" in argv:
+        assert err.value.code == ("population mode (--n-total) does not "
+                                  "compose with --mesh-agents")
+    else:
+        assert err.value.code == 2
+        assert "--mesh-agents 2 needs 2 ranks, one process a rank, but " \
+            "this world has 1" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("cli,argv", [
@@ -466,8 +477,11 @@ def _ref_and_port(fed: dict, seed: int, ref_cfg=None, port_cfg=None,
               **kw)
     ref = ref_train.train_loop(ref_cfg, RefFedConfig(**fed), **kw)
     params0 = jax.jit(ref_build_model(ref_cfg).init)(jax.random.key(seed))
+    # the agents the reference trained: its layout's count (n_agents_for)
+    n = ref_n_agents_for(ref_cfg, RefMeshAxes(
+        ("data",), "model", {"data": fed["n_agents"], "model": 1}))
     draws = ReplayTrainDraws(seed, ref_make_data(
-        ref_cfg.vocab_size, fed["n_agents"], seq, alpha=0.3, seed=seed))
+        ref_cfg.vocab_size, n, seq, alpha=0.3, seed=seed))
     port = port_train.train_loop(
         port_cfg, FedConfig(**fed), device="cpu", draws=draws,
         params0=flat_lib.params_from_numpy(jax.tree.map(np.asarray,
@@ -531,16 +545,14 @@ def test_flat_adamw_train_loop_returns_the_reference_fedstate(fuse):
 
 
 def _ref_smoke(arch: str, **kw):
-    """The reference's smoke config of ``arch``.  Its replicated agent
-    layout (Mistral-Large-123B's and DeepSeek-V3-671B's) is set to
-    'sharded', so that its train_loop trains ``fed.n_agents`` agents as
-    the port's does: the port has no agent layouts (its trainer takes
-    --agents for every config)."""
+    """The reference's smoke config of ``arch``, its agent layout kept:
+    Mistral-Large-123B and DeepSeek-V3-671B train their replicated
+    layout's 4 and 1 agents in both trainers, whatever ``fed.n_agents``
+    says (sharding.n_agents_for)."""
     import dataclasses
 
     from repro.configs import get_config as ref_get_config
-    return dataclasses.replace(ref_get_config(arch).smoke(),
-                               fed_agent_layout="sharded", **kw)
+    return dataclasses.replace(ref_get_config(arch).smoke(), **kw)
 
 
 @pytest.mark.parametrize("arch,layout,fused", [
@@ -562,6 +574,42 @@ def test_zoo_smoke_train_loop_matches_reference_losses(arch, layout, fused):
     assert len(losses) == len(ref_losses) == 2
     np.testing.assert_allclose(losses, ref_losses, rtol=1e-4)
     assert isinstance(state, feddec.FedState) and state.step == 3
+
+
+@pytest.mark.parametrize("arch,agents", [
+    (a, n) for a in ("tiny", "recurrentgemma-9b", "mamba2-2.7b",
+                     "qwen1.5-4b", "gemma3-12b", "nemotron-4-15b",
+                     "deepseek-v2-lite-16b", "qwen2-vl-2b",
+                     "seamless-m4t-large-v2", "mistral-large-123b",
+                     "deepseek-v3-671b") for n in (2, 8)])
+def test_build_fed_setup_counts_the_reference_agents(arch, agents):
+    """The trainers' agent-count rule (repro/launch/steps.py:56-84): given
+    the same --agents, both build the same federation: the layout's agent
+    count (--agents for 'sharded', 4 for Mistral-Large-123B and 1 for
+    DeepSeek-V3-671B, 'replicated'), the same graph and the same K."""
+    from repro.configs import get_config as ref_get_config
+    from repro.launch.steps import build_fed_setup as ref_build_fed_setup
+    from repro_torch.configs import get_config
+    if arch == "tiny":
+        ref_cfg = ref_train.tiny_lm_config()
+        cfg = port_train.tiny_lm_config()
+    else:
+        ref_cfg, cfg = ref_get_config(arch), get_config(arch)
+    assert (cfg.fed_agent_layout, cfg.fed_n_agents_replicated) == \
+        (ref_cfg.fed_agent_layout, ref_cfg.fed_n_agents_replicated)
+    fed = dict(n_agents=agents, h=2, k=2, graph="ring2")
+    ref_fcfg, ref_n = ref_build_fed_setup(
+        ref_cfg, RefMeshAxes(("data",), "model", {"data": agents,
+                                                  "model": 1}),
+        RefFedConfig(**fed))
+    port_fed = FedConfig(**fed)
+    fcfg, n = port_train.build_fed_setup(cfg, port_train.fed_axes(port_fed),
+                                         port_fed)
+    assert n == ref_n == {"mistral-large-123b": 4,
+                          "deepseek-v3-671b": 1}.get(arch, agents)
+    assert fcfg.k == ref_fcfg.k
+    np.testing.assert_array_equal(fcfg.mixing.graph.adjacency,
+                                  np.asarray(ref_fcfg.mixing.graph.adjacency))
 
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-9b", "mamba2-2.7b",
