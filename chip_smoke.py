@@ -246,7 +246,17 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
      the wall time and lattice steps per second; its steady step time
      over PAPER_TIMED_STEPS steps and, under torch.profiler, its device
      ops, device time and busy share a step; then theory_check (B1, B2),
-     fig2 (F1, F2), table1 (T1-T3) and ablation_server (S1), each timed.
+     fig2 (F1, F2), table1 (T1-T3) and ablation_server (S1), each timed;
+  8. dryrun: the dry run (launch/steps.py) against the card for path
+     (c)'s step (#3), (M2)'s (#1) and Qwen1.5-4B's full-width prefill
+     (impl='pallas', #15 × 40): each traced on the host on meta tensors
+     (Lowerable.lower) and then run once on the card under the same
+     tally (launch/trace_analysis.py), the FLOPs and op counts equal, the
+     fake trace's kernel ops equal to the wrappers' launch counts, and the
+     predicted peak above the arguments within DRYRUN_PEAK_RTOL (±10%) of
+     max_memory_allocated above the bytes allocated before the call; then
+     each program's trace_step breakdown beside the dry run's roofline at
+     the H100's figures.
 
 Kernel times are the median over 5 repeats of the mean of 10 calls
 (CUDA events).  ``python3 chip_smoke.py --mix-timing DIR`` runs only the
@@ -3455,89 +3465,32 @@ def grad_phase(torch) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _kernel_group(event: dict) -> str:
-    name = event["name"].lower()
-    if event["cat"] != "kernel":
-        return "copies and sets"
-    if "feddec" in name:
-        return "mix kernel (csrc)"
-    if any(s in name for s in ("gemm", "cutlass", "xmma", "sm90_")):
-        return "matmul (cuBLAS)"
-    if "elementwise" in name or "vectorized" in name:
-        return "elementwise"
-    if "reduce" in name or "softmax" in name:
-        return "reductions"
-    return "other"
-
-
-def _traced_ops(torch, steps: int) -> list:
-    """Device events (kernels, copies, sets) of one path-(c) run of
-    ``steps`` steps under torch.profiler (device activity only)."""
-    from torch.profiler import ProfilerActivity, profile
-    impl, fuse, opt, _ = PATHS["c"]
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        train_path(torch, impl, fuse, opt, steps=steps)
-    trace = ROOT / "build" / "chip_smoke_trace.json"
-    trace.parent.mkdir(exist_ok=True)
-    prof.export_chrome_trace(str(trace))
-    events = [e for e in json.loads(trace.read_text())["traceEvents"]
-              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-    trace.unlink()
-    return events
-
-
-def _tally(events: list) -> tuple[dict, dict]:
-    """(ms by kernel group, [ms, count] by kernel name)."""
-    groups: dict = {}
-    names: dict = {}
-    for e in events:
-        ms = e["dur"] / 1e3
-        g = _kernel_group(e)
-        groups[g] = groups.get(g, 0.0) + ms
-        row = names.setdefault(e["name"][:100], [0.0, 0])
-        row[0] += ms
-        row[1] += 1
-    return groups, names
-
-
 def profile_phase(torch, step_ms: float) -> dict:
-    """Path (c) once more under torch.profiler: device time per step by
-    kernel group and the top kernels.  A run of 0 steps traces the
-    set-up alone (weights, data, the flat buffer); its device work is
-    taken out of the 10-step run's, so only the steps' work is counted.
-    The busy share is that device time over path (c)'s unprofiled warm
-    step time, since the profiler slows the host.  Launches here do not
-    count for the main path."""
-    setup = _traced_ops(torch, 0)
-    run = _traced_ops(torch, STEPS)
-    if not run:
+    """Path (c) once more under torch.profiler, through
+    launch/profile.py's trace_step: device time per step by kernel group
+    and the top kernels.  A run of 0 steps traces the set-up alone
+    (weights, data, the flat buffer); its device work is taken out of
+    the 10-step run's, so only the steps' work is counted.  The busy
+    share is that device time over path (c)'s unprofiled warm step time,
+    since the profiler slows the host.  Launches here do not count for
+    the main path."""
+    from repro_torch.launch.profile import trace_step
+    impl, fuse, opt, _ = PATHS["c"]
+    (ROOT / "build").mkdir(exist_ok=True)
+    out = trace_step(lambda steps: train_path(torch, impl, fuse, opt,
+                                              steps=steps),
+                     STEPS, step_ms, trace_dir=ROOT / "build")
+    if not out["traced"]:
         log("[profile] the profiler traced no device time: not measured")
-        return {"traced": False}
-    setup_groups, setup_names = _tally(setup)
-    run_groups, run_names = _tally(run)
-    groups = {g: (ms - setup_groups.get(g, 0.0)) / STEPS
-              for g, ms in run_groups.items()}
-    names = {}
-    for name, (ms, count) in run_names.items():
-        base_ms, base_count = setup_names.get(name, (0.0, 0))
-        if count > base_count:
-            names[name] = ((ms - base_ms) / STEPS,
-                           (count - base_count) / STEPS)
-    ops_per_step = (len(run) - len(setup)) / STEPS
-    device_ms = sum(groups.values())
-    top = sorted(names.items(), key=lambda kv: -kv[1][0])[:10]
-    out = {"traced": True, "path": "c", "steps": STEPS,
-           "setup_ops": len(setup),
-           "setup_device_ms": sum(setup_groups.values()),
-           "launches_per_step": ops_per_step,
-           "device_ms_per_step": device_ms, "step_ms_unprofiled": step_ms,
-           "device_busy_share": device_ms / step_ms,
-           "groups_ms_per_step": groups,
-           "top_ms_per_step": [[n, ms, c] for n, (ms, c) in top]}
-    log(f"[profile] path (c), steps only (set-up: {len(setup)} device ops, "
-        f"{out['setup_device_ms']:.1f} ms, taken out): {ops_per_step:.0f} "
-        f"device ops/step, device {device_ms:.1f} ms of a {step_ms:.1f} ms "
-        f"step ({100 * device_ms / step_ms:.1f}% busy); by group (ms/step): "
+        return out
+    out["path"] = "c"
+    groups = out["groups_ms_per_step"]
+    device_ms = out["device_ms_per_step"]
+    log(f"[profile] path (c), steps only (set-up: {out['setup_ops']} device "
+        f"ops, {out['setup_device_ms']:.1f} ms, taken out): "
+        f"{out['launches_per_step']:.0f} device ops/step, device "
+        f"{device_ms:.1f} ms of a {step_ms:.1f} ms step "
+        f"({100 * device_ms / step_ms:.1f}% busy); by group (ms/step): "
         + ", ".join(f"{g} {ms:.2f}" for g, ms in
                     sorted(groups.items(), key=lambda kv: -kv[1])))
     return out
@@ -4339,6 +4292,157 @@ def svd_timing(torch) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the dry run (launch/steps.py, launch/dryrun.py) against the card
+# ---------------------------------------------------------------------------
+
+# program -> (the kernel its path launches, its launches a call): path
+# (c)'s step (the tiny LM's flat trainer at full width, 8 agents, batch 2,
+# S 128, pallas, fused momentum: #3), (M2)'s (DeepSeek-V3-671B at its 3
+# dense layers, one agent, batch 1, S 512, bf16 weights, pallas: #1) and
+# Qwen1.5-4B's full-width prefill (B 1, S 4096, bf16 weights,
+# impl='pallas': #15 once a layer)
+DRYRUN_PROGRAMS = {"c": ("update_mix", 1), "M2": ("gossip_mix", 1),
+                   "qwen1.5-4b prefill": ("flash_attention", 40)}
+# the peak above the arguments, predicted on the host against measured
+DRYRUN_PEAK_RTOL = 0.10
+# trace_step's steps (calls) a program
+DRYRUN_STEPS = 3
+
+
+def dryrun_lowerable(name: str) -> tuple:
+    """(Lowerable, config, ShapeConfig) of a phase-8 program, built as
+    the dry run builds its records."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.launch import steps, train
+    from repro_torch.sharding import MeshAxes
+    if name == "qwen1.5-4b prefill":
+        cfg = get_config("qwen1.5-4b")
+        shape = ShapeConfig("prefill_4k", 4096, 1, "prefill")
+        axes = MeshAxes(("data",), "model", {"data": 1, "model": 1})
+        return (steps.build_prefill_lowerable(cfg, shape, axes,
+                                              impl="pallas"), cfg, shape)
+    impl, fuse, opt, _ = PATHS["c"] if name == "c" else BF16_PATHS[name][:4]
+    if name == "c":
+        cfg, agents, batch, seq = train.tiny_lm_config(), N_AGENTS, 2, 128
+    else:
+        kw = BF16_PATHS[name][4]
+        cfg = dataclasses.replace(get_config(kw["arch"]),
+                                  num_layers=kw["layers"])
+        agents, batch, seq = kw["agents"], kw["batch"], kw["seq"]
+    axes = MeshAxes(("data",), "model", {"data": agents, "model": 1})
+    shape = ShapeConfig(f"path_{name}", seq, agents * batch, "train")
+    fed = FedConfig(n_agents=agents, h=10, k=2, gossip_impl=impl)
+    return (steps.build_train_lowerable(
+        cfg, shape, axes, fed=fed, state_layout="flat",
+        fuse_update_mix=fuse, optimizer=opt, microbatches=1), cfg, shape)
+
+
+def dryrun_program(torch, name: str) -> dict:
+    """One program traced on the host (meta tensors) and then run once on
+    the card under the same tally: the FLOPs and op counts must be equal,
+    the fake trace's kernel ops equal to the wrappers' launch counts of
+    the card's run, and the predicted peak above the arguments within
+    DRYRUN_PEAK_RTOL of max_memory_allocated above the bytes allocated
+    before the call.  Then trace_step's breakdown of DRYRUN_STEPS calls
+    beside the dry run's roofline at the card's figures."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import analysis, dryrun
+    from repro_torch.launch.profile import trace_step
+    from repro_torch.launch.trace_analysis import tally
+    kernel, count = DRYRUN_PROGRAMS[name]
+    low, cfg, shape = dryrun_lowerable(name)
+    lowered = low.lower()
+    fake = lowered.costs
+    device = torch.device(DEVICE)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fn = low.make_fn(device)
+    args = low.make_args(device, 0)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    out, real = tally(fn, *args)
+    torch.cuda.synchronize()
+    measured = torch.cuda.max_memory_allocated() - base
+    launches = {k: v for k, v in ops.launch_counts().items() if v}
+    del out, args
+    predicted = fake.temp_bytes
+    gap = (predicted - measured) / measured
+    report = analysis.roofline_terms(
+        name=name, chips=low.world, per_device_flops=fake.flops,
+        per_device_bytes=fake.traffic_bytes,
+        collective_bytes=fake.collective_bytes,
+        model_flops=dryrun._model_flops(cfg, shape),
+        compute_dtype=cfg.compute_dtype)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def run(calls: int) -> None:
+        call_args = low.make_args(device, 0)
+        for _ in range(calls):
+            fn(*call_args)
+        torch.cuda.synchronize()
+
+    breakdown = trace_step(run, DRYRUN_STEPS, trace_dir=ROOT / "build")
+    gc.collect()
+    torch.cuda.empty_cache()
+    bound_ms = 1e3 * max(report.compute_s, report.memory_s)
+    out = {"kernel": kernel, "trace_s": lowered.trace_s,
+           "fake": {"ops": fake.ops, "flops": fake.flops,
+                    "traffic_bytes": fake.traffic_bytes,
+                    "launches": fake.launches, **fake.memory()},
+           "card": {"ops": real.ops, "flops": real.flops,
+                    "traffic_bytes": real.traffic_bytes,
+                    "launches": launches, "tally_launches": real.launches,
+                    "peak_above_args": measured},
+           "peak_gap": gap, "roofline": report.row(),
+           "roofline_bound_ms": bound_ms, "trace_step": breakdown}
+    dev_ms = breakdown.get("device_ms_per_step", 0.0)
+    log(f"[dryrun] {name}: host trace {lowered.trace_s:.1f} s, {fake.ops} "
+        f"ops, {fake.flops:.4e} FLOPs, {fake.traffic_bytes / 1e9:.2f} GB "
+        f"moved, launches {fake.launches}; the card: {real.ops} ops, "
+        f"{real.flops:.4e} FLOPs, launches {launches}; peak above the "
+        f"arguments predicted {predicted / 1e9:.3f} GB, measured "
+        f"{measured / 1e9:.3f} GB ({100 * gap:+.2f}%); roofline (H100 SXM, "
+        f"700 W, {str(cfg.compute_dtype).removeprefix('torch.')}): compute "
+        f"{report.compute_s * 1e3:.3f} ms, memory {report.memory_s * 1e3:.3f}"
+        f" ms → {report.dominant}; device {dev_ms:.3f} ms a call "
+        f"({100 * bound_ms / dev_ms if dev_ms else 0.0:.1f}% of it the "
+        f"bound); by group (ms a call): "
+        + ", ".join(f"{g} {ms:.3f}" for g, ms in sorted(
+            breakdown.get("groups_ms_per_step", {}).items(),
+            key=lambda kv: -kv[1])))
+    top = breakdown.get("top_ms_per_step", [])[:3]
+    if top:
+        log(f"[dryrun] {name}: top kernels (ms, launches a call): "
+            + "; ".join(f"{n[:60]} {ms:.3f} ×{c:.0f}" for n, ms, c in top))
+    check(real.ops == fake.ops and real.flops == fake.flops,
+          f"[dryrun] {name}: the fake trace's {fake.ops} ops and "
+          f"{fake.flops:.6e} FLOPs differ from the card's {real.ops} and "
+          f"{real.flops:.6e}")
+    check(fake.launches == launches == real.launches,
+          f"[dryrun] {name}: the fake trace's kernel ops {fake.launches} "
+          f"differ from the card's launches {launches} (tally "
+          f"{real.launches})")
+    check(launches.get(kernel) == count,
+          f"[dryrun] {name}: {kernel} launched {launches.get(kernel, 0)} "
+          f"times, expected {count}")
+    check(abs(gap) <= DRYRUN_PEAK_RTOL,
+          f"[dryrun] {name}: predicted peak {predicted} B is "
+          f"{100 * gap:+.2f}% from the measured {measured} B (limit "
+          f"±{100 * DRYRUN_PEAK_RTOL:.0f}%)")
+    return out
+
+
+def dryrun_phase(torch) -> dict:
+    return {name: dryrun_program(torch, name) for name in DRYRUN_PROGRAMS}
+
+
 def step_profile(torch) -> dict:
     """Path (c) alone: its warm step time (run_path) and its profile, for
     ``--step-profile DIR``."""
@@ -4451,6 +4555,9 @@ def main() -> int:
     t0 = time.perf_counter()
     paper = paper_phase(torch)
     log(f"[paper] phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    dryrun = dryrun_phase(torch)
+    log(f"[dryrun] phase {time.perf_counter() - t0:.1f} s")
 
     line = []
     for kernel in REPLACES:
@@ -4538,7 +4645,7 @@ def main() -> int:
          "grads": grads,
          "f64_paths": f64_paths, "bf16_paths": bf16_paths,
          "profile": profile, "models": models, "serve": serving,
-         "paper": paper,
+         "paper": paper, "dryrun": dryrun,
          "total_s": total_s},
         indent=1))
     print(json.dumps({"kernels": line}))

@@ -27,7 +27,7 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["Draws", "SweepDraws", "RoundDraws"]
+__all__ = ["Draws", "SweepDraws", "RoundDraws", "ShapeDraws"]
 
 
 class Draws:
@@ -175,6 +175,41 @@ class SweepDraws(Draws):
         for r, run in enumerate(self.runs):
             noise[r] = run.codec_noise(t, n, d, leaf)
         return noise
+
+
+class ShapeDraws:
+    """The draws of a :class:`Draws` without its generator, for the meta
+    device (a shape-only init or a traced step, launch/steps.py): each
+    engine draw is the factory op a Draws makes (``rand``, ``randint``),
+    so that a trace counts what a run on the card counts, with a leading
+    run axis of ``r_runs`` for a lattice (as :class:`SweepDraws`); the
+    init's draws are ``torch.empty``."""
+
+    def __init__(self, device, r_runs: int | None = None):
+        self.device = torch.device(device)
+        self.r_runs = r_runs
+
+    def _lead(self, shape) -> tuple:
+        return ((self.r_runs,) if self.r_runs else ()) + tuple(shape)
+
+    def link_uniforms(self, t, n: int) -> torch.Tensor:
+        return torch.rand(self._lead((n, n)), device=self.device)
+
+    def codec_noise(self, t, n: int, d: int,
+                    leaf: int | None = None) -> torch.Tensor:
+        return torch.rand(self._lead((n, d)), device=self.device)
+
+    def participants(self, t, n: int, k: int) -> torch.Tensor:
+        return torch.randint(0, n, self._lead((k,)), device=self.device)
+
+    def uniform(self, shape, dtype=torch.float32) -> torch.Tensor:
+        return torch.empty(shape, dtype=dtype, device=self.device)
+
+    normal = uniform
+
+    def truncated_normal(self, shape, lo: float = -2.0,
+                         hi: float = 2.0) -> torch.Tensor:
+        return self.uniform(shape)
 
 
 class RoundDraws:

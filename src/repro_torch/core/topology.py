@@ -76,6 +76,10 @@ class Graph:
         return self.adjacency.shape[0]
 
     @property
+    def num_edges(self) -> int:
+        return int(self.adjacency.sum()) // 2
+
+    @property
     def degrees(self) -> np.ndarray:
         return self.adjacency.sum(axis=1)
 

@@ -16,9 +16,17 @@ RG-LRU scan) take f32 or bf16 activations and are forward only: they
 raise when an input requires grad under grad mode, on any device, as the
 reference's Pallas kernels have no backward.
 
-Every kernel wrapper carries a ``launches`` counter that it advances by
-one each time its kernel is launched (CPU calls do not count);
-:func:`launch_counts` / :func:`reset_launch_counts` read and clear them.
+Each kernel is bound as a ``torch.library.custom_op``
+(``repro_torch::<wrapper name>``) whose CUDA implementation launches it
+and whose fake (``register_fake``) gives its outputs' shapes and dtypes:
+the wrapper checks its arguments, sends a CPU tensor to the plain
+version and a CUDA or meta tensor to the op.  So a trace on meta tensors
+(launch/trace_analysis.py, the dry run) passes through each kernel as one
+op that reads its inputs and writes its outputs once, and launches
+nothing.  Every kernel wrapper carries a ``launches`` counter that the
+op's CUDA implementation advances by one each time it launches the
+kernel (CPU and meta calls do not count); :func:`launch_counts` /
+:func:`reset_launch_counts` read and clear them.
 
 The mix kernels (#1–#14) take f32, f64 or bf16 buffers and raise on any
 other dtype (float16 among them), on the card and on the CPU alike.  They
@@ -35,9 +43,11 @@ int8 scales and the rounding noise are f32.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import numpy as np
 import torch
+from torch import Tensor
 
 from repro_torch.kernels import build
 from repro_torch.kernels import ref
@@ -98,8 +108,9 @@ def _lattice(x: torch.Tensor, ndim: int,
 
 
 def _on_cuda(x: torch.Tensor, *others: torch.Tensor) -> bool:
-    """False for CPU tensors (plain version), True for CUDA ones (kernel)."""
-    if x.device.type not in ("cpu", "cuda"):
+    """False for CPU tensors (plain version), True for CUDA ones (the
+    kernel's op) and meta ones (the op's fake: shapes only)."""
+    if x.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"unsupported device {x.device}")
     for t in others:
         if t.device != x.device:
@@ -114,6 +125,26 @@ def _on_cuda(x: torch.Tensor, *others: torch.Tensor) -> bool:
 
 def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _count(name: str) -> None:
+    """Advance the launch counter of the wrapper ``name``."""
+    globals()[name].launches += 1
+
+
+def _kernel_op(name: str, impl, fake):
+    """``impl`` (launching the kernel on CUDA tensors) registered as the
+    op ``repro_torch::name``, with ``fake`` as its shape function."""
+    op = torch.library.custom_op(f"repro_torch::{name}", impl,
+                                 mutates_args=(), device_types="cuda")
+    op.register_fake(fake)
+    return op
+
+
+def _no_m(x: Tensor) -> Tensor:
+    """The empty stand-in of an absent momentum buffer in an op's
+    outputs (an op's outputs are a fixed tuple)."""
+    return x.new_empty((0,), dtype=torch.float32)
 
 
 def _raise_on(rc: int, name: str) -> None:
@@ -158,29 +189,43 @@ def _gossip(fn, ndim, w, x):
     w = _weights("w", w, x.shape[:-2] + (n, n))
     if not _on_cuda(x, w):
         return _plain(fn)(w, x)
-    y = torch.empty_like(x)
-    lib = build.load().libs["gossip_mix"]
-    rc = lib.gossip_mix_dense(w.data_ptr(), x.data_ptr(), y.data_ptr(), r, n,
-                              d, dtype, _stream(x))
-    _raise_on(rc, fn.__name__)
-    fn.launches += 1
-    return y
+    return _OPS[fn.__name__](w, x)
+
+
+def _gossip_impl(name):
+    def impl(w: Tensor, x: Tensor) -> Tensor:
+        r, n, d, dtype = _lattice(x, x.ndim)
+        y = torch.empty_like(x)
+        lib = build.load().libs["gossip_mix"]
+        rc = lib.gossip_mix_dense(w.data_ptr(), x.data_ptr(), y.data_ptr(),
+                                  r, n, d, dtype, _stream(x))
+        _raise_on(rc, name)
+        _count(name)
+        return y
+    return impl
 
 
 def _gossip_sparse(fn, ndim, nbr, wv, wd, x):
     """Kernels #2 and #6: the ELL mix per run."""
     r, n, d, dtype = _lattice(x, ndim)
-    max_deg, wv, wd = _check_ell(nbr, wv, wd, x.shape[:-2], n)
+    _, wv, wd = _check_ell(nbr, wv, wd, x.shape[:-2], n)
     if not _on_cuda(x, nbr, wv, wd):
         return _plain(fn)(nbr, wv, wd, x)
-    y = torch.empty_like(x)
-    lib = build.load().libs["gossip_mix"]
-    rc = lib.gossip_mix_ell(nbr.data_ptr(), wv.data_ptr(), wd.data_ptr(),
-                            max_deg, x.data_ptr(), y.data_ptr(), r, n, d,
-                            dtype, _stream(x))
-    _raise_on(rc, fn.__name__)
-    fn.launches += 1
-    return y
+    return _OPS[fn.__name__](nbr, wv, wd, x)
+
+
+def _gossip_sparse_impl(name):
+    def impl(nbr: Tensor, wv: Tensor, wd: Tensor, x: Tensor) -> Tensor:
+        r, n, d, dtype = _lattice(x, x.ndim)
+        y = torch.empty_like(x)
+        lib = build.load().libs["gossip_mix"]
+        rc = lib.gossip_mix_ell(nbr.data_ptr(), wv.data_ptr(),
+                                wd.data_ptr(), nbr.shape[-1], x.data_ptr(),
+                                y.data_ptr(), r, n, d, dtype, _stream(x))
+        _raise_on(rc, name)
+        _count(name)
+        return y
+    return impl
 
 
 def _update_args(ndim, x, g, eta, m, beta):
@@ -202,40 +247,71 @@ def _update(fn, ndim, w, x, g, eta, m, beta, nesterov):
     extra = () if m is None else (m,)
     if not _on_cuda(x, w, g, eta, *extra):
         return _plain(fn)(w, x, g, eta, m, beta=beta, nesterov=nesterov)
-    y = torch.empty_like(x)
-    m_out = None if m is None else torch.empty_like(m)
-    lib = build.load().libs["update_mix"]
-    rc = lib.update_mix_dense(
-        w.data_ptr(), x.data_ptr(), g.data_ptr(),
-        None if m is None else m.data_ptr(), eta.data_ptr(), y.data_ptr(),
-        None if m_out is None else m_out.data_ptr(), r, n, d,
-        0.0 if beta is None else float(beta),
-        int(bool(nesterov)), dtype, _stream(x))
-    _raise_on(rc, fn.__name__)
-    fn.launches += 1
+    y, m_out = _OPS[fn.__name__](w, x, g, eta, m,
+                                 0.0 if beta is None else float(beta),
+                                 bool(nesterov))
     return y if m is None else (y, m_out)
+
+
+def _update_impl(name):
+    def impl(w: Tensor, x: Tensor, g: Tensor, eta: Tensor,
+             m: Optional[Tensor], beta: float,
+             nesterov: bool) -> tuple[Tensor, Tensor]:
+        r, n, d, dtype = _lattice(x, x.ndim)
+        y = torch.empty_like(x)
+        m_out = _no_m(x) if m is None else torch.empty_like(m)
+        lib = build.load().libs["update_mix"]
+        rc = lib.update_mix_dense(
+            w.data_ptr(), x.data_ptr(), g.data_ptr(),
+            None if m is None else m.data_ptr(), eta.data_ptr(),
+            y.data_ptr(), None if m is None else m_out.data_ptr(), r, n, d,
+            beta, int(nesterov), dtype, _stream(x))
+        _raise_on(rc, name)
+        _count(name)
+        return y, m_out
+    return impl
+
+
+def _update_fake(w, x, g, eta, m, beta, nesterov):
+    return torch.empty_like(x), _no_m(x) if m is None else torch.empty_like(m)
 
 
 def _update_sparse(fn, ndim, nbr, wv, wd, x, g, eta, m, beta, nesterov):
     """Kernels #4 and #8: the fused step with the ELL mix per run."""
     r, n, d, dtype, eta = _update_args(ndim, x, g, eta, m, beta)
-    max_deg, wv, wd = _check_ell(nbr, wv, wd, x.shape[:-2], n)
+    _, wv, wd = _check_ell(nbr, wv, wd, x.shape[:-2], n)
     extra = () if m is None else (m,)
     if not _on_cuda(x, nbr, wv, wd, g, eta, *extra):
         return _plain(fn)(nbr, wv, wd, x, g, eta, m, beta=beta,
                           nesterov=nesterov)
-    y = torch.empty_like(x)
-    m_out = None if m is None else torch.empty_like(m)
-    lib = build.load().libs["update_mix"]
-    rc = lib.update_mix_ell(
-        nbr.data_ptr(), wv.data_ptr(), wd.data_ptr(), max_deg, x.data_ptr(),
-        g.data_ptr(), None if m is None else m.data_ptr(), eta.data_ptr(),
-        y.data_ptr(), None if m_out is None else m_out.data_ptr(), r, n, d,
-        0.0 if beta is None else float(beta),
-        int(bool(nesterov)), dtype, _stream(x))
-    _raise_on(rc, fn.__name__)
-    fn.launches += 1
+    y, m_out = _OPS[fn.__name__](nbr, wv, wd, x, g, eta, m,
+                                 0.0 if beta is None else float(beta),
+                                 bool(nesterov))
     return y if m is None else (y, m_out)
+
+
+def _update_sparse_impl(name):
+    def impl(nbr: Tensor, wv: Tensor, wd: Tensor, x: Tensor, g: Tensor,
+             eta: Tensor, m: Optional[Tensor], beta: float,
+             nesterov: bool) -> tuple[Tensor, Tensor]:
+        r, n, d, dtype = _lattice(x, x.ndim)
+        y = torch.empty_like(x)
+        m_out = _no_m(x) if m is None else torch.empty_like(m)
+        lib = build.load().libs["update_mix"]
+        rc = lib.update_mix_ell(
+            nbr.data_ptr(), wv.data_ptr(), wd.data_ptr(), nbr.shape[-1],
+            x.data_ptr(), g.data_ptr(), None if m is None else m.data_ptr(),
+            eta.data_ptr(), y.data_ptr(),
+            None if m is None else m_out.data_ptr(), r, n, d, beta,
+            int(nesterov), dtype, _stream(x))
+        _raise_on(rc, name)
+        _count(name)
+        return y, m_out
+    return impl
+
+
+def _update_sparse_fake(nbr, wv, wd, x, g, eta, m, beta, nesterov):
+    return torch.empty_like(x), _no_m(x) if m is None else torch.empty_like(m)
 
 
 def gossip_mix(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -321,33 +397,50 @@ def _ef(fn, ndim, w, p, s, u):
     if not _on_cuda(p, w, s, u):
         return _plain(fn)(w, p, s, u)
     # W_ii in p's dtype, from W as given (the reference's diag input)
-    diag = torch.diagonal(w, dim1=-2, dim2=-1).to(p.dtype).contiguous()
-    y, res = torch.empty_like(p), torch.empty_like(p)
-    lib = build.load().libs["compress_mix"]
-    rc = lib.ef_mix_dense(
-        w32.data_ptr(), diag.data_ptr(), p.data_ptr(), s.data_ptr(),
-        u.data_ptr(), y.data_ptr(), res.data_ptr(), r, n, d, dtype,
-        _stream(p))
-    _raise_on(rc, fn.__name__)
-    fn.launches += 1
-    return y, res
+    diag = torch.diagonal(w, dim1=-2, dim2=-1).to(p.dtype).clone(
+        memory_format=torch.contiguous_format)
+    return _OPS[fn.__name__](w32, diag, p, s, u)
+
+
+def _ef_impl(name):
+    def impl(w: Tensor, diag: Tensor, p: Tensor, s: Tensor,
+             u: Tensor) -> tuple[Tensor, Tensor]:
+        r, n, d, dtype = _lattice(p, p.ndim, "p")
+        y, res = torch.empty_like(p), torch.empty_like(p)
+        lib = build.load().libs["compress_mix"]
+        rc = lib.ef_mix_dense(
+            w.data_ptr(), diag.data_ptr(), p.data_ptr(), s.data_ptr(),
+            u.data_ptr(), y.data_ptr(), res.data_ptr(), r, n, d, dtype,
+            _stream(p))
+        _raise_on(rc, name)
+        _count(name)
+        return y, res
+    return impl
 
 
 def _ef_sparse(fn, ndim, nbr, wv, wd, p, s, u):
     """Kernels #11 and #12: the EF receive side with the ELL mix per run."""
     r, n, d, dtype = _ef_buffers(ndim, p, s, u)
-    max_deg, wv, wd = _check_ell(nbr, wv, wd, p.shape[:-2], n)
+    _, wv, wd = _check_ell(nbr, wv, wd, p.shape[:-2], n)
     if not _on_cuda(p, nbr, wv, wd, s, u):
         return _plain(fn)(nbr, wv, wd, p, s, u)
-    y, res = torch.empty_like(p), torch.empty_like(p)
-    lib = build.load().libs["compress_mix"]
-    rc = lib.ef_mix_ell(
-        nbr.data_ptr(), wv.data_ptr(), wd.data_ptr(), max_deg, p.data_ptr(),
-        s.data_ptr(), u.data_ptr(), y.data_ptr(), res.data_ptr(), r, n, d,
-        dtype, _stream(p))
-    _raise_on(rc, fn.__name__)
-    fn.launches += 1
-    return y, res
+    return _OPS[fn.__name__](nbr, wv, wd, p, s, u)
+
+
+def _ef_sparse_impl(name):
+    def impl(nbr: Tensor, wv: Tensor, wd: Tensor, p: Tensor, s: Tensor,
+             u: Tensor) -> tuple[Tensor, Tensor]:
+        r, n, d, dtype = _lattice(p, p.ndim, "p")
+        y, res = torch.empty_like(p), torch.empty_like(p)
+        lib = build.load().libs["compress_mix"]
+        rc = lib.ef_mix_ell(
+            nbr.data_ptr(), wv.data_ptr(), wd.data_ptr(), nbr.shape[-1],
+            p.data_ptr(), s.data_ptr(), u.data_ptr(), y.data_ptr(),
+            res.data_ptr(), r, n, d, dtype, _stream(p))
+        _raise_on(rc, name)
+        _count(name)
+        return y, res
+    return impl
 
 
 def ef_mix(w: torch.Tensor, p: torch.Tensor, s: torch.Tensor,
@@ -388,6 +481,12 @@ def quant_mix(w, u, noise, p, scale):
     _check_buffer("scale", scale, (n,))
     if not _on_cuda(u, w, noise, p, scale):
         return ref.quant_mix(w, u, noise, p, scale)
+    return _OPS["quant_mix"](w, u, noise, p, scale)
+
+
+def _quant_impl(w: Tensor, u: Tensor, noise: Tensor, p: Tensor,
+                scale: Tensor) -> tuple[Tensor, Tensor]:
+    r, n, d, dtype = _lattice(p, 2, "p")
     y = torch.empty_like(p)
     q = torch.empty(u.shape, dtype=torch.int8, device=u.device)
     lib = build.load().libs["compress_mix"]
@@ -395,8 +494,13 @@ def quant_mix(w, u, noise, p, scale):
         w.data_ptr(), scale.data_ptr(), u.data_ptr(), noise.data_ptr(),
         p.data_ptr(), y.data_ptr(), q.data_ptr(), r, n, d, dtype, _stream(u))
     _raise_on(rc, "quant_mix")
-    quant_mix.launches += 1
+    _count("quant_mix")
     return y, q
+
+
+def _quant_fake(w, u, noise, p, scale):
+    return torch.empty_like(p), torch.empty(u.shape, dtype=torch.int8,
+                                            device=u.device)
 
 
 def dequant_mix(w, q, scale, p):
@@ -412,13 +516,18 @@ def dequant_mix(w, q, scale, p):
     _check_buffer("scale", scale, (n,))
     if not _on_cuda(p, w, q, scale):
         return ref.dequant_mix(w, q, scale, p)
+    return _OPS["dequant_mix"](w, q, scale, p)
+
+
+def _dequant_impl(w: Tensor, q: Tensor, scale: Tensor, p: Tensor) -> Tensor:
+    r, n, d, dtype = _lattice(p, 2, "p")
     y = torch.empty_like(p)
     lib = build.load().libs["compress_mix"]
     rc = lib.dequant_mix_dense(
         w.data_ptr(), scale.data_ptr(), q.data_ptr(), p.data_ptr(),
         y.data_ptr(), r, n, d, dtype, _stream(p))
     _raise_on(rc, "dequant_mix")
-    dequant_mix.launches += 1
+    _count("dequant_mix")
     return y
 
 
@@ -463,7 +572,7 @@ def flash_attention(q, k, v, *, window: int = 0, scale=None):
     f32 accuracy for PV (bf16: on the tensor cores as P_hi·V + P_lo·V);
     output (B, S, H, hd) in q's dtype (kernel: flash_attention.cu)."""
     _forward_only("flash_attention", q, k, v)
-    dtype = _activation_dtype("q", q, ("k", k), ("v", v))
+    _activation_dtype("q", q, ("k", k), ("v", v))
     if q.ndim != 4 or k.ndim != 4 or tuple(v.shape) != tuple(k.shape):
         raise ValueError(f"q must be (B, S, H, hd) and k, v (B, S, KV, hd), "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -480,14 +589,21 @@ def flash_attention(q, k, v, *, window: int = 0, scale=None):
     scale = hd ** -0.5 if scale is None else float(scale)
     if not _on_cuda(q, k, v):
         return ref.flash_attention_ref(q, k, v, window=window, scale=scale)
+    return _OPS["flash_attention"](q, k, v, window, scale)
+
+
+def _flash_impl(q: Tensor, k: Tensor, v: Tensor, window: int,
+                scale: float) -> Tensor:
+    b, s, h, hd = q.shape
+    dtype = _ACTIVATION_DTYPES[q.dtype]
     _aligned16(q, k, v)
     out = torch.empty_like(q)
     lib = build.load().libs["flash_attention"]
     rc = lib.flash_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                             out.data_ptr(), b, s, h, kv, hd, window,
+                             out.data_ptr(), b, s, h, k.shape[2], hd, window,
                              ctypes.c_float(scale), dtype, _stream(q))
     _raise_on(rc, "flash_attention")
-    flash_attention.launches += 1
+    _count("flash_attention")
     return out
 
 
@@ -500,7 +616,7 @@ def ssd_scan(x, dt, a, b, c):
     with the f32 operand of each product split into bf16 hi + lo.  One
     counted launch per call (kernel: ssd_scan.cu)."""
     _forward_only("ssd_scan", x, dt, a, b, c)
-    dtype = _activation_dtype("x", x, ("b", b), ("c", c))
+    _activation_dtype("x", x, ("b", b), ("c", c))
     if x.ndim != 4 or b.ndim != 3:
         raise ValueError(f"x must be (B, S, H, P) and b, c (B, S, N), got "
                          f"{tuple(x.shape)}, {tuple(b.shape)}")
@@ -516,6 +632,16 @@ def ssd_scan(x, dt, a, b, c):
         raise ValueError(f"d_state {n} must be a multiple of 8 in [8, 256]")
     if not _on_cuda(x, dt, a, b, c):
         return ref.ssd_scan_ref(x, dt, a, b, c)
+    return _OPS["ssd_scan"](x, dt, a, b, c)
+
+
+def _ssd_impl(x: Tensor, dt: Tensor, a: Tensor, b: Tensor,
+              c: Tensor) -> Tensor:
+    """The scan's launch; its f32 scratch (the chunk states and decays) is
+    allocated here, so a trace's memory does not see it."""
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    dtype = _ACTIVATION_DTYPES[x.dtype]
     y = torch.empty_like(x)
     lib = build.load().libs["ssd_scan"]
     dims = (ctypes.c_int64 * 2)()  # chunks, scratch floats per chunk
@@ -529,7 +655,7 @@ def ssd_scan(x, dt, a, b, c):
                       c.data_ptr(), y.data_ptr(), states.data_ptr(),
                       decay.data_ptr(), bsz, s, h, p, n, dtype, _stream(x))
     _raise_on(rc, "ssd_scan")
-    ssd_scan.launches += 1
+    _count("ssd_scan")
     return y
 
 
@@ -538,21 +664,31 @@ def rglru_scan(a, bx):
     bf16, read once; returns (h (B, S, W) f32, h_last (B, W) f32, equal to
     h[:, −1]) (kernel: rglru_scan.cu)."""
     _forward_only("rglru_scan", a, bx)
-    dtype = _activation_dtype("a", a, ("bx", bx))
+    _activation_dtype("a", a, ("bx", bx))
     if a.ndim != 3 or tuple(bx.shape) != tuple(a.shape) or a.shape[1] < 1:
         raise ValueError(f"a and bx must be one (B, S, W) shape with S >= 1, "
                          f"got {tuple(a.shape)}, {tuple(bx.shape)}")
-    bsz, s, w = a.shape
     if not _on_cuda(a, bx):
         return ref.rglru_scan_ref(a, bx)
-    h = torch.empty(a.shape, dtype=torch.float32, device=a.device)
-    h_last = torch.empty((bsz, w), dtype=torch.float32, device=a.device)
+    return _OPS["rglru_scan"](a, bx)
+
+
+def _rglru_impl(a: Tensor, bx: Tensor) -> tuple[Tensor, Tensor]:
+    bsz, s, w = a.shape
+    h, h_last = _rglru_fake(a, bx)
     lib = build.load().libs["rglru_scan"]
     rc = lib.rglru_scan(a.data_ptr(), bx.data_ptr(), h.data_ptr(),
-                        h_last.data_ptr(), bsz, s, w, dtype, _stream(a))
+                        h_last.data_ptr(), bsz, s, w,
+                        _ACTIVATION_DTYPES[a.dtype], _stream(a))
     _raise_on(rc, "rglru_scan")
-    rglru_scan.launches += 1
+    _count("rglru_scan")
     return h, h_last
+
+
+def _rglru_fake(a, bx):
+    return (torch.empty(a.shape, dtype=torch.float32, device=a.device),
+            torch.empty((a.shape[0], a.shape[2]), dtype=torch.float32,
+                        device=a.device))
 
 
 _KERNEL_WRAPPERS = (gossip_mix, gossip_mix_sparse, update_mix,
@@ -562,6 +698,64 @@ _KERNEL_WRAPPERS = (gossip_mix, gossip_mix_sparse, update_mix,
                     quant_mix, dequant_mix, ef_mix_batched,
                     ef_mix_sparse_batched, flash_attention, ssd_scan,
                     rglru_scan)
+
+
+def _same_as(arg: int):
+    """A fake returning ``torch.empty_like`` of argument ``arg``."""
+    def fake(*args):
+        return torch.empty_like(args[arg])
+    return fake
+
+
+def _pair_like(arg: int):
+    """A fake returning two ``torch.empty_like`` of argument ``arg``."""
+    def fake(*args):
+        return torch.empty_like(args[arg]), torch.empty_like(args[arg])
+    return fake
+
+
+# the kernels' ops, by wrapper name
+_OPS = {
+    "gossip_mix": _kernel_op("gossip_mix", _gossip_impl("gossip_mix"),
+                             _same_as(1)),
+    "gossip_mix_batched": _kernel_op(
+        "gossip_mix_batched", _gossip_impl("gossip_mix_batched"),
+        _same_as(1)),
+    "gossip_mix_sparse": _kernel_op(
+        "gossip_mix_sparse", _gossip_sparse_impl("gossip_mix_sparse"),
+        _same_as(3)),
+    "gossip_mix_sparse_batched": _kernel_op(
+        "gossip_mix_sparse_batched",
+        _gossip_sparse_impl("gossip_mix_sparse_batched"),
+        _same_as(3)),
+    "update_mix": _kernel_op("update_mix", _update_impl("update_mix"),
+                             _update_fake),
+    "update_mix_batched": _kernel_op(
+        "update_mix_batched", _update_impl("update_mix_batched"),
+        _update_fake),
+    "update_mix_sparse": _kernel_op(
+        "update_mix_sparse", _update_sparse_impl("update_mix_sparse"),
+        _update_sparse_fake),
+    "update_mix_sparse_batched": _kernel_op(
+        "update_mix_sparse_batched",
+        _update_sparse_impl("update_mix_sparse_batched"),
+        _update_sparse_fake),
+    "ef_mix": _kernel_op("ef_mix", _ef_impl("ef_mix"), _pair_like(2)),
+    "ef_mix_batched": _kernel_op("ef_mix_batched", _ef_impl("ef_mix_batched"),
+                                 _pair_like(2)),
+    "ef_mix_sparse": _kernel_op(
+        "ef_mix_sparse", _ef_sparse_impl("ef_mix_sparse"), _pair_like(3)),
+    "ef_mix_sparse_batched": _kernel_op(
+        "ef_mix_sparse_batched", _ef_sparse_impl("ef_mix_sparse_batched"),
+        _pair_like(3)),
+    "quant_mix": _kernel_op("quant_mix", _quant_impl, _quant_fake),
+    "dequant_mix": _kernel_op("dequant_mix", _dequant_impl,
+                              _same_as(3)),
+    "flash_attention": _kernel_op("flash_attention", _flash_impl,
+                                  _same_as(0)),
+    "ssd_scan": _kernel_op("ssd_scan", _ssd_impl, _same_as(0)),
+    "rglru_scan": _kernel_op("rglru_scan", _rglru_impl, _rglru_fake),
+}
 
 
 def reset_launch_counts() -> None:

@@ -1,25 +1,32 @@
 """Analytic cost models of the port (repro/launch/analysis.py, in part).
 
 Plain arithmetic on shapes, equal to the reference's function for
-function (each docstring names the collectives in the reference's terms:
-its ``psum_scatter``, ``ppermute`` halo and ``psum`` are the port's
-``reduce_scatter_tensor``, ``batch_isend_irecv`` halo and
-``all_reduce``, core/sharded.py): the gossip, sharded-gossip, 2-D mesh, sweep, sharded-sweep,
-population, delta, fused-round and compressed-halo models, the payload
-byte counts, and the roofline terms.  ``pred_us`` and the roofline's
-seconds are the reference's, at its constants below.
+function in every byte, pass and dispatch count (each docstring names the
+collectives in the reference's terms: its ``psum_scatter``, ``ppermute``
+halo and ``psum`` are the port's ``reduce_scatter_tensor``,
+``batch_isend_irecv`` halo and ``all_reduce``, core/sharded.py): the
+gossip, sharded-gossip, 2-D mesh, sweep, sharded-sweep, population,
+delta, fused-round and compressed-halo models, the payload byte counts,
+and the roofline terms.  Their seconds and ``pred_us`` divide those bytes
+and operations by the H100's figures below: the mix models by the f32
+rate outside the tensor cores (the mix kernels sum in f32, and the port
+keeps TF32 off), the roofline by the peak of the step's compute dtype.
 
-The reference's parsing of XLA's optimized HLO text
-(``parse_collectives``, ``CollectiveStats``, ``_shape_bytes``) has no
-counterpart here yet: the port has no HLO (ROADMAP Queue A item 5).
+The reference's parsing of XLA's optimized HLO becomes a tally of the
+collectives a traced step makes (launch/trace_analysis.py): the port
+has no HLO, so ``parse_collectives`` reads that tally's counts and bytes
+into the reference's ``CollectiveStats``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
-__all__ = ["PEAK_FLOPS", "HBM_BW", "ICI_BW", "H2D_BW", "roofline_terms",
+__all__ = ["PEAK_FLOPS", "PEAK_FLOPS_F32", "PEAK_FLOPS_F64",
+           "PEAK_FLOPS_BY_DTYPE", "HBM_BW", "ICI_BW", "H2D_BW", "peak_flops",
+           "roofline_terms", "CollectiveStats", "parse_collectives",
            "RooflineReport", "dtype_bytes", "gossip_cost_model",
            "sharded_gossip_cost_model", "mesh2d_cost_model",
            "sweep_cost_model", "sharded_sweep_cost_model",
@@ -27,16 +34,17 @@ __all__ = ["PEAK_FLOPS", "HBM_BW", "ICI_BW", "H2D_BW", "roofline_terms",
            "compressed_halo_cost_model", "COMPRESS_SCHEMES",
            "delta_row_bytes", "delta_cost_model", "roundfuse_cost_model"]
 
-# The reference's roofline constants for its own accelerator
-# (repro/launch/analysis.py:34-37), kept so that every model's pred_us and
-# the roofline terms equal the reference's.  They describe no part of the
-# H100 and its host, and the port predicts no card time from them:
-# chip_smoke.py measures the card's times and rates, and its bounds take
-# the H100's own memory rate.
-PEAK_FLOPS = 197e12
-HBM_BW = 819e9
-ICI_BW = 50e9
-H2D_BW = 16e9
+# The card's data-sheet figures
+PEAK_FLOPS = 989e12      # H100 SXM, 700 W: bf16 (and f16) tensor cores, dense
+PEAK_FLOPS_F32 = 67e12   # H100 SXM, 700 W: f32 outside the tensor cores
+PEAK_FLOPS_F64 = 34e12   # H100 SXM, 700 W: f64 outside the tensor cores
+HBM_BW = 3.35e12         # H100 SXM, 700 W: HBM3, bytes/s
+ICI_BW = 450e9           # H100 SXM, 700 W: NVLink, bytes/s each way
+H2D_BW = 64e9            # H100 SXM, 700 W: PCIe Gen5 x16, bytes/s each way
+
+# peak FLOP/s by compute dtype name (dtype_bytes' names)
+PEAK_FLOPS_BY_DTYPE = {"bf16": PEAK_FLOPS, "f16": PEAK_FLOPS,
+                       "f32": PEAK_FLOPS_F32, "f64": PEAK_FLOPS_F64}
 
 _DTYPE_BYTES = {
     "pred": 1, "s4": 1, "u4": 1, "s8": 1, "u8": 1,
@@ -49,6 +57,54 @@ _DTYPE_BYTES = {
 def dtype_bytes(name: str) -> int:
     """Bytes of an XLA element type name (4 for a name it does not know)."""
     return _DTYPE_BYTES.get(name, 4)
+
+
+def _shape_bytes(dtype: str, dims: str) -> int:
+    """Bytes of an XLA shape, e.g. ('bf16', '4,1024,512')."""
+    n = math.prod(int(d) for d in dims.split(",") if d)
+    return n * dtype_bytes(dtype)
+
+
+@dataclasses.dataclass
+class CollectiveStats:
+    counts: dict[str, int]
+    bytes_by_kind: dict[str, int]
+
+    @property
+    def total_bytes(self) -> int:
+        return sum(self.bytes_by_kind.values())
+
+    def summary(self) -> str:
+        parts = [f"{k}:{self.counts[k]}×/{self.bytes_by_kind[k]/1e6:.1f}MB"
+                 for k in sorted(self.counts) if self.counts[k]]
+        return " ".join(parts) or "none"
+
+
+def parse_collectives(costs) -> CollectiveStats:
+    """The per-device output bytes of every collective of a traced step:
+    ``costs`` is launch/trace_analysis.py's OpCosts (the reference parses
+    them from optimized HLO text)."""
+    return CollectiveStats(counts=dict(costs.collective_counts),
+                           bytes_by_kind={
+                               k: int(b) for k, b in
+                               costs.collective_bytes_by_kind.items()})
+
+
+_TORCH_DTYPE_NAMES = {"bfloat16": "bf16", "float16": "f16",
+                      "float32": "f32", "float64": "f64"}
+
+
+def peak_flops(dtype) -> float:
+    """The card's peak FLOP/s for a compute dtype: a name of
+    :data:`PEAK_FLOPS_BY_DTYPE` or a torch dtype."""
+    name = str(dtype).removeprefix("torch.")
+    name = _TORCH_DTYPE_NAMES.get(name, name)
+    try:
+        return PEAK_FLOPS_BY_DTYPE[name]
+    except KeyError:
+        raise ValueError(f"no peak rate for compute dtype {dtype!r}; "
+                         f"choose from {sorted(PEAK_FLOPS_BY_DTYPE)}"
+                         ) from None
 
 
 @dataclasses.dataclass
@@ -109,7 +165,7 @@ def gossip_cost_model(*, n_agents: int, d: int, num_leaves: int,
 
     Returns {impl: {bytes, flops, dispatches, pred_us}} with pred_us =
     max(memory, compute) + dispatch overhead at the module constants
-    (HBM_BW, PEAK_FLOPS; dispatch_us per dispatch — host-side, so it
+    (HBM_BW, PEAK_FLOPS_F32; dispatch_us per dispatch — host-side, so it
     vanishes inside a fused scan but bounds the per-step executor).
     """
     n, dd, b = n_agents, float(d), param_bytes
@@ -120,7 +176,7 @@ def gossip_cost_model(*, n_agents: int, d: int, num_leaves: int,
     sparse_bytes = (num_directed_edges + 2.0 * n) * dd * b  # gather+own+Y
 
     def entry(bytes_, flops, dispatches):
-        pred = max(bytes_ / HBM_BW, flops / PEAK_FLOPS) * 1e6 \
+        pred = max(bytes_ / HBM_BW, flops / PEAK_FLOPS_F32) * 1e6 \
             + dispatches * dispatch_us
         return {"bytes": bytes_, "flops": flops, "dispatches": dispatches,
                 "pred_us": pred}
@@ -158,15 +214,14 @@ def sharded_gossip_cost_model(*, n_agents: int, d: int, n_shards: int,
     neighbouring block pair is fully cut-connected.
 
     Returns {impl: {per_device_bytes, flops, collective_bytes, pred_us}}
-    (collective_bytes per device; pred at TPU constants, CPU CI only checks
-    the relative shape).
+    (collective_bytes per device; pred at the module's H100 figures).
     """
     n, dd, b, s = n_agents, float(d), param_bytes, n_shards
     n_local = n // s
     stream_blk = 2.0 * n_local * dd * b            # read + write own block
 
     def entry(bytes_, flops, coll_bytes, extra=None):
-        pred = max(bytes_ / HBM_BW, flops / PEAK_FLOPS) * 1e6 \
+        pred = max(bytes_ / HBM_BW, flops / PEAK_FLOPS_F32) * 1e6 \
             + coll_bytes / ICI_BW * 1e6 + dispatch_us
         out = {"per_device_bytes": bytes_, "flops": flops,
                "collective_bytes": coll_bytes, "pred_us": pred}
@@ -224,7 +279,7 @@ def mesh2d_cost_model(*, n_agents: int, d: int, n_agent_shards: int,
 
     Returns {impl: {state_bytes_per_device, gossip_collective_bytes,
     model_collective_bytes, server_bytes_per_round, pred_us}} with the
-    same TPU-constant roofline as :func:`sharded_gossip_cost_model`.
+    same roofline at the H100's figures as :func:`sharded_gossip_cost_model`.
     """
     n, dd, b = n_agents, float(d), param_bytes
     a, m = n_agent_shards, n_model_shards
@@ -607,12 +662,13 @@ def compressed_halo_cost_model(*, n_agents: int, d: int, n_shards: int,
 
 def roofline_terms(*, name: str, chips: int, per_device_flops: float,
                    per_device_bytes: float, collective_bytes: float,
-                   model_flops: float) -> RooflineReport:
-    """Three roofline terms in seconds (per step).
+                   model_flops: float, compute_dtype="bf16") -> RooflineReport:
+    """Three roofline terms in seconds (per step), at the card's figures:
+    the FLOPs over the peak of ``compute_dtype`` (:func:`peak_flops`),
+    the bytes over HBM_BW, the collective bytes over ICI_BW.
 
-    cost_analysis reports per-device numbers for SPMD modules; we scale
-    FLOPs back to cluster totals for the useful-ratio but keep the time
-    terms per-device (they are what bound the step).
+    The per-device numbers are scaled back to cluster totals for the
+    useful-ratio; the time terms stay per device (they bound the step).
     """
     return RooflineReport(
         name=name, chips=chips,
@@ -620,7 +676,7 @@ def roofline_terms(*, name: str, chips: int, per_device_flops: float,
         hlo_bytes=per_device_bytes * chips,
         collective_bytes=collective_bytes,
         model_flops=model_flops,
-        compute_s=per_device_flops / PEAK_FLOPS,
+        compute_s=per_device_flops / peak_flops(compute_dtype),
         memory_s=per_device_bytes / HBM_BW,
         collective_s=collective_bytes / ICI_BW,
     )

@@ -51,7 +51,6 @@ Example:
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import time
 
 import numpy as np
@@ -69,12 +68,11 @@ from repro_torch.core import sweep as sweep_lib
 from repro_torch.core import topology as topo
 from repro_torch.core.draws import Draws, SweepDraws
 from repro_torch.core.fedavg import FedAvgConfig
-from repro_torch.core.feddec import FedDecConfig
-from repro_torch.core.mixing import MixingDistribution
 from repro_torch.data.federated_lm import make_federated_lm
 from repro_torch.launch.mesh import make_agent_mesh
+from repro_torch.launch.steps import build_fed_setup, sweep_lattice_configs
 from repro_torch.models import build_model
-from repro_torch.sharding import MeshAxes, n_agents_for
+from repro_torch.sharding import MeshAxes
 
 OPTIMIZERS = ("sgd", "momentum", "adamw")
 
@@ -98,78 +96,6 @@ def fed_axes(fed: FedConfig) -> MeshAxes:
     """The training CLI's mesh roles: one ``data`` axis of ``fed.n_agents``
     slices and a model axis of 1 (repro/launch/train.py:118)."""
     return MeshAxes(("data",), "model", {"data": fed.n_agents, "model": 1})
-
-
-def build_fed_setup(cfg: ArchConfig, axes: MeshAxes,
-                    fed: FedConfig | None = None
-                    ) -> tuple[FedDecConfig, int]:
-    """(FedDecConfig, n_agents) for this arch on this mesh
-    (repro/launch/steps.py:56-84): the agent count from the arch's layout
-    (``sharding.n_agents_for``: the data axes' size, or the replicated
-    layout's own count), the graph family, Metropolis mixing with link
-    failures, and K capped at n."""
-    n = n_agents_for(cfg, axes)
-    fed = fed or FedConfig()
-    if fed.graph.startswith("ring"):
-        k = int(fed.graph[4:] or 2)
-        graph = topo.ring_graph(n, k=min(k, (n - 1) // 2 or 1))
-    elif fed.graph == "full":
-        graph = topo.fully_connected_graph(n)
-    elif fed.graph.startswith("geo"):
-        graph = topo.geographic_graph(n, float(fed.graph[3:]), seed=0)
-    elif fed.graph.startswith("er"):
-        graph = topo.erdos_renyi_graph(n, float(fed.graph[2:]), seed=0)
-    else:
-        raise ValueError(f"unknown graph {fed.graph!r}")
-    mixing = MixingDistribution(graph, p_fail=fed.p_fail,
-                                scheme="metropolis")
-    # 'permute' is a gossip_fn built on the mesh (gossip.make_permute_gossip),
-    # not a FedDecConfig impl: the config falls back to dense there
-    impl = "dense" if fed.gossip_impl == "permute" else fed.gossip_impl
-    fcfg = FedDecConfig(mixing=mixing, h=fed.h, k=min(fed.k, n),
-                        gossip_impl=impl,
-                        gossip_compress=fed.gossip_compress,
-                        delta=fed.delta)
-    return fcfg, n
-
-
-def sweep_lattice_configs(fcfg: FedDecConfig, fed: FedConfig | None,
-                          sweep_runs: int,
-                          sweep_axis: str = "seed") -> list:
-    """Per-run FedDecConfigs for a --sweep-runs lattice
-    (repro/launch/steps.py:86-122).
-
-    ``seed``     — R replicas of the base config (the runs differ only in
-                   their random draws);
-    ``h``        — doubling server-period lattice H·{1, 2, 4, …};
-    ``topology`` — R independent draws of the base graph family (geo/er
-                   re-drawn with seed = run index; deterministic families
-                   have nothing to sweep and are rejected).
-    """
-    fed = fed or FedConfig()
-    if sweep_axis == "seed":
-        return [fcfg] * sweep_runs
-    if sweep_axis == "h":
-        return [dataclasses.replace(fcfg, h=fcfg.h * (1 << r))
-                for r in range(sweep_runs)]
-    if sweep_axis == "topology":
-        n = fcfg.n_agents
-        if fed.graph.startswith("geo"):
-            graphs = [topo.geographic_graph(n, float(fed.graph[3:]), seed=r)
-                      for r in range(sweep_runs)]
-        elif fed.graph.startswith("er"):
-            graphs = [topo.erdos_renyi_graph(n, float(fed.graph[2:]), seed=r)
-                      for r in range(sweep_runs)]
-        else:
-            raise ValueError(
-                f"--sweep-axis topology needs a random graph family "
-                f"(geoR/erP), got {fed.graph!r}")
-        return [dataclasses.replace(
-            fcfg, mixing=MixingDistribution(g, p_fail=fed.p_fail,
-                                            scheme="metropolis"))
-            for g in graphs]
-    raise ValueError(f"unknown sweep_axis {sweep_axis!r}; choose "
-                     f"seed|h|topology")
 
 
 def resolve_device(device) -> torch.device:

@@ -10,6 +10,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import engine
+from repro_torch.core.draws import ShapeDraws
 from repro_torch.models import transformer
 
 __all__ = ["Model", "build_model"]
@@ -32,6 +33,13 @@ class Model:
     def init(self, draws) -> dict:
         """Random initial parameters on ``draws.device``."""
         return transformer.init_model(draws, self.cfg)
+
+    def init_shapes(self, device="meta") -> dict:
+        """The parameter tree's shapes and dtypes, nothing allocated: the
+        port's ``jax.eval_shape(model.init, key)``.  :meth:`init` on
+        ``core.draws.ShapeDraws``, whose draws are ``torch.empty``, on the
+        meta device by default."""
+        return self.init(ShapeDraws(device))
 
     def param_count(self, params: dict) -> int:
         return sum(leaf.numel() for leaf in _leaves(params))

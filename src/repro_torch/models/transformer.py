@@ -321,8 +321,10 @@ def _embed_inputs(params: dict, cfg: ArchConfig, batch: dict):
     unscaled (the reference's order)."""
     x = layers.embed(params["embed"], batch["tokens"],
                      compute_dtype=cfg.compute_dtype)
-    x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.compute_dtype,
-                         device=x.device)
+    # a factory, not torch.tensor: under a grad transform and a dispatch
+    # mode (launch/trace_analysis.py) torch.tensor's detach_ is refused
+    x = x * torch.full((), cfg.d_model ** 0.5, dtype=cfg.compute_dtype,
+                       device=x.device)
     if cfg.frontend == "vision" and "frontend_embeds" in batch:
         fe = batch["frontend_embeds"].to(cfg.compute_dtype)
         x = torch.cat([fe, x[:, fe.shape[1]:]], dim=1)

@@ -1,7 +1,10 @@
 """The port's analytic cost models (repro_torch/launch/analysis.py)
 against the reference's (repro/launch/analysis.py): every ported function
-returns the reference's dict or value exactly, ``pred_us`` included, on a
-grid of arguments; the 2-D mesh model's contract cases of
+returns the reference's dict or value exactly on a grid of arguments, its
+byte, pass and dispatch fields as they are and its seconds and
+``pred_us`` as the reference computes them at the port's H100 figures
+(the ``card_figures`` fixture sets the reference's constants to them for
+the comparison); the 2-D mesh model's contract cases of
 tests/test_mesh.py:110-160 are mirrored on the port's model.
 """
 
@@ -16,6 +19,17 @@ from repro.launch import analysis as ref
 from repro_torch.launch import analysis as port
 
 
+@pytest.fixture(autouse=True)
+def card_figures(monkeypatch):
+    """The reference's module constants at the port's figures: the mix
+    models' compute term at the f32 rate, the byte terms at the card's
+    HBM, NVLink and PCIe rates."""
+    for name, value in (("PEAK_FLOPS", port.PEAK_FLOPS_F32),
+                        ("HBM_BW", port.HBM_BW), ("ICI_BW", port.ICI_BW),
+                        ("H2D_BW", port.H2D_BW)):
+        monkeypatch.setattr(ref, name, value)
+
+
 def _same(fn: str, **kw):
     got, want = getattr(port, fn)(**kw), getattr(ref, fn)(**kw)
     assert got == want
@@ -23,8 +37,18 @@ def _same(fn: str, **kw):
 
 
 def test_constants_and_dtype_bytes_are_the_reference_s():
-    assert (port.PEAK_FLOPS, port.HBM_BW, port.ICI_BW, port.H2D_BW) == \
-        (ref.PEAK_FLOPS, ref.HBM_BW, ref.ICI_BW, ref.H2D_BW)
+    """The card's figures (NVIDIA H100 SXM data sheet, 700 W), the peak by
+    compute dtype, and the reference's dtype byte table."""
+    assert (port.PEAK_FLOPS, port.PEAK_FLOPS_F32, port.PEAK_FLOPS_F64) == \
+        (989e12, 67e12, 34e12)
+    assert (port.HBM_BW, port.ICI_BW, port.H2D_BW) == (3.35e12, 450e9, 64e9)
+    import torch
+    for dtype, peak in (("bf16", 989e12), ("f16", 989e12), ("f32", 67e12),
+                        ("f64", 34e12), (torch.bfloat16, 989e12),
+                        (torch.float32, 67e12)):
+        assert port.peak_flops(dtype) == peak
+    with pytest.raises(ValueError, match="no peak rate"):
+        port.peak_flops("s8")
     assert port.COMPRESS_SCHEMES == ref.COMPRESS_SCHEMES
     for name in ("pred", "s8", "bf16", "f16", "s32", "f32", "f64", "c128",
                  "bogus"):
@@ -131,8 +155,12 @@ def test_sharded_sweep_cost_model_refuses_indivisible_shards():
 
 @pytest.mark.parametrize("n_total", [10**4, 10**6])
 def test_population_and_delta_cost_models(n_total):
+    # h2d_bw given: the reference's default was bound at its definition
     _same("population_cost_model", n_total=n_total, cohort_size=256, d=25,
-          max_degree=4, h=10)
+          max_degree=4, h=10, h2d_bw=port.H2D_BW)
+    assert port.population_cost_model(
+        n_total=n_total, cohort_size=256, d=25, max_degree=4,
+        h=10)["transfer_us_round"] == 2 * 256 * 25 * 4 / port.H2D_BW * 1e6
     for delta in ("none", "full", "topk:128", "topk:99999", "lowrank:2",
                   "lowrank:8"):
         for d in (25, 18_744_576, 156_519_168):
@@ -178,10 +206,13 @@ def test_compress_models(d):
               schemes=("bf16", "topk:0.5"))
 
 
-def test_roofline_terms():
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+def test_roofline_terms(dtype, monkeypatch):
+    monkeypatch.setattr(ref, "PEAK_FLOPS", port.peak_flops(dtype))
     kw = dict(name="x", chips=4, per_device_flops=3e12,
               per_device_bytes=8e9, collective_bytes=2e8, model_flops=1e13)
-    got, want = port.roofline_terms(**kw), ref.roofline_terms(**kw)
+    got = port.roofline_terms(**kw, compute_dtype=dtype)
+    want = ref.roofline_terms(**kw)
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
     assert got.row() == want.row()
     assert (got.dominant, got.useful_flops_ratio) == \

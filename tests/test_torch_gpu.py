@@ -1469,3 +1469,134 @@ def test_cuda_sharded_world_of_one_equals_flat(cuda, tmp_path, impl, sweep):
         dist.destroy_process_group()
     scale = ends[0].abs().max().item()
     assert (ends[1] - ends[0]).abs().max().item() <= 1e-5 * scale
+
+
+# ---------------------------------------------------------------------------
+# The kernels' custom ops, and the dry run against the card (launch/steps.py)
+# ---------------------------------------------------------------------------
+
+
+def _op_args(cuda, name: str) -> tuple:
+    """Small valid arguments of the op ``repro_torch::name``, as its
+    wrapper passes them (W and ELL weights f32, η an (R,) tensor)."""
+    gen = _gen(cuda, 7)
+    r = 2 if name.endswith("_batched") else None
+    lead = (r,) if r else ()
+    n, d, deg = 6, 1030, 2
+    x, g, s, u = (_randn(gen, *lead, n, d) for _ in range(4))
+    w = torch.rand(*lead, n, n, device=cuda, generator=gen)
+    nbr = torch.remainder(torch.arange(n, device=cuda)[:, None]
+                          + torch.tensor([1, n - 1], device=cuda),
+                          n).to(torch.int32).expand(*lead, n, deg)
+    nbr = nbr.contiguous()
+    wv = torch.rand(*lead, n, deg, device=cuda, generator=gen)
+    wd = torch.rand(*lead, n, device=cuda, generator=gen)
+    eta = torch.full((r or 1,), 0.05, device=cuda)
+    m = _randn(gen, *lead, n, d)
+    if name in ("gossip_mix", "gossip_mix_batched"):
+        return w, x
+    if name in ("gossip_mix_sparse", "gossip_mix_sparse_batched"):
+        return nbr, wv, wd, x
+    if name in ("update_mix", "update_mix_batched"):
+        return w, x, g, eta, m, 0.9, False
+    if name in ("update_mix_sparse", "update_mix_sparse_batched"):
+        return nbr, wv, wd, x, g, eta, None, 0.0, False
+    if name in ("ef_mix", "ef_mix_batched"):
+        diag = torch.diagonal(w, dim1=-2, dim2=-1).contiguous()
+        return w, diag, x, s, u
+    if name in ("ef_mix_sparse", "ef_mix_sparse_batched"):
+        return nbr, wv, wd, x, s, u
+    scale = torch.rand(n, device=cuda, generator=gen) + 0.5
+    if name == "quant_mix":
+        return w, u, torch.rand(n, d, device=cuda, generator=gen), x, scale
+    if name == "dequant_mix":
+        q = torch.randint(-127, 128, (n, d), device=cuda, generator=gen,
+                          dtype=torch.int8)
+        return w, q, scale, x
+    if name == "flash_attention":
+        q = _randn(gen, 1, 130, 4, 64, dtype=torch.bfloat16)
+        k = _randn(gen, 1, 130, 2, 64, dtype=torch.bfloat16)
+        return q, k, torch.randn_like(k), 0, 0.125
+    if name == "ssd_scan":
+        b, s_, h, p, nn = 1, 100, 3, 16, 16
+        return (_randn(gen, b, s_, h, p), torch.rand(b, s_, h, device=cuda),
+                -torch.rand(h, device=cuda) - 0.5, _randn(gen, b, s_, nn),
+                _randn(gen, b, s_, nn))
+    assert name == "rglru_scan", name
+    return (torch.rand(2, 33, 300, device=cuda) * 0.9,
+            _randn(gen, 2, 33, 300))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(ops._OPS))
+def test_cuda_kernel_op_passes_opcheck(cuda, name):
+    """Each kernel's custom op: its schema, its (absent) autograd
+    registration and its fake against the CUDA implementation
+    (torch.library.opcheck), and the fake's shapes and dtypes equal the
+    real outputs'."""
+    op = getattr(torch.ops.repro_torch, name).default
+    args = _op_args(cuda, name)
+    torch.library.opcheck(op, args, test_utils=(
+        "test_schema", "test_autograd_registration", "test_faketensor"))
+    real = op(*args)
+    meta = op(*(a.to("meta") if isinstance(a, torch.Tensor) else a
+                for a in args))
+    for got, want in zip(*(o if isinstance(o, tuple) else (o,)
+                           for o in (meta, real))):
+        assert (got.shape, got.dtype) == (want.shape, want.dtype)
+
+
+def _dryrun_lowerable(program: str):
+    """Phase 8's three programs at a small size: the tiny LM's flat
+    trainer (d 256, 2 layers, 4 agents) under pallas fused momentum (#3)
+    and under pallas sgd with bf16 weights (#1), and Qwen1.5-4B's smoke
+    prefill under impl='pallas' (#15)."""
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.launch import steps, train
+    from repro_torch.sharding import MeshAxes
+    if program == "prefill":
+        cfg = get_config("qwen1.5-4b").smoke()
+        return steps.build_prefill_lowerable(
+            cfg, ShapeConfig("p", 256, 2, "prefill"),
+            MeshAxes(("data",), "model", {"data": 1, "model": 1}),
+            impl="pallas"), "flash_attention", cfg.num_layers
+    cfg = train.tiny_lm_config(d_model=256, layers=2)
+    fuse, opt, kernel = (True, "momentum", "update_mix") \
+        if program == "fused" else (False, "sgd", "gossip_mix")
+    if program == "bf16":
+        cfg = dataclasses.replace(cfg, param_dtype=torch.bfloat16)
+    return steps.build_train_lowerable(
+        cfg, ShapeConfig("t", 64, 8, "train"),
+        MeshAxes(("data",), "model", {"data": 4, "model": 1}),
+        fed=FedConfig(n_agents=4, h=10, k=2, gossip_impl="pallas"),
+        state_layout="flat", fuse_update_mix=fuse, optimizer=opt,
+        microbatches=1), kernel, 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("program", ["fused", "bf16", "prefill"])
+def test_cuda_dryrun_matches_the_card(cuda, program):
+    """The fake trace's FLOPs, op count and kernel ops equal the same
+    tally of one call on the card, whose wrappers launch those kernels,
+    and its peak above the arguments is within 10% of the card's."""
+    import gc
+    from repro_torch.launch.trace_analysis import tally
+    low, kernel, count = _dryrun_lowerable(program)
+    fake = low.lower().costs
+    torch.mm(torch.ones(64, 64, device=cuda), torch.ones(64, 64,
+                                                         device=cuda))
+    fn = low.make_fn(cuda)
+    args = low.make_args(cuda, 0)
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    _, real = tally(fn, *args)
+    torch.cuda.synchronize()
+    measured = torch.cuda.max_memory_allocated() - base
+    launches = {k: v for k, v in ops.launch_counts().items() if v}
+    assert (real.ops, real.flops) == (fake.ops, fake.flops)
+    assert fake.launches == launches == real.launches == {kernel: count}
+    assert abs(fake.temp_bytes - measured) <= 0.10 * measured
