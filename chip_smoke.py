@@ -24,7 +24,10 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
      slice against the single-run kernel on that slice (to 0.0); then
      (3d) #1 and #5 at the sharded engine's own-block shapes (a strided
      block of W: #1 at n_local 4, 2 and 1, #5 at R 2 and n_local 4 and 2,
-     D = 156,519,168), timed beside their bounds; then the
+     D = 156,519,168), timed beside their bounds; (3e) #1 at the 2-D
+     engine's column blocks (the whole (8, 8) W on x (8, D/2), and a
+     strided (4, 4) block of it on x (4, D/2), at phase 4h's D/2 =
+     29,590,656 and the full depth's 78,259,584), likewise; then the
      compressed-gossip kernels #9, #11, #13, #14 at the ragged shapes and
      at full shape, y within 1e-5·max|y| and the residual r (#9, #11) and
      the int8 payload q (#13) equal to the plain version's (0.0); then the
@@ -163,6 +166,17 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
      pallas (#5 once a step), each held to its phase-4 twin's end state
      ((a), (a), (i), (e)) within 1e-5·max|x| (int8: 99% of it, every
      element within one int8 step), with its step time and peak;
+     then (4h) the 2-D ('agents', 'model') engine: gloo worlds of 2 and
+     4 ranks, every rank on this one card (the kernels built before they
+     start), each rank running train_loop(mesh_agents=A, mesh_model=M)
+     on path (a)'s run at full width, 1 layer (D 59,181,312), 5 steps and
+     H 5, after a one-step warm-up: (t1) A 1 x M 2 pallas (#1 once a step a rank),
+     (t2) the same under int8 (#1 once a step a rank; the scales' maximum
+     over 'model'), (t3) A 2 x M 2 dense (no kernel), held to the end
+     states of path (a)'s and (i)'s runs at that depth on one device as
+     phase 4g holds its paths, each rank's state exactly n/A · D/M · 4
+     bytes, with the step times (gloo's collectives, staged through the
+     host) and the per-rank peaks;
      then (4f) the bf16 configs' training, each with its warm-up round,
      both with the reference's replicated agent layout (4 agents and 1,
      whatever --agents says): (M1) Mistral-Large-123B at its published
@@ -282,6 +296,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -1078,6 +1093,10 @@ def batched_kernel_phase(torch) -> dict:
 # #1 (#5 on a lattice): at the CLI's 8 agents and full width, n_local 4, 2
 # and 1 for 2, 4 and 8 ranks, R 2 on the lattice
 SHARD_BLOCKS = {"gossip_mix": (4, 2, 1), "gossip_mix_batched": (4, 2)}
+# the 2-D engine's column blocks (phase 3e): #1 on (n_local, D/2) x, at
+# one agent shard (the whole W) and at two (a strided block of W), at
+# phase 4h's depth and at full depth
+COLUMN_BLOCKS = (8, 4)
 
 
 def shard_block_phase(torch) -> dict:
@@ -1149,6 +1168,76 @@ def shard_block_phase(torch) -> dict:
                 f"{library_note(lib_check)}")
             del x, w, blk
             torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    return out
+
+
+def column_block_phase(torch) -> dict:
+    """#1 at the 2-D engine's shapes (phase 3e): x a rank's (n_local,
+    D / 2) column block, at phase 4h's depth (D = path_d(MESH2D_LAYERS),
+    the blocks paths (t1) and (t2) launch #1 on) and at full depth
+    (D_FULL), W the whole (8, 8) W at n_local 8 (one agent shard) or agent
+    shard 1's strided (4, 4) block of it at n_local 4, against the plain
+    version (TOL·max|y|), timed beside the bound and torch.mm (checked
+    before it is timed).  Variants of #1's row ('column block n_local=...
+    D/M=...')."""
+    from repro_torch.kernels import ops, ref
+    dev = torch.device(DEVICE)
+    out = {"max_abs_err": 0.0, "variants": {}}
+    for d, nl in ((d, nl) for d in (path_d(MESH2D_LAYERS) // 2, D_FULL // 2)
+                  for nl in COLUMN_BLOCKS):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(nl * 11 + d % 7 + 2)
+        w = torch.rand((N_AGENTS, N_AGENTS), device=dev, generator=gen)
+        w = w / w.sum(dim=-1, keepdim=True)
+        lo = 0 if nl == N_AGENTS else nl
+        blk = w[lo:lo + nl, lo:lo + nl]
+        check(nl == N_AGENTS or not blk.is_contiguous(),
+              f"gossip_mix column block n_local={nl}: not a strided view")
+        x = torch.randn((nl, d), device=dev, generator=gen)
+
+        def run():
+            return ops.gossip_mix(blk, x)
+
+        def plain():
+            return ref.gossip_mix(blk, x)
+
+        def library():
+            return torch.mm(blk, x)
+
+        got = run()
+        torch.cuda.synchronize()
+        want = plain()
+        err, scale = max_err(torch, got, want)
+        del got
+        where = f"gossip_mix column block n_local={nl} D/M={d}"
+        check(err <= TOL * scale, f"{where}: max_abs_err {err:.3e} > "
+                                  f"{TOL}·{scale:.3e}")
+        lib_check = yardstick(torch, library(), want, TOL)
+        del want
+        torch.cuda.empty_cache()
+        ms = time_ms(torch, run)
+        plain_ms = time_ms(torch, plain, iters=3, warmup=1, repeats=1)
+        # the yardstick is timed here only, never called by the port
+        library_ms = time_ms(torch, library) \
+            if lib_check["same_function"] else None
+        bound_ms, bound_by = bound("gossip_mix", "gossip", nl, d, 0)
+        out["variants"][f"column block n_local={nl} D/M={d}"] = {
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "library_check": lib_check,
+            "share_of_bound": bound_ms / ms, "shape": list(x.shape),
+            "w_strided": not blk.is_contiguous()}
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        what = "a strided W block" if nl < N_AGENTS else "the whole W"
+        log(f"[kernels] {where} ({what}): "
+            f"err {err:.3e}  ms {ms:.4f}  bound_ms {bound_ms:.4f} "
+            f"({bound_by}, {100 * bound_ms / ms:.1f}% of bound)  plain_ms "
+            f"{plain_ms:.4f}  library_ms "
+            f"{'n/a' if library_ms is None else f'{library_ms:.4f}'}"
+            f"{library_note(lib_check)}")
+        del x, w, blk
+        torch.cuda.empty_cache()
     ops.reset_launch_counts()
     return out
 
@@ -2184,6 +2273,13 @@ def path_config(arch: str, layers: int, smoke: bool, d_model: int = 768):
                                                          num_layers=layers)
 
 
+def path_d(layers: int) -> int:
+    """D of the tiny LM at full width and ``layers``."""
+    from repro_torch.models import build_model
+    model = build_model(path_config("tiny", layers, False))
+    return model.param_count(model.init_shapes())
+
+
 def train_path(torch, impl: str, fuse: bool, optimizer: str,
                steps: int = STEPS, *, graph: str = "ring2",
                p_fail: float = 0.0, sweep_axis: str | None = None,
@@ -2192,7 +2288,8 @@ def train_path(torch, impl: str, fuse: bool, optimizer: str,
                agents: int = N_AGENTS, batch: int = 2, fused: bool = True,
                layout: str | None = None, delta: str = "none",
                d_model: int = 768, ckpt_dir: str | None = None,
-               seq: int = 128, mesh_agents: int | None = None):
+               seq: int = 128, mesh_agents: int | None = None,
+               mesh_model: int | None = None, h: int = 10):
     """One run of the trainer; with ``sweep_axis`` the R_FULL-run lattice,
     whose whole (R, n, D) state it returns (else the FedState); ``compress``
     is the gossip codec (--gossip-compress), ``delta`` the delta
@@ -2202,7 +2299,9 @@ def train_path(torch, impl: str, fuse: bool, optimizer: str,
     ``layout`` the state layout (--state-layout; None: the trainer's
     default), ``ckpt_dir`` the checkpoint directory (--ckpt-dir), ``seq``
     each agent's sequence length (--seq), ``mesh_agents`` the sharded
-    engine's ranks (--mesh-agents; the caller holds the process group)."""
+    engine's ranks (--mesh-agents; the caller holds the process group),
+    ``mesh_model`` the 2-D mesh's model ranks (--mesh-model) and ``h``
+    the server period (--h)."""
     from repro_torch.configs.base import FedConfig
     from repro_torch.launch import train
     # what earlier phases left to the garbage collector goes first, so
@@ -2214,12 +2313,12 @@ def train_path(torch, impl: str, fuse: bool, optimizer: str,
         sweep_runs=R_FULL, sweep_axis=sweep_axis, keep_lattice=True)
     state, losses = train.train_loop(
         path_config(arch, layers, smoke, d_model),
-        FedConfig(n_agents=agents, h=10, k=2, graph=graph, p_fail=p_fail,
+        FedConfig(n_agents=agents, h=h, k=2, graph=graph, p_fail=p_fail,
                   gossip_impl=impl, gossip_compress=compress, delta=delta),
         steps=steps, per_agent_batch=batch, seq_len=seq, optimizer=optimizer,
         fuse_update_mix=fuse, fused=fused, state_layout=layout, seed=0,
         device=DEVICE, timing=timing, ckpt_dir=ckpt_dir,
-        mesh_agents=mesh_agents, **sweep)
+        mesh_agents=mesh_agents, mesh_model=mesh_model, **sweep)
     torch.cuda.synchronize()
     return state, losses, timing, torch.cuda.max_memory_allocated()
 
@@ -2413,16 +2512,43 @@ SHARDED_PATHS = {
 }
 
 
+def twin_check(torch, final, twin, codec: str, residual_max: float) -> dict:
+    """A sharded path's end state (gathered whole) against its twin's (a
+    CPU tensor, read in column blocks): within TOL·max|x|, and for the
+    lossy int8 codec as tests/test_torch_sharded.py holds it (99% of the
+    elements within TOL·max|x|, every one within one int8 step
+    2·(max|x| + max|e|)/127, ``residual_max`` the twin's max|e|: two
+    mixes summed in other orders may round a borderline element of u to
+    either side)."""
+    cols = 1 << 24
+
+    def blocks():
+        for lo in range(0, twin.shape[-1], cols):
+            ref = twin[..., lo:lo + cols].to(final.device)
+            yield ref, torch.sub(final[..., lo:lo + cols], ref).abs_()
+
+    diff = scale = 0.0
+    for ref, err in blocks():
+        scale = max(scale, ref.abs().max().item())
+        diff = max(diff, err.max().item())
+    row = {"max_abs_diff": diff, "scale": scale, "tol": TOL,
+           "ok": diff <= TOL * scale}
+    if codec == "int8":
+        # the share beyond TOL·max|x| needs the whole scale: a second pass
+        share = sum(err.gt(TOL * scale).sum().item()
+                    for _, err in blocks()) / twin.numel()
+        step = 2.0 * (scale + residual_max) / 127.0
+        row.update(share_beyond_tol=share, int8_step=step,
+                   ok=share <= 0.01 and diff <= step)
+    return row
+
+
 def sharded_phase(torch, finals: dict) -> dict:
     """Each path of SHARDED_PATHS through run_path (a warm-up, then the
     timed run with the counters set to 0 just before it: its kernel once a
     step, nothing else) in a world of one rank over NCCL (a private
     FileStore under build/), its end state held to its flat twin's
-    (``finals``, kept on the host by training_phase): within TOL·max|x|,
-    and for the lossy int8 codec as tests/test_torch_sharded.py holds it
-    (99% of the elements within TOL·max|x|, every one within one int8
-    step 2·(max|x| + max|e|)/127: two mixes summed in other orders may
-    round a borderline element of u to either side)."""
+    (``finals``, kept on the host by training_phase) by twin_check."""
     import os
 
     import torch.distributed as dist
@@ -2443,37 +2569,221 @@ def sharded_phase(torch, finals: dict) -> dict:
             state, out[name] = run_path(torch, name, impl, False, "sgd",
                                         kernel, **kw)
             final = flat_of(torch, state)
-            ref = finals[twin].to(final.device)
-            err = torch.sub(final, ref).abs_()
-            scale = ref.abs().max().item()
-            diff = err.max().item()
-            row = {"twin": twin, "max_abs_diff": diff, "scale": scale,
-                   "tol": TOL}
-            if codec == "int8":
-                step = 2.0 * (scale + finals["i_residual_max"]) / 127.0
-                share = (err > TOL * scale).float().mean().item()
-                row.update(share_beyond_tol=share, int8_step=step)
-                check(share <= 0.01 and diff <= step,
-                      f"path ({name}): {share:.3e} of the buffer beyond "
-                      f"{TOL}·max|x| of path ({twin}), max {diff:.3e} (one "
-                      f"int8 step {step:.3e})")
-                note = f", {share:.3e} of it beyond {TOL}·max|x|"
-            else:
-                check(diff <= TOL * scale,
-                      f"path ({name}) ends {diff:.3e} from path ({twin}) > "
-                      f"{TOL}·{scale:.3e}")
-                note = ""
-            out[name].update(row)
+            row = twin_check(torch, final, finals[twin], codec,
+                             finals.get("i_residual_max", 0.0))
+            diff, scale = row["max_abs_diff"], row["scale"]
+            note = (f", {row['share_beyond_tol']:.3e} of it beyond "
+                    f"{TOL}·max|x|" if codec == "int8" else "")
+            check(row.pop("ok"), f"path ({name}) ends {diff:.3e} from path "
+                  f"({twin}) (max|x| {scale:.3e}; {row})")
+            out[name].update(row, twin=twin)
             log(f"[sharded] path ({name}) gossip={impl} compress={codec}"
                 + (f" sweep={axis}" if axis else "")
                 + f" on one NCCL rank: step {out[name]['step_ms']:.1f} ms, "
                 f"peak {out[name]['peak_bytes'] / 1e9:.2f} GB, ends "
                 f"{diff:.3e} from path ({twin}) (max|x| {scale:.3e}{note})")
-            del state, final, ref, err
+            del state, final
             torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
         store.unlink(missing_ok=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 4h: the 2-D ('agents', 'model') engine (core/sharded.py) on the card
+# ---------------------------------------------------------------------------
+
+# path -> (gossip impl, codec, A, M, the kernel each rank launches once a
+# step, the twin whose end state it must equal): the CLI's default run
+# (the tiny LM at full width, 8 agents, ring2, K 2) at MESH2D_LAYERS,
+# MESH2D_STEPS steps and H = MESH2D_STEPS (the server fires at the last
+# step) through train_loop(mesh_agents=A, mesh_model=M), every
+# rank of a gloo world on this one card (NCCL refuses two ranks on one
+# device; gloo's collectives take CUDA tensors and stage them through
+# the host, its point-to-point ops do not, so the halo paths here have
+# one agent shard).  The twins are path (a)'s and path (i)'s runs at the
+# same depth on one device, made by the phase.
+MESH2D_PATHS = {
+    "t1": ("pallas", "none", 1, 2, "gossip_mix", "a"),
+    "t2": ("pallas", "int8", 1, 2, "gossip_mix", "i"),
+    "t3": ("dense", "none", 2, 2, None, "a"),
+}
+# the cuts: gloo moves each rank's line-4 gather through host memory at
+# about 1 GB/s (on an H100 host: 4.9 s a step at 12 layers, where the
+# 4-rank world's host staging passed the machine's 96 GiB; 1.8-3.0 s at
+# 1 layer, D 59,181,312, the embedding and head at full width, with some
+# 10 s to start a world's ranks and 15-20 s for its first step; PERF.md),
+# so the phase runs 1 layer and 5 steps
+MESH2D_LAYERS = 1
+MESH2D_STEPS = 5
+# the untimed warm-up before a world's first timed run: one step
+MESH2D_WARM_STEPS = 1
+
+
+def _mesh2d_rank(rank: int, world: int, store: str, names: list,
+                 twins: dict, out_dir: str, t_spawn: float) -> None:
+    """One rank of a phase-4h world: init gloo on this card, a warm-up
+    step of the first path (each step moves gigabytes through the host,
+    so the first step's one-time costs are small beside it), then each
+    path of ``names``: the timed run with the counters set to 0 just
+    before it and read just after, and on rank 0 the gathered end state
+    against its twin (a file of ``twins``).  ``times`` records the
+    host-clock seconds from the parent's spawn (``t_spawn``, wall clock)
+    to this rank's start, its group and kernels, and each stage."""
+    t_start = time.time()
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build, ops
+    times = {"spawn_to_start_s": t_start - t_spawn}
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    out = {"times": times}
+    try:
+        build.load()     # built by the parent: loaded, not compiled
+        times["ready_s"] = time.time() - t_start
+        for i, name in enumerate(names):
+            t0 = time.time()
+            impl, codec, a, m, kernel, twin = MESH2D_PATHS[name]
+            kw = dict(compress=codec, mesh_agents=a, mesh_model=m,
+                      layers=MESH2D_LAYERS, h=MESH2D_STEPS)
+            warm = None if i else train_path(
+                torch, impl, False, "sgd", steps=MESH2D_WARM_STEPS, **kw)[3]
+            t1 = time.time()
+            ops.reset_launch_counts()
+            state, losses, timing, peak = train_path(
+                torch, impl, False, "sgd", steps=MESH2D_STEPS, **kw)
+            counts = {k: v for k, v in ops.launch_counts().items() if v}
+            t2 = time.time()
+            row = {"losses": losses, "counts": counts,
+                   "step_ms": 1e3 * timing["loop_s"] / MESH2D_STEPS,
+                   "setup_s": timing["setup_s"], "peak_bytes": peak,
+                   "warm_up_peak_bytes": warm,
+                   "block_bytes": timing["block_bytes"]}
+            if rank == 0:
+                final = flat_of(torch, state)
+                ref = torch.load(twins[twin], mmap=True)
+                row["twin"] = twin
+                row.update(twin_check(torch, final, ref, codec,
+                                      twins.get("i_residual_max", 0.0)))
+                del final, ref
+            del state
+            gc.collect()
+            torch.cuda.empty_cache()
+            out[name] = row
+            dist.barrier()
+            times[name] = {"warm_up_s": t1 - t0, "run_s": t2 - t1,
+                           "check_s": time.time() - t2}
+    finally:
+        dist.destroy_process_group()
+    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def mesh2d_phase(torch) -> dict:
+    """MESH2D_PATHS in gloo worlds of A·M ranks on this card (phase 4h):
+    first the twins, path (a)'s and (i)'s runs at MESH2D_LAYERS on one
+    device, written under build/ for the ranks to read; then one world a
+    mesh shape, every path of that shape in it.  Each path: every rank's
+    losses finite, its kernel once a step and nothing else, its state
+    blocks exactly n/A · D/M · 4 bytes, its end state within TOL·max|x|
+    of its twin's (int8 as phase 4g)."""
+    import os
+
+    import torch.multiprocessing as mp
+    work = ROOT / "build" / f"mesh2d_{os.getpid()}"
+    work.mkdir(parents=True, exist_ok=True)
+    twins, out = {}, {}
+    for twin, codec in (("a", "none"), ("i", "int8")):
+        state, losses, timing, peak = train_path(
+            torch, "pallas", False, "sgd", MESH2D_STEPS, compress=codec,
+            layers=MESH2D_LAYERS, h=MESH2D_STEPS)
+        if codec == "int8":
+            twins["i_residual_max"] = flat_of(torch, state, residual=True
+                                              ).abs().max().item()
+        twins[twin] = str(work / f"twin_{twin}.pt")
+        torch.save(flat_of(torch, state).cpu(), twins[twin])
+        out[f"twin_{twin}"] = {"step_ms": 1e3 * timing["loop_s"]
+                               / MESH2D_STEPS,
+                               "peak_bytes": peak, "losses": losses}
+        del state
+        torch.cuda.empty_cache()
+    d = path_d(MESH2D_LAYERS)
+    shapes: dict = {}
+    for name, p in MESH2D_PATHS.items():
+        shapes.setdefault((p[2], p[3]), []).append(name)
+    try:
+        for (a, m), names in shapes.items():
+            world = a * m
+            run_dir = work / f"{a}x{m}"
+            run_dir.mkdir(exist_ok=True)
+            t0 = time.perf_counter()
+            mp.start_processes(
+                _mesh2d_rank, args=(world, str(run_dir / "store"), names,
+                                    twins, str(run_dir), time.time()),
+                nprocs=world, start_method="spawn", join=True)
+            wall = time.perf_counter() - t0
+            ranks = [json.loads((run_dir / f"rank{r}.json").read_text())
+                     for r in range(world)]
+            for name in names:
+                impl, codec, _, _, kernel, twin = MESH2D_PATHS[name]
+                rows = [r[name] for r in ranks]
+                block = N_AGENTS // a * (d // m) * 4
+                n_blocks = 2 if codec != "none" else 1
+                for r, row in enumerate(rows):
+                    check(all(math.isfinite(v) for v in row["losses"]),
+                          f"path ({name}) rank {r}: non-finite loss")
+                    want = {kernel: MESH2D_STEPS} if kernel else {}
+                    check(row["counts"] == want,
+                          f"path ({name}) rank {r}: launches "
+                          f"{row['counts']}, want {want}")
+                    check(row["block_bytes"] == [block] * n_blocks,
+                          f"path ({name}) rank {r}: state blocks "
+                          f"{row['block_bytes']} bytes, want "
+                          f"{n_blocks} of n/A·D/M·4 = {block}")
+                head = rows[0]
+                check(head["ok"], f"path ({name}) ends "
+                      f"{head['max_abs_diff']:.3e} from path ({twin}) "
+                      f"(max|x| {head['scale']:.3e}; {head})")
+                out[name] = {
+                    "impl": impl, "codec": codec, "mesh": [a, m],
+                    "layers": MESH2D_LAYERS, "d": d,
+                    "steps": MESH2D_STEPS, "kernel": kernel,
+                    "launches": [r["counts"].get(kernel, 0) if kernel else 0
+                                 for r in rows],
+                    "step_ms": max(r["step_ms"] for r in rows),
+                    "step_ms_by_rank": [r["step_ms"] for r in rows],
+                    "setup_s_by_rank": [r["setup_s"] for r in rows],
+                    "peak_bytes_by_rank": [r["peak_bytes"] for r in rows],
+                    "block_bytes": block, "losses": head["losses"],
+                    "world_wall_s": wall, "rank0_times": ranks[0]["times"],
+                    **{k: head[k] for k in ("twin", "max_abs_diff", "scale",
+                                            "tol", "share_beyond_tol",
+                                            "int8_step") if k in head}}
+                note = (f", {head['share_beyond_tol']:.3e} of it beyond "
+                        f"{TOL}·max|x|" if codec == "int8" else "")
+                log(f"[mesh2d] path ({name}) gossip={impl} compress={codec} "
+                    f"layers={MESH2D_LAYERS} (D {d:,}) steps="
+                    f"{MESH2D_STEPS} on a {a} x {m} gloo "
+                    f"world on one card: step "
+                    f"{out[name]['step_ms']:.1f} ms (host-staged gloo "
+                    f"collectives), {kernel or 'no kernel'} launches "
+                    f"{out[name]['launches']} a rank, state "
+                    f"{block / 1e9:.3f} GB a rank, peaks "
+                    + "/".join(f"{b / 1e9:.2f}"
+                               for b in out[name]["peak_bytes_by_rank"])
+                    + f" GB, ends {head['max_abs_diff']:.3e} from path "
+                    f"({twin}) (max|x| {head['scale']:.3e}{note}); world "
+                    f"{wall:.1f} s (rank 0: started "
+                    f"{ranks[0]['times']['spawn_to_start_s']:.1f} s after "
+                    f"the spawn, ready {ranks[0]['times']['ready_s']:.1f} s "
+                    f"later; this path's warm-up, run, check "
+                    + ", ".join(f"{v:.1f}" for v in
+                                ranks[0]["times"][name].values())
+                    + " s)")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return out
 
 
@@ -4502,7 +4812,8 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels = kernel_phase(torch)
     kernels.update(batched_kernel_phase(torch))
-    for kernel, rows in shard_block_phase(torch).items():
+    for kernel, rows in [*shard_block_phase(torch).items(),
+                         ("gossip_mix", column_block_phase(torch))]:
         kernels[kernel]["variants"].update(rows["variants"])
         kernels[kernel]["max_abs_err"] = max(kernels[kernel]["max_abs_err"],
                                              rows["max_abs_err"])
@@ -4519,6 +4830,9 @@ def main() -> int:
     sharded_paths = sharded_phase(torch, finals)
     del finals
     log(f"[sharded] phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mesh2d_paths = mesh2d_phase(torch)
+    log(f"[mesh2d] phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     tree_paths = tree_phase(torch, a_final)
     log(f"[tree] phase {time.perf_counter() - t0:.1f} s")
@@ -4593,11 +4907,12 @@ def main() -> int:
                       "ef_mix_sparse"):
             # #1, #2, #9 and #11 on every path that runs them: once a step
             # on the flat buffer (the delta paths too), once per leaf a
-            # step on the tree
+            # step on the tree, once a step on each rank of a 2-D path (a
+            # list, rank by rank)
             line[-1]["launches_by_path"] = {
                 name: p["launches"] for name, p in
                 {**training, **tree_paths, **delta_paths,
-                 **sharded_paths}.items()
+                 **sharded_paths, **mesh2d_paths}.items()
                 if p.get("kernel") == kernel}
         if kernel == "gossip_mix_batched":
             # #5 on the sharded lattice (s4), once a step
@@ -4641,6 +4956,7 @@ def main() -> int:
         {"device": name, "nvidia_smi": smi, "kernels": line,
          "training": training, "tree_paths": tree_paths,
          "delta_paths": delta_paths, "sharded_paths": sharded_paths,
+         "mesh2d_paths": mesh2d_paths,
          "population": population,
          "grads": grads,
          "f64_paths": f64_paths, "bf16_paths": bf16_paths,

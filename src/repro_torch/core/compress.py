@@ -130,14 +130,25 @@ class Int8Compressor(Compressor):
     needs_key: bool = True
 
     @staticmethod
-    def row_scale(u: torch.Tensor) -> torch.Tensor:
-        """(...,) per-row scale max|u_row|/127; 1 on all-zero rows."""
-        s = u.float().abs().amax(dim=-1) / 127.0
+    def row_amax(u: torch.Tensor) -> torch.Tensor:
+        """(...,) per-row max|u_row| in f32."""
+        return u.float().abs().amax(dim=-1)
+
+    @staticmethod
+    def row_scale(u: torch.Tensor, row_amax=None) -> torch.Tensor:
+        """(...,) per-row scale max|u_row|/127; 1 on all-zero rows.
+        ``row_amax`` replaces max|u_row| (a row's maximum over column
+        blocks that ``u`` holds one of)."""
+        amax = Int8Compressor.row_amax(u) if row_amax is None else row_amax
+        s = amax / 127.0
         return torch.where(s > 0, s, torch.ones_like(s))
 
-    def encode(self, noise, u):
+    def encode(self, noise, u, row_amax=None):
+        """``row_amax``: the rows' max|u| when ``u`` is a column block of
+        them (the 2-D sharded engine), so that the scales are the whole
+        rows'."""
         from repro_torch.kernels import ref
-        scale = self.row_scale(u)
+        scale = self.row_scale(u, row_amax)
         return {"q": ref.quantize_int8(u, noise, scale).to(torch.int8),
                 "scale": scale}
 

@@ -1,6 +1,7 @@
 """The engine dispatcher, the shared Algorithm-1 step body and the gossip
 dispatcher (repro/core/engine.py, for the tree, flat and lattice layouts,
-on one device or agent-sharded over a 1-D mesh).
+on one device, agent-sharded over a 1-D mesh, or over the 2-D
+('agents', 'model') mesh).
 
   * :class:`EngineSpec` + :func:`parse_engine_spec` — one point of the
     (layout × run-batch × shards × delta × fused update+mix) lattice,
@@ -11,9 +12,9 @@ on one device or agent-sharded over a 1-D mesh).
     ``torch.distributed`` mesh, the agent-sharded flat engine and lattice
     (core/sharded.py).  The per-engine makers (``make_feddec_*``,
     ``make_flat_feddec_*``, ``make_sweep_feddec_*``, ``make_fedavg_*``,
-    ``make_sharded_*``) are shims over them.  The 2-D lowering
-    (``n_model_shards`` > 1) is not ported and raises
-    NotImplementedError.
+    ``make_sharded_*``) are shims over them.  ``n_model_shards`` > 1
+    lowers the 2-D ('agents', 'model') engine (core/sharded.py) on a
+    launch/mesh.make_fed_mesh mesh.
   * :class:`EngineOps` + :func:`build_step_body` — the one step order:
     η_t → sample W^t (line 3) → local update (lines 4–5) → gossip (line 6,
     compressed with error feedback when a codec is configured) → periodic
@@ -287,9 +288,9 @@ class EngineSpec:
       layout: 'tree' (the stacked dict, one run) or 'flat' (the (n, D)
         buffer that runs batch over).
       n_shards / axis_name: agent-axis shards and their mesh axis.
-      n_model_shards / model_axis: model-axis shards per agent row.
-        Parsed as the reference parses them; lowering a model axis above
-        1 is not ported.
+      n_model_shards / model_axis: model-axis shards per agent row; > 1
+        lowers the 2-D engine (the flat buffer column-sharded over
+        ``model_axis`` too; single-run flat only, as in the reference).
       t_steps: optional per-run step budgets (sweep freeze masking).
       force_run_axis: keep the run axis for a single run (the sweep
         makers' R = 1 plans).
@@ -347,8 +348,8 @@ def parse_engine_spec(configs, layout: str = "flat", n_shards: int = 1,
     with the reference's checks and messages.
 
     ``configs`` is one FedDecConfig or an iterable of them.  Parsing is
-    pure validation: a model-sharded spec parses as in the reference, and
-    only its lowering is not ported.
+    pure validation: a model-sharded spec parses as in the reference and
+    lowers on a 2-D mesh (core/sharded.py).
     """
     if hasattr(configs, "gossip_impl"):  # a single config
         configs = (configs,)
@@ -484,11 +485,6 @@ def _lower_step(espec: EngineSpec, grad_fn: GradFn, lr_fn, device,
                          "repro_torch.core.draws.RoundDraws as the draws, "
                          "which re-keys every run at each of its server "
                          "rounds")
-    if espec.is_model_sharded:
-        raise NotImplementedError(
-            "the 2-D ('agents', 'model') lowering (n_model_shards > 1) is "
-            "not ported to repro_torch yet; see ROADMAP.md Queue A item 4 "
-            "(the 2-D agents x model line)")
     device = torch.device(device)
     if kind == "tree":
         from repro_torch.core import feddec
@@ -508,9 +504,11 @@ def _lower_step(espec: EngineSpec, grad_fn: GradFn, lr_fn, device,
     elif kind == "sharded":
         # gossip_fn is not the sharded lowering's, as in the reference
         from repro_torch.core import sharded as sharded_lib
-        ops = sharded_lib._shard_ops(espec.cfg, flat_spec, grad_fn, lr_fn,
-                                     mesh, espec.axis_name, optimizer,
-                                     device)
+        ops = sharded_lib._shard_ops(
+            espec.cfg, flat_spec, grad_fn, lr_fn, mesh, espec.axis_name,
+            optimizer, device, model_axis=(espec.model_axis
+                                           if espec.is_model_sharded
+                                           else None))
     else:
         from repro_torch.core import sharded as sharded_lib
         ops = sharded_lib._sweep_shard_ops(espec.plan(), flat_spec, grad_fn,

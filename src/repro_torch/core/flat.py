@@ -417,8 +417,12 @@ def _delta_codec(cfg: FedDecConfig, spec: FlatSpec, delta_base, device):
 
 def _flat_ops(cfg: FedDecConfig, spec: FlatSpec, grad_fn: engine.GradFn,
               lr_fn: LrFn, gossip_fn, optimizer, device, delta_base=None,
-              fuse_update_mix: bool = False) -> engine.EngineOps:
-    """The flat engine's vtable for the shared Algorithm-1 body."""
+              fuse_update_mix: bool = False,
+              agent_grads=None) -> engine.EngineOps:
+    """The flat engine's vtable for the shared Algorithm-1 body.
+    ``agent_grads(state, batch) -> (losses, g)``, where given, replaces
+    line 4's one vmapped pass over the buffer (the 2-D sharded engine
+    gathers its column blocks first)."""
     custom_gossip = gossip_fn is not None
     if gossip_fn is None:
         gossip_fn = engine.resolve_gossip(cfg, "flat")
@@ -439,8 +443,9 @@ def _flat_ops(cfg: FedDecConfig, spec: FlatSpec, grad_fn: engine.GradFn,
             fused_int8_pallas=cfg.gossip_impl == "pallas"
             and not custom_gossip)
 
-    def agent_grads(state: FlatFedState, batch: dict):
-        return grads_of(spec, grad_fn, state.flat, batch)
+    if agent_grads is None:
+        def agent_grads(state: FlatFedState, batch: dict):
+            return grads_of(spec, grad_fn, state.flat, batch)
 
     def local_update(state: FlatFedState, batch: dict, eta):
         losses, g_flat = agent_grads(state, batch)

@@ -175,7 +175,8 @@ def make_permute_gossip(graph: topo.Graph, mesh, agent_axes="agents",
     size: one agent per rank.
 
     ``leaf_specs`` (the reference's tensor-parallel inner placements)
-    waits for the sharding rules of ROADMAP Queue A item 5.
+    needs tensor-parallel model compute, which the port does not have
+    (ROADMAP Queue A item 6).
 
     Returns ``gossip(w, stacked) -> stacked`` on this rank's (1, ...)
     leaves, every rank calling it together.
@@ -184,7 +185,7 @@ def make_permute_gossip(graph: topo.Graph, mesh, agent_axes="agents",
     if leaf_specs is not None:
         raise NotImplementedError(
             "leaf_specs (tensor-parallel inner partition specs) is not "
-            "ported to repro_torch yet; see ROADMAP.md Queue A item 5")
+            "ported to repro_torch yet; see ROADMAP.md Queue A item 6")
     axes = (agent_axes,) if isinstance(agent_axes, str) \
         else tuple(agent_axes)
     n_mesh = sharded_lib.agent_axis_size(mesh, axes)

@@ -49,9 +49,46 @@ State: :func:`shard_flat_state` returns this rank's block of a
 FlatFedState and :func:`gather_flat_state` assembles the whole one back
 (``all_gather_into_tensor``), the counterpart of reading a sharded
 ``jax.Array``.  The reference's PartitionSpec tables (``flat_state_specs``,
-``_leaf_spec``) have no meaning here and are left out.  The 2-D
-('agents', 'model') lowering (a model axis of size > 1) is not ported:
-it raises NotImplementedError.
+``_leaf_spec``) have no meaning here and are left out.
+
+The 2-D ('agents', 'model') engine (``model_axis`` naming a dim of size
+M > 1 of a launch/mesh.make_fed_mesh mesh; repro/core/sharded.py:
+726-810): rank (a, m) holds rows ``[a·n/A, (a+1)·n/A)`` × columns
+``[m·D/M, (m+1)·D/M)`` of every (n, D) buffer (the flat buffer, the
+optimizer's, the residual), stored contiguously, so its state is
+``n/A · D/M · b`` bytes.  The reference leaves each agent replica's model
+compute to GSPMD over an ``auto`` model axis; the port makes line 4
+explicit instead:
+
+  * line 4: the model group all-gathers its (n/A, D/M) blocks into the
+    (n/A, D) rows (one ``all_gather_into_tensor`` and a column
+    reassembly), runs the 1-D engine's one vmapped fwd+bwd pass over
+    them, and keeps its own D/M columns of the gradient.  Every model
+    rank of an agent block computes the same losses, so the loss needs
+    no model-axis reduction.  Each model rank therefore holds a
+    transient (n/A, D) gather and the whole model's compute: what the
+    2-D mesh saves is the state.  Tensor-parallel model compute (the
+    reference's GSPMD partitioning, its ``leaf_specs``) is not ported;
+  * the update (sgd, momentum, nesterov, adamw) is elementwise on the
+    block;
+  * line 6 runs over the agent dim only, on the column block: the dense
+    partial ``W[:, rows] @ x_blk`` is (n, D/M) and reduce-scatters over
+    the agents group; the halo sends the boundary rows of the column
+    block to the peer with the same model coordinate (global rank
+    ``a'·M + m``, through the agents group); the own block goes through
+    kernel #1 under 'pallas';
+  * the codecs: identity and bf16 are elementwise; int8's per-row scale
+    is max|u| over the whole D, so the blocks' row maxima are
+    ``all_reduce``-d (MAX) over the model group before quantizing, and
+    its noise is the flat run's full (n, D) draw sliced to the block's
+    rows and columns; top-k is refused (its indices address the full D);
+  * lines 8–10: the (D/M,) slice of z is all-reduced over the agents
+    group and written to the block's own columns.
+
+So the only model-axis collectives are the gather of line 4 and int8's
+scale maximum; the tree layout, sweep lattices, ``delta`` and
+``fuse_update_mix`` raise :func:`engine.model_axis_conflict`, as in the
+reference.
 
 The engine never moves a block to the host for a collective: the
 collectives take the blocks on their own device.
@@ -110,7 +147,7 @@ def _resolve_axis(mesh, axis_name) -> str:
     if len(axes) > 1:
         raise NotImplementedError(
             f"an agent axis over several mesh dims {axes} is not ported to "
-            f"repro_torch yet; see ROADMAP.md Queue A item 4")
+            f"repro_torch: its meshes (launch/mesh.py) have one agent dim")
     return axes[0]
 
 
@@ -123,32 +160,49 @@ def _validate(n_agents: int, mesh, axis_name) -> int:
     return n_shards
 
 
-def _no_model_axis(mesh, model_axis) -> None:
-    """The reference's model-axis checks, as far as a 1-D mesh reaches
-    (repro/core/sharded.py:726-741): a missing axis is its ValueError,
-    an axis of size > 1 the 2-D lowering, which is not ported."""
-    if model_axis is None:
-        return
+def _model_axis_size(mesh, model_axis) -> int:
+    """M, the size of the mesh's dim ``model_axis``, which must exist."""
     sizes = _mesh_sizes(mesh)
     if model_axis not in sizes:
         raise ValueError(
             f"mesh has no model axis {model_axis!r}: {sizes} (build one "
             f"with launch.mesh.make_fed_mesh)")
-    if sizes[model_axis] > 1:
-        raise NotImplementedError(
-            "the 2-D ('agents', 'model') lowering (a model axis of size "
-            "> 1) is not ported to repro_torch yet; see ROADMAP.md Queue A "
-            "item 4 (the 2-D agents x model line)")
+    return sizes[model_axis]
+
+
+def _validate_model_axis(cfg, d: int, mesh, model_axis) -> int:
+    """The reference's model-axis checks (repro/core/sharded.py:537-552):
+    the axis must exist and divide D, and top-k gossip compression does
+    not compose with a model axis of size > 1.  ``cfg`` may be None (state
+    placement has no codec).  Returns M."""
+    m = _model_axis_size(mesh, model_axis)
+    if d % m:
+        raise ValueError(
+            f"flat dim D={d} must be divisible by the model axis size {m} "
+            f"(column-sharded D/M sub-blocks)")
+    if m > 1 and cfg is not None and cfg.gossip_impl != "none" \
+            and cfg.gossip_compress.startswith("topk"):
+        raise engine.model_axis_conflict(
+            "topk gossip compression (the payload indices address the "
+            "full D axis)")
+    return m
 
 
 @dataclasses.dataclass(frozen=True)
 class _Shard:
-    """This rank's place on the agent axis."""
+    """This rank's place on the agent dim and, on the 2-D mesh, on the
+    model dim: agent block ``me`` of ``n_shards`` (its agents group), and
+    column block ``m`` of ``n_model`` (its model group; None on a 1-D
+    mesh or a model dim of size 1) over the flat dim D."""
 
     group: object
     me: int
     n_shards: int
     n_local: int
+    model_group: object = None
+    m: int = 0
+    n_model: int = 1
+    d: int | None = None
 
     @property
     def lo(self) -> int:
@@ -158,16 +212,41 @@ class _Shard:
     def rows(self) -> slice:
         return slice(self.lo, self.lo + self.n_local)
 
+    @property
+    def d_local(self) -> int | None:
+        return None if self.d is None else self.d // self.n_model
+
+    @property
+    def cols(self) -> slice:
+        """This rank's columns of D (all of them on a 1-D mesh)."""
+        if self.n_model == 1:
+            return slice(None)
+        return slice(self.m * self.d_local, (self.m + 1) * self.d_local)
+
     def peer(self, shard: int) -> int:
-        """The global rank of shard ``shard`` (the P2P ops take it)."""
+        """The global rank of agent shard ``shard`` with this rank's model
+        coordinate (the P2P ops take it): ``shard·M + m`` on the 2-D
+        mesh."""
         return dist.get_global_rank(self.group, shard)
 
 
-def _shard_of(mesh, axis_name, n_agents: int) -> _Shard:
+def _shard_of(mesh, axis_name, n_agents: int, model_axis=None,
+              d: int | None = None, cfg=None) -> _Shard:
+    """This rank's :class:`_Shard`; with ``model_axis`` (and the flat dim
+    ``d``) its column block too, after the reference's model-axis
+    checks."""
     ax = _resolve_axis(mesh, axis_name)
     n_shards = _validate(n_agents, mesh, ax)
-    return _Shard(group=mesh.get_group(ax), me=int(mesh.get_local_rank(ax)),
-                  n_shards=n_shards, n_local=n_agents // n_shards)
+    shard = _Shard(group=mesh.get_group(ax), me=int(mesh.get_local_rank(ax)),
+                   n_shards=n_shards, n_local=n_agents // n_shards, d=d)
+    if model_axis is None:
+        return shard
+    m = _validate_model_axis(cfg, d, mesh, model_axis)
+    if m == 1:
+        return shard
+    return dataclasses.replace(
+        shard, model_group=mesh.get_group(model_axis),
+        m=int(mesh.get_local_rank(model_axis)), n_model=m)
 
 
 # ---------------------------------------------------------------------------
@@ -358,8 +437,11 @@ def _reduce_scatter_rows(partial: torch.Tensor, shard: _Shard,
 
 def _make_shard_mixer(cfg: FedDecConfig, shard: _Shard):
     """gossip_impl → mix(w, x_blk) -> y_blk on this rank's block
-    (repro/core/sharded.py:243-316, model_axes=None): ``w`` is the full
-    (n, n) W^t, the same on every rank."""
+    (repro/core/sharded.py:243-316): ``w`` is the full (n, n) W^t, the
+    same on every rank.  The mix contracts the agent index only, so a 2-D
+    mesh's (n_local, D/M) column block mixes as a row block does, over
+    the agents group (the reference's ``model_axes`` halo, which exchanges
+    (n_local, D/M) sub-blocks between ranks of one model coordinate)."""
     impl = cfg.gossip_impl
     lo, nl, rows = shard.lo, shard.n_local, shard.rows
 
@@ -453,16 +535,26 @@ def _make_compressed_shard_mixer(cfg: FedDecConfig, shard: _Shard,
     raise engine.unknown_gossip_impl(impl)
 
 
-def _encode_shard_block(compressor, draws, t, n_agents: int, rows: slice,
+def _encode_shard_block(compressor, draws, t, n_agents: int, shard: _Shard,
                         x_blk, res_blk):
     """Per-shard EF encode → (payload, s_blk, new_res): the int8 noise is
-    the full (n, D) draw, sliced to this block's rows, so agent i's
-    rounding (and with it s_i and its residual) is the flat engine's
-    (repro/core/sharded.py:567-581)."""
+    the full (n, D) draw, sliced to this block's rows (and, on the 2-D
+    mesh, its columns), so agent i's rounding (and with it s_i and its
+    residual) is the flat engine's (repro/core/sharded.py:567-581).  On
+    the 2-D mesh int8's per-row scale is the maximum over the whole row:
+    the blocks' row maxima are all-reduced over the model group first."""
     u = x_blk + res_blk
-    noise = draws.codec_noise(t, n_agents, u.shape[-1])[..., rows, :] \
-        if compressor.needs_key else None
-    payload = compressor.encode(noise, u)
+    kw = {}
+    noise = None
+    if compressor.needs_key:
+        noise = draws.codec_noise(t, n_agents, u.shape[-1] * shard.n_model
+                                  )[..., shard.rows, shard.cols]
+        if shard.n_model > 1:
+            amax = compressor.row_amax(u)
+            dist.all_reduce(amax, op=dist.ReduceOp.MAX,
+                            group=shard.model_group)
+            kw["row_amax"] = amax
+    payload = compressor.encode(noise, u, **kw)
     s_blk = compressor.decode(payload, u.dtype, u.shape[-1])
     return payload, s_blk, u - s_blk
 
@@ -478,7 +570,8 @@ def _check_mesh_device(mesh, device) -> torch.device:
 def make_sharded_gossip(cfg: FedDecConfig, mesh, axis_name="agents"):
     """Whole-buffer gossip on this rank's block (repro/core/sharded.py:
     413-440): ``gossip(w, x_blk) -> y_blk``, every rank calling it
-    together."""
+    together.  The mix contracts the agent index only, so it takes a
+    column block of a 2-D mesh as it takes a row block."""
     shard = _shard_of(mesh, axis_name, cfg.n_agents)
     return _make_shard_mixer(cfg, shard)
 
@@ -499,7 +592,7 @@ def make_sharded_ef_gossip(cfg: FedDecConfig, mesh, axis_name="agents"):
 
     def gossip(w, p_blk, res_blk, draws, t):
         payload, s_blk, new_res = _encode_shard_block(
-            compressor, draws, t, cfg.n_agents, shard.rows, p_blk, res_blk)
+            compressor, draws, t, cfg.n_agents, shard, p_blk, res_blk)
         return cmixer(w, p_blk, s_blk, payload), new_res
 
     return gossip
@@ -510,27 +603,29 @@ def make_sharded_ef_gossip(cfg: FedDecConfig, mesh, axis_name="agents"):
 # ---------------------------------------------------------------------------
 
 
-def _block(t, rows: slice, dim: int, whole: int):
-    """Rows ``rows`` of dim ``dim`` of a buffer as a tensor of its own
-    (the buffer itself when the block is all of it)."""
+def _block(t, rows: slice, dim: int, whole: int, cols: slice = slice(None)):
+    """Rows ``rows`` of dim ``dim`` (and columns ``cols`` of the last dim)
+    of a buffer as a tensor of its own (the buffer itself when the block
+    is all of it)."""
     if not isinstance(t, torch.Tensor) or t.ndim != dim + 2:
         return t          # the scalars (adamw's count) are replicated
-    if rows.stop - rows.start == whole:
+    if rows.stop - rows.start == whole and cols == slice(None):
         return t
-    return t.narrow(dim, rows.start, rows.stop - rows.start).clone()
+    return t[(slice(None),) * dim + (rows, cols)].clone()
 
 
 def shard_flat_state(state: FlatFedState, mesh, axis_name="agents",
                      model_axis=None) -> FlatFedState:
-    """This rank's row block of a FlatFedState (repro/core/sharded.py:
+    """This rank's block of a FlatFedState (repro/core/sharded.py:
     536-551): the flat buffer, the optimizer's (n, D) buffers and the
-    residual block-sharded, the scalars replicated."""
-    _no_model_axis(mesh, model_axis)
-    n = state.flat.shape[0]
-    shard = _shard_of(mesh, axis_name, n)
+    residual block-sharded over the agent rows (and, with ``model_axis``,
+    column-sharded over D: rank (a, m)'s ``n/A · D/M`` block, its own
+    storage), the scalars replicated."""
+    n, d = state.flat.shape
+    shard = _shard_of(mesh, axis_name, n, model_axis, d)
 
     def blk(t):
-        return _block(t, shard.rows, 0, n)
+        return _block(t, shard.rows, 0, n, shard.cols)
 
     return FlatFedState(flat=blk(state.flat), step=state.step,
                         opt_state=tree_map(blk, state.opt_state),
@@ -550,15 +645,32 @@ def _gather_rows(t, shard: _Shard, dim: int):
     return out.movedim(0, dim).contiguous()
 
 
-def gather_flat_state(state_blk: FlatFedState, mesh,
-                      axis_name="agents") -> FlatFedState:
+def _gather_cols(t, shard: _Shard):
+    """The (rows, D) rows of every model rank's (rows, D/M) column block
+    of them: one all-gather over the model group, then the columns put
+    side by side (the 2-D engine's line-4 gather)."""
+    if not isinstance(t, torch.Tensor) or t.ndim != 2 or shard.n_model == 1:
+        return t
+    rows, dl = t.shape
+    out = torch.empty((shard.n_model * rows, dl), dtype=t.dtype,
+                      device=t.device)
+    _all_gather(out, t.contiguous(), group=shard.model_group)
+    return out.view(shard.n_model, rows, dl).transpose(0, 1).reshape(
+        rows, shard.n_model * dl)
+
+
+def gather_flat_state(state_blk: FlatFedState, mesh, axis_name="agents",
+                      model_axis=None) -> FlatFedState:
     """The whole FlatFedState from every rank's block
-    (``all_gather_into_tensor``), on every rank."""
-    n = state_blk.flat.shape[0] * agent_axis_size(mesh, axis_name)
-    shard = _shard_of(mesh, axis_name, n)
+    (``all_gather_into_tensor`` over the model group, then the agents
+    group), on every rank."""
+    n_local, d_local = state_blk.flat.shape
+    n = n_local * agent_axis_size(mesh, axis_name)
+    m = 1 if model_axis is None else _mesh_sizes(mesh).get(model_axis, 1)
+    shard = _shard_of(mesh, axis_name, n, model_axis, d_local * m)
 
     def whole(t):
-        return _gather_rows(t, shard, 0)
+        return _gather_rows(_gather_cols(t, shard), shard, 0)
 
     return FlatFedState(flat=whole(state_blk.flat), step=state_blk.step,
                         opt_state=tree_map(whole, state_blk.opt_state),
@@ -590,18 +702,29 @@ def _server_z(weights, x_blk, shard: _Shard) -> torch.Tensor:
 
 
 def _shard_ops(cfg: FedDecConfig, spec: FlatSpec, grad_fn: engine.GradFn,
-               lr_fn: LrFn, mesh, axis_name, optimizer,
-               device) -> engine.EngineOps:
+               lr_fn: LrFn, mesh, axis_name, optimizer, device,
+               model_axis=None) -> engine.EngineOps:
     """The sharded engine's vtable for the shared Algorithm-1 body
     (repro/core/sharded.py:584-683): the flat engine's ops on this rank's
     block (line 4 one vmapped pass over its n_local rows, the optimizer
     step, η, W^t), with the gossip, the server round and the loss made
-    collective."""
+    collective.  With ``model_axis`` of size M > 1 the block is a column
+    block and line 4 gathers the rows' other columns first (the module
+    docstring)."""
     device = _check_mesh_device(mesh, device)
-    shard = _shard_of(mesh, axis_name, cfg.n_agents)
+    shard = _shard_of(mesh, axis_name, cfg.n_agents, model_axis, spec.d,
+                      cfg)
     n_agents = cfg.n_agents
+    agent_grads = None
+    if shard.n_model > 1:
+        def agent_grads(state, batch):
+            # line 4 on the whole rows, this rank's columns kept
+            x_rows = _gather_cols(state.flat, shard)
+            losses, g = flat_lib.grads_of(spec, grad_fn, x_rows, batch)
+            del x_rows
+            return losses, g[:, shard.cols].contiguous()
     base = flat_lib._flat_ops(cfg, spec, grad_fn, lr_fn, None, optimizer,
-                              device)
+                              device, agent_grads=agent_grads)
     compressor = compress_lib.parse_compress(cfg.gossip_compress) \
         if cfg.gossip_impl != "none" else None
     ef_gossip = None
@@ -614,12 +737,13 @@ def _shard_ops(cfg: FedDecConfig, spec: FlatSpec, grad_fn: engine.GradFn,
         def ef_gossip(w, x_half, res_blk, draws, t):
             # the halo moves the encoded payload
             payload, s_blk, new_res = _encode_shard_block(
-                compressor, draws, t, n_agents, shard.rows, x_half, res_blk)
+                compressor, draws, t, n_agents, shard, x_half, res_blk)
             return cmixer(w, x_half, s_blk, payload), new_res
 
     def server(draws, t, x_next):
         # lines 8–10: every rank draws the same S_t, contracts its slice
-        # of the c/K weights, and the (D,) all-reduce is the server link
+        # of the c/K weights, and the (D,) all-reduce (the (D/M,) slice of
+        # it on the 2-D mesh) is the server link
         if not cfg.server_enabled or (t + 1) % cfg.h:
             return x_next
         counts = server_lib.sample_participants(draws, t, n_agents, cfg.k)
@@ -628,6 +752,8 @@ def _shard_ops(cfg: FedDecConfig, spec: FlatSpec, grad_fn: engine.GradFn,
         return x_next.copy_(z.unsqueeze(0).expand_as(x_next))
 
     def finish(state, z_next, new_opt, new_res, t, losses, eta):
+        # every model rank of an agent block computed the same losses: the
+        # sum runs over the agents group only
         total = _sum_over_ranks(losses.sum().reshape(1), shard)
         return base.finish(state, z_next, new_opt, new_res, t,
                            total / n_agents, eta)
@@ -638,40 +764,50 @@ def _shard_ops(cfg: FedDecConfig, spec: FlatSpec, grad_fn: engine.GradFn,
 
 
 def _sharded_spec(cfg, mesh, axis_name, model_axis):
-    _no_model_axis(mesh, model_axis)
+    """The reference's spec of the sharded makers (repro/core/sharded.py:
+    715-722): M from the mesh's model dim (which must exist); the rest of
+    the model-axis checks run once, where the lowering places this rank
+    (_shard_of)."""
     return engine.parse_engine_spec(
         cfg, layout="flat", n_shards=agent_axis_size(mesh, axis_name),
-        axis_name=axis_name)
+        axis_name=axis_name,
+        n_model_shards=(_model_axis_size(mesh, model_axis)
+                        if model_axis is not None else 1),
+        model_axis=model_axis if model_axis is not None else "model")
 
 
 def make_sharded_feddec_step(cfg: FedDecConfig, spec: FlatSpec,
                              grad_fn: engine.GradFn, lr_fn: LrFn, mesh, *,
                              device, axis_name="agents", optimizer=None,
                              model_axis=None):
-    """One-iteration sharded executor (repro/core/sharded.py:887-914):
+    """One-iteration sharded executor (repro/core/sharded.py:698-725):
     ``step(state_blk, batch_blk, draws)`` on this rank's block of a
     FlatFedState (:func:`shard_flat_state`), batch leaves (n_local, ...).
     Every rank of the mesh calls it together, with draws of the same seed.
-    A model axis of size > 1 (the 2-D engine) raises NotImplementedError.
-    A shim over :func:`engine.make_engine_step`."""
+    With ``model_axis`` naming a mesh dim of size M > 1 the D dim is
+    column-sharded over it too (the state placed by
+    ``shard_flat_state(..., model_axis=...)``): the 2-D engine, whose
+    batch block is the same on every model rank of an agent block.  A
+    shim over :func:`engine.make_engine_step`."""
     return engine.make_engine_step(
-        _sharded_spec(cfg, mesh, axis_name, model_axis), grad_fn, lr_fn,
-        device=device, flat_spec=spec, mesh=mesh, optimizer=optimizer)
+        _sharded_spec(cfg, mesh, axis_name, model_axis), grad_fn,
+        lr_fn, device=device, flat_spec=spec, mesh=mesh, optimizer=optimizer)
 
 
 def make_sharded_feddec_round(cfg: FedDecConfig, spec: FlatSpec,
                               grad_fn: engine.GradFn, lr_fn: LrFn, mesh, *,
                               device, axis_name="agents", optimizer=None,
                               model_axis=None):
-    """The sharded round (repro/core/sharded.py:965-999):
+    """The sharded round (repro/core/sharded.py:776-810):
     ``round_fn(state_blk, batches_blk, draws)``, batch leaves (H, n_local,
     ...), metrics stacked to (H,).  The per-step collectives (the dense
-    reduce-scatter or the halo, the server's and the loss's all-reduce)
-    are the only traffic between ranks.  A shim over
-    :func:`engine.make_engine_round`."""
+    reduce-scatter or the halo, the server's and the loss's all-reduce;
+    on the 2-D mesh also line 4's column gather and int8's scale maximum
+    over the model group) are the only traffic between ranks.  A shim
+    over :func:`engine.make_engine_round`."""
     return engine.make_engine_round(
-        _sharded_spec(cfg, mesh, axis_name, model_axis), grad_fn, lr_fn,
-        device=device, flat_spec=spec, mesh=mesh, optimizer=optimizer)
+        _sharded_spec(cfg, mesh, axis_name, model_axis), grad_fn,
+        lr_fn, device=device, flat_spec=spec, mesh=mesh, optimizer=optimizer)
 
 
 # ---------------------------------------------------------------------------
@@ -776,7 +912,7 @@ def _sweep_shard_ops(plan, spec: FlatSpec, grad_fn: engine.GradFn,
     if compressor is not None:
         def ef_gossip(w, x_half, res_blk, draws, t):
             payload, s_blk, new_res = _encode_shard_block(
-                compressor, draws, t, n, shard.rows, x_half, res_blk)
+                compressor, draws, t, n, shard, x_half, res_blk)
             y = mixer(w, x_half, s_blk, payload)
             # FedAvg members exchange nothing: their rows are put back
             # (repro/core/engine.py:978-983)

@@ -33,8 +33,11 @@ for prefill and decode).  The reference's record keys map so:
     device count is ``mesh_devices``);
 
 and records add ``fits`` (peak ≤ the card's 80 GB), ``launches`` (kernel
-ops by name), ``specs`` (the arguments' partition specs) and, for
-prefill and decode, ``batch_per_card``.  A failing combination is
+ops by name), ``specs`` (the arguments' partition specs), for prefill
+and decode ``batch_per_card``, and for the 2-D sharded program
+(``--state-layout sharded --mesh-model M``) ``axis_separation``: the
+traced collectives by mesh axis (launch/trace_analysis.py), beside the
+``mesh2d`` byte model that ``--mesh-agents A`` adds.  A failing combination is
 recorded with its reason and the sweep goes on.
 """
 
@@ -52,7 +55,7 @@ import traceback
 from repro_torch import sharding as shd
 from repro_torch.configs import ARCH_NAMES, SHAPES, get_config
 from repro_torch.configs.base import FedConfig
-from repro_torch.launch import analysis
+from repro_torch.launch import analysis, trace_analysis
 from repro_torch.launch.steps import (adapt_for_mesh, build_fed_setup,
                                       build_lowerable)
 
@@ -268,6 +271,11 @@ def run_one(arch: str, shape_name: str, multi_pod: bool,
             "launches": costs.launches,
             "roofline": report.row(),
         })
+        if train and state_layout == "sharded" and low.world > axes.data_size:
+            # the 2-D program: rank 0's collectives by axis of the traced
+            # (data_size, M) mesh
+            rec["axis_separation"] = trace_analysis.axis_separation(
+                costs, axes.data_size, low.world // axes.data_size)
         if train:
             rec["gossip_cost_model"] = _gossip_model(cfg, axes, state_layout,
                                                      mesh_agents, mesh_model)
@@ -338,6 +346,10 @@ def run_one(arch: str, shape_name: str, multi_pod: bool,
                   f"h2d+d2h {pm['hostdev_bytes_round'] / 1e6:.2f} MB/round, "
                   f"peak device {pm['peak_device_bytes'] / 1e6:.2f} MB "
                   f"(n_total-free)")
+        if "axis_separation" in rec:
+            print(f"       2-D mesh {axes.data_size}x"
+                  f"{low.world // axes.data_size}: collectives by axis "
+                  f"{rec['axis_separation']}")
         sh = rec.get("gossip_cost_model", {}).get("sharded", {})
         if train and mesh_agents and "impls" in sh:
             coll = ", ".join(f"{k} {v['collective_bytes'] / 1e6:.1f}MB"
@@ -386,8 +398,9 @@ def main(argv=None) -> None:
                         "train-shape records")
     p.add_argument("--mesh-model", type=int, default=None, metavar="M",
                    help="with --mesh-agents A, record the 2-D (A, M) mesh "
-                        "byte model; --state-layout sharded with M > 1 "
-                        "fails its record (the 2-D engine is not ported)")
+                        "byte model; with --state-layout sharded and M > 1, "
+                        "trace the 2-D engine (rank 0 of the data axes' "
+                        "size × M ranks) and record its collectives by axis")
     p.add_argument("--fuse-update-mix", action="store_true",
                    help="trace train steps with Algorithm 1 lines 5-6 "
                         "fused (kernels #3/#4; --state-layout flat)")

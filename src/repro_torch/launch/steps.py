@@ -22,18 +22,24 @@ the sweep and launch/train.py the real training loop.
 
 The records keep the reference's mesh (names, sizes, agent counts from
 ``sharding.n_agents_for``, specs), but the traced program is the one the
-port runs on one card, which has no model axis:
+port runs, whose model compute is never tensor-parallel:
 
   * the tree and flat layouts: one card holding all n agents;
   * the sharded layout: rank 0 of a world of ``data_size`` ranks, one
     agent block a rank, over ``torch.distributed``'s ``fake`` backend,
-    which this module creates and destroys around the trace;
+    which this module creates and destroys around the trace; with
+    ``mesh_model=M > 1`` (and a model axis in the reference's mesh) the
+    2-D engine, rank 0 of ``data_size · M`` ranks on a 2-D
+    ('agents', 'model') ``DeviceMesh``, its block the (n/A, D/M) column
+    block (core/sharded.py);
   * prefill and decode: one whole serving replica a card, at
     ``global_batch / data_size`` requests where that divides, else the
     whole batch.
 
-``mesh_model > 1`` raises the port's NotImplementedError (the 2-D
-line); nothing is re-estimated as if tensor-parallel.
+The reference's 2-D program leaves each replica's compute to GSPMD over
+its model axis (of the production mesh's size); the port's traces the M
+asked for, each model rank gathering its rows for line 4 (core/sharded.py
+says why).  Nothing is re-estimated as if tensor-parallel.
 """
 
 from __future__ import annotations
@@ -149,8 +155,9 @@ def adapt_for_mesh(cfg: ArchConfig, axes: shd.MeshAxes) -> ArchConfig:
     """The reference's mesh-dependent config tweaks
     (repro/launch/steps.py:42-53) set its tensor-parallel annotations
     (``attn_weight_gather`` when the heads do not divide the model axis,
-    ``tp_axis_name``).  The port's program has no model axis and its
-    configs no such fields: the config is the one the card runs."""
+    ``tp_axis_name``).  The port's program runs no tensor-parallel
+    compute and its configs have no such fields: the config is the one
+    the card runs."""
     del axes
     return cfg
 
@@ -348,7 +355,8 @@ def build_train_lowerable(cfg: ArchConfig, shape: ShapeConfig,
     (H,) dim, metrics come back stacked); ``state_layout`` picks the tree
     engine, the flat (n, D) buffer or the agent-sharded engine (``mesh``
     required and the sharded agent layout; rank 0 of ``data_size`` ranks
-    is traced); ``sweep_runs=R`` the R-run lattice of ``sweep_axis``
+    is traced, or with ``mesh_model=M > 1`` rank 0 of the 2-D engine's
+    ``data_size · M``); ``sweep_runs=R`` the R-run lattice of ``sweep_axis``
     (flat or sharded, with ``fused_steps``); ``fuse_update_mix`` the fused
     update+mix kernels (flat).  ``mesh`` is the mesh the record names
     (any object: the port checks only that there is one where the
@@ -405,26 +413,32 @@ def build_train_lowerable(cfg: ArchConfig, shape: ShapeConfig,
         if mesh is None or cfg.fed_agent_layout != "sharded":
             raise ValueError("state_layout='sharded' needs a mesh and the "
                              "sharded agent layout")
-        if mesh_model and mesh_model > 1 and axes.model_size > 1:
-            # the 2-D ('agents', 'model') engine: the port's own refusal
-            from repro_torch.launch.mesh import make_fed_mesh
-            make_fed_mesh(axes.data_size, mesh_model)
+        # mesh_model > 1 opts into the 2-D engine: the flat buffer's D dim
+        # column-shards over M model ranks as well.  The reference's
+        # attn_chunked_prefill=False for it is a limit of its partitioner;
+        # the port's attention has no chunked scan (models/attention.py)
+        n_model = mesh_model if mesh_model and mesh_model > 1 \
+            and axes.model_size > 1 else 1
         if optimizer != "sgd":
             raise ValueError("optimizer state is not threaded through the "
                              "sharded lowerable yet")
-        world = axes.data_size
-        if n_agents % world:
+        n_shards = axes.data_size
+        world = n_shards * n_model
+        if n_agents % n_shards:
             raise ValueError(f"n_agents={n_agents} must be divisible by "
-                             f"the data axes' {world} ranks")
-        n_local = n_agents // world
+                             f"the data axes' {n_shards} ranks")
+        n_local = n_agents // n_shards
+        # D % M is the maker's check (core/sharded.py:_validate_model_axis)
         spec = flat_lib.make_flat_spec(params_struct)
+        model_ax = axes.model_axis if n_model > 1 else None
 
         def init_state(params):
             return _rows(flat_lib.init_flat_state(
-                spec, params, n_agents, compress=compress), n_local)
+                spec, params, n_agents, compress=compress), n_local,
+                cols=spec.d // n_model)
         state_specs = flat_lib.FlatFedState(
-            flat=(agent_ax, None), step=(), opt_state=(),
-            residual=() if compress == "none" else (agent_ax, None))
+            flat=(agent_ax, model_ax), step=(), opt_state=(),
+            residual=() if compress == "none" else (agent_ax, model_ax))
         batch_struct = _map(lambda t: torch.empty(
             (n_local,) + tuple(t.shape[1:]), dtype=t.dtype, device="meta"),
             batch_struct)
@@ -432,16 +446,23 @@ def build_train_lowerable(cfg: ArchConfig, shape: ShapeConfig,
         def make_engine(maker_name):
             def make(device):
                 from repro_torch.core import sharded as sharded_lib
-                from repro_torch.launch.mesh import make_agent_mesh
-                dmesh = make_agent_mesh(world, device=device.type)
+                from repro_torch.launch.mesh import (make_agent_mesh,
+                                                     make_fed_mesh)
+                if n_model > 1:
+                    dmesh = make_fed_mesh(n_shards, n_model,
+                                          device=device.type)
+                    kw = dict(model_axis="model")
+                else:
+                    dmesh = make_agent_mesh(world, device=device.type)
+                    kw = {}
                 return getattr(sharded_lib, maker_name)(
                     fcfg, spec, grad_fn, lr_fn(device), dmesh,
-                    device=device)
+                    device=device, **kw)
             return make
 
         make_step = make_engine("make_sharded_feddec_step")
         make_round = make_engine("make_sharded_feddec_round")
-        name += ":sharded"
+        name += ":sharded" + (f":m{n_model}" if n_model > 1 else "")
     elif state_layout == "flat":
         spec = flat_lib.make_flat_spec(params_struct)
 
@@ -518,6 +539,11 @@ def build_train_lowerable(cfg: ArchConfig, shape: ShapeConfig,
             return _rows(state, n_rows, dim=1) if world > 1 else state
 
         if state_layout == "sharded":
+            if n_model > 1:
+                from repro_torch.core import engine as engine_lib
+                raise engine_lib.model_axis_conflict(
+                    "sweep lattices (--sweep-runs) until the composition "
+                    "lands")
             state_specs = sweep_lib.SweepFedState(
                 flat=(None, agent_ax, None), step=(None,), opt_state=(),
                 residual=() if compress == "none"
@@ -591,11 +617,17 @@ def _opt_specs(opt_state, spec, count=()):
     return spec
 
 
-def _rows(state, n_local: int, dim: int = 0):
+def _rows(state, n_local: int, dim: int = 0, cols: int | None = None):
     """Rank 0's block of a flat (``dim`` 0) or lattice (``dim`` 1)
-    state's agent rows, its own storage (as sharded.shard_flat_state)."""
-    return _map(lambda t: t.narrow(dim, 0, n_local).clone()
-                if t.ndim > dim else t, state)
+    state's agent rows (and, with ``cols``, its first ``cols`` columns:
+    the 2-D mesh's column block), its own storage (as
+    sharded.shard_flat_state)."""
+    def cut(t):
+        if t.ndim <= dim:
+            return t
+        t = t.narrow(dim, 0, n_local)
+        return (t if cols is None else t.narrow(-1, 0, cols)).clone()
+    return _map(cut, state)
 
 
 def _concrete(cfg, batch_struct, draws):

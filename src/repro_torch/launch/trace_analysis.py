@@ -22,7 +22,10 @@ is the sequence of ops a step dispatches.  Two sources give one record,
   - collectives, from the ``c10d`` ops the step calls, named by the
     reference's kinds (all-reduce, reduce-scatter, all-gather,
     all-to-all, and collective-permute for the halo's sends and
-    receives), with their output bytes;
+    receives), with their output bytes, and each one's group as the
+    global ranks it spans (a send or receive as its (source, target)
+    pair of global ranks), the counterpart of HLO's ``replica_groups``
+    and ``source_target_pairs``;
   - kernel launches by name (the ops of the ``repro_torch`` namespace; a
     call on meta tensors launches nothing, and the wrappers' launch
     counters do not move);
@@ -41,8 +44,13 @@ is the sequence of ops a step dispatches.  Two sources give one record,
   and the NCCL kernels, with bytes from the ``record_param_comms`` events
   where the trace has them.
 
-The 2-D mesh's ``collective_axes`` and ``axis_separation`` are not ported
-(the port has no model axis).
+* :func:`collective_axes` and :func:`axis_separation` classify those
+  groups and pairs against the 2-D (A, M) mesh of launch/mesh.py
+  (global rank a·M + m) by the reference's rules
+  (repro/launch/hlo_analysis.py:356-446): a group whose ranks share
+  r // M is on 'model', one whose ranks share r % M on 'agents', any
+  other 'mixed'; a pair likewise.  One rank's tally sees the groups it
+  belongs to, where the reference's HLO lists every group.
 """
 
 from __future__ import annotations
@@ -59,7 +67,8 @@ from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import flop_registry
 
 __all__ = ["OpCosts", "TallyMode", "tally", "TraceCosts", "analyze_trace",
-           "kernel_group", "device_events", "COLL_KINDS", "KERNEL_NAMESPACE"]
+           "kernel_group", "device_events", "COLL_KINDS", "KERNEL_NAMESPACE",
+           "CollectiveAxes", "collective_axes", "axis_separation"]
 
 COLL_KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
               "collective-permute")
@@ -83,6 +92,8 @@ _C10D_KINDS = {
     "send": "collective-permute", "recv_": "collective-permute",
     "recv_any_source_": "collective-permute",
 }
+# the point-to-point ops: (tensors, group, peer's rank in the group, tag)
+_P2P = {"send": "send", "recv_": "recv"}
 
 # ops that move no bytes: metadata, aliasing and uninitialised allocations
 _FREE = {"detach", "alias", "lift_fresh", "empty", "empty_like",
@@ -173,6 +184,10 @@ class OpCosts:
         default_factory=lambda: {k: 0 for k in COLL_KINDS})
     collective_bytes_by_kind: dict = dataclasses.field(
         default_factory=lambda: {k: 0.0 for k in COLL_KINDS})
+    # every collective's group: (kind, global ranks of its group, and for
+    # a send or receive the (source, target) pair, else None); read by
+    # collective_axes
+    collective_groups: set = dataclasses.field(default_factory=set)
     # the heaviest ops, (bytes, op, shape, calls), summed over calls of
     # one op on one shape
     top_traffic: list = dataclasses.field(default_factory=list)
@@ -286,6 +301,7 @@ class TallyMode(TorchDispatchMode):
                 row = self._colls.setdefault(key, [0, 0])
                 row[0] += b
                 row[1] += 1
+                c.collective_groups.add((kind,) + _group_of(base, args))
             return out
         if ns == KERNEL_NAMESPACE:
             c.launches[base] = c.launches.get(base, 0) + 1
@@ -315,6 +331,29 @@ class TallyMode(TorchDispatchMode):
         return c
 
 
+def _group_of(base: str, args) -> tuple:
+    """(global ranks of the op's process group, (source, target) for a
+    send or receive else None); ((), None) where the op names no group."""
+    import torch.distributed as dist
+    pg = None
+    for i, a in enumerate(args):
+        if isinstance(a, torch.ScriptObject):
+            try:
+                pg = dist.ProcessGroup.unbox(a)
+            except RuntimeError:      # a ReduceOp or an options object
+                continue
+            break
+    if pg is None:
+        return (), None
+    ranks = tuple(dist.get_process_group_ranks(pg))
+    pair = None
+    if base in _P2P:
+        peer = ranks[int(args[i + 1])]
+        me = dist.get_rank()
+        pair = (me, peer) if _P2P[base] == "send" else (peer, me)
+    return ranks, pair
+
+
 def tally(fn, *args, **kwargs) -> tuple[Any, OpCosts]:
     """Run ``fn(*args, **kwargs)`` under a :class:`TallyMode`; returns
     (its output, the :class:`OpCosts`).  The arguments' storages count as
@@ -341,6 +380,92 @@ def tally(fn, *args, **kwargs) -> tuple[Any, OpCosts]:
         if ref is not None and ref() is st:
             costs.alias_bytes += st.nbytes()
     return out, costs
+
+
+# ---------------------------------------------------------------------------
+# The 2-D mesh's collective axes (repro/launch/hlo_analysis.py:317-446)
+# ---------------------------------------------------------------------------
+
+
+def _axis_of_groups(groups: list, m: int) -> str:
+    """'model' when every group's ranks share r // m, 'agents' when they
+    share r % m, 'mixed' otherwise; 'single' for groups of one."""
+    axes = set()
+    for g in groups:
+        if len(g) <= 1:
+            continue
+        if all(i // m == g[0] // m for i in g):
+            axes.add("model")
+        elif all(i % m == g[0] % m for i in g):
+            axes.add("agents")
+        else:
+            axes.add("mixed")
+    if not axes:
+        return "single"
+    return axes.pop() if len(axes) == 1 else "mixed"
+
+
+def _axis_of_pairs(pairs: list, m: int) -> str:
+    """The same rules for (source, target) pairs of global ranks."""
+    axes = set()
+    for s, t in pairs:
+        if s == t:
+            continue
+        if s // m == t // m:
+            axes.add("model")
+        elif s % m == t % m:
+            axes.add("agents")
+        else:
+            axes.add("mixed")
+    if not axes:
+        return "single"
+    return axes.pop() if len(axes) == 1 else "mixed"
+
+
+@dataclasses.dataclass
+class CollectiveAxes:
+    """One collective of a tally (one group or pair, however many calls)
+    with its mesh-axis verdict."""
+
+    kind: str            # all-reduce / reduce-scatter / ...
+    axis: str            # agents | model | mixed | single | unknown
+    groups: list | None  # its group's global ranks (None for a pair)
+    pairs: list | None   # [(source, target)] (collective-permute)
+
+
+def collective_axes(costs: OpCosts, n_agent_shards: int,
+                    n_model_shards: int) -> list[CollectiveAxes]:
+    """Classify every collective of ``costs`` (a :func:`tally`'s) against
+    the (A, M) mesh: a group by :func:`_axis_of_groups`, a send or
+    receive by :func:`_axis_of_pairs`; a collective with no group is
+    'unknown'."""
+    m = int(n_model_shards)
+    if n_agent_shards < 1 or m < 1:
+        raise ValueError(f"need a mesh of A, M >= 1, got "
+                         f"({n_agent_shards}, {n_model_shards})")
+    out = []
+    for kind, ranks, pair in costs.collective_groups:
+        if pair is not None:
+            out.append(CollectiveAxes(kind, _axis_of_pairs([pair], m), None,
+                                      [pair]))
+        elif ranks:
+            out.append(CollectiveAxes(kind, _axis_of_groups([list(ranks)], m),
+                                      [list(ranks)], None))
+        else:
+            out.append(CollectiveAxes(kind, "unknown", None, None))
+    return out
+
+
+def axis_separation(costs: OpCosts, n_agent_shards: int,
+                    n_model_shards: int) -> dict[str, list[str]]:
+    """Axis -> the sorted collective kinds found on it.  The 2-D engine's
+    contract: no 'mixed' or 'unknown', the gossip kinds (reduce-scatter,
+    collective-permute) on 'agents' only, and 'model' carrying the line-4
+    all-gather (and int8's scale all-reduce)."""
+    rep: dict[str, set] = {}
+    for c in collective_axes(costs, n_agent_shards, n_model_shards):
+        rep.setdefault(c.axis, set()).add(c.kind)
+    return {k: sorted(v) for k, v in rep.items()}
 
 
 # ---------------------------------------------------------------------------

@@ -31,10 +31,14 @@ of ``--cohort-size`` agents a round streamed to the card
 then saves the store.  ``--mesh-agents N`` shards the flat buffer's
 agent rows over N ranks, one process a rank (core/sharded.py): run it
 under ``torchrun --nproc-per-node N`` (one card a rank, NCCL; gloo with
-``--device cpu``); only rank 0 prints.  Mistral-Large-123B and
-DeepSeek-V3-671B train 4 and 1 agents whatever ``--agents`` says, their
-replicated agent layout (sharding.n_agents_for).  Runs on ``cuda``
-unless ``--device cpu`` is given, and fails without a card.
+``--device cpu``); only rank 0 prints.  ``--mesh-model M`` with it
+extends the mesh to 2-D (launch/mesh.make_fed_mesh(N, M), N·M ranks):
+each rank holds an (n/N, D/M) block of the flat buffer, and the gossip
+and server collectives stay on the agent dim (core/sharded.py).
+Mistral-Large-123B and DeepSeek-V3-671B train 4 and 1 agents whatever
+``--agents`` says, their replicated agent layout
+(sharding.n_agents_for).  Runs on ``cuda`` unless ``--device cpu`` is
+given, and fails without a card.
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.train --gossip-impl pallas \\
@@ -43,6 +47,8 @@ Example:
       [--arch mamba2-2.7b --smoke] [--ckpt-dir DIR]
   PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
       --mesh-agents 2 --gossip-impl pallas --steps 10
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --mesh-agents 2 --mesh-model 2 --gossip-impl pallas --steps 10
   PYTHONPATH=src python -m repro_torch.launch.train --n-total 4096 \\
       --cohort-size 64 --steps 20 [--sampling stale --staleness 0.5]
       [--n-clusters 4] [--no-overlap]
@@ -60,6 +66,7 @@ from repro_torch import optim
 from repro_torch.checkpoint import require_codecs, save_checkpoint
 from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.configs.base import ArchConfig, FedConfig
+from repro_torch.core import engine as engine_lib
 from repro_torch.core import feddec
 from repro_torch.core import flat as flat_lib
 from repro_torch.core import population as population_lib
@@ -69,10 +76,11 @@ from repro_torch.core import topology as topo
 from repro_torch.core.draws import Draws, SweepDraws
 from repro_torch.core.fedavg import FedAvgConfig
 from repro_torch.data.federated_lm import make_federated_lm
-from repro_torch.launch.mesh import make_agent_mesh
+from repro_torch.launch.mesh import make_agent_mesh, make_fed_mesh
 from repro_torch.launch.steps import build_fed_setup, sweep_lattice_configs
 from repro_torch.models import build_model
 from repro_torch.sharding import MeshAxes
+from repro_torch.tree import leaves
 
 OPTIMIZERS = ("sgd", "momentum", "adamw")
 
@@ -108,12 +116,76 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def _check_options(cfg: ArchConfig, fed: FedConfig, *, optimizer: str,
+                   fedavg_control: bool, fused: bool, state_layout,
+                   fuse_update_mix: bool, mesh_agents, mesh_model,
+                   sweep_runs, ckpt_dir) -> tuple:
+    """train_loop's checks of its options, in the reference's order and
+    with its messages, before anything is built (the CLI runs them before
+    it joins a process group); returns (state_layout, the FedDecConfig,
+    n_agents)."""
+    if optimizer not in OPTIMIZERS:
+        raise ValueError(f"unknown optimizer {optimizer!r}; choose from "
+                         f"{'|'.join(OPTIMIZERS)}")
+    fcfg, n_agents = build_fed_setup(cfg, fed_axes(fed), fed)
+    if fedavg_control:
+        fcfg = FedAvgConfig(n_agents, h=fed.h, k=fed.k)
+    if state_layout is None:
+        state_layout = "flat" if fused or mesh_agents else "tree"
+    if state_layout not in ("tree", "flat"):
+        raise ValueError(f"state_layout must be 'tree' or 'flat', "
+                         f"got {state_layout!r}")
+    if mesh_model is not None and mesh_model > 1:
+        # the reference's model-axis lattice, its messages
+        # (engine.model_axis_conflict)
+        if mesh_agents is None:
+            raise ValueError("--mesh-model needs --mesh-agents (the model "
+                             "axis extends the agent mesh to 2-D)")
+        if state_layout != "flat":
+            raise engine_lib.model_axis_conflict(
+                "layout 'tree' (the pytree engine has no flat buffer to "
+                "column-shard)")
+        if sweep_runs is not None:
+            raise engine_lib.model_axis_conflict(
+                "sweep lattices (--sweep-runs) until the composition lands")
+        if (getattr(fcfg, "gossip_impl", "none") != "none"
+                and getattr(fcfg, "delta", "none") != "none"):
+            raise engine_lib.model_axis_conflict(
+                "delta parameterization (--delta)")
+    if mesh_agents is not None and state_layout != "flat":
+        raise ValueError("--mesh-agents shards the flat (n_agents, D) "
+                         "buffer; it requires --state-layout flat")
+    if fuse_update_mix:
+        if state_layout != "flat":
+            raise ValueError("--fuse-update-mix fuses the whole-buffer "
+                             "update+mix pass (kernels #3/#4); it requires "
+                             "--state-layout flat")
+        if mesh_agents is not None:
+            raise ValueError("--fuse-update-mix is single-device: the "
+                             "sharded engine overlaps its halo with "
+                             "interior compute instead (core/sharded.py); "
+                             "drop --mesh-agents")
+    if sweep_runs is not None:
+        if not fused:
+            raise ValueError("--sweep-runs requires the fused executor")
+        if state_layout != "flat":
+            raise ValueError("--sweep-runs batches the flat (n_agents, D) "
+                             "buffer; it requires --state-layout flat")
+        if ckpt_dir:
+            raise ValueError("checkpointing a sweep lattice is not "
+                             "supported; run without --ckpt-dir")
+    if ckpt_dir:
+        require_codecs()
+    return state_layout, fcfg, n_agents
+
+
 def train_loop(cfg: ArchConfig, fed: FedConfig, *, steps: int,
                per_agent_batch: int, seq_len: int, lr: float = 3e-3,
                optimizer: str = "sgd", fedavg_control: bool = False,
                fused: bool = True, state_layout: str | None = None,
                fuse_update_mix: bool = False,
                mesh_agents: int | None = None,
+               mesh_model: int | None = None,
                sweep_runs: int | None = None, sweep_axis: str = "seed",
                ckpt_dir: str | None = None, ckpt_every: int = 0,
                log_every: int = 10, seed: int = 0, data_alpha: float = 0.3,
@@ -140,8 +212,10 @@ def train_loop(cfg: ArchConfig, fed: FedConfig, *, steps: int,
     ``ckpt_every`` steps (when a multiple of it falls in a fused round)
     and at the end; msgpack and zstandard are checked for before the
     first step.  A ``timing`` dict
-    receives ``setup_s`` and ``loop_s``, host-clock seconds; the loop
-    ends by reading the losses back, which waits for the device.
+    receives ``setup_s`` and ``loop_s``, host-clock seconds (the loop
+    ends by reading the losses back, which waits for the device), and
+    with ``mesh_agents`` ``block_bytes``: the storage bytes of each of
+    this rank's state buffers (flat, optimizer, residual) at the end.
 
     ``mesh_agents=N`` runs the agent-sharded engine (core/sharded.py) in
     an initialized ``torch.distributed`` group of N ranks, one process a
@@ -150,46 +224,22 @@ def train_loop(cfg: ArchConfig, fed: FedConfig, *, steps: int,
     (or of every run of a ``sweep_runs`` lattice), draws the same full
     batches and engine draws as the one-device run and keeps its rows,
     and the state returned is gathered whole on every rank.  Only rank 0
-    prints.
+    prints.  ``mesh_model=M`` (with ``mesh_agents=A``) runs the 2-D engine
+    on a ``make_fed_mesh(A, M)`` mesh in a group of A·M ranks: each rank
+    trains its (n/A, D/M) block, gathering its rows' other columns for
+    line 4 (core/sharded.py), while the gossip and server collectives
+    stay on the agent dim.  Incoherent combinations (--delta, the tree
+    layout, --sweep-runs) raise the reference's model-axis ValueError up
+    front (repro/launch/train.py:127-143).
     """
     t_setup = time.perf_counter()
-    if optimizer not in OPTIMIZERS:
-        raise ValueError(f"unknown optimizer {optimizer!r}; choose from "
-                         f"{'|'.join(OPTIMIZERS)}")
-    if state_layout is None:
-        state_layout = "flat" if fused or mesh_agents else "tree"
-    if state_layout not in ("tree", "flat"):
-        raise ValueError(f"state_layout must be 'tree' or 'flat', "
-                         f"got {state_layout!r}")
-    if mesh_agents is not None and state_layout != "flat":
-        raise ValueError("--mesh-agents shards the flat (n_agents, D) "
-                         "buffer; it requires --state-layout flat")
-    if fuse_update_mix:
-        if state_layout != "flat":
-            raise ValueError("--fuse-update-mix fuses the whole-buffer "
-                             "update+mix pass (kernels #3/#4); it requires "
-                             "--state-layout flat")
-        if mesh_agents is not None:
-            raise ValueError("--fuse-update-mix is single-device: the "
-                             "sharded engine overlaps its halo with "
-                             "interior compute instead (core/sharded.py); "
-                             "drop --mesh-agents")
-    if sweep_runs is not None:
-        if not fused:
-            raise ValueError("--sweep-runs requires the fused executor")
-        if state_layout != "flat":
-            raise ValueError("--sweep-runs batches the flat (n_agents, D) "
-                             "buffer; it requires --state-layout flat")
-        if ckpt_dir:
-            raise ValueError("checkpointing a sweep lattice is not "
-                             "supported; run without --ckpt-dir")
-    if ckpt_dir:
-        require_codecs()
+    state_layout, fcfg, n_agents = _check_options(
+        cfg, fed, optimizer=optimizer, fedavg_control=fedavg_control,
+        fused=fused, state_layout=state_layout,
+        fuse_update_mix=fuse_update_mix, mesh_agents=mesh_agents,
+        mesh_model=mesh_model, sweep_runs=sweep_runs, ckpt_dir=ckpt_dir)
     device = resolve_device(device)
     model = build_model(cfg)
-    fcfg, n_agents = build_fed_setup(cfg, fed_axes(fed), fed)
-    if fedavg_control:
-        fcfg = FedAvgConfig(n_agents, h=fed.h, k=fed.k)
     opt = {"sgd": None, "momentum": optim.momentum_sgd(),
            "adamw": optim.adamw()}[optimizer]
     # no exchange (FedAvg / impl 'none') ⇒ nothing to compress, no residual
@@ -203,15 +253,23 @@ def train_loop(cfg: ArchConfig, fed: FedConfig, *, steps: int,
             seed, device, sweep_runs, per_run=sweep_axis == "seed")
 
     mesh = rows = None
+    # the 2-D mesh's model dim; the reference's grad for it turns off
+    # attn_chunked_prefill, a limit of its partitioner: the port's
+    # attention computes one masked block, with no chunked scan
+    # (models/attention.py)
+    model_ax = "model" if mesh_model is not None and mesh_model > 1 \
+        else None
     if mesh_agents is not None:
         if n_agents % mesh_agents:
             raise ValueError(f"--mesh-agents {mesh_agents} must divide "
                              f"--agents {n_agents}")
-        mesh = make_agent_mesh(mesh_agents, device=device.type)
+        mesh = make_agent_mesh(mesh_agents, device=device.type) \
+            if model_ax is None else make_fed_mesh(
+                mesh_agents, mesh_model, device=device.type)
         n_local = n_agents // mesh_agents
         rank = mesh.get_local_rank("agents")
         rows = slice(rank * n_local, (rank + 1) * n_local)
-    verbose = mesh is None or mesh.get_local_rank("agents") == 0
+    verbose = mesh is None or mesh.get_rank() == 0
 
     data = make_federated_lm(cfg.vocab_size, n_agents, seq_len, draws,
                              alpha=data_alpha)
@@ -244,10 +302,11 @@ def train_loop(cfg: ArchConfig, fed: FedConfig, *, steps: int,
     elif mesh is not None:
         state = sharded_lib.shard_flat_state(flat_lib.init_flat_state(
             spec, params0, n_agents, optimizer=opt, compress=compress),
-            mesh)
+            mesh, model_axis=model_ax)
         make = sharded_lib.make_sharded_feddec_round if fused \
             else sharded_lib.make_sharded_feddec_step
-        engine_fn = make(fcfg, spec, grad_fn, lr_fn, mesh, **kwargs)
+        engine_fn = make(fcfg, spec, grad_fn, lr_fn, mesh,
+                         model_axis=model_ax, **kwargs)
         if fused:
             round_fn = engine_fn
         else:
@@ -273,7 +332,7 @@ def train_loop(cfg: ArchConfig, fed: FedConfig, *, steps: int,
         # as the reference saves them; a sharded state is gathered first
         # and rank 0 writes it
         if mesh is not None:
-            st = sharded_lib.gather_flat_state(st, mesh)
+            st = sharded_lib.gather_flat_state(st, mesh, model_axis=model_ax)
             if not verbose:
                 return
         stacked = spec.unflatten(st.flat) if state_layout == "flat" \
@@ -287,8 +346,10 @@ def train_loop(cfg: ArchConfig, fed: FedConfig, *, steps: int,
         f"graph={fed.graph}, H={fed.h}, K={fcfg.k}, opt={optimizer}, "
         f"executor={'fused' if fused else 'per-step'}, "
         f"layout={state_layout}"
-        + (f" (sharded over {mesh_agents} devices)" if mesh_agents
-           else "")
+        + (f" (sharded over {mesh_agents} devices)"
+           if mesh_agents and model_ax is None else "")
+        + (f" (2-D mesh: {mesh_agents} agents x {mesh_model} model)"
+           if mesh_agents and model_ax is not None else "")
         + (f" (sweep lattice R={sweep_runs} axis={sweep_axis})"
            if sweep_runs else "")
         + f", gossip={fcfg.gossip_impl}"
@@ -347,11 +408,17 @@ def train_loop(cfg: ArchConfig, fed: FedConfig, *, steps: int,
     if timing is not None:
         timing["setup_s"] = t_loop - t_setup
         timing["loop_s"] = time.perf_counter() - t_loop
+        if mesh is not None:   # this rank's blocks, before the gather
+            bufs = [state.flat, *leaves(state.opt_state),
+                    *leaves(state.residual)]
+            timing["block_bytes"] = [t.untyped_storage().nbytes()
+                                     for t in bufs if t.ndim >= 2]
     if ckpt_dir:
         save(state, steps)
     if mesh is not None:   # the whole state, on every rank
-        state = (sharded_lib.gather_sweep_state if sweep_runs is not None
-                 else sharded_lib.gather_flat_state)(state, mesh)
+        state = sharded_lib.gather_sweep_state(state, mesh) \
+            if sweep_runs is not None else sharded_lib.gather_flat_state(
+                state, mesh, model_axis=model_ax)
     if sweep_runs is not None:
         finals = metrics["loss"][-1].tolist()
         say("[train] sweep finals (last-step loss per run): "
@@ -469,7 +536,6 @@ def population_loop(cfg: ArchConfig, fed: FedConfig, *, n_total: int,
     return eng.store, losses
 
 
-_NOT_PORTED = ("--mesh-model",)
 # ported configs this CLI does not train: the reference's train_loop
 # fails on them at its first step, because its batches carry only tokens
 # and positions
@@ -480,9 +546,9 @@ _NOT_TRAINABLE = {
                              "(repro/models/transformer.py:353)",
 }
 # population mode's flags that differ from their defaults compose with
-# nothing here (repro/launch/train.py:568-579; --mesh-model is refused
-# before, as not ported)
+# nothing here (repro/launch/train.py:568-579)
 _POPULATION_EXCLUSIVE = (("--mesh-agents", "mesh_agents", None),
+                         ("--mesh-model", "mesh_model", None),
                          ("--sweep-runs", "sweep_runs", None),
                          ("--fuse-update-mix", "fuse_update_mix", False),
                          ("--optimizer", "optimizer", "sgd"),
@@ -585,8 +651,14 @@ def main(argv=None) -> None:
                         "NCCL; gloo with --device cpu); composes with "
                         "--gossip-impl, --per-step, --gossip-compress and "
                         "--sweep-runs")
-    for flag in _NOT_PORTED:
-        p.add_argument(flag, default=None)
+    p.add_argument("--mesh-model", type=int, default=None, metavar="M",
+                   help="with --mesh-agents A, extend the mesh to 2-D "
+                        "(launch/mesh.make_fed_mesh(A, M)): each agent "
+                        "row's D dim is column-sharded over M ranks too, "
+                        "A·M processes under torchrun --nproc-per-node "
+                        "A·M; the gossip and server collectives stay on "
+                        "the agent dim.  Does not compose with --delta, "
+                        "--sweep-runs or --state-layout tree")
     p.add_argument("--vocab", type=int, default=32_768,
                    help="tiny-LM vocab size")
     p.add_argument("--d-model", type=int, default=768,
@@ -600,11 +672,6 @@ def main(argv=None) -> None:
     if args.arch not in ARCH_NAMES:
         p.error(f"unknown --arch {args.arch!r}; choose from "
                 f"{', '.join(ARCH_NAMES)}")
-    rejected = [flag for flag in _NOT_PORTED
-                if getattr(args, flag[2:].replace("-", "_")) is not None]
-    if rejected:
-        p.error(f"not ported to repro_torch yet: {', '.join(rejected)} "
-                f"(see ROADMAP.md; the JAX package repro has them)")
     if args.arch in _NOT_TRAINABLE:
         p.error(f"--arch {args.arch} is not trained by this CLI: the "
                 f"reference's train_loop fails on it at its first step, "
@@ -641,7 +708,10 @@ def main(argv=None) -> None:
         _print_done(_train(args, cfg, fed)[1])
         return
     import torch.distributed as dist
-    rank = _init_ranks(p, args.mesh_agents, args.device)
+    # before the group is joined; train_loop runs these cheap checks again
+    _check_options(cfg, fed, **_options(args))
+    rank = _init_ranks(p, args.mesh_agents, args.mesh_model or 1,
+                       args.device)
     try:
         losses = _train(args, cfg, fed)[1]
     finally:
@@ -650,32 +720,40 @@ def main(argv=None) -> None:
         _print_done(losses)
 
 
+def _options(args) -> dict:
+    """The CLI's arguments that _check_options checks."""
+    return dict(optimizer=args.optimizer, fedavg_control=args.fedavg,
+                fused=args.fused, state_layout=args.state_layout,
+                fuse_update_mix=args.fuse_update_mix,
+                mesh_agents=args.mesh_agents, mesh_model=args.mesh_model,
+                sweep_runs=args.sweep_runs, ckpt_dir=args.ckpt_dir)
+
+
 def _train(args, cfg: ArchConfig, fed: FedConfig):
     """train_loop with the CLI's arguments."""
     return train_loop(
         cfg, fed, steps=args.steps, per_agent_batch=args.batch,
-        seq_len=args.seq, lr=args.lr, optimizer=args.optimizer,
-        fedavg_control=args.fedavg, fused=args.fused,
-        state_layout=args.state_layout,
-        fuse_update_mix=args.fuse_update_mix, sweep_runs=args.sweep_runs,
-        sweep_axis=args.sweep_axis, ckpt_dir=args.ckpt_dir,
-        mesh_agents=args.mesh_agents, device=args.device)
+        seq_len=args.seq, lr=args.lr, sweep_axis=args.sweep_axis,
+        device=args.device, **_options(args))
 
 
-def _init_ranks(p: argparse.ArgumentParser, n: int, device: str) -> int:
-    """The process group of ``--mesh-agents n``: torchrun's (its
-    WORLD_SIZE, RANK and LOCAL_RANK in the environment), or, without
-    torchrun, a world of one.  The world must hold n ranks.  On cuda each
-    rank takes card LOCAL_RANK and NCCL; on the CPU gloo.  Returns this
-    process's rank."""
+def _init_ranks(p: argparse.ArgumentParser, n: int, m: int,
+                device: str) -> int:
+    """The process group of ``--mesh-agents n [--mesh-model m]``:
+    torchrun's (its WORLD_SIZE, RANK and LOCAL_RANK in the environment),
+    or, without torchrun, a world of one.  The world must hold n·m ranks.
+    On cuda each rank takes card LOCAL_RANK and NCCL; on the CPU gloo.
+    Returns this process's rank."""
     import os
 
     import torch.distributed as dist
     world = int(os.environ.get("WORLD_SIZE", "1"))
-    if world != n:
-        p.error(f"--mesh-agents {n} needs {n} ranks, one process a rank, "
+    if world != n * m:
+        flags = f"--mesh-agents {n}" + (f" --mesh-model {m}" if m > 1
+                                        else "")
+        p.error(f"{flags} needs {n * m} ranks, one process a rank, "
                 f"but this world has {world} (start it with torchrun "
-                f"--nproc-per-node {n})")
+                f"--nproc-per-node {n * m})")
     cuda = torch.device(device).type == "cuda"
     if cuda:
         resolve_device(device)

@@ -24,8 +24,9 @@ cache leaves ``k``, ``v``, ``latent``, ``k_rope``, ``ssm``, ``conv``,
 ``h``, ``positions``, ``index``), which the port's trees carry at the
 reference's depths.  The axis sizes come with the ``MeshAxes`` argument
 (the reference keeps them in a module global).  The port runs no
-tensor-parallel program (its meshes have no model axis of size > 1): the
-dry run records these specs beside the program it traces, and
+tensor-parallel program (its 2-D mesh column-shards the state, not the
+model's compute: core/sharded.py): the dry run records these specs
+beside the program it traces, and
 :func:`placements` turns one into ``torch.distributed.tensor``
 placements over a ``DeviceMesh``.
 """

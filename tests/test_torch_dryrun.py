@@ -248,10 +248,22 @@ def test_sharded_layout_traces_rank_zero_of_a_fake_world():
         # the loss and the server (H = 1) sum over the ranks
         assert costs.collective_counts["all-reduce"] == 2
         assert lowered.outputs[0].flat.shape[0] == 1
-    with pytest.raises(NotImplementedError, match="model"):
-        steps.build_train_lowerable(
-            _tiny(), ShapeConfig("t", 16, 32, "train"), AXES16,
-            state_layout="sharded", mesh=AXES16, mesh_model=16)
+    # mesh_model > 1: the 2-D engine, rank 0 of a fake world of 16 x 16
+    # ranks, its (n/16, D/16) column block; line 4's gather is the model
+    # dim's only collective, the gossip's on the agents dim
+    from repro_torch.launch import trace_analysis
+    low = steps.build_train_lowerable(
+        _tiny(), ShapeConfig("t", 16, 32, "train"), AXES16,
+        state_layout="sharded", mesh=AXES16, mesh_model=16)
+    lowered = low.lower()
+    assert not dist.is_initialized()
+    assert low.world == 256 and low.name.endswith(":sharded:m16")
+    d = flat_lib.make_flat_spec(build_model(_tiny()).init_shapes()).d
+    assert lowered.outputs[0].flat.shape == (1, d // 16)
+    assert low.in_specs[0].flat == ("data", "model")
+    assert lowered.costs.collective_counts["all-gather"] == 1
+    assert trace_analysis.axis_separation(lowered.costs, 16, 16) == {
+        "model": ["all-gather"], "agents": ["all-reduce", "reduce-scatter"]}
 
 
 @pytest.mark.parametrize("kw", [
@@ -382,13 +394,18 @@ def test_run_one_writes_a_record(tmp_path, monkeypatch):
         assert row["memory_s"] == row["hlo_bytes"] / 3.35e12
         assert rec["fits"] == (rec["memory"]["peak_bytes"] <= 80e9)
     assert rec["batch_per_card"] == 2          # 32 requests over 16 cards
-    with pytest.raises(SystemExit):
-        dryrun.main(["--arch", "tiny", "--shape", "train_4k",
-                     "--state-layout", "sharded", "--mesh-model", "16",
-                     "--out", str(tmp_path)])
+    # the 2-D sharded record (at the cut train shape): traced, with its
+    # collectives by axis beside the mesh2d byte model
+    dryrun.main(["--arch", "tiny", "--shape", "train_4k",
+                 "--state-layout", "sharded", "--mesh-agents", "16",
+                 "--mesh-model", "16", "--out", str(tmp_path)])
     rec = json.loads((tmp_path / "tiny__train_4k__single__sharded__m16"
                       ".json").read_text())
-    assert rec["status"] == "fail" and "NotImplementedError" in rec["error"]
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert rec["chips"] == 256
+    assert rec["axis_separation"] == {
+        "model": ["all-gather"], "agents": ["all-reduce", "reduce-scatter"]}
+    assert rec["gossip_cost_model"]["mesh2d"]["n_model_shards"] == 16
 
 
 def test_profile_one_prints_the_hot_ops(capsys):

@@ -493,8 +493,9 @@ def test_sharded_lowerings_are_not_ported(kw, world_of_one):
     """The sharded kinds of the dispatch (repro/core/engine.py:555-569):
     a sharded spec without a mesh fails with the reference's message; a
     mesh (of one rank here) lowers the sharded engine, with a run axis the
-    sharded lattice; only the 2-D lowering (n_model_shards > 1) is not
-    ported and raises NotImplementedError."""
+    sharded lattice; the 2-D lowering (n_model_shards > 1) is ported
+    (tests/test_torch_mesh2d.py) and on a mesh without a model dim fails
+    with the reference's message."""
     kw = dict(kw)
     rcfg, cfg = make_cfgs()
     lattice = kw.pop("lattice", False)
@@ -519,7 +520,7 @@ def test_sharded_lowerings_are_not_ported(kw, world_of_one):
     for make in (engine.make_engine_step, engine.make_engine_round):
         assert callable(make(espec, _torch_grad_fn, None, device="cpu",
                              flat_spec=_port_spec(_ref_spec()), mesh=mesh))
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="mesh has no model axis 'model'"):
         engine.make_engine_step(engine.parse_engine_spec(
             cfg, n_model_shards=2), _torch_grad_fn, None, device="cpu",
             flat_spec=_port_spec(_ref_spec()), mesh=mesh)

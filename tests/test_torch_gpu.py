@@ -1399,6 +1399,33 @@ def test_cuda_shard_block_mix_matches_plain_version(cuda, n_local, r, d):
     assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
 
 
+# the 2-D engine's column blocks (core/sharded.py): x is a rank's (n_local,
+# D/M) block, its own storage, D/M odd (no multiple of 4: the kernel's
+# ragged columns); W the whole (8, 8) W at one agent shard or the own
+# block of agent shard 1, a strided view
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_local", [8, 4, 2])
+@pytest.mark.parametrize("d,m", [(2 * 4099, 2), (4 * 1031, 4),
+                                 (2 * 100003, 2)])
+def test_cuda_column_block_mix_matches_plain_version(cuda, n_local, d, m):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(n_local * 131 + d + m)
+    w = torch.rand((8, 8), device=cuda, generator=gen)
+    w = w / w.sum(dim=1, keepdim=True)
+    lo = 0 if n_local == 8 else n_local
+    blk = w[lo:lo + n_local, lo:lo + n_local]
+    rows = torch.randn((n_local, d), device=cuda, generator=gen)
+    dl = d // m
+    x = rows[:, (m - 1) * dl:m * dl].contiguous()
+    assert dl % 4 and x.shape == (n_local, dl)
+    assert n_local == 8 or not blk.is_contiguous()
+    before = ops.gossip_mix.launches
+    got = ops.gossip_mix(blk, x)
+    assert ops.gossip_mix.launches == before + 1
+    want = ref.gossip_mix(blk, x)
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
 def _quadratic_loss(params, batch):
     return 0.5 * torch.sum(torch.square(params["z"] - batch["t"]))
 

@@ -23,7 +23,7 @@ package's engines.
 * One case against the reference's own sharded round on 4 forced host
   devices, in a subprocess.
 * The CLI's ``--mesh-agents 2 --device cpu`` under torchrun prints the
-  flat run's lines; a wrong world size and ``--mesh-model`` are refused.
+  flat run's lines; a wrong world size is refused.
 """
 
 from __future__ import annotations
@@ -113,13 +113,14 @@ def test_indivisible_shards_raise_the_reference_message():
 
 
 def test_agent_mesh_needs_a_group_of_its_size():
-    """make_agent_mesh without an initialized group of n_shards ranks
-    raises with the reference's message adapted to ranks; a 2-D mesh is
-    not ported."""
+    """make_agent_mesh and make_fed_mesh without an initialized group of
+    their size raise with the reference's messages adapted to ranks (the
+    2-D mesh's contracts: tests/test_torch_mesh2d.py)."""
     assert not torch.distributed.is_initialized()
     with pytest.raises(ValueError, match="need 1 <= n_shards <= 0 ranks"):
         mesh_lib.make_agent_mesh(2, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
+    with pytest.raises(ValueError, match=r"n_agent_shards \* n_model_shards "
+                                         r"== 0 ranks"):
         mesh_lib.make_fed_mesh(2, 2, device="cpu")
 
 
@@ -739,8 +740,8 @@ def test_world_of_one_lowers_the_sharded_engine(world_of_one, name):
 
 def test_engine_refuses_what_the_sharded_lowering_does_not_take(
         world_of_one):
-    """The reference's checks of the sharded lowering, and the 2-D
-    lowering's NotImplementedError."""
+    """The reference's checks of the sharded lowering; a 2-D spec on a
+    mesh without a model dim fails with the reference's message."""
     mesh = world_of_one
     cfg = _port_cfg(np.asarray(ref_topo.ring_graph(N, 2).adjacency), 0.0,
                     "pallas", "none")
@@ -755,7 +756,7 @@ def test_engine_refuses_what_the_sharded_lowering_does_not_take(
     with pytest.raises(ValueError, match="mesh has no model axis 'model'"):
         sharded.make_sharded_feddec_round(cfg, spec, gfn, None, mesh,
                                           device="cpu", model_axis="model")
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
+    with pytest.raises(ValueError, match="mesh has no model axis 'model'"):
         engine.make_engine_step(engine.parse_engine_spec(
             cfg, n_model_shards=2), gfn, None, device="cpu", flat_spec=spec,
             mesh=mesh)

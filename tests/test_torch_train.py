@@ -383,21 +383,36 @@ def test_cli_sweep_errors_are_the_reference_messages(case):
 @pytest.mark.parametrize("argv", [
     ["--mesh-agents", "2"], ["--mesh-model", "2"],
     ["--n-total", "64", "--ckpt-dir", "c", "--mesh-agents", "2"],
-    ["--delta", "topk:4", "--n-total", "64", "--mesh-model", "2"]])
+    ["--delta", "topk:4", "--n-total", "64", "--mesh-model", "2"],
+    ["--mesh-agents", "2", "--mesh-model", "2"]])
 def test_cli_rejects_what_is_not_ported(argv, capsys):
-    """--delta, --ckpt-dir and --n-total are ported; with them,
-    --mesh-model, which is not, is still rejected before population mode
-    starts.  --mesh-agents is ported: without torchrun its world is one
-    rank, which it refuses for N = 2, and population mode does not compose
-    with it (repro/launch/train.py:568-579)."""
+    """--delta, --ckpt-dir, --n-total, --mesh-agents and --mesh-model are
+    ported; the CLI refuses what the reference refuses with them.
+    --mesh-model without --mesh-agents is the reference's ValueError, and
+    population mode composes with neither mesh flag
+    (repro/launch/train.py:127-131, 568-579).  Without torchrun the world
+    is one rank, which --mesh-agents 2 (and with --mesh-model 2, its 4
+    ranks) refuses."""
+    if argv == ["--mesh-model", "2"]:
+        with pytest.raises(ValueError) as ref_err:
+            ref_train.train_loop(ref_train.tiny_lm_config(64, 1, vocab=64),
+                                 RefFedConfig(n_agents=4, h=2, k=2),
+                                 steps=1, per_agent_batch=1, seq_len=8,
+                                 mesh_model=2)
+        with pytest.raises(ValueError) as err:
+            port_train.main(["--device", "cpu", *argv])
+        assert str(err.value) == str(ref_err.value)
+        return
     with pytest.raises(SystemExit) as err:
         port_train.main(["--device", "cpu", *argv])
-    if "--mesh-model" in argv:
-        assert err.value.code == 2
-        assert "not ported to repro_torch yet" in capsys.readouterr().err
-    elif "--n-total" in argv:
+    if "--n-total" in argv:
+        flag = "--mesh-model" if "--mesh-model" in argv else "--mesh-agents"
         assert err.value.code == ("population mode (--n-total) does not "
-                                  "compose with --mesh-agents")
+                                  f"compose with {flag}")
+    elif "--mesh-model" in argv:
+        assert err.value.code == 2
+        assert "--mesh-agents 2 --mesh-model 2 needs 4 ranks, one process " \
+            "a rank, but this world has 1" in capsys.readouterr().err
     else:
         assert err.value.code == 2
         assert "--mesh-agents 2 needs 2 ranks, one process a rank, but " \
