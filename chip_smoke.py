@@ -27,8 +27,10 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
      D = 156,519,168), timed beside their bounds; (3e) #1 at the 2-D
      engine's column blocks (the whole (8, 8) W on x (8, D/2), and a
      strided (4, 4) block of it on x (4, D/2), at phase 4h's D/2 =
-     29,590,656 and the full depth's 78,259,584), likewise; then the
-     compressed-gossip kernels #9, #11, #13, #14 at the ragged shapes and
+     29,590,656 and the full depth's 78,259,584), likewise; (3f) #1 and
+     #2 at the tensor-parallel tree's leaf blocks of phase 4i's (p1):
+     Qwen1.5-4B's embed.table block (2, 194,478,080) and a norm's (2,
+     2,560), likewise; then the compressed-gossip kernels #9, #11, #13, #14 at the ragged shapes and
      at full shape, y within 1e-5·max|y| and the residual r (#9, #11) and
      the int8 payload q (#13) equal to the plain version's (0.0); then the
      batched EF kernels #10/#12 of the compressed lattice at ragged
@@ -148,8 +150,8 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
      cohort = 8 at full width, one round, its rows equal to the flat
      engine's with --gossip-impl sparse on the same weights, batches and
      draws, bit for bit; (P2) population_loop at full width, n_total 16,
-     cohorts of 8, 20 steps, overlapped and synchronous in turns (4
-     runs; rows and losses equal bit for bit), --ckpt-dir's store
+     cohorts of 8, 20 steps, overlapped and synchronous (one run
+     each; rows and losses equal bit for bit), --ckpt-dir's store
      restored bit for bit, then a
      round of --sampling stale --staleness 0.5 --n-clusters 2, with ms a
      round, drains, h2d/d2h and gather/scatter times and peaks; (P3) the
@@ -169,14 +171,28 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
      then (4h) the 2-D ('agents', 'model') engine: gloo worlds of 2 and
      4 ranks, every rank on this one card (the kernels built before they
      start), each rank running train_loop(mesh_agents=A, mesh_model=M)
-     on path (a)'s run at full width, 1 layer (D 59,181,312), 5 steps and
-     H 5, after a one-step warm-up: (t1) A 1 x M 2 pallas (#1 once a step a rank),
+     on path (a)'s run at full width, 1 layer (D 59,181,312), 3 steps and
+     H 3, after a one-step warm-up: (t1) A 1 x M 2 pallas (#1 once a step a rank),
      (t2) the same under int8 (#1 once a step a rank; the scales' maximum
      over 'model'), (t3) A 2 x M 2 dense (no kernel), held to the end
      states of path (a)'s and (i)'s runs at that depth on one device as
      phase 4g holds its paths, each rank's state exactly n/A · D/M · 4
      bytes, with the step times (gloo's collectives, staged through the
      host) and the per-rank peaks;
+     then (4i) the tensor-parallel tree engine (core/sharded.py
+     make_sharded_tree_step, sharding/tp.py): gloo worlds of 2 and 4
+     ranks on this one card, the zoo configs at their published widths
+     with f32 compute, every leaf a rank's param_pspecs block, 5 steps at
+     H 5, batch 2 × S 128: (p1) Qwen1.5-4B at 8 of 40 layers, (A, M) =
+     (1, 2), 2 agents, pallas (#1 once per leaf block a step a rank);
+     (p2) Qwen1.5-4B at 1 layer, (2, 2), 4 agents, dense (no kernel);
+     (p3) Gemma3-12B at the 6 layers that hold its first global one,
+     (1, 2), 2 agents, pallas; each world hands its ranks' end blocks to
+     this process, which then runs the path's one-device tree twin: the
+     blocks within 1e-5·max|x| of the twin's, each rank's state exactly
+     Σ (n/A)·numel/M_leaf · 4 bytes, the step times beside the twin's
+     and the per-rank peaks (the permute gossip, point to point, is held
+     on the CPU only: gloo's batch_isend_irecv refuses CUDA tensors);
      then (4f) the bf16 configs' training, each with its warm-up round,
      both with the reference's replicated agent layout (4 agents and 1,
      whatever --agents says): (M1) Mistral-Large-123B at its published
@@ -270,7 +286,10 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
      predicted peak above the arguments within DRYRUN_PEAK_RTOL (±10%) of
      max_memory_allocated above the bytes allocated before the call; then
      each program's trace_step breakdown beside the dry run's roofline at
-     the H100's figures.
+     the H100's figures; then phase 4i's (p1) step, rank 0 of its 1 x 2
+     world traced on meta tensors in a fake world against rank 0's
+     tallied step in the card's gloo world: FLOPs, ops and launches
+     equal, the peak within ±10%.
 
 Kernel times are the median over 5 repeats of the mean of 10 calls
 (CUDA events).  ``python3 chip_smoke.py --mix-timing DIR`` runs only the
@@ -1237,6 +1256,78 @@ def column_block_phase(torch) -> dict:
             f"{'n/a' if library_ms is None else f'{library_ms:.4f}'}"
             f"{library_note(lib_check)}")
         del x, w, blk
+        torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    return out
+
+
+# (p1)'s leaf blocks on the tensor-parallel tree engine (phase 3f): #1 (and
+# #2, which the tree's 'sparse' launches at one agent shard) on Qwen1.5-4B's
+# largest and smallest leaf blocks at (A, M) = (1, 2) with 2 agents: the
+# vocabulary block of embed.table, (2, 151,936 / 2 · 2,560), and a norm's
+# replicated scale, (2, 2,560)
+TP_LEAF_BLOCKS = {"embed.table": 151_936 // 2 * 2_560, "norm": 2_560}
+
+
+def tp_leaf_phase(torch) -> dict:
+    """#1 and #2 at TP_LEAF_BLOCKS with a random row-stochastic (2, 2) W
+    (the ring of 2's ELL table for #2), against the plain version
+    (TOL·max|y|), timed beside the bound and, for #1, torch.mm (checked
+    before it is timed).  Variants of #1's and #2's rows ('tp leaf ...')."""
+    from repro_torch.kernels import ops, ref
+    dev = torch.device(DEVICE)
+    n = 2
+    out = {k: {"max_abs_err": 0.0, "variants": {}}
+           for k in ("gossip_mix", "gossip_mix_sparse")}
+    nbr, mask = (torch.as_tensor(a, device=dev) for a in ops.ell_table(
+        [[False, True], [True, False]]))
+    for leaf, d in TP_LEAF_BLOCKS.items():
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(d % 101 + 5)
+        w = torch.rand((n, n), device=dev, generator=gen)
+        w = w / w.sum(dim=-1, keepdim=True)
+        wv, wd = ops.ell_weights(w, nbr, mask)
+        x = torch.randn((n, d), device=dev, generator=gen)
+        for kernel in out:
+            if kernel == "gossip_mix":
+                run, plain = (lambda: ops.gossip_mix(w, x),
+                              lambda: ref.gossip_mix(w, x))
+                library = lambda: torch.mm(w, x)   # noqa: E731
+            else:
+                run, plain = (lambda: ops.gossip_mix_sparse(nbr, wv, wd, x),
+                              lambda: ref.gossip_mix_sparse(nbr, wv, wd, x))
+                library = None
+            got = run()
+            torch.cuda.synchronize()
+            want = plain()
+            err, scale = max_err(torch, got, want)
+            del got
+            where = f"{kernel} tp leaf {leaf} (n {n}, D {d:,})"
+            check(err <= TOL * scale, f"{where}: max_abs_err {err:.3e} > "
+                                      f"{TOL}·{scale:.3e}")
+            lib_check = None if library is None \
+                else yardstick(torch, library(), want, TOL)
+            del want
+            ms = time_ms(torch, run)
+            plain_ms = time_ms(torch, plain, iters=3, warmup=1, repeats=1)
+            # the yardstick is timed here only, never called by the port
+            library_ms = time_ms(torch, library) \
+                if lib_check is not None and lib_check["same_function"] \
+                else None
+            bound_ms, bound_by = bound(kernel, "gossip", n, d, 1)
+            out[kernel]["variants"][f"tp leaf {leaf}"] = {
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": library_ms, "library_check": lib_check,
+                "share_of_bound": bound_ms / ms, "shape": [n, d]}
+            out[kernel]["max_abs_err"] = max(out[kernel]["max_abs_err"],
+                                             err)
+            log(f"[kernels] {where}: err {err:.3e}  ms {ms:.4f}  bound_ms "
+                f"{bound_ms:.4f} ({bound_by}, {100 * bound_ms / ms:.1f}% of "
+                f"bound)  plain_ms {plain_ms:.4f}  library_ms "
+                f"{'n/a' if library_ms is None else f'{library_ms:.4f}'}"
+                f"{library_note(lib_check)}")
+        del x, w, wv, wd
         torch.cuda.empty_cache()
     ops.reset_launch_counts()
     return out
@@ -2614,9 +2705,9 @@ MESH2D_PATHS = {
 # 4-rank world's host staging passed the machine's 96 GiB; 1.8-3.0 s at
 # 1 layer, D 59,181,312, the embedding and head at full width, with some
 # 10 s to start a world's ranks and 15-20 s for its first step; PERF.md),
-# so the phase runs 1 layer and 5 steps
+# so the phase runs 1 layer and 3 steps (5 until phase 4i came beside it)
 MESH2D_LAYERS = 1
-MESH2D_STEPS = 5
+MESH2D_STEPS = 3
 # the untimed warm-up before a world's first timed run: one step
 MESH2D_WARM_STEPS = 1
 
@@ -2784,6 +2875,472 @@ def mesh2d_phase(torch) -> dict:
                     + " s)")
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 4i: the tensor-parallel tree engine (core/sharded.py
+# make_sharded_tree_step) on the card
+# ---------------------------------------------------------------------------
+
+# path -> (arch, A, M, agents, layers, gossip impl): the zoo config at its
+# published widths with its depth cut to ``layers`` and f32 compute (so
+# that the twin check is at TOL; the tensor-parallel sums run in another
+# order than the one-device products), the tree engine's leaves placed by
+# sharding.param_pspecs over an (A, M) ('agents', 'model') mesh, every rank
+# of a gloo world on this one card (NCCL refuses two ranks on one device;
+# gloo's collectives take CUDA tensors and stage them through the host,
+# its point-to-point ops do not: the permute gossip is held on the CPU by
+# tests/test_torch_tensor_parallel.py).  (p1): #1 once per leaf block a
+# step on each rank; (p3): Gemma3-12B at the 6 layers that hold its first
+# global one (global_every 6), #1 likewise; (p2): dense gossip over two
+# agent shards (the own-block partials reduce-scattered through gloo), at
+# one layer, where each step moves the embedding's and the head's
+# (4, 194,478,080) partials through the host.
+TP_PATHS = {
+    "p1": ("qwen1.5-4b", 1, 2, 2, 8, "pallas"),
+    "p2": ("qwen1.5-4b", 2, 2, 4, 1, "dense"),
+    "p3": ("gemma3-12b", 1, 2, 2, 6, "pallas"),
+}
+# 5 steps at H 5 (the server fires at the last), batch 2 × S 128 a
+# step as phase 4c's paths, η 1e-3; the first step is untimed.  A world
+# and its twin do not fit on the card together ((p3): 59 GB of ranks
+# beside the twin's 58 GB), so the world runs first and hands its end
+# blocks to the parent, then the twin runs
+TP_STEPS, TP_BATCH, TP_SEQ, TP_LR = 5, 2, 128, 1e-3
+TP_INIT_SEED, TP_SEED = 30, 31
+
+
+def tp_config(arch: str, layers: int):
+    import dataclasses
+
+    import torch
+    return dataclasses.replace(path_config(arch, layers, False),
+                               compute_dtype=torch.float32)
+
+
+def tp_fed(name: str):
+    """(the model's config, FedDecConfig) of a TP path: ring2, H = the
+    steps, K 2."""
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.launch import train
+    arch, _, _, n, layers, impl = TP_PATHS[name]
+    cfg = tp_config(arch, layers)
+    fed = FedConfig(n_agents=n, h=TP_STEPS, k=2, graph="ring2",
+                    gossip_impl=impl)
+    return cfg, train.build_fed_setup(cfg, train.fed_axes(fed), fed)[0]
+
+
+def tp_batches(torch, name: str, rows: slice, device) -> list:
+    """The TP_STEPS batches of a path (tokens from a CPU generator,
+    uniform in the vocabulary), ``rows`` of the agents, on ``device``."""
+    arch, _, _, n, layers, _ = TP_PATHS[name]
+    vocab = tp_config(arch, layers).vocab_size
+    gen = torch.Generator().manual_seed(TP_SEED + 1)
+    tokens = torch.randint(0, vocab, (TP_STEPS, n, TP_BATCH, TP_SEQ),
+                           generator=gen)[:, rows]
+    positions = torch.arange(TP_SEQ).expand(tokens.shape)
+    return [{"tokens": tokens[t].to(device),
+             "positions": positions[t].contiguous().to(device)}
+            for t in range(TP_STEPS)]
+
+
+def tp_program(torch, name: str, device, mesh) -> dict:
+    """A TP path's program on this rank of ``mesh``: the config adapted
+    to the mesh (launch/steps.adapt_for_mesh), the leaves' specs, this
+    rank's coordinates and blocks of every agent's start (one agent's
+    init cut to its blocks, then repeated over the rank's agents; shapes
+    only on meta), and make_sharded_tree_step's step, draws and
+    batches."""
+    from repro_torch import sharding as shd
+    from repro_torch.core import feddec, sharded
+    from repro_torch.core.draws import Draws, ShapeDraws
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+    from repro_torch.sharding import tp
+    from repro_torch.tree import build_tree
+    _, a, m, n, _, _ = TP_PATHS[name]
+    cfg, fcfg = tp_fed(name)
+    axes = tp.mesh_axes(mesh)
+    tcfg = steps.adapt_for_mesh(cfg, axes)
+    model = build_model(tcfg)
+    nl = n // a
+    coords = {"agents": (int(mesh.get_local_rank("agents")), a),
+              "model": (int(mesh.get_local_rank("model")), m)}
+    specs = shd.param_pspecs(tcfg, feddec.init_state(
+        model.init_shapes(), n).params, axes)
+    meta = torch.device(device).type == "meta"
+    draws = ShapeDraws("meta") if meta else Draws(TP_SEED, device)
+    params = model.init_shapes() if meta \
+        else model.init(Draws(TP_INIT_SEED, device))
+    blocks = {}
+    for path, spec in _sorted_specs(specs):
+        leaf = _pop_leaf(params, path)
+        blk = tp.block_at(leaf[None], (None,) + tuple(spec[1:]), coords)
+        blocks[path] = blk.expand((nl,) + tuple(blk.shape[1:])).clone()
+        del leaf, blk
+    state = feddec.FedState(params=build_tree(list(blocks), list(
+        blocks.values())), step=1)
+    del blocks
+    eta = torch.full((1,), TP_LR, device=device)
+    step = sharded.make_sharded_tree_step(
+        fcfg, model.grad_fn(), lambda t: eta, mesh, device=device,
+        param_specs=specs)
+    rows = slice(coords["agents"][0] * nl, (coords["agents"][0] + 1) * nl)
+    batches = [{k: torch.empty((nl, TP_BATCH, TP_SEQ), dtype=torch.long,
+                               device="meta") for k in ("tokens",
+                                                        "positions")}] \
+        if meta else tp_batches(torch, name, rows, device)
+    return {"step": step, "state": state, "draws": draws,
+            "batches": batches, "specs": specs, "coords": coords,
+            "n_local": nl, "cfg": tcfg}
+
+
+def _sorted_specs(specs) -> list:
+    from repro_torch.tree import sorted_leaves
+    return list(sorted_leaves(specs))
+
+
+def _pop_leaf(tree: dict, path: tuple):
+    """The leaf at ``path``, removed from ``tree`` (so that its storage
+    goes once its block is cut)."""
+    node = tree
+    for key in path[:-1]:
+        node = node[key]
+    return node.pop(path[-1])
+
+
+def tp_expected_bytes(prog: dict) -> int:
+    """Σ over leaves of (n/A)·numel/M_leaf f32 elements × 4 bytes."""
+    from repro_torch.core import feddec
+    from repro_torch.models import build_model
+    from repro_torch.sharding import tp
+    from repro_torch.tree import leaves
+    sizes = {k: s for k, (_, s) in prog["coords"].items()}
+    shapes = leaves(feddec.init_state(build_model(prog["cfg"]).init_shapes(),
+                                      prog["n_local"] * sizes["agents"]
+                                      ).params)
+    return 4 * sum(tp.block_numel(tuple(s.shape), sp, sizes)
+                   for s, (_, sp) in zip(shapes, _sorted_specs(
+                       prog["specs"])))
+
+
+def tp_twin(torch, name: str) -> tuple:
+    """The one-device twin of a TP path: core/feddec.make_feddec_step on
+    this card with the same config (not adapted: one device), start,
+    draws and batches, TP_STEPS steps.  Returns (its row, its end state:
+    the leaves on the card by their '/'-joined paths)."""
+    from repro_torch.core import feddec
+    from repro_torch.core.draws import Draws
+    from repro_torch.models import build_model
+    from repro_torch.tree import sorted_leaves
+    n = TP_PATHS[name][3]
+    cfg, fcfg = tp_fed(name)
+    model = build_model(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = feddec.init_state(model.init(Draws(TP_INIT_SEED, DEVICE)), n)
+    eta = torch.full((1,), TP_LR, device=DEVICE)
+    step = feddec.make_feddec_step(fcfg, model.grad_fn(), lambda t: eta,
+                                   device=DEVICE)
+    draws = Draws(TP_SEED, DEVICE)
+    losses, times = [], []
+    for batch in tp_batches(torch, name, slice(None), DEVICE):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step(state, batch, draws)
+        losses.append(met["loss"].item())
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    final = {"/".join(p): leaf for p, leaf in sorted_leaves(state.params)}
+    return {"losses": losses, "peak_bytes": peak,
+            "step_ms": 1e3 * sum(times[1:]) / (TP_STEPS - 1)}, final
+
+
+def _tp_rank(rank: int, world: int, store: str, names: list, handoff,
+             dones: dict, out_dir: str, t_spawn: float) -> None:
+    """One rank of a phase-4i world: init gloo on this card, then each
+    path of ``names`` (one mesh shape): its program (tp_program),
+    TP_STEPS steps with the counters set to 0 just before the first and
+    read after the last (the first step untimed), the rank's state bytes;
+    then it hands its end blocks to the parent (CUDA IPC through
+    ``handoff``) and waits for the path's ``dones`` event, the parent's
+    copy of them; (p1) then takes one more step under
+    trace_analysis.tally (phase 8 reads rank 0's)."""
+    t_start = time.time()
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch.mesh import make_fed_mesh
+    from repro_torch.launch.trace_analysis import tally
+    from repro_torch.tree import sorted_leaves
+    times = {"spawn_to_start_s": t_start - t_spawn}
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    out = {}
+    try:
+        build.load()     # built by the parent: loaded, not compiled
+        _, a, m, *_ = TP_PATHS[names[0]]
+        mesh = make_fed_mesh(a, m, device=DEVICE)
+        times["ready_s"] = time.time() - t_start
+        for name in names:
+            out[name] = _tp_rank_path(torch, name, mesh, rank, handoff,
+                                      dones[name], ops, tally,
+                                      sorted_leaves)
+    finally:
+        dist.destroy_process_group()
+    out["times"] = times
+    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def _tp_rank_path(torch, name, mesh, rank, handoff, done, ops, tally,
+                  sorted_leaves) -> dict:
+    """One path of a phase-4i rank (see _tp_rank): its row."""
+    t0 = time.time()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    prog = tp_program(torch, name, DEVICE, mesh)
+    blocks = [leaf for _, leaf in sorted_leaves(prog["state"].params)]
+    row = {"block_bytes": sum(b.untyped_storage().nbytes() for b in blocks),
+           "elem_bytes": sum(b.numel() * b.element_size() for b in blocks),
+           "expected_bytes": tp_expected_bytes(prog),
+           "n_leaves": len(blocks)}
+    del blocks
+    state, step, draws = prog["state"], prog["step"], prog["draws"]
+    t1 = time.time()
+    ops.reset_launch_counts()
+    losses, step_s = [], []
+    for batch in prog["batches"]:
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        state, met = step(state, batch, draws)
+        losses.append(met["loss"].item())
+        step_s.append(time.perf_counter() - ts)
+    row.update(losses=losses,
+               counts={k: v for k, v in ops.launch_counts().items() if v},
+               step_ms=1e3 * sum(step_s[1:]) / (TP_STEPS - 1),
+               first_step_ms=1e3 * step_s[0],
+               peak_bytes=torch.cuda.max_memory_allocated())
+    t2 = time.time()
+    del prog["state"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    # CUDA IPC takes no tensor of an expandable segment where the OS
+    # kernel lacks pidfd_open (the H100 host's does): the handed blocks
+    # are copies made in ordinary segments
+    torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+    handoff.put((name, rank, {"/".join(p): leaf.clone() for p, leaf in
+                              sorted_leaves(state.params)}))
+    done.wait()
+    # the parent has dropped the copies: free them here too, so that
+    # (p1)'s tallied step below starts from this rank's own bytes
+    gc.collect()
+    torch.cuda.ipc_collect()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    t3 = time.time()
+    if name == "p1":
+        # phase 8's record: one more step under the tally, from the state
+        # the steps left (the server does not fire at it)
+        batch = prog["batches"][0]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        res, costs = tally(step, state, batch, draws)
+        torch.cuda.synchronize()
+        row["tally"] = {
+            "ops": costs.ops, "flops": costs.flops,
+            "traffic_bytes": costs.traffic_bytes,
+            "launches": {k: v for k, v in ops.launch_counts().items() if v},
+            "tally_launches": costs.launches,
+            "collective_counts": costs.collective_counts,
+            "peak_above_args": torch.cuda.max_memory_allocated() - base}
+        del res
+    del state, prog, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    row["times"] = {"setup_s": t1 - t0, "run_s": t2 - t1,
+                    "handoff_s": t3 - t2}
+    return row
+
+
+def tp_handoff(torch, pc, handoff, name: str, world: int) -> dict:
+    """Every rank's end blocks of path ``name`` (CUDA IPC), copied to
+    host memory as they arrive: {rank: {leaf path: tensor}}.  A rank
+    that fails raises here (``pc.join`` between waits)."""
+    import queue
+    got: dict = {}
+    while len(got) < world:
+        try:
+            path, rank, blocks = handoff.get(timeout=5)
+        except queue.Empty:
+            pc.join(timeout=0)
+            continue
+        check(path == name, f"[tp] rank {rank} handed path ({path}) while "
+                            f"({name}) was due")
+        got[rank] = {k: v.cpu() for k, v in blocks.items()}
+        del blocks
+    return got
+
+
+def tp_twin_check(torch, name: str, final: dict, blocks: dict) -> tuple:
+    """(max |rank block − the twin's block|, max |twin|) over every rank
+    and leaf: each rank's blocks (host memory) against its blocks cut
+    from the twin's end state (on the card) by the leaves' specs."""
+    from repro_torch import sharding as shd
+    from repro_torch.core import feddec
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+    from repro_torch.sharding import tp
+    _, a, m, n, _, _ = TP_PATHS[name]
+    cfg, _ = tp_fed(name)
+    axes = shd.MeshAxes(("agents",), "model", {"agents": a, "model": m})
+    tcfg = steps.adapt_for_mesh(cfg, axes)
+    specs = dict(_sorted_specs(shd.param_pspecs(tcfg, feddec.init_state(
+        build_model(tcfg).init_shapes(), n).params, axes)))
+    err = scale = 0.0
+    for rank, mine in blocks.items():
+        coords = {"agents": (rank // m, a), "model": (rank % m, m)}
+        for key, blk in mine.items():
+            want = tp.block_at(final[key], specs[tuple(key.split("/"))],
+                               coords)
+            err = max(err, (blk.to(want.device) - want).abs().max().item())
+            scale = max(scale, want.abs().max().item())
+            del want
+    return err, scale
+
+
+def tp_path_rows(torch, name: str, ranks: list, blocks: dict,
+                 wall: float) -> dict:
+    """A TP path's twin (tp_twin) against the ranks' handed blocks and
+    its checks, log line and rows ({name: row, name_twin: the twin's})."""
+    arch, a, m, n, layers, impl = TP_PATHS[name]
+    t0 = time.perf_counter()
+    twin, final = tp_twin(torch, name)
+    err, scale = tp_twin_check(torch, name, final, blocks)
+    del final, blocks
+    gc.collect()
+    torch.cuda.empty_cache()
+    twin["wall_s"] = time.perf_counter() - t0
+    rows = [r[name] for r in ranks]
+    kernel = "gossip_mix" if impl == "pallas" else None
+    head = rows[0]
+    for r, row in enumerate(rows):
+        check(all(math.isfinite(v) for v in row["losses"])
+              and row["losses"] == head["losses"],
+              f"path ({name}) rank {r}: losses {row['losses']}, rank 0's "
+              f"{head['losses']}")
+        want = {kernel: TP_STEPS * row["n_leaves"]} if kernel else {}
+        check(row["counts"] == want, f"path ({name}) rank {r}: launches "
+                                     f"{row['counts']}, want {want}")
+        check(row["block_bytes"] == row["elem_bytes"]
+              == row["expected_bytes"],
+              f"path ({name}) rank {r}: state {row['block_bytes']} B in "
+              f"storages, {row['elem_bytes']} B of elements, want Σ "
+              f"(n/A)·numel/M_leaf·4 = {row['expected_bytes']}")
+    check(err <= TOL * scale, f"path ({name}) ends {err:.3e} from its twin "
+                              f"> {TOL}·{scale:.3e}")
+    out = {
+        "arch": arch, "mesh": [a, m], "agents": n, "layers": layers,
+        "impl": impl, "kernel": kernel, "steps": TP_STEPS,
+        "batch": TP_BATCH, "seq": TP_SEQ,
+        "launches": [r["counts"].get(kernel, 0) if kernel else 0
+                     for r in rows],
+        "leaves": head["n_leaves"],
+        "step_ms": max(r["step_ms"] for r in rows),
+        "step_ms_by_rank": [r["step_ms"] for r in rows],
+        "first_step_ms_by_rank": [r["first_step_ms"] for r in rows],
+        "peak_bytes_by_rank": [r["peak_bytes"] for r in rows],
+        "state_bytes_by_rank": [r["block_bytes"] for r in rows],
+        "losses": head["losses"], "max_abs_diff": err, "scale": scale,
+        "tol": TOL, "twin": twin, "world_wall_s": wall,
+        "rank0_times": {**ranks[0]["times"], **head["times"]}}
+    if "tally" in head:
+        out["tally"] = head["tally"]
+    log(f"[tp] path ({name}) {arch} at published widths, {layers} "
+        f"layer{'s' if layers > 1 else ''}, f32 compute, {n} agents on a "
+        f"{a} x {m} gloo world on one card, gossip={impl}, {TP_STEPS} "
+        f"steps: step {out['step_ms']:.1f} ms (host clock, steps 2-"
+        f"{TP_STEPS}; the twin {twin['step_ms']:.1f} ms), "
+        f"{kernel or 'no kernel'} launches {out['launches']} a rank "
+        f"({head['n_leaves']} leaves × {TP_STEPS} steps), state "
+        + "/".join(f"{b / 1e9:.3f}" for b in out["state_bytes_by_rank"])
+        + " GB a rank (exactly its blocks), peaks "
+        + "/".join(f"{b / 1e9:.2f}" for b in out["peak_bytes_by_rank"])
+        + f" GB (the twin {twin['peak_bytes'] / 1e9:.2f} GB), ends "
+        f"{err:.3e} from its twin (max|x| {scale:.3e}); its world "
+        f"{wall:.1f} s (rank 0: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in out["rank0_times"].items())
+        + f" s), twin and check {twin['wall_s']:.1f} s")
+    return {name: out, f"{name}_twin": twin}
+
+
+def tp_phase(torch) -> dict:
+    """TP_PATHS (phase 4i), a gloo world of A·M ranks on this card a mesh
+    shape, every path of that shape in it, first: the world hands each
+    path's end blocks to this process (kept in host memory); then each
+    path's one-device twin (tp_twin) on the card the world has left.
+    Each path: every rank's losses finite and equal, #1 once per leaf
+    block a step under 'pallas' and no kernel under 'dense', its state
+    exactly its blocks' bytes (Σ (n/A)·numel/M_leaf · 4), its end blocks
+    within TOL·max|x| of the twin's."""
+    import os
+
+    import torch.multiprocessing as mp
+    work = ROOT / "build" / f"tp_{os.getpid()}"
+    work.mkdir(parents=True, exist_ok=True)
+    out: dict = {}
+    shapes: dict = {}
+    for name, p in TP_PATHS.items():
+        shapes.setdefault((p[1], p[2]), []).append(name)
+    env = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    # the ranks' allocators map what they use: four ranks' caches beside
+    # each other on one card left 6 GB a rank reserved and unused
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    ctx = mp.get_context("spawn")
+    try:
+        for (a, m), names in shapes.items():
+            world = a * m
+            run_dir = work / f"{a}x{m}"
+            run_dir.mkdir(exist_ok=True)
+            handoff = ctx.Queue()
+            dones = {name: ctx.Event() for name in names}
+            t0 = time.perf_counter()
+            pc = mp.start_processes(
+                _tp_rank, args=(world, str(run_dir / "store"), names,
+                                handoff, dones, str(run_dir), time.time()),
+                nprocs=world, start_method="spawn", join=False)
+            blocks = {}
+            try:
+                for name in names:
+                    blocks[name] = tp_handoff(torch, pc, handoff, name, world)
+                    dones[name].set()
+            finally:
+                for done in dones.values():
+                    done.set()
+            while not pc.join():
+                pass
+            wall = time.perf_counter() - t0
+            torch.cuda.ipc_collect()
+            ranks = [json.loads((run_dir / f"rank{r}.json").read_text())
+                     for r in range(world)]
+            for name in names:
+                out.update(tp_path_rows(torch, name, ranks,
+                                        blocks.pop(name), wall))
+    finally:
+        if env is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = env
+        shutil.rmtree(work, ignore_errors=True)
+    log("[tp] make_permute_gossip(leaf_specs=...) is held on the CPU only "
+        "(tests/test_torch_tensor_parallel.py against the reference's): "
+        "it is point-to-point, gloo's batch_isend_irecv refuses CUDA "
+        "tensors, and NCCL refuses two ranks on this one card")
     return out
 
 
@@ -3405,15 +3962,14 @@ def pop_cli_run(torch, tag: str, **kw) -> tuple:
         counts["gossip_mix_sparse"]
 
 
-# P2's runs, in turns, so that neither schedule takes all of the first
-# run's costs or the host's drift: the rows of the first two are compared
-POP_ORDER = (("overlap", True), ("sync", False), ("sync", False),
-             ("overlap", True))
+# P2's runs, one a schedule (two each, in turns, until phase 4i's time
+# came beside it): their rows are compared
+POP_ORDER = (("overlap", True), ("sync", False))
 
 
 def pop_cli(torch) -> dict:
     """P2: population_loop at full width, overlapped and synchronous in
-    turns (POP_ORDER): the first pair's rows equal bit for bit, every
+    turns (POP_ORDER): the two runs' rows equal bit for bit, every
     run's losses equal; --ckpt-dir saving the first run's store
     (PopulationStore.restore returns the same rows); then a round of
     --sampling stale --staleness 0.5 --n-clusters 2."""
@@ -3489,7 +4045,7 @@ def pop_cli(torch) -> dict:
     out["overlap_speedup"] = ms["sync"] / ms["overlap"]
     log(f"[population] P2: overlapped and synchronous rows and losses equal "
         f"bit for bit; a round {ms['overlap']:.1f} ms overlapped, "
-        f"{ms['sync']:.1f} ms synchronous (means of 2, in turns; "
+        f"{ms['sync']:.1f} ms synchronous (one run each; "
         f"{out['overlap_speedup']:.3f}×)")
     store, losses, timing, peak, launches = pop_cli_run(
         torch, "stale", steps=STEPS, sampling="stale", staleness=0.5,
@@ -4749,8 +5305,60 @@ def dryrun_program(torch, name: str) -> dict:
     return out
 
 
-def dryrun_phase(torch) -> dict:
-    return {name: dryrun_program(torch, name) for name in DRYRUN_PROGRAMS}
+def dryrun_tp_program(torch, card: dict) -> dict:
+    """(p1)'s step (phase 4i) traced on the host, rank 0 of a fake world
+    of A·M ranks on meta tensors, against rank 0's tallied step in the
+    card's gloo world (``card``): ops, FLOPs and kernel launches equal,
+    the predicted peak above the arguments within DRYRUN_PEAK_RTOL of
+    the measured one."""
+    from repro_torch.launch.mesh import make_fed_mesh
+    from repro_torch.launch.steps import _fake_world
+    from repro_torch.launch.trace_analysis import tally
+    _, a, m, *_ = TP_PATHS["p1"]
+    t0 = time.perf_counter()
+    with _fake_world(a * m):
+        mesh = make_fed_mesh(a, m, device="meta")
+        prog = tp_program(torch, "p1", "meta", mesh)
+        _, fake = tally(prog["step"], prog["state"], prog["batches"][0],
+                        prog["draws"])
+        del prog
+    trace_s = time.perf_counter() - t0
+    measured = card["peak_above_args"]
+    gap = (fake.temp_bytes - measured) / measured
+    out = {"kernel": "gossip_mix", "trace_s": trace_s,
+           "fake": {"ops": fake.ops, "flops": fake.flops,
+                    "traffic_bytes": fake.traffic_bytes,
+                    "launches": fake.launches,
+                    "collective_counts": fake.collective_counts,
+                    **fake.memory()},
+           "card": card, "peak_gap": gap}
+    log(f"[dryrun] p1 (phase 4i, rank 0 of a {a} x {m} world): host trace "
+        f"{trace_s:.1f} s, {fake.ops} ops, {fake.flops:.4e} FLOPs, "
+        f"launches {fake.launches}, collectives {fake.collective_counts}; "
+        f"the card's gloo run: {card['ops']} ops, {card['flops']:.4e} "
+        f"FLOPs, launches {card['launches']}, collectives "
+        f"{card['collective_counts']}; peak above the arguments predicted "
+        f"{fake.temp_bytes / 1e9:.3f} GB, measured {measured / 1e9:.3f} GB "
+        f"({100 * gap:+.2f}%)")
+    check(card["ops"] == fake.ops and card["flops"] == fake.flops,
+          f"[dryrun] p1: the fake trace's {fake.ops} ops and "
+          f"{fake.flops:.6e} FLOPs differ from the card's {card['ops']} and "
+          f"{card['flops']:.6e}")
+    check(fake.launches == card["launches"] == card["tally_launches"],
+          f"[dryrun] p1: the fake trace's kernel ops {fake.launches} differ "
+          f"from the card's launches {card['launches']} (tally "
+          f"{card['tally_launches']})")
+    check(abs(gap) <= DRYRUN_PEAK_RTOL,
+          f"[dryrun] p1: predicted peak {fake.temp_bytes} B is "
+          f"{100 * gap:+.2f}% from the measured {measured} B (limit "
+          f"±{100 * DRYRUN_PEAK_RTOL:.0f}%)")
+    return out
+
+
+def dryrun_phase(torch, tp_paths: dict) -> dict:
+    out = {name: dryrun_program(torch, name) for name in DRYRUN_PROGRAMS}
+    out["p1"] = dryrun_tp_program(torch, tp_paths["p1"]["tally"])
+    return out
 
 
 def step_profile(torch) -> dict:
@@ -4813,7 +5421,8 @@ def main() -> int:
     kernels = kernel_phase(torch)
     kernels.update(batched_kernel_phase(torch))
     for kernel, rows in [*shard_block_phase(torch).items(),
-                         ("gossip_mix", column_block_phase(torch))]:
+                         ("gossip_mix", column_block_phase(torch)),
+                         *tp_leaf_phase(torch).items()]:
         kernels[kernel]["variants"].update(rows["variants"])
         kernels[kernel]["max_abs_err"] = max(kernels[kernel]["max_abs_err"],
                                              rows["max_abs_err"])
@@ -4833,6 +5442,9 @@ def main() -> int:
     t0 = time.perf_counter()
     mesh2d_paths = mesh2d_phase(torch)
     log(f"[mesh2d] phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    tp_paths = tp_phase(torch)
+    log(f"[tp] phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     tree_paths = tree_phase(torch, a_final)
     log(f"[tree] phase {time.perf_counter() - t0:.1f} s")
@@ -4870,7 +5482,7 @@ def main() -> int:
     paper = paper_phase(torch)
     log(f"[paper] phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    dryrun = dryrun_phase(torch)
+    dryrun = dryrun_phase(torch, tp_paths)
     log(f"[dryrun] phase {time.perf_counter() - t0:.1f} s")
 
     line = []
@@ -4908,11 +5520,12 @@ def main() -> int:
             # #1, #2, #9 and #11 on every path that runs them: once a step
             # on the flat buffer (the delta paths too), once per leaf a
             # step on the tree, once a step on each rank of a 2-D path (a
-            # list, rank by rank)
+            # list, rank by rank; the tensor-parallel tree's: once per
+            # leaf block a step on each rank)
             line[-1]["launches_by_path"] = {
                 name: p["launches"] for name, p in
                 {**training, **tree_paths, **delta_paths,
-                 **sharded_paths, **mesh2d_paths}.items()
+                 **sharded_paths, **mesh2d_paths, **tp_paths}.items()
                 if p.get("kernel") == kernel}
         if kernel == "gossip_mix_batched":
             # #5 on the sharded lattice (s4), once a step
@@ -4956,7 +5569,7 @@ def main() -> int:
         {"device": name, "nvidia_smi": smi, "kernels": line,
          "training": training, "tree_paths": tree_paths,
          "delta_paths": delta_paths, "sharded_paths": sharded_paths,
-         "mesh2d_paths": mesh2d_paths,
+         "mesh2d_paths": mesh2d_paths, "tp_paths": tp_paths,
          "population": population,
          "grads": grads,
          "f64_paths": f64_paths, "bf16_paths": bf16_paths,

@@ -5,8 +5,10 @@ Qwen1.5's QKV bias and long-context window), Griffin's RG-LRU /
 local-attention hybrid, the Mamba2 SSD stack, DeepSeek's MoE and MLA
 blocks, Qwen2-VL's M-RoPE with its vision-stub prefix and SeamlessM4T's
 encoder-decoder, with the reference's analytic parameter counts.  Dtypes
-are torch dtypes in place of ``jnp`` ones.  The sharding fields are not
-ported.
+are torch dtypes in place of ``jnp`` ones.  Of the sharding fields the
+tensor-parallel ones are ported (``tp_axis_name``,
+``attn_weight_gather``); ``batch_axis_name`` names a serving constraint
+that the port has no counterpart of.
 """
 
 from __future__ import annotations
@@ -119,6 +121,15 @@ class ArchConfig:
     # fed_n_agents_replicated agents per pod (sharding.n_agents_for)
     fed_agent_layout: str = "sharded"
     fed_n_agents_replicated: int = 4
+
+    # set at lowering time by launch/steps.adapt_for_mesh
+    # (repro/configs/base.py:114-125): ``tp_axis_name`` names the mesh dim
+    # whose ambient model group (sharding/tp.py) partitions the model's
+    # compute, and ``attn_weight_gather`` marks a head count that does not
+    # divide it: the attention then gathers its weights on use and splits
+    # the sequence over the group (models/attention.py)
+    attn_weight_gather: bool = False
+    tp_axis_name: str | None = None
 
     def __post_init__(self):
         if self.head_dim == 0 and self.attention_kind == "gqa":

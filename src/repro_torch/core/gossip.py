@@ -174,20 +174,29 @@ def make_permute_gossip(graph: topo.Graph, mesh, agent_axes="agents",
     wire (e.g. bf16) and back.  Needs graph.n == the mesh's agent-axis
     size: one agent per rank.
 
-    ``leaf_specs`` (the reference's tensor-parallel inner placements)
-    needs tensor-parallel model compute, which the port does not have
-    (ROADMAP Queue A item 6).
+    ``leaf_specs``: the stacked leaves' specs (``sharding.param_pspecs``
+    over the mesh's own dim names), on a 2-D ('agents', 'model') mesh
+    whose ranks hold each leaf's tensor-parallel block
+    (``sharding.tp.shard_params``): each leaf is exchanged over the
+    agents group, between the ranks of one model coordinate, on the
+    rank's own block (the mix is elementwise in every dim but the
+    agents', so it commutes with the block).  Every spec must put the
+    agent dim on ``agent_axes``; a tree of specs must match the stacked
+    tree.  Without ``leaf_specs`` every leaf is the whole (1, ...) row.
 
     Returns ``gossip(w, stacked) -> stacked`` on this rank's (1, ...)
     leaves, every rank calling it together.
     """
     from repro_torch.core import sharded as sharded_lib
-    if leaf_specs is not None:
-        raise NotImplementedError(
-            "leaf_specs (tensor-parallel inner partition specs) is not "
-            "ported to repro_torch yet; see ROADMAP.md Queue A item 6")
     axes = (agent_axes,) if isinstance(agent_axes, str) \
         else tuple(agent_axes)
+    agent = axes[0] if len(axes) == 1 else axes
+    if leaf_specs is not None:
+        for spec in _spec_leaves(leaf_specs):
+            if not spec or spec[0] != agent:
+                raise ValueError(
+                    f"permute gossip exchanges the agent dim: every leaf "
+                    f"spec must put dim 0 on {agent!r}, got {spec}")
     n_mesh = sharded_lib.agent_axis_size(mesh, axes)
     if graph.n != n_mesh:
         raise ValueError(
@@ -213,9 +222,19 @@ def make_permute_gossip(graph: topo.Graph, mesh, agent_axes="agents",
         return acc.to(x.dtype)
 
     def gossip(w: torch.Tensor, stacked):
-        return tree_map(lambda leaf: mix(w, leaf), stacked)
+        if leaf_specs is None:
+            return tree_map(lambda leaf: mix(w, leaf), stacked)
+        return tree_map(lambda leaf, spec: mix(w, leaf), stacked,
+                        leaf_specs)
 
     return gossip
+
+
+def _spec_leaves(specs) -> list:
+    """The specs (tuples) of a tree of them."""
+    if isinstance(specs, dict):
+        return [s for k in sorted(specs) for s in _spec_leaves(specs[k])]
+    return [tuple(specs)]
 
 
 def gossip_mix_permute(w: torch.Tensor, stacked, *, graph: topo.Graph, mesh,

@@ -1,6 +1,8 @@
 """The agent-sharded flat engine: the (n_agents, D) buffer over a 1-D
 mesh of ``torch.distributed`` ranks (repro/core/sharded.py, the 1-D part;
-the R-run lattice's composition, repro/core/engine.py:693-1145).
+the R-run lattice's composition, repro/core/engine.py:693-1145), its 2-D
+('agents', 'model') form, and the tensor-parallel tree engine on that
+mesh.
 
 The reference runs one controller over a JAX mesh (``shard_map``).  The
 port runs one process per shard in one ``torch.distributed`` group (NCCL
@@ -67,8 +69,8 @@ explicit instead:
     rank of an agent block computes the same losses, so the loss needs
     no model-axis reduction.  Each model rank therefore holds a
     transient (n/A, D) gather and the whole model's compute: what the
-    2-D mesh saves is the state.  Tensor-parallel model compute (the
-    reference's GSPMD partitioning, its ``leaf_specs``) is not ported;
+    flat 2-D mesh saves is the state (the tree engine on the same mesh,
+    :func:`make_sharded_tree_step`, partitions the compute instead);
   * the update (sgd, momentum, nesterov, adamw) is elementwise on the
     block;
   * line 6 runs over the agent dim only, on the column block: the dense
@@ -86,9 +88,20 @@ explicit instead:
     group and written to the block's own columns.
 
 So the only model-axis collectives are the gather of line 4 and int8's
-scale maximum; the tree layout, sweep lattices, ``delta`` and
-``fuse_update_mix`` raise :func:`engine.model_axis_conflict`, as in the
-reference.
+scale maximum; sweep lattices, ``delta`` and ``fuse_update_mix`` raise
+:func:`engine.model_axis_conflict`, as in the reference, and so does an
+EngineSpec of the tree layout (the reference's dispatcher refuses it).
+
+The tensor-parallel tree engine (:func:`make_sharded_tree_step`, the
+reference's tree engine with every stacked leaf placed by
+``sharding.param_pspecs`` and its compute partitioned by GSPMD): rank
+(a, m) holds agents ``[a·n/A, (a+1)·n/A)`` and of each leaf its spec's
+block over the model dim (:func:`shard_tree_state`); line 4 runs the
+model tensor-parallel over the model group (sharding/tp.py), the update
+is elementwise on the blocks, the gossip mixes each leaf's block over
+the agents group (it contracts the agent index only, so it commutes with
+the block), the server's z is each block's, and the loss is summed over
+the agents group only.
 
 The engine never moves a block to the host for a collective: the
 collectives take the blocks on their own device.
@@ -111,6 +124,7 @@ from repro_torch.core import server as server_lib
 from repro_torch.core import topology as topo
 from repro_torch.core.feddec import FedDecConfig
 from repro_torch.core.flat import FlatFedState, FlatSpec, LrFn
+from repro_torch.sharding import tp as tp_lib
 from repro_torch.tree import build_tree, sorted_leaves, tree_map
 
 __all__ = ["agent_axis_size", "quotient_graph", "cut_edge_stats",
@@ -118,7 +132,9 @@ __all__ = ["agent_axis_size", "quotient_graph", "cut_edge_stats",
            "make_sharded_ef_gossip", "shard_flat_state", "gather_flat_state",
            "make_sharded_feddec_step", "make_sharded_feddec_round",
            "shard_sweep_state", "gather_sweep_state",
-           "make_sharded_sweep_step", "make_sharded_sweep_round"]
+           "make_sharded_sweep_step", "make_sharded_sweep_round",
+           "make_sharded_tree_step", "make_sharded_tree_round",
+           "shard_tree_state", "gather_tree_state"]
 
 # torch 2.13 names the tensor forms *_single and deprecates the old names
 _reduce_scatter = getattr(dist, "reduce_scatter_single", None) \
@@ -808,6 +824,272 @@ def make_sharded_feddec_round(cfg: FedDecConfig, spec: FlatSpec,
     return engine.make_engine_round(
         _sharded_spec(cfg, mesh, axis_name, model_axis), grad_fn,
         lr_fn, device=device, flat_spec=spec, mesh=mesh, optimizer=optimizer)
+
+
+# ---------------------------------------------------------------------------
+# The tensor-parallel tree engine on the ('agents', 'model') mesh
+# ---------------------------------------------------------------------------
+
+
+def _tree_shard(mesh, axis_name, n_agents: int, model_axis) -> _Shard:
+    """This rank's agent block, and its model coordinate on
+    ``model_axis`` (a dim of any size M, 1 included: the blocks of the
+    tree engine are the leaves' own, not D/M columns)."""
+    shard = _shard_of(mesh, axis_name, n_agents)
+    m = _model_axis_size(mesh, model_axis)
+    if m == 1:
+        return shard
+    return dataclasses.replace(
+        shard, model_group=mesh.get_group(model_axis),
+        m=int(mesh.get_local_rank(model_axis)), n_model=m)
+
+
+def _make_tree_shard_mixer(cfg: FedDecConfig, shard: _Shard):
+    """gossip_impl → mix(w, tree_blk) -> tree_blk, leaf by leaf on this
+    rank's (n/A, *block) leaves over the agents group.  The mix contracts
+    the agent index only, so it commutes with any split of a leaf's other
+    dims: with one agent shard it is the tree layout's own mix on the
+    block (kernel #1 a leaf under 'pallas', #2 under 'sparse'); with A >
+    1 the block's partial W[:, rows] @ x_blk (its own block W[rows, rows]
+    through kernel #1 under 'pallas') is summed and cut back to the rows
+    by ``_reduce_scatter_rows``."""
+    impl = cfg.gossip_impl
+    if impl == "none":
+        return lambda w, tree: tree
+    if shard.n_shards == 1:
+        return engine.resolve_gossip(cfg, "tree")
+    if impl not in engine.GOSSIP_IMPLS:
+        raise engine.unknown_gossip_impl(impl)
+    lo, nl, rows = shard.lo, shard.n_local, shard.rows
+    own = _blk_mix_for("pallas") if impl == "pallas" else None
+
+    def mix_leaf(w, leaf):
+        x = leaf.contiguous().view(nl, -1)
+        if own is None:
+            partial = gossip_lib.gossip_mix_dense(w[:, rows], x)
+        else:
+            partial = torch.empty((w.shape[0], x.shape[1]), dtype=x.dtype,
+                                  device=x.device)
+            partial[rows] = own(w[rows, rows], x)
+            partial[:lo] = gossip_lib.gossip_mix_dense(w[:lo, rows], x)
+            partial[lo + nl:] = gossip_lib.gossip_mix_dense(
+                w[lo + nl:, rows], x)
+        return _reduce_scatter_rows(partial, shard, x).view(leaf.shape)
+
+    return lambda w, tree: tree_map(lambda leaf: mix_leaf(w, leaf), tree)
+
+
+def _make_tree_shard_ef_gossip(compressor, mixer, shard: _Shard, mesh,
+                               n_agents: int, param_specs):
+    """Leaf-wise EF gossip on the blocks (compress.make_tree_ef_gossip's
+    order and draws): each leaf's int8 noise is the one-device draw of the
+    whole leaf, ``codec_noise(t, n, numel, leaf=l)``, cut to this rank's
+    block by the leaf's spec; a model-sharded leaf's per-row scale is the
+    maximum over its row's blocks, all-reduced (MAX) over the model group
+    first.  ``mixer`` mixes the decoded blocks; each then gets the
+    ``diag(W)·(p − s)`` correction."""
+    specs = dict(sorted_leaves(param_specs)) if param_specs is not None \
+        else None
+    nl = shard.n_local
+
+    def model_sharded(spec) -> bool:
+        return shard.n_model > 1 and any(a is not None for a in spec[1:])
+
+    def gossip(w, p_tree, res_tree, draws, t):
+        paths, s_leaves, new_res = [], [], []
+        res_leaves = dict(sorted_leaves(res_tree))
+        for li, (path, p) in enumerate(sorted_leaves(p_tree)):
+            u = (p + res_leaves[path]).reshape(nl, -1)
+            kw, noise = {}, None
+            if compressor.needs_key:
+                spec = specs[path]
+                full = [p.shape[d] * (shard.n_model if ax is not None
+                                      and d > 0 else 1)
+                        for d, ax in enumerate(spec)]
+                full[0] = n_agents
+                noise = draws.codec_noise(
+                    t, n_agents, math.prod(full[1:]), leaf=li).view(full)
+                noise = tp_lib.block_of(noise, spec, mesh).reshape(nl, -1)
+                if model_sharded(spec):
+                    amax = compressor.row_amax(u)
+                    dist.all_reduce(amax, op=dist.ReduceOp.MAX,
+                                    group=shard.model_group)
+                    kw["row_amax"] = amax
+            payload = compressor.encode(noise, u, **kw)
+            s = compressor.decode(payload, u.dtype, u.shape[1])
+            del payload
+            paths.append(path)
+            s_leaves.append(s.view(p.shape))
+            new_res.append((u - s).view(p.shape))
+        s_tree = build_tree(paths, s_leaves)
+        y_tree = mixer(w, s_tree)
+        diag = torch.diagonal(w)[shard.rows]
+
+        def correct(y, p, s):
+            dg = diag.to(p.dtype).view((-1,) + (1,) * (p.ndim - 1))
+            return y + torch.sub(p, s).mul_(dg)
+
+        return (tree_map(correct, y_tree, p_tree, s_tree),
+                build_tree(paths, new_res))
+
+    return gossip
+
+
+def _tree_shard_ops(cfg: FedDecConfig, grad_fn: engine.GradFn, lr_fn,
+                    mesh, axis_name, model_axis, param_specs, gossip_fn,
+                    optimizer, device) -> engine.EngineOps:
+    """The tensor-parallel tree engine's vtable: the tree engine's ops
+    (core/feddec.py) on this rank's blocks, line 4 under the mesh's
+    ambient model group (the model's compute partitioned over it,
+    sharding/tp.py), the gossip leaf by leaf over the agents group, the
+    server's z per block and the loss over the agents group."""
+    from repro_torch.core import feddec
+    device = _check_mesh_device(mesh, device)
+    n = cfg.n_agents
+    shard = _tree_shard(mesh, axis_name, n, model_axis)
+    compressor = compress_lib.parse_compress(cfg.gossip_compress) \
+        if cfg.gossip_impl != "none" else None
+    if compressor is not None and compressor.name.startswith("topk") \
+            and shard.n_model > 1:
+        raise engine.model_axis_conflict(
+            "topk gossip compression (the payload indices address the "
+            "full D axis)")
+    if compressor is not None and compressor.needs_key \
+            and param_specs is None:
+        raise ValueError("int8 gossip on the blocks needs param_specs (the "
+                         "leaves' sharding.param_pspecs) to cut its noise")
+    mixer = gossip_fn if gossip_fn is not None \
+        else _make_tree_shard_mixer(cfg, shard)
+    base = feddec._tree_ops(cfg, grad_fn, lr_fn, mixer, optimizer, device)
+    ef_gossip = None
+    if compressor is not None:
+        ef_gossip = _make_tree_shard_ef_gossip(compressor, mixer, shard,
+                                               mesh, n, param_specs)
+
+    def local_update(state, batch, eta):
+        with tp_lib.model_group(mesh, model_axis):
+            return base.local_update(state, batch, eta)
+
+    def server(draws, t, x_next):
+        if not cfg.server_enabled or (t + 1) % cfg.h:
+            return x_next
+        if shard.n_shards == 1:
+            return server_lib.server_round(draws, t, x_next, cfg.k)
+        weights = server_lib.participant_weights(
+            server_lib.sample_participants(draws, t, n, cfg.k), cfg.k)
+
+        def agg(leaf):
+            rows = leaf.contiguous().view(shard.n_local, -1)
+            z = _server_z(weights, rows, shard)
+            return rows.copy_(z.unsqueeze(0).expand_as(rows)).view(
+                leaf.shape)
+        return tree_map(agg, x_next)
+
+    def finish(state, z_next, new_opt, new_res, t, losses, eta):
+        # every model rank of an agent block holds the same losses: the
+        # sum runs over the agents group only
+        total = _sum_over_ranks(losses.sum().reshape(1), shard)
+        state.params, state.step, state.opt_state = z_next, t + 1, new_opt
+        state.residual = new_res
+        return state, {"loss": (total / n).reshape(()), "eta": eta}
+
+    return dataclasses.replace(base, local_update=local_update,
+                               ef_gossip=ef_gossip, server=server,
+                               finish=finish)
+
+
+def make_sharded_tree_step(cfg: FedDecConfig, grad_fn: engine.GradFn,
+                           lr_fn, mesh, *, device, axis_name="agents",
+                           model_axis="model", param_specs=None,
+                           gossip_fn=None, optimizer=None):
+    """One-iteration executor of the tree engine on a 2-D ('agents',
+    'model') mesh (launch/mesh.make_fed_mesh(A, M)), the reference's tree
+    engine with every stacked leaf placed by ``sharding.param_pspecs``:
+    ``step(state_blk, batch_blk, draws)`` on this rank's blocks of a
+    FedState (:func:`shard_tree_state`: n/A agents, each leaf its spec's
+    block), batch leaves (n/A, ...), the same on every model rank of an
+    agent block.  Every rank calls it together, with draws of the same
+    seed.
+
+    Line 4 is the tree engine's one ``torch.func.vmap`` over the n/A
+    rows, under the mesh's ambient model group: a ``grad_fn`` of a model
+    whose config names ``tp_axis_name`` (launch/steps.adapt_for_mesh)
+    computes tensor-parallel on the blocks.  The update (sgd, momentum,
+    nesterov, adamw) is elementwise on them.  The gossip (line 6) mixes
+    each leaf's block over the agents group (``gossip_fn``, e.g.
+    gossip.make_permute_gossip with ``leaf_specs``, replaces it); the
+    server's z is each block's, all-reduced over the agents group; the
+    loss is summed over the agents group only.  Codecs: identity, bf16
+    and int8 (``param_specs`` needed to cut its noise; its scales the
+    whole rows'); top-k is refused on a model axis > 1, as on the 2-D
+    flat engine."""
+    return engine.build_step_body(_tree_shard_ops(
+        cfg, grad_fn, lr_fn, mesh, axis_name, model_axis, param_specs,
+        gossip_fn, optimizer, device))
+
+
+def make_sharded_tree_round(cfg: FedDecConfig, grad_fn: engine.GradFn,
+                            lr_fn, mesh, *, device, axis_name="agents",
+                            model_axis="model", param_specs=None,
+                            gossip_fn=None, optimizer=None, metrics_fn=None):
+    """The tensor-parallel tree engine's round: ``round_fn(state_blk,
+    batches_blk, draws)``, batch leaves (H, n/A, ...), metrics stacked to
+    (H,) (:func:`make_sharded_tree_step`'s step H times)."""
+    return engine.make_loop_round(make_sharded_tree_step(
+        cfg, grad_fn, lr_fn, mesh, device=device, axis_name=axis_name,
+        model_axis=model_axis, param_specs=param_specs, gossip_fn=gossip_fn,
+        optimizer=optimizer), metrics_fn)
+
+
+def _tree_state_specs(state, param_specs, agent_ax):
+    """The specs of a FedState's trees: the parameters', the optimizer
+    slots' (momentum's slot, adamw's m and v), adamw's (n,) count on the
+    agents, the residual's."""
+    opt = state.opt_state
+    if isinstance(opt, dict) and "count" in opt:
+        return {"m": param_specs, "v": param_specs, "count": (agent_ax,)}
+    return () if isinstance(opt, tuple) and opt == () else param_specs
+
+
+def shard_tree_state(state, param_specs, mesh, *,
+                     coords: dict | None = None):
+    """This rank's blocks of a tree FedState by ``param_specs`` (the
+    stacked parameters' ``sharding.param_pspecs`` over the mesh's dim
+    names, ``sharding.tp.mesh_axes``): the parameters, the optimizer
+    slots and the residual, each leaf its own storage; the step
+    replicated.  With ``coords`` ({dim name: (coordinate, size)}, the
+    agent dim first) in place of a mesh, the blocks at those
+    coordinates."""
+    from repro_torch.core.feddec import FedState
+    opt_specs = _tree_state_specs(
+        state, param_specs,
+        next(iter(coords)) if mesh is None else mesh.mesh_dim_names[0])
+
+    def cut(tree, specs):
+        if isinstance(tree, tuple) and tree == ():
+            return ()
+        return tp_lib.shard_params(tree, specs, mesh, coords=coords)
+
+    return FedState(params=cut(state.params, param_specs), step=state.step,
+                    opt_state=cut(state.opt_state, opt_specs),
+                    residual=cut(state.residual, param_specs))
+
+
+def gather_tree_state(state_blk, param_specs, mesh):
+    """The whole tree FedState from every rank's blocks, on every rank."""
+    from repro_torch.core.feddec import FedState
+    opt_specs = _tree_state_specs(state_blk, param_specs,
+                                  mesh.mesh_dim_names[0])
+
+    def whole(tree, specs):
+        if isinstance(tree, tuple) and tree == ():
+            return ()
+        return tp_lib.gather_params(tree, specs, mesh)
+
+    return FedState(params=whole(state_blk.params, param_specs),
+                    step=state_blk.step,
+                    opt_state=whole(state_blk.opt_state, opt_specs),
+                    residual=whole(state_blk.residual, param_specs))
 
 
 # ---------------------------------------------------------------------------

@@ -17,10 +17,16 @@ For every combination this script:
 
 The reference's two first lines (512 XLA host devices) have no
 counterpart: the records name the reference's meshes (16×16, 2×16×16),
-agent counts and partition specs, and trace the program the port runs on
-one card (launch/steps.py: all agents on one card for the tree and flat
-layouts, rank 0 of a fake world for the sharded one, one serving replica
-for prefill and decode).  The reference's record keys map so:
+agent counts and partition specs, and trace the program the port runs
+(launch/steps.py): for the tree layout of the dense text family (the
+tiny LM, Qwen1.5-4B, Gemma3-12B, Nemotron-4-15B) rank 0 of the
+partitioned world of data × model ranks (16 × 16: one agent a mesh row,
+each leaf its ``param_pspecs`` block, the model's compute
+tensor-parallel over the 16 model ranks), and for the other families'
+tree layout (whose tensor-parallel compute is not ported:
+``tensor_parallel`` gives the reason) and the flat layout all agents on
+one card; rank 0 of a fake world for the sharded layout; one serving
+replica for prefill and decode.  The reference's record keys map so:
 
   * ``lower_s`` → ``trace_s``; ``compile_s`` and ``cost_analysis_raw``
     have none (no compiler; the tally is loop-weighted already);
@@ -30,7 +36,8 @@ for prefill and decode).  The reference's record keys map so:
   * ``memory``: ``argument_bytes``, ``output_bytes``, ``alias_bytes``,
     ``temp_bytes`` and ``peak_bytes`` from the tally's live storages;
   * ``chips`` is the cards the port's program uses (the reference's
-    device count is ``mesh_devices``);
+    device count is ``mesh_devices``): the world's size for a
+    partitioned program;
 
 and records add ``fits`` (peak ≤ the card's 80 GB), ``launches`` (kernel
 ops by name), ``specs`` (the arguments' partition specs), for prefill
@@ -56,6 +63,7 @@ from repro_torch import sharding as shd
 from repro_torch.configs import ARCH_NAMES, SHAPES, get_config
 from repro_torch.configs.base import FedConfig
 from repro_torch.launch import analysis, trace_analysis
+from repro_torch.sharding import tp as tp_lib
 from repro_torch.launch.steps import (adapt_for_mesh, build_fed_setup,
                                       build_lowerable)
 
@@ -232,9 +240,20 @@ def run_one(arch: str, shape_name: str, multi_pod: bool,
     try:
         fed = FedConfig(gossip_compress=gossip_compress) \
             if gossip_compress != "none" else None
+        mesh = axes
+        if train and state_layout == "tree":
+            # the tree engine's partitioned program (tensor-parallel over
+            # the model axis) for the families whose compute is ported;
+            # the others keep the one-card program, and say why
+            try:
+                tp_lib.check_family(cfg)
+                rec["tensor_parallel"] = True
+            except NotImplementedError as e:
+                rec["tensor_parallel"] = str(e)
+                mesh = None
         low = build_lowerable(cfg, shape, axes, fed=fed,
                               fused_steps=fused_steps,
-                              state_layout=state_layout, mesh=axes,
+                              state_layout=state_layout, mesh=mesh,
                               mesh_model=mesh_model,
                               sweep_runs=sweep_runs if train else None,
                               sweep_axis=sweep_axis,

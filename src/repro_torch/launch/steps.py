@@ -21,25 +21,30 @@ tally: the port's counterpart of ``jit(...).lower``; launch/dryrun.py owns
 the sweep and launch/train.py the real training loop.
 
 The records keep the reference's mesh (names, sizes, agent counts from
-``sharding.n_agents_for``, specs), but the traced program is the one the
-port runs, whose model compute is never tensor-parallel:
+``sharding.n_agents_for``, specs), and the traced program is the one the
+port runs:
 
-  * the tree and flat layouts: one card holding all n agents;
+  * the tree layout on a mesh with a model axis of M > 1 (or under the
+    'permute' gossip): the reference's partitioned program, rank 0 of a
+    world of ``data_size · M`` ranks on a 2-D ('agents', 'model')
+    ``DeviceMesh``, one agent block a mesh row, every leaf its
+    ``sharding.param_pspecs`` block and the model's compute
+    tensor-parallel over the model group (core/sharded.py
+    ``make_sharded_tree_step``, sharding/tp.py; the dense text family,
+    the others raise NotImplementedError);
+  * the tree layout otherwise, and the flat layout: one card holding all
+    n agents;
   * the sharded layout: rank 0 of a world of ``data_size`` ranks, one
-    agent block a rank, over ``torch.distributed``'s ``fake`` backend,
-    which this module creates and destroys around the trace; with
-    ``mesh_model=M > 1`` (and a model axis in the reference's mesh) the
-    2-D engine, rank 0 of ``data_size · M`` ranks on a 2-D
-    ('agents', 'model') ``DeviceMesh``, its block the (n/A, D/M) column
-    block (core/sharded.py);
+    agent block a rank; with ``mesh_model=M > 1`` (and a model axis in
+    the reference's mesh) the 2-D flat engine, rank 0 of ``data_size ·
+    M`` ranks, its block the (n/A, D/M) column block (core/sharded.py),
+    each model rank gathering its rows for line 4;
   * prefill and decode: one whole serving replica a card, at
     ``global_batch / data_size`` requests where that divides, else the
     whole batch.
 
-The reference's 2-D program leaves each replica's compute to GSPMD over
-its model axis (of the production mesh's size); the port's traces the M
-asked for, each model rank gathering its rows for line 4 (core/sharded.py
-says why).  Nothing is re-estimated as if tensor-parallel.
+The worlds are over ``torch.distributed``'s ``fake`` backend, which this
+module creates and destroys around the trace.
 """
 
 from __future__ import annotations
@@ -153,13 +158,17 @@ def sweep_lattice_configs(fcfg: FedDecConfig, fed: FedConfig | None,
 
 def adapt_for_mesh(cfg: ArchConfig, axes: shd.MeshAxes) -> ArchConfig:
     """The reference's mesh-dependent config tweaks
-    (repro/launch/steps.py:42-53) set its tensor-parallel annotations
-    (``attn_weight_gather`` when the heads do not divide the model axis,
-    ``tp_axis_name``).  The port's program runs no tensor-parallel
-    compute and its configs have no such fields: the config is the one
-    the card runs."""
-    del axes
-    return cfg
+    (repro/launch/steps.py:42-53): ``attn_weight_gather`` where a GQA
+    config's heads do not divide the model axis (its attention then
+    gathers the weights on use and splits the sequence,
+    models/attention.py), and ``tp_axis_name``, the mesh dim whose
+    ambient model group (sharding/tp.py) partitions the model's compute.
+    Without an ambient group of more than one rank the model computes as
+    on one card."""
+    if (cfg.attention_kind == "gqa"
+            and cfg.num_heads % axes.model_size != 0):
+        cfg = dataclasses.replace(cfg, attn_weight_gather=True)
+    return dataclasses.replace(cfg, tp_axis_name=axes.model_axis)
 
 
 # ---------------------------------------------------------------------------
@@ -360,12 +369,18 @@ def build_train_lowerable(cfg: ArchConfig, shape: ShapeConfig,
     (flat or sharded, with ``fused_steps``); ``fuse_update_mix`` the fused
     update+mix kernels (flat).  ``mesh`` is the mesh the record names
     (any object: the port checks only that there is one where the
-    reference needs one).  ``fed.gossip_impl='permute'`` needs the mesh
-    and the sharded agent layout, as in the reference; the port's
-    permute gossip takes no tensor-parallel leaf specs, so on the tree it
-    raises NotImplementedError, and its one-agent-a-rank block is no
-    program the flat engine runs.  ``optimizer`` (the port's addition:
-    sgd, momentum or adamw) runs on the tree and flat layouts.
+    reference needs one).  The tree layout with a mesh whose model axis
+    is M > 1 traces the reference's partitioned program: rank 0 of
+    ``data_size · M`` ranks, every leaf placed by ``param_pspecs`` and
+    the model tensor-parallel (a family whose tensor-parallel compute is
+    not ported raises NotImplementedError and names its ROADMAP item).
+    ``fed.gossip_impl='permute'`` needs the mesh and the sharded agent
+    layout, as in the reference; on the tree it traces that world with
+    ``gossip.make_permute_gossip(leaf_specs=...)`` as the engine's gossip
+    (repro/launch/steps.py:291-305); its one-agent-a-rank block is no
+    program the flat engine runs (NotImplementedError).  ``optimizer``
+    (the port's addition: sgd, momentum or adamw) runs on the tree and
+    flat layouts.
     """
     cfg = adapt_for_mesh(cfg, axes)
     model = build_model(cfg)
@@ -384,20 +399,17 @@ def build_train_lowerable(cfg: ArchConfig, shape: ShapeConfig,
     agent_ax = _agent_ax(axes)
     name = f"train:{cfg.name}:{shape.name}"
 
-    if fed is not None and fed.gossip_impl == "permute":
+    permute = fed is not None and fed.gossip_impl == "permute"
+    if permute:
         if mesh is None or cfg.fed_agent_layout != "sharded":
             raise ValueError("permute gossip needs a mesh and the sharded "
                              "agent layout")
-        if state_layout == "tree":
-            from repro_torch.core import gossip as gossip_lib
-            gossip_lib.make_permute_gossip(
-                fcfg.mixing.graph, mesh, agent_ax,
-                leaf_specs=shd.param_pspecs(cfg, params_struct, axes))
-        raise NotImplementedError(
-            "permute gossip moves one agent a rank; the port's flat "
-            "engine holds its agents on one card (or in the sharded "
-            "engine's blocks: state_layout='sharded', gossip_impl="
-            "'sparse')")
+        if state_layout != "tree":
+            raise NotImplementedError(
+                "permute gossip moves one agent a rank; the port's flat "
+                "engine holds its agents on one card (or in the sharded "
+                "engine's blocks: state_layout='sharded', gossip_impl="
+                "'sparse')")
     if state_layout not in ("tree", "flat", "sharded"):
         raise ValueError(f"state_layout must be 'tree', 'flat' or "
                          f"'sharded', got {state_layout!r}")
@@ -508,6 +520,16 @@ def build_train_lowerable(cfg: ArchConfig, shape: ShapeConfig,
 
         make_step = make_tree(feddec.make_feddec_step)
         make_round = make_tree(feddec.make_feddec_round)
+        if mesh is not None and (axes.model_size > 1 or permute):
+            # the partitioned program: rank 0 of data_size · model_size
+            # ranks on the ('agents', 'model') mesh, every leaf its
+            # param_pspecs block, the model's compute tensor-parallel
+            world, n_local, init_state, make_step, make_round = \
+                _tree_world(cfg, axes, fcfg, n_agents, grad_fn, lr_fn, opt,
+                            compress, permute)
+            batch_struct = _map(lambda t: torch.empty(
+                (n_local,) + tuple(t.shape[1:]), dtype=t.dtype,
+                device="meta"), batch_struct)
 
     if fused_steps is None:
         make_fn = make_step
@@ -597,6 +619,54 @@ def build_train_lowerable(cfg: ArchConfig, shape: ShapeConfig,
         out_specs=(state_specs, {"loss": (), "eta": ()}),
         donate_argnums=(0,),
         name=name, make_args=make_args, world=world)
+
+
+def _tree_world(cfg, axes: shd.MeshAxes, fcfg, n_agents: int, grad_fn,
+                lr_fn, opt, compress: str, permute: bool):
+    """The tree engine's partitioned program (core/sharded.py:
+    make_sharded_tree_step on launch/mesh.make_fed_mesh(A, M), A the data
+    axes' size and M the model axis'): (world, n_local, rank 0's
+    init_state, make_step, make_round); ``permute`` puts
+    gossip.make_permute_gossip with the leaves' specs in the engine
+    (repro/launch/steps.py:291-305).  A family whose tensor-parallel
+    compute is not ported raises (``tp.check_family``)."""
+    from repro_torch.sharding import tp as tp_lib
+    a, m = axes.data_size, axes.model_size
+    if m > 1:
+        tp_lib.check_family(cfg)
+    if n_agents % a:
+        raise ValueError(f"n_agents={n_agents} must be divisible by the "
+                         f"data axes' {a} ranks")
+    mesh_axes = shd.MeshAxes(("agents",), "model", {"agents": a, "model": m})
+    specs = shd.param_pspecs(
+        cfg, feddec.init_state(build_model(cfg).init_shapes(), n_agents,
+                               optimizer=opt).params, mesh_axes)
+    rank0 = {"agents": (0, a), "model": (0, m)}
+
+    def init_state(params):
+        from repro_torch.core import sharded as sharded_lib
+        state = feddec.init_state(params, n_agents, optimizer=opt,
+                                  compress=compress)
+        return sharded_lib.shard_tree_state(state, specs, None,
+                                            coords=rank0)
+
+    def make_engine(maker_name):
+        def make(device):
+            from repro_torch.core import gossip as gossip_lib
+            from repro_torch.core import sharded as sharded_lib
+            from repro_torch.launch.mesh import make_fed_mesh
+            dmesh = make_fed_mesh(a, m, device=device.type)
+            gossip_fn = gossip_lib.make_permute_gossip(
+                fcfg.mixing.graph, dmesh, "agents", leaf_specs=specs) \
+                if permute else None
+            return getattr(sharded_lib, maker_name)(
+                fcfg, grad_fn, lr_fn(device), dmesh, device=device,
+                param_specs=specs, gossip_fn=gossip_fn, optimizer=opt)
+        return make
+
+    return (a * m, n_agents // a, init_state,
+            make_engine("make_sharded_tree_step"),
+            make_engine("make_sharded_tree_round"))
 
 
 def _lr_fn(lr: float):

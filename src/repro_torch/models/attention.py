@@ -25,13 +25,41 @@ one mask covers full caches, sliding windows and the ring buffer of the
 ``long_variant`` window.  The new k/v go into slot ``index % cache_len``
 out of place, selected by a tensor comparison: no host read, so the step
 runs under ``torch.func.vmap`` (personalized serving, launch/serve.py).
+
+Tensor-parallel prefill (``tp``, a sharding.tp.ModelGroup of M > 1
+ranks; training and prefill, not decode or cross-attention), in the three
+layouts of the reference's ``_tp_preferences``:
+
+  (a) the KV heads divide M: each rank attends its H/M query heads and
+      KV/M key heads (wq, wk, wv and wo's blocks are head blocks); x
+      enters through ``copy_to`` and wo's partial outputs are summed by
+      ``reduce_from``;
+  (b) GQA whose KV heads do not divide M: the query heads are
+      partitioned as in (a), wk and wv are replicated and taken through
+      ``copy_to`` (their gradients, partial on each rank, are summed),
+      and each rank's query heads read their GLOBAL KV heads (query head
+      h reads KV head h // (H / KV), which the local shapes' grouping
+      would not give);
+  (c) the heads do not divide M (``weight_gather``, the reference's
+      ``attn_weight_gather``): the weights are gathered on use
+      (``gather_from``: d-sharded wq/wk/wv and wo's d-column block) and
+      the sequence is split instead, as the reference constrains q, k, v
+      to the model axis: each rank projects its S/M positions, the keys
+      and values are gathered over the sequence, its queries attend all
+      of them, and the zero-padded outputs are summed by ``reduce_from``.
+      The sequence must divide M.
+
+A bias ((heads, hd), which ``param_pspecs`` shards on hd) is gathered on
+use and cut to the rank's heads.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.models import layers
+from repro_torch.sharding import tp as tp_lib
 
 __all__ = ["NEG_INF", "init_attention", "init_cache", "attention"]
 
@@ -120,18 +148,107 @@ def _decode(q, k, v, cache: dict, pos_now, scale: float, window: int,
     return _out(probs, vc.to(compute_dtype)), new_cache
 
 
+def _tp_attention(params: dict, x, positions, tp, *, num_heads: int,
+                  num_kv_heads: int, head_dim: int, weight_gather: bool,
+                  window: int, rope_theta: float, causal: bool,
+                  compute_dtype, impl: str):
+    """Tensor-parallel self-attention with RoPE over the model group
+    ``tp`` (the module docstring's layouts (a)–(c)); x (B, S, d)
+    replicated, the output (B, S, d) replicated."""
+    d = x.shape[-1]
+    cdt = compute_dtype
+
+    def proj(name, n_heads, src, heads_part):
+        p = params[name]
+        w = tp_lib.weight_for(p["w"], (d, n_heads, head_dim), tp,
+                              1 if heads_part else None)
+        y = torch.tensordot(src.to(cdt), w.to(cdt), dims=1)
+        if "b" in p:
+            b = tp_lib.weight_for(p["b"], (n_heads, head_dim), tp,
+                                  0 if heads_part else None)
+            y = y + b.to(y.dtype)
+        return y
+
+    scale = head_dim ** -0.5
+    wo_full = (num_heads, head_dim, d)
+    if weight_gather or num_heads % tp.size:
+        # (c): the sequence split over the group, the weights gathered
+        s = x.shape[1]
+        if s % tp.size:
+            raise ValueError(
+                f"tensor-parallel attention with heads that do not divide "
+                f"the model group ({num_heads} over {tp.size}) splits the "
+                f"sequence, which must divide it too (S = {s})")
+        c = s // tp.size
+        lo = tp.rank * c
+        xs = tp_lib.copy_to(x, tp)[:, lo:lo + c]
+        ps = positions[..., lo:lo + c]
+        q = layers.apply_rope(proj("wq", num_heads, xs, False), ps,
+                              rope_theta)
+        k = layers.apply_rope(proj("wk", num_kv_heads, xs, False), ps,
+                              rope_theta)
+        v = proj("wv", num_kv_heads, xs, False)
+        k, v = tp_lib.gather_from(k, tp, 1), tp_lib.gather_from(v, tp, 1)
+        out = _attend_block(q, k, v, ps, positions, scale, window, causal)
+        wo = tp_lib.weight_for(params["wo"]["w"], wo_full, tp)
+        y = torch.einsum("bshd,hdo->bso", out.to(cdt), wo.to(cdt))
+        return tp_lib.reduce_from(F.pad(y, (0, 0, lo, s - lo - c)), tp)
+    # (a) and (b): the query heads split over the group
+    xc = tp_lib.copy_to(x, tp)
+    kv_part = num_kv_heads % tp.size == 0
+    q = layers.apply_rope(proj("wq", num_heads, xc, True), positions,
+                          rope_theta)
+    k = layers.apply_rope(proj("wk", num_kv_heads, xc, kv_part), positions,
+                          rope_theta)
+    v = proj("wv", num_kv_heads, xc, kv_part)
+    if not kv_part:
+        # (b): every local query head reads its global KV head
+        hl = q.shape[-2]
+        heads = torch.arange(tp.rank * hl, (tp.rank + 1) * hl,
+                             device=q.device)
+        kv = heads // (num_heads // num_kv_heads)
+        k, v = k.index_select(-2, kv), v.index_select(-2, kv)
+    if impl == "pallas" and causal:
+        from repro_torch.kernels import ops
+        out = ops.flash_attention(q, k, v, window=window, scale=scale)
+    else:
+        out = _attend_block(q, k, v, positions, positions, scale, window,
+                            causal)
+    wo = tp_lib.weight_for(params["wo"]["w"], wo_full, tp, 0)
+    y = torch.einsum("bshd,hdo->bso", out.to(cdt), wo.to(cdt))
+    return tp_lib.reduce_from(y, tp)
+
+
 def attention(params: dict, x: torch.Tensor, positions: torch.Tensor, *,
               head_dim: int, window: int = 0, rope_kind: str = "rope",
               rope_theta: float = 10_000.0, mrope_positions=None,
               cache: dict | None = None, kv_override=None,
               causal: bool = True, compute_dtype=torch.float32,
-              impl: str = "xla"):
+              impl: str = "xla", tp=None, num_heads: int | None = None,
+              num_kv_heads: int | None = None,
+              weight_gather: bool = False):
     """GQA attention of x (B, S, d) at positions (B, S): self-attention
     with RoPE (M-RoPE at ``mrope_positions`` (3, B, S)), causal unless
     ``causal`` is False, or with ``kv_override`` (B, T, d) the
-    cross-attention to that encoder memory.
+    cross-attention to that encoder memory.  With a model group ``tp``
+    (and the global ``num_heads``/``num_kv_heads``) the tensor-parallel
+    self-attention of the module docstring.
 
     Returns (out (B, S, d), the updated cache or None)."""
+    if tp is not None:
+        if cache is not None or kv_override is not None \
+                or rope_kind != "rope":
+            raise NotImplementedError(
+                "tensor-parallel attention covers the RoPE self-attention "
+                "of training and prefill; decode caches (ROADMAP.md Queue "
+                "A item 6.5), cross-attention and M-RoPE (item 6.3) are "
+                "not ported")
+        return _tp_attention(
+            params, x, positions, tp, num_heads=num_heads,
+            num_kv_heads=num_kv_heads, head_dim=head_dim,
+            weight_gather=weight_gather, window=window,
+            rope_theta=rope_theta, causal=causal,
+            compute_dtype=compute_dtype, impl=impl), None
     q = layers.dense(params["wq"], x, compute_dtype=compute_dtype)
     kv_src = x if kv_override is None else kv_override
     k = layers.dense(params["wk"], kv_src, compute_dtype=compute_dtype)

@@ -3,6 +3,19 @@
 Parameters are nested dicts of tensors in the reference's layout: dense
 weights (in, out); q/k/v projections (d, heads, head_dim); the output
 projection (heads, head_dim, d).  Normalisation math runs in f32.
+
+Under a model group (``tp``, a sharding.tp.ModelGroup of M > 1 ranks)
+the dense layer is column-parallel (the replicated input enters through
+``tp.copy_to``, each rank computes its block of the outputs) or
+row-parallel (each rank contracts its block of the inputs and
+``tp.reduce_from`` sums the partial outputs); the MLP is both, wi/wg by
+columns and wo by rows (Megatron); the embedding is vocabulary-parallel
+(a rank's table holds a block of the rows: the tokens outside it read 0
+and ``tp.reduce_from`` sums the lookups); the unembedding gives this
+rank's block of the logits.  Norms stay replicated.  Which layer is
+partitioned follows from its weights' blocks against the global dims
+the caller passes (a d_ff or vocabulary that M does not divide stays
+replicated, as ``sharding.param_pspecs`` leaves it).
 """
 
 from __future__ import annotations
@@ -11,6 +24,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.sharding import tp as tp_lib
 
 __all__ = ["init_rms_norm", "rms_norm", "init_layer_norm", "layer_norm",
            "init_dense", "dense", "gelu", "init_mlp", "mlp", "init_embedding",
@@ -61,14 +76,25 @@ def init_dense(draws, shape: tuple, dtype, fan_in: int | None = None,
     return p
 
 
-def dense(params: dict, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
+def dense(params: dict, x: torch.Tensor, compute_dtype=None, *,
+          tp=None, parallel: str | None = None) -> torch.Tensor:
     """x @ w (+ b) contracting x's last dim with w's first (w may be
     (d, H, hd)).  Without ``compute_dtype`` the operands are promoted to
-    a common dtype, as the reference's mixed-dtype dot_general does."""
+    a common dtype, as the reference's mixed-dtype dot_general does.
+
+    With a model group ``tp``: ``parallel='column'`` takes the replicated
+    x through ``copy_to`` and gives this rank's block of the outputs (w
+    and b its column blocks); ``parallel='row'`` contracts this rank's
+    block of x's last dim with its block of w's rows and sums the
+    partials with ``reduce_from``, the bias (replicated) added after."""
     w = params["w"]
     dtype = compute_dtype if compute_dtype is not None else \
         torch.promote_types(x.dtype, w.dtype)
+    if tp is not None and parallel == "column":
+        x = tp_lib.copy_to(x, tp)
     y = torch.tensordot(x.to(dtype), w.to(dtype), dims=1)
+    if tp is not None and parallel == "row":
+        y = tp_lib.reduce_from(y, tp)
     if "b" in params:
         y = y + params["b"].to(y.dtype)
     return y
@@ -100,34 +126,73 @@ def init_mlp(draws, d: int, d_ff: int, dtype, kind: str = "swiglu") -> dict:
 
 
 def mlp(params: dict, x: torch.Tensor, kind: str = "swiglu",
-        compute_dtype=None) -> torch.Tensor:
+        compute_dtype=None, *, tp=None, d_ff: int | None = None
+        ) -> torch.Tensor:
     """SwiGLU (silu(x wg) * x wi) wo or GeGLU with gelu for silu;
-    squared-ReLU relu(x wi)² wo or GELU gelu(x wi) wo."""
+    squared-ReLU relu(x wi)² wo or GELU gelu(x wi) wo.  With a model
+    group ``tp`` and wi holding a block of the global ``d_ff`` columns:
+    wi and wg column-parallel (x enters through one ``copy_to``), the
+    activation on the block, wo row-parallel."""
     if kind not in _GATES and kind not in _ACTS:
         raise ValueError(f"unknown mlp kind {kind!r}")
+    if tp is not None and params["wi"]["w"].shape[-1] != d_ff:
+        x = tp_lib.copy_to(x, tp)
+    else:
+        tp = None
     h = dense(params["wi"], x, compute_dtype=compute_dtype)
     if kind in _GATES:
         h = _GATES[kind](dense(params["wg"], x,
                                compute_dtype=compute_dtype)) * h
     else:
         h = _ACTS[kind](h)
-    return dense(params["wo"], h, compute_dtype=compute_dtype)
+    return dense(params["wo"], h, compute_dtype=compute_dtype, tp=tp,
+                 parallel="row")
 
 
 def init_embedding(draws, vocab: int, d: int, dtype) -> dict:
     return {"table": draws.normal((vocab, d)).mul_(0.02).to(dtype)}
 
 
-def embed(params: dict, tokens: torch.Tensor, compute_dtype=None):
+def _vocab_block(n_rows: int, vocab: int | None, tp, what: str) -> bool:
+    """Whether a (rows, ...) table block is a block of the vocabulary;
+    a table sharded on d is not ported."""
+    if tp is None or n_rows == vocab:
+        return False
+    if n_rows * tp.size != vocab:
+        raise NotImplementedError(
+            f"{what}: a block of {n_rows} of a vocabulary of {vocab} rows "
+            f"over {tp.size} model ranks")
+    return True
+
+
+def embed(params: dict, tokens: torch.Tensor, compute_dtype=None, *,
+          tp=None, vocab: int | None = None):
+    """The rows of ``tokens``; with a model group ``tp`` and a table
+    block of the ``vocab`` rows, vocabulary-parallel: a token outside
+    this rank's rows reads 0, and ``reduce_from`` sums the lookups."""
     tbl = params["table"]
     if compute_dtype is not None:
         tbl = tbl.to(compute_dtype)
-    return F.embedding(tokens, tbl)
+    if not _vocab_block(tbl.shape[0], vocab, tp, "embed"):
+        return F.embedding(tokens, tbl)
+    rows = tbl.shape[0]
+    local = tokens - tp.rank * rows
+    mine = (local >= 0) & (local < rows)
+    out = F.embedding(local.clamp(0, rows - 1), tbl) * \
+        mine[..., None].to(tbl.dtype)
+    return tp_lib.reduce_from(out, tp)
 
 
-def unembed(params: dict, x: torch.Tensor, compute_dtype=None):
-    """Logits via the untied output head; params = {'w': (d, vocab)}."""
-    return dense(params, x, compute_dtype=compute_dtype)
+def unembed(params: dict, x: torch.Tensor, compute_dtype=None, *,
+            tp=None, vocab: int | None = None):
+    """Logits via the untied output head; params = {'w': (d, vocab)}.
+    With a model group ``tp`` and a head block of the ``vocab`` columns:
+    column-parallel, this rank's block of the logits."""
+    if tp is not None and not _vocab_block(params["w"].shape[-1], vocab,
+                                           tp, "unembed"):
+        tp = None
+    return dense(params, x, compute_dtype=compute_dtype, tp=tp,
+                 parallel="column")
 
 
 def rope_frequencies(head_dim: int, theta: float = 10_000.0,

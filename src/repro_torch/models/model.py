@@ -12,6 +12,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import engine
 from repro_torch.core.draws import ShapeDraws
 from repro_torch.models import transformer
+from repro_torch.sharding import tp as tp_lib
 
 __all__ = ["Model", "build_model"]
 
@@ -58,14 +59,35 @@ class Model:
         averaged over the text targets (a vision config takes no loss at
         target index t < ``frontend_positions``, the patch positions,
         whether or not the batch carries ``frontend_embeds``), plus
-        ``router_aux_weight`` times the MoE aux loss of an MoE config."""
+        ``router_aux_weight`` times the MoE aux loss of an MoE config.
+
+        Under a model group (a tensor-parallel forward, whose logits are
+        this rank's block of the vocabulary) the cross entropy is
+        vocabulary-parallel in the same form: the maximum all-reduced
+        with MAX, the sum of exponentials and the gold logit (0 on the
+        ranks whose block does not hold the target) summed over the group
+        with ``tp.reduce_from``, in f32.  Every rank of the group then
+        holds the whole loss, once."""
         logits, aux, _ = transformer.forward(params, batch, self.cfg, impl)
         targets = batch["tokens"][:, 1:]
         lg = logits[:, :-1]
-        m = lg.max(dim=-1, keepdim=True).values.detach()
-        sumexp = torch.exp((lg - m).float()).sum(dim=-1)
+        tp = tp_lib.active(self.cfg.tp_axis_name)
+        if tp is None or lg.shape[-1] == self.cfg.vocab_size:
+            m = lg.max(dim=-1, keepdim=True).values.detach()
+            sumexp = torch.exp((lg - m).float()).sum(dim=-1)
+            gold = torch.gather(lg, -1, targets[..., None])[..., 0].float()
+        else:
+            v = lg.shape[-1]
+            m = tp_lib.all_reduce_max(
+                lg.max(dim=-1, keepdim=True).values, tp)
+            sumexp = tp_lib.reduce_from(
+                torch.exp((lg - m).float()).sum(dim=-1), tp)
+            local = targets - tp.rank * v
+            mine = ((local >= 0) & (local < v)).float()
+            gold = tp_lib.reduce_from(torch.gather(
+                lg, -1, local.clamp(0, v - 1)[..., None])[..., 0].float()
+                * mine, tp)
         lse = torch.log(sumexp) + m[..., 0].float()
-        gold = torch.gather(lg, -1, targets[..., None])[..., 0].float()
         nll = lse - gold                                    # (B, S-1)
         if self.cfg.frontend == "vision" and self.cfg.frontend_positions:
             # the reference's (1, S-1) mask: the sum over the batch is

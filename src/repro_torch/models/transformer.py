@@ -29,6 +29,16 @@ Decode caches mirror the same prefix/group/suffix structure
 (:func:`init_decode_caches`): a scanned group's cache leaves, its
 ``positions`` and ``index`` too, carry the leading group axis, so the
 reference's cache trees carry across leaf for leaf.
+
+Under a config's ``tp_axis_name`` with an ambient model group of M > 1
+ranks (sharding/tp.py; the engines make it ambient around line 4) the
+forward is tensor-parallel on the rank's parameter blocks: the
+vocabulary-parallel embedding, each block's attention and MLP over the
+group (models/attention.py, layers.py), the norms and the residual
+stream replicated, and the logits this rank's block of the vocabulary
+(a tied table's block serves both of its uses, so its gradient collects
+both).  Only the dense text family is ported (``tp.check_family``), and
+only without decode caches.
 """
 
 from __future__ import annotations
@@ -43,6 +53,7 @@ from repro_torch.models import griffin, layers
 from repro_torch.models import mla as mla_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
+from repro_torch.sharding import tp as tp_lib
 from repro_torch.tree import leaves, tree_map
 
 __all__ = ["LayerPlan", "plan_layers", "init_model", "forward",
@@ -139,11 +150,13 @@ def _layer_window(cfg: ArchConfig, layer_idx: int,
 def apply_block(params: dict, x: torch.Tensor, positions: torch.Tensor,
                 cfg: ArchConfig, layer_idx: int, impl: str = "xla", *,
                 cache: dict | None = None, long_variant: bool = False,
-                mrope_positions=None, enc_out=None, causal: bool = True):
+                mrope_positions=None, enc_out=None, causal: bool = True,
+                tp=None):
     """One block; returns (x, its new cache or None, its MoE aux loss:
     0.0 without an MoE).  A block with a cross-attention attends
     ``enc_out`` after its self-attention; ``causal`` False is the
-    encoder's unmasked self-attention."""
+    encoder's unmasked self-attention.  ``tp``: the model group of a
+    tensor-parallel forward (a dense GQA block)."""
     kind = cfg.block_kind(layer_idx)
     cdt = cfg.compute_dtype
     h = layers.rms_norm(params["norm1"], x, cfg.norm_eps)
@@ -160,7 +173,9 @@ def apply_block(params: dict, x: torch.Tensor, positions: torch.Tensor,
             window=_layer_window(cfg, layer_idx, long_variant),
             rope_kind=cfg.rope_kind, rope_theta=cfg.rope_theta,
             mrope_positions=mrope_positions, cache=self_cache,
-            causal=causal, compute_dtype=cdt, impl=impl)
+            causal=causal, compute_dtype=cdt, impl=impl, tp=tp,
+            num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+            weight_gather=cfg.attn_weight_gather)
     elif kind == "ssm":
         y, c = ssm_lib.mamba2_block(params["mixer"], h, cfg.ssm,
                                     compute_dtype=cdt, cache=self_cache,
@@ -186,7 +201,8 @@ def apply_block(params: dict, x: torch.Tensor, positions: torch.Tensor,
         y, aux = moe_lib.moe_layer(params["moe"], h2, cfg.moe,
                                    compute_dtype=cdt)
     else:
-        y = layers.mlp(params["mlp"], h2, cfg.mlp_kind, compute_dtype=cdt)
+        y = layers.mlp(params["mlp"], h2, cfg.mlp_kind, compute_dtype=cdt,
+                       tp=tp, d_ff=cfg._layer_d_ff(layer_idx))
     return x + y, None if c is None else {"self": c}, aux
 
 
@@ -252,7 +268,7 @@ def _apply_stack(params: dict, x, positions, cfg: ArchConfig,
                  impl: str = "xla", caches: dict | None = None,
                  long_variant: bool = False, *,
                  num_layers: int | None = None, mrope_positions=None,
-                 enc_out=None, causal: bool = True):
+                 enc_out=None, causal: bool = True, tp=None):
     """(x, the new caches or None, the summed MoE aux loss) through every
     layer of a stack of ``num_layers`` (default: the decoder's); the j-th
     layer of the repeating unit stands for its kind (index
@@ -260,7 +276,7 @@ def _apply_stack(params: dict, x, positions, cfg: ArchConfig,
     plan = plan_layers(cfg, num_layers)
     decode = caches is not None
     kw = dict(long_variant=long_variant, mrope_positions=mrope_positions,
-              enc_out=enc_out, causal=causal)
+              enc_out=enc_out, causal=causal, tp=tp)
     new: dict = {}
     aux_total = 0.0
     for i in range(plan.prefix):
@@ -315,12 +331,13 @@ def init_model(draws, cfg: ArchConfig) -> dict:
     return params
 
 
-def _embed_inputs(params: dict, cfg: ArchConfig, batch: dict):
-    """Token embeddings scaled by √d; a vision config's batch
-    ``frontend_embeds`` (B, P, d) then take the first P positions,
-    unscaled (the reference's order)."""
+def _embed_inputs(params: dict, cfg: ArchConfig, batch: dict, tp=None):
+    """Token embeddings scaled by √d (vocabulary-parallel under a model
+    group ``tp``); a vision config's batch ``frontend_embeds`` (B, P, d)
+    then take the first P positions, unscaled (the reference's order)."""
     x = layers.embed(params["embed"], batch["tokens"],
-                     compute_dtype=cfg.compute_dtype)
+                     compute_dtype=cfg.compute_dtype, tp=tp,
+                     vocab=cfg.vocab_size)
     # a factory, not torch.tensor: under a grad transform and a dispatch
     # mode (launch/trace_analysis.py) torch.tensor's detach_ is refused
     x = x * torch.full((), cfg.d_model ** 0.5, dtype=cfg.compute_dtype,
@@ -355,24 +372,49 @@ def forward(params: dict, batch: dict, cfg: ArchConfig,
     is given; ``caches`` (decode, S = 1) gives the new ones."""
     if impl not in ("xla", "pallas"):
         raise ValueError(f"unknown impl {impl!r}")
+    tp = tp_lib.active(cfg.tp_axis_name)
+    if tp is not None:
+        _check_tp(params, cfg, caches)
     if cfg.is_encoder_decoder and enc_out is None:
         enc_out = _encode(params, cfg, batch, impl)
-    x = _embed_inputs(params, cfg, batch)
+    x = _embed_inputs(params, cfg, batch, tp)
     x, new_caches, aux = _apply_stack(
         params["stack"], x, batch["positions"], cfg, impl, caches,
         long_variant, mrope_positions=batch.get("mrope_positions"),
-        enc_out=enc_out)
+        enc_out=enc_out, tp=tp)
     x = layers.rms_norm(params["final_norm"], x, cfg.norm_eps)
     if cfg.tie_embeddings:
-        logits = torch.einsum("bsd,vd->bsv", x,
-                              params["embed"]["table"].to(x.dtype))
+        table = params["embed"]["table"]
+        if tp is not None and table.shape[0] != cfg.vocab_size:
+            x = tp_lib.copy_to(x, tp)
+        logits = torch.einsum("bsd,vd->bsv", x, table.to(x.dtype))
     else:
         logits = layers.unembed(params["head"], x,
-                                compute_dtype=cfg.compute_dtype)
+                                compute_dtype=cfg.compute_dtype, tp=tp,
+                                vocab=cfg.vocab_size)
     if cfg.logit_softcap > 0:
         cap = cfg.logit_softcap
         logits = cap * torch.tanh(logits / cap)
     return logits, aux, new_caches
+
+
+def _check_tp(params: dict, cfg: ArchConfig, caches) -> None:
+    """The tensor-parallel forward's limits: the dense text family
+    (``tp.check_family``), no decode caches, and the embedding and head
+    whole along d (``param_pspecs`` shards them on d only where M does
+    not divide the vocabulary)."""
+    tp_lib.check_family(cfg)
+    if caches is not None:
+        raise NotImplementedError(
+            "tensor-parallel decode (serve_param_pspecs/cache_pspecs) is "
+            "not ported (ROADMAP.md Queue A item 6.5)")
+    d = cfg.d_model
+    if params["embed"]["table"].shape[-1] != d or \
+            ("head" in params and params["head"]["w"].shape[0] != d):
+        raise NotImplementedError(
+            f"{cfg.name}: an embedding or head sharded on d (a vocabulary "
+            f"of {cfg.vocab_size} that the model group does not divide) "
+            f"is not ported")
 
 
 # ---------------------------------------------------------------------------

@@ -23,12 +23,13 @@ on path names (``scan``, ``wk``, ``wo``, ``router``, ``in_proj``, the
 cache leaves ``k``, ``v``, ``latent``, ``k_rope``, ``ssm``, ``conv``,
 ``h``, ``positions``, ``index``), which the port's trees carry at the
 reference's depths.  The axis sizes come with the ``MeshAxes`` argument
-(the reference keeps them in a module global).  The port runs no
-tensor-parallel program (its 2-D mesh column-shards the state, not the
-model's compute: core/sharded.py): the dry run records these specs
-beside the program it traces, and
-:func:`placements` turns one into ``torch.distributed.tensor``
-placements over a ``DeviceMesh``.
+(the reference keeps them in a module global).  The tree engine on the
+('agents', 'model') mesh places each stacked leaf by
+:func:`param_pspecs` (``sharding.tp.shard_params``) and partitions the
+model's compute over the model group (sharding/tp.py); the dry run
+records the specs beside the program it traces, and :func:`placements`
+turns one into ``torch.distributed.tensor`` placements over a
+``DeviceMesh``.
 """
 
 from __future__ import annotations

@@ -1627,3 +1627,119 @@ def test_cuda_dryrun_matches_the_card(cuda, program):
     assert (real.ops, real.flops) == (fake.ops, fake.flops)
     assert fake.launches == launches == real.launches == {kernel: count}
     assert abs(fake.temp_bytes - measured) <= 0.10 * measured
+
+
+# the tensor-parallel tree engine's leaf blocks (core/sharded.py,
+# make_sharded_tree_step): each leaf's (n/A, numel/M_leaf) block mixed by
+# #1 under 'pallas' and by #2 under 'sparse' at one agent shard, with a
+# ragged D (no multiple of 4) and W of 2 agents on a ring
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["gossip_mix", "gossip_mix_sparse"])
+@pytest.mark.parametrize("d", [2_560, 151_936 // 2 * 8, 4_097])
+def test_cuda_tp_leaf_block_mix_matches_plain_version(cuda, kernel, d):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(d + len(kernel))
+    w = torch.rand((2, 2), device=cuda, generator=gen)
+    w = w / w.sum(dim=1, keepdim=True)
+    x = torch.randn((2, d), device=cuda, generator=gen)
+    if kernel == "gossip_mix":
+        fn, args, plain = ops.gossip_mix, (w, x), ref.gossip_mix
+    else:
+        nbr, mask = (torch.as_tensor(a, device=cuda) for a in ops.ell_table(
+            [[False, True], [True, False]]))
+        fn, plain = ops.gossip_mix_sparse, ref.gossip_mix_sparse
+        args = (nbr, *ops.ell_weights(w, nbr, mask), x)
+    before = fn.launches
+    got = fn(*args)
+    assert fn.launches == before + 1
+    want = plain(*args)
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+def _tp_world_rank(rank, world, store, out_path, impl):
+    """A rank of test_cuda_tp_tree_step_equals_one_device's gloo world on
+    the one card: Qwen1.5-4B smoke (f32), 2 agents on a (1, 2) mesh, two
+    tree steps, its blocks gathered."""
+    import pickle
+
+    import torch.distributed as dist
+    from repro_torch import sharding as shd
+    from repro_torch.core import sharded
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps
+    from repro_torch.sharding import tp
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        mesh = mesh_lib.make_fed_mesh(1, world, device="cuda")
+        cfg, fcfg, state, batches = _tp_setup(impl)
+        tcfg = steps.adapt_for_mesh(cfg, tp.mesh_axes(mesh))
+        specs = shd.param_pspecs(tcfg, state.params, tp.mesh_axes(mesh))
+        blk = sharded.shard_tree_state(state, specs, mesh)
+        step = sharded.make_sharded_tree_step(
+            fcfg, build_model(tcfg).grad_fn(), lambda t: 1e-2, mesh,
+            device="cuda", param_specs=specs)
+        draws = Draws(4, "cuda")
+        ops.reset_launch_counts()
+        for batch in batches:
+            blk, _ = step(blk, batch, draws)
+        counts = ops.launch_counts()
+        whole = sharded.gather_tree_state(blk, specs, mesh)
+        if rank == 0:
+            with open(out_path, "wb") as f:
+                pickle.dump({"params": tree_map(lambda t: t.cpu(),
+                                                whole.params),
+                             "counts": counts}, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _tp_setup(impl: str):
+    from repro_torch.core import feddec
+    from repro_torch.core.mixing import MixingDistribution
+    cfg = get_config("qwen1.5-4b").smoke()
+    fcfg = feddec.FedDecConfig(mixing=MixingDistribution(
+        topo.ring_graph(2, k=1)), h=2, k=2, gossip_impl=impl)
+    state = feddec.init_state(build_model(cfg).init(Draws(3, "cuda")), 2)
+    gen = torch.Generator().manual_seed(5)
+    batches = [{"tokens": torch.randint(0, cfg.vocab_size, (2, 1, 16),
+                                        generator=gen).cuda(),
+                "positions": torch.arange(16).expand(2, 1, 16).cuda()}
+               for _ in range(2)]
+    return cfg, fcfg, state, batches
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("impl", ["pallas", "sparse"])
+def test_cuda_tp_tree_step_equals_one_device(cuda, tmp_path, impl):
+    """Two steps of the tensor-parallel tree engine in a gloo world of 2
+    ranks on the one card (Qwen1.5-4B smoke, 2 agents, (1, 2)) against
+    the tree engine on one device: the gathered state within
+    1e-5·max|x|; #1 (#2 under 'sparse') once per leaf block a step on
+    each rank."""
+    import pickle
+
+    import torch.multiprocessing as mp
+    from repro_torch.core import feddec
+    from repro_torch.tree import leaves
+    out_path = tmp_path / "out.pkl"
+    mp.start_processes(_tp_world_rank, args=(2, str(tmp_path / "store"),
+                                             str(out_path), impl),
+                       nprocs=2, start_method="spawn", join=True)
+    with open(out_path, "rb") as f:
+        got = pickle.load(f)
+    cfg, fcfg, state, batches = _tp_setup(impl)
+    step = feddec.make_feddec_step(fcfg, build_model(cfg).grad_fn(),
+                                   lambda t: 1e-2, device="cuda")
+    draws = Draws(4, "cuda")
+    for batch in batches:
+        state, _ = step(state, batch, draws)
+    kernel = {"pallas": "gossip_mix", "sparse": "gossip_mix_sparse"}[impl]
+    n_leaves = len(leaves(state.params))
+    assert got["counts"][kernel] == 2 * n_leaves
+    assert sum(got["counts"].values()) == 2 * n_leaves
+    err = max((a - b.cpu()).abs().max().item()
+              for a, b in zip(leaves(got["params"]), leaves(state.params)))
+    scale = max(b.abs().max().item() for b in leaves(state.params))
+    assert err <= 1e-5 * scale
