@@ -74,13 +74,17 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
      accuracy check: at A = -77..-80 (f32, S 512) the kernel within
      1e-6·max|y| of an f64 recurrence on the card, the cum-difference
      chunked form (models/ssm.py:ssd_chunked) at least 10× further off;
-  4. training: the full-size tiny LM, 8 agents, ring2, H = 10, K = 2,
-     batch 2, seq 128, 10 steps, on paths (a) --gossip-impl pallas,
+  4. training: the full-size tiny LM, 8 agents, ring2, H = 5, K = 2,
+     batch 2, seq 128, 5 steps (TRAIN_STEPS), on paths (a) --gossip-impl
+     pallas,
      (b) sparse, (c) pallas --fuse-update-mix --optimizer momentum,
      (d) sparse --fuse-update-mix; each must keep its loss finite and
-     launch its kernel once per step; then (a) again with dense gossip
-     from the same seed must end on the same flat buffer.  Then the
-     R = 2 sweep lattice on paths (e) --sweep-axis h (H = 10, 20) pallas,
+     launch its kernel once per step (line 4 rematerialises each of the
+     12 layers in its backward, Model.grad_fn's default); then (a) again
+     with dense gossip from the same seed must end on the same flat
+     buffer, and (c) again with remat off (every activation kept) within
+     1e-5·max|x| of (c), both peaks and step times recorded.  Then the
+     R = 2 sweep lattice on paths (e) --sweep-axis h (H = 5, 10) pallas,
      (f) --sweep-axis topology er0.5 sparse, (g) --sweep-axis seed pallas
      --fuse-update-mix --optimizer momentum, (h) --sweep-axis topology
      geo0.5 --p-fail 0.1 sparse --fuse-update-mix, each launching its
@@ -150,7 +154,7 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
      cohort = 8 at full width, one round, its rows equal to the flat
      engine's with --gossip-impl sparse on the same weights, batches and
      draws, bit for bit; (P2) population_loop at full width, n_total 16,
-     cohorts of 8, 20 steps, overlapped and synchronous (one run
+     cohorts of 8, 10 steps at H 5, overlapped and synchronous (one run
      each; rows and losses equal bit for bit), --ckpt-dir's store
      restored bit for bit, then a
      round of --sampling stale --staleness 0.5 --n-clusters 2, with ms a
@@ -171,8 +175,8 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
      then (4h) the 2-D ('agents', 'model') engine: gloo worlds of 2 and
      4 ranks, every rank on this one card (the kernels built before they
      start), each rank running train_loop(mesh_agents=A, mesh_model=M)
-     on path (a)'s run at full width, 1 layer (D 59,181,312), 3 steps and
-     H 3, after a one-step warm-up: (t1) A 1 x M 2 pallas (#1 once a step a rank),
+     on path (a)'s run at full width, 1 layer (D 59,181,312), 2 steps and
+     H 2, after a one-step warm-up: (t1) A 1 x M 2 pallas (#1 once a step a rank),
      (t2) the same under int8 (#1 once a step a rank; the scales' maximum
      over 'model'), (t3) A 2 x M 2 dense (no kernel), held to the end
      states of path (a)'s and (i)'s runs at that depth on one device as
@@ -183,11 +187,15 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
      make_sharded_tree_step, sharding/tp.py): gloo worlds of 2 and 4
      ranks on this one card, the zoo configs at their published widths
      with f32 compute, every leaf a rank's param_pspecs block, 5 steps at
-     H 5, batch 2 × S 128: (p1) Qwen1.5-4B at 8 of 40 layers, (A, M) =
+     H 5 ((p2): 2 at H 2), batch 2 × S 128: (p1) Qwen1.5-4B at 8 of 40
+     layers, (A, M) =
      (1, 2), 2 agents, pallas (#1 once per leaf block a step a rank);
      (p2) Qwen1.5-4B at 1 layer, (2, 2), 4 agents, dense (no kernel);
      (p3) Gemma3-12B at the 6 layers that hold its first global one,
-     (1, 2), 2 agents, pallas; each world hands its ranks' end blocks to
+     (1, 2), 2 agents, pallas; (p4) DeepSeek-V2-Lite at 3 of 27 layers
+     (its dense first layer, then two MoE layers), (1, 2), 2 agents,
+     pallas: MLA on the rank's 8 heads, the MoE on its 32 of 64 experts;
+     each world hands its ranks' end blocks to
      this process, which then runs the path's one-device tree twin: the
      blocks within 1e-5·max|x| of the twin's, each rank's state exactly
      Σ (n/A)·numel/M_leaf · 4 bytes, the step times beside the twin's
@@ -211,9 +219,12 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
      losses within 1e-5·max|loss|, both timed with their peaks;
   5. profile: path (c) once more under torch.profiler, for the device
      time per step by kernel group against the unprofiled step time; the
-     set-up's device work is measured apart and taken out; a step must
-     issue fewer than OPS_PER_STEP_MAX device ops (one batched pass of
-     line 4 over the 8 agents; the per-row loop issued 18,579);
+     set-up's device work is measured apart and taken out; then path
+     (c) with remat off the same way: its step must issue fewer than
+     OPS_PER_STEP_MAX device ops (one batched pass of line 4 over the 8
+     agents; the per-row loop issued 18,579), and the rematerialised
+     step fewer than REMAT_OPS_PER_STEP_MAX and fewer than
+     REMAT_OPS_RATIO_MAX times as many (one more forward of the groups);
   6. models: the prefill (Model.logits) of the tiny LM (B 2, S 1024,
      f32), RecurrentGemma-9B, Mamba2-2.7B, Qwen1.5-4B, Gemma3-12B,
      Nemotron-4-15B, DeepSeek-V2-Lite, Qwen2-VL-2B (its first 256
@@ -245,7 +256,7 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
      bf16_model_bound.  RecurrentGemma-9B peaks near 45 GB in bf16 and
      near 46 GB with f32 compute;
   6b. serving (launch/serve.py) at full width and depth from random
-     weights, greedy, prompt 16 + 32 new tokens: (S1) Qwen1.5-4B at B 4,
+     weights, greedy, prompt 16 + 16 new tokens: (S1) Qwen1.5-4B at B 4,
      (S2) RecurrentGemma-9B, (S3) Mamba2-2.7B and (S5) DeepSeek-V2-Lite
      at B 1, (S6) Qwen2-VL-2B at B 4 (text only, as the reference
      decodes), (S7) SeamlessM4T-Large-v2 at B 1 (attending
@@ -278,8 +289,13 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
      ops, device time and busy share a step; then theory_check (B1, B2),
      fig2 (F1, F2), table1 (T1-T3) and ablation_server (S1), each timed;
   8. dryrun: the dry run (launch/steps.py) against the card for path
-     (c)'s step (#3), (M2)'s (#1) and Qwen1.5-4B's full-width prefill
-     (impl='pallas', #15 × 40): each traced on the host on meta tensors
+     (c)'s step (#3), the same step at S 1,024 with remat on and with
+     remat off (#3; there the activations set the peak: the
+     rematerialised peak must lie below the other), (M2)'s (#1),
+     Qwen1.5-4B's full-width prefill
+     (impl='pallas', #15 × 40) and its chunked prefill at B 1, S 32,768
+     (impl='xla', chunks of 512 queries, no kernel): each traced on the
+     host on meta tensors
      (Lowerable.lower) and then run once on the card under the same
      tally (launch/trace_analysis.py), the FLOPs and op counts equal, the
      fake trace's kernel ops equal to the wrappers' launch counts, and the
@@ -289,7 +305,10 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
      the H100's figures; then phase 4i's (p1) step, rank 0 of its 1 x 2
      world traced on meta tensors in a fake world against rank 0's
      tallied step in the card's gloo world: FLOPs, ops and launches
-     equal, the peak within ±10%.
+     equal, the peak within ±10% (every training program here
+     rematerialises its scanned groups, Model.grad_fn's default); then
+     Qwen1.5-4B's chunked prefill at S 4,096 against the one block
+     (attn_chunked_prefill off): logits within 1e-4·max|logit|.
 
 Kernel times are the median over 5 repeats of the mean of 10 calls
 (CUDA events).  ``python3 chip_smoke.py --mix-timing DIR`` runs only the
@@ -586,10 +605,21 @@ PATH_VARIANT = {"gossip_mix": "gossip", "gossip_mix_sparse": "gossip",
                 "update_mix_sparse_batched": "sgd", **COMPRESSED,
                 **{k: "ef" for k in BATCHED_EF}}
 STEPS = 10
+# the training paths' steps and server period (phases 4, 4c, 4d, 4g, the
+# profile and the checkpoint), the server at the last step: 5, so that
+# the script keeps within its time with every step recomputing a forward
+TRAIN_STEPS = 5
 DEVICE = "cuda"
 # path (c)'s device ops per step: line 4 is one batched pass whose op
 # count does not grow with the agents (the per-row loop issued 18,579)
 OPS_PER_STEP_MAX = 4000
+# path (c)'s device ops a step with remat (the default) over the same
+# step with remat off: the recompute adds one forward of the groups, a
+# third of a forward and backward (1.27 on an H100); a per-row loop
+# would multiply them by the 8 agents
+REMAT_OPS_RATIO_MAX = 1.5
+# path (c)'s device ops a step with remat: 4,343 to 4,366 on an H100
+REMAT_OPS_PER_STEP_MAX = 4700
 # a path's peak against its warm-up's (the same run): cuBLAS's first
 # workspaces are all that may differ
 PEAK_RTOL = 0.01
@@ -2372,7 +2402,7 @@ def path_d(layers: int) -> int:
 
 
 def train_path(torch, impl: str, fuse: bool, optimizer: str,
-               steps: int = STEPS, *, graph: str = "ring2",
+               steps: int = TRAIN_STEPS, *, graph: str = "ring2",
                p_fail: float = 0.0, sweep_axis: str | None = None,
                compress: str = "none", layers: int = 12,
                arch: str = "tiny", smoke: bool = False,
@@ -2380,7 +2410,8 @@ def train_path(torch, impl: str, fuse: bool, optimizer: str,
                layout: str | None = None, delta: str = "none",
                d_model: int = 768, ckpt_dir: str | None = None,
                seq: int = 128, mesh_agents: int | None = None,
-               mesh_model: int | None = None, h: int = 10):
+               mesh_model: int | None = None, h: int = TRAIN_STEPS,
+               remat: bool = True):
     """One run of the trainer; with ``sweep_axis`` the R_FULL-run lattice,
     whose whole (R, n, D) state it returns (else the FedState); ``compress``
     is the gossip codec (--gossip-compress), ``delta`` the delta
@@ -2391,8 +2422,9 @@ def train_path(torch, impl: str, fuse: bool, optimizer: str,
     default), ``ckpt_dir`` the checkpoint directory (--ckpt-dir), ``seq``
     each agent's sequence length (--seq), ``mesh_agents`` the sharded
     engine's ranks (--mesh-agents; the caller holds the process group),
-    ``mesh_model`` the 2-D mesh's model ranks (--mesh-model) and ``h``
-    the server period (--h)."""
+    ``mesh_model`` the 2-D mesh's model ranks (--mesh-model), ``h``
+    the server period (--h) and ``remat`` False line 4 without the
+    groups' rematerialisation (train_loop's option; the CLI has none)."""
     from repro_torch.configs.base import FedConfig
     from repro_torch.launch import train
     # what earlier phases left to the garbage collector goes first, so
@@ -2409,7 +2441,8 @@ def train_path(torch, impl: str, fuse: bool, optimizer: str,
         steps=steps, per_agent_batch=batch, seq_len=seq, optimizer=optimizer,
         fuse_update_mix=fuse, fused=fused, state_layout=layout, seed=0,
         device=DEVICE, timing=timing, ckpt_dir=ckpt_dir,
-        mesh_agents=mesh_agents, mesh_model=mesh_model, **sweep)
+        mesh_agents=mesh_agents, mesh_model=mesh_model, remat=remat,
+        **sweep)
     torch.cuda.synchronize()
     return state, losses, timing, torch.cuda.max_memory_allocated()
 
@@ -2459,7 +2492,8 @@ def dense_rerun(torch, name: str, final, tol: float = TOL, **kw) -> dict:
           f"path ({name}) kernel vs dense final buffers differ: {err:.3e} > "
           f"{tol}·{scale:.3e}")
     out = {"impl": "dense", "losses": losses,
-           "step_ms": 1e3 * timing["loop_s"] / STEPS, "peak_bytes": peak,
+           "step_ms": 1e3 * timing["loop_s"] / TRAIN_STEPS,
+           "peak_bytes": peak,
            "max_abs_diff": err, "scale": scale, "tol": tol}
     log(f"[train] path ({name}) with dense gossip: step "
         f"{out['step_ms']:.1f} ms, peak {peak / 1e9:.2f} GB, final buffer "
@@ -2486,21 +2520,22 @@ def run_path(torch, name: str, impl: str, fuse: bool, opt: str,
     check(all(math.isfinite(v) for v in losses),
           f"path ({name}): non-finite loss {losses}")
     launches = 0 if kernel is None else counts[kernel]
-    check(launches == (0 if kernel is None else STEPS * per_step),
+    check(launches == (0 if kernel is None else TRAIN_STEPS * per_step),
           f"path ({name}): {kernel} launched {launches} times in "
-          f"{STEPS} steps ({per_step} a step expected)")
+          f"{TRAIN_STEPS} steps ({per_step} a step expected)")
     check(sum(counts.values()) == launches,
           f"path ({name}): other kernels launched: {counts}")
-    step_ms = 1e3 * timing["loop_s"] / STEPS
+    step_ms = 1e3 * timing["loop_s"] / TRAIN_STEPS
     out = {"impl": impl, "fuse_update_mix": fuse, "optimizer": opt,
            "kernel": kernel, "launches": launches,
-           "launches_per_step": launches / STEPS, "losses": losses,
+           "launches_per_step": launches / TRAIN_STEPS, "losses": losses,
            "step_ms": step_ms, "setup_s": timing["setup_s"],
            "peak_bytes": peak, "warm_up_peak_bytes": warm_peak, **kw}
     log(f"[train] path ({name}) gossip={impl} fuse={fuse} opt={opt}"
         + "".join(f" {k}={v}" for k, v in kw.items())
         + f": loss {losses[0]:.4f} → {losses[-1]:.4f}, {kernel} launches "
-        f"{launches} ({launches / STEPS:g} a step), step {step_ms:.1f} ms "
+        f"{launches} ({launches / TRAIN_STEPS:g} a step), step "
+        f"{step_ms:.1f} ms "
         f"(host clock, synchronized), setup {timing['setup_s']:.1f} s, "
         f"peak {peak / 1e9:.2f} GB (warm-up {warm_peak / 1e9:.2f} GB)")
     return state, out
@@ -2519,6 +2554,13 @@ def training_phase(torch) -> tuple:
             out["a_dense"] = dense_rerun(torch, "a", final)
             a_final = final.cpu()
             del final
+        if name == "c":
+            final = flat_of(torch, state).cpu()
+            del state
+            torch.cuda.empty_cache()
+            out["c_remat_off"] = remat_off_rerun(torch, final, out["c"])
+            del final
+            continue
         del state
         torch.cuda.empty_cache()
     for name, (axis, graph, p_fail, impl, fuse, opt, kernel) in \
@@ -2562,6 +2604,31 @@ def training_phase(torch) -> tuple:
     return out, a_final, finals
 
 
+def remat_off_rerun(torch, final, remat_on: dict) -> dict:
+    """Path (c) again with line 4 keeping every activation (remat off):
+    the same seed must end on the same flat buffer within TOL·max|x|;
+    both runs' peaks and step times are recorded."""
+    impl, fuse, opt, kernel = PATHS["c"]
+    state, out = run_path(torch, "c remat off", impl, fuse, opt, kernel,
+                          remat=False)
+    got = flat_of(torch, state)
+    err = (got - final.to(got.device)).abs().max().item()
+    scale = final.abs().max().item()
+    del state, got
+    torch.cuda.empty_cache()
+    check(err <= TOL * scale,
+          f"path (c) with remat off ends {err:.3e} from remat on > "
+          f"{TOL}·{scale:.3e}")
+    out.update(max_abs_diff=err, scale=scale, tol=TOL,
+               remat_on_step_ms=remat_on["step_ms"],
+               remat_on_peak_bytes=remat_on["peak_bytes"])
+    log(f"[train] path (c) remat on / off: step {remat_on['step_ms']:.1f} / "
+        f"{out['step_ms']:.1f} ms, peak {remat_on['peak_bytes'] / 1e9:.2f} / "
+        f"{out['peak_bytes'] / 1e9:.2f} GB, end buffers {err:.3e} apart "
+        f"(limit {TOL}·{scale:.3e})")
+    return out
+
+
 def check_residual(torch, name: str, state, out: dict, twin: str = "",
                    twin_final=None) -> None:
     """A lossy codec's run leaves a finite, nonzero residual; a lossless
@@ -2591,7 +2658,7 @@ def check_residual(torch, name: str, state, out: dict, twin: str = "",
 
 # path -> (gossip impl, codec, sweep axis, the kernel it launches once a
 # step, the phase-4 path whose end state it must equal): the CLI's default
-# run (the tiny LM at full width, 8 agents, ring2, H 10, K 2, 10 steps)
+# run (the tiny LM at full width, 8 agents, ring2, H 5, K 2, 5 steps)
 # through train_loop(mesh_agents=1) in a world of one rank over NCCL.
 # One shard mixes with no collective; the server's and the loss's
 # all-reduce are skipped as well (core/sharded.py).
@@ -2705,9 +2772,10 @@ MESH2D_PATHS = {
 # 4-rank world's host staging passed the machine's 96 GiB; 1.8-3.0 s at
 # 1 layer, D 59,181,312, the embedding and head at full width, with some
 # 10 s to start a world's ranks and 15-20 s for its first step; PERF.md),
-# so the phase runs 1 layer and 3 steps (5 until phase 4i came beside it)
+# so the phase runs 1 layer and 2 steps (5 until phase 4i came beside
+# it, then 3 until remat made every training path recompute a forward)
 MESH2D_LAYERS = 1
-MESH2D_STEPS = 3
+MESH2D_STEPS = 2
 # the untimed warm-up before a world's first timed run: one step
 MESH2D_WARM_STEPS = 1
 
@@ -2896,19 +2964,30 @@ def mesh2d_phase(torch) -> dict:
 # global one (global_every 6), #1 likewise; (p2): dense gossip over two
 # agent shards (the own-block partials reduce-scattered through gloo), at
 # one layer, where each step moves the embedding's and the head's
-# (4, 194,478,080) partials through the host.
+# (4, 194,478,080) partials through the host; (p4): DeepSeek-V2-Lite at
+# its dense first layer and two MoE layers (as path (D1)), MLA on the
+# rank's heads and the MoE on its 32 of the 64 experts, #1 once per leaf
+# block a step.
 TP_PATHS = {
     "p1": ("qwen1.5-4b", 1, 2, 2, 8, "pallas"),
     "p2": ("qwen1.5-4b", 2, 2, 4, 1, "dense"),
     "p3": ("gemma3-12b", 1, 2, 2, 6, "pallas"),
+    "p4": ("deepseek-v2-lite-16b", 1, 2, 2, 3, "pallas"),
 }
-# 5 steps at H 5 (the server fires at the last), batch 2 × S 128 a
-# step as phase 4c's paths, η 1e-3; the first step is untimed.  A world
+# TP_STEPS at H TP_STEPS (the server fires at the last), batch 2 × S 128
+# a step as phase 4c's paths, η 1e-3; the first step is untimed.  A world
 # and its twin do not fit on the card together ((p3): 59 GB of ranks
 # beside the twin's 58 GB), so the world runs first and hands its end
 # blocks to the parent, then the twin runs
 TP_STEPS, TP_BATCH, TP_SEQ, TP_LR = 5, 2, 128, 1e-3
 TP_INIT_SEED, TP_SEED = 30, 31
+# (p2) at 2 steps, H 2, for the script's time: each of its steps moves
+# 3.46 GB a rank through gloo's host staging (9-20 s a step)
+TP_STEPS_BY_PATH = {"p2": 2}
+
+
+def tp_steps(name: str) -> int:
+    return TP_STEPS_BY_PATH.get(name, TP_STEPS)
 
 
 def tp_config(arch: str, layers: int):
@@ -2926,7 +3005,7 @@ def tp_fed(name: str):
     from repro_torch.launch import train
     arch, _, _, n, layers, impl = TP_PATHS[name]
     cfg = tp_config(arch, layers)
-    fed = FedConfig(n_agents=n, h=TP_STEPS, k=2, graph="ring2",
+    fed = FedConfig(n_agents=n, h=tp_steps(name), k=2, graph="ring2",
                     gossip_impl=impl)
     return cfg, train.build_fed_setup(cfg, train.fed_axes(fed), fed)[0]
 
@@ -2937,12 +3016,12 @@ def tp_batches(torch, name: str, rows: slice, device) -> list:
     arch, _, _, n, layers, _ = TP_PATHS[name]
     vocab = tp_config(arch, layers).vocab_size
     gen = torch.Generator().manual_seed(TP_SEED + 1)
-    tokens = torch.randint(0, vocab, (TP_STEPS, n, TP_BATCH, TP_SEQ),
+    tokens = torch.randint(0, vocab, (tp_steps(name), n, TP_BATCH, TP_SEQ),
                            generator=gen)[:, rows]
     positions = torch.arange(TP_SEQ).expand(tokens.shape)
     return [{"tokens": tokens[t].to(device),
              "positions": positions[t].contiguous().to(device)}
-            for t in range(TP_STEPS)]
+            for t in range(tp_steps(name))]
 
 
 def tp_program(torch, name: str, device, mesh) -> dict:
@@ -3055,7 +3134,7 @@ def tp_twin(torch, name: str) -> tuple:
     peak = torch.cuda.max_memory_allocated()
     final = {"/".join(p): leaf for p, leaf in sorted_leaves(state.params)}
     return {"losses": losses, "peak_bytes": peak,
-            "step_ms": 1e3 * sum(times[1:]) / (TP_STEPS - 1)}, final
+            "step_ms": 1e3 * sum(times[1:]) / (tp_steps(name) - 1)}, final
 
 
 def _tp_rank(rank: int, world: int, store: str, names: list, handoff,
@@ -3122,7 +3201,7 @@ def _tp_rank_path(torch, name, mesh, rank, handoff, done, ops, tally,
         step_s.append(time.perf_counter() - ts)
     row.update(losses=losses,
                counts={k: v for k, v in ops.launch_counts().items() if v},
-               step_ms=1e3 * sum(step_s[1:]) / (TP_STEPS - 1),
+               step_ms=1e3 * sum(step_s[1:]) / (tp_steps(name) - 1),
                first_step_ms=1e3 * step_s[0],
                peak_bytes=torch.cuda.max_memory_allocated())
     t2 = time.time()
@@ -3219,6 +3298,7 @@ def tp_path_rows(torch, name: str, ranks: list, blocks: dict,
     """A TP path's twin (tp_twin) against the ranks' handed blocks and
     its checks, log line and rows ({name: row, name_twin: the twin's})."""
     arch, a, m, n, layers, impl = TP_PATHS[name]
+    steps = tp_steps(name)
     t0 = time.perf_counter()
     twin, final = tp_twin(torch, name)
     err, scale = tp_twin_check(torch, name, final, blocks)
@@ -3234,7 +3314,7 @@ def tp_path_rows(torch, name: str, ranks: list, blocks: dict,
               and row["losses"] == head["losses"],
               f"path ({name}) rank {r}: losses {row['losses']}, rank 0's "
               f"{head['losses']}")
-        want = {kernel: TP_STEPS * row["n_leaves"]} if kernel else {}
+        want = {kernel: steps * row["n_leaves"]} if kernel else {}
         check(row["counts"] == want, f"path ({name}) rank {r}: launches "
                                      f"{row['counts']}, want {want}")
         check(row["block_bytes"] == row["elem_bytes"]
@@ -3246,7 +3326,7 @@ def tp_path_rows(torch, name: str, ranks: list, blocks: dict,
                               f"> {TOL}·{scale:.3e}")
     out = {
         "arch": arch, "mesh": [a, m], "agents": n, "layers": layers,
-        "impl": impl, "kernel": kernel, "steps": TP_STEPS,
+        "impl": impl, "kernel": kernel, "steps": steps,
         "batch": TP_BATCH, "seq": TP_SEQ,
         "launches": [r["counts"].get(kernel, 0) if kernel else 0
                      for r in rows],
@@ -3263,11 +3343,11 @@ def tp_path_rows(torch, name: str, ranks: list, blocks: dict,
         out["tally"] = head["tally"]
     log(f"[tp] path ({name}) {arch} at published widths, {layers} "
         f"layer{'s' if layers > 1 else ''}, f32 compute, {n} agents on a "
-        f"{a} x {m} gloo world on one card, gossip={impl}, {TP_STEPS} "
+        f"{a} x {m} gloo world on one card, gossip={impl}, {steps} "
         f"steps: step {out['step_ms']:.1f} ms (host clock, steps 2-"
-        f"{TP_STEPS}; the twin {twin['step_ms']:.1f} ms), "
+        f"{steps}; the twin {twin['step_ms']:.1f} ms), "
         f"{kernel or 'no kernel'} launches {out['launches']} a rank "
-        f"({head['n_leaves']} leaves × {TP_STEPS} steps), state "
+        f"({head['n_leaves']} leaves × {steps} steps), state "
         + "/".join(f"{b / 1e9:.3f}" for b in out["state_bytes_by_rank"])
         + " GB a rank (exactly its blocks), peaks "
         + "/".join(f"{b / 1e9:.2f}" for b in out["peak_bytes_by_rank"])
@@ -3797,7 +3877,9 @@ def delta_phase(torch, a_final) -> dict:
 
 # P2: the CLI's population mode at full width (the store: n_total rows of
 # D_FULL f32, 626 MB each)
-POP_N_TOTAL, POP_COHORT, POP_STEPS = 16, 8, 20
+POP_N_TOTAL, POP_COHORT, POP_STEPS = 16, 8, 10
+# P1's and P2's server period: P1 one round, P2 two
+POP_H = 5
 # P3: the reference benchmark's scale row (benchmarks/bench_population.py:
 # 62-63, 102-130): linreg D 25, cohort 256, H 10, ring2, 5 rounds
 POP_SCALE = dict(cohort=256, d=25, h=10, ring_k=2, m_rows=10, rounds=5)
@@ -3860,7 +3942,7 @@ def h2d_bandwidth(torch) -> dict:
 
 def pop_anchor(torch) -> dict:
     """P1: the population engine at n_total = cohort = 8 (uniform, ring2,
-    H = 10, K = 2) against the flat engine with gossip_impl='sparse' (path
+    H = POP_H, K = 2) against the flat engine with gossip_impl='sparse' (path
     (b)'s configuration) on the same weights, batches and draws, one
     round each at full width: the final rows equal bit for bit, and each
     run launches #2 once a step and no other kernel."""
@@ -3877,12 +3959,12 @@ def pop_anchor(torch) -> dict:
     data = make_federated_lm(model.cfg.vocab_size, N_AGENTS, 128, draws)
     params0 = model.init(draws)
     spec = flat_lib.make_flat_spec(params0)
-    tokens = draws.tokens(data, 2, STEPS)
+    tokens = draws.tokens(data, 2, POP_H)
     batches = {"tokens": tokens,
                "positions": torch.arange(128, device=DEVICE).expand(
                    tokens.shape)}
     eta = torch.full((1,), 3e-3, device=DEVICE)
-    fed = FedConfig(n_agents=N_AGENTS, h=STEPS, k=2, graph="ring2",
+    fed = FedConfig(n_agents=N_AGENTS, h=POP_H, k=2, graph="ring2",
                     gossip_impl="sparse")
     fcfg, n = train.build_fed_setup(model.cfg, train.fed_axes(fed), fed)
     round_fn = flat_lib.make_flat_feddec_round(
@@ -3900,7 +3982,7 @@ def pop_anchor(torch) -> dict:
     graph = train.population_graph("ring2", N_AGENTS)
     eng = pop.PopulationEngine(
         pop.PopulationSpec(N_AGENTS, N_AGENTS, max_degree=graph.max_degree),
-        spec, model.grad_fn(), lambda t: eta, graph, h=STEPS, k=2,
+        spec, model.grad_fn(), lambda t: eta, graph, h=POP_H, k=2,
         device=DEVICE, row_init=spec.ravel(params0),
         store_path=str(POP_DIR / "p1.rows"))
     del params0
@@ -3917,15 +3999,15 @@ def pop_anchor(torch) -> dict:
     torch.cuda.empty_cache()
     for name, c in (("flat engine (sparse)", flat_counts),
                     ("population engine", counts)):
-        check(c["gossip_mix_sparse"] == STEPS
-              and sum(c.values()) == STEPS,
-              f"[population] P1 {name}: launches {c} (#2 {STEPS} times "
+        check(c["gossip_mix_sparse"] == POP_H
+              and sum(c.values()) == POP_H,
+              f"[population] P1 {name}: launches {c} (#2 {POP_H} times "
               f"expected, nothing else)")
     check(equal, f"[population] P1: the population engine's rows end "
                  f"{diff:.3e} from the flat sparse engine's (0 expected)")
     log(f"[population] P1 n_total = cohort = {N_AGENTS}, D={spec.d:,}: rows "
         f"equal to the flat sparse engine's bit for bit; #2 launched "
-        f"{counts['gossip_mix_sparse']} times in {STEPS} steps; round "
+        f"{counts['gossip_mix_sparse']} times in {POP_H} steps; round "
         f"{1e3 * round_s:.1f} ms (host clock, synchronized, first round)")
     return {"launches": counts["gossip_mix_sparse"], "equal": equal,
             "round_ms": 1e3 * round_s, "d": spec.d}
@@ -3933,7 +4015,7 @@ def pop_anchor(torch) -> dict:
 
 def pop_cli_run(torch, tag: str, **kw) -> tuple:
     """One population_loop at full width (the CLI's default model,
-    POP_N_TOTAL agents, cohorts of POP_COHORT, ring2, H = 10, K = 2,
+    POP_N_TOTAL agents, cohorts of POP_COHORT, ring2, H = POP_H, K = 2,
     batch 2, seq 128); returns (store, losses, timing, peak bytes,
     launches of #2), the #2 count read right after the run."""
     from repro_torch.configs.base import FedConfig
@@ -3946,7 +4028,7 @@ def pop_cli_run(torch, tag: str, **kw) -> tuple:
     timing: dict = {}
     ops.reset_launch_counts()
     store, losses = train.population_loop(
-        train.tiny_lm_config(), FedConfig(h=STEPS, k=2, graph="ring2"),
+        train.tiny_lm_config(), FedConfig(h=POP_H, k=2, graph="ring2"),
         n_total=POP_N_TOTAL, cohort_size=POP_COHORT, steps=steps,
         per_agent_batch=2, seq_len=128, device=DEVICE, timing=timing,
         store_path=str(POP_DIR / f"{tag}.rows"), **kw)
@@ -3980,7 +4062,7 @@ def pop_cli(torch) -> dict:
     store_bytes = POP_N_TOTAL * D_FULL * 4
     model = analysis.population_cost_model(
         n_total=POP_N_TOTAL, cohort_size=POP_COHORT, d=D_FULL,
-        max_degree=4, h=STEPS)
+        max_degree=4, h=POP_H)
     pop_disk(3 * store_bytes, "P2 stores and checkpoint")
     ckpt = POP_DIR / "ckpt"
     out = {"n_total": POP_N_TOTAL, "cohort": POP_COHORT, "d": D_FULL,
@@ -4048,7 +4130,7 @@ def pop_cli(torch) -> dict:
         f"{ms['sync']:.1f} ms synchronous (one run each; "
         f"{out['overlap_speedup']:.3f}×)")
     store, losses, timing, peak, launches = pop_cli_run(
-        torch, "stale", steps=STEPS, sampling="stale", staleness=0.5,
+        torch, "stale", steps=POP_H, sampling="stale", staleness=0.5,
         n_clusters=2)
     drop_store(store)
     out["stale"] = {"losses": losses, "launches": launches,
@@ -4331,28 +4413,30 @@ def grad_phase(torch) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def profile_phase(torch, step_ms: float) -> dict:
+def profile_phase(torch, step_ms: float, remat: bool = True) -> dict:
     """Path (c) once more under torch.profiler, through
     launch/profile.py's trace_step: device time per step by kernel group
     and the top kernels.  A run of 0 steps traces the set-up alone
     (weights, data, the flat buffer); its device work is taken out of
     the 10-step run's, so only the steps' work is counted.  The busy
     share is that device time over path (c)'s unprofiled warm step time,
-    since the profiler slows the host.  Launches here do not count for
-    the main path."""
+    since the profiler slows the host.  ``remat`` False profiles path (c)
+    with every activation kept.  Launches here do not count for the main
+    path."""
     from repro_torch.launch.profile import trace_step
     impl, fuse, opt, _ = PATHS["c"]
     (ROOT / "build").mkdir(exist_ok=True)
     out = trace_step(lambda steps: train_path(torch, impl, fuse, opt,
-                                              steps=steps),
-                     STEPS, step_ms, trace_dir=ROOT / "build")
+                                              steps=steps, remat=remat),
+                     TRAIN_STEPS, step_ms, trace_dir=ROOT / "build")
     if not out["traced"]:
         log("[profile] the profiler traced no device time: not measured")
         return out
-    out["path"] = "c"
+    out["path"] = "c" if remat else "c remat off"
     groups = out["groups_ms_per_step"]
     device_ms = out["device_ms_per_step"]
-    log(f"[profile] path (c), steps only (set-up: {out['setup_ops']} device "
+    log(f"[profile] path ({out['path']}), steps only (set-up: "
+        f"{out['setup_ops']} device "
         f"ops, {out['setup_device_ms']:.1f} ms, taken out): "
         f"{out['launches_per_step']:.0f} device ops/step, device "
         f"{device_ms:.1f} ms of a {step_ms:.1f} ms step "
@@ -4655,7 +4739,7 @@ SERVE_MODELS = [("qwen1.5-4b", 4), ("recurrentgemma-9b", 1),
                 ("mamba2-2.7b", 1), ("deepseek-v2-lite-16b", 1),
                 ("qwen2-vl-2b", 4), ("seamless-m4t-large-v2", 1),
                 ("mistral-large-123b", 4), ("deepseek-v3-671b", 1)]
-SERVE_PROMPT, SERVE_NEW = 16, 32
+SERVE_PROMPT, SERVE_NEW = 16, 16
 
 
 def teacher_forced(torch, model, params, seqs, enc_out=None):
@@ -4898,7 +4982,7 @@ def checkpoint_phase(torch) -> dict:
     state, _, timing, _ = train_path(torch, "pallas", False, "sgd",
                                      ckpt_dir=str(ckpt_dir))
     tree = load_checkpoint(str(ckpt_dir))
-    check(int(tree["step"]) == state.step == STEPS + 1,
+    check(int(tree["step"]) == state.step == TRAIN_STEPS + 1,
           f"[ckpt] step {int(tree['step'])}, state {state.step}")
     for got, want in zip(leaves(tree["params"]), leaves(state.params)):
         check(torch.equal(got.to(DEVICE), want),
@@ -5164,16 +5248,33 @@ def svd_timing(torch) -> dict:
 
 # program -> (the kernel its path launches, its launches a call): path
 # (c)'s step (the tiny LM's flat trainer at full width, 8 agents, batch 2,
-# S 128, pallas, fused momentum: #3), (M2)'s (DeepSeek-V3-671B at its 3
+# S 128, pallas, fused momentum: #3) and that step at S 1,024 with remat on
+# and off (REMAT_PROGRAMS), (M2)'s (DeepSeek-V3-671B at its 3
 # dense layers, one agent, batch 1, S 512, bf16 weights, pallas: #1) and
 # Qwen1.5-4B's full-width prefill (B 1, S 4096, bf16 weights,
-# impl='pallas': #15 once a layer)
-DRYRUN_PROGRAMS = {"c": ("update_mix", 1), "M2": ("gossip_mix", 1),
-                   "qwen1.5-4b prefill": ("flash_attention", 40)}
+# impl='pallas': #15 once a layer) and its chunked prefill at S 32,768
+# (B 1, impl='xla': chunks of 512 queries, no kernel)
+DRYRUN_PROGRAMS = {"c": ("update_mix", 1), "c S1024": ("update_mix", 1),
+                   "c S1024 remat off": ("update_mix", 1),
+                   "M2": ("gossip_mix", 1),
+                   "qwen1.5-4b prefill": ("flash_attention", 40),
+                   "qwen1.5-4b prefill 32k": (None, 0)}
 # the peak above the arguments, predicted on the host against measured
 DRYRUN_PEAK_RTOL = 0.10
-# trace_step's steps (calls) a program
+# path (c)'s programs -> (S, remat): at S 1,024 line 4's activations set
+# the peak (the trace: 15.5 GB above the arguments rematerialised, 51.6 GB
+# kept), at S 128 its gradient rows do (15.0 GB both ways)
+REMAT_PROGRAMS = {"c": (128, True), "c S1024": (1024, True),
+                  "c S1024 remat off": (1024, False)}
+# trace_step's steps (calls) a program: three; none of the 32k prefill,
+# whose one call takes ~19 s on the card (its breakdown: PERF.md), nor of
+# the S 1,024 pair, run for their peaks
 DRYRUN_STEPS = 3
+DRYRUN_CALLS = {"qwen1.5-4b prefill 32k": 0, "c S1024": 0,
+                "c S1024 remat off": 0}
+# the chunked prefill's logits against the one block's: Qwen1.5-4B at
+# full depth, B 1, S 4096 (8 chunks), impl='xla', × max|logit|
+CHUNK_CHECK_SEQ, CHUNK_CHECK_TOL = 4096, 1e-4
 
 
 def dryrun_lowerable(name: str) -> tuple:
@@ -5185,15 +5286,21 @@ def dryrun_lowerable(name: str) -> tuple:
     from repro_torch.configs.shapes import ShapeConfig
     from repro_torch.launch import steps, train
     from repro_torch.sharding import MeshAxes
-    if name == "qwen1.5-4b prefill":
+    if name.startswith("qwen1.5-4b prefill"):
         cfg = get_config("qwen1.5-4b")
-        shape = ShapeConfig("prefill_4k", 4096, 1, "prefill")
+        shape = ShapeConfig("prefill_32k", 32768, 1, "prefill") \
+            if name.endswith("32k") else \
+            ShapeConfig("prefill_4k", 4096, 1, "prefill")
         axes = MeshAxes(("data",), "model", {"data": 1, "model": 1})
-        return (steps.build_prefill_lowerable(cfg, shape, axes,
-                                              impl="pallas"), cfg, shape)
-    impl, fuse, opt, _ = PATHS["c"] if name == "c" else BF16_PATHS[name][:4]
-    if name == "c":
-        cfg, agents, batch, seq = train.tiny_lm_config(), N_AGENTS, 2, 128
+        return (steps.build_prefill_lowerable(
+            cfg, shape, axes, impl="xla" if name.endswith("32k")
+            else "pallas"), cfg, shape)
+    remat = True
+    impl, fuse, opt, _ = PATHS["c"] if name in REMAT_PROGRAMS \
+        else BF16_PATHS[name][:4]
+    if name in REMAT_PROGRAMS:
+        seq, remat = REMAT_PROGRAMS[name]
+        cfg, agents, batch = train.tiny_lm_config(), N_AGENTS, 2
     else:
         kw = BF16_PATHS[name][4]
         cfg = dataclasses.replace(get_config(kw["arch"]),
@@ -5204,7 +5311,8 @@ def dryrun_lowerable(name: str) -> tuple:
     fed = FedConfig(n_agents=agents, h=10, k=2, gossip_impl=impl)
     return (steps.build_train_lowerable(
         cfg, shape, axes, fed=fed, state_layout="flat",
-        fuse_update_mix=fuse, optimizer=opt, microbatches=1), cfg, shape)
+        fuse_update_mix=fuse, optimizer=opt, microbatches=1, remat=remat),
+        cfg, shape)
 
 
 def dryrun_program(torch, name: str) -> dict:
@@ -5254,7 +5362,9 @@ def dryrun_program(torch, name: str) -> dict:
             fn(*call_args)
         torch.cuda.synchronize()
 
-    breakdown = trace_step(run, DRYRUN_STEPS, trace_dir=ROOT / "build")
+    calls = DRYRUN_CALLS.get(name, DRYRUN_STEPS)
+    breakdown = trace_step(run, calls, trace_dir=ROOT / "build") \
+        if calls else {"traced": False}
     gc.collect()
     torch.cuda.empty_cache()
     bound_ms = 1e3 * max(report.compute_s, report.memory_s)
@@ -5269,6 +5379,7 @@ def dryrun_program(torch, name: str) -> dict:
            "peak_gap": gap, "roofline": report.row(),
            "roofline_bound_ms": bound_ms, "trace_step": breakdown}
     dev_ms = breakdown.get("device_ms_per_step", 0.0)
+    card_s = "" if dev_ms else " (not profiled here)"
     log(f"[dryrun] {name}: host trace {lowered.trace_s:.1f} s, {fake.ops} "
         f"ops, {fake.flops:.4e} FLOPs, {fake.traffic_bytes / 1e9:.2f} GB "
         f"moved, launches {fake.launches}; the card: {real.ops} ops, "
@@ -5277,7 +5388,7 @@ def dryrun_program(torch, name: str) -> dict:
         f"{measured / 1e9:.3f} GB ({100 * gap:+.2f}%); roofline (H100 SXM, "
         f"700 W, {str(cfg.compute_dtype).removeprefix('torch.')}): compute "
         f"{report.compute_s * 1e3:.3f} ms, memory {report.memory_s * 1e3:.3f}"
-        f" ms → {report.dominant}; device {dev_ms:.3f} ms a call "
+        f" ms → {report.dominant}; device {dev_ms:.3f} ms a call{card_s} "
         f"({100 * bound_ms / dev_ms if dev_ms else 0.0:.1f}% of it the "
         f"bound); by group (ms a call): "
         + ", ".join(f"{g} {ms:.3f}" for g, ms in sorted(
@@ -5295,9 +5406,10 @@ def dryrun_program(torch, name: str) -> dict:
           f"[dryrun] {name}: the fake trace's kernel ops {fake.launches} "
           f"differ from the card's launches {launches} (tally "
           f"{real.launches})")
-    check(launches.get(kernel) == count,
-          f"[dryrun] {name}: {kernel} launched {launches.get(kernel, 0)} "
-          f"times, expected {count}")
+    got = launches.get(kernel, 0) if kernel else sum(launches.values())
+    check(got == count,
+          f"[dryrun] {name}: {kernel or 'a kernel'} launched {got} times, "
+          f"expected {count}")
     check(abs(gap) <= DRYRUN_PEAK_RTOL,
           f"[dryrun] {name}: predicted peak {predicted} B is "
           f"{100 * gap:+.2f}% from the measured {measured} B (limit "
@@ -5355,9 +5467,82 @@ def dryrun_tp_program(torch, card: dict) -> dict:
     return out
 
 
+def chunked_logits_check(torch) -> dict:
+    """Qwen1.5-4B at full depth and width, B 1, S CHUNK_CHECK_SEQ,
+    impl='xla': the chunked prefill's logits against the one block's
+    (``attn_chunked_prefill`` off), within CHUNK_CHECK_TOL·max|logit|."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.draws import Draws
+    from repro_torch.models import build_model
+    cfg = get_config("qwen1.5-4b")
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = build_model(cfg)
+    params = model.init(Draws(0, DEVICE))
+    gen = torch.Generator().manual_seed(5)
+    s = CHUNK_CHECK_SEQ
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, s),
+                                     generator=gen).to(DEVICE),
+             "positions": torch.arange(s, device=DEVICE)[None]}
+    out = {}
+    with torch.inference_mode():
+        for chunked in (True, False):
+            m = build_model(dataclasses.replace(
+                cfg, attn_chunked_prefill=chunked))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            out[chunked] = m.logits(params, batch, remat=False).float()
+            torch.cuda.synchronize()
+            out[f"ms_{chunked}"] = 1e3 * (time.perf_counter() - t0)
+            out[f"peak_{chunked}"] = torch.cuda.max_memory_allocated() - base
+    err = (out[True] - out[False]).abs().max().item()
+    scale = out[False].abs().max().item()
+    del params, out[True], out[False]
+    gc.collect()
+    torch.cuda.empty_cache()
+    row = {"seq": s, "max_abs_diff": err, "scale": scale,
+           "tol": CHUNK_CHECK_TOL, "chunked_ms": out["ms_True"],
+           "one_block_ms": out["ms_False"],
+           "chunked_peak_above_args": out["peak_True"],
+           "one_block_peak_above_args": out["peak_False"]}
+    log(f"[dryrun] qwen1.5-4b chunked prefill at S {s}, B 1, impl='xla', "
+        f"full depth: logits {err:.3e} from the one block's (limit "
+        f"{CHUNK_CHECK_TOL}·{scale:.3e}); {row['chunked_ms']:.1f} / "
+        f"{row['one_block_ms']:.1f} ms, peak above the weights "
+        f"{row['chunked_peak_above_args'] / 1e9:.2f} / "
+        f"{row['one_block_peak_above_args'] / 1e9:.2f} GB (chunked / one "
+        f"block, first calls)")
+    check(err <= CHUNK_CHECK_TOL * scale,
+          f"[dryrun] qwen1.5-4b chunked prefill: logits {err:.3e} from the "
+          f"one block's > {CHUNK_CHECK_TOL}·{scale:.3e}")
+    return row
+
+
+def remat_peak_check(out: dict) -> dict:
+    """Path (c)'s step at S 1,024: the rematerialised program's measured
+    peak above the arguments below the one that keeps every activation
+    (each already within DRYRUN_PEAK_RTOL of its trace)."""
+    on, off = (out[name]["card"]["peak_above_args"]
+               for name in ("c S1024", "c S1024 remat off"))
+    row = {"seq": 1024, "remat_on_peak_above_args": on,
+           "remat_off_peak_above_args": off, "saved_bytes": off - on}
+    log(f"[dryrun] path (c) at S 1024: peak above the arguments "
+        f"{on / 1e9:.3f} GB with remat, {off / 1e9:.3f} GB without "
+        f"({(off - on) / 1e9:.3f} GB saved, {off / on:.2f}×)")
+    check(on < off, f"[dryrun] path (c) at S 1024: the rematerialised peak "
+                    f"{on} B is not below the {off} B kept without remat")
+    return row
+
+
 def dryrun_phase(torch, tp_paths: dict) -> dict:
     out = {name: dryrun_program(torch, name) for name in DRYRUN_PROGRAMS}
+    out["remat_peak"] = remat_peak_check(out)
     out["p1"] = dryrun_tp_program(torch, tp_paths["p1"]["tally"])
+    out["chunked_logits"] = chunked_logits_check(torch)
     return out
 
 
@@ -5465,11 +5650,23 @@ def main() -> int:
     log(f"[grad] phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     profile = profile_phase(torch, training["c"]["step_ms"])
+    profile["remat_off"] = profile_phase(
+        torch, training["c_remat_off"]["step_ms"], remat=False)
     ops_per_step = profile.get("launches_per_step", 0)
-    check(ops_per_step < OPS_PER_STEP_MAX,
-          f"[profile] path (c) issues {ops_per_step:.0f} device ops a "
-          f"step (limit {OPS_PER_STEP_MAX}): line 4 is not one batched "
-          f"pass")
+    ops_off = profile["remat_off"].get("launches_per_step", 0)
+    check(ops_off < OPS_PER_STEP_MAX,
+          f"[profile] path (c) with remat off issues {ops_off:.0f} device "
+          f"ops a step (limit {OPS_PER_STEP_MAX}): line 4 is not one "
+          f"batched pass")
+    check(ops_per_step < REMAT_OPS_PER_STEP_MAX,
+          f"[profile] path (c) issues {ops_per_step:.0f} device ops a step "
+          f"(limit {REMAT_OPS_PER_STEP_MAX}): line 4 is not one batched "
+          f"pass and one recompute")
+    check(ops_per_step < REMAT_OPS_RATIO_MAX * ops_off,
+          f"[profile] path (c) issues {ops_per_step:.0f} device ops a step, "
+          f"{ops_per_step / max(ops_off, 1):.2f}× its {ops_off:.0f} with "
+          f"remat off (limit {REMAT_OPS_RATIO_MAX}×): the recompute is more "
+          f"than one forward of the groups")
     log(f"[profile] phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     models = model_phase(torch)

@@ -130,6 +130,10 @@ class ArchConfig:
     # the sequence over the group (models/attention.py)
     attn_weight_gather: bool = False
     tp_axis_name: str | None = None
+    # the prefill's scan over query chunks of 512 (models/attention.py,
+    # the reference's ``_chunked_prefill``); the 2-D flat engine turns it
+    # off, as the reference's does (launch/steps.py, launch/train.py)
+    attn_chunked_prefill: bool = True
 
     def __post_init__(self):
         if self.head_dim == 0 and self.attention_kind == "gqa":

@@ -6,8 +6,10 @@ top-8, expert d_ff 2048 (first 3 layers dense, d_ff 18432); vocab 129280.
 bf16 parameters (the momentum slot in f32), bf16 compute.  The
 reference's docstring names an MTP (multi-token prediction) head in
 ``repro.models.mtp``; the reference has no such module, and the port
-has none.  The reference's ``replicated`` agent layout (one agent FSDP-
-sharded over the whole mesh) is not ported: the port has no mesh.
+has none.  The reference's ``replicated`` agent layout trains one agent
+(``sharding.n_agents_for``), as the port does; its FSDP over the whole
+mesh is not ported (ROADMAP.md Queue A item 6.4): the port runs it
+unsharded, and ``sharding.tp.check_family`` refuses a model axis > 1.
 """
 
 import torch

@@ -4,8 +4,10 @@
 vocab 32768.  Plain dense GQA decoder.  Full attention; ``long_variant``
 decodes with the 4,096-token window.  bf16 parameters (the flat buffer
 and every agent row in bf16, the momentum slot in f32), bf16 compute.
-The reference's ``replicated`` agent layout (4 FSDP-sharded cross-silo
-agents) is not ported: the port has no mesh.
+The reference's ``replicated`` agent layout trains 4 cross-silo agents
+(``sharding.n_agents_for``), as the port does; their FSDP over the data
+axes is not ported (ROADMAP.md Queue A item 6.4): the port runs them
+unsharded, and ``sharding.tp.check_family`` refuses a model axis > 1.
 """
 
 import torch

@@ -18,8 +18,9 @@ For every combination this script:
 The reference's two first lines (512 XLA host devices) have no
 counterpart: the records name the reference's meshes (16×16, 2×16×16),
 agent counts and partition specs, and trace the program the port runs
-(launch/steps.py): for the tree layout of the dense text family (the
-tiny LM, Qwen1.5-4B, Gemma3-12B, Nemotron-4-15B) rank 0 of the
+(launch/steps.py): for the tree layout of the text transformers (the
+tiny LM, Qwen1.5-4B, Gemma3-12B, Nemotron-4-15B, DeepSeek-V2-Lite-16B)
+rank 0 of the
 partitioned world of data × model ranks (16 × 16: one agent a mesh row,
 each leaf its ``param_pspecs`` block, the model's compute
 tensor-parallel over the 16 model ranks), and for the other families'

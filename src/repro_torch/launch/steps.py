@@ -30,8 +30,9 @@ port runs:
     ``DeviceMesh``, one agent block a mesh row, every leaf its
     ``sharding.param_pspecs`` block and the model's compute
     tensor-parallel over the model group (core/sharded.py
-    ``make_sharded_tree_step``, sharding/tp.py; the dense text family,
-    the others raise NotImplementedError);
+    ``make_sharded_tree_step``, sharding/tp.py; the text transformers,
+    GQA or MLA with a dense MLP or an MoE; the others raise
+    NotImplementedError);
   * the tree layout otherwise, and the flat layout: one card holding all
     n agents;
   * the sharded layout: rank 0 of a world of ``data_size`` ranks, one
@@ -73,6 +74,7 @@ from repro_torch import sharding as shd
 from repro_torch.tree import tree_map
 
 __all__ = ["build_fed_setup", "sweep_lattice_configs", "adapt_for_mesh",
+           "flat_2d_config",
            "Lowerable", "Lowered", "build_train_lowerable",
            "build_prefill_lowerable", "build_decode_lowerable",
            "build_lowerable", "TRACE_DEVICE"]
@@ -169,6 +171,17 @@ def adapt_for_mesh(cfg: ArchConfig, axes: shd.MeshAxes) -> ArchConfig:
             and cfg.num_heads % axes.model_size != 0):
         cfg = dataclasses.replace(cfg, attn_weight_gather=True)
     return dataclasses.replace(cfg, tp_axis_name=axes.model_axis)
+
+
+def flat_2d_config(cfg: ArchConfig, n_model: int) -> ArchConfig:
+    """The config the 2-D flat engine (``n_model`` M > 1 model ranks)
+    trains: the reference's 2-D grad runs without the chunked prefill,
+    whose scan's stacked outputs cannot cross the partially-auto region
+    of its partitioner (repro/launch/steps.py:336-344,
+    repro/launch/train.py:214-219)."""
+    if n_model > 1:
+        return dataclasses.replace(cfg, attn_chunked_prefill=False)
+    return cfg
 
 
 # ---------------------------------------------------------------------------
@@ -356,7 +369,8 @@ def build_train_lowerable(cfg: ArchConfig, shape: ShapeConfig,
                           sweep_runs: int | None = None,
                           sweep_axis: str = "seed",
                           fuse_update_mix: bool = False,
-                          optimizer: str = "sgd") -> Lowerable:
+                          optimizer: str = "sgd",
+                          remat: bool = True) -> Lowerable:
     """The FedDec training step at ``shape`` (repro/launch/steps.py:
     198-490), with the reference's arguments, checks and messages.
 
@@ -380,16 +394,22 @@ def build_train_lowerable(cfg: ArchConfig, shape: ShapeConfig,
     (repro/launch/steps.py:291-305); its one-agent-a-rank block is no
     program the flat engine runs (NotImplementedError).  ``optimizer``
     (the port's addition: sgd, momentum or adamw) runs on the tree and
-    flat layouts.
+    flat layouts.  ``remat`` (the reference's default) rematerialises
+    each scanned group in line 4's backward; False, the port's addition,
+    keeps every activation (what remat saves, measured).
     """
-    cfg = adapt_for_mesh(cfg, axes)
+    # mesh_model > 1 opts the sharded layout into the 2-D engine: the flat
+    # buffer's D dim column-shards over M model ranks as well
+    n_model = mesh_model if state_layout == "sharded" and mesh_model \
+        and mesh_model > 1 and axes.model_size > 1 else 1
+    cfg = flat_2d_config(adapt_for_mesh(cfg, axes), n_model)
     model = build_model(cfg)
     fcfg, n_agents = build_fed_setup(cfg, axes, fed)
     compress = fcfg.gossip_compress if fcfg.gossip_impl != "none" else "none"
     per_agent = shape.global_batch // n_agents
     if microbatches is None:
         microbatches = _default_microbatches(cfg, per_agent, axes)
-    grad_fn = _microbatch_grad(model.grad_fn(), microbatches)
+    grad_fn = _microbatch_grad(model.grad_fn(remat=remat), microbatches)
     opt = {"sgd": None, "momentum": optim.momentum_sgd(),
            "adamw": optim.adamw()}[optimizer]
 
@@ -425,12 +445,6 @@ def build_train_lowerable(cfg: ArchConfig, shape: ShapeConfig,
         if mesh is None or cfg.fed_agent_layout != "sharded":
             raise ValueError("state_layout='sharded' needs a mesh and the "
                              "sharded agent layout")
-        # mesh_model > 1 opts into the 2-D engine: the flat buffer's D dim
-        # column-shards over M model ranks as well.  The reference's
-        # attn_chunked_prefill=False for it is a limit of its partitioner;
-        # the port's attention has no chunked scan (models/attention.py)
-        n_model = mesh_model if mesh_model and mesh_model > 1 \
-            and axes.model_size > 1 else 1
         if optimizer != "sgd":
             raise ValueError("optimizer state is not threaded through the "
                              "sharded lowerable yet")
@@ -746,7 +760,7 @@ def build_prefill_lowerable(cfg: ArchConfig, shape: ShapeConfig,
     def make_fn(device):
         def prefill(params, batch):
             with torch.no_grad():
-                return model.logits(params, batch, impl=impl)
+                return model.logits(params, batch, impl=impl, remat=False)
         return prefill
 
     def make_args(device, seed: int = 0):

@@ -77,7 +77,8 @@ from repro_torch.core.draws import Draws, SweepDraws
 from repro_torch.core.fedavg import FedAvgConfig
 from repro_torch.data.federated_lm import make_federated_lm
 from repro_torch.launch.mesh import make_agent_mesh, make_fed_mesh
-from repro_torch.launch.steps import build_fed_setup, sweep_lattice_configs
+from repro_torch.launch.steps import (build_fed_setup, flat_2d_config,
+                                      sweep_lattice_configs)
 from repro_torch.models import build_model
 from repro_torch.sharding import MeshAxes
 from repro_torch.tree import leaves
@@ -190,7 +191,8 @@ def train_loop(cfg: ArchConfig, fed: FedConfig, *, steps: int,
                ckpt_dir: str | None = None, ckpt_every: int = 0,
                log_every: int = 10, seed: int = 0, data_alpha: float = 0.3,
                device="cuda", draws=None, params0: dict | None = None,
-               timing: dict | None = None, keep_lattice: bool = False):
+               timing: dict | None = None, keep_lattice: bool = False,
+               remat: bool = True):
     """Run FedDec training; returns (final FedState, loss_history).
 
     ``fused=True`` runs one H-step round per call (a Python loop over the
@@ -231,6 +233,11 @@ def train_loop(cfg: ArchConfig, fed: FedConfig, *, steps: int,
     stay on the agent dim.  Incoherent combinations (--delta, the tree
     layout, --sweep-runs) raise the reference's model-axis ValueError up
     front (repro/launch/train.py:127-143).
+
+    ``remat`` (the reference's default, and the CLI's) rematerialises each
+    scanned group in line 4's backward (``Model.grad_fn``); False keeps
+    every activation, the port's addition for measuring what remat
+    saves and costs.
     """
     t_setup = time.perf_counter()
     state_layout, fcfg, n_agents = _check_options(
@@ -239,6 +246,7 @@ def train_loop(cfg: ArchConfig, fed: FedConfig, *, steps: int,
         fuse_update_mix=fuse_update_mix, mesh_agents=mesh_agents,
         mesh_model=mesh_model, sweep_runs=sweep_runs, ckpt_dir=ckpt_dir)
     device = resolve_device(device)
+    cfg = flat_2d_config(cfg, mesh_model or 1)
     model = build_model(cfg)
     opt = {"sgd": None, "momentum": optim.momentum_sgd(),
            "adamw": optim.adamw()}[optimizer]
@@ -253,10 +261,6 @@ def train_loop(cfg: ArchConfig, fed: FedConfig, *, steps: int,
             seed, device, sweep_runs, per_run=sweep_axis == "seed")
 
     mesh = rows = None
-    # the 2-D mesh's model dim; the reference's grad for it turns off
-    # attn_chunked_prefill, a limit of its partitioner: the port's
-    # attention computes one masked block, with no chunked scan
-    # (models/attention.py)
     model_ax = "model" if mesh_model is not None and mesh_model > 1 \
         else None
     if mesh_agents is not None:
@@ -276,7 +280,7 @@ def train_loop(cfg: ArchConfig, fed: FedConfig, *, steps: int,
     if params0 is None:
         params0 = model.init(draws)
     spec = flat_lib.make_flat_spec(params0)
-    grad_fn = model.grad_fn()
+    grad_fn = model.grad_fn(remat=remat)
     kwargs = dict(device=device, optimizer=opt)
     if state_layout == "tree":
         state = feddec.init_state(params0, n_agents, optimizer=opt,

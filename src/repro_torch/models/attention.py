@@ -1,16 +1,20 @@
 """Grouped-query attention with causal / sliding-window masking and a KV
 cache (repro/models/attention.py).
 
-Prefill (``cache=None``): ``impl='xla'`` is the plain path.  The
-reference scans over query chunks (``_chunked_prefill``) to bound memory
-at long sequences, and falls back to one dense block when the sequence
-does not divide the chunk; both give the same numbers.  The port
-computes the one masked block: scores in f32 (the reference's
-``preferred_element_type``), softmax, then the probabilities cast to v's
-dtype for the PV product.  ``impl='pallas'`` routes the causal prefill
-through the flash-attention kernel
-(:func:`repro_torch.kernels.ops.flash_attention`, kernel #15), which keeps
-the probabilities in f32: at bf16 the two paths differ by design.
+Prefill (``cache=None``): ``impl='xla'`` is the plain path, a masked
+block of scores in f32 (the reference's ``preferred_element_type``),
+softmax, then the probabilities cast to v's dtype for the PV product.
+With ``chunked_prefill`` (the config's ``attn_chunked_prefill``, on by
+default) it runs, as the reference's ``_chunked_prefill`` does, over
+query chunks of 512: each chunk's (B, H, 512, T) block in place of the
+whole (B, H, S, T) one, its mask rebuilt from the chunk's offset
+(``q0 + arange(512)`` against ``arange(T)``), its body rematerialised
+(models/remat.py) so that a backward recomputes the chunk's
+probabilities; a sequence that 512 does not divide takes the one block.
+``impl='pallas'`` routes the causal prefill through the flash-attention
+kernel (:func:`repro_torch.kernels.ops.flash_attention`, kernel #15),
+which keeps the probabilities in f32: at bf16 the two paths differ by
+design.
 
 Cross-attention (the encoder-decoder's decoder, ``kv_override``): K and V
 are projected from the encoder memory, no rope is applied to q or k and
@@ -49,6 +53,9 @@ layouts of the reference's ``_tp_preferences``:
       of them, and the zero-padded outputs are summed by ``reduce_from``.
       The sequence must divide M.
 
+The chunked prefill runs on the rank's local heads; in (c) its chunks
+cut the rank's S/M queries at their true offsets in the sequence.
+
 A bias ((heads, hd), which ``param_pspecs`` shards on hd) is gathered on
 use and cut to the rank's heads.
 """
@@ -59,11 +66,14 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers
+from repro_torch.models import remat
 from repro_torch.sharding import tp as tp_lib
 
-__all__ = ["NEG_INF", "init_attention", "init_cache", "attention"]
+__all__ = ["NEG_INF", "PREFILL_CHUNK", "init_attention", "init_cache",
+           "attention"]
 
 NEG_INF = -1e30
+PREFILL_CHUNK = 512
 
 
 def init_attention(draws, d: int, num_heads: int, num_kv_heads: int,
@@ -126,6 +136,43 @@ def _attend_block(q, k, v, qpos, kpos, scale: float, window: int = 0,
     return _out(probs, v)
 
 
+def _chunked_prefill(q, k, v, qpos, kpos, scale: float, window: int = 0,
+                     causal: bool = True, *, q_offset: int = 0,
+                     s_total: int | None = None) -> torch.Tensor:
+    """:func:`_attend_block` over query chunks of PREFILL_CHUNK (the
+    reference's ``_chunked_prefill``, repro/models/attention.py:101-160):
+    one dense block on the given positions when the sequence of
+    ``s_total`` queries (default: q's) does not divide the chunk; else
+    each chunk of q's rows masked by its own positions ``q_offset + lo +
+    arange`` against ``arange(T)`` (the queries in sequence order, q the
+    rows from ``q_offset`` on), its body rematerialised."""
+    s, chunk = q.shape[1], PREFILL_CHUNK
+    if (s if s_total is None else s_total) % chunk:
+        return _attend_block(q, k, v, qpos, kpos, scale, window, causal)
+    t = k.shape[1]
+
+    def body(qi, k, v, q0):
+        c = qi.shape[1]
+        qpos_i = (q0 + torch.arange(c, device=qi.device))[None]
+        kpos_i = torch.arange(t, device=qi.device)[None]
+        return (_attend_block(qi, k, v, qpos_i, kpos_i, scale, window,
+                              causal),)
+
+    return torch.cat([remat.checkpoint(body, q[:, lo:lo + chunk], k, v,
+                                       q_offset + lo)[0]
+                      for lo in range(0, s, chunk)], dim=1)
+
+
+def _prefill(q, k, v, qpos, kpos, scale: float, window: int,
+             causal: bool, chunked: bool, **kw) -> torch.Tensor:
+    """The plain prefill: chunked (:func:`_chunked_prefill`) or one
+    block."""
+    if chunked:
+        return _chunked_prefill(q, k, v, qpos, kpos, scale, window, causal,
+                                **kw)
+    return _attend_block(q, k, v, qpos, kpos, scale, window, causal)
+
+
 def _decode(q, k, v, cache: dict, pos_now, scale: float, window: int,
             compute_dtype):
     """One query against the cache with (k, v) stored at its slot: the
@@ -151,7 +198,7 @@ def _decode(q, k, v, cache: dict, pos_now, scale: float, window: int,
 def _tp_attention(params: dict, x, positions, tp, *, num_heads: int,
                   num_kv_heads: int, head_dim: int, weight_gather: bool,
                   window: int, rope_theta: float, causal: bool,
-                  compute_dtype, impl: str):
+                  compute_dtype, impl: str, chunked: bool):
     """Tensor-parallel self-attention with RoPE over the model group
     ``tp`` (the module docstring's layouts (a)–(c)); x (B, S, d)
     replicated, the output (B, S, d) replicated."""
@@ -189,7 +236,8 @@ def _tp_attention(params: dict, x, positions, tp, *, num_heads: int,
                               rope_theta)
         v = proj("wv", num_kv_heads, xs, False)
         k, v = tp_lib.gather_from(k, tp, 1), tp_lib.gather_from(v, tp, 1)
-        out = _attend_block(q, k, v, ps, positions, scale, window, causal)
+        out = _prefill(q, k, v, ps, positions, scale, window, causal,
+                       chunked, q_offset=lo, s_total=s)
         wo = tp_lib.weight_for(params["wo"]["w"], wo_full, tp)
         y = torch.einsum("bshd,hdo->bso", out.to(cdt), wo.to(cdt))
         return tp_lib.reduce_from(F.pad(y, (0, 0, lo, s - lo - c)), tp)
@@ -212,8 +260,8 @@ def _tp_attention(params: dict, x, positions, tp, *, num_heads: int,
         from repro_torch.kernels import ops
         out = ops.flash_attention(q, k, v, window=window, scale=scale)
     else:
-        out = _attend_block(q, k, v, positions, positions, scale, window,
-                            causal)
+        out = _prefill(q, k, v, positions, positions, scale, window, causal,
+                       chunked)
     wo = tp_lib.weight_for(params["wo"]["w"], wo_full, tp, 0)
     y = torch.einsum("bshd,hdo->bso", out.to(cdt), wo.to(cdt))
     return tp_lib.reduce_from(y, tp)
@@ -226,13 +274,14 @@ def attention(params: dict, x: torch.Tensor, positions: torch.Tensor, *,
               causal: bool = True, compute_dtype=torch.float32,
               impl: str = "xla", tp=None, num_heads: int | None = None,
               num_kv_heads: int | None = None,
-              weight_gather: bool = False):
+              weight_gather: bool = False, chunked_prefill: bool = True):
     """GQA attention of x (B, S, d) at positions (B, S): self-attention
     with RoPE (M-RoPE at ``mrope_positions`` (3, B, S)), causal unless
     ``causal`` is False, or with ``kv_override`` (B, T, d) the
-    cross-attention to that encoder memory.  With a model group ``tp``
-    (and the global ``num_heads``/``num_kv_heads``) the tensor-parallel
-    self-attention of the module docstring.
+    cross-attention to that encoder memory.  A prefill that reaches no
+    kernel runs over query chunks with ``chunked_prefill``.  With a model
+    group ``tp`` (and the global ``num_heads``/``num_kv_heads``) the
+    tensor-parallel self-attention of the module docstring.
 
     Returns (out (B, S, d), the updated cache or None)."""
     if tp is not None:
@@ -248,7 +297,8 @@ def attention(params: dict, x: torch.Tensor, positions: torch.Tensor, *,
             num_kv_heads=num_kv_heads, head_dim=head_dim,
             weight_gather=weight_gather, window=window,
             rope_theta=rope_theta, causal=causal,
-            compute_dtype=compute_dtype, impl=impl), None
+            compute_dtype=compute_dtype, impl=impl,
+            chunked=chunked_prefill), None
     q = layers.dense(params["wq"], x, compute_dtype=compute_dtype)
     kv_src = x if kv_override is None else kv_override
     k = layers.dense(params["wk"], kv_src, compute_dtype=compute_dtype)
@@ -277,8 +327,8 @@ def attention(params: dict, x: torch.Tensor, positions: torch.Tensor, *,
         out = ops.flash_attention(q, k, v, window=window, scale=scale)
     else:
         # under kv_override the keys sit at 0 .. T-1; no mask reads them
-        out = _attend_block(q, k, v, positions, positions, scale, window,
-                            is_causal)
+        out = _prefill(q, k, v, positions, positions, scale, window,
+                       is_causal, chunked_prefill)
     out = out.to(compute_dtype)
     return torch.einsum("bshd,hdo->bso", out,
                         params["wo"]["w"].to(compute_dtype)), new_cache

@@ -7,9 +7,9 @@ up-projections of the latent.  The decode cache stores only (latent,
 k_rope).
 
 Prefill expands K/V from the latent, pads V to the QK head dim and
-attends on the plain path (models/attention.py's masked block) whatever
-``impl`` says, as the reference attends on its chunked XLA path and never
-on the Pallas kernel: an MLA layer launches no kernel.  Decode runs the
+attends on the plain path over query chunks (models/attention.py's
+chunked prefill, always, as the reference's MLA always scans), whatever
+``impl`` says: an MLA layer launches no kernel.  Decode runs the
 **absorbed** form, attending entirely in latent space:
 
     score_t = q_nopeᵀ W_ukᵀ c_t + q_ropeᵀ k_rope_t
@@ -20,6 +20,16 @@ with the scores in f32 and the new (latent, k_rope) written into slot
 ``index % cache_len`` out of place through a tensor comparison, as
 ``attention._decode`` writes its KV cache: no host read, so the step runs
 under ``torch.func.vmap``.
+
+Under a model group (``tp``, sharding/tp.py) the prefill is
+tensor-parallel on the heads, as ``sharding.param_pspecs`` places the
+weights: x enters through ``copy_to``; ``wq`` (or ``wq_b``), ``wk_b`` and
+``wv_b`` are this rank's column blocks of the heads; ``wq_a``, ``wkv_a``
+and the norms stay replicated and are taken through ``copy_to`` (their
+gradients, partial on each rank, are summed over the group); the chunked
+prefill runs on the local heads, and ``wo``'s row block ends in
+``reduce_from``.  The absorbed decode is one-device (ROADMAP.md Queue A
+item 6.5).
 """
 
 from __future__ import annotations
@@ -30,6 +40,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import MLAConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers
+from repro_torch.sharding import tp as tp_lib
 
 __all__ = ["init_mla", "mla_attention", "init_mla_cache"]
 
@@ -131,14 +142,49 @@ def _decode(params, q_nope, q_rope, latent, k_rope, cache: dict, pos_now,
     return out, new_cache
 
 
+def _tp_params(params: dict, d: int, num_heads: int, cfg: MLAConfig,
+               tp) -> dict:
+    """The weights as the tensor-parallel prefill uses them: the head
+    blocks as they are, the replicated ones through ``copy_to``."""
+    if num_heads % tp.size:
+        raise NotImplementedError(
+            f"tensor-parallel MLA with {num_heads} heads over {tp.size} "
+            f"model ranks")
+    qk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    full = {"wq": ((d, num_heads, qk), 1),
+            "wq_a": ((d, cfg.q_lora_rank), None),
+            "wq_b": ((cfg.q_lora_rank, num_heads, qk), 1),
+            "wkv_a": ((d, cfg.kv_lora_rank + cfg.qk_rope_head_dim), None),
+            "wk_b": ((cfg.kv_lora_rank, num_heads, cfg.qk_nope_head_dim), 1),
+            "wv_b": ((cfg.kv_lora_rank, num_heads, cfg.v_head_dim), 1),
+            "wo": ((num_heads, cfg.v_head_dim, d), 0)}
+    out = {}
+    for name, p in params.items():
+        if name in full:
+            shape, part = full[name]
+            out[name] = {"w": tp_lib.weight_for(p["w"], shape, tp, part)}
+        else:                                    # q_norm, kv_norm
+            out[name] = {"scale": tp_lib.copy_to(p["scale"], tp)}
+    return out
+
+
 def mla_attention(params: dict, x: torch.Tensor, positions: torch.Tensor, *,
                   cfg: MLAConfig,
                   rope_theta: float = 10_000.0, window: int = 0,
                   cache: dict | None = None,
-                  compute_dtype=torch.bfloat16):
+                  compute_dtype=torch.bfloat16, tp=None,
+                  num_heads: int | None = None):
     """MLA on x (B, S, d), positions (B, S): prefill without ``cache``,
-    the absorbed decode with it.  Returns (y (B, S, d), the new cache or
-    None)."""
+    the absorbed decode with it; with a model group ``tp`` (and the
+    global ``num_heads``) the tensor-parallel prefill of the module
+    docstring.  Returns (y (B, S, d), the new cache or None)."""
+    if tp is not None:
+        if cache is not None:
+            raise NotImplementedError(
+                "tensor-parallel MLA decode is not ported (ROADMAP.md "
+                "Queue A item 6.5)")
+        params = _tp_params(params, x.shape[-1], num_heads, cfg, tp)
+        x = tp_lib.copy_to(x, tp)
     q_nope, q_rope = _project_q(params, x, cfg, compute_dtype)
     q_rope = layers.apply_rope(q_rope, positions, rope_theta)
     latent, k_rope = _project_latent(params, x, cfg, compute_dtype)
@@ -160,8 +206,8 @@ def mla_attention(params: dict, x: torch.Tensor, positions: torch.Tensor, *,
         # V padded to the QK head dim, as the reference pads it for its
         # GQA path, then sliced back (vdim ≤ qk_dim in DeepSeek's configs)
         v_pad = F.pad(v, (0, q.shape[-1] - v.shape[-1]))
-        out = attn._attend_block(q, k, v_pad, positions, positions, scale,
-                                 window)[..., :cfg.v_head_dim]
+        out = attn._chunked_prefill(q, k, v_pad, positions, positions,
+                                    scale, window)[..., :cfg.v_head_dim]
         new_cache = None
     else:
         out, new_cache = _decode(params, q_nope, q_rope, latent, k_rope,
@@ -169,4 +215,6 @@ def mla_attention(params: dict, x: torch.Tensor, positions: torch.Tensor, *,
                                  compute_dtype)
     y = torch.einsum("bshv,hvo->bso", out.to(compute_dtype),
                      params["wo"]["w"].to(compute_dtype))
+    if tp is not None:
+        y = tp_lib.reduce_from(y, tp)
     return y, new_cache

@@ -45,15 +45,18 @@ class Model:
     def param_count(self, params: dict) -> int:
         return sum(leaf.numel() for leaf in _leaves(params))
 
-    def logits(self, params: dict, batch: dict, *,
-               impl: str = "xla") -> torch.Tensor:
+    def logits(self, params: dict, batch: dict, *, impl: str = "xla",
+               remat: bool = True) -> torch.Tensor:
         """Prefill logits (B, S, V); ``impl='pallas'`` runs the attention,
         SSD and RG-LRU kernels (#15–#17), forward only (MLA and MoE layers
-        have none).  The MoE aux loss is :meth:`loss`'s."""
-        return transformer.forward(params, batch, self.cfg, impl)[0]
+        have none).  ``remat``: each scanned group's activations
+        recomputed in a backward (transformer.forward).  The MoE aux loss
+        is :meth:`loss`'s."""
+        return transformer.forward(params, batch, self.cfg, impl,
+                                   remat=remat)[0]
 
-    def loss(self, params: dict, batch: dict, *,
-             impl: str = "xla") -> torch.Tensor:
+    def loss(self, params: dict, batch: dict, *, impl: str = "xla",
+             remat: bool = True) -> torch.Tensor:
         """Next-token cross entropy, lse(logits) − logits[target] with a
         stop-gradient max and f32 reductions (the reference's form),
         averaged over the text targets (a vision config takes no loss at
@@ -68,7 +71,8 @@ class Model:
         ranks whose block does not hold the target) summed over the group
         with ``tp.reduce_from``, in f32.  Every rank of the group then
         holds the whole loss, once."""
-        logits, aux, _ = transformer.forward(params, batch, self.cfg, impl)
+        logits, aux, _ = transformer.forward(params, batch, self.cfg, impl,
+                                             remat=remat)
         targets = batch["tokens"][:, 1:]
         lg = logits[:, :-1]
         tp = tp_lib.active(self.cfg.tp_axis_name)
@@ -101,22 +105,22 @@ class Model:
             loss = loss + self.cfg.moe.router_aux_weight * aux
         return loss
 
-    def grad_fn(self, *, impl: str = "xla"):
+    def grad_fn(self, *, impl: str = "xla", remat: bool = True):
         """One agent's (params, batch) -> (loss, grads), grads in params'
         layout: ``torch.func.grad_and_value`` of :meth:`loss`, so that the
         engines can vmap it over every agent row at once
         (core/engine.py:GradFn; the reference's PRNG key is dropped).
         The kernels have no backward: with ``impl='pallas'`` the first
-        kernel wrapper the forward reaches raises (a model whose forward
-        reaches none, DeepSeek-V2-Lite's MLA and MoE, runs the plain
-        path).  The reference
-        rematerialises each block's activations in the backward
-        (``remat``), which saves memory and changes no number; the port
-        keeps the activations (torch.utils.checkpoint does not compose
-        with the torch.func transforms)."""
+        kernel wrapper that the forward or a group's recompute reaches
+        raises (a model whose forward reaches none, DeepSeek-V2-Lite's MLA
+        and MoE, runs the plain path).  ``remat`` (the reference's
+        default) rematerialises each scanned group's activations in the
+        backward (models/remat.py): the backward holds one (B, S, d) input
+        a group in place of every layer's activations, at the cost of one
+        more forward, and the loss and gradients are the same bit for
+        bit."""
         return engine.value_and_grad(
-            functools.partial(self.loss, impl=impl))
-
+            functools.partial(self.loss, impl=impl, remat=remat))
 
     # ---- serving ---------------------------------------------------------
     def init_caches(self, batch: int, cache_len: int, *,
@@ -147,7 +151,7 @@ class Model:
         ``torch.func.vmap``."""
         logits, _, new_caches = transformer.forward(
             params, batch, self.cfg, caches=caches, enc_out=enc_out,
-            long_variant=long_variant)
+            long_variant=long_variant, remat=False)
         return logits, new_caches
 
 

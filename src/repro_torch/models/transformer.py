@@ -18,7 +18,9 @@ layers stored once as ``scan/sub_j`` whose leaves carry a leading group
 axis (the reference scans over it), and unrolled ``suf_i`` layers, so any
 reference model's weights carry across unchanged.  The forward walks the
 group axis in a Python loop over ``torch.unbind`` views, whose backward
-stacks the per-layer gradients into one tensor per leaf.  At init each
+stacks the per-layer gradients into one tensor per leaf; with ``remat``
+(the default) each group is one rematerialised unit (models/remat.py),
+as the reference checkpoints its scan body.  At init each
 stacked leaf is allocated once with its group axis and filled group by
 group, so that init costs the weights' bytes plus one block.  ``impl``
 picks each block's prefill path: 'xla' (plain PyTorch) or 'pallas' (the
@@ -34,10 +36,11 @@ Under a config's ``tp_axis_name`` with an ambient model group of M > 1
 ranks (sharding/tp.py; the engines make it ambient around line 4) the
 forward is tensor-parallel on the rank's parameter blocks: the
 vocabulary-parallel embedding, each block's attention and MLP over the
-group (models/attention.py, layers.py), the norms and the residual
-stream replicated, and the logits this rank's block of the vocabulary
-(a tied table's block serves both of its uses, so its gradient collects
-both).  Only the dense text family is ported (``tp.check_family``), and
+group (models/attention.py, mla.py, moe.py, layers.py), the norms and
+the residual stream replicated, and the logits this rank's block of the
+vocabulary (a tied table's block serves both of its uses, so its
+gradient collects both).  The text transformers are ported
+(``tp.check_family``: GQA or MLA attention, a dense MLP or an MoE), and
 only without decode caches.
 """
 
@@ -52,6 +55,7 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import griffin, layers
 from repro_torch.models import mla as mla_lib
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import remat as remat_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.sharding import tp as tp_lib
 from repro_torch.tree import leaves, tree_map
@@ -156,7 +160,8 @@ def apply_block(params: dict, x: torch.Tensor, positions: torch.Tensor,
     0.0 without an MoE).  A block with a cross-attention attends
     ``enc_out`` after its self-attention; ``causal`` False is the
     encoder's unmasked self-attention.  ``tp``: the model group of a
-    tensor-parallel forward (a dense GQA block)."""
+    tensor-parallel forward (a GQA or MLA block with a dense MLP or an
+    MoE)."""
     kind = cfg.block_kind(layer_idx)
     cdt = cfg.compute_dtype
     h = layers.rms_norm(params["norm1"], x, cfg.norm_eps)
@@ -166,7 +171,8 @@ def apply_block(params: dict, x: torch.Tensor, positions: torch.Tensor,
             params["attn"], h, positions, cfg=cfg.mla,
             rope_theta=cfg.rope_theta,
             window=_layer_window(cfg, layer_idx, long_variant),
-            cache=self_cache, compute_dtype=cdt)
+            cache=self_cache, compute_dtype=cdt, tp=tp,
+            num_heads=cfg.num_heads)
     elif kind == "attn":
         y, c = attn_lib.attention(
             params["attn"], h, positions, head_dim=cfg.head_dim,
@@ -175,7 +181,8 @@ def apply_block(params: dict, x: torch.Tensor, positions: torch.Tensor,
             mrope_positions=mrope_positions, cache=self_cache,
             causal=causal, compute_dtype=cdt, impl=impl, tp=tp,
             num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
-            weight_gather=cfg.attn_weight_gather)
+            weight_gather=cfg.attn_weight_gather,
+            chunked_prefill=cfg.attn_chunked_prefill)
     elif kind == "ssm":
         y, c = ssm_lib.mamba2_block(params["mixer"], h, cfg.ssm,
                                     compute_dtype=cdt, cache=self_cache,
@@ -193,13 +200,13 @@ def apply_block(params: dict, x: torch.Tensor, positions: torch.Tensor,
         y, _ = attn_lib.attention(
             params["cross_attn"], hc, positions, head_dim=cfg.head_dim,
             rope_kind="none", kv_override=enc_out, causal=False,
-            compute_dtype=cdt)
+            compute_dtype=cdt, chunked_prefill=cfg.attn_chunked_prefill)
         x = x + y
     h2 = layers.rms_norm(params["norm2"], x, cfg.norm_eps)
     aux = 0.0
     if "moe" in params:
         y, aux = moe_lib.moe_layer(params["moe"], h2, cfg.moe,
-                                   compute_dtype=cdt)
+                                   compute_dtype=cdt, tp=tp)
     else:
         y = layers.mlp(params["mlp"], h2, cfg.mlp_kind, compute_dtype=cdt,
                        tp=tp, d_ff=cfg._layer_d_ff(layer_idx))
@@ -268,11 +275,17 @@ def _apply_stack(params: dict, x, positions, cfg: ArchConfig,
                  impl: str = "xla", caches: dict | None = None,
                  long_variant: bool = False, *,
                  num_layers: int | None = None, mrope_positions=None,
-                 enc_out=None, causal: bool = True, tp=None):
+                 enc_out=None, causal: bool = True, tp=None,
+                 remat: bool = True):
     """(x, the new caches or None, the summed MoE aux loss) through every
     layer of a stack of ``num_layers`` (default: the decoder's); the j-th
     layer of the repeating unit stands for its kind (index
-    ``prefix + j``)."""
+    ``prefix + j``).  With ``remat`` (and no caches) each scanned group,
+    its ``period`` blocks together, is one rematerialised unit
+    (models/remat.py), as the reference checkpoints its scan body; the
+    prefix and suffix layers keep their activations.  A group's aux
+    losses are summed before they join the total, with or without
+    ``remat``, so that both give the same numbers."""
     plan = plan_layers(cfg, num_layers)
     decode = caches is not None
     kw = dict(long_variant=long_variant, mrope_positions=mrope_positions,
@@ -290,19 +303,38 @@ def _apply_stack(params: dict, x, positions, cfg: ArchConfig,
             return _unbind_tree(tree["scan"][f"sub_{j}"], plan.n_groups)
 
         groups = [per_group(params, j) for j in range(plan.period)]
-        gcaches = [per_group(caches, j) if decode else
-                   [None] * plan.n_groups for j in range(plan.period)]
-        gnew = [[] for _ in range(plan.period)]
-        for gi in range(plan.n_groups):
-            for j in range(plan.period):
-                x, c, aux = apply_block(groups[j][gi], x, positions, cfg,
-                                        plan.prefix + j, impl,
-                                        cache=gcaches[j][gi], **kw)
-                aux_total = aux_total + aux
-                gnew[j].append(c)
         if decode:
+            gcaches = [per_group(caches, j) for j in range(plan.period)]
+            gnew = [[] for _ in range(plan.period)]
+            for gi in range(plan.n_groups):
+                for j in range(plan.period):
+                    x, c, aux = apply_block(groups[j][gi], x, positions,
+                                            cfg, plan.prefix + j, impl,
+                                            cache=gcaches[j][gi], **kw)
+                    aux_total = aux_total + aux
+                    gnew[j].append(c)
             new["scan"] = {f"sub_{j}": _stack_trees(gnew[j])
                            for j in range(plan.period)}
+        else:
+            def group(xx, gparams, pos, mrope, enc):
+                gaux = 0.0
+                for j in range(plan.period):
+                    xx, _, aux = apply_block(
+                        gparams[j], xx, pos, cfg, plan.prefix + j, impl,
+                        long_variant=long_variant, mrope_positions=mrope,
+                        enc_out=enc, causal=causal, tp=tp)
+                    gaux = gaux + aux
+                return (xx, gaux) if isinstance(gaux, torch.Tensor) \
+                    else (xx,)
+
+            for gi in range(plan.n_groups):
+                args = (x, [groups[j][gi] for j in range(plan.period)],
+                        positions, mrope_positions, enc_out)
+                out = remat_lib.checkpoint(group, *args) if remat \
+                    else group(*args)
+                x = out[0]
+                if len(out) > 1:
+                    aux_total = aux_total + out[1]
     for i in range(plan.suffix):
         key, li = f"suf_{i}", plan.prefix + plan.period * plan.n_groups + i
         x, new[key], aux = apply_block(params[key], x, positions, cfg, li,
@@ -363,13 +395,16 @@ def _encode(params: dict, cfg: ArchConfig, batch: dict, impl: str = "xla"):
 
 def forward(params: dict, batch: dict, cfg: ArchConfig,
             impl: str = "xla", *, caches: dict | None = None,
-            enc_out=None, long_variant: bool = False):
+            enc_out=None, long_variant: bool = False, remat: bool = True):
     """(logits (B, S, V), the MoE aux loss (0.0 without an MoE), the new
     caches or None) for batch {'tokens' (B, S), 'positions' (B, S)}, with
     'mrope_positions' (3, B, S) for an M-RoPE config, optional
     'frontend_embeds' (B, P, d) for a vision one, and 'enc_embeds' (B, T,
     d) for an encoder-decoder one unless ``enc_out`` (its encoder memory)
-    is given; ``caches`` (decode, S = 1) gives the new ones."""
+    is given; ``caches`` (decode, S = 1) gives the new ones.  ``remat``
+    rematerialises each scanned group of the decoder in the backward (a
+    decode step never does); the encoder's groups always are, as the
+    reference's ``_encode`` leaves its default on."""
     if impl not in ("xla", "pallas"):
         raise ValueError(f"unknown impl {impl!r}")
     tp = tp_lib.active(cfg.tp_axis_name)
@@ -381,7 +416,7 @@ def forward(params: dict, batch: dict, cfg: ArchConfig,
     x, new_caches, aux = _apply_stack(
         params["stack"], x, batch["positions"], cfg, impl, caches,
         long_variant, mrope_positions=batch.get("mrope_positions"),
-        enc_out=enc_out, tp=tp)
+        enc_out=enc_out, tp=tp, remat=remat)
     x = layers.rms_norm(params["final_norm"], x, cfg.norm_eps)
     if cfg.tie_embeddings:
         table = params["embed"]["table"]
@@ -399,7 +434,7 @@ def forward(params: dict, batch: dict, cfg: ArchConfig,
 
 
 def _check_tp(params: dict, cfg: ArchConfig, caches) -> None:
-    """The tensor-parallel forward's limits: the dense text family
+    """The tensor-parallel forward's limits: the text transformers
     (``tp.check_family``), no decode caches, and the embedding and head
     whole along d (``param_pspecs`` shards them on d only where M does
     not divide the vocabulary)."""

@@ -23,7 +23,11 @@ conjugate pairs (Shoeybi et al., arXiv:1909.08053, §3):
   * :func:`gather_from`: all-gather forward, reduce-scatter backward, for
     a sharded value that a partitioned computation wants whole (a weight
     gathered on use, a sequence block's keys): each rank's gradient of
-    the whole is partial, and the reduce-scatter both sums and re-cuts it.
+    the whole is partial, and the reduce-scatter both sums and re-cuts it;
+  * :func:`gather_whole`: all-gather forward, this rank's block of the
+    gradient backward, where a partitioned result leaves for a replicated
+    computation (the MoE router's logit columns, whose routing every rank
+    repeats): each rank's gradient of the whole is whole already.
 
 Every pair is a ``torch.autograd.Function`` with ``setup_context`` and a
 ``vmap`` staticmethod, so that line 4, ``torch.func.vmap`` of
@@ -53,7 +57,7 @@ import torch.distributed as dist
 from repro_torch.sharding import MeshAxes
 
 __all__ = ["ModelGroup", "model_group", "active", "copy_to", "reduce_from",
-           "gather_from", "all_reduce_max", "weight_for", "mesh_axes",
+           "gather_from", "gather_whole", "all_reduce_max", "weight_for", "mesh_axes",
            "block_at", "block_of", "shard_params", "gather_params",
            "block_numel", "check_family"]
 
@@ -220,6 +224,25 @@ class _ScatterSum(torch.autograd.Function):
         return _ScatterSum.apply(x.movedim(in_dims[0], 0), g, dim + 1), 0
 
 
+class _GatherWhole(torch.autograd.Function):
+    @staticmethod
+    def forward(x, g, dim):
+        return _gather(x, g, dim)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.g, ctx.dim = inputs[1], inputs[2]
+
+    @staticmethod
+    def backward(ctx, grad):
+        size = grad.shape[ctx.dim] // ctx.g.size
+        return grad.narrow(ctx.dim, ctx.g.rank * size, size), None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, g, dim):
+        return _GatherWhole.apply(x.movedim(in_dims[0], 0), g, dim + 1), 0
+
+
 class _AllReduceMax(torch.autograd.Function):
     @staticmethod
     def forward(x, g):
@@ -253,6 +276,13 @@ def gather_from(x: torch.Tensor, g: ModelGroup, dim: int) -> torch.Tensor:
     (all-gather), and in the backward the gradient summed over the group
     and cut back to this rank's block (reduce-scatter)."""
     return _GatherFrom.apply(x, g, dim % x.ndim)
+
+
+def gather_whole(x: torch.Tensor, g: ModelGroup, dim: int) -> torch.Tensor:
+    """The model group's blocks of x along ``dim`` put together
+    (all-gather) for a replicated computation, and in the backward this
+    rank's block of the gradient (each rank's is whole already)."""
+    return _GatherWhole.apply(x, g, dim % x.ndim)
 
 
 def all_reduce_max(x: torch.Tensor, g: ModelGroup) -> torch.Tensor:
@@ -396,13 +426,11 @@ def block_numel(shape: tuple, spec: tuple, sizes: dict) -> int:
 def check_family(cfg) -> None:
     """Raise NotImplementedError for a config whose tensor-parallel
     compute is not ported, naming the ROADMAP item (Queue A item 6) that
-    ports it; the dense text transformers (GQA attention, dense MLP, the
-    ``sharded`` agent layout) pass."""
+    ports it; the text transformers of the ``sharded`` agent layout (GQA
+    or MLA attention, a dense MLP or an MoE) pass."""
     if cfg.fed_agent_layout == "replicated":
         what, item = ("the 'replicated' agent layout's FSDP over the data "
                       "axes"), "6.4"
-    elif cfg.moe is not None or cfg.attention_kind == "mla":
-        what, item = "MoE with expert parallelism and MLA", "6.1"
     elif cfg.ssm is not None or cfg.block_pattern:
         what, item = "Mamba2 and RecurrentGemma blocks", "6.2"
     elif cfg.is_encoder_decoder or cfg.frontend is not None \
@@ -414,4 +442,3 @@ def check_family(cfg) -> None:
         f"{cfg.name}: tensor-parallel compute over a model axis > 1 is not "
         f"ported for {what} (ROADMAP.md Queue A item {item}); the port "
         f"does not fall back to running the whole model on each rank")
-

@@ -17,6 +17,7 @@ import pytest
 
 from repro.launch import analysis as ref
 from repro_torch.launch import analysis as port
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(autouse=True)

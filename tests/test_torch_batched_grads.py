@@ -39,6 +39,7 @@ from repro_torch.models import build_model
 from test_torch_gpu import _per_row_grads
 from test_torch_sweep import H, N, ReplayDraws, ReplaySweepDraws, _cfg
 from test_torch_zoo import _configs
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 MODELS = ["tiny", "recurrentgemma-9b", "mamba2-2.7b"]
 MODEL_TOL = {"tiny": 1e-5, "recurrentgemma-9b": 1e-4, "mamba2-2.7b": 1e-4}

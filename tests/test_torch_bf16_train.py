@@ -19,7 +19,8 @@ import torch
 from repro.launch import train as ref_train
 from repro_torch.launch import train as port_train
 from repro_torch.tree import leaves
-from test_torch_train import _ref_and_port, _ref_smoke
+from _torch_train_common import _ref_and_port, _ref_smoke
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 # the bf16 smoke runs against the reference: measured, the losses 2.5e-4

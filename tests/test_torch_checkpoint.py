@@ -44,8 +44,9 @@ from repro_torch.core import flat as flat_lib
 from repro_torch.launch import train as port_train
 from repro_torch.models import build_model
 from repro_torch.tree import sorted_leaves, tree_map
-from test_torch_train import (BATCH, D_MODEL, LAYERS, SEQ, VOCAB,
-                              ReplayTrainDraws)
+from _torch_train_common import (BATCH, D_MODEL, LAYERS, SEQ, VOCAB,
+                                ReplayTrainDraws)
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 # ---------------------------------------------------------------------------
 # tests/test_substrate.py::TestCheckpoint

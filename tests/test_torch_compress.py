@@ -60,6 +60,7 @@ from test_torch_engine import (ETA, H, K, N, SHAPES, TOL, ReplayDraws,
                                _batches, _graphs, _ref_grad_fn,
                                _torch_grad_fn,
                                ref_codec_noise)
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CODECS = ["identity", "bf16", "int8", "topk:0.25"]
 

@@ -45,6 +45,7 @@ from repro_torch.core.draws import Draws
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import build_model, transformer
 from repro_torch.tree import sorted_leaves
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 TOL = 1e-5

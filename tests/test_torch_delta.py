@@ -52,6 +52,7 @@ from repro_torch.core import topology as topo
 from repro_torch.core.mixing import MixingDistribution
 from test_torch_engine import (ReplayDraws, _batches, _ref_grad_fn,
                                _torch_grad_fn, SHAPES, N, H, K, ETA)
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = 1e-5           # × max|x|: f32 engines, other summation order
 LOWRANK_TOL = 1e-5   # × max|u|: f32 SVDs on two LAPACKs

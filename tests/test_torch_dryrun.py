@@ -47,6 +47,7 @@ from repro_torch.core import flat as flat_lib
 from repro_torch.kernels import ops
 from repro_torch.launch import dryrun, steps, train
 from repro_torch.models import build_model
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 AXES16 = shd.MeshAxes(("data",), "model", {"data": 16, "model": 16})
 REF_AXES16 = rshd.MeshAxes(("data",), "model", {"data": 16, "model": 16})

@@ -33,6 +33,7 @@ from repro_torch.core import topology as topo
 from repro_torch.core.draws import Draws
 from repro_torch.core.feddec import FedAvgConfig, FedDecConfig
 from repro_torch.core.mixing import MixingDistribution
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 N, H, K, ETA = 5, 3, 2, 0.1
 SHAPES = {"b": (211,), "w": {"k": (5, 397)}}   # D = 2196

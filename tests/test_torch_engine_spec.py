@@ -42,6 +42,7 @@ from repro_torch.core.mixing import MixingDistribution
 from test_torch_sweep import (ETA, H, N, ReplayDraws, ReplaySweepDraws,
                               _cfg, _port_spec, _ref_grad_fn, _ref_spec,
                               _rounds, _torch_grad_fn)
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ATOL = 1e-5          # × max|x|: the conformance suite's tolerance, f32
 T_RUN = 2 * H        # two rounds; crosses the server boundaries at 3, 6

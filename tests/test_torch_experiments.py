@@ -45,6 +45,7 @@ from repro_torch.data import linreg
 from repro_torch.experiments import ablation_server, common, fig2_alpha, \
     fig4_convergence, table1_lambda2, theory_check
 from test_torch_sweep import ReplaySweepDraws
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 Z_TOL = 1e-10           # × max|z|: the iterates, f64 over a short horizon
 SUB_TOL = 1e-9          # × f(z̄): the suboptimality f(z̄) − f*

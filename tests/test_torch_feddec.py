@@ -58,6 +58,7 @@ from repro_torch.data import linreg
 from repro_torch.kernels import ops
 from repro_torch.tree import leaves
 from test_torch_engine import ReplayDraws
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 N, H, K, ETA = 5, 3, 2, 0.1
 # insertion order ≠ sorted order; widths 1, 3, 211 and 485

@@ -1656,10 +1656,11 @@ def test_cuda_tp_leaf_block_mix_matches_plain_version(cuda, kernel, d):
     assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
 
 
-def _tp_world_rank(rank, world, store, out_path, impl):
+def _tp_world_rank(rank, world, store, out_path, impl,
+                   arch="qwen1.5-4b"):
     """A rank of test_cuda_tp_tree_step_equals_one_device's gloo world on
-    the one card: Qwen1.5-4B smoke (f32), 2 agents on a (1, 2) mesh, two
-    tree steps, its blocks gathered."""
+    the one card: ``arch``'s smoke config (f32), 2 agents on a (1, 2)
+    mesh, two tree steps, its blocks gathered."""
     import pickle
 
     import torch.distributed as dist
@@ -1673,7 +1674,7 @@ def _tp_world_rank(rank, world, store, out_path, impl):
                             rank=rank, world_size=world)
     try:
         mesh = mesh_lib.make_fed_mesh(1, world, device="cuda")
-        cfg, fcfg, state, batches = _tp_setup(impl)
+        cfg, fcfg, state, batches = _tp_setup(impl, arch)
         tcfg = steps.adapt_for_mesh(cfg, tp.mesh_axes(mesh))
         specs = shd.param_pspecs(tcfg, state.params, tp.mesh_axes(mesh))
         blk = sharded.shard_tree_state(state, specs, mesh)
@@ -1695,10 +1696,13 @@ def _tp_world_rank(rank, world, store, out_path, impl):
         dist.destroy_process_group()
 
 
-def _tp_setup(impl: str):
+def _tp_setup(impl: str, arch: str = "qwen1.5-4b"):
     from repro_torch.core import feddec
     from repro_torch.core.mixing import MixingDistribution
-    cfg = get_config("qwen1.5-4b").smoke()
+    cfg = get_config(arch).smoke()
+    if cfg.moe is not None:
+        # a dense first layer, then two MoE groups
+        cfg = dataclasses.replace(cfg, num_layers=3)
     fcfg = feddec.FedDecConfig(mixing=MixingDistribution(
         topo.ring_graph(2, k=1)), h=2, k=2, gossip_impl=impl)
     state = feddec.init_state(build_model(cfg).init(Draws(3, "cuda")), 2)
@@ -1743,3 +1747,80 @@ def test_cuda_tp_tree_step_equals_one_device(cuda, tmp_path, impl):
               for a, b in zip(leaves(got["params"]), leaves(state.params)))
     scale = max(b.abs().max().item() for b in leaves(state.params))
     assert err <= 1e-5 * scale
+
+
+# (p4)'s leaf blocks at (A, M) = (1, 2): DeepSeek-V2-Lite's embed.table
+# block (51,200 × 2,048), one MoE group's block of 32 experts' wi (32 ×
+# 2,048 × 1,408), the router's columns (2,048 × 32), the kv norm (512)
+P4_LEAF_BLOCKS = [102_400 // 2 * 2_048, 32 * 2_048 * 1_408, 2_048 * 32,
+                  512]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", P4_LEAF_BLOCKS)
+def test_cuda_p4_leaf_block_mix_matches_plain_version(cuda, d):
+    """#1 at (p4)'s leaf-block widths (two agents a rank): one launch a
+    block, within 1e-5·max|y| of the plain version."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(d)
+    w = torch.rand((2, 2), device=cuda, generator=gen)
+    w = w / w.sum(dim=1, keepdim=True)
+    x = torch.randn((2, d), device=cuda, generator=gen)
+    before = ops.gossip_mix.launches
+    got = ops.gossip_mix(w, x)
+    assert ops.gossip_mix.launches == before + 1
+    want = ref.gossip_mix(w, x)
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.gpu
+def test_cuda_tp_moe_mla_tree_step_equals_one_device(cuda, tmp_path):
+    """test_cuda_tp_tree_step_equals_one_device for DeepSeek-V2-Lite's
+    smoke config at 3 layers (MLA on the rank's heads, the MoE on its
+    experts) under 'pallas': within 1e-5·max|x|, #1 once per leaf block
+    a step on each rank."""
+    import pickle
+
+    import torch.multiprocessing as mp
+    from repro_torch.core import feddec
+    from repro_torch.tree import leaves
+    arch = "deepseek-v2-lite-16b"
+    out_path = tmp_path / "out.pkl"
+    mp.start_processes(_tp_world_rank, args=(2, str(tmp_path / "store"),
+                                             str(out_path), "pallas", arch),
+                       nprocs=2, start_method="spawn", join=True)
+    with open(out_path, "rb") as f:
+        got = pickle.load(f)
+    cfg, fcfg, state, batches = _tp_setup("pallas", arch)
+    step = feddec.make_feddec_step(fcfg, build_model(cfg).grad_fn(),
+                                   lambda t: 1e-2, device="cuda")
+    draws = Draws(4, "cuda")
+    for batch in batches:
+        state, _ = step(state, batch, draws)
+    n_leaves = len(leaves(state.params))
+    assert got["counts"]["gossip_mix"] == 2 * n_leaves
+    assert sum(got["counts"].values()) == 2 * n_leaves
+    err = max((a - b.cpu()).abs().max().item()
+              for a, b in zip(leaves(got["params"]), leaves(state.params)))
+    scale = max(b.abs().max().item() for b in leaves(state.params))
+    assert err <= 1e-5 * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2.0 ** -7)])
+@pytest.mark.parametrize("s", [640, 1024, 1536])
+def test_cuda_chunked_prefill_matches_the_one_block(cuda, s, dtype, tol):
+    """The chunked prefill (chunks of 512; one block at 640) against the
+    one block on the card, causal with a window of 300: within
+    1e-5·max|y| in f32, one bf16 step (2^-7·max|y|) in bf16."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(s)
+    q = torch.randn((2, s, 8, 64), device=cuda, generator=gen).to(dtype)
+    k = torch.randn((2, s, 2, 64), device=cuda, generator=gen).to(dtype)
+    v = torch.randn((2, s, 2, 64), device=cuda, generator=gen).to(dtype)
+    pos = torch.arange(s, device=cuda).expand(2, s)
+    got = attention._chunked_prefill(q, k, v, pos, pos, 0.125, 300)
+    want = attention._attend_block(q, k, v, pos, pos, 0.125, 300)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol * want.float().abs().max().item()

@@ -24,6 +24,7 @@ from repro.core import topology as ref_topo
 from repro.kernels import ops as ref_ops
 from repro_torch.core import topology as topo
 from repro_torch.kernels import ops, ref
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 TOL = 1e-6

@@ -30,6 +30,7 @@ from repro_torch.core.feddec import FedAvgConfig, FedDecConfig
 from repro_torch.core.mixing import MixingDistribution
 from repro_torch.data import linreg
 from repro_torch.optim import schedules
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 GRAD_TOL = 1e-12        # × max|g|: f64, other summation order
 F32_RTOL = 1e-6         # f32 schedules: one rounding against f32 arithmetic

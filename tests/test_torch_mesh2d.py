@@ -61,6 +61,7 @@ from repro_torch.core.mixing import MixingDistribution
 from repro_torch.data import linreg
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import trace_analysis
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFORMANCE = os.path.join(ROOT, "tests", "conformance")

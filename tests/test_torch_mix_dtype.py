@@ -47,6 +47,7 @@ from repro_torch.core.mixing import MixingDistribution
 from repro_torch.kernels import ops
 from test_torch_engine import ReplayDraws
 from test_torch_sweep import ReplaySweepDraws
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 N, D = 20, 25
 TOL = 1e-14                     # × max|y|: f64, other summation order

@@ -29,6 +29,7 @@ from repro_torch.core import flat as flat_lib
 from repro_torch.core.draws import Draws
 from repro_torch.models import mla
 from repro_torch.tree import sorted_leaves
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = 1e-5
 D, H = 48, 3

@@ -25,6 +25,7 @@ from repro_torch.data.federated_lm import make_federated_lm
 from repro_torch.launch import train as port_train
 from repro_torch.models import build_model
 from repro_torch.models.transformer import plan_layers
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SMALL = [(64, 2, 256), (128, 2, 256)]   # GQA group sizes 1 and 2
 LAYOUTS = SMALL + [(64, 1, 128), (128, 3, 256)]  # unrolled / longer stacks

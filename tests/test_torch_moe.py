@@ -39,6 +39,7 @@ from repro_torch.core.draws import Draws
 from repro_torch.models import build_model, moe
 from repro_torch.models.transformer import plan_layers
 from repro_torch.tree import leaves, tree_map
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = 1e-5
 D = 32

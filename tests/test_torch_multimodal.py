@@ -65,6 +65,7 @@ from repro_torch.models import build_model, transformer
 from repro_torch.models import layers as layers_lib
 from repro_torch.tree import leaves, sorted_leaves
 from test_torch_feddec import ReplayTreeDraws
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = 1e-5
 NAMES = ["qwen2-vl-2b", "seamless-m4t-large-v2"]

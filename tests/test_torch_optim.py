@@ -28,6 +28,7 @@ from repro_torch.tree import leaves
 from test_torch_sweep import (ETA, N, ReplaySweepDraws, _cfg, _port_spec,
                               _ref_grad_fn, _ref_spec, _rounds,
                               _torch_grad_fn)
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 RTOL = 1e-6
 SHAPES = {"emb": (7, 5), "blk": {"w": (5, 3), "b": (3,)}, "s": (1,)}

@@ -46,6 +46,7 @@ from repro_torch.core.mixing import MixingDistribution
 from repro_torch.data import linreg
 from repro_torch.launch import analysis
 from test_torch_engine import ReplayDraws
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = 1e-5          # × max|x|: f32 engines, other summation order
 

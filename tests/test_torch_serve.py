@@ -36,6 +36,7 @@ from repro_torch.launch import serve
 from repro_torch.launch import train as port_train
 from repro_torch.launch.serve import generate, generate_personalized
 from repro_torch.models import build_model
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -55,6 +55,7 @@ from repro_torch.core.mixing import MixingDistribution
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.tree import tree_map
 from test_torch_engine import ref_codec_noise
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 N, H, ROUNDS, K, ETA = 8, 3, 2, 3, 0.05
 SHAPES = {"b": (37,), "w": {"k": (3, 61)}}   # D = 220

@@ -34,6 +34,7 @@ from repro_torch.configs import SHAPES, get_config
 from repro_torch.launch import specs as port_specs
 from repro_torch.models import build_model
 from repro_torch.tree import tree_map
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 MESHES = {"16x16": (("data",), {"data": 16, "model": 16}),
           "2x16x16": (("pod", "data"), {"pod": 2, "data": 16,

@@ -38,6 +38,7 @@ from repro_torch.core.feddec import FedAvgConfig, FedDecConfig
 from repro_torch.core.mixing import MixingDistribution
 from repro_torch.kernels import ops
 from test_torch_engine import ref_codec_noise
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 N, H, K, ETA = 5, 3, 2, 0.1
 SHAPES = {"b": (211,), "w": {"k": (5, 397)}}   # D = 2196

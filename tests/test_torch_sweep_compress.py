@@ -15,7 +15,10 @@ noise replays ``_row_noise(split(fold_in(key_w_r, 1), n), d)``
 (ReplaySweepDraws).  On the CPU the reference runs its Pallas kernels in
 interpret mode and the port its plain versions.
 
-Also here: the plain versions of kernels #10/#12 against the reference's
+The cell matrix and the lattice variants are held in
+tests/test_torch_sweep_compress_lattice.py (with this module's helpers);
+here: FedAvg members, budgets, identity and fused against unfused on the
+port, the plain versions of kernels #10/#12 against the reference's
 Pallas kernels, each run's slice of the lattice against the port's flat
 compressed engine on that run, and the whole slice (train_loop) against
 the reference trainer.
@@ -58,7 +61,8 @@ from test_torch_sweep import (ETA, H, MATRIX_GRAPHS, N, TOL, ReplayDraws,
                               ReplaySweepDraws, _cfg as _plain_cfg, _opts,
                               _port_spec, _ref_spec, _rounds, _torch_grad_fn,
                               _ref_grad_fn)
-from test_torch_train import ReplaySweepTrainDraws
+from _torch_train_common import ReplaySweepTrainDraws
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CODECS = ["identity", "bf16", "int8", "topk:0.25"]
 
@@ -179,24 +183,6 @@ def _assert_matches(states, state, ref_losses, losses, codec):
 # The engine against the reference's
 # ---------------------------------------------------------------------------
 
-CELLS = [(impl, fused, opt, codec) for codec in CODECS
-         for impl in ("dense", "pallas", "sparse")
-         for fused in (False, True) for opt in ("sgd", "momentum")]
-
-
-@pytest.mark.parametrize(
-    "impl,fused,opt,codec", CELLS,
-    ids=[f"{c}-{i}-{'fused' if f else 'unfused'}-{o}"
-         for i, f, o, c in CELLS])
-def test_compressed_lattice_matches_reference(impl, fused, opt, codec):
-    states, state, ref_losses, losses = _run_both(
-        [_cfg(g, impl, codec) for g in MATRIX_GRAPHS], opt=opt,
-        fused=fused)
-    assert losses.shape == (2 * H, 3)
-    assert list(state.step) == [1 + 3 * H] * 3
-    _assert_matches(states, state, ref_losses, losses, codec)
-
-
 LATTICES = {
     # per-run H with one key stream (the CLI's h axis): run 1's server
     # round fires on t = 5, run 0's on 2 and 5
@@ -225,14 +211,6 @@ LATTICES = {
 def _pairs(runs, codec):
     return [_cfg(run[0], codec=codec) if run[0] == "fedavg"
             else _cfg(run[0], run[1], codec, *run[2:]) for run in runs]
-
-
-@pytest.mark.parametrize("name", list(LATTICES))
-def test_compressed_lattice_variants_match_reference(name):
-    runs, codec, opt, fused, shared = LATTICES[name]
-    states, state, ref_losses, losses = _run_both(
-        _pairs(runs, codec), opt=opt, fused=fused, shared_keys=shared)
-    _assert_matches(states, state, ref_losses, losses, codec)
 
 
 def _run_port(pairs, *, opt="sgd", fused=False, per_step=False,

@@ -28,6 +28,7 @@ from repro.core.mixing import MixingDistribution as RefMixing
 from repro_torch.core import theory, topology as topo
 from repro_torch.core.mixing import MixingDistribution
 from repro_torch.experiments import fig2_alpha, table1_lambda2
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 RTOL = 1e-12
 

@@ -24,6 +24,7 @@ from repro_torch.launch import steps, train
 from repro_torch.launch.trace_analysis import (OpCosts, analyze_trace,
                                                kernel_group, tally)
 from repro_torch.sharding import MeshAxes
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def test_matmul_chain_flops_and_bytes():

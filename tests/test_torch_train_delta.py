@@ -25,8 +25,9 @@ from repro.configs.base import FedConfig as RefFedConfig
 from repro.launch import train as ref_train
 from repro_torch.launch import train as port_train
 from repro_torch.tree import leaves
-from test_torch_train import (H, K, N, _assert_params_close, _cli_lines,
-                              _ref_and_port)
+from _torch_train_common import (H, K, N, _assert_params_close, _cli_lines,
+                                _ref_and_port)
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture
