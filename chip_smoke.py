@@ -64,7 +64,9 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
      SeamlessM4T-Large-v2's decoder self-attention, B 1, S 4096, H 16,
      KV 16, hd 64, bf16, causal; #16
      at Mamba2-2.7B's B 1, S 4096, H 80,
-     P 64, N 128, bf16; #17 at RecurrentGemma-9B's B 1, S 4096, W 4096),
+     P 64, N 128, bf16, and at a model rank's 40 of its heads (path
+     (p5)); #17 at RecurrentGemma-9B's B 1, S 4096, W 4096, and at a
+     model rank's W 2048 (path (p6))),
      within 1e-5·max|y| in f32 and 1e-2·max|y| in bf16, #17's h_last
      equal to h[:, -1] and h to the plain version's (0.0); timed at the
      models' shapes beside the plain version and, for #15,
@@ -172,11 +174,12 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
      pallas (#5 once a step), each held to its phase-4 twin's end state
      ((a), (a), (i), (e)) within 1e-5·max|x| (int8: 99% of it, every
      element within one int8 step), with its step time and peak;
-     then (4h) the 2-D ('agents', 'model') engine: gloo worlds of 2 and
+     then (4h, in the worlds of 4i, after its paths) the 2-D ('agents',
+     'model') engine: gloo worlds of 2 and
      4 ranks, every rank on this one card (the kernels built before they
      start), each rank running train_loop(mesh_agents=A, mesh_model=M)
      on path (a)'s run at full width, 1 layer (D 59,181,312), 2 steps and
-     H 2, after a one-step warm-up: (t1) A 1 x M 2 pallas (#1 once a step a rank),
+     H 2: (t1) A 1 x M 2 pallas (#1 once a step a rank),
      (t2) the same under int8 (#1 once a step a rank; the scales' maximum
      over 'model'), (t3) A 2 x M 2 dense (no kernel), held to the end
      states of path (a)'s and (i)'s runs at that depth on one device as
@@ -185,7 +188,9 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
      host) and the per-rank peaks;
      then (4i) the tensor-parallel tree engine (core/sharded.py
      make_sharded_tree_step, sharding/tp.py): gloo worlds of 2 and 4
-     ranks on this one card, the zoo configs at their published widths
+     ranks on this one card, one a mesh shape for 4h and 4i together
+     (the 2 x 2 world's ranks start while the 1 x 2 world's twins run,
+     and take the card after them), the zoo configs at their published widths
      with f32 compute, every leaf a rank's param_pspecs block, 5 steps at
      H 5 ((p2): 2 at H 2), batch 2 × S 128: (p1) Qwen1.5-4B at 8 of 40
      layers, (A, M) =
@@ -195,6 +200,16 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
      (1, 2), 2 agents, pallas; (p4) DeepSeek-V2-Lite at 3 of 27 layers
      (its dense first layer, then two MoE layers), (1, 2), 2 agents,
      pallas: MLA on the rank's 8 heads, the MoE on its 32 of 64 experts;
+     (p5) Mamba2-2.7B at 8 of 64 layers, (1, 2), 2 agents, pallas: the
+     SSD mixer on the rank's 40 of 80 heads; (p6) RecurrentGemma-9B at
+     6 of 38 layers (two groups of rglru, rglru, attn), (1, 2), 2 agents,
+     pallas: the RG-LRU blocks on the rank's width 2,048 of 4,096, the
+     MQA on its 8 of 16 query heads; (p5) and (p6) then run a
+     tensor-parallel forward of each rank's end blocks of agent 0 at B 1
+     x S 1,024 under impl pallas (#16 8 times a rank; #17 4 times and
+     #15 twice) and xla (no kernel), the two within model_tol, and held
+     here to the one-device forward on the blocks put together within
+     1e-4·max|logit| (a digest: 4 rows and every row's maximum);
      each world hands its ranks' end blocks to
      this process, which then runs the path's one-device tree twin: the
      blocks within 1e-5·max|x| of the twin's, each rank's state exactly
@@ -453,8 +468,12 @@ ZOO_FULL = {
                                                   "bfloat16"),
                         "mistral-large-123b": (1, 4096, 96, 8, 128, 0,
                                                "bfloat16")},
-    "ssd_scan": {"mamba2-2.7b": (1, 4096, 80, 64, 128, "bfloat16")},
-    "rglru_scan": {"recurrentgemma-9b": (1, 4096, 4096, "float32")},
+    "ssd_scan": {"mamba2-2.7b": (1, 4096, 80, 64, 128, "bfloat16"),
+                 # a rank's 40 heads under a model group of 2 (path (p5))
+                 "mamba2-2.7b tp2": (1, 4096, 40, 64, 128, "bfloat16")},
+    "rglru_scan": {"recurrentgemma-9b": (1, 4096, 4096, "float32"),
+                   # a rank's width 2,048 under a model group of 2 ((p6))
+                   "recurrentgemma-9b tp2": (1, 4096, 2048, "float32")},
 }
 ZOO_TOL = {"float32": 1e-5, "bfloat16": 1e-2}   # × max|y|
 BF16_FLOP_PER_S = 989e12        # H100 SXM tensor cores, dense
@@ -2776,83 +2795,45 @@ MESH2D_PATHS = {
 # it, then 3 until remat made every training path recompute a forward)
 MESH2D_LAYERS = 1
 MESH2D_STEPS = 2
-# the untimed warm-up before a world's first timed run: one step
-MESH2D_WARM_STEPS = 1
 
 
-def _mesh2d_rank(rank: int, world: int, store: str, names: list,
-                 twins: dict, out_dir: str, t_spawn: float) -> None:
-    """One rank of a phase-4h world: init gloo on this card, a warm-up
-    step of the first path (each step moves gigabytes through the host,
-    so the first step's one-time costs are small beside it), then each
-    path of ``names``: the timed run with the counters set to 0 just
-    before it and read just after, and on rank 0 the gathered end state
-    against its twin (a file of ``twins``).  ``times`` records the
-    host-clock seconds from the parent's spawn (``t_spawn``, wall clock)
-    to this rank's start, its group and kernels, and each stage."""
-    t_start = time.time()
-    import torch
-    import torch.distributed as dist
-    sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import build, ops
-    times = {"spawn_to_start_s": t_start - t_spawn}
-    torch.cuda.set_device(0)
-    dist.init_process_group("gloo", store=dist.FileStore(store, world),
-                            rank=rank, world_size=world)
-    out = {"times": times}
-    try:
-        build.load()     # built by the parent: loaded, not compiled
-        times["ready_s"] = time.time() - t_start
-        for i, name in enumerate(names):
-            t0 = time.time()
-            impl, codec, a, m, kernel, twin = MESH2D_PATHS[name]
-            kw = dict(compress=codec, mesh_agents=a, mesh_model=m,
-                      layers=MESH2D_LAYERS, h=MESH2D_STEPS)
-            warm = None if i else train_path(
-                torch, impl, False, "sgd", steps=MESH2D_WARM_STEPS, **kw)[3]
-            t1 = time.time()
-            ops.reset_launch_counts()
-            state, losses, timing, peak = train_path(
-                torch, impl, False, "sgd", steps=MESH2D_STEPS, **kw)
-            counts = {k: v for k, v in ops.launch_counts().items() if v}
-            t2 = time.time()
-            row = {"losses": losses, "counts": counts,
-                   "step_ms": 1e3 * timing["loop_s"] / MESH2D_STEPS,
-                   "setup_s": timing["setup_s"], "peak_bytes": peak,
-                   "warm_up_peak_bytes": warm,
-                   "block_bytes": timing["block_bytes"]}
-            if rank == 0:
-                final = flat_of(torch, state)
-                ref = torch.load(twins[twin], mmap=True)
-                row["twin"] = twin
-                row.update(twin_check(torch, final, ref, codec,
-                                      twins.get("i_residual_max", 0.0)))
-                del final, ref
-            del state
-            gc.collect()
-            torch.cuda.empty_cache()
-            out[name] = row
-            dist.barrier()
-            times[name] = {"warm_up_s": t1 - t0, "run_s": t2 - t1,
-                           "check_s": time.time() - t2}
-    finally:
-        dist.destroy_process_group()
-    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(out))
+def _mesh2d_rank_path(torch, name: str, rank: int, twins: dict, ops) -> dict:
+    """One 2-D path of a rank of a phase-4h/4i world (see _gloo_rank):
+    the timed run with the counters set to 0 just before it and read just
+    after, and on rank 0 the gathered end state against its twin (a file
+    of ``twins``).  The world's tensor-parallel paths ran before it, so
+    its one-time costs are paid: the run takes no warm-up."""
+    t1 = time.time()
+    impl, codec, a, m, kernel, twin = MESH2D_PATHS[name]
+    kw = dict(compress=codec, mesh_agents=a, mesh_model=m,
+              layers=MESH2D_LAYERS, h=MESH2D_STEPS)
+    ops.reset_launch_counts()
+    state, losses, timing, peak = train_path(
+        torch, impl, False, "sgd", steps=MESH2D_STEPS, **kw)
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    t2 = time.time()
+    row = {"losses": losses, "counts": counts,
+           "step_ms": 1e3 * timing["loop_s"] / MESH2D_STEPS,
+           "setup_s": timing["setup_s"], "peak_bytes": peak,
+           "block_bytes": timing["block_bytes"]}
+    if rank == 0:
+        final = flat_of(torch, state)
+        ref = torch.load(twins[twin], mmap=True)
+        row["twin"] = twin
+        row.update(twin_check(torch, final, ref, codec,
+                              twins.get("i_residual_max", 0.0)))
+        del final, ref
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    row["times"] = {"run_s": t2 - t1, "check_s": time.time() - t2}
+    return row
 
 
-def mesh2d_phase(torch) -> dict:
-    """MESH2D_PATHS in gloo worlds of A·M ranks on this card (phase 4h):
-    first the twins, path (a)'s and (i)'s runs at MESH2D_LAYERS on one
-    device, written under build/ for the ranks to read; then one world a
-    mesh shape, every path of that shape in it.  Each path: every rank's
-    losses finite, its kernel once a step and nothing else, its state
-    blocks exactly n/A · D/M · 4 bytes, its end state within TOL·max|x|
-    of its twin's (int8 as phase 4g)."""
-    import os
-
-    import torch.multiprocessing as mp
-    work = ROOT / "build" / f"mesh2d_{os.getpid()}"
-    work.mkdir(parents=True, exist_ok=True)
+def mesh2d_twins(torch, work: Path) -> tuple:
+    """Phase 4h's twins, path (a)'s and (i)'s runs at MESH2D_LAYERS on
+    one device, written under ``work`` for the ranks to read: (the files
+    and (i)'s residual maximum, their rows)."""
     twins, out = {}, {}
     for twin, codec in (("a", "none"), ("i", "int8")):
         state, losses, timing, peak = train_path(
@@ -2868,81 +2849,60 @@ def mesh2d_phase(torch) -> dict:
                                "peak_bytes": peak, "losses": losses}
         del state
         torch.cuda.empty_cache()
+    return twins, out
+
+
+def mesh2d_path_row(name: str, ranks: list, wall: float) -> dict:
+    """A 2-D path's checks from its world's rank reports: every rank's
+    losses finite, its kernel once a step and nothing else, its state
+    blocks exactly n/A · D/M · 4 bytes, its end state within TOL·max|x|
+    of its twin's (int8 as phase 4g); its row and log line."""
+    impl, codec, a, m, kernel, twin = MESH2D_PATHS[name]
     d = path_d(MESH2D_LAYERS)
-    shapes: dict = {}
-    for name, p in MESH2D_PATHS.items():
-        shapes.setdefault((p[2], p[3]), []).append(name)
-    try:
-        for (a, m), names in shapes.items():
-            world = a * m
-            run_dir = work / f"{a}x{m}"
-            run_dir.mkdir(exist_ok=True)
-            t0 = time.perf_counter()
-            mp.start_processes(
-                _mesh2d_rank, args=(world, str(run_dir / "store"), names,
-                                    twins, str(run_dir), time.time()),
-                nprocs=world, start_method="spawn", join=True)
-            wall = time.perf_counter() - t0
-            ranks = [json.loads((run_dir / f"rank{r}.json").read_text())
-                     for r in range(world)]
-            for name in names:
-                impl, codec, _, _, kernel, twin = MESH2D_PATHS[name]
-                rows = [r[name] for r in ranks]
-                block = N_AGENTS // a * (d // m) * 4
-                n_blocks = 2 if codec != "none" else 1
-                for r, row in enumerate(rows):
-                    check(all(math.isfinite(v) for v in row["losses"]),
-                          f"path ({name}) rank {r}: non-finite loss")
-                    want = {kernel: MESH2D_STEPS} if kernel else {}
-                    check(row["counts"] == want,
-                          f"path ({name}) rank {r}: launches "
-                          f"{row['counts']}, want {want}")
-                    check(row["block_bytes"] == [block] * n_blocks,
-                          f"path ({name}) rank {r}: state blocks "
-                          f"{row['block_bytes']} bytes, want "
-                          f"{n_blocks} of n/A·D/M·4 = {block}")
-                head = rows[0]
-                check(head["ok"], f"path ({name}) ends "
-                      f"{head['max_abs_diff']:.3e} from path ({twin}) "
-                      f"(max|x| {head['scale']:.3e}; {head})")
-                out[name] = {
-                    "impl": impl, "codec": codec, "mesh": [a, m],
-                    "layers": MESH2D_LAYERS, "d": d,
-                    "steps": MESH2D_STEPS, "kernel": kernel,
-                    "launches": [r["counts"].get(kernel, 0) if kernel else 0
-                                 for r in rows],
-                    "step_ms": max(r["step_ms"] for r in rows),
-                    "step_ms_by_rank": [r["step_ms"] for r in rows],
-                    "setup_s_by_rank": [r["setup_s"] for r in rows],
-                    "peak_bytes_by_rank": [r["peak_bytes"] for r in rows],
-                    "block_bytes": block, "losses": head["losses"],
-                    "world_wall_s": wall, "rank0_times": ranks[0]["times"],
-                    **{k: head[k] for k in ("twin", "max_abs_diff", "scale",
-                                            "tol", "share_beyond_tol",
-                                            "int8_step") if k in head}}
-                note = (f", {head['share_beyond_tol']:.3e} of it beyond "
-                        f"{TOL}·max|x|" if codec == "int8" else "")
-                log(f"[mesh2d] path ({name}) gossip={impl} compress={codec} "
-                    f"layers={MESH2D_LAYERS} (D {d:,}) steps="
-                    f"{MESH2D_STEPS} on a {a} x {m} gloo "
-                    f"world on one card: step "
-                    f"{out[name]['step_ms']:.1f} ms (host-staged gloo "
-                    f"collectives), {kernel or 'no kernel'} launches "
-                    f"{out[name]['launches']} a rank, state "
-                    f"{block / 1e9:.3f} GB a rank, peaks "
-                    + "/".join(f"{b / 1e9:.2f}"
-                               for b in out[name]["peak_bytes_by_rank"])
-                    + f" GB, ends {head['max_abs_diff']:.3e} from path "
-                    f"({twin}) (max|x| {head['scale']:.3e}{note}); world "
-                    f"{wall:.1f} s (rank 0: started "
-                    f"{ranks[0]['times']['spawn_to_start_s']:.1f} s after "
-                    f"the spawn, ready {ranks[0]['times']['ready_s']:.1f} s "
-                    f"later; this path's warm-up, run, check "
-                    + ", ".join(f"{v:.1f}" for v in
-                                ranks[0]["times"][name].values())
-                    + " s)")
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+    rows = [r[name] for r in ranks]
+    block = N_AGENTS // a * (d // m) * 4
+    n_blocks = 2 if codec != "none" else 1
+    for r, row in enumerate(rows):
+        check(all(math.isfinite(v) for v in row["losses"]),
+              f"path ({name}) rank {r}: non-finite loss")
+        want = {kernel: MESH2D_STEPS} if kernel else {}
+        check(row["counts"] == want,
+              f"path ({name}) rank {r}: launches {row['counts']}, want "
+              f"{want}")
+        check(row["block_bytes"] == [block] * n_blocks,
+              f"path ({name}) rank {r}: state blocks {row['block_bytes']} "
+              f"bytes, want {n_blocks} of n/A·D/M·4 = {block}")
+    head = rows[0]
+    check(head["ok"], f"path ({name}) ends {head['max_abs_diff']:.3e} from "
+          f"path ({twin}) (max|x| {head['scale']:.3e}; {head})")
+    out = {
+        "impl": impl, "codec": codec, "mesh": [a, m],
+        "layers": MESH2D_LAYERS, "d": d, "steps": MESH2D_STEPS,
+        "kernel": kernel,
+        "launches": [r["counts"].get(kernel, 0) if kernel else 0
+                     for r in rows],
+        "step_ms": max(r["step_ms"] for r in rows),
+        "step_ms_by_rank": [r["step_ms"] for r in rows],
+        "setup_s_by_rank": [r["setup_s"] for r in rows],
+        "peak_bytes_by_rank": [r["peak_bytes"] for r in rows],
+        "block_bytes": block, "losses": head["losses"],
+        "world_wall_s": wall, "rank0_times": {**ranks[0]["times"],
+                                              **head["times"]},
+        **{k: head[k] for k in ("twin", "max_abs_diff", "scale", "tol",
+                                "share_beyond_tol", "int8_step")
+           if k in head}}
+    note = (f", {head['share_beyond_tol']:.3e} of it beyond {TOL}·max|x|"
+            if codec == "int8" else "")
+    log(f"[mesh2d] path ({name}) gossip={impl} compress={codec} "
+        f"layers={MESH2D_LAYERS} (D {d:,}) steps={MESH2D_STEPS} on a "
+        f"{a} x {m} gloo world on one card: step {out['step_ms']:.1f} ms "
+        f"(host-staged gloo collectives), {kernel or 'no kernel'} launches "
+        f"{out['launches']} a rank, state {block / 1e9:.3f} GB a rank, "
+        f"peaks " + "/".join(f"{b / 1e9:.2f}"
+                             for b in out["peak_bytes_by_rank"])
+        + f" GB, ends {head['max_abs_diff']:.3e} from path ({twin}) "
+        f"(max|x| {head['scale']:.3e}{note}); rank 0's run and check "
+        + ", ".join(f"{v:.1f}" for v in head["times"].values()) + " s")
     return out
 
 
@@ -2967,12 +2927,20 @@ def mesh2d_phase(torch) -> dict:
 # (4, 194,478,080) partials through the host; (p4): DeepSeek-V2-Lite at
 # its dense first layer and two MoE layers (as path (D1)), MLA on the
 # rank's heads and the MoE on its 32 of the 64 experts, #1 once per leaf
-# block a step.
+# block a step; (p5): Mamba2-2.7B at 8 of its 64 layers (as path (v)),
+# the SSD mixer on the rank's 40 of 80 heads, its table and head cut on d
+# (2 does divide the 50,280 rows: the vocabulary-parallel ones; the 16 of
+# the reference's mesh do not), #1 once per leaf block a step; (p6):
+# RecurrentGemma-9B at 6 of its 38 layers, two scanned groups of its
+# (rglru, rglru, attn) pattern, the RG-LRU blocks on the rank's 2,048 of
+# the width 4,096, the MQA on its 8 of 16 query heads, #1 likewise.
 TP_PATHS = {
     "p1": ("qwen1.5-4b", 1, 2, 2, 8, "pallas"),
     "p2": ("qwen1.5-4b", 2, 2, 4, 1, "dense"),
     "p3": ("gemma3-12b", 1, 2, 2, 6, "pallas"),
     "p4": ("deepseek-v2-lite-16b", 1, 2, 2, 3, "pallas"),
+    "p5": ("mamba2-2.7b", 1, 2, 2, 8, "pallas"),
+    "p6": ("recurrentgemma-9b", 1, 2, 2, 6, "pallas"),
 }
 # TP_STEPS at H TP_STEPS (the server fires at the last), batch 2 × S 128
 # a step as phase 4c's paths, η 1e-3; the first step is untimed.  A world
@@ -2984,6 +2952,21 @@ TP_INIT_SEED, TP_SEED = 30, 31
 # (p2) at 2 steps, H 2, for the script's time: each of its steps moves
 # 3.46 GB a rank through gloo's host staging (9-20 s a step)
 TP_STEPS_BY_PATH = {"p2": 2}
+# (p5) and (p6) then run a tensor-parallel forward of each rank's end
+# blocks of agent 0 at batch 1 × S 1,024 (tokens from TP_FWD_SEED), with
+# impl 'pallas' and with 'xla', held to each other within model_tol and,
+# in this process, to the one-device forward on the same weights (the
+# ranks' blocks put together) within TP_LOGIT_TOL·max|logit|, on a digest
+# of the (1, 1,024, V) logits: the rows TP_FWD_ROWS and every row's
+# maximum.  The kernels each rank launches in the pallas forward: #16 on
+# its 40 heads in each of (p5)'s 8 layers; #17 on its width 2,048 in each
+# of (p6)'s 4 RG-LRU layers and #15 on its 8 query heads in each of the 2
+# attention layers.
+TP_FORWARD = {"p5": {"ssd_scan": 8},
+              "p6": {"rglru_scan": 4, "flash_attention": 2}}
+TP_FWD_BATCH, TP_FWD_SEQ, TP_FWD_SEED = 1, 1024, 32
+TP_FWD_ROWS = (0, 341, 682, 1023)
+TP_LOGIT_TOL = 1e-4
 
 
 def tp_steps(name: str) -> int:
@@ -3137,16 +3120,16 @@ def tp_twin(torch, name: str) -> tuple:
             "step_ms": 1e3 * sum(times[1:]) / (tp_steps(name) - 1)}, final
 
 
-def _tp_rank(rank: int, world: int, store: str, names: list, handoff,
-             dones: dict, out_dir: str, t_spawn: float) -> None:
-    """One rank of a phase-4i world: init gloo on this card, then each
-    path of ``names`` (one mesh shape): its program (tp_program),
-    TP_STEPS steps with the counters set to 0 just before the first and
-    read after the last (the first step untimed), the rank's state bytes;
-    then it hands its end blocks to the parent (CUDA IPC through
-    ``handoff``) and waits for the path's ``dones`` event, the parent's
-    copy of them; (p1) then takes one more step under
-    trace_analysis.tally (phase 8 reads rank 0's)."""
+def _gloo_rank(rank: int, world: int, store: str, tp_names: list,
+               m2d_names: list, twins: dict, handoff, dones: dict, go,
+               out_dir: str, t_spawn: float) -> None:
+    """One rank of a phase-4h/4i world (one mesh shape): it starts,
+    loads the kernels and waits for ``go`` (the card is the last world's
+    until then), inits gloo on this card, then runs each tensor-parallel
+    path of ``tp_names`` (_tp_rank_path) and each 2-D path of
+    ``m2d_names`` (_mesh2d_rank_path).  ``times`` records the host-clock
+    seconds from the parent's spawn (``t_spawn``, wall clock) to this
+    rank's start, its kernels and its wait."""
     t_start = time.time()
     import torch
     import torch.distributed as dist
@@ -3157,18 +3140,24 @@ def _tp_rank(rank: int, world: int, store: str, names: list, handoff,
     from repro_torch.tree import sorted_leaves
     times = {"spawn_to_start_s": t_start - t_spawn}
     torch.cuda.set_device(0)
+    build.load()     # built by the parent: loaded, not compiled
+    times["ready_s"] = time.time() - t_start
+    go.wait()
+    times["wait_s"] = time.time() - t_start - times["ready_s"]
     dist.init_process_group("gloo", store=dist.FileStore(store, world),
                             rank=rank, world_size=world)
     out = {}
     try:
-        build.load()     # built by the parent: loaded, not compiled
-        _, a, m, *_ = TP_PATHS[names[0]]
-        mesh = make_fed_mesh(a, m, device=DEVICE)
-        times["ready_s"] = time.time() - t_start
-        for name in names:
+        if tp_names:
+            _, a, m, *_ = TP_PATHS[tp_names[0]]
+            mesh = make_fed_mesh(a, m, device=DEVICE)
+        for name in tp_names:
             out[name] = _tp_rank_path(torch, name, mesh, rank, handoff,
                                       dones[name], ops, tally,
-                                      sorted_leaves)
+                                      sorted_leaves, out_dir)
+        for name in m2d_names:
+            out[name] = _mesh2d_rank_path(torch, name, rank, twins, ops)
+            dist.barrier()
     finally:
         dist.destroy_process_group()
     out["times"] = times
@@ -3176,8 +3165,15 @@ def _tp_rank(rank: int, world: int, store: str, names: list, handoff,
 
 
 def _tp_rank_path(torch, name, mesh, rank, handoff, done, ops, tally,
-                  sorted_leaves) -> dict:
-    """One path of a phase-4i rank (see _tp_rank): its row."""
+                  sorted_leaves, out_dir: str) -> dict:
+    """One tensor-parallel path of a rank (see _gloo_rank): its program
+    (tp_program), TP_STEPS steps with the counters set to 0 just before
+    the first and read after the last (the first step untimed), the
+    rank's state bytes; then it hands its end blocks to the parent (CUDA
+    IPC through ``handoff``) and waits for ``done``, the parent's copy of
+    them; (p1) then takes one more step under trace_analysis.tally
+    (phase 8 reads rank 0's), and (p5) and (p6) run their forward
+    (tp_forward).  Returns the path's row."""
     t0 = time.time()
     gc.collect()
     torch.cuda.empty_cache()
@@ -3239,12 +3235,71 @@ def _tp_rank_path(torch, name, mesh, rank, handoff, done, ops, tally,
             "collective_counts": costs.collective_counts,
             "peak_above_args": torch.cuda.max_memory_allocated() - base}
         del res
+    if name in TP_FORWARD:
+        row["forward"] = tp_forward(torch, name, prog["cfg"], state, mesh,
+                                    ops, out_dir, rank)
+    t4 = time.time()
     del state, prog, step
     gc.collect()
     torch.cuda.empty_cache()
     row["times"] = {"setup_s": t1 - t0, "run_s": t2 - t1,
-                    "handoff_s": t3 - t2}
+                    "handoff_s": t3 - t2, "after_s": t4 - t3}
     return row
+
+
+def tp_forward_batch(torch, name: str, device) -> dict:
+    """The TP forward's batch: TP_FWD_BATCH × TP_FWD_SEQ tokens uniform in
+    the vocabulary (a CPU generator), on ``device``."""
+    arch, *_, layers, _ = TP_PATHS[name]
+    vocab = tp_config(arch, layers).vocab_size
+    gen = torch.Generator().manual_seed(TP_FWD_SEED)
+    tokens = torch.randint(0, vocab, (TP_FWD_BATCH, TP_FWD_SEQ),
+                           generator=gen)
+    return {"tokens": tokens.to(device),
+            "positions": torch.arange(TP_FWD_SEQ).expand(
+                tokens.shape).contiguous().to(device)}
+
+
+def tp_forward(torch, name: str, cfg, state, mesh, ops, out_dir: str,
+               rank: int) -> dict:
+    """The tensor-parallel forward of this rank's end blocks of agent 0
+    (its first row) under the model group, impl 'pallas' then 'xla',
+    each with the counters set to 0 just before it and read just after;
+    the logits put together over the group where they are its blocks of
+    the vocabulary.  The two within model_tol; the xla logits' digest
+    (the rows TP_FWD_ROWS, every row's maximum) saved under ``out_dir``
+    for the parent."""
+    from repro_torch.models import build_model
+    from repro_torch.sharding import tp
+    from repro_torch.tree import tree_map
+    model = build_model(cfg)
+    params = tree_map(lambda t: t[0], state.params)
+    batch = tp_forward_batch(torch, name, DEVICE)
+    group = tp.ModelGroup.of(mesh)
+    out, logits = {}, {}
+    with torch.no_grad(), tp.model_group(mesh):
+        for impl in ("pallas", "xla"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ops.reset_launch_counts()
+            lg = model.logits(params, batch, impl=impl)
+            torch.cuda.synchronize()
+            out[impl] = {"ms": 1e3 * (time.perf_counter() - t0),
+                         "counts": {k: v for k, v in
+                                    ops.launch_counts().items() if v}}
+            if lg.shape[-1] != cfg.vocab_size:
+                lg = tp.gather_whole(lg, group, -1)
+            logits[impl] = lg[0].float()
+    tol, rule = model_tol(torch, TP_PATHS[name][0], cfg)
+    out.update(max_abs_diff=(logits["pallas"] - logits["xla"]).abs().max()
+               .item(), scale=logits["xla"].abs().max().item(), tol=tol,
+               rule=rule, shape=[TP_FWD_BATCH, TP_FWD_SEQ, cfg.vocab_size])
+    xla = logits["xla"]
+    torch.save({"rows": xla[list(TP_FWD_ROWS)].cpu(),
+                "row_max": xla.max(dim=-1).values.cpu()},
+               Path(out_dir) / f"forward_{name}_rank{rank}.pt")
+    del logits, xla, params
+    return out
 
 
 def tp_handoff(torch, pc, handoff, name: str, world: int) -> dict:
@@ -3266,21 +3321,92 @@ def tp_handoff(torch, pc, handoff, name: str, world: int) -> dict:
     return got
 
 
-def tp_twin_check(torch, name: str, final: dict, blocks: dict) -> tuple:
-    """(max |rank block − the twin's block|, max |twin|) over every rank
-    and leaf: each rank's blocks (host memory) against its blocks cut
-    from the twin's end state (on the card) by the leaves' specs."""
+def tp_specs(name: str) -> dict:
+    """{leaf path: spec} of a TP path's stacked leaves on its mesh."""
     from repro_torch import sharding as shd
     from repro_torch.core import feddec
     from repro_torch.launch import steps
     from repro_torch.models import build_model
-    from repro_torch.sharding import tp
     _, a, m, n, _, _ = TP_PATHS[name]
     cfg, _ = tp_fed(name)
     axes = shd.MeshAxes(("agents",), "model", {"agents": a, "model": m})
     tcfg = steps.adapt_for_mesh(cfg, axes)
-    specs = dict(_sorted_specs(shd.param_pspecs(tcfg, feddec.init_state(
+    return dict(_sorted_specs(shd.param_pspecs(tcfg, feddec.init_state(
         build_model(tcfg).init_shapes(), n).params, axes)))
+
+
+def tp_forward_check(torch, name: str, blocks: dict, rows: list,
+                     run_dir: Path) -> dict:
+    """(p5)'s and (p6)'s TP forward against the one-device forward (impl
+    'xla', the path's own config) on agent 0's end weights, its ranks'
+    blocks (host memory) put together by the leaves' specs: every rank's
+    digest within TP_LOGIT_TOL·max|logit|; each rank's pallas forward
+    launching TP_FORWARD[name] and its xla one no kernel, the two within
+    model_tol.  Returns the forward's row."""
+    from repro_torch.models import build_model
+    from repro_torch.tree import build_tree
+    _, a, m, _, _, _ = TP_PATHS[name]
+    specs = tp_specs(name)
+    whole = {}
+    for key in blocks[0]:
+        spec = specs[tuple(key.split("/"))]
+        # agent 0 sits on the ranks of agent coordinate 0, 0 .. M-1
+        parts = [blocks[r][key][0] for r in range(m)]
+        dims = [d - 1 for d, ax in enumerate(spec) if ax == "model"]
+        whole[tuple(key.split("/"))] = (torch.cat(parts, dim=dims[0])
+                                        if dims else parts[0]).to(DEVICE)
+    cfg, _ = tp_fed(name)
+    params = build_tree(list(whole), list(whole.values()))
+    del whole
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        lg = build_model(cfg).logits(params, tp_forward_batch(
+            torch, name, DEVICE), impl="xla")[0].float()
+    torch.cuda.synchronize()
+    one_ms = 1e3 * (time.perf_counter() - t0)
+    del params
+    want_rows, want_max = lg[list(TP_FWD_ROWS)], lg.max(dim=-1).values
+    scale = lg.abs().max().item()
+    del lg
+    err = 0.0
+    for r, row in enumerate(rows):
+        fwd = row["forward"]
+        check(fwd["pallas"]["counts"] == TP_FORWARD[name]
+              and fwd["xla"]["counts"] == {},
+              f"path ({name}) rank {r}: the TP forward launches "
+              f"{fwd['pallas']['counts']} (pallas) and "
+              f"{fwd['xla']['counts']} (xla), want {TP_FORWARD[name]} and "
+              f"none")
+        check(fwd["max_abs_diff"] <= fwd["tol"] * fwd["scale"],
+              f"path ({name}) rank {r}: the TP forward's pallas logits end "
+              f"{fwd['max_abs_diff']:.3e} from its xla ones > "
+              f"{fwd['tol']}·{fwd['scale']:.3e} ({fwd['rule']})")
+        got = torch.load(run_dir / f"forward_{name}_rank{r}.pt")
+        err = max(err, (got["rows"].to(DEVICE) - want_rows).abs().max()
+                  .item(), (got["row_max"].to(DEVICE) - want_max).abs()
+                  .max().item())
+    check(err <= TP_LOGIT_TOL * scale,
+          f"path ({name}): the TP forward's logits end {err:.3e} from the "
+          f"one-device forward's > {TP_LOGIT_TOL}·{scale:.3e}")
+    head = rows[0]["forward"]
+    return {"shape": head["shape"], "launches": head["pallas"]["counts"],
+            "pallas_ms_by_rank": [r["forward"]["pallas"]["ms"]
+                                  for r in rows],
+            "xla_ms_by_rank": [r["forward"]["xla"]["ms"] for r in rows],
+            "pallas_vs_xla": [r["forward"]["max_abs_diff"] for r in rows],
+            "pallas_vs_xla_tol": head["tol"], "rule": head["rule"],
+            "max_abs_diff": err, "scale": scale, "tol": TP_LOGIT_TOL,
+            "one_device_ms": one_ms}
+
+
+def tp_twin_check(torch, name: str, final: dict, blocks: dict) -> tuple:
+    """(max |rank block − the twin's block|, max |twin|) over every rank
+    and leaf: each rank's blocks (host memory) against its blocks cut
+    from the twin's end state (on the card) by the leaves' specs."""
+    from repro_torch.sharding import tp
+    _, a, m, *_ = TP_PATHS[name]
+    specs = tp_specs(name)
     err = scale = 0.0
     for rank, mine in blocks.items():
         coords = {"agents": (rank // m, a), "model": (rank % m, m)}
@@ -3294,19 +3420,25 @@ def tp_twin_check(torch, name: str, final: dict, blocks: dict) -> tuple:
 
 
 def tp_path_rows(torch, name: str, ranks: list, blocks: dict,
-                 wall: float) -> dict:
-    """A TP path's twin (tp_twin) against the ranks' handed blocks and
-    its checks, log line and rows ({name: row, name_twin: the twin's})."""
+                 wall: float, run_dir: Path) -> dict:
+    """A TP path's twin (tp_twin) against the ranks' handed blocks, (p5)'s
+    and (p6)'s forward (tp_forward_check), and its checks, log line and
+    rows ({name: row, name_twin: the twin's})."""
     arch, a, m, n, layers, impl = TP_PATHS[name]
     steps = tp_steps(name)
     t0 = time.perf_counter()
     twin, final = tp_twin(torch, name)
     err, scale = tp_twin_check(torch, name, final, blocks)
-    del final, blocks
+    del final
     gc.collect()
     torch.cuda.empty_cache()
     twin["wall_s"] = time.perf_counter() - t0
     rows = [r[name] for r in ranks]
+    forward = tp_forward_check(torch, name, blocks, rows, run_dir) \
+        if name in TP_FORWARD else None
+    del blocks
+    gc.collect()
+    torch.cuda.empty_cache()
     kernel = "gossip_mix" if impl == "pallas" else None
     head = rows[0]
     for r, row in enumerate(rows):
@@ -3341,6 +3473,22 @@ def tp_path_rows(torch, name: str, ranks: list, blocks: dict,
         "rank0_times": {**ranks[0]["times"], **head["times"]}}
     if "tally" in head:
         out["tally"] = head["tally"]
+    if forward is not None:
+        out["forward"] = forward
+        log(f"[tp] path ({name}) TP forward of the end blocks at "
+            f"{TP_FWD_BATCH} x {TP_FWD_SEQ}: {forward['launches']} a rank "
+            f"(pallas), none (xla); pallas against xla "
+            + "/".join(f"{v:.3e}" for v in forward["pallas_vs_xla"])
+            + f" (limit {forward['pallas_vs_xla_tol']}·max|logit|, "
+            f"{forward['rule']}); against the one-device forward "
+            f"{forward['max_abs_diff']:.3e} (max|logit| "
+            f"{forward['scale']:.3e}, limit {TP_LOGIT_TOL}·max|logit|); "
+            f"pallas " + "/".join(f"{v:.1f}"
+                                  for v in forward["pallas_ms_by_rank"])
+            + " ms, xla " + "/".join(f"{v:.1f}"
+                                     for v in forward["xla_ms_by_rank"])
+            + f" ms a rank (host clock, gloo), one device "
+            f"{forward['one_device_ms']:.1f} ms")
     log(f"[tp] path ({name}) {arch} at published widths, {layers} "
         f"layer{'s' if layers > 1 else ''}, f32 compute, {n} agents on a "
         f"{a} x {m} gloo world on one card, gossip={impl}, {steps} "
@@ -3359,59 +3507,95 @@ def tp_path_rows(torch, name: str, ranks: list, blocks: dict,
     return {name: out, f"{name}_twin": twin}
 
 
-def tp_phase(torch) -> dict:
-    """TP_PATHS (phase 4i), a gloo world of A·M ranks on this card a mesh
-    shape, every path of that shape in it, first: the world hands each
-    path's end blocks to this process (kept in host memory); then each
-    path's one-device twin (tp_twin) on the card the world has left.
-    Each path: every rank's losses finite and equal, #1 once per leaf
-    block a step under 'pallas' and no kernel under 'dense', its state
-    exactly its blocks' bytes (Σ (n/A)·numel/M_leaf · 4), its end blocks
-    within TOL·max|x| of the twin's."""
+def gloo_phase(torch) -> tuple:
+    """MESH2D_PATHS (phase 4h) and TP_PATHS (phase 4i) in gloo worlds of
+    A·M ranks on this card, one world a mesh shape, every path of that
+    shape in it, the tensor-parallel ones first.  First phase 4h's twins
+    (mesh2d_twins).  Then each world: it hands each TP path's end blocks
+    to this process (kept in host memory) and writes its ranks' reports;
+    the next shape's world is spawned then, and its ranks start and load
+    the kernels while this process runs the TP paths' one-device twins
+    (tp_twin) on the card the world has left, and the checks
+    (tp_path_rows, mesh2d_path_row); it takes the card when they are
+    done.  Returns (phase 4h's rows, phase 4i's rows)."""
     import os
 
     import torch.multiprocessing as mp
-    work = ROOT / "build" / f"tp_{os.getpid()}"
+    work = ROOT / "build" / f"gloo_{os.getpid()}"
     work.mkdir(parents=True, exist_ok=True)
-    out: dict = {}
+    twins, mesh2d_out = mesh2d_twins(torch, work)
+    tp_out: dict = {}
     shapes: dict = {}
     for name, p in TP_PATHS.items():
-        shapes.setdefault((p[1], p[2]), []).append(name)
+        shapes.setdefault((p[1], p[2]), ([], []))[0].append(name)
+    for name, p in MESH2D_PATHS.items():
+        shapes.setdefault((p[2], p[3]), ([], []))[1].append(name)
+    worlds = list(shapes.items())
     env = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
     # the ranks' allocators map what they use: four ranks' caches beside
     # each other on one card left 6 GB a rank reserved and unused
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     ctx = mp.get_context("spawn")
+
+    def spawn(i: int) -> dict:
+        (a, m), (tp_names, m2d_names) = worlds[i]
+        run_dir = work / f"{a}x{m}"
+        run_dir.mkdir(exist_ok=True)
+        w = {"run_dir": run_dir, "handoff": ctx.Queue(), "go": ctx.Event(),
+             "dones": {name: ctx.Event() for name in tp_names},
+             "t0": time.perf_counter()}
+        w["pc"] = mp.start_processes(
+            _gloo_rank, args=(a * m, str(run_dir / "store"), tp_names,
+                              m2d_names, twins, w["handoff"], w["dones"],
+                              w["go"], str(run_dir), time.time()),
+            nprocs=a * m, start_method="spawn", join=False)
+        return w
+
+    pending = None
     try:
-        for (a, m), names in shapes.items():
-            world = a * m
-            run_dir = work / f"{a}x{m}"
-            run_dir.mkdir(exist_ok=True)
-            handoff = ctx.Queue()
-            dones = {name: ctx.Event() for name in names}
-            t0 = time.perf_counter()
-            pc = mp.start_processes(
-                _tp_rank, args=(world, str(run_dir / "store"), names,
-                                handoff, dones, str(run_dir), time.time()),
-                nprocs=world, start_method="spawn", join=False)
+        pending = spawn(0)
+        for i, ((a, m), (tp_names, m2d_names)) in enumerate(worlds):
+            w, pending = pending, None
+            t_go = time.perf_counter()
+            w["go"].set()
             blocks = {}
             try:
-                for name in names:
-                    blocks[name] = tp_handoff(torch, pc, handoff, name, world)
-                    dones[name].set()
+                for name in tp_names:
+                    blocks[name] = tp_handoff(torch, w["pc"], w["handoff"],
+                                              name, a * m)
+                    w["dones"][name].set()
             finally:
-                for done in dones.values():
+                for done in w["dones"].values():
                     done.set()
-            while not pc.join():
+            while not w["pc"].join():
                 pass
-            wall = time.perf_counter() - t0
+            t_end = time.perf_counter()
             torch.cuda.ipc_collect()
-            ranks = [json.loads((run_dir / f"rank{r}.json").read_text())
-                     for r in range(world)]
-            for name in names:
-                out.update(tp_path_rows(torch, name, ranks,
-                                        blocks.pop(name), wall))
+            if i + 1 < len(worlds):
+                pending = spawn(i + 1)
+            ranks = [json.loads((w["run_dir"] / f"rank{r}.json").read_text())
+                     for r in range(a * m)]
+            head = ranks[0]["times"]
+            log(f"[gloo] world {a} x {m} ({', '.join(tp_names + m2d_names)})"
+                f": {t_end - w['t0']:.1f} s from its spawn to its end, "
+                f"{t_end - t_go:.1f} s of it on the card (rank 0: started "
+                f"{head['spawn_to_start_s']:.1f} s after the spawn, kernels "
+                f"loaded {head['ready_s']:.1f} s later, then waited "
+                f"{head['wait_s']:.1f} s for the card)")
+            wall = t_end - t_go
+            for name in tp_names:
+                tp_out.update(tp_path_rows(torch, name, ranks,
+                                           blocks.pop(name), wall,
+                                           w["run_dir"]))
+            for name in m2d_names:
+                mesh2d_out[name] = mesh2d_path_row(name, ranks, wall)
+            log(f"[gloo] world {a} x {m}: its twins and checks done "
+                f"{time.perf_counter() - t_end:.1f} s after its end")
     finally:
+        if pending is not None:   # a world that never got the card
+            for proc in pending["pc"].processes:
+                proc.terminate()
+                proc.join()
         if env is None:
             os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
         else:
@@ -3421,7 +3605,7 @@ def tp_phase(torch) -> dict:
         "(tests/test_torch_tensor_parallel.py against the reference's): "
         "it is point-to-point, gloo's batch_isend_irecv refuses CUDA "
         "tensors, and NCCL refuses two ranks on this one card")
-    return out
+    return mesh2d_out, tp_out
 
 
 # ---------------------------------------------------------------------------
@@ -5625,11 +5809,8 @@ def main() -> int:
     del finals
     log(f"[sharded] phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    mesh2d_paths = mesh2d_phase(torch)
-    log(f"[mesh2d] phase {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    tp_paths = tp_phase(torch)
-    log(f"[tp] phase {time.perf_counter() - t0:.1f} s")
+    mesh2d_paths, tp_paths = gloo_phase(torch)
+    log(f"[mesh2d+tp] phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     tree_paths = tree_phase(torch, a_final)
     log(f"[tree] phase {time.perf_counter() - t0:.1f} s")

@@ -18,12 +18,13 @@ For every combination this script:
 The reference's two first lines (512 XLA host devices) have no
 counterpart: the records name the reference's meshes (16×16, 2×16×16),
 agent counts and partition specs, and trace the program the port runs
-(launch/steps.py): for the tree layout of the text transformers (the
-tiny LM, Qwen1.5-4B, Gemma3-12B, Nemotron-4-15B, DeepSeek-V2-Lite-16B)
-rank 0 of the
+(launch/steps.py): for the tree layout of the decoder-only text models
+(the tiny LM, Qwen1.5-4B, Gemma3-12B, Nemotron-4-15B,
+DeepSeek-V2-Lite-16B, Mamba2-2.7B, RecurrentGemma-9B) rank 0 of the
 partitioned world of data × model ranks (16 × 16: one agent a mesh row,
 each leaf its ``param_pspecs`` block, the model's compute
-tensor-parallel over the 16 model ranks), and for the other families'
+tensor-parallel over the 16 model ranks; Mamba2's table and head cut on
+d, since 16 does not divide its vocabulary), and for the other families'
 tree layout (whose tensor-parallel compute is not ported:
 ``tensor_parallel`` gives the reason) and the flat layout all agents on
 one card; rank 0 of a fake world for the sharded layout; one serving
@@ -181,7 +182,9 @@ def _spec_json(tree):
         return {f.name: _spec_json(getattr(tree, f.name))
                 for f in dataclasses.fields(tree)}
     if isinstance(tree, tuple):
-        return [list(a) if isinstance(a, tuple) else a for a in tree]
+        if all(a is None or isinstance(a, (str, tuple)) for a in tree):
+            return [list(a) if isinstance(a, tuple) else a for a in tree]
+        return [_spec_json(a) for a in tree]   # the arguments' trees
     return tree
 
 

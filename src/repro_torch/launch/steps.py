@@ -30,9 +30,9 @@ port runs:
     ``DeviceMesh``, one agent block a mesh row, every leaf its
     ``sharding.param_pspecs`` block and the model's compute
     tensor-parallel over the model group (core/sharded.py
-    ``make_sharded_tree_step``, sharding/tp.py; the text transformers,
-    GQA or MLA with a dense MLP or an MoE; the others raise
-    NotImplementedError);
+    ``make_sharded_tree_step``, sharding/tp.py; the decoder-only text
+    models, GQA or MLA with a dense MLP or an MoE, Mamba2 and
+    RecurrentGemma; the others raise NotImplementedError);
   * the tree layout otherwise, and the flat layout: one card holding all
     n agents;
   * the sharded layout: rank 0 of a world of ``data_size`` ranks, one

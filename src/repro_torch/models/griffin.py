@@ -14,7 +14,8 @@ plain path (``use_pallas=False``) scans in log depth on tensors, as the
 reference's ``jax.lax.associative_scan`` does; the kernel path runs
 kernel #17 (:func:`repro_torch.kernels.ops.rglru_scan`).  Decode carries
 an O(1) cache, the conv's last inputs and h, and takes one step of the
-recurrence on the plain path.
+recurrence on the plain path.  Under a model group the block runs on the
+rank's block of the width (:func:`rglru_block`).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers
+from repro_torch.sharding import tp as tp_lib
 
 __all__ = ["init_rglru_block", "rglru_block", "init_rglru_cache",
            "rglru_scan", "rglru_gates"]
@@ -30,11 +32,25 @@ __all__ = ["init_rglru_block", "rglru_block", "init_rglru_cache",
 _C = 8.0  # Griffin's fixed gate sharpness
 
 
-def rglru_gates(params: dict, x: torch.Tensor):
-    """(a, gated input) of the scan, both f32; x (B, S, W)."""
-    r = torch.sigmoid(layers.dense(params["w_a"], x).float())
-    i = torch.sigmoid(layers.dense(params["w_x"], x).float())
-    log_a = -_C * r * F.softplus(params["lam"].float())  # ≤ 0
+def rglru_gates(params: dict, x: torch.Tensor, *, tp=None,
+                width: int | None = None):
+    """(a, gated input) of the scan, both f32; x (B, S, W).  With a model
+    group ``tp``, x is this rank's block of the ``width`` channels: the
+    gates' projections are column-parallel on the whole x (gathered with
+    ``gather_from``, whose backward sums the ranks' partial gradients),
+    their biases and Λ cut to the block, and the gated input takes the
+    local x."""
+    xin, lam = x, params["lam"]
+    w_a, w_x = params["w_a"], params["w_x"]
+    if tp is not None:
+        xin = tp_lib.gather_from(x, tp, -1)
+        lam = tp_lib.weight_for(lam, (width,), tp, 0)
+        w_a, w_x = ({"w": p["w"], "b": tp_lib.weight_for(p["b"], (width,),
+                                                         tp, 0)}
+                    for p in (w_a, w_x))
+    r = torch.sigmoid(layers.dense(w_a, xin).float())
+    i = torch.sigmoid(layers.dense(w_x, xin).float())
+    log_a = -_C * r * F.softplus(lam.float())  # ≤ 0
     a = torch.exp(log_a)
     beta = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12))
     return a, beta * i * x.float()
@@ -99,16 +115,34 @@ def causal_conv(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
 
 
 def rglru_block(params: dict, x: torch.Tensor, *, compute_dtype,
-                cache: dict | None = None, use_pallas: bool = False):
+                cache: dict | None = None, use_pallas: bool = False,
+                tp=None, width: int | None = None):
     """The Griffin recurrent block; x (B, S, d) → ((B, S, d), the new
-    cache or None).  With ``cache`` x is one token (S = 1)."""
+    cache or None).  With ``cache`` x is one token (S = 1).
+
+    With a model group ``tp`` (a prefill or training forward; ``width``
+    the block's whole W) it runs on the rank's W/M channels, its leaves
+    the rank's ``param_pspecs`` blocks: ``proj_gelu`` and ``proj_rec``
+    column-parallel on one ``copy_to`` of x, the conv on ``conv_w``'s
+    channel block (``conv_b`` cut to it), the gates (:func:`rglru_gates`)
+    and the scan (#17 under ``use_pallas``) on the block, ``out_proj``
+    row-parallel (``reduce_from``)."""
+    conv_b = params["conv_b"]
+    if tp is not None:
+        if params["proj_rec"]["w"].shape[-1] * tp.size != width:
+            raise NotImplementedError(
+                f"tensor-parallel RG-LRU takes its width {width} over "
+                f"{tp.size} model ranks from proj_rec's column block; got "
+                f"{tuple(params['proj_rec']['w'].shape)}")
+        x = tp_lib.copy_to(x, tp)
+        conv_b = tp_lib.weight_for(conv_b, (width,), tp, 0)
     gate = layers.gelu(layers.dense(params["proj_gelu"], x,
                                     compute_dtype=compute_dtype))
     rec = layers.dense(params["proj_rec"], x, compute_dtype=compute_dtype)
     rec, new_conv = causal_conv(rec, params["conv_w"].to(compute_dtype),
-                                params["conv_b"].to(compute_dtype),
+                                conv_b.to(compute_dtype),
                                 None if cache is None else cache["conv"])
-    a, bx = rglru_gates(params, rec)
+    a, bx = rglru_gates(params, rec, tp=tp, width=width)
     new_cache = None
     if cache is not None:
         h_new = a[:, 0] * cache["h"] + bx[:, 0]
@@ -120,5 +154,5 @@ def rglru_block(params: dict, x: torch.Tensor, *, compute_dtype,
     else:
         h, _ = rglru_scan(a, bx)
     y = h.to(compute_dtype) * gate
-    return layers.dense(params["out_proj"], y,
-                        compute_dtype=compute_dtype), new_cache
+    return layers.dense(params["out_proj"], y, compute_dtype=compute_dtype,
+                        tp=tp, parallel="row"), new_cache

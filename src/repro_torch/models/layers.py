@@ -12,7 +12,11 @@ row-parallel (each rank contracts its block of the inputs and
 columns and wo by rows (Megatron); the embedding is vocabulary-parallel
 (a rank's table holds a block of the rows: the tokens outside it read 0
 and ``tp.reduce_from`` sums the lookups); the unembedding gives this
-rank's block of the logits.  Norms stay replicated.  Which layer is
+rank's block of the logits.  Where M does not divide the vocabulary,
+the table and the head are blocks of d instead: the lookup's columns are
+gathered, and the head sums the partial logits of its rows.  Norms stay
+replicated, but for a norm over a partitioned width (Mamba2's gated
+norm), whose sum of squares is all-reduced.  Which layer is
 partitioned follows from its weights' blocks against the global dims
 the caller passes (a d_ff or vocabulary that M does not divide stays
 replicated, as ``sharding.param_pspecs`` leaves it).
@@ -37,13 +41,26 @@ def init_rms_norm(d: int, dtype, device) -> dict:
     return {"scale": torch.zeros((d,), dtype=dtype, device=device)}
 
 
-def rms_norm(params: dict, x: torch.Tensor, eps: float = 1e-6):
-    """x / rms(x) · (1 + scale), in f32 (the reference's 1+scale form)."""
+def rms_norm(params: dict, x: torch.Tensor, eps: float = 1e-6, *,
+             tp=None, width: int | None = None):
+    """x / rms(x) · (1 + scale), in f32 (the reference's 1+scale form).
+
+    With a model group ``tp``, x is this rank's block of the ``width``
+    features (the replicated scale is cut to it): the f32 sum of squares
+    is taken over the block and all-reduced in both directions
+    (``reduce_from`` then ``copy_to``: every rank's gradient of the sum
+    is partial), then divided by ``width``."""
     dtype = x.dtype
     x32 = x.float()
-    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    scale = params["scale"]
+    if tp is None:
+        var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    else:
+        sq = torch.sum(x32 * x32, dim=-1, keepdim=True)
+        var = tp_lib.copy_to(tp_lib.reduce_from(sq, tp), tp) / width
+        scale = tp_lib.weight_for(scale, (width,), tp, 0)
     y = x32 * torch.rsqrt(var + eps)
-    return (y * (1.0 + params["scale"].float())).to(dtype)
+    return (y * (1.0 + scale.float())).to(dtype)
 
 
 def init_layer_norm(d: int, dtype, device) -> dict:
@@ -153,28 +170,41 @@ def init_embedding(draws, vocab: int, d: int, dtype) -> dict:
     return {"table": draws.normal((vocab, d)).mul_(0.02).to(dtype)}
 
 
-def _vocab_block(n_rows: int, vocab: int | None, tp, what: str) -> bool:
-    """Whether a (rows, ...) table block is a block of the vocabulary;
-    a table sharded on d is not ported."""
-    if tp is None or n_rows == vocab:
-        return False
-    if n_rows * tp.size != vocab:
-        raise NotImplementedError(
-            f"{what}: a block of {n_rows} of a vocabulary of {vocab} rows "
-            f"over {tp.size} model ranks")
-    return True
+def _table_layout(shape: tuple, vocab: int | None, d: int | None, tp,
+                  what: str) -> str | None:
+    """How a (vocab, d) table's or a (d, vocab) head's block is cut
+    (``shape`` in the table's order): None whole (or no model group),
+    'vocab' a block of the vocabulary's rows, 'd' a block of d (where M
+    does not divide the vocabulary, ``param_pspecs``' fallback); without
+    ``d`` the block is whole along d."""
+    d = shape[1] if d is None else d
+    if tp is None or tuple(shape) == (vocab, d):
+        return None
+    if shape[0] * tp.size == vocab and shape[1] == d:
+        return "vocab"
+    if shape[0] == vocab and shape[1] * tp.size == d:
+        return "d"
+    raise ValueError(f"{what}: a block {tuple(shape)} of a ({vocab}, {d}) "
+                     f"table over {tp.size} model ranks")
 
 
 def embed(params: dict, tokens: torch.Tensor, compute_dtype=None, *,
-          tp=None, vocab: int | None = None):
+          tp=None, vocab: int | None = None, d: int | None = None):
     """The rows of ``tokens``; with a model group ``tp`` and a table
-    block of the ``vocab`` rows, vocabulary-parallel: a token outside
-    this rank's rows reads 0, and ``reduce_from`` sums the lookups."""
+    block of the (``vocab``, ``d``) table: a block of the vocabulary's
+    rows is vocabulary-parallel (a token outside this rank's rows reads
+    0, and ``reduce_from`` sums the lookups); a block of d looks up this
+    rank's columns and ``gather_whole`` puts them together (the gradient
+    downstream is whole on every rank, and this rank's block of it is
+    taken back)."""
     tbl = params["table"]
     if compute_dtype is not None:
         tbl = tbl.to(compute_dtype)
-    if not _vocab_block(tbl.shape[0], vocab, tp, "embed"):
+    layout = _table_layout(tbl.shape, vocab, d, tp, "embed")
+    if layout is None:
         return F.embedding(tokens, tbl)
+    if layout == "d":
+        return tp_lib.gather_whole(F.embedding(tokens, tbl), tp, -1)
     rows = tbl.shape[0]
     local = tokens - tp.rank * rows
     mine = (local >= 0) & (local < rows)
@@ -186,13 +216,21 @@ def embed(params: dict, tokens: torch.Tensor, compute_dtype=None, *,
 def unembed(params: dict, x: torch.Tensor, compute_dtype=None, *,
             tp=None, vocab: int | None = None):
     """Logits via the untied output head; params = {'w': (d, vocab)}.
-    With a model group ``tp`` and a head block of the ``vocab`` columns:
-    column-parallel, this rank's block of the logits."""
-    if tp is not None and not _vocab_block(params["w"].shape[-1], vocab,
-                                           tp, "unembed"):
-        tp = None
-    return dense(params, x, compute_dtype=compute_dtype, tp=tp,
-                 parallel="column")
+    With a model group ``tp``: a head block of the ``vocab`` columns is
+    column-parallel, giving this rank's block of the logits; a block of
+    d's rows contracts this rank's block of x (``copy_to`` first: x's
+    gradient is then summed whole) and ``reduce_from`` sums the partial
+    logits, whole on every rank."""
+    w = params["w"]
+    d = x.shape[-1]
+    layout = _table_layout(w.shape[::-1], vocab, d, tp, "unembed")
+    if layout == "d":
+        rows = w.shape[0]
+        x = tp_lib.copy_to(x, tp).narrow(-1, tp.rank * rows, rows)
+        return dense(params, x, compute_dtype=compute_dtype, tp=tp,
+                     parallel="row")
+    return dense(params, x, compute_dtype=compute_dtype,
+                 tp=tp if layout else None, parallel="column")
 
 
 def rope_frequencies(head_dim: int, theta: float = 10_000.0,

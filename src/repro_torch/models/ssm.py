@@ -10,7 +10,8 @@ The sequence mixer is the scalar-identity SSM
 over them), in f32.  ``use_pallas`` runs kernel #16
 (:func:`repro_torch.kernels.ops.ssd_scan`) instead.  Decode keeps (the
 conv's last inputs, the f32 SSM state) per layer and takes one step of
-the recurrence (``ssd_decode_step``): O(1) per token.
+the recurrence (``ssd_decode_step``): O(1) per token.  Under a model
+group the mixer is tensor-parallel on the rank's heads (``_tp_mixer``).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import SSMConfig
 from repro_torch.models import layers
 from repro_torch.models.griffin import causal_conv
+from repro_torch.sharding import tp as tp_lib
 
 __all__ = ["init_mamba2", "mamba2_block", "init_mamba2_cache", "ssd_chunked",
            "ssd_decode_step"]
@@ -128,9 +130,14 @@ def init_mamba2_cache(batch: int, d: int, cfg: SSMConfig,
 
 def mamba2_block(params: dict, x: torch.Tensor, cfg: SSMConfig, *,
                  compute_dtype, cache: dict | None = None,
-                 use_pallas: bool = False):
+                 use_pallas: bool = False, tp=None):
     """One Mamba2 mixer; x (B, S, d) → ((B, S, d), the new cache or None).
-    With ``cache`` x is one token (S = 1)."""
+    With ``cache`` x is one token (S = 1).  With a model group ``tp`` (a
+    prefill or training forward) it runs on the rank's nh/M heads
+    (:func:`_tp_mixer`)."""
+    if tp is not None:
+        return _tp_mixer(params, x, cfg, tp, compute_dtype=compute_dtype,
+                         use_pallas=use_pallas), None
     bsz, s, d = x.shape
     di = cfg.d_inner(d)
     nh = cfg.num_heads(d)
@@ -152,16 +159,89 @@ def mamba2_block(params: dict, x: torch.Tensor, cfg: SSMConfig, *,
                                       b[:, 0], c[:, 0])
         y = y1[:, None]
         new_cache = {"conv": new_conv, "ssm": new_ssm}
-    elif use_pallas:
-        from repro_torch.kernels import ops
-        # the split views are strided: the kernel takes dense rows
-        y = ops.ssd_scan(xh.contiguous(), dt, a, b.contiguous(),
-                         c.contiguous())
     else:
-        y, _ = ssd_chunked(xh, dt, a, b, c, chunk=min(cfg.chunk_size, s))
+        y = _scan(xh, dt, a, b, c, cfg, use_pallas)
 
     y = y + params["d_skip"].to(y.dtype)[None, None, :, None] * xh
     y = y.reshape(bsz, s, di)
     y = layers.rms_norm(params["norm"], y * F.silu(z))
     return layers.dense(params["out_proj"], y,
                         compute_dtype=compute_dtype), new_cache
+
+
+def _scan(xh, dt, a, b, c, cfg: SSMConfig, use_pallas: bool):
+    """The prefill's SSD scan from a zero state: kernel #16 or the
+    chunked plain path; y (B, S, H, P)."""
+    if use_pallas:
+        from repro_torch.kernels import ops
+        # the split views are strided: the kernel takes dense rows
+        return ops.ssd_scan(xh.contiguous(), dt, a, b.contiguous(),
+                            c.contiguous())
+    return ssd_chunked(xh, dt, a, b, c, chunk=min(cfg.chunk_size,
+                                                  xh.shape[1]))[0]
+
+
+def _tp_mixer(params: dict, x: torch.Tensor, cfg: SSMConfig, tp, *,
+              compute_dtype, use_pallas: bool) -> torch.Tensor:
+    """The Mamba2 mixer on this rank's nh/M heads over the model group
+    ``tp``, its leaves the rank's ``param_pspecs`` blocks: ``in_proj``
+    (d, 2·di + 2·n + nh) and ``conv_w`` (K, di + 2·n) cut contiguously on
+    their last dim, ``out_proj`` (di, d) on its rows, the rest
+    replicated.
+
+    The replicated x enters through ``copy_to`` and meets the rank's
+    column block of ``in_proj``; the blocks of ``zxbcdt`` are gathered
+    (``gather_from``: its gradient, partial on each rank, is summed and
+    re-cut in the backward), and the rank takes z, x and dt of its heads
+    and B and C whole (one group shared by every head).  The conv runs on
+    those channels (``conv_w`` gathered on use, ``conv_b`` through
+    ``copy_to``), the scan (#16 under ``use_pallas``) on the local heads,
+    the gated norm over the whole d_inner (its sum of squares
+    all-reduced, models/layers.rms_norm), and ``out_proj`` is
+    row-parallel (``reduce_from``).  The gathered activation is (B, S,
+    2·di + 2·n + nh), beside a weight of d·(2·di + 2·n + nh): gathering it
+    moves fewer bytes than gathering the weight at the trainer's
+    batches."""
+    bsz, s, d = x.shape
+    di, nh, n = cfg.d_inner(d), cfg.num_heads(d), cfg.d_state
+    width = 2 * di + 2 * n + nh
+    w_in, w_out = params["in_proj"]["w"], params["out_proj"]["w"]
+    if nh % tp.size or w_in.shape != (d, width // tp.size) \
+            or w_out.shape != (di // tp.size, d):
+        raise NotImplementedError(
+            f"tensor-parallel Mamba2 takes its {nh} heads over {tp.size} "
+            f"model ranks from in_proj's column block and out_proj's row "
+            f"block; got in_proj {tuple(w_in.shape)}, out_proj "
+            f"{tuple(w_out.shape)} of ({d}, {width}) and ({di}, {d})")
+    # gathered along its last dim, the whole comes back dim-major: made
+    # row-major once, so that dt and the conv's channels reach the kernel
+    # as dense rows
+    zxbcdt = tp_lib.gather_from(layers.dense(
+        params["in_proj"], tp_lib.copy_to(x, tp),
+        compute_dtype=compute_dtype), tp, -1).contiguous()
+    z, xin, b, c, dt_raw = tp_lib.local_parts(zxbcdt, (di, di, n, n, nh),
+                                              tp, -1, whole=(2, 3))
+    conv_dim = (cfg.d_conv, di + 2 * n)
+    conv_w = torch.cat(tp_lib.local_parts(
+        tp_lib.weight_for(params["conv_w"], conv_dim, tp), (di, n, n), tp,
+        -1, whole=(1, 2)), dim=-1)
+    conv_b = torch.cat(tp_lib.local_parts(
+        tp_lib.weight_for(params["conv_b"], conv_dim[1:], tp), (di, n, n),
+        tp, -1, whole=(1, 2)), dim=-1)
+    xbc, _ = causal_conv(torch.cat([xin, b, c], dim=-1),
+                         conv_w.to(compute_dtype), conv_b.to(compute_dtype))
+    dl = di // tp.size
+    xin, b, c = torch.split(F.silu(xbc), [dl, n, n], dim=-1)
+
+    def heads(name):
+        return tp_lib.weight_for(params[name], (nh,), tp, 0)
+
+    dt = F.softplus(dt_raw.float() + heads("dt_bias"))      # (B,S,H/M) f32
+    a = -torch.exp(heads("a_log"))
+    xh = xin.reshape(bsz, s, nh // tp.size, cfg.head_dim)
+    y = _scan(xh, dt, a, b, c, cfg, use_pallas)
+    y = y + heads("d_skip").to(y.dtype)[None, None, :, None] * xh
+    y = layers.rms_norm(params["norm"], y.reshape(bsz, s, dl) * F.silu(z),
+                        tp=tp, width=di)
+    return layers.dense(params["out_proj"], y, compute_dtype=compute_dtype,
+                        tp=tp, parallel="row")

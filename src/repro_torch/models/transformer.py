@@ -39,9 +39,11 @@ vocabulary-parallel embedding, each block's attention and MLP over the
 group (models/attention.py, mla.py, moe.py, layers.py), the norms and
 the residual stream replicated, and the logits this rank's block of the
 vocabulary (a tied table's block serves both of its uses, so its
-gradient collects both).  The text transformers are ported
-(``tp.check_family``: GQA or MLA attention, a dense MLP or an MoE), and
-only without decode caches.
+gradient collects both), or, where M does not divide the vocabulary, a
+table and head cut on d and whole logits (models/layers.py).  Mamba2's
+blocks run on the rank's heads (models/ssm.py) and RG-LRU blocks on its
+block of the width (models/griffin.py).  The decoder-only text models
+are ported (``tp.check_family``), and only without decode caches.
 """
 
 from __future__ import annotations
@@ -161,7 +163,8 @@ def apply_block(params: dict, x: torch.Tensor, positions: torch.Tensor,
     ``enc_out`` after its self-attention; ``causal`` False is the
     encoder's unmasked self-attention.  ``tp``: the model group of a
     tensor-parallel forward (a GQA or MLA block with a dense MLP or an
-    MoE)."""
+    MoE, a Mamba2 block on the rank's heads, an RG-LRU block on its
+    width)."""
     kind = cfg.block_kind(layer_idx)
     cdt = cfg.compute_dtype
     h = layers.rms_norm(params["norm1"], x, cfg.norm_eps)
@@ -186,12 +189,13 @@ def apply_block(params: dict, x: torch.Tensor, positions: torch.Tensor,
     elif kind == "ssm":
         y, c = ssm_lib.mamba2_block(params["mixer"], h, cfg.ssm,
                                     compute_dtype=cdt, cache=self_cache,
-                                    use_pallas=impl == "pallas")
+                                    use_pallas=impl == "pallas", tp=tp)
         return x + y, None if c is None else {"self": c}, 0.0
     else:
         y, c = griffin.rglru_block(params["mixer"], h, compute_dtype=cdt,
                                    cache=self_cache,
-                                   use_pallas=impl == "pallas")
+                                   use_pallas=impl == "pallas", tp=tp,
+                                   width=cfg.d_ff_rglru)
     x = x + y
     if "cross_attn" in params:
         if enc_out is None:
@@ -369,7 +373,7 @@ def _embed_inputs(params: dict, cfg: ArchConfig, batch: dict, tp=None):
     then take the first P positions, unscaled (the reference's order)."""
     x = layers.embed(params["embed"], batch["tokens"],
                      compute_dtype=cfg.compute_dtype, tp=tp,
-                     vocab=cfg.vocab_size)
+                     vocab=cfg.vocab_size, d=cfg.d_model)
     # a factory, not torch.tensor: under a grad transform and a dispatch
     # mode (launch/trace_analysis.py) torch.tensor's detach_ is refused
     x = x * torch.full((), cfg.d_model ** 0.5, dtype=cfg.compute_dtype,
@@ -409,7 +413,7 @@ def forward(params: dict, batch: dict, cfg: ArchConfig,
         raise ValueError(f"unknown impl {impl!r}")
     tp = tp_lib.active(cfg.tp_axis_name)
     if tp is not None:
-        _check_tp(params, cfg, caches)
+        _check_tp(cfg, caches)
     if cfg.is_encoder_decoder and enc_out is None:
         enc_out = _encode(params, cfg, batch, impl)
     x = _embed_inputs(params, cfg, batch, tp)
@@ -420,6 +424,11 @@ def forward(params: dict, batch: dict, cfg: ArchConfig,
     x = layers.rms_norm(params["final_norm"], x, cfg.norm_eps)
     if cfg.tie_embeddings:
         table = params["embed"]["table"]
+        if tp is not None and table.shape[-1] != cfg.d_model:
+            raise NotImplementedError(
+                f"{cfg.name}: a tied table cut on d (a vocabulary of "
+                f"{cfg.vocab_size} that the model group does not divide) "
+                f"is not ported")
         if tp is not None and table.shape[0] != cfg.vocab_size:
             x = tp_lib.copy_to(x, tp)
         logits = torch.einsum("bsd,vd->bsv", x, table.to(x.dtype))
@@ -433,23 +442,14 @@ def forward(params: dict, batch: dict, cfg: ArchConfig,
     return logits, aux, new_caches
 
 
-def _check_tp(params: dict, cfg: ArchConfig, caches) -> None:
-    """The tensor-parallel forward's limits: the text transformers
-    (``tp.check_family``), no decode caches, and the embedding and head
-    whole along d (``param_pspecs`` shards them on d only where M does
-    not divide the vocabulary)."""
+def _check_tp(cfg: ArchConfig, caches) -> None:
+    """The tensor-parallel forward's limits: the ported families
+    (``tp.check_family``) and no decode caches."""
     tp_lib.check_family(cfg)
     if caches is not None:
         raise NotImplementedError(
             "tensor-parallel decode (serve_param_pspecs/cache_pspecs) is "
             "not ported (ROADMAP.md Queue A item 6.5)")
-    d = cfg.d_model
-    if params["embed"]["table"].shape[-1] != d or \
-            ("head" in params and params["head"]["w"].shape[0] != d):
-        raise NotImplementedError(
-            f"{cfg.name}: an embedding or head sharded on d (a vocabulary "
-            f"of {cfg.vocab_size} that the model group does not divide) "
-            f"is not ported")
 
 
 # ---------------------------------------------------------------------------

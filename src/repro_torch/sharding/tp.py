@@ -57,7 +57,8 @@ import torch.distributed as dist
 from repro_torch.sharding import MeshAxes
 
 __all__ = ["ModelGroup", "model_group", "active", "copy_to", "reduce_from",
-           "gather_from", "gather_whole", "all_reduce_max", "weight_for", "mesh_axes",
+           "gather_from", "gather_whole", "all_reduce_max", "weight_for",
+           "local_parts", "mesh_axes",
            "block_at", "block_of", "shard_params", "gather_params",
            "block_numel", "check_family"]
 
@@ -319,6 +320,32 @@ def weight_for(w: torch.Tensor, full_shape: tuple, g: ModelGroup,
     return w.narrow(part_dim, g.rank * size, size)
 
 
+def local_parts(x: torch.Tensor, sizes: tuple, g: ModelGroup, dim: int,
+                whole: tuple = ()) -> list:
+    """The parts of a whole ``x`` that is ``sizes`` concatenated along
+    ``dim`` (Mamba2's ``in_proj`` columns [z, x, B, C, dt], its conv's
+    channels [x, B, C]), as this rank computes with them: each part's
+    M-th block at this rank's coordinate, or the part whole where its
+    index is in ``whole``.  ``param_pspecs`` cuts such a dim contiguously,
+    so a rank's block of it is not its part of each: gather the dim first
+    (:func:`gather_from`, :func:`weight_for`), then cut it here."""
+    out, start = [], 0
+    for i, size in enumerate(sizes):
+        if i in whole:
+            out.append(x.narrow(dim, start, size))
+        else:
+            if size % g.size:
+                raise ValueError(f"a part of {size} over {g.size} model "
+                                 f"ranks")
+            block = size // g.size
+            out.append(x.narrow(dim, start + g.rank * block, block))
+        start += size
+    if start != x.shape[dim]:
+        raise ValueError(f"parts {tuple(sizes)} do not make up dim {dim} "
+                         f"of {tuple(x.shape)}")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # placement: a rank's blocks of a stacked tree
 # ---------------------------------------------------------------------------
@@ -426,15 +453,14 @@ def block_numel(shape: tuple, spec: tuple, sizes: dict) -> int:
 def check_family(cfg) -> None:
     """Raise NotImplementedError for a config whose tensor-parallel
     compute is not ported, naming the ROADMAP item (Queue A item 6) that
-    ports it; the text transformers of the ``sharded`` agent layout (GQA
-    or MLA attention, a dense MLP or an MoE) pass."""
+    ports it; the decoder-only text models of the ``sharded`` agent
+    layout pass: GQA or MLA attention with a dense MLP or an MoE, Mamba2's
+    SSD blocks and RecurrentGemma's RG-LRU blocks."""
     if cfg.fed_agent_layout == "replicated":
         what, item = ("the 'replicated' agent layout's FSDP over the data "
                       "axes"), "6.4"
-    elif cfg.ssm is not None or cfg.block_pattern:
-        what, item = "Mamba2 and RecurrentGemma blocks", "6.2"
     elif cfg.is_encoder_decoder or cfg.frontend is not None \
-            or cfg.rope_kind != "rope":
+            or (cfg.rope_kind != "rope" and cfg.attention_kind != "none"):
         what, item = "Qwen2-VL and SeamlessM4T", "6.3"
     else:
         return

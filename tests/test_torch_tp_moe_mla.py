@@ -30,7 +30,7 @@ port's one-device twins) builds the meshes (1, 2) (two replicas, each a
   elements.
 
 In this process: ``check_family`` passing DeepSeek-V2-Lite and still
-refusing Queue A items 6.2–6.5, the MoE layer refusing experts that are
+refusing Queue A items 6.3–6.5, the MoE layer refusing experts that are
 not this rank's E/M block, and the dry run's tree train record of
 DeepSeek-V2-Lite on the partitioned world.
 
@@ -499,7 +499,6 @@ def test_check_family_passes_deepseek_v2_lite():
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("mamba2-2.7b", "6.2"), ("recurrentgemma-9b", "6.2"),
     ("qwen2-vl-2b", "6.3"), ("seamless-m4t-large-v2", "6.3"),
     ("mistral-large-123b", "6.4"), ("deepseek-v3-671b", "6.4")])
 def test_check_family_still_refuses_the_later_slices(arch, item):
