@@ -189,10 +189,10 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
      then (4i) the tensor-parallel tree engine (core/sharded.py
      make_sharded_tree_step, sharding/tp.py): gloo worlds of 2 and 4
      ranks on this one card, one a mesh shape for 4h and 4i together
-     (the 2 x 2 world's ranks start while the 1 x 2 world's twins run,
-     and take the card after them), the zoo configs at their published widths
+     (the 2 x 2 world's ranks start while the 1 x 2 world runs its 4h
+     paths, and take the card after them), the zoo configs at their published widths
      with f32 compute, every leaf a rank's param_pspecs block, 5 steps at
-     H 5 ((p2): 2 at H 2), batch 2 × S 128: (p1) Qwen1.5-4B at 8 of 40
+     H 5 ((p2), (p7), (p8): 2 at H 2), batch 2 × S 128: (p1) Qwen1.5-4B at 8 of 40
      layers, (A, M) =
      (1, 2), 2 agents, pallas (#1 once per leaf block a step a rank);
      (p2) Qwen1.5-4B at 1 layer, (2, 2), 4 agents, dense (no kernel);
@@ -204,14 +204,22 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
      SSD mixer on the rank's 40 of 80 heads; (p6) RecurrentGemma-9B at
      6 of 38 layers (two groups of rglru, rglru, attn), (1, 2), 2 agents,
      pallas: the RG-LRU blocks on the rank's width 2,048 of 4,096, the
-     MQA on its 8 of 16 query heads; (p5) and (p6) then run a
+     MQA on its 8 of 16 query heads; (p7) Qwen2-VL-2B at 4 of 28
+     layers, (1, 2), 2 agents, pallas: the M-RoPE attention on the
+     rank's 6 of 12 query heads, 256 stub patch positions before 128
+     text tokens; (p8) SeamlessM4T-Large-v2 at 4 of 24 encoder and 4 of
+     24 decoder layers, (1, 2), 2 agents, pallas: the encoder, the
+     decoder's self- and cross-attention on the rank's 8 of 16 heads,
+     128 stub encoder frames; (p5)-(p8) then run a
      tensor-parallel forward of each rank's end blocks of agent 0 at B 1
      x S 1,024 under impl pallas (#16 8 times a rank; #17 4 times and
-     #15 twice) and xla (no kernel), the two within model_tol, and held
+     #15 twice; #15 4 times on (p7) and on (p8)) and xla (no kernel),
+     the two within model_tol, and held
      here to the one-device forward on the blocks put together within
      1e-4·max|logit| (a digest: 4 rows and every row's maximum);
-     each world hands its ranks' end blocks to
-     this process, which then runs the path's one-device tree twin: the
+     after each path the world hands its ranks' end blocks to
+     this process and waits while it runs the path's one-device tree twin
+     (so that this process holds one path's blocks at a time): the
      blocks within 1e-5·max|x| of the twin's, each rank's state exactly
      Σ (n/A)·numel/M_leaf · 4 bytes, the step times beside the twin's
      and the per-rank peaks (the permute gossip, point to point, is held
@@ -467,7 +475,17 @@ ZOO_FULL = {
                         "seamless-m4t-large-v2": (1, 4096, 16, 16, 64, 0,
                                                   "bfloat16"),
                         "mistral-large-123b": (1, 4096, 96, 8, 128, 0,
-                                               "bfloat16")},
+                                               "bfloat16"),
+                        # a model rank's heads in phase 4i's TP forwards
+                        # (B 1 × S 1,024, f32, M 2): (p6)'s 8 query heads
+                        # on the one KV head, (p7)'s 6 on 1, (p8)'s
+                        # decoder self-attention's 8 on 8
+                        "recurrentgemma-9b tp2": (1, 1024, 8, 1, 256, 2048,
+                                                  "float32"),
+                        "qwen2-vl-2b tp2": (1, 1024, 6, 1, 128, 0,
+                                            "float32"),
+                        "seamless-m4t-large-v2 tp2": (1, 1024, 8, 8, 64, 0,
+                                                      "float32")},
     "ssd_scan": {"mamba2-2.7b": (1, 4096, 80, 64, 128, "bfloat16"),
                  # a rank's 40 heads under a model group of 2 (path (p5))
                  "mamba2-2.7b tp2": (1, 4096, 40, 64, 128, "bfloat16")},
@@ -706,6 +724,82 @@ def check(ok: bool, msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+class HostMemory:
+    """The host memory this script takes, sampled every ``period`` s on a
+    thread of its own: the largest sum of resident sets over this
+    process and its descendants (the gloo ranks; a page that several
+    share counted in each), and the least MemAvailable of the machine.
+    ``take()`` returns both since the last take, in bytes."""
+
+    def __init__(self, period: float = 0.5):
+        import os
+        import threading
+        self._page = os.sysconf("SC_PAGE_SIZE")
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._reset()
+        self.total = self._meminfo("MemTotal")
+        self._thread = threading.Thread(target=self._run, args=(period,),
+                                        daemon=True)
+        self._thread.start()
+
+    def _reset(self) -> None:
+        self.peak_rss, self.least_available = 0, None
+
+    @staticmethod
+    def _meminfo(key: str) -> int:
+        for line in Path("/proc/meminfo").read_text().splitlines():
+            if line.startswith(key + ":"):
+                return 1024 * int(line.split()[1])
+        raise KeyError(key)
+
+    def _tree_rss(self) -> int:
+        import os
+        children: dict = {}
+        for pid in os.listdir("/proc"):
+            if not pid.isdigit():
+                continue
+            try:
+                stat = (Path("/proc") / pid / "stat").read_text()
+            except OSError:
+                continue
+            ppid = int(stat.rsplit(")", 1)[1].split()[1])
+            children.setdefault(ppid, []).append(pid)
+        total, todo = 0, [str(os.getpid())]
+        while todo:
+            pid = todo.pop()
+            try:
+                total += self._page * int(
+                    (Path("/proc") / pid / "statm").read_text().split()[1])
+            except OSError:
+                pass
+            todo += children.get(int(pid), [])
+        return total
+
+    def _sample(self) -> None:
+        rss, avail = self._tree_rss(), self._meminfo("MemAvailable")
+        with self._lock:
+            self.peak_rss = max(self.peak_rss, rss)
+            if self.least_available is None or avail < self.least_available:
+                self.least_available = avail
+
+    def _run(self, period: float) -> None:
+        while not self._stop.wait(period):
+            self._sample()
+
+    def take(self) -> dict:
+        self._sample()      # a phase shorter than the period: one sample
+        with self._lock:
+            out = {"peak_rss_bytes": self.peak_rss,
+                   "least_available_bytes": self.least_available}
+            self._reset()
+        return out
+
+    def close(self) -> None:
+        self._stop.set()
+        self._thread.join()
 
 
 def ring_adjacency(n: int):
@@ -2933,7 +3027,17 @@ def mesh2d_path_row(name: str, ranks: list, wall: float) -> dict:
 # the reference's mesh do not), #1 once per leaf block a step; (p6):
 # RecurrentGemma-9B at 6 of its 38 layers, two scanned groups of its
 # (rglru, rglru, attn) pattern, the RG-LRU blocks on the rank's 2,048 of
-# the width 4,096, the MQA on its 8 of 16 query heads, #1 likewise.
+# the width 4,096, the MQA on its 8 of 16 query heads, #1 likewise;
+# (p7): Qwen2-VL-2B at 4 of its 28 layers, the M-RoPE attention on the
+# rank's 6 of 12 query heads and 1 of 2 KV heads (layout (a)), its
+# 151,936-row table and head vocabulary-parallel, each sequence its
+# TP_PATCHES stub patch positions (their M-RoPE ids a 16 × 16 grid, as
+# phase 4c's (D2)) and then TP_SEQ text tokens; (p8):
+# SeamlessM4T-Large-v2 at 4 of its 24 encoder and 4 of its 24 decoder
+# layers, the encoder stack and the decoder's self- and cross-attention
+# on the rank's 8 of 16 heads, its 256,206-row table and head
+# vocabulary-parallel (2 divides it), TP_FRAMES stub encoder frames a
+# sequence; #1 once per leaf block a step on both.
 TP_PATHS = {
     "p1": ("qwen1.5-4b", 1, 2, 2, 8, "pallas"),
     "p2": ("qwen1.5-4b", 2, 2, 4, 1, "dense"),
@@ -2941,6 +3045,8 @@ TP_PATHS = {
     "p4": ("deepseek-v2-lite-16b", 1, 2, 2, 3, "pallas"),
     "p5": ("mamba2-2.7b", 1, 2, 2, 8, "pallas"),
     "p6": ("recurrentgemma-9b", 1, 2, 2, 6, "pallas"),
+    "p7": ("qwen2-vl-2b", 1, 2, 2, 4, "pallas"),
+    "p8": ("seamless-m4t-large-v2", 1, 2, 2, 4, "pallas"),
 }
 # TP_STEPS at H TP_STEPS (the server fires at the last), batch 2 × S 128
 # a step as phase 4c's paths, η 1e-3; the first step is untimed.  A world
@@ -2949,10 +3055,15 @@ TP_PATHS = {
 # blocks to the parent, then the twin runs
 TP_STEPS, TP_BATCH, TP_SEQ, TP_LR = 5, 2, 128, 1e-3
 TP_INIT_SEED, TP_SEED = 30, 31
+# (p7)'s sequences hold its config's 256 patch positions before the text
+# (a 128-token sequence has no room for them: S 256 + 128); (p8)'s hold
+# TP_SEQ tokens and TP_FRAMES encoder frames
+TP_PATCHES, TP_FRAMES = VISION_GRID ** 2, 128
 # (p2) at 2 steps, H 2, for the script's time: each of its steps moves
-# 3.46 GB a rank through gloo's host staging (9-20 s a step)
-TP_STEPS_BY_PATH = {"p2": 2}
-# (p5) and (p6) then run a tensor-parallel forward of each rank's end
+# 3.46 GB a rank through gloo's host staging (9-20 s a step); (p7) and
+# (p8) too, to keep the script inside its time on the slower hosts
+TP_STEPS_BY_PATH = {"p2": 2, "p7": 2, "p8": 2}
+# (p5)-(p8) then run a tensor-parallel forward of each rank's end
 # blocks of agent 0 at batch 1 × S 1,024 (tokens from TP_FWD_SEED), with
 # impl 'pallas' and with 'xla', held to each other within model_tol and,
 # in this process, to the one-device forward on the same weights (the
@@ -2961,9 +3072,15 @@ TP_STEPS_BY_PATH = {"p2": 2}
 # maximum.  The kernels each rank launches in the pallas forward: #16 on
 # its 40 heads in each of (p5)'s 8 layers; #17 on its width 2,048 in each
 # of (p6)'s 4 RG-LRU layers and #15 on its 8 query heads in each of the 2
-# attention layers.
+# attention layers; #15 on (p7)'s 6 query heads (M-RoPE applied first) in
+# each of its 4 layers and on (p8)'s 8 decoder heads in each of its 4
+# decoder layers (its encoder's and cross-attention's unmasked attention
+# reach no kernel).  (p7)'s forward holds its 256 patch positions and
+# their M-RoPE ids, (p8)'s TP_FWD_SEQ encoder frames.
 TP_FORWARD = {"p5": {"ssd_scan": 8},
-              "p6": {"rglru_scan": 4, "flash_attention": 2}}
+              "p6": {"rglru_scan": 4, "flash_attention": 2},
+              "p7": {"flash_attention": 4},
+              "p8": {"flash_attention": 4}}
 TP_FWD_BATCH, TP_FWD_SEQ, TP_FWD_SEED = 1, 1024, 32
 TP_FWD_ROWS = (0, 341, 682, 1023)
 TP_LOGIT_TOL = 1e-4
@@ -2974,11 +3091,60 @@ def tp_steps(name: str) -> int:
 
 
 def tp_config(arch: str, layers: int):
+    """The TP path's model: path_config's, f32 compute, an
+    encoder-decoder's encoder cut to ``layers`` too."""
     import dataclasses
 
     import torch
-    return dataclasses.replace(path_config(arch, layers, False),
-                               compute_dtype=torch.float32)
+    cfg = path_config(arch, layers, False)
+    if cfg.is_encoder_decoder:
+        cfg = dataclasses.replace(cfg, encoder_layers=layers)
+    return dataclasses.replace(cfg, compute_dtype=torch.float32)
+
+
+def tp_seq(name: str) -> int:
+    """A TP path's training sequence: (p7)'s patches, then TP_SEQ text
+    tokens."""
+    arch, *_, layers, _ = TP_PATHS[name]
+    vision = tp_config(arch, layers).frontend == "vision"
+    return TP_SEQ + (TP_PATCHES if vision else 0)
+
+
+def tp_inputs(torch, cfg, lead: tuple, seq: int, frames: int,
+              gen) -> dict:
+    """A TP batch's tokens, positions and the model's multimodal inputs,
+    leaves (*lead, ...) with ``lead`` ending in the batch dim, from the
+    CPU generator ``gen`` (the same on every rank and in the twin):
+    tokens uniform in the vocabulary; a vision config's stub patch
+    embeddings (N(0, 1)·0.02) in the first TP_PATCHES positions and its
+    M-RoPE ids (mrope_grid_ids); an encoder-decoder's ``frames`` stub
+    frames (N(0, 1)·0.02)."""
+    tokens = torch.randint(0, cfg.vocab_size, lead + (seq,), generator=gen)
+    out = {"tokens": tokens,
+           "positions": torch.arange(seq).expand(tokens.shape).contiguous()}
+    if cfg.rope_kind == "mrope":
+        check(cfg.frontend_positions == TP_PATCHES,
+              f"{cfg.name}: {cfg.frontend_positions} patch positions")
+        ids = mrope_grid_ids(torch, seq, cfg.frontend == "vision", "cpu")
+        out["mrope_positions"] = ids.reshape(
+            (1,) * (len(lead) - 1) + (3, 1, seq)).expand(
+            lead[:-1] + (3,) + lead[-1:] + (seq,)).contiguous()
+    if cfg.frontend == "vision":
+        out["frontend_embeds"] = torch.randn(
+            lead + (TP_PATCHES, cfg.d_model), generator=gen) * 0.02
+    if cfg.is_encoder_decoder:
+        out["enc_embeds"] = torch.randn(lead + (frames, cfg.d_model),
+                                        generator=gen) * 0.02
+    return out
+
+
+def tp_meta_batch(name: str, n_rows: int) -> dict:
+    """A TP path's batch of ``n_rows`` agents as meta tensors (its
+    launch/specs.batch_schema)."""
+    from repro_torch.launch import specs
+    cfg, _ = tp_fed(name)
+    return specs._specs(specs.batch_schema(cfg, n_rows, TP_BATCH,
+                                           tp_seq(name), enc_len=TP_FRAMES))
 
 
 def tp_fed(name: str):
@@ -2994,17 +3160,15 @@ def tp_fed(name: str):
 
 
 def tp_batches(torch, name: str, rows: slice, device) -> list:
-    """The TP_STEPS batches of a path (tokens from a CPU generator,
-    uniform in the vocabulary), ``rows`` of the agents, on ``device``."""
+    """The TP_STEPS batches of a path (tp_inputs, from a CPU generator),
+    ``rows`` of the agents, on ``device``."""
     arch, _, _, n, layers, _ = TP_PATHS[name]
-    vocab = tp_config(arch, layers).vocab_size
     gen = torch.Generator().manual_seed(TP_SEED + 1)
-    tokens = torch.randint(0, vocab, (tp_steps(name), n, TP_BATCH, TP_SEQ),
-                           generator=gen)[:, rows]
-    positions = torch.arange(TP_SEQ).expand(tokens.shape)
-    return [{"tokens": tokens[t].to(device),
-             "positions": positions[t].contiguous().to(device)}
-            for t in range(tp_steps(name))]
+    every = tp_inputs(torch, tp_config(arch, layers),
+                      (tp_steps(name), n, TP_BATCH), tp_seq(name),
+                      TP_FRAMES, gen)
+    return [{k: v[t, rows].contiguous().to(device)
+             for k, v in every.items()} for t in range(tp_steps(name))]
 
 
 def tp_program(torch, name: str, device, mesh) -> dict:
@@ -3049,10 +3213,8 @@ def tp_program(torch, name: str, device, mesh) -> dict:
         fcfg, model.grad_fn(), lambda t: eta, mesh, device=device,
         param_specs=specs)
     rows = slice(coords["agents"][0] * nl, (coords["agents"][0] + 1) * nl)
-    batches = [{k: torch.empty((nl, TP_BATCH, TP_SEQ), dtype=torch.long,
-                               device="meta") for k in ("tokens",
-                                                        "positions")}] \
-        if meta else tp_batches(torch, name, rows, device)
+    batches = [tp_meta_batch(name, nl)] if meta \
+        else tp_batches(torch, name, rows, device)
     return {"step": step, "state": state, "draws": draws,
             "batches": batches, "specs": specs, "coords": coords,
             "n_local": nl, "cfg": tcfg}
@@ -3121,15 +3283,18 @@ def tp_twin(torch, name: str) -> tuple:
 
 
 def _gloo_rank(rank: int, world: int, store: str, tp_names: list,
-               m2d_names: list, twins: dict, handoff, dones: dict, go,
-               out_dir: str, t_spawn: float) -> None:
+               m2d_names: list, twins_file: str, handoff, dones: dict,
+               turns: dict, go, out_dir: str, t_spawn: float) -> None:
     """One rank of a phase-4h/4i world (one mesh shape): it starts,
     loads the kernels and waits for ``go`` (the card is the last world's
     until then), inits gloo on this card, then runs each tensor-parallel
-    path of ``tp_names`` (_tp_rank_path) and each 2-D path of
-    ``m2d_names`` (_mesh2d_rank_path).  ``times`` records the host-clock
-    seconds from the parent's spawn (``t_spawn``, wall clock) to this
-    rank's start, its kernels and its wait."""
+    path of ``tp_names`` (_tp_rank_path), hands the parent its row and
+    waits for the path's ``turns`` event (the parent's twin and checks
+    of it are done), and then each 2-D path of ``m2d_names``
+    (_mesh2d_rank_path) against the twins named in ``twins_file``
+    (mesh2d_twins's files, written before ``go``).  ``times`` records the host-clock seconds from
+    the parent's spawn (``t_spawn``, wall clock) to this rank's start,
+    its kernels and its wait."""
     t_start = time.time()
     import torch
     import torch.distributed as dist
@@ -3152,9 +3317,13 @@ def _gloo_rank(rank: int, world: int, store: str, tp_names: list,
             _, a, m, *_ = TP_PATHS[tp_names[0]]
             mesh = make_fed_mesh(a, m, device=DEVICE)
         for name in tp_names:
-            out[name] = _tp_rank_path(torch, name, mesh, rank, handoff,
-                                      dones[name], ops, tally,
-                                      sorted_leaves, out_dir)
+            row = _tp_rank_path(torch, name, mesh, rank, handoff,
+                                dones[name], ops, tally, sorted_leaves,
+                                out_dir)
+            handoff.put(("row", name, rank, {**row, "world_times": times}))
+            turns[name].wait()
+        twins = json.loads(Path(twins_file).read_text()) if m2d_names \
+            else {}
         for name in m2d_names:
             out[name] = _mesh2d_rank_path(torch, name, rank, twins, ops)
             dist.barrier()
@@ -3172,7 +3341,7 @@ def _tp_rank_path(torch, name, mesh, rank, handoff, done, ops, tally,
     rank's state bytes; then it hands its end blocks to the parent (CUDA
     IPC through ``handoff``) and waits for ``done``, the parent's copy of
     them; (p1) then takes one more step under trace_analysis.tally
-    (phase 8 reads rank 0's), and (p5) and (p6) run their forward
+    (phase 8 reads rank 0's), and the TP_FORWARD paths run their forward
     (tp_forward).  Returns the path's row."""
     t0 = time.time()
     gc.collect()
@@ -3208,8 +3377,9 @@ def _tp_rank_path(torch, name, mesh, rank, handoff, done, ops, tally,
     # kernel lacks pidfd_open (the H100 host's does): the handed blocks
     # are copies made in ordinary segments
     torch.cuda.memory._set_allocator_settings("expandable_segments:False")
-    handoff.put((name, rank, {"/".join(p): leaf.clone() for p, leaf in
-                              sorted_leaves(state.params)}))
+    handoff.put(("blocks", name, rank, {"/".join(p): leaf.clone() for
+                                        p, leaf in
+                                        sorted_leaves(state.params)}))
     done.wait()
     # the parent has dropped the copies: free them here too, so that
     # (p1)'s tallied step below starts from this rank's own bytes
@@ -3248,16 +3418,14 @@ def _tp_rank_path(torch, name, mesh, rank, handoff, done, ops, tally,
 
 
 def tp_forward_batch(torch, name: str, device) -> dict:
-    """The TP forward's batch: TP_FWD_BATCH × TP_FWD_SEQ tokens uniform in
-    the vocabulary (a CPU generator), on ``device``."""
+    """The TP forward's batch: TP_FWD_BATCH × TP_FWD_SEQ (tp_inputs, a CPU
+    generator; (p7)'s first TP_PATCHES positions patches, (p8)'s memory
+    TP_FWD_SEQ frames), on ``device``."""
     arch, *_, layers, _ = TP_PATHS[name]
-    vocab = tp_config(arch, layers).vocab_size
     gen = torch.Generator().manual_seed(TP_FWD_SEED)
-    tokens = torch.randint(0, vocab, (TP_FWD_BATCH, TP_FWD_SEQ),
-                           generator=gen)
-    return {"tokens": tokens.to(device),
-            "positions": torch.arange(TP_FWD_SEQ).expand(
-                tokens.shape).contiguous().to(device)}
+    batch = tp_inputs(torch, tp_config(arch, layers), (TP_FWD_BATCH,),
+                      TP_FWD_SEQ, TP_FWD_SEQ, gen)
+    return {k: v.to(device) for k, v in batch.items()}
 
 
 def tp_forward(torch, name: str, cfg, state, mesh, ops, out_dir: str,
@@ -3302,27 +3470,35 @@ def tp_forward(torch, name: str, cfg, state, mesh, ops, out_dir: str,
     return out
 
 
-def tp_handoff(torch, pc, handoff, name: str, world: int) -> dict:
-    """Every rank's end blocks of path ``name`` (CUDA IPC), copied to
-    host memory as they arrive: {rank: {leaf path: tensor}}.  A rank
-    that fails raises here (``pc.join`` between waits)."""
+def tp_receive(pc, handoff, kind: str, name: str, world: int,
+               take=lambda payload: payload) -> dict:
+    """Every rank's message ``(kind, name, rank, payload)`` of path
+    ``name`` from ``handoff``: {rank: take(payload)}, ``take`` applied as
+    each arrives (the "blocks" messages: CUDA IPC handles, copied to host
+    memory so that the rank may free them).  A rank that fails raises
+    here (``pc.join`` between waits), and so does a world that ended
+    without sending them."""
     import queue
     got: dict = {}
     while len(got) < world:
         try:
-            path, rank, blocks = handoff.get(timeout=5)
+            msg = handoff.get(timeout=5)
         except queue.Empty:
-            pc.join(timeout=0)
+            check(not pc.join(timeout=0), f"[tp] the world ended before "
+                                          f"every rank sent path ({name})'s "
+                                          f"{kind}")
             continue
-        check(path == name, f"[tp] rank {rank} handed path ({path}) while "
-                            f"({name}) was due")
-        got[rank] = {k: v.cpu() for k, v in blocks.items()}
-        del blocks
+        check(msg[:2] == (kind, name), f"[tp] rank {msg[2]} sent path "
+                                       f"({msg[1]})'s {msg[0]} while path "
+                                       f"({name})'s {kind} was due")
+        got[msg[2]] = take(msg[3])
+        del msg
     return got
 
 
-def tp_specs(name: str) -> dict:
-    """{leaf path: spec} of a TP path's stacked leaves on its mesh."""
+def _tp_spec_tree(name: str) -> tuple:
+    """(the mesh-adapted config, the spec tree of its stacked leaves) of a
+    TP path on its mesh, from its config alone."""
     from repro_torch import sharding as shd
     from repro_torch.core import feddec
     from repro_torch.launch import steps
@@ -3331,13 +3507,56 @@ def tp_specs(name: str) -> dict:
     cfg, _ = tp_fed(name)
     axes = shd.MeshAxes(("agents",), "model", {"agents": a, "model": m})
     tcfg = steps.adapt_for_mesh(cfg, axes)
-    return dict(_sorted_specs(shd.param_pspecs(tcfg, feddec.init_state(
-        build_model(tcfg).init_shapes(), n).params, axes)))
+    return tcfg, shd.param_pspecs(tcfg, feddec.init_state(
+        build_model(tcfg).init_shapes(), n).params, axes)
+
+
+def tp_specs(name: str) -> dict:
+    """{leaf path: spec} of a TP path's stacked leaves on its mesh."""
+    return dict(_sorted_specs(_tp_spec_tree(name)[1]))
+
+
+def tp_world_bytes(name: str) -> int:
+    """The state bytes of all the ranks of a TP path's world
+    (tp_expected_bytes a rank)."""
+    _, a, m, n, _, _ = TP_PATHS[name]
+    tcfg, specs = _tp_spec_tree(name)
+    return a * m * tp_expected_bytes({
+        "coords": {"agents": (0, a), "model": (0, m)}, "specs": specs,
+        "cfg": tcfg, "n_local": n // a})
+
+
+class HostArena:
+    """One host buffer that the TP paths' handed blocks are copied into,
+    reused from path to path: copied into new memory, the blocks paid a
+    page fault a page on every path (about 1.4 GB/s on the H100 host,
+    13.9 s for (p3)'s 18.8 GB).  ``start()`` before each path's blocks;
+    a block that does not fit is copied into memory of its own."""
+    ALIGN = 64
+
+    def __init__(self, torch, nbytes: int):
+        self.buf = torch.empty(nbytes, dtype=torch.uint8)
+        self.used = 0
+
+    def start(self) -> None:
+        self.used = 0
+
+    def copy(self, blocks: dict) -> dict:
+        out = {}
+        for key, v in blocks.items():
+            n = v.numel() * v.element_size()
+            if self.used + n <= self.buf.numel():
+                out[key] = self.buf[self.used:self.used + n].view(
+                    v.dtype).view(v.shape).copy_(v)
+                self.used += -(-n // self.ALIGN) * self.ALIGN
+            else:
+                out[key] = v.cpu()
+        return out
 
 
 def tp_forward_check(torch, name: str, blocks: dict, rows: list,
                      run_dir: Path) -> dict:
-    """(p5)'s and (p6)'s TP forward against the one-device forward (impl
+    """A TP_FORWARD path's TP forward against the one-device forward (impl
     'xla', the path's own config) on agent 0's end weights, its ranks'
     blocks (host memory) put together by the leaves' specs: every rank's
     digest within TP_LOGIT_TOL·max|logit|; each rank's pallas forward
@@ -3419,11 +3638,12 @@ def tp_twin_check(torch, name: str, final: dict, blocks: dict) -> tuple:
     return err, scale
 
 
-def tp_path_rows(torch, name: str, ranks: list, blocks: dict,
+def tp_path_rows(torch, name: str, rows: list, blocks: dict,
                  wall: float, run_dir: Path) -> dict:
-    """A TP path's twin (tp_twin) against the ranks' handed blocks, (p5)'s
-    and (p6)'s forward (tp_forward_check), and its checks, log line and
-    rows ({name: row, name_twin: the twin's})."""
+    """A TP path's twin (tp_twin) against the ranks' handed blocks, the
+    TP_FORWARD paths' forward (tp_forward_check), and its checks against
+    the ranks' ``rows``, log line and rows ({name: row, name_twin: the
+    twin's}).  ``wall``: the path's seconds on the card in its world."""
     arch, a, m, n, layers, impl = TP_PATHS[name]
     steps = tp_steps(name)
     t0 = time.perf_counter()
@@ -3433,7 +3653,6 @@ def tp_path_rows(torch, name: str, ranks: list, blocks: dict,
     gc.collect()
     torch.cuda.empty_cache()
     twin["wall_s"] = time.perf_counter() - t0
-    rows = [r[name] for r in ranks]
     forward = tp_forward_check(torch, name, blocks, rows, run_dir) \
         if name in TP_FORWARD else None
     del blocks
@@ -3459,7 +3678,7 @@ def tp_path_rows(torch, name: str, ranks: list, blocks: dict,
     out = {
         "arch": arch, "mesh": [a, m], "agents": n, "layers": layers,
         "impl": impl, "kernel": kernel, "steps": steps,
-        "batch": TP_BATCH, "seq": TP_SEQ,
+        "batch": TP_BATCH, "seq": tp_seq(name),
         "launches": [r["counts"].get(kernel, 0) if kernel else 0
                      for r in rows],
         "leaves": head["n_leaves"],
@@ -3469,8 +3688,8 @@ def tp_path_rows(torch, name: str, ranks: list, blocks: dict,
         "peak_bytes_by_rank": [r["peak_bytes"] for r in rows],
         "state_bytes_by_rank": [r["block_bytes"] for r in rows],
         "losses": head["losses"], "max_abs_diff": err, "scale": scale,
-        "tol": TOL, "twin": twin, "world_wall_s": wall,
-        "rank0_times": {**ranks[0]["times"], **head["times"]}}
+        "tol": TOL, "twin": twin, "path_wall_s": wall,
+        "rank0_times": {**head["world_times"], **head["times"]}}
     if "tally" in head:
         out["tally"] = head["tally"]
     if forward is not None:
@@ -3500,7 +3719,7 @@ def tp_path_rows(torch, name: str, ranks: list, blocks: dict,
         + " GB a rank (exactly its blocks), peaks "
         + "/".join(f"{b / 1e9:.2f}" for b in out["peak_bytes_by_rank"])
         + f" GB (the twin {twin['peak_bytes'] / 1e9:.2f} GB), ends "
-        f"{err:.3e} from its twin (max|x| {scale:.3e}); its world "
+        f"{err:.3e} from its twin (max|x| {scale:.3e}); on the card "
         f"{wall:.1f} s (rank 0: "
         + ", ".join(f"{k} {v:.1f}" for k, v in out["rank0_times"].items())
         + f" s), twin and check {twin['wall_s']:.1f} s")
@@ -3510,20 +3729,24 @@ def tp_path_rows(torch, name: str, ranks: list, blocks: dict,
 def gloo_phase(torch) -> tuple:
     """MESH2D_PATHS (phase 4h) and TP_PATHS (phase 4i) in gloo worlds of
     A·M ranks on this card, one world a mesh shape, every path of that
-    shape in it, the tensor-parallel ones first.  First phase 4h's twins
-    (mesh2d_twins).  Then each world: it hands each TP path's end blocks
-    to this process (kept in host memory) and writes its ranks' reports;
-    the next shape's world is spawned then, and its ranks start and load
-    the kernels while this process runs the TP paths' one-device twins
-    (tp_twin) on the card the world has left, and the checks
-    (tp_path_rows, mesh2d_path_row); it takes the card when they are
-    done.  Returns (phase 4h's rows, phase 4i's rows)."""
+    shape in it, the tensor-parallel ones first.  The first world's
+    ranks start while this process runs phase 4h's twins (mesh2d_twins).
+    Then each world, one TP path at a time: the world
+    runs the path and hands its end blocks to this process (a HostArena)
+    and its ranks' rows, then waits while this process runs the path's
+    one-device twin (tp_twin) on the card and its checks (tp_path_rows)
+    and drops the blocks, so that it holds one path's at a time (all of
+    the 1 x 2 world's at once, 77.9 GB, passed the host's memory).
+    After the world's last TP path the next shape's world is spawned,
+    and its ranks start and load the kernels while this world runs its
+    2-D paths; it takes the card when they are done and checked
+    (mesh2d_path_row).  Returns (phase 4h's rows, phase 4i's rows)."""
     import os
 
     import torch.multiprocessing as mp
     work = ROOT / "build" / f"gloo_{os.getpid()}"
     work.mkdir(parents=True, exist_ok=True)
-    twins, mesh2d_out = mesh2d_twins(torch, work)
+    twins_file = work / "mesh2d_twins.json"
     tp_out: dict = {}
     shapes: dict = {}
     for name, p in TP_PATHS.items():
@@ -3543,59 +3766,83 @@ def gloo_phase(torch) -> tuple:
         run_dir.mkdir(exist_ok=True)
         w = {"run_dir": run_dir, "handoff": ctx.Queue(), "go": ctx.Event(),
              "dones": {name: ctx.Event() for name in tp_names},
+             "turns": {name: ctx.Event() for name in tp_names},
              "t0": time.perf_counter()}
         w["pc"] = mp.start_processes(
             _gloo_rank, args=(a * m, str(run_dir / "store"), tp_names,
-                              m2d_names, twins, w["handoff"], w["dones"],
-                              w["go"], str(run_dir), time.time()),
+                              m2d_names, str(twins_file), w["handoff"],
+                              w["dones"],
+                              w["turns"], w["go"], str(run_dir),
+                              time.time()),
             nprocs=a * m, start_method="spawn", join=False)
         return w
 
-    pending = None
+    def stop(w) -> None:
+        for proc in w["pc"].processes:
+            if proc.is_alive():
+                proc.terminate()
+            proc.join()
+
+    pending = current = None
     try:
+        # the first world's ranks start and load the kernels while this
+        # process runs phase 4h's twins; they read the twins' file once
+        # they have the card
         pending = spawn(0)
+        twins, mesh2d_out = mesh2d_twins(torch, work)
+        twins_file.write_text(json.dumps(twins))
         for i, ((a, m), (tp_names, m2d_names)) in enumerate(worlds):
-            w, pending = pending, None
-            t_go = time.perf_counter()
+            w = current = pending
+            pending = None
+            # a world's arena lives while its TP paths run: held beside
+            # its 2-D paths and the next world's start, it cost 19 GB
+            # more of the host's memory
+            arena = HostArena(torch, max(map(tp_world_bytes, tp_names),
+                                         default=0) + (1 << 20))
+            t_go = t_path = time.perf_counter()
             w["go"].set()
-            blocks = {}
-            try:
-                for name in tp_names:
-                    blocks[name] = tp_handoff(torch, w["pc"], w["handoff"],
-                                              name, a * m)
-                    w["dones"][name].set()
-            finally:
-                for done in w["dones"].values():
-                    done.set()
+            for name in tp_names:
+                arena.start()
+                blocks = tp_receive(w["pc"], w["handoff"], "blocks", name,
+                                    a * m, take=arena.copy)
+                w["dones"][name].set()
+                rows = tp_receive(w["pc"], w["handoff"], "row", name, a * m)
+                wall = time.perf_counter() - t_path
+                tp_out.update(tp_path_rows(torch, name,
+                                           [rows[r] for r in range(a * m)],
+                                           blocks, wall, w["run_dir"]))
+                del blocks
+                if name == tp_names[-1]:
+                    arena = None
+                    if i + 1 < len(worlds):
+                        pending = spawn(i + 1)
+                t_path = time.perf_counter()
+                w["turns"][name].set()
             while not w["pc"].join():
                 pass
+            current = None
             t_end = time.perf_counter()
             torch.cuda.ipc_collect()
-            if i + 1 < len(worlds):
+            if pending is None and i + 1 < len(worlds):
                 pending = spawn(i + 1)
             ranks = [json.loads((w["run_dir"] / f"rank{r}.json").read_text())
                      for r in range(a * m)]
             head = ranks[0]["times"]
             log(f"[gloo] world {a} x {m} ({', '.join(tp_names + m2d_names)})"
                 f": {t_end - w['t0']:.1f} s from its spawn to its end, "
-                f"{t_end - t_go:.1f} s of it on the card (rank 0: started "
+                f"{t_end - t_go:.1f} s of it on the card, the TP paths' "
+                f"twins and checks included (rank 0: started "
                 f"{head['spawn_to_start_s']:.1f} s after the spawn, kernels "
                 f"loaded {head['ready_s']:.1f} s later, then waited "
                 f"{head['wait_s']:.1f} s for the card)")
-            wall = t_end - t_go
-            for name in tp_names:
-                tp_out.update(tp_path_rows(torch, name, ranks,
-                                           blocks.pop(name), wall,
-                                           w["run_dir"]))
             for name in m2d_names:
-                mesh2d_out[name] = mesh2d_path_row(name, ranks, wall)
-            log(f"[gloo] world {a} x {m}: its twins and checks done "
-                f"{time.perf_counter() - t_end:.1f} s after its end")
+                mesh2d_out[name] = mesh2d_path_row(name, ranks,
+                                                   t_end - t_go)
     finally:
-        if pending is not None:   # a world that never got the card
-            for proc in pending["pc"].processes:
-                proc.terminate()
-                proc.join()
+        # a world that failed, or never got the card
+        for w in (current, pending):
+            if w is not None:
+                stop(w)
         if env is None:
             os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
         else:
@@ -4745,6 +4992,20 @@ def stub_frames(cfg, batch: int, draws):
         cfg.compute_dtype)
 
 
+def mrope_grid_ids(torch, seq: int, vision: bool, device):
+    """Qwen2-VL's (3, ``seq``) M-RoPE ids: with ``vision`` the first
+    VISION_GRID² positions are patch (r, c) at (0, r, c) and the text
+    after them runs from VISION_GRID on in all three components; without,
+    the text from 0."""
+    p = VISION_GRID ** 2 if vision else 0
+    idx = torch.arange(seq, device=device)
+    text = idx - p + (VISION_GRID if p else 0)
+    patch = idx < p
+    return torch.stack([torch.where(patch, 0, text),
+                        torch.where(patch, idx // VISION_GRID, text),
+                        torch.where(patch, idx % VISION_GRID, text)])
+
+
 def multimodal_inputs(torch, cfg, batch: dict, draws) -> dict:
     """``batch`` with the model's other inputs: a vision config's stub
     patch embeddings (N(0, 1)·0.02, compute dtype) in the first
@@ -4755,13 +5016,7 @@ def multimodal_inputs(torch, cfg, batch: dict, draws) -> dict:
     out = dict(batch)
     b, s = batch["tokens"].shape
     if cfg.rope_kind == "mrope":
-        p = VISION_GRID ** 2 if cfg.frontend == "vision" else 0
-        idx = torch.arange(s, device=DEVICE)
-        text = idx - p + (VISION_GRID if p else 0)
-        patch = idx < p
-        ids = torch.stack([torch.where(patch, 0, text),
-                           torch.where(patch, idx // VISION_GRID, text),
-                           torch.where(patch, idx % VISION_GRID, text)])
+        ids = mrope_grid_ids(torch, s, cfg.frontend == "vision", DEVICE)
         out["mrope_positions"] = ids[:, None].expand(3, b, s).contiguous()
     if cfg.frontend == "vision":
         check(cfg.frontend_positions == VISION_GRID ** 2,
@@ -5778,6 +6033,17 @@ def main() -> int:
     log(f"[device] {name} × {count}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}; nvidia-smi: {smi}")
 
+    host = HostMemory()
+    host_mem: dict = {}
+
+    def phase_done(tag: str, t0: float) -> None:
+        mem = host_mem[tag] = host.take()
+        log(f"[{tag}] phase {time.perf_counter() - t0:.1f} s; host memory: "
+            f"the script's processes' resident sets at most "
+            f"{mem['peak_rss_bytes'] / 1e9:.2f} GB, MemAvailable at least "
+            f"{mem['least_available_bytes'] / 1e9:.2f} of "
+            f"{host.total / 1e9:.2f} GB")
+
     built = build.load()
     log(f"[build] {built.directory} in {built.build_seconds:.1f} s; "
         f"ptxas -v:")
@@ -5800,35 +6066,35 @@ def main() -> int:
     f64_errs = f64_kernel_phase(torch)
     bf16_kernels = bf16_kernel_phase(torch)
     kernels.update(zoo_kernel_phase(torch))
-    log(f"[kernels] phase {time.perf_counter() - t0:.1f} s")
+    phase_done("kernels", t0)
     t0 = time.perf_counter()
     training, a_final, finals = training_phase(torch)
-    log(f"[train] phase {time.perf_counter() - t0:.1f} s")
+    phase_done("train", t0)
     t0 = time.perf_counter()
     sharded_paths = sharded_phase(torch, finals)
     del finals
-    log(f"[sharded] phase {time.perf_counter() - t0:.1f} s")
+    phase_done("sharded", t0)
     t0 = time.perf_counter()
     mesh2d_paths, tp_paths = gloo_phase(torch)
-    log(f"[mesh2d+tp] phase {time.perf_counter() - t0:.1f} s")
+    phase_done("mesh2d+tp", t0)
     t0 = time.perf_counter()
     tree_paths = tree_phase(torch, a_final)
-    log(f"[tree] phase {time.perf_counter() - t0:.1f} s")
+    phase_done("tree", t0)
     t0 = time.perf_counter()
     delta_paths = delta_phase(torch, a_final)
-    log(f"[delta] phase {time.perf_counter() - t0:.1f} s")
+    phase_done("delta", t0)
     t0 = time.perf_counter()
     population = population_phase(torch)
-    log(f"[population] phase {time.perf_counter() - t0:.1f} s")
+    phase_done("population", t0)
     t0 = time.perf_counter()
     f64_paths = f64_path_phase(torch)
-    log(f"[f64] phase {time.perf_counter() - t0:.1f} s")
+    phase_done("f64", t0)
     t0 = time.perf_counter()
     bf16_paths = bf16_path_phase(torch)
-    log(f"[bf16] phase {time.perf_counter() - t0:.1f} s")
+    phase_done("bf16", t0)
     t0 = time.perf_counter()
     grads = grad_phase(torch)
-    log(f"[grad] phase {time.perf_counter() - t0:.1f} s")
+    phase_done("grad", t0)
     t0 = time.perf_counter()
     profile = profile_phase(torch, training["c"]["step_ms"])
     profile["remat_off"] = profile_phase(
@@ -5848,20 +6114,20 @@ def main() -> int:
           f"{ops_per_step / max(ops_off, 1):.2f}× its {ops_off:.0f} with "
           f"remat off (limit {REMAT_OPS_RATIO_MAX}×): the recompute is more "
           f"than one forward of the groups")
-    log(f"[profile] phase {time.perf_counter() - t0:.1f} s")
+    phase_done("profile", t0)
     t0 = time.perf_counter()
     models = model_phase(torch)
-    log(f"[models] phase {time.perf_counter() - t0:.1f} s")
+    phase_done("models", t0)
     t0 = time.perf_counter()
     serving = serve_phase(torch, a_final)
     del a_final
-    log(f"[serve] phase {time.perf_counter() - t0:.1f} s")
+    phase_done("serve", t0)
     t0 = time.perf_counter()
     paper = paper_phase(torch)
-    log(f"[paper] phase {time.perf_counter() - t0:.1f} s")
+    phase_done("paper", t0)
     t0 = time.perf_counter()
     dryrun = dryrun_phase(torch, tp_paths)
-    log(f"[dryrun] phase {time.perf_counter() - t0:.1f} s")
+    phase_done("dryrun", t0)
 
     line = []
     for kernel in REPLACES:
@@ -5939,6 +6205,7 @@ def main() -> int:
             line[-1]["max_abs_err"] = max(line[-1]["max_abs_err"],
                                           flat["max_abs_err"])
             line[-1]["path_flat_check"] = flat
+    host.close()
     total_s = time.perf_counter() - T_START
     log(f"[smoke] total {total_s:.1f} s (build included)")
     out_dir = ROOT / "chiprun_out"
@@ -5952,7 +6219,7 @@ def main() -> int:
          "grads": grads,
          "f64_paths": f64_paths, "bf16_paths": bf16_paths,
          "profile": profile, "models": models, "serve": serving,
-         "paper": paper, "dryrun": dryrun,
+         "paper": paper, "dryrun": dryrun, "host_memory": host_mem,
          "total_s": total_s},
         indent=1))
     print(json.dumps({"kernels": line}))

@@ -2,9 +2,10 @@
 """Predicted peaks of chip_smoke.py phase 4i's programs (the dry run's
 tally on meta tensors, nothing allocated).
 
-    PYTHONPATH=src python3 scripts/tp_peaks.py
+    PYTHONPATH=src python3 scripts/tp_peaks.py [p1 p7 ...]
 
-For each tensor-parallel path (p1)-(p3) of ``chip_smoke.TP_PATHS``: its
+For each tensor-parallel path of ``chip_smoke.TP_PATHS`` (or those
+named): its
 one-device twin's step (core/feddec.make_feddec_step, all n agents)
 and rank 0's step in a fake world of A·M ranks (chip_smoke.tp_program),
 each traced once: the arguments' bytes, the bytes above them (temp) and
@@ -34,16 +35,16 @@ def main() -> None:
     from repro_torch.launch.steps import _fake_world
     from repro_torch.launch.trace_analysis import tally
     from repro_torch.models import build_model
-    for name, (arch, a, m, n, layers, _) in cs.TP_PATHS.items():
+    names = sys.argv[1:] or list(cs.TP_PATHS)
+    for name in names:
+        arch, a, m, n, layers, _ = cs.TP_PATHS[name]
         cfg, fcfg = cs.tp_fed(name)
         model = build_model(cfg)
         state = feddec.init_state(model.init_shapes(), n)
         eta = torch.full((1,), cs.TP_LR, device="meta")
         step = feddec.make_feddec_step(fcfg, model.grad_fn(),
                                        lambda t: eta, device="meta")
-        batch = {k: torch.empty((n, cs.TP_BATCH, cs.TP_SEQ),
-                                dtype=torch.long, device="meta")
-                 for k in ("tokens", "positions")}
+        batch = cs.tp_meta_batch(name, n)
         _, twin = tally(step, state, batch, ShapeDraws("meta"))
         with _fake_world(a * m):
             prog = cs.tp_program(torch, name, "meta",

@@ -18,16 +18,16 @@ For every combination this script:
 The reference's two first lines (512 XLA host devices) have no
 counterpart: the records name the reference's meshes (16×16, 2×16×16),
 agent counts and partition specs, and trace the program the port runs
-(launch/steps.py): for the tree layout of the decoder-only text models
-(the tiny LM, Qwen1.5-4B, Gemma3-12B, Nemotron-4-15B,
-DeepSeek-V2-Lite-16B, Mamba2-2.7B, RecurrentGemma-9B) rank 0 of the
-partitioned world of data × model ranks (16 × 16: one agent a mesh row,
-each leaf its ``param_pspecs`` block, the model's compute
-tensor-parallel over the 16 model ranks; Mamba2's table and head cut on
-d, since 16 does not divide its vocabulary), and for the other families'
-tree layout (whose tensor-parallel compute is not ported:
-``tensor_parallel`` gives the reason) and the flat layout all agents on
-one card; rank 0 of a fake world for the sharded layout; one serving
+(launch/steps.py): for the tree layout of the ``sharded`` agent layout's
+models (the tiny LM, Qwen1.5-4B, Gemma3-12B, Nemotron-4-15B,
+DeepSeek-V2-Lite-16B, Mamba2-2.7B, RecurrentGemma-9B, Qwen2-VL-2B,
+SeamlessM4T-Large-v2) rank 0 of the partitioned world of data × model
+ranks (16 × 16: one agent a mesh row, each leaf its ``param_pspecs``
+block, the model's compute tensor-parallel over the 16 model ranks;
+Mamba2's and SeamlessM4T's tables and heads cut on d, since 16 does not
+divide their vocabularies), and for the ``replicated`` layout's tree
+(whose tensor-parallel compute is not ported: ``tensor_parallel`` gives
+the reason) and the flat layout all agents on one card; rank 0 of a fake world for the sharded layout; one serving
 replica for prefill and decode.  The reference's record keys map so:
 
   * ``lower_s`` → ``trace_s``; ``compile_s`` and ``cost_analysis_raw``
@@ -401,7 +401,8 @@ def _run_status(args: tuple) -> tuple:
 
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--arch", default="all", help="arch id or 'all'")
+    p.add_argument("--arch", action="append",
+                   help="arch id or 'all' (the default); repeat for several")
     p.add_argument("--shape", default="all",
                    choices=["all"] + list(SHAPES))
     p.add_argument("--mesh", default="single",
@@ -449,7 +450,8 @@ def main(argv=None) -> None:
     p.add_argument("--out", default=RESULTS_DIR)
     args = p.parse_args(argv)
 
-    archs = list(ARCH_NAMES) if args.arch == "all" else [args.arch]
+    archs = list(ARCH_NAMES) if not args.arch or "all" in args.arch \
+        else args.arch
     shapes = list(SHAPES) if args.shape == "all" else [args.shape]
     meshes = {"single": [False], "multi": [True],
               "both": [False, True]}[args.mesh]

@@ -31,8 +31,8 @@ out of place, selected by a tensor comparison: no host read, so the step
 runs under ``torch.func.vmap`` (personalized serving, launch/serve.py).
 
 Tensor-parallel prefill (``tp``, a sharding.tp.ModelGroup of M > 1
-ranks; training and prefill, not decode or cross-attention), in the three
-layouts of the reference's ``_tp_preferences``:
+ranks; training and prefill, not decode), in the three layouts of the
+reference's ``_tp_preferences``:
 
   (a) the KV heads divide M: each rank attends its H/M query heads and
       KV/M key heads (wq, wk, wv and wo's blocks are head blocks); x
@@ -55,6 +55,17 @@ layouts of the reference's ``_tp_preferences``:
 
 The chunked prefill runs on the rank's local heads; in (c) its chunks
 cut the rank's S/M queries at their true offsets in the sequence.
+M-RoPE (Qwen2-VL) rotates the local heads as RoPE does: its sections run
+over the head dim, so a block of heads keeps them; in (c) the rank's
+``mrope_positions`` are its S/M positions.
+
+The cross-attention under a model group takes layout (a) or (b): q from
+the decoder's x and k, v from the encoder memory, each through its own
+``copy_to`` (every rank's heads read the whole memory, and the memory's
+gradient, partial on each rank, is summed over the group), unmasked on
+the plain path, wo row-parallel into ``reduce_from``.  A cross-attention
+whose heads the group does not divide raises NotImplementedError (no
+config has one).
 
 A bias ((heads, hd), which ``param_pspecs`` shards on hd) is gathered on
 use and cut to the rank's heads.
@@ -195,13 +206,30 @@ def _decode(q, k, v, cache: dict, pos_now, scale: float, window: int,
     return _out(probs, vc.to(compute_dtype)), new_cache
 
 
+def _rope(t, positions, mrope_positions, rope_kind: str, theta: float):
+    """RoPE at ``positions`` (B, S), M-RoPE at ``mrope_positions`` (3, B,
+    S), or none, on t (B, S, H, hd)."""
+    if rope_kind == "rope":
+        return layers.apply_rope(t, positions, theta)
+    if rope_kind == "mrope":
+        if mrope_positions is None:
+            raise ValueError("rope_kind='mrope' needs mrope_positions")
+        return layers.apply_mrope(t, mrope_positions, theta)
+    if rope_kind != "none":
+        raise ValueError(f"unknown rope kind {rope_kind!r}")
+    return t
+
+
 def _tp_attention(params: dict, x, positions, tp, *, num_heads: int,
                   num_kv_heads: int, head_dim: int, weight_gather: bool,
-                  window: int, rope_theta: float, causal: bool,
+                  window: int, rope_kind: str, rope_theta: float,
+                  mrope_positions, kv_override, causal: bool,
                   compute_dtype, impl: str, chunked: bool):
-    """Tensor-parallel self-attention with RoPE over the model group
-    ``tp`` (the module docstring's layouts (a)–(c)); x (B, S, d)
-    replicated, the output (B, S, d) replicated."""
+    """Tensor-parallel attention over the model group ``tp`` (the module
+    docstring's layouts (a)–(c)): self-attention with RoPE or M-RoPE, or
+    with ``kv_override`` (B, T, d) the cross-attention to that memory in
+    (a) or (b); x (B, S, d) and the memory replicated, the output (B, S,
+    d) replicated."""
     d = x.shape[-1]
     cdt = compute_dtype
 
@@ -218,7 +246,12 @@ def _tp_attention(params: dict, x, positions, tp, *, num_heads: int,
 
     scale = head_dim ** -0.5
     wo_full = (num_heads, head_dim, d)
-    if weight_gather or num_heads % tp.size:
+    if num_heads % tp.size and kv_override is not None:
+        raise NotImplementedError(
+            f"a tensor-parallel cross-attention whose heads the model "
+            f"group does not divide ({num_heads} over {tp.size}) is not "
+            f"ported: the memory's keys would need the sequence split")
+    if kv_override is None and (weight_gather or num_heads % tp.size):
         # (c): the sequence split over the group, the weights gathered
         s = x.shape[1]
         if s % tp.size:
@@ -230,10 +263,12 @@ def _tp_attention(params: dict, x, positions, tp, *, num_heads: int,
         lo = tp.rank * c
         xs = tp_lib.copy_to(x, tp)[:, lo:lo + c]
         ps = positions[..., lo:lo + c]
-        q = layers.apply_rope(proj("wq", num_heads, xs, False), ps,
-                              rope_theta)
-        k = layers.apply_rope(proj("wk", num_kv_heads, xs, False), ps,
-                              rope_theta)
+        mps = None if mrope_positions is None \
+            else mrope_positions[..., lo:lo + c]
+        q = _rope(proj("wq", num_heads, xs, False), ps, mps, rope_kind,
+                  rope_theta)
+        k = _rope(proj("wk", num_kv_heads, xs, False), ps, mps, rope_kind,
+                  rope_theta)
         v = proj("wv", num_kv_heads, xs, False)
         k, v = tp_lib.gather_from(k, tp, 1), tp_lib.gather_from(v, tp, 1)
         out = _prefill(q, k, v, ps, positions, scale, window, causal,
@@ -241,14 +276,18 @@ def _tp_attention(params: dict, x, positions, tp, *, num_heads: int,
         wo = tp_lib.weight_for(params["wo"]["w"], wo_full, tp)
         y = torch.einsum("bshd,hdo->bso", out.to(cdt), wo.to(cdt))
         return tp_lib.reduce_from(F.pad(y, (0, 0, lo, s - lo - c)), tp)
-    # (a) and (b): the query heads split over the group
+    # (a) and (b): the query heads split over the group; a cross-
+    # attention's memory enters through its own copy_to, so that the
+    # memory's gradient, partial on each rank, is summed
     xc = tp_lib.copy_to(x, tp)
+    src = xc if kv_override is None else tp_lib.copy_to(kv_override, tp)
     kv_part = num_kv_heads % tp.size == 0
-    q = layers.apply_rope(proj("wq", num_heads, xc, True), positions,
-                          rope_theta)
-    k = layers.apply_rope(proj("wk", num_kv_heads, xc, kv_part), positions,
-                          rope_theta)
-    v = proj("wv", num_kv_heads, xc, kv_part)
+    q = proj("wq", num_heads, xc, True)
+    k = proj("wk", num_kv_heads, src, kv_part)
+    v = proj("wv", num_kv_heads, src, kv_part)
+    if kv_override is None:
+        q = _rope(q, positions, mrope_positions, rope_kind, rope_theta)
+        k = _rope(k, positions, mrope_positions, rope_kind, rope_theta)
     if not kv_part:
         # (b): every local query head reads its global KV head
         hl = q.shape[-2]
@@ -256,12 +295,13 @@ def _tp_attention(params: dict, x, positions, tp, *, num_heads: int,
                              device=q.device)
         kv = heads // (num_heads // num_kv_heads)
         k, v = k.index_select(-2, kv), v.index_select(-2, kv)
-    if impl == "pallas" and causal:
+    is_causal = causal and kv_override is None
+    if impl == "pallas" and is_causal:
         from repro_torch.kernels import ops
         out = ops.flash_attention(q, k, v, window=window, scale=scale)
     else:
-        out = _prefill(q, k, v, positions, positions, scale, window, causal,
-                       chunked)
+        out = _prefill(q, k, v, positions, positions, scale, window,
+                       is_causal, chunked)
     wo = tp_lib.weight_for(params["wo"]["w"], wo_full, tp, 0)
     y = torch.einsum("bshd,hdo->bso", out.to(cdt), wo.to(cdt))
     return tp_lib.reduce_from(y, tp)
@@ -281,39 +321,30 @@ def attention(params: dict, x: torch.Tensor, positions: torch.Tensor, *,
     cross-attention to that encoder memory.  A prefill that reaches no
     kernel runs over query chunks with ``chunked_prefill``.  With a model
     group ``tp`` (and the global ``num_heads``/``num_kv_heads``) the
-    tensor-parallel self-attention of the module docstring.
+    tensor-parallel self- or cross-attention of the module docstring.
 
     Returns (out (B, S, d), the updated cache or None)."""
     if tp is not None:
-        if cache is not None or kv_override is not None \
-                or rope_kind != "rope":
+        if cache is not None:
             raise NotImplementedError(
-                "tensor-parallel attention covers the RoPE self-attention "
-                "of training and prefill; decode caches (ROADMAP.md Queue "
-                "A item 6.5), cross-attention and M-RoPE (item 6.3) are "
-                "not ported")
+                "tensor-parallel attention covers training and prefill; "
+                "decode caches (ROADMAP.md Queue A item 6.5) are not "
+                "ported")
         return _tp_attention(
             params, x, positions, tp, num_heads=num_heads,
             num_kv_heads=num_kv_heads, head_dim=head_dim,
             weight_gather=weight_gather, window=window,
-            rope_theta=rope_theta, causal=causal,
-            compute_dtype=compute_dtype, impl=impl,
+            rope_kind=rope_kind, rope_theta=rope_theta,
+            mrope_positions=mrope_positions, kv_override=kv_override,
+            causal=causal, compute_dtype=compute_dtype, impl=impl,
             chunked=chunked_prefill), None
     q = layers.dense(params["wq"], x, compute_dtype=compute_dtype)
     kv_src = x if kv_override is None else kv_override
     k = layers.dense(params["wk"], kv_src, compute_dtype=compute_dtype)
     v = layers.dense(params["wv"], kv_src, compute_dtype=compute_dtype)
     if kv_override is None:
-        if rope_kind == "rope":
-            q = layers.apply_rope(q, positions, rope_theta)
-            k = layers.apply_rope(k, positions, rope_theta)
-        elif rope_kind == "mrope":
-            if mrope_positions is None:
-                raise ValueError("rope_kind='mrope' needs mrope_positions")
-            q = layers.apply_mrope(q, mrope_positions, rope_theta)
-            k = layers.apply_mrope(k, mrope_positions, rope_theta)
-        elif rope_kind != "none":
-            raise ValueError(f"unknown rope kind {rope_kind!r}")
+        q = _rope(q, positions, mrope_positions, rope_kind, rope_theta)
+        k = _rope(k, positions, mrope_positions, rope_kind, rope_theta)
     scale = head_dim ** -0.5
     new_cache = None
     is_causal = causal and kv_override is None

@@ -42,8 +42,13 @@ vocabulary (a tied table's block serves both of its uses, so its
 gradient collects both), or, where M does not divide the vocabulary, a
 table and head cut on d and whole logits (models/layers.py).  Mamba2's
 blocks run on the rank's heads (models/ssm.py) and RG-LRU blocks on its
-block of the width (models/griffin.py).  The decoder-only text models
-are ported (``tp.check_family``), and only without decode caches.
+block of the width (models/griffin.py).  An encoder-decoder's encoder
+stack runs on the rank's blocks too, its memory replicated, and each
+decoder block's cross-attention on the rank's heads reads it whole
+(models/attention.py); a vision config's stub patch embeddings, batch
+data like the M-RoPE ids, take the first positions of the replicated
+embedding.  Every family of the ``sharded`` agent layout is ported
+(``tp.check_family``), and only without decode caches.
 """
 
 from __future__ import annotations
@@ -163,8 +168,8 @@ def apply_block(params: dict, x: torch.Tensor, positions: torch.Tensor,
     ``enc_out`` after its self-attention; ``causal`` False is the
     encoder's unmasked self-attention.  ``tp``: the model group of a
     tensor-parallel forward (a GQA or MLA block with a dense MLP or an
-    MoE, a Mamba2 block on the rank's heads, an RG-LRU block on its
-    width)."""
+    MoE, its cross-attention on the rank's heads, a Mamba2 block on the
+    rank's heads, an RG-LRU block on its width)."""
     kind = cfg.block_kind(layer_idx)
     cdt = cfg.compute_dtype
     h = layers.rms_norm(params["norm1"], x, cfg.norm_eps)
@@ -204,7 +209,9 @@ def apply_block(params: dict, x: torch.Tensor, positions: torch.Tensor,
         y, _ = attn_lib.attention(
             params["cross_attn"], hc, positions, head_dim=cfg.head_dim,
             rope_kind="none", kv_override=enc_out, causal=False,
-            compute_dtype=cdt, chunked_prefill=cfg.attn_chunked_prefill)
+            compute_dtype=cdt, tp=tp, num_heads=cfg.num_heads,
+            num_kv_heads=cfg.num_kv_heads,
+            chunked_prefill=cfg.attn_chunked_prefill)
         x = x + y
     h2 = layers.rms_norm(params["norm2"], x, cfg.norm_eps)
     aux = 0.0
@@ -370,7 +377,10 @@ def init_model(draws, cfg: ArchConfig) -> dict:
 def _embed_inputs(params: dict, cfg: ArchConfig, batch: dict, tp=None):
     """Token embeddings scaled by √d (vocabulary-parallel under a model
     group ``tp``); a vision config's batch ``frontend_embeds`` (B, P, d)
-    then take the first P positions, unscaled (the reference's order)."""
+    then take the first P positions, unscaled (the reference's order).
+    Under ``tp`` the embedding is replicated and the patch embeddings are
+    the same batch data on every rank of the group, so the result is
+    replicated too."""
     x = layers.embed(params["embed"], batch["tokens"],
                      compute_dtype=cfg.compute_dtype, tp=tp,
                      vocab=cfg.vocab_size, d=cfg.d_model)
@@ -384,16 +394,22 @@ def _embed_inputs(params: dict, cfg: ArchConfig, batch: dict, tp=None):
     return x
 
 
-def _encode(params: dict, cfg: ArchConfig, batch: dict, impl: str = "xla"):
+def _encode(params: dict, cfg: ArchConfig, batch: dict, impl: str = "xla",
+            tp=None):
     """The encoder memory (B, T, d): the batch's stub frame embeddings
     ``enc_embeds`` (B, T, d) through the encoder stack, unmasked, at
     positions 0 .. T-1, then ``enc_norm``.  Its self-attention is not
-    causal, so it reaches no kernel under either impl."""
+    causal, so it reaches no kernel under either impl.  Under a model
+    group ``tp`` the stack runs on the rank's blocks and the memory
+    comes out replicated (``enc_norm`` is).  Its groups are always
+    rematerialised, as the reference's ``_encode`` leaves its default
+    on."""
     enc_x = batch["enc_embeds"].to(cfg.compute_dtype)
     pos = torch.arange(enc_x.shape[1], device=enc_x.device).expand(
         enc_x.shape[:2])
     enc_x, _, _ = _apply_stack(params["enc_stack"], enc_x, pos, cfg, impl,
-                               num_layers=cfg.encoder_layers, causal=False)
+                               num_layers=cfg.encoder_layers, causal=False,
+                               tp=tp)
     return layers.rms_norm(params["enc_norm"], enc_x, cfg.norm_eps)
 
 
@@ -415,7 +431,7 @@ def forward(params: dict, batch: dict, cfg: ArchConfig,
     if tp is not None:
         _check_tp(cfg, caches)
     if cfg.is_encoder_decoder and enc_out is None:
-        enc_out = _encode(params, cfg, batch, impl)
+        enc_out = _encode(params, cfg, batch, impl, tp)
     x = _embed_inputs(params, cfg, batch, tp)
     x, new_caches, aux = _apply_stack(
         params["stack"], x, batch["positions"], cfg, impl, caches,

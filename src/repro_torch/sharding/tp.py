@@ -453,18 +453,15 @@ def block_numel(shape: tuple, spec: tuple, sizes: dict) -> int:
 def check_family(cfg) -> None:
     """Raise NotImplementedError for a config whose tensor-parallel
     compute is not ported, naming the ROADMAP item (Queue A item 6) that
-    ports it; the decoder-only text models of the ``sharded`` agent
-    layout pass: GQA or MLA attention with a dense MLP or an MoE, Mamba2's
-    SSD blocks and RecurrentGemma's RG-LRU blocks."""
-    if cfg.fed_agent_layout == "replicated":
-        what, item = ("the 'replicated' agent layout's FSDP over the data "
-                      "axes"), "6.4"
-    elif cfg.is_encoder_decoder or cfg.frontend is not None \
-            or (cfg.rope_kind != "rope" and cfg.attention_kind != "none"):
-        what, item = "Qwen2-VL and SeamlessM4T", "6.3"
-    else:
+    ports it.  Every model of the ``sharded`` agent layout passes: GQA or
+    MLA attention (RoPE or M-RoPE) with a dense MLP or an MoE, Mamba2's
+    SSD blocks, RecurrentGemma's RG-LRU blocks, Qwen2-VL's vision prefix
+    and SeamlessM4T's encoder stack and cross-attention.  The
+    ``replicated`` layout's FSDP over the data axes is item 6.4."""
+    if cfg.fed_agent_layout != "replicated":
         return
     raise NotImplementedError(
         f"{cfg.name}: tensor-parallel compute over a model axis > 1 is not "
-        f"ported for {what} (ROADMAP.md Queue A item {item}); the port "
-        f"does not fall back to running the whole model on each rank")
+        f"ported for the 'replicated' agent layout's FSDP over the data "
+        f"axes (ROADMAP.md Queue A item 6.4); the port does not fall back "
+        f"to running the whole model on each rank")

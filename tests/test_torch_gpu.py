@@ -999,6 +999,30 @@ def test_cuda_flash_attention_at_the_new_models_shapes(cuda, b, s, h, kv,
                    torch.bfloat16)
 
 
+# (B, S, H, KV, hd, window): a model rank's heads in the tensor-parallel
+# forwards at M 2, f32: RecurrentGemma-9B's 8 query heads on its one KV
+# head (window 2,048), Qwen2-VL-2B's 6 on 1, SeamlessM4T-Large-v2's
+# decoder self-attention's 8 on 8
+TP_FLASH = [(1, 1024, 8, 1, 256, 2048), (1, 1024, 6, 1, 128, 0),
+            (1, 1024, 8, 8, 64, 0)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,kv,hd,window", TP_FLASH)
+def test_cuda_flash_attention_at_the_tp_forward_shapes(cuda, b, s, h, kv,
+                                                       hd, window):
+    gen = _gen(cuda, h + hd + window)
+    q = _randn(gen, b, s, h, hd)
+    k, v = (_randn(gen, b, s, kv, hd) for _ in range(2))
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        got = ops.flash_attention(q, k, v, window=window)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["flash_attention"] == 1
+        _zoo_close(got, ref.flash_attention_ref(q, k, v, window=window),
+                   torch.float32)
+
+
 def _distinct_mrope(gen, b, s):
     """(3, B, S) M-RoPE ids on the CPU: the sequence position, then two
     drawn components."""
@@ -1711,6 +1735,21 @@ def _tp_setup(impl: str, arch: str = "qwen1.5-4b"):
                                         generator=gen).cuda(),
                 "positions": torch.arange(16).expand(2, 1, 16).cuda()}
                for _ in range(2)]
+    for batch in batches:
+        # the multimodal inputs: M-RoPE ids whose three components differ,
+        # stub patch embeddings, 8 stub encoder frames
+        if cfg.rope_kind == "mrope":
+            idx = torch.arange(16)
+            batch["mrope_positions"] = torch.stack(
+                [idx, idx // 4, idx % 4])[None, :, None].expand(
+                2, 3, 1, 16).contiguous().cuda()
+        if cfg.frontend == "vision":
+            batch["frontend_embeds"] = 0.02 * torch.randn(
+                (2, 1, cfg.frontend_positions, cfg.d_model),
+                generator=gen).cuda()
+        if cfg.is_encoder_decoder:
+            batch["enc_embeds"] = 0.02 * torch.randn(
+                (2, 1, 8, cfg.d_model), generator=gen).cuda()
     return cfg, fcfg, state, batches
 
 
@@ -1785,6 +1824,41 @@ def test_cuda_tp_moe_mla_tree_step_equals_one_device(cuda, tmp_path):
     from repro_torch.core import feddec
     from repro_torch.tree import leaves
     arch = "deepseek-v2-lite-16b"
+    out_path = tmp_path / "out.pkl"
+    mp.start_processes(_tp_world_rank, args=(2, str(tmp_path / "store"),
+                                             str(out_path), "pallas", arch),
+                       nprocs=2, start_method="spawn", join=True)
+    with open(out_path, "rb") as f:
+        got = pickle.load(f)
+    cfg, fcfg, state, batches = _tp_setup("pallas", arch)
+    step = feddec.make_feddec_step(fcfg, build_model(cfg).grad_fn(),
+                                   lambda t: 1e-2, device="cuda")
+    draws = Draws(4, "cuda")
+    for batch in batches:
+        state, _ = step(state, batch, draws)
+    n_leaves = len(leaves(state.params))
+    assert got["counts"]["gossip_mix"] == 2 * n_leaves
+    assert sum(got["counts"].values()) == 2 * n_leaves
+    err = max((a - b.cpu()).abs().max().item()
+              for a, b in zip(leaves(got["params"]), leaves(state.params)))
+    scale = max(b.abs().max().item() for b in leaves(state.params))
+    assert err <= 1e-5 * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen2-vl-2b", "seamless-m4t-large-v2"])
+def test_cuda_tp_multimodal_tree_step_equals_one_device(cuda, tmp_path,
+                                                        arch):
+    """test_cuda_tp_tree_step_equals_one_device for Qwen2-VL's smoke
+    config (M-RoPE on the rank's heads, the patch prefix) and
+    SeamlessM4T's (the encoder and the cross-attention on the rank's
+    heads) under 'pallas': within 1e-5·max|x|, #1 once per leaf block a
+    step on each rank."""
+    import pickle
+
+    import torch.multiprocessing as mp
+    from repro_torch.core import feddec
+    from repro_torch.tree import leaves
     out_path = tmp_path / "out.pkl"
     mp.start_processes(_tp_world_rank, args=(2, str(tmp_path / "store"),
                                              str(out_path), "pallas", arch),

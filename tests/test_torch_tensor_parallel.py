@@ -115,8 +115,7 @@ ATTN_CASES = {("heads4-kv2", 2): "a", ("heads6-kv3", 2): "b",
               ("tiny", 2): "b", ("tiny", 4): "c"}
 MLP_KINDS = ("swiglu", "geglu", "relu2", "gelu")
 LOW_SHAPE = ("t", 32, 4, "train")     # name, seq, global batch, kind
-OUTSIDE = ("qwen2-vl-2b", "seamless-m4t-large-v2", "mistral-large-123b",
-           "deepseek-v3-671b")
+OUTSIDE = ("mistral-large-123b", "deepseek-v3-671b")
 
 
 def _case_cfg(name: str, side: str = "port"):

@@ -30,7 +30,7 @@ port's one-device twins) builds the meshes (1, 2) (two replicas, each a
   elements.
 
 In this process: ``check_family`` passing DeepSeek-V2-Lite and still
-refusing Queue A items 6.3–6.5, the MoE layer refusing experts that are
+refusing Queue A items 6.4–6.5, the MoE layer refusing experts that are
 not this rank's E/M block, and the dry run's tree train record of
 DeepSeek-V2-Lite on the partitioned world.
 
@@ -55,23 +55,18 @@ from repro_torch import sharding as shd
 from repro_torch.configs import get_config
 from repro_torch.configs.shapes import ShapeConfig
 from repro_torch.core import feddec, sharded
-from repro_torch.core import topology as topo
 from repro_torch.core.draws import Draws
-from repro_torch.core.mixing import MixingDistribution
-from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import steps
 from repro_torch.launch.train import tiny_lm_config
 from repro_torch.models import attention, build_model, mla, moe
 from repro_torch.sharding import tp
 from repro_torch.tree import leaves, tree_map
+import _torch_tp_common as tpc
+from _torch_tp_common import (
+    B, IMPLS, LOGIT_TOL, LR, MESHES, N, S, T, TOL, WORLD, TableDraws)
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
-WORLD = 4
-MESHES = ((1, 2), (2, 2), (1, 4))
-TOL, LOGIT_TOL = 1e-5, 1e-4
-N, H, K, T, B, S, LR, P_FAIL = 4, 2, 2, 2, 1, 16, 0.05, 0.1
 S_LONG = 1024
-IMPLS = ("dense", "pallas", "sparse")
 ARCH = "deepseek-v2-lite-16b"
 # attention layouts at S_LONG: (heads, KV) and the Ms it runs at
 ATTN_CASES = {"heads4-kv2": ((4, 2), (2,)), "heads3-kv3": ((3, 3), (2, 4))}
@@ -98,19 +93,6 @@ def _attn_cfg(name: str, side: str = "port"):
                                head_dim=16)
 
 
-def _axes(a: int, m: int) -> shd.MeshAxes:
-    return shd.MeshAxes(("agents",), "model", {"agents": a, "model": m})
-
-
-def _torch(tree):
-    return tree_map(lambda a: torch.from_numpy(np.ascontiguousarray(a)),
-                    tree)
-
-
-def _numpy(tree):
-    return tree_map(lambda t: t.detach().numpy().copy(), tree)
-
-
 def _pos(b: int, s: int) -> np.ndarray:
     return np.broadcast_to(np.arange(s), (b, s)).copy()
 
@@ -120,66 +102,27 @@ def _pos(b: int, s: int) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
-class TableDraws:
-    """Every rank's draws of W's links and the server's participants,
-    served from tables the parent drew (keyed by the step t)."""
-
-    def __init__(self, tables):
-        self.tables = tables
-
-    def link_uniforms(self, t, n):
-        return torch.from_numpy(self.tables["links"][int(t)])
-
-    def participants(self, t, n, k):
-        return torch.from_numpy(self.tables["parts"][int(t)])
-
-
-def _mesh(a: int, m: int):
-    import torch.distributed as dist
-    if a * m == dist.get_world_size():
-        return mesh_lib.make_fed_mesh(a, m, device="cpu")
-    from torch.distributed.device_mesh import init_device_mesh
-    rep = dist.get_world_size() // (a * m)
-    return init_device_mesh("cpu", (rep, a, m), mesh_dim_names=(
-        "rep", "agents", "model"))["agents", "model"]
-
-
-def _whole(tree, like, cfg, mesh):
-    """An unstacked tree of this rank's blocks put together, placed as
-    the whole tree ``like`` is."""
-    specs = shd.param_pspecs(cfg, tree_map(lambda t: t[None], like),
-                             tp.mesh_axes(mesh))
-    return tree_map(lambda t: t[0], tp.gather_params(
-        tree_map(lambda t: t[None], tree), specs, mesh))
-
-
-def _blocks(tree: dict, cfg, mesh) -> dict:
-    """This rank's blocks of an unstacked tree."""
-    stacked = tree_map(lambda a: a[None], tree)
-    specs = shd.param_pspecs(cfg, stacked, tp.mesh_axes(mesh))
-    return tree_map(lambda a: a[0], tp.shard_params(stacked, specs, mesh))
-
-
 def _run_layers(inp: dict, mesh) -> dict:
     """The layers and the model on this rank's blocks, made whole."""
     g = tp.ModelGroup.of(mesh)
     m = g.size
-    cfg = steps.adapt_for_mesh(_ds_cfg(), _axes(1, m))
+    cfg = steps.adapt_for_mesh(_ds_cfg(), tpc.axes(1, m))
     out = {}
     x = torch.from_numpy(inp["x_long"])
     pos = torch.from_numpy(_pos(*inp["x_long"].shape[:2]))
-    p = _blocks({"attn": _torch(inp["mla"])}, cfg, mesh)["attn"]
+    p = tpc.blocks({"attn": tpc.to_torch(inp["mla"])}, cfg, mesh)["attn"]
     out["mla"], _ = mla.mla_attention(
         p, x, pos, cfg=cfg.mla, compute_dtype=torch.float32, tp=g,
         num_heads=cfg.num_heads)
-    p = _blocks({"moe": _torch(inp["moe"])}, cfg, mesh)["moe"]
+    p = tpc.blocks({"moe": tpc.to_torch(inp["moe"])}, cfg, mesh)["moe"]
     y, aux = moe.moe_layer(p, x, cfg.moe, compute_dtype=torch.float32, tp=g)
     out["moe"], out["moe-aux"] = y, aux
     for name, (_, ms) in ATTN_CASES.items():
         if m not in ms:
             continue
-        acfg = steps.adapt_for_mesh(_attn_cfg(name), _axes(1, m))
-        p = _blocks({"attn": _torch(inp["attn"][name])}, acfg, mesh)["attn"]
+        acfg = steps.adapt_for_mesh(_attn_cfg(name), tpc.axes(1, m))
+        p = tpc.blocks({"attn": tpc.to_torch(inp["attn"][name])}, acfg,
+                       mesh)["attn"]
         out[f"attn-{name}"], _ = attention.attention(
             p, torch.from_numpy(inp["x_attn"]),
             torch.from_numpy(_pos(*inp["x_attn"].shape[:2])),
@@ -187,30 +130,16 @@ def _run_layers(inp: dict, mesh) -> dict:
             num_kv_heads=acfg.num_kv_heads,
             weight_gather=acfg.attn_weight_gather)
     model = build_model(cfg)
-    whole = _torch(inp["params"])
-    params = _blocks(whole, cfg, mesh)
-    batch = _torch(inp["batch"])
+    whole = tpc.to_torch(inp["params"])
+    params = tpc.blocks(whole, cfg, mesh)
+    batch = tpc.to_torch(inp["batch"])
     with tp.model_group(mesh):
         out["logits"] = tp._gather(model.logits(params, batch), g, 2)
         for remat in (True, False):
             loss, grads = model.grad_fn(remat=remat)(params, batch)
             out[f"loss-{remat}"] = loss
-            out[f"grads-{remat}"] = _whole(grads, whole, cfg, mesh)
-    return _numpy(out)
-
-
-def _round_setup(impl: str):
-    return feddec.FedDecConfig(
-        mixing=MixingDistribution(topo.ring_graph(N, k=1), p_fail=P_FAIL,
-                                  scheme="metropolis"), h=H, k=K,
-        gossip_impl=impl)
-
-
-def _start_state(start):
-    params = _torch(start)
-    state = feddec.init_state(tree_map(lambda a: a[0], params), N)
-    state.params = params
-    return state
+            out[f"grads-{remat}"] = tpc.whole(grads, whole, cfg, mesh)
+    return tpc.to_numpy(out)
 
 
 def _run_tp_round(mesh, impl, start, batches, draws):
@@ -219,11 +148,11 @@ def _run_tp_round(mesh, impl, start, batches, draws):
     a = mesh.get_local_rank("agents")
     n_local = N // int(mesh.mesh.shape[0])
     tcfg = steps.adapt_for_mesh(_ds_cfg(), tp.mesh_axes(mesh))
-    state = _start_state(start)
+    state = tpc.start_state(start)
     specs = shd.param_pspecs(tcfg, state.params, tp.mesh_axes(mesh))
     blk = sharded.shard_tree_state(state, specs, mesh)
     rnd = sharded.make_sharded_tree_round(
-        _round_setup(impl), build_model(tcfg).grad_fn(), lambda t: LR, mesh,
+        tpc.round_setup(impl), build_model(tcfg).grad_fn(), lambda t: LR, mesh,
         device="cpu", param_specs=specs)
     rows = slice(a * n_local, (a + 1) * n_local)
     blk, met = rnd(blk, {k: torch.from_numpy(v[:, rows])
@@ -232,28 +161,19 @@ def _run_tp_round(mesh, impl, start, batches, draws):
     nbytes = (sum(t.numel() * t.element_size() for t in ts),
               sum(t.untyped_storage().nbytes() for t in ts))
     whole = sharded.gather_tree_state(blk, specs, mesh)
-    return {"params": _numpy(whole.params), "losses": met["loss"].tolist(),
+    return {"params": tpc.to_numpy(whole.params),
+            "losses": met["loss"].tolist(),
             "bytes": nbytes}
 
 
 def _run_twin(impl, start, batches, draws):
     """The port's one-device tree round."""
-    rnd = feddec.make_feddec_round(_round_setup(impl),
+    rnd = feddec.make_feddec_round(tpc.round_setup(impl),
                                    build_model(_ds_cfg()).grad_fn(),
                                    lambda t: LR, device="cpu")
-    state, met = rnd(_start_state(start), _torch(batches), draws)
-    return {"params": _numpy(state.params), "losses": met["loss"].tolist()}
-
-
-def _wait_for(path: str, timeout: float = 300.0):
-    import time
-    t0 = time.monotonic()
-    while not os.path.exists(path):
-        if time.monotonic() - t0 > timeout:
-            raise TimeoutError(f"no {path} after {timeout} s")
-        time.sleep(0.05)
-    with open(path, "rb") as f:
-        return pickle.load(f)
+    state, met = rnd(tpc.start_state(start), tpc.to_torch(batches), draws)
+    return {"params": tpc.to_numpy(state.params),
+            "losses": met["loss"].tolist()}
 
 
 def _world_main(rank, world, store_path, inputs_path, out_path):
@@ -264,10 +184,10 @@ def _world_main(rank, world, store_path, inputs_path, out_path):
     dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
                             rank=rank, world_size=world)
     try:
-        inp = _wait_for(inputs_path)
+        inp = tpc.wait_for(inputs_path)
         mine = {}
         for i, (a, m) in enumerate(MESHES):
-            mesh = _mesh(a, m)
+            mesh = tpc.fed_mesh(a, m)
             if a == 1 and rank < a * m:
                 mine[("layers", m)] = _run_layers(inp, mesh)
             mine[("round", a, m)] = _run_tp_round(
@@ -287,13 +207,6 @@ def _world_main(rank, world, store_path, inputs_path, out_path):
 # ---------------------------------------------------------------------------
 
 
-def _tables() -> dict:
-    rng = np.random.default_rng(11)
-    return {"parts": {t: rng.integers(0, N, K) for t in range(1, T + 1)},
-            "links": {t: rng.random((N, N)).astype(np.float32)
-                      for t in range(1, T + 1)}}
-
-
 def _inputs() -> dict:
     rng = np.random.default_rng(0)
     cfg = _ds_cfg()
@@ -310,7 +223,7 @@ def _inputs() -> dict:
                np.float32),
            "batch": {"tokens": rng.integers(0, cfg.vocab_size, (2, S)),
                      "positions": _pos(2, S)},
-           "attn": {}, "tables": _tables()}
+           "attn": {}, "tables": tpc.tables()}
     for name, ((h, kv), _) in ATTN_CASES.items():
         inp["attn"][name] = {
             "wq": {"w": (rng.standard_normal((128, h, 16)) / 128 ** 0.5
@@ -400,24 +313,11 @@ def world(tmp_path_factory):
 # ---------------------------------------------------------------------------
 
 
-def _flat(tree) -> np.ndarray:
-    if isinstance(tree, dict):
-        return np.concatenate([_flat(tree[k]) for k in sorted(tree)])
-    return np.asarray(tree, np.float64).ravel()
-
-
-def _assert_close(got, want, tol):
-    got, want = _flat(got), _flat(want)
-    assert got.shape == want.shape
-    err, scale = np.abs(got - want).max(), np.abs(want).max()
-    assert err <= tol * scale, f"{err:.3e} > {tol}·{scale:.3e}"
-
-
 @pytest.mark.parametrize("m", [2, 4])
 @pytest.mark.parametrize("key", ["mla", "moe", "moe-aux"])
 def test_tp_mla_and_moe_layers_match_reference(world, key, m):
     got = world["ranks"][0][("layers", m)][key]
-    _assert_close(got, world["want"][key], TOL)
+    tpc.assert_close(got, world["want"][key], TOL)
 
 
 ATTN_IDS = [(n, m) for n, (_, ms) in ATTN_CASES.items() for m in ms]
@@ -428,10 +328,10 @@ ATTN_IDS = [(n, m) for n, (_, ms) in ATTN_CASES.items() for m in ms]
 def test_tp_attention_chunked_prefill_matches_reference(world, name, m):
     """Layouts (a) and (c) at S = 1,024: the chunks on the local heads,
     and in (c) on the rank's sequence block at its true offsets."""
-    cfg = steps.adapt_for_mesh(_attn_cfg(name), _axes(1, m))
+    cfg = steps.adapt_for_mesh(_attn_cfg(name), tpc.axes(1, m))
     assert cfg.attn_weight_gather == (name == "heads3-kv3")
     got = world["ranks"][0][("layers", m)][f"attn-{name}"]
-    _assert_close(got, world["want"][f"attn-{name}"], TOL)
+    tpc.assert_close(got, world["want"][f"attn-{name}"], TOL)
 
 
 @pytest.mark.parametrize("m", [2, 4])
@@ -441,9 +341,9 @@ def test_tp_deepseek_logits_loss_and_grads_match_reference(world, m):
     gradient 1e-5·max|g|, the same loss on every rank of the group."""
     out = world["ranks"][0][("layers", m)]
     want = world["want"]
-    _assert_close(out["logits"], want["logits"], LOGIT_TOL)
+    tpc.assert_close(out["logits"], want["logits"], LOGIT_TOL)
     np.testing.assert_allclose(out["loss-True"], want["loss"], rtol=TOL)
-    _assert_close(out["grads-True"], want["grads"], TOL)
+    tpc.assert_close(out["grads-True"], want["grads"], TOL)
     for rank in world["ranks"][1:m]:
         assert rank[("layers", m)]["loss-True"] == out["loss-True"]
 
@@ -452,8 +352,8 @@ def test_tp_deepseek_logits_loss_and_grads_match_reference(world, m):
 def test_tp_remat_on_and_off_are_equal_bit_for_bit(world, m):
     out = world["ranks"][0][("layers", m)]
     assert out["loss-True"] == out["loss-False"]
-    np.testing.assert_array_equal(_flat(out["grads-True"]),
-                                  _flat(out["grads-False"]))
+    np.testing.assert_array_equal(tpc.flat(out["grads-True"]),
+                                  tpc.flat(out["grads-False"]))
 
 
 @pytest.mark.parametrize("a,m", MESHES, ids=[f"{a}x{m}" for a, m in MESHES])
@@ -461,7 +361,7 @@ def test_tp_tree_round_matches_one_device_twin(world, a, m):
     impl = IMPLS[MESHES.index((a, m))]
     want = world["twins"][impl]
     got = world["ranks"][0][("round", a, m)]
-    _assert_close(got["params"], want["params"], TOL)
+    tpc.assert_close(got["params"], want["params"], TOL)
     np.testing.assert_allclose(got["losses"], want["losses"], rtol=TOL)
     for rep in world["ranks"][1:]:
         assert rep[("round", a, m)]["losses"] == got["losses"]
@@ -499,7 +399,6 @@ def test_check_family_passes_deepseek_v2_lite():
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("qwen2-vl-2b", "6.3"), ("seamless-m4t-large-v2", "6.3"),
     ("mistral-large-123b", "6.4"), ("deepseek-v3-671b", "6.4")])
 def test_check_family_still_refuses_the_later_slices(arch, item):
     with pytest.raises(NotImplementedError,

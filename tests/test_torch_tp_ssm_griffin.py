@@ -56,23 +56,18 @@ from repro_torch import sharding as shd
 from repro_torch.configs import get_config
 from repro_torch.configs.shapes import ShapeConfig
 from repro_torch.core import feddec, sharded
-from repro_torch.core import topology as topo
 from repro_torch.core.draws import Draws
-from repro_torch.core.mixing import MixingDistribution
-from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import steps
 from repro_torch.models import build_model, griffin, layers, ssm
 from repro_torch.sharding import tp
 from repro_torch.tree import leaves, tree_map
+import _torch_tp_common as tpc
+from _torch_tp_common import (
+    B, IMPLS, LOGIT_TOL, LR, MESHES, N, S, T, TOL, WORLD, TableDraws)
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
-WORLD = 4
-MESHES = ((1, 2), (2, 2), (1, 4))
-TOL, LOGIT_TOL = 1e-5, 1e-4
-N, H, K, T, B, S, LR, P_FAIL = 4, 2, 2, 2, 1, 16, 0.05, 0.1
 X_SHAPE = (2, 32, 256)
 NORM_SHAPE = (2, 8, 64)
-IMPLS = ("dense", "pallas", "sparse")
 MAMBA, RG = "mamba2-2.7b", "recurrentgemma-9b"
 # model case -> (arch, layers or None for the smoke depth, vocabulary or
 # None for the smoke one)
@@ -95,19 +90,6 @@ def _cfg(case: str, side: str = "port"):
     return cfg
 
 
-def _axes(a: int, m: int) -> shd.MeshAxes:
-    return shd.MeshAxes(("agents",), "model", {"agents": a, "model": m})
-
-
-def _torch(tree):
-    return tree_map(lambda a: torch.from_numpy(np.ascontiguousarray(a)),
-                    tree)
-
-
-def _numpy(tree):
-    return tree_map(lambda t: t.detach().numpy().copy(), tree)
-
-
 def _pos(b: int, s: int) -> np.ndarray:
     return np.broadcast_to(np.arange(s), (b, s)).copy()
 
@@ -115,46 +97,6 @@ def _pos(b: int, s: int) -> np.ndarray:
 # ---------------------------------------------------------------------------
 # The port's side: runs in every rank (no jax in what it calls)
 # ---------------------------------------------------------------------------
-
-
-class TableDraws:
-    """Every rank's draws of W's links and the server's participants,
-    served from tables the parent drew (keyed by the step t)."""
-
-    def __init__(self, tables):
-        self.tables = tables
-
-    def link_uniforms(self, t, n):
-        return torch.from_numpy(self.tables["links"][int(t)])
-
-    def participants(self, t, n, k):
-        return torch.from_numpy(self.tables["parts"][int(t)])
-
-
-def _mesh(a: int, m: int):
-    import torch.distributed as dist
-    if a * m == dist.get_world_size():
-        return mesh_lib.make_fed_mesh(a, m, device="cpu")
-    from torch.distributed.device_mesh import init_device_mesh
-    rep = dist.get_world_size() // (a * m)
-    return init_device_mesh("cpu", (rep, a, m), mesh_dim_names=(
-        "rep", "agents", "model"))["agents", "model"]
-
-
-def _whole(tree, like, cfg, mesh):
-    """An unstacked tree of this rank's blocks put together, placed as
-    the whole tree ``like`` is."""
-    specs = shd.param_pspecs(cfg, tree_map(lambda t: t[None], like),
-                             tp.mesh_axes(mesh))
-    return tree_map(lambda t: t[0], tp.gather_params(
-        tree_map(lambda t: t[None], tree), specs, mesh))
-
-
-def _blocks(tree: dict, cfg, mesh) -> dict:
-    """This rank's blocks of an unstacked tree."""
-    stacked = tree_map(lambda a: a[None], tree)
-    specs = shd.param_pspecs(cfg, stacked, tp.mesh_axes(mesh))
-    return tree_map(lambda a: a[0], tp.shard_params(stacked, specs, mesh))
 
 
 def _run_norm(inp: dict, g) -> dict:
@@ -208,10 +150,10 @@ def _run_layers(inp: dict, mesh) -> dict:
     m = g.size
     out = {"norm": _run_norm(inp, g)}
     x = torch.from_numpy(inp["x"])
-    mcfg = steps.adapt_for_mesh(_cfg("mamba2"), _axes(1, m))
-    rcfg = steps.adapt_for_mesh(_cfg("rg"), _axes(1, m))
-    pm = _blocks({"mixer": _torch(inp["mamba"])}, mcfg, mesh)["mixer"]
-    pr = _blocks({"mixer": _torch(inp["rglru"])}, rcfg, mesh)["mixer"]
+    mcfg = steps.adapt_for_mesh(_cfg("mamba2"), tpc.axes(1, m))
+    rcfg = steps.adapt_for_mesh(_cfg("rg"), tpc.axes(1, m))
+    pm = tpc.blocks({"mixer": tpc.to_torch(inp["mamba"])}, mcfg, mesh)["mixer"]
+    pr = tpc.blocks({"mixer": tpc.to_torch(inp["rglru"])}, rcfg, mesh)["mixer"]
     for pallas in (False, True):
         with _DenseKernelInputs():
             out[f"mamba-{pallas}"], _ = ssm.mamba2_block(
@@ -221,11 +163,11 @@ def _run_layers(inp: dict, mesh) -> dict:
                 pr, x, compute_dtype=torch.float32, use_pallas=pallas,
                 tp=g, width=rcfg.d_ff_rglru)
     for case in MODELS:
-        cfg = steps.adapt_for_mesh(_cfg(case), _axes(1, m))
+        cfg = steps.adapt_for_mesh(_cfg(case), tpc.axes(1, m))
         model = build_model(cfg)
-        whole = _torch(inp["params"][case])
-        params = _blocks(whole, cfg, mesh)
-        batch = _torch(inp["batch"][case])
+        whole = tpc.to_torch(inp["params"][case])
+        params = tpc.blocks(whole, cfg, mesh)
+        batch = tpc.to_torch(inp["batch"][case])
         with tp.model_group(mesh):
             for impl in ("xla", "pallas"):
                 with _DenseKernelInputs():
@@ -236,23 +178,9 @@ def _run_layers(inp: dict, mesh) -> dict:
             for remat in (True, False):
                 loss, grads = model.grad_fn(remat=remat)(params, batch)
                 out[f"{case}-loss-{remat}"] = loss
-                out[f"{case}-grads-{remat}"] = _whole(grads, whole, cfg,
+                out[f"{case}-grads-{remat}"] = tpc.whole(grads, whole, cfg,
                                                       mesh)
-    return _numpy(out)
-
-
-def _round_setup(impl: str):
-    return feddec.FedDecConfig(
-        mixing=MixingDistribution(topo.ring_graph(N, k=1), p_fail=P_FAIL,
-                                  scheme="metropolis"), h=H, k=K,
-        gossip_impl=impl)
-
-
-def _start_state(start):
-    params = _torch(start)
-    state = feddec.init_state(tree_map(lambda a: a[0], params), N)
-    state.params = params
-    return state
+    return tpc.to_numpy(out)
 
 
 def _run_tp_round(mesh, case, impl, start, batches, draws):
@@ -261,11 +189,11 @@ def _run_tp_round(mesh, case, impl, start, batches, draws):
     a = mesh.get_local_rank("agents")
     n_local = N // int(mesh.mesh.shape[0])
     tcfg = steps.adapt_for_mesh(_cfg(case), tp.mesh_axes(mesh))
-    state = _start_state(start)
+    state = tpc.start_state(start)
     specs = shd.param_pspecs(tcfg, state.params, tp.mesh_axes(mesh))
     blk = sharded.shard_tree_state(state, specs, mesh)
     rnd = sharded.make_sharded_tree_round(
-        _round_setup(impl), build_model(tcfg).grad_fn(), lambda t: LR, mesh,
+        tpc.round_setup(impl), build_model(tcfg).grad_fn(), lambda t: LR, mesh,
         device="cpu", param_specs=specs)
     rows = slice(a * n_local, (a + 1) * n_local)
     blk, met = rnd(blk, {k: torch.from_numpy(v[:, rows])
@@ -274,28 +202,19 @@ def _run_tp_round(mesh, case, impl, start, batches, draws):
     nbytes = (sum(t.numel() * t.element_size() for t in ts),
               sum(t.untyped_storage().nbytes() for t in ts))
     whole = sharded.gather_tree_state(blk, specs, mesh)
-    return {"params": _numpy(whole.params), "losses": met["loss"].tolist(),
+    return {"params": tpc.to_numpy(whole.params),
+            "losses": met["loss"].tolist(),
             "bytes": nbytes}
 
 
 def _run_twin(case, impl, start, batches, draws):
     """The port's one-device tree round."""
-    rnd = feddec.make_feddec_round(_round_setup(impl),
+    rnd = feddec.make_feddec_round(tpc.round_setup(impl),
                                    build_model(_cfg(case)).grad_fn(),
                                    lambda t: LR, device="cpu")
-    state, met = rnd(_start_state(start), _torch(batches), draws)
-    return {"params": _numpy(state.params), "losses": met["loss"].tolist()}
-
-
-def _wait_for(path: str, timeout: float = 300.0):
-    import time
-    t0 = time.monotonic()
-    while not os.path.exists(path):
-        if time.monotonic() - t0 > timeout:
-            raise TimeoutError(f"no {path} after {timeout} s")
-        time.sleep(0.05)
-    with open(path, "rb") as f:
-        return pickle.load(f)
+    state, met = rnd(tpc.start_state(start), tpc.to_torch(batches), draws)
+    return {"params": tpc.to_numpy(state.params),
+            "losses": met["loss"].tolist()}
 
 
 def _world_main(rank, world, store_path, inputs_path, out_path):
@@ -306,10 +225,10 @@ def _world_main(rank, world, store_path, inputs_path, out_path):
     dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
                             rank=rank, world_size=world)
     try:
-        inp = _wait_for(inputs_path)
+        inp = tpc.wait_for(inputs_path)
         mine = {}
         for i, (a, m) in enumerate(MESHES):
-            mesh = _mesh(a, m)
+            mesh = tpc.fed_mesh(a, m)
             if a == 1 and rank < a * m:
                 mine[("layers", m)] = _run_layers(inp, mesh)
             for case in ROUND_MODELS:
@@ -330,13 +249,6 @@ def _world_main(rank, world, store_path, inputs_path, out_path):
 # ---------------------------------------------------------------------------
 
 
-def _tables() -> dict:
-    rng = np.random.default_rng(11)
-    return {"parts": {t: rng.integers(0, N, K) for t in range(1, T + 1)},
-            "links": {t: rng.random((N, N)).astype(np.float32)
-                      for t in range(1, T + 1)}}
-
-
 def _inputs() -> dict:
     rng = np.random.default_rng(0)
 
@@ -345,7 +257,7 @@ def _inputs() -> dict:
             np.float32)
 
     inp = {"params": {}, "batch": {}, "start": {}, "batches": {},
-           "tables": _tables(),
+           "tables": tpc.tables(),
            "x": rng.standard_normal(X_SHAPE).astype(np.float32),
            "norm_x": rng.standard_normal(NORM_SHAPE).astype(np.float32),
            "norm_r": rng.standard_normal(NORM_SHAPE).astype(np.float32),
@@ -447,19 +359,6 @@ def world(tmp_path_factory):
 # ---------------------------------------------------------------------------
 
 
-def _flat(tree) -> np.ndarray:
-    if isinstance(tree, dict):
-        return np.concatenate([_flat(tree[k]) for k in sorted(tree)])
-    return np.asarray(tree, np.float64).ravel()
-
-
-def _assert_close(got, want, tol):
-    got, want = _flat(got), _flat(want)
-    assert got.shape == want.shape
-    err, scale = np.abs(got - want).max(), np.abs(want).max()
-    assert err <= tol * scale, f"{err:.3e} > {tol}·{scale:.3e}"
-
-
 @pytest.mark.parametrize("m", [2, 4])
 @pytest.mark.parametrize("pallas", [False, True], ids=["xla", "pallas"])
 @pytest.mark.parametrize("block", ["mamba", "rglru"])
@@ -468,7 +367,7 @@ def test_tp_mamba2_and_rglru_blocks_match_reference(world, block, pallas,
     """The Mamba2 mixer on the rank's heads and the RG-LRU block on its
     width, 1e-5·max|y| of the reference's whole block."""
     got = world["ranks"][0][("layers", m)][f"{block}-{pallas}"]
-    _assert_close(got, world["want"][block], TOL)
+    tpc.assert_close(got, world["want"][block], TOL)
     for rank in world["ranks"][1:m]:
         np.testing.assert_array_equal(
             rank[("layers", m)][f"{block}-{pallas}"], got)
@@ -481,7 +380,7 @@ def test_tp_norm_over_a_cut_width_matches_a_whole_width_norm(world, key, m):
     block put together) and the scale's (whole on every rank) within
     1e-5·max of the reference's norm over the whole width."""
     got = world["ranks"][0][("layers", m)]["norm"][key]
-    _assert_close(got, world["want"]["norm"][key], TOL)
+    tpc.assert_close(got, world["want"]["norm"][key], TOL)
     if key == "gs":
         for rank in world["ranks"][1:m]:
             np.testing.assert_array_equal(rank[("layers", m)]["norm"][key],
@@ -497,11 +396,11 @@ def test_tp_models_logits_loss_and_grads_match_reference(world, case, m):
     out = world["ranks"][0][("layers", m)]
     want = world["want"]
     for impl in ("xla", "pallas"):
-        _assert_close(out[f"{case}-logits-{impl}"], want[f"{case}-logits"],
+        tpc.assert_close(out[f"{case}-logits-{impl}"], want[f"{case}-logits"],
                       LOGIT_TOL)
     np.testing.assert_allclose(out[f"{case}-loss-True"], want[f"{case}-loss"],
                                rtol=TOL)
-    _assert_close(out[f"{case}-grads-True"], want[f"{case}-grads"], TOL)
+    tpc.assert_close(out[f"{case}-grads-True"], want[f"{case}-grads"], TOL)
     for rank in world["ranks"][1:m]:
         assert rank[("layers", m)][f"{case}-loss-True"] == \
             out[f"{case}-loss-True"]
@@ -512,8 +411,8 @@ def test_tp_models_logits_loss_and_grads_match_reference(world, case, m):
 def test_tp_remat_on_and_off_are_equal_bit_for_bit(world, case, m):
     out = world["ranks"][0][("layers", m)]
     assert out[f"{case}-loss-True"] == out[f"{case}-loss-False"]
-    np.testing.assert_array_equal(_flat(out[f"{case}-grads-True"]),
-                                  _flat(out[f"{case}-grads-False"]))
+    np.testing.assert_array_equal(tpc.flat(out[f"{case}-grads-True"]),
+                                  tpc.flat(out[f"{case}-grads-False"]))
 
 
 @pytest.mark.parametrize("m", [2, 4])
@@ -526,15 +425,15 @@ def test_d_sharded_table_and_head_match_reference(world, part, m):
     cfg = _cfg("mamba2-v511")
     shapes = build_model(cfg).init_shapes()
     specs = shd.param_pspecs(cfg, tree_map(lambda t: t[None], shapes),
-                             _axes(1, m))
+                             tpc.axes(1, m))
     if part == "embed":
         assert specs["embed"]["table"] == ("agents", None, "model")
     else:
         assert specs["head"]["w"] == ("agents", "model", None)
     out = world["ranks"][0][("layers", m)]
     want = world["want"]["mamba2-v511-grads"][part]
-    _assert_close(out["mamba2-v511-grads-True"][part], want, TOL)
-    _assert_close(out["mamba2-v511-logits-xla"],
+    tpc.assert_close(out["mamba2-v511-grads-True"][part], want, TOL)
+    tpc.assert_close(out["mamba2-v511-logits-xla"],
                   world["want"]["mamba2-v511-logits"], LOGIT_TOL)
 
 
@@ -547,7 +446,7 @@ def test_tp_tree_round_matches_one_device_twin(world, case, a, m):
     impl = IMPLS[MESHES.index((a, m))]
     want = world["twins"][(case, impl)]
     got = world["ranks"][0][("round", case, a, m)]
-    _assert_close(got["params"], want["params"], TOL)
+    tpc.assert_close(got["params"], want["params"], TOL)
     np.testing.assert_allclose(got["losses"], want["losses"], rtol=TOL)
     for rep in world["ranks"][1:]:
         assert rep[("round", case, a, m)]["losses"] == got["losses"]
@@ -595,11 +494,11 @@ def test_tp_logits_and_train_step_trace_on_a_2x2_world(arch):
     """Each model's logits on rank 0's blocks of a model group of 2 (a
     fake world: shapes only) are its block of the vocabulary, and
     ``build_train_lowerable`` traces its tree step on the 2 × 2 axes."""
-    cfg = steps.adapt_for_mesh(get_config(arch).smoke(), _axes(2, 2))
+    cfg = steps.adapt_for_mesh(get_config(arch).smoke(), tpc.axes(2, 2))
     model = build_model(cfg)
     shapes = model.init_shapes()
     specs = shd.param_pspecs(cfg, tree_map(lambda t: t[None], shapes),
-                             _axes(2, 2))
+                             tpc.axes(2, 2))
     coords = {"agents": (0, 2), "model": (0, 2)}
     params = tree_map(lambda t: t[0], tp.shard_params(
         tree_map(lambda t: t[None], shapes), specs, None, coords=coords))
@@ -653,12 +552,12 @@ def test_tied_table_cut_on_d_is_refused():
     model group of 2 does not divide, is cut on d: its lookup runs, and
     the tied head, not ported for such a table, raises."""
     cfg = dataclasses.replace(
-        steps.adapt_for_mesh(get_config(RG).smoke(), _axes(1, 2)),
+        steps.adapt_for_mesh(get_config(RG).smoke(), tpc.axes(1, 2)),
         vocab_size=511)
     model = build_model(cfg)
     shapes = model.init_shapes()
     specs = shd.param_pspecs(cfg, tree_map(lambda t: t[None], shapes),
-                             _axes(1, 2))
+                             tpc.axes(1, 2))
     assert specs["embed"]["table"] == ("agents", None, "model")
     params = tree_map(lambda t: t[0], tp.shard_params(
         tree_map(lambda t: t[None], shapes), specs, None,
